@@ -8,10 +8,14 @@ Phases (any failure exits non-zero; nothing is caught):
   1. environment: the card's name and power limit;
   2. build: every CUDA kernel of the port, from the sources in the
      checkout (nvcc, sm_90a, one process per source, in parallel);
-  3. kernels: each kernel at the main path's shapes in bf16, held against
-     its plain PyTorch version on the same inputs, and timed (CUDA events,
-     median of 30 after warm-up) beside the plain version, one PyTorch
-     library call as a yardstick, and the card's bound for the work;
+  3. kernels: each kernel at the main path's shapes (bf16; the int4
+     dequant-matmul also at the f32 lm_head shape), held against its plain
+     PyTorch version on the same inputs, and timed (CUDA events, median of
+     30 after warm-up, device time only) beside the plain version, one
+     PyTorch library call as a yardstick, and the card's bound for the
+     work. The quantized
+     paged-decode kernels read caches written by the port's own
+     int8/int4 prefill scatters;
   4. serve: LLaMA at the 1B geometry (hidden 2048, 20 layers, 16 heads,
      vocab 32000, bf16, random weights from seed 0) behind the paged
      ServingEngine (8 slots, 16-token blocks) answers 16 greedy requests;
@@ -19,7 +23,17 @@ Phases (any failure exits non-zero; nothing is caught):
      x 20, and two requests' tokens are checked against a teacher-forced
      recompute through the plain attention functions;
   5. profile: device time of steady decode ticks by kernel kind, beside
-     the host wall (torch.profiler).
+     the host wall (torch.profiler);
+  6. serve_q4: the same 16 requests with int4 weights and an int4 KV
+     cache: every layer matmul and the lm_head through the dequant-matmul
+     kernel ((prefills + ticks) x 141 launches), decode through the int4
+     paged-decode kernel (ticks x 20), none through the model-dtype one;
+     then serve_q8: 8 of them with int8 weights (plain torch: no
+     dequant-matmul launch) and an int8 KV cache (ticks x 20 int8
+     paged-decode launches). Two requests of each are replayed teacher-
+     forced through the same step functions, one slot, with the plain
+     versions of every kernel passed explicitly;
+  7. profile_q4: phase 5 for the int4 engine.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Without a CUDA card it exits 1 and prints
@@ -34,9 +48,13 @@ import time
 import numpy as np
 
 #: published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core
-#: rate and HBM3 bandwidth
+#: rate, f32 rate outside the tensor cores, and HBM3 bandwidth
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+#: the spin before each timed window: ~2 ms at the H100's ~2 GHz clock,
+#: longer than any timed function takes to enqueue its kernels
+SPIN_CYCLES = 4_000_000
 #: kernel vs plain, both from the same bf16 inputs, compared in f32: the
 #: kernel rounds its output to bf16 (2^-8 relative) where the plain
 #: version rounds after an f32 softmax in another summation order
@@ -48,6 +66,33 @@ KERNEL_TOL = 2e-2
 #: their logits differ by a few bf16 ulps of the ~1-magnitude hidden
 #: state times ~0.6 logit scale over 20 layers — 0.1 bounds that with room
 TIE_BOUND = 0.1
+#: the quantized serves' teacher-forced replays. Both sides use the same
+#: quantized weights (identical packed bytes); they differ, as above, by
+#: f32 summation order inside the kernels, rounded to bf16 (one ulp,
+#: 2^-7 of a value's binade), and by what the quantized KV cache does
+#: with such a difference: every append re-rounds its whole block, so an
+#: element one bf16 ulp away can land on the other side of a rounding
+#: boundary and store the neighbouring code. A code step is 1/127 of the
+#: block's largest |value| for int8 — about one bf16 ulp of that value,
+#: so int8 stays within SERVE's 0.1 — and 1/7 for int4, about 18 ulps.
+#: A flip is then ~18x rarer (the ulp must straddle a boundary 18x
+#: further apart) and 18x larger, so the summed square of the cache
+#: perturbation grows ~18x and its rms ~sqrt(18) = 4.2x: 0.1 x 4.2 = 0.42,
+#: rounded up to 0.5 for int4. The agreement floor drops with it: in the
+#: bf16 SERVE check 2.8% of the tokens sat within 0.0117 of a tie (H100);
+#: a ~4x wider tie band can cover ~11%, so at least 80% must be the
+#: replay's argmax (a wrong kernel agrees on almost none).
+TIE_BOUND_Q = {"int8": 0.1, "int4": 0.5}
+AGREE_MIN_Q = {"int8": 0.9, "int4": 0.8}
+#: kernel vs plain for the int4 dequant-matmul, relative to the largest
+#: output (outputs grow with sqrt(K)): both sides accumulate in f32 and
+#: round once, so bf16 outputs differ by at most one rounding each
+#: (2^-8), f32 ones by the summation order
+QMM_TOL = {"bfloat16": 2 ** -7, "float32": 1e-5}
+#: K7q vs its plain version: as KERNEL_TOL, plus the plain version rounds
+#: the dequantized cache to bf16 before the softmax (the reference's XLA
+#: composition does), the kernel keeps it in f32
+KERNEL_TOL_Q = 3e-2
 
 CFG_1B = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5504,
               num_hidden_layers=20, num_attention_heads=16,
@@ -60,7 +105,10 @@ def _say(tag, obj):
 
 def _time_ms(fn, flush=None, reps=30, warmup=5):
     """Median device time of fn() over `reps` launches (CUDA events).
-    `flush` runs before each timed launch, outside the timed window."""
+    `flush` runs before each timed launch, outside the timed window. A
+    spin kernel queued just before the window keeps the card busy while
+    the host enqueues fn's kernels, so the host time of a wrapper (checks,
+    allocation, the ctypes call) never shows up as device time."""
     import torch
 
     for _ in range(warmup):
@@ -70,6 +118,7 @@ def _time_ms(fn, flush=None, reps=30, warmup=5):
     for _ in range(reps):
         if flush is not None:
             flush()
+        torch.cuda._sleep(SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -80,8 +129,8 @@ def _time_ms(fn, flush=None, reps=30, warmup=5):
     return statistics.median(times)
 
 
-def _bound_ms(flops, nbytes):
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def _bound_ms(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
                                  else "bytes")
@@ -191,12 +240,191 @@ def decode_case(seqs=8, heads=16, d=128, bs=16, max_len=1024):
     return rec
 
 
-def serve():
-    """The main path: 16 greedy requests through the paged engine at the
-    1B geometry. Returns the launch counts of the counted run."""
+def qmm_case(m, k, n, dtype="bfloat16"):
+    """The int4 dequant-matmul at one [m, k] @ [k, n] shape of the serve:
+    parity, times, bound. The L2 cache is flushed before each timed launch:
+    in serving a layer's weight is evicted by the other layers' weights
+    between two of its calls."""
+    import torch
+    from paddle_tpu_torch.ops.quantized import (
+        dequant_int4, quant_matmul_raw, quant_matmul_reference, quantize_int4)
+
+    tdt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(m * 7 + k + n)
+    x = torch.randn(m, k, device="cuda", generator=g, dtype=tdt)
+    w = torch.randn(k, n, device="cuda", generator=g,
+                    dtype=torch.bfloat16) * 0.02
+    packed, scale = quantize_int4(w)
+    out = quant_matmul_raw(x, packed, scale, k)
+    ref = quant_matmul_reference(x, packed, scale, k)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    rel = err / ref.float().abs().max().item()
+    assert torch.isfinite(out.float()).all()
+    assert rel <= QMM_TOL[dtype], (m, k, n, dtype, rel)
+    w_deq = dequant_int4(packed, scale, k, tdt)       # yardstick's weight
+    scratch = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    flush = scratch.zero_
+    size = 2 if dtype == "bfloat16" else 4
+    nbytes = k // 2 * n + 4 * n + m * k * size + m * n * size
+    bound, by = _bound_ms(2 * m * k * n, nbytes,
+                          PEAK_BF16_FLOPS if dtype == "bfloat16"
+                          else PEAK_F32_FLOPS)
+    rec = {"name": "quant_matmul", "shape": [m, k, n], "dtype": dtype,
+           "max_abs_err": err, "rel_err": rel, "tol": QMM_TOL[dtype],
+           "ms": _time_ms(lambda: quant_matmul_raw(x, packed, scale, k),
+                          flush),
+           "plain_ms": _time_ms(
+               lambda: quant_matmul_reference(x, packed, scale, k), flush),
+           "library_ms": _time_ms(lambda: torch.matmul(x, w_deq), flush),
+           "bound_ms": bound, "bound_by": by}
+    _say("KERNEL", rec)
+    return rec
+
+
+def quant_decode_case(fmt, seqs=8, heads=16, d=128, bs=16, max_len=1024):
+    """The int8 or int4 paged decode at decode_case's shapes (same lengths
+    and tables), over caches written by the port's own prefill scatter —
+    so the per-block scales are the ones serving makes."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.paged_decode import (
+        KERNEL_NAMES, paged_decode_attention,
+        paged_decode_attention_reference)
+    from paddle_tpu_torch.ops.quantized import int4_unpack
+    from paddle_tpu_torch.text import paged_cache
+
+    rs = np.random.RandomState(0)
+    pages = max_len // bs
+    blocks = 1 + seqs * pages
+    lens_np = rs.randint(1, max_len + 1, (seqs,)).astype("int32")
+    tables_np = (1 + rs.permutation(seqs * pages)).reshape(
+        seqs, pages).astype("int32")
+    tables = torch.from_numpy(tables_np).cuda()
+    lens = torch.from_numpy(lens_np).cuda()
+    cache = paged_cache.PagedKVCache(1, blocks, heads, bs, d, fmt, "cuda")
+    scatter = getattr(paged_cache, f"scatter_prefill_{fmt}")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for i in range(seqs):
+        for c, sc in ((cache.k, cache.k_scale), (cache.v, cache.v_scale)):
+            kv = torch.randn(1, max_len, heads, d, device="cuda",
+                             generator=g, dtype=torch.bfloat16)
+            scatter(c, sc, kv, int(lens_np[i]), tables[i], bs)
+    q = torch.randn(seqs, heads, d, device="cuda", generator=g,
+                    dtype=torch.bfloat16)
+    int4 = fmt == "int4"
+    args = (q, cache.k[0], cache.v[0], tables, lens, cache.k_scale[0],
+            cache.v_scale[0])
+    out = paged_decode_attention(*args, kv_int4=int4)
+    ref = paged_decode_attention_reference(*args, kv_int4=int4)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert torch.isfinite(out.float()).all()
+    assert err < KERNEL_TOL_Q, (fmt, err)
+    # SDPA yardstick over pages gathered and dequantized beforehand (not
+    # timed): dense bf16 [S, H, T, D] K/V plus a length mask
+    t = pages * bs
+
+    def dense(c, sc):
+        x = c[0][tables.long()]                  # [S, P, H, rows, D]
+        if int4:
+            x = int4_unpack(x, bs, axis=-2)
+        x = (x.float() * sc[0][tables.long()][:, :, None, None, None])
+        return x.to(torch.bfloat16).permute(0, 2, 1, 3, 4).reshape(
+            seqs, heads, t, d)
+
+    kd, vd = dense(cache.k, cache.k_scale), dense(cache.v, cache.v_scale)
+    mask = (torch.arange(t, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    scratch = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    flush = scratch.zero_
+    tokens = int(lens_np.sum())
+    pages_read = int(np.ceil(lens_np / bs).sum())   # table entries used
+    elem = 0.5 if int4 else 1.0
+    nbytes = 2 * tokens * heads * d * elem + 2 * (2 * seqs * heads * d) \
+        + 4 * (pages_read + seqs) + 2 * 4 * pages_read       # + scales
+    bound, by = _bound_ms(4 * tokens * heads * d, nbytes)
+    rec = {"name": KERNEL_NAMES[fmt],
+           "shape": [seqs, heads, heads, d, bs, pages],
+           "lens": lens_np.tolist(), "max_abs_err": err,
+           "tol": KERNEL_TOL_Q,
+           "ms": _time_ms(lambda: paged_decode_attention(
+               *args, kv_int4=int4), flush),
+           "plain_ms": _time_ms(lambda: paged_decode_attention_reference(
+               *args, kv_int4=int4), flush),
+           "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
+               q[:, :, None], kd, vd, attn_mask=mask), flush),
+           "bound_ms": bound, "bound_by": by}
+    _say("KERNEL", rec)
+    return rec
+
+
+def _requests(vocab):
+    """The serve's 16 requests: prompts of 64-512 tokens, 32-128 new
+    tokens each (seeded)."""
+    rs = np.random.RandomState(0)
+    return [(rs.randint(0, vocab, (int(rs.randint(64, 513)),)),
+             int(rs.randint(32, 129))) for _ in range(16)]
+
+
+def _serve_run(model, reqs, tag, **engine_kw):
+    """Warm an engine up, then drive `reqs` through a fresh one with every
+    launch count set to 0 just before and read just after. Prints the
+    `tag` line; returns (engine, request ids, results, counts)."""
     import torch
     from paddle_tpu_torch.inference import ServingEngine
     from paddle_tpu_torch.ops import _cuda_common
+
+    # warm-up engine (cuBLAS handles, allocator pools); not counted
+    warm = ServingEngine(model, max_slots=8, kv_block_size=16, **engine_kw)
+    warm.add_request(reqs[0][0][:64], max_new_tokens=4)
+    warm.run()
+    del warm
+
+    eng = ServingEngine(model, max_slots=8, kv_block_size=16, **engine_kw)
+    rids = [eng.add_request(p, max_new_tokens=n) for p, n in reqs]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda_common.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _cuda_common.launch_counts()
+
+    st = eng.stats()
+    vocab = model.config.vocab_size
+    for rid, (p, n) in zip(rids, reqs):
+        toks = done[rid]
+        assert len(toks) == n and eng.finish_reasons[rid] == "length", rid
+        assert ((toks >= 0) & (toks < vocab)).all(), rid
+    assert st["requests_completed"] == len(reqs)
+    assert st["kv_pool_free"] == st["kv_pool_blocks"] - 1
+    ttft = sorted(st["ttft_s"])
+    _say(tag, {
+        "requests": len(reqs), "prompt_tokens": st["prefill_tokens"],
+        "decode_tokens": st["decode_tokens"], "decode_ticks": st["steps"],
+        "wall_s": wall,
+        "decode_tok_per_s": st["decode_tokens"] / st["decode_time_s"],
+        "decode_ms_per_tick": 1e3 * st["decode_time_s"] / st["steps"],
+        "ttft_p50_s": float(np.percentile(ttft, 50)),
+        "ttft_p95_s": float(np.percentile(ttft, 95)),
+        "prefill_time_s": st["prefill_time_s"],
+        "slot_utilization": st["slot_utilization"],
+        "kv_pool_blocks": st["kv_pool_blocks"],
+        "weight_quant": st["weight_quant"],
+        "kv_cache_mode": st["kv_cache_mode"],
+        "param_bytes": st["param_bytes"], "kv_hbm_bytes": st["kv_hbm_bytes"],
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": counts})
+    return eng, rids, done, counts
+
+
+def serve():
+    """The main path: 16 greedy requests through the paged engine at the
+    1B geometry. Returns the model and the launch counts of the counted
+    run."""
+    import torch
     from paddle_tpu_torch.ops.flash_attention import \
         flash_attention_reference
     from paddle_tpu_torch.text.generation import (_layer_forward_prefill,
@@ -212,49 +440,12 @@ def serve():
     n_params = sum(p.numel() for p in model.parameters())
     _say("MODEL", {"params": n_params, "init_s": time.perf_counter() - t0})
 
-    rs = np.random.RandomState(0)
-    reqs = [(rs.randint(0, cfg.vocab_size, (int(rs.randint(64, 513)),)),
-             int(rs.randint(32, 129))) for _ in range(16)]
-    # warm-up engine (cuBLAS handles, allocator pools); not counted
-    warm = ServingEngine(model, max_slots=8, kv_block_size=16)
-    warm.add_request(reqs[0][0][:64], max_new_tokens=4)
-    warm.run()
-    del warm
-
-    eng = ServingEngine(model, max_slots=8, kv_block_size=16)
-    rids = [eng.add_request(p, max_new_tokens=n) for p, n in reqs]
-    torch.cuda.synchronize()
-    _cuda_common.reset_launch_counts()
-    t0 = time.perf_counter()
-    done = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = _cuda_common.launch_counts()
-
+    reqs = _requests(cfg.vocab_size)
+    eng, rids, done, counts = _serve_run(model, reqs, "SERVE")
     st = eng.stats()
     layers = cfg.num_hidden_layers
-    for rid, (p, n) in zip(rids, reqs):
-        toks = done[rid]
-        assert len(toks) == n and eng.finish_reasons[rid] == "length", rid
-        assert ((toks >= 0) & (toks < cfg.vocab_size)).all(), rid
-    assert st["requests_completed"] == len(reqs)
-    assert st["kv_pool_free"] == st["kv_pool_blocks"] - 1
     assert counts["flash_attention_fwd"] == len(reqs) * layers, counts
     assert counts["paged_decode_attention"] == st["steps"] * layers, counts
-    ttft = sorted(st["ttft_s"])
-    _say("SERVE", {
-        "requests": len(reqs), "prompt_tokens": st["prefill_tokens"],
-        "decode_tokens": st["decode_tokens"], "decode_ticks": st["steps"],
-        "wall_s": wall,
-        "decode_tok_per_s": st["decode_tokens"] / st["decode_time_s"],
-        "decode_ms_per_tick": 1e3 * st["decode_time_s"] / st["steps"],
-        "ttft_p50_s": float(np.percentile(ttft, 50)),
-        "ttft_p95_s": float(np.percentile(ttft, 95)),
-        "prefill_time_s": st["prefill_time_s"],
-        "slot_utilization": st["slot_utilization"],
-        "kv_pool_blocks": st["kv_pool_blocks"],
-        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": counts})
 
     # teacher-forced greedy check through the PLAIN attention functions
     params, spec = eng.params, eng.spec
@@ -273,14 +464,10 @@ def serve():
                     attention=flash_attention_reference)
             lg = _logits(x[0, len(prompt) - 1:], params, spec)   # [n, V]
             assert lg.shape == (n, cfg.vocab_size)
-            assert torch.isfinite(lg).all()
-            top = lg.argmax(dim=-1)
-            g = torch.from_numpy(gen).cuda()
-            gap = (lg.gather(1, top[:, None])
-                   - lg.gather(1, g[:, None]))[:, 0]
-            agree += int((top == g).sum())
+            hit, gap = _held_to(lg, gen)
+            agree += hit
             total += n
-            worst = max(worst, float(gap.max()))
+            worst = max(worst, gap)
     _say("TEACHER_FORCED", {"requests": 2, "tokens": total,
                             "argmax_agreement": agree / total,
                             "max_logit_gap": worst, "tie_bound": TIE_BOUND})
@@ -289,7 +476,104 @@ def serve():
     return model, counts
 
 
-def profile_decode(model, ticks=10):
+def _held_to(logits, gen):
+    """(how many generated tokens are the logits' argmax, the largest gap
+    between the argmax's logit and the generated token's)."""
+    import torch
+
+    assert torch.isfinite(logits).all()
+    top = logits.argmax(dim=-1)
+    g = torch.from_numpy(gen).to(logits.device)
+    gap = (logits.gather(1, top[:, None]) - logits.gather(1, g[:, None]))
+    return int((top == g).sum()), float(gap.max())
+
+
+def _replay(eng, prompt, gen):
+    """Teacher-forced replay of one served request through the engine's
+    own step functions, one slot, in a fresh cache of the engine's mode,
+    with the PLAIN version of every kernel passed explicitly. Returns the
+    f32 logits [len(gen), V] that chose each generated token."""
+    import torch
+    from paddle_tpu_torch.inference.engine import _decode_step, _prefill_step
+    from paddle_tpu_torch.jit.api import default_buckets
+    from paddle_tpu_torch.ops._cuda_common import ceil_to
+    from paddle_tpu_torch.ops.flash_attention import \
+        flash_attention_reference
+    from paddle_tpu_torch.ops.paged_decode import \
+        paged_decode_attention_reference
+    from paddle_tpu_torch.ops.quantized import quant_matmul_reference
+    from paddle_tpu_torch.text.paged_cache import PagedKVCache, blocks_for
+
+    spec, bs, mode = eng.spec, eng.block_size, eng.kv_mode
+    s = len(prompt)
+    need = blocks_for(s + len(gen), bs)
+    cache = PagedKVCache(spec.num_layers, 1 + need, spec.num_kv_heads, bs,
+                         spec.head_dim, mode, "cuda")
+    row = torch.zeros(eng.pages, dtype=torch.int32, device="cuda")
+    row[:need] = torch.arange(1, 1 + need, dtype=torch.int32)
+    bucket = max(min(ceil_to(default_buckets(s), bs), eng.max_model_len),
+                 ceil_to(s, bs))
+    ids = torch.zeros((1, bucket), dtype=torch.long, device="cuda")
+    ids[0, :s] = torch.from_numpy(prompt).cuda()
+    plain = dict(qmm=quant_matmul_reference)
+    out = [_prefill_step(spec, bs, mode, eng.params, cache, ids, s, row,
+                         attention=flash_attention_reference, **plain)]
+    for i, tok in enumerate(gen[:-1]):
+        out.append(_decode_step(
+            spec, bs, mode, eng.params, cache,
+            torch.tensor([int(tok)], device="cuda"),
+            torch.tensor([s + i], device="cuda"), row[None],
+            decode_attention=paged_decode_attention_reference, **plain))
+    return torch.cat(out)
+
+
+def serve_quant(model, weight_quant, kv_cache_dtype, n_requests, tag):
+    """The quantized path: `n_requests` of the serve's requests through an
+    engine with quantized weights and KV cache; launch counts checked per
+    kernel, two requests replayed teacher-forced through the plain
+    versions. Returns the launch counts of the counted run."""
+    from paddle_tpu_torch.ops.paged_decode import KERNEL_NAMES
+
+    cfg = model.config
+    reqs = _requests(cfg.vocab_size)[:n_requests]
+    eng, rids, done, counts = _serve_run(model, reqs, tag,
+                                         weight_quant=weight_quant,
+                                         kv_cache_dtype=kv_cache_dtype)
+    st = eng.stats()
+    layers = cfg.num_hidden_layers
+    prefills, ticks = len(reqs), st["steps"]
+    # per prefill and per decode tick: 7 layer matmuls x 20 + the lm_head
+    per_step = 7 * layers + 1
+    want_qmm = (prefills + ticks) * per_step if weight_quant == "int4" else 0
+    assert counts["quant_matmul"] == want_qmm, counts
+    assert counts[KERNEL_NAMES[kv_cache_dtype]] == ticks * layers, counts
+    assert counts["flash_attention_fwd"] == prefills * layers, counts
+    for fmt, name in KERNEL_NAMES.items():
+        if fmt != kv_cache_dtype:
+            assert counts[name] == 0, counts
+
+    agree = total = 0
+    worst = 0.0
+    for rid in rids[:2]:
+        prompt, n = reqs[rid]
+        gen = done[rid]
+        lg = _replay(eng, prompt, gen)
+        assert lg.shape == (n, cfg.vocab_size)
+        hit, gap = _held_to(lg, gen)
+        agree += hit
+        total += n
+        worst = max(worst, gap)
+    bound = TIE_BOUND_Q[kv_cache_dtype]
+    _say(tag + "_TEACHER_FORCED", {
+        "requests": 2, "tokens": total, "argmax_agreement": agree / total,
+        "max_logit_gap": worst, "tie_bound": bound,
+        "agreement_floor": AGREE_MIN_Q[kv_cache_dtype]})
+    assert worst < bound, worst
+    assert agree / total >= AGREE_MIN_Q[kv_cache_dtype], agree / total
+    return counts
+
+
+def profile_decode(model, ticks=10, tag="PROFILE", **engine_kw):
     """Where a decode tick's time goes: torch.profiler over `ticks` steady
     decode ticks of 8 slots (256-token prompts), device time by kernel
     kind beside the host wall. Not part of the counted run."""
@@ -297,7 +581,7 @@ def profile_decode(model, ticks=10):
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.inference import ServingEngine
 
-    eng = ServingEngine(model, max_slots=8, kv_block_size=16)
+    eng = ServingEngine(model, max_slots=8, kv_block_size=16, **engine_kw)
     rs = np.random.RandomState(1)
     for _ in range(8):
         eng.add_request(rs.randint(0, model.config.vocab_size, (256,)),
@@ -312,16 +596,20 @@ def profile_decode(model, ticks=10):
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kinds = {"paged_decode": 0.0, "gemm": 0.0, "other": 0.0}
+    kinds = {"quant_matmul": 0.0, "paged_decode": 0.0, "gemm": 0.0,
+             "other": 0.0}
     per_kernel = {}
+    launched = 0
     for e in prof.key_averages():
         # device events only: CPU ops also report the time of the
         # kernels they launched, which would count it twice
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = e.self_device_time_total
+        launched += e.count
         low = e.key.lower()
-        kind = ("paged_decode" if "paged_decode" in low else
+        kind = ("quant_matmul" if "qmm_" in low else
+                "paged_decode" if "paged_decode" in low else
                 "gemm" if any(w in low for w in ("nvjet", "gemm", "gemv",
                                                  "xmma", "cutlass"))
                 else "other")
@@ -329,10 +617,11 @@ def profile_decode(model, ticks=10):
         per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / 1e3 / ticks
     device_ms = sum(kinds.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
-    _say("PROFILE", {
+    _say(tag, {
         "ticks": ticks, "slots": 8, "wall_ms_per_tick": 1e3 * wall / ticks,
         "device_ms_per_tick": device_ms,
         "device_busy_share": device_ms / (1e3 * wall / ticks),
+        "device_ops_per_tick": launched / ticks,   # kernels + copies
         "device_ms_per_tick_by_kind": kinds,
         "top_kernels_ms_per_tick": [[k[:60], v] for k, v in top]})
 
@@ -359,19 +648,35 @@ def main():
     flash = [flash_case(1, 16, 16, s) for s in (128, 500, 512, 1024)]
     flash.append(flash_case(1, 16, 4, 512))
     dec = decode_case()
+    # the 1B serve's int4 matmuls: decode (M = 8 slots) q/k/v/o,
+    # gate/up, down; the f32 lm_head; one prefill bucket (M = 512)
+    qmm = [qmm_case(8, 2048, 2048), qmm_case(8, 2048, 5504),
+           qmm_case(8, 5504, 2048), qmm_case(8, 2048, 32000, "float32"),
+           qmm_case(512, 2048, 5504)]
+    dec_q = {fmt: quant_decode_case(fmt) for fmt in ("int8", "int4")}
     model, counts = serve()
     profile_decode(model)
+    counts_q4 = serve_quant(model, "int4", "int4", 16, "SERVE_Q4")
+    counts_q8 = serve_quant(model, "int8", "int8", 8, "SERVE_Q8")
+    profile_decode(model, tag="PROFILE_Q4", weight_quant="int4",
+                   kv_cache_dtype="int4")
 
     main_flash = flash[2]                  # S = 512, a prefill bucket
+    paged_src = "paddle_tpu_torch/csrc/paged_decode.cu"
+    paged_tpu = "paddle_tpu/ops/pallas_decode.py:71"
     summary = []
-    for rec, src, replaces in (
+    # each kernel's launches come from the run of its own path
+    for rec, src, replaces, cnt in (
             (main_flash, "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-             "paddle_tpu/ops/pallas_attention.py:104"),
-            (dec, "paddle_tpu_torch/csrc/paged_decode.cu",
-             "paddle_tpu/ops/pallas_decode.py:71")):
+             "paddle_tpu/ops/pallas_attention.py:104", counts),
+            (dec, paged_src, paged_tpu, counts),
+            (dec_q["int8"], paged_src, paged_tpu, counts_q8),
+            (dec_q["int4"], paged_src, paged_tpu, counts_q4),
+            (qmm[1], "paddle_tpu_torch/csrc/quant_matmul.cu",
+             "paddle_tpu/ops/quantized.py:144", counts_q4)):
         summary.append({
             "name": rec["name"], "route": "cuda", "source": src,
-            "replaces": replaces, "launches": counts[rec["name"]],
+            "replaces": replaces, "launches": cnt[rec["name"]],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})

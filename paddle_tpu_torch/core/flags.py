@@ -15,9 +15,14 @@ _FLAGS = {
     # tokens per KV-cache block in the paged serving engine
     # (text/paged_cache.py); must be a multiple of 8
     "FLAGS_kv_block_size": _from_env("FLAGS_kv_block_size", 16),
-    # paged KV cache storage dtype: "model" (the model's compute dtype);
-    # the int8/int4 modes are not ported yet
+    # paged KV cache storage dtype: "model" (the model's compute dtype) |
+    # "int8" (per-block-scale quantized cache, blocks requantize on append)
+    # | "int4" (the same, two tokens per byte)
     "FLAGS_kv_cache_dtype": _from_env("FLAGS_kv_cache_dtype", "model"),
+    # default weight-only quantization of the serving engine's layer
+    # matmuls and lm_head: "none" | "int8" (per-channel scales) | "int4"
+    # (packed nibbles, per-channel scales)
+    "FLAGS_weight_only_dtype": _from_env("FLAGS_weight_only_dtype", "none"),
     # slot count of the continuous-batching engine (inference/engine.py)
     "FLAGS_serving_slots": _from_env("FLAGS_serving_slots", 8),
 }

@@ -19,12 +19,18 @@ shapes reach the kernels.
 Scheduling (admission, eos/length/deadline finish, block free/reuse,
 stats) is host-side Python, as in the reference.
 
+Quantized serving: `kv_cache_dtype="int8"|"int4"` stores the pool as
+int8 codes (int4: two tokens per byte) with one f32 scale per (layer,
+block), requantized on every append, and decodes through the quantized
+paged-decode kernels; `weight_quant="int8"|"int4"` stores the layer
+matmuls and the lm_head as weight-only pairs (int4 through the
+dequant-matmul kernel, int8 as the reference's plain arithmetic).
+
 Not ported yet, refused with NotImplementedError naming the ROADMAP item:
-prefix caching, chunked prefill, speculative decoding, int8/int4 KV,
-weight-only quantization, GPT models, and the metrics registry and
-flight recorder. The engine's defaults are prefix cache off and whole-
-prompt prefill; greedy tokens do not depend on either setting in the
-reference.
+prefix caching, chunked prefill, speculative decoding, GPT models, and
+the metrics registry and flight recorder. The engine's defaults are
+prefix cache off and whole-prompt prefill; greedy tokens do not depend on
+either setting in the reference.
 
 Sampling uses a `torch.Generator` on the engine's device seeded from
 `seed`: sampled tokens cannot reproduce JAX's random bits, greedy rows
@@ -43,16 +49,29 @@ from ..core.flags import flag
 from ..jit.api import default_buckets
 from ..ops._cuda_common import ceil_to as _ceil_to
 from ..ops._cuda_common import resolve_device
+from ..ops.flash_attention import flash_attention_fwd
 from ..ops.paged_decode import paged_decode_attention
+from ..ops.quantized import quant_matmul_raw
 from ..text.generation import (_extract_llama, _layer_forward_prefill,
                                _logits, _mm, _rms_norm, _rope,
                                _spec_from_config)
 from ..text.paged_cache import (TRASH_BLOCK, BlockAllocator, PagedKVCache,
-                                append_token, blocks_for, scatter_prefill)
+                                append_token, append_token_int4,
+                                append_token_int8, blocks_for,
+                                scatter_prefill, scatter_prefill_int4,
+                                scatter_prefill_int8)
 
 
 _ITEM_PREFIX = "2, 'Prefix cache, chunked prefill and the chunk program'"
-_ITEM_QUANT = "3, 'Quantized serving'"
+
+#: quantized KV-cache modes and their (append, scatter_prefill) pairs —
+#: the step functions dispatch on the kv_mode string ("model" | "int8" |
+#: "int4") and carry the per-block scales only when quantized (the chunk
+#: scatters wait for the chunked prefill, ROADMAP Queue 1 item 2)
+_KV_FNS = {
+    "int8": (append_token_int8, scatter_prefill_int8),
+    "int4": (append_token_int4, scatter_prefill_int4),
+}
 
 
 def _not_ported(what: str, item: str):
@@ -96,72 +115,113 @@ def _sample_batched(logits, generator, do_sample, temperature, top_k, top_p):
 
 # --------------------------------------------------- paged decode layers
 
-def _paged_attn(q, k_new, v_new, kc, vc, tables, pos, block_size):
-    """Append this step's K/V through the block tables (in place), then
-    paged decode attention over lens = pos + 1 (the just-written token
-    included). kc/vc are one layer's pool slice [N, Hkv, bs, D]."""
+def _paged_attn(q, k_new, v_new, kc, vc, ksc, vsc, tables, pos,
+                block_size, kv_mode, decode_attention=paged_decode_attention):
+    """Append this step's K/V through the block tables (in place; the
+    quantized modes requantize the touched blocks and update their scales
+    ksc/vsc), then paged decode attention over lens = pos + 1 (the
+    just-written token included). kc/vc are one layer's pool slice, ksc/
+    vsc its scales [N] (None in the model mode)."""
     b = q.shape[0]
     blk = tables[torch.arange(b, device=q.device), pos // block_size]
     off = pos % block_size
-    append_token(kc, k_new, blk, off)
-    append_token(vc, v_new, blk, off)
+    if kv_mode != "model":
+        app = _KV_FNS[kv_mode][0]
+        app(kc, ksc, k_new, blk, off)
+        app(vc, vsc, v_new, blk, off)
+    else:
+        append_token(kc, k_new, blk, off)
+        append_token(vc, v_new, blk, off)
     lens = (pos + 1).to(torch.int32)
-    return paged_decode_attention(q.contiguous(), kc, vc, tables, lens)
+    return decode_attention(q.contiguous(), kc, vc, tables, lens, ksc, vsc,
+                            kv_int4=kv_mode == "int4")
 
 
-def _paged_layer_llama(x, lw, kc, vc, pos, tables, spec, cos, sin,
-                       block_size):
+def _paged_layer_llama(x, lw, kc, vc, ksc, vsc, pos, tables, spec, cos, sin,
+                       block_size, kv_mode,
+                       decode_attention=paged_decode_attention,
+                       qmm=quant_matmul_raw):
     """One LLaMA block for seq-1 queries at per-slot positions against the
-    paged cache. x [B, H]; kc/vc one layer's pool slice."""
+    paged cache. x [B, H]; kc/vc one layer's pool slice, ksc/vsc its
+    scales (quantized modes)."""
     b, h = x.shape
     hn = _rms_norm(x, lw["input_ln"], spec.rms_eps)
-    q = _mm(hn, lw["q"]).reshape(b, spec.num_heads, spec.head_dim)
-    k = _mm(hn, lw["k"]).reshape(b, spec.num_kv_heads, spec.head_dim)
-    v = _mm(hn, lw["v"]).reshape(b, spec.num_kv_heads, spec.head_dim)
+    q = _mm(hn, lw["q"], qmm).reshape(b, spec.num_heads, spec.head_dim)
+    k = _mm(hn, lw["k"], qmm).reshape(b, spec.num_kv_heads, spec.head_dim)
+    v = _mm(hn, lw["v"], qmm).reshape(b, spec.num_kv_heads, spec.head_dim)
     c = cos[pos][:, None]                       # [B, 1, D]
     sn = sin[pos][:, None]
     q = _rope(q, c, sn)
     k = _rope(k, c, sn)
-    out = _paged_attn(q, k, v, kc, vc, tables, pos, block_size)
-    x = x + _mm(out.reshape(b, spec.num_heads * spec.head_dim), lw["o"])
+    out = _paged_attn(q, k, v, kc, vc, ksc, vsc, tables, pos, block_size,
+                      kv_mode, decode_attention)
+    x = x + _mm(out.reshape(b, spec.num_heads * spec.head_dim), lw["o"],
+                qmm)
     hn = _rms_norm(x, lw["post_ln"], spec.rms_eps)
-    return x + _mm(F.silu(_mm(hn, lw["gate"])) * _mm(hn, lw["up"]),
-                   lw["down"])
+    return x + _mm(F.silu(_mm(hn, lw["gate"], qmm)) * _mm(hn, lw["up"], qmm),
+                   lw["down"], qmm)
 
 
 # ------------------------------------------------------- step functions
+# The kernel functions are arguments, defaulting to the routed wrappers
+# (which take their plain versions for CPU tensors), so a check can run
+# the same steps through the plain versions on the card.
 
 @torch.no_grad()
-def _decode_step(spec, block_size, params, cache, tok, pos, tables):
+def _decode_step(spec, block_size, kv_mode, params, cache, tok, pos, tables,
+                 decode_attention=paged_decode_attention,
+                 qmm=quant_matmul_raw):
     """One decode step for a compacted slot bucket: every row consumes its
     token, appends K/V through its block table and attends over its own
     length. Returns f32 logits [B, V]."""
+    quantized = kv_mode != "model"
     x = params["embed"][tok]                                # [B, H]
     cos, sin = params["rope_cos"], params["rope_sin"]
     for li, lw in enumerate(params["layers"]):
-        x = _paged_layer_llama(x, lw, cache.k[li], cache.v[li], pos, tables,
-                               spec, cos, sin, block_size)
-    return _logits(x, params, spec)
+        ksc = cache.k_scale[li] if quantized else None
+        vsc = cache.v_scale[li] if quantized else None
+        x = _paged_layer_llama(x, lw, cache.k[li], cache.v[li], ksc, vsc,
+                               pos, tables, spec, cos, sin, block_size,
+                               kv_mode, decode_attention, qmm)
+    return _logits(x, params, spec, qmm)
 
 
 @torch.no_grad()
-def _prefill_step(spec, block_size, params, cache, ids, true_len,
-                  table_row):
+def _prefill_step(spec, block_size, kv_mode, params, cache, ids, true_len,
+                  table_row, attention=flash_attention_fwd,
+                  qmm=quant_matmul_raw):
     """Prefill one joining request: full-prompt forward (flash kernel),
-    page-scatter the prompt K/V through the slot's block table, and return
-    the f32 logits [1, V] of the last REAL prompt position."""
+    page-scatter the prompt K/V through the slot's block table (the
+    quantized modes with one new scale per page), and return the f32
+    logits [1, V] of the last REAL prompt position."""
     x = params["embed"][ids]                                # [1, S, H]
     cos, sin = params["rope_cos"], params["rope_sin"]
     ks, vs = [], []
     for lw in params["layers"]:
-        x, (k, v) = _layer_forward_prefill(x, lw, spec, cos, sin)
+        x, (k, v) = _layer_forward_prefill(x, lw, spec, cos, sin,
+                                           attention=attention, qmm=qmm)
         ks.append(k[0])
         vs.append(v[0])
-    scatter_prefill(cache.k, torch.stack(ks), true_len, table_row,
-                    block_size)
-    scatter_prefill(cache.v, torch.stack(vs), true_len, table_row,
-                    block_size)
-    return _logits(x[:, true_len - 1], params, spec)
+    ks, vs = torch.stack(ks), torch.stack(vs)            # [L, S, Hkv, D]
+    if kv_mode != "model":
+        scat = _KV_FNS[kv_mode][1]
+        scat(cache.k, cache.k_scale, ks, true_len, table_row, block_size)
+        scat(cache.v, cache.v_scale, vs, true_len, table_row, block_size)
+    else:
+        scatter_prefill(cache.k, ks, true_len, table_row, block_size)
+        scatter_prefill(cache.v, vs, true_len, table_row, block_size)
+    return _logits(x[:, true_len - 1], params, spec, qmm)
+
+
+def _tensors(tree):
+    """Every tensor of a nest of dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+    else:
+        yield tree
 
 
 # ------------------------------------------------------------ scheduler
@@ -230,8 +290,10 @@ class ServingEngine:
     (whole-batch waves). Single-threaded: one owner thread drives
     `add_request`/`step`/`run`.
 
-    The model must lie on `device` ("cuda" unless the caller asks for
-    another; no card -> RuntimeError)."""
+    `kv_cache_dtype` ("model" | "int8" | "int4") defaults to
+    FLAGS_kv_cache_dtype and `weight_quant` ("none" | "int8" | "int4") to
+    FLAGS_weight_only_dtype. The model must lie on `device` ("cuda" unless
+    the caller asks for another; no card -> RuntimeError)."""
 
     def __init__(self, model, max_slots=None, kv_block_size=None,
                  num_kv_blocks=None, kv_cache_dtype=None,
@@ -249,18 +311,19 @@ class ServingEngine:
         if spec_decode not in (None, "off"):
             raise _not_ported("speculative decoding",
                               "4, 'Speculative decoding'")
-        if weight_quant in ("int8", "int4"):
-            raise _not_ported(f"{weight_quant} weight-only quantization",
-                              _ITEM_QUANT)
-        if weight_quant not in (None, "none"):
+        if weight_quant in (None, "none"):
+            # serving-wide default; a per-engine weight_quant= overrides
+            weight_quant = str(flag("FLAGS_weight_only_dtype"))
+        if weight_quant not in ("none", "int8", "int4"):
             raise ValueError(f"weight_quant must be 'none', 'int8' or "
                              f"'int4', got {weight_quant!r}")
+        self.weight_quant = str(weight_quant)
         mode = str(kv_cache_dtype or flag("FLAGS_kv_cache_dtype"))
-        if mode in ("int8", "int4"):
-            raise _not_ported(f"{mode} KV cache", _ITEM_QUANT)
-        if mode != "model":
+        if mode not in ("model", "int8", "int4"):
             raise ValueError(f"kv_cache_dtype must be 'model', 'int8' or "
                              f"'int4', got {mode!r}")
+        self.kv_mode = mode
+        self.quantized = mode != "model"
         mdev = model.device
         if mdev.type != self.device.type or (
                 self.device.index is not None
@@ -269,7 +332,7 @@ class ServingEngine:
                              f"{self.device}")
         cfg = model.config
         self.spec = _spec_from_config(cfg)
-        self.params = _extract_llama(model)
+        self.params = _extract_llama(model, self.weight_quant)
         self.block_size = int(kv_block_size or flag("FLAGS_kv_block_size"))
         self.max_slots = int(max_slots or flag("FLAGS_serving_slots"))
         if self.max_slots < 1:
@@ -289,7 +352,8 @@ class ServingEngine:
         self.cache = PagedKVCache(
             self.spec.num_layers, int(num_kv_blocks),
             self.spec.num_kv_heads, self.block_size, self.spec.head_dim,
-            self.params["embed"].dtype, self.device)
+            mode if self.quantized else self.params["embed"].dtype,
+            self.device)
         self.allocator = BlockAllocator(int(num_kv_blocks))
         if admission not in ("continuous", "static"):
             raise ValueError(f"unknown admission mode {admission!r}")
@@ -404,7 +468,11 @@ class ServingEngine:
                 "queue_wait_s": list(self.queue_waits),
                 "requests_completed": self._requests_completed,
                 "kv_pool_blocks": self.allocator.num_blocks,
-                "kv_pool_free": self.allocator.available}
+                "kv_pool_free": self.allocator.available,
+                "kv_hbm_bytes": self.cache.hbm_bytes,
+                "kv_cache_mode": self.kv_mode,
+                "weight_quant": self.weight_quant,
+                "param_bytes": self.param_bytes}
 
     def finish_warmup(self):
         """Declare the engine warm (the reference tags later compiles as
@@ -416,6 +484,13 @@ class ServingEngine:
     @property
     def warmed(self) -> bool:
         return self._warmed
+
+    @property
+    def param_bytes(self) -> int:
+        """Bytes of the serving params AS STORED: packed int4 counts its
+        two-nibbles-per-byte bytes, int8 its bytes, scales included."""
+        return sum(t.numel() * t.element_size()
+                   for t in _tensors(self.params))
 
     # ------------------------------------------------------- scheduling
     def _expire(self):
@@ -480,8 +555,9 @@ class ServingEngine:
         ids = np.zeros((1, bucket), np.int64)
         ids[0, :s] = req.prompt
         dev = self.device
-        lg = _prefill_step(self.spec, self.block_size, self.params,
-                           self.cache, torch.from_numpy(ids).to(dev), s,
+        lg = _prefill_step(self.spec, self.block_size, self.kv_mode,
+                           self.params, self.cache,
+                           torch.from_numpy(ids).to(dev), s,
                            torch.from_numpy(self._tables[slot]).to(dev))
         tok = int(self._sample(lg, [req])[0])
         req.first_token_s = time.perf_counter()
@@ -504,8 +580,9 @@ class ServingEngine:
             [self._tables[active],
              np.full((pad, self.pages), TRASH_BLOCK, np.int32)])
         dev = self.device
-        lg = _decode_step(self.spec, self.block_size, self.params,
-                          self.cache, torch.from_numpy(tok).to(dev),
+        lg = _decode_step(self.spec, self.block_size, self.kv_mode,
+                          self.params, self.cache,
+                          torch.from_numpy(tok).to(dev),
                           torch.from_numpy(pos).to(dev),
                           torch.from_numpy(tables).to(dev))
         nxt = self._sample(lg, reqs, pad)
@@ -578,8 +655,10 @@ def generate_paged(model, ids, max_new_tokens, do_sample=False,
                    seed=None, device=None, **engine_kwargs):
     """Run a rectangular batch through a ServingEngine and return tokens
     [B, max_new_tokens] int64 (rows that hit eos early are padded with
-    eos, -1 without one). seed=None draws a fresh seed from torch's global
-    generator, so repeated unseeded sampling calls differ."""
+    eos, -1 without one). `engine_kwargs` reach the engine (for example
+    kv_cache_dtype=, weight_quant=). seed=None draws a fresh seed from
+    torch's global generator, so repeated unseeded sampling calls
+    differ."""
     ids = np.asarray(ids, np.int64)
     b = ids.shape[0]
     if seed is None:

@@ -9,7 +9,8 @@ drift apart:
     ``sm_90a`` into a shared library with a plain C interface, at first
     use, keyed on a hash of the sources, and loads it with ``ctypes``. The
     sources build in parallel (one ``nvcc`` per source, all started
-    together). Nothing is built or imported when a module is imported.
+    together); kernels that share a source share its library. Nothing is
+    built or imported when a module is imported.
   * `check_launch`: every C entry point returns ``cudaGetLastError()``;
     a non-zero code raises.
   * launch counters: each wrapper adds one to its counter where it launches
@@ -32,10 +33,16 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 #: kernel name -> CUDA source (relative to the package). The build list:
-#: every kernel of the port is built from exactly these files.
+#: every kernel of the port is built from exactly these files. Each name
+#: is the C entry point of its source and has its own launch counter; the
+#: paged-decode variants over model-dtype, int8 and int4 caches share one
+#: source (one kernel template, the cache format a parameter).
 KERNEL_SOURCES = {
     "flash_attention_fwd": "csrc/flash_attention_fwd.cu",
     "paged_decode_attention": "csrc/paged_decode.cu",
+    "paged_decode_attention_int8": "csrc/paged_decode.cu",
+    "paged_decode_attention_int4": "csrc/paged_decode.cu",
+    "quant_matmul": "csrc/quant_matmul.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -100,53 +107,53 @@ def _source_hash(src: str) -> str:
     return h.hexdigest()[:16]
 
 
-def _lib_path(name: str) -> str:
-    src = os.path.join(_PKG_DIR, KERNEL_SOURCES[name])
-    return os.path.join(BUILD_DIR, f"{name}-{_source_hash(src)}.so")
+def _lib_path(rel_src: str) -> str:
+    src = os.path.join(_PKG_DIR, rel_src)
+    stem = os.path.splitext(os.path.basename(rel_src))[0]
+    return os.path.join(BUILD_DIR, f"{stem}-{_source_hash(src)}.so")
 
 
 def build_kernels(names=None) -> dict:
-    """Compile every named kernel source that has no up-to-date library,
-    one ``nvcc`` process per source, all started together. Returns
-    {name: library path}. Raises with the compiler's output on failure."""
+    """Compile the source of every named kernel that has no up-to-date
+    library, one ``nvcc`` process per source, all started together.
+    Returns {name: library path}. Raises with the compiler's output on
+    failure."""
     names = list(KERNEL_SOURCES if names is None else names)
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
-    paths = {}
-    for name in names:
-        out = _lib_path(name)
-        paths[name] = out
+    for rel in sorted({KERNEL_SOURCES[n] for n in names}):
+        out = _lib_path(rel)
         if os.path.exists(out):
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
-        src = os.path.join(_PKG_DIR, KERNEL_SOURCES[name])
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT), tmp, out)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(_PKG_DIR, rel)]
+        procs[rel] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT), tmp, out)
     failed = []
-    for name, (proc, tmp, out) in procs.items():
+    for rel, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n"
+            failed.append(f"{rel}: nvcc exit {proc.returncode}\n"
                           f"{log.decode(errors='replace')}")
             continue
         os.replace(tmp, out)   # atomic: a concurrent build sees all or none
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return paths
+    return {n: _lib_path(KERNEL_SOURCES[n]) for n in names}
 
 
 def kernel_library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of kernel `name`, built at first use."""
-    lib = _LIBS.get(name)
+    """The loaded shared library holding kernel `name`, built at first
+    use (one library per source)."""
+    rel = KERNEL_SOURCES[name]
+    lib = _LIBS.get(rel)
     if lib is None:
         with _BUILD_LOCK:
-            lib = _LIBS.get(name)
+            lib = _LIBS.get(rel)
             if lib is None:
-                path = build_kernels([name])[name]
-                lib = ctypes.CDLL(path)
-                _LIBS[name] = lib
+                lib = ctypes.CDLL(build_kernels([name])[name])
+                _LIBS[rel] = lib
     return lib
 
 

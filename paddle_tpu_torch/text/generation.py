@@ -2,18 +2,21 @@
 
 Port of the helpers paddle_tpu/inference/engine.py imports from
 paddle_tpu/text/generation.py: `_GenSpec`, `_rms_norm`, `_rope`,
-`_rope_tables_np`, `_mm`, `_layer_forward_prefill`, `_logits` and the
-weight extraction (`_repeat_kv` has no use here: the attention functions
-index or repeat GQA kv heads themselves). Same arithmetic and dtype rules
-as the reference; what differs is the mechanism: eager torch and a Python
-loop over layers, where the reference traced one program and scanned
-stacked weights. Weights are not stacked: the extracted parameter dict
-holds views of the model's own tensors, so serving costs no copy of the
-weights.
+`_rope_tables_np`, `_mm`, `_quantize_w`, `_quantize_w4`,
+`_layer_forward_prefill`, `_logits` and the weight extraction
+(`_repeat_kv` has no use here: the attention functions index or repeat
+GQA kv heads themselves). Same arithmetic and dtype rules as the
+reference; what differs is the mechanism: eager torch and a Python loop
+over layers, where the reference traced one program and scanned stacked
+weights. Weights are not stacked: the extracted parameter dict holds
+views of the model's own tensors, so dense serving costs no copy of the
+weights; weight-only quantization makes its packed copies once, when the
+dict is extracted, and leaves the model's weights as they are.
 
 Weight layout: the model keeps torch's `nn.Linear` layout [out, in]; the
 extracted layer dicts hold the transposed views [in, out], so `_mm` is the
-reference's plain `x @ w`.
+reference's plain `x @ w`, or `quant_matmul` over an (int8 [K, N] | packed
+int4 [ceil(K/2), N], f32 scale [N]) pair.
 
 The static single-program `generate` is not ported yet.
 """
@@ -27,6 +30,11 @@ import torch.nn.functional as F
 
 from ..core.flags import flag
 from ..ops.flash_attention import flash_attention_fwd
+from ..ops.quantized import quant_matmul, quant_matmul_raw, quantize_int4
+
+#: the layer matmul weights that weight-only quantization stores as pairs
+#: (the norms stay dense)
+_QUANT_KEYS = ("q", "k", "v", "o", "gate", "up", "down")
 
 
 @dataclass(frozen=True)
@@ -81,24 +89,50 @@ def _rope_tables(cfg, dtype, device):
             torch.from_numpy(sin).to(device=device, dtype=dtype))
 
 
-def _mm(x, w):
-    """x @ w with w [in, out] (dense weights only: weight-only quantization
-    is not ported yet)."""
+def _mm(x, w, qmm=quant_matmul_raw):
+    """x @ w where w is a dense [in, out] tensor or a weight-only pair
+    (int8 [K, N] or packed int4 [ceil(K/2), N], scale f32 [N]); the pair's
+    shape tells the two apart (`ops.quantized.quant_matmul`, whose int4
+    matmul is `qmm`: the K8 wrapper unless a check passes its plain
+    version)."""
+    if isinstance(w, tuple):
+        return quant_matmul(x, w[0], w[1], int4_matmul=qmm)
     return x @ w
 
 
+def _quantize_w(w):
+    """Per-output-channel symmetric int8 of a [K, N] weight: the port's
+    copy of paddle_tpu's `weight_quantize_raw` rule (in f32, qmax 127).
+    Returns (q int8 [K, N], scale f32 [N])."""
+    wf = w.float()
+    scale = wf.abs().amax(dim=-2) / 127.0
+    q = torch.clamp(torch.round(wf / torch.clamp_min(scale, 1e-9)[None, :]),
+                    -127.0, 127.0)
+    return q.to(torch.int8), scale
+
+
+def _quantize_w4(w):
+    """Packed int4 (two nibbles per byte) with per-output-channel scales:
+    (packed int8 [ceil(K/2), N], scale f32 [N])."""
+    return quantize_int4(w)
+
+
 def _layer_forward_prefill(x, lw, spec: _GenSpec, cos, sin,
-                           attention=flash_attention_fwd):
+                           attention=flash_attention_fwd,
+                           qmm=quant_matmul_raw):
     """One decoder block over the full prompt. x [B, S, H]; cos/sin
     [>=S, D]. Attention goes through `attention` ([B, H, S, D] layout,
-    returns (o, lse)): the flash kernel by default, which takes its plain
-    version for CPU tensors. Returns (x, (k, v)) with k/v [B, S, Hkv, D]."""
+    returns (o, lse)) and int4 weight matmuls through `qmm`: the kernels
+    by default, which take their plain versions for CPU tensors. Returns
+    (x, (k, v)) with k/v [B, S, Hkv, D]."""
     b, s, h = x.shape
     hn = _rms_norm(x, lw["input_ln"], spec.rms_eps)
     flat = hn.reshape(b * s, h)
-    q = _mm(flat, lw["q"]).reshape(b, s, spec.num_heads, spec.head_dim)
-    k = _mm(flat, lw["k"]).reshape(b, s, spec.num_kv_heads, spec.head_dim)
-    v = _mm(flat, lw["v"]).reshape(b, s, spec.num_kv_heads, spec.head_dim)
+    q = _mm(flat, lw["q"], qmm).reshape(b, s, spec.num_heads, spec.head_dim)
+    k = _mm(flat, lw["k"], qmm).reshape(b, s, spec.num_kv_heads,
+                                        spec.head_dim)
+    v = _mm(flat, lw["v"], qmm).reshape(b, s, spec.num_kv_heads,
+                                        spec.head_dim)
     c = cos[None, :s, None, :]
     sn = sin[None, :s, None, :]
     q = _rope(q, c, sn)
@@ -107,19 +141,25 @@ def _layer_forward_prefill(x, lw, spec: _GenSpec, cos, sin,
                        k.transpose(1, 2).contiguous(),
                        v.transpose(1, 2).contiguous(), causal=True)
     out = out.transpose(1, 2)
-    attn = _mm(out.reshape(b * s, spec.num_heads * spec.head_dim), lw["o"])
+    attn = _mm(out.reshape(b * s, spec.num_heads * spec.head_dim), lw["o"],
+               qmm)
     x = x + attn.reshape(b, s, h)
     hn = _rms_norm(x, lw["post_ln"], spec.rms_eps).reshape(b * s, h)
-    mlp = _mm(F.silu(_mm(hn, lw["gate"])) * _mm(hn, lw["up"]), lw["down"])
+    mlp = _mm(F.silu(_mm(hn, lw["gate"], qmm)) * _mm(hn, lw["up"], qmm),
+              lw["down"], qmm)
     return x + mlp.reshape(b, s, h), (k, v)
 
 
-def _logits(x, params, spec: _GenSpec):
-    """x [B, H] -> f32 logits [B, V]."""
+def _logits(x, params, spec: _GenSpec, qmm=quant_matmul_raw):
+    """x [B, H] -> f32 logits [B, V]. A quantized head takes f32
+    activations, as the reference (int8: exactly (x_f32 @ w8_f32) * s)."""
     x = _rms_norm(x, params["final_ln"], spec.rms_eps)
     if spec.tie_embeddings:
         return x.float() @ params["embed"].float().T
-    return x.float() @ params["lm_head"].float()
+    head = params["lm_head"]
+    if isinstance(head, tuple):
+        return _mm(x.float(), head, qmm)
+    return x.float() @ head.float()
 
 
 def _layer_weights(layer) -> dict:
@@ -135,15 +175,27 @@ def _layer_weights(layer) -> dict:
 
 
 @torch.no_grad()
-def _extract_llama(model) -> dict:
+def _extract_llama(model, weight_quant="none") -> dict:
     """The serving parameter dict of a LlamaForCausalLM: views of its
     weights (no copy), a per-layer list in place of the reference's
-    stacked [L, ...] arrays, and the rope tables in the model's dtype."""
+    stacked [L, ...] arrays, and the rope tables in the model's dtype.
+    weight_quant="int8"/"int4" stores the seven layer matmul weights and
+    the lm_head as weight-only pairs (see `_mm`), made here, once."""
+    if weight_quant not in ("none", "int8", "int4"):
+        raise ValueError(f"weight_quant must be 'none', 'int8' or 'int4', "
+                         f"got {weight_quant!r}")
     m = model.model
+    layers = [_layer_weights(layer) for layer in m.layers]
+    quant = weight_quant != "none"
+    qfn = _quantize_w4 if weight_quant == "int4" else _quantize_w
+    if quant:
+        layers = [{k: qfn(w) if k in _QUANT_KEYS else w
+                   for k, w in lw.items()} for lw in layers]
     params = {"embed": m.embed_tokens.weight, "final_ln": m.norm.weight,
-              "layers": [_layer_weights(layer) for layer in m.layers]}
+              "layers": layers}
     if model.lm_head is not None:
-        params["lm_head"] = model.lm_head.weight.T
+        head = model.lm_head.weight.T
+        params["lm_head"] = qfn(head) if quant else head
     params["rope_cos"], params["rope_sin"] = model.rope_tables()
     return params
 
@@ -168,6 +220,12 @@ def generate(model, input_ids, max_new_tokens=32, max_length=None,
     if engine not in ("static", "paged"):
         raise ValueError(f"engine must be 'static' or 'paged', got "
                          f"{engine!r}")
+    if weight_quant in (None, "none"):
+        # the serving-wide default: a per-call weight_quant= overrides it
+        weight_quant = str(flag("FLAGS_weight_only_dtype"))
+    if weight_quant not in ("none", "int8", "int4"):
+        raise ValueError(f"weight_quant must be 'none', 'int8' or 'int4', "
+                         f"got {weight_quant!r}")
     if engine == "static":
         raise NotImplementedError(
             "the static single-program generate is not ported yet (ROADMAP "

@@ -8,9 +8,12 @@ runs:
 
 (`--noconftest` keeps tests/conftest.py, which sets up jax, out.) The
 plain versions are themselves held against paddle_tpu in
-test_torch_flash_attention.py / test_torch_paged_decode.py on the CPU.
-Tolerances: f32 1e-4 (f32 accumulation in another order); bf16 2e-2
-(bf16 output rounding of values of magnitude ~1, 2^-8 relative).
+test_torch_flash_attention.py, test_torch_paged_decode.py and
+test_torch_quantized.py on the CPU. Tolerances: f32 1e-4 (f32
+accumulation in another order); bf16 2e-2 (bf16 output rounding of
+values of magnitude ~1, 2^-8 relative). The dequant-matmul is compared
+relative to the largest output (its outputs grow with sqrt(K)): f32 1e-5,
+bf16 2^-7 (each side rounds once to bf16, at most 2^-8 relative).
 """
 import numpy as np
 import pytest
@@ -20,7 +23,10 @@ from paddle_tpu_torch.ops import _cuda_common
 from paddle_tpu_torch.ops.flash_attention import (flash_attention_fwd,
                                                   flash_attention_reference)
 from paddle_tpu_torch.ops.paged_decode import (
-    paged_decode_attention, paged_decode_attention_reference)
+    KERNEL_NAMES, paged_decode_attention, paged_decode_attention_reference)
+from paddle_tpu_torch.ops.quantized import (quant_matmul, quant_matmul_raw,
+                                            quant_matmul_reference,
+                                            quantize_int4)
 
 pytestmark = pytest.mark.cuda
 DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
@@ -81,6 +87,83 @@ def test_paged_decode_kernel_matches_plain(card, dtype, tol, s, hq, hkv, d,
     assert (out.float() - ref.float()).abs().max().item() < tol
 
 
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("s,hq,hkv,d,bs,pages,blocks", [
+    (8, 16, 16, 128, 16, 64, 600), (5, 16, 2, 64, 16, 20, 120),
+    (3, 8, 1, 32, 32, 3, 12)])
+def test_quantized_paged_decode_kernel_matches_plain(card, fmt, dtype, tol,
+                                                     s, hq, hkv, d, bs,
+                                                     pages, blocks):
+    rs = np.random.RandomState(2)
+    q = _randn(rs, s, hq, d).to(card, dtype)
+    rows, lo, smax = (bs // 2, -128, 0.3) if fmt == "int4" \
+        else (bs, -127, 0.015)
+    kc, vc = (torch.from_numpy(rs.randint(lo, 128, (blocks, hkv, rows, d))
+                               .astype(np.int8)).to(card) for _ in range(2))
+    ks, vs = (torch.from_numpy((rs.rand(blocks) * smax / 2 + smax / 2)
+                               .astype("float32")).to(card)
+              for _ in range(2))
+    ids = rs.choice(np.arange(1, blocks), (s * pages,), replace=False)
+    tables = ids.reshape(s, pages).astype("int32")
+    lens = rs.randint(1, pages * bs + 1, (s,)).astype("int32")
+    lens[0] = 1
+    tables[-1, (lens[-1] - 1) // bs + 1:] = -1      # padding past the end
+    tables = torch.from_numpy(tables).to(card)
+    lens = torch.from_numpy(lens).to(card)
+    name = KERNEL_NAMES[fmt]
+    before = _cuda_common.launch_counts()[name]
+    args = (q, kc, vc, tables, lens, ks, vs)
+    out = paged_decode_attention(*args, kv_int4=fmt == "int4")
+    ref = paged_decode_attention_reference(*args, kv_int4=fmt == "int4")
+    torch.cuda.synchronize()
+    assert _cuda_common.launch_counts()[name] == before + 1
+    assert out.dtype == dtype
+    assert (out.float() - ref.float()).abs().max().item() < tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2 ** -7)])
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 2048), (8, 5504, 2048),
+                                   (2, 2048, 5504), (1, 2048, 32000),
+                                   (512, 2048, 5504), (3, 64, 96),
+                                   (17, 34, 32)])
+def test_quant_matmul_kernel_matches_plain(card, dtype, tol, m, k, n):
+    rs = np.random.RandomState(3)
+    x = _randn(rs, m, k).to(card, dtype)
+    packed, scale = quantize_int4(_randn(rs, k, n) * 0.05)
+    packed, scale = packed.to(card), scale.to(card)
+    before = _cuda_common.launch_counts()["quant_matmul"]
+    out = quant_matmul_raw(x, packed, scale, k)
+    ref = quant_matmul_reference(x, packed, scale, k)
+    torch.cuda.synchronize()
+    assert _cuda_common.launch_counts()["quant_matmul"] == before + 1
+    assert out.dtype == dtype and tuple(out.shape) == (m, n)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), err
+
+
+def test_quant_matmul_refuses_what_it_does_not_take(card):
+    rs = np.random.RandomState(4)
+    packed, scale = quantize_int4(_randn(rs, 33, 64))     # odd K
+    with pytest.raises(ValueError, match="even K"):
+        quant_matmul_raw(torch.zeros(2, 33, device=card), packed.to(card),
+                         scale.to(card), 33)
+    packed, scale = quantize_int4(_randn(rs, 64, 48))     # N % 32
+    with pytest.raises(ValueError, match="multiple of 32"):
+        quant_matmul_raw(torch.zeros(2, 64, device=card), packed.to(card),
+                         scale.to(card), 64)
+    packed, scale = quantize_int4(_randn(rs, 64, 64))
+    with pytest.raises(ValueError, match="dtype"):
+        quant_matmul_raw(torch.zeros(2, 64, device=card,
+                                     dtype=torch.float16),
+                         packed.to(card), scale.to(card), 64)
+    packed, scale = quantize_int4(_randn(rs, 64, 64), group_size=16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        quant_matmul(torch.zeros(2, 64, device=card), packed.to(card),
+                     scale.to(card))
+
+
 def test_kernels_refuse_bad_inputs(card):
     q = torch.zeros(1, 2, 8, 16, device=card, dtype=torch.float16)
     with pytest.raises(ValueError, match="dtype"):
@@ -124,3 +207,39 @@ def test_engine_on_card_matches_cpu_engine(card):
     counts = _cuda_common.launch_counts()
     assert counts["flash_attention_fwd"] == len(stream) * cfg.num_hidden_layers
     assert counts["paged_decode_attention"] > 0
+
+
+@pytest.mark.parametrize("weight_quant,kv_cache_dtype", [("int4", "int4"),
+                                                         ("int8", "int8")])
+def test_quantized_engine_on_card_matches_cpu_engine(card, weight_quant,
+                                                     kv_cache_dtype):
+    """Greedy tokens of a tiny f32 model served with quantized weights
+    and KV cache through the kernels on the card equal those of the same
+    model on the CPU (plain versions)."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.text.models import (LlamaForCausalLM,
+                                              llama_tiny_config)
+
+    torch.manual_seed(0)
+    cfg = llama_tiny_config(num_key_value_heads=2)
+    cpu = LlamaForCausalLM(cfg, device="cpu")
+    gpu = LlamaForCausalLM(cfg, device=card)
+    gpu.load_state_dict(cpu.state_dict())
+    rs = np.random.RandomState(3)
+    stream = [(rs.randint(0, 256, (ln,)), nt)
+              for ln, nt in ((3, 4), (20, 6), (2, 9), (40, 3), (4, 5))]
+    out = []
+    _cuda_common.reset_launch_counts()
+    for model, dev in ((cpu, "cpu"), (gpu, card)):
+        eng = ServingEngine(model, max_slots=2, kv_block_size=8, device=dev,
+                            weight_quant=weight_quant,
+                            kv_cache_dtype=kv_cache_dtype)
+        for p, nt in stream:
+            eng.add_request(p, max_new_tokens=nt)
+        out.append(eng.run())
+    assert {k: v.tolist() for k, v in out[0].items()} \
+        == {k: v.tolist() for k, v in out[1].items()}
+    counts = _cuda_common.launch_counts()
+    assert counts[KERNEL_NAMES[kv_cache_dtype]] > 0
+    assert counts["paged_decode_attention"] == 0
+    assert (counts["quant_matmul"] > 0) == (weight_quant == "int4")

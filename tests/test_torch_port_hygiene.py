@@ -86,7 +86,8 @@ def test_kernel_sources_exist_and_are_the_build_list():
     srcs = {os.path.basename(p) for p in _cuda_common.KERNEL_SOURCES.values()}
     on_disk = {f for f in os.listdir(_cuda_common.CSRC_DIR)
                if f.endswith((".cu", ".cuh"))}
-    assert srcs == on_disk == {"flash_attention_fwd.cu", "paged_decode.cu"}
+    assert srcs == on_disk == {"flash_attention_fwd.cu", "paged_decode.cu",
+                               "quant_matmul.cu"}
     for name, rel in _cuda_common.KERNEL_SOURCES.items():
         with open(os.path.join(PKG, rel)) as f:
             src = f.read()
@@ -103,7 +104,7 @@ def test_flags_and_buckets_match_reference():
     from paddle_tpu.jit.api import default_buckets as ref_buckets
 
     for name in ("FLAGS_kv_block_size", "FLAGS_serving_slots",
-                 "FLAGS_kv_cache_dtype"):
+                 "FLAGS_kv_cache_dtype", "FLAGS_weight_only_dtype"):
         assert port_flags.flag(name) == flag(name)
     for n in list(range(0, 70)) + [511, 512, 513, 1024, 1500, 4097]:
         assert default_buckets(n) == ref_buckets(n)

@@ -5,7 +5,9 @@ whole-prompt prefill) on a mixed stream with more requests than slots, for
 MHA and GQA tiny LLaMA; `generate_paged` identity; sampling-filter parity;
 seeded sampling determinism; and the scheduler contracts of
 tests/test_serving.py (allocator, admission control, block release,
-static waves) plus deadlines and the options the port refuses.
+static waves) plus deadlines and the options the port refuses. The
+quantized modes are held against the reference in
+test_torch_serving_quant.py.
 """
 import time
 
@@ -299,8 +301,6 @@ class TestContinuousBatching:
 @pytest.mark.parametrize("kwargs", [
     {"prefix_cache": True}, {"chunked_prefill_tokens": 16},
     {"prefix_cache_max_blocks": 4}, {"spec_decode": "ngram"},
-    {"weight_quant": "int8"}, {"weight_quant": "int4"},
-    {"kv_cache_dtype": "int8"}, {"kv_cache_dtype": "int4"},
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
