@@ -33,7 +33,17 @@ Phases (any failure exits non-zero; nothing is caught):
      paged-decode launches). Two requests of each are replayed teacher-
      forced through the same step functions, one slot, with the plain
      versions of every kernel passed explicitly;
-  7. profile_q4: phase 5 for the int4 engine.
+  7. profile_q4: phase 5 for the int4 engine;
+  8. train: LLaMA at the 1B geometry (bf16 O2 via amp.decorate with bf16
+     AdamW moments, AdamW lr 1e-4, random weights from seed 0) takes
+     training steps on one batch of 4 x 1024 seeded ids, labels = ids.
+     First one step's gradients through the kernels (K1 forward, K2
+     backward) are held against the same step through the plain attention
+     (autograd of `flash_attention_reference`); then 6 steps, counted: K1
+     and both K2 kernels launch steps x 20 times, the losses are finite
+     and fall;
+  9. profile_train: one steady training step under torch.profiler, device
+     time by kernel kind beside the host wall.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Without a CUDA card it exits 1 and prints
@@ -66,6 +76,28 @@ KERNEL_TOL = 2e-2
 #: their logits differ by a few bf16 ulps of the ~1-magnitude hidden
 #: state times ~0.6 logit scale over 20 layers — 0.1 bounds that with room
 TIE_BOUND = 0.1
+#: K2 (flash backward) vs its plain version, from the same bf16 inputs,
+#: relative to each output's largest |value|: both sides accumulate dQ,
+#: dK and dV in f32 from the same inputs and round each once to bf16, so
+#: they differ by at most one bf16 ulp (2^-7 of a value's binade)
+K2_TOL = 2 ** -7
+#: TRAIN's gradient check: one step's bf16 gradients through K1/K2 vs the
+#: same step through the plain attention (autograd of its plain forward),
+#: per tensor, relative to its largest |value|. The two paths round
+#: attention's gradients to bf16 at different points (the kernels once
+#: from f32 sums over P recomputed from the lse, autograd after each op),
+#: so they differ by about one bf16 ulp (2^-8 relative) per attention
+#: call, and the difference passes on through the rest of the backward.
+#: A CPU rehearsal of this check (3 layers, hidden 64, the plain versions
+#: on both sides) gave 0.68%, 1.7 ulps. Adding as a random walk over 20
+#: layers: sqrt(20 / 3) x 1.7 = 4.4 ulps; 16 ulps (2^-4) leaves room for
+#: the largest of ~180 tensors. A kernel that drops a tile or mis-scales
+#: a product moves gradients by far more; the kernel phase holds K2 itself
+#: to one ulp (K2_TOL)
+GRAD_TOL = 2 ** -4
+#: the training phase: batch x sequence of seeded ids, counted steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6
+
 #: the quantized serves' teacher-forced replays. Both sides use the same
 #: quantized weights (identical packed bytes); they differ, as above, by
 #: f32 summation order inside the kernels, rounded to bf16 (one ulp,
@@ -177,6 +209,91 @@ def flash_case(b, hq, hkv, s, d=128):
            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
                q, k, v, is_causal=True, enable_gqa=hq != hkv)),
            "bound_ms": bound, "bound_by": by}
+    _say("KERNEL", rec)
+    return rec
+
+
+def _rel_errs(got, want):
+    """(largest |got - want|, each output's error over its largest
+    |value|) for tuples of tensors; every output must be finite."""
+    import torch
+
+    errs, rels = [], []
+    for a, w in zip(got, want):
+        assert torch.isfinite(a.float()).all(), a.shape
+        err = (a.float() - w.float()).abs().max().item()
+        errs.append(err)
+        rels.append(err / w.float().abs().max().item())
+    return max(errs), rels
+
+
+def flash_bwd_case(b, hq, hkv, s, d=128):
+    """Flash backward (K2) at one training shape, from the same bf16
+    inputs (o and lse from K1, delta = rowsum(dO * O) as the wrapper
+    computes it). Each kernel ("dq", "dkv") is held against its own plain
+    version and timed beside it, beside SDPA's backward asked for the same
+    gradients (its forward untimed), and beside its own bound: the
+    products it does (dQ: QK^T, dO V^T, dS K; dK/dV: those two, P^T dO and
+    dS^T Q) and the bytes it moves. "whole" is the wrapper (delta, then
+    both kernels) against the plain backward and SDPA's full backward,
+    with the bound of the five products the backward needs."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.flash_attention import (
+        _bwd_delta, _launch_bwd_dkv, _launch_bwd_dq, flash_attention_bwd,
+        flash_attention_bwd_dkv_reference, flash_attention_bwd_dq_reference,
+        flash_attention_bwd_reference, flash_attention_fwd)
+
+    g = torch.Generator(device="cuda").manual_seed(100 + s)
+    q, do = (torch.randn(b, hq, s, d, device="cuda", generator=g,
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, hkv, s, d, device="cuda", generator=g,
+                        dtype=torch.bfloat16) for _ in range(2))
+    o, lse = flash_attention_fwd(q, k, v, causal=True)
+    delta = _bwd_delta(o, do)
+    args = (q, k, v, do, lse, delta, True)
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                         enable_gqa=hq != hkv)
+    pairs = b * hq * s * (s + 1) // 2               # causal (row, col) pairs
+    q_bytes, kv_bytes = 2 * b * hq * s * d, 2 * b * hkv * s * d   # bf16
+    # every kernel reads q, dO, k, v (bf16) and lse, delta (f32)
+    reads = 2 * q_bytes + 2 * kv_bytes + 2 * 4 * b * hq * s
+    rec = {"name": "flash_attention_bwd", "shape": [b, hq, hkv, s, d],
+           "tol": K2_TOL}
+    for key, launch, plain, wrt, products, writes in (
+            ("dq", _launch_bwd_dq, flash_attention_bwd_dq_reference,
+             (ql,), 3, q_bytes),
+            ("dkv", _launch_bwd_dkv, flash_attention_bwd_dkv_reference,
+             (kl, vl), 4, 2 * kv_bytes)):
+        got, want = launch(*args), plain(*args)
+        got, want = (got, want) if key == "dkv" else ((got,), (want,))
+        err, rels = _rel_errs(got, want)
+        assert max(rels) <= K2_TOL, (key, rels)
+        bound, by = _bound_ms(products * 2 * pairs * d, reads + writes)
+        rec[key] = {
+            "max_abs_err": err, "rel_err": rels,
+            "ms": _time_ms(lambda: launch(*args)),
+            "plain_ms": _time_ms(lambda: plain(*args)),
+            "library_ms": _time_ms(lambda: torch.autograd.grad(
+                out, wrt, do, retain_graph=True)),
+            "bound_ms": bound, "bound_by": by}
+    # the wrapper, which the train step runs: also reads o
+    err, rels = _rel_errs(flash_attention_bwd(q, k, v, o, lse, do, True),
+                          flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                        True))
+    assert max(rels) <= K2_TOL, ("whole", rels)
+    bound, by = _bound_ms(5 * 2 * pairs * d,
+                          reads + q_bytes + q_bytes + 2 * kv_bytes)
+    rec["whole"] = {
+        "max_abs_err": err, "rel_err": rels,
+        "ms": _time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                   True)),
+        "plain_ms": _time_ms(lambda: flash_attention_bwd_reference(
+            q, k, v, o, lse, do, True)),
+        "library_ms": _time_ms(lambda: torch.autograd.grad(
+            out, (ql, kl, vl), do, retain_graph=True)),
+        "bound_ms": bound, "bound_by": by}
     _say("KERNEL", rec)
     return rec
 
@@ -626,6 +743,172 @@ def profile_decode(model, ticks=10, tag="PROFILE", **engine_kw):
         "top_kernels_ms_per_tick": [[k[:60], v] for k, v in top]})
 
 
+def _train_model():
+    """The 1B model decorated O2 (bf16 params, bf16 AdamW moments) with
+    its optimizer, and the seeded batch."""
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**CFG_1B)
+    torch.manual_seed(0)
+    model = LlamaForCausalLM(cfg, device="cuda")
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16",
+                              master_weight=False)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))).cuda()
+    return model, opt, ids
+
+
+def _plain_attention_loss(model, ids):
+    """The model's loss (`model(ids, labels=ids)` at the 1B vocab: the
+    fused-CE branch) with every layer's attention the plain forward,
+    differentiated by autograd instead of K2."""
+    from paddle_tpu_torch.incubate.nn.functional import \
+        fused_linear_cross_entropy
+    from paddle_tpu_torch.ops.flash_attention import \
+        flash_attention_reference
+    from paddle_tpu_torch.text.generation import (_layer_forward_prefill,
+                                                  _layer_weights)
+
+    m = model.model
+    x = m.embed_tokens(ids)
+    for layer in m.layers:
+        x = _layer_forward_prefill(x, _layer_weights(layer), layer.spec,
+                                   m.rope_cos, m.rope_sin,
+                                   attention=flash_attention_reference)[0]
+    return fused_linear_cross_entropy(m.norm(x), model.lm_head.weight.T, ids)
+
+
+def _grad_check(model, ids):
+    """One step's gradients through the kernels vs the same step through
+    the plain attention (autograd of its plain forward); no update."""
+    import torch
+
+    loss = model(ids, labels=ids)
+    loss.backward()
+    kern = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    plain_loss = _plain_attention_loss(model, ids)
+    plain_loss.backward()
+    worst, worst_name = 0.0, None
+    for n, p in model.named_parameters():
+        a, w = kern[n].float(), p.grad.float()
+        assert torch.isfinite(a).all(), n
+        rel = (a - w).abs().max().item() / w.abs().max().item()
+        if rel > worst:
+            worst, worst_name = rel, n
+    model.zero_grad(set_to_none=True)
+    del kern
+    rec = {"loss": loss.item(), "plain_loss": plain_loss.item(),
+           "tensors": len(list(model.parameters())),
+           "max_rel_err": worst, "worst_tensor": worst_name,
+           "tol": GRAD_TOL}
+    _say("TRAIN_GRAD_CHECK", rec)
+    assert worst <= GRAD_TOL, rec
+    # the plain side is the model's own function, attention aside
+    assert abs(rec["loss"] - rec["plain_loss"]) <= GRAD_TOL * rec["loss"], rec
+
+
+def train():
+    """The training path: the gradient check, then TRAIN_STEPS counted
+    steps. Returns (model, optimizer, ids, launch counts)."""
+    import torch
+    from paddle_tpu_torch.ops import _cuda_common
+
+    t0 = time.perf_counter()
+    model, opt, ids = _train_model()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    _grad_check(model, ids)
+    layers = model.config.num_hidden_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda_common.reset_launch_counts()
+    losses, walls = [], []
+    for _ in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        loss = model(ids, labels=ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    counts = _cuda_common.launch_counts()
+    steady = walls[1:]
+    ms = 1e3 * statistics.median(steady)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    _say("TRAIN", {
+        "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "steps": TRAIN_STEPS, "setup_s": time.perf_counter() - t0,
+        "ms_per_step_median": ms,
+        "ms_per_step_min": 1e3 * min(steady),
+        "ms_per_step_max": 1e3 * max(steady),
+        "first_step_ms": 1e3 * walls[0],
+        "tokens_per_s": tokens / (ms / 1e3),
+        "achieved_tflops": 6 * n_params * tokens / (ms / 1e3) / 1e12,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "losses": losses, "launches": counts})
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert counts[name] == TRAIN_STEPS * layers, counts
+    return model, opt, ids, counts
+
+
+def profile_train(model, opt, ids):
+    """Where a training step's time goes: torch.profiler over one steady
+    step, device time by kernel kind beside the host wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss = model(ids, labels=ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kinds = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
+             "gemm": 0.0, "other": 0.0}
+    per_kernel, spans = {}, {}
+    launched = 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.self_device_time_total
+        if getattr(e, "is_user_annotation", False):
+            # a range around kernels already counted (torch.optim wraps
+            # step() in one, "Optimizer.step#AdamW.step"): its span only
+            spans[e.key] = us / 1e3
+            continue
+        launched += e.count
+        low = e.key.lower()
+        kind = ("flash_bwd_dq" if "flash_bwd_dq" in low else
+                "flash_bwd_dkv" if "flash_bwd_dkv" in low else
+                "flash_fwd" if "flash_fwd" in low else
+                "gemm" if any(w in low for w in ("nvjet", "gemm", "gemv",
+                                                 "xmma", "cutlass"))
+                else "other")
+        kinds[kind] += us / 1e3
+        per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / 1e3
+    device_ms = sum(kinds.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    _say("PROFILE_TRAIN", {
+        "loss": loss.item(), "wall_ms": 1e3 * wall, "device_ms": device_ms,
+        "device_busy_share": device_ms / (1e3 * wall),
+        "device_ops_per_step": launched, "device_ms_by_kind": kinds,
+        "annotated_spans_ms": spans,
+        "top_kernels_ms": [[k[:60], v] for k, v in top]})
+
+
 def main():
     import torch
 
@@ -634,10 +917,10 @@ def main():
         return 1
     from paddle_tpu_torch.ops import _cuda_common
 
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     smi = _nvidia_smi()
-    print(f"DEVICE {name} | nvidia-smi: {smi} | torch {torch.__version__} "
-          f"cuda {torch.version.cuda}", flush=True)
+    print(f"DEVICE {device_name} | nvidia-smi: {smi} | torch "
+          f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
     print(smi, flush=True)
 
     t0 = time.perf_counter()
@@ -647,6 +930,9 @@ def main():
 
     flash = [flash_case(1, 16, 16, s) for s in (128, 500, 512, 1024)]
     flash.append(flash_case(1, 16, 4, 512))
+    # K2 at the train shape, a GQA case and a ragged length
+    bwd = [flash_bwd_case(TRAIN_BATCH, 16, 16, TRAIN_SEQ),
+           flash_bwd_case(1, 16, 4, 512), flash_bwd_case(1, 16, 16, 500)]
     dec = decode_case()
     # the 1B serve's int4 matmuls: decode (M = 8 slots) q/k/v/o,
     # gate/up, down; the f32 lm_head; one prefill bucket (M = 512)
@@ -660,6 +946,10 @@ def main():
     counts_q8 = serve_quant(model, "int8", "int8", 8, "SERVE_Q8")
     profile_decode(model, tag="PROFILE_Q4", weight_quant="int4",
                    kv_cache_dtype="int4")
+    del model                     # the serving weights; TRAIN builds its own
+    torch.cuda.empty_cache()
+    tmodel, opt, ids, counts_train = train()
+    profile_train(tmodel, opt, ids)
 
     main_flash = flash[2]                  # S = 512, a prefill bucket
     paged_src = "paddle_tpu_torch/csrc/paged_decode.cu"
@@ -680,9 +970,21 @@ def main():
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    # K2's two kernels at the train shape, each with its own numbers
+    for kname, key, line in (("flash_attention_bwd_dq", "dq", 263),
+                             ("flash_attention_bwd_dkv", "dkv", 314)):
+        rec = bwd[0][key]
+        summary.append({
+            "name": kname, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",
+            "launches": counts_train[kname],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -1,14 +1,25 @@
 """The subset of paddle_tpu's FLAGS_* that the port implements, with the
-same names, defaults and environment override (a FLAGS_* environment
-variable seeds the value at import)."""
+same names and environment override (a FLAGS_* environment variable seeds
+the value at import), read with `flag` and written with `set_flags`.
+
+Defaults are the reference's, with one temporary exception:
+``FLAGS_pallas_fused_ops`` is False here until the fused RMSNorm, rotary
+and SwiGLU kernels (K3-K5) are ported (ROADMAP Queue 1 item 1, slice 2b).
+"""
 from __future__ import annotations
 
 import os
 
 
+def _parse(text: str, default):
+    if isinstance(default, bool):
+        return text.lower() in ("1", "true", "yes", "on")
+    return type(default)(text)
+
+
 def _from_env(name: str, default):
     env = os.environ.get(name)
-    return default if env is None else type(default)(env)
+    return default if env is None else _parse(env, default)
 
 
 _FLAGS = {
@@ -25,8 +36,21 @@ _FLAGS = {
     "FLAGS_weight_only_dtype": _from_env("FLAGS_weight_only_dtype", "none"),
     # slot count of the continuous-batching engine (inference/engine.py)
     "FLAGS_serving_slots": _from_env("FLAGS_serving_slots", 8),
+    # route the LLaMA forward's norms (+ residual add), rotary and SwiGLU
+    # through fused kernels (K3-K5). Not ported yet: True makes
+    # LlamaForCausalLM.forward raise; False runs the plain compositions
+    "FLAGS_pallas_fused_ops": _from_env("FLAGS_pallas_fused_ops", False),
 }
 
 
 def flag(name: str):
     return _FLAGS[name]
+
+
+def set_flags(flags: dict) -> None:
+    """Set registered flags ({name: value}); an unknown name raises."""
+    for name, value in flags.items():
+        key = name if name.startswith("FLAGS_") else "FLAGS_" + name
+        if key not in _FLAGS:
+            raise KeyError(f"unknown flag {name!r}")
+        _FLAGS[key] = value

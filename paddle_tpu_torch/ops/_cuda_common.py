@@ -36,9 +36,12 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 #: every kernel of the port is built from exactly these files. Each name
 #: is the C entry point of its source and has its own launch counter; the
 #: paged-decode variants over model-dtype, int8 and int4 caches share one
-#: source (one kernel template, the cache format a parameter).
+#: source (one kernel template, the cache format a parameter), and so do
+#: the two flash-attention backward kernels (dQ; dK and dV).
 KERNEL_SOURCES = {
     "flash_attention_fwd": "csrc/flash_attention_fwd.cu",
+    "flash_attention_bwd_dq": "csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dkv": "csrc/flash_attention_bwd.cu",
     "paged_decode_attention": "csrc/paged_decode.cu",
     "paged_decode_attention_int8": "csrc/paged_decode.cu",
     "paged_decode_attention_int4": "csrc/paged_decode.cu",

@@ -3,7 +3,8 @@
 Port of the helpers paddle_tpu/inference/engine.py imports from
 paddle_tpu/text/generation.py: `_GenSpec`, `_rms_norm`, `_rope`,
 `_rope_tables_np`, `_mm`, `_quantize_w`, `_quantize_w4`,
-`_layer_forward_prefill`, `_logits` and the weight extraction
+`_layer_forward_prefill` (also the block math of the port's training
+forward, `text/models/llama.py`), `_logits` and the weight extraction
 (`_repeat_kv` has no use here: the attention functions index or repeat
 GQA kv heads themselves). Same arithmetic and dtype rules as the
 reference; what differs is the mechanism: eager torch and a Python loop
@@ -29,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.flags import flag
-from ..ops.flash_attention import flash_attention_fwd
+from ..ops.flash_attention import flash_attention
 from ..ops.quantized import quant_matmul, quant_matmul_raw, quantize_int4
 
 #: the layer matmul weights that weight-only quantization stores as pairs
@@ -118,13 +119,17 @@ def _quantize_w4(w):
 
 
 def _layer_forward_prefill(x, lw, spec: _GenSpec, cos, sin,
-                           attention=flash_attention_fwd,
+                           attention=flash_attention,
                            qmm=quant_matmul_raw):
-    """One decoder block over the full prompt. x [B, S, H]; cos/sin
-    [>=S, D]. Attention goes through `attention` ([B, H, S, D] layout,
-    returns (o, lse)) and int4 weight matmuls through `qmm`: the kernels
-    by default, which take their plain versions for CPU tensors. Returns
-    (x, (k, v)) with k/v [B, S, Hkv, D]."""
+    """One decoder block over the full prompt: the model's forward (and
+    its training step) and the serving engine's prefill. x [B, S, H];
+    cos/sin [>=S, D]. Attention goes through `attention` ([B, H, S, D]
+    layout, returns (o, lse)) and int4 weight matmuls through `qmm`: by
+    default the differentiable flash op (K1 forward, K2 backward when a
+    gradient is recorded) and the K8 wrapper, which take their plain
+    versions for CPU tensors. The serving engine passes its attention
+    explicitly and runs under `torch.no_grad()`, where the flash op is the
+    forward kernel alone. Returns (x, (k, v)) with k/v [B, S, Hkv, D]."""
     b, s, h = x.shape
     hn = _rms_norm(x, lw["input_ln"], spec.rms_eps)
     flat = hn.reshape(b * s, h)

@@ -3,8 +3,9 @@
 The state dict of a paddle_tpu `LlamaForCausalLM` (as numpy) loads
 directly: its keys carry the prefix "llama." (or "model."), and its
 Linear weights are [in, out], which are transposed here to torch's
-[out, in]. paddle_tpu's serving params (its stacked, possibly
-weight-only-quantized dict) load as the port's per-layer serving params.
+[out, in]; `llama_to_numpy` is the way back. paddle_tpu's serving params
+(its stacked, possibly weight-only-quantized dict) load as the port's
+per-layer serving params.
 """
 from __future__ import annotations
 
@@ -64,8 +65,27 @@ def llama_from_numpy(cfg: LlamaConfig, state: dict, device=None,
         key = "model." + name[len(prefix):] if name.startswith(prefix) \
             else name
         t = torch.from_numpy(np.array(arr))   # a private, writable copy
-        if key.endswith("_proj.weight") or key == "lm_head.weight":
+        if _is_linear(key):
             t = t.T                       # [in, out] -> [out, in]
         sd[key] = t
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def _is_linear(key: str) -> bool:
+    return key.endswith("_proj.weight") or key == "lm_head.weight"
+
+
+def llama_to_numpy(model: LlamaForCausalLM, prefix="llama.") -> dict:
+    """The inverse of `llama_from_numpy`: {name: f32 ndarray} in the
+    reference's state-dict layout (keys under `prefix`, Linear weights
+    [in, out]), whatever the model's dtype."""
+    out = {}
+    for key, t in model.state_dict().items():
+        a = t.detach().float().cpu()
+        if _is_linear(key):
+            a = a.T                       # [out, in] -> [in, out]
+        if key.startswith("model."):
+            key = prefix + key[len("model."):]
+        out[key] = np.ascontiguousarray(a.numpy())
+    return out

@@ -1,15 +1,24 @@
 """LLaMA-family decoder as torch `nn.Module`s — dense, single device.
 
 Port of paddle_tpu/text/models/llama.py (config, rope tables, attention,
-SwiGLU MLP, decoder layer, model, causal-LM head). Out of scope here:
-tensor/sequence parallelism, recompute, fp8 and the pipeline layer
-descriptions, and the fused lm_head + cross-entropy loss.
+SwiGLU MLP, decoder layer, model, causal-LM head and its loss). Out of
+scope here: tensor/sequence parallelism and recompute (their config
+switches raise `NotImplementedError` naming the ROADMAP item), fp8, the
+pipeline layer descriptions, and the fused norm/rotary/SwiGLU kernels
+that `FLAGS_pallas_fused_ops` routes to (K3-K5, slice 2b).
 
 The attention and MLP modules hold the parameters; the block's math is
 `text.generation._layer_forward_prefill`, the same function the serving
 engine's prefill runs, so the model and the engine cannot drift apart.
-Attention there goes through the flash kernel on CUDA and its plain
-version on the CPU.
+Attention there goes through the differentiable flash op
+(`ops.flash_attention.flash_attention`): K1 forward and, when a gradient
+is recorded, K2 backward on CUDA; their plain versions on the CPU. The
+serving engine calls the block under `torch.no_grad()`, where the op is
+the forward kernel alone.
+
+Mixed precision (`amp.decorate` O2): parameters are bf16 and every matmul
+runs in bf16; RMSNorm, the logits of the loss and the cross-entropy are
+computed in f32, the ops the reference's AMP keeps in f32.
 
 Linear weights use torch's [out, in] layout (paddle_tpu's Linear stores
 [in, out]; `convert.llama_from_numpy` transposes on the way in).
@@ -19,8 +28,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ...core.flags import flag
+from ...incubate.nn.functional import fused_linear_cross_entropy
 from ...ops._cuda_common import resolve_device
 from ..generation import (_layer_forward_prefill, _layer_weights, _rms_norm,
                           _rope_tables, _spec_from_config)
@@ -38,6 +50,12 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
+    # the reference's parallelism and recompute switches; not ported yet
+    # (switched on, building the model raises NotImplementedError)
+    tensor_parallel: bool = False
+    sequence_parallel: bool = False
+    use_recompute: bool = False
+    recompute_granularity: str = "full"
 
     def __post_init__(self):
         if self.num_key_value_heads is None:
@@ -129,17 +147,31 @@ class LlamaModel(nn.Module):
         return self.norm(x)
 
 
+#: config switches the port does not implement yet -> the ROADMAP item
+_UNPORTED = {
+    "use_recompute": "ROADMAP Queue 1 item 1, slice 2b (recompute)",
+    "tensor_parallel": "ROADMAP 'After these', Distributed",
+    "sequence_parallel": "ROADMAP 'After these', Distributed",
+}
+
+
 class LlamaForCausalLM(nn.Module):
     """LLaMA with its LM head. Built on `device` ("cuda" unless the caller
     asks for another; no card -> RuntimeError) in `dtype`, with torch's
-    default random init (seed it with `torch.manual_seed`). Inference
-    only in this slice: the attention kernel has no backward yet (K2)."""
+    default random init (seed it with `torch.manual_seed`). `forward`
+    trains (with labels it returns the loss; attention is the
+    differentiable flash op) and gives logits; `generate` serves through
+    the paged engine under `torch.no_grad()`."""
 
     _gen_arch = "llama"
 
     def __init__(self, config: LlamaConfig, device=None,
                  dtype=torch.float32):
         super().__init__()
+        for name, item in _UNPORTED.items():
+            if getattr(config, name):
+                raise NotImplementedError(
+                    f"LlamaConfig.{name}=True is not ported yet ({item})")
         factory = {"device": resolve_device(device), "dtype": dtype}
         self.config = config
         self.model = LlamaModel(config, **factory)
@@ -153,14 +185,37 @@ class LlamaForCausalLM(nn.Module):
     def rope_tables(self):
         return self.model.rope_cos, self.model.rope_sin
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, labels=None):
         """input_ids [B, S] (tensor or array) -> logits [B, S, V] in the
-        model's dtype."""
+        model's dtype; with `labels` [B, S], the mean causal-LM
+        cross-entropy in f32 instead, over the labels that are not -100
+        (no shift: the caller aligns them, as the reference's train step
+        passes `model(x, x)`). An lm_head with vocab >= 4096 takes
+        `fused_linear_cross_entropy`, the reference's branch; smaller
+        vocabs (and tied embeddings) the plain cross-entropy of the f32
+        logits."""
+        if flag("FLAGS_pallas_fused_ops"):
+            raise NotImplementedError(
+                "FLAGS_pallas_fused_ops=True routes the LLaMA forward "
+                "through the fused RMSNorm, rotary and SwiGLU kernels "
+                "(K3-K5), which are not ported yet (ROADMAP Queue 1 item "
+                "1, slice 2b); set it to False for the plain compositions")
         ids = torch.as_tensor(input_ids, device=self.device).long()
         hidden = self.model(ids)
+        if labels is not None:
+            labels = torch.as_tensor(labels, device=self.device).long()
+            if self.lm_head is not None and self.config.vocab_size >= 4096:
+                return fused_linear_cross_entropy(
+                    hidden, self.lm_head.weight.T, labels)
         if self.lm_head is None:
-            return hidden @ self.model.embed_tokens.weight.T
-        return self.lm_head(hidden)
+            logits = hidden @ self.model.embed_tokens.weight.T
+        else:
+            logits = self.lm_head(hidden)
+        if labels is None:
+            return logits
+        return F.cross_entropy(
+            logits.float().reshape(-1, self.config.vocab_size),
+            labels.reshape(-1), ignore_index=-100)
 
     def generate(self, input_ids, max_new_tokens=32, max_length=None,
                  do_sample=False, temperature=1.0, top_k=0, top_p=1.0,

@@ -86,7 +86,8 @@ def test_kernel_sources_exist_and_are_the_build_list():
     srcs = {os.path.basename(p) for p in _cuda_common.KERNEL_SOURCES.values()}
     on_disk = {f for f in os.listdir(_cuda_common.CSRC_DIR)
                if f.endswith((".cu", ".cuh"))}
-    assert srcs == on_disk == {"flash_attention_fwd.cu", "paged_decode.cu",
+    assert srcs == on_disk == {"flash_attention_fwd.cu",
+                               "flash_attention_bwd.cu", "paged_decode.cu",
                                "quant_matmul.cu"}
     for name, rel in _cuda_common.KERNEL_SOURCES.items():
         with open(os.path.join(PKG, rel)) as f:
@@ -109,3 +110,25 @@ def test_flags_and_buckets_match_reference():
     for n in list(range(0, 70)) + [511, 512, 513, 1024, 1500, 4097]:
         assert default_buckets(n) == ref_buckets(n)
     assert _cuda_common.ceil_to(17, 16) == 32
+
+
+def test_fused_ops_flag_diverges_from_reference_until_ported():
+    """FLAGS_pallas_fused_ops is False in the port until K3-K5 are
+    ported (the reference's default is True); set_flags writes known
+    flags only, and bool flags parse from the environment as in the
+    reference."""
+    import paddle_tpu  # noqa: F401
+    from paddle_tpu.core.flags import _parse as ref_parse
+    from paddle_tpu.core.flags import flag
+
+    assert flag("FLAGS_pallas_fused_ops") is True
+    assert port_flags.flag("FLAGS_pallas_fused_ops") is False
+    for text in ("1", "true", "False", "off", "yes"):
+        assert port_flags._parse(text, False) == ref_parse(text, False)
+    port_flags.set_flags({"pallas_fused_ops": True})
+    try:
+        assert port_flags.flag("FLAGS_pallas_fused_ops") is True
+    finally:
+        port_flags.set_flags({"FLAGS_pallas_fused_ops": False})
+    with pytest.raises(KeyError):
+        port_flags.set_flags({"FLAGS_no_such_flag": 1})
