@@ -9,11 +9,13 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build: every CUDA kernel of the port, from the sources in the
      checkout (nvcc, sm_90a, one process per source, in parallel);
   3. kernels: each kernel at the main path's shapes (bf16; the int4
-     dequant-matmul also at the f32 lm_head shape), held against its plain
-     PyTorch version on the same inputs, and timed (CUDA events, median of
-     30 after warm-up, device time only) beside the plain version, one
-     PyTorch library call as a yardstick, and the card's bound for the
-     work. The quantized
+     dequant-matmul also at the f32 lm_head shape; the fused norm, rotary
+     and SwiGLU kernels at the train step's shapes and dtypes, and at a
+     ragged f32 size), held against its plain PyTorch version on the same
+     inputs, and timed (CUDA events, median of 30 after warm-up, device
+     time only) beside the plain version, one PyTorch library call as a
+     yardstick where one computes the same function, and the card's bound
+     for the work. The quantized
      paged-decode kernels read caches written by the port's own
      int8/int4 prefill scatters;
   4. serve: LLaMA at the 1B geometry (hidden 2048, 20 layers, 16 heads,
@@ -36,14 +38,20 @@ Phases (any failure exits non-zero; nothing is caught):
   7. profile_q4: phase 5 for the int4 engine;
   8. train: LLaMA at the 1B geometry (bf16 O2 via amp.decorate with bf16
      AdamW moments, AdamW lr 1e-4, random weights from seed 0) takes
-     training steps on one batch of 4 x 1024 seeded ids, labels = ids.
-     First one step's gradients through the kernels (K1 forward, K2
-     backward) are held against the same step through the plain attention
-     (autograd of `flash_attention_reference`); then 6 steps, counted: K1
-     and both K2 kernels launch steps x 20 times, the losses are finite
-     and fall;
+     training steps on one batch of 4 x 1024 seeded ids, labels = ids,
+     with FLAGS_pallas_fused_ops at its default (True). First one step's
+     gradients through the kernels (K1 forward, K2 backward, the fused
+     RMSNorm K3, rotary K4 and SwiGLU K5 both ways) are held against the
+     same step through the plain compositions and the plain attention
+     (`_layer_forward_prefill`, autograd of `flash_attention_reference`);
+     then 6 steps, counted: K1 and both K2 kernels launch steps x 20
+     times, K3 steps x 41 each way, K4 steps x 40, K5 steps x 20 each
+     way; the losses are finite and fall;
   9. profile_train: one steady training step under torch.profiler, device
-     time by kernel kind beside the host wall.
+     time by kernel kind beside the host wall;
+ 10. train_unfused: the same model and batch with the flag False (the
+     plain compositions; no K3-K5 launch), then the fused step again, so
+     ms per step and peak memory of both come from one card in one run.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Without a CUDA card it exits 1 and prints
@@ -125,6 +133,19 @@ QMM_TOL = {"bfloat16": 2 ** -7, "float32": 1e-5}
 #: the dequantized cache to bf16 before the softmax (the reference's XLA
 #: composition does), the kernel keeps it in f32
 KERNEL_TOL_Q = 3e-2
+
+#: the fused norm, rotary and SwiGLU kernels (K3-K5) vs their plain
+#: versions from the same inputs, relative to each output's largest
+#: |value|: both compute in f32 and round each output once, so an f32
+#: output differs by f32 rounding (1e-5), dw, a sum over 4096 rows taken
+#: in another order, by more (1e-4), and a bf16 output by at most one
+#: bf16 ulp (2^-7)
+FUSED_TOL = {"float32": 1e-5, "dw_float32": 1e-4, "bfloat16": 2 ** -7}
+#: the fused kernels' launch counters (none may launch while serving)
+FUSED_KERNELS = ("fused_rms_norm_fwd", "fused_rms_norm_bwd", "rope_qk",
+                 "swiglu_fwd", "swiglu_bwd")
+#: TRAIN_UNFUSED's counted steps (and again for the fused step after it)
+UNFUSED_STEPS = 4
 
 CFG_1B = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5504,
               num_hidden_layers=20, num_attention_heads=16,
@@ -476,6 +497,165 @@ def quant_decode_case(fmt, seqs=8, heads=16, d=128, bs=16, max_len=1024):
     return rec
 
 
+def _fused_record(name, case, shape, got, want, dw_index, fn, plain,
+                  library, nbytes, flops):
+    """Hold one fused kernel's outputs `got` against its plain version's
+    `want` (FUSED_TOL by output dtype; output `dw_index` is a dw), time
+    the kernel, its plain version and `library` (None: no single PyTorch
+    call computes the function) with the L2 flushed before each launch
+    (at these shapes the inputs come from earlier kernels of the step and
+    exceed the 50 MB L2 together), print the KERNEL line and return it."""
+    import torch
+
+    errs, rels = [], []
+    for i, (a, w) in enumerate(zip(got, want)):
+        assert a.dtype == w.dtype and a.shape == w.shape, (name, case, i)
+        assert torch.isfinite(a.float()).all(), (name, case, i)
+        err = (a.float() - w.float()).abs().max().item()
+        rel = err / w.float().abs().max().item()
+        key = str(a.dtype).replace("torch.", "")
+        tol = FUSED_TOL["dw_" + key if i == dw_index
+                        and key == "float32" else key]
+        assert rel <= tol, (name, case, i, rel, tol)
+        errs.append(err)
+        rels.append(rel)
+    scratch = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    flush = scratch.zero_
+    bound, by = _bound_ms(flops, nbytes, PEAK_F32_FLOPS)
+    rec = {"name": name, "case": case, "shape": list(shape),
+           "max_abs_err": max(errs), "rel_err": rels,
+           "ms": _time_ms(fn, flush), "plain_ms": _time_ms(plain, flush),
+           "library_ms": None if library is None
+           else _time_ms(library, flush),
+           "bound_ms": bound, "bound_by": by}
+    _say("KERNEL", rec)
+    return rec
+
+
+def fused_norm_cases(rows, h, tag, x_dtype="bfloat16", y_dtype="float32"):
+    """K3 forward and backward at [rows, h]: the plain norm (x_dtype in,
+    y_dtype out: the train step's input and final norms read the bf16
+    stream and write f32) and the add variant (x_dtype in and out: the
+    post-attention norm). The library yardstick is F.rms_norm on f32
+    copies of the inputs (made outside the timing), and autograd through
+    it for the backward; nothing in PyTorch computes the add variant in
+    one call. Returns {case: record}."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.fused_norm import (
+        fused_rms_norm_bwd, fused_rms_norm_fwd, rms_norm_bwd_reference,
+        rms_norm_fwd_reference)
+
+    xdt, ydt = getattr(torch, x_dtype), getattr(torch, y_dtype)
+    xb, yb = torch.finfo(xdt).bits // 8, torch.finfo(ydt).bits // 8
+    g = torch.Generator(device="cuda").manual_seed(rows + h)
+    x, res, ds = (torch.randn(rows, h, device="cuda", generator=g,
+                              dtype=xdt) for _ in range(3))
+    w = torch.randn(h, device="cuda", generator=g, dtype=xdt)
+    dy = torch.randn(rows, h, device="cuda", generator=g, dtype=ydt)
+    dya = dy.to(xdt)
+    eps, n = 1e-6, rows * h
+    out = {}
+    # forward, plain norm: read x, w; write y, rstd
+    got = fused_rms_norm_fwd(x, None, w, eps, ydt)
+    want = rms_norm_fwd_reference(x, None, w, eps, ydt)
+    xf, wf = x.float(), w.float()
+    out["fwd"] = _fused_record(
+        "fused_rms_norm_fwd", f"{tag} rms {x_dtype}->{y_dtype}", (rows, h),
+        (got[0], got[2]), (want[0], want[2]), None,
+        lambda: fused_rms_norm_fwd(x, None, w, eps, ydt),
+        lambda: rms_norm_fwd_reference(x, None, w, eps, ydt),
+        lambda: F.rms_norm(xf, (h,), wf, eps),
+        xb * n + xb * h + yb * n + 4 * rows, 4 * n)
+    rstd = got[2]
+    # forward, add variant: read x, res, w; write y, s, rstd
+    got = fused_rms_norm_fwd(x, res, w, eps)
+    want = rms_norm_fwd_reference(x, res, w, eps)
+    out["fwd_add"] = _fused_record(
+        "fused_rms_norm_fwd", f"{tag} add+rms {x_dtype}", (rows, h), got,
+        want, None, lambda: fused_rms_norm_fwd(x, res, w, eps),
+        lambda: rms_norm_fwd_reference(x, res, w, eps), None,
+        2 * xb * n + xb * h + 2 * xb * n + 4 * rows, 5 * n)
+    s_add, rstd_add = got[1], got[2]
+    # backward, plain norm: read s (= x), dy, w, rstd; write dx, dw
+    xl = xf.clone().requires_grad_()
+    wl = wf.clone().requires_grad_()
+    yl = F.rms_norm(xl, (h,), wl, eps)
+    dyf = dy.float()
+    out["bwd"] = _fused_record(
+        "fused_rms_norm_bwd", f"{tag} rms {x_dtype}<-{y_dtype}", (rows, h),
+        fused_rms_norm_bwd(x, w, rstd, dy),
+        rms_norm_bwd_reference(x, w, rstd, dy), 1,
+        lambda: fused_rms_norm_bwd(x, w, rstd, dy),
+        lambda: rms_norm_bwd_reference(x, w, rstd, dy),
+        lambda: torch.autograd.grad(yl, (xl, wl), dyf, retain_graph=True),
+        xb * n + yb * n + xb * h + 4 * rows + xb * n + xb * h, 8 * n)
+    # backward, add variant: read s, dy, ds, w, rstd; write dsum, dw
+    out["bwd_add"] = _fused_record(
+        "fused_rms_norm_bwd", f"{tag} add+rms {x_dtype}", (rows, h),
+        fused_rms_norm_bwd(s_add, w, rstd_add, dya, ds),
+        rms_norm_bwd_reference(s_add, w, rstd_add, dya, ds), 1,
+        lambda: fused_rms_norm_bwd(s_add, w, rstd_add, dya, ds),
+        lambda: rms_norm_bwd_reference(s_add, w, rstd_add, dya, ds), None,
+        3 * xb * n + xb * h + 4 * rows + xb * n + xb * h, 9 * n)
+    return out
+
+
+def rope_cases(b, s, heads, d, tag, dtype="bfloat16"):
+    """K4 at q, k [b, s, heads, d] with random [s, d] tables (the
+    backward reads the partner index's sin), both directions. Nothing in
+    PyTorch rotates in one call. Returns {"fwd": ..., "bwd": ...}."""
+    import torch
+    from paddle_tpu_torch.ops.fused_norm import rope_qk, rope_qk_reference
+
+    dt = getattr(torch, dtype)
+    eb = torch.finfo(dt).bits // 8
+    gen = torch.Generator(device="cuda").manual_seed(s + d)
+    q, k = (torch.randn(b, s, heads, d, device="cuda", generator=gen,
+                        dtype=dt) for _ in range(2))
+    cos, sin = (torch.randn(s, d, device="cuda", generator=gen, dtype=dt)
+                for _ in range(2))
+    n = b * s * heads * d
+    out = {}
+    for key, bwd in (("fwd", False), ("bwd", True)):
+        out[key] = _fused_record(
+            "rope_qk", f"{tag} {key} {dtype}", (b, s, heads, d),
+            rope_qk(q, k, cos, sin, bwd),
+            rope_qk_reference(q, k, cos, sin, bwd), None,
+            lambda bwd=bwd: rope_qk(q, k, cos, sin, bwd),
+            lambda bwd=bwd: rope_qk_reference(q, k, cos, sin, bwd), None,
+            4 * eb * n + 2 * eb * s * d, 2 * 3 * n)
+    return out
+
+
+def swiglu_cases(rows, cols, tag, dtype="bfloat16"):
+    """K5 forward and backward at [rows, cols]. Nothing in PyTorch
+    computes silu(g) * u (or its two gradients) in one call. Returns
+    {"fwd": ..., "bwd": ...}."""
+    import torch
+    from paddle_tpu_torch.ops.fused_norm import (
+        swiglu_bwd, swiglu_bwd_reference, swiglu_fwd, swiglu_fwd_reference)
+
+    dt = getattr(torch, dtype)
+    eb = torch.finfo(dt).bits // 8
+    gen = torch.Generator(device="cuda").manual_seed(rows + cols)
+    g, u, do = (torch.randn(rows, cols, device="cuda", generator=gen,
+                            dtype=dt) for _ in range(3))
+    n = rows * cols
+    return {
+        "fwd": _fused_record(
+            "swiglu_fwd", f"{tag} {dtype}", (rows, cols),
+            (swiglu_fwd(g, u),), (swiglu_fwd_reference(g, u),), None,
+            lambda: swiglu_fwd(g, u), lambda: swiglu_fwd_reference(g, u),
+            None, 3 * eb * n, 6 * n),
+        "bwd": _fused_record(
+            "swiglu_bwd", f"{tag} {dtype}", (rows, cols),
+            swiglu_bwd(g, u, do), swiglu_bwd_reference(g, u, do), None,
+            lambda: swiglu_bwd(g, u, do),
+            lambda: swiglu_bwd_reference(g, u, do), None, 5 * eb * n,
+            12 * n)}
+
+
 def _requests(vocab):
     """The serve's 16 requests: prompts of 64-512 tokens, 32-128 new
     tokens each (seeded)."""
@@ -563,6 +743,7 @@ def serve():
     layers = cfg.num_hidden_layers
     assert counts["flash_attention_fwd"] == len(reqs) * layers, counts
     assert counts["paged_decode_attention"] == st["steps"] * layers, counts
+    assert all(counts[n] == 0 for n in FUSED_KERNELS), counts
 
     # teacher-forced greedy check through the PLAIN attention functions
     params, spec = eng.params, eng.spec
@@ -668,6 +849,7 @@ def serve_quant(model, weight_quant, kv_cache_dtype, n_requests, tag):
     for fmt, name in KERNEL_NAMES.items():
         if fmt != kv_cache_dtype:
             assert counts[name] == 0, counts
+    assert all(counts[n] == 0 for n in FUSED_KERNELS), counts
 
     agree = total = 0
     worst = 0.0
@@ -764,14 +946,17 @@ def _train_model():
 
 def _plain_attention_loss(model, ids):
     """The model's loss (`model(ids, labels=ids)` at the 1B vocab: the
-    fused-CE branch) with every layer's attention the plain forward,
-    differentiated by autograd instead of K2."""
+    fused-CE branch) through the plain compositions alone: every layer is
+    `_layer_forward_prefill` (RMSNorm, rotary and SwiGLU composed in
+    torch, as with FLAGS_pallas_fused_ops off) with its attention the
+    plain forward, differentiated by autograd instead of K2, and the final
+    norm is the composition too. No kernel of the model runs."""
     from paddle_tpu_torch.incubate.nn.functional import \
         fused_linear_cross_entropy
     from paddle_tpu_torch.ops.flash_attention import \
         flash_attention_reference
     from paddle_tpu_torch.text.generation import (_layer_forward_prefill,
-                                                  _layer_weights)
+                                                  _layer_weights, _rms_norm)
 
     m = model.model
     x = m.embed_tokens(ids)
@@ -779,12 +964,14 @@ def _plain_attention_loss(model, ids):
         x = _layer_forward_prefill(x, _layer_weights(layer), layer.spec,
                                    m.rope_cos, m.rope_sin,
                                    attention=flash_attention_reference)[0]
-    return fused_linear_cross_entropy(m.norm(x), model.lm_head.weight.T, ids)
+    return fused_linear_cross_entropy(_rms_norm(x, m.norm.weight, m.norm.eps),
+                                      model.lm_head.weight.T, ids)
 
 
 def _grad_check(model, ids):
-    """One step's gradients through the kernels vs the same step through
-    the plain attention (autograd of its plain forward); no update."""
+    """One step's gradients through the kernels (K1-K5) vs the same step
+    through the plain compositions and the plain attention (autograd of
+    its plain forward); no update."""
     import torch
 
     loss = model(ids, labels=ids)
@@ -808,27 +995,21 @@ def _grad_check(model, ids):
            "tol": GRAD_TOL}
     _say("TRAIN_GRAD_CHECK", rec)
     assert worst <= GRAD_TOL, rec
-    # the plain side is the model's own function, attention aside
+    # the plain side is the model's own function, its arithmetic aside
     assert abs(rec["loss"] - rec["plain_loss"]) <= GRAD_TOL * rec["loss"], rec
 
 
-def train():
-    """The training path: the gradient check, then TRAIN_STEPS counted
-    steps. Returns (model, optimizer, ids, launch counts)."""
+def _timed_steps(model, opt, ids, steps):
+    """`steps` training steps from a zeroed peak-memory counter and zeroed
+    launch counts: (losses, step walls in s, peak GB, launch counts)."""
     import torch
     from paddle_tpu_torch.ops import _cuda_common
 
-    t0 = time.perf_counter()
-    model, opt, ids = _train_model()
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    _grad_check(model, ids)
-    layers = model.config.num_hidden_layers
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _cuda_common.reset_launch_counts()
     losses, walls = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t1 = time.perf_counter()
         loss = model(ids, labels=ids)
         loss.backward()
@@ -837,7 +1018,25 @@ def train():
         losses.append(loss.item())
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t1)
-    counts = _cuda_common.launch_counts()
+    return (losses, walls, torch.cuda.max_memory_allocated() / 1e9,
+            _cuda_common.launch_counts())
+
+
+def train():
+    """The training path (FLAGS_pallas_fused_ops on, its default): the
+    gradient check, then TRAIN_STEPS counted steps. Returns (model,
+    optimizer, ids, launch counts)."""
+    import torch
+    from paddle_tpu_torch.core.flags import flag
+
+    assert flag("FLAGS_pallas_fused_ops") is True
+    t0 = time.perf_counter()
+    model, opt, ids = _train_model()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    _grad_check(model, ids)
+    layers = model.config.num_hidden_layers
+    losses, walls, peak, counts = _timed_steps(model, opt, ids, TRAIN_STEPS)
     steady = walls[1:]
     ms = 1e3 * statistics.median(steady)
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -850,14 +1049,57 @@ def train():
         "first_step_ms": 1e3 * walls[0],
         "tokens_per_s": tokens / (ms / 1e3),
         "achieved_tflops": 6 * n_params * tokens / (ms / 1e3) / 1e12,
-        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "losses": losses, "launches": counts})
+        "max_memory_allocated_gb": peak, "losses": losses,
+        "launches": counts})
     assert all(np.isfinite(losses)), losses
     assert losses[-1] < losses[0], losses
+    # per step: K1, K2, K5 once per layer (each way); K3 twice per layer
+    # and once for the final norm, each way; K4 once per layer each way
+    want = {"flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
+            "flash_attention_bwd_dkv": layers, "swiglu_fwd": layers,
+            "swiglu_bwd": layers, "fused_rms_norm_fwd": 2 * layers + 1,
+            "fused_rms_norm_bwd": 2 * layers + 1, "rope_qk": 2 * layers}
+    for name, per_step in want.items():
+        assert counts[name] == TRAIN_STEPS * per_step, (name, counts)
+    return model, opt, ids, counts
+
+
+def train_unfused(model, opt, ids):
+    """TRAIN's model and batch with FLAGS_pallas_fused_ops off (the plain
+    compositions), UNFUSED_STEPS counted steps, then as
+    many fused steps again, so fused and unfused step times and peak
+    memory come from one card in one run (fused, unfused, fused)."""
+    from paddle_tpu_torch.core.flags import set_flags
+
+    layers = model.config.num_hidden_layers
+    set_flags({"FLAGS_pallas_fused_ops": False})
+    try:
+        losses, walls, peak, counts = _timed_steps(model, opt, ids,
+                                                   UNFUSED_STEPS)
+    finally:
+        set_flags({"FLAGS_pallas_fused_ops": True})
+    f_losses, f_walls, f_peak, f_counts = _timed_steps(model, opt, ids,
+                                                       UNFUSED_STEPS)
+    ms = 1e3 * statistics.median(walls[1:])
+    _say("TRAIN_UNFUSED", {
+        "steps": UNFUSED_STEPS, "ms_per_step_median": ms,
+        "ms_per_step_min": 1e3 * min(walls[1:]),
+        "ms_per_step_max": 1e3 * max(walls[1:]),
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+        "max_memory_allocated_gb": peak, "losses": losses,
+        "launches": counts,
+        "fused_again_ms_per_step_median": 1e3 * statistics.median(
+            f_walls[1:]),
+        "fused_again_ms_per_step_min": 1e3 * min(f_walls[1:]),
+        "fused_again_ms_per_step_max": 1e3 * max(f_walls[1:]),
+        "fused_again_max_memory_allocated_gb": f_peak,
+        "fused_again_losses": f_losses})
+    assert all(np.isfinite(losses + f_losses)), (losses, f_losses)
+    assert all(counts[n] == 0 for n in FUSED_KERNELS), counts
     for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):
-        assert counts[name] == TRAIN_STEPS * layers, counts
-    return model, opt, ids, counts
+        assert counts[name] == UNFUSED_STEPS * layers, counts
+    assert f_counts["rope_qk"] == UNFUSED_STEPS * 2 * layers, f_counts
 
 
 def profile_train(model, opt, ids):
@@ -877,7 +1119,9 @@ def profile_train(model, opt, ids):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kinds = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
-             "gemm": 0.0, "other": 0.0}
+             "rms_norm_fwd": 0.0, "rms_norm_bwd": 0.0, "rope": 0.0,
+             "swiglu_fwd": 0.0, "swiglu_bwd": 0.0, "gemm": 0.0,
+             "other": 0.0}
     per_kernel, spans = {}, {}
     launched = 0
     for e in prof.key_averages():
@@ -891,7 +1135,13 @@ def profile_train(model, opt, ids):
             continue
         launched += e.count
         low = e.key.lower()
-        kind = ("flash_bwd_dq" if "flash_bwd_dq" in low else
+        kind = ("rms_norm_fwd" if "rms_fwd_kernel" in low else
+                "rms_norm_bwd" if ("rms_bwd_kernel" in low
+                                   or "dw_finish_kernel" in low) else
+                "rope" if "rope_kernel" in low else
+                "swiglu_fwd" if "swiglu_fwd_kernel" in low else
+                "swiglu_bwd" if "swiglu_bwd_kernel" in low else
+                "flash_bwd_dq" if "flash_bwd_dq" in low else
                 "flash_bwd_dkv" if "flash_bwd_dkv" in low else
                 "flash_fwd" if "flash_fwd" in low else
                 "gemm" if any(w in low for w in ("nvjet", "gemm", "gemv",
@@ -940,6 +1190,15 @@ def main():
            qmm_case(8, 5504, 2048), qmm_case(8, 2048, 32000, "float32"),
            qmm_case(512, 2048, 5504)]
     dec_q = {fmt: quant_decode_case(fmt) for fmt in ("int8", "int4")}
+    # K3-K5 at the train step's shapes (rows 4 x 1024, hidden 2048,
+    # intermediate 5504, q/k [4, 1024, 16, 128], bf16) and a ragged f32 size
+    rows = TRAIN_BATCH * TRAIN_SEQ
+    norm = fused_norm_cases(rows, CFG_1B["hidden_size"], "train")
+    rope = rope_cases(TRAIN_BATCH, TRAIN_SEQ, 16, 128, "train")
+    swi = swiglu_cases(rows, CFG_1B["intermediate_size"], "train")
+    fused_norm_cases(66, 64, "tiny", "float32", "float32")
+    rope_cases(2, 33, 4, 16, "tiny", "float32")
+    swiglu_cases(66, 128, "tiny", "float32")
     model, counts = serve()
     profile_decode(model)
     counts_q4 = serve_quant(model, "int4", "int4", 16, "SERVE_Q4")
@@ -950,6 +1209,7 @@ def main():
     torch.cuda.empty_cache()
     tmodel, opt, ids, counts_train = train()
     profile_train(tmodel, opt, ids)
+    train_unfused(tmodel, opt, ids)
 
     main_flash = flash[2]                  # S = 512, a prefill bucket
     paged_src = "paddle_tpu_torch/csrc/paged_decode.cu"
@@ -979,6 +1239,20 @@ def main():
             "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",
             "launches": counts_train[kname],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    # K3-K5 at the train step's shapes, one row per case; launches are the
+    # entry point's count over TRAIN's counted steps (all its cases)
+    for rec, line in ((norm["fwd"], 118), (norm["fwd_add"], 118),
+                      (norm["bwd"], 160), (norm["bwd_add"], 160),
+                      (rope["fwd"], 409), (rope["bwd"], 409),
+                      (swi["fwd"], 509), (swi["bwd"], 515)):
+        summary.append({
+            "name": rec["name"], "case": rec["case"], "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/fused_norm.cu",
+            "replaces": f"paddle_tpu/ops/pallas_norm.py:{line}",
+            "launches": counts_train[rec["name"]],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})

@@ -8,11 +8,13 @@ reference keeps them — and sets the optimizer's `multi_precision` to
 `master_weight is not False`; at O1 (the default, as the reference's)
 and O0 it changes nothing, as the reference's does. The ops the reference
 keeps in f32 under O2 (its BLACK_LIST: norms, softmax, cross-entropy) are
-computed in f32 by the port's forward itself (`text.generation._rms_norm`,
-the flash attention's f32 softmax, the f32 logits of the loss), so
+computed in f32 by the port's forward itself (the RMSNorms, in f32 inside
+the fused kernel or the composition, with the input and final norms
+writing f32 when `FLAGS_pallas_fused_ops` is on; the flash attention's
+f32 softmax; the f32 logits of the loss), so
 `auto_cast` at O2 casts nothing and only checks its arguments. `auto_cast`
 at O1 (casting per op at dispatch) and GradScaler are not ported yet
-(ROADMAP Queue 1 item 1, slice 2b).
+(ROADMAP Queue 1 item 1, the next training slice).
 """
 from __future__ import annotations
 
@@ -72,10 +74,11 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
         if level == "O1":
             raise NotImplementedError(
                 "amp level O1 (per-op casting at dispatch) is not ported "
-                "yet (ROADMAP Queue 1 item 1, slice 2b); use O2")
+                "yet (ROADMAP Queue 1 item 1, the next training slice); "
+                "use O2")
         _amp_dtype(dtype)
         if custom_white_list or custom_black_list:
             raise NotImplementedError(
                 "custom amp op lists are not ported yet (ROADMAP Queue 1 "
-                "item 1, slice 2b)")
+                "item 1, the next training slice)")
     yield

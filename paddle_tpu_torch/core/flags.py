@@ -2,9 +2,7 @@
 same names and environment override (a FLAGS_* environment variable seeds
 the value at import), read with `flag` and written with `set_flags`.
 
-Defaults are the reference's, with one temporary exception:
-``FLAGS_pallas_fused_ops`` is False here until the fused RMSNorm, rotary
-and SwiGLU kernels (K3-K5) are ported (ROADMAP Queue 1 item 1, slice 2b).
+Defaults are the reference's.
 """
 from __future__ import annotations
 
@@ -36,10 +34,10 @@ _FLAGS = {
     "FLAGS_weight_only_dtype": _from_env("FLAGS_weight_only_dtype", "none"),
     # slot count of the continuous-batching engine (inference/engine.py)
     "FLAGS_serving_slots": _from_env("FLAGS_serving_slots", 8),
-    # route the LLaMA forward's norms (+ residual add), rotary and SwiGLU
-    # through fused kernels (K3-K5). Not ported yet: True makes
-    # LlamaForCausalLM.forward raise; False runs the plain compositions
-    "FLAGS_pallas_fused_ops": _from_env("FLAGS_pallas_fused_ops", False),
+    # route the LLaMA training forward's norms (+ residual add), rotary
+    # and SwiGLU through the fused ops (nn.functional -> ops.fused_norm:
+    # K3-K5 on CUDA tensors); False runs the plain compositions
+    "FLAGS_pallas_fused_ops": _from_env("FLAGS_pallas_fused_ops", True),
 }
 
 

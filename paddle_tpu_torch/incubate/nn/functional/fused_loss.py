@@ -7,7 +7,8 @@ negative, the logits in f32 from the model-dtype operands, the gradient
 back in the operands' dtypes). The reference is an XLA composition, not a
 Pallas kernel, so this is plain torch. It materialises the [tokens, vocab]
 f32 logits: the reference's vocab/token chunking, which keeps them out of
-device memory, is a memory lever that comes with slice 2b.
+device memory, is a memory lever that comes with the next training
+slice.
 """
 from __future__ import annotations
 

@@ -37,7 +37,8 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 #: is the C entry point of its source and has its own launch counter; the
 #: paged-decode variants over model-dtype, int8 and int4 caches share one
 #: source (one kernel template, the cache format a parameter), and so do
-#: the two flash-attention backward kernels (dQ; dK and dV).
+#: the two flash-attention backward kernels (dQ; dK and dV) and the fused
+#: norm, rotary and SwiGLU kernels.
 KERNEL_SOURCES = {
     "flash_attention_fwd": "csrc/flash_attention_fwd.cu",
     "flash_attention_bwd_dq": "csrc/flash_attention_bwd.cu",
@@ -46,6 +47,11 @@ KERNEL_SOURCES = {
     "paged_decode_attention_int8": "csrc/paged_decode.cu",
     "paged_decode_attention_int4": "csrc/paged_decode.cu",
     "quant_matmul": "csrc/quant_matmul.cu",
+    "fused_rms_norm_fwd": "csrc/fused_norm.cu",
+    "fused_rms_norm_bwd": "csrc/fused_norm.cu",
+    "rope_qk": "csrc/fused_norm.cu",
+    "swiglu_fwd": "csrc/fused_norm.cu",
+    "swiglu_bwd": "csrc/fused_norm.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,0 +1,448 @@
+"""Fused RMSNorm (with and without the residual add), rotary on Q and K,
+and SwiGLU: the hand-written CUDA kernels, their plain PyTorch versions,
+and the differentiable ops built from them.
+
+Port of the RMS kinds and the rotary and SwiGLU parts of
+paddle_tpu/ops/pallas_norm.py: `_norm_forward` / `_norm_backward` (K3,
+kernels `_norm_fwd_kernel`, `_norm_bwd_kernel`), `_rope_apply` /
+`_tables2` (K4, `_rope_kernel`, both directions), `_swiglu_call` (K5,
+`_swiglu_fwd_kernel`, `_swiglu_bwd_kernel`), the custom VJPs
+`rms_norm_fused`, `add_rms_norm_fused`, `rope_qk_fused` and
+`swiglu_fused` (torch.autograd.Functions here), and the raw wrappers
+that harmonise dtypes before them (`rms_norm_raw`, `add_rms_norm_raw`,
+`rope_qk_raw`, `swiglu_raw`). The kernels live in csrc/fused_norm.cu,
+one source with five entry points and five launch counters
+(`fused_rms_norm_fwd`, `fused_rms_norm_bwd`, `rope_qk`, `swiglu_fwd`,
+`swiglu_bwd`); its note says what bounds them on the H100 (device
+memory: each moves every input and output byte once and does a few f32
+operations per element) and how the design answers that. LayerNorm's
+kinds of K3 are not ported here (they come with GPT).
+
+Numerics, as the TPU kernels: every reduction and product in f32, each
+output rounded once to its dtype. The norms save only rstd (f32, one per
+row) and recompute the normalized row in the backward; dw is summed
+across rows in a fixed order (no atomics). The add variant returns
+(normed, summed) and its backward gives both inputs dsum = dx + ds.
+
+Routing: a CPU tensor takes the plain version; a CUDA tensor launches the
+kernel or raises. There is no fallback. Unlike the reference, there is no
+size threshold: its `_MIN_ELEMS` is a crossover measured on a TPU v5e,
+and here every CUDA tensor takes the kernel (so launch counts are exact);
+`FLAGS_pallas_fused_ops` alone chooses between these ops and the plain
+compositions (`nn.functional`).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ._cuda_common import (check_launch, count_launch, current_stream,
+                           kernel_library)
+
+_NORM_FWD = "fused_rms_norm_fwd"
+_NORM_BWD = "fused_rms_norm_bwd"
+_ROPE = "rope_qk"
+_SWIGLU_FWD = "swiglu_fwd"
+_SWIGLU_BWD = "swiglu_bwd"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the norm kernels keep 4 (backward) f32 rows of H in shared memory
+MAX_HIDDEN = 12288
+#: K3 backward blocks per SM: each block writes one f32 dw partial row, so
+#: more blocks buy parallelism over rows at the price of partial traffic
+_BWD_BLOCKS_PER_SM = 4
+
+
+def _acc(dtype):
+    """The plain versions' compute dtype: f32 (f64 inputs in f64)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+# ------------------------------------------------------- plain versions
+
+def rms_norm_fwd_reference(x, res, w, eps, out_dtype=None):
+    """Plain K3 forward: (y, s, rstd). xs = x (+ res) in f32; rstd =
+    rsqrt(mean(xs^2) + eps) [rows] f32; y = xs * rstd * w in `out_dtype`
+    (default x's); s = xs in x's dtype when `res` is given, else None."""
+    acc = _acc(x.dtype)
+    xs = x.to(acc) if res is None else x.to(acc) + res.to(acc)
+    h = x.shape[-1]
+    rstd = torch.rsqrt((xs * xs).sum(-1, keepdim=True) * (1.0 / h) + eps)
+    y = (xs * rstd * w.to(acc)).to(x.dtype if out_dtype is None
+                                   else out_dtype)
+    s = None if res is None else xs.to(x.dtype)
+    return y, s, rstd.reshape(-1)
+
+
+def rms_norm_bwd_reference(s, w, rstd, dy, ds=None):
+    """Plain K3 backward from the saved pre-norm row `s` and `rstd`:
+    xhat = s * rstd, c2 = mean(w * dy * xhat), dx = rstd * (w * dy - xhat
+    * c2) (+ ds) in s's dtype, dw = sum over rows of dy * xhat in w's."""
+    acc = _acc(s.dtype)
+    h = s.shape[-1]
+    r = rstd.to(acc).reshape(s.shape[:-1] + (1,))
+    xhat = s.to(acc) * r
+    dyf = dy.to(acc)
+    wdy = dyf * w.to(acc)
+    c2 = (wdy * xhat).sum(-1, keepdim=True) * (1.0 / h)
+    dx = r * (wdy - xhat * c2)
+    if ds is not None:
+        dx = dx + ds.to(acc)
+    dw = (dyf * xhat).reshape(-1, h).sum(0)
+    return dx.to(s.dtype), dw.to(w.dtype)
+
+
+def rope_qk_reference(q, k, cos, sin, backward=False):
+    """Plain K4: q, k [B, S, H, D] and tables cos/sin [S, D] -> (qo, ko)
+    in q's and k's dtypes. Forward a*cos + concat(-a2, a1)*sin; backward
+    (the rotation's transpose) g*cos + concat((g*sin)_2, -(g*sin)_1)."""
+    acc = _acc(q.dtype)
+    c = cos.to(acc)[None, :, None, :]
+    sn = sin.to(acc)[None, :, None, :]
+
+    def rot(a):
+        a = a.to(acc)
+        dh = a.shape[-1] // 2
+        if backward:
+            gs = a * sn
+            return a * c + torch.cat([gs[..., dh:], -gs[..., :dh]], dim=-1)
+        return a * c + torch.cat([-a[..., dh:], a[..., :dh]], dim=-1) * sn
+
+    return rot(q).to(q.dtype), rot(k).to(k.dtype)
+
+
+def swiglu_fwd_reference(g, u):
+    """Plain K5 forward: silu(g) * u in g's dtype."""
+    acc = _acc(g.dtype)
+    gf = g.to(acc)
+    return (gf * torch.sigmoid(gf) * u.to(acc)).to(g.dtype)
+
+
+def swiglu_bwd_reference(g, u, do):
+    """Plain K5 backward: (dg, du) = (do * u * (sig + silu * (1 - sig)),
+    do * silu), sig = sigmoid(g), silu = g * sig, in g's and u's dtypes."""
+    acc = _acc(g.dtype)
+    gf, uf, dof = g.to(acc), u.to(acc), do.to(acc)
+    sig = torch.sigmoid(gf)
+    silu = gf * sig
+    return ((dof * uf * (sig + silu * (1.0 - sig))).to(g.dtype),
+            (dof * silu).to(u.dtype))
+
+
+# ------------------------------------------------------------- wrappers
+
+def _plain(name, *tensors) -> bool:
+    """True when every tensor lies on the CPU (the plain version runs);
+    False when all lie on one CUDA device (the kernel launches). Anything
+    else raises."""
+    devices = {t.device for t in tensors if t is not None}
+    if all(d.type == "cpu" for d in devices):
+        return True
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{name}: tensors must lie on the CPU or on one "
+                         f"CUDA device, got {sorted(map(str, devices))}")
+    return False
+
+
+def _check_contiguous(name, *tensors):
+    if not all(t is None or t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous tensors")
+
+
+def _check_dtype(name, dtype):
+    if dtype not in _DTYPES:
+        raise ValueError(f"{name}: dtype {dtype}; the kernel takes float32, "
+                         "bfloat16 or float16")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _entry(name, argtypes):
+    fn = getattr(kernel_library(name), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(name, fn, *args):
+    check_launch(name, fn(*args))
+    count_launch(name)
+
+
+def _check_norm(x, w, out_dtype, *others):
+    name = "fused RMSNorm"
+    h = x.shape[-1] if x.dim() else 0
+    if x.numel() == 0 or h > MAX_HIDDEN:
+        raise ValueError(f"{name}: needs rows of 1..{MAX_HIDDEN} elements, "
+                         f"got shape {tuple(x.shape)}")
+    _check_dtype(name, x.dtype)
+    if w.shape != (h,) or w.dtype != x.dtype:
+        raise ValueError(f"{name}: weight must be [{h}] {x.dtype}, got "
+                         f"{tuple(w.shape)} {w.dtype}")
+    if out_dtype not in (x.dtype, torch.float32):
+        raise ValueError(f"{name}: output dtype {out_dtype} must be x's "
+                         f"({x.dtype}) or float32")
+    for t in others:
+        if t is not None and t.shape != x.shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} differs from "
+                             f"x's {tuple(x.shape)}")
+    _check_contiguous(name, x, w, *others)
+
+
+def fused_rms_norm_fwd(x, res, w, eps, out_dtype=None):
+    """K3 forward: (y, s, rstd) as `rms_norm_fwd_reference` for x [.., H]
+    (+ res, same shape and dtype; None for the plain norm) and w [H] in
+    x's dtype; `out_dtype` (y's) is x's (default) or float32. CPU tensors
+    take the plain version; CUDA tensors launch the kernel."""
+    if _plain(_NORM_FWD, x, res, w):
+        return rms_norm_fwd_reference(x, res, w, eps, out_dtype)
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    _check_norm(x, w, out_dtype, res)
+    if res is not None and res.dtype != x.dtype:
+        raise ValueError(f"fused RMSNorm: residual dtype {res.dtype} differs "
+                         f"from x's {x.dtype}")
+    h = x.shape[-1]
+    rows = x.numel() // h
+    y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    s = None if res is None else torch.empty_like(x)
+    rstd = torch.empty(rows, dtype=torch.float32, device=x.device)
+    fn = _entry(_NORM_FWD, [ctypes.c_void_p] * 6
+                + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p])
+    _launch(_NORM_FWD, fn, x.data_ptr(), _ptr(res), w.data_ptr(),
+            y.data_ptr(), _ptr(s), rstd.data_ptr(), rows, h, float(eps),
+            _DTYPES[x.dtype], _DTYPES[out_dtype], current_stream(x.device))
+    return y, s, rstd
+
+
+def fused_rms_norm_bwd(s, w, rstd, dy, ds=None):
+    """K3 backward: (dx, dw) as `rms_norm_bwd_reference`, from the saved
+    pre-norm row s [.., H], w [H] and rstd [rows] f32, the output gradient
+    dy (s's dtype or float32) and, for the add variant, the summed
+    stream's gradient ds (added into dx). CPU tensors take the plain
+    version; CUDA tensors launch the row kernel and the fixed-order dw
+    sum."""
+    if _plain(_NORM_BWD, s, w, rstd, dy, ds):
+        return rms_norm_bwd_reference(s, w, rstd, dy, ds)
+    _check_norm(s, w, dy.dtype, dy, ds)
+    h = s.shape[-1]
+    rows = s.numel() // h
+    if rstd.shape != (rows,) or rstd.dtype != torch.float32 \
+            or (ds is not None and ds.dtype != s.dtype):
+        raise ValueError(f"fused RMSNorm backward: rstd must be float32 "
+                         f"[{rows}] and ds {s.dtype}, got rstd "
+                         f"{tuple(rstd.shape)} {rstd.dtype}")
+    _check_contiguous(_NORM_BWD, rstd)
+    sms = torch.cuda.get_device_properties(s.device).multi_processor_count
+    blocks = min(rows, _BWD_BLOCKS_PER_SM * sms)
+    rpb = -(-rows // blocks)
+    blocks = -(-rows // rpb)
+    dx = torch.empty_like(s)
+    dw = torch.empty(h, dtype=s.dtype, device=s.device)
+    part = torch.empty((blocks, h), dtype=torch.float32, device=s.device)
+    fn = _entry(_NORM_BWD, [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                + [ctypes.c_void_p])
+    _launch(_NORM_BWD, fn, s.data_ptr(), w.data_ptr(), rstd.data_ptr(),
+            dy.data_ptr(), _ptr(ds), dx.data_ptr(), dw.data_ptr(),
+            part.data_ptr(), rows, h, blocks, rpb, _DTYPES[s.dtype],
+            _DTYPES[dy.dtype], current_stream(s.device))
+    return dx, dw
+
+
+def rope_qk(q, k, cos, sin, backward=False):
+    """K4: (qo, ko) as `rope_qk_reference` for q, k [B, S, H, D] (one shape,
+    D even) and tables cos, sin [S, D], all of one dtype; `backward`
+    applies the transpose. One launch rotates both. CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    if _plain(_ROPE, q, k, cos, sin):
+        return rope_qk_reference(q, k, cos, sin, backward)
+    if q.dim() != 4 or q.shape != k.shape or q.shape[-1] % 2 \
+            or cos.shape != (q.shape[1], q.shape[3]) \
+            or sin.shape != cos.shape:
+        raise ValueError(f"rope_qk takes q, k [B, S, H, D] of one shape, D "
+                         f"even, and tables [S, D]; got q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, cos {tuple(cos.shape)}, sin "
+                         f"{tuple(sin.shape)}")
+    _check_dtype(_ROPE, q.dtype)
+    if not k.dtype == cos.dtype == sin.dtype == q.dtype:
+        raise ValueError(f"rope_qk: dtypes {q.dtype}/{k.dtype}/{cos.dtype}/"
+                         f"{sin.dtype} must be alike")
+    _check_contiguous(_ROPE, q, k, cos, sin)
+    b, s, heads, d = q.shape
+    qo, ko = torch.empty_like(q), torch.empty_like(k)
+    fn = _entry(_ROPE, [ctypes.c_void_p] * 6 + [ctypes.c_longlong]
+                + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    _launch(_ROPE, fn, q.data_ptr(), k.data_ptr(), cos.data_ptr(),
+            sin.data_ptr(), qo.data_ptr(), ko.data_ptr(), b * s * heads, s,
+            heads, d, int(bool(backward)), _DTYPES[q.dtype],
+            current_stream(q.device))
+    return qo, ko
+
+
+def _check_swiglu(*tensors):
+    g = tensors[0]
+    _check_dtype("swiglu", g.dtype)
+    if any(t.shape != g.shape or t.dtype != g.dtype for t in tensors):
+        raise ValueError("swiglu takes tensors of one shape and dtype, got "
+                         + ", ".join(f"{tuple(t.shape)} {t.dtype}"
+                                     for t in tensors))
+    _check_contiguous("swiglu", *tensors)
+
+
+def swiglu_fwd(g, u):
+    """K5 forward: silu(g) * u for g, u of one shape and dtype. CPU tensors
+    take the plain version; CUDA tensors launch the kernel."""
+    if _plain(_SWIGLU_FWD, g, u):
+        return swiglu_fwd_reference(g, u)
+    _check_swiglu(g, u)
+    o = torch.empty_like(g)
+    fn = _entry(_SWIGLU_FWD, [ctypes.c_void_p] * 3
+                + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    _launch(_SWIGLU_FWD, fn, g.data_ptr(), u.data_ptr(), o.data_ptr(),
+            g.numel(), _DTYPES[g.dtype], current_stream(g.device))
+    return o
+
+
+def swiglu_bwd(g, u, do):
+    """K5 backward: (dg, du) as `swiglu_bwd_reference`. CPU tensors take
+    the plain version; CUDA tensors launch the kernel."""
+    if _plain(_SWIGLU_BWD, g, u, do):
+        return swiglu_bwd_reference(g, u, do)
+    _check_swiglu(g, u, do)
+    dg, du = torch.empty_like(g), torch.empty_like(u)
+    fn = _entry(_SWIGLU_BWD, [ctypes.c_void_p] * 5
+                + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    _launch(_SWIGLU_BWD, fn, g.data_ptr(), u.data_ptr(), do.data_ptr(),
+            dg.data_ptr(), du.data_ptr(), g.numel(), _DTYPES[g.dtype],
+            current_stream(g.device))
+    return dg, du
+
+
+# ---------------------------------------------------- differentiable ops
+
+class RMSNorm(torch.autograd.Function):
+    """y = rmsnorm(x) * w through K3 (the reference's `rms_norm_fused`);
+    saves x, w and rstd."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps, out_dtype):
+        y, _, rstd = fused_rms_norm_fwd(x, None, w, eps, out_dtype)
+        ctx.save_for_backward(x, w, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, rstd = ctx.saved_tensors
+        dx, dw = fused_rms_norm_bwd(x, w, rstd, dy.contiguous())
+        return dx, dw, None, None
+
+
+class AddRMSNorm(torch.autograd.Function):
+    """(y, s) = (rmsnorm(x + res) * w, x + res) through K3 (the
+    reference's `add_rms_norm_fused`); saves s, w and rstd. Both inputs
+    get dsum = dx + ds."""
+
+    @staticmethod
+    def forward(ctx, x, res, w, eps, out_dtype):
+        y, s, rstd = fused_rms_norm_fwd(x, res, w, eps, out_dtype)
+        ctx.save_for_backward(s, w, rstd)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        s, w, rstd = ctx.saved_tensors
+        dsum, dw = fused_rms_norm_bwd(s, w, rstd, dy.contiguous(),
+                                      ds.contiguous())
+        return dsum, dsum, dw, None, None
+
+
+class RopeQK(torch.autograd.Function):
+    """(qo, ko): q and k rotated by [S, D] tables through K4 (the
+    reference's `rope_qk_fused`); the backward is the same kernel with
+    `backward=True`. The tables get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, cos, sin):
+        ctx.save_for_backward(cos, sin)
+        return rope_qk(q, k, cos, sin)
+
+    @staticmethod
+    def backward(ctx, dqo, dko):
+        cos, sin = ctx.saved_tensors
+        dq, dk = rope_qk(dqo.contiguous(), dko.contiguous(), cos, sin,
+                         backward=True)
+        return dq, dk, None, None
+
+
+class SwiGLU(torch.autograd.Function):
+    """silu(gate) * up through K5 (the reference's `swiglu_fused`); saves
+    gate and up."""
+
+    @staticmethod
+    def forward(ctx, g, u):
+        ctx.save_for_backward(g, u)
+        return swiglu_fwd(g, u)
+
+    @staticmethod
+    def backward(ctx, do):
+        g, u = ctx.saved_tensors
+        return swiglu_bwd(g, u, do.contiguous())
+
+
+# --------------------------------------------- dtype-harmonising entries
+
+def rms_norm_raw(x, w=None, eps=1e-6, out_dtype=None):
+    """rmsnorm(x) * w (w None: ones in x's dtype). The output dtype is
+    `out_dtype`, by default the promotion of x's and w's as in the
+    reference; w is cast to x's dtype for the kernel (its gradient flows
+    back through the cast). out_dtype=float32 over a bf16 x is the
+    reference's O2 autocast of this op (x and w upcast, exactly, then an
+    f32 norm), read straight from the bf16 tensors."""
+    if w is None:
+        w = torch.ones(x.shape[-1], dtype=x.dtype, device=x.device)
+    if out_dtype is None:
+        out_dtype = torch.promote_types(x.dtype, w.dtype)
+    return RMSNorm.apply(x.contiguous(), w.to(x.dtype).contiguous(),
+                         float(eps), out_dtype)
+
+
+def add_rms_norm_raw(x, res, w=None, eps=1e-6):
+    """(rmsnorm(x + res) * w, x + res), x and res promoted to one dtype
+    first; normed in the promotion of that and w's dtype, summed in the
+    former."""
+    ct = torch.promote_types(x.dtype, res.dtype)
+    if w is None:
+        w = torch.ones(x.shape[-1], dtype=ct, device=x.device)
+    return AddRMSNorm.apply(x.to(ct).contiguous(), res.to(ct).contiguous(),
+                            w.to(ct).contiguous(), float(eps),
+                            torch.promote_types(ct, w.dtype))
+
+
+def _tables2(t, s, d):
+    """A rope table broadcastable to [1, S, 1, D] (or [S, D]) -> [S, D]."""
+    t2 = t.reshape(-1, t.shape[-1])
+    if t2.shape[0] == 1 and s > 1:
+        t2 = t2.expand(s, d)
+    if t2.shape != (s, d):
+        raise ValueError(f"rope table {tuple(t.shape)} does not give [S, D] "
+                         f"= [{s}, {d}]")
+    return t2.contiguous()
+
+
+def rope_qk_raw(q, k, cos, sin):
+    """(qo, ko): q, k [B, S, H, D] of one shape rotated by tables
+    broadcastable to [1, S, 1, D], all four promoted to one dtype first
+    (the reference promotes q and k each with the tables)."""
+    ct = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
+                             torch.promote_types(cos.dtype, sin.dtype))
+    s, d = q.shape[1], q.shape[3]
+    return RopeQK.apply(q.to(ct).contiguous(), k.to(ct).contiguous(),
+                        _tables2(cos, s, d).to(ct), _tables2(sin, s, d).to(ct))
+
+
+def swiglu_raw(gate, up):
+    """silu(gate) * up, both promoted to one dtype first."""
+    ct = torch.promote_types(gate.dtype, up.dtype)
+    return SwiGLU.apply(gate.to(ct).contiguous(), up.to(ct).contiguous())

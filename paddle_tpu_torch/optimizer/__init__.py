@@ -20,7 +20,7 @@ and storage rules, which differ from `torch.optim.AdamW`'s:
 Scalars are rounded to f32 the way the reference's f32 arrays round them,
 so a step repeats the reference's bits. `step()` and `clear_grad()` are the
 Paddle names. Not ported yet: learning-rate schedulers and `grad_clip`
-(ROADMAP Queue 1 item 1, slice 2b).
+(ROADMAP Queue 1 item 1, the next training slice).
 """
 from __future__ import annotations
 
@@ -49,11 +49,11 @@ class Optimizer(torch.optim.Optimizer):
         if not isinstance(learning_rate, (int, float)):
             raise NotImplementedError(
                 "learning-rate schedulers are not ported yet (ROADMAP "
-                "Queue 1 item 1, slice 2b); pass a number")
+                "Queue 1 item 1, the next training slice); pass a number")
         if grad_clip is not None:
             raise NotImplementedError(
                 "grad_clip is not ported yet (ROADMAP Queue 1 item 1, "
-                "slice 2b)")
+                "the next training slice)")
         self._names = {}
         for i, item in enumerate(parameters):
             pname, p = item if isinstance(item, tuple) else (f"param_{i}",
@@ -107,7 +107,7 @@ def _wd_coeff(wd) -> float:
         return float(wd)
     raise NotImplementedError(
         "regularizer objects as weight_decay are not ported yet (ROADMAP "
-        "Queue 1 item 1, slice 2b); pass a float")
+        "Queue 1 item 1, the next training slice); pass a float")
 
 
 class Adam(Optimizer):
@@ -120,8 +120,8 @@ class Adam(Optimizer):
                  use_multi_tensor=False, amsgrad=False, name=None):
         if amsgrad:
             raise NotImplementedError(
-                "amsgrad is not ported yet (ROADMAP Queue 1 item 1, slice "
-                "2b)")
+                "amsgrad is not ported yet (ROADMAP Queue 1 item 1, the "
+                "next training slice)")
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name, multi_precision)
         self._beta1 = beta1

@@ -3,22 +3,30 @@
 Port of paddle_tpu/text/models/llama.py (config, rope tables, attention,
 SwiGLU MLP, decoder layer, model, causal-LM head and its loss). Out of
 scope here: tensor/sequence parallelism and recompute (their config
-switches raise `NotImplementedError` naming the ROADMAP item), fp8, the
-pipeline layer descriptions, and the fused norm/rotary/SwiGLU kernels
-that `FLAGS_pallas_fused_ops` routes to (K3-K5, slice 2b).
+switches raise `NotImplementedError` naming the ROADMAP item), fp8 and
+the pipeline layer descriptions.
 
-The attention and MLP modules hold the parameters; the block's math is
-`text.generation._layer_forward_prefill`, the same function the serving
-engine's prefill runs, so the model and the engine cannot drift apart.
-Attention there goes through the differentiable flash op
-(`ops.flash_attention.flash_attention`): K1 forward and, when a gradient
-is recorded, K2 backward on CUDA; their plain versions on the CPU. The
-serving engine calls the block under `torch.no_grad()`, where the op is
-the forward kernel alone.
+The forward follows `FLAGS_pallas_fused_ops`, as the reference's does.
+On (the default): the reference's module structure — `input_layernorm`,
+q/k/v, `F.rotary_position_embedding`, the flash op, o_proj,
+`post_attention_layernorm.forward_fused_add` (residual add fused into the
+norm), `F.swiglu`, and the final `norm` — whose norms, rotary and SwiGLU
+are the fused ops of `ops.fused_norm` (K3, K4, K5 on CUDA; K4 only when
+Q and K have one shape, so not under GQA). Off: the block math is
+`text.generation._layer_forward_prefill`, the plain compositions the
+serving engine's prefill runs. Attention on both goes through the
+differentiable flash op (`ops.flash_attention.flash_attention`): K1
+forward and, when a gradient is recorded, K2 backward on CUDA; their
+plain versions on the CPU. The serving engine never runs this forward.
 
 Mixed precision (`amp.decorate` O2): parameters are bf16 and every matmul
-runs in bf16; RMSNorm, the logits of the loss and the cross-entropy are
-computed in f32, the ops the reference's AMP keeps in f32.
+runs in bf16; the logits of the loss and the cross-entropy are computed
+in f32, the ops the reference's AMP keeps in f32. With the flag on, the
+input and final norms write f32 (the reference's O2 runs `rms_norm`, a
+BLACK_LIST op, in f32) and the matmuls after them read their input in
+the weights' dtype, as the reference's autocast casts it; the fused
+add+norm, rotary and SwiGLU run in bf16, as there. With the flag off the
+norms write the stream's dtype (the composition's `_rms_norm`).
 
 Linear weights use torch's [out, in] layout (paddle_tpu's Linear stores
 [in, out]; `convert.llama_from_numpy` transposes on the way in).
@@ -33,8 +41,10 @@ from torch import nn
 
 from ...core.flags import flag
 from ...incubate.nn.functional import fused_linear_cross_entropy
+from ...nn import functional as PF
 from ...ops._cuda_common import resolve_device
-from ..generation import (_layer_forward_prefill, _layer_weights, _rms_norm,
+from ...ops.flash_attention import flash_attention
+from ..generation import (_layer_forward_prefill, _layer_weights,
                           _rope_tables, _spec_from_config)
 
 
@@ -80,25 +90,51 @@ class LlamaRMSNorm(nn.Module):
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(hidden_size, **factory))
 
-    def forward(self, x):
-        return _rms_norm(x, self.weight, self.eps)
+    def forward(self, x, out_dtype=None):
+        """`nn.functional.rms_norm` (K3 when the flag is on);
+        `out_dtype=torch.float32` as the reference's O2 runs it."""
+        return PF.rms_norm(x, self.weight, self.eps, out_dtype)
+
+    def forward_fused_add(self, x, residual):
+        """(normed, summed) = (norm(x + residual), x + residual) by
+        `nn.functional.fused_add_rms_norm` (one K3 launch when the flag is
+        on)."""
+        return PF.fused_add_rms_norm(x, residual, self.weight, self.eps)
 
 
 class LlamaAttention(nn.Module):
-    """q/k/v/o projections (parameters only; see the module docstring)."""
+    """q/k/v/o projections; `forward` is the flag-on attention block (the
+    flag-off path reads the parameters into `_layer_forward_prefill`)."""
 
     def __init__(self, config: LlamaConfig, **factory):
         super().__init__()
         h, hd = config.hidden_size, config.head_dim
         nh, nkv = config.num_attention_heads, config.num_key_value_heads
+        self.num_heads, self.num_kv_heads, self.head_dim = nh, nkv, hd
         self.q_proj = nn.Linear(h, nh * hd, bias=False, **factory)
         self.k_proj = nn.Linear(h, nkv * hd, bias=False, **factory)
         self.v_proj = nn.Linear(h, nkv * hd, bias=False, **factory)
         self.o_proj = nn.Linear(nh * hd, h, bias=False, **factory)
 
+    def forward(self, x, cos, sin):
+        """x [B, S, H] (the input norm's output, read in the weights'
+        dtype); cos/sin [>=S, D] -> [B, S, H]."""
+        b, s, _ = x.shape
+        x = x.to(self.q_proj.weight.dtype)
+        q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
+        k = self.k_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
+        v = self.v_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
+        q, k = PF.rotary_position_embedding(q, k, cos[None, :s, None, :],
+                                            sin[None, :s, None, :])
+        out, _ = flash_attention(q.transpose(1, 2).contiguous(),
+                                 k.transpose(1, 2).contiguous(),
+                                 v.transpose(1, 2).contiguous(), causal=True)
+        return self.o_proj(out.transpose(1, 2).reshape(
+            b, s, self.num_heads * self.head_dim))
+
 
 class LlamaMLP(nn.Module):
-    """SwiGLU projections (parameters only; see the module docstring)."""
+    """SwiGLU projections; `forward` is the flag-on MLP block."""
 
     def __init__(self, config: LlamaConfig, **factory):
         super().__init__()
@@ -106,6 +142,9 @@ class LlamaMLP(nn.Module):
         self.gate_proj = nn.Linear(h, i, bias=False, **factory)
         self.up_proj = nn.Linear(h, i, bias=False, **factory)
         self.down_proj = nn.Linear(i, h, bias=False, **factory)
+
+    def forward(self, x):
+        return self.down_proj(PF.swiglu(self.gate_proj(x), self.up_proj(x)))
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -120,8 +159,12 @@ class LlamaDecoderLayer(nn.Module):
             config.hidden_size, config.rms_norm_eps, **factory)
 
     def forward(self, x, cos, sin):
-        return _layer_forward_prefill(x, _layer_weights(self), self.spec,
-                                      cos, sin)[0]
+        if not flag("FLAGS_pallas_fused_ops"):
+            return _layer_forward_prefill(x, _layer_weights(self), self.spec,
+                                          cos, sin)[0]
+        a = self.self_attn(self.input_layernorm(x, torch.float32), cos, sin)
+        y, x = self.post_attention_layernorm.forward_fused_add(a, x)
+        return x + self.mlp(y)
 
 
 class LlamaModel(nn.Module):
@@ -141,15 +184,20 @@ class LlamaModel(nn.Module):
         self.register_buffer("rope_sin", sin, persistent=False)
 
     def forward(self, input_ids):
+        """[B, S] ids -> the final norm's output [B, S, H]: f32 with the
+        flag on (see the module docstring), the stream's dtype with it
+        off."""
         x = self.embed_tokens(input_ids)
         for layer in self.layers:
             x = layer(x, self.rope_cos, self.rope_sin)
-        return self.norm(x)
+        return self.norm(x, torch.float32 if flag("FLAGS_pallas_fused_ops")
+                         else None)
 
 
 #: config switches the port does not implement yet -> the ROADMAP item
 _UNPORTED = {
-    "use_recompute": "ROADMAP Queue 1 item 1, slice 2b (recompute)",
+    "use_recompute": "ROADMAP Queue 1 item 1, the next training slice "
+                     "(recompute)",
     "tensor_parallel": "ROADMAP 'After these', Distributed",
     "sequence_parallel": "ROADMAP 'After these', Distributed",
 }
@@ -193,15 +241,10 @@ class LlamaForCausalLM(nn.Module):
         passes `model(x, x)`). An lm_head with vocab >= 4096 takes
         `fused_linear_cross_entropy`, the reference's branch; smaller
         vocabs (and tied embeddings) the plain cross-entropy of the f32
-        logits."""
-        if flag("FLAGS_pallas_fused_ops"):
-            raise NotImplementedError(
-                "FLAGS_pallas_fused_ops=True routes the LLaMA forward "
-                "through the fused RMSNorm, rotary and SwiGLU kernels "
-                "(K3-K5), which are not ported yet (ROADMAP Queue 1 item "
-                "1, slice 2b); set it to False for the plain compositions")
+        logits. The head reads the final norm's output in the parameters'
+        dtype."""
         ids = torch.as_tensor(input_ids, device=self.device).long()
-        hidden = self.model(ids)
+        hidden = self.model(ids).to(self.model.embed_tokens.weight.dtype)
         if labels is not None:
             labels = torch.as_tensor(labels, device=self.device).long()
             if self.lm_head is not None and self.config.vocab_size >= 4096:

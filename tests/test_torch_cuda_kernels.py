@@ -15,13 +15,17 @@ values of magnitude ~1, 2^-8 relative). The dequant-matmul and the flash
 backward are compared relative to the largest output (their outputs grow
 with K and with the sequence): f32 1e-5 / 1e-4, bf16 2^-7 (each side
 rounds its f32 sum once to bf16, so the two differ by at most one bf16
-ulp, 2^-7 of a value's binade).
+ulp, 2^-7 of a value's binade). The fused norm, rotary and SwiGLU kernels
+(test_torch_fused_norm.py on the CPU) likewise, relative to each output's
+largest |value|: f32 1e-5 (dw, a sum over rows in another order, 1e-4),
+bf16 and f16 2^-7.
 """
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.ops import _cuda_common
+from paddle_tpu_torch.ops import fused_norm
 from paddle_tpu_torch.ops.flash_attention import (
     _bwd_delta, _launch_bwd_dkv, _launch_bwd_dq, flash_attention,
     flash_attention_bwd, flash_attention_bwd_dkv_reference,
@@ -338,9 +342,13 @@ def test_train_steps_on_card_match_cpu(card):
         losses.append(run)
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
     counts = _cuda_common.launch_counts()
+    layers = cfg.num_hidden_layers
     for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
-                 "flash_attention_bwd_dkv"):
-        assert counts[name] == 5 * cfg.num_hidden_layers, counts
+                 "flash_attention_bwd_dkv", "swiglu_fwd", "swiglu_bwd"):
+        assert counts[name] == 5 * layers, counts
+    for name in ("fused_rms_norm_fwd", "fused_rms_norm_bwd"):
+        assert counts[name] == 5 * (2 * layers + 1), counts
+    assert counts["rope_qk"] == 0, counts           # GQA: the composition
 
 
 @pytest.mark.parametrize("weight_quant,kv_cache_dtype", [("int4", "int4"),
@@ -377,3 +385,186 @@ def test_quantized_engine_on_card_matches_cpu_engine(card, weight_quant,
     assert counts[KERNEL_NAMES[kv_cache_dtype]] > 0
     assert counts["paged_decode_attention"] == 0
     assert (counts["quant_matmul"] > 0) == (weight_quant == "int4")
+
+
+def _rel_err(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+_HALF_TOL = 2 ** -7
+
+
+@pytest.mark.parametrize("x_dtype,y_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.float16, torch.float16)])
+@pytest.mark.parametrize("rows,h", [(66, 64), (66, 80), (7, 100),
+                                    (600, 2048)])
+@pytest.mark.parametrize("add", [False, True], ids=["rms", "add-rms"])
+def test_fused_rms_norm_kernels_match_plain(card, x_dtype, y_dtype, rows, h,
+                                            add):
+    """K3 forward and backward against their plain versions from the same
+    inputs (h = 100 in 2-byte types takes the one-element path); each
+    launch counts its own kernel once."""
+    rs = np.random.RandomState(rows + h)
+    x, res, dy, ds = (_randn(rs, rows, h).to(card) for _ in range(4))
+    x, res, ds = x.to(x_dtype), res.to(x_dtype), ds.to(x_dtype)
+    dy = dy.to(y_dtype)
+    w = _randn(rs, h).to(card, x_dtype)
+    r = res if add else None
+    before = _cuda_common.launch_counts()
+    y, s, rstd = fused_norm.fused_rms_norm_fwd(x, r, w, 1e-6, y_dtype)
+    want = fused_norm.rms_norm_fwd_reference(x, r, w, 1e-6, y_dtype)
+    assert _rel_err(y, want[0]) <= (1e-5 if y_dtype == torch.float32
+                                    else _HALF_TOL)
+    if add:
+        assert _rel_err(s, want[1]) <= (1e-6 if x_dtype == torch.float32
+                                        else _HALF_TOL)
+    else:
+        assert s is None and want[1] is None
+    assert _rel_err(rstd, want[2]) <= 1e-5
+    saved = s if add else x
+    dsum = ds if add else None
+    dx, dw = fused_norm.fused_rms_norm_bwd(saved, w, rstd, dy, dsum)
+    wdx, wdw = fused_norm.rms_norm_bwd_reference(saved, w, rstd, dy, dsum)
+    torch.cuda.synchronize()
+    half = x_dtype != torch.float32
+    assert _rel_err(dx, wdx) <= (_HALF_TOL if half else 1e-5)
+    assert _rel_err(dw, wdw) <= (_HALF_TOL if half else 1e-4)
+    after = _cuda_common.launch_counts()
+    assert {n: c - before[n] for n, c in after.items() if c != before[n]} \
+        == {"fused_rms_norm_fwd": 1, "fused_rms_norm_bwd": 1}
+
+
+def test_fused_rms_norm_bwd_repeats_bit_for_bit(card):
+    """dw is summed across rows in a fixed order (no atomics): two
+    backward launches on the same inputs give the same bits."""
+    rs = np.random.RandomState(4)
+    s, dy = (_randn(rs, 4096, 2048).to(card, torch.bfloat16)
+             for _ in range(2))
+    w = _randn(rs, 2048).to(card, torch.bfloat16)
+    _, _, rstd = fused_norm.fused_rms_norm_fwd(s, None, w, 1e-6)
+    a = fused_norm.fused_rms_norm_bwd(s, w, rstd, dy)
+    b = fused_norm.fused_rms_norm_bwd(s, w, rstd, dy)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape", [(2, 33, 4, 16), (1, 17, 3, 6),
+                                   (2, 256, 16, 128)],
+                         ids=["tiny", "odd-half", "1b-heads"])
+def test_rope_kernel_matches_plain(card, dtype, shape):
+    """K4 both directions, random tables (the backward reads the partner
+    index's sin); D/2 = 3 takes the one-element path."""
+    rs = np.random.RandomState(shape[1])
+    q, k = (_randn(rs, *shape).to(card, dtype) for _ in range(2))
+    cos, sin = (_randn(rs, shape[1], shape[3]).to(card, dtype)
+                for _ in range(2))
+    tol = 1e-5 if dtype == torch.float32 else _HALF_TOL
+    for backward in (False, True):
+        before = _cuda_common.launch_counts()["rope_qk"]
+        got = fused_norm.rope_qk(q, k, cos, sin, backward)
+        want = fused_norm.rope_qk_reference(q, k, cos, sin, backward)
+        torch.cuda.synchronize()
+        assert _cuda_common.launch_counts()["rope_qk"] == before + 1
+        for g, w in zip(got, want):
+            assert _rel_err(g, w) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape", [(66, 128), (3, 37), (512, 5504)])
+def test_swiglu_kernels_match_plain(card, dtype, shape):
+    """K5 forward and backward; 3 x 37 has a ragged tail after the
+    vectors."""
+    rs = np.random.RandomState(shape[1])
+    g, u, do = (_randn(rs, *shape).to(card, dtype) for _ in range(3))
+    tol = 1e-5 if dtype == torch.float32 else _HALF_TOL
+    assert _rel_err(fused_norm.swiglu_fwd(g, u),
+                    fused_norm.swiglu_fwd_reference(g, u)) <= tol
+    for a, b in zip(fused_norm.swiglu_bwd(g, u, do),
+                    fused_norm.swiglu_bwd_reference(g, u, do)):
+        assert _rel_err(a, b) <= tol
+
+
+def test_fused_ops_on_card_match_cpu(card):
+    """The four raw entries (the autograd Functions over the kernels) give
+    the CPU plain versions' outputs and gradients, in f32."""
+    rs = np.random.RandomState(12)
+    cpu = {"x": _randn(rs, 2, 33, 80), "r": _randn(rs, 2, 33, 80),
+           "w": _randn(rs, 80), "q": _randn(rs, 2, 33, 4, 16),
+           "k": _randn(rs, 2, 33, 4, 16), "c": _randn(rs, 1, 33, 1, 16),
+           "s": _randn(rs, 1, 33, 1, 16)}
+
+    def run(dev):
+        t = {n: v.to(dev).requires_grad_(n not in "cs")
+             for n, v in cpu.items()}
+        outs = (fused_norm.rms_norm_raw(t["x"], t["w"]),
+                *fused_norm.add_rms_norm_raw(t["x"], t["r"], t["w"]),
+                *fused_norm.rope_qk_raw(t["q"], t["k"], t["c"], t["s"]),
+                fused_norm.swiglu_raw(t["x"], t["r"]))
+        loss = sum((o * torch.linspace(-1, 1, o.shape[-1], device=dev))
+                   .square().sum() for o in outs)
+        grads = torch.autograd.grad(loss, [t[n] for n in "xrwqk"])
+        return [o.detach().cpu() for o in (*outs, *grads)]
+
+    for got, want in zip(run(card), run("cpu")):
+        assert _rel_err(got, want) <= 1e-4
+
+
+def test_fused_kernels_refuse_bad_inputs(card):
+    x = torch.zeros(4, 64, device=card)
+    with pytest.raises(ValueError, match="weight"):
+        fused_norm.fused_rms_norm_fwd(x, None, torch.zeros(64, device=card,
+                                                           dtype=torch.half),
+                                      1e-6)
+    with pytest.raises(ValueError, match="output dtype"):
+        fused_norm.fused_rms_norm_fwd(x, None, x[0], 1e-6, torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_norm.fused_rms_norm_fwd(x.t().contiguous().t(), None,
+                                      x[0], 1e-6)
+    with pytest.raises(ValueError, match="one CUDA device|CPU"):
+        fused_norm.swiglu_fwd(x, x.cpu())
+    with pytest.raises(ValueError, match="one shape"):
+        fused_norm.swiglu_fwd(x, x[:2])
+    q = torch.zeros(1, 4, 2, 8, device=card)
+    with pytest.raises(ValueError, match="tables"):
+        fused_norm.rope_qk(q, q, torch.zeros(4, 4, device=card),
+                           torch.zeros(4, 4, device=card))
+
+
+def test_mha_train_steps_on_card_launch_every_fused_kernel(card):
+    """Three AdamW steps of a tiny f32 MHA LLaMA on the card give the CPU
+    losses within 1e-4 relative; K4 rotates Q and K once per layer and
+    direction, K3 launches 2 x layers + 1 times each way, K5 once per
+    layer each way."""
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import (LlamaForCausalLM,
+                                              llama_tiny_config)
+
+    cfg = llama_tiny_config()
+    ids = torch.from_numpy(np.random.RandomState(9).randint(0, 256, (2, 70)))
+    losses = []
+    for dev in ("cpu", card):
+        torch.manual_seed(0)
+        model = LlamaForCausalLM(cfg, device="cpu").to(dev)
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters())
+        _cuda_common.reset_launch_counts()
+        run = []
+        for _ in range(3):
+            loss = model(ids.to(dev), labels=ids.to(dev))
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            run.append(loss.item())
+        losses.append(run)
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+    counts = _cuda_common.launch_counts()
+    layers = cfg.num_hidden_layers
+    assert counts["rope_qk"] == 3 * 2 * layers, counts
+    assert counts["fused_rms_norm_fwd"] == 3 * (2 * layers + 1), counts
+    assert counts["fused_rms_norm_bwd"] == 3 * (2 * layers + 1), counts
+    assert counts["swiglu_fwd"] == counts["swiglu_bwd"] == 3 * layers

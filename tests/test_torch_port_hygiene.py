@@ -88,7 +88,7 @@ def test_kernel_sources_exist_and_are_the_build_list():
                if f.endswith((".cu", ".cuh"))}
     assert srcs == on_disk == {"flash_attention_fwd.cu",
                                "flash_attention_bwd.cu", "paged_decode.cu",
-                               "quant_matmul.cu"}
+                               "quant_matmul.cu", "fused_norm.cu"}
     for name, rel in _cuda_common.KERNEL_SOURCES.items():
         with open(os.path.join(PKG, rel)) as f:
             src = f.read()
@@ -113,22 +113,21 @@ def test_flags_and_buckets_match_reference():
 
 
 def test_fused_ops_flag_diverges_from_reference_until_ported():
-    """FLAGS_pallas_fused_ops is False in the port until K3-K5 are
-    ported (the reference's default is True); set_flags writes known
-    flags only, and bool flags parse from the environment as in the
-    reference."""
+    """FLAGS_pallas_fused_ops equals the reference's default (True) now
+    that K3-K5 are ported; set_flags writes known flags only, and bool
+    flags parse from the environment as in the reference."""
     import paddle_tpu  # noqa: F401
     from paddle_tpu.core.flags import _parse as ref_parse
     from paddle_tpu.core.flags import flag
 
     assert flag("FLAGS_pallas_fused_ops") is True
-    assert port_flags.flag("FLAGS_pallas_fused_ops") is False
+    assert port_flags.flag("FLAGS_pallas_fused_ops") is True
     for text in ("1", "true", "False", "off", "yes"):
         assert port_flags._parse(text, False) == ref_parse(text, False)
-    port_flags.set_flags({"pallas_fused_ops": True})
+    port_flags.set_flags({"pallas_fused_ops": False})
     try:
-        assert port_flags.flag("FLAGS_pallas_fused_ops") is True
+        assert port_flags.flag("FLAGS_pallas_fused_ops") is False
     finally:
-        port_flags.set_flags({"FLAGS_pallas_fused_ops": False})
+        port_flags.set_flags({"FLAGS_pallas_fused_ops": True})
     with pytest.raises(KeyError):
         port_flags.set_flags({"FLAGS_no_such_flag": 1})
