@@ -11,7 +11,10 @@ Phases (any failure exits non-zero; nothing is caught):
   3. kernels: each kernel at the main path's shapes (bf16; the int4
      dequant-matmul also at the f32 lm_head shape; the fused norm, rotary
      and SwiGLU kernels at the train step's shapes and dtypes, and at a
-     ragged f32 size), held against its plain PyTorch version on the same
+     ragged f32 size; the LayerNorm kinds of the fused norm (K3-LN) and
+     dropout + add (K6) at the GPT and BERT steps' shapes, and the flash
+     kernels at their head_dim 64), held against its plain PyTorch
+     version on the same
      inputs, and timed (CUDA events, median of 30 after warm-up, device
      time only) beside the plain version, one PyTorch library call as a
      yardstick where one computes the same function, and the card's bound
@@ -51,7 +54,20 @@ Phases (any failure exits non-zero; nothing is caught):
      time by kernel kind beside the host wall;
  10. train_unfused: the same model and batch with the flag False (the
      plain compositions; no K3-K5 launch), then the fused step again, so
-     ms per step and peak memory of both come from one card in one run.
+     ms per step and peak memory of both come from one card in one run;
+     no LLaMA phase launches K3-LN or K6;
+ 11. train_gpt: GPT-3 medium (vocab 50304, hidden 1024, 24 layers, 16
+     heads; bf16 O2, AdamW lr 1e-4) on 4 x 1024 seeded ids, labels = ids:
+     one step's gradients through the kernels held against the same step
+     with no kernel of the path (the flag off, autograd of the plain
+     attention), 6 counted steps with exact launches (K1 and both K2
+     kernels 24 per step, K3-LN 49 each way, nothing else), one
+     profiled step;
+ 12. train_bert: BERT-base sequence classification (vocab 30522, hidden
+     768, 12 layers, dropout 0.1; bf16 O2, AdamW lr 2e-5) on 64 x 128
+     seeded ids with binary labels: the same checks, with the dropout
+     masks drawn alike on both sides, and exact launches (K1 and both K2
+     kernels 12 per step, K3-LN 25 and K6 24 each way).
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Without a CUDA card it exits 1 and prints
@@ -147,6 +163,18 @@ FUSED_KERNELS = ("fused_rms_norm_fwd", "fused_rms_norm_bwd", "rope_qk",
 #: TRAIN_UNFUSED's counted steps (and again for the fused step after it)
 UNFUSED_STEPS = 4
 
+#: the GPT and BERT paths' kernels, which no LLaMA phase may launch
+LN_DROPOUT_KERNELS = ("fused_layer_norm_fwd", "fused_layer_norm_bwd",
+                      "dropout_add_fwd", "dropout_add_bwd")
+#: GPT-3 medium as bench.py `bench_gpt_medium_sharding` builds it
+#: (GPTConfig's defaults, positions cut to the sequence), and its batch;
+#: BERT-base (BertConfig's defaults) as `bench_bert(amp=True)` fine-tunes
+#: it, and its batch
+CFG_GPT = dict(vocab_size=50304, hidden_size=1024, num_hidden_layers=24,
+               num_attention_heads=16, max_position_embeddings=1024)
+GPT_BATCH, GPT_SEQ = 4, 1024
+BERT_BATCH, BERT_SEQ = 64, 128
+
 CFG_1B = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5504,
               num_hidden_layers=20, num_attention_heads=16,
               max_position_embeddings=1024)
@@ -197,8 +225,9 @@ def _nvidia_smi():
     return res.stdout.strip().splitlines()[0]
 
 
-def flash_case(b, hq, hkv, s, d=128):
-    """Flash forward at one prefill shape: parity, times, bound."""
+def flash_case(b, hq, hkv, s, d=128, causal=True):
+    """Flash forward at one prefill or train shape: parity, times,
+    bound."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.flash_attention import (
@@ -211,24 +240,24 @@ def flash_case(b, hq, hkv, s, d=128):
                     dtype=torch.bfloat16)
     v = torch.randn(b, hkv, s, d, device="cuda", generator=g,
                     dtype=torch.bfloat16)
-    o, lse = flash_attention_fwd(q, k, v, causal=True)
-    ro, rlse = flash_attention_reference(q, k, v, True)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    ro, rlse = flash_attention_reference(q, k, v, causal)
     torch.cuda.synchronize()
     err = (o.float() - ro.float()).abs().max().item()
     lse_err = (lse - rlse).abs().max().item()
     assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
     assert err < KERNEL_TOL and lse_err < 1e-3, (err, lse_err)
-    pairs = s * (s + 1) // 2                        # causal (row, col) pairs
+    pairs = s * (s + 1) // 2 if causal else s * s   # (row, col) pairs
     flops = 4 * b * hq * d * pairs
     nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d) + 4 * b * hq * s
     bound, by = _bound_ms(flops, nbytes)
     rec = {"name": "flash_attention_fwd", "shape": [b, hq, hkv, s, d],
-           "max_abs_err": err, "lse_max_abs_err": lse_err,
-           "ms": _time_ms(lambda: flash_attention_fwd(q, k, v, True)),
+           "causal": causal, "max_abs_err": err, "lse_max_abs_err": lse_err,
+           "ms": _time_ms(lambda: flash_attention_fwd(q, k, v, causal)),
            "plain_ms": _time_ms(
-               lambda: flash_attention_reference(q, k, v, True)),
+               lambda: flash_attention_reference(q, k, v, causal)),
            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
-               q, k, v, is_causal=True, enable_gqa=hq != hkv)),
+               q, k, v, is_causal=causal, enable_gqa=hq != hkv)),
            "bound_ms": bound, "bound_by": by}
     _say("KERNEL", rec)
     return rec
@@ -248,7 +277,7 @@ def _rel_errs(got, want):
     return max(errs), rels
 
 
-def flash_bwd_case(b, hq, hkv, s, d=128):
+def flash_bwd_case(b, hq, hkv, s, d=128, causal=True):
     """Flash backward (K2) at one training shape, from the same bf16
     inputs (o and lse from K1, delta = rowsum(dO * O) as the wrapper
     computes it). Each kernel ("dq", "dkv") is held against its own plain
@@ -270,18 +299,18 @@ def flash_bwd_case(b, hq, hkv, s, d=128):
                          dtype=torch.bfloat16) for _ in range(2))
     k, v = (torch.randn(b, hkv, s, d, device="cuda", generator=g,
                         dtype=torch.bfloat16) for _ in range(2))
-    o, lse = flash_attention_fwd(q, k, v, causal=True)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
     delta = _bwd_delta(o, do)
-    args = (q, k, v, do, lse, delta, True)
+    args = (q, k, v, do, lse, delta, causal)
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+    out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
                                          enable_gqa=hq != hkv)
-    pairs = b * hq * s * (s + 1) // 2               # causal (row, col) pairs
+    pairs = b * hq * (s * (s + 1) // 2 if causal else s * s)
     q_bytes, kv_bytes = 2 * b * hq * s * d, 2 * b * hkv * s * d   # bf16
     # every kernel reads q, dO, k, v (bf16) and lse, delta (f32)
     reads = 2 * q_bytes + 2 * kv_bytes + 2 * 4 * b * hq * s
     rec = {"name": "flash_attention_bwd", "shape": [b, hq, hkv, s, d],
-           "tol": K2_TOL}
+           "causal": causal, "tol": K2_TOL}
     for key, launch, plain, wrt, products, writes in (
             ("dq", _launch_bwd_dq, flash_attention_bwd_dq_reference,
              (ql,), 3, q_bytes),
@@ -300,18 +329,18 @@ def flash_bwd_case(b, hq, hkv, s, d=128):
                 out, wrt, do, retain_graph=True)),
             "bound_ms": bound, "bound_by": by}
     # the wrapper, which the train step runs: also reads o
-    err, rels = _rel_errs(flash_attention_bwd(q, k, v, o, lse, do, True),
+    err, rels = _rel_errs(flash_attention_bwd(q, k, v, o, lse, do, causal),
                           flash_attention_bwd_reference(q, k, v, o, lse, do,
-                                                        True))
+                                                        causal))
     assert max(rels) <= K2_TOL, ("whole", rels)
     bound, by = _bound_ms(5 * 2 * pairs * d,
                           reads + q_bytes + q_bytes + 2 * kv_bytes)
     rec["whole"] = {
         "max_abs_err": err, "rel_err": rels,
         "ms": _time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
-                                                   True)),
+                                                   causal)),
         "plain_ms": _time_ms(lambda: flash_attention_bwd_reference(
-            q, k, v, o, lse, do, True)),
+            q, k, v, o, lse, do, causal)),
         "library_ms": _time_ms(lambda: torch.autograd.grad(
             out, (ql, kl, vl), do, retain_graph=True)),
         "bound_ms": bound, "bound_by": by}
@@ -497,10 +526,11 @@ def quant_decode_case(fmt, seqs=8, heads=16, d=128, bs=16, max_len=1024):
     return rec
 
 
-def _fused_record(name, case, shape, got, want, dw_index, fn, plain,
+def _fused_record(name, case, shape, got, want, sums, fn, plain,
                   library, nbytes, flops):
     """Hold one fused kernel's outputs `got` against its plain version's
-    `want` (FUSED_TOL by output dtype; output `dw_index` is a dw), time
+    `want` (FUSED_TOL by output dtype; the outputs at indices `sums` are
+    sums over rows, dw or db), time
     the kernel, its plain version and `library` (None: no single PyTorch
     call computes the function) with the L2 flushed before each launch
     (at these shapes the inputs come from earlier kernels of the step and
@@ -514,7 +544,7 @@ def _fused_record(name, case, shape, got, want, dw_index, fn, plain,
         err = (a.float() - w.float()).abs().max().item()
         rel = err / w.float().abs().max().item()
         key = str(a.dtype).replace("torch.", "")
-        tol = FUSED_TOL["dw_" + key if i == dw_index
+        tol = FUSED_TOL["dw_" + key if i in sums
                         and key == "float32" else key]
         assert rel <= tol, (name, case, i, rel, tol)
         errs.append(err)
@@ -562,7 +592,7 @@ def fused_norm_cases(rows, h, tag, x_dtype="bfloat16", y_dtype="float32"):
     xf, wf = x.float(), w.float()
     out["fwd"] = _fused_record(
         "fused_rms_norm_fwd", f"{tag} rms {x_dtype}->{y_dtype}", (rows, h),
-        (got[0], got[2]), (want[0], want[2]), None,
+        (got[0], got[2]), (want[0], want[2]), (),
         lambda: fused_rms_norm_fwd(x, None, w, eps, ydt),
         lambda: rms_norm_fwd_reference(x, None, w, eps, ydt),
         lambda: F.rms_norm(xf, (h,), wf, eps),
@@ -573,7 +603,7 @@ def fused_norm_cases(rows, h, tag, x_dtype="bfloat16", y_dtype="float32"):
     want = rms_norm_fwd_reference(x, res, w, eps)
     out["fwd_add"] = _fused_record(
         "fused_rms_norm_fwd", f"{tag} add+rms {x_dtype}", (rows, h), got,
-        want, None, lambda: fused_rms_norm_fwd(x, res, w, eps),
+        want, (), lambda: fused_rms_norm_fwd(x, res, w, eps),
         lambda: rms_norm_fwd_reference(x, res, w, eps), None,
         2 * xb * n + xb * h + 2 * xb * n + 4 * rows, 5 * n)
     s_add, rstd_add = got[1], got[2]
@@ -585,7 +615,7 @@ def fused_norm_cases(rows, h, tag, x_dtype="bfloat16", y_dtype="float32"):
     out["bwd"] = _fused_record(
         "fused_rms_norm_bwd", f"{tag} rms {x_dtype}<-{y_dtype}", (rows, h),
         fused_rms_norm_bwd(x, w, rstd, dy),
-        rms_norm_bwd_reference(x, w, rstd, dy), 1,
+        rms_norm_bwd_reference(x, w, rstd, dy), (1,),
         lambda: fused_rms_norm_bwd(x, w, rstd, dy),
         lambda: rms_norm_bwd_reference(x, w, rstd, dy),
         lambda: torch.autograd.grad(yl, (xl, wl), dyf, retain_graph=True),
@@ -594,7 +624,7 @@ def fused_norm_cases(rows, h, tag, x_dtype="bfloat16", y_dtype="float32"):
     out["bwd_add"] = _fused_record(
         "fused_rms_norm_bwd", f"{tag} add+rms {x_dtype}", (rows, h),
         fused_rms_norm_bwd(s_add, w, rstd_add, dya, ds),
-        rms_norm_bwd_reference(s_add, w, rstd_add, dya, ds), 1,
+        rms_norm_bwd_reference(s_add, w, rstd_add, dya, ds), (1,),
         lambda: fused_rms_norm_bwd(s_add, w, rstd_add, dya, ds),
         lambda: rms_norm_bwd_reference(s_add, w, rstd_add, dya, ds), None,
         3 * xb * n + xb * h + 4 * rows + xb * n + xb * h, 9 * n)
@@ -621,7 +651,7 @@ def rope_cases(b, s, heads, d, tag, dtype="bfloat16"):
         out[key] = _fused_record(
             "rope_qk", f"{tag} {key} {dtype}", (b, s, heads, d),
             rope_qk(q, k, cos, sin, bwd),
-            rope_qk_reference(q, k, cos, sin, bwd), None,
+            rope_qk_reference(q, k, cos, sin, bwd), (),
             lambda bwd=bwd: rope_qk(q, k, cos, sin, bwd),
             lambda bwd=bwd: rope_qk_reference(q, k, cos, sin, bwd), None,
             4 * eb * n + 2 * eb * s * d, 2 * 3 * n)
@@ -645,15 +675,123 @@ def swiglu_cases(rows, cols, tag, dtype="bfloat16"):
     return {
         "fwd": _fused_record(
             "swiglu_fwd", f"{tag} {dtype}", (rows, cols),
-            (swiglu_fwd(g, u),), (swiglu_fwd_reference(g, u),), None,
+            (swiglu_fwd(g, u),), (swiglu_fwd_reference(g, u),), (),
             lambda: swiglu_fwd(g, u), lambda: swiglu_fwd_reference(g, u),
             None, 3 * eb * n, 6 * n),
         "bwd": _fused_record(
             "swiglu_bwd", f"{tag} {dtype}", (rows, cols),
-            swiglu_bwd(g, u, do), swiglu_bwd_reference(g, u, do), None,
+            swiglu_bwd(g, u, do), swiglu_bwd_reference(g, u, do), (),
             lambda: swiglu_bwd(g, u, do),
             lambda: swiglu_bwd_reference(g, u, do), None, 5 * eb * n,
             12 * n)}
+
+
+def layer_norm_cases(rows, h, tag, add=True):
+    """K3-LN forward and backward at [rows, h], as the train steps run
+    them: the plain norm reads the bf16 stream and writes f32 with f32
+    weight and bias (O2's BLACK_LIST norm), its backward reads an f32 dy;
+    the add variant (GPT's ln_2) is bf16 in and out, its weight and bias
+    bf16 values held in f32. The library yardstick is F.layer_norm on f32
+    copies of the inputs (made outside the timing), and autograd through
+    it for the backward; nothing in PyTorch computes the add variant in
+    one call. Returns {case: record}."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.fused_norm import (
+        fused_layer_norm_bwd, fused_layer_norm_fwd, layer_norm_bwd_reference,
+        layer_norm_fwd_reference)
+
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(rows + h + 1)
+    x, res, ds, dya = (torch.randn(rows, h, device="cuda", generator=g,
+                                   dtype=bf) for _ in range(4))
+    w, b = (torch.randn(h, device="cuda", generator=g) for _ in range(2))
+    dy = torch.randn(rows, h, device="cuda", generator=g)
+    eps, n = 1e-5, rows * h
+    out = {}
+    # forward, plain norm: read x, w, b; write y (f32), rstd, mean
+    got = fused_layer_norm_fwd(x, None, w, b, eps, torch.float32)
+    want = layer_norm_fwd_reference(x, None, w, b, eps, torch.float32)
+    xf = x.float()
+    out["fwd"] = _fused_record(
+        "fused_layer_norm_fwd", f"{tag} ln bfloat16->float32", (rows, h),
+        (got[0], got[2], got[3]), (want[0], want[2], want[3]), (),
+        lambda: fused_layer_norm_fwd(x, None, w, b, eps, torch.float32),
+        lambda: layer_norm_fwd_reference(x, None, w, b, eps, torch.float32),
+        lambda: F.layer_norm(xf, (h,), w, b, eps),
+        2 * n + 8 * h + 4 * n + 8 * rows, 7 * n)
+    stats = got[2], got[3]
+    # backward, plain norm: read x, dy (f32), w, rstd, mean; write dx, dw,
+    # db
+    xl = xf.clone().requires_grad_()
+    wl, bl = (t.clone().requires_grad_() for t in (w, b))
+    yl = F.layer_norm(xl, (h,), wl, bl, eps)
+    out["bwd"] = _fused_record(
+        "fused_layer_norm_bwd", f"{tag} ln bfloat16<-float32", (rows, h),
+        fused_layer_norm_bwd(x, w, *stats, dy),
+        layer_norm_bwd_reference(x, w, *stats, dy), (1, 2),
+        lambda: fused_layer_norm_bwd(x, w, *stats, dy),
+        lambda: layer_norm_bwd_reference(x, w, *stats, dy),
+        lambda: torch.autograd.grad(yl, (xl, wl, bl), dy, retain_graph=True),
+        2 * n + 4 * n + 4 * h + 8 * rows + 2 * n + 8 * h, 11 * n)
+    if not add:
+        return out
+    wb, bb = w.to(bf).float(), b.to(bf).float()
+    # forward, add variant: read x, res, w, b; write y, s, rstd, mean
+    got = fused_layer_norm_fwd(x, res, wb, bb, eps)
+    want = layer_norm_fwd_reference(x, res, wb, bb, eps)
+    out["fwd_add"] = _fused_record(
+        "fused_layer_norm_fwd", f"{tag} add+ln bfloat16", (rows, h), got,
+        want, (), lambda: fused_layer_norm_fwd(x, res, wb, bb, eps),
+        lambda: layer_norm_fwd_reference(x, res, wb, bb, eps), None,
+        2 * 2 * n + 8 * h + 2 * 2 * n + 8 * rows, 8 * n)
+    s_add, stats = got[1], (got[2], got[3])
+    # backward, add variant: read s, dy, ds, w, rstd, mean; write dsum,
+    # dw, db
+    out["bwd_add"] = _fused_record(
+        "fused_layer_norm_bwd", f"{tag} add+ln bfloat16", (rows, h),
+        fused_layer_norm_bwd(s_add, wb, *stats, dya, ds),
+        layer_norm_bwd_reference(s_add, wb, *stats, dya, ds), (1, 2),
+        lambda: fused_layer_norm_bwd(s_add, wb, *stats, dya, ds),
+        lambda: layer_norm_bwd_reference(s_add, wb, *stats, dya, ds), None,
+        3 * 2 * n + 4 * h + 8 * rows + 2 * n + 8 * h, 12 * n)
+    return out
+
+
+def dropout_add_cases(rows, cols, tag, p=0.1):
+    """K6 forward and backward at [rows, cols] bf16, with a mask drawn as
+    the train step draws it. The forward's library yardstick is
+    torch.addcmul(y, x, mask, value=scale); nothing in PyTorch is the
+    backward alone in one call. Returns {"fwd": ..., "bwd": ...}."""
+    import torch
+    from paddle_tpu_torch.ops.fused_norm import (
+        dropout_add_bwd, dropout_add_bwd_reference, dropout_add_fwd,
+        dropout_add_fwd_reference)
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(rows + cols)
+    x, y, g = (torch.randn(rows, cols, device="cuda", generator=gen,
+                           dtype=bf) for _ in range(3))
+    mask = torch.empty(rows, cols, device="cuda", dtype=bf).bernoulli_(
+        1.0 - p, generator=gen)
+    scale = 1.0 / (1.0 - p)
+    n = rows * cols
+    return {
+        "fwd": _fused_record(
+            "dropout_add_fwd", f"{tag} bfloat16", (rows, cols),
+            (dropout_add_fwd(x, y, mask, scale),),
+            (dropout_add_fwd_reference(x, y, mask, scale),), (),
+            lambda: dropout_add_fwd(x, y, mask, scale),
+            lambda: dropout_add_fwd_reference(x, y, mask, scale),
+            lambda: torch.addcmul(y, x, mask, value=scale), 4 * 2 * n,
+            3 * n),
+        "bwd": _fused_record(
+            "dropout_add_bwd", f"{tag} bfloat16", (rows, cols),
+            (dropout_add_bwd(g, mask, scale),),
+            (dropout_add_bwd_reference(g, mask, scale),), (),
+            lambda: dropout_add_bwd(g, mask, scale),
+            lambda: dropout_add_bwd_reference(g, mask, scale), None,
+            3 * 2 * n, 2 * n)}
 
 
 def _requests(vocab):
@@ -968,54 +1106,72 @@ def _plain_attention_loss(model, ids):
                                       model.lm_head.weight.T, ids)
 
 
-def _grad_check(model, ids):
-    """One step's gradients through the kernels (K1-K5) vs the same step
-    through the plain compositions and the plain attention (autograd of
-    its plain forward); no update."""
+def _grad_check(model, loss_fn, plain_loss_fn, tag, seed=1234):
+    """One step's gradients through the kernels (`loss_fn`) vs the same
+    step with no kernel of the path (`plain_loss_fn`; no update), each
+    side from the default generators seeded alike (so BERT's dropout
+    masks match); the plain side must launch no kernel. Prints `tag`."""
     import torch
+    from paddle_tpu_torch.ops import _cuda_common
 
-    loss = model(ids, labels=ids)
+    torch.manual_seed(seed)
+    loss = loss_fn()
     loss.backward()
     kern = {n: p.grad for n, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
-    plain_loss = _plain_attention_loss(model, ids)
+    _cuda_common.reset_launch_counts()
+    torch.manual_seed(seed)
+    plain_loss = plain_loss_fn()
     plain_loss.backward()
-    worst, worst_name = 0.0, None
-    for n, p in model.named_parameters():
-        a, w = kern[n].float(), p.grad.float()
+    torch.cuda.synchronize()
+    stray = {n: c for n, c in _cuda_common.launch_counts().items() if c}
+    assert not stray, stray
+    plain = {n: p.grad for n, p in model.named_parameters()}
+    checked, worst, worst_name = 0, 0.0, None
+    for n, w in plain.items():
+        if kern[n] is None:     # unused (BERT's token types without ids)
+            assert w is None, n
+            continue
+        a, w = kern[n].float(), w.float()
         assert torch.isfinite(a).all(), n
-        rel = (a - w).abs().max().item() / w.abs().max().item()
+        # BERT's key bias gets no gradient in exact arithmetic (a query
+        # row's softmax ignores a shift common to its keys): its gradient
+        # is rounding on both sides, held to its key weight's scale
+        scale = plain[n[:-4] + "weight"] if n.endswith("key.bias") else w
+        rel = (a - w).abs().max().item() / scale.float().abs().max().item()
+        checked += 1
         if rel > worst:
             worst, worst_name = rel, n
     model.zero_grad(set_to_none=True)
-    del kern
+    del kern, plain
     rec = {"loss": loss.item(), "plain_loss": plain_loss.item(),
-           "tensors": len(list(model.parameters())),
-           "max_rel_err": worst, "worst_tensor": worst_name,
-           "tol": GRAD_TOL}
-    _say("TRAIN_GRAD_CHECK", rec)
+           "tensors": checked, "max_rel_err": worst,
+           "worst_tensor": worst_name, "tol": GRAD_TOL}
+    _say(tag, rec)
     assert worst <= GRAD_TOL, rec
     # the plain side is the model's own function, its arithmetic aside
     assert abs(rec["loss"] - rec["plain_loss"]) <= GRAD_TOL * rec["loss"], rec
 
 
-def _timed_steps(model, opt, ids, steps):
-    """`steps` training steps from a zeroed peak-memory counter and zeroed
-    launch counts: (losses, step walls in s, peak GB, launch counts)."""
+def _timed_steps(model, opt, ids, steps, labels=None, reseed=None):
+    """`steps` training steps (labels = ids unless given) from a zeroed
+    peak-memory counter and zeroed launch counts: (losses, step walls in
+    s, peak GB, launch counts). `reseed`, when given, reseeds the default
+    generators before each step, so that every step draws the same
+    dropout masks and the losses compare the updates alone."""
     import torch
     from paddle_tpu_torch.ops import _cuda_common
 
+    labels = ids if labels is None else labels
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _cuda_common.reset_launch_counts()
     losses, walls = [], []
     for _ in range(steps):
+        if reseed is not None:
+            torch.manual_seed(reseed)
         t1 = time.perf_counter()
-        loss = model(ids, labels=ids)
-        loss.backward()
-        opt.step()
-        opt.clear_grad()
-        losses.append(loss.item())
+        losses.append(_train_step(model, opt, ids, labels).item())
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t1)
     return (losses, walls, torch.cuda.max_memory_allocated() / 1e9,
@@ -1034,7 +1190,9 @@ def train():
     model, opt, ids = _train_model()
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    _grad_check(model, ids)
+    _grad_check(model, lambda: model(ids, labels=ids),
+                lambda: _plain_attention_loss(model, ids),
+                "TRAIN_GRAD_CHECK")
     layers = model.config.num_hidden_layers
     losses, walls, peak, counts = _timed_steps(model, opt, ids, TRAIN_STEPS)
     steady = walls[1:]
@@ -1096,15 +1254,54 @@ def train_unfused(model, opt, ids):
         "fused_again_losses": f_losses})
     assert all(np.isfinite(losses + f_losses)), (losses, f_losses)
     assert all(counts[n] == 0 for n in FUSED_KERNELS), counts
+    assert all(c[n] == 0 for c in (counts, f_counts)
+               for n in LN_DROPOUT_KERNELS), (counts, f_counts)
     for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):
         assert counts[name] == UNFUSED_STEPS * layers, counts
     assert f_counts["rope_qk"] == UNFUSED_STEPS * 2 * layers, f_counts
 
 
-def profile_train(model, opt, ids):
+def _train_step(model, opt, ids, labels):
+    loss = model(ids, labels=labels)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss
+
+
+def _kernel_kind(key):
+    """The kind of a device kernel, by its (demangled) name. The norm
+    kernels carry their kind as a template argument (`true` = LayerNorm);
+    the dw finish is LayerNorm's when its output is f32 (the RMS kinds
+    write a bf16 dw on the train paths)."""
+    low = key.lower()
+    layer = ", true>" in low
+    for frag, kind in (("norm_fwd_kernel",
+                        "layer_norm_fwd" if layer else "rms_norm_fwd"),
+                       ("norm_bwd_kernel",
+                        "layer_norm_bwd" if layer else "rms_norm_bwd"),
+                       ("dw_finish_kernel<float>", "layer_norm_bwd"),
+                       ("dw_finish_kernel", "rms_norm_bwd"),
+                       ("rope_kernel", "rope"),
+                       ("swiglu_fwd_kernel", "swiglu_fwd"),
+                       ("swiglu_bwd_kernel", "swiglu_bwd"),
+                       ("dropout_add_fwd_kernel", "dropout_add_fwd"),
+                       ("dropout_add_bwd_kernel", "dropout_add_bwd"),
+                       ("flash_bwd_dq", "flash_bwd_dq"),
+                       ("flash_bwd_dkv", "flash_bwd_dkv"),
+                       ("flash_fwd", "flash_fwd")):
+        if frag in low:
+            return kind
+    if any(w in low for w in ("nvjet", "gemm", "gemv", "xmma", "cutlass")):
+        return "gemm"
+    return "other"
+
+
+def profile_train(step, tag="PROFILE_TRAIN"):
     """Where a training step's time goes: torch.profiler over one steady
-    step, device time by kernel kind beside the host wall."""
+    `step()` (which returns the loss), device time by kernel kind beside
+    the host wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1112,16 +1309,14 @@ def profile_train(model, opt, ids):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        loss = model(ids, labels=ids)
-        loss.backward()
-        opt.step()
-        opt.clear_grad()
+        loss = step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kinds = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
-             "rms_norm_fwd": 0.0, "rms_norm_bwd": 0.0, "rope": 0.0,
-             "swiglu_fwd": 0.0, "swiglu_bwd": 0.0, "gemm": 0.0,
-             "other": 0.0}
+    kinds = dict.fromkeys(
+        ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rms_norm_fwd",
+         "rms_norm_bwd", "layer_norm_fwd", "layer_norm_bwd", "rope",
+         "swiglu_fwd", "swiglu_bwd", "dropout_add_fwd", "dropout_add_bwd",
+         "gemm", "other"), 0.0)
     per_kernel, spans = {}, {}
     launched = 0
     for e in prof.key_averages():
@@ -1134,29 +1329,160 @@ def profile_train(model, opt, ids):
             spans[e.key] = us / 1e3
             continue
         launched += e.count
-        low = e.key.lower()
-        kind = ("rms_norm_fwd" if "rms_fwd_kernel" in low else
-                "rms_norm_bwd" if ("rms_bwd_kernel" in low
-                                   or "dw_finish_kernel" in low) else
-                "rope" if "rope_kernel" in low else
-                "swiglu_fwd" if "swiglu_fwd_kernel" in low else
-                "swiglu_bwd" if "swiglu_bwd_kernel" in low else
-                "flash_bwd_dq" if "flash_bwd_dq" in low else
-                "flash_bwd_dkv" if "flash_bwd_dkv" in low else
-                "flash_fwd" if "flash_fwd" in low else
-                "gemm" if any(w in low for w in ("nvjet", "gemm", "gemv",
-                                                 "xmma", "cutlass"))
-                else "other")
-        kinds[kind] += us / 1e3
+        kinds[_kernel_kind(e.key)] += us / 1e3
         per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / 1e3
     device_ms = sum(kinds.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-    _say("PROFILE_TRAIN", {
+    _say(tag, {
         "loss": loss.item(), "wall_ms": 1e3 * wall, "device_ms": device_ms,
         "device_busy_share": device_ms / (1e3 * wall),
         "device_ops_per_step": launched, "device_ms_by_kind": kinds,
         "annotated_spans_ms": spans,
         "top_kernels_ms": [[k[:60], v] for k, v in top]})
+
+
+def _plain_path(loss_fn):
+    """`loss_fn` run with no kernel of the path: FLAGS_pallas_fused_ops
+    off (the norms and dropout + add composed in torch) and
+    nn.functional's attention replaced, for the duration, by autograd of
+    the plain flash forward. Returns the wrapped function."""
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.nn import functional as PF
+    from paddle_tpu_torch.ops.flash_attention import \
+        flash_attention_reference
+
+    def plain_sdpa(q, k, v, attn_mask=None, is_causal=False):
+        assert attn_mask is None
+        o, _ = flash_attention_reference(q.transpose(1, 2),
+                                         k.transpose(1, 2),
+                                         v.transpose(1, 2), is_causal)
+        return o.transpose(1, 2)
+
+    def run():
+        kernel_sdpa = PF.scaled_dot_product_attention
+        set_flags({"FLAGS_pallas_fused_ops": False})
+        PF.scaled_dot_product_attention = plain_sdpa
+        try:
+            return loss_fn()
+        finally:
+            PF.scaled_dot_product_attention = kernel_sdpa
+            set_flags({"FLAGS_pallas_fused_ops": True})
+
+    return run
+
+
+def _counted_train(tag, model, opt, ids, labels, units, want, reseed=None):
+    """TRAIN_STEPS counted steps (`_timed_steps`). Prints `tag` with ms
+    per step (median of steps 2..), `units` ((name, count per step)) per
+    second and peak memory; asserts finite, falling losses and launches of
+    exactly `want` per step for every kernel (0 for the others). Returns
+    the counts."""
+    losses, walls, peak, counts = _timed_steps(model, opt, ids, TRAIN_STEPS,
+                                               labels, reseed)
+    steady = walls[1:]
+    ms = 1e3 * statistics.median(steady)
+    name, per_step = units
+    n_params = sum(p.numel() for p in model.parameters())
+    _say(tag, {
+        "params": n_params, "batch": list(ids.shape), "steps": TRAIN_STEPS,
+        "ms_per_step_median": ms, "ms_per_step_min": 1e3 * min(steady),
+        "ms_per_step_max": 1e3 * max(steady),
+        "first_step_ms": 1e3 * walls[0],
+        f"{name}_per_s": per_step / (ms / 1e3),
+        "achieved_tflops": 6 * n_params * ids.numel() / (ms / 1e3) / 1e12,
+        "max_memory_allocated_gb": peak, "losses": losses,
+        "launches": counts})
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    got = {n: c for n, c in counts.items() if c}
+    assert got == {n: TRAIN_STEPS * c for n, c in want.items()}, (got, want)
+    return counts
+
+
+def train_gpt():
+    """TRAIN_GPT: GPT-3 medium (bench.py `bench_gpt_medium_sharding`:
+    bf16 O2 with bf16 AdamW moments, AdamW lr 1e-4 with the multi-tensor
+    switch, random weights from seed 0) on one batch of 4 x 1024 seeded
+    ids, labels = ids, FLAGS_pallas_fused_ops on: the gradient check, the
+    counted steps, one profiled step. Returns the launch counts."""
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(**CFG_GPT)
+    t0 = time.perf_counter()
+    torch.manual_seed(0)
+    model = GPTForCausalLM(cfg, device="cuda")
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                use_multi_tensor=True)
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16",
+                              master_weight=False)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (GPT_BATCH, GPT_SEQ))).cuda()
+    torch.cuda.synchronize()
+    _say("TRAIN_GPT_SETUP", {"seconds": time.perf_counter() - t0})
+    _grad_check(model, lambda: model(ids, labels=ids),
+                _plain_path(lambda: model(ids, labels=ids)),
+                "TRAIN_GPT_GRAD_CHECK")
+    layers = cfg.num_hidden_layers
+    # per step: K1 and both K2 kernels once per layer; K3-LN for ln_1 and
+    # ln_2 of every block and ln_f, each way
+    want = {"flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
+            "flash_attention_bwd_dkv": layers,
+            "fused_layer_norm_fwd": 2 * layers + 1,
+            "fused_layer_norm_bwd": 2 * layers + 1}
+    counts = _counted_train("TRAIN_GPT", model, opt, ids, ids,
+                            ("tokens", ids.numel()), want)
+    profile_train(lambda: _train_step(model, opt, ids, ids),
+                  "PROFILE_TRAIN_GPT")
+    return counts
+
+
+def train_bert():
+    """TRAIN_BERT: BERT-base sequence classification (bench.py
+    `bench_bert(amp=True)`: bf16 O2 with bf16 AdamW moments, AdamW lr
+    2e-5, random weights from seed 0, hidden dropout 0.1) on one batch of
+    64 x 128 seeded ids with binary labels, FLAGS_pallas_fused_ops on: the
+    gradient check (dropout masks alike on both sides), the counted steps
+    (each step's masks drawn alike), one profiled step. Returns the launch
+    counts."""
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import (BertConfig,
+                                              BertForSequenceClassification)
+
+    cfg = BertConfig()
+    t0 = time.perf_counter()
+    torch.manual_seed(0)
+    model = BertForSequenceClassification(cfg, device="cuda")
+    opt = AdamW(learning_rate=2e-5, parameters=model.parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16",
+                              master_weight=False)
+    rs = np.random.RandomState(0)
+    ids = torch.from_numpy(rs.randint(0, 30000,
+                                      (BERT_BATCH, BERT_SEQ))).cuda()
+    labels = torch.from_numpy(rs.randint(0, 2, (BERT_BATCH,))).cuda()
+    torch.cuda.synchronize()
+    _say("TRAIN_BERT_SETUP", {"seconds": time.perf_counter() - t0})
+    _grad_check(model, lambda: model(ids, labels=labels),
+                _plain_path(lambda: model(ids, labels=labels)),
+                "TRAIN_BERT_GRAD_CHECK")
+    layers = cfg.num_hidden_layers
+    # per step: K1 and both K2 kernels once per layer; K3-LN for the
+    # embeddings' norm and two per layer, each way; K6 twice per layer,
+    # each way
+    want = {"flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
+            "flash_attention_bwd_dkv": layers,
+            "fused_layer_norm_fwd": 2 * layers + 1,
+            "fused_layer_norm_bwd": 2 * layers + 1,
+            "dropout_add_fwd": 2 * layers, "dropout_add_bwd": 2 * layers}
+    counts = _counted_train("TRAIN_BERT", model, opt, ids, labels,
+                            ("sequences", BERT_BATCH), want, reseed=4321)
+    profile_train(lambda: _train_step(model, opt, ids, labels),
+                  "PROFILE_TRAIN_BERT")
+    return counts
 
 
 def main():
@@ -1199,6 +1525,22 @@ def main():
     fused_norm_cases(66, 64, "tiny", "float32", "float32")
     rope_cases(2, 33, 4, 16, "tiny", "float32")
     swiglu_cases(66, 128, "tiny", "float32")
+    # K3-LN and K6 at the GPT and BERT train steps' shapes (GPT 4 x 1024
+    # rows of 1024, both kinds; BERT 64 x 128 rows of 768), a ragged size;
+    # K1/K2 at head_dim 64: GPT causal B4 H16 S1024, BERT non-causal B64
+    # H12 S128
+    ln_gpt = layer_norm_cases(GPT_BATCH * GPT_SEQ, CFG_GPT["hidden_size"],
+                              "gpt")
+    ln_bert = layer_norm_cases(BERT_BATCH * BERT_SEQ, 768, "bert", add=False)
+    layer_norm_cases(66, 80, "tiny")
+    drop = dropout_add_cases(BERT_BATCH * BERT_SEQ, 768, "bert")
+    dropout_add_cases(3, 37, "tiny")
+    flash64 = {"gpt": flash_case(GPT_BATCH, 16, 16, GPT_SEQ, 64),
+               "bert": flash_case(BERT_BATCH, 12, 12, BERT_SEQ, 64,
+                                  causal=False)}
+    bwd64 = {"gpt": flash_bwd_case(GPT_BATCH, 16, 16, GPT_SEQ, 64),
+             "bert": flash_bwd_case(BERT_BATCH, 12, 12, BERT_SEQ, 64,
+                                    causal=False)}
     model, counts = serve()
     profile_decode(model)
     counts_q4 = serve_quant(model, "int4", "int4", 16, "SERVE_Q4")
@@ -1208,8 +1550,15 @@ def main():
     del model                     # the serving weights; TRAIN builds its own
     torch.cuda.empty_cache()
     tmodel, opt, ids, counts_train = train()
-    profile_train(tmodel, opt, ids)
+    profile_train(lambda: _train_step(tmodel, opt, ids, ids))
     train_unfused(tmodel, opt, ids)
+    for cnt in (counts, counts_q4, counts_q8, counts_train):
+        assert all(cnt[n] == 0 for n in LN_DROPOUT_KERNELS), cnt
+    del tmodel, opt, ids
+    torch.cuda.empty_cache()
+    counts_gpt = train_gpt()
+    torch.cuda.empty_cache()
+    counts_bert = train_bert()
 
     main_flash = flash[2]                  # S = 512, a prefill bucket
     paged_src = "paddle_tpu_torch/csrc/paged_decode.cu"
@@ -1256,6 +1605,47 @@ def main():
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    # K3-LN and K6 at the GPT and BERT shapes: launches from the phase
+    # whose shape the row times (all its cases of the entry point)
+    for rec, line, cnt in ((ln_gpt["fwd"], 118, counts_gpt),
+                           (ln_gpt["fwd_add"], 118, counts_gpt),
+                           (ln_gpt["bwd"], 160, counts_gpt),
+                           (ln_gpt["bwd_add"], 160, counts_gpt),
+                           (ln_bert["fwd"], 118, counts_bert),
+                           (ln_bert["bwd"], 160, counts_bert),
+                           (drop["fwd"], 573, counts_bert),
+                           (drop["bwd"], 580, counts_bert)):
+        summary.append({
+            "name": rec["name"], "case": rec["case"], "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/fused_norm.cu",
+            "replaces": f"paddle_tpu/ops/pallas_norm.py:{line}",
+            "launches": cnt[rec["name"]],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    # K1 and K2 at head_dim 64, each from its own phase
+    for key, cnt in (("gpt", counts_gpt), ("bert", counts_bert)):
+        rec = flash64[key]
+        summary.append({
+            "name": rec["name"], "case": f"{key} d64", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+            "replaces": "paddle_tpu/ops/pallas_attention.py:104",
+            "launches": cnt[rec["name"]],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+        for kname, part, line in (("flash_attention_bwd_dq", "dq", 263),
+                                  ("flash_attention_bwd_dkv", "dkv", 314)):
+            rec = bwd64[key][part]
+            summary.append({
+                "name": kname, "case": f"{key} d64", "route": "cuda",
+                "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",
+                "launches": cnt[kname],
+                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"],
+                "library_ms": rec["library_ms"]})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

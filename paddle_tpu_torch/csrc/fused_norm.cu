@@ -1,55 +1,78 @@
-// Fused RMSNorm (with and without the residual add), rotary on Q and K,
-// and SwiGLU, forward and backward, for Hopper (sm_90a).
+// Fused RMSNorm and LayerNorm (with and without the residual add),
+// rotary on Q and K, SwiGLU, and dropout + add, forward and backward, for
+// Hopper (sm_90a).
 //
 // Replaces: paddle_tpu/ops/pallas_norm.py `_norm_fwd_kernel` (K3 forward,
-// RMS kinds, reached through `_norm_forward`), `_norm_bwd_kernel` (K3
-// backward, `_norm_backward`), `_rope_kernel` (K4, `_rope_apply`, both
-// directions), `_swiglu_fwd_kernel` and `_swiglu_bwd_kernel` (K5,
-// `_swiglu_call`).
+// RMS and LayerNorm kinds, reached through `_norm_forward`),
+// `_norm_bwd_kernel` (K3 backward, `_norm_backward`), `_rope_kernel` (K4,
+// `_rope_apply`, both directions), `_swiglu_fwd_kernel` and
+// `_swiglu_bwd_kernel` (K5, `_swiglu_call`), `_dropout_add_fwd_kernel`
+// and `_dropout_add_bwd_kernel` (K6, `dropout_add_fused` and its VJP).
 //
 // Entry points (each returns cudaGetLastError(), 0 = ok):
-//   fused_rms_norm_fwd  y = w * x_sum * rstd, s = x + res (add variant),
-//                       rstd = 1 / sqrt(mean(x_sum^2) + eps) per row
-//   fused_rms_norm_bwd  dx = rstd * (w*dy - xhat * mean(w*dy*xhat)) (+ ds),
-//                       dw = sum over rows of dy * xhat, xhat = s * rstd
-//   rope_qk             neox rotation of Q and K in one launch; backward is
-//                       the transpose (the partner index's sin)
-//   swiglu_fwd          o = silu(g) * u
-//   swiglu_bwd          dg = do * u * (sig + silu * (1 - sig)), du = do * silu
+//   fused_rms_norm_fwd    y = w * x_sum * rstd, s = x + res (add variant),
+//                         rstd = 1 / sqrt(mean(x_sum^2) + eps) per row
+//   fused_rms_norm_bwd    dx = rstd * (w*dy - xhat * mean(w*dy*xhat)) (+ ds),
+//                         dw = sum over rows of dy * xhat, xhat = s * rstd
+//   fused_layer_norm_fwd  y = (x_sum - mean) * rstd * w + b, s as above,
+//                         mean and rstd = 1 / sqrt(var + eps) per row, with
+//                         var = max(mean(x_sum^2) - mean^2, 0) as the TPU
+//                         kernel takes it
+//   fused_layer_norm_bwd  dx = rstd * (w*dy - mean(w*dy) - xhat *
+//                         mean(w*dy*xhat)) (+ ds), dw = sum of dy * xhat,
+//                         db = sum of dy, xhat = (s - mean) * rstd
+//   rope_qk               neox rotation of Q and K in one launch; backward is
+//                         the transpose (the partner index's sin)
+//   swiglu_fwd            o = silu(g) * u
+//   swiglu_bwd            dg = do * u * (sig + silu * (1 - sig)),
+//                         du = do * silu
+//   dropout_add_fwd       o = x * mask * scale + y (mask 0/1 in x's type)
+//   dropout_add_bwd       dx = g * mask * scale (dy = g needs no kernel)
 //
-// Types: x, res, s, w, dx, ds (TX) are f32, bf16 or f16; y and dy (TY) are
+// Types: x, res, s, dx, ds (TX) are f32, bf16 or f16; y and dy (TY) are
 // TX or f32 (an f32 norm that reads a bf16 or f16 stream, the way the
 // reference's O2 autocast runs its f32 norm on upcast inputs; the upcast
-// is exact, so it is the same function without the cast pass). Every
-// reduction and every product is f32 inside the kernel; each output is
-// rounded once.
+// is exact, so it is the same function without the cast pass). The RMS
+// kinds take w and write dw in TX; the LayerNorm kinds take w and b in
+// f32 and write dw and db in f32 (the reference's O2 keeps LayerNorm
+// weights f32; the caller casts the [H] vectors, and their gradients flow
+// back through the cast). Every reduction and every product is f32 inside
+// the kernel; each output is rounded once.
 //
 // What bounds them on the H100: device memory. Each does a few f32
-// operations per element it moves (a norm ~6, SwiGLU ~10 with one exp),
-// two orders of magnitude below the ~20 flop/byte at which the 67 TFLOP/s
-// f32 pipes, let alone the tensor cores, would become the limit. So the
-// design moves each input byte once and each output byte once:
+// operations per element it moves (a norm ~6-9, SwiGLU ~10 with one exp,
+// dropout + add 3), two orders of magnitude below the ~20 flop/byte at
+// which the 67 TFLOP/s f32 pipes, let alone the tensor cores, would become
+// the limit. So the design moves each input byte once and each output
+// byte once:
 //   - 16-byte vector loads and stores (8 bf16 or 4 f32 per access) when
 //     the widths and pointers allow, one element at a time otherwise;
-//   - K3 forward: one 256-thread block per row; the f32 sum x (+ res) is
-//     kept in shared memory between the sum of squares and the scaled
-//     write, so x and res are read once; only rstd (4 bytes a row) is saved
-//     for the backward;
-//   - K3 backward: xhat is recomputed from s and rstd (no f32 [rows, H]
-//     activation is stored). dw is a sum across rows, which the TPU kernel
-//     carries in VMEM over its sequential row grid. Here each block owns a
-//     contiguous range of rows, loops over them, and keeps its dw partial
-//     for its columns in shared memory; it writes one f32 partial row, and
-//     a second kernel adds the partials of all blocks in a fixed order.
-//     No float atomics, so the result repeats from run to run. The add
-//     variant's dx + ds is added in f32 before the one rounding;
+//   - K3 forward: one block per row, of as many threads as the row has
+//     vectors (a multiple of 32, at most 256: hidden 768 in bf16 takes 96);
+//     the f32 sum x (+ res) is kept in shared memory between the row's
+//     sums and the scaled write, so x and res are read once; only rstd
+//     (and the mean, for LayerNorm: 4 bytes each a row) is saved for the
+//     backward. LayerNorm's two sums (x and x^2) come from the same pass;
+//   - K3 backward: xhat is recomputed from s and the stats (no f32
+//     [rows, H] activation is stored). dw (and db) are sums across rows,
+//     which the TPU kernel carries in VMEM over its sequential row grid.
+//     Here each block owns a contiguous range of rows, loops over them,
+//     and keeps its dw (and db) partial for its columns in shared memory;
+//     it writes one f32 partial row each, and a second kernel adds the
+//     partials of all blocks in a fixed order. No float atomics, so the
+//     result repeats from run to run. The add variant's dx + ds is added
+//     in f32 before the one rounding;
 //   - K4: one thread rotates N adjacent pairs (d, d + D/2) of one head
 //     row, reading each element of q, k and of the row's tables once;
-//   - K5: one thread per N adjacent elements.
+//   - K5, K6: one thread per N adjacent elements. K6 reads the mask the
+//     caller drew (the reference draws it outside its kernel too, and the
+//     backward needs it).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -95,145 +118,19 @@ __device__ __forceinline__ void store_f32(T* p, const float (&in)[N]) {
   *reinterpret_cast<Pack<T, N>*>(p) = pk;
 }
 
+
 // sum over the block, the same value in every thread, added in a fixed
-// order (warp shuffles, then the warps' sums in warp order)
+// order (warp shuffles, then the warps' sums in warp order). blockDim.x is
+// a multiple of 32, at most kThreads.
 __device__ __forceinline__ float block_sum(float v, float* red) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
   float t = 0.f;
-  for (int i = 0; i < kThreads / 32; ++i) t += red[i];
+  for (int i = 0; i < (int)(blockDim.x >> 5); ++i) t += red[i];
   __syncthreads();  // red is written again by the next call
   return t;
-}
-
-// ------------------------------------------------------------------ K3
-
-// one block per row; dynamic shared memory: the row's f32 sum [h]
-template <typename TX, typename TY, int N>
-__global__ void __launch_bounds__(kThreads)
-rms_fwd_kernel(const TX* __restrict__ x, const TX* __restrict__ res,
-               const TX* __restrict__ w, TY* __restrict__ y,
-               TX* __restrict__ s, float* __restrict__ rstd, int h,
-               float eps) {
-  extern __shared__ float smem[];
-  __shared__ float red[kThreads / 32];
-  const size_t base = (size_t)blockIdx.x * h;
-  float sq = 0.f;
-  for (int c = threadIdx.x * N; c < h; c += kThreads * N) {
-    float v[N];
-    load_f32<TX, N>(x + base + c, v);
-    if (res != nullptr) {
-      float r[N];
-      load_f32<TX, N>(res + base + c, r);
-#pragma unroll
-      for (int i = 0; i < N; ++i) v[i] += r[i];
-      store_f32<TX, N>(s + base + c, v);
-    }
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      smem[c + i] = v[i];
-      sq += v[i] * v[i];
-    }
-  }
-  const float inv = rsqrtf(block_sum(sq, red) * (1.f / h) + eps);
-  for (int c = threadIdx.x * N; c < h; c += kThreads * N) {
-    float wv[N], o[N];
-    load_f32<TX, N>(w + c, wv);
-#pragma unroll
-    for (int i = 0; i < N; ++i) o[i] = smem[c + i] * inv * wv[i];
-    store_f32<TY, N>(y + base + c, o);
-  }
-  if (threadIdx.x == 0) rstd[blockIdx.x] = inv;
-}
-
-// a block owns rows [blockIdx.x * rpb, +rpb); dynamic shared memory:
-// xhat [h], w*dy [h], w [h] and the block's dw partial [h], all f32. Each
-// thread touches only its own columns of these, so they need no barrier.
-template <typename TX, typename TY, int N>
-__global__ void __launch_bounds__(kThreads)
-rms_bwd_kernel(const TX* __restrict__ s, const TX* __restrict__ w,
-               const float* __restrict__ rstd, const TY* __restrict__ dy,
-               const TX* __restrict__ ds, TX* __restrict__ dx,
-               float* __restrict__ dw_part, int rows, int h, int rpb) {
-  extern __shared__ float smem[];
-  __shared__ float red[kThreads / 32];
-  float* xh = smem;
-  float* wd = smem + h;
-  float* wf = smem + 2 * h;
-  float* acc = smem + 3 * h;
-  for (int c = threadIdx.x * N; c < h; c += kThreads * N) {
-    float wv[N];
-    load_f32<TX, N>(w + c, wv);
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      wf[c + i] = wv[i];
-      acc[c + i] = 0.f;
-    }
-  }
-  const int r0 = blockIdx.x * rpb;
-  const int r1 = min(rows, r0 + rpb);
-  for (int r = r0; r < r1; ++r) {
-    const size_t base = (size_t)r * h;
-    const float rs = rstd[r];
-    float part = 0.f;
-    for (int c = threadIdx.x * N; c < h; c += kThreads * N) {
-      float sv[N], g[N];
-      load_f32<TX, N>(s + base + c, sv);
-      load_f32<TY, N>(dy + base + c, g);
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        const float xhat = sv[i] * rs;
-        const float wdy = g[i] * wf[c + i];
-        part += wdy * xhat;
-        acc[c + i] += g[i] * xhat;
-        xh[c + i] = xhat;
-        wd[c + i] = wdy;
-      }
-    }
-    const float c2 = block_sum(part, red) * (1.f / h);
-    for (int c = threadIdx.x * N; c < h; c += kThreads * N) {
-      float d[N];
-#pragma unroll
-      for (int i = 0; i < N; ++i) d[i] = rs * (wd[c + i] - xh[c + i] * c2);
-      if (ds != nullptr) {
-        float e[N];
-        load_f32<TX, N>(ds + base + c, e);
-#pragma unroll
-        for (int i = 0; i < N; ++i) d[i] += e[i];
-      }
-      store_f32<TX, N>(dx + base + c, d);
-    }
-  }
-  for (int c = threadIdx.x * N; c < h; c += kThreads * N)
-#pragma unroll
-    for (int i = 0; i < N; ++i)
-      dw_part[(size_t)blockIdx.x * h + c + i] = acc[c + i];
-}
-
-// dw[c] = the blocks' partials summed in a fixed order: a block owns 32
-// columns; its 8 warps each add every 8th partial row, then warp 0 adds
-// the 8 sums in warp order
-constexpr int kFinGroups = kThreads / 32;
-
-template <typename TX>
-__global__ void __launch_bounds__(kThreads)
-dw_finish_kernel(const float* __restrict__ part, TX* __restrict__ dw,
-                 int blocks, int h) {
-  __shared__ float red[kFinGroups][32];
-  const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
-  const int col = blockIdx.x * 32 + lane;
-  float t = 0.f;
-  if (col < h)
-    for (int b = g; b < blocks; b += kFinGroups) t += part[(size_t)b * h + col];
-  red[g][lane] = t;
-  __syncthreads();
-  if (g == 0 && col < h) {
-    float u = 0.f;
-    for (int i = 0; i < kFinGroups; ++i) u += red[i][lane];
-    dw[col] = from_f32<TX>(u);
-  }
 }
 
 bool aligned16(const void* p) {
@@ -247,67 +144,258 @@ cudaError_t smem_limit(const void* kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <typename TX, typename TY, int N>
-int rms_fwd_launch(const void* x, const void* res, const void* w, void* y,
-                   void* s, void* rstd, int rows, int h, float eps,
-                   cudaStream_t st) {
+// threads for a row of h elements read N at a time: one per vector,
+// rounded up to whole warps, 32..kThreads
+int row_threads(int h, int n) {
+  const int t = ((h + n - 1) / n + 31) / 32 * 32;
+  return t < 32 ? 32 : (t > kThreads ? kThreads : t);
+}
+
+// ------------------------------------------------------------------ K3
+
+// LAYER = false: RMS kind (w in TW = TX, no b, no mean); true: LayerNorm
+// kind (w and b in TW = f32). One block per row; dynamic shared memory:
+// the row's f32 sum [h].
+template <typename TX, typename TY, typename TW, int N, bool LAYER>
+__global__ void __launch_bounds__(kThreads)
+norm_fwd_kernel(const TX* __restrict__ x, const TX* __restrict__ res,
+                const TW* __restrict__ w, const TW* __restrict__ b,
+                TY* __restrict__ y, TX* __restrict__ s,
+                float* __restrict__ rstd, float* __restrict__ mean, int h,
+                float eps) {
+  extern __shared__ float smem[];
+  __shared__ float red[kThreads / 32];
+  const size_t base = (size_t)blockIdx.x * h;
+  float sum = 0.f, sq = 0.f;
+  for (int c = threadIdx.x * N; c < h; c += blockDim.x * N) {
+    float v[N];
+    load_f32<TX, N>(x + base + c, v);
+    if (res != nullptr) {
+      float r[N];
+      load_f32<TX, N>(res + base + c, r);
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] += r[i];
+      store_f32<TX, N>(s + base + c, v);
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      smem[c + i] = v[i];
+      if constexpr (LAYER) sum += v[i];
+      sq += v[i] * v[i];
+    }
+  }
+  float mu = 0.f, var;
+  if constexpr (LAYER) {
+    mu = block_sum(sum, red) * (1.f / h);
+    var = fmaxf(block_sum(sq, red) * (1.f / h) - mu * mu, 0.f);
+  } else {
+    var = block_sum(sq, red) * (1.f / h);
+  }
+  const float inv = rsqrtf(var + eps);
+  for (int c = threadIdx.x * N; c < h; c += blockDim.x * N) {
+    float wv[N], o[N];
+    load_f32<TW, N>(w + c, wv);
+    if constexpr (LAYER) {
+      float bv[N];
+      load_f32<TW, N>(b + c, bv);
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        o[i] = (smem[c + i] - mu) * inv * wv[i] + bv[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) o[i] = smem[c + i] * inv * wv[i];
+    }
+    store_f32<TY, N>(y + base + c, o);
+  }
+  if (threadIdx.x == 0) {
+    rstd[blockIdx.x] = inv;
+    if constexpr (LAYER) mean[blockIdx.x] = mu;
+  }
+}
+
+// a block owns rows [blockIdx.x * rpb, +rpb); dynamic shared memory:
+// xhat [h], w*dy [h], w [h], the block's dw partial [h] and, for
+// LayerNorm, its db partial [h], all f32. Each thread touches only its own
+// columns of these, so they need no barrier. The partials go to rows
+// blockIdx.x (dw) and gridDim.x + blockIdx.x (db) of `part`.
+template <typename TX, typename TY, typename TW, int N, bool LAYER>
+__global__ void __launch_bounds__(kThreads)
+norm_bwd_kernel(const TX* __restrict__ s, const TW* __restrict__ w,
+                const float* __restrict__ rstd,
+                const float* __restrict__ mean, const TY* __restrict__ dy,
+                const TX* __restrict__ ds, TX* __restrict__ dx,
+                float* __restrict__ part, int rows, int h, int rpb) {
+  extern __shared__ float smem[];
+  __shared__ float red[kThreads / 32];
+  float* xh = smem;
+  float* wd = smem + h;
+  float* wf = smem + 2 * h;
+  float* acc = smem + 3 * h;
+  float* accb = smem + 4 * h;  // LayerNorm only
+  for (int c = threadIdx.x * N; c < h; c += blockDim.x * N) {
+    float wv[N];
+    load_f32<TW, N>(w + c, wv);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      wf[c + i] = wv[i];
+      acc[c + i] = 0.f;
+      if constexpr (LAYER) accb[c + i] = 0.f;
+    }
+  }
+  const int r0 = blockIdx.x * rpb;
+  const int r1 = min(rows, r0 + rpb);
+  for (int r = r0; r < r1; ++r) {
+    const size_t base = (size_t)r * h;
+    const float rs = rstd[r];
+    float mu = 0.f;
+    if constexpr (LAYER) mu = mean[r];
+    float part2 = 0.f, part1 = 0.f;
+    for (int c = threadIdx.x * N; c < h; c += blockDim.x * N) {
+      float sv[N], g[N];
+      load_f32<TX, N>(s + base + c, sv);
+      load_f32<TY, N>(dy + base + c, g);
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        float xhat;
+        if constexpr (LAYER) xhat = (sv[i] - mu) * rs;
+        else xhat = sv[i] * rs;
+        const float wdy = g[i] * wf[c + i];
+        part2 += wdy * xhat;
+        acc[c + i] += g[i] * xhat;
+        if constexpr (LAYER) {
+          part1 += wdy;
+          accb[c + i] += g[i];
+        }
+        xh[c + i] = xhat;
+        wd[c + i] = wdy;
+      }
+    }
+    const float c2 = block_sum(part2, red) * (1.f / h);
+    float c1 = 0.f;
+    if constexpr (LAYER) c1 = block_sum(part1, red) * (1.f / h);
+    for (int c = threadIdx.x * N; c < h; c += blockDim.x * N) {
+      float d[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        if constexpr (LAYER) d[i] = rs * (wd[c + i] - c1 - xh[c + i] * c2);
+        else d[i] = rs * (wd[c + i] - xh[c + i] * c2);
+      }
+      if (ds != nullptr) {
+        float e[N];
+        load_f32<TX, N>(ds + base + c, e);
+#pragma unroll
+        for (int i = 0; i < N; ++i) d[i] += e[i];
+      }
+      store_f32<TX, N>(dx + base + c, d);
+    }
+  }
+  for (int c = threadIdx.x * N; c < h; c += blockDim.x * N)
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      part[(size_t)blockIdx.x * h + c + i] = acc[c + i];
+      if constexpr (LAYER)
+        part[((size_t)gridDim.x + blockIdx.x) * h + c + i] = accb[c + i];
+    }
+}
+
+// out[c] = the blocks' partials summed in a fixed order: a block owns 32
+// columns of one sum (blockIdx.y: 0 = dw from partial rows [0, blocks),
+// 1 = db from rows [blocks, 2 * blocks)); its 8 warps each add every 8th
+// partial row, then warp 0 adds the 8 sums in warp order
+constexpr int kFinGroups = kThreads / 32;
+
+template <typename TW>
+__global__ void __launch_bounds__(kThreads)
+dw_finish_kernel(const float* __restrict__ part, TW* __restrict__ dw,
+                 TW* __restrict__ db, int blocks, int h) {
+  __shared__ float red[kFinGroups][32];
+  const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
+  const int col = blockIdx.x * 32 + lane;
+  const float* p = part + (size_t)blockIdx.y * blocks * h;
+  TW* out = blockIdx.y == 0 ? dw : db;
+  float t = 0.f;
+  if (col < h)
+    for (int b = g; b < blocks; b += kFinGroups) t += p[(size_t)b * h + col];
+  red[g][lane] = t;
+  __syncthreads();
+  if (g == 0 && col < h) {
+    float u = 0.f;
+    for (int i = 0; i < kFinGroups; ++i) u += red[i][lane];
+    out[col] = from_f32<TW>(u);
+  }
+}
+
+template <typename TX, typename TY, typename TW, int N, bool LAYER>
+int norm_fwd_launch(const void* x, const void* res, const void* w,
+                    const void* b, void* y, void* s, void* rstd, void* mean,
+                    int rows, int h, float eps, cudaStream_t st) {
   const size_t bytes = (size_t)h * sizeof(float);
-  auto kernel = rms_fwd_kernel<TX, TY, N>;
+  auto kernel = norm_fwd_kernel<TX, TY, TW, N, LAYER>;
   cudaError_t err = smem_limit((const void*)kernel, bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<rows, kThreads, bytes, st>>>(
+  kernel<<<rows, row_threads(h, N), bytes, st>>>(
       static_cast<const TX*>(x), static_cast<const TX*>(res),
-      static_cast<const TX*>(w), static_cast<TY*>(y), static_cast<TX*>(s),
-      static_cast<float*>(rstd), h, eps);
+      static_cast<const TW*>(w), static_cast<const TW*>(b),
+      static_cast<TY*>(y), static_cast<TX*>(s), static_cast<float*>(rstd),
+      static_cast<float*>(mean), h, eps);
   return (int)cudaGetLastError();
 }
 
-template <typename TX, typename TY, int N>
-int rms_bwd_launch(const void* s, const void* w, const void* rstd,
-                   const void* dy, const void* ds, void* dx, void* dw,
-                   void* dw_part, int rows, int h, int blocks, int rpb,
-                   cudaStream_t st) {
-  const size_t bytes = (size_t)4 * h * sizeof(float);
-  auto kernel = rms_bwd_kernel<TX, TY, N>;
+template <typename TX, typename TY, typename TW, int N, bool LAYER>
+int norm_bwd_launch(const void* s, const void* w, const void* rstd,
+                    const void* mean, const void* dy, const void* ds,
+                    void* dx, void* dw, void* db, void* part, int rows,
+                    int h, int blocks, int rpb, cudaStream_t st) {
+  const size_t bytes = (size_t)(LAYER ? 5 : 4) * h * sizeof(float);
+  auto kernel = norm_bwd_kernel<TX, TY, TW, N, LAYER>;
   cudaError_t err = smem_limit((const void*)kernel, bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks, kThreads, bytes, st>>>(
-      static_cast<const TX*>(s), static_cast<const TX*>(w),
-      static_cast<const float*>(rstd), static_cast<const TY*>(dy),
-      static_cast<const TX*>(ds), static_cast<TX*>(dx),
-      static_cast<float*>(dw_part), rows, h, rpb);
+  kernel<<<blocks, row_threads(h, N), bytes, st>>>(
+      static_cast<const TX*>(s), static_cast<const TW*>(w),
+      static_cast<const float*>(rstd), static_cast<const float*>(mean),
+      static_cast<const TY*>(dy), static_cast<const TX*>(ds),
+      static_cast<TX*>(dx), static_cast<float*>(part), rows, h, rpb);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dw_finish_kernel<TX><<<(h + 31) / 32, kThreads, 0, st>>>(
-      static_cast<const float*>(dw_part), static_cast<TX*>(dw), blocks, h);
+  dw_finish_kernel<TW><<<dim3((h + 31) / 32, LAYER ? 2 : 1), kThreads, 0,
+                         st>>>(static_cast<const float*>(part),
+                               static_cast<TW*>(dw), static_cast<TW*>(db),
+                               blocks, h);
   return (int)cudaGetLastError();
 }
 
 // N = 16 bytes of TX when h allows it and every pointer is 16-byte
-// aligned (an f32 TY with a 2-byte TX then moves 32 bytes, two accesses)
-template <typename TX, typename TY>
-int rms_fwd_typed(const void* x, const void* res, const void* w, void* y,
-                  void* s, void* rstd, int rows, int h, float eps,
-                  cudaStream_t st) {
+// aligned (an f32 TY or TW with a 2-byte TX then moves 32 bytes, two
+// accesses)
+template <bool LAYER, typename TX, typename TY>
+int norm_fwd_typed(const void* x, const void* res, const void* w,
+                   const void* b, void* y, void* s, void* rstd, void* mean,
+                   int rows, int h, float eps, cudaStream_t st) {
+  using TW = typename std::conditional<LAYER, float, TX>::type;
   constexpr int N = 16 / sizeof(TX);
   if (h % N == 0 && aligned16(x) && aligned16(res) && aligned16(w) &&
-      aligned16(y) && aligned16(s))
-    return rms_fwd_launch<TX, TY, N>(x, res, w, y, s, rstd, rows, h, eps, st);
-  return rms_fwd_launch<TX, TY, 1>(x, res, w, y, s, rstd, rows, h, eps, st);
+      aligned16(b) && aligned16(y) && aligned16(s))
+    return norm_fwd_launch<TX, TY, TW, N, LAYER>(x, res, w, b, y, s, rstd,
+                                                 mean, rows, h, eps, st);
+  return norm_fwd_launch<TX, TY, TW, 1, LAYER>(x, res, w, b, y, s, rstd,
+                                               mean, rows, h, eps, st);
 }
 
-template <typename TX, typename TY>
-int rms_bwd_typed(const void* s, const void* w, const void* rstd,
-                  const void* dy, const void* ds, void* dx, void* dw,
-                  void* dw_part, int rows, int h, int blocks, int rpb,
-                  cudaStream_t st) {
+template <bool LAYER, typename TX, typename TY>
+int norm_bwd_typed(const void* s, const void* w, const void* rstd,
+                   const void* mean, const void* dy, const void* ds,
+                   void* dx, void* dw, void* db, void* part, int rows, int h,
+                   int blocks, int rpb, cudaStream_t st) {
+  using TW = typename std::conditional<LAYER, float, TX>::type;
   constexpr int N = 16 / sizeof(TX);
   if (h % N == 0 && aligned16(s) && aligned16(w) && aligned16(dy) &&
       aligned16(ds) && aligned16(dx))
-    return rms_bwd_launch<TX, TY, N>(s, w, rstd, dy, ds, dx, dw, dw_part,
-                                     rows, h, blocks, rpb, st);
-  return rms_bwd_launch<TX, TY, 1>(s, w, rstd, dy, ds, dx, dw, dw_part, rows,
-                                   h, blocks, rpb, st);
+    return norm_bwd_launch<TX, TY, TW, N, LAYER>(
+        s, w, rstd, mean, dy, ds, dx, dw, db, part, rows, h, blocks, rpb,
+        st);
+  return norm_bwd_launch<TX, TY, TW, 1, LAYER>(s, w, rstd, mean, dy, ds, dx,
+                                               dw, db, part, rows, h, blocks,
+                                               rpb, st);
 }
 
 // ------------------------------------------------------------------ K4
@@ -491,15 +579,155 @@ int swiglu_bwd_typed(const void* g, const void* u, const void* d_o,
   return (int)cudaGetLastError();
 }
 
+
+// ------------------------------------------------------------------ K6
+
+// thread i: elements [i * N, i * N + N), the ragged tail one at a time
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+dropout_add_fwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                       const T* __restrict__ m, T* __restrict__ o,
+                       float scale, long long n) {
+  const long long i0 = ((long long)blockIdx.x * kThreads + threadIdx.x) * N;
+  if (i0 + N <= n) {
+    float xv[N], yv[N], mv[N], ov[N];
+    load_f32<T, N>(x + i0, xv);
+    load_f32<T, N>(y + i0, yv);
+    load_f32<T, N>(m + i0, mv);
+#pragma unroll
+    for (int j = 0; j < N; ++j) ov[j] = xv[j] * mv[j] * scale + yv[j];
+    store_f32<T, N>(o + i0, ov);
+  } else {
+    for (long long i = i0; i < n; ++i)
+      o[i] = from_f32<T>(to_f32(x[i]) * to_f32(m[i]) * scale + to_f32(y[i]));
+  }
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+dropout_add_bwd_kernel(const T* __restrict__ g, const T* __restrict__ m,
+                       T* __restrict__ dx, float scale, long long n) {
+  const long long i0 = ((long long)blockIdx.x * kThreads + threadIdx.x) * N;
+  if (i0 + N <= n) {
+    float gv[N], mv[N], dv[N];
+    load_f32<T, N>(g + i0, gv);
+    load_f32<T, N>(m + i0, mv);
+#pragma unroll
+    for (int j = 0; j < N; ++j) dv[j] = gv[j] * mv[j] * scale;
+    store_f32<T, N>(dx + i0, dv);
+  } else {
+    for (long long i = i0; i < n; ++i)
+      dx[i] = from_f32<T>(to_f32(g[i]) * to_f32(m[i]) * scale);
+  }
+}
+
+template <typename T>
+int dropout_add_fwd_typed(const void* x, const void* y, const void* m,
+                          void* o, float scale, long long n,
+                          cudaStream_t st) {
+  constexpr int N = 16 / sizeof(T);
+  const bool vec = aligned16(x) && aligned16(y) && aligned16(m) &&
+                   aligned16(o);
+  const unsigned grid = swiglu_grid<T>(n, vec);
+  if (vec)
+    dropout_add_fwd_kernel<T, N><<<grid, kThreads, 0, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(y),
+        static_cast<const T*>(m), static_cast<T*>(o), scale, n);
+  else
+    dropout_add_fwd_kernel<T, 1><<<grid, kThreads, 0, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(y),
+        static_cast<const T*>(m), static_cast<T*>(o), scale, n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dropout_add_bwd_typed(const void* g, const void* m, void* dx,
+                          float scale, long long n, cudaStream_t st) {
+  constexpr int N = 16 / sizeof(T);
+  const bool vec = aligned16(g) && aligned16(m) && aligned16(dx);
+  const unsigned grid = swiglu_grid<T>(n, vec);
+  if (vec)
+    dropout_add_bwd_kernel<T, N><<<grid, kThreads, 0, st>>>(
+        static_cast<const T*>(g), static_cast<const T*>(m),
+        static_cast<T*>(dx), scale, n);
+  else
+    dropout_add_bwd_kernel<T, 1><<<grid, kThreads, 0, st>>>(
+        static_cast<const T*>(g), static_cast<const T*>(m),
+        static_cast<T*>(dx), scale, n);
+  return (int)cudaGetLastError();
+}
+
 constexpr int kF32 = 0, kBF16 = 1, kF16 = 2;
+
+// the type pair (x_dtype, y_dtype) -> the norm kernels' instantiation
+template <bool LAYER>
+int norm_fwd_entry(const void* x, const void* res, const void* w,
+                   const void* b, void* y, void* s, void* rstd, void* mean,
+                   int rows, int h, float eps, int x_dtype, int y_dtype,
+                   cudaStream_t st) {
+  if (rows == 0 || h == 0) return 0;
+  if (x_dtype == y_dtype) {
+    if (x_dtype == kF32)
+      return norm_fwd_typed<LAYER, float, float>(x, res, w, b, y, s, rstd,
+                                                 mean, rows, h, eps, st);
+    if (x_dtype == kBF16)
+      return norm_fwd_typed<LAYER, __nv_bfloat16, __nv_bfloat16>(
+          x, res, w, b, y, s, rstd, mean, rows, h, eps, st);
+    if (x_dtype == kF16)
+      return norm_fwd_typed<LAYER, __half, __half>(x, res, w, b, y, s, rstd,
+                                                   mean, rows, h, eps, st);
+  } else if (y_dtype == kF32) {
+    if (x_dtype == kBF16)
+      return norm_fwd_typed<LAYER, __nv_bfloat16, float>(
+          x, res, w, b, y, s, rstd, mean, rows, h, eps, st);
+    if (x_dtype == kF16)
+      return norm_fwd_typed<LAYER, __half, float>(x, res, w, b, y, s, rstd,
+                                                  mean, rows, h, eps, st);
+  }
+  return -1;
+}
+
+template <bool LAYER>
+int norm_bwd_entry(const void* s, const void* w, const void* rstd,
+                   const void* mean, const void* dy, const void* ds,
+                   void* dx, void* dw, void* db, void* part, int rows, int h,
+                   int blocks, int rpb, int x_dtype, int y_dtype,
+                   cudaStream_t st) {
+  if (rows == 0 || h == 0) return 0;
+  if (x_dtype == y_dtype) {
+    if (x_dtype == kF32)
+      return norm_bwd_typed<LAYER, float, float>(
+          s, w, rstd, mean, dy, ds, dx, dw, db, part, rows, h, blocks, rpb,
+          st);
+    if (x_dtype == kBF16)
+      return norm_bwd_typed<LAYER, __nv_bfloat16, __nv_bfloat16>(
+          s, w, rstd, mean, dy, ds, dx, dw, db, part, rows, h, blocks, rpb,
+          st);
+    if (x_dtype == kF16)
+      return norm_bwd_typed<LAYER, __half, __half>(
+          s, w, rstd, mean, dy, ds, dx, dw, db, part, rows, h, blocks, rpb,
+          st);
+  } else if (y_dtype == kF32) {
+    if (x_dtype == kBF16)
+      return norm_bwd_typed<LAYER, __nv_bfloat16, float>(
+          s, w, rstd, mean, dy, ds, dx, dw, db, part, rows, h, blocks, rpb,
+          st);
+    if (x_dtype == kF16)
+      return norm_bwd_typed<LAYER, __half, float>(
+          s, w, rstd, mean, dy, ds, dx, dw, db, part, rows, h, blocks, rpb,
+          st);
+  }
+  return -1;
+}
 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = float16. The caller has
 // checked shapes, contiguity and devices; x_dtype is that of x, res, s,
-// w, dx, ds and dw; y_dtype, that of y and dy, is x_dtype or 0. The
-// return value is cudaGetLastError(); 0 = ok, -1 = a dtype pair the
-// kernels do not take.
+// dx and ds (and of w and dw for the RMS kinds; LayerNorm's w, b, dw and
+// db are f32); y_dtype, that of y and dy, is x_dtype or 0. The return
+// value is cudaGetLastError(); 0 = ok, -1 = a dtype pair the kernels do
+// not take.
 
 // x, res [rows, h] (res, s null for the plain norm); w [h]; y [rows, h];
 // rstd [rows] f32. Dynamic shared memory: 4 * h bytes.
@@ -507,28 +735,9 @@ extern "C" int fused_rms_norm_fwd(const void* x, const void* res,
                                   const void* w, void* y, void* s,
                                   void* rstd, int rows, int h, float eps,
                                   int x_dtype, int y_dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rows == 0 || h == 0) return 0;
-  if (x_dtype == y_dtype) {
-    if (x_dtype == kF32)
-      return rms_fwd_typed<float, float>(x, res, w, y, s, rstd, rows, h, eps,
-                                         st);
-    if (x_dtype == kBF16)
-      return rms_fwd_typed<__nv_bfloat16, __nv_bfloat16>(x, res, w, y, s,
-                                                         rstd, rows, h, eps,
-                                                         st);
-    if (x_dtype == kF16)
-      return rms_fwd_typed<__half, __half>(x, res, w, y, s, rstd, rows, h,
-                                           eps, st);
-  } else if (y_dtype == kF32) {
-    if (x_dtype == kBF16)
-      return rms_fwd_typed<__nv_bfloat16, float>(x, res, w, y, s, rstd, rows,
-                                                 h, eps, st);
-    if (x_dtype == kF16)
-      return rms_fwd_typed<__half, float>(x, res, w, y, s, rstd, rows, h,
-                                          eps, st);
-  }
-  return -1;
+  return norm_fwd_entry<false>(x, res, w, nullptr, y, s, rstd, nullptr,
+                               rows, h, eps, x_dtype, y_dtype,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // s [rows, h] (the saved input, or the summed stream of the add variant);
@@ -541,27 +750,34 @@ extern "C" int fused_rms_norm_bwd(const void* s, const void* w,
                                   void* dw_part, int rows, int h, int blocks,
                                   int rpb, int x_dtype, int y_dtype,
                                   void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rows == 0 || h == 0) return 0;
-  if (x_dtype == y_dtype) {
-    if (x_dtype == kF32)
-      return rms_bwd_typed<float, float>(s, w, rstd, dy, ds, dx, dw, dw_part,
-                                         rows, h, blocks, rpb, st);
-    if (x_dtype == kBF16)
-      return rms_bwd_typed<__nv_bfloat16, __nv_bfloat16>(
-          s, w, rstd, dy, ds, dx, dw, dw_part, rows, h, blocks, rpb, st);
-    if (x_dtype == kF16)
-      return rms_bwd_typed<__half, __half>(s, w, rstd, dy, ds, dx, dw,
-                                           dw_part, rows, h, blocks, rpb, st);
-  } else if (y_dtype == kF32) {
-    if (x_dtype == kBF16)
-      return rms_bwd_typed<__nv_bfloat16, float>(
-          s, w, rstd, dy, ds, dx, dw, dw_part, rows, h, blocks, rpb, st);
-    if (x_dtype == kF16)
-      return rms_bwd_typed<__half, float>(s, w, rstd, dy, ds, dx, dw,
-                                          dw_part, rows, h, blocks, rpb, st);
-  }
-  return -1;
+  return norm_bwd_entry<false>(s, w, rstd, nullptr, dy, ds, dx, dw, nullptr,
+                               dw_part, rows, h, blocks, rpb, x_dtype,
+                               y_dtype, static_cast<cudaStream_t>(stream));
+}
+
+// as fused_rms_norm_fwd, with b [h] and w f32, and mean [rows] f32 out
+extern "C" int fused_layer_norm_fwd(const void* x, const void* res,
+                                    const void* w, const void* b, void* y,
+                                    void* s, void* rstd, void* mean,
+                                    int rows, int h, float eps, int x_dtype,
+                                    int y_dtype, void* stream) {
+  return norm_fwd_entry<true>(x, res, w, b, y, s, rstd, mean, rows, h, eps,
+                              x_dtype, y_dtype,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// as fused_rms_norm_bwd, with w f32, mean [rows] f32, dw and db [h] f32
+// and part f32 scratch [2 * blocks, h] (the dw partials, then the db
+// ones). Dynamic shared memory: 20 * h bytes.
+extern "C" int fused_layer_norm_bwd(const void* s, const void* w,
+                                    const void* rstd, const void* mean,
+                                    const void* dy, const void* ds, void* dx,
+                                    void* dw, void* db, void* part, int rows,
+                                    int h, int blocks, int rpb, int x_dtype,
+                                    int y_dtype, void* stream) {
+  return norm_bwd_entry<true>(s, w, rstd, mean, dy, ds, dx, dw, db, part,
+                              rows, h, blocks, rpb, x_dtype, y_dtype,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // q, k, qo, ko [B, S, H, D] contiguous, rows = B * S * H; cos, sin [S, D];
@@ -605,5 +821,35 @@ extern "C" int swiglu_bwd(const void* g, const void* u, const void* d_o,
   if (dtype == kBF16)
     return swiglu_bwd_typed<__nv_bfloat16>(g, u, d_o, dg, du, n, st);
   if (dtype == kF16) return swiglu_bwd_typed<__half>(g, u, d_o, dg, du, n, st);
+  return -1;
+}
+
+// x, y, mask, o: n contiguous elements of one dtype; mask holds 0 or 1
+extern "C" int dropout_add_fwd(const void* x, const void* y, const void* m,
+                               void* o, float scale, long long n, int dtype,
+                               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n == 0) return 0;
+  if (dtype == kF32)
+    return dropout_add_fwd_typed<float>(x, y, m, o, scale, n, st);
+  if (dtype == kBF16)
+    return dropout_add_fwd_typed<__nv_bfloat16>(x, y, m, o, scale, n, st);
+  if (dtype == kF16)
+    return dropout_add_fwd_typed<__half>(x, y, m, o, scale, n, st);
+  return -1;
+}
+
+// g, mask, dx: n contiguous elements of one dtype
+extern "C" int dropout_add_bwd(const void* g, const void* m, void* dx,
+                               float scale, long long n, int dtype,
+                               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n == 0) return 0;
+  if (dtype == kF32)
+    return dropout_add_bwd_typed<float>(g, m, dx, scale, n, st);
+  if (dtype == kBF16)
+    return dropout_add_bwd_typed<__nv_bfloat16>(g, m, dx, scale, n, st);
+  if (dtype == kF16)
+    return dropout_add_bwd_typed<__half>(g, m, dx, scale, n, st);
   return -1;
 }

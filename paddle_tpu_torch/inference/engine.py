@@ -303,7 +303,7 @@ class ServingEngine:
                  weight_quant=None, device=None):
         self.device = resolve_device(device)
         if getattr(model, "_gen_arch", "llama") != "llama":
-            raise _not_ported("serving a GPT model", "6, 'GPT with K6'")
+            raise _not_ported("serving a GPT model", "10, 'GPT serving'")
         if prefix_cache or prefix_cache_max_blocks is not None:
             raise _not_ported("prefix caching", _ITEM_PREFIX)
         if chunked_prefill_tokens:

@@ -38,7 +38,8 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 #: paged-decode variants over model-dtype, int8 and int4 caches share one
 #: source (one kernel template, the cache format a parameter), and so do
 #: the two flash-attention backward kernels (dQ; dK and dV) and the fused
-#: norm, rotary and SwiGLU kernels.
+#: norm (RMS and LayerNorm kinds), rotary, SwiGLU and dropout + add
+#: kernels.
 KERNEL_SOURCES = {
     "flash_attention_fwd": "csrc/flash_attention_fwd.cu",
     "flash_attention_bwd_dq": "csrc/flash_attention_bwd.cu",
@@ -52,6 +53,10 @@ KERNEL_SOURCES = {
     "rope_qk": "csrc/fused_norm.cu",
     "swiglu_fwd": "csrc/fused_norm.cu",
     "swiglu_bwd": "csrc/fused_norm.cu",
+    "fused_layer_norm_fwd": "csrc/fused_norm.cu",
+    "fused_layer_norm_bwd": "csrc/fused_norm.cu",
+    "dropout_add_fwd": "csrc/fused_norm.cu",
+    "dropout_add_bwd": "csrc/fused_norm.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

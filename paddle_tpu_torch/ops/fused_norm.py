@@ -1,28 +1,35 @@
-"""Fused RMSNorm (with and without the residual add), rotary on Q and K,
-and SwiGLU: the hand-written CUDA kernels, their plain PyTorch versions,
-and the differentiable ops built from them.
+"""Fused RMSNorm and LayerNorm (with and without the residual add),
+rotary on Q and K, SwiGLU, and dropout + add: the hand-written CUDA
+kernels, their plain PyTorch versions, and the differentiable ops built
+from them.
 
-Port of the RMS kinds and the rotary and SwiGLU parts of
-paddle_tpu/ops/pallas_norm.py: `_norm_forward` / `_norm_backward` (K3,
-kernels `_norm_fwd_kernel`, `_norm_bwd_kernel`), `_rope_apply` /
-`_tables2` (K4, `_rope_kernel`, both directions), `_swiglu_call` (K5,
-`_swiglu_fwd_kernel`, `_swiglu_bwd_kernel`), the custom VJPs
-`rms_norm_fused`, `add_rms_norm_fused`, `rope_qk_fused` and
-`swiglu_fused` (torch.autograd.Functions here), and the raw wrappers
+Port of paddle_tpu/ops/pallas_norm.py: `_norm_forward` /
+`_norm_backward` (K3, kernels `_norm_fwd_kernel`, `_norm_bwd_kernel`, RMS
+and LayerNorm kinds), `_rope_apply` / `_tables2` (K4, `_rope_kernel`,
+both directions), `_swiglu_call` (K5, `_swiglu_fwd_kernel`,
+`_swiglu_bwd_kernel`), `dropout_add_fused` and its VJP (K6,
+`_dropout_add_fwd_kernel`, `_dropout_add_bwd_kernel`), the custom VJPs
+`rms_norm_fused`, `add_rms_norm_fused`, `layer_norm_fused`,
+`add_layer_norm_fused`, `rope_qk_fused`, `swiglu_fused` and
+`dropout_add_fused` (torch.autograd.Functions here), and the raw wrappers
 that harmonise dtypes before them (`rms_norm_raw`, `add_rms_norm_raw`,
-`rope_qk_raw`, `swiglu_raw`). The kernels live in csrc/fused_norm.cu,
-one source with five entry points and five launch counters
-(`fused_rms_norm_fwd`, `fused_rms_norm_bwd`, `rope_qk`, `swiglu_fwd`,
-`swiglu_bwd`); its note says what bounds them on the H100 (device
+`layer_norm_raw`, `add_layer_norm_raw`, `rope_qk_raw`, `swiglu_raw`,
+`dropout_add_raw`). The kernels live in csrc/fused_norm.cu, one source
+with nine entry points and nine launch counters (`fused_rms_norm_fwd`,
+`fused_rms_norm_bwd`, `fused_layer_norm_fwd`, `fused_layer_norm_bwd`,
+`rope_qk`, `swiglu_fwd`, `swiglu_bwd`, `dropout_add_fwd`,
+`dropout_add_bwd`); its note says what bounds them on the H100 (device
 memory: each moves every input and output byte once and does a few f32
-operations per element) and how the design answers that. LayerNorm's
-kinds of K3 are not ported here (they come with GPT).
+operations per element) and how the design answers that.
 
 Numerics, as the TPU kernels: every reduction and product in f32, each
-output rounded once to its dtype. The norms save only rstd (f32, one per
-row) and recompute the normalized row in the backward; dw is summed
-across rows in a fixed order (no atomics). The add variant returns
-(normed, summed) and its backward gives both inputs dsum = dx + ds.
+output rounded once to its dtype. The norms save only rstd (and, for
+LayerNorm, the mean; f32, one each per row) and recompute the normalized
+row in the backward; dw (and LayerNorm's db) are summed across rows in a
+fixed order (no atomics). LayerNorm's variance is max(E[x^2] - mean^2, 0),
+as the TPU kernel takes it. The add variants return (normed, summed) and
+their backward gives both inputs dsum = dx + ds. Dropout + add reads a
+0/1 mask in x's dtype that the caller drew, and saves only the mask.
 
 Routing: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises. There is no fallback. Unlike the reference, there is no
@@ -45,11 +52,18 @@ _NORM_BWD = "fused_rms_norm_bwd"
 _ROPE = "rope_qk"
 _SWIGLU_FWD = "swiglu_fwd"
 _SWIGLU_BWD = "swiglu_bwd"
+_LN_FWD = "fused_layer_norm_fwd"
+_LN_BWD = "fused_layer_norm_bwd"
+_DA_FWD = "dropout_add_fwd"
+_DA_BWD = "dropout_add_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-#: the norm kernels keep 4 (backward) f32 rows of H in shared memory
+#: the norm kernels keep 4 (RMS backward) or 5 (LayerNorm backward: db's
+#: partial too) f32 rows of H in shared memory, at most 227 KB
 MAX_HIDDEN = 12288
-#: K3 backward blocks per SM: each block writes one f32 dw partial row, so
-#: more blocks buy parallelism over rows at the price of partial traffic
+MAX_HIDDEN_LN = 11264
+#: K3 backward blocks per SM: each block writes one f32 dw (and db)
+#: partial row, so more blocks buy parallelism over rows at the price of
+#: partial traffic
 _BWD_BLOCKS_PER_SM = 4
 
 
@@ -92,6 +106,46 @@ def rms_norm_bwd_reference(s, w, rstd, dy, ds=None):
     return dx.to(s.dtype), dw.to(w.dtype)
 
 
+def layer_norm_fwd_reference(x, res, w, b, eps, out_dtype=None):
+    """Plain K3-LN forward: (y, s, rstd, mean). xs = x (+ res) in f32;
+    mean and rstd = rsqrt(max(mean(xs^2) - mean^2, 0) + eps) [rows] f32;
+    y = (xs - mean) * rstd * w + b in `out_dtype` (default x's); s = xs in
+    x's dtype when `res` is given, else None."""
+    acc = _acc(x.dtype)
+    xs = x.to(acc) if res is None else x.to(acc) + res.to(acc)
+    h = x.shape[-1]
+    mean = xs.sum(-1, keepdim=True) * (1.0 / h)
+    var = torch.clamp_min((xs * xs).sum(-1, keepdim=True) * (1.0 / h)
+                          - mean * mean, 0.0)
+    rstd = torch.rsqrt(var + eps)
+    y = ((xs - mean) * rstd * w.to(acc) + b.to(acc)).to(
+        x.dtype if out_dtype is None else out_dtype)
+    s = None if res is None else xs.to(x.dtype)
+    return y, s, rstd.reshape(-1), mean.reshape(-1)
+
+
+def layer_norm_bwd_reference(s, w, rstd, mean, dy, ds=None):
+    """Plain K3-LN backward from the saved pre-norm row `s`, `rstd` and
+    `mean`: xhat = (s - mean) * rstd, c1 = mean(w * dy), c2 = mean(w * dy
+    * xhat), dx = rstd * (w * dy - c1 - xhat * c2) (+ ds) in s's dtype;
+    dw = sum over rows of dy * xhat and db = sum of dy, in w's dtype."""
+    acc = _acc(s.dtype)
+    h = s.shape[-1]
+    shape = s.shape[:-1] + (1,)
+    r = rstd.to(acc).reshape(shape)
+    xhat = (s.to(acc) - mean.to(acc).reshape(shape)) * r
+    dyf = dy.to(acc)
+    wdy = dyf * w.to(acc)
+    c1 = wdy.sum(-1, keepdim=True) * (1.0 / h)
+    c2 = (wdy * xhat).sum(-1, keepdim=True) * (1.0 / h)
+    dx = r * (wdy - c1 - xhat * c2)
+    if ds is not None:
+        dx = dx + ds.to(acc)
+    dw = (dyf * xhat).reshape(-1, h).sum(0)
+    db = dyf.reshape(-1, h).sum(0)
+    return dx.to(s.dtype), dw.to(w.dtype), db.to(w.dtype)
+
+
 def rope_qk_reference(q, k, cos, sin, backward=False):
     """Plain K4: q, k [B, S, H, D] and tables cos/sin [S, D] -> (qo, ko)
     in q's and k's dtypes. Forward a*cos + concat(-a2, a1)*sin; backward
@@ -127,6 +181,19 @@ def swiglu_bwd_reference(g, u, do):
     silu = gf * sig
     return ((dof * uf * (sig + silu * (1.0 - sig))).to(g.dtype),
             (dof * silu).to(u.dtype))
+
+
+def dropout_add_fwd_reference(x, y, mask, scale):
+    """Plain K6 forward: x * mask * scale + y in f32, rounded once to x's
+    dtype."""
+    acc = _acc(x.dtype)
+    return (x.to(acc) * mask.to(acc) * scale + y.to(acc)).to(x.dtype)
+
+
+def dropout_add_bwd_reference(g, mask, scale):
+    """Plain K6 backward: dx = g * mask * scale in g's dtype (dy = g)."""
+    acc = _acc(g.dtype)
+    return (g.to(acc) * mask.to(acc) * scale).to(g.dtype)
 
 
 # ------------------------------------------------------------- wrappers
@@ -171,16 +238,17 @@ def _launch(name, fn, *args):
     count_launch(name)
 
 
-def _check_norm(x, w, out_dtype, *others):
-    name = "fused RMSNorm"
+def _check_norm(name, x, params, param_dtype, max_hidden, out_dtype,
+                *others):
     h = x.shape[-1] if x.dim() else 0
-    if x.numel() == 0 or h > MAX_HIDDEN:
-        raise ValueError(f"{name}: needs rows of 1..{MAX_HIDDEN} elements, "
+    if x.numel() == 0 or h > max_hidden:
+        raise ValueError(f"{name}: needs rows of 1..{max_hidden} elements, "
                          f"got shape {tuple(x.shape)}")
     _check_dtype(name, x.dtype)
-    if w.shape != (h,) or w.dtype != x.dtype:
-        raise ValueError(f"{name}: weight must be [{h}] {x.dtype}, got "
-                         f"{tuple(w.shape)} {w.dtype}")
+    for p in params:
+        if p.shape != (h,) or p.dtype != param_dtype:
+            raise ValueError(f"{name}: weight and bias must be [{h}] "
+                             f"{param_dtype}, got {tuple(p.shape)} {p.dtype}")
     if out_dtype not in (x.dtype, torch.float32):
         raise ValueError(f"{name}: output dtype {out_dtype} must be x's "
                          f"({x.dtype}) or float32")
@@ -188,7 +256,23 @@ def _check_norm(x, w, out_dtype, *others):
         if t is not None and t.shape != x.shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)} differs from "
                              f"x's {tuple(x.shape)}")
-    _check_contiguous(name, x, w, *others)
+    _check_contiguous(name, x, *params, *others)
+
+
+def _check_stats(name, rows, *stats):
+    for t in stats:
+        if t.shape != (rows,) or t.dtype != torch.float32:
+            raise ValueError(f"{name}: rstd and mean must be float32 "
+                             f"[{rows}], got {tuple(t.shape)} {t.dtype}")
+    _check_contiguous(name, *stats)
+
+
+def _bwd_grid(rows, device):
+    """(blocks, rows per block) of a K3 backward over `rows` rows."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    blocks = min(rows, _BWD_BLOCKS_PER_SM * sms)
+    rpb = -(-rows // blocks)
+    return -(-rows // rpb), rpb
 
 
 def fused_rms_norm_fwd(x, res, w, eps, out_dtype=None):
@@ -199,7 +283,8 @@ def fused_rms_norm_fwd(x, res, w, eps, out_dtype=None):
     if _plain(_NORM_FWD, x, res, w):
         return rms_norm_fwd_reference(x, res, w, eps, out_dtype)
     out_dtype = x.dtype if out_dtype is None else out_dtype
-    _check_norm(x, w, out_dtype, res)
+    _check_norm("fused RMSNorm", x, (w,), x.dtype, MAX_HIDDEN, out_dtype,
+                res)
     if res is not None and res.dtype != x.dtype:
         raise ValueError(f"fused RMSNorm: residual dtype {res.dtype} differs "
                          f"from x's {x.dtype}")
@@ -226,19 +311,15 @@ def fused_rms_norm_bwd(s, w, rstd, dy, ds=None):
     sum."""
     if _plain(_NORM_BWD, s, w, rstd, dy, ds):
         return rms_norm_bwd_reference(s, w, rstd, dy, ds)
-    _check_norm(s, w, dy.dtype, dy, ds)
+    name = "fused RMSNorm backward"
+    _check_norm(name, s, (w,), s.dtype, MAX_HIDDEN, dy.dtype, dy, ds)
     h = s.shape[-1]
     rows = s.numel() // h
-    if rstd.shape != (rows,) or rstd.dtype != torch.float32 \
-            or (ds is not None and ds.dtype != s.dtype):
-        raise ValueError(f"fused RMSNorm backward: rstd must be float32 "
-                         f"[{rows}] and ds {s.dtype}, got rstd "
-                         f"{tuple(rstd.shape)} {rstd.dtype}")
-    _check_contiguous(_NORM_BWD, rstd)
-    sms = torch.cuda.get_device_properties(s.device).multi_processor_count
-    blocks = min(rows, _BWD_BLOCKS_PER_SM * sms)
-    rpb = -(-rows // blocks)
-    blocks = -(-rows // rpb)
+    _check_stats(name, rows, rstd)
+    if ds is not None and ds.dtype != s.dtype:
+        raise ValueError(f"{name}: ds dtype {ds.dtype} differs from s's "
+                         f"{s.dtype}")
+    blocks, rpb = _bwd_grid(rows, s.device)
     dx = torch.empty_like(s)
     dw = torch.empty(h, dtype=s.dtype, device=s.device)
     part = torch.empty((blocks, h), dtype=torch.float32, device=s.device)
@@ -249,6 +330,68 @@ def fused_rms_norm_bwd(s, w, rstd, dy, ds=None):
             part.data_ptr(), rows, h, blocks, rpb, _DTYPES[s.dtype],
             _DTYPES[dy.dtype], current_stream(s.device))
     return dx, dw
+
+
+def fused_layer_norm_fwd(x, res, w, b, eps, out_dtype=None):
+    """K3-LN forward: (y, s, rstd, mean) as `layer_norm_fwd_reference`
+    for x [.., H] (+ res, same shape and dtype; None for the plain norm)
+    and w, b [H] float32; `out_dtype` (y's) is x's (default) or float32.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if _plain(_LN_FWD, x, res, w, b):
+        return layer_norm_fwd_reference(x, res, w, b, eps, out_dtype)
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    _check_norm("fused LayerNorm", x, (w, b), torch.float32, MAX_HIDDEN_LN,
+                out_dtype, res)
+    if res is not None and res.dtype != x.dtype:
+        raise ValueError(f"fused LayerNorm: residual dtype {res.dtype} "
+                         f"differs from x's {x.dtype}")
+    h = x.shape[-1]
+    rows = x.numel() // h
+    y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    s = None if res is None else torch.empty_like(x)
+    rstd, mean = (torch.empty(rows, dtype=torch.float32, device=x.device)
+                  for _ in range(2))
+    fn = _entry(_LN_FWD, [ctypes.c_void_p] * 8
+                + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p])
+    _launch(_LN_FWD, fn, x.data_ptr(), _ptr(res), w.data_ptr(),
+            b.data_ptr(), y.data_ptr(), _ptr(s), rstd.data_ptr(),
+            mean.data_ptr(), rows, h, float(eps), _DTYPES[x.dtype],
+            _DTYPES[out_dtype], current_stream(x.device))
+    return y, s, rstd, mean
+
+
+def fused_layer_norm_bwd(s, w, rstd, mean, dy, ds=None):
+    """K3-LN backward: (dx, dw, db) as `layer_norm_bwd_reference`, from
+    the saved pre-norm row s [.., H], w [H] float32, rstd and mean [rows]
+    float32, the output gradient dy (s's dtype or float32) and, for the
+    add variant, the summed stream's gradient ds (added into dx); dw and
+    db come back float32. CPU tensors take the plain version; CUDA
+    tensors launch the row kernel and the fixed-order dw/db sum."""
+    if _plain(_LN_BWD, s, w, rstd, mean, dy, ds):
+        return layer_norm_bwd_reference(s, w, rstd, mean, dy, ds)
+    name = "fused LayerNorm backward"
+    _check_norm(name, s, (w,), torch.float32, MAX_HIDDEN_LN, dy.dtype, dy,
+                ds)
+    h = s.shape[-1]
+    rows = s.numel() // h
+    _check_stats(name, rows, rstd, mean)
+    if ds is not None and ds.dtype != s.dtype:
+        raise ValueError(f"{name}: ds dtype {ds.dtype} differs from s's "
+                         f"{s.dtype}")
+    blocks, rpb = _bwd_grid(rows, s.device)
+    dx = torch.empty_like(s)
+    dw, db = (torch.empty(h, dtype=torch.float32, device=s.device)
+              for _ in range(2))
+    part = torch.empty((2 * blocks, h), dtype=torch.float32, device=s.device)
+    fn = _entry(_LN_BWD, [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                + [ctypes.c_void_p])
+    _launch(_LN_BWD, fn, s.data_ptr(), w.data_ptr(), rstd.data_ptr(),
+            mean.data_ptr(), dy.data_ptr(), _ptr(ds), dx.data_ptr(),
+            dw.data_ptr(), db.data_ptr(), part.data_ptr(), rows, h, blocks,
+            rpb, _DTYPES[s.dtype], _DTYPES[dy.dtype],
+            current_stream(s.device))
+    return dx, dw, db
 
 
 def rope_qk(q, k, cos, sin, backward=False):
@@ -281,14 +424,14 @@ def rope_qk(q, k, cos, sin, backward=False):
     return qo, ko
 
 
-def _check_swiglu(*tensors):
-    g = tensors[0]
-    _check_dtype("swiglu", g.dtype)
-    if any(t.shape != g.shape or t.dtype != g.dtype for t in tensors):
-        raise ValueError("swiglu takes tensors of one shape and dtype, got "
+def _check_elementwise(name, *tensors):
+    t0 = tensors[0]
+    _check_dtype(name, t0.dtype)
+    if any(t.shape != t0.shape or t.dtype != t0.dtype for t in tensors):
+        raise ValueError(f"{name} takes tensors of one shape and dtype, got "
                          + ", ".join(f"{tuple(t.shape)} {t.dtype}"
                                      for t in tensors))
-    _check_contiguous("swiglu", *tensors)
+    _check_contiguous(name, *tensors)
 
 
 def swiglu_fwd(g, u):
@@ -296,7 +439,7 @@ def swiglu_fwd(g, u):
     take the plain version; CUDA tensors launch the kernel."""
     if _plain(_SWIGLU_FWD, g, u):
         return swiglu_fwd_reference(g, u)
-    _check_swiglu(g, u)
+    _check_elementwise("swiglu", g, u)
     o = torch.empty_like(g)
     fn = _entry(_SWIGLU_FWD, [ctypes.c_void_p] * 3
                 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
@@ -310,7 +453,7 @@ def swiglu_bwd(g, u, do):
     the plain version; CUDA tensors launch the kernel."""
     if _plain(_SWIGLU_BWD, g, u, do):
         return swiglu_bwd_reference(g, u, do)
-    _check_swiglu(g, u, do)
+    _check_elementwise("swiglu", g, u, do)
     dg, du = torch.empty_like(g), torch.empty_like(u)
     fn = _entry(_SWIGLU_BWD, [ctypes.c_void_p] * 5
                 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
@@ -318,6 +461,39 @@ def swiglu_bwd(g, u, do):
             dg.data_ptr(), du.data_ptr(), g.numel(), _DTYPES[g.dtype],
             current_stream(g.device))
     return dg, du
+
+
+def dropout_add_fwd(x, y, mask, scale):
+    """K6 forward: x * mask * scale + y for x, y and the 0/1 mask of one
+    shape and dtype. CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
+    if _plain(_DA_FWD, x, y, mask):
+        return dropout_add_fwd_reference(x, y, mask, scale)
+    _check_elementwise("dropout_add", x, y, mask)
+    o = torch.empty_like(x)
+    fn = _entry(_DA_FWD, [ctypes.c_void_p] * 4
+                + [ctypes.c_float, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p])
+    _launch(_DA_FWD, fn, x.data_ptr(), y.data_ptr(), mask.data_ptr(),
+            o.data_ptr(), float(scale), x.numel(), _DTYPES[x.dtype],
+            current_stream(x.device))
+    return o
+
+
+def dropout_add_bwd(g, mask, scale):
+    """K6 backward: dx = g * mask * scale. CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    if _plain(_DA_BWD, g, mask):
+        return dropout_add_bwd_reference(g, mask, scale)
+    _check_elementwise("dropout_add", g, mask)
+    dx = torch.empty_like(g)
+    fn = _entry(_DA_BWD, [ctypes.c_void_p] * 3
+                + [ctypes.c_float, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p])
+    _launch(_DA_BWD, fn, g.data_ptr(), mask.data_ptr(), dx.data_ptr(),
+            float(scale), g.numel(), _DTYPES[g.dtype],
+            current_stream(g.device))
+    return dx
 
 
 # ---------------------------------------------------- differentiable ops
@@ -358,6 +534,43 @@ class AddRMSNorm(torch.autograd.Function):
         return dsum, dsum, dw, None, None
 
 
+class LayerNorm(torch.autograd.Function):
+    """y = layernorm(x) * w + b through K3-LN (the reference's
+    `layer_norm_fused`); saves x, w, rstd and mean."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, eps, out_dtype):
+        y, _, rstd, mean = fused_layer_norm_fwd(x, None, w, b, eps,
+                                                out_dtype)
+        ctx.save_for_backward(x, w, rstd, mean)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, rstd, mean = ctx.saved_tensors
+        dx, dw, db = fused_layer_norm_bwd(x, w, rstd, mean, dy.contiguous())
+        return dx, dw, db, None, None
+
+
+class AddLayerNorm(torch.autograd.Function):
+    """(y, s) = (layernorm(x + res) * w + b, x + res) through K3-LN (the
+    reference's `add_layer_norm_fused`); saves s, w, rstd and mean. Both
+    inputs get dsum = dx + ds."""
+
+    @staticmethod
+    def forward(ctx, x, res, w, b, eps, out_dtype):
+        y, s, rstd, mean = fused_layer_norm_fwd(x, res, w, b, eps, out_dtype)
+        ctx.save_for_backward(s, w, rstd, mean)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        s, w, rstd, mean = ctx.saved_tensors
+        dsum, dw, db = fused_layer_norm_bwd(s, w, rstd, mean, dy.contiguous(),
+                                            ds.contiguous())
+        return dsum, dsum, dw, db, None, None
+
+
 class RopeQK(torch.autograd.Function):
     """(qo, ko): q and k rotated by [S, D] tables through K4 (the
     reference's `rope_qk_fused`); the backward is the same kernel with
@@ -391,6 +604,24 @@ class SwiGLU(torch.autograd.Function):
         return swiglu_bwd(g, u, do.contiguous())
 
 
+class DropoutAdd(torch.autograd.Function):
+    """x * mask * scale + y through K6 (the reference's
+    `dropout_add_fused`); saves only the mask. dx = K6's backward, dy = g
+    (no kernel); the mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, y, mask, scale):
+        ctx.save_for_backward(mask)
+        ctx.scale = scale
+        return dropout_add_fwd(x, y, mask, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        (mask,) = ctx.saved_tensors
+        g = g.contiguous()
+        return dropout_add_bwd(g, mask, ctx.scale), g, None, None
+
+
 # --------------------------------------------- dtype-harmonising entries
 
 def rms_norm_raw(x, w=None, eps=1e-6, out_dtype=None):
@@ -420,6 +651,49 @@ def add_rms_norm_raw(x, res, w=None, eps=1e-6):
                             torch.promote_types(ct, w.dtype))
 
 
+def _promote(*dtypes):
+    out = dtypes[0]
+    for d in dtypes[1:]:
+        out = torch.promote_types(out, d)
+    return out
+
+
+def layer_norm_raw(x, w=None, b=None, eps=1e-5, out_dtype=None):
+    """layernorm(x) * w + b (w None: ones, b None: zeros). w and b reach
+    the kernel in f32 (their gradients flow back through the cast). With
+    `out_dtype` None, the reference's dtypes: the norm written in x's
+    dtype, then cast to the promotion of x's, w's and b's.
+    out_dtype=float32 over a bf16 x is the reference's O2 autocast of
+    this op (x, w and b upcast, exactly, then an f32 norm), read straight
+    from the bf16 tensor and written in f32."""
+    acc = _acc(x.dtype)
+    h = x.shape[-1]
+    promoted = _promote(x.dtype, *(p.dtype for p in (w, b) if p is not None))
+    w = torch.ones(h, dtype=acc, device=x.device) if w is None else w.to(acc)
+    b = torch.zeros(h, dtype=acc, device=x.device) if b is None \
+        else b.to(acc)
+    y = LayerNorm.apply(x.contiguous(), w.contiguous(), b.contiguous(),
+                        float(eps), x.dtype if out_dtype is None
+                        else out_dtype)
+    return y.to(promoted) if out_dtype is None else y
+
+
+def add_layer_norm_raw(x, res, w=None, b=None, eps=1e-5):
+    """(layernorm(x + res) * w + b, x + res), x and res promoted to one
+    dtype first; the norm written in that dtype and cast to its promotion
+    with w's and b's, the sum in the former (the reference's dtypes)."""
+    ct = torch.promote_types(x.dtype, res.dtype)
+    acc = _acc(ct)
+    h = x.shape[-1]
+    out_dt = _promote(ct, *(p.dtype for p in (w, b) if p is not None))
+    w = torch.ones(h, dtype=acc, device=x.device) if w is None else w.to(acc)
+    b = torch.zeros(h, dtype=acc, device=x.device) if b is None \
+        else b.to(acc)
+    y, s = AddLayerNorm.apply(x.to(ct).contiguous(), res.to(ct).contiguous(),
+                              w.contiguous(), b.contiguous(), float(eps), ct)
+    return y.to(out_dt), s
+
+
 def _tables2(t, s, d):
     """A rope table broadcastable to [1, S, 1, D] (or [S, D]) -> [S, D]."""
     t2 = t.reshape(-1, t.shape[-1])
@@ -446,3 +720,11 @@ def swiglu_raw(gate, up):
     """silu(gate) * up, both promoted to one dtype first."""
     ct = torch.promote_types(gate.dtype, up.dtype)
     return SwiGLU.apply(gate.to(ct).contiguous(), up.to(ct).contiguous())
+
+
+def dropout_add_raw(x, y, mask, scale):
+    """x * mask * scale + y, x and y (and the mask) promoted to one dtype
+    first."""
+    ct = torch.promote_types(x.dtype, y.dtype)
+    return DropoutAdd.apply(x.to(ct).contiguous(), y.to(ct).contiguous(),
+                            mask.to(ct).contiguous(), float(scale))

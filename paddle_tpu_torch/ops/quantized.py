@@ -19,6 +19,10 @@ has ceil(K/2) rows where x has K columns.
 
 Routing: `quant_matmul_raw` takes its plain version for CPU tensors and
 launches the kernel for CUDA tensors, or raises. There is no fallback.
+`quant_matmul` sends what the kernel does not take (group-wise scales,
+odd K, N not a multiple of 32, a dtype other than f32 or bf16) to the
+reference's plain composition by a static gate, `kernel_gate_reason`, as
+the reference's `quant_gate_reason` sends it to XLA.
 """
 from __future__ import annotations
 
@@ -201,6 +205,25 @@ def quant_matmul_raw(x, packed, scale, k):
 
 # --------------------------------------------------------------- routing
 
+def kernel_gate_reason(k, n, dtype, grouped=False):
+    """Why a packed-int4 matmul of x [.., k] (dtype) by a [k, n] weight
+    does not take K8, or None when it does: the port's counterpart of the
+    reference's `quant_gate_reason` (`paddle_tpu/ops/quantized.py`), with
+    the kernel's own limits in place of the TPU's. A static decision from
+    shapes and dtypes alone, the same on the CPU (where K8's plain version
+    runs) and on the card."""
+    if grouped:
+        return ("group-wise scales ride the plain composition (the kernel "
+                "streams per-channel scales only)")
+    if dtype not in _DTYPES:
+        return f"dtype {dtype} unsupported by the dequant-matmul kernel"
+    if k % 2:
+        return f"K={k} is odd (the kernel takes packed rows K/2)"
+    if n % KERNEL_COLS:
+        return f"N={n} is not a multiple of {KERNEL_COLS}"
+    return None
+
+
 def quant_matmul(x, w, scale, int4_matmul=quant_matmul_raw):
     """Dequant-matmul over a quantized weight pair: the one routine behind
     generation's `_mm` and the serving engine's matmuls.
@@ -208,8 +231,10 @@ def quant_matmul(x, w, scale, int4_matmul=quant_matmul_raw):
     x [..., K]; (w, scale) is either int8 (w [K, N]) or packed int4 (w
     [ceil(K/2), N]), told apart by shape; scale [N] per-channel or [G, N]
     group-wise. Returns [..., N] in x's dtype. int8 is the reference's
-    plain arithmetic; per-channel int4 goes through `int4_matmul` (the K8
-    wrapper, or its plain version passed explicitly by a check)."""
+    plain arithmetic; packed int4 goes through `int4_matmul` (the K8
+    wrapper, or its plain version passed explicitly by a check) when
+    `kernel_gate_reason` lets it, and through the reference's composition
+    (unpack, matmul in x's dtype, scale) otherwise, on any device."""
     k = x.shape[-1]
     grouped = scale.dim() == 2
     if w.shape[0] == k:                  # int8: the reference's exact math
@@ -227,12 +252,10 @@ def quant_matmul(x, w, scale, int4_matmul=quant_matmul_raw):
     n = w.shape[1]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k).contiguous()
+    if kernel_gate_reason(k, n, x.dtype, grouped) is None:
+        return int4_matmul(x2, w, scale, k).reshape(*lead, n)
     if grouped:
-        if x.device.type != "cpu":
-            raise NotImplementedError(
-                "group-wise int4 scales are not ported to the CUDA "
-                "dequant-matmul yet (ROADMAP Queue 2, 'K8 group-wise "
-                "scales'); the serving path makes per-channel scales")
         wf = dequant_int4(w, scale, k, x.dtype)
         return (x2 @ wf).reshape(*lead, n)
-    return int4_matmul(x2, w, scale, k).reshape(*lead, n)
+    q = int4_unpack(w, k, axis=0)
+    return ((x2 @ q.to(x.dtype)) * scale.to(x.dtype)).reshape(*lead, n)

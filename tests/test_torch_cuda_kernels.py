@@ -33,7 +33,8 @@ from paddle_tpu_torch.ops.flash_attention import (
     flash_attention_fwd, flash_attention_reference)
 from paddle_tpu_torch.ops.paged_decode import (
     KERNEL_NAMES, paged_decode_attention, paged_decode_attention_reference)
-from paddle_tpu_torch.ops.quantized import (quant_matmul, quant_matmul_raw,
+from paddle_tpu_torch.ops.quantized import (dequant_int4, int4_unpack,
+                                            quant_matmul, quant_matmul_raw,
                                             quant_matmul_reference,
                                             quantize_int4)
 
@@ -255,10 +256,24 @@ def test_quant_matmul_refuses_what_it_does_not_take(card):
         quant_matmul_raw(torch.zeros(2, 64, device=card,
                                      dtype=torch.float16),
                          packed.to(card), scale.to(card), 64)
-    packed, scale = quantize_int4(_randn(rs, 64, 64), group_size=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quant_matmul(torch.zeros(2, 64, device=card), packed.to(card),
-                     scale.to(card))
+    # quant_matmul routes what the kernel does not take to the
+    # reference's composition, on the card too, without launching K8
+    cases = [(64, 64, 16, torch.float32), (33, 64, -1, torch.float32),
+             (64, 48, -1, torch.bfloat16), (64, 64, -1, torch.float16)]
+    for k, n, group, dtype in cases:
+        packed, scale = quantize_int4(_randn(rs, k, n), group_size=group)
+        x = _randn(rs, 3, k).to(dtype)
+        if group > 0:
+            want = x @ dequant_int4(packed, scale, k, dtype)
+        else:
+            want = (x @ int4_unpack(packed, k).to(dtype)) * scale.to(dtype)
+        before = _cuda_common.launch_counts()["quant_matmul"]
+        got = quant_matmul(x.to(card), packed.to(card), scale.to(card))
+        torch.cuda.synchronize()
+        assert _cuda_common.launch_counts()["quant_matmul"] == before
+        assert got.dtype == dtype and got.shape == want.shape
+        err = (got.cpu().float() - want.float()).abs().max().item()
+        assert err <= 2 ** -7 * want.float().abs().max().item(), (k, n, err)
 
 
 def test_kernels_refuse_bad_inputs(card):
@@ -568,3 +583,203 @@ def test_mha_train_steps_on_card_launch_every_fused_kernel(card):
     assert counts["fused_rms_norm_fwd"] == 3 * (2 * layers + 1), counts
     assert counts["fused_rms_norm_bwd"] == 3 * (2 * layers + 1), counts
     assert counts["swiglu_fwd"] == counts["swiglu_bwd"] == 3 * layers
+
+
+@pytest.mark.parametrize("x_dtype,y_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.float16, torch.float16),
+    (torch.float16, torch.float32)])
+@pytest.mark.parametrize("rows,h", [(66, 64), (66, 80), (7, 100),
+                                    (600, 768), (257, 1024)])
+@pytest.mark.parametrize("add", [False, True], ids=["ln", "add-ln"])
+def test_fused_layer_norm_kernels_match_plain(card, x_dtype, y_dtype, rows,
+                                              h, add):
+    """K3-LN forward and backward against their plain versions from the
+    same inputs, with a large common offset on every row (the E[x^2] -
+    mean^2 variance); h = 100 in 2-byte types takes the one-element
+    path, 768 a 96-thread block. Each launch counts its own kernel
+    once."""
+    rs = np.random.RandomState(rows + h)
+    x, res, dy, ds = (_randn(rs, rows, h).to(card) for _ in range(4))
+    x = (x + 4.0).to(x_dtype)
+    res, ds, dy = res.to(x_dtype), ds.to(x_dtype), dy.to(y_dtype)
+    w, b = (_randn(rs, h).to(card) for _ in range(2))
+    r = res if add else None
+    before = _cuda_common.launch_counts()
+    y, s, rstd, mean = fused_norm.fused_layer_norm_fwd(x, r, w, b, 1e-5,
+                                                       y_dtype)
+    want = fused_norm.layer_norm_fwd_reference(x, r, w, b, 1e-5, y_dtype)
+    assert _rel_err(y, want[0]) <= (1e-5 if y_dtype == torch.float32
+                                    else _HALF_TOL)
+    if add:
+        assert _rel_err(s, want[1]) <= (1e-6 if x_dtype == torch.float32
+                                        else _HALF_TOL)
+    else:
+        assert s is None and want[1] is None
+    assert _rel_err(rstd, want[2]) <= 1e-5
+    assert _rel_err(mean, want[3]) <= 1e-5
+    saved = s if add else x
+    dsum = ds if add else None
+    got = fused_norm.fused_layer_norm_bwd(saved, w, rstd, mean, dy, dsum)
+    wants = fused_norm.layer_norm_bwd_reference(saved, w, rstd, mean, dy,
+                                                dsum)
+    torch.cuda.synchronize()
+    half = x_dtype != torch.float32
+    assert _rel_err(got[0], wants[0]) <= (_HALF_TOL if half else 1e-5)
+    for g, wt in zip(got[1:], wants[1:]):      # dw, db: f32 sums over rows
+        assert _rel_err(g, wt) <= 1e-4
+    after = _cuda_common.launch_counts()
+    assert {n: c - before[n] for n, c in after.items() if c != before[n]} \
+        == {"fused_layer_norm_fwd": 1, "fused_layer_norm_bwd": 1}
+
+
+@pytest.mark.parametrize("rows,h", [(4096, 1024), (8192, 768)],
+                         ids=["gpt", "bert"])
+def test_fused_layer_norm_bwd_repeats_bit_for_bit(card, rows, h):
+    """dw and db are summed across rows in a fixed order (no atomics):
+    two backward launches on the same inputs give the same bits."""
+    rs = np.random.RandomState(5)
+    s, dy = (_randn(rs, rows, h).to(card, torch.bfloat16) for _ in range(2))
+    w, b = (_randn(rs, h).to(card) for _ in range(2))
+    _, _, rstd, mean = fused_norm.fused_layer_norm_fwd(s, None, w, b, 1e-5)
+    one = fused_norm.fused_layer_norm_bwd(s, w, rstd, mean, dy)
+    two = fused_norm.fused_layer_norm_bwd(s, w, rstd, mean, dy)
+    assert all(torch.equal(u, v) for u, v in zip(one, two))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("shape", [(66, 128), (3, 37), (8192, 768)])
+def test_dropout_add_kernels_match_plain(card, dtype, shape):
+    """K6 forward and backward against their plain versions, one 0/1
+    mask; 3 x 37 has a ragged tail after the vectors."""
+    rs = np.random.RandomState(shape[1])
+    x, y, g = (_randn(rs, *shape).to(card, dtype) for _ in range(3))
+    mask = torch.from_numpy((rs.rand(*shape) < 0.9).astype("float32")).to(
+        card, dtype)
+    scale = 1.0 / 0.9
+    tol = 1e-5 if dtype == torch.float32 else _HALF_TOL
+    before = _cuda_common.launch_counts()
+    assert _rel_err(fused_norm.dropout_add_fwd(x, y, mask, scale),
+                    fused_norm.dropout_add_fwd_reference(x, y, mask,
+                                                         scale)) <= tol
+    assert _rel_err(fused_norm.dropout_add_bwd(g, mask, scale),
+                    fused_norm.dropout_add_bwd_reference(g, mask,
+                                                         scale)) <= tol
+    after = _cuda_common.launch_counts()
+    assert {n: c - before[n] for n, c in after.items() if c != before[n]} \
+        == {"dropout_add_fwd": 1, "dropout_add_bwd": 1}
+
+
+def test_layer_norm_and_dropout_add_ops_on_card_match_cpu(card):
+    """The LayerNorm and dropout + add raw entries (autograd Functions
+    over K3-LN and K6) give the CPU plain versions' outputs and
+    gradients, in f32, with one mask."""
+    rs = np.random.RandomState(13)
+    cpu = {"x": _randn(rs, 2, 33, 80), "r": _randn(rs, 2, 33, 80),
+           "w": _randn(rs, 80), "b": _randn(rs, 80)}
+    mask = torch.from_numpy((rs.rand(2, 33, 80) < 0.9).astype("float32"))
+
+    def run(dev):
+        t = {n: v.to(dev).requires_grad_() for n, v in cpu.items()}
+        outs = (fused_norm.layer_norm_raw(t["x"], t["w"], t["b"]),
+                *fused_norm.add_layer_norm_raw(t["x"], t["r"], t["w"],
+                                               t["b"]),
+                fused_norm.dropout_add_raw(t["x"], t["r"], mask.to(dev),
+                                           1 / 0.9))
+        loss = sum((o * torch.linspace(-1, 1, o.shape[-1], device=dev))
+                   .square().sum() for o in outs)
+        grads = torch.autograd.grad(loss, [t[n] for n in "xrwb"])
+        return [o.detach().cpu() for o in (*outs, *grads)]
+
+    for got, want in zip(run(card), run("cpu")):
+        assert _rel_err(got, want) <= 1e-4
+
+
+def test_layer_norm_kernels_refuse_bad_inputs(card):
+    x = torch.zeros(4, 64, device=card)
+    with pytest.raises(ValueError, match="weight"):
+        fused_norm.fused_layer_norm_fwd(x, None, x[0].half(), x[0], 1e-5)
+    with pytest.raises(ValueError, match="rows of"):
+        wide = torch.zeros(2, fused_norm.MAX_HIDDEN_LN + 8, device=card)
+        fused_norm.fused_layer_norm_fwd(wide, None, wide[0], wide[0], 1e-5)
+    with pytest.raises(ValueError, match="one shape"):
+        fused_norm.dropout_add_fwd(x, x[:2], x, 1.0)
+
+
+def _tiny_train(make, batch, dev, steps=3):
+    """`steps` AdamW steps of the model `make(device)` builds on `dev`
+    (labels from `batch(dev)`), from zeroed launch counts: the losses."""
+    from paddle_tpu_torch.optimizer import AdamW
+
+    torch.manual_seed(0)
+    model = make("cpu").to(dev)
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters())
+    ids, labels = batch(dev)
+    _cuda_common.reset_launch_counts()
+    losses = []
+    for _ in range(steps):
+        loss = model(ids, labels=labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+    return losses
+
+
+def test_gpt_train_steps_on_card_launch_k1_k2_and_k3_ln(card):
+    """Three AdamW steps of a tiny f32 GPT on the card give the CPU
+    losses within 1e-4 relative; per step K1 and both K2 kernels launch
+    once per layer, K3-LN 2 x layers + 1 times each way, and no RMS,
+    rotary, SwiGLU or dropout + add kernel."""
+    from paddle_tpu_torch.text.models import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(vocab_size=256, hidden_size=64, num_hidden_layers=2,
+                    num_attention_heads=4, max_position_embeddings=128)
+    ids = torch.from_numpy(np.random.RandomState(9).randint(0, 256, (2, 70)))
+    losses = [_tiny_train(lambda d: GPTForCausalLM(cfg, device=d),
+                          lambda d: (ids.to(d), ids.to(d)), dev)
+              for dev in ("cpu", card)]
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+    counts = {n: c for n, c in _cuda_common.launch_counts().items() if c}
+    layers = cfg.num_hidden_layers
+    assert counts == {
+        "flash_attention_fwd": 3 * layers, "flash_attention_bwd_dq":
+        3 * layers, "flash_attention_bwd_dkv": 3 * layers,
+        "fused_layer_norm_fwd": 3 * (2 * layers + 1),
+        "fused_layer_norm_bwd": 3 * (2 * layers + 1)}, counts
+
+
+def test_bert_train_steps_on_card_launch_k6_and_k3_ln(card):
+    """Three AdamW steps of a tiny f32 BERT classifier with dropout 0.1
+    on the card: per step K1 and both K2 kernels launch once per layer,
+    K3-LN 2 x layers + 1 times each way and K6 2 x layers times each way;
+    the losses are finite. With dropout 0 they equal the CPU's within
+    1e-4 relative."""
+    from paddle_tpu_torch.text.models import (BertConfig,
+                                              BertForSequenceClassification)
+
+    rs = np.random.RandomState(10)
+    ids = torch.from_numpy(rs.randint(0, 256, (4, 40)))
+    lab = torch.from_numpy(rs.randint(0, 2, (4,)))
+    kw = dict(vocab_size=256, hidden_size=64, num_hidden_layers=2,
+              num_attention_heads=4, intermediate_size=128,
+              max_position_embeddings=64)
+    batch = lambda d: (ids.to(d), lab.to(d))  # noqa: E731
+    cfg = BertConfig(**kw, hidden_dropout_prob=0.1)
+    losses = _tiny_train(lambda d: BertForSequenceClassification(
+        cfg, device=d), batch, card)
+    assert np.isfinite(losses).all(), losses
+    counts = {n: c for n, c in _cuda_common.launch_counts().items() if c}
+    layers = cfg.num_hidden_layers
+    assert counts == {
+        "flash_attention_fwd": 3 * layers, "flash_attention_bwd_dq":
+        3 * layers, "flash_attention_bwd_dkv": 3 * layers,
+        "fused_layer_norm_fwd": 3 * (2 * layers + 1),
+        "fused_layer_norm_bwd": 3 * (2 * layers + 1),
+        "dropout_add_fwd": 3 * 2 * layers,
+        "dropout_add_bwd": 3 * 2 * layers}, counts
+    cfg = BertConfig(**kw, hidden_dropout_prob=0.0)
+    losses = [_tiny_train(lambda d: BertForSequenceClassification(
+        cfg, device=d), batch, dev) for dev in ("cpu", card)]
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)

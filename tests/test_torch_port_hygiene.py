@@ -67,14 +67,33 @@ def test_no_source_imports_jax_or_paddle_tpu():
 
 def test_default_device_is_cuda_and_refuses_without_card(monkeypatch):
     from paddle_tpu_torch.inference import ServingEngine
-    from paddle_tpu_torch.text.models import (LlamaForCausalLM,
-                                              llama_tiny_config)
+    from paddle_tpu_torch.text.models import (
+        BertConfig, BertForSequenceClassification, BertModel, GPTConfig,
+        GPTForCausalLM, LlamaForCausalLM, bert_from_numpy, gpt_from_numpy,
+        llama_tiny_config)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _cuda_common.resolve_device()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LlamaForCausalLM(llama_tiny_config())
+    gpt = GPTConfig(vocab_size=64, hidden_size=32, num_hidden_layers=1,
+                    num_attention_heads=2, max_position_embeddings=16)
+    bert = BertConfig(vocab_size=64, hidden_size=32, num_hidden_layers=1,
+                      num_attention_heads=2, intermediate_size=64,
+                      max_position_embeddings=16)
+    for build in (lambda: GPTForCausalLM(gpt), lambda: BertModel(bert),
+                  lambda: BertForSequenceClassification(bert),
+                  lambda: gpt_from_numpy(gpt, {}),
+                  lambda: bert_from_numpy(bert, {})):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    assert GPTForCausalLM(gpt, device="cpu").device.type == "cpu"
+    assert BertForSequenceClassification(bert, device="cpu").device.type \
+        == "cpu"
+    with pytest.raises(NotImplementedError, match="item 10, 'GPT serving'"):
+        ServingEngine(GPTForCausalLM(gpt, device="cpu"), max_slots=1,
+                      device="cpu")
     model = LlamaForCausalLM(llama_tiny_config(), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(model, max_slots=1)

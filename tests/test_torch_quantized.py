@@ -174,6 +174,48 @@ def test_routed_int8_and_grouped_int4_match_reference(grouped):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=5e-5)
 
 
+@pytest.mark.parametrize("k,n,dtype,grouped,takes", [
+    (2048, 5504, torch.bfloat16, False, True),
+    (2048, 32000, torch.float32, False, True),
+    (64, 64, torch.float32, True, False),
+    (33, 64, torch.float32, False, False),
+    (64, 48, torch.bfloat16, False, False),
+    (64, 64, torch.float16, False, False)],
+    ids=["serve-bf16", "lm-head-f32", "grouped", "odd-k", "n48", "f16"])
+def test_kernel_gate_and_routing(k, n, dtype, grouped, takes):
+    """The static K8 gate (the port's `quant_gate_reason`): per-channel
+    serving shapes in f32/bf16 go to the kernel's wrapper; group-wise
+    scales, odd K, N % 32 and f16 x to the reference's composition, which
+    `quant_matmul` then computes exactly as the reference does."""
+    reason = port_q.kernel_gate_reason(k, n, dtype, grouped)
+    assert (reason is None) == takes, reason
+    if k * n > 1 << 16:
+        return
+    rs = np.random.RandomState(k + n)
+    x = rs.randn(3, k).astype("float32")
+    w = rs.randn(k, n).astype("float32") * 0.05
+    p4, s4 = ref_q.quantize_int4(jnp.asarray(w), group_size=16 if grouped
+                                 else -1)
+    jdt = {torch.float32: jnp.float32, torch.float16: jnp.float16,
+           torch.bfloat16: jnp.bfloat16}[dtype]
+    want = np.asarray(ref_q.quant_matmul(jnp.asarray(x).astype(jdt), p4,
+                                         s4).astype(jnp.float32))
+    calls = []
+
+    def spy(*args):
+        calls.append(1)
+        return port_q.quant_matmul_reference(*args)
+
+    got = port_q.quant_matmul(torch.from_numpy(x).to(dtype),
+                              torch.from_numpy(np.array(p4)),
+                              torch.from_numpy(np.array(s4)),
+                              int4_matmul=spy)
+    assert bool(calls) == takes and got.dtype == dtype
+    tol = 5e-5 if dtype == torch.float32 else 2 ** -7
+    assert np.abs(got.float().numpy() - want).max() \
+        <= tol * np.abs(want).max()
+
+
 def test_routed_rejects_mismatched_rows():
     with pytest.raises(ValueError, match="match neither"):
         port_q.quant_matmul(torch.zeros(2, 32), torch.zeros(20, 8,
