@@ -11,7 +11,8 @@ off, the reference's XLA composition written in torch. The reference also
 gates on a TPU size threshold; the port does not (see `ops.fused_norm`).
 Plain: `dropout` (:253), `gelu` (:36) and `scaled_dot_product_attention`
 (`nn/functional/attention.py`), whose unmasked, dropout-free form is the
-flash op (K1 forward, K2 backward on CUDA).
+flash op (K1 forward, K2 backward on CUDA). The varlen and FlashMask APIs
+(`nn/functional/extended.py`) are in `.extended` and exported here.
 """
 from __future__ import annotations
 
@@ -67,19 +68,28 @@ def fused_dropout_add(x, y, p=0.5, training=True, mode="upscale_in_train",
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
-                                 is_causal=False):
-    """softmax(q k^T / sqrt(D) (+ mask)) v over [B, S, H, D] tensors. No
-    mask: the differentiable flash op (K1 forward, K2 backward on CUDA).
-    A mask (bool: True keeps; else added to the scores): the reference's
-    plain composition `_xla_sdpa`, f32 softmax, probabilities in q's
-    dtype."""
-    if attn_mask is None:
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, generator=None):
+    """softmax(q k^T / sqrt(D) (+ mask)) v over [B, S, H, D] tensors; k/v
+    may carry fewer heads than q (GQA). No mask and no dropout (p == 0 or
+    not training): the differentiable flash op (K1 forward, K2 backward
+    on CUDA). Otherwise the reference's plain composition `_xla_sdpa`:
+    kv heads repeated, f32 softmax, probabilities in q's dtype, the mask
+    (bool: True keeps; else added to the scores), then dropout on the
+    probabilities with a keep mask drawn from `generator` (torch's
+    default generator of q's device when None) and 1 / (1 - p) scaling."""
+    p = dropout_p if training else 0.0
+    if attn_mask is None and p == 0.0:
         out, _ = flash_attention(query.transpose(1, 2).contiguous(),
                                  key.transpose(1, 2).contiguous(),
                                  value.transpose(1, 2).contiguous(),
                                  causal=is_causal)
         return out.transpose(1, 2)
     q, k, v = (t.transpose(1, 2) for t in (query, key, value))
+    if k.shape[1] != q.shape[1]:
+        rep = q.shape[1] // k.shape[1]
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
     scores = (q @ k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
     low = torch.finfo(scores.dtype).min
     if is_causal:
@@ -87,11 +97,15 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         keep = torch.ones(sq, sk, dtype=torch.bool,
                           device=scores.device).tril(sk - sq)
         scores = scores.masked_fill(~keep, low)
-    if attn_mask.dtype == torch.bool:
-        scores = torch.where(attn_mask, scores, low)
-    else:
-        scores = scores + attn_mask
+    if attn_mask is not None:
+        if attn_mask.dtype == torch.bool:
+            scores = torch.where(attn_mask, scores, low)
+        else:
+            scores = scores + attn_mask
     probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    if p > 0.0:
+        keep = _keep_mask(probs, p, generator).bool()
+        probs = torch.where(keep, probs / (1.0 - p), 0.0).to(probs.dtype)
     return (probs @ v).transpose(1, 2)
 
 
@@ -188,3 +202,7 @@ def fused_add_layer_norm(x, residual, weight=None, bias=None, epsilon=1e-5):
     summed = x + residual
     return layer_norm(summed, summed.shape[-1:], weight, bias,
                       epsilon), summed
+
+
+from .extended import (flash_attn_unpadded,  # noqa: E402,F401
+                       flash_attn_varlen_qkvpacked, flashmask_attention)

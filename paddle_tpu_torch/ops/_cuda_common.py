@@ -37,13 +37,22 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 #: is the C entry point of its source and has its own launch counter; the
 #: paged-decode variants over model-dtype, int8 and int4 caches share one
 #: source (one kernel template, the cache format a parameter), and so do
-#: the two flash-attention backward kernels (dQ; dK and dV) and the fused
-#: norm (RMS and LayerNorm kinds), rotary, SwiGLU and dropout + add
-#: kernels.
+#: the flash-attention forward and its varlen form, the backward kernels
+#: (dQ; dK and dV; each with its varlen form), the three FlashMask kernels
+#: and the fused norm (RMS and LayerNorm kinds), rotary, SwiGLU and
+#: dropout + add kernels. The flash forward, backward and FlashMask
+#: sources share their tile bodies through csrc/flash_attention_tiles.cuh;
+#: every header under csrc/ is part of each source's build hash.
 KERNEL_SOURCES = {
     "flash_attention_fwd": "csrc/flash_attention_fwd.cu",
     "flash_attention_bwd_dq": "csrc/flash_attention_bwd.cu",
     "flash_attention_bwd_dkv": "csrc/flash_attention_bwd.cu",
+    "flash_attention_varlen_fwd": "csrc/flash_attention_fwd.cu",
+    "flash_attention_varlen_bwd_dq": "csrc/flash_attention_bwd.cu",
+    "flash_attention_varlen_bwd_dkv": "csrc/flash_attention_bwd.cu",
+    "flashmask_fwd": "csrc/flashmask_attention.cu",
+    "flashmask_bwd_dq": "csrc/flashmask_attention.cu",
+    "flashmask_bwd_dkv": "csrc/flashmask_attention.cu",
     "paged_decode_attention": "csrc/paged_decode.cu",
     "paged_decode_attention_int8": "csrc/paged_decode.cu",
     "paged_decode_attention_int4": "csrc/paged_decode.cu",
@@ -115,9 +124,13 @@ def _nvcc() -> str:
 
 
 def _source_hash(src: str) -> str:
+    """Hash of the flags, the source and every header under csrc/ (a
+    header edit rebuilds the sources that may include it)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(src, "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     return h.hexdigest()[:16]
 
 

@@ -1,21 +1,27 @@
 """Flash attention, forward and backward: the hand-written CUDA kernels,
-their plain PyTorch versions, and the differentiable op built from them.
+their plain PyTorch versions, and the differentiable ops built from them.
 
-Port of paddle_tpu/ops/pallas_attention.py, non-varlen: the forward
-(`_fwd_kernel` through `_flash_forward_x32`, K1), the backward
-(`_bwd_dq_kernel` and `_bwd_dkv_kernel` through `_flash_backward_x32`,
-K2), and the custom VJP `_flash` that `flash_attention_raw` calls
-(`FlashAttention` / `flash_attention` here). The kernels live in
-csrc/flash_attention_fwd.cu and csrc/flash_attention_bwd.cu; their source
-notes say what bounds them on the H100 and how their designs answer that.
+Port of paddle_tpu/ops/pallas_attention.py: the forward (`_fwd_kernel`
+through `_flash_forward_x32`, K1), the backward (`_bwd_dq_kernel` and
+`_bwd_dkv_kernel` through `_flash_backward_x32`, K2), the custom VJP
+`_flash` that `flash_attention_raw` calls (`FlashAttention` /
+`flash_attention` here), and their varlen forms with per-batch kv lengths
+(`has_lens`: K1v, K2v; the custom VJP `_flash_varlen` that
+`flash_attention_varlen_raw` calls is `FlashAttentionVarlen` /
+`flash_attention_varlen_raw` here). The kernels live in
+csrc/flash_attention_fwd.cu and csrc/flash_attention_bwd.cu (their tile
+bodies in csrc/flash_attention_tiles.cuh); their source notes say what
+bounds them on the H100 and how their designs answer that.
 
 Layout is the reference's [B, H, S, D]. K/V may carry fewer heads than Q
 (GQA): the kernels index kv head h // (Hq / Hkv) and the dK/dV kernel sums
 the q heads of its group; the plain versions repeat, as
 `flash_attention_raw` does — the result is the same. Causal masking aligns
-the last query row with the last key column. A query row that sees no key
-(causal with Sq > Sk) gets O = 0 and LSE = -1e30, as the TPU kernel and K1
-give it, and contributes nothing to the gradients.
+the last query row with the last key column. With `kv_lens` ([B] int32),
+key columns >= kv_lens[b] are masked too. A query row that sees no key
+(causal with Sq > Sk, or a sequence of length 0) gets O = 0 and LSE =
+-1e30, as the TPU kernel and K1 give it, and contributes nothing to the
+gradients.
 
 Routing: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises. There is no fallback.
@@ -33,6 +39,9 @@ from ._cuda_common import (check_launch, count_launch, current_stream,
 _NAME = "flash_attention_fwd"
 _BWD_DQ = "flash_attention_bwd_dq"
 _BWD_DKV = "flash_attention_bwd_dkv"
+_VARLEN = {_NAME: "flash_attention_varlen_fwd",
+           _BWD_DQ: "flash_attention_varlen_bwd_dq",
+           _BWD_DKV: "flash_attention_varlen_bwd_dkv"}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 #: the LSE of a query row that sees no key (the TPU kernel's and K1's)
@@ -55,31 +64,51 @@ def _visible(sq, sk, device):
     return cols <= rows + (sk - sq)
 
 
-def flash_attention_reference(q, k, v, causal=True):
-    """Plain PyTorch softmax(QK^T / sqrt(D)) V over [B, H, S, D], computed
-    in f32 (f64 inputs in f64). Returns (o in q.dtype, lse [B, Hq, Sq] in
+def _mask(sq, sk, device, causal, kv_lens=None):
+    """Visibility of key columns from query rows, broadcastable to
+    [B, H, Sq, Sk], or None when every pair is visible: the causal mask
+    and, with kv_lens [B], col < kv_lens[b]."""
+    vis = _visible(sq, sk, device) if causal else None
+    if kv_lens is not None:
+        cols = torch.arange(sk, device=device)
+        inlen = (cols[None, :] < kv_lens.to(device)[:, None])[:, None, None]
+        vis = inlen if vis is None else vis & inlen
+    return vis
+
+
+def attend_reference(q, k, v, vis):
+    """Plain softmax(QK^T / sqrt(D)) V over [B, H, S, D] with the
+    visibility `vis` (bool, broadcastable to [B, Hq, Sq, Sk]; None: all
+    visible), computed in f32 (f64 inputs in f64). A row that sees no key
+    gets o = 0 and lse = -1e30. Returns (o in q.dtype, lse [B, Hq, Sq] in
     the compute dtype). Differentiable by torch autograd."""
-    d, sq, sk = q.shape[3], q.shape[2], k.shape[2]
+    d = q.shape[3]
     acc = torch.promote_types(q.dtype, torch.float32)
     k, v = _repeat_kv(q, k, v)
     s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) / math.sqrt(d)
     seen = None
-    if causal:
-        vis = _visible(sq, sk, q.device)
+    if vis is not None:
         s = s.masked_fill(~vis, float("-inf"))
-        if sq > sk:
-            # rows that see no key: softmax over a row of zeros (finite,
-            # so no NaN reaches autograd), zeroed below
-            seen = vis.any(dim=-1)[:, None]                    # [Sq, 1]
-            s = torch.where(seen, s, torch.zeros((), dtype=acc,
-                                                 device=q.device))
+        # rows that see no key: softmax over a row of zeros (finite, so no
+        # NaN reaches autograd), zeroed below
+        seen = vis.any(dim=-1, keepdim=True)
+        s = torch.where(seen, s, torch.zeros((), dtype=acc, device=q.device))
     lse = torch.logsumexp(s, dim=-1)
     p = torch.softmax(s, dim=-1)
     if seen is not None:
         p = p * seen
-        lse = torch.where(seen[:, 0], lse, torch.full(
+        lse = torch.where(seen[..., 0], lse, torch.full(
             (), EMPTY_ROW_LSE, dtype=acc, device=q.device))
     return torch.matmul(p, v.to(acc)).to(q.dtype), lse
+
+
+def flash_attention_reference(q, k, v, causal=True, kv_lens=None):
+    """Plain PyTorch softmax(QK^T / sqrt(D)) V over [B, H, S, D], computed
+    in f32 (f64 inputs in f64), key columns >= kv_lens[b] masked when
+    kv_lens ([B] int) is given. Returns (o in q.dtype, lse [B, Hq, Sq] in
+    the compute dtype). Differentiable by torch autograd."""
+    return attend_reference(q, k, v, _mask(q.shape[2], k.shape[2], q.device,
+                                           causal, kv_lens))
 
 
 def _bwd_delta(o, do):
@@ -88,39 +117,39 @@ def _bwd_delta(o, do):
     return (do.to(acc) * o.to(acc)).sum(dim=-1)
 
 
-def _bwd_scores(q, k, v, do, lse, delta, causal):
+def scores_reference(q, k, v, do, lse, delta, vis):
     """What both backward kernels compute first, over the repeated kv heads
-    in f32 (f64 inputs in f64): P = exp(S*scale - lse), zeroed where masked,
-    and dS = P * (dO V^T - delta). Returns (p, ds, q, k, dO, scale), the
-    last four in the compute dtype."""
-    d, sq, sk = q.shape[3], q.shape[2], k.shape[2]
+    in f32 (f64 inputs in f64): P = exp(S*scale - lse), zeroed where `vis`
+    (as in `attend_reference`) hides a pair, and dS = P * (dO V^T -
+    delta). Returns (p, ds, q, k, dO, scale), the last four in the compute
+    dtype."""
+    d = q.shape[3]
     acc = torch.promote_types(q.dtype, torch.float32)
     scale = 1.0 / math.sqrt(d)
     kr, vr = _repeat_kv(q, k, v)
     qf, kf, vf, dof = q.to(acc), kr.to(acc), vr.to(acc), do.to(acc)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     p = torch.exp(s - lse.to(acc)[..., None])
-    if causal:
+    if vis is not None:
         # masked (and empty-row) probabilities are zeroed, not left to
         # exp(-1e30 - lse): an empty row's lse cancels the mask value
-        p = p.masked_fill(~_visible(sq, sk, q.device), 0.0)
+        p = p.masked_fill(~vis, 0.0)
     ds = p * (torch.matmul(dof, vf.transpose(-1, -2))
               - delta.to(acc)[..., None])
     return p, ds, qf, kf, dof, scale
 
 
-def flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, causal=True):
-    """Plain version of the dQ kernel, from its inputs (delta [B, Hq, Sq]
-    as `flash_attention_bwd` computes it): dQ = dS K scale, in q.dtype."""
-    _, ds, _, kf, _, scale = _bwd_scores(q, k, v, do, lse, delta, causal)
+def dq_from_scores(q, scores):
+    """dQ = dS K scale in q.dtype, from `scores_reference`'s output."""
+    _, ds, _, kf, _, scale = scores
     return (torch.matmul(ds, kf) * scale).to(q.dtype)
 
 
-def flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, causal=True):
-    """Plain version of the dK/dV kernel, from its inputs: dK = dS^T Q
-    scale and dV = P^T dO, GQA summing the q heads of each kv head.
-    Returns (dk, dv) in k's and v's dtypes."""
-    p, ds, qf, _, dof, scale = _bwd_scores(q, k, v, do, lse, delta, causal)
+def dkv_from_scores(q, k, v, scores):
+    """(dK = dS^T Q scale, dV = P^T dO) in k's and v's dtypes, from
+    `scores_reference`'s output, GQA summing the q heads of each kv
+    head."""
+    p, ds, qf, _, dof, scale = scores
     dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
     dv = torch.matmul(p.transpose(-1, -2), dof)
     b, hq = q.shape[:2]
@@ -131,7 +160,26 @@ def flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, causal=True):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True):
+def flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, causal=True,
+                                     kv_lens=None):
+    """Plain version of the dQ kernel, from its inputs (delta [B, Hq, Sq]
+    as `flash_attention_bwd` computes it): dQ = dS K scale, in q.dtype."""
+    vis = _mask(q.shape[2], k.shape[2], q.device, causal, kv_lens)
+    return dq_from_scores(q, scores_reference(q, k, v, do, lse, delta, vis))
+
+
+def flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, causal=True,
+                                      kv_lens=None):
+    """Plain version of the dK/dV kernel, from its inputs: dK = dS^T Q
+    scale and dV = P^T dO, GQA summing the q heads of each kv head.
+    Returns (dk, dv) in k's and v's dtypes."""
+    vis = _mask(q.shape[2], k.shape[2], q.device, causal, kv_lens)
+    return dkv_from_scores(q, k, v,
+                           scores_reference(q, k, v, do, lse, delta, vis))
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True,
+                                  kv_lens=None):
     """Plain PyTorch flash-attention backward from the saved LSE (not
     autograd through the forward), step for step what the kernels do:
     delta = rowsum(dO * O), then with P = exp(S*scale - lse), zeroed where
@@ -141,9 +189,10 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True):
     computed in f32 (f64 inputs in f64). GQA dK/dV sum the q heads of each
     kv head. Returns (dq, dk, dv) in the inputs' dtypes."""
     delta = _bwd_delta(o, do)
-    return (flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, causal),
+    return (flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, causal,
+                                             kv_lens),
             *flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
-                                               causal))
+                                               causal, kv_lens))
 
 
 def _check(q, k, v):
@@ -167,6 +216,16 @@ def _check(q, k, v):
         raise ValueError("q, k and v must lie on one device")
 
 
+def _check_lens(kv_lens, q):
+    """kv_lens must be int32 [B], contiguous, on q's device."""
+    if kv_lens.dtype != torch.int32 or kv_lens.shape != (q.shape[0],) \
+            or not kv_lens.is_contiguous() or kv_lens.device != q.device:
+        raise ValueError(f"kv_lens must be contiguous int32 [B] = "
+                         f"[{q.shape[0]}] on {q.device}, got "
+                         f"{kv_lens.dtype} {tuple(kv_lens.shape)} on "
+                         f"{kv_lens.device}")
+
+
 def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
@@ -176,38 +235,45 @@ def _require_cuda(name, q):
         raise ValueError(f"{name}: unsupported device {q.device}")
 
 
-def flash_attention_fwd(q, k, v, causal=True):
-    """(o, lse) for q [B, Hq, Sq, D], k/v [B, Hkv, Sk, D]. CPU tensors take
-    `flash_attention_reference`; CUDA tensors launch the kernel."""
+def _entry(name, kv_lens):
+    """(C entry point / counter name, extra pointer args): the varlen
+    entry with the kv_lens pointer when kv_lens is given."""
+    if kv_lens is None:
+        return name, ()
+    return _VARLEN[name], (kv_lens.data_ptr(),)
+
+
+def flash_attention_fwd(q, k, v, causal=True, kv_lens=None):
+    """(o, lse) for q [B, Hq, Sq, D], k/v [B, Hkv, Sk, D], key columns >=
+    kv_lens[b] masked when kv_lens ([B] int32) is given. CPU tensors take
+    `flash_attention_reference`; CUDA tensors launch the kernel (K1, or
+    K1v with kv_lens)."""
     if _on_cpu(q, k, v):
-        return flash_attention_reference(q, k, v, causal)
+        return flash_attention_reference(q, k, v, causal, kv_lens)
     _require_cuda("flash_attention_fwd", q)
     _check(q, k, v)
+    if kv_lens is not None:
+        _check_lens(kv_lens, q)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    fn = kernel_library(_NAME).flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
+    name, lens = _entry(_NAME, kv_lens)
+    fn = getattr(kernel_library(name), name)
+    fn.argtypes = [ctypes.c_void_p] * (5 + len(lens)) + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-              lse.data_ptr(), b, hq, hkv, sq, sk, d, int(bool(causal)),
-              _DTYPES[q.dtype], current_stream(q.device))
-    check_launch(_NAME, code)
-    count_launch(_NAME)
+              lse.data_ptr(), *lens, b, hq, hkv, sq, sk, d,
+              int(bool(causal)), _DTYPES[q.dtype], current_stream(q.device))
+    check_launch(name, code)
+    count_launch(name)
     return o, lse
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, causal=True):
-    """(dq, dk, dv) of flash attention from the forward's o and lse and the
-    output gradient do. CPU tensors take `flash_attention_bwd_reference`;
-    CUDA tensors launch the two K2 kernels (`flash_attention_bwd_dq`, then
-    `flash_attention_bwd_dkv`), after delta = rowsum(dO * O) in f32 (plain
-    torch, as the reference computes it outside its kernels)."""
-    if _on_cpu(q, k, v, o, lse, do):
-        return flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
-    _require_cuda("flash_attention_bwd", q)
+def check_bwd_inputs(q, k, v, o, lse, do):
+    """The checks `flash_attention_bwd` (and K9's backward) make on CUDA
+    inputs beyond `_check`'s."""
     _check(q, k, v)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
             or do.dtype != q.dtype:
@@ -222,9 +288,26 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=True):
         raise ValueError("flash attention needs contiguous tensors")
     if not (o.device == do.device == lse.device == q.device):
         raise ValueError("all inputs must lie on one device")
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal=True, kv_lens=None):
+    """(dq, dk, dv) of flash attention from the forward's o and lse and the
+    output gradient do (key columns >= kv_lens[b] masked when kv_lens is
+    given). CPU tensors take `flash_attention_bwd_reference`; CUDA tensors
+    launch the two K2 kernels (`flash_attention_bwd_dq`, then
+    `flash_attention_bwd_dkv`; K2v's varlen entries with kv_lens), after
+    delta = rowsum(dO * O) in f32 (plain torch, as the reference computes
+    it outside its kernels)."""
+    if _on_cpu(q, k, v, o, lse, do):
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, causal,
+                                             kv_lens)
+    _require_cuda("flash_attention_bwd", q)
+    check_bwd_inputs(q, k, v, o, lse, do)
+    if kv_lens is not None:
+        _check_lens(kv_lens, q)
     delta = _bwd_delta(o, do)
-    dq = _launch_bwd_dq(q, k, v, do, lse, delta, causal)
-    dk, dv = _launch_bwd_dkv(q, k, v, do, lse, delta, causal)
+    dq = _launch_bwd_dq(q, k, v, do, lse, delta, causal, kv_lens)
+    dk, dv = _launch_bwd_dkv(q, k, v, do, lse, delta, causal, kv_lens)
     return dq, dk, dv
 
 
@@ -234,37 +317,39 @@ def _bwd_args(q, k, causal):
             _DTYPES[q.dtype], current_stream(q.device))
 
 
-def _launch_bwd_dq(q, k, v, do, lse, delta, causal):
-    """dQ by the K2 dQ kernel (plain version
+def _launch_bwd_dq(q, k, v, do, lse, delta, causal, kv_lens=None):
+    """dQ by the K2 dQ kernel (K2v's with kv_lens; plain version
     `flash_attention_bwd_dq_reference`). Takes only the CUDA tensors
     `flash_attention_bwd` has checked (delta f32 [B, Hq, Sq])."""
     dq = torch.empty_like(q)
-    fn = kernel_library(_BWD_DQ).flash_attention_bwd_dq
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
+    name, lens = _entry(_BWD_DQ, kv_lens)
+    fn = getattr(kernel_library(name), name)
+    fn.argtypes = [ctypes.c_void_p] * (7 + len(lens)) + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-              lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+              lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *lens,
               *_bwd_args(q, k, causal))
-    check_launch(_BWD_DQ, code)
-    count_launch(_BWD_DQ)
+    check_launch(name, code)
+    count_launch(name)
     return dq
 
 
-def _launch_bwd_dkv(q, k, v, do, lse, delta, causal):
-    """(dK, dV) by the K2 dK/dV kernel (plain version
+def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, kv_lens=None):
+    """(dK, dV) by the K2 dK/dV kernel (K2v's with kv_lens; plain version
     `flash_attention_bwd_dkv_reference`). Takes only the CUDA tensors
     `flash_attention_bwd` has checked (delta f32 [B, Hq, Sq])."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = kernel_library(_BWD_DKV).flash_attention_bwd_dkv
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
+    name, lens = _entry(_BWD_DKV, kv_lens)
+    fn = getattr(kernel_library(name), name)
+    fn.argtypes = [ctypes.c_void_p] * (8 + len(lens)) + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
               lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-              dv.data_ptr(), *_bwd_args(q, k, causal))
-    check_launch(_BWD_DKV, code)
-    count_launch(_BWD_DKV)
+              dv.data_ptr(), *lens, *_bwd_args(q, k, causal))
+    check_launch(name, code)
+    count_launch(name)
     return dk, dv
 
 
@@ -299,3 +384,40 @@ def flash_attention(q, k, v, causal=True):
             and (q.requires_grad or k.requires_grad or v.requires_grad)):
         return flash_attention_fwd(q, k, v, causal)
     return FlashAttention.apply(q, k, v, causal)
+
+
+class FlashAttentionVarlen(torch.autograd.Function):
+    """Differentiable varlen flash attention: forward `flash_attention_fwd`
+    with kv_lens (K1v), backward `flash_attention_bwd` with kv_lens (K2v)
+    from the saved (q, k, v, o, lse, kv_lens) — the port's counterpart of
+    the reference's `_flash_varlen` custom VJP. kv_lens carries no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lens, causal):
+        o, lse = flash_attention_fwd(q, k, v, causal, kv_lens)
+        ctx.save_for_backward(q, k, v, o, lse, kv_lens)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, kv_lens = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         ctx.causal, kv_lens)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_varlen_raw(q, k, v, kv_lens, causal=False):
+    """Varlen flash attention over a padded batch: q [B, Hq, S, D], k/v
+    [B, Hkv, S, D] and kv_lens [B] int32 on their device; key columns >=
+    kv_lens[b] are masked inside the kernel, the causal mask ANDed in.
+    Returns o [B, Hq, S, D], differentiable in q, k and v. Query rows past
+    a sequence's length are computed all the same (with causal masking
+    they are not zero); callers drop them. Counterpart of the reference's
+    `flash_attention_varlen_raw`. Without a gradient to take it is the
+    forward alone (K1v)."""
+    if not (torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        return flash_attention_fwd(q, k, v, causal, kv_lens)[0]
+    return FlashAttentionVarlen.apply(q, k, v, kv_lens, causal)

@@ -783,3 +783,211 @@ def test_bert_train_steps_on_card_launch_k6_and_k3_ln(card):
     losses = [_tiny_train(lambda d: BertForSequenceClassification(
         cfg, device=d), batch, dev) for dev in ("cpu", card)]
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+
+
+# ------------------------------------------- varlen (K1v/K2v), FlashMask (K9)
+
+VARLEN = ("flash_attention_varlen_fwd", "flash_attention_varlen_bwd_dq",
+          "flash_attention_varlen_bwd_dkv")
+FLASHMASK = ("flashmask_fwd", "flashmask_bwd_dq", "flashmask_bwd_dkv")
+
+
+def _launched():
+    return {n: c for n, c in _cuda_common.launch_counts().items() if c}
+
+
+def _check_grads(got, want, tol):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.isfinite(g.float()).all()
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= tol * max(1.0, w.float().abs().max().item()), err
+
+
+@pytest.mark.parametrize("dtype,tol,gtol", [(torch.float32, 1e-4, 1e-4),
+                                            (torch.bfloat16, 2e-2, 2 ** -7)])
+@pytest.mark.parametrize("hq,hkv,s,d,causal,lens", [
+    (4, 2, 200, 64, True, [200, 77, 0, 130]),
+    (4, 4, 256, 128, False, [256, 1, 64, 65]),
+    (2, 2, 130, 32, True, [0, 0])],
+    ids=["gqa-ragged-empty", "full", "all-empty"])
+def test_varlen_kernels_match_plain(card, dtype, tol, gtol, hq, hkv, s, d,
+                                    causal, lens):
+    """K1v and both K2v kernels against their plain versions on every row
+    (rows past a length included: both compute them), a sequence of
+    length 0 giving o = 0, lse = -1e30 and no gradient; dK/dV past each
+    length exactly 0. One launch of each varlen kernel, none of K1/K2."""
+    rs = np.random.RandomState(21)
+    b = len(lens)
+    q, do = (_randn(rs, b, hq, s, d).to(card, dtype) for _ in range(2))
+    k, v = (_randn(rs, b, hkv, s, d).to(card, dtype) for _ in range(2))
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=card)
+    _cuda_common.reset_launch_counts()
+    o, lse = flash_attention_fwd(q, k, v, causal, kv_lens)
+    grads = flash_attention_bwd(q, k, v, o, lse, do, causal, kv_lens)
+    torch.cuda.synchronize()
+    assert _launched() == dict.fromkeys(VARLEN, 1)
+    ro, rlse = flash_attention_reference(q, k, v, causal, kv_lens)
+    assert (o.float() - ro.float()).abs().max().item() < tol
+    assert (lse - rlse).abs().max().item() < 1e-3
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, causal,
+                                         kv_lens)
+    _check_grads(grads, want, gtol)
+    for i, n in enumerate(lens):
+        assert not grads[1][i, :, n:].any() and not grads[2][i, :, n:].any()
+        if n == 0:
+            assert (o[i] == 0).all() and (lse[i] == -1e30).all()
+            assert not grads[0][i].any()
+
+
+def test_varlen_op_on_card_matches_autograd_of_plain(card):
+    from paddle_tpu_torch.ops.flash_attention import \
+        flash_attention_varlen_raw
+
+    rs = np.random.RandomState(22)
+    q, k, v = (_randn(rs, 3, h, 150, 64).to(card).requires_grad_()
+               for h in (4, 2, 2))
+    do = _randn(rs, 3, 4, 150, 64).to(card)
+    kv_lens = torch.tensor([150, 3, 70], dtype=torch.int32, device=card)
+    _cuda_common.reset_launch_counts()
+    got = torch.autograd.grad(
+        flash_attention_varlen_raw(q, k, v, kv_lens, True), (q, k, v), do)
+    assert _launched() == dict.fromkeys(VARLEN, 1)
+    ro, _ = flash_attention_reference(q, k, v, True, kv_lens)
+    _check_grads(got, torch.autograd.grad(ro, (q, k, v), do), 1e-4)
+    with torch.no_grad():
+        flash_attention_varlen_raw(q, k, v, kv_lens, True)
+    assert _launched()["flash_attention_varlen_fwd"] == 2
+
+
+def _fm_starts(kind, b, h, s, rs):
+    if kind == "window":
+        st = np.minimum(np.arange(s) + 1024, s)
+        return np.broadcast_to(st, (b, h, s)).astype("int32").copy()
+    st = rs.randint(1, s + 1, (b, h, s)).astype("int32")
+    if kind == "empty-row":
+        st[0, 0] = 0              # every row of one head sees nothing
+        st[-1, -1, :200] = 0      # whole hidden kv tiles elsewhere
+    return st
+
+
+@pytest.mark.parametrize("dtype,tol,gtol", [(torch.float32, 1e-4, 1e-4),
+                                            (torch.bfloat16, 2e-2, 2 ** -7)])
+@pytest.mark.parametrize("kind,b,h,s,d,causal", [
+    ("random", 2, 2, 256, 64, True), ("random", 2, 2, 256, 64, False),
+    ("empty-row", 2, 2, 300, 128, True), ("random", 1, 2, 4100, 64, True),
+    ("window", 1, 2, 4100, 64, True)],
+    ids=["random", "random-full", "empty-row", "ragged-4100",
+         "window-4100"])
+def test_flashmask_kernels_match_plain(card, dtype, tol, gtol, kind, b, h, s,
+                                       d, causal):
+    """K9's three kernels against their plain versions: random start rows
+    (straddling tiles), a head whose rows all see nothing (o = 0, lse =
+    -1e30, no gradient), hidden kv tiles (dK = dV = 0), S = 4100 (the
+    ragged column tile), and a 1024-token window that skips most tiles.
+    One launch of each, none of K1/K2."""
+    from paddle_tpu_torch.ops.flashmask import (
+        flashmask_attention_bwd_reference, flashmask_attention_reference,
+        flashmask_bwd, flashmask_fwd)
+
+    rs = np.random.RandomState(23)
+    q, k, v, do = (_randn(rs, b, h, s, d).to(card, dtype) for _ in range(4))
+    start = torch.from_numpy(_fm_starts(kind, b, h, s, rs)).to(card)
+    _cuda_common.reset_launch_counts()
+    o, lse = flashmask_fwd(q, k, v, start, causal)
+    grads = flashmask_bwd(q, k, v, o, lse, do, start, causal)
+    torch.cuda.synchronize()
+    assert _launched() == dict.fromkeys(FLASHMASK, 1)
+    ro, rlse = flashmask_attention_reference(q, k, v, start, causal)
+    assert (o.float() - ro.float()).abs().max().item() < tol
+    assert (lse - rlse).abs().max().item() < 1e-3
+    _check_grads(grads, flashmask_attention_bwd_reference(
+        q, k, v, o, lse, do, start, causal), gtol)
+    if kind == "empty-row":
+        assert (o[0, 0] == 0).all() and (lse[0, 0] == -1e30).all()
+        assert not grads[0][0, 0].any()
+        assert not grads[1][-1, -1, :200].any()
+        assert not grads[2][-1, -1, :200].any()
+
+
+def test_flashmask_refuses_what_it_does_not_take(card):
+    from paddle_tpu_torch.ops.flashmask import (flashmask_attention_raw,
+                                                flashmask_fwd)
+
+    q = torch.zeros(1, 4, 64, 32, device=card)
+    k = torch.zeros(1, 2, 64, 32, device=card)
+    st = torch.ones(1, 4, 64, dtype=torch.int32, device=card)
+    _cuda_common.reset_launch_counts()
+    with pytest.raises(ValueError, match="Hq == Hkv"):
+        flashmask_attention_raw(q, k, k, st)
+    with pytest.raises(ValueError, match="Hq == Hkv"):
+        flashmask_fwd(q, k, k, st)
+    with pytest.raises(ValueError, match="start_rows"):
+        flashmask_fwd(q, q, q, st.long())
+    with pytest.raises(ValueError, match="kv_lens"):
+        flash_attention_fwd(q, q, q, True,
+                            torch.ones(1, dtype=torch.int64, device=card))
+    assert _launched() == {}
+
+
+def test_varlen_and_flashmask_apis_on_card_match_cpu(card):
+    """The public functions on the card against the same calls on the CPU
+    (the plain versions), f32, with their launches: the kernel routes
+    launch their kernels once each way, the composition and dense routes
+    and dropout launch none of them."""
+    from paddle_tpu_torch.incubate.nn.functional import \
+        memory_efficient_attention
+    from paddle_tpu_torch.nn import functional as PF
+
+    rs = np.random.RandomState(24)
+    cu = np.array([0, 100, 103, 300], dtype=np.int32)
+    cu_k = np.array([0, 120, 140, 300], dtype=np.int32)
+    x = [_randn(rs, 300, 4, 64) for _ in range(4)]
+    idx = torch.from_numpy(np.minimum(
+        np.arange(256) + 1 + rs.randint(0, 256, (2, 1, 256)), 256)
+        .astype("int32"))[..., None]
+    y = [_randn(rs, 2, 256, 4, 64) for _ in range(4)]
+
+    def run(dev, fn, args, grad):
+        leaves = [a.to(dev).requires_grad_() for a in args]
+        _cuda_common.reset_launch_counts()
+        out = fn(*leaves)
+        gr = torch.autograd.grad(out, leaves, grad.to(dev))
+        return [t.detach().cpu() for t in (out, *gr)], _launched()
+
+    cases = [
+        (lambda q, k, v: PF.flash_attn_unpadded(q, k, v, cu, cu, 197, 197,
+                                                causal=True)[0], x[:3], x[3],
+         dict.fromkeys(VARLEN, 1)),
+        (lambda q, k, v: PF.flash_attn_unpadded(q, k, v, cu, cu_k, 197, 160,
+                                                causal=True)[0], x[:3], x[3],
+         {}),
+        (lambda q, k, v: PF.flash_attn_varlen_qkvpacked(
+            torch.stack([q, k, v], 1), cu, cu, 197, 197, scale=0.2)[0],
+         x[:3], x[3], dict.fromkeys(VARLEN, 1)),
+        (lambda q, k, v: memory_efficient_attention(
+            q, k, v, cu_seqlens_q=cu, cu_seqlens_k=cu, max_seqlen_q=197,
+            max_seqlen_k=197, causal=True), x[:3], x[3],
+         dict.fromkeys(VARLEN, 1)),
+        (lambda q, k, v: PF.flashmask_attention(q, k, v, idx.to(q.device),
+                                                causal=True), y[:3], y[3],
+         dict.fromkeys(FLASHMASK, 1)),
+        (lambda q, k, v: PF.flashmask_attention(
+            q, k[:, :, :2], v[:, :, :2], idx.to(q.device), causal=True),
+         y[:3], y[3], {}),
+    ]
+    for fn, args, grad, want_counts in cases:
+        (got, counts), (want, _) = (run(card, fn, args, grad),
+                                    run("cpu", fn, args, grad))
+        assert counts == want_counts, counts
+        _check_grads(got, want, 1e-4)
+    # dropout in training leaves the kernel routes
+    _cuda_common.reset_launch_counts()
+    q = x[0].to(card)
+    out, _ = PF.flash_attn_unpadded(q, q, q, cu, cu, 197, 197, dropout=0.1)
+    out2 = PF.flashmask_attention(y[0].to(card), y[1].to(card),
+                                  y[2].to(card), idx.to(card), dropout=0.1,
+                                  causal=True)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out2.shape == y[0].shape
+    assert _launched() == {}

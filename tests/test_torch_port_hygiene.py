@@ -104,10 +104,19 @@ def test_default_device_is_cuda_and_refuses_without_card(monkeypatch):
 def test_kernel_sources_exist_and_are_the_build_list():
     srcs = {os.path.basename(p) for p in _cuda_common.KERNEL_SOURCES.values()}
     on_disk = {f for f in os.listdir(_cuda_common.CSRC_DIR)
-               if f.endswith((".cu", ".cuh"))}
+               if f.endswith(".cu")}
     assert srcs == on_disk == {"flash_attention_fwd.cu",
                                "flash_attention_bwd.cu", "paged_decode.cu",
-                               "quant_matmul.cu", "fused_norm.cu"}
+                               "quant_matmul.cu", "fused_norm.cu",
+                               "flashmask_attention.cu"}
+    # the one header: the flash tile bodies, part of every source's hash
+    headers = {f for f in os.listdir(_cuda_common.CSRC_DIR)
+               if f.endswith(".cuh")}
+    assert headers == {"flash_attention_tiles.cuh"}
+    for rel in ("csrc/flash_attention_fwd.cu", "csrc/flash_attention_bwd.cu",
+                "csrc/flashmask_attention.cu"):
+        with open(os.path.join(PKG, rel)) as f:
+            assert '#include "flash_attention_tiles.cuh"' in f.read()
     for name, rel in _cuda_common.KERNEL_SOURCES.items():
         with open(os.path.join(PKG, rel)) as f:
             src = f.read()
@@ -150,3 +159,18 @@ def test_fused_ops_flag_diverges_from_reference_until_ported():
         port_flags.set_flags({"FLAGS_pallas_fused_ops": True})
     with pytest.raises(KeyError):
         port_flags.set_flags({"FLAGS_no_such_flag": 1})
+
+
+def test_build_hash_covers_the_headers(tmp_path, monkeypatch):
+    """A source's library is keyed on the source and every csrc/*.cuh it
+    may include: editing the shared tile header rebuilds the flash and
+    FlashMask sources."""
+    src = tmp_path / "k.cu"
+    src.write_text('#include "t.cuh"\n')
+    hdr = tmp_path / "t.cuh"
+    hdr.write_text("// v1\n")
+    monkeypatch.setattr(_cuda_common, "CSRC_DIR", str(tmp_path))
+    before = _cuda_common._source_hash(str(src))
+    assert _cuda_common._source_hash(str(src)) == before
+    hdr.write_text("// v2\n")
+    assert _cuda_common._source_hash(str(src)) != before
