@@ -7,7 +7,9 @@ path, end to end, through its hand-written kernels.
 Phases (any failure exits non-zero; nothing is caught):
   1. environment: the card's name and power limit;
   2. build: every CUDA kernel of the port, from the sources in the
-     checkout (nvcc, sm_90a, one process per source, in parallel);
+     checkout (nvcc, sm_90a, one process per source, in parallel), then
+     the tensor-core kernels' registers and spills from ptxas (none may
+     spill);
   3. kernels: each kernel at the main path's shapes (bf16; the int4
      dequant-matmul also at the f32 lm_head shape; the fused norm, rotary
      and SwiGLU kernels at the train step's shapes and dtypes, and at a
@@ -18,7 +20,10 @@ Phases (any failure exits non-zero; nothing is caught):
      inputs, and timed (CUDA events, median of 30 after warm-up, device
      time only) beside the plain version, one PyTorch library call as a
      yardstick where one computes the same function, and the card's bound
-     for the work. The quantized
+     for the work; K1 (also at TRAIN's shape) and K2 dK/dV, whose bf16
+     kernels run tensor-core bodies, also beside the CUDA-core body they
+     replaced on the same inputs (`replaced_ms`, through the varlen entry
+     with every kv length = S). The quantized
      paged-decode kernels read caches written by the port's own
      int8/int4 prefill scatters;
   4. serve: LLaMA at the 1B geometry (hidden 2048, 20 layers, 16 heads,
@@ -83,7 +88,9 @@ Phases (any failure exits non-zero; nothing is caught):
      `bench_flashmask_longctx` drives it (B 1, S 8192, H 16, D 128, bf16,
      causal, a 1024-token window), forward and backward: the same checks
      with exactly one launch of each K9 kernel, then its time beside
-     causal flash (K1 + K2) at the same shape, which it must halve.
+     the same op with no window (every start row = S: causal, the same
+     K9 body), which it must halve, and beside causal flash (K1 + K2) at
+     the same shape.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Without a CUDA card it exits 1 and prints
@@ -241,9 +248,18 @@ def _nvidia_smi():
     return res.stdout.strip().splitlines()[0]
 
 
+def _full_lens(b, s):
+    """kv_lens = S for every batch row: the varlen entry then does K1's
+    (K2's) work on the CUDA-core body that bf16 K1 and K2 dK/dV ran
+    before their tensor-core redesign (`replaced_ms`)."""
+    import torch
+
+    return torch.full((b,), s, dtype=torch.int32, device="cuda")
+
+
 def flash_case(b, hq, hkv, s, d=128, causal=True):
     """Flash forward at one prefill or train shape: parity, times,
-    bound."""
+    bound, and the replaced CUDA-core body's time on the same inputs."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.flash_attention import (
@@ -265,11 +281,14 @@ def flash_case(b, hq, hkv, s, d=128, causal=True):
     assert err < KERNEL_TOL and lse_err < 1e-3, (err, lse_err)
     pairs = s * (s + 1) // 2 if causal else s * s   # (row, col) pairs
     flops = 4 * b * hq * d * pairs
+    full = _full_lens(b, s)
     nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d) + 4 * b * hq * s
     bound, by = _bound_ms(flops, nbytes)
     rec = {"name": "flash_attention_fwd", "shape": [b, hq, hkv, s, d],
            "causal": causal, "max_abs_err": err, "lse_max_abs_err": lse_err,
            "ms": _time_ms(lambda: flash_attention_fwd(q, k, v, causal)),
+           "replaced_ms": _time_ms(lambda: flash_attention_fwd(
+               q, k, v, causal, full)),
            "plain_ms": _time_ms(
                lambda: flash_attention_reference(q, k, v, causal)),
            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
@@ -293,12 +312,13 @@ def _rel_errs(got, want):
     return max(errs), rels
 
 
-def _bwd_records(rec, cases, args, reads, pairs, d, library):
+def _bwd_records(rec, cases, args, reads, pairs, d, library, replaced=()):
     """Hold each backward kernel of `cases` ((key, launch, plain, wrt,
     products, writes)) against its plain version on `args` (one bf16 ulp
     of each output's largest |value|), time both, and add its record under
-    `key` in `rec`, beside `library(wrt)` and the bound of its products
-    over `pairs` and its bytes (`reads` + writes)."""
+    `key` in `rec`, beside `library(wrt)`, the bound of its products over
+    `pairs` and its bytes (`reads` + writes), and `replaced[key]()`'s time
+    (`replaced_ms`) where `replaced` has the key."""
     for key, launch, plain, wrt, products, writes in cases:
         got, want = launch(*args), plain(*args)
         got, want = (got, want) if key == "dkv" else ((got,), (want,))
@@ -311,6 +331,8 @@ def _bwd_records(rec, cases, args, reads, pairs, d, library):
             "plain_ms": _time_ms(lambda: plain(*args)),
             "library_ms": _time_ms(lambda: library(wrt)),
             "bound_ms": bound, "bound_by": by}
+        if key in replaced:
+            rec[key]["replaced_ms"] = _time_ms(replaced[key])
 
 
 def flash_bwd_case(b, hq, hkv, s, d=128, causal=True):
@@ -322,7 +344,8 @@ def flash_bwd_case(b, hq, hkv, s, d=128, causal=True):
     products it does (dQ: QK^T, dO V^T, dS K; dK/dV: those two, P^T dO and
     dS^T Q) and the bytes it moves. "whole" is the wrapper (delta, then
     both kernels) against the plain backward and SDPA's full backward,
-    with the bound of the five products the backward needs."""
+    with the bound of the five products the backward needs. dK/dV's
+    record also times the replaced CUDA-core body (`replaced_ms`)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.flash_attention import (
@@ -338,6 +361,7 @@ def flash_bwd_case(b, hq, hkv, s, d=128, causal=True):
     o, lse = flash_attention_fwd(q, k, v, causal=causal)
     delta = _bwd_delta(o, do)
     args = (q, k, v, do, lse, delta, causal)
+    full = _full_lens(b, s)
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
     out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
                                          enable_gqa=hq != hkv)
@@ -353,7 +377,8 @@ def flash_bwd_case(b, hq, hkv, s, d=128, causal=True):
               ("dkv", _launch_bwd_dkv, flash_attention_bwd_dkv_reference,
                (kl, vl), 4, 2 * kv_bytes)),
         args, reads, pairs, d,
-        lambda wrt: torch.autograd.grad(out, wrt, do, retain_graph=True))
+        lambda wrt: torch.autograd.grad(out, wrt, do, retain_graph=True),
+        {"dkv": lambda: _launch_bwd_dkv(*args, full)})
     # the wrapper, which the train step runs: also reads o
     err, rels = _rel_errs(flash_attention_bwd(q, k, v, o, lse, do, causal),
                           flash_attention_bwd_reference(q, k, v, o, lse, do,
@@ -1794,10 +1819,13 @@ def flashmask_phase():
     1024-token window, broadcast from Hm = 1 to H), forward and backward
     with loss = sum(out^2): gradients held against the same loss through
     the plain versions; exactly one launch of each K9 kernel, no K1/K2.
-    Then forward + backward timed (CUDA events, median of 30) beside
-    causal flash (K1 + K2 through `scaled_dot_product_attention`) at the
-    same shape: K9's must take less than half (the visible work is 4.3x
-    smaller). Returns the phase's counts."""
+    Then forward + backward timed (CUDA events, median of 30) beside the
+    same op with every start row = S (causal with no window: the same K9
+    tile body, with no tile skipped by the window), which it must take
+    less than half of (the visible work is 4.3x smaller): the ratio
+    measures the block skipping alone. Causal flash (K1 + K2 through
+    `scaled_dot_product_attention`) at the same shape is timed and
+    printed beside them. Returns the phase's counts."""
     import torch
     from paddle_tpu_torch.nn import functional as PF
     from paddle_tpu_torch.nn.functional import extended
@@ -1831,6 +1859,14 @@ def flashmask_phase():
     do = torch.randn(q.shape, device="cuda", generator=g,
                      dtype=torch.bfloat16)
     fm_ms = _time_ms(lambda: torch.autograd.grad(run(), (q, k, v), do))
+    no_window = torch.full_like(idx, s)
+    _cuda_common.reset_launch_counts()
+    causal_fm_ms = _time_ms(lambda: torch.autograd.grad(
+        PF.flashmask_attention(q, k, v, no_window, causal=True),
+        (q, k, v), do))
+    causal_counts = _cuda_common.launch_counts()
+    assert all(causal_counts[n] > 0 for n in FM_KERNELS) and not \
+        causal_counts["flash_attention_fwd"], causal_counts
     _cuda_common.reset_launch_counts()
     flash_ms = _time_ms(lambda: torch.autograd.grad(
         PF.scaled_dot_product_attention(q, k, v, is_causal=True),
@@ -1838,13 +1874,35 @@ def flashmask_phase():
     flash_counts = _cuda_common.launch_counts()
     assert flash_counts["flash_attention_fwd"] > 0 and not any(
         flash_counts[n] for n in FM_KERNELS), flash_counts
-    ratio = fm_ms / flash_ms
+    ratio = fm_ms / causal_fm_ms
     _say("FLASHMASK", {"shape": [1, s, h, d], "window": FM_WINDOW,
                        "grad_check": rec, "launches": counts,
-                       "fwd_bwd_ms": fm_ms, "causal_flash_fwd_bwd_ms":
-                       flash_ms, "ratio": ratio})
+                       "fwd_bwd_ms": fm_ms,
+                       "no_window_fwd_bwd_ms": causal_fm_ms,
+                       "causal_flash_fwd_bwd_ms": flash_ms, "ratio": ratio})
     assert ratio < 0.5, ratio
     return counts
+
+
+def tc_usage():
+    """PTXAS: registers, stack and spills of the tensor-core kernels (bf16
+    K1 and K2 dK/dV at each padded head dim), from the build's `-Xptxas
+    -v` output. Their accumulators live in registers: none may spill."""
+    from paddle_tpu_torch.ops import _cuda_common
+
+    usage = {}
+    for rel in ("csrc/flash_attention_fwd.cu", "csrc/flash_attention_bwd.cu"):
+        for name, use in _cuda_common.ptxas_usage(rel).items():
+            for kernel in ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel"):
+                if kernel in name:
+                    dp = 64 if "ILi64E" in name else 128
+                    usage[f"{kernel}<{dp}>"] = use
+    _say("PTXAS", usage)
+    assert len(usage) == 4, usage
+    spilled = {k: u for k, u in usage.items()
+               if u.get("spill_stores") or u.get("spill_loads")
+               or u.get("stack")}
+    assert not spilled, spilled
 
 
 def main():
@@ -1865,9 +1923,12 @@ def main():
     _cuda_common.build_kernels()
     _say("BUILD", {"seconds": time.perf_counter() - t0,
                    "kernels": sorted(_cuda_common.KERNEL_SOURCES)})
+    tc_usage()
 
     flash = [flash_case(1, 16, 16, s) for s in (128, 500, 512, 1024)]
     flash.append(flash_case(1, 16, 4, 512))
+    # K1 at the shape the LLaMA train step launches it
+    flash_train = flash_case(TRAIN_BATCH, 16, 16, TRAIN_SEQ)
     # K2 at the train shape, a GQA case and a ragged length
     bwd = [flash_bwd_case(TRAIN_BATCH, 16, 16, TRAIN_SEQ),
            flash_bwd_case(1, 16, 4, 512), flash_bwd_case(1, 16, 16, 500)]
@@ -1956,7 +2017,20 @@ def main():
             "replaces": replaces, "launches": cnt[rec["name"]],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+            | {k: rec[k] for k in ("replaced_ms",) if k in rec})
+    # K1 at TRAIN's shape, launched by TRAIN's steps
+    summary.append({
+        "name": flash_train["name"], "case": "train", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+        "replaces": "paddle_tpu/ops/pallas_attention.py:104",
+        "launches": counts_train[flash_train["name"]],
+        "max_abs_err": flash_train["max_abs_err"], "ms": flash_train["ms"],
+        "replaced_ms": flash_train["replaced_ms"],
+        "plain_ms": flash_train["plain_ms"],
+        "bound_ms": flash_train["bound_ms"],
+        "bound_by": flash_train["bound_by"],
+        "library_ms": flash_train["library_ms"]})
     # K2's two kernels at the train shape, each with its own numbers
     for kname, key, line in (("flash_attention_bwd_dq", "dq", 263),
                              ("flash_attention_bwd_dkv", "dkv", 314)):
@@ -1968,7 +2042,8 @@ def main():
             "launches": counts_train[kname],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+            | ({"replaced_ms": rec["replaced_ms"]} if key == "dkv" else {}))
     # K3-K5 at the train step's shapes, one row per case; launches are the
     # entry point's count over TRAIN's counted steps (all its cases)
     for rec, line in ((norm["fwd"], 118), (norm["fwd_add"], 118),
@@ -2010,6 +2085,7 @@ def main():
             "replaces": "paddle_tpu/ops/pallas_attention.py:104",
             "launches": cnt[rec["name"]],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "replaced_ms": rec["replaced_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
         for kname, part, line in (("flash_attention_bwd_dq", "dq", 263),
@@ -2023,7 +2099,8 @@ def main():
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"],
-                "library_ms": rec["library_ms"]})
+                "library_ms": rec["library_ms"]}
+                | {k: rec[k] for k in ("replaced_ms",) if k in rec})
     # K1v/K2v from VARLEN, K9 from FLASHMASK
     for rec, src, line, cnt in (
             (varlen["fwd"], "flash_attention_fwd.cu", 104, counts_varlen),

@@ -29,66 +29,85 @@
 // products do 10*D flops on the bytes of Q, K, V, O, dO, dQ, dK, dV (7*S*D
 // values per head) plus lse and delta; a causal head at S = 1024, D = 128
 // does ~367 flops per byte in bf16, above the card's ridge (~295), so the
-// tensor-core rate bounds it there and the memory below S ~ 800. This
-// first version does its products with plain f32 FMAs on the CUDA cores,
-// and recomputes S and dP in both kernels (seven products, not five), so
-// the CUDA cores' FMA rate bounds it, far above either; moving the
-// products onto mma.sync/wgmma is the known next step.
+// tensor-core rate bounds it there and the memory below S ~ 800. `scale`
+// is the softmax scale, 1/sqrt(D) of the head dim before any padding the
+// caller added.
 //
-// Design (flash_attention_tiles.cuh): the two accumulations go to two
-// kernels that need no atomics. dQ: one block of 256 threads per (64-row
-// q tile, q head, batch), looping over kv tiles. dK/dV: one block per
-// (64-row kv tile, kv head, batch), looping over the q heads of its GQA
-// group and the q tiles that can see the tile, so the group's sum stays in
-// registers and repeats from run to run (the reference repeats K/V and
-// lets the VJP of jnp.repeat sum; the result is the same). Tiles entirely
-// above the causal diagonal are never visited; the heaviest causal tiles
-// are launched first.
-#include "flash_attention_tiles.cuh"
+// The two accumulations go to two kernels that need no atomics. dK/dV: one
+// block per kv tile, kv head and batch, looping over the q heads of its
+// GQA group and the q tiles that can see the tile, so the group's sum
+// stays in registers and repeats from run to run (the reference repeats
+// K/V and lets the VJP of jnp.repeat sum; the result is the same). dQ: one
+// block per q tile, q head and batch, looping over kv tiles. Tiles
+// entirely above the causal diagonal are never visited; the heaviest
+// causal tiles are launched first.
+//
+// Routing is static, by dtype and entry, with no fallback:
+//  * bf16 dK/dV (K2) runs the tensor-core body (flash_attention_tc.cuh):
+//    128 kv rows per block, K and V resident, Q and dO (with lse and
+//    delta) streamed by TMA through a 2-stage ring; S^T, dP^T, dV and dK
+//    on wgmma, P^T and dS^T passing from accumulator to A operand in
+//    registers. It takes D a multiple of 8 (the caller pads) and
+//    16-byte-aligned inputs; anything else returns cudaErrorInvalidValue;
+//  * dQ (both dtypes), f32 dK/dV and every K2v entry run the CUDA-core
+//    bodies (flash_attention_tiles.cuh: plain f32 FMAs, S and dP
+//    recomputed in both kernels; f32 is exact like the reference's f32
+//    dots). Interior tiles of K2 skip the per-element mask; K2v masks
+//    every tile it visits.
+#include "flash_attention_tc.cuh"
 
 namespace {
 
 int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, const int* kv_lens,
            int b, int hq, int hkv, int sq, int sk, int d, int causal,
-           int dtype, void* stream) {
+           int dtype, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b == 0 || sq == 0) return 0;
   const LenCausalMask::Args margs{kv_lens, causal};
   if (dtype == 1)
     return launch_bwd_dq<__nv_bfloat16, LenCausalMask>(
-        q, k, v, dout, lse, delta, dq, margs, b, hq, hkv, sq, sk, d, st);
+        q, k, v, dout, lse, delta, dq, margs, b, hq, hkv, sq, sk, d, scale,
+        st);
   return launch_bwd_dq<float, LenCausalMask>(
-      q, k, v, dout, lse, delta, dq, margs, b, hq, hkv, sq, sk, d, st);
+      q, k, v, dout, lse, delta, dq, margs, b, hq, hkv, sq, sk, d, scale, st);
 }
 
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
             const void* lse, const void* delta, void* dk, void* dv,
             const int* kv_lens, int b, int hq, int hkv, int sq, int sk,
-            int d, int causal, int dtype, void* stream) {
+            int d, int causal, int dtype, int ls_stride, float scale,
+            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b == 0 || sk == 0) return 0;
   const LenCausalMask::Args margs{kv_lens, causal};
+  if (dtype == 1 && kv_lens == nullptr)
+    return launch_bwd_dkv_tc<LenCausalMask>(q, k, v, dout, lse, delta, dk,
+                                            dv, margs, b, hq, hkv, sq, sk, d,
+                                            ls_stride, scale, st);
   if (dtype == 1)
     return launch_bwd_dkv<__nv_bfloat16, LenCausalMask>(
-        q, k, v, dout, lse, delta, dk, dv, margs, b, hq, hkv, sq, sk, d, st);
+        q, k, v, dout, lse, delta, dk, dv, margs, b, hq, hkv, sq, sk, d,
+        scale, st);
   return launch_bwd_dkv<float, LenCausalMask>(
-      q, k, v, dout, lse, delta, dk, dv, margs, b, hq, hkv, sq, sk, d, st);
+      q, k, v, dout, lse, delta, dk, dv, margs, b, hq, hkv, sq, sk, d, scale,
+      st);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError()
 // (0 = ok); the caller has checked shapes, dtypes, contiguity and
-// d <= 128.
+// d <= 128. bf16 dK/dV reads lse and delta by TMA as rows `ls_stride`
+// floats apart (a multiple of 4, >= Sq; the f32 body takes Sq).
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
                                       void* dq, int b, int hq, int hkv,
                                       int sq, int sk, int d, int causal,
-                                      int dtype, void* stream) {
+                                      int dtype, float scale, void* stream) {
   return bwd_dq(q, k, v, dout, lse, delta, dq, nullptr, b, hq, hkv, sq, sk,
-                d, causal, dtype, stream);
+                d, causal, dtype, scale, stream);
 }
 
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
@@ -96,9 +115,10 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* lse, const void* delta,
                                        void* dk, void* dv, int b, int hq,
                                        int hkv, int sq, int sk, int d,
-                                       int causal, int dtype, void* stream) {
+                                       int causal, int dtype, int ls_stride,
+                                       float scale, void* stream) {
   return bwd_dkv(q, k, v, dout, lse, delta, dk, dv, nullptr, b, hq, hkv, sq,
-                 sk, d, causal, dtype, stream);
+                 sk, d, causal, dtype, ls_stride, scale, stream);
 }
 
 // K2v: kv_lens int32 [B] on the device.
@@ -106,18 +126,18 @@ extern "C" int flash_attention_varlen_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, const void* kv_lens, int b,
     int hq, int hkv, int sq, int sk, int d, int causal, int dtype,
-    void* stream) {
+    float scale, void* stream) {
   return bwd_dq(q, k, v, dout, lse, delta, dq,
                 static_cast<const int*>(kv_lens), b, hq, hkv, sq, sk, d,
-                causal, dtype, stream);
+                causal, dtype, scale, stream);
 }
 
 extern "C" int flash_attention_varlen_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv,
     const void* kv_lens, int b, int hq, int hkv, int sq, int sk, int d,
-    int causal, int dtype, void* stream) {
+    int causal, int dtype, float scale, void* stream) {
   return bwd_dkv(q, k, v, dout, lse, delta, dk, dv,
                  static_cast<const int*>(kv_lens), b, hq, hkv, sq, sk, d,
-                 causal, dtype, stream);
+                 causal, dtype, sq, scale, stream);
 }

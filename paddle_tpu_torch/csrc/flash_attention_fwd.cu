@@ -1,6 +1,6 @@
 // Flash-attention forward for Hopper (sm_90a), bf16 or f32 in and out,
 // f32 accumulation. Returns O and the per-row log-sum-exp. Two entry
-// points over one kernel body (flash_attention_tiles.cuh):
+// points:
 //  * flash_attention_fwd (K1), the non-varlen forward;
 //  * flash_attention_varlen_fwd (K1v): the same with per-batch kv lengths.
 //
@@ -17,35 +17,45 @@
 // and never loads a kv tile that starts past the length, so a sequence of
 // length 0 gives O = 0 and lse = -1e30; query rows past the length are
 // computed all the same (with causal masking they are not zero) and the
-// caller drops them.
+// caller drops them. `scale` is the softmax scale, 1/sqrt(D) of the head
+// dim before any padding the caller added (as the reference keeps it when
+// it pads D to 128).
 //
 // What bounds it on the H100: a causal head does ~4*D*S*S/2 flops on
 // 8*S*D bytes (bf16 Q, K, V, O), S/4 flops per byte, so the card's bound
 // is its memory up to S ~ 1200 (the ridge is ~295 flop/byte) and its
-// tensor-core rate above. This first version does its products with
-// plain f32 FMAs on the CUDA cores, so the CUDA cores' FMA rate bounds
-// it, far above either; moving QK^T and PV onto mma.sync/wgmma is the
-// known next step.
+// tensor-core rate above.
 //
-// Design: one block of 128 threads per (64-row q tile, head, batch), the
-// online softmax in f32 registers; see flash_attention_tiles.cuh. Tiles
-// entirely above the causal diagonal or past the length are never
-// loaded; the visited ones mask per element.
-#include "flash_attention_tiles.cuh"
+// Routing is static, by dtype and entry, with no fallback:
+//  * bf16 K1 runs the tensor-core body (flash_attention_tc.cuh): QK^T and
+//    PV on wgmma, two warpgroups of 64 q rows each, K and V streamed by TMA
+//    through a 2-stage ring one tile ahead of the math, so loads overlap
+//    the math and the products run at the tensor cores' rate. It takes D a
+//    multiple of 8 (the caller pads) and 16-byte-aligned inputs; anything
+//    else returns cudaErrorInvalidValue;
+//  * f32 K1 and every K1v run the CUDA-core body (flash_attention_tiles.cuh:
+//    one block of 128 threads per 64-row q tile, f32 FMAs; exact f32 like
+//    the reference's f32 dots). Tiles wholly above the causal diagonal or
+//    past the length are never loaded; interior tiles of K1 skip the
+//    per-element mask, K1v masks every tile it visits.
+#include "flash_attention_tc.cuh"
 
 namespace {
 
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         const int* kv_lens, int b, int hq, int hkv, int sq, int sk, int d,
-        int causal, int dtype, void* stream) {
+        int causal, int dtype, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b == 0 || sq == 0) return 0;
   const LenCausalMask::Args margs{kv_lens, causal};
+  if (dtype == 1 && kv_lens == nullptr)
+    return launch_fwd_tc<LenCausalMask>(q, k, v, o, lse, margs, b, hq, hkv,
+                                        sq, sk, d, scale, st);
   if (dtype == 1)
     return launch_fwd<__nv_bfloat16, LenCausalMask>(
-        q, k, v, o, lse, margs, b, hq, hkv, sq, sk, d, st);
+        q, k, v, o, lse, margs, b, hq, hkv, sq, sk, d, scale, st);
   return launch_fwd<float, LenCausalMask>(q, k, v, o, lse, margs, b, hq,
-                                          hkv, sq, sk, d, st);
+                                          hkv, sq, sk, d, scale, st);
 }
 
 }  // namespace
@@ -55,9 +65,10 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int b,
                                    int hq, int hkv, int sq, int sk, int d,
-                                   int causal, int dtype, void* stream) {
+                                   int causal, int dtype, float scale,
+                                   void* stream) {
   return fwd(q, k, v, o, lse, nullptr, b, hq, hkv, sq, sk, d, causal, dtype,
-             stream);
+             scale, stream);
 }
 
 // K1v: kv_lens int32 [B] on the device.
@@ -65,8 +76,8 @@ extern "C" int flash_attention_varlen_fwd(const void* q, const void* k,
                                           const void* v, void* o, void* lse,
                                           const void* kv_lens, int b, int hq,
                                           int hkv, int sq, int sk, int d,
-                                          int causal, int dtype,
+                                          int causal, int dtype, float scale,
                                           void* stream) {
   return fwd(q, k, v, o, lse, static_cast<const int*>(kv_lens), b, hq, hkv,
-             sq, sk, d, causal, dtype, stream);
+             sq, sk, d, causal, dtype, scale, stream);
 }

@@ -1,9 +1,11 @@
-// The flash-attention tile bodies shared by K1/K1v (flash_attention_fwd.cu),
-// K2/K2v (flash_attention_bwd.cu) and K9 (flashmask_attention.cu): the
-// forward, the dQ kernel and the dK/dV kernel, each a template over the
-// element type and a mask policy. The source files that include this
-// header hold what each kernel replaces, what bounds it on the H100, and
-// its C entry points.
+// The CUDA-core flash-attention tile bodies shared by K1/K1v
+// (flash_attention_fwd.cu), K2/K2v (flash_attention_bwd.cu) and K9
+// (flashmask_attention.cu): the forward, the dQ kernel and the dK/dV
+// kernel, each a template over the element type and a mask policy. They
+// run f32 inputs, the varlen entries, K9 and K2's dQ; bf16 K1 and K2 dK/dV
+// run the tensor-core bodies of flash_attention_tc.cuh over the same mask
+// policies. The source files that include this header hold what each
+// kernel replaces, what bounds it on the H100, and its C entry points.
 //
 // Tiling (all three kernels). 64-row q tiles and 64-row kv tiles, f32 in
 // shared memory (rows padded by 1 float so column-wise reads are free of
@@ -74,19 +76,23 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 // K1/K2 (kv_lens null) and K1v/K2v: key column `col` is visible from query
 // row `row` when col < len (kv_lens[b], clamped to [0, Sk]; Sk when null)
 // and, causal, col <= row + Sk - Sq (the last query row aligned with the
-// last key column). Every visited tile masks per element, as K1/K2 always
-// have; tiles past the length or above the diagonal are never visited.
+// last key column). As the reference's `_block_dispatch`: a tile past the
+// length or wholly above the diagonal is skipped; without kv_lens a tile
+// wholly in range and below the diagonal is full; with kv_lens every
+// visited tile masks per element (the reference's force_masked=has_lens).
 struct LenCausalMask {
   struct Args {
     const int* kv_lens;
     int causal;
   };
-  int len, off, causal;
+  int len, sq, off, causal, forced;
   __device__ LenCausalMask(const Args& a, int b, int /*h*/, int /*hq*/,
-                           int sq, int sk)
+                           int sq_, int sk)
       : len(a.kv_lens ? min(max(a.kv_lens[b], 0), sk) : sk),
-        off(sk - sq),
-        causal(a.causal) {}
+        sq(sq_),
+        off(sk - sq_),
+        causal(a.causal),
+        forced(a.kv_lens != nullptr) {}
   // one past the last key column any row of the q tile at q0 can see
   __device__ int kv_end(int q0) const {
     return causal ? min(len, q0 + kBQ + off) : len;
@@ -96,7 +102,13 @@ struct LenCausalMask {
     return causal ? max(0, k0 - off) / kBQ : 0;
   }
   __device__ int q_end(int k0, int nqt) const { return k0 < len ? nqt : 0; }
-  __device__ int kind(int /*q0*/, int /*k0*/) const { return kMasked; }
+  __device__ int kind(int q0, int k0) const {
+    if (k0 >= kv_end(q0)) return kSkip;
+    if (forced) return kMasked;
+    const bool full = q0 + kBQ <= sq && k0 + kBK <= len &&
+                      (!causal || k0 + kBK - 1 <= q0 + off);
+    return full ? kFull : kMasked;
+  }
   __device__ int col_info(int /*col*/) const { return 0; }
   __device__ bool visible(int row, int col, int /*info*/) const {
     return col < len && (!causal || col <= row + off);
@@ -318,7 +330,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, typename Mask>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                void* lse, typename Mask::Args margs, int b, int hq, int hkv,
-               int sq, int sk, int d, cudaStream_t stream) {
+               int sq, int sk, int d, float scale, cudaStream_t stream) {
   const size_t smem = fwd_smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, Mask>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -328,8 +340,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   flash_fwd_kernel<T, Mask><<<grid, kFwdThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o),
-      static_cast<float*>(lse), margs, hq, hkv, sq, sk, d,
-      1.0f / sqrtf((float)d));
+      static_cast<float*>(lse), margs, hq, hkv, sq, sk, d, scale);
   return (int)cudaGetLastError();
 }
 
@@ -610,7 +621,8 @@ template <typename T, typename Mask>
 int launch_bwd_dq(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
                   void* dq, typename Mask::Args margs, int b, int hq,
-                  int hkv, int sq, int sk, int d, cudaStream_t stream) {
+                  int hkv, int sq, int sk, int d, float scale,
+                  cudaStream_t stream) {
   const size_t smem = dq_smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T, Mask>,
@@ -621,8 +633,7 @@ int launch_bwd_dq(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), margs, hq, hkv, sq, sk, d,
-      1.0f / sqrtf((float)d));
+      static_cast<T*>(dq), margs, hq, hkv, sq, sk, d, scale);
   return (int)cudaGetLastError();
 }
 
@@ -631,7 +642,7 @@ int launch_bwd_dkv(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dk, void* dv, typename Mask::Args margs, int b,
                    int hq, int hkv, int sq, int sk, int d,
-                   cudaStream_t stream) {
+                   float scale, cudaStream_t stream) {
   const size_t smem = dkv_smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<T, Mask>,
@@ -643,7 +654,7 @@ int launch_bwd_dkv(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<T*>(dk), static_cast<T*>(dv), margs, hq, hkv, sq, sk, d,
-      1.0f / sqrtf((float)d));
+      scale);
   return (int)cudaGetLastError();
 }
 

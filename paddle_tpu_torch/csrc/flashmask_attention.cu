@@ -66,13 +66,14 @@ extern "C" int flashmask_fwd(const void* q, const void* k, const void* v,
                              int h, int sq, int sk, int d, int causal,
                              int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float scale = 1.0f / sqrtf((float)d);
   if (b == 0 || sq == 0) return 0;
   const StartRowMask::Args margs = mask_args(start, smin, smax, causal);
   if (dtype == 1)
-    return launch_fwd<__nv_bfloat16, StartRowMask>(q, k, v, o, lse, margs,
-                                                   b, h, h, sq, sk, d, st);
+    return launch_fwd<__nv_bfloat16, StartRowMask>(
+        q, k, v, o, lse, margs, b, h, h, sq, sk, d, scale, st);
   return launch_fwd<float, StartRowMask>(q, k, v, o, lse, margs, b, h, h,
-                                         sq, sk, d, st);
+                                         sq, sk, d, scale, st);
 }
 
 extern "C" int flashmask_bwd_dq(const void* q, const void* k, const void* v,
@@ -83,13 +84,14 @@ extern "C" int flashmask_bwd_dq(const void* q, const void* k, const void* v,
                                 int sk, int d, int causal, int dtype,
                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float scale = 1.0f / sqrtf((float)d);
   if (b == 0 || sq == 0) return 0;
   const StartRowMask::Args margs = mask_args(start, smin, smax, causal);
   if (dtype == 1)
     return launch_bwd_dq<__nv_bfloat16, StartRowMask>(
-        q, k, v, dout, lse, delta, dq, margs, b, h, h, sq, sk, d, st);
+        q, k, v, dout, lse, delta, dq, margs, b, h, h, sq, sk, d, scale, st);
   return launch_bwd_dq<float, StartRowMask>(
-      q, k, v, dout, lse, delta, dq, margs, b, h, h, sq, sk, d, st);
+      q, k, v, dout, lse, delta, dq, margs, b, h, h, sq, sk, d, scale, st);
 }
 
 extern "C" int flashmask_bwd_dkv(const void* q, const void* k,
@@ -100,11 +102,14 @@ extern "C" int flashmask_bwd_dkv(const void* q, const void* k,
                                  int h, int sq, int sk, int d, int causal,
                                  int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float scale = 1.0f / sqrtf((float)d);
   if (b == 0 || sk == 0) return 0;
   const StartRowMask::Args margs = mask_args(start, smin, smax, causal);
   if (dtype == 1)
     return launch_bwd_dkv<__nv_bfloat16, StartRowMask>(
-        q, k, v, dout, lse, delta, dk, dv, margs, b, h, h, sq, sk, d, st);
+        q, k, v, dout, lse, delta, dk, dv, margs, b, h, h, sq, sk, d, scale,
+        st);
   return launch_bwd_dkv<float, StartRowMask>(
-      q, k, v, dout, lse, delta, dk, dv, margs, b, h, h, sq, sk, d, st);
+      q, k, v, dout, lse, delta, dk, dv, margs, b, h, h, sq, sk, d, scale,
+      st);
 }

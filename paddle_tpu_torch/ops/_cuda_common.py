@@ -22,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -69,7 +70,7 @@ KERNEL_SOURCES = {
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LAUNCHES = {name: 0 for name in KERNEL_SOURCES}
 _LIBS: dict = {}
@@ -164,10 +165,39 @@ def build_kernels(names=None) -> dict:
             failed.append(f"{rel}: nvcc exit {proc.returncode}\n"
                           f"{log.decode(errors='replace')}")
             continue
+        with open(f"{out}.log", "wb") as f:   # ptxas's -v report
+            f.write(log)
         os.replace(tmp, out)   # atomic: a concurrent build sees all or none
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return {n: _lib_path(KERNEL_SOURCES[n]) for n in names}
+
+
+def ptxas_usage(rel_src: str) -> dict:
+    """{mangled kernel name: {"registers", "stack", "spill_stores",
+    "spill_loads"}} from the ``-Xptxas -v`` report of the source's build
+    (kept beside its library)."""
+    with open(f"{_lib_path(rel_src)}.log") as f:
+        log = f.read()
+    usage, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            usage[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            usage[name].update(stack=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[name]["registers"] = int(m.group(1))
+    return usage
 
 
 def kernel_library(name: str) -> ctypes.CDLL:

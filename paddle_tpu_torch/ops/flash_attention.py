@@ -24,7 +24,15 @@ key columns >= kv_lens[b] are masked too. A query row that sees no key
 gradients.
 
 Routing: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises. There is no fallback.
+kernel or raises. There is no fallback. On the card the C entries route by
+dtype: bf16 K1 and K2 dK/dV run the tensor-core bodies
+(csrc/flash_attention_tc.cuh), which read Q, K, V and dO by TMA, so they
+need 16-byte-aligned tensors (`ValueError` otherwise; nothing is copied to
+mend it) and a head dim that is a multiple of 8: `with_head_pad` pads
+other head dims with zero columns and cuts the outputs back, the softmax
+scale staying 1/sqrt of the original d (the reference pads d to 128 the
+same way, `pallas_attention.py:215-218`). f32 inputs, the varlen entries
+and the dQ kernel run the CUDA-core bodies (csrc/flash_attention_tiles.cuh).
 """
 from __future__ import annotations
 
@@ -33,8 +41,8 @@ import math
 
 import torch
 
-from ._cuda_common import (check_launch, count_launch, current_stream,
-                           kernel_library)
+from ._cuda_common import (ceil_to, check_launch, count_launch,
+                           current_stream, kernel_library)
 
 _NAME = "flash_attention_fwd"
 _BWD_DQ = "flash_attention_bwd_dq"
@@ -76,16 +84,22 @@ def _mask(sq, sk, device, causal, kv_lens=None):
     return vis
 
 
-def attend_reference(q, k, v, vis):
-    """Plain softmax(QK^T / sqrt(D)) V over [B, H, S, D] with the
-    visibility `vis` (bool, broadcastable to [B, Hq, Sq, Sk]; None: all
-    visible), computed in f32 (f64 inputs in f64). A row that sees no key
-    gets o = 0 and lse = -1e30. Returns (o in q.dtype, lse [B, Hq, Sq] in
-    the compute dtype). Differentiable by torch autograd."""
-    d = q.shape[3]
+def softmax_scale(d, scale=None):
+    """The softmax scale: `scale`, or 1/sqrt(d) when it is None."""
+    return 1.0 / math.sqrt(d) if scale is None else scale
+
+
+def attend_reference(q, k, v, vis, scale=None):
+    """Plain softmax(QK^T scale) V over [B, H, S, D] (scale 1/sqrt(D)
+    unless given) with the visibility `vis` (bool, broadcastable to
+    [B, Hq, Sq, Sk]; None: all visible), computed in f32 (f64 inputs in
+    f64). A row that sees no key gets o = 0 and lse = -1e30. Returns (o in
+    q.dtype, lse [B, Hq, Sq] in the compute dtype). Differentiable by torch
+    autograd."""
     acc = torch.promote_types(q.dtype, torch.float32)
     k, v = _repeat_kv(q, k, v)
-    s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) / math.sqrt(d)
+    s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) \
+        * softmax_scale(q.shape[3], scale)
     seen = None
     if vis is not None:
         s = s.masked_fill(~vis, float("-inf"))
@@ -102,13 +116,15 @@ def attend_reference(q, k, v, vis):
     return torch.matmul(p, v.to(acc)).to(q.dtype), lse
 
 
-def flash_attention_reference(q, k, v, causal=True, kv_lens=None):
-    """Plain PyTorch softmax(QK^T / sqrt(D)) V over [B, H, S, D], computed
-    in f32 (f64 inputs in f64), key columns >= kv_lens[b] masked when
-    kv_lens ([B] int) is given. Returns (o in q.dtype, lse [B, Hq, Sq] in
-    the compute dtype). Differentiable by torch autograd."""
+def flash_attention_reference(q, k, v, causal=True, kv_lens=None,
+                              scale=None):
+    """Plain PyTorch softmax(QK^T / sqrt(D)) V over [B, H, S, D] (`scale`
+    in place of 1/sqrt(D) when given), computed in f32 (f64 inputs in
+    f64), key columns >= kv_lens[b] masked when kv_lens ([B] int) is
+    given. Returns (o in q.dtype, lse [B, Hq, Sq] in the compute dtype).
+    Differentiable by torch autograd."""
     return attend_reference(q, k, v, _mask(q.shape[2], k.shape[2], q.device,
-                                           causal, kv_lens))
+                                           causal, kv_lens), scale)
 
 
 def _bwd_delta(o, do):
@@ -117,15 +133,14 @@ def _bwd_delta(o, do):
     return (do.to(acc) * o.to(acc)).sum(dim=-1)
 
 
-def scores_reference(q, k, v, do, lse, delta, vis):
+def scores_reference(q, k, v, do, lse, delta, vis, scale=None):
     """What both backward kernels compute first, over the repeated kv heads
-    in f32 (f64 inputs in f64): P = exp(S*scale - lse), zeroed where `vis`
-    (as in `attend_reference`) hides a pair, and dS = P * (dO V^T -
-    delta). Returns (p, ds, q, k, dO, scale), the last four in the compute
-    dtype."""
-    d = q.shape[3]
+    in f32 (f64 inputs in f64): P = exp(S*scale - lse) (scale 1/sqrt(D)
+    unless given), zeroed where `vis` (as in `attend_reference`) hides a
+    pair, and dS = P * (dO V^T - delta). Returns (p, ds, q, k, dO, scale),
+    the last four in the compute dtype."""
     acc = torch.promote_types(q.dtype, torch.float32)
-    scale = 1.0 / math.sqrt(d)
+    scale = softmax_scale(q.shape[3], scale)
     kr, vr = _repeat_kv(q, k, v)
     qf, kf, vf, dof = q.to(acc), kr.to(acc), vr.to(acc), do.to(acc)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
@@ -161,25 +176,26 @@ def dkv_from_scores(q, k, v, scores):
 
 
 def flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, causal=True,
-                                     kv_lens=None):
+                                     kv_lens=None, scale=None):
     """Plain version of the dQ kernel, from its inputs (delta [B, Hq, Sq]
     as `flash_attention_bwd` computes it): dQ = dS K scale, in q.dtype."""
     vis = _mask(q.shape[2], k.shape[2], q.device, causal, kv_lens)
-    return dq_from_scores(q, scores_reference(q, k, v, do, lse, delta, vis))
+    return dq_from_scores(q, scores_reference(q, k, v, do, lse, delta, vis,
+                                              scale))
 
 
 def flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, causal=True,
-                                      kv_lens=None):
+                                      kv_lens=None, scale=None):
     """Plain version of the dK/dV kernel, from its inputs: dK = dS^T Q
     scale and dV = P^T dO, GQA summing the q heads of each kv head.
     Returns (dk, dv) in k's and v's dtypes."""
     vis = _mask(q.shape[2], k.shape[2], q.device, causal, kv_lens)
-    return dkv_from_scores(q, k, v,
-                           scores_reference(q, k, v, do, lse, delta, vis))
+    return dkv_from_scores(q, k, v, scores_reference(q, k, v, do, lse,
+                                                     delta, vis, scale))
 
 
 def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True,
-                                  kv_lens=None):
+                                  kv_lens=None, scale=None):
     """Plain PyTorch flash-attention backward from the saved LSE (not
     autograd through the forward), step for step what the kernels do:
     delta = rowsum(dO * O), then with P = exp(S*scale - lse), zeroed where
@@ -187,12 +203,13 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True,
         dS = P * (dO V^T - delta);  dQ = dS K scale;  dV = P^T dO;
         dK = dS^T Q scale,
     computed in f32 (f64 inputs in f64). GQA dK/dV sum the q heads of each
-    kv head. Returns (dq, dk, dv) in the inputs' dtypes."""
+    kv head (`scale` in place of 1/sqrt(D) when given). Returns (dq, dk,
+    dv) in the inputs' dtypes."""
     delta = _bwd_delta(o, do)
     return (flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, causal,
-                                             kv_lens),
+                                             kv_lens, scale),
             *flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
-                                               causal, kv_lens))
+                                               causal, kv_lens, scale))
 
 
 def _check(q, k, v):
@@ -243,6 +260,68 @@ def _entry(name, kv_lens):
     return _VARLEN[name], (kv_lens.data_ptr(),)
 
 
+def _tensor_core_route(q, kv_lens):
+    """Whether the C entries run a tensor-core body: bf16, not varlen."""
+    return q.dtype == torch.bfloat16 and kv_lens is None
+
+
+def _check_aligned(name, *tensors):
+    """The tensor-core bodies read these tensors by TMA, which needs
+    16-byte-aligned addresses (a view that starts mid-row may not be)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the bf16 kernel reads its inputs by "
+                             f"TMA and needs 16-byte-aligned tensors; got an "
+                             f"address {t.data_ptr() % 16} bytes past one")
+
+
+def with_head_pad(run, tensors):
+    """`run(*tensors, scale)` with the [..., d] `tensors` zero-padded to a
+    head dim that is a multiple of 8 (the tensor-core bodies' TMA row
+    stride must be a multiple of 16 bytes) and scale = 1/sqrt(d) of the
+    original d, as the reference keeps it when it pads d to 128
+    (`pallas_attention.py:215-218`). The 4-D results of `run` (O, dQ, dK,
+    dV; not lse) are cut back to d."""
+    d = tensors[0].shape[-1]
+    dp = ceil_to(d, 8)
+    scale = softmax_scale(d)
+    if dp == d:
+        return run(*tensors, scale)
+    padded = [torch.nn.functional.pad(t, (0, dp - d)) for t in tensors]
+    return tuple(x[..., :d].contiguous() if x.dim() == 4 else x
+                 for x in run(*padded, scale))
+
+
+def _launch(name, kv_lens, ptrs, q, k, causal, scale, tma=(), ints=()):
+    """Launch the C entry of `name` (its varlen form with kv_lens) on the
+    data pointers of `ptrs`, the shape of q [B, Hq, Sq, D] and k [B, Hkv,
+    Sk, D] and the entry's own `ints`. On the tensor-core route the
+    tensors `tma`, which the kernel reads by TMA, must be 16-byte
+    aligned."""
+    if _tensor_core_route(q, kv_lens):
+        _check_aligned(name, *tma)
+    entry, lens = _entry(name, kv_lens)
+    fn = getattr(kernel_library(entry), entry)
+    fn.argtypes = [ctypes.c_void_p] * (len(ptrs) + len(lens)) \
+        + [ctypes.c_int] * (8 + len(ints)) + [ctypes.c_float,
+                                                ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    b, hq, sq, d = q.shape
+    code = fn(*(t.data_ptr() for t in ptrs), *lens, b, hq, k.shape[1], sq,
+              k.shape[2], d, int(bool(causal)), _DTYPES[q.dtype], *ints,
+              scale, current_stream(q.device))
+    check_launch(entry, code)
+    count_launch(entry)
+
+
+def _launch_fwd(q, k, v, causal, kv_lens, scale):
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _launch(_NAME, kv_lens, (q, k, v, o, lse), q, k, causal, scale,
+            tma=(q, k, v))
+    return o, lse
+
+
 def flash_attention_fwd(q, k, v, causal=True, kv_lens=None):
     """(o, lse) for q [B, Hq, Sq, D], k/v [B, Hkv, Sk, D], key columns >=
     kv_lens[b] masked when kv_lens ([B] int32) is given. CPU tensors take
@@ -254,21 +333,13 @@ def flash_attention_fwd(q, k, v, causal=True, kv_lens=None):
     _check(q, k, v)
     if kv_lens is not None:
         _check_lens(kv_lens, q)
-    b, hq, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    o = torch.empty_like(q)
-    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    name, lens = _entry(_NAME, kv_lens)
-    fn = getattr(kernel_library(name), name)
-    fn.argtypes = [ctypes.c_void_p] * (5 + len(lens)) + [ctypes.c_int] * 8 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-              lse.data_ptr(), *lens, b, hq, hkv, sq, sk, d,
-              int(bool(causal)), _DTYPES[q.dtype], current_stream(q.device))
-    check_launch(name, code)
-    count_launch(name)
-    return o, lse
+    if not _tensor_core_route(q, kv_lens):
+        return _launch_fwd(q, k, v, causal, kv_lens,
+                           softmax_scale(q.shape[3]))
+    return with_head_pad(
+        lambda q_, k_, v_, scale: _launch_fwd(q_, k_, v_, causal, None,
+                                              scale),
+        (q, k, v))
 
 
 def check_bwd_inputs(q, k, v, o, lse, do):
@@ -303,53 +374,52 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=True, kv_lens=None):
                                              kv_lens)
     _require_cuda("flash_attention_bwd", q)
     check_bwd_inputs(q, k, v, o, lse, do)
+
+    def run(q_, k_, v_, o_, do_, scale):
+        delta = _bwd_delta(o_, do_)
+        return (_launch_bwd_dq(q_, k_, v_, do_, lse, delta, causal, kv_lens,
+                               scale),
+                *_launch_bwd_dkv(q_, k_, v_, do_, lse, delta, causal,
+                                 kv_lens, scale))
+
     if kv_lens is not None:
         _check_lens(kv_lens, q)
-    delta = _bwd_delta(o, do)
-    dq = _launch_bwd_dq(q, k, v, do, lse, delta, causal, kv_lens)
-    dk, dv = _launch_bwd_dkv(q, k, v, do, lse, delta, causal, kv_lens)
-    return dq, dk, dv
+    if not _tensor_core_route(q, kv_lens):
+        return run(q, k, v, o, do, softmax_scale(q.shape[3]))
+    return with_head_pad(run, (q, k, v, o, do))
 
 
-def _bwd_args(q, k, causal):
-    b, hq, sq, d = q.shape
-    return (b, hq, k.shape[1], sq, k.shape[2], d, int(bool(causal)),
-            _DTYPES[q.dtype], current_stream(q.device))
-
-
-def _launch_bwd_dq(q, k, v, do, lse, delta, causal, kv_lens=None):
+def _launch_bwd_dq(q, k, v, do, lse, delta, causal, kv_lens=None,
+                   scale=None):
     """dQ by the K2 dQ kernel (K2v's with kv_lens; plain version
     `flash_attention_bwd_dq_reference`). Takes only the CUDA tensors
     `flash_attention_bwd` has checked (delta f32 [B, Hq, Sq])."""
     dq = torch.empty_like(q)
-    name, lens = _entry(_BWD_DQ, kv_lens)
-    fn = getattr(kernel_library(name), name)
-    fn.argtypes = [ctypes.c_void_p] * (7 + len(lens)) + [ctypes.c_int] * 8 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-              lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *lens,
-              *_bwd_args(q, k, causal))
-    check_launch(name, code)
-    count_launch(name)
+    _launch(_BWD_DQ, kv_lens, (q, k, v, do, lse, delta, dq), q, k, causal,
+            softmax_scale(q.shape[3], scale))
     return dq
 
 
-def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, kv_lens=None):
+def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, kv_lens=None,
+                    scale=None):
     """(dK, dV) by the K2 dK/dV kernel (K2v's with kv_lens; plain version
     `flash_attention_bwd_dkv_reference`). Takes only the CUDA tensors
     `flash_attention_bwd` has checked (delta f32 [B, Hq, Sq])."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    name, lens = _entry(_BWD_DKV, kv_lens)
-    fn = getattr(kernel_library(name), name)
-    fn.argtypes = [ctypes.c_void_p] * (8 + len(lens)) + [ctypes.c_int] * 8 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-              dv.data_ptr(), *lens, *_bwd_args(q, k, causal))
-    check_launch(name, code)
-    count_launch(name)
+    if kv_lens is not None:
+        _launch(_BWD_DKV, kv_lens, (q, k, v, do, lse, delta, dk, dv), q, k,
+                causal, softmax_scale(q.shape[3], scale))
+        return dk, dv
+    # the tensor-core body reads lse and delta rows by TMA, whose row
+    # stride is a multiple of 16 bytes: pad Sq to a multiple of 4 floats
+    sq = q.shape[2]
+    stride = ceil_to(sq, 4) if _tensor_core_route(q, kv_lens) else sq
+    if stride != sq:
+        lse, delta = (torch.nn.functional.pad(t, (0, stride - sq))
+                      for t in (lse, delta))
+    _launch(_BWD_DKV, kv_lens, (q, k, v, do, lse, delta, dk, dv), q, k,
+            causal, softmax_scale(q.shape[3], scale),
+            tma=(q, k, v, do, lse, delta), ints=(stride,))
     return dk, dv
 
 

@@ -161,6 +161,107 @@ def test_flash_attention_op_on_card_matches_autograd_of_plain(card):
     assert _cuda_common.launch_counts()["flash_attention_bwd_dq"] == 1
 
 
+#: bf16 K1 and K2 dK/dV run the tensor-core bodies (wgmma, TMA): head
+#: dims 16-128 (100 through the wrapper's padding to 104), Sq != Sk with
+#: empty rows, GQA 16:4, a ragged S and BERT's non-causal shape
+TC_CASES = [(1, 4, 4, 256, 256, 16, True), (1, 4, 4, 256, 256, 32, True),
+            (1, 4, 4, 256, 256, 64, True), (2, 4, 2, 200, 200, 100, True),
+            (1, 4, 4, 256, 256, 128, True), (1, 4, 2, 100, 40, 64, True),
+            (1, 4, 2, 40, 100, 128, True), (1, 16, 4, 512, 512, 128, True),
+            (1, 8, 8, 500, 500, 128, True), (64, 12, 12, 128, 128, 64, False)]
+TC_IDS = ["d16", "d32", "d64", "d100-padded", "d128", "empty-rows",
+          "sk-gt-sq", "gqa-16-4", "ragged-500", "bert"]
+
+
+def _bf16_case(card, b, hq, hkv, sq, sk, d, seed):
+    rs = np.random.RandomState(seed)
+    return (_randn(rs, b, hq, sq, d).to(card, torch.bfloat16),
+            _randn(rs, b, hkv, sk, d).to(card, torch.bfloat16),
+            _randn(rs, b, hkv, sk, d).to(card, torch.bfloat16),
+            _randn(rs, b, hq, sq, d).to(card, torch.bfloat16))
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", TC_CASES, ids=TC_IDS)
+def test_bf16_tensor_core_forward_matches_plain(card, b, hq, hkv, sq, sk, d,
+                                                causal):
+    """K1's tensor-core body against its plain version: O within 2e-2
+    (P is rounded to bf16 before PV, as the reference rounds it), lse
+    within 1e-3 (taken from the f32 scores)."""
+    q, k, v, _ = _bf16_case(card, b, hq, hkv, sq, sk, d, 11)
+    before = _cuda_common.launch_counts()["flash_attention_fwd"]
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    ro, rlse = flash_attention_reference(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert _cuda_common.launch_counts()["flash_attention_fwd"] == before + 1
+    assert o.shape == q.shape and o.dtype == torch.bfloat16
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    assert (o.float() - ro.float()).abs().max().item() < 2e-2
+    assert (lse - rlse).abs().max().item() < 1e-3
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", TC_CASES, ids=TC_IDS)
+def test_bf16_tensor_core_backward_matches_plain(card, b, hq, hkv, sq, sk, d,
+                                                 causal):
+    """K2's tensor-core dK/dV body (and the dQ kernel beside it, through
+    the wrapper and its padding) against the plain backward: one bf16 ulp
+    (2^-7) of each gradient's largest |value|."""
+    q, k, v, do = _bf16_case(card, b, hq, hkv, sq, sk, d, 12)
+    o, lse = flash_attention_fwd(q, k, v, causal)
+    before = _cuda_common.launch_counts()["flash_attention_bwd_dkv"]
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert _cuda_common.launch_counts()["flash_attention_bwd_dkv"] \
+        == before + 1
+    for name, g, w, ref in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert g.dtype == torch.bfloat16 and g.shape == ref.shape
+        assert torch.isfinite(g.float()).all()
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= 2 ** -7 * w.float().abs().max().item(), (name, err)
+
+
+def test_bf16_dkv_repeats_bit_for_bit(card):
+    """dK and dV sum the GQA group's q heads in registers in a fixed order
+    (no atomics): two launches on the same inputs give the same bits."""
+    q, k, v, do = _bf16_case(card, 2, 16, 4, 1024, 1024, 128, 13)
+    o, lse = flash_attention_fwd(q, k, v, True)
+    args = (q, k, v, do, lse, _bwd_delta(o, do), True)
+    first = _launch_bwd_dkv(*args)
+    second = _launch_bwd_dkv(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_tensor_core_route_refuses_misaligned_inputs(card):
+    """The bf16 bodies read by TMA: a contiguous view that starts 2 bytes
+    past a 16-byte boundary is refused, not copied. f32 and the varlen
+    entry run the CUDA-core bodies, which take it."""
+    n = 2 * 64 * 64
+
+    def view(dtype):
+        return torch.randn(n + 1, device=card).to(dtype)[1:].view(
+            1, 2, 64, 64)
+
+    q = view(torch.bfloat16)
+    k, v, do = (torch.randn(1, 2, 64, 64, device=card, dtype=torch.bfloat16)
+                for _ in range(3))
+    assert q.is_contiguous() and q.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_fwd(q, k, v)
+    o, lse = flash_attention_fwd(k, k, v)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_bwd(k, k, v, o, lse, view(torch.bfloat16))
+    lens = torch.full((1,), 64, dtype=torch.int32, device=card)
+    got, _ = flash_attention_fwd(q, k, v, True, lens)
+    want, _ = flash_attention_reference(q, k, v, True)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() < 2e-2
+    q32, k32, v32 = view(torch.float32), k.float(), v.float()
+    got, _ = flash_attention_fwd(q32, k32, v32)
+    want, _ = flash_attention_reference(q32, k32, v32)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() < 1e-4
+
+
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 @pytest.mark.parametrize("s,hq,hkv,d,bs,pages,blocks", [
     (8, 16, 16, 128, 16, 64, 600), (5, 16, 2, 64, 8, 20, 120),

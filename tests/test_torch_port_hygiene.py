@@ -109,14 +109,20 @@ def test_kernel_sources_exist_and_are_the_build_list():
                                "flash_attention_bwd.cu", "paged_decode.cu",
                                "quant_matmul.cu", "fused_norm.cu",
                                "flashmask_attention.cu"}
-    # the one header: the flash tile bodies, part of every source's hash
+    # the two headers, part of every source's hash: the CUDA-core flash
+    # tile bodies, and the tensor-core ones (which include them)
     headers = {f for f in os.listdir(_cuda_common.CSRC_DIR)
                if f.endswith(".cuh")}
-    assert headers == {"flash_attention_tiles.cuh"}
-    for rel in ("csrc/flash_attention_fwd.cu", "csrc/flash_attention_bwd.cu",
-                "csrc/flashmask_attention.cu"):
+    assert headers == {"flash_attention_tiles.cuh", "flash_attention_tc.cuh"}
+    with open(os.path.join(_cuda_common.CSRC_DIR,
+                           "flash_attention_tc.cuh")) as f:
+        assert '#include "flash_attention_tiles.cuh"' in f.read()
+    for rel, header in (
+            ("csrc/flash_attention_fwd.cu", "flash_attention_tc.cuh"),
+            ("csrc/flash_attention_bwd.cu", "flash_attention_tc.cuh"),
+            ("csrc/flashmask_attention.cu", "flash_attention_tiles.cuh")):
         with open(os.path.join(PKG, rel)) as f:
-            assert '#include "flash_attention_tiles.cuh"' in f.read()
+            assert f'#include "{header}"' in f.read()
     for name, rel in _cuda_common.KERNEL_SOURCES.items():
         with open(os.path.join(PKG, rel)) as f:
             src = f.read()
@@ -174,3 +180,28 @@ def test_build_hash_covers_the_headers(tmp_path, monkeypatch):
     assert _cuda_common._source_hash(str(src)) == before
     hdr.write_text("// v2\n")
     assert _cuda_common._source_hash(str(src)) != before
+
+
+def test_ptxas_usage_reads_the_build_report(tmp_path, monkeypatch):
+    """chip_smoke's PTXAS line: each kernel's registers, stack and spills
+    from the `-Xptxas -v` report a build keeps beside its library."""
+    monkeypatch.setattr(_cuda_common, "BUILD_DIR", str(tmp_path))
+    rel = "csrc/flash_attention_bwd.cu"
+    report = (
+        "ptxas info    : Compiling entry function '_Z7kernelAv' for "
+        "'sm_90a'\n"
+        "ptxas info    : Function properties for _Z7kernelAv\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 232 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_Z7kernelBv' for "
+        "'sm_90a'\n"
+        "    8 bytes stack frame, 12 bytes spill stores, 24 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 168 registers, used 1 barriers\n")
+    with open(_cuda_common._lib_path(rel) + ".log", "w") as f:
+        f.write(report)
+    assert _cuda_common.ptxas_usage(rel) == {
+        "_Z7kernelAv": {"stack": 0, "spill_stores": 0, "spill_loads": 0,
+                        "registers": 232},
+        "_Z7kernelBv": {"stack": 8, "spill_stores": 12, "spill_loads": 24,
+                        "registers": 168}}
