@@ -20,10 +20,12 @@ Phases (any failure exits non-zero; nothing is caught):
      inputs, and timed (CUDA events, median of 30 after warm-up, device
      time only) beside the plain version, one PyTorch library call as a
      yardstick where one computes the same function, and the card's bound
-     for the work; K1 (also at TRAIN's shape) and K2 dK/dV, whose bf16
-     kernels run tensor-core bodies, also beside the CUDA-core body they
-     replaced on the same inputs (`replaced_ms`, through the varlen entry
-     with every kv length = S). The quantized
+     for the work; K2 dQ and dK/dV, whose bf16 kernels run tensor-core
+     bodies, also beside the CUDA-core body they replaced on the same
+     inputs (`replaced_ms`, through the varlen entry with every kv length
+     = S, which keeps the CUDA-core bodies); K1 (also at TRAIN's shape)
+     beside the same forced-mask varlen call (`varlen_full_ms`: K1v's
+     masking cost, both on tensor cores). The quantized
      paged-decode kernels read caches written by the port's own
      int8/int4 prefill scatters;
   4. serve: LLaMA at the 1B geometry (hidden 2048, 20 layers, 16 heads,
@@ -203,6 +205,12 @@ CFG_1B = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5504,
               max_position_embeddings=1024)
 
 
+#: which body a flash-family kernel runs at bf16 (the summary's "body"):
+#: the wgmma/TMA bodies of csrc/flash_attention_tc.cuh, or the f32-FMA
+#: bodies of csrc/flash_attention_tiles.cuh
+TC_BODY, CORE_BODY = "tensor cores", "cuda cores"
+
+
 def _say(tag, obj):
     print(f"{tag} {json.dumps(obj)}", flush=True)
 
@@ -249,17 +257,19 @@ def _nvidia_smi():
 
 
 def _full_lens(b, s):
-    """kv_lens = S for every batch row: the varlen entry then does K1's
-    (K2's) work on the CUDA-core body that bf16 K1 and K2 dK/dV ran
-    before their tensor-core redesign (`replaced_ms`)."""
+    """kv_lens = S for every batch row: the varlen entries then do K1's and
+    K2's work, the backward on the CUDA-core bodies that bf16 K2 ran before
+    its tensor-core redesign (`replaced_ms`), the forward on K1's
+    tensor-core body with every tile masked (`varlen_full_ms`)."""
     import torch
 
     return torch.full((b,), s, dtype=torch.int32, device="cuda")
 
 
 def flash_case(b, hq, hkv, s, d=128, causal=True):
-    """Flash forward at one prefill or train shape: parity, times,
-    bound, and the replaced CUDA-core body's time on the same inputs."""
+    """Flash forward at one prefill or train shape: parity, times, bound,
+    and the time of the same call through the varlen entry with every
+    length = S (`varlen_full_ms`: K1v's forced masks on the same body)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.flash_attention import (
@@ -285,9 +295,10 @@ def flash_case(b, hq, hkv, s, d=128, causal=True):
     nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d) + 4 * b * hq * s
     bound, by = _bound_ms(flops, nbytes)
     rec = {"name": "flash_attention_fwd", "shape": [b, hq, hkv, s, d],
-           "causal": causal, "max_abs_err": err, "lse_max_abs_err": lse_err,
+           "causal": causal, "body": TC_BODY, "max_abs_err": err,
+           "lse_max_abs_err": lse_err,
            "ms": _time_ms(lambda: flash_attention_fwd(q, k, v, causal)),
-           "replaced_ms": _time_ms(lambda: flash_attention_fwd(
+           "varlen_full_ms": _time_ms(lambda: flash_attention_fwd(
                q, k, v, causal, full)),
            "plain_ms": _time_ms(
                lambda: flash_attention_reference(q, k, v, causal)),
@@ -344,8 +355,9 @@ def flash_bwd_case(b, hq, hkv, s, d=128, causal=True):
     products it does (dQ: QK^T, dO V^T, dS K; dK/dV: those two, P^T dO and
     dS^T Q) and the bytes it moves. "whole" is the wrapper (delta, then
     both kernels) against the plain backward and SDPA's full backward,
-    with the bound of the five products the backward needs. dK/dV's
-    record also times the replaced CUDA-core body (`replaced_ms`)."""
+    with the bound of the five products the backward needs. Each
+    kernel's record also times the CUDA-core body its tensor-core body
+    replaced (`replaced_ms`)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.flash_attention import (
@@ -378,7 +390,8 @@ def flash_bwd_case(b, hq, hkv, s, d=128, causal=True):
                (kl, vl), 4, 2 * kv_bytes)),
         args, reads, pairs, d,
         lambda wrt: torch.autograd.grad(out, wrt, do, retain_graph=True),
-        {"dkv": lambda: _launch_bwd_dkv(*args, full)})
+        {"dq": lambda: _launch_bwd_dq(*args, full),
+         "dkv": lambda: _launch_bwd_dkv(*args, full)})
     # the wrapper, which the train step runs: also reads o
     err, rels = _rel_errs(flash_attention_bwd(q, k, v, o, lse, do, causal),
                           flash_attention_bwd_reference(q, k, v, o, lse, do,
@@ -1605,7 +1618,8 @@ def varlen_cases():
                           2 * q_bytes + 2 * kv_bytes + 4 * tokens * h)
     del ro, rlse
     fwd = {"name": "flash_attention_varlen_fwd", "shape": [b, h, h, s, d],
-           "lengths": lens.tolist(), "causal": True, "max_abs_err": err,
+           "lengths": lens.tolist(), "causal": True, "body": TC_BODY,
+           "max_abs_err": err,
            "lse_max_abs_err": lse_err,
            "ms": _time_ms(lambda: flash_attention_fwd(q, k, v, True,
                                                       kv_lens)),
@@ -1884,21 +1898,32 @@ def flashmask_phase():
     return counts
 
 
+#: the tensor-core kernels, each built at padded head dims 64 and 128
+TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
+              "flash_bwd_dkv_tc_kernel")
+
+
 def tc_usage():
     """PTXAS: registers, stack and spills of the tensor-core kernels (bf16
-    K1 and K2 dK/dV at each padded head dim), from the build's `-Xptxas
-    -v` output. Their accumulators live in registers: none may spill."""
+    K1/K1v, K2 dQ and K2 dK/dV at each padded head dim), from the build's
+    `-Xptxas -v` output, and any ptxas line on their wgmma pipeline (a
+    serialized pipeline is slow, not wrong). Their accumulators live in
+    registers: none may spill."""
     from paddle_tpu_torch.ops import _cuda_common
 
-    usage = {}
+    usage, notes = {}, []
     for rel in ("csrc/flash_attention_fwd.cu", "csrc/flash_attention_bwd.cu"):
         for name, use in _cuda_common.ptxas_usage(rel).items():
-            for kernel in ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel"):
+            for kernel in TC_KERNELS:
                 if kernel in name:
                     dp = 64 if "ILi64E" in name else 128
                     usage[f"{kernel}<{dp}>"] = use
+        with open(f"{_cuda_common._lib_path(rel)}.log") as f:
+            notes += [ln.strip() for ln in f if "wgmma" in ln]
     _say("PTXAS", usage)
-    assert len(usage) == 4, usage
+    if notes:
+        _say("PTXAS_WGMMA", notes)
+    assert len(usage) == 2 * len(TC_KERNELS), usage
     spilled = {k: u for k, u in usage.items()
                if u.get("spill_stores") or u.get("spill_loads")
                or u.get("stack")}
@@ -2018,15 +2043,16 @@ def main():
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
-            | {k: rec[k] for k in ("replaced_ms",) if k in rec})
+            | {k: rec[k] for k in ("varlen_full_ms", "body") if k in rec})
     # K1 at TRAIN's shape, launched by TRAIN's steps
     summary.append({
         "name": flash_train["name"], "case": "train", "route": "cuda",
+        "body": flash_train["body"],
         "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "paddle_tpu/ops/pallas_attention.py:104",
         "launches": counts_train[flash_train["name"]],
         "max_abs_err": flash_train["max_abs_err"], "ms": flash_train["ms"],
-        "replaced_ms": flash_train["replaced_ms"],
+        "varlen_full_ms": flash_train["varlen_full_ms"],
         "plain_ms": flash_train["plain_ms"],
         "bound_ms": flash_train["bound_ms"],
         "bound_by": flash_train["bound_by"],
@@ -2036,14 +2062,14 @@ def main():
                              ("flash_attention_bwd_dkv", "dkv", 314)):
         rec = bwd[0][key]
         summary.append({
-            "name": kname, "route": "cuda",
+            "name": kname, "route": "cuda", "body": TC_BODY,
             "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",
             "launches": counts_train[kname],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "replaced_ms": rec["replaced_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
-            | ({"replaced_ms": rec["replaced_ms"]} if key == "dkv" else {}))
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     # K3-K5 at the train step's shapes, one row per case; launches are the
     # entry point's count over TRAIN's counted steps (all its cases)
     for rec, line in ((norm["fwd"], 118), (norm["fwd_add"], 118),
@@ -2081,11 +2107,12 @@ def main():
         rec = flash64[key]
         summary.append({
             "name": rec["name"], "case": f"{key} d64", "route": "cuda",
+            "body": rec["body"],
             "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
             "replaces": "paddle_tpu/ops/pallas_attention.py:104",
             "launches": cnt[rec["name"]],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-            "replaced_ms": rec["replaced_ms"],
+            "varlen_full_ms": rec["varlen_full_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
         for kname, part, line in (("flash_attention_bwd_dq", "dq", 263),
@@ -2093,29 +2120,31 @@ def main():
             rec = bwd64[key][part]
             summary.append({
                 "name": kname, "case": f"{key} d64", "route": "cuda",
+                "body": TC_BODY,
                 "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
                 "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",
                 "launches": cnt[kname],
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "replaced_ms": rec["replaced_ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"],
-                "library_ms": rec["library_ms"]}
-                | {k: rec[k] for k in ("replaced_ms",) if k in rec})
+                "library_ms": rec["library_ms"]})
     # K1v/K2v from VARLEN, K9 from FLASHMASK
-    for rec, src, line, cnt in (
-            (varlen["fwd"], "flash_attention_fwd.cu", 104, counts_varlen),
+    for rec, src, line, cnt, body in (
+            (varlen["fwd"], "flash_attention_fwd.cu", 104, counts_varlen,
+             TC_BODY),
             (varlen["bwd"]["dq"] | {"name": "flash_attention_varlen_bwd_dq"},
-             "flash_attention_bwd.cu", 263, counts_varlen),
+             "flash_attention_bwd.cu", 263, counts_varlen, CORE_BODY),
             (varlen["bwd"]["dkv"]
              | {"name": "flash_attention_varlen_bwd_dkv"},
-             "flash_attention_bwd.cu", 314, counts_varlen),
-            (fm["fwd"], "flashmask_attention.cu", 856, counts_fm),
+             "flash_attention_bwd.cu", 314, counts_varlen, CORE_BODY),
+            (fm["fwd"], "flashmask_attention.cu", 856, counts_fm, CORE_BODY),
             (fm["bwd"]["dq"] | {"name": "flashmask_bwd_dq"},
-             "flashmask_attention.cu", 1017, counts_fm),
+             "flashmask_attention.cu", 1017, counts_fm, CORE_BODY),
             (fm["bwd"]["dkv"] | {"name": "flashmask_bwd_dkv"},
-             "flashmask_attention.cu", 1072, counts_fm)):
+             "flashmask_attention.cu", 1072, counts_fm, CORE_BODY)):
         summary.append({
-            "name": rec["name"], "route": "cuda",
+            "name": rec["name"], "route": "cuda", "body": body,
             "source": f"paddle_tpu_torch/csrc/{src}",
             "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",
             "launches": cnt[rec["name"]],

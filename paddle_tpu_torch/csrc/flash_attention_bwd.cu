@@ -43,17 +43,20 @@
 // causal tiles are launched first.
 //
 // Routing is static, by dtype and entry, with no fallback:
-//  * bf16 dK/dV (K2) runs the tensor-core body (flash_attention_tc.cuh):
-//    128 kv rows per block, K and V resident, Q and dO (with lse and
-//    delta) streamed by TMA through a 2-stage ring; S^T, dP^T, dV and dK
-//    on wgmma, P^T and dS^T passing from accumulator to A operand in
-//    registers. It takes D a multiple of 8 (the caller pads) and
+//  * bf16 K2 runs the tensor-core bodies (flash_attention_tc.cuh), both
+//    with two warpgroups of 64 rows and TMA loads through a 2-stage ring
+//    one visited tile ahead of the math. dQ: 128 q rows per block, Q and
+//    dO held, K and V tiles streamed on their own barriers; S, dP and
+//    dQ += dS K on wgmma, dS passing from accumulator to A operand in
+//    registers, lse and delta in registers. dK/dV: 128 kv rows per block,
+//    K and V held, Q and dO (with lse and delta) streamed; S^T, dP^T, dV
+//    and dK on wgmma. They take D a multiple of 8 (the caller pads) and
 //    16-byte-aligned inputs; anything else returns cudaErrorInvalidValue;
-//  * dQ (both dtypes), f32 dK/dV and every K2v entry run the CUDA-core
-//    bodies (flash_attention_tiles.cuh: plain f32 FMAs, S and dP
-//    recomputed in both kernels; f32 is exact like the reference's f32
-//    dots). Interior tiles of K2 skip the per-element mask; K2v masks
-//    every tile it visits.
+//  * f32 K2 and every K2v entry run the CUDA-core bodies
+//    (flash_attention_tiles.cuh: plain f32 FMAs, S and dP recomputed in
+//    both kernels; f32 is exact like the reference's f32 dots).
+// Interior tiles of K2 skip the per-element mask; K2v masks every tile it
+// visits.
 #include "flash_attention_tc.cuh"
 
 namespace {
@@ -65,6 +68,10 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b == 0 || sq == 0) return 0;
   const LenCausalMask::Args margs{kv_lens, causal};
+  if (dtype == 1 && kv_lens == nullptr)
+    return launch_bwd_dq_tc<LenCausalMask>(q, k, v, dout, lse, delta, dq,
+                                           margs, b, hq, hkv, sq, sk, d,
+                                           scale, st);
   if (dtype == 1)
     return launch_bwd_dq<__nv_bfloat16, LenCausalMask>(
         q, k, v, dout, lse, delta, dq, margs, b, hq, hkv, sq, sk, d, scale,

@@ -26,18 +26,22 @@
 // is its memory up to S ~ 1200 (the ridge is ~295 flop/byte) and its
 // tensor-core rate above.
 //
-// Routing is static, by dtype and entry, with no fallback:
-//  * bf16 K1 runs the tensor-core body (flash_attention_tc.cuh): QK^T and
-//    PV on wgmma, two warpgroups of 64 q rows each, K and V streamed by TMA
-//    through a 2-stage ring one tile ahead of the math, so loads overlap
-//    the math and the products run at the tensor cores' rate. It takes D a
-//    multiple of 8 (the caller pads) and 16-byte-aligned inputs; anything
-//    else returns cudaErrorInvalidValue;
-//  * f32 K1 and every K1v run the CUDA-core body (flash_attention_tiles.cuh:
+// Routing is static, by dtype, with no fallback:
+//  * bf16 K1 and K1v run the tensor-core body (flash_attention_tc.cuh):
+//    QK^T and PV on wgmma, two warpgroups of 64 q rows each, K and V
+//    streamed by TMA through a 2-stage ring one tile ahead of the math, so
+//    loads overlap the math and the products run at the tensor cores'
+//    rate. K1v reads its batch row's length in the mask policy and masks
+//    every tile it visits (the reference's force_masked=has_lens), so the
+//    rows of a partial last tile between the length and Sk, which hold
+//    real data, get P = 0. It takes D a multiple of 8 (the caller pads)
+//    and 16-byte-aligned inputs; anything else returns
+//    cudaErrorInvalidValue;
+//  * f32 K1 and K1v run the CUDA-core body (flash_attention_tiles.cuh:
 //    one block of 128 threads per 64-row q tile, f32 FMAs; exact f32 like
-//    the reference's f32 dots). Tiles wholly above the causal diagonal or
-//    past the length are never loaded; interior tiles of K1 skip the
-//    per-element mask, K1v masks every tile it visits.
+//    the reference's f32 dots).
+// Tiles wholly above the causal diagonal or past the length are never
+// loaded; interior tiles of K1 skip the per-element mask.
 #include "flash_attention_tc.cuh"
 
 namespace {
@@ -48,12 +52,9 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b == 0 || sq == 0) return 0;
   const LenCausalMask::Args margs{kv_lens, causal};
-  if (dtype == 1 && kv_lens == nullptr)
+  if (dtype == 1)
     return launch_fwd_tc<LenCausalMask>(q, k, v, o, lse, margs, b, hq, hkv,
                                         sq, sk, d, scale, st);
-  if (dtype == 1)
-    return launch_fwd<__nv_bfloat16, LenCausalMask>(
-        q, k, v, o, lse, margs, b, hq, hkv, sq, sk, d, scale, st);
   return launch_fwd<float, LenCausalMask>(q, k, v, o, lse, margs, b, hq,
                                           hkv, sq, sk, d, scale, st);
 }

@@ -1,22 +1,24 @@
 // Tensor-core tile bodies for bf16 flash attention on Hopper (sm_90a): the
-// forward (K1, included by flash_attention_fwd.cu) and the dK/dV kernel (K2,
-// included by flash_attention_bwd.cu), each a template over the padded head
-// dim (64 or 128) and a mask policy of flash_attention_tiles.cuh (the same
-// `kind` / `visible` / `col_info` interface the CUDA-core bodies use). The
-// f32 kernels, the varlen entries, K9 and the dQ kernel keep the CUDA-core
-// bodies of flash_attention_tiles.cuh.
+// forward (K1 and K1v, included by flash_attention_fwd.cu), the dQ kernel
+// and the dK/dV kernel (K2, included by flash_attention_bwd.cu), each a
+// template over the padded head dim (64 or 128) and a mask policy of
+// flash_attention_tiles.cuh (the same `kind` / `visible` / `col_info`
+// interface the CUDA-core bodies use). The f32 kernels, the varlen
+// backward entries (K2v) and K9 keep the CUDA-core bodies of
+// flash_attention_tiles.cuh.
 //
-// Block layout (both kernels): two warpgroups of 128 threads, each owning
-// 64 rows of the block's 128. Every load is a TMA copy into 128-byte-
-// swizzled shared tiles (a tile is stored as panels of 64 bf16 columns, 128
-// B per row; TMA's zero fill covers rows past the sequence and columns from
-// d up to the padded head dim), issued by thread 0 one visited tile ahead
-// of the math through a 2-stage ring: an `mbarrier` per stage says the
-// bytes landed, a second one that both warpgroups are done with them. A
-// separate producer warp would cost the consumers their registers: a block
-// of 9 warps is given registers as one of 12 (168 a thread), and
-// `setmaxnreg` did not let ptxas keep dK/dV's 192 accumulator registers
-// unspilled; with 8 warps each thread may use 255 and nothing spills.
+// Block layout (all three kernels): two warpgroups of 128 threads, each
+// owning 64 rows of the block's 128. Every load is a TMA copy into 128-
+// byte-swizzled shared tiles (a tile is stored as panels of 64 bf16
+// columns, 128 B per row; TMA's zero fill covers rows past the sequence
+// and columns from d up to the padded head dim), issued by thread 0 one
+// visited tile ahead of the math through a 2-stage ring: an `mbarrier` per
+// stage says the bytes landed, a second one that both warpgroups are done
+// with them. A separate producer warp would cost the consumers their
+// registers: a block of 9 warps is given registers as one of 12 (168 a
+// thread), and `setmaxnreg` did not let ptxas keep dK/dV's 192 accumulator
+// registers unspilled; with 8 warps each thread may use 255 and nothing
+// spills.
 //  * forward: one block per (128 q rows, q head, batch). Q is loaded once;
 //    K and V tiles of KN kv rows (64 at d <= 64, where two blocks then fit
 //    an SM; 128 above) stream through the ring, K and V on their own
@@ -25,7 +27,18 @@
 //    on the accumulator fragments; P is cast to bf16 (as the reference
 //    casts p to v's dtype) and is the A operand of O += P V straight from
 //    registers (the accumulator layout of S is the A fragment layout); O
-//    stays in f32 registers.
+//    stays in f32 registers. With kv_lens (K1v) the mask policy reads the
+//    batch row's length; kv tiles past it are never loaded.
+//  * dQ: the forward's block and ring (one block per 128 q rows, q head
+//    and batch; K and V tiles of KN rows, each on its own barrier, so the
+//    stage's V is released before its K), with Q and dO loaded once and
+//    held, and each thread's two rows of lse and delta in registers. S = Q K^T and dP = dO V^T are shared x shared;
+//    dS = P (dP - delta), P = exp(S scale - lse), is formed in f32 on the
+//    accumulator fragments and cast to bf16 A fragments of dQ += dS K,
+//    whose B is the same K tile read MN-major (a second descriptor over
+//    it, as V is read in P V). dQ stays in f32 registers: no atomics, the
+//    same bits on every run. A stage's V is released after dP, its K after
+//    dS K.
 //  * dK/dV: one block per (128 kv rows, kv head, batch). K and V are loaded
 //    once and stay; Q and dO tiles of 64 q rows, with their lse and delta
 //    rows, stream through the ring, over every q head of the GQA group and
@@ -38,7 +51,9 @@
 // Masks: `Mask::kind` per (64-row tile, 64-column tile); `visible` per
 // accumulator element of masked tiles only. A warpgroup whose tile is
 // skipped still waits for and releases the stage, so the ring stays in
-// step; a stage neither warpgroup needs is never loaded.
+// step; a stage neither warpgroup needs is never loaded. Masked
+// probabilities are zeroed, never exponentiated: a row that sees no key
+// has lse = -1e30.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
@@ -428,7 +443,7 @@ __device__ __forceinline__ bool dkv_next(const typename Mask::Args& margs,
   return false;
 }
 
-// ------------------------------------------------------------------ forward
+// ------------------------------------------------------- q blocks (fwd, dQ)
 
 // the kind of a kv tile of KN keys (KN / 64 tiles of the mask policy) for
 // the 64-row q tile at q0: skipped if every part is, full if every part is
@@ -445,8 +460,8 @@ __device__ __forceinline__ int kv_tile_kind(const Mask& m, int q0, int k0,
   return skip == KN / kBK ? kSkip : full == KN / kBK ? kFull : kMasked;
 }
 
-// the kinds of a forward block's two 64-row q tiles (rows past Sq are
-// skipped) against the kv tile at k0; whether either is visited
+// the kinds of a q block's two 64-row q tiles (rows past Sq are skipped)
+// against the kv tile at k0; whether either is visited
 template <int KN, typename Mask>
 __device__ __forceinline__ bool fwd_kinds(const Mask& m, int q0, int k0,
                                           int sq, int sk, int& kind0,
@@ -456,30 +471,93 @@ __device__ __forceinline__ bool fwd_kinds(const Mask& m, int q0, int k0,
   return kind0 != kSkip || kind1 != kSkip;
 }
 
-// byte offsets from the block's 1024-aligned shared base
-template <int DP, int KN>
-struct FwdTcSmem {
+// byte offsets from the 1024-aligned shared base of a q block that holds
+// NQ operands of its 128 q rows (the forward Q; dQ Q and dO) and streams K
+// and V tiles of KN rows
+template <int DP, int KN, int NQ>
+struct QBlockSmem {
   static constexpr int kPanels = DP / kPanel;
-  static constexpr int kQBytes = kPanels * kTcRows * kRowBytes;
-  static constexpr int kTileBytes = kPanels * KN * kRowBytes;  // K or V
+  static constexpr int kQBytes = kPanels * kTcRows * kRowBytes;  // Q or dO
+  static constexpr int kTileBytes = kPanels * KN * kRowBytes;    // K or V
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kQBytes;
+  static constexpr int kDO = kQBytes;  // NQ == 2
+  static constexpr int kK = NQ * kQBytes;
   static constexpr int kV = kK + kTcStages * kTileBytes;
   static constexpr int kBar = kV + kTcStages * kTileBytes;
-  // barriers: Q loaded; K, V of stage s loaded; K, V of stage s released
+  // barriers: Q (and dO) loaded; K, V of stage s loaded; K, V of stage s
+  // released
   static constexpr int kBarQ = kBar, kBarK = kBar + 8, kBarV = kBar + 24,
                        kFreeK = kBar + 40, kFreeV = kBar + 56;
   static constexpr int kBytes = kBar + 72 + 1024;  // + alignment slack
 };
+template <int DP, int KN>
+using FwdTcSmem = QBlockSmem<DP, KN, 1>;
+template <int DP, int KN>
+using DqTcSmem = QBlockSmem<DP, KN, 2>;
 
-// keys per forward kv tile (the N of S = Q K^T, the depth of O += P V) by
-// padded head dim: at 64, 64 keys keep a thread under 128 registers, so
-// two blocks share an SM; at 128, 128 keys halve the steps per row
-// (measured faster than 64 keys, or 64 at two blocks an SM, which spills)
+// keys per kv tile of a q block (the N of S = Q K^T, the depth of O += P V
+// or dQ += dS K) by padded head dim: at 64, 64 keys keep a forward thread
+// under 128 registers, so two blocks share an SM; at 128, 128 keys halve
+// the steps per row (the forward measured faster than 64 keys, or 64 at
+// two blocks an SM, which spills)
 template <int DP>
-constexpr int fwd_kn() {
+constexpr int ring_kn() {
   return DP == 64 ? 64 : 128;
 }
+
+// Thread 0 initialises a q block's barriers; the block then syncs.
+template <typename L>
+__device__ __forceinline__ void init_q_block(uint32_t base) {
+  if (threadIdx.x == 0) {
+    mbar_init(base + L::kBarQ, 1);
+#pragma unroll
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(base + L::kBarK + 8 * s, 1);
+      mbar_init(base + L::kBarV + 8 * s, 1);
+      mbar_init(base + L::kFreeK + 8 * s, 4 * kTcGroups);
+      mbar_init(base + L::kFreeV + 8 * s, 4 * kTcGroups);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// Thread 0 of a q block at q0: loads the next kv tile after `lt` that
+// either warpgroup visits into stage `li & 1` of the ring (K, then V, each
+// on its own barrier, once both warpgroups released that stage's K or V),
+// from kv head `kvh` (b * Hkv + h / (Hq / Hkv)). `lt` becomes that tile
+// (>= ntiles: none left) and `li` counts the tiles loaded.
+template <typename L, int KN, typename Mask>
+__device__ __forceinline__ void load_next_kv(
+    uint32_t base, const CUtensorMap* tk, const CUtensorMap* tv,
+    const Mask& mask, int q0, int sq, int sk, int ntiles, int kvh, int& lt,
+    int& li) {
+  int kind0, kind1;
+  do {
+    ++lt;
+  } while (lt < ntiles &&
+           !fwd_kinds<KN>(mask, q0, lt * KN, sq, sk, kind0, kind1));
+  if (lt >= ntiles) return;
+  const int s = li & 1;
+  const uint32_t ph = (li >> 1) & 1;
+  ++li;
+  const uint32_t full_k = base + L::kBarK + 8 * s;
+  const uint32_t full_v = base + L::kBarV + 8 * s;
+  mbar_wait(base + L::kFreeK + 8 * s, ph ^ 1);
+  mbar_arrive_tx(full_k, L::kTileBytes);
+#pragma unroll
+  for (int p = 0; p < L::kPanels; ++p)
+    tma_load(base + L::kK + s * L::kTileBytes + p * KN * kRowBytes, tk,
+             full_k, p * kPanel, lt * KN, kvh);
+  mbar_wait(base + L::kFreeV + 8 * s, ph ^ 1);
+  mbar_arrive_tx(full_v, L::kTileBytes);
+#pragma unroll
+  for (int p = 0; p < L::kPanels; ++p)
+    tma_load(base + L::kV + s * L::kTileBytes + p * KN * kRowBytes, tv,
+             full_v, p * kPanel, lt * KN, kvh);
+}
+
+// ------------------------------------------------------------------ forward
 
 template <int DP, int KN, typename Mask>
 __global__ void __launch_bounds__(kTcThreads, 1)
@@ -500,48 +578,15 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
   // the later warpgroup sees the most kv tiles
   const int kv_end = mask.kv_end(q0 + kTcRows - kBQ);
   const int ntiles = kv_end > 0 ? (kv_end + KN - 1) / KN : 0;
-
-  if (threadIdx.x == 0) {
-    mbar_init(base + L::kBarQ, 1);
-#pragma unroll
-    for (int s = 0; s < kTcStages; ++s) {
-      mbar_init(base + L::kBarK + 8 * s, 1);
-      mbar_init(base + L::kBarV + 8 * s, 1);
-      mbar_init(base + L::kFreeK + 8 * s, 4 * kTcGroups);
-      mbar_init(base + L::kFreeV + 8 * s, 4 * kTcGroups);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
+  init_q_block<L>(base);
 
   // Thread 0 issues every load, one visited kv tile ahead of the math:
   // `lt` is the last tile it loaded, `li` the count of loaded tiles.
-  const int hk = h / (hq / hkv);
+  const int kvh = b * hkv + h / (hq / hkv);
   int lt = -1, li = 0;
   auto load_next = [&]() {
-    int kind0, kind1;
-    do {
-      ++lt;
-    } while (lt < ntiles &&
-             !fwd_kinds<KN>(mask, q0, lt * KN, sq, sk, kind0, kind1));
-    if (lt >= ntiles) return;
-    const int s = li & 1;
-    const uint32_t ph = (li >> 1) & 1;
-    ++li;
-    const uint32_t full_k = base + L::kBarK + 8 * s;
-    const uint32_t full_v = base + L::kBarV + 8 * s;
-    mbar_wait(base + L::kFreeK + 8 * s, ph ^ 1);
-    mbar_arrive_tx(full_k, L::kTileBytes);
-#pragma unroll
-    for (int p = 0; p < L::kPanels; ++p)
-      tma_load(base + L::kK + s * L::kTileBytes + p * KN * kRowBytes, &tk,
-               full_k, p * kPanel, lt * KN, b * hkv + hk);
-    mbar_wait(base + L::kFreeV + 8 * s, ph ^ 1);
-    mbar_arrive_tx(full_v, L::kTileBytes);
-#pragma unroll
-    for (int p = 0; p < L::kPanels; ++p)
-      tma_load(base + L::kV + s * L::kTileBytes + p * KN * kRowBytes, &tv,
-               full_v, p * kPanel, lt * KN, b * hkv + hk);
+    load_next_kv<L, KN>(base, &tk, &tv, mask, q0, sq, sk, ntiles, kvh, lt,
+                        li);
   };
   if (threadIdx.x == 0) {
     mbar_arrive_tx(base + L::kBarQ, L::kQBytes);
@@ -635,6 +680,158 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
     if ((lane & 3) == 0)
       lse[row0 + row] =
           l_r[ii] > 0.f ? m_r[ii] * kLn2 + logf(l_r[ii]) : kNeg;
+  }
+}
+
+// ---------------------------------------------------------------------- dQ
+
+template <int DP, int KN, typename Mask>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq,
+                       typename Mask::Args margs, int hq, int hkv, int sq,
+                       int sk, int d, float scale, float scale_log2) {
+  using L = DqTcSmem<DP, KN>;
+  extern __shared__ __align__(1024) unsigned char tc_smem[];
+  const uint32_t base = (smem_u32(tc_smem) + 1023) & ~1023u;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = blockIdx.x, b = blockIdx.y;
+  // causal: the last q blocks see the most kv tiles; launch them first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTcRows;
+  const Mask mask(margs, b, h, hq, sq, sk);
+  // the later warpgroup sees the most kv tiles
+  const int kv_end = mask.kv_end(q0 + kTcRows - kBQ);
+  const int ntiles = kv_end > 0 ? (kv_end + KN - 1) / KN : 0;
+  init_q_block<L>(base);
+
+  // Thread 0 issues every load: Q and dO once, then K and V one visited
+  // kv tile ahead of the math.
+  const int kvh = b * hkv + h / (hq / hkv);
+  int lt = -1, li = 0;
+  auto load_next = [&]() {
+    load_next_kv<L, KN>(base, &tk, &tv, mask, q0, sq, sk, ntiles, kvh, lt,
+                        li);
+  };
+  if (threadIdx.x == 0) {
+    mbar_arrive_tx(base + L::kBarQ, 2 * L::kQBytes);
+#pragma unroll
+    for (int p = 0; p < L::kPanels; ++p) {
+      tma_load(base + L::kQ + p * kTcRows * kRowBytes, &tq, base + L::kBarQ,
+               p * kPanel, q0, b * hq + h);
+      tma_load(base + L::kDO + p * kTcRows * kRowBytes, &tdo,
+               base + L::kBarQ, p * kPanel, q0, b * hq + h);
+    }
+    load_next();
+  }
+
+  // consumers: warpgroup wg owns q rows qw .. qw + 63
+  const int wg = warp >> 2;
+  const int r = 16 * (warp & 3) + (lane >> 2);  // fragment rows r, r + 8
+  const int c = 2 * (lane & 3);                 // fragment column offset
+  const int qw = q0 + kBQ * wg;
+  const uint32_t qa = base + L::kQ + wg * kBQ * kRowBytes;
+  const uint32_t da = base + L::kDO + wg * kBQ * kRowBytes;
+  const size_t row0 = (size_t)(b * hq + h) * sq;
+  // the fragment rows' lse (log2 units) and delta; rows past Sq (Q and dO
+  // zero-filled, never written) read neither
+  float l2[2], dl[2];
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii) {
+    const int row = qw + r + 8 * ii;
+    l2[ii] = row < sq ? lse[row0 + row] * kLog2e : 0.f;
+    dl[ii] = row < sq ? delta[row0 + row] : 0.f;
+  }
+  float acc[DP / 2];
+#pragma unroll
+  for (int x = 0; x < DP / 2; ++x) acc[x] = 0.f;
+  mbar_wait(base + L::kBarQ, 0);
+
+  int i = 0;
+  for (int t = 0; t < ntiles; ++t) {
+    const int k0 = t * KN;
+    int kind0, kind1;
+    if (!fwd_kinds<KN>(mask, q0, k0, sq, sk, kind0, kind1)) continue;
+    const int kind = wg ? kind1 : kind0;  // uniform over the warpgroup
+    const int s = i & 1;
+    const uint32_t ph = (i >> 1) & 1;
+    ++i;
+    if (threadIdx.x == 0) load_next();  // the next tile, into the other stage
+    const uint32_t ks = base + L::kK + s * L::kTileBytes;
+    const uint32_t vs = base + L::kV + s * L::kTileBytes;
+
+    float sc[KN / 2], dp[KN / 2];  // S and dP: q rows x KN keys
+    // both operands first: a wgmma group left in flight across the wait
+    // for V (a divergent loop) makes ptxas serialize the kernel's wgmmas
+    mbar_wait(base + L::kBarK + 8 * s, ph);
+    mbar_wait(base + L::kBarV + 8 * s, ph);
+    if (kind != kSkip) {  // S = Q K^T, dP = dO V^T
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t a_off =
+            (kk >> 2) * kTcRows * kRowBytes + (kk & 3) * 32;
+        const uint32_t b_off = (kk >> 2) * KN * kRowBytes + (kk & 3) * 32;
+        wgmma_ss<KN>(sc, sw128_desc(qa + a_off, 16),
+                     sw128_desc(ks + b_off, 16), kk > 0);
+        wgmma_ss<KN>(dp, sw128_desc(da + a_off, 16),
+                     sw128_desc(vs + b_off, 16), kk > 0);
+      }
+      wg_commit();
+      wg_wait0();
+      keep(sc);
+      keep(dp);
+    }
+    if (lane == 0) mbar_arrive(base + L::kFreeV + 8 * s);
+
+    if (kind != kSkip) {
+      // dS = P (dP - delta) in place of dP; masked probabilities are zeroed
+      // before they meet lse
+#pragma unroll
+      for (int j = 0; j < KN / 8; ++j)
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc) {
+            const int x = 4 * j + 2 * ii + cc;
+            const int col = k0 + 8 * j + c + cc;
+            const bool ok =
+                kind == kFull ||
+                mask.visible(qw + r + 8 * ii, col, mask.col_info(col));
+            const float p =
+                ok ? fast_exp2(sc[x] * scale_log2 - l2[ii]) : 0.f;
+            dp[x] = p * (dp[x] - dl[ii]);
+          }
+      uint32_t sf[KN / 16][4];
+      a_frags<KN>(dp, sf);  // dS in bf16
+      wg_fence();           // dQ += dS K, K read MN-major
+#pragma unroll
+      for (int kk = 0; kk < KN / 16; ++kk)
+        wgmma_rs<DP>(acc, sf[kk],
+                     sw128_desc(ks + kk * 16 * kRowBytes, KN * kRowBytes));
+      wg_commit();
+      wg_wait0();
+      keep(acc);
+    }
+    if (lane == 0) mbar_arrive(base + L::kFreeK + 8 * s);
+  }
+
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii) {
+    const int row = qw + r + 8 * ii;
+    if (row >= sq) continue;
+    uint32_t* dqr = reinterpret_cast<uint32_t*>(dq + (row0 + row) * d);
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + c;
+      if (col < d)
+        dqr[col >> 1] = pack_bf16(acc[4 * j + 2 * ii] * scale,
+                                  acc[4 * j + 2 * ii + 1] * scale);
+    }
   }
 }
 
@@ -913,7 +1110,7 @@ int run_fwd_tc(dim3 grid, const CUtensorMap& tq, const CUtensorMap& tk,
                const CUtensorMap& tv, void* o, void* lse,
                typename Mask::Args margs, int hq, int hkv, int sq, int sk,
                int d, float scale, cudaStream_t stream) {
-  constexpr int KN = fwd_kn<DP>();
+  constexpr int KN = ring_kn<DP>();
   const int smem = FwdTcSmem<DP, KN>::kBytes;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_tc_kernel<DP, KN, Mask>,
@@ -931,12 +1128,11 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
                   int hkv, int sq, int sk, int d, float scale,
                   cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
+  const int kn = d <= 64 ? ring_kn<64>() : ring_kn<128>();
   if (!tc_takes(d, addr(q) | addr(k) | addr(v)) ||
       !bf16_tmap(&tq, q, b * hq, sq, d, kTcRows) ||
-      !bf16_tmap(&tk, k, b * hkv, sk, d, d <= 64 ? fwd_kn<64>()
-                                                : fwd_kn<128>()) ||
-      !bf16_tmap(&tv, v, b * hkv, sk, d, d <= 64 ? fwd_kn<64>()
-                                                : fwd_kn<128>()))
+      !bf16_tmap(&tk, k, b * hkv, sk, d, kn) ||
+      !bf16_tmap(&tv, v, b * hkv, sk, d, kn))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(hq, b, (sq + kTcRows - 1) / kTcRows);
   if (d <= 64)
@@ -944,6 +1140,49 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
                                 sk, d, scale, stream);
   return run_fwd_tc<128, Mask>(grid, tq, tk, tv, o, lse, margs, hq, hkv, sq,
                                sk, d, scale, stream);
+}
+
+template <int DP, typename Mask>
+int run_bwd_dq_tc(dim3 grid, const CUtensorMap& tq, const CUtensorMap& tk,
+                  const CUtensorMap& tv, const CUtensorMap& tdo,
+                  const void* lse, const void* delta, void* dq,
+                  typename Mask::Args margs, int hq, int hkv, int sq, int sk,
+                  int d, float scale, cudaStream_t stream) {
+  constexpr int KN = ring_kn<DP>();
+  const int smem = DqTcSmem<DP, KN>::kBytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_tc_kernel<DP, KN, Mask>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dq_tc_kernel<DP, KN, Mask><<<grid, kTcThreads, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq),
+      margs, hq, hkv, sq, sk, d, scale, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+// lse and delta are read by plain loads (each thread its two rows), so
+// only Q, K, V and dO must be 16-byte aligned
+template <typename Mask>
+int launch_bwd_dq_tc(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     void* dq, typename Mask::Args margs, int b, int hq,
+                     int hkv, int sq, int sk, int d, float scale,
+                     cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  const int kn = d <= 64 ? ring_kn<64>() : ring_kn<128>();
+  if (!tc_takes(d, addr(q) | addr(k) | addr(v) | addr(dout)) ||
+      !bf16_tmap(&tq, q, b * hq, sq, d, kTcRows) ||
+      !bf16_tmap(&tdo, dout, b * hq, sq, d, kTcRows) ||
+      !bf16_tmap(&tk, k, b * hkv, sk, d, kn) ||
+      !bf16_tmap(&tv, v, b * hkv, sk, d, kn))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(hq, b, (sq + kTcRows - 1) / kTcRows);
+  if (d <= 64)
+    return run_bwd_dq_tc<64, Mask>(grid, tq, tk, tv, tdo, lse, delta, dq,
+                                   margs, hq, hkv, sq, sk, d, scale, stream);
+  return run_bwd_dq_tc<128, Mask>(grid, tq, tk, tv, tdo, lse, delta, dq,
+                                  margs, hq, hkv, sq, sk, d, scale, stream);
 }
 
 template <int DP, typename Mask>

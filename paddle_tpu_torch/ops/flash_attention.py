@@ -24,15 +24,22 @@ key columns >= kv_lens[b] are masked too. A query row that sees no key
 gradients.
 
 Routing: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises. There is no fallback. On the card the C entries route by
-dtype: bf16 K1 and K2 dK/dV run the tensor-core bodies
-(csrc/flash_attention_tc.cuh), which read Q, K, V and dO by TMA, so they
-need 16-byte-aligned tensors (`ValueError` otherwise; nothing is copied to
-mend it) and a head dim that is a multiple of 8: `with_head_pad` pads
-other head dims with zero columns and cuts the outputs back, the softmax
-scale staying 1/sqrt of the original d (the reference pads d to 128 the
-same way, `pallas_attention.py:215-218`). f32 inputs, the varlen entries
-and the dQ kernel run the CUDA-core bodies (csrc/flash_attention_tiles.cuh).
+kernel or raises. There is no fallback. On the card the C entries route
+statically, by dtype and entry (`_tensor_core_route`):
+
+    entry                  bf16                     f32
+    forward (K1, K1v)      tensor cores             CUDA cores
+    dQ, dK/dV (K2)         tensor cores             CUDA cores
+    dQ, dK/dV (K2v)        CUDA cores               CUDA cores
+
+The tensor-core bodies (csrc/flash_attention_tc.cuh) read Q, K, V and dO
+by TMA, so they need 16-byte-aligned tensors (`ValueError` otherwise;
+nothing is copied to mend it) and a head dim that is a multiple of 8:
+`with_head_pad` pads other head dims with zero columns and cuts the
+outputs back, the softmax scale staying 1/sqrt of the original d (the
+reference pads d to 128 the same way, `pallas_attention.py:215-218`). The
+CUDA-core bodies (csrc/flash_attention_tiles.cuh) take any head dim and
+alignment.
 """
 from __future__ import annotations
 
@@ -260,9 +267,12 @@ def _entry(name, kv_lens):
     return _VARLEN[name], (kv_lens.data_ptr(),)
 
 
-def _tensor_core_route(q, kv_lens):
-    """Whether the C entries run a tensor-core body: bf16, not varlen."""
-    return q.dtype == torch.bfloat16 and kv_lens is None
+def _tensor_core_route(name, dtype, varlen):
+    """Whether the C entry of kernel `name` (its varlen form when `varlen`)
+    runs a tensor-core body on `dtype` inputs: bf16 forwards (K1, K1v) and
+    bf16 non-varlen backward kernels (K2 dQ, K2 dK/dV). f32 and the varlen
+    backward kernels (K2v) run the CUDA-core bodies."""
+    return dtype == torch.bfloat16 and (name == _NAME or not varlen)
 
 
 def _check_aligned(name, *tensors):
@@ -298,7 +308,7 @@ def _launch(name, kv_lens, ptrs, q, k, causal, scale, tma=(), ints=()):
     Sk, D] and the entry's own `ints`. On the tensor-core route the
     tensors `tma`, which the kernel reads by TMA, must be 16-byte
     aligned."""
-    if _tensor_core_route(q, kv_lens):
+    if _tensor_core_route(name, q.dtype, kv_lens is not None):
         _check_aligned(name, *tma)
     entry, lens = _entry(name, kv_lens)
     fn = getattr(kernel_library(entry), entry)
@@ -333,11 +343,11 @@ def flash_attention_fwd(q, k, v, causal=True, kv_lens=None):
     _check(q, k, v)
     if kv_lens is not None:
         _check_lens(kv_lens, q)
-    if not _tensor_core_route(q, kv_lens):
+    if not _tensor_core_route(_NAME, q.dtype, kv_lens is not None):
         return _launch_fwd(q, k, v, causal, kv_lens,
                            softmax_scale(q.shape[3]))
     return with_head_pad(
-        lambda q_, k_, v_, scale: _launch_fwd(q_, k_, v_, causal, None,
+        lambda q_, k_, v_, scale: _launch_fwd(q_, k_, v_, causal, kv_lens,
                                               scale),
         (q, k, v))
 
@@ -384,7 +394,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=True, kv_lens=None):
 
     if kv_lens is not None:
         _check_lens(kv_lens, q)
-    if not _tensor_core_route(q, kv_lens):
+    if not any(_tensor_core_route(n, q.dtype, kv_lens is not None)
+               for n in (_BWD_DQ, _BWD_DKV)):
         return run(q, k, v, o, do, softmax_scale(q.shape[3]))
     return with_head_pad(run, (q, k, v, o, do))
 
@@ -396,7 +407,7 @@ def _launch_bwd_dq(q, k, v, do, lse, delta, causal, kv_lens=None,
     `flash_attention_bwd` has checked (delta f32 [B, Hq, Sq])."""
     dq = torch.empty_like(q)
     _launch(_BWD_DQ, kv_lens, (q, k, v, do, lse, delta, dq), q, k, causal,
-            softmax_scale(q.shape[3], scale))
+            softmax_scale(q.shape[3], scale), tma=(q, k, v, do))
     return dq
 
 
@@ -413,7 +424,8 @@ def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, kv_lens=None,
     # the tensor-core body reads lse and delta rows by TMA, whose row
     # stride is a multiple of 16 bytes: pad Sq to a multiple of 4 floats
     sq = q.shape[2]
-    stride = ceil_to(sq, 4) if _tensor_core_route(q, kv_lens) else sq
+    stride = ceil_to(sq, 4) if _tensor_core_route(_BWD_DKV, q.dtype,
+                                                  False) else sq
     if stride != sq:
         lse, delta = (torch.nn.functional.pad(t, (0, stride - sq))
                       for t in (lse, delta))

@@ -161,9 +161,10 @@ def test_flash_attention_op_on_card_matches_autograd_of_plain(card):
     assert _cuda_common.launch_counts()["flash_attention_bwd_dq"] == 1
 
 
-#: bf16 K1 and K2 dK/dV run the tensor-core bodies (wgmma, TMA): head
-#: dims 16-128 (100 through the wrapper's padding to 104), Sq != Sk with
-#: empty rows, GQA 16:4, a ragged S and BERT's non-causal shape
+#: bf16 K1, K1v and both K2 kernels run the tensor-core bodies (wgmma,
+#: TMA): head dims 16-128 (100 through the wrapper's padding to 104),
+#: Sq != Sk with empty rows, GQA 16:4, a ragged S and BERT's non-causal
+#: shape
 TC_CASES = [(1, 4, 4, 256, 256, 16, True), (1, 4, 4, 256, 256, 32, True),
             (1, 4, 4, 256, 256, 64, True), (2, 4, 2, 200, 200, 100, True),
             (1, 4, 4, 256, 256, 128, True), (1, 4, 2, 100, 40, 64, True),
@@ -202,17 +203,18 @@ def test_bf16_tensor_core_forward_matches_plain(card, b, hq, hkv, sq, sk, d,
 @pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", TC_CASES, ids=TC_IDS)
 def test_bf16_tensor_core_backward_matches_plain(card, b, hq, hkv, sq, sk, d,
                                                  causal):
-    """K2's tensor-core dK/dV body (and the dQ kernel beside it, through
-    the wrapper and its padding) against the plain backward: one bf16 ulp
-    (2^-7) of each gradient's largest |value|."""
+    """K2's tensor-core dQ and dK/dV bodies, through the wrapper and its
+    padding, against the plain backward: one bf16 ulp (2^-7) of each
+    gradient's largest |value|; one launch of each."""
     q, k, v, do = _bf16_case(card, b, hq, hkv, sq, sk, d, 12)
     o, lse = flash_attention_fwd(q, k, v, causal)
-    before = _cuda_common.launch_counts()["flash_attention_bwd_dkv"]
+    before = _cuda_common.launch_counts()
     got = flash_attention_bwd(q, k, v, o, lse, do, causal)
     want = flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
     torch.cuda.synchronize()
-    assert _cuda_common.launch_counts()["flash_attention_bwd_dkv"] \
-        == before + 1
+    after = _cuda_common.launch_counts()
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert after[name] == before[name] + 1, name
     for name, g, w, ref in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
         assert g.dtype == torch.bfloat16 and g.shape == ref.shape
         assert torch.isfinite(g.float()).all()
@@ -231,10 +233,66 @@ def test_bf16_dkv_repeats_bit_for_bit(card):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+def test_bf16_dq_repeats_bit_for_bit(card):
+    """dQ sums its kv tiles in registers in a fixed order (no atomics):
+    two launches on the same GQA inputs give the same bits."""
+    q, k, v, do = _bf16_case(card, 2, 16, 4, 1024, 1024, 128, 14)
+    o, lse = flash_attention_fwd(q, k, v, True)
+    args = (q, k, v, do, lse, _bwd_delta(o, do), True)
+    first = _launch_bwd_dq(*args)
+    second = _launch_bwd_dq(*args)
+    assert torch.equal(first, second)
+
+
+#: K1v on the tensor-core forward: lengths off multiples of 64 and 128
+#: (the last kv tile partial, real data past the length), a length of 0,
+#: lengths inside one 128-key tile, GQA, causal and not, D 128 and 64
+#: (100 through the wrapper's padding)
+TC_VARLEN_CASES = [
+    (4, 4, 300, 128, True, [300, 77, 0, 193]),
+    (4, 2, 256, 128, False, [129, 1, 256, 0]),
+    (16, 4, 520, 128, True, [520, 200, 65, 450]),
+    (4, 4, 300, 64, True, [300, 77, 0, 193]),
+    (8, 2, 200, 64, False, [63, 130, 0, 200]),
+    (4, 2, 150, 100, True, [150, 3, 70])]
+TC_VARLEN_IDS = ["d128-causal", "d128-full-gqa", "d128-gqa-16-4",
+                 "d64-causal", "d64-full-gqa", "d100-padded"]
+
+
+@pytest.mark.parametrize("hq,hkv,s,d,causal,lens", TC_VARLEN_CASES,
+                         ids=TC_VARLEN_IDS)
+def test_bf16_tensor_core_varlen_forward_matches_plain(card, hq, hkv, s, d,
+                                                       causal, lens):
+    """K1v's tensor-core forward against its plain version on every row
+    (rows past a length included): O within 2e-2, lse within 1e-3; a
+    sequence of length 0 gives O = 0 and lse = -1e30. One launch of the
+    varlen forward, none of K1."""
+    rs = np.random.RandomState(23)
+    b = len(lens)
+    q = _randn(rs, b, hq, s, d).to(card, torch.bfloat16)
+    k, v = (_randn(rs, b, hkv, s, d).to(card, torch.bfloat16)
+            for _ in range(2))
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=card)
+    before = _cuda_common.launch_counts()
+    o, lse = flash_attention_fwd(q, k, v, causal, kv_lens)
+    ro, rlse = flash_attention_reference(q, k, v, causal, kv_lens)
+    torch.cuda.synchronize()
+    after = _cuda_common.launch_counts()
+    assert {n: c - before[n] for n, c in after.items() if c != before[n]} \
+        == {"flash_attention_varlen_fwd": 1}
+    assert o.shape == q.shape and o.dtype == torch.bfloat16
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    assert (o.float() - ro.float()).abs().max().item() < 2e-2
+    assert (lse - rlse).abs().max().item() < 1e-3
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert (o[i] == 0).all() and (lse[i] == -1e30).all()
+
+
 def test_tensor_core_route_refuses_misaligned_inputs(card):
     """The bf16 bodies read by TMA: a contiguous view that starts 2 bytes
-    past a 16-byte boundary is refused, not copied. f32 and the varlen
-    entry run the CUDA-core bodies, which take it."""
+    past a 16-byte boundary is refused, not copied, by K1, K1v and K2. f32
+    runs the CUDA-core bodies, which take it."""
     n = 2 * 64 * 64
 
     def view(dtype):
@@ -251,10 +309,8 @@ def test_tensor_core_route_refuses_misaligned_inputs(card):
     with pytest.raises(ValueError, match="aligned"):
         flash_attention_bwd(k, k, v, o, lse, view(torch.bfloat16))
     lens = torch.full((1,), 64, dtype=torch.int32, device=card)
-    got, _ = flash_attention_fwd(q, k, v, True, lens)
-    want, _ = flash_attention_reference(q, k, v, True)
-    torch.cuda.synchronize()
-    assert (got.float() - want.float()).abs().max().item() < 2e-2
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_fwd(q, k, v, True, lens)
     q32, k32, v32 = view(torch.float32), k.float(), v.float()
     got, _ = flash_attention_fwd(q32, k32, v32)
     want, _ = flash_attention_reference(q32, k32, v32)
