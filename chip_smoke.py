@@ -20,12 +20,10 @@ Phases (any failure exits non-zero; nothing is caught):
      inputs, and timed (CUDA events, median of 30 after warm-up, device
      time only) beside the plain version, one PyTorch library call as a
      yardstick where one computes the same function, and the card's bound
-     for the work; K2 dQ and dK/dV, whose bf16 kernels run tensor-core
-     bodies, also beside the CUDA-core body they replaced on the same
-     inputs (`replaced_ms`, through the varlen entry with every kv length
-     = S, which keeps the CUDA-core bodies); K1 (also at TRAIN's shape)
-     beside the same forced-mask varlen call (`varlen_full_ms`: K1v's
-     masking cost, both on tensor cores). The quantized
+     for the work; K1 (also at TRAIN's shape) and K2 dQ and dK/dV
+     beside the same call through the varlen entry with every kv length
+     = S (`varlen_full_ms`: K1v's and K2v's forced per-element masks, on
+     the same tensor-core bodies). The quantized
      paged-decode kernels read caches written by the port's own
      int8/int4 prefill scatters;
   4. serve: LLaMA at the 1B geometry (hidden 2048, 20 layers, 16 heads,
@@ -258,9 +256,8 @@ def _nvidia_smi():
 
 def _full_lens(b, s):
     """kv_lens = S for every batch row: the varlen entries then do K1's and
-    K2's work, the backward on the CUDA-core bodies that bf16 K2 ran before
-    its tensor-core redesign (`replaced_ms`), the forward on K1's
-    tensor-core body with every tile masked (`varlen_full_ms`)."""
+    K2's work on the same tensor-core bodies with every visited tile
+    masked per element (`varlen_full_ms`)."""
     import torch
 
     return torch.full((b,), s, dtype=torch.int32, device="cuda")
@@ -323,13 +320,14 @@ def _rel_errs(got, want):
     return max(errs), rels
 
 
-def _bwd_records(rec, cases, args, reads, pairs, d, library, replaced=()):
+def _bwd_records(rec, cases, args, reads, pairs, d, library,
+                 varlen_full=()):
     """Hold each backward kernel of `cases` ((key, launch, plain, wrt,
     products, writes)) against its plain version on `args` (one bf16 ulp
     of each output's largest |value|), time both, and add its record under
     `key` in `rec`, beside `library(wrt)`, the bound of its products over
-    `pairs` and its bytes (`reads` + writes), and `replaced[key]()`'s time
-    (`replaced_ms`) where `replaced` has the key."""
+    `pairs` and its bytes (`reads` + writes), and `varlen_full[key]()`'s
+    time (`varlen_full_ms`) where `varlen_full` has the key."""
     for key, launch, plain, wrt, products, writes in cases:
         got, want = launch(*args), plain(*args)
         got, want = (got, want) if key == "dkv" else ((got,), (want,))
@@ -342,8 +340,8 @@ def _bwd_records(rec, cases, args, reads, pairs, d, library, replaced=()):
             "plain_ms": _time_ms(lambda: plain(*args)),
             "library_ms": _time_ms(lambda: library(wrt)),
             "bound_ms": bound, "bound_by": by}
-        if key in replaced:
-            rec[key]["replaced_ms"] = _time_ms(replaced[key])
+        if key in varlen_full:
+            rec[key]["varlen_full_ms"] = _time_ms(varlen_full[key])
 
 
 def flash_bwd_case(b, hq, hkv, s, d=128, causal=True):
@@ -356,8 +354,9 @@ def flash_bwd_case(b, hq, hkv, s, d=128, causal=True):
     dS^T Q) and the bytes it moves. "whole" is the wrapper (delta, then
     both kernels) against the plain backward and SDPA's full backward,
     with the bound of the five products the backward needs. Each
-    kernel's record also times the CUDA-core body its tensor-core body
-    replaced (`replaced_ms`)."""
+    kernel's record also times the same call through its varlen entry with
+    every length = S (`varlen_full_ms`: K2v's forced masks on the same
+    tensor-core body)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.flash_attention import (
@@ -1905,7 +1904,8 @@ TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
 
 def tc_usage():
     """PTXAS: registers, stack and spills of the tensor-core kernels (bf16
-    K1/K1v, K2 dQ and K2 dK/dV at each padded head dim), from the build's
+    K1/K1v, K2/K2v dQ and K2/K2v dK/dV at each padded head dim; the
+    varlen entries instantiate the same kernels), from the build's
     `-Xptxas -v` output, and any ptxas line on their wgmma pipeline (a
     serialized pipeline is slow, not wrong). Their accumulators live in
     registers: none may spill."""
@@ -2067,7 +2067,7 @@ def main():
             "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",
             "launches": counts_train[kname],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-            "replaced_ms": rec["replaced_ms"],
+            "varlen_full_ms": rec["varlen_full_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     # K3-K5 at the train step's shapes, one row per case; launches are the
@@ -2125,7 +2125,7 @@ def main():
                 "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",
                 "launches": cnt[kname],
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-                "replaced_ms": rec["replaced_ms"],
+                "varlen_full_ms": rec["varlen_full_ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"]})
@@ -2134,10 +2134,10 @@ def main():
             (varlen["fwd"], "flash_attention_fwd.cu", 104, counts_varlen,
              TC_BODY),
             (varlen["bwd"]["dq"] | {"name": "flash_attention_varlen_bwd_dq"},
-             "flash_attention_bwd.cu", 263, counts_varlen, CORE_BODY),
+             "flash_attention_bwd.cu", 263, counts_varlen, TC_BODY),
             (varlen["bwd"]["dkv"]
              | {"name": "flash_attention_varlen_bwd_dkv"},
-             "flash_attention_bwd.cu", 314, counts_varlen, CORE_BODY),
+             "flash_attention_bwd.cu", 314, counts_varlen, TC_BODY),
             (fm["fwd"], "flashmask_attention.cu", 856, counts_fm, CORE_BODY),
             (fm["bwd"]["dq"] | {"name": "flashmask_bwd_dq"},
              "flashmask_attention.cu", 1017, counts_fm, CORE_BODY),

@@ -1,6 +1,7 @@
 // Flash-attention backward for Hopper (sm_90a), bf16 or f32 in and out,
 // f32 accumulation: dQ in one kernel, dK and dV in another. Four entry
-// points over two kernel bodies (flash_attention_tiles.cuh):
+// points over two kernel bodies in each dtype (bf16: flash_attention_tc.cuh;
+// f32: flash_attention_tiles.cuh):
 //  * flash_attention_bwd_dq / flash_attention_bwd_dkv (K2), non-varlen;
 //  * flash_attention_varlen_bwd_dq / flash_attention_varlen_bwd_dkv (K2v):
 //    the same with per-batch kv lengths.
@@ -42,19 +43,23 @@
 // entirely above the causal diagonal are never visited; the heaviest
 // causal tiles are launched first.
 //
-// Routing is static, by dtype and entry, with no fallback:
-//  * bf16 K2 runs the tensor-core bodies (flash_attention_tc.cuh), both
-//    with two warpgroups of 64 rows and TMA loads through a 2-stage ring
-//    one visited tile ahead of the math. dQ: 128 q rows per block, Q and
-//    dO held, K and V tiles streamed on their own barriers; S, dP and
+// Routing is static, by dtype, with no fallback:
+//  * bf16 K2 and K2v run the tensor-core bodies (flash_attention_tc.cuh),
+//    both with two warpgroups of 64 rows and TMA loads through a 2-stage
+//    ring one visited tile ahead of the math. dQ: 128 q rows per block, Q
+//    and dO held, K and V tiles streamed on their own barriers; S, dP and
 //    dQ += dS K on wgmma, dS passing from accumulator to A operand in
 //    registers, lse and delta in registers. dK/dV: 128 kv rows per block,
 //    K and V held, Q and dO (with lse and delta) streamed; S^T, dP^T, dV
-//    and dK on wgmma. They take D a multiple of 8 (the caller pads) and
-//    16-byte-aligned inputs; anything else returns cudaErrorInvalidValue;
-//  * f32 K2 and every K2v entry run the CUDA-core bodies
-//    (flash_attention_tiles.cuh: plain f32 FMAs, S and dP recomputed in
-//    both kernels; f32 is exact like the reference's f32 dots).
+//    and dK on wgmma. K2v reads its batch row's length in the mask policy:
+//    dQ stops at the length, a dK/dV block past it visits no q tile and
+//    writes zeros, and every visited tile masks per element (the
+//    reference's force_masked=has_lens). They take D a multiple of 8 (the
+//    caller pads), 16-byte-aligned inputs and an lse/delta row stride that
+//    is a multiple of 4 floats; anything else returns cudaErrorInvalidValue;
+//  * f32 K2 and K2v run the CUDA-core bodies (flash_attention_tiles.cuh:
+//    plain f32 FMAs, S and dP recomputed in both kernels; exact f32 like
+//    the reference's f32 dots).
 // Interior tiles of K2 skip the per-element mask; K2v masks every tile it
 // visits.
 #include "flash_attention_tc.cuh"
@@ -68,14 +73,10 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b == 0 || sq == 0) return 0;
   const LenCausalMask::Args margs{kv_lens, causal};
-  if (dtype == 1 && kv_lens == nullptr)
+  if (dtype == 1)
     return launch_bwd_dq_tc<LenCausalMask>(q, k, v, dout, lse, delta, dq,
                                            margs, b, hq, hkv, sq, sk, d,
                                            scale, st);
-  if (dtype == 1)
-    return launch_bwd_dq<__nv_bfloat16, LenCausalMask>(
-        q, k, v, dout, lse, delta, dq, margs, b, hq, hkv, sq, sk, d, scale,
-        st);
   return launch_bwd_dq<float, LenCausalMask>(
       q, k, v, dout, lse, delta, dq, margs, b, hq, hkv, sq, sk, d, scale, st);
 }
@@ -88,14 +89,10 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b == 0 || sk == 0) return 0;
   const LenCausalMask::Args margs{kv_lens, causal};
-  if (dtype == 1 && kv_lens == nullptr)
+  if (dtype == 1)
     return launch_bwd_dkv_tc<LenCausalMask>(q, k, v, dout, lse, delta, dk,
                                             dv, margs, b, hq, hkv, sq, sk, d,
                                             ls_stride, scale, st);
-  if (dtype == 1)
-    return launch_bwd_dkv<__nv_bfloat16, LenCausalMask>(
-        q, k, v, dout, lse, delta, dk, dv, margs, b, hq, hkv, sq, sk, d,
-        scale, st);
   return launch_bwd_dkv<float, LenCausalMask>(
       q, k, v, dout, lse, delta, dk, dv, margs, b, hq, hkv, sq, sk, d, scale,
       st);
@@ -105,8 +102,9 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 // dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError()
 // (0 = ok); the caller has checked shapes, dtypes, contiguity and
-// d <= 128. bf16 dK/dV reads lse and delta by TMA as rows `ls_stride`
-// floats apart (a multiple of 4, >= Sq; the f32 body takes Sq).
+// d <= 128. bf16 dK/dV (K2 and K2v) reads lse and delta by TMA as rows
+// `ls_stride` floats apart (a multiple of 4, >= Sq; the f32 body takes
+// Sq).
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
@@ -143,8 +141,8 @@ extern "C" int flash_attention_varlen_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv,
     const void* kv_lens, int b, int hq, int hkv, int sq, int sk, int d,
-    int causal, int dtype, float scale, void* stream) {
+    int causal, int dtype, int ls_stride, float scale, void* stream) {
   return bwd_dkv(q, k, v, dout, lse, delta, dk, dv,
                  static_cast<const int*>(kv_lens), b, hq, hkv, sq, sk, d,
-                 causal, dtype, sq, scale, stream);
+                 causal, dtype, ls_stride, scale, stream);
 }

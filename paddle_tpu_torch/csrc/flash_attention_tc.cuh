@@ -1,11 +1,10 @@
 // Tensor-core tile bodies for bf16 flash attention on Hopper (sm_90a): the
 // forward (K1 and K1v, included by flash_attention_fwd.cu), the dQ kernel
-// and the dK/dV kernel (K2, included by flash_attention_bwd.cu), each a
-// template over the padded head dim (64 or 128) and a mask policy of
-// flash_attention_tiles.cuh (the same `kind` / `visible` / `col_info`
-// interface the CUDA-core bodies use). The f32 kernels, the varlen
-// backward entries (K2v) and K9 keep the CUDA-core bodies of
-// flash_attention_tiles.cuh.
+// and the dK/dV kernel (K2 and K2v, included by flash_attention_bwd.cu),
+// each a template over the padded head dim (64 or 128) and a mask policy
+// of flash_attention_tiles.cuh (the same `kind` / `visible` / `col_info`
+// interface the CUDA-core bodies use). The f32 kernels and K9 keep the
+// CUDA-core bodies of flash_attention_tiles.cuh.
 //
 // Block layout (all three kernels): two warpgroups of 128 threads, each
 // owning 64 rows of the block's 128. Every load is a TMA copy into 128-
@@ -38,7 +37,8 @@
 //    whose B is the same K tile read MN-major (a second descriptor over
 //    it, as V is read in P V). dQ stays in f32 registers: no atomics, the
 //    same bits on every run. A stage's V is released after dP, its K after
-//    dS K.
+//    dS K. With kv_lens (K2v) the last kv tile is the one holding the
+//    length; a length of 0 visits none and writes dQ = 0.
 //  * dK/dV: one block per (128 kv rows, kv head, batch). K and V are loaded
 //    once and stay; Q and dO tiles of 64 q rows, with their lse and delta
 //    rows, stream through the ring, over every q head of the GQA group and
@@ -47,7 +47,9 @@
 //    A-fragment layout of dV += P^T dO and dK += dS^T Q, which take them
 //    from registers as bf16. dK and dV stay in f32 registers for the whole
 //    block: no atomics, the same bits on every run, zeros for kv rows no q
-//    row sees.
+//    row sees. With kv_lens (K2v) a block that starts at or past its batch
+//    row's length visits no q tile; every q head of the GQA group shares
+//    that length.
 // Masks: `Mask::kind` per (64-row tile, 64-column tile); `visible` per
 // accumulator element of masked tiles only. A warpgroup whose tile is
 // skipped still waits for and releases the stage, so the ring stays in

@@ -2,9 +2,9 @@
 // (flash_attention_fwd.cu), K2/K2v (flash_attention_bwd.cu) and K9
 // (flashmask_attention.cu): the forward, the dQ kernel and the dK/dV
 // kernel, each a template over the element type and a mask policy. They
-// run f32 inputs, the varlen backward entries (K2v) and K9; bf16 K1, K1v
-// and both K2 kernels run the tensor-core bodies of flash_attention_tc.cuh
-// over the same mask policies. The source files that include this header hold what each
+// run f32 inputs and K9; bf16 K1, K1v and the K2 and K2v kernels run the
+// tensor-core bodies of flash_attention_tc.cuh over the same mask
+// policies. The source files that include this header hold what each
 // kernel replaces, what bounds it on the H100, and its C entry points.
 //
 // Tiling (all three kernels). 64-row q tiles and 64-row kv tiles, f32 in

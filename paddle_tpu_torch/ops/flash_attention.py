@@ -10,7 +10,8 @@ through `_flash_forward_x32`, K1), the backward (`_bwd_dq_kernel` and
 `flash_attention_varlen_raw` calls is `FlashAttentionVarlen` /
 `flash_attention_varlen_raw` here). The kernels live in
 csrc/flash_attention_fwd.cu and csrc/flash_attention_bwd.cu (their tile
-bodies in csrc/flash_attention_tiles.cuh); their source notes say what
+bodies in csrc/flash_attention_tc.cuh for bf16 and
+csrc/flash_attention_tiles.cuh for f32); their source notes say what
 bounds them on the H100 and how their designs answer that.
 
 Layout is the reference's [B, H, S, D]. K/V may carry fewer heads than Q
@@ -25,12 +26,11 @@ gradients.
 
 Routing: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises. There is no fallback. On the card the C entries route
-statically, by dtype and entry (`_tensor_core_route`):
+statically, by dtype (`_tensor_core_route`):
 
     entry                  bf16                     f32
     forward (K1, K1v)      tensor cores             CUDA cores
-    dQ, dK/dV (K2)         tensor cores             CUDA cores
-    dQ, dK/dV (K2v)        CUDA cores               CUDA cores
+    dQ, dK/dV (K2, K2v)    tensor cores             CUDA cores
 
 The tensor-core bodies (csrc/flash_attention_tc.cuh) read Q, K, V and dO
 by TMA, so they need 16-byte-aligned tensors (`ValueError` otherwise;
@@ -269,10 +269,11 @@ def _entry(name, kv_lens):
 
 def _tensor_core_route(name, dtype, varlen):
     """Whether the C entry of kernel `name` (its varlen form when `varlen`)
-    runs a tensor-core body on `dtype` inputs: bf16 forwards (K1, K1v) and
-    bf16 non-varlen backward kernels (K2 dQ, K2 dK/dV). f32 and the varlen
-    backward kernels (K2v) run the CUDA-core bodies."""
-    return dtype == torch.bfloat16 and (name == _NAME or not varlen)
+    runs a tensor-core body on `dtype` inputs: every bf16 entry (K1, K1v,
+    K2 and K2v dQ and dK/dV) does; f32 runs the CUDA-core bodies. The
+    route depends on the dtype alone; `name` and `varlen` are kept so that
+    each caller states which entry it asks about."""
+    return dtype == torch.bfloat16
 
 
 def _check_aligned(name, *tensors):
@@ -411,24 +412,27 @@ def _launch_bwd_dq(q, k, v, do, lse, delta, causal, kv_lens=None,
     return dq
 
 
+def pad_rows(rows, to_multiple):
+    """(rows [..., Sq] padded with zero columns to a stride that is the next
+    multiple of `to_multiple`, that stride)."""
+    sq = rows.shape[-1]
+    stride = ceil_to(sq, to_multiple)
+    if stride == sq:
+        return rows, stride
+    return torch.nn.functional.pad(rows, (0, stride - sq)), stride
+
+
 def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, kv_lens=None,
                     scale=None):
     """(dK, dV) by the K2 dK/dV kernel (K2v's with kv_lens; plain version
     `flash_attention_bwd_dkv_reference`). Takes only the CUDA tensors
     `flash_attention_bwd` has checked (delta f32 [B, Hq, Sq])."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if kv_lens is not None:
-        _launch(_BWD_DKV, kv_lens, (q, k, v, do, lse, delta, dk, dv), q, k,
-                causal, softmax_scale(q.shape[3], scale))
-        return dk, dv
     # the tensor-core body reads lse and delta rows by TMA, whose row
     # stride is a multiple of 16 bytes: pad Sq to a multiple of 4 floats
-    sq = q.shape[2]
-    stride = ceil_to(sq, 4) if _tensor_core_route(_BWD_DKV, q.dtype,
-                                                  False) else sq
-    if stride != sq:
-        lse, delta = (torch.nn.functional.pad(t, (0, stride - sq))
-                      for t in (lse, delta))
+    tc = _tensor_core_route(_BWD_DKV, q.dtype, kv_lens is not None)
+    (lse, stride), (delta, _) = (pad_rows(t, 4 if tc else 1)
+                                 for t in (lse, delta))
     _launch(_BWD_DKV, kv_lens, (q, k, v, do, lse, delta, dk, dv), q, k,
             causal, softmax_scale(q.shape[3], scale),
             tma=(q, k, v, do, lse, delta), ints=(stride,))

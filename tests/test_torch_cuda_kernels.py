@@ -289,6 +289,85 @@ def test_bf16_tensor_core_varlen_forward_matches_plain(card, hq, hkv, s, d,
             assert (o[i] == 0).all() and (lse[i] == -1e30).all()
 
 
+#: K2v on the tensor-core backward: S off multiples of 64 and 128 and
+#: VARLEN's bucket, lengths of 0, inside one tile, on a tile edge, across
+#: one and the whole row (clipped to S), MHA and GQA 8:2, D 64, 100
+#: (through the wrapper's padding to 104) and 128; S 130 non-causal
+TC_VARLEN_BWD_CASES = [(s, hq, hkv, d) for s in (70, 130, 2048)
+                       for hq, hkv in ((8, 8), (8, 2)) for d in (64, 100, 128)]
+TC_VARLEN_BWD_IDS = [f"s{s}-{'mha' if hq == hkv else 'gqa'}-d{d}"
+                     for s, hq, hkv, d in TC_VARLEN_BWD_CASES]
+K2V = ("flash_attention_varlen_fwd", "flash_attention_varlen_bwd_dq",
+       "flash_attention_varlen_bwd_dkv")
+
+
+def _bf16_varlen_case(card, hq, hkv, s, d, seed):
+    lens = [min(n, s) for n in (0, 33, 64, 129, s)]
+    q, k, v, do = _bf16_case(card, len(lens), hq, hkv, s, s, d, seed)
+    return q, k, v, do, torch.tensor(lens, dtype=torch.int32, device=card)
+
+
+@pytest.mark.parametrize("s,hq,hkv,d", TC_VARLEN_BWD_CASES,
+                         ids=TC_VARLEN_BWD_IDS)
+def test_bf16_tensor_core_varlen_backward_matches_plain(card, s, hq, hkv, d):
+    """K2v's tensor-core dQ and dK/dV, through the wrapper (its head-dim
+    and lse/delta row padding), against the plain backward on every row:
+    one bf16 ulp (2^-7) of each gradient's largest |value|; dK and dV past
+    each length exactly 0, and a length of 0 gives dQ = 0. One launch of
+    each varlen entry (K1v, then K2v), none of K1 or K2."""
+    causal = s != 130
+    q, k, v, do, kv_lens = _bf16_varlen_case(card, hq, hkv, s, d, 24)
+    _cuda_common.reset_launch_counts()
+    o, lse = flash_attention_fwd(q, k, v, causal, kv_lens)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal, kv_lens)
+    torch.cuda.synchronize()
+    assert _launched() == dict.fromkeys(K2V, 1)
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, causal,
+                                         kv_lens)
+    for name, g, w, ref in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert g.dtype == torch.bfloat16 and g.shape == ref.shape
+        assert torch.isfinite(g.float()).all()
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= 2 ** -7 * w.float().abs().max().item(), (name, err)
+    for i, n in enumerate(kv_lens.tolist()):
+        assert not got[1][i, :, n:].any() and not got[2][i, :, n:].any()
+        if n == 0:
+            assert not got[0][i].any()
+
+
+def test_bf16_varlen_backward_repeats_bit_for_bit(card):
+    """K2v's dQ and dK/dV sum in registers in a fixed order (no atomics):
+    two launches on the same GQA inputs with ragged lengths give the same
+    bits."""
+    q, k, v, do, kv_lens = _bf16_varlen_case(card, 16, 4, 1000, 128, 25)
+    o, lse = flash_attention_fwd(q, k, v, True, kv_lens)
+    args = (q, k, v, do, lse, _bwd_delta(o, do), True, kv_lens)
+    assert torch.equal(_launch_bwd_dq(*args), _launch_bwd_dq(*args))
+    first, second = _launch_bwd_dkv(*args), _launch_bwd_dkv(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_bf16_varlen_backward_refuses_misaligned_inputs(card):
+    """K2v's bf16 dQ and dK/dV read by TMA: a dO that starts 2 bytes past
+    a 16-byte boundary is refused, not copied, and nothing launches."""
+    k, v = (torch.randn(1, 2, 64, 64, device=card, dtype=torch.bfloat16)
+            for _ in range(2))
+    lens = torch.full((1,), 40, dtype=torch.int32, device=card)
+    o, lse = flash_attention_fwd(k, k, v, True, lens)
+    do = torch.randn(2 * 64 * 64 + 1, device=card,
+                     dtype=torch.bfloat16)[1:].view(1, 2, 64, 64)
+    assert do.is_contiguous() and do.data_ptr() % 16
+    _cuda_common.reset_launch_counts()
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_bwd(k, k, v, o, lse, do, True, lens)
+    args = (k, k, v, do, lse, _bwd_delta(o, do), True, lens)
+    with pytest.raises(ValueError, match="aligned"):
+        _launch_bwd_dq(*args)
+    with pytest.raises(ValueError, match="aligned"):
+        _launch_bwd_dkv(*args)
+    assert _launched() == {}
+
+
 def test_tensor_core_route_refuses_misaligned_inputs(card):
     """The bf16 bodies read by TMA: a contiguous view that starts 2 bytes
     past a 16-byte boundary is refused, not copied, by K1, K1v and K2. f32
