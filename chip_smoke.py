@@ -7,9 +7,11 @@ path, end to end, through its hand-written kernels.
 Phases (any failure exits non-zero; nothing is caught):
   1. environment: the card's name and power limit;
   2. build: every CUDA kernel of the port, from the sources in the
-     checkout (nvcc, sm_90a, one process per source, in parallel), then
-     the tensor-core kernels' registers and spills from ptxas (none may
-     spill);
+     checkout (nvcc, sm_90a, one process per source, in parallel), and
+     beside them a yardstick library of the CUDA-core bodies bf16 K9's
+     forward and dK/dV ran before they moved onto the tensor cores
+     (REPLACED_K9_SRC); then the tensor-core kernels' registers and
+     spills from ptxas (K1/K2's and K9's; none may spill);
   3. kernels: each kernel at the main path's shapes (bf16; the int4
      dequant-matmul also at the f32 lm_head shape; the fused norm, rotary
      and SwiGLU kernels at the train step's shapes and dtypes, and at a
@@ -25,7 +27,10 @@ Phases (any failure exits non-zero; nothing is caught):
      = S (`varlen_full_ms`: K1v's and K2v's forced per-element masks, on
      the same tensor-core bodies). The quantized
      paged-decode kernels read caches written by the port's own
-     int8/int4 prefill scatters;
+     int8/int4 prefill scatters. Beyond the main paths' shapes: K1 and
+     K2 at head dim 256 (B1 H16 S1024 causal, the CUDA-core bodies), K7
+     and K7q-int8 at GQA group 3 (48 query heads over 16) and at head
+     dim 256, and K3 RMS at 4096 x 16384 (the backward's wide path);
   4. serve: LLaMA at the 1B geometry (hidden 2048, 20 layers, 16 heads,
      vocab 32000, bf16, random weights from seed 0) behind the paged
      ServingEngine (8 slots, 16-token blocks) answers 16 greedy requests;
@@ -77,7 +82,8 @@ Phases (any failure exits non-zero; nothing is caught):
  13. kernels of the last slice: K1v and K2v at the VARLEN batch, K9 at the
      FLASHMASK window and at S 4100 with random start rows, each against
      its plain version and timed as in phase 3, SDPA with the equivalent
-     boolean mask as the yardstick;
+     boolean mask as the yardstick, and K9's forward and dK/dV beside
+     the bodies they replaced on the same inputs (`replaced_ms`);
  14. varlen: `flash_attn_unpadded` on 16 packed causal sequences of
      64..2048 tokens (np.random.RandomState(0); bucket 2048), LLaMA-1B's
      heads (16 x 128, bf16), forward and backward with loss = sum(out^2):
@@ -96,7 +102,9 @@ The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Without a CUDA card it exits 1 and prints
 no result.
 """
+import ctypes
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -270,7 +278,7 @@ def flash_case(b, hq, hkv, s, d=128, causal=True):
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.flash_attention import (
-        flash_attention_fwd, flash_attention_reference)
+        _tensor_core_route, flash_attention_fwd, flash_attention_reference)
 
     g = torch.Generator(device="cuda").manual_seed(s)
     q = torch.randn(b, hq, s, d, device="cuda", generator=g,
@@ -291,8 +299,10 @@ def flash_case(b, hq, hkv, s, d=128, causal=True):
     full = _full_lens(b, s)
     nbytes = 2 * (2 * b * hq * s * d + 2 * b * hkv * s * d) + 4 * b * hq * s
     bound, by = _bound_ms(flops, nbytes)
+    body = TC_BODY if _tensor_core_route("flash_attention_fwd", q.dtype,
+                                         False, d) else CORE_BODY
     rec = {"name": "flash_attention_fwd", "shape": [b, hq, hkv, s, d],
-           "causal": causal, "body": TC_BODY, "max_abs_err": err,
+           "causal": causal, "body": body, "max_abs_err": err,
            "lse_max_abs_err": lse_err,
            "ms": _time_ms(lambda: flash_attention_fwd(q, k, v, causal)),
            "varlen_full_ms": _time_ms(lambda: flash_attention_fwd(
@@ -381,7 +391,8 @@ def flash_bwd_case(b, hq, hkv, s, d=128, causal=True):
     # every kernel reads q, dO, k, v (bf16) and lse, delta (f32)
     reads = 2 * q_bytes + 2 * kv_bytes + 2 * 4 * b * hq * s
     rec = {"name": "flash_attention_bwd", "shape": [b, hq, hkv, s, d],
-           "causal": causal, "tol": K2_TOL}
+           "causal": causal, "tol": K2_TOL,
+           "body": TC_BODY if d <= 128 else CORE_BODY}
     _bwd_records(
         rec, (("dq", _launch_bwd_dq, flash_attention_bwd_dq_reference,
                (ql,), 3, q_bytes),
@@ -411,9 +422,11 @@ def flash_bwd_case(b, hq, hkv, s, d=128, causal=True):
     return rec
 
 
-def decode_case(seqs=8, heads=16, d=128, bs=16, max_len=1024):
+def decode_case(seqs=8, heads=16, d=128, bs=16, max_len=1024, kv_heads=None,
+                tag="serve"):
     """Paged decode at the serving shape: 8 sequences, ragged lengths up
-    to the context, tables shuffled over the whole pool. The L2 cache is
+    to the context, tables shuffled over the whole pool, `heads` query
+    heads over `kv_heads` cache heads (default: as many). The L2 cache is
     flushed before each timed launch: in serving, one layer's pool slice
     is evicted by the other 19 layers between two of its decode calls."""
     import torch
@@ -421,11 +434,12 @@ def decode_case(seqs=8, heads=16, d=128, bs=16, max_len=1024):
     from paddle_tpu_torch.ops.paged_decode import (
         paged_decode_attention, paged_decode_attention_reference)
 
+    kv_heads = heads if kv_heads is None else kv_heads
     rs = np.random.RandomState(0)
     pages = max_len // bs
     blocks = 1 + seqs * pages
     g = torch.Generator(device="cuda").manual_seed(1)
-    kc = torch.randn(blocks, heads, bs, d, device="cuda", generator=g,
+    kc = torch.randn(blocks, kv_heads, bs, d, device="cuda", generator=g,
                      dtype=torch.bfloat16)
     vc = torch.randn_like(kc)
     q = torch.randn(seqs, heads, d, device="cuda", generator=g,
@@ -444,8 +458,10 @@ def decode_case(seqs=8, heads=16, d=128, bs=16, max_len=1024):
     # SDPA yardstick over the pages gathered beforehand (the gather is
     # not timed): dense [S, H, T, D] K/V plus a length mask
     t = pages * bs
-    kd = kc[tables.long()].permute(0, 2, 1, 3, 4).reshape(seqs, heads, t, d)
-    vd = vc[tables.long()].permute(0, 2, 1, 3, 4).reshape(seqs, heads, t, d)
+    kd = kc[tables.long()].permute(0, 2, 1, 3, 4).reshape(seqs, kv_heads, t,
+                                                          d)
+    vd = vc[tables.long()].permute(0, 2, 1, 3, 4).reshape(seqs, kv_heads, t,
+                                                          d)
     mask = (torch.arange(t, device="cuda")[None, :]
             < lens[:, None])[:, None, None, :]
     scratch = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
@@ -453,18 +469,19 @@ def decode_case(seqs=8, heads=16, d=128, bs=16, max_len=1024):
     tokens = int(lens_np.sum())
     flops = 4 * tokens * heads * d
     pages_read = int(np.ceil(lens_np / bs).sum())   # table entries used
-    nbytes = 2 * (2 * tokens * heads * d + 2 * seqs * heads * d) \
+    nbytes = 2 * (2 * tokens * kv_heads * d + 2 * seqs * heads * d) \
         + 4 * (pages_read + seqs)
     bound, by = _bound_ms(flops, nbytes)
-    rec = {"name": "paged_decode_attention",
-           "shape": [seqs, heads, heads, d, bs, pages],
+    rec = {"name": "paged_decode_attention", "case": tag,
+           "shape": [seqs, heads, kv_heads, d, bs, pages],
            "lens": lens_np.tolist(), "max_abs_err": err,
            "ms": _time_ms(lambda: paged_decode_attention(
                q, kc, vc, tables, lens), flush),
            "plain_ms": _time_ms(lambda: paged_decode_attention_reference(
                q, kc, vc, tables, lens), flush),
            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
-               q[:, :, None], kd, vd, attn_mask=mask), flush),
+               q[:, :, None], kd, vd, attn_mask=mask,
+               enable_gqa=heads != kv_heads), flush),
            "bound_ms": bound, "bound_by": by}
     _say("KERNEL", rec)
     return rec
@@ -512,7 +529,8 @@ def qmm_case(m, k, n, dtype="bfloat16"):
     return rec
 
 
-def quant_decode_case(fmt, seqs=8, heads=16, d=128, bs=16, max_len=1024):
+def quant_decode_case(fmt, seqs=8, heads=16, d=128, bs=16, max_len=1024,
+                      kv_heads=None, tag="serve"):
     """The int8 or int4 paged decode at decode_case's shapes (same lengths
     and tables), over caches written by the port's own prefill scatter —
     so the per-block scales are the ones serving makes."""
@@ -524,6 +542,7 @@ def quant_decode_case(fmt, seqs=8, heads=16, d=128, bs=16, max_len=1024):
     from paddle_tpu_torch.ops.quantized import int4_unpack
     from paddle_tpu_torch.text import paged_cache
 
+    kv_heads = heads if kv_heads is None else kv_heads
     rs = np.random.RandomState(0)
     pages = max_len // bs
     blocks = 1 + seqs * pages
@@ -532,12 +551,12 @@ def quant_decode_case(fmt, seqs=8, heads=16, d=128, bs=16, max_len=1024):
         seqs, pages).astype("int32")
     tables = torch.from_numpy(tables_np).cuda()
     lens = torch.from_numpy(lens_np).cuda()
-    cache = paged_cache.PagedKVCache(1, blocks, heads, bs, d, fmt, "cuda")
+    cache = paged_cache.PagedKVCache(1, blocks, kv_heads, bs, d, fmt, "cuda")
     scatter = getattr(paged_cache, f"scatter_prefill_{fmt}")
     g = torch.Generator(device="cuda").manual_seed(2)
     for i in range(seqs):
         for c, sc in ((cache.k, cache.k_scale), (cache.v, cache.v_scale)):
-            kv = torch.randn(1, max_len, heads, d, device="cuda",
+            kv = torch.randn(1, max_len, kv_heads, d, device="cuda",
                              generator=g, dtype=torch.bfloat16)
             scatter(c, sc, kv, int(lens_np[i]), tables[i], bs)
     q = torch.randn(seqs, heads, d, device="cuda", generator=g,
@@ -561,7 +580,7 @@ def quant_decode_case(fmt, seqs=8, heads=16, d=128, bs=16, max_len=1024):
             x = int4_unpack(x, bs, axis=-2)
         x = (x.float() * sc[0][tables.long()][:, :, None, None, None])
         return x.to(torch.bfloat16).permute(0, 2, 1, 3, 4).reshape(
-            seqs, heads, t, d)
+            seqs, kv_heads, t, d)
 
     kd, vd = dense(cache.k, cache.k_scale), dense(cache.v, cache.v_scale)
     mask = (torch.arange(t, device="cuda")[None, :]
@@ -571,11 +590,11 @@ def quant_decode_case(fmt, seqs=8, heads=16, d=128, bs=16, max_len=1024):
     tokens = int(lens_np.sum())
     pages_read = int(np.ceil(lens_np / bs).sum())   # table entries used
     elem = 0.5 if int4 else 1.0
-    nbytes = 2 * tokens * heads * d * elem + 2 * (2 * seqs * heads * d) \
+    nbytes = 2 * tokens * kv_heads * d * elem + 2 * (2 * seqs * heads * d) \
         + 4 * (pages_read + seqs) + 2 * 4 * pages_read       # + scales
     bound, by = _bound_ms(4 * tokens * heads * d, nbytes)
-    rec = {"name": KERNEL_NAMES[fmt],
-           "shape": [seqs, heads, heads, d, bs, pages],
+    rec = {"name": KERNEL_NAMES[fmt], "case": tag,
+           "shape": [seqs, heads, kv_heads, d, bs, pages],
            "lens": lens_np.tolist(), "max_abs_err": err,
            "tol": KERNEL_TOL_Q,
            "ms": _time_ms(lambda: paged_decode_attention(
@@ -583,7 +602,8 @@ def quant_decode_case(fmt, seqs=8, heads=16, d=128, bs=16, max_len=1024):
            "plain_ms": _time_ms(lambda: paged_decode_attention_reference(
                *args, kv_int4=int4), flush),
            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
-               q[:, :, None], kd, vd, attn_mask=mask), flush),
+               q[:, :, None], kd, vd, attn_mask=mask,
+               enable_gqa=heads != kv_heads), flush),
            "bound_ms": bound, "bound_by": by}
     _say("KERNEL", rec)
     return rec
@@ -1645,7 +1665,79 @@ def varlen_cases():
     return {"fwd": fwd, "bwd": bwd}
 
 
-def flashmask_cases(s, starts, tag, b=1, h=16, d=128):
+#: the bodies bf16 K9's forward and dK/dV ran before they moved onto the
+#: tensor cores: the CUDA-core forward and dK/dV of
+#: csrc/flash_attention_tiles.cuh at the largest head dim 128 with the
+#: start-row mask (the templates and arguments the parent's
+#: csrc/flashmask_attention.cu instantiated), built from the checkout's
+#: header into a yardstick library of their own. The KERNEL lines time
+#: them beside K9 on the same inputs (`replaced_ms`); the port never
+#: calls them.
+REPLACED_K9_SRC = r"""
+#include "flash_attention_tiles.cuh"
+
+namespace {
+StartRowMask::Args margs(const void* st, const void* lo, const void* hi,
+                         int causal) {
+  return StartRowMask::Args{static_cast<const int*>(st),
+                            static_cast<const int*>(lo),
+                            static_cast<const int*>(hi), causal};
+}
+}  // namespace
+
+extern "C" int replaced_fwd(const void* q, const void* k, const void* v,
+                            void* o, void* lse, const void* st,
+                            const void* lo, const void* hi, int b, int h,
+                            int sq, int sk, int d, int causal,
+                            void* stream) {
+  return launch_fwd<__nv_bfloat16, StartRowMask, kSmallD>(
+      q, k, v, o, lse, margs(st, lo, hi, causal), b, h, h, sq, sk, d,
+      1.0f / sqrtf((float)d), static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int replaced_bwd_dkv(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse,
+                                const void* delta, void* dk, void* dv,
+                                const void* st, const void* lo,
+                                const void* hi, int b, int h, int sq, int sk,
+                                int d, int causal, void* stream) {
+  return launch_bwd_dkv<__nv_bfloat16, StartRowMask, kSmallD>(
+      q, k, v, dout, lse, delta, dk, dv, margs(st, lo, hi, causal), b, h, h,
+      sq, sk, d, 1.0f / sqrtf((float)d), static_cast<cudaStream_t>(stream));
+}
+"""
+
+
+def start_replaced_build():
+    """Start nvcc on REPLACED_K9_SRC (the port's own flags, the csrc
+    headers) beside the kernels' build; returns (process, library)."""
+    from paddle_tpu_torch.ops import _cuda_common
+
+    os.makedirs(_cuda_common.BUILD_DIR, exist_ok=True)
+    src = os.path.join(_cuda_common.BUILD_DIR, "k9_replaced.cu")
+    with open(src, "w") as f:
+        f.write(REPLACED_K9_SRC)
+    lib = os.path.join(_cuda_common.BUILD_DIR, "k9_replaced.so")
+    proc = subprocess.Popen(
+        [_cuda_common._nvcc(), *_cuda_common.NVCC_FLAGS, "-I",
+         _cuda_common.CSRC_DIR, "-o", lib, src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    return proc, lib
+
+
+def replaced_library(proc, lib):
+    """The loaded yardstick library once its build has ended."""
+    log, _ = proc.communicate()
+    assert proc.returncode == 0, log.decode(errors="replace")
+    so = ctypes.CDLL(lib)
+    for fn, n_ptrs in ((so.replaced_fwd, 8), (so.replaced_bwd_dkv, 11)):
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return so
+
+
+def flashmask_cases(s, starts, tag, replaced, b=1, h=16, d=128):
     """K9's three kernels at one shape (bf16, causal) with the start rows
     `starts(s, h)` ([1, h, s] int32): each against its plain version,
     timed beside it, beside SDPA with the equivalent boolean mask
@@ -1653,15 +1745,17 @@ def flashmask_cases(s, starts, tag, b=1, h=16, d=128):
     over the visible pairs these start rows leave (the sum over columns
     j of min(start[j], S) - j) and the bytes of Q, K, V, O (dO, dQ, dK,
     dV), lse, delta and the start rows. The tile bounds are computed
-    once, untimed (the wrapper's prep). Returns {"fwd": rec, "bwd":
-    rec}."""
+    once, untimed (the wrapper's prep). The forward and dK/dV are also
+    timed against the bodies they replaced (`replaced`, the library of
+    `replaced_library`), on the same inputs, each of those held to the
+    plain version too. Returns {"fwd": rec, "bwd": rec}."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.flash_attention import _bwd_delta
     from paddle_tpu_torch.ops.flashmask import (
         _fm_mask, _launch_bwd_dkv, _launch_bwd_dq, _launch_fwd,
         flashmask_attention_reference, flashmask_bwd_dkv_reference,
-        flashmask_bwd_dq_reference, tile_bounds)
+        flashmask_bwd_dq_reference, tensor_core_route, tile_bounds)
 
     g = torch.Generator(device="cuda").manual_seed(s)
     q, k, v, do = (torch.randn(b, h, s, d, device="cuda", generator=g,
@@ -1679,6 +1773,24 @@ def flashmask_cases(s, starts, tag, b=1, h=16, d=128):
     lse_err = (lse - rlse).abs().max().item()
     assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
     assert err < KERNEL_TOL and lse_err < 1e-3, (err, lse_err)
+    stream = torch.cuda.current_stream().cuda_stream
+    mask_ptrs = (start.data_ptr(), smin.data_ptr(), smax.data_ptr())
+
+    def replaced_fwd():
+        o_ = torch.empty_like(q)
+        lse_ = torch.empty(q.shape[:3], dtype=torch.float32, device="cuda")
+        code = replaced.replaced_fwd(q.data_ptr(), k.data_ptr(),
+                                     v.data_ptr(), o_.data_ptr(),
+                                     lse_.data_ptr(), *mask_ptrs, b, h, s, s,
+                                     d, 1, stream)
+        assert code == 0, code
+        return o_, lse_
+
+    def body(name):
+        return TC_BODY if tensor_core_route(name, q.dtype, d) else CORE_BODY
+
+    rep_err = (replaced_fwd()[0].float() - ro.float()).abs().max().item()
+    assert rep_err < KERNEL_TOL, rep_err
     del ro, rlse
     q_bytes = kv_bytes = 2 * b * h * s * d
     st_bytes = 4 * b * h * s
@@ -1687,8 +1799,10 @@ def flashmask_cases(s, starts, tag, b=1, h=16, d=128):
     fwd = {"name": "flashmask_fwd", "case": tag, "shape": [b, h, s, d],
            "causal": True, "visible_pairs": pairs,
            "causal_pairs": b * h * s * (s + 1) // 2,
+           "body": body("flashmask_fwd"), "replaced_body": CORE_BODY,
            "max_abs_err": err, "lse_max_abs_err": lse_err,
            "ms": _time_ms(lambda: _launch_fwd(q, k, v, *fm)),
+           "replaced_ms": _time_ms(replaced_fwd),
            "plain_ms": _time_ms(lambda: flashmask_attention_reference(
                q, k, v, start, True)),
            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
@@ -1716,11 +1830,27 @@ def flashmask_cases(s, starts, tag, b=1, h=16, d=128):
         return flashmask_bwd_dkv_reference(q_, k_, v_, do_, lse_, delta_,
                                            start, causal)
 
+    def replaced_dkv():
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        code = replaced.replaced_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *mask_ptrs, b, h, s, s, d, 1, stream)
+        assert code == 0, code
+        return dk, dv
+
     _bwd_records(
         bwd, (("dq", fm_dq, plain_dq, (ql,), 3, q_bytes),
               ("dkv", fm_dkv, plain_dkv, (kl, vl), 4, 2 * kv_bytes)),
         (q, k, v, do, lse, delta, True), reads, pairs, d,
         lambda wrt: torch.autograd.grad(out, wrt, do, retain_graph=True))
+    _, rels = _rel_errs(replaced_dkv(), plain_dkv(q, k, v, do, lse, delta,
+                                                  True))
+    assert max(rels) <= K2_TOL, ("replaced dkv", rels)
+    bwd["dq"]["body"] = body("flashmask_bwd_dq")
+    bwd["dkv"] |= {"body": body("flashmask_bwd_dkv"),
+                   "replaced_body": CORE_BODY,
+                   "replaced_ms": _time_ms(replaced_dkv)}
     _say("KERNEL", bwd)
     return {"fwd": fwd, "bwd": bwd}
 
@@ -1897,33 +2027,44 @@ def flashmask_phase():
     return counts
 
 
-#: the tensor-core kernels, each built at padded head dims 64 and 128
+#: the tensor-core kernels, each built at padded head dims 64 and 128:
+#: with LenCausalMask (K1/K1v, K2/K2v) all three, with StartRowMask (K9)
+#: the forward and dK/dV
 TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
               "flash_bwd_dkv_tc_kernel")
+TC_SOURCES = {"csrc/flash_attention_fwd.cu": 2,
+              "csrc/flash_attention_bwd.cu": 4,
+              "csrc/flashmask_attention.cu": 4}
 
 
 def tc_usage():
     """PTXAS: registers, stack and spills of the tensor-core kernels (bf16
     K1/K1v, K2/K2v dQ and K2/K2v dK/dV at each padded head dim; the
-    varlen entries instantiate the same kernels), from the build's
-    `-Xptxas -v` output, and any ptxas line on their wgmma pipeline (a
-    serialized pipeline is slow, not wrong). Their accumulators live in
-    registers: none may spill."""
+    varlen entries instantiate the same kernels; K9's forward and dK/dV
+    at each padded head dim), from the build's `-Xptxas -v` output, and
+    any ptxas line on their wgmma pipeline (a serialized pipeline is
+    slow, not wrong). Their accumulators live in registers: none may
+    spill, and each source holds the count of TC_SOURCES."""
     from paddle_tpu_torch.ops import _cuda_common
 
     usage, notes = {}, []
-    for rel in ("csrc/flash_attention_fwd.cu", "csrc/flash_attention_bwd.cu"):
+    for rel, want in TC_SOURCES.items():
+        found = 0
         for name, use in _cuda_common.ptxas_usage(rel).items():
             for kernel in TC_KERNELS:
                 if kernel in name:
                     dp = 64 if "ILi64E" in name else 128
-                    usage[f"{kernel}<{dp}>"] = use
+                    mask = "StartRowMask" if "StartRowMask" in name \
+                        else "LenCausalMask"
+                    usage[f"{kernel}<{dp}, {mask}>"] = use
+                    found += 1
+        assert found == want, (rel, found)
         with open(f"{_cuda_common._lib_path(rel)}.log") as f:
             notes += [ln.strip() for ln in f if "wgmma" in ln]
     _say("PTXAS", usage)
     if notes:
         _say("PTXAS_WGMMA", notes)
-    assert len(usage) == 2 * len(TC_KERNELS), usage
+    assert len(usage) == sum(TC_SOURCES.values()), usage
     spilled = {k: u for k, u in usage.items()
                if u.get("spill_stores") or u.get("spill_loads")
                or u.get("stack")}
@@ -1945,10 +2086,14 @@ def main():
     print(smi, flush=True)
 
     t0 = time.perf_counter()
+    replaced_build = start_replaced_build()
     _cuda_common.build_kernels()
+    replaced = replaced_library(*replaced_build)
     _say("BUILD", {"seconds": time.perf_counter() - t0,
                    "kernels": sorted(_cuda_common.KERNEL_SOURCES)})
     tc_usage()
+    phases = {"build": time.perf_counter() - t0}
+    t0 = time.perf_counter()
 
     flash = [flash_case(1, 16, 16, s) for s in (128, 500, 512, 1024)]
     flash.append(flash_case(1, 16, 4, 512))
@@ -1989,6 +2134,20 @@ def main():
     bwd64 = {"gpt": flash_bwd_case(GPT_BATCH, 16, 16, GPT_SEQ, 64),
              "bert": flash_bwd_case(BERT_BATCH, 12, 12, BERT_SEQ, 64,
                                     causal=False)}
+    # shapes the reference's kernels take beyond the main paths': K1/K2 at
+    # head dim 256 (B1 H16 S1024 causal, the CUDA-core bodies), K7 / K7q-
+    # int8 at GQA group 3 (48 query heads over 16) and at head dim 256,
+    # and K3 RMS at hidden 16384 (the backward's wide path)
+    flash256 = flash_case(1, 16, 16, 1024, 256)
+    bwd256 = flash_bwd_case(1, 16, 16, 1024, 256)
+    dec_wide = {"group 3": decode_case(heads=48, kv_heads=16, tag="group 3"),
+                "d256": decode_case(d=256, tag="d256")}
+    dec_q_wide = {tag: quant_decode_case("int8", tag=tag, **kw)
+                  for tag, kw in (("group 3", {"heads": 48, "kv_heads": 16}),
+                                  ("d256", {"d": 256}))}
+    norm_wide = fused_norm_cases(4096, 16384, "wide")
+    phases["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     model, counts = serve()
     profile_decode(model)
     counts_q4 = serve_quant(model, "int4", "int4", 16, "SERVE_Q4")
@@ -1997,6 +2156,8 @@ def main():
                    kv_cache_dtype="int4")
     del model                     # the serving weights; TRAIN builds its own
     torch.cuda.empty_cache()
+    phases["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     tmodel, opt, ids, counts_train = train()
     profile_train(lambda: _train_step(tmodel, opt, ids, ids))
     train_unfused(tmodel, opt, ids)
@@ -2004,6 +2165,8 @@ def main():
         assert all(cnt[n] == 0 for n in LN_DROPOUT_KERNELS), cnt
     del tmodel, opt, ids
     torch.cuda.empty_cache()
+    phases["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     counts_gpt = train_gpt()
     torch.cuda.empty_cache()
     counts_bert = train_bert()
@@ -2011,18 +2174,22 @@ def main():
                 counts_bert):
         assert all(cnt[n] == 0 for n in VARLEN_KERNELS + FM_KERNELS), cnt
     torch.cuda.empty_cache()
+    phases["train_gpt_bert"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     # K1v/K2v at the VARLEN batch; K9 at the FLASHMASK window and at a
     # ragged S with random start rows (straddling tiles everywhere)
     varlen = varlen_cases()
-    fm = flashmask_cases(FM_SEQ, _fm_window_starts, "window")
+    fm = flashmask_cases(FM_SEQ, _fm_window_starts, "window", replaced)
     g = torch.Generator(device="cuda").manual_seed(3)
     flashmask_cases(4100, lambda s, h: torch.randint(
         1, s + 1, (1, h, s), device="cuda", generator=g,
-        dtype=torch.int32), "random")
+        dtype=torch.int32), "random", replaced)
     torch.cuda.empty_cache()
     counts_varlen = varlen_phase()
     torch.cuda.empty_cache()
     counts_fm = flashmask_phase()
+    phases["attention_apis"] = time.perf_counter() - t0
+    _say("PHASES", {"seconds": phases})
 
     main_flash = flash[2]                  # S = 512, a prefill bucket
     paged_src = "paddle_tpu_torch/csrc/paged_decode.cu"
@@ -2033,8 +2200,10 @@ def main():
             (main_flash, "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
              "paddle_tpu/ops/pallas_attention.py:104", counts),
             (dec, paged_src, paged_tpu, counts),
-            (dec_q["int8"], paged_src, paged_tpu, counts_q8),
-            (dec_q["int4"], paged_src, paged_tpu, counts_q4),
+            (dec_q["int8"], paged_src.replace(".cu", "_int8.cu"), paged_tpu,
+             counts_q8),
+            (dec_q["int4"], paged_src.replace(".cu", "_int4.cu"), paged_tpu,
+             counts_q4),
             (qmm[1], "paddle_tpu_torch/csrc/quant_matmul.cu",
              "paddle_tpu/ops/quantized.py:144", counts_q4)):
         summary.append({
@@ -2129,28 +2298,68 @@ def main():
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"]})
-    # K1v/K2v from VARLEN, K9 from FLASHMASK
-    for rec, src, line, cnt, body in (
-            (varlen["fwd"], "flash_attention_fwd.cu", 104, counts_varlen,
-             TC_BODY),
-            (varlen["bwd"]["dq"] | {"name": "flash_attention_varlen_bwd_dq"},
-             "flash_attention_bwd.cu", 263, counts_varlen, TC_BODY),
+    # K1v/K2v from VARLEN, K9 from FLASHMASK (with the time of the body
+    # each K9 kernel replaced, where it replaced one)
+    for rec, src, line, cnt in (
+            (varlen["fwd"] | {"body": TC_BODY}, "flash_attention_fwd.cu",
+             104, counts_varlen),
+            (varlen["bwd"]["dq"] | {"name": "flash_attention_varlen_bwd_dq",
+                                    "body": TC_BODY},
+             "flash_attention_bwd.cu", 263, counts_varlen),
             (varlen["bwd"]["dkv"]
-             | {"name": "flash_attention_varlen_bwd_dkv"},
-             "flash_attention_bwd.cu", 314, counts_varlen, TC_BODY),
-            (fm["fwd"], "flashmask_attention.cu", 856, counts_fm, CORE_BODY),
+             | {"name": "flash_attention_varlen_bwd_dkv", "body": TC_BODY},
+             "flash_attention_bwd.cu", 314, counts_varlen),
+            (fm["fwd"], "flashmask_attention.cu", 856, counts_fm),
             (fm["bwd"]["dq"] | {"name": "flashmask_bwd_dq"},
-             "flashmask_attention.cu", 1017, counts_fm, CORE_BODY),
+             "flashmask_attention.cu", 1017, counts_fm),
             (fm["bwd"]["dkv"] | {"name": "flashmask_bwd_dkv"},
-             "flashmask_attention.cu", 1072, counts_fm, CORE_BODY)):
+             "flashmask_attention.cu", 1072, counts_fm)):
         summary.append({
-            "name": rec["name"], "route": "cuda", "body": body,
+            "name": rec["name"], "route": "cuda", "body": rec["body"],
             "source": f"paddle_tpu_torch/csrc/{src}",
             "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",
             "launches": cnt[rec["name"]],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+            | {k: rec[k] for k in ("replaced_ms", "replaced_body")
+               if k in rec})
+    # the shapes beyond the main paths' (no path runs these shapes:
+    # launches is the entry's count on the path named in launches_path,
+    # at that path's shapes)
+    attn = "paddle_tpu/ops/pallas_attention.py"
+    for rec, src, replaces, cnt, path, name in (
+            (flash256, "flash_attention_fwd.cu", f"{attn}:104", counts_train,
+             "TRAIN", "flash_attention_fwd"),
+            (bwd256["dq"] | {"body": bwd256["body"]},
+             "flash_attention_bwd.cu", f"{attn}:263", counts_train, "TRAIN",
+             "flash_attention_bwd_dq"),
+            (bwd256["dkv"] | {"body": bwd256["body"]},
+             "flash_attention_bwd.cu", f"{attn}:314", counts_train, "TRAIN",
+             "flash_attention_bwd_dkv"),
+            (dec_wide["group 3"], "paged_decode.cu", paged_tpu, counts,
+             "SERVE", "paged_decode_attention"),
+            (dec_wide["d256"], "paged_decode.cu", paged_tpu, counts, "SERVE",
+             "paged_decode_attention"),
+            (dec_q_wide["group 3"], "paged_decode_int8.cu", paged_tpu,
+             counts_q8, "SERVE_Q8", "paged_decode_attention_int8"),
+            (dec_q_wide["d256"], "paged_decode_int8.cu", paged_tpu,
+             counts_q8, "SERVE_Q8", "paged_decode_attention_int8"),
+            (norm_wide["fwd"], "fused_norm.cu",
+             "paddle_tpu/ops/pallas_norm.py:118", counts_train, "TRAIN",
+             "fused_rms_norm_fwd"),
+            (norm_wide["bwd"], "fused_norm.cu",
+             "paddle_tpu/ops/pallas_norm.py:160", counts_train, "TRAIN",
+             "fused_rms_norm_bwd")):
+        summary.append({
+            "name": name, "case": rec.get("case") or "d256",
+            "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": cnt[name],
+            "launches_path": path,
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+            | {k: rec[k] for k in ("body",) if k in rec})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

@@ -43,8 +43,8 @@
 // entirely above the causal diagonal are never visited; the heaviest
 // causal tiles are launched first.
 //
-// Routing is static, by dtype, with no fallback:
-//  * bf16 K2 and K2v run the tensor-core bodies (flash_attention_tc.cuh),
+// Routing is static, by dtype and head dim, with no fallback:
+//  * bf16 K2 and K2v at d <= 128 run the tensor-core bodies (flash_attention_tc.cuh),
 //    both with two warpgroups of 64 rows and TMA loads through a 2-stage
 //    ring one visited tile ahead of the math. dQ: 128 q rows per block, Q
 //    and dO held, K and V tiles streamed on their own barriers; S, dP and
@@ -57,11 +57,15 @@
 //    reference's force_masked=has_lens). They take D a multiple of 8 (the
 //    caller pads), 16-byte-aligned inputs and an lse/delta row stride that
 //    is a multiple of 4 floats; anything else returns cudaErrorInvalidValue;
-//  * f32 K2 and K2v run the CUDA-core bodies (flash_attention_tiles.cuh:
-//    plain f32 FMAs, S and dP recomputed in both kernels; exact f32 like
-//    the reference's f32 dots).
+//  * f32 K2 and K2v, and both dtypes at 128 < d <= 256, run the
+//    CUDA-core bodies (flash_attention_tiles.cuh: plain f32 FMAs, S and
+//    dP recomputed in both kernels; exact f32 like the reference's f32
+//    dots), instantiated at DM 128 (f32, d <= 128) and DM 256 (d > 128;
+//    dK/dV then stages each q tile as two 32-row halves to fit in shared
+//    memory).
 // Interior tiles of K2 skip the per-element mask; K2v masks every tile it
-// visits.
+// visits. A call with no keys writes dQ = 0 and one with no queries dK =
+// dV = 0 from the entry, without a body.
 #include "flash_attention_tc.cuh"
 
 namespace {
@@ -72,12 +76,22 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
            int dtype, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b == 0 || sq == 0) return 0;
+  if (sk == 0)
+    return zero_fill(dq, (size_t)b * hq * sq * d * (dtype == 1 ? 2 : 4), st);
   const LenCausalMask::Args margs{kv_lens, causal};
-  if (dtype == 1)
+  if (dtype == 1 && d <= kSmallD)
     return launch_bwd_dq_tc<LenCausalMask>(q, k, v, dout, lse, delta, dq,
                                            margs, b, hq, hkv, sq, sk, d,
                                            scale, st);
-  return launch_bwd_dq<float, LenCausalMask>(
+  if (dtype == 1)
+    return launch_bwd_dq<__nv_bfloat16, LenCausalMask, kLargeD>(
+        q, k, v, dout, lse, delta, dq, margs, b, hq, hkv, sq, sk, d, scale,
+        st);
+  if (d <= kSmallD)
+    return launch_bwd_dq<float, LenCausalMask, kSmallD>(
+        q, k, v, dout, lse, delta, dq, margs, b, hq, hkv, sq, sk, d, scale,
+        st);
+  return launch_bwd_dq<float, LenCausalMask, kLargeD>(
       q, k, v, dout, lse, delta, dq, margs, b, hq, hkv, sq, sk, d, scale, st);
 }
 
@@ -88,12 +102,25 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b == 0 || sk == 0) return 0;
+  if (sq == 0) {
+    const size_t bytes = (size_t)b * hkv * sk * d * (dtype == 1 ? 2 : 4);
+    const int err = zero_fill(dk, bytes, st);
+    return err != 0 ? err : zero_fill(dv, bytes, st);
+  }
   const LenCausalMask::Args margs{kv_lens, causal};
-  if (dtype == 1)
+  if (dtype == 1 && d <= kSmallD)
     return launch_bwd_dkv_tc<LenCausalMask>(q, k, v, dout, lse, delta, dk,
                                             dv, margs, b, hq, hkv, sq, sk, d,
                                             ls_stride, scale, st);
-  return launch_bwd_dkv<float, LenCausalMask>(
+  if (dtype == 1)
+    return launch_bwd_dkv<__nv_bfloat16, LenCausalMask, kLargeD>(
+        q, k, v, dout, lse, delta, dk, dv, margs, b, hq, hkv, sq, sk, d,
+        scale, st);
+  if (d <= kSmallD)
+    return launch_bwd_dkv<float, LenCausalMask, kSmallD>(
+        q, k, v, dout, lse, delta, dk, dv, margs, b, hq, hkv, sq, sk, d,
+        scale, st);
+  return launch_bwd_dkv<float, LenCausalMask, kLargeD>(
       q, k, v, dout, lse, delta, dk, dv, margs, b, hq, hkv, sq, sk, d, scale,
       st);
 }
@@ -102,9 +129,9 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 // dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError()
 // (0 = ok); the caller has checked shapes, dtypes, contiguity and
-// d <= 128. bf16 dK/dV (K2 and K2v) reads lse and delta by TMA as rows
-// `ls_stride` floats apart (a multiple of 4, >= Sq; the f32 body takes
-// Sq).
+// d <= 256. bf16 dK/dV (K2 and K2v) at d <= 128 reads lse and delta by
+// TMA as rows `ls_stride` floats apart (a multiple of 4, >= Sq; the
+// CUDA-core bodies take Sq).
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,

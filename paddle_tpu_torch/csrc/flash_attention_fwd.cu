@@ -26,8 +26,8 @@
 // is its memory up to S ~ 1200 (the ridge is ~295 flop/byte) and its
 // tensor-core rate above.
 //
-// Routing is static, by dtype, with no fallback:
-//  * bf16 K1 and K1v run the tensor-core body (flash_attention_tc.cuh):
+// Routing is static, by dtype and head dim, with no fallback:
+//  * bf16 K1 and K1v at d <= 128 run the tensor-core body (flash_attention_tc.cuh):
 //    QK^T and PV on wgmma, two warpgroups of 64 q rows each, K and V
 //    streamed by TMA through a 2-stage ring one tile ahead of the math, so
 //    loads overlap the math and the products run at the tensor cores'
@@ -37,11 +37,16 @@
 //    real data, get P = 0. It takes D a multiple of 8 (the caller pads)
 //    and 16-byte-aligned inputs; anything else returns
 //    cudaErrorInvalidValue;
-//  * f32 K1 and K1v run the CUDA-core body (flash_attention_tiles.cuh:
-//    one block of 128 threads per 64-row q tile, f32 FMAs; exact f32 like
-//    the reference's f32 dots).
+//  * f32 K1 and K1v, and both dtypes at 128 < d <= 256 (the reference's
+//    kernel takes d 256: it pads d to a multiple of 128), run the
+//    CUDA-core body (flash_attention_tiles.cuh: one block of 128 threads
+//    per 64-row q tile, f32 FMAs; exact f32 like the reference's f32
+//    dots), instantiated at DM 128 (f32, d <= 128) and DM 256 (d > 128),
+//    so the larger accumulators cost the d <= 128 kernels nothing.
 // Tiles wholly above the causal diagonal or past the length are never
-// loaded; interior tiles of K1 skip the per-element mask.
+// loaded; interior tiles of K1 skip the per-element mask. A call with no
+// keys (Sk = 0) launches no body: the entry writes O = 0 and lse = -1e30
+// itself, as the bodies give a row that sees no key.
 #include "flash_attention_tc.cuh"
 
 namespace {
@@ -51,18 +56,27 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
         int causal, int dtype, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b == 0 || sq == 0) return 0;
+  if (sk == 0)
+    return fill_empty(o, lse, (size_t)b * hq * sq, d, dtype == 1 ? 2 : 4,
+                      st);
   const LenCausalMask::Args margs{kv_lens, causal};
-  if (dtype == 1)
+  if (dtype == 1 && d <= kSmallD)
     return launch_fwd_tc<LenCausalMask>(q, k, v, o, lse, margs, b, hq, hkv,
                                         sq, sk, d, scale, st);
-  return launch_fwd<float, LenCausalMask>(q, k, v, o, lse, margs, b, hq,
-                                          hkv, sq, sk, d, scale, st);
+  if (dtype == 1)
+    return launch_fwd<__nv_bfloat16, LenCausalMask, kLargeD>(
+        q, k, v, o, lse, margs, b, hq, hkv, sq, sk, d, scale, st);
+  if (d <= kSmallD)
+    return launch_fwd<float, LenCausalMask, kSmallD>(
+        q, k, v, o, lse, margs, b, hq, hkv, sq, sk, d, scale, st);
+  return launch_fwd<float, LenCausalMask, kLargeD>(
+      q, k, v, o, lse, margs, b, hq, hkv, sq, sk, d, scale, st);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() (0 = ok);
-// the caller has checked shapes, dtypes, contiguity and d <= 128.
+// the caller has checked shapes, dtypes, contiguity and d <= 256.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int b,
                                    int hq, int hkv, int sq, int sk, int d,

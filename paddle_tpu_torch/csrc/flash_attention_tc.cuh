@@ -1,9 +1,11 @@
 // Tensor-core tile bodies for bf16 flash attention on Hopper (sm_90a): the
-// forward (K1 and K1v, included by flash_attention_fwd.cu), the dQ kernel
-// and the dK/dV kernel (K2 and K2v, included by flash_attention_bwd.cu),
-// each a template over the padded head dim (64 or 128) and a mask policy
-// of flash_attention_tiles.cuh (the same `kind` / `visible` / `col_info`
-// interface the CUDA-core bodies use). The f32 kernels and K9 keep the
+// forward (K1 and K1v, included by flash_attention_fwd.cu; K9's forward,
+// flashmask_attention.cu), the dQ kernel (K2 and K2v, included by
+// flash_attention_bwd.cu) and the dK/dV kernel (K2, K2v and K9's), each a
+// template over the padded head dim (64 or 128) and a mask policy of
+// flash_attention_tiles.cuh (the same `kind` / `visible` / `col_info`
+// interface the CUDA-core bodies use: `LenCausalMask` for K1/K2,
+// `StartRowMask` for K9). f32, head dims above 128 and K9's dQ keep the
 // CUDA-core bodies of flash_attention_tiles.cuh.
 //
 // Block layout (all three kernels): two warpgroups of 128 threads, each
@@ -1099,10 +1101,11 @@ bool f32_rows_tmap(CUtensorMap* map, const void* ptr, int heads, int sq,
 }
 
 // What the tensor-core bodies take: d a multiple of 8 up to 128 (TMA's
-// row stride is a multiple of 16 bytes) and TMA sources at 16-byte-aligned
-// addresses (the pointers OR-ed together).
+// row stride is a multiple of 16 bytes; larger head dims run the
+// CUDA-core bodies) and TMA sources at 16-byte-aligned addresses (the
+// pointers OR-ed together).
 bool tc_takes(int d, uintptr_t ptrs) {
-  return d % 8 == 0 && d <= kMaxD && ptrs % 16 == 0;
+  return d % 8 == 0 && d <= kSmallD && ptrs % 16 == 0;
 }
 
 uintptr_t addr(const void* p) { return reinterpret_cast<uintptr_t>(p); }

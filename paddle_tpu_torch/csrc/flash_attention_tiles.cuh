@@ -1,11 +1,15 @@
 // The CUDA-core flash-attention tile bodies shared by K1/K1v
 // (flash_attention_fwd.cu), K2/K2v (flash_attention_bwd.cu) and K9
 // (flashmask_attention.cu): the forward, the dQ kernel and the dK/dV
-// kernel, each a template over the element type and a mask policy. They
-// run f32 inputs and K9; bf16 K1, K1v and the K2 and K2v kernels run the
-// tensor-core bodies of flash_attention_tc.cuh over the same mask
-// policies. The source files that include this header hold what each
-// kernel replaces, what bounds it on the H100, and its C entry points.
+// kernel, each a template over the element type, a mask policy and the
+// largest head dim it takes (DM = 128 or 256: the accumulators are sized
+// by it, so the d <= 128 instantiations keep their registers). They run
+// f32 inputs at every head dim, every dtype at head dims above 128, and
+// bf16 K9 dQ; bf16 at padded d <= 128 runs the tensor-core bodies of
+// flash_attention_tc.cuh over the same mask policies (K1, K1v, K2, K2v,
+// K9's forward and dK/dV). The source files that include this header
+// hold what each kernel replaces, what bounds it on the H100, and its C
+// entry points.
 //
 // Tiling (all three kernels). 64-row q tiles and 64-row kv tiles, f32 in
 // shared memory (rows padded by 1 float so column-wise reads are free of
@@ -18,15 +22,19 @@
 //    over kv tiles, staging K, then V, through one buffer. Each thread owns
 //    4 rows x 8 score columns (columns tx + 8j) and 4 rows x D/8 output
 //    columns; the 8 lanes of a row group are adjacent, so row max/sum
-//    reductions are three shuffles.
+//    reductions are three shuffles. At d 256 it holds 148 KB of shared
+//    memory;
 //  * dQ: one block of 256 threads per (q tile, q head, batch); Q and dO stay
 //    in shared memory; per kv tile it stages V (dP = dO V^T), then K (S =
-//    Q K^T, then dQ += dS K), dS passing through shared memory.
+//    Q K^T, then dQ += dS K), dS passing through shared memory (214 KB at
+//    d 256);
 //  * dK/dV: one block of 256 threads per (kv tile, kv head, batch); K and V
 //    stay in shared memory; the block loops over the q heads of its GQA
 //    group and the q tiles that can see the tile, and keeps dK and dV in
 //    registers, so the group's sum needs no atomics and results repeat
-//    from run to run.
+//    from run to run. At DM 256 each 64-row q tile the mask visits is
+//    staged as two 32-row halves (QR = 32): 64 rows of Q and dO beside K
+//    and V would take 297 KB of shared memory, two halves take 215 KB.
 // With P = exp(S * scale - lse): dS = P * (dO V^T - delta), dQ = dS K
 // scale, dV = P^T dO, dK = dS^T (Q scale).
 //
@@ -40,6 +48,8 @@
 // value: a row that sees no key has lse = -1e30, which would cancel it.
 // Such a row gets O = 0 and lse = -1e30; a kv row no q row sees gets
 // dK = dV = 0 (its accumulators start at 0 and every tile is skipped).
+// A call with no keys or no queries launches no body at all: the entries
+// write those results with `fill_empty` / `zero_fill` below.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -49,12 +59,12 @@ namespace {
 
 constexpr int kBQ = 64;   // query rows per tile
 constexpr int kBK = 64;   // kv rows per tile
-constexpr int kMaxD = 128;
 constexpr float kNeg = -1e30f;
 constexpr int kFwdThreads = 128;  // 16 row groups x 8 column lanes
 constexpr int kBwdThreads = 256;  // 16 row groups x 16 column lanes
-constexpr int kFwdAccCols = kMaxD / 8;
-constexpr int kBwdAccCols = kMaxD / 16;
+// the largest head dim of each instantiation: DM 128 up to 128, 256 above
+constexpr int kSmallD = 128;
+constexpr int kLargeD = 256;
 
 enum TileKind { kSkip = 0, kFull = 1, kMasked = 2 };
 
@@ -176,7 +186,7 @@ size_t fwd_smem_bytes(int d) {
   return sizeof(float) * (size_t)(kBQ * dp + kBK * dp + kBQ * (kBK + 1));
 }
 
-template <typename T, typename Mask>
+template <typename T, typename Mask, int DM>
 __global__ void __launch_bounds__(kFwdThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
@@ -207,13 +217,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     qs[r * dp + c] = row < sq ? to_f32(qb[(size_t)row * d + c]) * scale : 0.f;
   }
 
-  float m[4], l[4], acc[4][kFwdAccCols];
+  constexpr int kAccCols = DM / 8;
+  float m[4], l[4], acc[4][kAccCols];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNeg;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < kFwdAccCols; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < kAccCols; ++c) acc[i][c] = 0.f;
   }
 
   const int kv_end = mask.kv_end(q0);
@@ -283,7 +294,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l[i] = l[i] * alpha + sum;
       m[i] = mn;
 #pragma unroll
-      for (int c = 0; c < kFwdAccCols; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < kAccCols; ++c) acc[i][c] *= alpha;
     }
 
     __syncthreads();  // every thread is done reading K
@@ -299,7 +310,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) pv[i] = ps[(ty * 4 + i) * (kBK + 1) + kk];
 #pragma unroll
-      for (int c = 0; c < kFwdAccCols; ++c) {
+      for (int c = 0; c < kAccCols; ++c) {
         const int col = tx + 8 * c;
         if (col < d) {
           const float vv = kvs[kk * dp + col];
@@ -319,7 +330,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float li = l[i] == 0.f ? 1.f : l[i];
     const float inv = 1.f / li;
 #pragma unroll
-    for (int c = 0; c < kFwdAccCols; ++c) {
+    for (int c = 0; c < kAccCols; ++c) {
       const int col = tx + 8 * c;
       if (col < d) ob[(size_t)row * d + col] = from_f32<T>(acc[i][c] * inv);
     }
@@ -327,17 +338,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, typename Mask>
+template <typename T, typename Mask, int DM>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                void* lse, typename Mask::Args margs, int b, int hq, int hkv,
                int sq, int sk, int d, float scale, cudaStream_t stream) {
+  if (d > DM) return (int)cudaErrorInvalidValue;
   const size_t smem = fwd_smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, Mask>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_kernel<T, Mask, DM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
-  flash_fwd_kernel<T, Mask><<<grid, kFwdThreads, smem, stream>>>(
+  flash_fwd_kernel<T, Mask, DM><<<grid, kFwdThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o),
       static_cast<float*>(lse), margs, hq, hkv, sq, sk, d, scale);
@@ -360,25 +372,27 @@ __device__ __forceinline__ void stage(float* dst, const T* src, int r0,
   }
 }
 
-// acc[i][j] = sum_c a[(ty*4+i)][c] * b[(tx+16j)][c] over shared [.][d+1]
-__device__ __forceinline__ void tile_dot(float acc[4][4], const float* a,
+// acc[i][j] = sum_c a[(ty*4+i)][c] * b[(tx+16j)][c] over shared [.][d+1],
+// j < J
+template <int J>
+__device__ __forceinline__ void tile_dot(float (&acc)[4][J], const float* a,
                                          const float* b, int d, int ty,
                                          int tx) {
   const int dp = d + 1;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < J; ++j) acc[i][j] = 0.f;
   for (int c = 0; c < d; ++c) {
-    float av[4], bv[4];
+    float av[4], bv[J];
 #pragma unroll
     for (int i = 0; i < 4; ++i) av[i] = a[(ty * 4 + i) * dp + c];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * dp + c];
+    for (int j = 0; j < J; ++j) bv[j] = b[(tx + 16 * j) * dp + c];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int j = 0; j < J; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
   }
 }
 
@@ -387,13 +401,20 @@ size_t dq_smem_bytes(int d) {
   return sizeof(float) * (size_t)(2 * kBQ * dp + kBK * dp + kBQ * (kBK + 1));
 }
 
-size_t dkv_smem_bytes(int d) {
-  const int dp = d + 1;
-  return sizeof(float) *
-         (size_t)(2 * kBK * dp + 2 * kBQ * dp + 2 * kBK * (kBQ + 1) + 2 * kBQ);
+// q rows the dK/dV body stages at a time: a whole 64-row q tile up to
+// d 128, half of one above (see the header)
+template <int DM>
+__host__ __device__ constexpr int dkv_q_rows() {
+  return DM > kSmallD ? kBQ / 2 : kBQ;
 }
 
-template <typename T, typename Mask>
+size_t dkv_smem_bytes(int d, int qr) {
+  const int dp = d + 1;
+  return sizeof(float) *
+         (size_t)(2 * kBK * dp + 2 * qr * dp + 2 * kBK * (qr + 1) + 2 * qr);
+}
+
+template <typename T, typename Mask, int DM>
 __global__ void __launch_bounds__(kBwdThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -424,14 +445,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   stage<T, kBQ>(qs, q + row0 * d, q0, sq, d, scale);
   stage<T, kBQ>(dos, dout + row0 * d, q0, sq, d, 1.f);
 
-  float lse_r[4], del_r[4], acc[4][kBwdAccCols];
+  constexpr int kAccCols = DM / 16;
+  float lse_r[4], del_r[4], acc[4][kAccCols];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     lse_r[i] = row < sq ? lse[row0 + row] : 0.f;
     del_r[i] = row < sq ? delta[row0 + row] : 0.f;
 #pragma unroll
-    for (int c = 0; c < kBwdAccCols; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < kAccCols; ++c) acc[i][c] = 0.f;
   }
 
   const int kv_end = mask.kv_end(q0);
@@ -474,7 +496,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) dsv[i] = dss[(ty * 4 + i) * (kBK + 1) + kk];
 #pragma unroll
-      for (int c = 0; c < kBwdAccCols; ++c) {
+      for (int c = 0; c < kAccCols; ++c) {
         const int col = tx + 16 * c;
         if (col < d) {
           const float kv = kvs[kk * dp + col];
@@ -490,7 +512,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty * 4 + i;
     if (row >= sq) continue;
 #pragma unroll
-    for (int c = 0; c < kBwdAccCols; ++c) {
+    for (int c = 0; c < kAccCols; ++c) {
       const int col = tx + 16 * c;
       if (col < d)
         dq[(row0 + row) * d + col] = from_f32<T>(acc[i][c] * scale);
@@ -498,7 +520,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, typename Mask>
+template <typename T, typename Mask, int DM>
 __global__ void __launch_bounds__(kBwdThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
@@ -506,20 +528,23 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, typename Mask::Args margs, int hq,
                      int hkv, int sq, int sk, int d, float scale) {
+  constexpr int QR = dkv_q_rows<DM>();  // q rows staged at a time
+  constexpr int J = QR / 16;            // q columns per thread
+  constexpr int kAccCols = DM / 16;
   extern __shared__ float smem[];
   const int dp = d + 1;
   float* ks = smem;              // [kBK][dp] K
   float* vs = ks + kBK * dp;     // [kBK][dp] V
-  float* qs = vs + kBK * dp;     // [kBQ][dp] Q * scale of the current q tile
-  float* dos = qs + kBQ * dp;    // [kBQ][dp] dO
-  float* pts = dos + kBQ * dp;   // [kBK][kBQ + 1] P^T
-  float* dss = pts + kBK * (kBQ + 1);  // [kBK][kBQ + 1] dS^T
-  float* ls = dss + kBK * (kBQ + 1);   // [kBQ] lse
-  float* dl = ls + kBQ;                // [kBQ] delta
+  float* qs = vs + kBK * dp;     // [QR][dp] Q * scale of the current rows
+  float* dos = qs + QR * dp;     // [QR][dp] dO
+  float* pts = dos + QR * dp;    // [kBK][QR + 1] P^T
+  float* dss = pts + kBK * (QR + 1);  // [kBK][QR + 1] dS^T
+  float* ls = dss + kBK * (QR + 1);   // [QR] lse
+  float* dl = ls + QR;                // [QR] delta
 
   const int tid = threadIdx.x;
   const int ty = tid >> 4;  // row group: kv rows ty*4 .. ty*4+3
-  const int tx = tid & 15;  // column lane (q rows of the tile)
+  const int tx = tid & 15;  // column lane (q rows of the staged rows)
   // causal: the first kv tiles are seen by the most q tiles
   const int k0 = blockIdx.x * kBK;
   const int hk = blockIdx.y;
@@ -530,11 +555,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   stage<T, kBK>(ks, k + kv0 * d, k0, sk, d, 1.f);
   stage<T, kBK>(vs, v + kv0 * d, k0, sk, d, 1.f);
 
-  float acc_k[4][kBwdAccCols], acc_v[4][kBwdAccCols];
+  float acc_k[4][kAccCols], acc_v[4][kAccCols];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < kBwdAccCols; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+    for (int c = 0; c < kAccCols; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
 
   const int nqt = (sq + kBQ - 1) / kBQ;
 
@@ -547,56 +572,67 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 4; ++i) info[i] = mask.col_info(k0 + ty * 4 + i);
     const int qt_end = mask.q_end(k0, nqt);
     for (int qt = mask.q_first(k0); qt < qt_end; ++qt) {
-      const int q0 = qt * kBQ;
-      const int kind = mask.kind(q0, k0);  // uniform over the block
+      const int kind = mask.kind(qt * kBQ, k0);  // uniform over the block
       if (kind == kSkip) continue;
-      __syncthreads();  // the previous q tile's readers are done
-      stage<T, kBQ>(qs, q + row0 * d, q0, sq, d, scale);
-      stage<T, kBQ>(dos, dout + row0 * d, q0, sq, d, 1.f);
-      for (int r = tid; r < kBQ; r += kBwdThreads) {
-        const int row = q0 + r;
-        ls[r] = row < sq ? lse[row0 + row] : 0.f;
-        dl[r] = row < sq ? delta[row0 + row] : 0.f;
-      }
-      __syncthreads();
-      float s[4][4], dpt[4][4];
-      tile_dot(s, ks, qs, d, ty, tx);     // S^T = K (Q scale)^T
-      tile_dot(dpt, vs, dos, d, ty, tx);  // dP^T = V dO^T
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = k0 + ty * 4 + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = tx + 16 * j;
+      // the staged q rows [q0, q0 + QR): the whole q tile at DM 128 (QR
+      // = 64), each half of it at DM 256. At DM 128 the body runs once,
+      // straight: wrapped in a loop over the halves, it ran 10-27% slower
+      // there (same bits, other register allocation).
+      auto rows = [&](const int q0) {
+        __syncthreads();  // the previous rows' readers are done
+        stage<T, QR>(qs, q + row0 * d, q0, sq, d, scale);
+        stage<T, QR>(dos, dout + row0 * d, q0, sq, d, 1.f);
+        for (int r = tid; r < QR; r += kBwdThreads) {
           const int row = q0 + r;
-          const bool ok =
-              kind == kFull || (row < sq && mask.visible(row, col, info[i]));
-          const float p = ok ? __expf(s[i][j] - ls[r]) : 0.f;
-          pts[(ty * 4 + i) * (kBQ + 1) + r] = p;
-          dss[(ty * 4 + i) * (kBQ + 1) + r] = p * (dpt[i][j] - dl[r]);
+          ls[r] = row < sq ? lse[row0 + row] : 0.f;
+          dl[r] = row < sq ? delta[row0 + row] : 0.f;
         }
-      }
-      __syncthreads();
-      for (int r = 0; r < kBQ; ++r) {  // dV += P^T dO; dK += dS^T (Q scale)
-        float pv[4], dsv[4];
+        __syncthreads();
+        float s[4][J], dpt[4][J];
+        tile_dot<J>(s, ks, qs, d, ty, tx);     // S^T = K (Q scale)^T
+        tile_dot<J>(dpt, vs, dos, d, ty, tx);  // dP^T = V dO^T
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          pv[i] = pts[(ty * 4 + i) * (kBQ + 1) + r];
-          dsv[i] = dss[(ty * 4 + i) * (kBQ + 1) + r];
+          const int col = k0 + ty * 4 + i;
+#pragma unroll
+          for (int j = 0; j < J; ++j) {
+            const int r = tx + 16 * j;
+            const int row = q0 + r;
+            const bool ok = kind == kFull ||
+                            (row < sq && mask.visible(row, col, info[i]));
+            const float p = ok ? __expf(s[i][j] - ls[r]) : 0.f;
+            pts[(ty * 4 + i) * (QR + 1) + r] = p;
+            dss[(ty * 4 + i) * (QR + 1) + r] = p * (dpt[i][j] - dl[r]);
+          }
         }
+        __syncthreads();
+        for (int r = 0; r < QR; ++r) {  // dV += P^T dO; dK += dS^T (Q scale)
+          float pv[4], dsv[4];
 #pragma unroll
-        for (int c = 0; c < kBwdAccCols; ++c) {
-          const int col = tx + 16 * c;
-          if (col < d) {
-            const float dov = dos[r * dp + col];
-            const float qv = qs[r * dp + col];
+          for (int i = 0; i < 4; ++i) {
+            pv[i] = pts[(ty * 4 + i) * (QR + 1) + r];
+            dsv[i] = dss[(ty * 4 + i) * (QR + 1) + r];
+          }
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              acc_v[i][c] = fmaf(pv[i], dov, acc_v[i][c]);
-              acc_k[i][c] = fmaf(dsv[i], qv, acc_k[i][c]);
+          for (int c = 0; c < kAccCols; ++c) {
+            const int col = tx + 16 * c;
+            if (col < d) {
+              const float dov = dos[r * dp + col];
+              const float qv = qs[r * dp + col];
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                acc_v[i][c] = fmaf(pv[i], dov, acc_v[i][c]);
+                acc_k[i][c] = fmaf(dsv[i], qv, acc_k[i][c]);
+              }
             }
           }
         }
+      };
+      if constexpr (QR == kBQ) {
+        rows(qt * kBQ);
+      } else {
+        rows(qt * kBQ);
+        if (qt * kBQ + QR < sq) rows(qt * kBQ + QR);
       }
     }
   }
@@ -606,7 +642,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = k0 + ty * 4 + i;
     if (row >= sk) continue;
 #pragma unroll
-    for (int c = 0; c < kBwdAccCols; ++c) {
+    for (int c = 0; c < kAccCols; ++c) {
       const int col = tx + 16 * c;
       if (col < d) {
         // dK picked up its 1/sqrt(D) through the pre-scaled Q
@@ -617,19 +653,20 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, typename Mask>
+template <typename T, typename Mask, int DM>
 int launch_bwd_dq(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
                   void* dq, typename Mask::Args margs, int b, int hq,
                   int hkv, int sq, int sk, int d, float scale,
                   cudaStream_t stream) {
+  if (d > DM) return (int)cudaErrorInvalidValue;
   const size_t smem = dq_smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, Mask>,
+      flash_bwd_dq_kernel<T, Mask, DM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
-  flash_bwd_dq_kernel<T, Mask><<<grid, kBwdThreads, smem, stream>>>(
+  flash_bwd_dq_kernel<T, Mask, DM><<<grid, kBwdThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -637,24 +674,52 @@ int launch_bwd_dq(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename Mask>
+template <typename T, typename Mask, int DM>
 int launch_bwd_dkv(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dk, void* dv, typename Mask::Args margs, int b,
                    int hq, int hkv, int sq, int sk, int d,
                    float scale, cudaStream_t stream) {
-  const size_t smem = dkv_smem_bytes(d);
+  if (d > DM) return (int)cudaErrorInvalidValue;
+  const size_t smem = dkv_smem_bytes(d, dkv_q_rows<DM>());
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, Mask>,
+      flash_bwd_dkv_kernel<T, Mask, DM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sk + kBK - 1) / kBK, hkv, b);
-  flash_bwd_dkv_kernel<T, Mask><<<grid, kBwdThreads, smem, stream>>>(
+  flash_bwd_dkv_kernel<T, Mask, DM><<<grid, kBwdThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<T*>(dk), static_cast<T*>(dv), margs, hq, hkv, sq, sk, d,
       scale);
+  return (int)cudaGetLastError();
+}
+
+// -------------------------------------------------- calls with no work
+
+__global__ void fill_f32_kernel(float* __restrict__ p, size_t n, float v) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x)
+    p[i] = v;
+}
+
+// `bytes` zero bytes at p (no launch when there are none)
+int zero_fill(void* p, size_t bytes, cudaStream_t stream) {
+  if (bytes == 0) return 0;
+  return (int)cudaMemsetAsync(p, 0, bytes, stream);
+}
+
+// a forward with no keys: O = 0 and lse = -1e30 over `rows` query rows of
+// d elements of `elem` bytes, as the bodies give a row that sees no key
+int fill_empty(void* o, void* lse, size_t rows, int d, size_t elem,
+               cudaStream_t stream) {
+  const int err = zero_fill(o, rows * d * elem, stream);
+  if (err != 0 || rows == 0) return err;
+  const int blocks = (int)((rows + 255) / 256 < 1024 ? (rows + 255) / 256
+                                                      : 1024);
+  fill_f32_kernel<<<blocks, 256, 0, stream>>>(static_cast<float*>(lse),
+                                              rows, kNeg);
   return (int)cudaGetLastError();
 }
 

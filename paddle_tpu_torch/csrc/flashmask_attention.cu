@@ -1,7 +1,9 @@
 // FlashMask block-sparse attention for Hopper (sm_90a), forward and
 // backward, bf16 or f32 in and out, f32 accumulation (K9). Three entry
-// points over the flash-attention tile bodies (flash_attention_tiles.cuh)
-// with the start-row mask policy `StartRowMask`:
+// points over the flash-attention tile bodies (the tensor-core ones of
+// flash_attention_tc.cuh and the CUDA-core ones of
+// flash_attention_tiles.cuh) with the start-row mask policy
+// `StartRowMask`:
 //  * flashmask_fwd: O and the per-row log-sum-exp;
 //  * flashmask_bwd_dq: dQ from the saved lse;
 //  * flashmask_bwd_dkv: dK and dV from the saved lse.
@@ -40,11 +42,26 @@
 // for dQ's three products and 8*D for dK/dV's four, at the tensor-core
 // rate, against the bytes of Q, K, V, O (and dO, dQ, dK, dV), lse, delta
 // and the start rows. At S = 8192 with a 1024-token window (7.9M visible
-// pairs per head of 33.6M causal) the operations bound it. Like K1/K2
-// this first version does its products with f32 FMAs on the CUDA cores,
-// so their rate bounds it; what the block skipping buys is the work of
-// the skipped tiles (4.3x less than causal flash at that window).
-#include "flash_attention_tiles.cuh"
+// pairs per head of 33.6M causal) the operations bound it; what the block
+// skipping buys is the work of the skipped tiles (4.3x less than causal
+// flash at that window).
+//
+// Routing is static, by dtype and head dim, with no fallback:
+//  * bf16 forward and dK/dV at d <= 128 run the tensor-core bodies of
+//    flash_attention_tc.cuh with `StartRowMask` (wgmma, TMA, two
+//    warpgroups of 64 rows, a 2-stage ring), as K1 and K2 do: the policy
+//    answers each 64 x 64 tile's kind from smin / smax and each element
+//    of a straddling tile from its column's start row. They take D a
+//    multiple of 8 (the caller pads, passing the softmax scale of the
+//    original D), 16-byte-aligned inputs and, in dK/dV, lse / delta rows
+//    `ls_stride` floats apart (a multiple of 4, >= Sq: read by 2-D TMA);
+//    anything else returns cudaErrorInvalidValue;
+//  * bf16 dQ, f32, and both dtypes at 128 < d <= 256 run the CUDA-core
+//    bodies of flash_attention_tiles.cuh (f32 FMAs), instantiated at DM
+//    128 and 256. The CUDA-core dK/dV reads lse and delta rows Sq apart.
+// A call with no keys writes O = 0, lse = -1e30 and dQ = 0, one with no
+// queries dK = dV = 0, from the entry, without a body.
+#include "flash_attention_tc.cuh"
 
 namespace {
 
@@ -55,25 +72,35 @@ StartRowMask::Args mask_args(const void* start, const void* smin,
                             static_cast<const int*>(smax), causal};
 }
 
+size_t elem_bytes(int dtype) { return dtype == 1 ? 2 : 4; }
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError()
 // (0 = ok); the caller has checked shapes (Hq == Hkv), dtypes, contiguity
-// and d <= 128.
+// and d <= 256. `scale` is the softmax scale, 1/sqrt(D) of the head dim
+// before any padding the caller added.
 extern "C" int flashmask_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, const void* start,
                              const void* smin, const void* smax, int b,
                              int h, int sq, int sk, int d, int causal,
-                             int dtype, void* stream) {
+                             int dtype, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float scale = 1.0f / sqrtf((float)d);
   if (b == 0 || sq == 0) return 0;
+  if (sk == 0)
+    return fill_empty(o, lse, (size_t)b * h * sq, d, elem_bytes(dtype), st);
   const StartRowMask::Args margs = mask_args(start, smin, smax, causal);
+  if (dtype == 1 && d <= kSmallD)
+    return launch_fwd_tc<StartRowMask>(q, k, v, o, lse, margs, b, h, h, sq,
+                                       sk, d, scale, st);
   if (dtype == 1)
-    return launch_fwd<__nv_bfloat16, StartRowMask>(
+    return launch_fwd<__nv_bfloat16, StartRowMask, kLargeD>(
         q, k, v, o, lse, margs, b, h, h, sq, sk, d, scale, st);
-  return launch_fwd<float, StartRowMask>(q, k, v, o, lse, margs, b, h, h,
-                                         sq, sk, d, scale, st);
+  if (d <= kSmallD)
+    return launch_fwd<float, StartRowMask, kSmallD>(
+        q, k, v, o, lse, margs, b, h, h, sq, sk, d, scale, st);
+  return launch_fwd<float, StartRowMask, kLargeD>(
+      q, k, v, o, lse, margs, b, h, h, sq, sk, d, scale, st);
 }
 
 extern "C" int flashmask_bwd_dq(const void* q, const void* k, const void* v,
@@ -82,15 +109,22 @@ extern "C" int flashmask_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* start, const void* smin,
                                 const void* smax, int b, int h, int sq,
                                 int sk, int d, int causal, int dtype,
-                                void* stream) {
+                                float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float scale = 1.0f / sqrtf((float)d);
   if (b == 0 || sq == 0) return 0;
+  if (sk == 0)
+    return zero_fill(dq, (size_t)b * h * sq * d * elem_bytes(dtype), st);
   const StartRowMask::Args margs = mask_args(start, smin, smax, causal);
-  if (dtype == 1)
-    return launch_bwd_dq<__nv_bfloat16, StartRowMask>(
+  if (dtype == 1 && d <= kSmallD)
+    return launch_bwd_dq<__nv_bfloat16, StartRowMask, kSmallD>(
         q, k, v, dout, lse, delta, dq, margs, b, h, h, sq, sk, d, scale, st);
-  return launch_bwd_dq<float, StartRowMask>(
+  if (dtype == 1)
+    return launch_bwd_dq<__nv_bfloat16, StartRowMask, kLargeD>(
+        q, k, v, dout, lse, delta, dq, margs, b, h, h, sq, sk, d, scale, st);
+  if (d <= kSmallD)
+    return launch_bwd_dq<float, StartRowMask, kSmallD>(
+        q, k, v, dout, lse, delta, dq, margs, b, h, h, sq, sk, d, scale, st);
+  return launch_bwd_dq<float, StartRowMask, kLargeD>(
       q, k, v, dout, lse, delta, dq, margs, b, h, h, sq, sk, d, scale, st);
 }
 
@@ -100,16 +134,29 @@ extern "C" int flashmask_bwd_dkv(const void* q, const void* k,
                                  void* dk, void* dv, const void* start,
                                  const void* smin, const void* smax, int b,
                                  int h, int sq, int sk, int d, int causal,
-                                 int dtype, void* stream) {
+                                 int dtype, int ls_stride, float scale,
+                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float scale = 1.0f / sqrtf((float)d);
   if (b == 0 || sk == 0) return 0;
+  if (sq == 0) {
+    const size_t bytes = (size_t)b * h * sk * d * elem_bytes(dtype);
+    const int err = zero_fill(dk, bytes, st);
+    return err != 0 ? err : zero_fill(dv, bytes, st);
+  }
   const StartRowMask::Args margs = mask_args(start, smin, smax, causal);
+  if (dtype == 1 && d <= kSmallD)
+    return launch_bwd_dkv_tc<StartRowMask>(q, k, v, dout, lse, delta, dk, dv,
+                                           margs, b, h, h, sq, sk, d,
+                                           ls_stride, scale, st);
   if (dtype == 1)
-    return launch_bwd_dkv<__nv_bfloat16, StartRowMask>(
+    return launch_bwd_dkv<__nv_bfloat16, StartRowMask, kLargeD>(
         q, k, v, dout, lse, delta, dk, dv, margs, b, h, h, sq, sk, d, scale,
         st);
-  return launch_bwd_dkv<float, StartRowMask>(
+  if (d <= kSmallD)
+    return launch_bwd_dkv<float, StartRowMask, kSmallD>(
+        q, k, v, dout, lse, delta, dk, dv, margs, b, h, h, sq, sk, d, scale,
+        st);
+  return launch_bwd_dkv<float, StartRowMask, kLargeD>(
       q, k, v, dout, lse, delta, dk, dv, margs, b, h, h, sq, sk, d, scale,
       st);
 }

@@ -52,7 +52,11 @@
 //     the f32 sum x (+ res) is kept in shared memory between the row's
 //     sums and the scaled write, so x and res are read once; only rstd
 //     (and the mean, for LayerNorm: 4 bytes each a row) is saved for the
-//     backward. LayerNorm's two sums (x and x^2) come from the same pass;
+//     backward. LayerNorm's two sums (x and x^2) come from the same pass.
+//     A row of more than kFwdRowMax (32768) elements, whose f32 copy would
+//     take more than 128 KB of shared memory, is read twice instead: the
+//     second pass recomputes x (+ res) from device memory (the same f32
+//     sum, bit for bit), mostly from L2;
 //   - K3 backward: xhat is recomputed from s and the stats (no f32
 //     [rows, H] activation is stored). dw (and db) are sums across rows,
 //     which the TPU kernel carries in VMEM over its sequential row grid.
@@ -61,7 +65,16 @@
 //     it writes one f32 partial row each, and a second kernel adds the
 //     partials of all blocks in a fixed order. No float atomics, so the
 //     result repeats from run to run. The add variant's dx + ds is added
-//     in f32 before the one rounding;
+//     in f32 before the one rounding. That holds 4 (RMS) or 5 (LayerNorm)
+//     f32 rows in shared memory, which caps the row at 12288 / 11264
+//     elements; wider rows (the caller passes `coef`) take a second pass
+//     over device memory instead of more shared memory: a first kernel,
+//     one block per row, computes each row's sums mean(w*dy*xhat) (and
+//     mean(w*dy)) into `coef`; a second one, whose blocks each own 2048
+//     columns of a range of rows, recomputes xhat from s, writes dx and
+//     keeps its columns' dw (db) partials in registers; the same fixed-
+//     order sum adds the partials. s and dy are read twice, which a row
+//     too wide for shared memory cannot avoid without a grid-wide sync;
 //   - K4: one thread rotates N adjacent pairs (d, d + D/2) of one head
 //     row, reading each element of q, k and of the row's tables once;
 //   - K5, K6: one thread per N adjacent elements. K6 reads the mask the
@@ -155,8 +168,12 @@ int row_threads(int h, int n) {
 
 // LAYER = false: RMS kind (w in TW = TX, no b, no mean); true: LayerNorm
 // kind (w and b in TW = f32). One block per row; dynamic shared memory:
-// the row's f32 sum [h].
-template <typename TX, typename TY, typename TW, int N, bool LAYER>
+// the row's f32 sum [h], or none when WIDE (the second pass reads x and
+// res again).
+constexpr int kFwdRowMax = 32768;
+
+template <typename TX, typename TY, typename TW, int N, bool LAYER,
+          bool WIDE>
 __global__ void __launch_bounds__(kThreads)
 norm_fwd_kernel(const TX* __restrict__ x, const TX* __restrict__ res,
                 const TW* __restrict__ w, const TW* __restrict__ b,
@@ -179,7 +196,7 @@ norm_fwd_kernel(const TX* __restrict__ x, const TX* __restrict__ res,
     }
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      smem[c + i] = v[i];
+      if constexpr (!WIDE) smem[c + i] = v[i];
       if constexpr (LAYER) sum += v[i];
       sq += v[i] * v[i];
     }
@@ -193,17 +210,28 @@ norm_fwd_kernel(const TX* __restrict__ x, const TX* __restrict__ res,
   }
   const float inv = rsqrtf(var + eps);
   for (int c = threadIdx.x * N; c < h; c += blockDim.x * N) {
-    float wv[N], o[N];
+    float wv[N], o[N], v[N];
+    if constexpr (WIDE) {
+      load_f32<TX, N>(x + base + c, v);
+      if (res != nullptr) {
+        float r[N];
+        load_f32<TX, N>(res + base + c, r);
+#pragma unroll
+        for (int i = 0; i < N; ++i) v[i] += r[i];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) v[i] = smem[c + i];
+    }
     load_f32<TW, N>(w + c, wv);
     if constexpr (LAYER) {
       float bv[N];
       load_f32<TW, N>(b + c, bv);
 #pragma unroll
-      for (int i = 0; i < N; ++i)
-        o[i] = (smem[c + i] - mu) * inv * wv[i] + bv[i];
+      for (int i = 0; i < N; ++i) o[i] = (v[i] - mu) * inv * wv[i] + bv[i];
     } else {
 #pragma unroll
-      for (int i = 0; i < N; ++i) o[i] = smem[c + i] * inv * wv[i];
+      for (int i = 0; i < N; ++i) o[i] = v[i] * inv * wv[i];
     }
     store_f32<TY, N>(y + base + c, o);
   }
@@ -298,6 +326,117 @@ norm_bwd_kernel(const TX* __restrict__ s, const TW* __restrict__ w,
     }
 }
 
+// Wide rows, pass 1: one block per row; coef[r] = mean(w*dy*xhat) and,
+// for LayerNorm, coef[rows + r] = mean(w*dy).
+template <typename TX, typename TY, typename TW, int N, bool LAYER>
+__global__ void __launch_bounds__(kThreads)
+norm_bwd_coef_kernel(const TX* __restrict__ s, const TW* __restrict__ w,
+                     const float* __restrict__ rstd,
+                     const float* __restrict__ mean,
+                     const TY* __restrict__ dy, float* __restrict__ coef,
+                     int rows, int h) {
+  __shared__ float red[kThreads / 32];
+  const int r = blockIdx.x;
+  const size_t base = (size_t)r * h;
+  const float rs = rstd[r];
+  float mu = 0.f;
+  if constexpr (LAYER) mu = mean[r];
+  float part2 = 0.f, part1 = 0.f;
+  for (int c = threadIdx.x * N; c < h; c += blockDim.x * N) {
+    float sv[N], g[N], wv[N];
+    load_f32<TX, N>(s + base + c, sv);
+    load_f32<TY, N>(dy + base + c, g);
+    load_f32<TW, N>(w + c, wv);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float xhat = LAYER ? (sv[i] - mu) * rs : sv[i] * rs;
+      const float wdy = g[i] * wv[i];
+      part2 += wdy * xhat;
+      if constexpr (LAYER) part1 += wdy;
+    }
+  }
+  const float c2 = block_sum(part2, red) * (1.f / h);
+  float c1 = 0.f;
+  if constexpr (LAYER) c1 = block_sum(part1, red) * (1.f / h);
+  if (threadIdx.x == 0) {
+    coef[r] = c2;
+    if constexpr (LAYER) coef[rows + r] = c1;
+  }
+}
+
+// Wide rows, pass 2: block (x, y) owns columns [x * kWideCols, + kWideCols)
+// of rows [y * rpb, y * rpb + rpb); each thread kWideVec adjacent columns,
+// its dw (db) partials in registers. The partials go to rows blockIdx.y
+// (dw) and gridDim.y + blockIdx.y (db) of `part`.
+constexpr int kWideVec = 8;
+constexpr int kWideCols = kThreads * kWideVec;
+
+template <typename TX, typename TY, typename TW, int N, bool LAYER>
+__global__ void __launch_bounds__(kThreads)
+norm_bwd_wide_kernel(const TX* __restrict__ s, const TW* __restrict__ w,
+                     const float* __restrict__ rstd,
+                     const float* __restrict__ mean,
+                     const TY* __restrict__ dy, const TX* __restrict__ ds,
+                     TX* __restrict__ dx, const float* __restrict__ coef,
+                     float* __restrict__ part, int rows, int h, int rpb) {
+  constexpr int kVecs = kWideVec / N;
+  const int c0 = blockIdx.x * kWideCols + threadIdx.x * kWideVec;
+  float wf[kWideVec], acc[kWideVec], accb[kWideVec];
+#pragma unroll
+  for (int u = 0; u < kVecs; ++u) {
+    const int c = c0 + u * N;
+    float wv[N];
+    if (c < h) load_f32<TW, N>(w + c, wv);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      wf[u * N + i] = c < h ? wv[i] : 0.f;
+      acc[u * N + i] = accb[u * N + i] = 0.f;
+    }
+  }
+  const int r0 = blockIdx.y * rpb;
+  const int r1 = min(rows, r0 + rpb);
+  for (int r = r0; r < r1; ++r) {
+    const size_t base = (size_t)r * h;
+    const float rs = rstd[r], c2 = coef[r];
+    float mu = 0.f, c1 = 0.f;
+    if constexpr (LAYER) {
+      mu = mean[r];
+      c1 = coef[rows + r];
+    }
+#pragma unroll
+    for (int u = 0; u < kVecs; ++u) {
+      const int c = c0 + u * N;
+      if (c >= h) break;
+      float sv[N], g[N], d[N];
+      load_f32<TX, N>(s + base + c, sv);
+      load_f32<TY, N>(dy + base + c, g);
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const float xhat = LAYER ? (sv[i] - mu) * rs : sv[i] * rs;
+        const float wdy = g[i] * wf[u * N + i];
+        d[i] = LAYER ? rs * (wdy - c1 - xhat * c2) : rs * (wdy - xhat * c2);
+        acc[u * N + i] += g[i] * xhat;
+        if constexpr (LAYER) accb[u * N + i] += g[i];
+      }
+      if (ds != nullptr) {
+        float e[N];
+        load_f32<TX, N>(ds + base + c, e);
+#pragma unroll
+        for (int i = 0; i < N; ++i) d[i] += e[i];
+      }
+      store_f32<TX, N>(dx + base + c, d);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kWideVec; ++i) {
+    const int c = c0 + i;
+    if (c >= h) break;
+    part[(size_t)blockIdx.y * h + c] = acc[i];
+    if constexpr (LAYER)
+      part[((size_t)gridDim.y + blockIdx.y) * h + c] = accb[i];
+  }
+}
+
 // out[c] = the blocks' partials summed in a fixed order: a block owns 32
 // columns of one sum (blockIdx.y: 0 = dw from partial rows [0, blocks),
 // 1 = db from rows [blocks, 2 * blocks)); its 8 warps each add every 8th
@@ -325,12 +464,13 @@ dw_finish_kernel(const float* __restrict__ part, TW* __restrict__ dw,
   }
 }
 
-template <typename TX, typename TY, typename TW, int N, bool LAYER>
-int norm_fwd_launch(const void* x, const void* res, const void* w,
-                    const void* b, void* y, void* s, void* rstd, void* mean,
-                    int rows, int h, float eps, cudaStream_t st) {
-  const size_t bytes = (size_t)h * sizeof(float);
-  auto kernel = norm_fwd_kernel<TX, TY, TW, N, LAYER>;
+template <typename TX, typename TY, typename TW, int N, bool LAYER,
+          bool WIDE>
+int norm_fwd_run(const void* x, const void* res, const void* w,
+                 const void* b, void* y, void* s, void* rstd, void* mean,
+                 int rows, int h, float eps, cudaStream_t st) {
+  const size_t bytes = WIDE ? 0 : (size_t)h * sizeof(float);
+  auto kernel = norm_fwd_kernel<TX, TY, TW, N, LAYER, WIDE>;
   cudaError_t err = smem_limit((const void*)kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   kernel<<<rows, row_threads(h, N), bytes, st>>>(
@@ -342,19 +482,51 @@ int norm_fwd_launch(const void* x, const void* res, const void* w,
 }
 
 template <typename TX, typename TY, typename TW, int N, bool LAYER>
+int norm_fwd_launch(const void* x, const void* res, const void* w,
+                    const void* b, void* y, void* s, void* rstd, void* mean,
+                    int rows, int h, float eps, cudaStream_t st) {
+  if (h > kFwdRowMax)
+    return norm_fwd_run<TX, TY, TW, N, LAYER, true>(x, res, w, b, y, s, rstd,
+                                                    mean, rows, h, eps, st);
+  return norm_fwd_run<TX, TY, TW, N, LAYER, false>(x, res, w, b, y, s, rstd,
+                                                   mean, rows, h, eps, st);
+}
+
+// coef null: the shared-memory row kernel over `blocks` row ranges; coef
+// f32 [2 * rows] scratch: the wide path, `blocks` row ranges of every
+// 2048-column slab
+template <typename TX, typename TY, typename TW, int N, bool LAYER>
 int norm_bwd_launch(const void* s, const void* w, const void* rstd,
                     const void* mean, const void* dy, const void* ds,
-                    void* dx, void* dw, void* db, void* part, int rows,
-                    int h, int blocks, int rpb, cudaStream_t st) {
-  const size_t bytes = (size_t)(LAYER ? 5 : 4) * h * sizeof(float);
-  auto kernel = norm_bwd_kernel<TX, TY, TW, N, LAYER>;
-  cudaError_t err = smem_limit((const void*)kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks, row_threads(h, N), bytes, st>>>(
-      static_cast<const TX*>(s), static_cast<const TW*>(w),
-      static_cast<const float*>(rstd), static_cast<const float*>(mean),
-      static_cast<const TY*>(dy), static_cast<const TX*>(ds),
-      static_cast<TX*>(dx), static_cast<float*>(part), rows, h, rpb);
+                    void* dx, void* dw, void* db, void* part, void* coef,
+                    int rows, int h, int blocks, int rpb, cudaStream_t st) {
+  cudaError_t err;
+  if (coef != nullptr) {
+    norm_bwd_coef_kernel<TX, TY, TW, N, LAYER>
+        <<<rows, row_threads(h, N), 0, st>>>(
+            static_cast<const TX*>(s), static_cast<const TW*>(w),
+            static_cast<const float*>(rstd), static_cast<const float*>(mean),
+            static_cast<const TY*>(dy), static_cast<float*>(coef), rows, h);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    norm_bwd_wide_kernel<TX, TY, TW, N, LAYER>
+        <<<dim3((h + kWideCols - 1) / kWideCols, blocks), kThreads, 0, st>>>(
+            static_cast<const TX*>(s), static_cast<const TW*>(w),
+            static_cast<const float*>(rstd), static_cast<const float*>(mean),
+            static_cast<const TY*>(dy), static_cast<const TX*>(ds),
+            static_cast<TX*>(dx), static_cast<const float*>(coef),
+            static_cast<float*>(part), rows, h, rpb);
+  } else {
+    const size_t bytes = (size_t)(LAYER ? 5 : 4) * h * sizeof(float);
+    auto kernel = norm_bwd_kernel<TX, TY, TW, N, LAYER>;
+    err = smem_limit((const void*)kernel, bytes);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<blocks, row_threads(h, N), bytes, st>>>(
+        static_cast<const TX*>(s), static_cast<const TW*>(w),
+        static_cast<const float*>(rstd), static_cast<const float*>(mean),
+        static_cast<const TY*>(dy), static_cast<const TX*>(ds),
+        static_cast<TX*>(dx), static_cast<float*>(part), rows, h, rpb);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dw_finish_kernel<TW><<<dim3((h + 31) / 32, LAYER ? 2 : 1), kThreads, 0,
@@ -384,18 +556,18 @@ int norm_fwd_typed(const void* x, const void* res, const void* w,
 template <bool LAYER, typename TX, typename TY>
 int norm_bwd_typed(const void* s, const void* w, const void* rstd,
                    const void* mean, const void* dy, const void* ds,
-                   void* dx, void* dw, void* db, void* part, int rows, int h,
-                   int blocks, int rpb, cudaStream_t st) {
+                   void* dx, void* dw, void* db, void* part, void* coef,
+                   int rows, int h, int blocks, int rpb, cudaStream_t st) {
   using TW = typename std::conditional<LAYER, float, TX>::type;
   constexpr int N = 16 / sizeof(TX);
   if (h % N == 0 && aligned16(s) && aligned16(w) && aligned16(dy) &&
       aligned16(ds) && aligned16(dx))
     return norm_bwd_launch<TX, TY, TW, N, LAYER>(
-        s, w, rstd, mean, dy, ds, dx, dw, db, part, rows, h, blocks, rpb,
-        st);
+        s, w, rstd, mean, dy, ds, dx, dw, db, part, coef, rows, h, blocks,
+        rpb, st);
   return norm_bwd_launch<TX, TY, TW, 1, LAYER>(s, w, rstd, mean, dy, ds, dx,
-                                               dw, db, part, rows, h, blocks,
-                                               rpb, st);
+                                               dw, db, part, coef, rows, h,
+                                               blocks, rpb, st);
 }
 
 // ------------------------------------------------------------------ K4
@@ -690,32 +862,32 @@ int norm_fwd_entry(const void* x, const void* res, const void* w,
 template <bool LAYER>
 int norm_bwd_entry(const void* s, const void* w, const void* rstd,
                    const void* mean, const void* dy, const void* ds,
-                   void* dx, void* dw, void* db, void* part, int rows, int h,
-                   int blocks, int rpb, int x_dtype, int y_dtype,
-                   cudaStream_t st) {
+                   void* dx, void* dw, void* db, void* part, void* coef,
+                   int rows, int h, int blocks, int rpb, int x_dtype,
+                   int y_dtype, cudaStream_t st) {
   if (rows == 0 || h == 0) return 0;
   if (x_dtype == y_dtype) {
     if (x_dtype == kF32)
       return norm_bwd_typed<LAYER, float, float>(
-          s, w, rstd, mean, dy, ds, dx, dw, db, part, rows, h, blocks, rpb,
-          st);
+          s, w, rstd, mean, dy, ds, dx, dw, db, part, coef, rows, h, blocks,
+          rpb, st);
     if (x_dtype == kBF16)
       return norm_bwd_typed<LAYER, __nv_bfloat16, __nv_bfloat16>(
-          s, w, rstd, mean, dy, ds, dx, dw, db, part, rows, h, blocks, rpb,
-          st);
+          s, w, rstd, mean, dy, ds, dx, dw, db, part, coef, rows, h, blocks,
+          rpb, st);
     if (x_dtype == kF16)
       return norm_bwd_typed<LAYER, __half, __half>(
-          s, w, rstd, mean, dy, ds, dx, dw, db, part, rows, h, blocks, rpb,
-          st);
+          s, w, rstd, mean, dy, ds, dx, dw, db, part, coef, rows, h, blocks,
+          rpb, st);
   } else if (y_dtype == kF32) {
     if (x_dtype == kBF16)
       return norm_bwd_typed<LAYER, __nv_bfloat16, float>(
-          s, w, rstd, mean, dy, ds, dx, dw, db, part, rows, h, blocks, rpb,
-          st);
+          s, w, rstd, mean, dy, ds, dx, dw, db, part, coef, rows, h, blocks,
+          rpb, st);
     if (x_dtype == kF16)
       return norm_bwd_typed<LAYER, __half, float>(
-          s, w, rstd, mean, dy, ds, dx, dw, db, part, rows, h, blocks, rpb,
-          st);
+          s, w, rstd, mean, dy, ds, dx, dw, db, part, coef, rows, h, blocks,
+          rpb, st);
   }
   return -1;
 }
@@ -730,7 +902,8 @@ int norm_bwd_entry(const void* s, const void* w, const void* rstd,
 // not take.
 
 // x, res [rows, h] (res, s null for the plain norm); w [h]; y [rows, h];
-// rstd [rows] f32. Dynamic shared memory: 4 * h bytes.
+// rstd [rows] f32. Dynamic shared memory: 4 * h bytes (none above 32768
+// elements a row).
 extern "C" int fused_rms_norm_fwd(const void* x, const void* res,
                                   const void* w, void* y, void* s,
                                   void* rstd, int rows, int h, float eps,
@@ -742,16 +915,17 @@ extern "C" int fused_rms_norm_fwd(const void* x, const void* res,
 
 // s [rows, h] (the saved input, or the summed stream of the add variant);
 // dy [rows, h]; ds [rows, h] or null; dx [rows, h]; dw [h]; dw_part f32
-// scratch [blocks, h]; block b owns rows [b * rpb, b * rpb + rpb).
-// Dynamic shared memory: 16 * h bytes.
+// scratch [blocks, h]; block b owns rows [b * rpb, b * rpb + rpb). coef
+// null: dynamic shared memory of 16 * h bytes; coef f32 scratch [2 * rows]
+// (rows wider than that allows): the two-pass wide path.
 extern "C" int fused_rms_norm_bwd(const void* s, const void* w,
                                   const void* rstd, const void* dy,
                                   const void* ds, void* dx, void* dw,
-                                  void* dw_part, int rows, int h, int blocks,
-                                  int rpb, int x_dtype, int y_dtype,
-                                  void* stream) {
+                                  void* dw_part, void* coef, int rows, int h,
+                                  int blocks, int rpb, int x_dtype,
+                                  int y_dtype, void* stream) {
   return norm_bwd_entry<false>(s, w, rstd, nullptr, dy, ds, dx, dw, nullptr,
-                               dw_part, rows, h, blocks, rpb, x_dtype,
+                               dw_part, coef, rows, h, blocks, rpb, x_dtype,
                                y_dtype, static_cast<cudaStream_t>(stream));
 }
 
@@ -768,15 +942,16 @@ extern "C" int fused_layer_norm_fwd(const void* x, const void* res,
 
 // as fused_rms_norm_bwd, with w f32, mean [rows] f32, dw and db [h] f32
 // and part f32 scratch [2 * blocks, h] (the dw partials, then the db
-// ones). Dynamic shared memory: 20 * h bytes.
+// ones). coef null: dynamic shared memory of 20 * h bytes.
 extern "C" int fused_layer_norm_bwd(const void* s, const void* w,
                                     const void* rstd, const void* mean,
                                     const void* dy, const void* ds, void* dx,
-                                    void* dw, void* db, void* part, int rows,
-                                    int h, int blocks, int rpb, int x_dtype,
-                                    int y_dtype, void* stream) {
+                                    void* dw, void* db, void* part,
+                                    void* coef, int rows, int h, int blocks,
+                                    int rpb, int x_dtype, int y_dtype,
+                                    void* stream) {
   return norm_bwd_entry<true>(s, w, rstd, mean, dy, ds, dx, dw, db, part,
-                              rows, h, blocks, rpb, x_dtype, y_dtype,
+                              coef, rows, h, blocks, rpb, x_dtype, y_dtype,
                               static_cast<cudaStream_t>(stream));
 }
 

@@ -120,12 +120,19 @@ def swiglu(x, y=None):
     return F.silu(x) * y
 
 
+def _fused_norm(x):
+    """Whether a norm takes its fused op (K3): with the flag on, for a
+    tensor with elements; an empty one takes the composition, as the
+    reference's `use_pallas` sends it there."""
+    return flag("FLAGS_pallas_fused_ops") and x.numel() > 0
+
+
 def rms_norm(x, weight=None, epsilon=1e-6, out_dtype=None):
     """rmsnorm over the last axis, times `weight` when given.
     `out_dtype=torch.float32` is the port's stand-in for the reference's
     O2 autocast of this op (its BLACK_LIST: x and weight upcast to f32,
     f32 out); None keeps the reference's dtypes without autocast."""
-    if flag("FLAGS_pallas_fused_ops"):
+    if _fused_norm(x):
         return fused_norm.rms_norm_raw(x, weight, epsilon, out_dtype)
     if out_dtype is not None:
         x = x.to(out_dtype)
@@ -140,7 +147,7 @@ def fused_add_rms_norm(x, residual, weight=None, epsilon=1e-6):
     """(normed, summed): normed = rmsnorm(x + residual) * weight, summed =
     x + residual — the pre-norm residual chain in one K3 launch when the
     flag is on."""
-    if flag("FLAGS_pallas_fused_ops"):
+    if _fused_norm(x):
         return fused_norm.add_rms_norm_raw(x, residual, weight, epsilon)
     summed = x + residual
     return rms_norm(summed, weight, epsilon), summed
@@ -174,7 +181,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
     x, weight and bias upcast to f32, f32 out)."""
     nshape = (normalized_shape,) if isinstance(normalized_shape, int) \
         else tuple(normalized_shape)
-    if len(nshape) == 1 and flag("FLAGS_pallas_fused_ops"):
+    if len(nshape) == 1 and _fused_norm(x):
         return fused_norm.layer_norm_raw(x, weight, bias, epsilon, out_dtype)
     if out_dtype is not None:
         x = x.to(out_dtype)
@@ -196,7 +203,7 @@ def fused_add_layer_norm(x, residual, weight=None, bias=None, epsilon=1e-5):
     """(normed, summed) for the LayerNorm streams (GPT's post-attention
     norm): one K3-LN launch when the flag is on, the add and `layer_norm`
     otherwise."""
-    if flag("FLAGS_pallas_fused_ops"):
+    if _fused_norm(x):
         return fused_norm.add_layer_norm_raw(x, residual, weight, bias,
                                              epsilon)
     summed = x + residual

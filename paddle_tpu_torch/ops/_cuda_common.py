@@ -36,14 +36,16 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 #: kernel name -> CUDA source (relative to the package). The build list:
 #: every kernel of the port is built from exactly these files. Each name
 #: is the C entry point of its source and has its own launch counter; the
-#: paged-decode variants over model-dtype, int8 and int4 caches share one
-#: source (one kernel template, the cache format a parameter), and so do
-#: the flash-attention forward and its varlen form, the backward kernels
-#: (dQ; dK and dV; each with its varlen form), the three FlashMask kernels
-#: and the fused norm (RMS and LayerNorm kinds), rotary, SwiGLU and
-#: dropout + add kernels. The flash forward, backward and FlashMask
-#: sources share their tile bodies through csrc/flash_attention_tiles.cuh;
-#: every header under csrc/ is part of each source's build hash.
+#: paged-decode variants over model-dtype, int8 and int4 caches each have
+#: a source of their own over one kernel template (csrc/paged_decode.cuh,
+#: the cache format a parameter), so the three build in parallel; the
+#: flash-attention forward and its varlen form share one source, and so
+#: do the backward kernels (dQ; dK and dV; each with its varlen form), the
+#: three FlashMask kernels and the fused norm (RMS and LayerNorm kinds),
+#: rotary, SwiGLU and dropout + add kernels. The flash forward, backward
+#: and FlashMask sources share their tile bodies through
+#: csrc/flash_attention_tc.cuh and csrc/flash_attention_tiles.cuh; every
+#: header under csrc/ is part of each source's build hash.
 KERNEL_SOURCES = {
     "flash_attention_fwd": "csrc/flash_attention_fwd.cu",
     "flash_attention_bwd_dq": "csrc/flash_attention_bwd.cu",
@@ -55,8 +57,8 @@ KERNEL_SOURCES = {
     "flashmask_bwd_dq": "csrc/flashmask_attention.cu",
     "flashmask_bwd_dkv": "csrc/flashmask_attention.cu",
     "paged_decode_attention": "csrc/paged_decode.cu",
-    "paged_decode_attention_int8": "csrc/paged_decode.cu",
-    "paged_decode_attention_int4": "csrc/paged_decode.cu",
+    "paged_decode_attention_int8": "csrc/paged_decode_int8.cu",
+    "paged_decode_attention_int4": "csrc/paged_decode_int4.cu",
     "quant_matmul": "csrc/quant_matmul.cu",
     "fused_rms_norm_fwd": "csrc/fused_norm.cu",
     "fused_rms_norm_bwd": "csrc/fused_norm.cu",

@@ -26,19 +26,22 @@ gradients.
 
 Routing: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises. There is no fallback. On the card the C entries route
-statically, by dtype (`_tensor_core_route`):
+statically, by dtype and head dim d padded to a multiple of 8
+(`_tensor_core_route`):
 
-    entry                  bf16                     f32
-    forward (K1, K1v)      tensor cores             CUDA cores
-    dQ, dK/dV (K2, K2v)    tensor cores             CUDA cores
+    entry                  bf16, d <= 128     bf16, d > 128; f32
+    forward (K1, K1v)      tensor cores       CUDA cores
+    dQ, dK/dV (K2, K2v)    tensor cores       CUDA cores
 
-The tensor-core bodies (csrc/flash_attention_tc.cuh) read Q, K, V and dO
-by TMA, so they need 16-byte-aligned tensors (`ValueError` otherwise;
-nothing is copied to mend it) and a head dim that is a multiple of 8:
-`with_head_pad` pads other head dims with zero columns and cuts the
-outputs back, the softmax scale staying 1/sqrt of the original d (the
-reference pads d to 128 the same way, `pallas_attention.py:215-218`). The
-CUDA-core bodies (csrc/flash_attention_tiles.cuh) take any head dim and
+Head dims up to 256 (`MAX_HEAD_DIM`) are taken, as the reference's kernel
+takes them (it pads d to a multiple of 128). The tensor-core bodies
+(csrc/flash_attention_tc.cuh) read Q, K, V and dO by TMA, so they need
+16-byte-aligned tensors (`ValueError` otherwise; nothing is copied to mend
+it) and a head dim that is a multiple of 8: `with_head_pad` pads other
+head dims with zero columns and cuts the outputs back, the softmax scale
+staying 1/sqrt of the original d (the reference pads d to 128 the same
+way, `pallas_attention.py:215-218`). The CUDA-core bodies
+(csrc/flash_attention_tiles.cuh) take any head dim up to 256 and any
 alignment.
 """
 from __future__ import annotations
@@ -58,7 +61,9 @@ _VARLEN = {_NAME: "flash_attention_varlen_fwd",
            _BWD_DQ: "flash_attention_varlen_bwd_dq",
            _BWD_DKV: "flash_attention_varlen_bwd_dkv"}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
+#: the largest padded head dim the tensor-core bodies take
+TC_MAX_HEAD_DIM = 128
 #: the LSE of a query row that sees no key (the TPU kernel's and K1's)
 EMPTY_ROW_LSE = -1e30
 
@@ -267,13 +272,15 @@ def _entry(name, kv_lens):
     return _VARLEN[name], (kv_lens.data_ptr(),)
 
 
-def _tensor_core_route(name, dtype, varlen):
+def _tensor_core_route(name, dtype, varlen, d):
     """Whether the C entry of kernel `name` (its varlen form when `varlen`)
-    runs a tensor-core body on `dtype` inputs: every bf16 entry (K1, K1v,
-    K2 and K2v dQ and dK/dV) does; f32 runs the CUDA-core bodies. The
-    route depends on the dtype alone; `name` and `varlen` are kept so that
-    each caller states which entry it asks about."""
-    return dtype == torch.bfloat16
+    runs a tensor-core body on `dtype` inputs of head dim `d`: every bf16
+    entry (K1, K1v, K2 and K2v dQ and dK/dV) does when d padded to a
+    multiple of 8 is at most 128; f32, and bf16 above 128, run the
+    CUDA-core bodies. The route depends on the dtype and head dim alone;
+    `name` and `varlen` are kept so that each caller states which entry it
+    asks about."""
+    return dtype == torch.bfloat16 and ceil_to(d, 8) <= TC_MAX_HEAD_DIM
 
 
 def _check_aligned(name, *tensors):
@@ -309,7 +316,7 @@ def _launch(name, kv_lens, ptrs, q, k, causal, scale, tma=(), ints=()):
     Sk, D] and the entry's own `ints`. On the tensor-core route the
     tensors `tma`, which the kernel reads by TMA, must be 16-byte
     aligned."""
-    if _tensor_core_route(name, q.dtype, kv_lens is not None):
+    if _tensor_core_route(name, q.dtype, kv_lens is not None, q.shape[3]):
         _check_aligned(name, *tma)
     entry, lens = _entry(name, kv_lens)
     fn = getattr(kernel_library(entry), entry)
@@ -344,7 +351,8 @@ def flash_attention_fwd(q, k, v, causal=True, kv_lens=None):
     _check(q, k, v)
     if kv_lens is not None:
         _check_lens(kv_lens, q)
-    if not _tensor_core_route(_NAME, q.dtype, kv_lens is not None):
+    if not _tensor_core_route(_NAME, q.dtype, kv_lens is not None,
+                              q.shape[3]):
         return _launch_fwd(q, k, v, causal, kv_lens,
                            softmax_scale(q.shape[3]))
     return with_head_pad(
@@ -395,8 +403,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=True, kv_lens=None):
 
     if kv_lens is not None:
         _check_lens(kv_lens, q)
-    if not any(_tensor_core_route(n, q.dtype, kv_lens is not None)
-               for n in (_BWD_DQ, _BWD_DKV)):
+    if not any(_tensor_core_route(n, q.dtype, kv_lens is not None,
+                                  q.shape[3]) for n in (_BWD_DQ, _BWD_DKV)):
         return run(q, k, v, o, do, softmax_scale(q.shape[3]))
     return with_head_pad(run, (q, k, v, o, do))
 
@@ -430,7 +438,8 @@ def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, kv_lens=None,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     # the tensor-core body reads lse and delta rows by TMA, whose row
     # stride is a multiple of 16 bytes: pad Sq to a multiple of 4 floats
-    tc = _tensor_core_route(_BWD_DKV, q.dtype, kv_lens is not None)
+    tc = _tensor_core_route(_BWD_DKV, q.dtype, kv_lens is not None,
+                            q.shape[3])
     (lse, stride), (delta, _) = (pad_rows(t, 4 if tc else 1)
                                  for t in (lse, delta))
     _launch(_BWD_DKV, kv_lens, (q, k, v, do, lse, delta, dk, dv), q, k,

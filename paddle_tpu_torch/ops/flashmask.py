@@ -8,8 +8,9 @@ Port of paddle_tpu/ops/pallas_attention.py `_fm_fwd_kernel`,
 oracle `_fm_dense_ref`, the custom VJP `_flashmask` and
 `flashmask_attention_raw`. The kernels live in
 csrc/flashmask_attention.cu (the tile bodies shared with K1/K2 in
-csrc/flash_attention_tiles.cuh); its source note says what bounds them on
-the H100 and how the design answers that.
+csrc/flash_attention_tc.cuh and csrc/flash_attention_tiles.cuh); its
+source note says what bounds them on the H100 and how the design answers
+that.
 
 Semantics (the causal LTS form): over [B, H, S, D] tensors with start
 rows [B, H, Sk] int32, key column j is hidden from query rows
@@ -20,7 +21,19 @@ reference's kernel does; `flashmask_attention_raw` raises ValueError for
 the rest on every device.
 
 Routing: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises. There is no fallback.
+kernel or raises. There is no fallback. On the card the C entries route
+statically, by entry, dtype and head dim d padded to a multiple of 8
+(`tensor_core_route`):
+
+    entry             bf16, d <= 128     bf16, d > 128; f32
+    forward           tensor cores       CUDA cores
+    dK/dV             tensor cores       CUDA cores
+    dQ                CUDA cores         CUDA cores
+
+As for K1/K2 (`ops.flash_attention`), the tensor-core route pads the head
+dim to a multiple of 8 (`with_head_pad`), needs 16-byte-aligned inputs
+(`ValueError` otherwise) and, in dK/dV, lse and delta rows padded to a
+multiple of 4 floats (`pad_rows`). Head dims up to 256 are taken.
 """
 from __future__ import annotations
 
@@ -30,10 +43,11 @@ import torch
 
 from ._cuda_common import (ceil_to, check_launch, count_launch,
                            current_stream, kernel_library)
-from .flash_attention import (_DTYPES, _bwd_delta, _check, _on_cpu,
-                              _require_cuda, attend_reference,
-                              check_bwd_inputs, dkv_from_scores,
-                              dq_from_scores, scores_reference)
+from .flash_attention import (_DTYPES, _bwd_delta, _check, _check_aligned,
+                              _on_cpu, _require_cuda, _tensor_core_route,
+                              attend_reference, check_bwd_inputs,
+                              dkv_from_scores, dq_from_scores, pad_rows,
+                              scores_reference, softmax_scale, with_head_pad)
 
 _FWD = "flashmask_fwd"
 _BWD_DQ = "flashmask_bwd_dq"
@@ -127,80 +141,97 @@ def _check_fm(q, k, v, start_rows):
                          f"{start_rows.device}")
 
 
-def _args(q, k, causal):
-    b, h, sq, d = q.shape
-    return (b, h, sq, k.shape[2], d, int(bool(causal)), _DTYPES[q.dtype],
-            current_stream(q.device))
+def tensor_core_route(name, dtype, d):
+    """Whether the K9 C entry `name` runs a tensor-core body on `dtype`
+    inputs of head dim `d`: the bf16 forward and dK/dV do when d padded
+    to a multiple of 8 is at most 128; dQ, f32 and bf16 above 128 run the
+    CUDA-core bodies."""
+    return name != _BWD_DQ and _tensor_core_route(name, dtype, False, d)
 
 
-def _fn(name, n_ptrs):
+def _launch(name, ptrs, q, k, causal, scale, ints=()):
+    """Launch the K9 C entry `name` on the data pointers of `ptrs` (the
+    start rows and tile bounds last), the shape of q [B, H, Sq, D] and k,
+    the entry's own `ints` and the softmax `scale` (1/sqrt(D) when
+    None)."""
     fn = getattr(kernel_library(name), name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) \
+        + [ctypes.c_int] * (7 + len(ints)) + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    b, h, sq, d = q.shape
+    code = fn(*(t.data_ptr() for t in ptrs), b, h, sq, k.shape[2], d,
+              int(bool(causal)), _DTYPES[q.dtype], *ints,
+              softmax_scale(d, scale), current_stream(q.device))
+    check_launch(name, code)
+    count_launch(name)
 
 
-def _launch_fwd(q, k, v, start_rows, smin, smax, causal):
+def _launch_fwd(q, k, v, start_rows, smin, smax, causal, scale=None):
     """(o, lse) by the K9 forward kernel (plain version
     `flashmask_attention_reference`). Takes only checked CUDA tensors and
-    the tile bounds of `tile_bounds`."""
+    the tile bounds of `tile_bounds`; on the tensor-core route q, k and v
+    must be 16-byte aligned with a head dim that is a multiple of 8."""
+    if tensor_core_route(_FWD, q.dtype, q.shape[3]):
+        _check_aligned(_FWD, q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    code = _fn(_FWD, 8)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        o.data_ptr(), lse.data_ptr(), start_rows.data_ptr(),
-                        smin.data_ptr(), smax.data_ptr(), *_args(q, k, causal))
-    check_launch(_FWD, code)
-    count_launch(_FWD)
+    _launch(_FWD, (q, k, v, o, lse, start_rows, smin, smax), q, k, causal,
+            scale)
     return o, lse
 
 
-def _launch_bwd_dq(q, k, v, do, lse, delta, start_rows, smin, smax, causal):
+def _launch_bwd_dq(q, k, v, do, lse, delta, start_rows, smin, smax, causal,
+                   scale=None):
     """dQ by the K9 dQ kernel (plain version `flashmask_bwd_dq_reference`).
     Takes only checked CUDA tensors (delta f32 [B, H, Sq])."""
     dq = torch.empty_like(q)
-    code = _fn(_BWD_DQ, 10)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                            dq.data_ptr(), start_rows.data_ptr(),
-                            smin.data_ptr(), smax.data_ptr(),
-                            *_args(q, k, causal))
-    check_launch(_BWD_DQ, code)
-    count_launch(_BWD_DQ)
+    _launch(_BWD_DQ, (q, k, v, do, lse, delta, dq, start_rows, smin, smax),
+            q, k, causal, scale)
     return dq
 
 
 def _launch_bwd_dkv(q, k, v, do, lse, delta, start_rows, smin, smax,
-                    causal):
+                    causal, scale=None):
     """(dK, dV) by the K9 dK/dV kernel (plain version
-    `flashmask_bwd_dkv_reference`). Takes only checked CUDA tensors."""
+    `flashmask_bwd_dkv_reference`). Takes only checked CUDA tensors; on
+    the tensor-core route q, k, v and dO must be 16-byte aligned with a
+    head dim that is a multiple of 8, and the lse and delta rows go out
+    padded to a multiple of 4 floats (the body reads them by TMA)."""
+    tc = tensor_core_route(_BWD_DKV, q.dtype, q.shape[3])
+    (lse, stride), (delta, _) = (pad_rows(t, 4 if tc else 1)
+                                 for t in (lse, delta))
+    if tc:
+        _check_aligned(_BWD_DKV, q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    code = _fn(_BWD_DKV, 11)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                             dk.data_ptr(), dv.data_ptr(),
-                             start_rows.data_ptr(), smin.data_ptr(),
-                             smax.data_ptr(), *_args(q, k, causal))
-    check_launch(_BWD_DKV, code)
-    count_launch(_BWD_DKV)
+    _launch(_BWD_DKV, (q, k, v, do, lse, delta, dk, dv, start_rows, smin,
+                       smax), q, k, causal, scale, ints=(stride,))
     return dk, dv
 
 
 def flashmask_fwd(q, k, v, start_rows, causal=False):
     """(o, lse) of FlashMask attention. CPU tensors take
     `flashmask_attention_reference`; CUDA tensors run the tile-bounds prep
-    and launch the K9 forward."""
+    and launch the K9 forward (on the tensor-core route with the head dim
+    padded to a multiple of 8)."""
     if _on_cpu(q, k, v, start_rows):
         return flashmask_attention_reference(q, k, v, start_rows, causal)
     _require_cuda("flashmask_fwd", q)
     _check_fm(q, k, v, start_rows)
     smin, smax = tile_bounds(start_rows, k.shape[2])
-    return _launch_fwd(q, k, v, start_rows, smin, smax, causal)
+    if not tensor_core_route(_FWD, q.dtype, q.shape[3]):
+        return _launch_fwd(q, k, v, start_rows, smin, smax, causal)
+    return with_head_pad(
+        lambda q_, k_, v_, scale: _launch_fwd(q_, k_, v_, start_rows, smin,
+                                              smax, causal, scale),
+        (q, k, v))
 
 
 def flashmask_bwd(q, k, v, o, lse, do, start_rows, causal=False):
     """(dq, dk, dv) of FlashMask attention from the forward's o and lse.
     CPU tensors take `flashmask_attention_bwd_reference`; CUDA tensors run
     delta = rowsum(dO * O) and the tile-bounds prep in plain torch, then
-    the K9 dQ and dK/dV kernels."""
+    the K9 dQ and dK/dV kernels (dK/dV on the tensor-core route with the
+    head dim padded to a multiple of 8)."""
     if _on_cpu(q, k, v, o, lse, do, start_rows):
         return flashmask_attention_bwd_reference(q, k, v, o, lse, do,
                                                  start_rows, causal)
@@ -209,8 +240,13 @@ def flashmask_bwd(q, k, v, o, lse, do, start_rows, causal=False):
     check_bwd_inputs(q, k, v, o, lse, do)
     smin, smax = tile_bounds(start_rows, k.shape[2])
     delta = _bwd_delta(o, do)
-    args = (q, k, v, do, lse, delta, start_rows, smin, smax, causal)
-    return (_launch_bwd_dq(*args), *_launch_bwd_dkv(*args))
+    fm = (start_rows, smin, smax, causal)
+    dq = _launch_bwd_dq(q, k, v, do, lse, delta, *fm)
+    if not tensor_core_route(_BWD_DKV, q.dtype, q.shape[3]):
+        return (dq, *_launch_bwd_dkv(q, k, v, do, lse, delta, *fm))
+    return (dq, *with_head_pad(
+        lambda q_, k_, v_, do_, scale: _launch_bwd_dkv(
+            q_, k_, v_, do_, lse, delta, *fm, scale), (q, k, v, do)))
 
 
 class FlashMask(torch.autograd.Function):

@@ -36,7 +36,13 @@ kernel or raises. There is no fallback. Unlike the reference, there is no
 size threshold: its `_MIN_ELEMS` is a crossover measured on a TPU v5e,
 and here every CUDA tensor takes the kernel (so launch counts are exact);
 `FLAGS_pallas_fused_ops` alone chooses between these ops and the plain
-compositions (`nn.functional`).
+compositions (`nn.functional`), except for an empty tensor, which the
+norms of `nn.functional` send to the composition as the reference's
+`use_pallas` does (the kernels refuse it). The norms take rows of any
+width: past `MAX_HIDDEN` (RMS) / `MAX_HIDDEN_LN` (LayerNorm) the
+backward, and past 32768 elements the forward, take the kernels' wide
+path (a second pass over device memory instead of a row in shared
+memory).
 """
 from __future__ import annotations
 
@@ -57,14 +63,18 @@ _LN_BWD = "fused_layer_norm_bwd"
 _DA_FWD = "dropout_add_fwd"
 _DA_BWD = "dropout_add_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-#: the norm kernels keep 4 (RMS backward) or 5 (LayerNorm backward: db's
-#: partial too) f32 rows of H in shared memory, at most 227 KB
+#: the widest rows the norm backward kernels hold in shared memory: 4 (RMS)
+#: or 5 (LayerNorm: db's partial too) f32 rows of H, at most 227 KB. Wider
+#: rows take the two-pass wide path (csrc/fused_norm.cu); there is no
+#: width limit
 MAX_HIDDEN = 12288
 MAX_HIDDEN_LN = 11264
 #: K3 backward blocks per SM: each block writes one f32 dw (and db)
 #: partial row, so more blocks buy parallelism over rows at the price of
 #: partial traffic
 _BWD_BLOCKS_PER_SM = 4
+#: columns of one block of the wide backward path (kWideCols in the source)
+_WIDE_COLS = 2048
 
 
 def _acc(dtype):
@@ -238,12 +248,12 @@ def _launch(name, fn, *args):
     count_launch(name)
 
 
-def _check_norm(name, x, params, param_dtype, max_hidden, out_dtype,
-                *others):
+def _check_norm(name, x, params, param_dtype, out_dtype, *others):
     h = x.shape[-1] if x.dim() else 0
-    if x.numel() == 0 or h > max_hidden:
-        raise ValueError(f"{name}: needs rows of 1..{max_hidden} elements, "
-                         f"got shape {tuple(x.shape)}")
+    if x.numel() == 0:
+        raise ValueError(f"{name}: needs rows of 1 or more elements, got "
+                         f"shape {tuple(x.shape)} (the routed ops send "
+                         "empty tensors to the plain composition)")
     _check_dtype(name, x.dtype)
     for p in params:
         if p.shape != (h,) or p.dtype != param_dtype:
@@ -267,12 +277,21 @@ def _check_stats(name, rows, *stats):
     _check_contiguous(name, *stats)
 
 
-def _bwd_grid(rows, device):
-    """(blocks, rows per block) of a K3 backward over `rows` rows."""
+def _bwd_grid(rows, h, max_hidden, device):
+    """(row blocks, rows per block, coef scratch or None) of a K3 backward
+    over `rows` rows of `h`: rows up to `max_hidden` wide take the
+    shared-memory kernel, ~4 blocks per SM over the rows; wider ones the
+    two-pass wide path, whose blocks also split the row into 2048-column
+    slabs (so fewer row blocks) and which needs an f32 [2 * rows] scratch
+    for the per-row sums."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    blocks = min(rows, _BWD_BLOCKS_PER_SM * sms)
+    wide = h > max_hidden
+    slabs = -(-h // _WIDE_COLS) if wide else 1
+    blocks = min(rows, max(1, _BWD_BLOCKS_PER_SM * sms // slabs))
     rpb = -(-rows // blocks)
-    return -(-rows // rpb), rpb
+    coef = torch.empty(2 * rows, dtype=torch.float32, device=device) \
+        if wide else None
+    return -(-rows // rpb), rpb, coef
 
 
 def fused_rms_norm_fwd(x, res, w, eps, out_dtype=None):
@@ -283,8 +302,7 @@ def fused_rms_norm_fwd(x, res, w, eps, out_dtype=None):
     if _plain(_NORM_FWD, x, res, w):
         return rms_norm_fwd_reference(x, res, w, eps, out_dtype)
     out_dtype = x.dtype if out_dtype is None else out_dtype
-    _check_norm("fused RMSNorm", x, (w,), x.dtype, MAX_HIDDEN, out_dtype,
-                res)
+    _check_norm("fused RMSNorm", x, (w,), x.dtype, out_dtype, res)
     if res is not None and res.dtype != x.dtype:
         raise ValueError(f"fused RMSNorm: residual dtype {res.dtype} differs "
                          f"from x's {x.dtype}")
@@ -312,22 +330,23 @@ def fused_rms_norm_bwd(s, w, rstd, dy, ds=None):
     if _plain(_NORM_BWD, s, w, rstd, dy, ds):
         return rms_norm_bwd_reference(s, w, rstd, dy, ds)
     name = "fused RMSNorm backward"
-    _check_norm(name, s, (w,), s.dtype, MAX_HIDDEN, dy.dtype, dy, ds)
+    _check_norm(name, s, (w,), s.dtype, dy.dtype, dy, ds)
     h = s.shape[-1]
     rows = s.numel() // h
     _check_stats(name, rows, rstd)
     if ds is not None and ds.dtype != s.dtype:
         raise ValueError(f"{name}: ds dtype {ds.dtype} differs from s's "
                          f"{s.dtype}")
-    blocks, rpb = _bwd_grid(rows, s.device)
+    blocks, rpb, coef = _bwd_grid(rows, h, MAX_HIDDEN, s.device)
     dx = torch.empty_like(s)
     dw = torch.empty(h, dtype=s.dtype, device=s.device)
     part = torch.empty((blocks, h), dtype=torch.float32, device=s.device)
-    fn = _entry(_NORM_BWD, [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+    fn = _entry(_NORM_BWD, [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                 + [ctypes.c_void_p])
     _launch(_NORM_BWD, fn, s.data_ptr(), w.data_ptr(), rstd.data_ptr(),
             dy.data_ptr(), _ptr(ds), dx.data_ptr(), dw.data_ptr(),
-            part.data_ptr(), rows, h, blocks, rpb, _DTYPES[s.dtype],
+            part.data_ptr(), _ptr(coef), rows, h, blocks, rpb,
+            _DTYPES[s.dtype],
             _DTYPES[dy.dtype], current_stream(s.device))
     return dx, dw
 
@@ -340,8 +359,7 @@ def fused_layer_norm_fwd(x, res, w, b, eps, out_dtype=None):
     if _plain(_LN_FWD, x, res, w, b):
         return layer_norm_fwd_reference(x, res, w, b, eps, out_dtype)
     out_dtype = x.dtype if out_dtype is None else out_dtype
-    _check_norm("fused LayerNorm", x, (w, b), torch.float32, MAX_HIDDEN_LN,
-                out_dtype, res)
+    _check_norm("fused LayerNorm", x, (w, b), torch.float32, out_dtype, res)
     if res is not None and res.dtype != x.dtype:
         raise ValueError(f"fused LayerNorm: residual dtype {res.dtype} "
                          f"differs from x's {x.dtype}")
@@ -371,25 +389,24 @@ def fused_layer_norm_bwd(s, w, rstd, mean, dy, ds=None):
     if _plain(_LN_BWD, s, w, rstd, mean, dy, ds):
         return layer_norm_bwd_reference(s, w, rstd, mean, dy, ds)
     name = "fused LayerNorm backward"
-    _check_norm(name, s, (w,), torch.float32, MAX_HIDDEN_LN, dy.dtype, dy,
-                ds)
+    _check_norm(name, s, (w,), torch.float32, dy.dtype, dy, ds)
     h = s.shape[-1]
     rows = s.numel() // h
     _check_stats(name, rows, rstd, mean)
     if ds is not None and ds.dtype != s.dtype:
         raise ValueError(f"{name}: ds dtype {ds.dtype} differs from s's "
                          f"{s.dtype}")
-    blocks, rpb = _bwd_grid(rows, s.device)
+    blocks, rpb, coef = _bwd_grid(rows, h, MAX_HIDDEN_LN, s.device)
     dx = torch.empty_like(s)
     dw, db = (torch.empty(h, dtype=torch.float32, device=s.device)
               for _ in range(2))
     part = torch.empty((2 * blocks, h), dtype=torch.float32, device=s.device)
-    fn = _entry(_LN_BWD, [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+    fn = _entry(_LN_BWD, [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                 + [ctypes.c_void_p])
     _launch(_LN_BWD, fn, s.data_ptr(), w.data_ptr(), rstd.data_ptr(),
             mean.data_ptr(), dy.data_ptr(), _ptr(ds), dx.data_ptr(),
-            dw.data_ptr(), db.data_ptr(), part.data_ptr(), rows, h, blocks,
-            rpb, _DTYPES[s.dtype], _DTYPES[dy.dtype],
+            dw.data_ptr(), db.data_ptr(), part.data_ptr(), _ptr(coef), rows,
+            h, blocks, rpb, _DTYPES[s.dtype], _DTYPES[dy.dtype],
             current_stream(s.device))
     return dx, dw, db
 

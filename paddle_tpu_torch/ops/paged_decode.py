@@ -5,10 +5,11 @@ Port of paddle_tpu/ops/pallas_decode.py (`_decode_kernel` through
 `_paged_decode_x32`, entry `paged_decode_attention`) for caches in the
 model's dtype (K7) and for int8 and int4 caches with per-block scales
 (K7q); the plain version is the counterpart of
-`paged_decode_attention_xla`. The kernels live in csrc/paged_decode.cu
-(one template, the cache format a parameter, one C entry point and one
-launch counter per format); its source note says what bounds it on the
-H100 and how its design answers that.
+`paged_decode_attention_xla`. The kernels live in csrc/paged_decode.cuh
+(one template, the cache format a parameter) with one source, C entry
+point and launch counter per format (csrc/paged_decode.cu,
+paged_decode_int8.cu, paged_decode_int4.cu); the header's note says what
+bounds them on the H100 and how the design answers that.
 
 Contract: q [S, Hq, D]; caches [N, Hkv, bs, D] in q's dtype, or int8
 with k_scale/v_scale [N] f32 (a cached value is code * scale[block]), or
@@ -19,7 +20,12 @@ bs/2 + t in its high nibble; scales required); block_tables [S, P] int32
 lengths. Returns [S, Hq, D] in q's dtype.
 
 Routing: CPU tensors take the plain version; CUDA tensors launch the
-kernel of their cache format or raise. There is no fallback.
+kernel of their cache format or raise. There is no fallback. The kernels
+take any GQA group and head dims that are multiples of 8 up to 256
+(`MAX_HEAD_DIM`), as the reference's kernel serves them; a head dim that
+is no multiple of 8 takes the plain version on the card too, as the
+reference's gate (`decode_gate_reason`) sends head dims off its kernel's
+alignment to its XLA composition.
 """
 from __future__ import annotations
 
@@ -37,8 +43,8 @@ _NAME = "paged_decode_attention"
 KERNEL_NAMES = {"model": _NAME, "int8": _NAME + "_int8",
                 "int4": _NAME + "_int4"}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
-GROUPS = (1, 2, 4, 8, 16)     # Hq / Hkv values the kernel is built for
+#: the largest head dim the kernels take (a multiple of 8)
+MAX_HEAD_DIM = 256
 
 
 def _cache_format(k_scale, kv_int4) -> str:
@@ -87,6 +93,16 @@ def paged_decode_attention_reference(q, k_cache, v_cache, block_tables,
     return torch.einsum("sht,sthd->shd", probs, v).to(q.dtype)
 
 
+def kernel_gate_reason(head_dim):
+    """Why a CUDA call takes the plain version instead of the kernel (None
+    when the kernel runs): a head dim that is no multiple of 8, which the
+    reference's gate sends to its XLA composition too."""
+    if head_dim % 8:
+        return (f"head_dim {head_dim} is no multiple of 8: the reference's "
+                "composition")
+    return None
+
+
 def _check(fmt, q, k_cache, v_cache, block_tables, seq_lens, k_scale,
            v_scale):
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
@@ -101,9 +117,8 @@ def _check(fmt, q, k_cache, v_cache, block_tables, seq_lens, k_scale,
                          f"{k_cache.shape[3]}")
     if hq % hkv:
         raise ValueError(f"Hq {hq} is not a multiple of Hkv {hkv}")
-    if hq // hkv not in GROUPS or d > MAX_HEAD_DIM or d % 8:
-        raise ValueError(f"GQA group {hq // hkv} (kernel: {GROUPS}) or "
-                         f"head_dim {d} (kernel: a multiple of 8 up to "
+    if d > MAX_HEAD_DIM or d % 8:
+        raise ValueError(f"head_dim {d} (kernel: a multiple of 8 up to "
                          f"{MAX_HEAD_DIM}) not supported by the kernel")
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError("the caches must be 16-byte aligned (16-byte "
@@ -122,9 +137,6 @@ def _check(fmt, q, k_cache, v_cache, block_tables, seq_lens, k_scale,
         if k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8:
             raise ValueError(f"dtype {k_cache.dtype}: {fmt} caches are "
                              "stored as int8")
-        if d % 16:
-            raise ValueError(f"head_dim {d}: {fmt} cache rows must be a "
-                             "multiple of 16 bytes")
         n_blocks = k_cache.shape[0]
         if v_scale is None or tuple(k_scale.shape) != (n_blocks,) \
                 or tuple(v_scale.shape) != (n_blocks,) \
@@ -145,13 +157,15 @@ def _check(fmt, q, k_cache, v_cache, block_tables, seq_lens, k_scale,
 def paged_decode_attention(q, k_cache, v_cache, block_tables, seq_lens,
                            k_scale=None, v_scale=None, kv_int4=False):
     """Paged decode attention over model-dtype, int8 (`k_scale`/`v_scale`
-    given) or int4-packed (`kv_int4`) caches. CPU tensors take
+    given) or int4-packed (`kv_int4`) caches. CPU tensors, and a head dim
+    that is no multiple of 8 (the reference's composition), take
     `paged_decode_attention_reference`; CUDA tensors launch the kernel of
     the cache format."""
     fmt = _cache_format(k_scale, kv_int4)
     tensors = [q, k_cache, v_cache, block_tables, seq_lens] + (
         [] if k_scale is None else [k_scale, v_scale])
-    if all(t is None or t.device.type == "cpu" for t in tensors):
+    if all(t is None or t.device.type == "cpu" for t in tensors) \
+            or kernel_gate_reason(q.shape[-1]) is not None:
         return paged_decode_attention_reference(
             q, k_cache, v_cache, block_tables, seq_lens, k_scale, v_scale,
             kv_int4)

@@ -937,8 +937,8 @@ def test_layer_norm_kernels_refuse_bad_inputs(card):
     with pytest.raises(ValueError, match="weight"):
         fused_norm.fused_layer_norm_fwd(x, None, x[0].half(), x[0], 1e-5)
     with pytest.raises(ValueError, match="rows of"):
-        wide = torch.zeros(2, fused_norm.MAX_HIDDEN_LN + 8, device=card)
-        fused_norm.fused_layer_norm_fwd(wide, None, wide[0], wide[0], 1e-5)
+        empty = torch.zeros(0, 64, device=card)
+        fused_norm.fused_layer_norm_fwd(empty, None, x[0], x[0], 1e-5)
     with pytest.raises(ValueError, match="one shape"):
         fused_norm.dropout_add_fwd(x, x[:2], x, 1.0)
 
@@ -1227,3 +1227,415 @@ def test_varlen_and_flashmask_apis_on_card_match_cpu(card):
     torch.cuda.synchronize()
     assert out.shape == q.shape and out2.shape == y[0].shape
     assert _launched() == {}
+
+
+# ------------------------------------------------- faults F1-F4, K9 on TC
+
+def _nan_pool(card):
+    """Leave NaN-filled blocks in the caching allocator, so an output the
+    kernel did not write would read NaN, not a lucky 0."""
+    junk = [torch.full((n,), float("nan"), device=card)
+            for n in (64, 256, 1024, 4096) for _ in range(8)]
+    del junk
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_with_no_keys_or_no_queries(card, dtype):
+    """F4: a forward with Sk = 0 writes O = 0 and lse = -1e30, dQ with Sk
+    = 0 writes dQ = 0 and dK/dV with Sq = 0 writes dK = dV = 0, in both
+    dtypes (bf16 would otherwise reach the tensor-core bodies' TMA
+    descriptors with a zero dimension), through the flash entries (K1,
+    K1v, K2) and K9's; the f32 results are the reference."""
+    from paddle_tpu_torch.ops.flashmask import flashmask_bwd, flashmask_fwd
+
+    rs = np.random.RandomState(40)
+    q = _randn(rs, 1, 2, 4, 64).to(card, dtype)
+    kv0 = torch.zeros(1, 2, 0, 64, device=card, dtype=dtype)
+    lens = torch.zeros(1, dtype=torch.int32, device=card)
+    _nan_pool(card)
+    for kl in (None, lens):
+        o, lse = flash_attention_fwd(q, kv0, kv0, True, kl)
+        torch.cuda.synchronize()
+        assert o.shape == q.shape and not o.any()
+        assert (lse == -1e30).all()
+    do = _randn(rs, 1, 2, 4, 64).to(card, dtype)
+    dq, dk, dv = flash_attention_bwd(q, kv0, kv0, o, lse, do, True)
+    torch.cuda.synchronize()
+    assert dq.shape == q.shape and not dq.any()
+    assert dk.shape == dv.shape == kv0.shape
+    st0 = torch.zeros(1, 2, 0, dtype=torch.int32, device=card)
+    o, lse = flashmask_fwd(q, kv0, kv0, st0, True)
+    dq, _, _ = flashmask_bwd(q, kv0, kv0, o, lse, do, st0, True)
+    torch.cuda.synchronize()
+    assert not o.any() and (lse == -1e30).all() and not dq.any()
+    # Sq = 0 under autograd: dK = dV = 0
+    k, v = (_randn(rs, 1, 2, 5, 64).to(card, dtype).requires_grad_()
+            for _ in range(2))
+    q0 = torch.zeros(1, 2, 0, 64, device=card, dtype=dtype,
+                     requires_grad=True)
+    _nan_pool(card)
+    out, _ = flash_attention(q0, k, v, causal=False)
+    gk, gv = torch.autograd.grad(out.float().sum(), (k, v))
+    torch.cuda.synchronize()
+    assert out.shape == q0.shape
+    assert not gk.any() and not gv.any()
+    st = torch.full((1, 2, 5), 3, dtype=torch.int32, device=card)
+    o0, l0 = flashmask_fwd(q0.detach(), k.detach(), v.detach(), st)
+    _, gk, gv = flashmask_bwd(q0.detach(), k.detach(), v.detach(), o0, l0,
+                              o0, st)
+    torch.cuda.synchronize()
+    assert not gk.any() and not gv.any()
+
+
+#: F1: GQA groups off the templated ones (3, 6, 7 and 32) and head dims
+#: up to 256
+DECODE_FAULT_CASES = [(6, 2, 128), (12, 2, 64), (14, 2, 128), (32, 1, 128),
+                      (8, 8, 256), (12, 4, 256), (32, 1, 256), (4, 4, 192),
+                      (16, 4, 136)]
+DECODE_FAULT_IDS = ["g3", "g6", "g7", "g32", "d256", "g3-d256", "g32-d256",
+                    "d192", "d136"]
+
+
+def _decode_inputs(card, rs, s, hq, hkv, d, bs, pages, blocks, dtype, fmt):
+    q = _randn(rs, s, hq, d).to(card, dtype)
+    if fmt == "model":
+        kc, vc = (_randn(rs, blocks, hkv, bs, d).to(card, dtype)
+                  for _ in range(2))
+        scales = ()
+    else:
+        rows, lo, smax = (bs // 2, -128, 0.3) if fmt == "int4" \
+            else (bs, -127, 0.015)
+        kc, vc = (torch.from_numpy(rs.randint(lo, 128, (blocks, hkv, rows, d))
+                                   .astype(np.int8)).to(card)
+                  for _ in range(2))
+        scales = tuple(torch.from_numpy((rs.rand(blocks) * smax / 2
+                                         + smax / 2).astype("float32"))
+                       .to(card) for _ in range(2))
+    ids = rs.choice(np.arange(1, blocks), (s * pages,), replace=False)
+    tables = torch.from_numpy(ids.reshape(s, pages).astype("int32")).to(card)
+    lens = rs.randint(1, pages * bs + 1, (s,)).astype("int32")
+    lens[0] = 1
+    return (q, kc, vc, tables, torch.from_numpy(lens).to(card)) + scales
+
+
+@pytest.mark.parametrize("fmt", ["model", "int8", "int4"])
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("hq,hkv,d", DECODE_FAULT_CASES,
+                         ids=DECODE_FAULT_IDS)
+def test_paged_decode_takes_any_group_and_head_dims_to_256(card, fmt, dtype,
+                                                           tol, hq, hkv, d):
+    """F1: K7 / K7q at groups 3, 6, 7 and 32 (cut into the templated
+    groups: 2 + 1, 4 + 2, 4 + 2 + 1, 16 + 16) and head dims 136-256 (the
+    DM 256 instantiations, f32 caches in 32-token chunks; 136 has 8-byte
+    int8/int4 rows), against the plain version: one call of the format's
+    entry each, with the tolerances of the other decode tests."""
+    rs = np.random.RandomState(hq * 1000 + d)
+    args = _decode_inputs(card, rs, 5, hq, hkv, d, 16, 12, 80, dtype, fmt)
+    kw = {"kv_int4": fmt == "int4"}
+    _cuda_common.reset_launch_counts()
+    out = paged_decode_attention(*args[:5], *args[5:], **kw)
+    ref = paged_decode_attention_reference(*args[:5], *args[5:], **kw)
+    torch.cuda.synchronize()
+    assert _launched() == {KERNEL_NAMES[fmt]: 1}
+    assert out.dtype == dtype and out.shape == (5, hq, d)
+    assert (out.float() - ref.float()).abs().max().item() < tol
+
+
+@pytest.mark.parametrize("fmt", ["model", "int8"])
+def test_paged_decode_int8_rows_of_eight_bytes_and_plain_head_dims(card,
+                                                                   fmt):
+    """A head dim of 72 (8-byte int8 rows: 8-byte copies) runs the kernel;
+    a head dim of 100 (no multiple of 8) takes the plain version on the
+    card, as the reference's gate sends it to its composition, and
+    launches nothing."""
+    rs = np.random.RandomState(41)
+    args = _decode_inputs(card, rs, 4, 8, 2, 72, 16, 6, 40, torch.bfloat16,
+                          fmt)
+    _cuda_common.reset_launch_counts()
+    out = paged_decode_attention(*args)
+    ref = paged_decode_attention_reference(*args)
+    torch.cuda.synchronize()
+    assert _launched() == {KERNEL_NAMES[fmt]: 1}
+    assert (out.float() - ref.float()).abs().max().item() < 2e-2
+    args = _decode_inputs(card, rs, 4, 8, 2, 100, 16, 6, 40, torch.bfloat16,
+                          fmt)
+    _cuda_common.reset_launch_counts()
+    out = paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert _launched() == {}
+    assert torch.equal(out, paged_decode_attention_reference(*args))
+
+
+@pytest.mark.parametrize("heads,kv_heads,hidden", [(6, 2, 96), (7, 1, 112),
+                                                   (2, 2, 512)],
+                         ids=["group3", "group7", "d256"])
+def test_engine_on_card_serves_any_group_and_d256(card, heads, kv_heads,
+                                                  hidden):
+    """F1 end to end: tiny f32 LLaMAs with GQA groups 3 and 7 and with
+    head dim 256 serve, through K1 and K7 on the card, the greedy tokens
+    of the same model on the CPU."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.text.models import (LlamaForCausalLM,
+                                              llama_tiny_config)
+
+    torch.manual_seed(0)
+    cfg = llama_tiny_config(hidden_size=hidden, num_attention_heads=heads,
+                            num_key_value_heads=kv_heads)
+    cpu = LlamaForCausalLM(cfg, device="cpu")
+    gpu = LlamaForCausalLM(cfg, device=card)
+    gpu.load_state_dict(cpu.state_dict())
+    rs = np.random.RandomState(3)
+    stream = [(rs.randint(0, 256, (ln,)), nt)
+              for ln, nt in ((3, 4), (20, 6), (2, 9), (40, 3))]
+    out = []
+    _cuda_common.reset_launch_counts()
+    for model, dev in ((cpu, "cpu"), (gpu, card)):
+        eng = ServingEngine(model, max_slots=2, kv_block_size=8, device=dev)
+        for p, nt in stream:
+            eng.add_request(p, max_new_tokens=nt)
+        out.append(eng.run())
+    assert {k: v.tolist() for k, v in out[0].items()} \
+        == {k: v.tolist() for k, v in out[1].items()}
+    counts = _cuda_common.launch_counts()
+    assert counts["flash_attention_fwd"] == len(stream) * cfg.num_hidden_layers
+    assert counts["paged_decode_attention"] > 0
+
+
+#: F2: head dims above 128 on the CUDA-core bodies' DM 256 instantiations
+WIDE_D_CASES = [(1, 4, 4, 200, 200, 192, True), (2, 4, 2, 130, 130, 256, True),
+                (1, 2, 2, 70, 150, 256, False), (1, 4, 1, 150, 70, 136, True)]
+WIDE_D_IDS = ["d192", "d256-gqa", "d256-full", "d136-mqa-empty-rows"]
+
+
+@pytest.mark.parametrize("dtype,tol,gtol", [(torch.float32, 1e-4, 1e-4),
+                                            (torch.bfloat16, 2e-2, 2 ** -7)])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", WIDE_D_CASES,
+                         ids=WIDE_D_IDS)
+def test_flash_takes_head_dims_to_256(card, dtype, tol, gtol, b, hq, hkv, sq,
+                                      sk, d, causal):
+    """F2: K1 and both K2 kernels at head dims 136-256 against the plain
+    versions (O within `tol`, lse within 1e-3, each gradient within
+    `gtol` of its largest |value|), one launch of each."""
+    q, k, v, do = (t.to(dtype) for t in _bf16_case(card, b, hq, hkv, sq, sk,
+                                                   d, 42))
+    _cuda_common.reset_launch_counts()
+    o, lse = flash_attention_fwd(q, k, v, causal)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert _launched() == {"flash_attention_fwd": 1,
+                           "flash_attention_bwd_dq": 1,
+                           "flash_attention_bwd_dkv": 1}
+    ro, rlse = flash_attention_reference(q, k, v, causal)
+    assert (o.float() - ro.float()).abs().max().item() < tol
+    assert (lse - rlse).abs().max().item() < 1e-3
+    _check_grads(got, flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                    causal), gtol)
+
+
+@pytest.mark.parametrize("dtype,tol,gtol", [(torch.float32, 1e-4, 1e-4),
+                                            (torch.bfloat16, 2e-2, 2 ** -7)])
+@pytest.mark.parametrize("d", [192, 256])
+def test_varlen_and_flashmask_take_head_dims_to_256(card, dtype, tol, gtol,
+                                                    d):
+    """F2: K1v/K2v (lengths 0, 77 and S) and K9 (random start rows) at
+    head dims 192 and 256 against the plain versions, one launch each."""
+    from paddle_tpu_torch.ops.flashmask import (
+        flashmask_attention_bwd_reference, flashmask_attention_reference,
+        flashmask_bwd, flashmask_fwd)
+
+    q, k, v, do = (t.to(dtype) for t in _bf16_case(card, 3, 2, 2, 140, 140,
+                                                   d, 43))
+    lens = torch.tensor([0, 77, 140], dtype=torch.int32, device=card)
+    _cuda_common.reset_launch_counts()
+    o, lse = flash_attention_fwd(q, k, v, True, lens)
+    got = flash_attention_bwd(q, k, v, o, lse, do, True, lens)
+    torch.cuda.synchronize()
+    assert _launched() == dict.fromkeys(VARLEN, 1)
+    ro, rlse = flash_attention_reference(q, k, v, True, lens)
+    assert (o.float() - ro.float()).abs().max().item() < tol
+    assert (lse - rlse).abs().max().item() < 1e-3
+    _check_grads(got, flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                    True, lens), gtol)
+    rs = np.random.RandomState(44)
+    st = torch.from_numpy(_fm_starts("random", 3, 2, 140, rs)).to(card)
+    _cuda_common.reset_launch_counts()
+    o, lse = flashmask_fwd(q, k, v, st, True)
+    got = flashmask_bwd(q, k, v, o, lse, do, st, True)
+    torch.cuda.synchronize()
+    assert _launched() == dict.fromkeys(FLASHMASK, 1)
+    ro, rlse = flashmask_attention_reference(q, k, v, st, True)
+    assert (o.float() - ro.float()).abs().max().item() < tol
+    assert (lse - rlse).abs().max().item() < 1e-3
+    _check_grads(got, flashmask_attention_bwd_reference(
+        q, k, v, o, lse, do, st, True), gtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,h", [("rms", 16384), ("rms", 65536),
+                                    ("ln", fused_norm.MAX_HIDDEN_LN + 8),
+                                    ("ln", 65536)])
+def test_norms_take_wide_rows_through_nn_functional(card, dtype, kind, h):
+    """F3: the routed norms and their add forms at rows wider than the
+    shared-memory kernels hold (RMS 16384: LLaMA's widest hidden; LN
+    11272; 65536: the forward's wide path too), forward and backward
+    through nn.functional, against the same calls on the CPU (the plain
+    versions): the kernels' tolerances relative to each output's largest
+    |value| (dw, db: f32 sums over rows, 1e-4 unless rounded to bf16);
+    one launch each way of each call."""
+    from paddle_tpu_torch.nn import functional as PF
+
+    rs = np.random.RandomState(h)
+    rows = 24
+    x, res, g = (_randn(rs, rows, h) for _ in range(3))
+    w, b = _randn(rs, h), _randn(rs, h)
+    if kind == "ln":
+        x = x + 4.0
+        fns = (lambda x_, r_, w_, b_: PF.layer_norm(x_, h, w_, b_),
+               lambda x_, r_, w_, b_: PF.fused_add_layer_norm(x_, r_, w_,
+                                                              b_)[0])
+    else:
+        fns = (lambda x_, r_, w_, b_: PF.rms_norm(x_, w_),
+               lambda x_, r_, w_, b_: PF.fused_add_rms_norm(x_, r_, w_)[0])
+    tol = 1e-5 if dtype == torch.float32 else _HALF_TOL
+    # dw (db): f32 sums over rows, rounded to the weights' dtype (RMS: x's)
+    wtol = tol if kind == "rms" and dtype != torch.float32 else 1e-4
+    for fn in fns:
+        outs = []
+        for dev in ("cpu", card):
+            leaves = [t.to(dev, dtype).requires_grad_() for t in (x, res)]
+            wb = [t.to(dev, dtype if kind == "rms" else torch.float32)
+                  .requires_grad_() for t in (w, b)]
+            _cuda_common.reset_launch_counts()
+            y = fn(*leaves, *wb)
+            grads = torch.autograd.grad(y, leaves + wb, g.to(dev, y.dtype),
+                                        allow_unused=True)
+            outs.append((y, grads, _launched()))
+        (y0, g0, _), (y1, g1, counts) = outs
+        name = "fused_rms_norm" if kind == "rms" else "fused_layer_norm"
+        assert counts == {f"{name}_fwd": 1, f"{name}_bwd": 1}, counts
+        assert _rel_err(y1.cpu(), y0) <= tol
+        for i, (a, e) in enumerate(zip(g1, g0)):
+            if e is None:
+                assert a is None
+                continue
+            assert _rel_err(a.cpu(), e) <= (tol if i < 2 else wtol)
+
+
+def test_norms_send_empty_tensors_to_the_composition(card):
+    """F3: a (0, H) input takes the plain composition on the card (the
+    reference's `use_pallas` sends it there), forward and backward, and
+    launches nothing."""
+    from paddle_tpu_torch.nn import functional as PF
+
+    x = torch.zeros(0, 64, device=card, dtype=torch.bfloat16,
+                    requires_grad=True)
+    w = torch.ones(64, device=card, dtype=torch.bfloat16)
+    _cuda_common.reset_launch_counts()
+    outs = [PF.rms_norm(x, w), PF.fused_add_rms_norm(x, x, w)[0],
+            PF.layer_norm(x, 64, w, w), PF.fused_add_layer_norm(x, x, w,
+                                                                w)[0]]
+    grads = torch.autograd.grad(sum(o.float().sum() for o in outs), x)
+    torch.cuda.synchronize()
+    assert all(o.shape == (0, 64) for o in outs)
+    assert grads[0].shape == (0, 64)
+    assert _launched() == {}
+
+
+#: K9 on the tensor-core forward and dK/dV (bf16, padded d <= 128): S off
+#: multiples of 4 (70, 130, 4098), 64 and 128, a window and random
+#: start rows, D 64, 100 (padded to 104) and 128
+FM_TC_CASES = [("random", 70, 64), ("random", 130, 100), ("window", 200, 128),
+               ("random", 200, 64), ("random", 4100, 128),
+               ("window", 4100, 64), ("random", 4098, 100)]
+FM_TC_IDS = [f"{k}-s{s}-d{d}" for k, s, d in FM_TC_CASES]
+
+
+@pytest.mark.parametrize("kind,s,d", FM_TC_CASES, ids=FM_TC_IDS)
+def test_flashmask_tensor_core_matches_plain(card, kind, s, d):
+    """bf16 K9 forward and dK/dV on the tensor-core bodies (dQ on its
+    CUDA-core body) against the plain versions: O within 2e-2, lse within
+    1e-3, each gradient within one bf16 ulp (2^-7) of its largest |value|;
+    a column no row sees gets dK = dV = 0 and a row that sees no key O =
+    0 and lse = -1e30. One launch of each K9 kernel."""
+    from paddle_tpu_torch.ops.flashmask import (
+        flashmask_attention_bwd_reference, flashmask_attention_reference,
+        flashmask_bwd, flashmask_fwd)
+
+    rs = np.random.RandomState(s + d)
+    b, h = 2, 2
+    q, k, v, do = (_randn(rs, b, h, s, d).to(card, torch.bfloat16)
+                   for _ in range(4))
+    st = _fm_starts(kind, b, h, s, rs)
+    st[0, 0, 5] = 0               # a column no row sees
+    st[1, 1, :] = np.minimum(st[1, 1, :], 3)   # rows >= 3 see no key
+    start = torch.from_numpy(st).to(card)
+    _cuda_common.reset_launch_counts()
+    o, lse = flashmask_fwd(q, k, v, start, True)
+    got = flashmask_bwd(q, k, v, o, lse, do, start, True)
+    torch.cuda.synchronize()
+    assert _launched() == dict.fromkeys(FLASHMASK, 1)
+    ro, rlse = flashmask_attention_reference(q, k, v, start, True)
+    assert (o.float() - ro.float()).abs().max().item() < 2e-2
+    assert (lse - rlse).abs().max().item() < 1e-3
+    want = flashmask_attention_bwd_reference(q, k, v, o, lse, do, start,
+                                             True)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and torch.isfinite(g.float()).all()
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= 2 ** -7 * w.float().abs().max().item(), (name, err)
+    assert not got[1][0, 0, 5].any() and not got[2][0, 0, 5].any()
+    assert (o[1, 1, 3:] == 0).all() and (lse[1, 1, 3:] == -1e30).all()
+
+
+def test_flashmask_tensor_core_dkv_repeats_bit_for_bit(card):
+    """K9's dK/dV sums its q tiles in registers in a fixed order (no
+    atomics): two launches on the same inputs give the same bits."""
+    from paddle_tpu_torch.ops.flash_attention import _bwd_delta
+    from paddle_tpu_torch.ops.flashmask import (_launch_bwd_dkv, _launch_fwd,
+                                                tile_bounds)
+
+    rs = np.random.RandomState(45)
+    q, k, v, do = (_randn(rs, 1, 4, 1030, 128).to(card, torch.bfloat16)
+                   for _ in range(4))
+    start = torch.from_numpy(_fm_starts("random", 1, 4, 1030, rs)).to(card)
+    fm = (start, *tile_bounds(start, 1030), True)
+    o, lse = _launch_fwd(q, k, v, *fm)
+    args = (q, k, v, do, lse, _bwd_delta(o, do), *fm)
+    first, second = _launch_bwd_dkv(*args), _launch_bwd_dkv(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flashmask_tensor_core_refuses_misaligned_inputs(card):
+    """bf16 K9 forward and dK/dV read by TMA: a contiguous view that
+    starts 2 bytes past a 16-byte boundary is refused, not copied, and
+    nothing launches; f32 (CUDA-core bodies) takes it."""
+    from paddle_tpu_torch.ops.flash_attention import _bwd_delta
+    from paddle_tpu_torch.ops.flashmask import (
+        _launch_bwd_dkv, _launch_fwd, flashmask_attention_reference,
+        flashmask_fwd, tile_bounds)
+
+    n = 2 * 64 * 64
+    q = torch.randn(n + 1, device=card).to(torch.bfloat16)[1:].view(
+        1, 2, 64, 64)
+    k, v = (torch.randn(1, 2, 64, 64, device=card, dtype=torch.bfloat16)
+            for _ in range(2))
+    st = torch.full((1, 2, 64), 40, dtype=torch.int32, device=card)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    fm = (st, *tile_bounds(st, 64), True)
+    _cuda_common.reset_launch_counts()
+    with pytest.raises(ValueError, match="aligned"):
+        flashmask_fwd(q, k, v, st, True)
+    with pytest.raises(ValueError, match="aligned"):
+        _launch_fwd(q, k, v, *fm)
+    assert _launched() == {}
+    o, lse = flashmask_fwd(k, k, v, st, True)
+    _cuda_common.reset_launch_counts()
+    with pytest.raises(ValueError, match="aligned"):
+        _launch_bwd_dkv(k, k, v, q, lse, _bwd_delta(o, q), *fm)
+    assert _launched() == {}
+    q32 = torch.randn(n + 1, device=card)[1:].view(1, 2, 64, 64)
+    got, _ = flashmask_fwd(q32, k.float(), v.float(), st, True)
+    want, _ = flashmask_attention_reference(q32, k.float(), v.float(), st,
+                                            True)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() < 1e-4

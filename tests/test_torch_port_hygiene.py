@@ -107,20 +107,26 @@ def test_kernel_sources_exist_and_are_the_build_list():
                if f.endswith(".cu")}
     assert srcs == on_disk == {"flash_attention_fwd.cu",
                                "flash_attention_bwd.cu", "paged_decode.cu",
+                               "paged_decode_int8.cu", "paged_decode_int4.cu",
                                "quant_matmul.cu", "fused_norm.cu",
                                "flashmask_attention.cu"}
-    # the two headers, part of every source's hash: the CUDA-core flash
-    # tile bodies, and the tensor-core ones (which include them)
+    # the headers, part of every source's hash: the CUDA-core flash tile
+    # bodies, the tensor-core ones (which include them), and the paged
+    # decode template its three sources instantiate
     headers = {f for f in os.listdir(_cuda_common.CSRC_DIR)
                if f.endswith(".cuh")}
-    assert headers == {"flash_attention_tiles.cuh", "flash_attention_tc.cuh"}
+    assert headers == {"flash_attention_tiles.cuh", "flash_attention_tc.cuh",
+                       "paged_decode.cuh"}
     with open(os.path.join(_cuda_common.CSRC_DIR,
                            "flash_attention_tc.cuh")) as f:
         assert '#include "flash_attention_tiles.cuh"' in f.read()
     for rel, header in (
             ("csrc/flash_attention_fwd.cu", "flash_attention_tc.cuh"),
             ("csrc/flash_attention_bwd.cu", "flash_attention_tc.cuh"),
-            ("csrc/flashmask_attention.cu", "flash_attention_tiles.cuh")):
+            ("csrc/flashmask_attention.cu", "flash_attention_tc.cuh"),
+            ("csrc/paged_decode.cu", "paged_decode.cuh"),
+            ("csrc/paged_decode_int8.cu", "paged_decode.cuh"),
+            ("csrc/paged_decode_int4.cu", "paged_decode.cuh")):
         with open(os.path.join(PKG, rel)) as f:
             assert f'#include "{header}"' in f.read()
     for name, rel in _cuda_common.KERNEL_SOURCES.items():

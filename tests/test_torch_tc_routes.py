@@ -1,12 +1,13 @@
 """The flash wrapper's static routes, checked on the CPU (no card needed).
 
 On the card each C entry of the flash sources runs one body, chosen by
-dtype alone (`_tensor_core_route`): every bf16 entry (K1, K1v, K2 and K2v
-dQ and dK/dV) runs the tensor-core bodies of csrc/flash_attention_tc.cuh,
-which read by TMA and so take a head dim padded to a multiple of 8
-(`with_head_pad`) and, in dK/dV, lse and delta rows padded to a multiple
-of 4 floats (`pad_rows`); f32 runs the CUDA-core bodies. Here:
-  * the route of every (entry, dtype, varlen) is pinned;
+dtype and head dim (`_tensor_core_route`): every bf16 entry (K1, K1v, K2
+and K2v dQ and dK/dV) at a head dim that pads to at most 128 runs the
+tensor-core bodies of csrc/flash_attention_tc.cuh, which read by TMA and
+so take a head dim padded to a multiple of 8 (`with_head_pad`) and, in
+dK/dV, lse and delta rows padded to a multiple of 4 floats (`pad_rows`);
+f32, and bf16 above 128, run the CUDA-core bodies. Here:
+  * the route of every (entry, dtype, varlen, head dim) is pinned;
   * the lse/delta row padding keeps the first Sq columns as they were;
   * the padded varlen forward and backward through the plain versions
     equal the unpadded ones at d = 100, lengths of 0 and off multiples
@@ -26,23 +27,24 @@ from paddle_tpu_torch.ops.flash_attention import (
 TOL_SAME = 1e-6
 
 BF16, F32 = torch.bfloat16, torch.float32
-#: (entry, dtype, varlen) -> runs a tensor-core body
-ROUTES = [
-    (_NAME, BF16, False, True), (_NAME, BF16, True, True),
-    (_NAME, F32, False, False), (_NAME, F32, True, False),
-    (_BWD_DQ, BF16, False, True), (_BWD_DQ, BF16, True, True),
-    (_BWD_DQ, F32, False, False), (_BWD_DQ, F32, True, False),
-    (_BWD_DKV, BF16, False, True), (_BWD_DKV, BF16, True, True),
-    (_BWD_DKV, F32, False, False), (_BWD_DKV, F32, True, False)]
+#: (entry, dtype, varlen, head dim) -> runs a tensor-core body: every
+#: (entry, dtype, varlen) at d 128, and at d 256 (CUDA cores in both
+#: dtypes); bf16 at d 124 (pads to 128: tensor cores) and 130 (pads to
+#: 136: CUDA cores)
+ROUTES = [(n, dt, v, d, dt == BF16 and d <= 128)
+          for n in (_NAME, _BWD_DQ, _BWD_DKV) for dt in (BF16, F32)
+          for v in (False, True) for d in (128, 256)] \
+    + [(n, BF16, v, d, d == 124) for n in (_NAME, _BWD_DQ, _BWD_DKV)
+       for v in (False, True) for d in (124, 130)]
 
 
 @pytest.mark.parametrize(
-    "name,dtype,varlen,tensor_cores", ROUTES,
+    "name,dtype,varlen,d,tensor_cores", ROUTES,
     ids=[f"{n.removeprefix('flash_attention_')}-"
-         f"{str(d).removeprefix('torch.')}-{'varlen' if v else 'dense'}"
-         for n, d, v, _ in ROUTES])
-def test_route_table(name, dtype, varlen, tensor_cores):
-    assert _tensor_core_route(name, dtype, varlen) is tensor_cores
+         f"{str(dt).removeprefix('torch.')}-{'varlen' if v else 'dense'}-d{d}"
+         for n, dt, v, d, _ in ROUTES])
+def test_route_table(name, dtype, varlen, d, tensor_cores):
+    assert _tensor_core_route(name, dtype, varlen, d) is tensor_cores
 
 
 CASES = [(2, 2, 70, True, [70, 33]), (4, 2, 96, False, [41, 0, 96]),
