@@ -2,16 +2,22 @@
 """Smoke run of paddle_tpu_torch on one CUDA card (H100): the port's main
 path, end to end, through its hand-written kernels.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+`--parent DIR` names another checkout whose own chip_smoke.py run has
+built its kernels (DIR/paddle_tpu_torch/_build): the paged-decode KERNEL
+lines then also time that tree's decode kernel on the same inputs
+(`parent_ms`).
 
 Phases (any failure exits non-zero; nothing is caught):
   1. environment: the card's name and power limit;
   2. build: every CUDA kernel of the port, from the sources in the
      checkout (nvcc, sm_90a, one process per source, in parallel), and
      beside them a yardstick library of the CUDA-core bodies bf16 K9's
-     forward and dK/dV ran before they moved onto the tensor cores
+     forward, dQ and dK/dV ran before they moved onto the tensor cores
      (REPLACED_K9_SRC); then the tensor-core kernels' registers and
-     spills from ptxas (K1/K2's and K9's; none may spill);
+     spills from ptxas (K1/K2's and K9's; none may spill), and those of
+     the paged-decode kernels the serve paths launch (none may spill);
   3. kernels: each kernel at the main path's shapes (bf16; the int4
      dequant-matmul also at the f32 lm_head shape; the fused norm, rotary
      and SwiGLU kernels at the train step's shapes and dtypes, and at a
@@ -27,7 +33,9 @@ Phases (any failure exits non-zero; nothing is caught):
      = S (`varlen_full_ms`: K1v's and K2v's forced per-element masks, on
      the same tensor-core bodies). The quantized
      paged-decode kernels read caches written by the port's own
-     int8/int4 prefill scatters. Beyond the main paths' shapes: K1 and
+     int8/int4 prefill scatters; K7 also at two long contexts of a
+     4096-token table (the split-K case), and each decode kernel must
+     give the same bits twice. Beyond the main paths' shapes: K1 and
      K2 at head dim 256 (B1 H16 S1024 causal, the CUDA-core bodies), K7
      and K7q-int8 at GQA group 3 (48 query heads over 16) and at head
      dim 256, and K3 RMS at 4096 x 16384 (the backward's wide path);
@@ -37,8 +45,9 @@ Phases (any failure exits non-zero; nothing is caught):
      both kernels' launch counts must equal prefills x 20 and decode ticks
      x 20, and two requests' tokens are checked against a teacher-forced
      recompute through the plain attention functions;
-  5. profile: device time of steady decode ticks by kernel kind, beside
-     the host wall (torch.profiler);
+  5. profile: device time of steady decode ticks by kernel kind (the
+     paged decode's splits and merge among them), beside the host wall
+     (torch.profiler);
   6. serve_q4: the same 16 requests with int4 weights and an int4 KV
      cache: every layer matmul and the lm_head through the dequant-matmul
      kernel ((prefills + ticks) x 141 launches), decode through the int4
@@ -82,8 +91,8 @@ Phases (any failure exits non-zero; nothing is caught):
  13. kernels of the last slice: K1v and K2v at the VARLEN batch, K9 at the
      FLASHMASK window and at S 4100 with random start rows, each against
      its plain version and timed as in phase 3, SDPA with the equivalent
-     boolean mask as the yardstick, and K9's forward and dK/dV beside
-     the bodies they replaced on the same inputs (`replaced_ms`);
+     boolean mask as the yardstick, and K9's three kernels beside the
+     bodies they replaced on the same inputs (`replaced_ms`);
  14. varlen: `flash_attn_unpadded` on 16 packed causal sequences of
      64..2048 tokens (np.random.RandomState(0); bucket 2048), LLaMA-1B's
      heads (16 x 128, bf16), forward and backward with loss = sum(out^2):
@@ -245,6 +254,22 @@ def _time_ms(fn, flush=None, reps=30, warmup=5):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _host_us(fn, reps=200):
+    """Host time of one fn() in µs, without synchronising: a wrapper's
+    checks, allocations and launches (the card runs behind)."""
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def _bound_ms(flops, nbytes, peak_flops=PEAK_BF16_FLOPS):
@@ -422,17 +447,74 @@ def flash_bwd_case(b, hq, hkv, s, d=128, causal=True):
     return rec
 
 
+#: `--parent DIR`: the paged-decode C entries of another tree's build
+#: (DIR/paddle_tpu_torch/_build, left by its own chip_smoke.py run in the
+#: same call), by cache format. Each decode KERNEL line then also times
+#: that tree's kernel on the same inputs (`parent_ms`) and holds it to the
+#: plain version; the port never calls it. Empty without the flag.
+PARENT_DECODE = {}
+
+
+def load_parent_decode(root):
+    """The entries of the one-kernel-per-(kv head, sequence) paged decode
+    that trees without split-K built (C signature: pointers, then s_n,
+    hq, hkv, bs, d, pages, dtype and the stream)."""
+    import glob
+
+    for fmt, suffix in (("model", ""), ("int8", "_int8"), ("int4", "_int4")):
+        paths = glob.glob(os.path.join(root, "paddle_tpu_torch", "_build",
+                                       f"paged_decode{suffix}-*.so"))
+        assert len(paths) == 1, (fmt, paths)
+        fn = getattr(ctypes.CDLL(paths[0]), f"paged_decode_attention{suffix}")
+        fn.argtypes = [ctypes.c_void_p] * (6 if fmt == "model" else 8) \
+            + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        PARENT_DECODE[fmt] = fn
+
+
+def _parent_decode(fmt, q, kc, vc, tables, lens, ks=None, vs=None):
+    """Out of the `--parent` tree's kernel of cache format `fmt`."""
+    import torch
+
+    out = torch.empty_like(q)
+    s_n, hq, d = q.shape
+    hkv, bs = kc.shape[1], kc.shape[2] * (2 if fmt == "int4" else 1)
+    scales = [] if ks is None else [ks.data_ptr(), vs.data_ptr()]
+    code = PARENT_DECODE[fmt](
+        q.data_ptr(), kc.data_ptr(), vc.data_ptr(), *scales,
+        tables.data_ptr(), lens.data_ptr(), out.data_ptr(), s_n, hq, hkv, bs,
+        d, tables.shape[1], 1, torch.cuda.current_stream().cuda_stream)
+    assert code == 0, code
+    return out
+
+
+def _parent_record(rec, fmt, args, ref, tol, flush):
+    """`parent_ms` (and its error against the plain version) on the
+    decode record `rec`, when `--parent` gave a tree."""
+    if not PARENT_DECODE:
+        return
+    got = _parent_decode(fmt, *args)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err < tol, ("parent", fmt, err)
+    rec["parent_max_abs_err"] = err
+    rec["parent_ms"] = _time_ms(lambda: _parent_decode(fmt, *args), flush)
+
+
 def decode_case(seqs=8, heads=16, d=128, bs=16, max_len=1024, kv_heads=None,
                 tag="serve"):
     """Paged decode at the serving shape: 8 sequences, ragged lengths up
     to the context, tables shuffled over the whole pool, `heads` query
     heads over `kv_heads` cache heads (default: as many). The L2 cache is
     flushed before each timed launch: in serving, one layer's pool slice
-    is evicted by the other 19 layers between two of its decode calls."""
+    is evicted by the other 19 layers between two of its decode calls.
+    Two calls must give the same bits (the split partials merge in split
+    order); `splits` and `part` are `decode_splits`' choice, `host_us`
+    the wrapper's host time per call."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.paged_decode import (
-        paged_decode_attention, paged_decode_attention_reference)
+        decode_splits, paged_decode_attention,
+        paged_decode_attention_reference)
 
     kv_heads = heads if kv_heads is None else kv_heads
     rs = np.random.RandomState(0)
@@ -455,6 +537,10 @@ def decode_case(seqs=8, heads=16, d=128, bs=16, max_len=1024, kv_heads=None,
     err = (out.float() - ref.float()).abs().max().item()
     assert torch.isfinite(out.float()).all()
     assert err < KERNEL_TOL, err
+    assert torch.equal(out, paged_decode_attention(q, kc, vc, tables, lens))
+    splits, part = decode_splits(
+        pages, bs, seqs, kv_heads,
+        torch.cuda.get_device_properties(0).multi_processor_count)
     # SDPA yardstick over the pages gathered beforehand (the gather is
     # not timed): dense [S, H, T, D] K/V plus a length mask
     t = pages * bs
@@ -474,7 +560,8 @@ def decode_case(seqs=8, heads=16, d=128, bs=16, max_len=1024, kv_heads=None,
     bound, by = _bound_ms(flops, nbytes)
     rec = {"name": "paged_decode_attention", "case": tag,
            "shape": [seqs, heads, kv_heads, d, bs, pages],
-           "lens": lens_np.tolist(), "max_abs_err": err,
+           "lens": lens_np.tolist(), "splits": splits, "part": part,
+           "max_abs_err": err,
            "ms": _time_ms(lambda: paged_decode_attention(
                q, kc, vc, tables, lens), flush),
            "plain_ms": _time_ms(lambda: paged_decode_attention_reference(
@@ -482,7 +569,11 @@ def decode_case(seqs=8, heads=16, d=128, bs=16, max_len=1024, kv_heads=None,
            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
                q[:, :, None], kd, vd, attn_mask=mask,
                enable_gqa=heads != kv_heads), flush),
-           "bound_ms": bound, "bound_by": by}
+           "bound_ms": bound, "bound_by": by,
+           "host_us": _host_us(lambda: paged_decode_attention(
+               q, kc, vc, tables, lens))}
+    _parent_record(rec, "model", (q, kc, vc, tables, lens), ref, KERNEL_TOL,
+                   flush)
     _say("KERNEL", rec)
     return rec
 
@@ -533,11 +624,12 @@ def quant_decode_case(fmt, seqs=8, heads=16, d=128, bs=16, max_len=1024,
                       kv_heads=None, tag="serve"):
     """The int8 or int4 paged decode at decode_case's shapes (same lengths
     and tables), over caches written by the port's own prefill scatter —
-    so the per-block scales are the ones serving makes."""
+    so the per-block scales are the ones serving makes. Two calls must
+    give the same bits."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.paged_decode import (
-        KERNEL_NAMES, paged_decode_attention,
+        KERNEL_NAMES, decode_splits, paged_decode_attention,
         paged_decode_attention_reference)
     from paddle_tpu_torch.ops.quantized import int4_unpack
     from paddle_tpu_torch.text import paged_cache
@@ -570,6 +662,10 @@ def quant_decode_case(fmt, seqs=8, heads=16, d=128, bs=16, max_len=1024,
     err = (out.float() - ref.float()).abs().max().item()
     assert torch.isfinite(out.float()).all()
     assert err < KERNEL_TOL_Q, (fmt, err)
+    assert torch.equal(out, paged_decode_attention(*args, kv_int4=int4))
+    splits, part = decode_splits(
+        pages, bs, seqs, kv_heads,
+        torch.cuda.get_device_properties(0).multi_processor_count)
     # SDPA yardstick over pages gathered and dequantized beforehand (not
     # timed): dense bf16 [S, H, T, D] K/V plus a length mask
     t = pages * bs
@@ -595,8 +691,8 @@ def quant_decode_case(fmt, seqs=8, heads=16, d=128, bs=16, max_len=1024,
     bound, by = _bound_ms(4 * tokens * heads * d, nbytes)
     rec = {"name": KERNEL_NAMES[fmt], "case": tag,
            "shape": [seqs, heads, kv_heads, d, bs, pages],
-           "lens": lens_np.tolist(), "max_abs_err": err,
-           "tol": KERNEL_TOL_Q,
+           "lens": lens_np.tolist(), "splits": splits, "part": part,
+           "max_abs_err": err, "tol": KERNEL_TOL_Q,
            "ms": _time_ms(lambda: paged_decode_attention(
                *args, kv_int4=int4), flush),
            "plain_ms": _time_ms(lambda: paged_decode_attention_reference(
@@ -605,6 +701,7 @@ def quant_decode_case(fmt, seqs=8, heads=16, d=128, bs=16, max_len=1024,
                q[:, :, None], kd, vd, attn_mask=mask,
                enable_gqa=heads != kv_heads), flush),
            "bound_ms": bound, "bound_by": by}
+    _parent_record(rec, fmt, args, ref, KERNEL_TOL_Q, flush)
     _say("KERNEL", rec)
     return rec
 
@@ -1143,6 +1240,7 @@ def profile_decode(model, ticks=10, tag="PROFILE", **engine_kw):
         "device_busy_share": device_ms / (1e3 * wall / ticks),
         "device_ops_per_tick": launched / ticks,   # kernels + copies
         "device_ms_per_tick_by_kind": kinds,
+        "paged_decode_ms_per_tick": kinds["paged_decode"],
         "top_kernels_ms_per_tick": [[k[:60], v] for k, v in top]})
 
 
@@ -1665,10 +1763,10 @@ def varlen_cases():
     return {"fwd": fwd, "bwd": bwd}
 
 
-#: the bodies bf16 K9's forward and dK/dV ran before they moved onto the
-#: tensor cores: the CUDA-core forward and dK/dV of
+#: the bodies bf16 K9's three kernels ran before they moved onto the
+#: tensor cores: the CUDA-core forward, dQ and dK/dV of
 #: csrc/flash_attention_tiles.cuh at the largest head dim 128 with the
-#: start-row mask (the templates and arguments the parent's
+#: start-row mask (the templates and arguments earlier trees'
 #: csrc/flashmask_attention.cu instantiated), built from the checkout's
 #: header into a yardstick library of their own. The KERNEL lines time
 #: them beside K9 on the same inputs (`replaced_ms`); the port never
@@ -1693,6 +1791,17 @@ extern "C" int replaced_fwd(const void* q, const void* k, const void* v,
   return launch_fwd<__nv_bfloat16, StartRowMask, kSmallD>(
       q, k, v, o, lse, margs(st, lo, hi, causal), b, h, h, sq, sk, d,
       1.0f / sqrtf((float)d), static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int replaced_bwd_dq(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, void* dq, const void* st,
+                               const void* lo, const void* hi, int b, int h,
+                               int sq, int sk, int d, int causal,
+                               void* stream) {
+  return launch_bwd_dq<__nv_bfloat16, StartRowMask, kSmallD>(
+      q, k, v, dout, lse, delta, dq, margs(st, lo, hi, causal), b, h, h, sq,
+      sk, d, 1.0f / sqrtf((float)d), static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int replaced_bwd_dkv(const void* q, const void* k, const void* v,
@@ -1730,7 +1839,8 @@ def replaced_library(proc, lib):
     log, _ = proc.communicate()
     assert proc.returncode == 0, log.decode(errors="replace")
     so = ctypes.CDLL(lib)
-    for fn, n_ptrs in ((so.replaced_fwd, 8), (so.replaced_bwd_dkv, 11)):
+    for fn, n_ptrs in ((so.replaced_fwd, 8), (so.replaced_bwd_dq, 10),
+                       (so.replaced_bwd_dkv, 11)):
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -1745,8 +1855,8 @@ def flashmask_cases(s, starts, tag, replaced, b=1, h=16, d=128):
     over the visible pairs these start rows leave (the sum over columns
     j of min(start[j], S) - j) and the bytes of Q, K, V, O (dO, dQ, dK,
     dV), lse, delta and the start rows. The tile bounds are computed
-    once, untimed (the wrapper's prep). The forward and dK/dV are also
-    timed against the bodies they replaced (`replaced`, the library of
+    once, untimed (the wrapper's prep). Each of the three is also timed
+    against the body it replaced (`replaced`, the library of
     `replaced_library`), on the same inputs, each of those held to the
     plain version too. Returns {"fwd": rec, "bwd": rec}."""
     import torch
@@ -1830,6 +1940,15 @@ def flashmask_cases(s, starts, tag, replaced, b=1, h=16, d=128):
         return flashmask_bwd_dkv_reference(q_, k_, v_, do_, lse_, delta_,
                                            start, causal)
 
+    def replaced_dq():
+        dq = torch.empty_like(q)
+        code = replaced.replaced_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *mask_ptrs, b,
+            h, s, s, d, 1, stream)
+        assert code == 0, code
+        return dq
+
     def replaced_dkv():
         dk, dv = torch.empty_like(k), torch.empty_like(v)
         code = replaced.replaced_bwd_dkv(
@@ -1847,7 +1966,12 @@ def flashmask_cases(s, starts, tag, replaced, b=1, h=16, d=128):
     _, rels = _rel_errs(replaced_dkv(), plain_dkv(q, k, v, do, lse, delta,
                                                   True))
     assert max(rels) <= K2_TOL, ("replaced dkv", rels)
-    bwd["dq"]["body"] = body("flashmask_bwd_dq")
+    _, rels = _rel_errs((replaced_dq(),), (plain_dq(q, k, v, do, lse, delta,
+                                                    True),))
+    assert max(rels) <= K2_TOL, ("replaced dq", rels)
+    bwd["dq"] |= {"body": body("flashmask_bwd_dq"),
+                  "replaced_body": CORE_BODY,
+                  "replaced_ms": _time_ms(replaced_dq)}
     bwd["dkv"] |= {"body": body("flashmask_bwd_dkv"),
                    "replaced_body": CORE_BODY,
                    "replaced_ms": _time_ms(replaced_dkv)}
@@ -2027,21 +2151,21 @@ def flashmask_phase():
     return counts
 
 
-#: the tensor-core kernels, each built at padded head dims 64 and 128:
-#: with LenCausalMask (K1/K1v, K2/K2v) all three, with StartRowMask (K9)
-#: the forward and dK/dV
+#: the tensor-core kernels, each built at padded head dims 64 and 128,
+#: all three with LenCausalMask (K1/K1v, K2/K2v) and with StartRowMask
+#: (K9)
 TC_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel",
               "flash_bwd_dkv_tc_kernel")
 TC_SOURCES = {"csrc/flash_attention_fwd.cu": 2,
               "csrc/flash_attention_bwd.cu": 4,
-              "csrc/flashmask_attention.cu": 4}
+              "csrc/flashmask_attention.cu": 6}
 
 
 def tc_usage():
     """PTXAS: registers, stack and spills of the tensor-core kernels (bf16
     K1/K1v, K2/K2v dQ and K2/K2v dK/dV at each padded head dim; the
-    varlen entries instantiate the same kernels; K9's forward and dK/dV
-    at each padded head dim), from the build's `-Xptxas -v` output, and
+    varlen entries instantiate the same kernels; K9's forward, dQ and
+    dK/dV at each padded head dim), from the build's `-Xptxas -v` output, and
     any ptxas line on their wgmma pipeline (a serialized pipeline is
     slow, not wrong). Their accumulators live in registers: none may
     spill, and each source holds the count of TC_SOURCES."""
@@ -2071,6 +2195,37 @@ def tc_usage():
     assert not spilled, spilled
 
 
+#: the paged-decode instantiations the serve paths launch (bf16, G 1, DM
+#: 128) in each cache format's source, and the merge kernel
+DECODE_SOURCES = {"model": ("csrc/paged_decode.cu", 0),
+                  "int8": ("csrc/paged_decode_int8.cu", 1),
+                  "int4": ("csrc/paged_decode_int4.cu", 2)}
+
+
+def decode_usage():
+    """PTXAS_DECODE: registers, stack and spills of the split kernel the
+    serve paths launch in each cache format (bf16, one query head per kv
+    head, largest head dim 128) and of its merge kernel; neither may
+    spill. Other instantiations are printed by count of spilling ones."""
+    from paddle_tpu_torch.ops import _cuda_common
+
+    usage, spilling = {}, 0
+    for fmt, (rel, f) in DECODE_SOURCES.items():
+        for name, use in _cuda_common.ptxas_usage(rel).items():
+            if f"paged_decode_kernelI13__nv_bfloat16Li{f}ELi1ELi128E" in name:
+                usage[f"{fmt} split<bf16, G 1, DM 128>"] = use
+            elif "paged_decode_merge_kernelI13__nv_bfloat16" in name:
+                usage[f"{fmt} merge<bf16>"] = use
+            elif use.get("spill_stores") or use.get("spill_loads"):
+                spilling += 1
+    _say("PTXAS_DECODE", {"main_path": usage,
+                          "other_instantiations_spilling": spilling})
+    assert len(usage) == 2 * len(DECODE_SOURCES), usage
+    spilled = {k: u for k, u in usage.items()
+               if u.get("spill_stores") or u.get("spill_loads")}
+    assert not spilled, spilled
+
+
 def main():
     import torch
 
@@ -2078,6 +2233,9 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from paddle_tpu_torch.ops import _cuda_common
+
+    if "--parent" in sys.argv:
+        load_parent_decode(sys.argv[sys.argv.index("--parent") + 1])
 
     device_name = torch.cuda.get_device_name(0)
     smi = _nvidia_smi()
@@ -2092,6 +2250,7 @@ def main():
     _say("BUILD", {"seconds": time.perf_counter() - t0,
                    "kernels": sorted(_cuda_common.KERNEL_SOURCES)})
     tc_usage()
+    decode_usage()
     phases = {"build": time.perf_counter() - t0}
     t0 = time.perf_counter()
 
@@ -2109,6 +2268,9 @@ def main():
            qmm_case(8, 5504, 2048), qmm_case(8, 2048, 32000, "float32"),
            qmm_case(512, 2048, 5504)]
     dec_q = {fmt: quant_decode_case(fmt) for fmt in ("int8", "int4")}
+    # two long contexts (2733 and 2608 tokens of a 4096-token table): the
+    # case split-K is for
+    dec_long = decode_case(seqs=2, max_len=4096, tag="long")
     # K3-K5 at the train step's shapes (rows 4 x 1024, hidden 2048,
     # intermediate 5504, q/k [4, 1024, 16, 128], bf16) and a ragged f32 size
     rows = TRAIN_BATCH * TRAIN_SEQ
@@ -2212,7 +2374,8 @@ def main():
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
-            | {k: rec[k] for k in ("varlen_full_ms", "body") if k in rec})
+            | {k: rec[k] for k in ("varlen_full_ms", "body", "parent_ms")
+               if k in rec})
     # K1 at TRAIN's shape, launched by TRAIN's steps
     summary.append({
         "name": flash_train["name"], "case": "train", "route": "cuda",
@@ -2337,6 +2500,8 @@ def main():
             (bwd256["dkv"] | {"body": bwd256["body"]},
              "flash_attention_bwd.cu", f"{attn}:314", counts_train, "TRAIN",
              "flash_attention_bwd_dkv"),
+            (dec_long, "paged_decode.cu", paged_tpu, counts, "SERVE",
+             "paged_decode_attention"),
             (dec_wide["group 3"], "paged_decode.cu", paged_tpu, counts,
              "SERVE", "paged_decode_attention"),
             (dec_wide["d256"], "paged_decode.cu", paged_tpu, counts, "SERVE",
@@ -2359,7 +2524,7 @@ def main():
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
-            | {k: rec[k] for k in ("body",) if k in rec})
+            | {k: rec[k] for k in ("body", "parent_ms") if k in rec})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

@@ -5,8 +5,8 @@
 // template over the padded head dim (64 or 128) and a mask policy of
 // flash_attention_tiles.cuh (the same `kind` / `visible` / `col_info`
 // interface the CUDA-core bodies use: `LenCausalMask` for K1/K2,
-// `StartRowMask` for K9). f32, head dims above 128 and K9's dQ keep the
-// CUDA-core bodies of flash_attention_tiles.cuh.
+// `StartRowMask` for K9). f32 and head dims above 128 keep the CUDA-core
+// bodies of flash_attention_tiles.cuh.
 //
 // Block layout (all three kernels): two warpgroups of 128 threads, each
 // owning 64 rows of the block's 128. Every load is a TMA copy into 128-

@@ -4,10 +4,10 @@
 // kernel, each a template over the element type, a mask policy and the
 // largest head dim it takes (DM = 128 or 256: the accumulators are sized
 // by it, so the d <= 128 instantiations keep their registers). They run
-// f32 inputs at every head dim, every dtype at head dims above 128, and
-// bf16 K9 dQ; bf16 at padded d <= 128 runs the tensor-core bodies of
+// f32 inputs at every head dim and every dtype at head dims above 128;
+// bf16 at padded d <= 128 runs the tensor-core bodies of
 // flash_attention_tc.cuh over the same mask policies (K1, K1v, K2, K2v,
-// K9's forward and dK/dV). The source files that include this header
+// K9). The source files that include this header
 // hold what each kernel replaces, what bounds it on the H100, and its C
 // entry points.
 //

@@ -42,23 +42,28 @@
 // for dQ's three products and 8*D for dK/dV's four, at the tensor-core
 // rate, against the bytes of Q, K, V, O (and dO, dQ, dK, dV), lse, delta
 // and the start rows. At S = 8192 with a 1024-token window (7.9M visible
-// pairs per head of 33.6M causal) the operations bound it; what the block
-// skipping buys is the work of the skipped tiles (4.3x less than causal
-// flash at that window).
+// pairs per head of 33.6M causal) the operations bound all three; what
+// the block skipping buys is the work of the skipped tiles (4.3x less
+// than causal flash at that window). The tensor-core bodies compute every
+// pair of a visited tile, masked or not, so their work is the visited
+// tiles' pairs, above the visible count where tiles straddle.
 //
 // Routing is static, by dtype and head dim, with no fallback:
-//  * bf16 forward and dK/dV at d <= 128 run the tensor-core bodies of
+//  * bf16 forward, dQ and dK/dV at d <= 128 run the tensor-core bodies of
 //    flash_attention_tc.cuh with `StartRowMask` (wgmma, TMA, two
 //    warpgroups of 64 rows, a 2-stage ring), as K1 and K2 do: the policy
 //    answers each 64 x 64 tile's kind from smin / smax and each element
-//    of a straddling tile from its column's start row. They take D a
-//    multiple of 8 (the caller pads, passing the softmax scale of the
-//    original D), 16-byte-aligned inputs and, in dK/dV, lse / delta rows
-//    `ls_stride` floats apart (a multiple of 4, >= Sq: read by 2-D TMA);
-//    anything else returns cudaErrorInvalidValue;
-//  * bf16 dQ, f32, and both dtypes at 128 < d <= 256 run the CUDA-core
-//    bodies of flash_attention_tiles.cuh (f32 FMAs), instantiated at DM
-//    128 and 256. The CUDA-core dK/dV reads lse and delta rows Sq apart.
+//    of a straddling tile from its column's start row (dQ streams 128-
+//    column kv tiles at D 128, whose kind combines their two 64-column
+//    halves). They take D a multiple of 8 (the caller pads, passing the
+//    softmax scale of the original D), 16-byte-aligned Q, K, V (and dO)
+//    and, in dK/dV, lse / delta rows `ls_stride` floats apart (a multiple
+//    of 4, >= Sq: read by 2-D TMA); dQ reads each thread's two lse and
+//    delta rows by plain loads. Anything else returns
+//    cudaErrorInvalidValue;
+//  * f32, and both dtypes at 128 < d <= 256, run the CUDA-core bodies of
+//    flash_attention_tiles.cuh (f32 FMAs), instantiated at DM 128 and
+//    256. The CUDA-core dK/dV reads lse and delta rows Sq apart.
 // A call with no keys writes O = 0, lse = -1e30 and dQ = 0, one with no
 // queries dK = dV = 0, from the entry, without a body.
 #include "flash_attention_tc.cuh"
@@ -116,8 +121,9 @@ extern "C" int flashmask_bwd_dq(const void* q, const void* k, const void* v,
     return zero_fill(dq, (size_t)b * h * sq * d * elem_bytes(dtype), st);
   const StartRowMask::Args margs = mask_args(start, smin, smax, causal);
   if (dtype == 1 && d <= kSmallD)
-    return launch_bwd_dq<__nv_bfloat16, StartRowMask, kSmallD>(
-        q, k, v, dout, lse, delta, dq, margs, b, h, h, sq, sk, d, scale, st);
+    return launch_bwd_dq_tc<StartRowMask>(q, k, v, dout, lse, delta, dq,
+                                          margs, b, h, h, sq, sk, d, scale,
+                                          st);
   if (dtype == 1)
     return launch_bwd_dq<__nv_bfloat16, StartRowMask, kLargeD>(
         q, k, v, dout, lse, delta, dq, margs, b, h, h, sq, sk, d, scale, st);

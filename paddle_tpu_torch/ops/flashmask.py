@@ -27,13 +27,14 @@ statically, by entry, dtype and head dim d padded to a multiple of 8
 
     entry             bf16, d <= 128     bf16, d > 128; f32
     forward           tensor cores       CUDA cores
+    dQ                tensor cores       CUDA cores
     dK/dV             tensor cores       CUDA cores
-    dQ                CUDA cores         CUDA cores
 
 As for K1/K2 (`ops.flash_attention`), the tensor-core route pads the head
-dim to a multiple of 8 (`with_head_pad`), needs 16-byte-aligned inputs
-(`ValueError` otherwise) and, in dK/dV, lse and delta rows padded to a
-multiple of 4 floats (`pad_rows`). Head dims up to 256 are taken.
+dim to a multiple of 8 (`with_head_pad`; the backward pads q, k, v and dO
+once for both of its kernels), needs 16-byte-aligned inputs (`ValueError`
+otherwise) and, in dK/dV, lse and delta rows padded to a multiple of 4
+floats (`pad_rows`). Head dims up to 256 are taken.
 """
 from __future__ import annotations
 
@@ -143,10 +144,10 @@ def _check_fm(q, k, v, start_rows):
 
 def tensor_core_route(name, dtype, d):
     """Whether the K9 C entry `name` runs a tensor-core body on `dtype`
-    inputs of head dim `d`: the bf16 forward and dK/dV do when d padded
-    to a multiple of 8 is at most 128; dQ, f32 and bf16 above 128 run the
-    CUDA-core bodies."""
-    return name != _BWD_DQ and _tensor_core_route(name, dtype, False, d)
+    inputs of head dim `d`: every bf16 entry (forward, dQ, dK/dV) does
+    when d padded to a multiple of 8 is at most 128; f32 and bf16 above
+    128 run the CUDA-core bodies."""
+    return _tensor_core_route(name, dtype, False, d)
 
 
 def _launch(name, ptrs, q, k, causal, scale, ints=()):
@@ -183,7 +184,11 @@ def _launch_fwd(q, k, v, start_rows, smin, smax, causal, scale=None):
 def _launch_bwd_dq(q, k, v, do, lse, delta, start_rows, smin, smax, causal,
                    scale=None):
     """dQ by the K9 dQ kernel (plain version `flashmask_bwd_dq_reference`).
-    Takes only checked CUDA tensors (delta f32 [B, H, Sq])."""
+    Takes only checked CUDA tensors (delta f32 [B, H, Sq]); on the
+    tensor-core route q, k, v and dO must be 16-byte aligned with a head
+    dim that is a multiple of 8 (lse and delta are read by plain loads)."""
+    if tensor_core_route(_BWD_DQ, q.dtype, q.shape[3]):
+        _check_aligned(_BWD_DQ, q, k, v, do)
     dq = torch.empty_like(q)
     _launch(_BWD_DQ, (q, k, v, do, lse, delta, dq, start_rows, smin, smax),
             q, k, causal, scale)
@@ -230,8 +235,9 @@ def flashmask_bwd(q, k, v, o, lse, do, start_rows, causal=False):
     """(dq, dk, dv) of FlashMask attention from the forward's o and lse.
     CPU tensors take `flashmask_attention_bwd_reference`; CUDA tensors run
     delta = rowsum(dO * O) and the tile-bounds prep in plain torch, then
-    the K9 dQ and dK/dV kernels (dK/dV on the tensor-core route with the
-    head dim padded to a multiple of 8)."""
+    the K9 dQ and dK/dV kernels (on the tensor-core route both under one
+    `with_head_pad`, which pads q, k, v and dO to a head dim that is a
+    multiple of 8 once for the two)."""
     if _on_cpu(q, k, v, o, lse, do, start_rows):
         return flashmask_attention_bwd_reference(q, k, v, o, lse, do,
                                                  start_rows, causal)
@@ -241,12 +247,14 @@ def flashmask_bwd(q, k, v, o, lse, do, start_rows, causal=False):
     smin, smax = tile_bounds(start_rows, k.shape[2])
     delta = _bwd_delta(o, do)
     fm = (start_rows, smin, smax, causal)
-    dq = _launch_bwd_dq(q, k, v, do, lse, delta, *fm)
-    if not tensor_core_route(_BWD_DKV, q.dtype, q.shape[3]):
-        return (dq, *_launch_bwd_dkv(q, k, v, do, lse, delta, *fm))
-    return (dq, *with_head_pad(
-        lambda q_, k_, v_, do_, scale: _launch_bwd_dkv(
-            q_, k_, v_, do_, lse, delta, *fm, scale), (q, k, v, do)))
+
+    def run(q_, k_, v_, do_, scale=None):
+        return (_launch_bwd_dq(q_, k_, v_, do_, lse, delta, *fm, scale),
+                *_launch_bwd_dkv(q_, k_, v_, do_, lse, delta, *fm, scale))
+
+    if not tensor_core_route(_BWD_DQ, q.dtype, q.shape[3]):
+        return run(q, k, v, do)
+    return with_head_pad(run, (q, k, v, do))
 
 
 class FlashMask(torch.autograd.Function):

@@ -26,6 +26,13 @@ take any GQA group and head dims that are multiples of 8 up to 256
 is no multiple of 8 takes the plain version on the card too, as the
 reference's gate (`decode_gate_reason`) sends head dims off its kernel's
 alignment to its XLA composition.
+
+Split-K: the kernel splits each sequence's table into `decode_splits`
+partitions, one block each, and merges their partial results by the
+log-sum-exp rule in a second pass of the same C entry (one launch count
+per call). The count comes from the table's width alone, never from
+seq_lens, so the op reads nothing back from the card.
+`paged_decode_split_reference` is the plain model of that arithmetic.
 """
 from __future__ import annotations
 
@@ -34,8 +41,8 @@ import math
 
 import torch
 
-from ._cuda_common import (check_launch, count_launch, current_stream,
-                           kernel_library)
+from ._cuda_common import (ceil_to, check_launch, count_launch,
+                           current_stream, kernel_library)
 from .quantized import int4_unpack
 
 _NAME = "paged_decode_attention"
@@ -45,6 +52,32 @@ KERNEL_NAMES = {"model": _NAME, "int8": _NAME + "_int8",
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the largest head dim the kernels take (a multiple of 8)
 MAX_HEAD_DIM = 256
+#: tokens of a kernel chunk: a partition is a whole number of them
+CHUNK = 64
+#: the fewest tokens a split takes (four chunks, which a block pipelines
+#: through its ring); a table no wider runs one split
+PARTITION = 256
+#: the most blocks per SM the split grid grows to before partitions do
+MAX_BLOCKS_PER_SM = 16
+
+
+def decode_splits(pages, bs, s_n, hkv, sm_count):
+    """(splits, tokens per split) of the paged-decode kernel for a block
+    table [s_n, pages] of `bs`-token blocks over `hkv` kv heads on a card
+    of `sm_count` SMs. Reads the table's width alone (never the lengths):
+    one split per PARTITION tokens of the table, as many as the grid (hkv
+    x s_n x splits blocks) takes up to MAX_BLOCKS_PER_SM blocks per SM,
+    fewer and wider past that; one split covering the table when it is no
+    wider than a partition. The table is shared out evenly in whole
+    CHUNKs, so splits x partition covers it."""
+    width = pages * bs
+    if width <= PARTITION:
+        return 1, ceil_to(max(width, 1), CHUNK)
+    rows = max(1, s_n * hkv)
+    splits = min(-(-width // PARTITION),
+                 max(1, MAX_BLOCKS_PER_SM * sm_count // rows))
+    part = ceil_to(-(-width // splits), CHUNK)
+    return -(-width // part), part
 
 
 def _cache_format(k_scale, kv_int4) -> str:
@@ -91,6 +124,60 @@ def paged_decode_attention_reference(q, k_cache, v_cache, block_tables,
     # a sequence of length 0 has no valid column: output 0, as the kernel
     probs = torch.nan_to_num(probs, nan=0.0)
     return torch.einsum("sht,sthd->shd", probs, v).to(q.dtype)
+
+
+def paged_decode_split_reference(q, k_cache, v_cache, block_tables,
+                                 seq_lens, splits, part, k_scale=None,
+                                 v_scale=None, kv_int4=False):
+    """The kernel's split-K arithmetic in plain torch (f32): each of the
+    `splits` partitions of `part` tokens gives its running max m, sum l
+    and unnormalised accumulator over its tokens below the length (an
+    empty one m = -1e30, l = 0), the quantized formats' k scale on the
+    logit and v scale on the probability; the partials are combined by
+    the log-sum-exp rule in split order, a row with no token giving 0.
+    Returns [S, Hq, D] in q's dtype."""
+    _cache_format(k_scale, kv_int4)
+    s_n, hq, d = q.shape
+    _, hkv, bs, _ = k_cache.shape
+    pages = block_tables.shape[1]
+    tabs = block_tables.clamp_min(0).long()
+    k, v = k_cache[tabs], v_cache[tabs]      # [S, P, Hkv, bs(/2), D]
+    if kv_int4:
+        bs *= 2
+        k = int4_unpack(k, bs, axis=-2)
+        v = int4_unpack(v, bs, axis=-2)
+    t = pages * bs
+    k = k.float().transpose(2, 3).reshape(s_n, t, hkv, d)
+    v = v.float().transpose(2, 3).reshape(s_n, t, hkv, d)
+    rep = hq // hkv
+    k = k.repeat_interleave(rep, dim=2)
+    v = v.repeat_interleave(rep, dim=2)
+    scores = torch.einsum("shd,sthd->sht", q.float() / math.sqrt(d), k)
+    probs_scale = torch.ones(s_n, t, device=q.device)
+    if k_scale is not None:
+        tok_block = tabs.repeat_interleave(bs, dim=1)    # [S, T]
+        scores = scores * k_scale.to(q.device)[tok_block][:, None, :]
+        probs_scale = v_scale.to(q.device)[tok_block]
+    lens = seq_lens.to(q.device).long().clamp(0, t)
+    pos = torch.arange(t, device=q.device)
+    m_all, l_all, acc_all = [], [], []
+    for z in range(splits):
+        inside = (pos >= z * part) & (pos < (z + 1) * part)
+        valid = inside[None, :] & (pos[None, :] < lens[:, None])    # [S, T]
+        sc = scores.masked_fill(~valid[:, None, :], -1e30)
+        m = sc.amax(dim=-1)                                         # [S, Hq]
+        e = torch.exp(sc - m[..., None]) * valid[:, None, :]
+        l_all.append(e.sum(dim=-1))
+        m_all.append(torch.where(l_all[-1] > 0, m, -1e30))
+        acc_all.append(torch.einsum("sht,sthd->shd",
+                                    e * probs_scale[:, None, :], v))
+    m_p, l_p = torch.stack(m_all), torch.stack(l_all)             # [Z, S, H]
+    w = torch.where(l_p > 0, torch.exp(m_p - m_p.amax(dim=0)), 0.0)
+    denom = (w * l_p).sum(dim=0)
+    num = (w[..., None] * torch.stack(acc_all)).sum(dim=0)
+    out = torch.where(denom[..., None] > 0,
+                      num / denom.clamp_min(1e-30)[..., None], 0.0)
+    return out.to(q.dtype)
 
 
 def kernel_gate_reason(head_dim):
@@ -160,7 +247,8 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, seq_lens,
     given) or int4-packed (`kv_int4`) caches. CPU tensors, and a head dim
     that is no multiple of 8 (the reference's composition), take
     `paged_decode_attention_reference`; CUDA tensors launch the kernel of
-    the cache format."""
+    the cache format, split over `decode_splits` partitions of the
+    table."""
     fmt = _cache_format(k_scale, kv_int4)
     tensors = [q, k_cache, v_cache, block_tables, seq_lens] + (
         [] if k_scale is None else [k_scale, v_scale])
@@ -174,21 +262,39 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, seq_lens,
                          f"{q.device}")
     _check(fmt, q, k_cache, v_cache, block_tables, seq_lens, k_scale,
            v_scale)
+    return _launch(fmt, q, k_cache, v_cache, block_tables, seq_lens,
+                   k_scale, v_scale)
+
+
+def _launch(fmt, q, k_cache, v_cache, block_tables, seq_lens, k_scale,
+            v_scale):
+    """The kernel of cache format `fmt` on checked tensors: the split
+    count and partition from `decode_splits`, the workspace of the
+    partials, one C entry call (the splits and their merge) and one
+    launch count."""
     s_n, hq, d = q.shape
     _, hkv, bs, _ = k_cache.shape
     if fmt == "int4":
         bs *= 2                    # logical tokens per block
+    pages = block_tables.shape[1]
+    splits, part = decode_splits(
+        pages, bs, s_n, hkv,
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
     out = torch.empty_like(q)
+    # the partials and their (m, l), from the caching allocator
+    ws = torch.empty(s_n * hq * splits * (d + 2), dtype=torch.float32,
+                     device=q.device) if splits > 1 else None
     name = KERNEL_NAMES[fmt]
     fn = getattr(kernel_library(name), name)
     scales = [] if fmt == "model" else [k_scale.data_ptr(),
                                         v_scale.data_ptr()]
     fn.argtypes = [ctypes.c_void_p] * (6 + len(scales)) \
-        + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     code = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *scales,
               block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-              s_n, hq, hkv, bs, d, block_tables.shape[1], _DTYPES[q.dtype],
+              s_n, hq, hkv, bs, d, pages, _DTYPES[q.dtype], splits, part,
+              None if ws is None else ws.data_ptr(),
               current_stream(q.device))
     check_launch(name, code)
     count_launch(name)

@@ -1552,9 +1552,9 @@ FM_TC_IDS = [f"{k}-s{s}-d{d}" for k, s, d in FM_TC_CASES]
 
 @pytest.mark.parametrize("kind,s,d", FM_TC_CASES, ids=FM_TC_IDS)
 def test_flashmask_tensor_core_matches_plain(card, kind, s, d):
-    """bf16 K9 forward and dK/dV on the tensor-core bodies (dQ on its
-    CUDA-core body) against the plain versions: O within 2e-2, lse within
-    1e-3, each gradient within one bf16 ulp (2^-7) of its largest |value|;
+    """bf16 K9 forward, dQ and dK/dV on the tensor-core bodies against the
+    plain versions: O within 2e-2, lse within 1e-3, each gradient within
+    one bf16 ulp (2^-7) of its largest |value|;
     a column no row sees gets dK = dV = 0 and a row that sees no key O =
     0 and lse = -1e30. One launch of each K9 kernel."""
     from paddle_tpu_torch.ops.flashmask import (
@@ -1606,13 +1606,13 @@ def test_flashmask_tensor_core_dkv_repeats_bit_for_bit(card):
 
 
 def test_flashmask_tensor_core_refuses_misaligned_inputs(card):
-    """bf16 K9 forward and dK/dV read by TMA: a contiguous view that
+    """bf16 K9 forward, dQ and dK/dV read by TMA: a contiguous view that
     starts 2 bytes past a 16-byte boundary is refused, not copied, and
     nothing launches; f32 (CUDA-core bodies) takes it."""
     from paddle_tpu_torch.ops.flash_attention import _bwd_delta
     from paddle_tpu_torch.ops.flashmask import (
-        _launch_bwd_dkv, _launch_fwd, flashmask_attention_reference,
-        flashmask_fwd, tile_bounds)
+        _launch_bwd_dkv, _launch_bwd_dq, _launch_fwd,
+        flashmask_attention_reference, flashmask_fwd, tile_bounds)
 
     n = 2 * 64 * 64
     q = torch.randn(n + 1, device=card).to(torch.bfloat16)[1:].view(
@@ -1632,6 +1632,10 @@ def test_flashmask_tensor_core_refuses_misaligned_inputs(card):
     _cuda_common.reset_launch_counts()
     with pytest.raises(ValueError, match="aligned"):
         _launch_bwd_dkv(k, k, v, q, lse, _bwd_delta(o, q), *fm)
+    with pytest.raises(ValueError, match="aligned"):
+        _launch_bwd_dq(k, k, v, q, lse, _bwd_delta(o, q), *fm)
+    with pytest.raises(ValueError, match="aligned"):
+        _launch_bwd_dq(q, k, v, k, lse, _bwd_delta(o, k), *fm)
     assert _launched() == {}
     q32 = torch.randn(n + 1, device=card)[1:].view(1, 2, 64, 64)
     got, _ = flashmask_fwd(q32, k.float(), v.float(), st, True)
@@ -1639,3 +1643,89 @@ def test_flashmask_tensor_core_refuses_misaligned_inputs(card):
                                             True)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() < 1e-4
+
+
+#: K9 dQ on the tensor-core body (bf16, padded d <= 128): a 1024-token
+#: window and random start rows, D 64, 72 (a multiple of 8 under 128: TMA
+#: zero-fills the columns past it) and 128, S off a multiple of 128
+FM_DQ_CASES = [(kind, s, d) for kind, s in (("window", 2100),
+                                             ("random", 1030))
+               for d in (64, 72, 128)]
+
+
+@pytest.mark.parametrize("kind,s,d", FM_DQ_CASES,
+                         ids=[f"{k}-s{s}-d{d}" for k, s, d in FM_DQ_CASES])
+def test_flashmask_tensor_core_dq_matches_plain(card, kind, s, d):
+    """bf16 K9 dQ (`flash_bwd_dq_tc_kernel<..., StartRowMask>`) against
+    `flashmask_bwd_dq_reference` from the same inputs, within one bf16
+    ulp (2^-7) of dQ's largest |value|: a row that sees no key gets dQ =
+    0. One launch, and two launches give the same bits (dQ sums its kv
+    tiles in registers in a fixed order)."""
+    from paddle_tpu_torch.ops.flash_attention import _bwd_delta
+    from paddle_tpu_torch.ops.flashmask import (
+        _launch_bwd_dq, _launch_fwd, flashmask_bwd_dq_reference,
+        tensor_core_route, tile_bounds)
+
+    assert tensor_core_route("flashmask_bwd_dq", torch.bfloat16, d)
+    rs = np.random.RandomState(s + d)
+    b, h = 1, 2
+    q, k, v, do = (_randn(rs, b, h, s, d).to(card, torch.bfloat16)
+                   for _ in range(4))
+    st = _fm_starts(kind, b, h, s, rs)
+    st[0, 1, :] = np.minimum(st[0, 1, :], 5)    # rows >= 5 see no key
+    start = torch.from_numpy(st).to(card)
+    fm = (start, *tile_bounds(start, s), True)
+    o, lse = _launch_fwd(q, k, v, *fm)
+    delta = _bwd_delta(o, do)
+    _cuda_common.reset_launch_counts()
+    got = _launch_bwd_dq(q, k, v, do, lse, delta, *fm)
+    again = _launch_bwd_dq(q, k, v, do, lse, delta, *fm)
+    torch.cuda.synchronize()
+    assert _launched() == {"flashmask_bwd_dq": 2}
+    want = flashmask_bwd_dq_reference(q, k, v, do, lse, delta, start, True)
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2 ** -7 * want.float().abs().max().item(), err
+    assert not got[0, 1, 5:].any()
+    assert torch.equal(got, again)
+
+
+#: split-K decode: lengths 0, 1, a partition edge (256) and 4096 in one
+#: batch over a 4096-token table (16 splits of 256), GQA groups 1, 3 (2 + 1)
+#: and 16
+DECODE_SPLIT_CASES = [(hq, hkv) for hq, hkv in ((8, 8), (12, 4), (16, 1))]
+
+
+@pytest.mark.parametrize("fmt", ["model", "int8", "int4"])
+@pytest.mark.parametrize("hq,hkv", DECODE_SPLIT_CASES,
+                         ids=["g1", "g3", "g16"])
+def test_split_decode_matches_plain_and_repeats(card, fmt, hq, hkv):
+    """K7 / K7q split over the context (`decode_splits`: 16 partitions of
+    256 tokens at this table width) against the plain version, bf16 q,
+    within KERNEL tolerance (2e-2; 3e-2 for the quantized formats, whose
+    plain version rounds the dequantized cache to bf16): length 0 gives
+    0. One launch count per call, and two calls give the same bits (the
+    partials merge in split order)."""
+    from paddle_tpu_torch.ops.paged_decode import decode_splits
+
+    rs = np.random.RandomState(hq * 10 + hkv)
+    d, bs, pages = 128, 16, 256
+    lens = [0, 1, 256, 4096]
+    args = _decode_inputs(card, rs, len(lens), hq, hkv, d, bs, pages,
+                          1 + len(lens) * pages, torch.bfloat16, fmt)
+    args = args[:4] + (torch.tensor(lens, dtype=torch.int32, device=card),) \
+        + args[5:]
+    sm = torch.cuda.get_device_properties(card).multi_processor_count
+    assert decode_splits(pages, bs, len(lens), hkv, sm)[0] > 1
+    kw = {"kv_int4": fmt == "int4"}
+    _cuda_common.reset_launch_counts()
+    out = paged_decode_attention(*args, **kw)
+    again = paged_decode_attention(*args, **kw)
+    ref = paged_decode_attention_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert _launched() == {KERNEL_NAMES[fmt]: 2}
+    tol = 2e-2 if fmt == "model" else 3e-2
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() < tol
+    assert not out[0].any()
+    assert torch.equal(out, again)
