@@ -2,12 +2,7 @@
 """Smoke run of paddle_tpu_torch on one CUDA card (H100): the port's main
 path, end to end, through its hand-written kernels.
 
-    python3 chip_smoke.py [--parent DIR]
-
-`--parent DIR` names another checkout whose own chip_smoke.py run has
-built its kernels (DIR/paddle_tpu_torch/_build): the paged-decode KERNEL
-lines then also time that tree's decode kernel on the same inputs
-(`parent_ms`).
+    python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
   1. environment: the card's name and power limit;
@@ -185,10 +180,16 @@ AGREE_MIN_Q = {"int8": 0.9, "int4": 0.8}
 #: round once, so bf16 outputs differ by at most one rounding each
 #: (2^-8), f32 ones by the summation order
 QMM_TOL = {"bfloat16": 2 ** -7, "float32": 1e-5}
-#: K7q vs its plain version: as KERNEL_TOL, plus the plain version rounds
-#: the dequantized cache to bf16 before the softmax (the reference's XLA
-#: composition does), the kernel keeps it in f32
-KERNEL_TOL_Q = 3e-2
+#: K7 / K7q vs their plain versions from the same inputs, relative to each
+#: sequence's largest |output| (a long context's outputs are averages of
+#: ~1/sqrt(length) size, a short one's of the values' size; a sequence of
+#: length 0 must give exactly 0). Both sides sum in f32 and round once to
+#: bf16, so K7 differs by at most one bf16 ulp (2^-7 of a value's
+#: binade); K7q's plain version also rounds the dequantized cache to bf16
+#: before the softmax (the reference's XLA composition does) where the
+#: kernel keeps it in f32: one more ulp (2^-6). One of 16 partitions of a
+#: 4096-token context dropped moves its sequence by ~14x 2^-6
+DECODE_TOL = {"model": 2 ** -7, "int8": 2 ** -6, "int4": 2 ** -6}
 
 #: the fused norm, rotary and SwiGLU kernels (K3-K5) vs their plain
 #: versions from the same inputs, relative to each output's largest
@@ -254,6 +255,14 @@ def _time_ms(fn, flush=None, reps=30, warmup=5):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _decode_rel_err(out, ref):
+    """The largest of each sequence's max |out - ref| over its max |ref|
+    (inf where a sequence of output 0 gets anything else)."""
+    diff = (out.float() - ref.float()).abs().flatten(1).amax(1)
+    top = ref.float().abs().flatten(1).amax(1)
+    return (diff / top).nan_to_num(nan=0.0).max().item()
 
 
 def _host_us(fn, reps=200):
@@ -447,59 +456,6 @@ def flash_bwd_case(b, hq, hkv, s, d=128, causal=True):
     return rec
 
 
-#: `--parent DIR`: the paged-decode C entries of another tree's build
-#: (DIR/paddle_tpu_torch/_build, left by its own chip_smoke.py run in the
-#: same call), by cache format. Each decode KERNEL line then also times
-#: that tree's kernel on the same inputs (`parent_ms`) and holds it to the
-#: plain version; the port never calls it. Empty without the flag.
-PARENT_DECODE = {}
-
-
-def load_parent_decode(root):
-    """The entries of the one-kernel-per-(kv head, sequence) paged decode
-    that trees without split-K built (C signature: pointers, then s_n,
-    hq, hkv, bs, d, pages, dtype and the stream)."""
-    import glob
-
-    for fmt, suffix in (("model", ""), ("int8", "_int8"), ("int4", "_int4")):
-        paths = glob.glob(os.path.join(root, "paddle_tpu_torch", "_build",
-                                       f"paged_decode{suffix}-*.so"))
-        assert len(paths) == 1, (fmt, paths)
-        fn = getattr(ctypes.CDLL(paths[0]), f"paged_decode_attention{suffix}")
-        fn.argtypes = [ctypes.c_void_p] * (6 if fmt == "model" else 8) \
-            + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        PARENT_DECODE[fmt] = fn
-
-
-def _parent_decode(fmt, q, kc, vc, tables, lens, ks=None, vs=None):
-    """Out of the `--parent` tree's kernel of cache format `fmt`."""
-    import torch
-
-    out = torch.empty_like(q)
-    s_n, hq, d = q.shape
-    hkv, bs = kc.shape[1], kc.shape[2] * (2 if fmt == "int4" else 1)
-    scales = [] if ks is None else [ks.data_ptr(), vs.data_ptr()]
-    code = PARENT_DECODE[fmt](
-        q.data_ptr(), kc.data_ptr(), vc.data_ptr(), *scales,
-        tables.data_ptr(), lens.data_ptr(), out.data_ptr(), s_n, hq, hkv, bs,
-        d, tables.shape[1], 1, torch.cuda.current_stream().cuda_stream)
-    assert code == 0, code
-    return out
-
-
-def _parent_record(rec, fmt, args, ref, tol, flush):
-    """`parent_ms` (and its error against the plain version) on the
-    decode record `rec`, when `--parent` gave a tree."""
-    if not PARENT_DECODE:
-        return
-    got = _parent_decode(fmt, *args)
-    err = (got.float() - ref.float()).abs().max().item()
-    assert err < tol, ("parent", fmt, err)
-    rec["parent_max_abs_err"] = err
-    rec["parent_ms"] = _time_ms(lambda: _parent_decode(fmt, *args), flush)
-
-
 def decode_case(seqs=8, heads=16, d=128, bs=16, max_len=1024, kv_heads=None,
                 tag="serve"):
     """Paged decode at the serving shape: 8 sequences, ragged lengths up
@@ -507,9 +463,9 @@ def decode_case(seqs=8, heads=16, d=128, bs=16, max_len=1024, kv_heads=None,
     heads over `kv_heads` cache heads (default: as many). The L2 cache is
     flushed before each timed launch: in serving, one layer's pool slice
     is evicted by the other 19 layers between two of its decode calls.
-    Two calls must give the same bits (the split partials merge in split
-    order); `splits` and `part` are `decode_splits`' choice, `host_us`
-    the wrapper's host time per call."""
+    Each sequence is held to DECODE_TOL; two calls must give the same bits
+    (the split partials merge in split order); `splits` and `part` are
+    `decode_splits`' choice, `host_us` the wrapper's host time per call."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.paged_decode import (
@@ -535,8 +491,9 @@ def decode_case(seqs=8, heads=16, d=128, bs=16, max_len=1024, kv_heads=None,
     ref = paged_decode_attention_reference(q, kc, vc, tables, lens)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
+    rel = _decode_rel_err(out, ref)
     assert torch.isfinite(out.float()).all()
-    assert err < KERNEL_TOL, err
+    assert rel <= DECODE_TOL["model"], (tag, rel)
     assert torch.equal(out, paged_decode_attention(q, kc, vc, tables, lens))
     splits, part = decode_splits(
         pages, bs, seqs, kv_heads,
@@ -561,7 +518,7 @@ def decode_case(seqs=8, heads=16, d=128, bs=16, max_len=1024, kv_heads=None,
     rec = {"name": "paged_decode_attention", "case": tag,
            "shape": [seqs, heads, kv_heads, d, bs, pages],
            "lens": lens_np.tolist(), "splits": splits, "part": part,
-           "max_abs_err": err,
+           "max_abs_err": err, "rel_err": rel, "tol": DECODE_TOL["model"],
            "ms": _time_ms(lambda: paged_decode_attention(
                q, kc, vc, tables, lens), flush),
            "plain_ms": _time_ms(lambda: paged_decode_attention_reference(
@@ -572,8 +529,6 @@ def decode_case(seqs=8, heads=16, d=128, bs=16, max_len=1024, kv_heads=None,
            "bound_ms": bound, "bound_by": by,
            "host_us": _host_us(lambda: paged_decode_attention(
                q, kc, vc, tables, lens))}
-    _parent_record(rec, "model", (q, kc, vc, tables, lens), ref, KERNEL_TOL,
-                   flush)
     _say("KERNEL", rec)
     return rec
 
@@ -660,8 +615,9 @@ def quant_decode_case(fmt, seqs=8, heads=16, d=128, bs=16, max_len=1024,
     ref = paged_decode_attention_reference(*args, kv_int4=int4)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
+    rel = _decode_rel_err(out, ref)
     assert torch.isfinite(out.float()).all()
-    assert err < KERNEL_TOL_Q, (fmt, err)
+    assert rel <= DECODE_TOL[fmt], (fmt, tag, rel)
     assert torch.equal(out, paged_decode_attention(*args, kv_int4=int4))
     splits, part = decode_splits(
         pages, bs, seqs, kv_heads,
@@ -692,7 +648,7 @@ def quant_decode_case(fmt, seqs=8, heads=16, d=128, bs=16, max_len=1024,
     rec = {"name": KERNEL_NAMES[fmt], "case": tag,
            "shape": [seqs, heads, kv_heads, d, bs, pages],
            "lens": lens_np.tolist(), "splits": splits, "part": part,
-           "max_abs_err": err, "tol": KERNEL_TOL_Q,
+           "max_abs_err": err, "rel_err": rel, "tol": DECODE_TOL[fmt],
            "ms": _time_ms(lambda: paged_decode_attention(
                *args, kv_int4=int4), flush),
            "plain_ms": _time_ms(lambda: paged_decode_attention_reference(
@@ -701,7 +657,6 @@ def quant_decode_case(fmt, seqs=8, heads=16, d=128, bs=16, max_len=1024,
                q[:, :, None], kd, vd, attn_mask=mask,
                enable_gqa=heads != kv_heads), flush),
            "bound_ms": bound, "bound_by": by}
-    _parent_record(rec, fmt, args, ref, KERNEL_TOL_Q, flush)
     _say("KERNEL", rec)
     return rec
 
@@ -2234,9 +2189,6 @@ def main():
         return 1
     from paddle_tpu_torch.ops import _cuda_common
 
-    if "--parent" in sys.argv:
-        load_parent_decode(sys.argv[sys.argv.index("--parent") + 1])
-
     device_name = torch.cuda.get_device_name(0)
     smi = _nvidia_smi()
     print(f"DEVICE {device_name} | nvidia-smi: {smi} | torch "
@@ -2374,8 +2326,7 @@ def main():
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
-            | {k: rec[k] for k in ("varlen_full_ms", "body", "parent_ms")
-               if k in rec})
+            | {k: rec[k] for k in ("varlen_full_ms", "body") if k in rec})
     # K1 at TRAIN's shape, launched by TRAIN's steps
     summary.append({
         "name": flash_train["name"], "case": "train", "route": "cuda",
@@ -2524,7 +2475,7 @@ def main():
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
-            | {k: rec[k] for k in ("body", "parent_ms") if k in rec})
+            | {k: rec[k] for k in ("body",) if k in rec})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

@@ -266,6 +266,33 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, seq_lens,
                    k_scale, v_scale)
 
 
+#: SMs of each card by device index, read once: the decode tick calls
+#: the wrapper once a layer
+_SM_COUNTS: dict = {}
+#: the bound C entry of each cache format
+_ENTRIES: dict = {}
+
+
+def _sm_count(device) -> int:
+    count = _SM_COUNTS.get(device.index)
+    if count is None:
+        count = torch.cuda.get_device_properties(device).multi_processor_count
+        _SM_COUNTS[device.index] = count
+    return count
+
+
+def _entry(fmt):
+    fn = _ENTRIES.get(fmt)
+    if fn is None:
+        name = KERNEL_NAMES[fmt]
+        fn = getattr(kernel_library(name), name)
+        fn.argtypes = [ctypes.c_void_p] * (6 if fmt == "model" else 8) \
+            + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+        _ENTRIES[fmt] = fn
+    return fn
+
+
 def _launch(fmt, q, k_cache, v_cache, block_tables, seq_lens, k_scale,
             v_scale):
     """The kernel of cache format `fmt` on checked tensors: the split
@@ -277,25 +304,19 @@ def _launch(fmt, q, k_cache, v_cache, block_tables, seq_lens, k_scale,
     if fmt == "int4":
         bs *= 2                    # logical tokens per block
     pages = block_tables.shape[1]
-    splits, part = decode_splits(
-        pages, bs, s_n, hkv,
-        torch.cuda.get_device_properties(q.device).multi_processor_count)
+    splits, part = decode_splits(pages, bs, s_n, hkv, _sm_count(q.device))
     out = torch.empty_like(q)
     # the partials and their (m, l), from the caching allocator
     ws = torch.empty(s_n * hq * splits * (d + 2), dtype=torch.float32,
                      device=q.device) if splits > 1 else None
     name = KERNEL_NAMES[fmt]
-    fn = getattr(kernel_library(name), name)
     scales = [] if fmt == "model" else [k_scale.data_ptr(),
                                         v_scale.data_ptr()]
-    fn.argtypes = [ctypes.c_void_p] * (6 + len(scales)) \
-        + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    code = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *scales,
-              block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-              s_n, hq, hkv, bs, d, pages, _DTYPES[q.dtype], splits, part,
-              None if ws is None else ws.data_ptr(),
-              current_stream(q.device))
+    code = _entry(fmt)(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *scales,
+        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), s_n,
+        hq, hkv, bs, d, pages, _DTYPES[q.dtype], splits, part,
+        None if ws is None else ws.data_ptr(), current_stream(q.device))
     check_launch(name, code)
     count_launch(name)
     return out

@@ -1690,10 +1690,12 @@ def test_flashmask_tensor_core_dq_matches_plain(card, kind, s, d):
     assert torch.equal(got, again)
 
 
-#: split-K decode: lengths 0, 1, a partition edge (256) and 4096 in one
-#: batch over a 4096-token table (16 splits of 256), GQA groups 1, 3 (2 + 1)
-#: and 16
+#: split-K decode: lengths 0, 1, a partition edge (256), lengths that span
+#: several partitions and end mid-chunk (700, 2733, 4095) and the full
+#: 4096 in one batch over a 4096-token table (16 splits of 256), GQA
+#: groups 1, 3 (2 + 1) and 16
 DECODE_SPLIT_CASES = [(hq, hkv) for hq, hkv in ((8, 8), (12, 4), (16, 1))]
+DECODE_SPLIT_LENS = [0, 1, 256, 700, 2733, 4095, 4096]
 
 
 @pytest.mark.parametrize("fmt", ["model", "int8", "int4"])
@@ -1702,15 +1704,17 @@ DECODE_SPLIT_CASES = [(hq, hkv) for hq, hkv in ((8, 8), (12, 4), (16, 1))]
 def test_split_decode_matches_plain_and_repeats(card, fmt, hq, hkv):
     """K7 / K7q split over the context (`decode_splits`: 16 partitions of
     256 tokens at this table width) against the plain version, bf16 q,
-    within KERNEL tolerance (2e-2; 3e-2 for the quantized formats, whose
-    plain version rounds the dequantized cache to bf16): length 0 gives
-    0. One launch count per call, and two calls give the same bits (the
-    partials merge in split order)."""
+    each sequence within one bf16 ulp of its largest |output| (2^-7; 2^-6
+    for the quantized formats, whose plain version also rounds the
+    dequantized cache to bf16), as chip_smoke's DECODE_TOL: a dropped or
+    misweighted partial of a long context moves it by far more. Length 0
+    gives 0. One launch count per call, and two calls give the same bits
+    (the partials merge in split order)."""
     from paddle_tpu_torch.ops.paged_decode import decode_splits
 
     rs = np.random.RandomState(hq * 10 + hkv)
     d, bs, pages = 128, 16, 256
-    lens = [0, 1, 256, 4096]
+    lens = DECODE_SPLIT_LENS
     args = _decode_inputs(card, rs, len(lens), hq, hkv, d, bs, pages,
                           1 + len(lens) * pages, torch.bfloat16, fmt)
     args = args[:4] + (torch.tensor(lens, dtype=torch.int32, device=card),) \
@@ -1724,8 +1728,10 @@ def test_split_decode_matches_plain_and_repeats(card, fmt, hq, hkv):
     ref = paged_decode_attention_reference(*args, **kw)
     torch.cuda.synchronize()
     assert _launched() == {KERNEL_NAMES[fmt]: 2}
-    tol = 2e-2 if fmt == "model" else 3e-2
+    tol = 2 ** -7 if fmt == "model" else 2 ** -6
     assert torch.isfinite(out.float()).all()
-    assert (out.float() - ref.float()).abs().max().item() < tol
+    diff = (out.float() - ref.float()).abs().flatten(1).amax(1)
+    top = ref.float().abs().flatten(1).amax(1)
+    assert (diff <= tol * top).all(), (diff / top).tolist()
     assert not out[0].any()
     assert torch.equal(out, again)

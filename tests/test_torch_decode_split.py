@@ -203,6 +203,8 @@ def test_wrapper_passes_splits_from_the_table_alone(monkeypatch, fmt, lens):
     lib = Lib()
     setattr(lib, pd.KERNEL_NAMES[fmt], _stand_in(seen, args, fmt))
     monkeypatch.setattr(pd, "kernel_library", lambda name: lib)
+    monkeypatch.setattr(pd, "_ENTRIES", {})
+    monkeypatch.setattr(pd, "_SM_COUNTS", {})
     monkeypatch.setattr(pd, "current_stream", lambda dev: 0)
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda dev: type("P", (), {
@@ -227,3 +229,31 @@ def test_wrapper_passes_splits_from_the_table_alone(monkeypatch, fmt, lens):
     want = pd.paged_decode_attention_reference(*args[:5], *args[5:],
                                                kv_int4=fmt == "int4")
     assert (out - want).abs().max().item() < 1e-4
+
+
+def test_wrapper_reads_the_sm_count_once(monkeypatch):
+    """The decode tick calls the wrapper once a layer: the card's SM count
+    is read on the first call and kept for its device."""
+    args = list(_torch_args("int8", _inputs("int8", 6, 2)))
+    args[0] = args[0].float()
+    seen, reads = [], []
+
+    class Lib:
+        pass
+
+    lib = Lib()
+    setattr(lib, pd.KERNEL_NAMES["int8"], _stand_in(seen, args, "int8"))
+    monkeypatch.setattr(pd, "kernel_library", lambda name: lib)
+    monkeypatch.setattr(pd, "current_stream", lambda dev: 0)
+    monkeypatch.setattr(pd, "_ENTRIES", {})
+    monkeypatch.setattr(pd, "_SM_COUNTS", {})
+
+    def props(dev):
+        reads.append(dev)
+        return type("P", (), {"multi_processor_count": 132})
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", props)
+    first = pd._launch("int8", *args)
+    again = pd._launch("int8", *args)
+    assert len(reads) == 1 and len(seen) == 2
+    assert torch.equal(first, again)
