@@ -7,14 +7,16 @@ path, end to end, through its hand-written kernels.
 Phases (any failure exits non-zero; nothing is caught):
   1. environment: the card's name and power limit;
   2. build: every CUDA kernel of the port, from the sources in the
-     checkout (nvcc, sm_90a, one process per source, in parallel), and
-     beside them a yardstick library of the CUDA-core bodies bf16 K9's
-     forward, dQ and dK/dV ran before they moved onto the tensor cores
-     (REPLACED_K9_SRC); then the tensor-core kernels' registers and
-     spills from ptxas (K1/K2's and K9's; none may spill), and those of
-     the paged-decode kernels the serve paths launch (none may spill);
+     checkout (nvcc, sm_90a, one process per source, in parallel); then
+     the tensor-core kernels' registers and spills from ptxas (K1/K2's
+     and K9's; none may spill), those of the paged-decode kernels the
+     serve paths launch and those of the int4 dequant-matmul's (K8) bodies
+     (none may spill);
   3. kernels: each kernel at the main path's shapes (bf16; the int4
-     dequant-matmul also at the f32 lm_head shape; the fused norm, rotary
+     dequant-matmul (K8) at the serve's three layer shapes for decode (M
+     8) and prefill (M 64 and 512), each bf16 case also on the CUDA-core
+     body bf16 ran before (`replaced_ms`, the same C entry), and at the
+     f32 lm_head shape (M 1 and 8); the fused norm, rotary
      and SwiGLU kernels at the train step's shapes and dtypes, and at a
      ragged f32 size; the LayerNorm kinds of the fused norm (K3-LN) and
      dropout + add (K6) at the GPT and BERT steps' shapes, and the flash
@@ -52,7 +54,8 @@ Phases (any failure exits non-zero; nothing is caught):
      paged-decode launches). Two requests of each are replayed teacher-
      forced through the same step functions, one slot, with the plain
      versions of every kernel passed explicitly;
-  7. profile_q4: phase 5 for the int4 engine;
+  7. profile_q4: phase 5 for the int4 engine; profile_prefill: device
+     time of one 512-token prefill by kernel kind, bf16 beside int4;
   8. train: LLaMA at the 1B geometry (bf16 O2 via amp.decorate with bf16
      AdamW moments, AdamW lr 1e-4, random weights from seed 0) takes
      training steps on one batch of 4 x 1024 seeded ids, labels = ids,
@@ -86,8 +89,7 @@ Phases (any failure exits non-zero; nothing is caught):
  13. kernels of the last slice: K1v and K2v at the VARLEN batch, K9 at the
      FLASHMASK window and at S 4100 with random start rows, each against
      its plain version and timed as in phase 3, SDPA with the equivalent
-     boolean mask as the yardstick, and K9's three kernels beside the
-     bodies they replaced on the same inputs (`replaced_ms`);
+     boolean mask as the yardstick;
  14. varlen: `flash_attn_unpadded` on 16 packed causal sequences of
      64..2048 tokens (np.random.RandomState(0); bucket 2048), LLaMA-1B's
      heads (16 x 128, bf16), forward and backward with loss = sum(out^2):
@@ -106,9 +108,9 @@ The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Without a CUDA card it exits 1 and prints
 no result.
 """
-import ctypes
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -535,12 +537,16 @@ def decode_case(seqs=8, heads=16, d=128, bs=16, max_len=1024, kv_heads=None,
 
 def qmm_case(m, k, n, dtype="bfloat16"):
     """The int4 dequant-matmul at one [m, k] @ [k, n] shape of the serve:
-    parity, times, bound. The L2 cache is flushed before each timed launch:
-    in serving a layer's weight is evicted by the other layers' weights
-    between two of its calls."""
+    parity, two calls bit for bit, times, bound. The L2 cache is flushed
+    before each timed launch: in serving a layer's weight is evicted by
+    the other layers' weights between two of its calls. A bf16 case is
+    also timed on the CUDA-core body bf16 ran before it moved onto the
+    tensor cores (the same C entry with tile_m 0 and that body's K split:
+    `replaced_ms`), held to the plain version too."""
     import torch
     from paddle_tpu_torch.ops.quantized import (
-        dequant_int4, quant_matmul_raw, quant_matmul_reference, quantize_int4)
+        _core_splits, _launch, dequant_int4, kernel_route, quant_matmul_raw,
+        quant_matmul_reference, quantize_int4, tc_tile_m)
 
     tdt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(m * 7 + k + n)
@@ -549,12 +555,16 @@ def qmm_case(m, k, n, dtype="bfloat16"):
                     dtype=torch.bfloat16) * 0.02
     packed, scale = quantize_int4(w)
     out = quant_matmul_raw(x, packed, scale, k)
+    again = quant_matmul_raw(x, packed, scale, k)
     ref = quant_matmul_reference(x, packed, scale, k)
     torch.cuda.synchronize()
+    top = ref.float().abs().max().item()
     err = (out.float() - ref.float()).abs().max().item()
-    rel = err / ref.float().abs().max().item()
+    rel = err / top
     assert torch.isfinite(out.float()).all()
     assert rel <= QMM_TOL[dtype], (m, k, n, dtype, rel)
+    assert torch.equal(out, again), (m, k, n, dtype, "repeat")
+    body = kernel_route(k, tdt)
     w_deq = dequant_int4(packed, scale, k, tdt)       # yardstick's weight
     scratch = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
     flush = scratch.zero_
@@ -564,6 +574,7 @@ def qmm_case(m, k, n, dtype="bfloat16"):
                           PEAK_BF16_FLOPS if dtype == "bfloat16"
                           else PEAK_F32_FLOPS)
     rec = {"name": "quant_matmul", "shape": [m, k, n], "dtype": dtype,
+           "body": body, "tile_m": tc_tile_m(m) if body == TC_BODY else None,
            "max_abs_err": err, "rel_err": rel, "tol": QMM_TOL[dtype],
            "ms": _time_ms(lambda: quant_matmul_raw(x, packed, scale, k),
                           flush),
@@ -571,6 +582,15 @@ def qmm_case(m, k, n, dtype="bfloat16"):
                lambda: quant_matmul_reference(x, packed, scale, k), flush),
            "library_ms": _time_ms(lambda: torch.matmul(x, w_deq), flush),
            "bound_ms": bound, "bound_by": by}
+    if body == TC_BODY:
+        old = torch.empty_like(out)
+        splits = _core_splits(m, k, n)
+        _launch(x, packed, scale, old, k, 0, *splits)
+        torch.cuda.synchronize()
+        rep = (old.float() - ref.float()).abs().max().item() / top
+        assert rep <= QMM_TOL[dtype], ("replaced", m, k, n, rep)
+        rec |= {"replaced_body": CORE_BODY, "replaced_ms": _time_ms(
+            lambda: _launch(x, packed, scale, old, k, 0, *splits), flush)}
     _say("KERNEL", rec)
     return rec
 
@@ -1718,91 +1738,7 @@ def varlen_cases():
     return {"fwd": fwd, "bwd": bwd}
 
 
-#: the bodies bf16 K9's three kernels ran before they moved onto the
-#: tensor cores: the CUDA-core forward, dQ and dK/dV of
-#: csrc/flash_attention_tiles.cuh at the largest head dim 128 with the
-#: start-row mask (the templates and arguments earlier trees'
-#: csrc/flashmask_attention.cu instantiated), built from the checkout's
-#: header into a yardstick library of their own. The KERNEL lines time
-#: them beside K9 on the same inputs (`replaced_ms`); the port never
-#: calls them.
-REPLACED_K9_SRC = r"""
-#include "flash_attention_tiles.cuh"
-
-namespace {
-StartRowMask::Args margs(const void* st, const void* lo, const void* hi,
-                         int causal) {
-  return StartRowMask::Args{static_cast<const int*>(st),
-                            static_cast<const int*>(lo),
-                            static_cast<const int*>(hi), causal};
-}
-}  // namespace
-
-extern "C" int replaced_fwd(const void* q, const void* k, const void* v,
-                            void* o, void* lse, const void* st,
-                            const void* lo, const void* hi, int b, int h,
-                            int sq, int sk, int d, int causal,
-                            void* stream) {
-  return launch_fwd<__nv_bfloat16, StartRowMask, kSmallD>(
-      q, k, v, o, lse, margs(st, lo, hi, causal), b, h, h, sq, sk, d,
-      1.0f / sqrtf((float)d), static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int replaced_bwd_dq(const void* q, const void* k, const void* v,
-                               const void* dout, const void* lse,
-                               const void* delta, void* dq, const void* st,
-                               const void* lo, const void* hi, int b, int h,
-                               int sq, int sk, int d, int causal,
-                               void* stream) {
-  return launch_bwd_dq<__nv_bfloat16, StartRowMask, kSmallD>(
-      q, k, v, dout, lse, delta, dq, margs(st, lo, hi, causal), b, h, h, sq,
-      sk, d, 1.0f / sqrtf((float)d), static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int replaced_bwd_dkv(const void* q, const void* k, const void* v,
-                                const void* dout, const void* lse,
-                                const void* delta, void* dk, void* dv,
-                                const void* st, const void* lo,
-                                const void* hi, int b, int h, int sq, int sk,
-                                int d, int causal, void* stream) {
-  return launch_bwd_dkv<__nv_bfloat16, StartRowMask, kSmallD>(
-      q, k, v, dout, lse, delta, dk, dv, margs(st, lo, hi, causal), b, h, h,
-      sq, sk, d, 1.0f / sqrtf((float)d), static_cast<cudaStream_t>(stream));
-}
-"""
-
-
-def start_replaced_build():
-    """Start nvcc on REPLACED_K9_SRC (the port's own flags, the csrc
-    headers) beside the kernels' build; returns (process, library)."""
-    from paddle_tpu_torch.ops import _cuda_common
-
-    os.makedirs(_cuda_common.BUILD_DIR, exist_ok=True)
-    src = os.path.join(_cuda_common.BUILD_DIR, "k9_replaced.cu")
-    with open(src, "w") as f:
-        f.write(REPLACED_K9_SRC)
-    lib = os.path.join(_cuda_common.BUILD_DIR, "k9_replaced.so")
-    proc = subprocess.Popen(
-        [_cuda_common._nvcc(), *_cuda_common.NVCC_FLAGS, "-I",
-         _cuda_common.CSRC_DIR, "-o", lib, src],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    return proc, lib
-
-
-def replaced_library(proc, lib):
-    """The loaded yardstick library once its build has ended."""
-    log, _ = proc.communicate()
-    assert proc.returncode == 0, log.decode(errors="replace")
-    so = ctypes.CDLL(lib)
-    for fn, n_ptrs in ((so.replaced_fwd, 8), (so.replaced_bwd_dq, 10),
-                       (so.replaced_bwd_dkv, 11)):
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return so
-
-
-def flashmask_cases(s, starts, tag, replaced, b=1, h=16, d=128):
+def flashmask_cases(s, starts, tag, b=1, h=16, d=128):
     """K9's three kernels at one shape (bf16, causal) with the start rows
     `starts(s, h)` ([1, h, s] int32): each against its plain version,
     timed beside it, beside SDPA with the equivalent boolean mask
@@ -1810,10 +1746,8 @@ def flashmask_cases(s, starts, tag, replaced, b=1, h=16, d=128):
     over the visible pairs these start rows leave (the sum over columns
     j of min(start[j], S) - j) and the bytes of Q, K, V, O (dO, dQ, dK,
     dV), lse, delta and the start rows. The tile bounds are computed
-    once, untimed (the wrapper's prep). Each of the three is also timed
-    against the body it replaced (`replaced`, the library of
-    `replaced_library`), on the same inputs, each of those held to the
-    plain version too. Returns {"fwd": rec, "bwd": rec}."""
+    once, untimed (the wrapper's prep). Returns {"fwd": rec, "bwd":
+    rec}."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.flash_attention import _bwd_delta
@@ -1838,24 +1772,10 @@ def flashmask_cases(s, starts, tag, replaced, b=1, h=16, d=128):
     lse_err = (lse - rlse).abs().max().item()
     assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
     assert err < KERNEL_TOL and lse_err < 1e-3, (err, lse_err)
-    stream = torch.cuda.current_stream().cuda_stream
-    mask_ptrs = (start.data_ptr(), smin.data_ptr(), smax.data_ptr())
-
-    def replaced_fwd():
-        o_ = torch.empty_like(q)
-        lse_ = torch.empty(q.shape[:3], dtype=torch.float32, device="cuda")
-        code = replaced.replaced_fwd(q.data_ptr(), k.data_ptr(),
-                                     v.data_ptr(), o_.data_ptr(),
-                                     lse_.data_ptr(), *mask_ptrs, b, h, s, s,
-                                     d, 1, stream)
-        assert code == 0, code
-        return o_, lse_
 
     def body(name):
         return TC_BODY if tensor_core_route(name, q.dtype, d) else CORE_BODY
 
-    rep_err = (replaced_fwd()[0].float() - ro.float()).abs().max().item()
-    assert rep_err < KERNEL_TOL, rep_err
     del ro, rlse
     q_bytes = kv_bytes = 2 * b * h * s * d
     st_bytes = 4 * b * h * s
@@ -1864,10 +1784,9 @@ def flashmask_cases(s, starts, tag, replaced, b=1, h=16, d=128):
     fwd = {"name": "flashmask_fwd", "case": tag, "shape": [b, h, s, d],
            "causal": True, "visible_pairs": pairs,
            "causal_pairs": b * h * s * (s + 1) // 2,
-           "body": body("flashmask_fwd"), "replaced_body": CORE_BODY,
+           "body": body("flashmask_fwd"),
            "max_abs_err": err, "lse_max_abs_err": lse_err,
            "ms": _time_ms(lambda: _launch_fwd(q, k, v, *fm)),
-           "replaced_ms": _time_ms(replaced_fwd),
            "plain_ms": _time_ms(lambda: flashmask_attention_reference(
                q, k, v, start, True)),
            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
@@ -1895,41 +1814,13 @@ def flashmask_cases(s, starts, tag, replaced, b=1, h=16, d=128):
         return flashmask_bwd_dkv_reference(q_, k_, v_, do_, lse_, delta_,
                                            start, causal)
 
-    def replaced_dq():
-        dq = torch.empty_like(q)
-        code = replaced.replaced_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *mask_ptrs, b,
-            h, s, s, d, 1, stream)
-        assert code == 0, code
-        return dq
-
-    def replaced_dkv():
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
-        code = replaced.replaced_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *mask_ptrs, b, h, s, s, d, 1, stream)
-        assert code == 0, code
-        return dk, dv
-
     _bwd_records(
         bwd, (("dq", fm_dq, plain_dq, (ql,), 3, q_bytes),
               ("dkv", fm_dkv, plain_dkv, (kl, vl), 4, 2 * kv_bytes)),
         (q, k, v, do, lse, delta, True), reads, pairs, d,
         lambda wrt: torch.autograd.grad(out, wrt, do, retain_graph=True))
-    _, rels = _rel_errs(replaced_dkv(), plain_dkv(q, k, v, do, lse, delta,
-                                                  True))
-    assert max(rels) <= K2_TOL, ("replaced dkv", rels)
-    _, rels = _rel_errs((replaced_dq(),), (plain_dq(q, k, v, do, lse, delta,
-                                                    True),))
-    assert max(rels) <= K2_TOL, ("replaced dq", rels)
-    bwd["dq"] |= {"body": body("flashmask_bwd_dq"),
-                  "replaced_body": CORE_BODY,
-                  "replaced_ms": _time_ms(replaced_dq)}
-    bwd["dkv"] |= {"body": body("flashmask_bwd_dkv"),
-                   "replaced_body": CORE_BODY,
-                   "replaced_ms": _time_ms(replaced_dkv)}
+    bwd["dq"]["body"] = body("flashmask_bwd_dq")
+    bwd["dkv"]["body"] = body("flashmask_bwd_dkv")
     _say("KERNEL", bwd)
     return {"fwd": fwd, "bwd": bwd}
 
@@ -2181,6 +2072,80 @@ def decode_usage():
     assert not spilled, spilled
 
 
+def qmm_usage():
+    """PTXAS_K8: registers, stack and spills of K8's kernels (the
+    tensor-core body at each token tile; the CUDA-core body and its split
+    pass in f32 and bf16), and ptxas's lines on the tensor-core body's
+    wgmma pipeline (a serialized pipeline is slow, not wrong). None may
+    spill."""
+    from paddle_tpu_torch.ops import _cuda_common
+
+    rel = "csrc/quant_matmul.cu"
+    usage = {}
+    for name, use in _cuda_common.ptxas_usage(rel).items():
+        tile = re.search(r"qmm_tc_kernelILi(\d+)E", name)
+        dt = "bf16" if "bfloat16" in name else "f32"
+        if tile:
+            usage[f"qmm_tc_kernel<{tile.group(1)}>"] = use
+        elif "qmm_kernel" in name or "qmm_finish" in name:
+            usage[f"{'qmm_kernel' if 'qmm_kernel' in name else 'qmm_finish'}"
+                  f"<{dt}>"] = use
+    with open(f"{_cuda_common._lib_path(rel)}.log") as f:
+        notes = [ln.strip() for ln in f if "wgmma" in ln]
+    _say("PTXAS_K8", {"kernels": usage, "wgmma_notes": notes})
+    assert len(usage) == 8, usage
+    spilled = {k: u for k, u in usage.items()
+               if u.get("spill_stores") or u.get("spill_loads")
+               or u.get("stack")}
+    assert not spilled, spilled
+
+
+def profile_prefill(model, tag="PROFILE_PREFILL"):
+    """Where one 512-token prefill's device time goes, bf16 weights
+    beside int4 (and an int4 KV cache): torch.profiler over one engine
+    step that admits and prefills a 512-token prompt with max_new_tokens
+    1 (no decode tick), after one such step to warm up; device ms by
+    kernel kind beside the host wall. Not part of the counted run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.inference import ServingEngine
+
+    rs = np.random.RandomState(2)
+    rec = {"prompt_tokens": 512}
+    for name, kw in (("bf16", {}), ("int4", {"weight_quant": "int4",
+                                             "kv_cache_dtype": "int4"})):
+        eng = ServingEngine(model, max_slots=8, kv_block_size=16, **kw)
+        for profiled in (False, True):
+            eng.add_request(rs.randint(0, model.config.vocab_size, (512,)),
+                            max_new_tokens=1)
+            torch.cuda.synchronize()
+            if not profiled:
+                eng.step()
+                continue
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                eng.step()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        assert eng.stats()["requests_completed"] == 2
+        kinds = {"quant_matmul": 0.0, "flash": 0.0, "gemm": 0.0,
+                 "other": 0.0}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            low = e.key.lower()
+            kind = ("quant_matmul" if "qmm_" in low else
+                    "flash" if "flash" in low else
+                    "gemm" if any(w in low for w in ("nvjet", "gemm", "gemv",
+                                                     "xmma", "cutlass"))
+                    else "other")
+            kinds[kind] += e.self_device_time_total / 1e3
+        rec[name] = {"device_ms": sum(kinds.values()),
+                     "device_ms_by_kind": kinds, "wall_ms": 1e3 * wall}
+    _say(tag, rec)
+
+
 def main():
     import torch
 
@@ -2196,13 +2161,12 @@ def main():
     print(smi, flush=True)
 
     t0 = time.perf_counter()
-    replaced_build = start_replaced_build()
     _cuda_common.build_kernels()
-    replaced = replaced_library(*replaced_build)
     _say("BUILD", {"seconds": time.perf_counter() - t0,
                    "kernels": sorted(_cuda_common.KERNEL_SOURCES)})
     tc_usage()
     decode_usage()
+    qmm_usage()
     phases = {"build": time.perf_counter() - t0}
     t0 = time.perf_counter()
 
@@ -2214,11 +2178,12 @@ def main():
     bwd = [flash_bwd_case(TRAIN_BATCH, 16, 16, TRAIN_SEQ),
            flash_bwd_case(1, 16, 4, 512), flash_bwd_case(1, 16, 16, 500)]
     dec = decode_case()
-    # the 1B serve's int4 matmuls: decode (M = 8 slots) q/k/v/o,
-    # gate/up, down; the f32 lm_head; one prefill bucket (M = 512)
-    qmm = [qmm_case(8, 2048, 2048), qmm_case(8, 2048, 5504),
-           qmm_case(8, 5504, 2048), qmm_case(8, 2048, 32000, "float32"),
-           qmm_case(512, 2048, 5504)]
+    # the 1B serve's int4 matmuls: q/k/v/o, gate/up and down at decode (M
+    # = 8 slots) and at two prefill buckets (M = 64, 512); the f32 lm_head
+    # at 8 slots and at one
+    qmm = {(m, k, n): qmm_case(m, k, n) for m in (8, 64, 512)
+           for k, n in ((2048, 2048), (2048, 5504), (5504, 2048))}
+    qmm_head = [qmm_case(m, 2048, 32000, "float32") for m in (8, 1)]
     dec_q = {fmt: quant_decode_case(fmt) for fmt in ("int8", "int4")}
     # two long contexts (2733 and 2608 tokens of a 4096-token table): the
     # case split-K is for
@@ -2268,6 +2233,7 @@ def main():
     counts_q8 = serve_quant(model, "int8", "int8", 8, "SERVE_Q8")
     profile_decode(model, tag="PROFILE_Q4", weight_quant="int4",
                    kv_cache_dtype="int4")
+    profile_prefill(model)
     del model                     # the serving weights; TRAIN builds its own
     torch.cuda.empty_cache()
     phases["serve"] = time.perf_counter() - t0
@@ -2293,11 +2259,11 @@ def main():
     # K1v/K2v at the VARLEN batch; K9 at the FLASHMASK window and at a
     # ragged S with random start rows (straddling tiles everywhere)
     varlen = varlen_cases()
-    fm = flashmask_cases(FM_SEQ, _fm_window_starts, "window", replaced)
+    fm = flashmask_cases(FM_SEQ, _fm_window_starts, "window")
     g = torch.Generator(device="cuda").manual_seed(3)
     flashmask_cases(4100, lambda s, h: torch.randint(
         1, s + 1, (1, h, s), device="cuda", generator=g,
-        dtype=torch.int32), "random", replaced)
+        dtype=torch.int32), "random")
     torch.cuda.empty_cache()
     counts_varlen = varlen_phase()
     torch.cuda.empty_cache()
@@ -2317,9 +2283,7 @@ def main():
             (dec_q["int8"], paged_src.replace(".cu", "_int8.cu"), paged_tpu,
              counts_q8),
             (dec_q["int4"], paged_src.replace(".cu", "_int4.cu"), paged_tpu,
-             counts_q4),
-            (qmm[1], "paddle_tpu_torch/csrc/quant_matmul.cu",
-             "paddle_tpu/ops/quantized.py:144", counts_q4)):
+             counts_q4)):
         summary.append({
             "name": rec["name"], "route": "cuda", "source": src,
             "replaces": replaces, "launches": cnt[rec["name"]],
@@ -2327,6 +2291,21 @@ def main():
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
             | {k: rec[k] for k in ("varlen_full_ms", "body") if k in rec})
+    # K8 at every timed shape: decode, prefill, the lm_head; launches are
+    # SERVE_Q4's count (all its shapes)
+    for rec in [*qmm.values(), *qmm_head]:
+        m, k, n = rec["shape"]
+        summary.append({
+            "name": rec["name"], "case": f"M {m} x {k} x {n} {rec['dtype']}",
+            "route": "cuda", "body": rec["body"],
+            "source": "paddle_tpu_torch/csrc/quant_matmul.cu",
+            "replaces": "paddle_tpu/ops/quantized.py:144",
+            "launches": counts_q4[rec["name"]],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+            | {k: rec[k] for k in ("replaced_ms", "replaced_body")
+               if k in rec})
     # K1 at TRAIN's shape, launched by TRAIN's steps
     summary.append({
         "name": flash_train["name"], "case": "train", "route": "cuda",
@@ -2412,8 +2391,7 @@ def main():
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"],
                 "library_ms": rec["library_ms"]})
-    # K1v/K2v from VARLEN, K9 from FLASHMASK (with the time of the body
-    # each K9 kernel replaced, where it replaced one)
+    # K1v/K2v from VARLEN, K9 from FLASHMASK
     for rec, src, line, cnt in (
             (varlen["fwd"] | {"body": TC_BODY}, "flash_attention_fwd.cu",
              104, counts_varlen),
@@ -2435,9 +2413,7 @@ def main():
             "launches": cnt[rec["name"]],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
-            | {k: rec[k] for k in ("replaced_ms", "replaced_body")
-               if k in rec})
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     # the shapes beyond the main paths' (no path runs these shapes:
     # launches is the entry's count on the path named in launches_path,
     # at that path's shapes)

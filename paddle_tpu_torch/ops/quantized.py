@@ -19,6 +19,13 @@ has ceil(K/2) rows where x has K columns.
 
 Routing: `quant_matmul_raw` takes its plain version for CPU tensors and
 launches the kernel for CUDA tensors, or raises. There is no fallback.
+Inside the kernel, `kernel_route` picks the body by dtype and K alone:
+bf16 x with K % 16 == 0 runs the tensor-core body (wgmma; x read by TMA,
+whose boxes of x's high half start at column K/2 and so need K/2 * 2
+bytes to be a multiple of 16), at a token tile `tc_tile_m(M)`; f32 x
+(TF32 would change the results) and other K run the CUDA-core body.
+`kernel_splits` splits K where the output tiles alone are too few to fill
+the card; `quant_matmul_tile_reference` is the plain model of that walk.
 `quant_matmul` sends what the kernel does not take (group-wise scales,
 odd K, N not a multiple of 32, a dtype other than f32 or bf16) to the
 reference's plain composition by a static gate, `kernel_gate_reason`, as
@@ -37,13 +44,25 @@ _NAME = "quant_matmul"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: int4 value range: symmetric, -7..7 (the same form as the int8 127 rule)
 INT4_QMAX = 7.0
-#: the kernel's output tile: columns per block and x rows per block
+#: the bodies (`kernel_route`)
+TC_BODY, CORE_BODY = "tensor cores", "cuda cores"
+#: the CUDA-core body's output tile: columns per block and x rows per
+#: block (N must be a multiple of KERNEL_COLS on either body)
 KERNEL_COLS = 32
 KERNEL_ROWS = 8
 #: blocks the kernel aims to have in flight (two per SM of an H100): a
-#: decode-sized call with fewer column tiles splits K to reach it
+#: decode-sized call with fewer output tiles splits K to reach it
 _TARGET_BLOCKS = 264
 _MIN_SPLIT_ROWS = 128          # packed rows per K split, at least
+#: the tensor-core body: weight columns per block, packed rows per slab
+#: (the step of its K walk and of its splits), and its token tiles
+TC_COLS = 128
+TC_SLAB = 64
+TC_TILES_M = (8, 16, 32, 64)
+#: an H100's SMs: a tensor-core tile of more than 16 tokens is bound by
+#: operations, and one block on every SM fills the card; a smaller one is
+#: bound by bytes and wants two in flight on every SM (_TARGET_BLOCKS)
+_SMS = 132
 
 
 def packed_rows(k: int) -> int:
@@ -161,10 +180,46 @@ def _check(x, packed, scale, k):
             raise ValueError("quant_matmul_raw needs contiguous inputs")
 
 
-def kernel_splits(m: int, k: int, n: int) -> tuple:
-    """(splits, packed rows per split) of K for an [m, k] @ [k, n] call:
-    enough blocks to fill the card when the column tiles alone are few
-    (decode), one split otherwise (prefill)."""
+def kernel_route(k: int, dtype) -> str:
+    """The body K8 runs for x [M, k] of `dtype`: bf16 with k % 16 == 0 on
+    the tensor cores, anything else on the CUDA cores. A static decision
+    from the dtype and K alone."""
+    return TC_BODY if dtype == torch.bfloat16 and k % 16 == 0 else CORE_BODY
+
+
+def tc_tile_m(m: int) -> int:
+    """The tensor-core body's token tile (wgmma's n) for M rows of x: the
+    smallest of TC_TILES_M that holds M, the largest above."""
+    return next((t for t in TC_TILES_M if t >= m), TC_TILES_M[-1])
+
+
+def kernel_splits(m: int, k: int, n: int, dtype=torch.float32) -> tuple:
+    """(splits, packed rows per split) of K for an [m, k] @ [k, n] call on
+    the body `kernel_route(k, dtype)` picks: enough blocks to fill the
+    card when the output tiles alone are few (decode), one split
+    otherwise (prefill)."""
+    if kernel_route(k, dtype) == TC_BODY:
+        return _tc_splits(m, k, n)
+    return _core_splits(m, k, n)
+
+
+def _tc_splits(m, k, n):
+    """The tensor-core body's split: whole 64-row slabs, as many splits
+    as the tiles leave room for under one block per SM (tiles of more
+    than 16 tokens) or two (decode tiles), at most one slab each. A split
+    costs its partial sums' bytes and the last block's pass over them:
+    measured on the H100, splitting a prefill that already has ~one block
+    per SM (M 512 x 2048 x 2048 at 128 tiles) made it slower."""
+    bm = tc_tile_m(m)
+    tiles = -(-n // TC_COLS) * -(-m // bm)
+    slabs = -(-(k // 2) // TC_SLAB)
+    target = _TARGET_BLOCKS if bm <= 16 else _SMS
+    per = -(-slabs // min(max(1, target // tiles), slabs))
+    return -(-slabs // per), per * TC_SLAB
+
+
+def _core_splits(m, k, n):
+    """The CUDA-core body's split: at least 128 packed rows each."""
     kh = k // 2
     blocks = (n // KERNEL_COLS) * -(-m // KERNEL_ROWS)
     want = min(-(-_TARGET_BLOCKS // blocks), max(1, kh // _MIN_SPLIT_ROWS))
@@ -172,35 +227,102 @@ def kernel_splits(m: int, k: int, n: int) -> tuple:
     return max(1, -(-kh // rows)), rows
 
 
+def quant_matmul_tile_reference(x, packed, scale, k):
+    """The kernel's walk over K in plain PyTorch, for the checks: the
+    body, token tile and K splits the kernel takes for these shapes;
+    within a split, slabs of TC_SLAB packed rows (the CUDA-core body's
+    whole split), each padded with zeros to a full slab and to whole
+    column tiles as TMA fills them, whose low nibbles pair with x's
+    columns [p0, p0 + slab) and high nibbles with [K/2 + p0, ...), both
+    zero past K/2; f32 partial sums per split, added in split order; the
+    scale in the epilogue; one rounding to x's dtype. Same arguments and
+    result as `quant_matmul_reference`."""
+    m, n = x.shape[0], packed.shape[1]
+    kh = k // 2
+    splits, rows = kernel_splits(m, k, n, x.dtype)
+    tc = kernel_route(k, x.dtype) == TC_BODY
+    cols = TC_COLS if tc else KERNEL_COLS
+    slab = TC_SLAB if tc else rows
+    np_ = -(-n // cols) * cols
+    mp = -(-m // tc_tile_m(m)) * tc_tile_m(m) if tc else m
+    pk = torch.zeros((splits * rows, np_), dtype=torch.int8)
+    pk[:kh, :n] = packed.cpu()
+    lo, hi = ((pk << 4) >> 4).float(), (pk >> 4).float()
+    xf = x.cpu().float()
+    xl = torch.zeros((mp, splits * rows))
+    xh = torch.zeros((mp, splits * rows))
+    xl[:m, :kh] = xf[:, :kh]
+    xh[:m, :kh] = xf[:, kh:k]
+    total = None
+    for sp in range(splits):
+        acc = torch.zeros((mp, np_))
+        for p0 in range(sp * rows, (sp + 1) * rows, slab):
+            p1 = p0 + slab
+            acc = acc + xl[:, p0:p1] @ lo[p0:p1] + xh[:, p0:p1] @ hi[p0:p1]
+        total = acc if total is None else total + acc
+    out = total[:m, :n] * scale.cpu().float()
+    return out.to(device=x.device, dtype=x.dtype)
+
+
+_TICKETS: dict = {}
+
+
+def _tickets(device, stream: int, count: int):
+    """int32 zeros, one per output tile of a split tensor-core call on
+    `stream`. The kernel's last block of a tile puts its ticket back to 0,
+    so one buffer serves every call queued on the stream."""
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < count:
+        t = torch.zeros(max(count, 1024), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
+
+
 def quant_matmul_raw(x, packed, scale, k):
     """x [M, K] @ unpack(packed [K/2, N]) * scale [N] -> [M, N] in x's
     dtype. CPU tensors take `quant_matmul_reference`; CUDA tensors launch
-    the kernel."""
+    the kernel, on the body `kernel_route` picks."""
     if all(t.device.type == "cpu" for t in (x, packed, scale)):
         return quant_matmul_reference(x, packed, scale, k)
     if x.device.type != "cuda":
         raise ValueError(f"quant_matmul_raw: unsupported device {x.device}")
     _check(x, packed, scale, k)
+    tc = kernel_route(k, x.dtype) == TC_BODY
+    if tc and x.data_ptr() % 16:
+        raise ValueError("bf16 x must be 16-byte aligned on the tensor-core "
+                         "body (its rows are read by TMA)")
     m, n = x.shape[0], packed.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0:
         return out
-    splits, rows = kernel_splits(m, k, n)
-    partial = None
+    _launch(x, packed, scale, out, k, tc_tile_m(m) if tc else 0,
+            *kernel_splits(m, k, n, x.dtype))
+    count_launch(_NAME)
+    return out
+
+
+def _launch(x, packed, scale, out, k, tile_m, splits, rows):
+    """One call of the C entry on `tile_m`'s body (0: the CUDA cores) with
+    the K split (splits, rows); raises on a launch error."""
+    m, n = out.shape
+    stream = current_stream(x.device)
+    partial = tickets = None
     if splits > 1:
         partial = torch.empty((splits, m, n), dtype=torch.float32,
                               device=x.device)
+        if tile_m:
+            tickets = _tickets(x.device, stream,
+                               -(-n // TC_COLS) * -(-m // tile_m))
     fn = kernel_library(_NAME).quant_matmul
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     code = fn(x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
               out.data_ptr(), 0 if partial is None else partial.data_ptr(),
-              m, k, n, splits, rows, _DTYPES[x.dtype],
-              current_stream(x.device))
+              0 if tickets is None else tickets.data_ptr(), m, k, n, splits,
+              rows, tile_m, _DTYPES[x.dtype], stream)
     check_launch(_NAME, code)
-    count_launch(_NAME)
-    return out
 
 
 # --------------------------------------------------------------- routing

@@ -458,23 +458,48 @@ def test_quantized_paged_decode_kernel_matches_plain(card, fmt, dtype, tol,
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2 ** -7)])
-@pytest.mark.parametrize("m,k,n", [(8, 2048, 2048), (8, 5504, 2048),
-                                   (2, 2048, 5504), (1, 2048, 32000),
-                                   (512, 2048, 5504), (3, 64, 96),
-                                   (17, 34, 32)])
+@pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 5504), (5504, 2048)],
+                         ids=["qkvo", "gate-up", "down"])
+@pytest.mark.parametrize("m", [1, 2, 8, 9, 16, 64, 128, 256, 512])
 def test_quant_matmul_kernel_matches_plain(card, dtype, tol, m, k, n):
+    """The 1B serve's three layer shapes at the decode slot buckets and
+    the prefill buckets (bf16: the tensor-core body, every token tile,
+    split and unsplit; f32: the CUDA-core body), against the plain
+    version, and two calls give the same bits."""
     rs = np.random.RandomState(3)
     x = _randn(rs, m, k).to(card, dtype)
     packed, scale = quantize_int4(_randn(rs, k, n) * 0.05)
     packed, scale = packed.to(card), scale.to(card)
     before = _cuda_common.launch_counts()["quant_matmul"]
     out = quant_matmul_raw(x, packed, scale, k)
+    again = quant_matmul_raw(x, packed, scale, k)
     ref = quant_matmul_reference(x, packed, scale, k)
     torch.cuda.synchronize()
-    assert _cuda_common.launch_counts()["quant_matmul"] == before + 1
+    assert _cuda_common.launch_counts()["quant_matmul"] == before + 2
     assert out.dtype == dtype and tuple(out.shape) == (m, n)
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= tol * ref.float().abs().max().item(), err
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2 ** -7)])
+@pytest.mark.parametrize("m,k,n", [(1, 2048, 32000), (8, 2048, 32000),
+                                   (3, 64, 96), (17, 34, 32), (5, 34, 96),
+                                   (130, 48, 160)])
+def test_quant_matmul_other_shapes_match_plain(card, dtype, tol, m, k, n):
+    """The lm_head's shape, one-slab K with a ragged column tile, and the
+    shapes TMA cannot address (K = 34: bf16 takes the CUDA-core body)."""
+    rs = np.random.RandomState(4)
+    x = _randn(rs, m, k).to(card, dtype)
+    packed, scale = quantize_int4(_randn(rs, k, n) * 0.05)
+    packed, scale = packed.to(card), scale.to(card)
+    out = quant_matmul_raw(x, packed, scale, k)
+    ref = quant_matmul_reference(x, packed, scale, k)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= tol * ref.float().abs().max().item(), err
+    assert torch.equal(out, quant_matmul_raw(x, packed, scale, k))
 
 
 def test_quant_matmul_refuses_what_it_does_not_take(card):
@@ -488,6 +513,12 @@ def test_quant_matmul_refuses_what_it_does_not_take(card):
         quant_matmul_raw(torch.zeros(2, 64, device=card), packed.to(card),
                          scale.to(card), 64)
     packed, scale = quantize_int4(_randn(rs, 64, 64))
+    # the tensor-core body reads x by TMA: a bf16 x off a 16-byte
+    # boundary raises, with no copy and no fallback
+    xs = torch.zeros(2 * 64 + 1, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        quant_matmul_raw(xs[1:].view(2, 64), packed.to(card),
+                         scale.to(card), 64)
     with pytest.raises(ValueError, match="dtype"):
         quant_matmul_raw(torch.zeros(2, 64, device=card,
                                      dtype=torch.float16),

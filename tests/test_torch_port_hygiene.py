@@ -111,16 +111,20 @@ def test_kernel_sources_exist_and_are_the_build_list():
                                "quant_matmul.cu", "fused_norm.cu",
                                "flashmask_attention.cu"}
     # the headers, part of every source's hash: the CUDA-core flash tile
-    # bodies, the tensor-core ones (which include them), and the paged
-    # decode template its three sources instantiate
+    # bodies, the tensor-core ones (which include them), the Hopper
+    # plumbing the tensor-core kernels share, and the paged decode
+    # template its three sources instantiate
     headers = {f for f in os.listdir(_cuda_common.CSRC_DIR)
                if f.endswith(".cuh")}
     assert headers == {"flash_attention_tiles.cuh", "flash_attention_tc.cuh",
-                       "paged_decode.cuh"}
+                       "hopper_common.cuh", "paged_decode.cuh"}
     with open(os.path.join(_cuda_common.CSRC_DIR,
                            "flash_attention_tc.cuh")) as f:
-        assert '#include "flash_attention_tiles.cuh"' in f.read()
+        tc = f.read()
+    assert '#include "flash_attention_tiles.cuh"' in tc
+    assert '#include "hopper_common.cuh"' in tc
     for rel, header in (
+            ("csrc/quant_matmul.cu", "hopper_common.cuh"),
             ("csrc/flash_attention_fwd.cu", "flash_attention_tc.cuh"),
             ("csrc/flash_attention_bwd.cu", "flash_attention_tc.cuh"),
             ("csrc/flashmask_attention.cu", "flash_attention_tc.cuh"),

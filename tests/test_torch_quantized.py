@@ -15,6 +15,15 @@ kernel, like the plain version, accumulates in f32 and rounds once, so
 the two differ by at most 2^-8; the XLA composition rounds the bf16
 product and then the scaled result, so it differs from the plain version
 by at most 3 * 2^-8.
+(c) The kernel's route (which body and token tile an M, K, N and dtype
+take) and its K split, pinned; and the plain model of its walk over K
+(`quant_matmul_tile_reference`: 64-row slabs whose low nibbles pair with
+x's first half and high nibbles with its second, zero-filled ragged K and
+N edges, f32 split partials added in order, the scale in the epilogue)
+against paddle_tpu's Pallas kernel in interpret mode: f32 within 1e-5 of
+the largest |out| (f32 sums in another order), bf16 within 2^-7 of it
+(each side rounds its f32 sum once, so they differ by at most one bf16
+ulp of a value's binade).
 The CUDA kernel is held against the plain version on the card in
 test_torch_cuda_kernels.py.
 """
@@ -236,13 +245,101 @@ def test_wrapper_takes_plain_version_on_cpu_without_launching():
                                    (512, 2048, 5504), (2, 64, 32),
                                    (3, 2, 64)])
 def test_kernel_k_splits_cover_k_once(m, k, n):
-    splits, rows = port_q.kernel_splits(m, k, n)
+    """Each body's K split covers K/2 once with no empty split. The
+    tensor-core body splits whole 64-row slabs until its blocks reach one
+    per SM (tiles of more than 16 tokens) or two (decode tiles), never
+    below one slab a split; the CUDA-core body keeps its rule."""
     kh = k // 2
-    assert splits >= 1 and rows >= 1
-    assert (splits - 1) * rows < kh <= splits * rows     # none empty
-    blocks = (n // port_q.KERNEL_COLS) * -(-m // port_q.KERNEL_ROWS)
-    if blocks >= port_q._TARGET_BLOCKS:
-        assert splits == 1          # enough column tiles: no second pass
-    else:
-        assert blocks * splits >= min(port_q._TARGET_BLOCKS,
-                                      blocks * (kh // 128))
+    for dtype in (torch.bfloat16, torch.float32):
+        splits, rows = port_q.kernel_splits(m, k, n, dtype)
+        assert splits >= 1 and rows >= 1
+        assert (splits - 1) * rows < kh <= splits * rows     # none empty
+        if port_q.kernel_route(k, dtype) == port_q.TC_BODY:
+            assert rows % port_q.TC_SLAB == 0
+            bm = port_q.tc_tile_m(m)
+            tiles = -(-n // port_q.TC_COLS) * -(-m // bm)
+            target = port_q._TARGET_BLOCKS if bm <= 16 else port_q._SMS
+            slabs = -(-kh // port_q.TC_SLAB)
+            want = min(max(1, target // tiles), slabs)   # splits aimed at
+            assert rows // port_q.TC_SLAB == -(-slabs // want)
+            assert splits <= want and (splits == 1) == (want == 1)
+            continue
+        blocks = (n // port_q.KERNEL_COLS) * -(-m // port_q.KERNEL_ROWS)
+        if blocks >= port_q._TARGET_BLOCKS:
+            assert splits == 1      # enough column tiles: no second pass
+        else:
+            assert blocks * splits >= min(port_q._TARGET_BLOCKS,
+                                          blocks * (kh // 128))
+
+
+# ---------------------------------------- (c) the kernel's route and walk
+
+@pytest.mark.parametrize("m,k,n,dtype,body,tile,splits", [
+    (8, 2048, 2048, torch.bfloat16, "tensor cores", 8, 16),
+    (8, 2048, 5504, torch.bfloat16, "tensor cores", 8, 6),
+    (8, 5504, 2048, torch.bfloat16, "tensor cores", 8, 15),
+    (1, 2048, 5504, torch.bfloat16, "tensor cores", 8, 6),
+    (9, 2048, 5504, torch.bfloat16, "tensor cores", 16, 6),
+    (64, 2048, 5504, torch.bfloat16, "tensor cores", 64, 3),
+    (64, 5504, 2048, torch.bfloat16, "tensor cores", 64, 8),
+    (512, 2048, 5504, torch.bfloat16, "tensor cores", 64, 1),
+    (512, 2048, 2048, torch.bfloat16, "tensor cores", 64, 1),
+    (8, 2048, 32000, torch.float32, "cuda cores", None, 1),
+    (17, 34, 32, torch.bfloat16, "cuda cores", None, 1),
+    (2, 40, 32, torch.bfloat16, "cuda cores", None, 1),
+    (2, 48, 32, torch.bfloat16, "tensor cores", 8, 1)],
+    ids=["decode-qkvo", "decode-gate-up", "decode-down", "decode-m1",
+         "m9", "prefill-64", "prefill-64-down", "prefill-512",
+         "prefill-512-qkvo",
+         "lm-head-f32", "k34", "k40", "k48"])
+def test_kernel_route_tile_and_splits(m, k, n, dtype, body, tile, splits):
+    """Which body an M, K, N and dtype take: bf16 with K % 16 == 0 the
+    tensor cores (x's high half starts at column K/2, a 16-byte boundary
+    for TMA only then), f32 (TF32 would change the results) and other K
+    the CUDA cores; the token tile is the smallest of 8..64 that holds
+    M (64 above); and the split count the serve's shapes get."""
+    assert port_q.kernel_route(k, dtype) == body
+    if tile is not None:
+        assert port_q.tc_tile_m(m) == tile
+    assert port_q.kernel_splits(m, k, n, dtype)[0] == splits
+    # the gate does not narrow: every one of these launches K8
+    assert port_q.kernel_gate_reason(k, n, dtype) is None
+
+
+def _pallas_qmm(x, packed, scale, k):
+    """paddle_tpu's Pallas kernel (interpret mode off the TPU), with N
+    padded to its 128-column blocks by zero columns."""
+    n = packed.shape[1]
+    pad = -n % 128
+    jp = jnp.pad(jnp.asarray(packed), ((0, 0), (0, pad)))
+    js = jnp.pad(jnp.asarray(scale), (0, pad))
+    out = ref_q.quant_matmul_raw(x, jp, js, k)
+    return np.asarray(out.astype(jnp.float32))[:, :n]
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 2 ** -7)])
+@pytest.mark.parametrize("k,n", [(34, 32), (64, 96), (2048, 160),
+                                 (5504, 96)],
+                         ids=["k34", "k64-n96", "k2048-cut", "k5504-cut"])
+@pytest.mark.parametrize("m", [1, 3, 8, 17, 64])
+def test_tile_walk_matches_pallas(m, k, n, dtype, tol):
+    """The kernel's walk over K in plain PyTorch against the reference's
+    Pallas kernel: the serve's layer shapes with N cut to a ragged
+    width (2048 x 5504 -> 2048 x 160, 5504 x 2048 -> 5504 x 96), the
+    card test's K = 34 (the CUDA-core body) and a one-slab K."""
+    rs = np.random.RandomState(m * 7 + k + n)
+    x = rs.randn(m, k).astype("float32")
+    w = rs.randn(k, n).astype("float32") * 0.05
+    packed, scale = ref_q.quantize_int4(jnp.asarray(w))
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    jx = jnp.asarray(x, jdt)
+    tx = _bf16_np(np.asarray(jx)) if dtype == "bfloat16" \
+        else torch.from_numpy(x)
+    got = port_q.quant_matmul_tile_reference(
+        tx, torch.from_numpy(np.array(packed)),
+        torch.from_numpy(np.array(scale)), k)
+    assert got.dtype == tx.dtype and tuple(got.shape) == (m, n)
+    want = _pallas_qmm(jx, packed, scale, k)
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= tol * np.abs(want).max(), err
