@@ -25,7 +25,7 @@ whose boxes of x's high half start at column K/2 and so need K/2 * 2
 bytes to be a multiple of 16), at a token tile `tc_tile_m(M)`; f32 x
 (TF32 would change the results) and other K run the CUDA-core body.
 `kernel_splits` splits K where the output tiles alone are too few to fill
-the card; `quant_matmul_tile_reference` is the plain model of that walk.
+the card.
 `quant_matmul` sends what the kernel does not take (group-wise scales,
 odd K, N not a multiple of 32, a dtype other than f32 or bf16) to the
 reference's plain composition by a static gate, `kernel_gate_reason`, as
@@ -61,7 +61,11 @@ TC_SLAB = 64
 TC_TILES_M = (8, 16, 32, 64)
 #: an H100's SMs: a tensor-core tile of more than 16 tokens is bound by
 #: operations, and one block on every SM fills the card; a smaller one is
-#: bound by bytes and wants two in flight on every SM (_TARGET_BLOCKS)
+#: bound by bytes and wants two in flight on every SM (_TARGET_BLOCKS).
+#: A constant, not the device's count (as ops/paged_decode.py reads it),
+#: so that the split is a function of the shape alone, which the CPU tests
+#: pin without a card; a card with fewer SMs gets the same correct result
+#: from a few more blocks than it holds at once
 _SMS = 132
 
 
@@ -193,7 +197,7 @@ def tc_tile_m(m: int) -> int:
     return next((t for t in TC_TILES_M if t >= m), TC_TILES_M[-1])
 
 
-def kernel_splits(m: int, k: int, n: int, dtype=torch.float32) -> tuple:
+def kernel_splits(m: int, k: int, n: int, dtype) -> tuple:
     """(splits, packed rows per split) of K for an [m, k] @ [k, n] call on
     the body `kernel_route(k, dtype)` picks: enough blocks to fill the
     card when the output tiles alone are few (decode), one split
@@ -225,43 +229,6 @@ def _core_splits(m, k, n):
     want = min(-(-_TARGET_BLOCKS // blocks), max(1, kh // _MIN_SPLIT_ROWS))
     rows = max(1, -(-kh // want))
     return max(1, -(-kh // rows)), rows
-
-
-def quant_matmul_tile_reference(x, packed, scale, k):
-    """The kernel's walk over K in plain PyTorch, for the checks: the
-    body, token tile and K splits the kernel takes for these shapes;
-    within a split, slabs of TC_SLAB packed rows (the CUDA-core body's
-    whole split), each padded with zeros to a full slab and to whole
-    column tiles as TMA fills them, whose low nibbles pair with x's
-    columns [p0, p0 + slab) and high nibbles with [K/2 + p0, ...), both
-    zero past K/2; f32 partial sums per split, added in split order; the
-    scale in the epilogue; one rounding to x's dtype. Same arguments and
-    result as `quant_matmul_reference`."""
-    m, n = x.shape[0], packed.shape[1]
-    kh = k // 2
-    splits, rows = kernel_splits(m, k, n, x.dtype)
-    tc = kernel_route(k, x.dtype) == TC_BODY
-    cols = TC_COLS if tc else KERNEL_COLS
-    slab = TC_SLAB if tc else rows
-    np_ = -(-n // cols) * cols
-    mp = -(-m // tc_tile_m(m)) * tc_tile_m(m) if tc else m
-    pk = torch.zeros((splits * rows, np_), dtype=torch.int8)
-    pk[:kh, :n] = packed.cpu()
-    lo, hi = ((pk << 4) >> 4).float(), (pk >> 4).float()
-    xf = x.cpu().float()
-    xl = torch.zeros((mp, splits * rows))
-    xh = torch.zeros((mp, splits * rows))
-    xl[:m, :kh] = xf[:, :kh]
-    xh[:m, :kh] = xf[:, kh:k]
-    total = None
-    for sp in range(splits):
-        acc = torch.zeros((mp, np_))
-        for p0 in range(sp * rows, (sp + 1) * rows, slab):
-            p1 = p0 + slab
-            acc = acc + xl[:, p0:p1] @ lo[p0:p1] + xh[:, p0:p1] @ hi[p0:p1]
-        total = acc if total is None else total + acc
-    out = total[:m, :n] * scale.cpu().float()
-    return out.to(device=x.device, dtype=x.dtype)
 
 
 _TICKETS: dict = {}

@@ -489,17 +489,22 @@ def test_quant_matmul_kernel_matches_plain(card, dtype, tol, m, k, n):
                                    (130, 48, 160)])
 def test_quant_matmul_other_shapes_match_plain(card, dtype, tol, m, k, n):
     """The lm_head's shape, one-slab K with a ragged column tile, and the
-    shapes TMA cannot address (K = 34: bf16 takes the CUDA-core body)."""
-    rs = np.random.RandomState(4)
+    shapes TMA cannot address (K = 34: bf16 takes the CUDA-core body).
+    Each call launches K8 once, and two calls give the same bits."""
+    rs = np.random.RandomState(3)
     x = _randn(rs, m, k).to(card, dtype)
     packed, scale = quantize_int4(_randn(rs, k, n) * 0.05)
     packed, scale = packed.to(card), scale.to(card)
+    before = _cuda_common.launch_counts()["quant_matmul"]
     out = quant_matmul_raw(x, packed, scale, k)
+    again = quant_matmul_raw(x, packed, scale, k)
     ref = quant_matmul_reference(x, packed, scale, k)
     torch.cuda.synchronize()
+    assert _cuda_common.launch_counts()["quant_matmul"] == before + 2
+    assert out.dtype == dtype and tuple(out.shape) == (m, n)
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= tol * ref.float().abs().max().item(), err
-    assert torch.equal(out, quant_matmul_raw(x, packed, scale, k))
+    assert torch.equal(out, again)
 
 
 def test_quant_matmul_refuses_what_it_does_not_take(card):

@@ -17,7 +17,7 @@ product and then the scaled result, so it differs from the plain version
 by at most 3 * 2^-8.
 (c) The kernel's route (which body and token tile an M, K, N and dtype
 take) and its K split, pinned; and the plain model of its walk over K
-(`quant_matmul_tile_reference`: 64-row slabs whose low nibbles pair with
+(`_tile_walk`: 64-row slabs whose low nibbles pair with
 x's first half and high nibbles with its second, zero-filled ragged K and
 N edges, f32 split partials added in order, the scale in the epilogue)
 against paddle_tpu's Pallas kernel in interpret mode: f32 within 1e-5 of
@@ -306,6 +306,42 @@ def test_kernel_route_tile_and_splits(m, k, n, dtype, body, tile, splits):
     assert port_q.kernel_gate_reason(k, n, dtype) is None
 
 
+def _tile_walk(x, packed, scale, k):
+    """The kernel's walk over K in plain PyTorch: the body, token tile
+    and K splits the kernel takes for these shapes; within a split, slabs
+    of TC_SLAB packed rows (the CUDA-core body's whole split), each padded
+    with zeros to a full slab and to whole column tiles as TMA fills them,
+    whose low nibbles pair with x's columns [p0, p0 + slab) and high
+    nibbles with [K/2 + p0, ...), both zero past K/2; f32 partial sums per
+    split, added in split order; the scale in the epilogue; one rounding
+    to x's dtype. Same arguments and result as `quant_matmul_reference`."""
+    m, n = x.shape[0], packed.shape[1]
+    kh = k // 2
+    splits, rows = port_q.kernel_splits(m, k, n, x.dtype)
+    tc = port_q.kernel_route(k, x.dtype) == port_q.TC_BODY
+    cols = port_q.TC_COLS if tc else port_q.KERNEL_COLS
+    slab = port_q.TC_SLAB if tc else rows
+    np_ = -(-n // cols) * cols
+    bm = port_q.tc_tile_m(m)
+    mp = -(-m // bm) * bm if tc else m
+    pk = torch.zeros((splits * rows, np_), dtype=torch.int8)
+    pk[:kh, :n] = packed
+    lo, hi = ((pk << 4) >> 4).float(), (pk >> 4).float()
+    xf = x.float()
+    xl = torch.zeros((mp, splits * rows))
+    xh = torch.zeros((mp, splits * rows))
+    xl[:m, :kh] = xf[:, :kh]
+    xh[:m, :kh] = xf[:, kh:k]
+    total = None
+    for sp in range(splits):
+        acc = torch.zeros((mp, np_))
+        for p0 in range(sp * rows, (sp + 1) * rows, slab):
+            p1 = p0 + slab
+            acc = acc + xl[:, p0:p1] @ lo[p0:p1] + xh[:, p0:p1] @ hi[p0:p1]
+        total = acc if total is None else total + acc
+    return (total[:m, :n] * scale.float()).to(x.dtype)
+
+
 def _pallas_qmm(x, packed, scale, k):
     """paddle_tpu's Pallas kernel (interpret mode off the TPU), with N
     padded to its 128-column blocks by zero columns."""
@@ -336,9 +372,8 @@ def test_tile_walk_matches_pallas(m, k, n, dtype, tol):
     jx = jnp.asarray(x, jdt)
     tx = _bf16_np(np.asarray(jx)) if dtype == "bfloat16" \
         else torch.from_numpy(x)
-    got = port_q.quant_matmul_tile_reference(
-        tx, torch.from_numpy(np.array(packed)),
-        torch.from_numpy(np.array(scale)), k)
+    got = _tile_walk(tx, torch.from_numpy(np.array(packed)),
+                     torch.from_numpy(np.array(scale)), k)
     assert got.dtype == tx.dtype and tuple(got.shape) == (m, n)
     want = _pallas_qmm(jx, packed, scale, k)
     err = np.abs(got.float().numpy() - want).max()
