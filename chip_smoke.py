@@ -10,8 +10,9 @@ Phases (any failure exits non-zero; nothing is caught):
      checkout (nvcc, sm_90a, one process per source, in parallel); then
      the tensor-core kernels' registers and spills from ptxas (K1/K2's
      and K9's; none may spill), those of the paged-decode kernels the
-     serve paths launch and those of the int4 dequant-matmul's (K8) bodies
-     (none may spill);
+     serve paths launch, those of the int4 dequant-matmul's (K8) bodies
+     and those of the fused-norm backward's row kernel and its dw / db
+     sum (none may spill);
   3. kernels: each kernel at the main path's shapes (bf16; the int4
      dequant-matmul (K8) at the serve's three layer shapes for decode (M
      8) and prefill (M 64 and 512), each bf16 case also on the CUDA-core
@@ -682,14 +683,15 @@ def quant_decode_case(fmt, seqs=8, heads=16, d=128, bs=16, max_len=1024,
 
 
 def _fused_record(name, case, shape, got, want, sums, fn, plain,
-                  library, nbytes, flops):
+                  library, nbytes, flops, extra=None):
     """Hold one fused kernel's outputs `got` against its plain version's
     `want` (FUSED_TOL by output dtype; the outputs at indices `sums` are
     sums over rows, dw or db), time
     the kernel, its plain version and `library` (None: no single PyTorch
     call computes the function) with the L2 flushed before each launch
     (at these shapes the inputs come from earlier kernels of the step and
-    exceed the 50 MB L2 together), print the KERNEL line and return it."""
+    exceed the 50 MB L2 together), print the KERNEL line (with `extra`'s
+    fields) and return it."""
     import torch
 
     errs, rels = [], []
@@ -712,9 +714,42 @@ def _fused_record(name, case, shape, got, want, sums, fn, plain,
            "ms": _time_ms(fn, flush), "plain_ms": _time_ms(plain, flush),
            "library_ms": None if library is None
            else _time_ms(library, flush),
-           "bound_ms": bound, "bound_by": by}
+           "bound_ms": bound, "bound_by": by} | (extra or {})
     _say("KERNEL", rec)
     return rec
+
+
+def _bwd_extra(rows, h, layer, fn):
+    """The norm backward's KERNEL-line extras at [rows, h]: its launch
+    plan on this card (16-byte rows); `kernel_ms`, its kernels' own device
+    time a call (torch.profiler, L2 flushed by a write as `_time_ms` is
+    timed), which leaves out the launch latency the events see; and
+    `ms_l2_clean`, the call timed with the L2 flushed by a read instead
+    (clean lines: no write-back of the flush's lines during the call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.ops import fused_norm
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    top = fused_norm.MAX_HIDDEN_LN if layer else fused_norm.MAX_HIDDEN
+    dirty = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    clean = torch.ones(24 << 20, device="cuda")
+    sink = torch.empty((), device="cuda")
+    reps = 10
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            dirty.zero_()
+            fn()
+        torch.cuda.synchronize()
+    kernel = sum(e.self_device_time_total for e in prof.key_averages()
+                 if "norm_bwd" in e.key) / reps / 1e3
+    return {"plan": fused_norm.norm_bwd_plan(rows, h, sms, top)._asdict(),
+            "kernel_ms": kernel,
+            "ms_l2_clean": _time_ms(fn, lambda: torch.sum(clean, 0,
+                                                          out=sink))}
 
 
 def fused_norm_cases(rows, h, tag, x_dtype="bfloat16", y_dtype="float32"):
@@ -774,7 +809,9 @@ def fused_norm_cases(rows, h, tag, x_dtype="bfloat16", y_dtype="float32"):
         lambda: fused_rms_norm_bwd(x, w, rstd, dy),
         lambda: rms_norm_bwd_reference(x, w, rstd, dy),
         lambda: torch.autograd.grad(yl, (xl, wl), dyf, retain_graph=True),
-        xb * n + yb * n + xb * h + 4 * rows + xb * n + xb * h, 8 * n)
+        xb * n + yb * n + xb * h + 4 * rows + xb * n + xb * h, 8 * n,
+        _bwd_extra(rows, h, False,
+                   lambda: fused_rms_norm_bwd(x, w, rstd, dy)))
     # backward, add variant: read s, dy, ds, w, rstd; write dsum, dw
     out["bwd_add"] = _fused_record(
         "fused_rms_norm_bwd", f"{tag} add+rms {x_dtype}", (rows, h),
@@ -782,7 +819,9 @@ def fused_norm_cases(rows, h, tag, x_dtype="bfloat16", y_dtype="float32"):
         rms_norm_bwd_reference(s_add, w, rstd_add, dya, ds), (1,),
         lambda: fused_rms_norm_bwd(s_add, w, rstd_add, dya, ds),
         lambda: rms_norm_bwd_reference(s_add, w, rstd_add, dya, ds), None,
-        3 * xb * n + xb * h + 4 * rows + xb * n + xb * h, 9 * n)
+        3 * xb * n + xb * h + 4 * rows + xb * n + xb * h, 9 * n,
+        _bwd_extra(rows, h, False,
+                   lambda: fused_rms_norm_bwd(s_add, w, rstd_add, dya, ds)))
     return out
 
 
@@ -888,7 +927,9 @@ def layer_norm_cases(rows, h, tag, add=True):
         lambda: fused_layer_norm_bwd(x, w, *stats, dy),
         lambda: layer_norm_bwd_reference(x, w, *stats, dy),
         lambda: torch.autograd.grad(yl, (xl, wl, bl), dy, retain_graph=True),
-        2 * n + 4 * n + 4 * h + 8 * rows + 2 * n + 8 * h, 11 * n)
+        2 * n + 4 * n + 4 * h + 8 * rows + 2 * n + 8 * h, 11 * n,
+        _bwd_extra(rows, h, True,
+                   lambda: fused_layer_norm_bwd(x, w, *stats, dy)))
     if not add:
         return out
     wb, bb = w.to(bf).float(), b.to(bf).float()
@@ -909,7 +950,9 @@ def layer_norm_cases(rows, h, tag, add=True):
         layer_norm_bwd_reference(s_add, wb, *stats, dya, ds), (1, 2),
         lambda: fused_layer_norm_bwd(s_add, wb, *stats, dya, ds),
         lambda: layer_norm_bwd_reference(s_add, wb, *stats, dya, ds), None,
-        3 * 2 * n + 4 * h + 8 * rows + 2 * n + 8 * h, 12 * n)
+        3 * 2 * n + 4 * h + 8 * rows + 2 * n + 8 * h, 12 * n,
+        _bwd_extra(rows, h, True,
+                   lambda: fused_layer_norm_bwd(s_add, wb, *stats, dya, ds)))
     return out
 
 
@@ -1428,18 +1471,18 @@ def _train_step(model, opt, ids, labels):
 
 def _kernel_kind(key):
     """The kind of a device kernel, by its (demangled) name. The norm
-    kernels carry their kind as a template argument (`true` = LayerNorm);
-    the dw finish is LayerNorm's when its output is f32 (the RMS kinds
-    write a bf16 dw on the train paths)."""
+    kernels carry their kind as a template argument (LAYER: `true` =
+    LayerNorm), the forward's fifth (norm_fwd_kernel<TX, TY, TW, N,
+    LAYER, WIDE>), every backward kernel's last (norm_bwd_rows_kernel,
+    norm_bwd_sum_kernel, and the wide path's norm_bwd_coef_kernel and
+    norm_bwd_wide_kernel)."""
     low = key.lower()
-    layer = ", true>" in low
-    for frag, kind in (("norm_fwd_kernel",
-                        "layer_norm_fwd" if layer else "rms_norm_fwd"),
-                       ("norm_bwd_kernel",
-                        "layer_norm_bwd" if layer else "rms_norm_bwd"),
-                       ("dw_finish_kernel<float>", "layer_norm_bwd"),
-                       ("dw_finish_kernel", "rms_norm_bwd"),
-                       ("rope_kernel", "rope"),
+    norm = re.search(r"norm_(fwd|bwd)_\w*<([^()]*)>", low)
+    if norm:
+        args = [a.strip() for a in norm.group(2).split(",")]
+        layer = args[4 if norm.group(1) == "fwd" else -1] == "true"
+        return ("layer_norm_" if layer else "rms_norm_") + norm.group(1)
+    for frag, kind in (("rope_kernel", "rope"),
                        ("swiglu_fwd_kernel", "swiglu_fwd"),
                        ("swiglu_bwd_kernel", "swiglu_bwd"),
                        ("dropout_add_fwd_kernel", "dropout_add_fwd"),
@@ -2100,6 +2143,38 @@ def qmm_usage():
     assert not spilled, spilled
 
 
+#: the mangled template arguments of the norm backward's kernels
+_MANGLED = {"13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32",
+            "Lb0E": "rms", "Lb1E": "ln"}
+
+
+def norm_usage():
+    """PTXAS_NORM: registers, stack and spills of the fused-norm
+    backward's row kernel (each dtype pair of s and dy, each kind) and of
+    its fixed-order dw / db sum. Their w, dw and db live in registers:
+    none may spill."""
+    from paddle_tpu_torch.ops import _cuda_common
+
+    usage = {}
+    for name, use in _cuda_common.ptxas_usage("csrc/fused_norm.cu").items():
+        kernel = re.search(r"(norm_bwd_(?:rows|sum)_kernel)I(\w+?)EEv", name)
+        if kernel:
+            args = []
+            for a in re.findall(r"13__nv_bfloat16|6__half|S\d*_|Lb[01]E|f",
+                                kernel.group(2)):
+                # S<n>_: the 2-byte type named before it (f32 is never one)
+                args.append(args[0] if a.startswith("S") else _MANGLED[a])
+            usage[f"{kernel.group(1)}<{', '.join(args)}>"] = use
+    _say("PTXAS_NORM", usage)
+    # the row kernel: 5 dtype pairs x 2 kinds; the sum: RMS in f32, bf16,
+    # f16, LayerNorm in f32
+    assert len(usage) == 14, usage
+    spilled = {k: u for k, u in usage.items()
+               if u.get("spill_stores") or u.get("spill_loads")
+               or u.get("stack")}
+    assert not spilled, spilled
+
+
 def profile_prefill(model, tag="PROFILE_PREFILL"):
     """Where one 512-token prefill's device time goes, bf16 weights
     beside int4 (and an int4 KV cache): torch.profiler over one engine
@@ -2167,6 +2242,7 @@ def main():
     tc_usage()
     decode_usage()
     qmm_usage()
+    norm_usage()
     phases = {"build": time.perf_counter() - t0}
     t0 = time.perf_counter()
 
@@ -2345,7 +2421,9 @@ def main():
             "launches": counts_train[rec["name"]],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+            | {k: rec[k] for k in ("plan", "kernel_ms", "ms_l2_clean")
+               if k in rec})
     # K3-LN and K6 at the GPT and BERT shapes: launches from the phase
     # whose shape the row times (all its cases of the entry point)
     for rec, line, cnt in ((ln_gpt["fwd"], 118, counts_gpt),
@@ -2363,7 +2441,9 @@ def main():
             "launches": cnt[rec["name"]],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+            | {k: rec[k] for k in ("plan", "kernel_ms", "ms_l2_clean")
+               if k in rec})
     # K1 and K2 at head_dim 64, each from its own phase
     for key, cnt in (("gpt", counts_gpt), ("bert", counts_bert)):
         rec = flash64[key]

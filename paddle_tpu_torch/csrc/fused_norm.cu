@@ -60,21 +60,35 @@
 //   - K3 backward: xhat is recomputed from s and the stats (no f32
 //     [rows, H] activation is stored). dw (and db) are sums across rows,
 //     which the TPU kernel carries in VMEM over its sequential row grid.
-//     Here each block owns a contiguous range of rows, loops over them,
-//     and keeps its dw (and db) partial for its columns in shared memory;
-//     it writes one f32 partial row each, and a second kernel adds the
-//     partials of all blocks in a fixed order. No float atomics, so the
+//     Here a row group of ceil(h / 1024) warps (one warp up to h = 1024,
+//     GPT's and BERT's widths; two at LLaMA's 2048; twelve at MAX_HIDDEN)
+//     takes one row at a time, 8 warps a block, one block on each SM, so
+//     each SM works on several rows at once with no block-wide barrier
+//     per row: a lane holds at most 32 elements of the row, and w and its
+//     dw (db) partial for those columns stay in its registers across
+//     every row its group takes; each group keeps three rows' s, dy (and
+//     ds) in flight by cp.async into a ring in shared memory while it
+//     reduces the oldest; a row's two sums are warp shuffles (and, in a
+//     group of several warps, the warps' sums added in warp order behind
+//     one named barrier of the group). The grid is one wave, each block a
+//     contiguous row range; a block adds its groups' partials in group
+//     order and writes one f32 partial row, and a second kernel of 192-
+//     256 blocks at the main paths' widths, launched as a programmatic
+//     dependent of the first (so its launch overlaps the first's end),
+//     adds the partial rows in a fixed order. No float atomics, so the
 //     result repeats from run to run. The add variant's dx + ds is added
-//     in f32 before the one rounding. That holds 4 (RMS) or 5 (LayerNorm)
-//     f32 rows in shared memory, which caps the row at 12288 / 11264
-//     elements; wider rows (the caller passes `coef`) take a second pass
-//     over device memory instead of more shared memory: a first kernel,
-//     one block per row, computes each row's sums mean(w*dy*xhat) (and
+//     in f32 before the one rounding. Rows of 16-byte vectors up to 12288
+//     / 11264 elements (MAX_HIDDEN / MAX_HIDDEN_LN) take that row kernel.
+//     Wider rows, and rows it does not take because they are not 16-byte
+//     vectors (h not a multiple of 16 bytes' elements, or a pointer off 16
+//     bytes: the one-element path), take the wide path (the caller passes
+//     `coef`), a second pass over device memory: a first kernel, one
+//     block per row, computes each row's sums mean(w*dy*xhat) (and
 //     mean(w*dy)) into `coef`; a second one, whose blocks each own 2048
 //     columns of a range of rows, recomputes xhat from s, writes dx and
-//     keeps its columns' dw (db) partials in registers; the same fixed-
-//     order sum adds the partials. s and dy are read twice, which a row
-//     too wide for shared memory cannot avoid without a grid-wide sync;
+//     keeps its columns' dw (db) partials in registers; the same
+//     fixed-order sum adds the partials. s and dy are read twice, which a
+//     row too wide for one pass cannot avoid without a grid-wide sync;
 //   - K4: one thread rotates N adjacent pairs (d, d + D/2) of one head
 //     row, reading each element of q, k and of the row's tables once;
 //   - K5, K6: one thread per N adjacent elements. K6 reads the mask the
@@ -85,6 +99,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace {
@@ -150,8 +165,10 @@ bool aligned16(const void* p) {
   return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// lets `kernel` take `bytes` of dynamic shared memory; the default limit
+// of 48 KB counts the kernel's static shared memory too (at most 1 KB here)
 cudaError_t smem_limit(const void* kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+  if (bytes + 1024 <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
@@ -241,89 +258,277 @@ norm_fwd_kernel(const TX* __restrict__ x, const TX* __restrict__ res,
   }
 }
 
-// a block owns rows [blockIdx.x * rpb, +rpb); dynamic shared memory:
-// xhat [h], w*dy [h], w [h], the block's dw partial [h] and, for
-// LayerNorm, its db partial [h], all f32. Each thread touches only its own
-// columns of these, so they need no barrier. The partials go to rows
-// blockIdx.x (dw) and gridDim.x + blockIdx.x (db) of `part`.
-template <typename TX, typename TY, typename TW, int N, bool LAYER>
-__global__ void __launch_bounds__(kThreads)
-norm_bwd_kernel(const TX* __restrict__ s, const TW* __restrict__ w,
-                const float* __restrict__ rstd,
-                const float* __restrict__ mean, const TY* __restrict__ dy,
-                const TX* __restrict__ ds, TX* __restrict__ dx,
-                float* __restrict__ part, int rows, int h, int rpb) {
-  extern __shared__ float smem[];
-  __shared__ float red[kThreads / 32];
-  float* xh = smem;
-  float* wd = smem + h;
-  float* wf = smem + 2 * h;
-  float* acc = smem + 3 * h;
-  float* accb = smem + 4 * h;  // LayerNorm only
-  for (int c = threadIdx.x * N; c < h; c += blockDim.x * N) {
-    float wv[N];
-    load_f32<TW, N>(w + c, wv);
+// K3 backward, the row kernel. A row group of `gwarps` = ceil(h /
+// kGroupCols) warps (at most kMaxGroupWarps) takes one row at a time;
+// lane j of the group holds the row's 16-byte vectors j, j + lanes, ...
+// (at most kLaneElems elements), with w, and its dw (and db) partial, of
+// those columns in registers for every row the group takes. A block holds
+// max(1, kBlockWarps / gwarps) groups and owns rows [blockIdx.x * rpb, +
+// rpb); its group g takes rows r0 + g, r0 + g + groups, ... Each group
+// keeps `stages` rows in flight through a ring in shared memory, copied by
+// cp.async while it reduces the current one: its s, dy (and ds) in the
+// row's own order, and its rstd and mean once per lane. A lane copies s
+// and ds for its own vectors; a warp copies its vectors' dy as whole
+// 512-byte runs, so an f32 dy beside a 2-byte s (two pieces a vector) is
+// read a line at a time, and its lanes read their pieces back after a
+// warp sync. A row's two sums are warp shuffles, then, for a group of
+// more than one warp, the warps' sums added in warp order after one named
+// barrier of the group. At the end the block adds its groups' dw (db)
+// partials in group order and writes one f32 partial row to `part`: row
+// blockIdx.x (dw) and gridDim.x + blockIdx.x (db). Of 4 to 12 warps a
+// block, 8 ran the main paths' shapes fastest on the H100 (PERF.md).
+constexpr int kLaneElems = 32;
+constexpr int kGroupCols = 32 * kLaneElems;
+constexpr int kBlockWarps = 8;
+constexpr int kMaxGroupWarps = 12;
+constexpr int kStages = 3;
+// dynamic shared memory a block may take (of the 227 KB, less the static
+// exchange slots)
+constexpr size_t kBwdSmem = 232448 - 1024;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most n (0..3) of this thread's copy groups are in flight
+__device__ __forceinline__ void cp_async_wait(int n) {
+  if (n >= 3)
+    asm volatile("cp.async.wait_group 3;\n" ::: "memory");
+  else if (n == 2)
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else if (n == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void group_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// the N elements of dy vector v (pieces v * Q .. v * Q + Q - 1)
+template <typename TY, int N, int Q>
+__device__ __forceinline__ void load_dy(const unsigned char* row, int v,
+                                        float (&g)[N]) {
+  constexpr int M = N / Q;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    float t[M];
+    load_f32<TY, M>(
+        reinterpret_cast<const TY*>(row + (v * Q + q) * 16), t);
+#pragma unroll
+    for (int i = 0; i < M; ++i) g[q * M + i] = t[i];
+  }
+}
+
+// bytes of one staged row: the row's rstd and mean, one copy per lane
+// [lanes][2] f32; s [V][16 B]; dy [V * Q][16 B]; ds [V][16 B] (add
+// variant), each in the row's own order
+template <typename TX, typename TY>
+__host__ __device__ size_t staged_row_bytes(int lanes, int h, bool add) {
+  constexpr int Q = sizeof(TY) / sizeof(TX);
+  return (size_t)lanes * 8 + (size_t)h * sizeof(TX) * (1 + Q + (add ? 1 : 0));
+}
+
+template <typename TX, typename TY, typename TW, bool LAYER>
+__global__ void __launch_bounds__(kMaxGroupWarps * 32, 1)
+norm_bwd_rows_kernel(const TX* __restrict__ s, const TW* __restrict__ w,
+                     const float* __restrict__ rstd,
+                     const float* __restrict__ mean,
+                     const TY* __restrict__ dy, const TX* __restrict__ ds,
+                     TX* __restrict__ dx, float* __restrict__ part, int rows,
+                     int h, int rpb, int gwarps, int stages) {
+  constexpr int N = 16 / sizeof(TX);
+  constexpr int Q = sizeof(TY) / sizeof(TX);
+  constexpr int U = kLaneElems / N;
+  extern __shared__ __align__(16) unsigned char row_smem[];
+  __shared__ float xch[2][kMaxGroupWarps][2];
+  const int lanes = gwarps * 32;
+  const int groups = blockDim.x / lanes;
+  const int grp = threadIdx.x / lanes, j = threadIdx.x - grp * lanes;
+  const int lane = threadIdx.x & 31;
+  const int nv = h / N;
+  const bool add = ds != nullptr;
+  const size_t plane = (size_t)nv * 16;
+  const size_t row_bytes = staged_row_bytes<TX, TY>(lanes, h, add);
+  unsigned char* ring = row_smem + (size_t)grp * stages * row_bytes;
+
+  float wv[U][N], aw[U][N], ab[U][N];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int v = j + u * lanes;
+    float t[N];
+    if (v < nv) {
+      load_f32<TW, N>(w + (size_t)v * N, t);
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) t[i] = 0.f;
+    }
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      wf[c + i] = wv[i];
-      acc[c + i] = 0.f;
-      if constexpr (LAYER) accb[c + i] = 0.f;
+      wv[u][i] = t[i];
+      aw[u][i] = 0.f;
+      ab[u][i] = 0.f;
     }
   }
   const int r0 = blockIdx.x * rpb;
   const int r1 = min(rows, r0 + rpb);
-  for (int r = r0; r < r1; ++r) {
-    const size_t base = (size_t)r * h;
-    const float rs = rstd[r];
-    float mu = 0.f;
-    if constexpr (LAYER) mu = mean[r];
-    float part2 = 0.f, part1 = 0.f;
-    for (int c = threadIdx.x * N; c < h; c += blockDim.x * N) {
-      float sv[N], g[N];
-      load_f32<TX, N>(s + base + c, sv);
-      load_f32<TY, N>(dy + base + c, g);
+  const int first = r0 + grp;
+  const int count = first < r1 ? (r1 - first + groups - 1) / groups : 0;
+
+  // copy the group's k-th row into ring slot k % stages; one commit group
+  // per call, empty past the last row, so the groups in flight count alike
+  auto issue = [&](int k) {
+    if (k < count) {
+      const int r = first + k * groups;
+      const size_t base = (size_t)r * h;
+      unsigned char* p = ring + (size_t)(k % stages) * row_bytes;
+      cp_async4(p + j * 8, rstd + r);
+      if constexpr (LAYER) cp_async4(p + j * 8 + 4, mean + r);
+      unsigned char* ps = p + (size_t)lanes * 8;
+      const unsigned char* dyr =
+          reinterpret_cast<const unsigned char*>(dy + base);
 #pragma unroll
-      for (int i = 0; i < N; ++i) {
-        float xhat;
-        if constexpr (LAYER) xhat = (sv[i] - mu) * rs;
-        else xhat = sv[i] * rs;
-        const float wdy = g[i] * wf[c + i];
-        part2 += wdy * xhat;
-        acc[c + i] += g[i] * xhat;
-        if constexpr (LAYER) {
-          part1 += wdy;
-          accb[c + i] += g[i];
+      for (int u = 0; u < U; ++u) {
+        const int v = j + u * lanes;
+        if (v < nv) {
+          cp_async16(ps + v * 16, s + base + (size_t)v * N);
+          if (add)
+            cp_async16(ps + plane * (1 + Q) + v * 16,
+                       ds + base + (size_t)v * N);
         }
-        xh[c + i] = xhat;
-        wd[c + i] = wdy;
+        // dy: the warp's 32 vectors of this u are Q * 512 contiguous
+        // bytes; copy q takes the q-th 512 (16 bytes a lane), so each
+        // copy reads whole lines (a vector's lane reads its pieces back
+        // after a warp sync)
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          const int c = (v - lane) * Q + 32 * q + lane;   // piece of the row
+          if (c < nv * Q)
+            cp_async16(ps + plane + c * 16, dyr + (size_t)c * 16);
+        }
       }
     }
-    const float c2 = block_sum(part2, red) * (1.f / h);
-    float c1 = 0.f;
-    if constexpr (LAYER) c1 = block_sum(part1, red) * (1.f / h);
-    for (int c = threadIdx.x * N; c < h; c += blockDim.x * N) {
-      float d[N];
+    cp_async_commit();
+  };
+
+  for (int k = 0; k < stages - 1; ++k) issue(k);
+  for (int k = 0; k < count; ++k) {
+    __syncwarp();  // the warp is done with the slot issue() refills
+    issue(k + stages - 1);
+    cp_async_wait(stages - 1);
+    __syncwarp();  // and sees the pieces its lanes copied
+    const unsigned char* p = ring + (size_t)(k % stages) * row_bytes;
+    const float rs = *reinterpret_cast<const float*>(p + j * 8);
+    const float mu = LAYER ? *reinterpret_cast<const float*>(p + j * 8 + 4)
+                           : 0.f;
+    const unsigned char* ps = p + (size_t)lanes * 8;
+    float part2 = 0.f, part1 = 0.f;
 #pragma unroll
-      for (int i = 0; i < N; ++i) {
-        if constexpr (LAYER) d[i] = rs * (wd[c + i] - c1 - xh[c + i] * c2);
-        else d[i] = rs * (wd[c + i] - xh[c + i] * c2);
-      }
-      if (ds != nullptr) {
-        float e[N];
-        load_f32<TX, N>(ds + base + c, e);
+    for (int u = 0; u < U; ++u) {
+      const int v = j + u * lanes;
+      if (v < nv) {
+        float sv[N], g[N];
+        load_f32<TX, N>(reinterpret_cast<const TX*>(ps + v * 16), sv);
+        load_dy<TY, N, Q>(ps + plane, v, g);
 #pragma unroll
-        for (int i = 0; i < N; ++i) d[i] += e[i];
+        for (int i = 0; i < N; ++i) {
+          const float xhat = LAYER ? (sv[i] - mu) * rs : sv[i] * rs;
+          const float wdy = g[i] * wv[u][i];
+          part2 += wdy * xhat;
+          aw[u][i] += g[i] * xhat;
+          if constexpr (LAYER) {
+            part1 += wdy;
+            ab[u][i] += g[i];
+          }
+        }
       }
-      store_f32<TX, N>(dx + base + c, d);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      part2 += __shfl_xor_sync(0xffffffffu, part2, o);
+      if constexpr (LAYER) part1 += __shfl_xor_sync(0xffffffffu, part1, o);
+    }
+    if (gwarps > 1) {
+      // the group's warps' sums, added in warp order; the slots alternate
+      // by row, so a slot is written again only after every warp of the
+      // group has passed the next row's barrier (and so read it)
+      float(*x)[2] = xch[k & 1];
+      if ((threadIdx.x & 31) == 0) {
+        x[threadIdx.x >> 5][0] = part2;
+        x[threadIdx.x >> 5][1] = part1;
+      }
+      group_sync(1 + grp, lanes);
+      part2 = part1 = 0.f;
+      for (int i = grp * gwarps; i < (grp + 1) * gwarps; ++i) {
+        part2 += x[i][0];
+        if constexpr (LAYER) part1 += x[i][1];
+      }
+    }
+    const float c2 = part2 * (1.f / h);
+    const float c1 = part1 * (1.f / h);
+    const size_t base = (size_t)(first + k * groups) * h;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int v = j + u * lanes;
+      if (v < nv) {
+        float sv[N], g[N], d[N];
+        load_f32<TX, N>(reinterpret_cast<const TX*>(ps + v * 16), sv);
+        load_dy<TY, N, Q>(ps + plane, v, g);
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          const float xhat = LAYER ? (sv[i] - mu) * rs : sv[i] * rs;
+          const float wdy = g[i] * wv[u][i];
+          d[i] = LAYER ? rs * (wdy - c1 - xhat * c2) : rs * (wdy - xhat * c2);
+        }
+        if (add) {
+          float e[N];
+          load_f32<TX, N>(
+              reinterpret_cast<const TX*>(ps + plane * (1 + Q) + v * 16), e);
+#pragma unroll
+          for (int i = 0; i < N; ++i) d[i] += e[i];
+        }
+        store_f32<TX, N>(dx + base + (size_t)v * N, d);
+      }
     }
   }
-  for (int c = threadIdx.x * N; c < h; c += blockDim.x * N)
+  // the block's partial: the groups' registers through shared memory (the
+  // ring, every copy landed and read), added in group order
+  cp_async_wait(0);
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(row_smem);  // [groups][h] dw, then db
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      part[(size_t)blockIdx.x * h + c + i] = acc[c + i];
+  for (int u = 0; u < U; ++u) {
+    const int v = j + u * lanes;
+    if (v < nv) {
+      store_f32<float, N>(red + (size_t)grp * h + v * N, aw[u]);
       if constexpr (LAYER)
-        part[((size_t)gridDim.x + blockIdx.x) * h + c + i] = accb[c + i];
+        store_f32<float, N>(red + (size_t)(groups + grp) * h + v * N, ab[u]);
     }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < h; c += blockDim.x) {
+    float t = 0.f, tb = 0.f;
+    for (int g = 0; g < groups; ++g) {
+      t += red[(size_t)g * h + c];
+      if constexpr (LAYER) tb += red[(size_t)(groups + g) * h + c];
+    }
+    part[(size_t)blockIdx.x * h + c] = t;
+    if constexpr (LAYER) part[((size_t)gridDim.x + blockIdx.x) * h + c] = tb;
+  }
+  // the sum kernel may be scheduled once every block is here (it waits
+  // for this grid's end, and its writes, before it reads `part`)
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 // Wide rows, pass 1: one block per row; coef[r] = mean(w*dy*xhat) and,
@@ -437,30 +642,38 @@ norm_bwd_wide_kernel(const TX* __restrict__ s, const TW* __restrict__ w,
   }
 }
 
-// out[c] = the blocks' partials summed in a fixed order: a block owns 32
-// columns of one sum (blockIdx.y: 0 = dw from partial rows [0, blocks),
-// 1 = db from rows [blocks, 2 * blocks)); its 8 warps each add every 8th
-// partial row, then warp 0 adds the 8 sums in warp order
-constexpr int kFinGroups = kThreads / 32;
+// dw (and db) = the `blocks` partial rows of `part` summed in a fixed
+// order: sum i of the h (RMS) or 2h (LayerNorm: dw, then db from rows
+// [blocks, 2 * blocks)) goes to block i / 8, whose 32 row groups each add
+// every 32nd partial row, in row order, and whose first group adds the 32
+// sums in group order. 8 sums a block, so the main paths' widths give 192
+// (h = 768) to 256 blocks, more than the card's 132 SMs.
+constexpr int kSumCols = 8;
 
-template <typename TW>
+template <typename TW, bool LAYER>
 __global__ void __launch_bounds__(kThreads)
-dw_finish_kernel(const float* __restrict__ part, TW* __restrict__ dw,
-                 TW* __restrict__ db, int blocks, int h) {
-  __shared__ float red[kFinGroups][32];
-  const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
-  const int col = blockIdx.x * 32 + lane;
-  const float* p = part + (size_t)blockIdx.y * blocks * h;
-  TW* out = blockIdx.y == 0 ? dw : db;
+norm_bwd_sum_kernel(const float* __restrict__ part, TW* __restrict__ dw,
+                    TW* __restrict__ db, int blocks, int h) {
+  constexpr int kRowGroups = kThreads / kSumCols;
+  __shared__ float red[kRowGroups][kSumCols];
+  const int c = threadIdx.x % kSumCols, g = threadIdx.x / kSumCols;
+  const int idx = blockIdx.x * kSumCols + c;
+  const int nsum = LAYER ? 2 * h : h;
+  const int which = idx >= h ? 1 : 0;
+  const int col = idx - which * h;
+  const float* p = part + (size_t)which * blocks * h + col;
+  // launched early (programmatic dependent launch): wait until the grid
+  // that wrote the partials has ended and its writes are visible
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   float t = 0.f;
-  if (col < h)
-    for (int b = g; b < blocks; b += kFinGroups) t += p[(size_t)b * h + col];
-  red[g][lane] = t;
+  if (idx < nsum)
+    for (int b = g; b < blocks; b += kRowGroups) t += p[(size_t)b * h];
+  red[g][c] = t;
   __syncthreads();
-  if (g == 0 && col < h) {
+  if (g == 0 && idx < nsum) {
     float u = 0.f;
-    for (int i = 0; i < kFinGroups; ++i) u += red[i][lane];
-    out[col] = from_f32<TW>(u);
+    for (int i = 0; i < kRowGroups; ++i) u += red[i][c];
+    (which ? db : dw)[col] = from_f32<TW>(u);
   }
 }
 
@@ -492,48 +705,83 @@ int norm_fwd_launch(const void* x, const void* res, const void* w,
                                                    mean, rows, h, eps, st);
 }
 
-// coef null: the shared-memory row kernel over `blocks` row ranges; coef
-// f32 [2 * rows] scratch: the wide path, `blocks` row ranges of every
-// 2048-column slab
-template <typename TX, typename TY, typename TW, int N, bool LAYER>
-int norm_bwd_launch(const void* s, const void* w, const void* rstd,
-                    const void* mean, const void* dy, const void* ds,
-                    void* dx, void* dw, void* db, void* part, void* coef,
-                    int rows, int h, int blocks, int rpb, cudaStream_t st) {
-  cudaError_t err;
-  if (coef != nullptr) {
-    norm_bwd_coef_kernel<TX, TY, TW, N, LAYER>
-        <<<rows, row_threads(h, N), 0, st>>>(
-            static_cast<const TX*>(s), static_cast<const TW*>(w),
-            static_cast<const float*>(rstd), static_cast<const float*>(mean),
-            static_cast<const TY*>(dy), static_cast<float*>(coef), rows, h);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    norm_bwd_wide_kernel<TX, TY, TW, N, LAYER>
-        <<<dim3((h + kWideCols - 1) / kWideCols, blocks), kThreads, 0, st>>>(
-            static_cast<const TX*>(s), static_cast<const TW*>(w),
-            static_cast<const float*>(rstd), static_cast<const float*>(mean),
-            static_cast<const TY*>(dy), static_cast<const TX*>(ds),
-            static_cast<TX*>(dx), static_cast<const float*>(coef),
-            static_cast<float*>(part), rows, h, rpb);
-  } else {
-    const size_t bytes = (size_t)(LAYER ? 5 : 4) * h * sizeof(float);
-    auto kernel = norm_bwd_kernel<TX, TY, TW, N, LAYER>;
-    err = smem_limit((const void*)kernel, bytes);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<blocks, row_threads(h, N), bytes, st>>>(
-        static_cast<const TX*>(s), static_cast<const TW*>(w),
-        static_cast<const float*>(rstd), static_cast<const float*>(mean),
-        static_cast<const TY*>(dy), static_cast<const TX*>(ds),
-        static_cast<TX*>(dx), static_cast<float*>(part), rows, h, rpb);
-  }
+template <typename TW, bool LAYER>
+int norm_bwd_sum(const void* part, void* dw, void* db, int blocks, int h,
+                 cudaStream_t st) {
+  const int nsum = LAYER ? 2 * h : h;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((nsum + kSumCols - 1) / kSumCols);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, norm_bwd_sum_kernel<TW, LAYER>, static_cast<const float*>(part),
+      static_cast<TW*>(dw), static_cast<TW*>(db), blocks, h);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// the row kernel over `blocks` row ranges of `rpb` rows, then the sum;
+// rows of 16-byte vectors (h a multiple of 16 / sizeof(TX), every pointer
+// 16-byte aligned) up to kMaxGroupWarps * kGroupCols elements
+template <typename TX, typename TY, typename TW, bool LAYER>
+int norm_bwd_rows(const void* s, const void* w, const void* rstd,
+                  const void* mean, const void* dy, const void* ds, void* dx,
+                  void* dw, void* db, void* part, int rows, int h, int blocks,
+                  int rpb, cudaStream_t st) {
+  const int gwarps = (h + kGroupCols - 1) / kGroupCols;
+  if (gwarps > kMaxGroupWarps) return (int)cudaErrorInvalidValue;
+  const int groups = std::max(1, kBlockWarps / gwarps);
+  const size_t row_bytes =
+      staged_row_bytes<TX, TY>(32 * gwarps, h, ds != nullptr);
+  const int stages =
+      (int)std::min<size_t>(kStages, kBwdSmem / (groups * row_bytes));
+  if (stages < 1) return (int)cudaErrorInvalidValue;
+  const size_t bytes =
+      std::max(groups * stages * row_bytes,
+               (size_t)groups * h * sizeof(float) * (LAYER ? 2 : 1));
+  auto kernel = norm_bwd_rows_kernel<TX, TY, TW, LAYER>;
+  cudaError_t err = smem_limit((const void*)kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, groups * gwarps * 32, bytes, st>>>(
+      static_cast<const TX*>(s), static_cast<const TW*>(w),
+      static_cast<const float*>(rstd), static_cast<const float*>(mean),
+      static_cast<const TY*>(dy), static_cast<const TX*>(ds),
+      static_cast<TX*>(dx), static_cast<float*>(part), rows, h, rpb, gwarps,
+      stages);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dw_finish_kernel<TW><<<dim3((h + 31) / 32, LAYER ? 2 : 1), kThreads, 0,
-                         st>>>(static_cast<const float*>(part),
-                               static_cast<TW*>(dw), static_cast<TW*>(db),
-                               blocks, h);
-  return (int)cudaGetLastError();
+  return norm_bwd_sum<TW, LAYER>(part, dw, db, blocks, h, st);
+}
+
+// the wide path: row sums into coef f32 [2 * rows], then `blocks` row
+// ranges of every 2048-column slab, then the sum
+template <typename TX, typename TY, typename TW, int N, bool LAYER>
+int norm_bwd_wide(const void* s, const void* w, const void* rstd,
+                  const void* mean, const void* dy, const void* ds, void* dx,
+                  void* dw, void* db, void* part, void* coef, int rows, int h,
+                  int blocks, int rpb, cudaStream_t st) {
+  norm_bwd_coef_kernel<TX, TY, TW, N, LAYER>
+      <<<rows, row_threads(h, N), 0, st>>>(
+          static_cast<const TX*>(s), static_cast<const TW*>(w),
+          static_cast<const float*>(rstd), static_cast<const float*>(mean),
+          static_cast<const TY*>(dy), static_cast<float*>(coef), rows, h);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  norm_bwd_wide_kernel<TX, TY, TW, N, LAYER>
+      <<<dim3((h + kWideCols - 1) / kWideCols, blocks), kThreads, 0, st>>>(
+          static_cast<const TX*>(s), static_cast<const TW*>(w),
+          static_cast<const float*>(rstd), static_cast<const float*>(mean),
+          static_cast<const TY*>(dy), static_cast<const TX*>(ds),
+          static_cast<TX*>(dx), static_cast<const float*>(coef),
+          static_cast<float*>(part), rows, h, rpb);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return norm_bwd_sum<TW, LAYER>(part, dw, db, blocks, h, st);
 }
 
 // N = 16 bytes of TX when h allows it and every pointer is 16-byte
@@ -553,6 +801,10 @@ int norm_fwd_typed(const void* x, const void* res, const void* w,
                                                mean, rows, h, eps, st);
 }
 
+// coef null: the row kernel, which takes rows of 16-byte vectors only
+// (-2 otherwise: the caller sends other rows to the wide path); coef
+// non-null: the wide path, 16 bytes of TX at a time where h and the
+// pointers allow it, one element otherwise
 template <bool LAYER, typename TX, typename TY>
 int norm_bwd_typed(const void* s, const void* w, const void* rstd,
                    const void* mean, const void* dy, const void* ds,
@@ -560,14 +812,21 @@ int norm_bwd_typed(const void* s, const void* w, const void* rstd,
                    int rows, int h, int blocks, int rpb, cudaStream_t st) {
   using TW = typename std::conditional<LAYER, float, TX>::type;
   constexpr int N = 16 / sizeof(TX);
-  if (h % N == 0 && aligned16(s) && aligned16(w) && aligned16(dy) &&
-      aligned16(ds) && aligned16(dx))
-    return norm_bwd_launch<TX, TY, TW, N, LAYER>(
-        s, w, rstd, mean, dy, ds, dx, dw, db, part, coef, rows, h, blocks,
-        rpb, st);
-  return norm_bwd_launch<TX, TY, TW, 1, LAYER>(s, w, rstd, mean, dy, ds, dx,
+  const bool vec = h % N == 0 && aligned16(s) && aligned16(w) &&
+                   aligned16(dy) && aligned16(ds) && aligned16(dx);
+  if (coef == nullptr) {
+    if (!vec) return -2;
+    return norm_bwd_rows<TX, TY, TW, LAYER>(s, w, rstd, mean, dy, ds, dx, dw,
+                                            db, part, rows, h, blocks, rpb,
+                                            st);
+  }
+  if (vec)
+    return norm_bwd_wide<TX, TY, TW, N, LAYER>(s, w, rstd, mean, dy, ds, dx,
                                                dw, db, part, coef, rows, h,
                                                blocks, rpb, st);
+  return norm_bwd_wide<TX, TY, TW, 1, LAYER>(s, w, rstd, mean, dy, ds, dx, dw,
+                                             db, part, coef, rows, h, blocks,
+                                             rpb, st);
 }
 
 // ------------------------------------------------------------------ K4
@@ -915,9 +1174,11 @@ extern "C" int fused_rms_norm_fwd(const void* x, const void* res,
 
 // s [rows, h] (the saved input, or the summed stream of the add variant);
 // dy [rows, h]; ds [rows, h] or null; dx [rows, h]; dw [h]; dw_part f32
-// scratch [blocks, h]; block b owns rows [b * rpb, b * rpb + rpb). coef
-// null: dynamic shared memory of 16 * h bytes; coef f32 scratch [2 * rows]
-// (rows wider than that allows): the two-pass wide path.
+// scratch [blocks, h], one partial row per block; block b owns rows [b *
+// rpb, b * rpb + rpb). coef null: the row kernel (rows of 16-byte vectors
+// up to 12288 elements; -2 for others), one block per SM of up to 227 KB
+// of dynamic shared memory; coef f32 scratch [2 * rows]: the two-pass wide
+// path (any row).
 extern "C" int fused_rms_norm_bwd(const void* s, const void* w,
                                   const void* rstd, const void* dy,
                                   const void* ds, void* dx, void* dw,
@@ -942,7 +1203,7 @@ extern "C" int fused_layer_norm_fwd(const void* x, const void* res,
 
 // as fused_rms_norm_bwd, with w f32, mean [rows] f32, dw and db [h] f32
 // and part f32 scratch [2 * blocks, h] (the dw partials, then the db
-// ones). coef null: dynamic shared memory of 20 * h bytes.
+// ones).
 extern "C" int fused_layer_norm_bwd(const void* s, const void* w,
                                     const void* rstd, const void* mean,
                                     const void* dy, const void* ds, void* dx,

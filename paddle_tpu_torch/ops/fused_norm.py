@@ -42,11 +42,13 @@ norms of `nn.functional` send to the composition as the reference's
 width: past `MAX_HIDDEN` (RMS) / `MAX_HIDDEN_LN` (LayerNorm) the
 backward, and past 32768 elements the forward, take the kernels' wide
 path (a second pass over device memory instead of a row in shared
-memory).
+memory), as does a backward whose rows are not 16-byte vectors
+(`norm_bwd_plan`).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -63,18 +65,34 @@ _LN_BWD = "fused_layer_norm_bwd"
 _DA_FWD = "dropout_add_fwd"
 _DA_BWD = "dropout_add_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-#: the widest rows the norm backward kernels hold in shared memory: 4 (RMS)
-#: or 5 (LayerNorm: db's partial too) f32 rows of H, at most 227 KB. Wider
-#: rows take the two-pass wide path (csrc/fused_norm.cu); there is no
+#: the widest rows the norm backward's row kernel takes: 12 (RMS) and 11
+#: (LayerNorm) warps a row. Wider rows, and rows that are not 16-byte
+#: vectors, take the two-pass wide path (csrc/fused_norm.cu); there is no
 #: width limit
 MAX_HIDDEN = 12288
 MAX_HIDDEN_LN = 11264
-#: K3 backward blocks per SM: each block writes one f32 dw (and db)
-#: partial row, so more blocks buy parallelism over rows at the price of
-#: partial traffic
-_BWD_BLOCKS_PER_SM = 4
-#: columns of one block of the wide backward path (kWideCols in the source)
+#: K3 backward's row kernel (kGroupCols, kBlockWarps in the source): a row
+#: group of ceil(h / _GROUP_COLS) warps takes one row at a time, a lane 32
+#: elements of it; a block holds max(1, _BLOCK_WARPS // that) groups, one
+#: block per SM
+_GROUP_COLS = 1024
+_BLOCK_WARPS = 8
+#: the wide path's row blocks per SM and its columns a block (kWideCols in
+#: the source)
+_WIDE_BLOCKS_PER_SM = 4
 _WIDE_COLS = 2048
+
+
+class NormBwdPlan(NamedTuple):
+    """K3 backward's launch: `route` "rows" (the one-pass row kernel) or
+    "wide" (the two-pass wide path); for "rows", `row_warps` warps a row
+    group and `groups` groups a block; `blocks` row ranges of `rpb` rows,
+    one f32 partial row of dw (and of db) each."""
+    route: str
+    row_warps: int
+    groups: int
+    blocks: int
+    rpb: int
 
 
 def _acc(dtype):
@@ -277,21 +295,47 @@ def _check_stats(name, rows, *stats):
     _check_contiguous(name, *stats)
 
 
-def _bwd_grid(rows, h, max_hidden, device):
-    """(row blocks, rows per block, coef scratch or None) of a K3 backward
-    over `rows` rows of `h`: rows up to `max_hidden` wide take the
-    shared-memory kernel, ~4 blocks per SM over the rows; wider ones the
-    two-pass wide path, whose blocks also split the row into 2048-column
-    slabs (so fewer row blocks) and which needs an f32 [2 * rows] scratch
-    for the per-row sums."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    wide = h > max_hidden
-    slabs = -(-h // _WIDE_COLS) if wide else 1
-    blocks = min(rows, max(1, _BWD_BLOCKS_PER_SM * sms // slabs))
+def norm_bwd_plan(rows, h, sms, max_hidden, vec=True) -> NormBwdPlan:
+    """K3 backward's plan for `rows` rows of `h` elements on a card of
+    `sms` SMs. Rows of 16-byte vectors (`vec`: h a multiple of 16 bytes'
+    elements, every pointer 16-byte aligned) up to `max_hidden` take the
+    row kernel: ceil(h / 1024) warps a row (the layout switches past h =
+    1024, 2048, ...), max(1, _BLOCK_WARPS // that) row groups a block, and
+    one wave of at most one block per SM over even row ranges (fewer
+    blocks when the rows fill fewer blocks' groups). Other rows take the
+    wide path: ~4 blocks per SM over the rows and 2048-column slabs."""
+    if vec and h <= max_hidden:
+        row_warps = -(-h // _GROUP_COLS)
+        groups = max(1, _BLOCK_WARPS // row_warps)
+        rpb = -(-rows // min(sms, -(-rows // groups)))
+        return NormBwdPlan("rows", row_warps, groups, -(-rows // rpb), rpb)
+    slabs = -(-h // _WIDE_COLS)
+    blocks = min(rows, max(1, _WIDE_BLOCKS_PER_SM * sms // slabs))
     rpb = -(-rows // blocks)
-    coef = torch.empty(2 * rows, dtype=torch.float32, device=device) \
-        if wide else None
-    return -(-rows // rpb), rpb, coef
+    return NormBwdPlan("wide", 0, 0, -(-rows // rpb), rpb)
+
+
+def _vectors(h, *tensors) -> bool:
+    """True when rows of `h` elements of the first tensor's dtype are
+    16-byte vectors and every tensor starts on 16 bytes (the row kernel's
+    condition, as csrc/fused_norm.cu checks it)."""
+    return h % (16 // tensors[0].element_size()) == 0 and all(
+        t.data_ptr() % 16 == 0 for t in tensors if t is not None)
+
+
+def _bwd_scratch(s, w, dy, ds, max_hidden, sums):
+    """(plan, part, coef) of a K3 backward: the plan on this card, the f32
+    partial rows [sums * blocks, h] and, on the wide path, the f32 [2 *
+    rows] row sums (else None)."""
+    h = s.shape[-1]
+    rows = s.numel() // h
+    sms = torch.cuda.get_device_properties(s.device).multi_processor_count
+    plan = norm_bwd_plan(rows, h, sms, max_hidden, _vectors(h, s, w, dy, ds))
+    part = torch.empty((sums * plan.blocks, h), dtype=torch.float32,
+                       device=s.device)
+    coef = torch.empty(2 * rows, dtype=torch.float32, device=s.device) \
+        if plan.route == "wide" else None
+    return plan, part, coef
 
 
 def fused_rms_norm_fwd(x, res, w, eps, out_dtype=None):
@@ -337,17 +381,15 @@ def fused_rms_norm_bwd(s, w, rstd, dy, ds=None):
     if ds is not None and ds.dtype != s.dtype:
         raise ValueError(f"{name}: ds dtype {ds.dtype} differs from s's "
                          f"{s.dtype}")
-    blocks, rpb, coef = _bwd_grid(rows, h, MAX_HIDDEN, s.device)
+    plan, part, coef = _bwd_scratch(s, w, dy, ds, MAX_HIDDEN, 1)
     dx = torch.empty_like(s)
     dw = torch.empty(h, dtype=s.dtype, device=s.device)
-    part = torch.empty((blocks, h), dtype=torch.float32, device=s.device)
     fn = _entry(_NORM_BWD, [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                 + [ctypes.c_void_p])
     _launch(_NORM_BWD, fn, s.data_ptr(), w.data_ptr(), rstd.data_ptr(),
             dy.data_ptr(), _ptr(ds), dx.data_ptr(), dw.data_ptr(),
-            part.data_ptr(), _ptr(coef), rows, h, blocks, rpb,
-            _DTYPES[s.dtype],
-            _DTYPES[dy.dtype], current_stream(s.device))
+            part.data_ptr(), _ptr(coef), rows, h, plan.blocks, plan.rpb,
+            _DTYPES[s.dtype], _DTYPES[dy.dtype], current_stream(s.device))
     return dx, dw
 
 
@@ -396,17 +438,16 @@ def fused_layer_norm_bwd(s, w, rstd, mean, dy, ds=None):
     if ds is not None and ds.dtype != s.dtype:
         raise ValueError(f"{name}: ds dtype {ds.dtype} differs from s's "
                          f"{s.dtype}")
-    blocks, rpb, coef = _bwd_grid(rows, h, MAX_HIDDEN_LN, s.device)
+    plan, part, coef = _bwd_scratch(s, w, dy, ds, MAX_HIDDEN_LN, 2)
     dx = torch.empty_like(s)
     dw, db = (torch.empty(h, dtype=torch.float32, device=s.device)
               for _ in range(2))
-    part = torch.empty((2 * blocks, h), dtype=torch.float32, device=s.device)
     fn = _entry(_LN_BWD, [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                 + [ctypes.c_void_p])
     _launch(_LN_BWD, fn, s.data_ptr(), w.data_ptr(), rstd.data_ptr(),
             mean.data_ptr(), dy.data_ptr(), _ptr(ds), dx.data_ptr(),
             dw.data_ptr(), db.data_ptr(), part.data_ptr(), _ptr(coef), rows,
-            h, blocks, rpb, _DTYPES[s.dtype], _DTYPES[dy.dtype],
+            h, plan.blocks, plan.rpb, _DTYPES[s.dtype], _DTYPES[dy.dtype],
             current_stream(s.device))
     return dx, dw, db
 

@@ -688,13 +688,18 @@ _HALF_TOL = 2 ** -7
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
     (torch.bfloat16, torch.float32), (torch.float16, torch.float16)])
 @pytest.mark.parametrize("rows,h", [(66, 64), (66, 80), (7, 100),
-                                    (600, 2048)])
+                                    (600, 2048), (4099, 2048), (257, 1024),
+                                    (257, 1032), (65, 2056), (33, 12288)])
 @pytest.mark.parametrize("add", [False, True], ids=["rms", "add-rms"])
 def test_fused_rms_norm_kernels_match_plain(card, x_dtype, y_dtype, rows, h,
                                             add):
     """K3 forward and backward against their plain versions from the same
-    inputs (h = 100 in 2-byte types takes the one-element path); each
-    launch counts its own kernel once."""
+    inputs (h = 100 in 2-byte types takes the backward's one-element
+    path, the wide path); the backward's row kernel at LLaMA's width with
+    rows off a multiple of its row ranges (4099), on each side of its
+    layout switches (one warp a row up to 1024, two up to 2048, three
+    past it) and at its widest row (MAX_HIDDEN, twelve warps, one staged
+    row for f32 with ds); each launch counts its own kernel once."""
     rs = np.random.RandomState(rows + h)
     x, res, dy, ds = (_randn(rs, rows, h).to(card) for _ in range(4))
     x, res, ds = x.to(x_dtype), res.to(x_dtype), ds.to(x_dtype)
@@ -725,16 +730,19 @@ def test_fused_rms_norm_kernels_match_plain(card, x_dtype, y_dtype, rows, h,
         == {"fused_rms_norm_fwd": 1, "fused_rms_norm_bwd": 1}
 
 
-def test_fused_rms_norm_bwd_repeats_bit_for_bit(card):
+@pytest.mark.parametrize("add", [False, True], ids=["rms", "add-rms"])
+def test_fused_rms_norm_bwd_repeats_bit_for_bit(card, add):
     """dw is summed across rows in a fixed order (no atomics): two
-    backward launches on the same inputs give the same bits."""
+    backward launches on the same inputs give the same bits, for the
+    plain norm and the add variant (its ds added into dx)."""
     rs = np.random.RandomState(4)
     s, dy = (_randn(rs, 4096, 2048).to(card, torch.bfloat16)
              for _ in range(2))
     w = _randn(rs, 2048).to(card, torch.bfloat16)
+    ds = _randn(rs, 4096, 2048).to(card, torch.bfloat16) if add else None
     _, _, rstd = fused_norm.fused_rms_norm_fwd(s, None, w, 1e-6)
-    a = fused_norm.fused_rms_norm_bwd(s, w, rstd, dy)
-    b = fused_norm.fused_rms_norm_bwd(s, w, rstd, dy)
+    a = fused_norm.fused_rms_norm_bwd(s, w, rstd, dy, ds)
+    b = fused_norm.fused_rms_norm_bwd(s, w, rstd, dy, ds)
     assert all(torch.equal(u, v) for u, v in zip(a, b))
 
 
@@ -862,15 +870,21 @@ def test_mha_train_steps_on_card_launch_every_fused_kernel(card):
     (torch.bfloat16, torch.float32), (torch.float16, torch.float16),
     (torch.float16, torch.float32)])
 @pytest.mark.parametrize("rows,h", [(66, 64), (66, 80), (7, 100),
-                                    (600, 768), (257, 1024)])
+                                    (600, 768), (257, 1024), (4099, 1024),
+                                    (8195, 768), (257, 1032), (65, 2048),
+                                    (65, 2056), (33, 11264)])
 @pytest.mark.parametrize("add", [False, True], ids=["ln", "add-ln"])
 def test_fused_layer_norm_kernels_match_plain(card, x_dtype, y_dtype, rows,
                                               h, add):
     """K3-LN forward and backward against their plain versions from the
     same inputs, with a large common offset on every row (the E[x^2] -
-    mean^2 variance); h = 100 in 2-byte types takes the one-element
-    path, 768 a 96-thread block. Each launch counts its own kernel
-    once."""
+    mean^2 variance); h = 100 in 2-byte types takes the backward's
+    one-element path (the wide path), 768 a 96-thread forward block and
+    three of a lane's four vectors in the backward's row kernel; GPT's
+    and BERT's widths at rows off a multiple of the row kernel's row
+    ranges (4099, 8195), each side of its layout switches (1024 / 1032,
+    2048 / 2056) and its widest row (MAX_HIDDEN_LN, eleven warps). Each
+    launch counts its own kernel once."""
     rs = np.random.RandomState(rows + h)
     x, res, dy, ds = (_randn(rs, rows, h).to(card) for _ in range(4))
     x = (x + 4.0).to(x_dtype)
@@ -907,16 +921,57 @@ def test_fused_layer_norm_kernels_match_plain(card, x_dtype, y_dtype, rows,
 
 @pytest.mark.parametrize("rows,h", [(4096, 1024), (8192, 768)],
                          ids=["gpt", "bert"])
-def test_fused_layer_norm_bwd_repeats_bit_for_bit(card, rows, h):
+@pytest.mark.parametrize("add", [False, True], ids=["ln", "add-ln"])
+def test_fused_layer_norm_bwd_repeats_bit_for_bit(card, rows, h, add):
     """dw and db are summed across rows in a fixed order (no atomics):
-    two backward launches on the same inputs give the same bits."""
+    two backward launches on the same inputs give the same bits, for the
+    plain norm and the add variant."""
     rs = np.random.RandomState(5)
     s, dy = (_randn(rs, rows, h).to(card, torch.bfloat16) for _ in range(2))
     w, b = (_randn(rs, h).to(card) for _ in range(2))
+    ds = _randn(rs, rows, h).to(card, torch.bfloat16) if add else None
     _, _, rstd, mean = fused_norm.fused_layer_norm_fwd(s, None, w, b, 1e-5)
-    one = fused_norm.fused_layer_norm_bwd(s, w, rstd, mean, dy)
-    two = fused_norm.fused_layer_norm_bwd(s, w, rstd, mean, dy)
+    one = fused_norm.fused_layer_norm_bwd(s, w, rstd, mean, dy, ds)
+    two = fused_norm.fused_layer_norm_bwd(s, w, rstd, mean, dy, ds)
     assert all(torch.equal(u, v) for u, v in zip(one, two))
+
+
+@pytest.mark.parametrize("kind", ["rms", "ln"])
+@pytest.mark.parametrize("add", [False, True], ids=["plain", "add"])
+def test_norm_bwd_off_16_bytes_takes_the_wide_path(card, kind, add):
+    """A saved row that starts off 16 bytes (a contiguous view one
+    element into its storage) is not 16-byte vectors: the backward plans
+    the wide path (`norm_bwd_plan`) and matches its plain version, the
+    same width's aligned rows plan the row kernel."""
+    rows, h = 300, 1024
+    rs = np.random.RandomState(17)
+    flat = _randn(rs, rows * h + 1).to(card, torch.bfloat16)
+    s = flat[1:].view(rows, h)
+    dy, ds = (_randn(rs, rows, h).to(card, torch.bfloat16)
+              for _ in range(2))
+    ds = ds if add else None
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    top = fused_norm.MAX_HIDDEN if kind == "rms" else fused_norm.MAX_HIDDEN_LN
+    assert fused_norm.norm_bwd_plan(rows, h, sms, top, fused_norm._vectors(
+        h, s, dy)).route == "wide"
+    assert fused_norm.norm_bwd_plan(rows, h, sms, top, fused_norm._vectors(
+        h, s.clone(), dy)).route == "rows"
+    if kind == "rms":
+        w = _randn(rs, h).to(card, torch.bfloat16)
+        _, _, rstd = fused_norm.fused_rms_norm_fwd(s, None, w, 1e-6)
+        got = fused_norm.fused_rms_norm_bwd(s, w, rstd, dy, ds)
+        want = fused_norm.rms_norm_bwd_reference(s, w, rstd, dy, ds)
+        tols = (_HALF_TOL, _HALF_TOL)
+    else:
+        w, b = (_randn(rs, h).to(card) for _ in range(2))
+        _, _, rstd, mean = fused_norm.fused_layer_norm_fwd(s, None, w, b,
+                                                           1e-5)
+        got = fused_norm.fused_layer_norm_bwd(s, w, rstd, mean, dy, ds)
+        want = fused_norm.layer_norm_bwd_reference(s, w, rstd, mean, dy, ds)
+        tols = (_HALF_TOL, 1e-4, 1e-4)
+    torch.cuda.synchronize()
+    for g, wt, tol in zip(got, want, tols):
+        assert _rel_err(g, wt) <= tol
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
