@@ -26,7 +26,9 @@ Phases (any failure exits non-zero; nothing is caught):
      inputs, and timed (CUDA events, median of 30 after warm-up, device
      time only) beside the plain version, one PyTorch library call as a
      yardstick where one computes the same function, and the card's bound
-     for the work; K1 (also at TRAIN's shape) and K2 dQ and dK/dV
+     for the work (the norm backward also by its kernels' own device time
+     and with the L2 flushed by a read, beside its launch plan); K1 (also
+     at TRAIN's shape) and K2 dQ and dK/dV
      beside the same call through the varlen entry with every kv length
      = S (`varlen_full_ms`: K1v's and K2v's forced per-element masks, on
      the same tensor-core bodies). The quantized

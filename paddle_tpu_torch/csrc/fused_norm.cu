@@ -275,8 +275,9 @@ norm_fwd_kernel(const TX* __restrict__ x, const TX* __restrict__ res,
 // more than one warp, the warps' sums added in warp order after one named
 // barrier of the group. At the end the block adds its groups' dw (db)
 // partials in group order and writes one f32 partial row to `part`: row
-// blockIdx.x (dw) and gridDim.x + blockIdx.x (db). Of 4 to 12 warps a
-// block, 8 ran the main paths' shapes fastest on the H100 (PERF.md).
+// blockIdx.x (dw) and gridDim.x + blockIdx.x (db). On the H100, 4 to 12
+// warps a block and 2 to 4 stages ran the main paths' shapes within 9% of
+// each other, 8 warps and 3 stages within 4% of the fastest (PERF.md).
 constexpr int kLaneElems = 32;
 constexpr int kGroupCols = 32 * kLaneElems;
 constexpr int kBlockWarps = 8;
