@@ -27,7 +27,9 @@ Phases (any failure exits non-zero; nothing is caught):
      time only) beside the plain version, one PyTorch library call as a
      yardstick where one computes the same function, and the card's bound
      for the work (the norm backward also by its kernels' own device time
-     and with the L2 flushed by a read, beside its launch plan); K1 (also
+     with the L2 flushed by a write and by a read, the second kernel's
+     share of it, and by events with the L2 flushed by a read, beside its
+     launch plan); K1 (also
      at TRAIN's shape) and K2 dQ and dK/dV
      beside the same call through the varlen entry with every kv length
      = S (`varlen_full_ms`: K1v's and K2v's forced per-element masks, on
@@ -721,13 +723,17 @@ def _fused_record(name, case, shape, got, want, sums, fn, plain,
     return rec
 
 
-def _bwd_extra(rows, h, layer, fn):
-    """The norm backward's KERNEL-line extras at [rows, h]: its launch
-    plan on this card (16-byte rows); `kernel_ms`, its kernels' own device
-    time a call (torch.profiler, L2 flushed by a write as `_time_ms` is
-    timed), which leaves out the launch latency the events see; and
-    `ms_l2_clean`, the call timed with the L2 flushed by a read instead
-    (clean lines: no write-back of the flush's lines during the call)."""
+def _bwd_extra(layer, fn, s, w, dy, ds=None):
+    """The norm backward's KERNEL-line extras for `fn`, a call on s, w, dy
+    (and ds): `plan`, the launch plan the wrapper takes for those tensors
+    on this card; `kernel_ms`, its kernels' own device time a call
+    (torch.profiler: it leaves out the launch latency the events see)
+    with the L2 flushed by a write, as `_time_ms` is timed, and
+    `kernel_ms_l2_clean` with the L2 flushed by a read (clean lines: no
+    write-back of the flush's lines during the call), of which
+    `sum_ms_l2_clean` is the second kernel's (the dw / db sum); and
+    `ms_l2_clean`, the call timed by events with the L2 flushed by a
+    read. A kernel time is None when the profiler recorded none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.ops import fused_norm
@@ -737,22 +743,41 @@ def _bwd_extra(rows, h, layer, fn):
     dirty = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
     clean = torch.ones(24 << 20, device="cuda")
     sink = torch.empty((), device="cuda")
+
+    def read_flush():
+        torch.sum(clean, 0, out=sink)
+
     reps = 10
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            dirty.zero_()
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if "norm_bwd" in e.key)
-    return {"plan": fused_norm.norm_bwd_plan(rows, h, sms, top)._asdict(),
-            # None: the profiler recorded no time of the kernels
-            "kernel_ms": us / reps / 1e3 if us else None,
-            "ms_l2_clean": _time_ms(fn, lambda: torch.sum(clean, 0,
-                                                          out=sink))}
+
+    def kernel_ms(flush):
+        """{kernel name: device ms a call} over `reps` flushed calls"""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush()
+                fn()
+            torch.cuda.synchronize()
+        return {e.key: e.self_device_time_total / reps / 1e3
+                for e in prof.key_averages()
+                if "norm_bwd" in e.key and e.self_device_time_total}
+
+    on_dirty, on_clean = kernel_ms(dirty.zero_), kernel_ms(read_flush)
+    sums = [v for k, v in on_clean.items() if "norm_bwd_sum" in k]
+    return {"plan": fused_norm.norm_bwd_plan_for(s, w, dy, ds, top,
+                                                 sms)._asdict(),
+            "kernel_ms": sum(on_dirty.values()) or None,
+            "kernel_ms_l2_clean": sum(on_clean.values()) or None,
+            "sum_ms_l2_clean": sum(sums) if sums else None,
+            "ms_l2_clean": _time_ms(fn, read_flush)}
+
+
+#: the norm backward's `_bwd_extra` fields that its rows of the `kernels`
+#: line carry: the times measured in this run (the plan stays on its KERNEL
+#: lines)
+_BWD_MEASURED = ("kernel_ms", "kernel_ms_l2_clean", "sum_ms_l2_clean",
+                 "ms_l2_clean")
 
 
 def fused_norm_cases(rows, h, tag, x_dtype="bfloat16", y_dtype="float32"):
@@ -813,8 +838,8 @@ def fused_norm_cases(rows, h, tag, x_dtype="bfloat16", y_dtype="float32"):
         lambda: rms_norm_bwd_reference(x, w, rstd, dy),
         lambda: torch.autograd.grad(yl, (xl, wl), dyf, retain_graph=True),
         xb * n + yb * n + xb * h + 4 * rows + xb * n + xb * h, 8 * n,
-        _bwd_extra(rows, h, False,
-                   lambda: fused_rms_norm_bwd(x, w, rstd, dy)))
+        _bwd_extra(False, lambda: fused_rms_norm_bwd(x, w, rstd, dy),
+                   x, w, dy))
     # backward, add variant: read s, dy, ds, w, rstd; write dsum, dw
     out["bwd_add"] = _fused_record(
         "fused_rms_norm_bwd", f"{tag} add+rms {x_dtype}", (rows, h),
@@ -823,8 +848,9 @@ def fused_norm_cases(rows, h, tag, x_dtype="bfloat16", y_dtype="float32"):
         lambda: fused_rms_norm_bwd(s_add, w, rstd_add, dya, ds),
         lambda: rms_norm_bwd_reference(s_add, w, rstd_add, dya, ds), None,
         3 * xb * n + xb * h + 4 * rows + xb * n + xb * h, 9 * n,
-        _bwd_extra(rows, h, False,
-                   lambda: fused_rms_norm_bwd(s_add, w, rstd_add, dya, ds)))
+        _bwd_extra(False,
+                   lambda: fused_rms_norm_bwd(s_add, w, rstd_add, dya, ds),
+                   s_add, w, dya, ds))
     return out
 
 
@@ -931,8 +957,8 @@ def layer_norm_cases(rows, h, tag, add=True):
         lambda: layer_norm_bwd_reference(x, w, *stats, dy),
         lambda: torch.autograd.grad(yl, (xl, wl, bl), dy, retain_graph=True),
         2 * n + 4 * n + 4 * h + 8 * rows + 2 * n + 8 * h, 11 * n,
-        _bwd_extra(rows, h, True,
-                   lambda: fused_layer_norm_bwd(x, w, *stats, dy)))
+        _bwd_extra(True, lambda: fused_layer_norm_bwd(x, w, *stats, dy),
+                   x, w, dy))
     if not add:
         return out
     wb, bb = w.to(bf).float(), b.to(bf).float()
@@ -954,8 +980,9 @@ def layer_norm_cases(rows, h, tag, add=True):
         lambda: fused_layer_norm_bwd(s_add, wb, *stats, dya, ds),
         lambda: layer_norm_bwd_reference(s_add, wb, *stats, dya, ds), None,
         3 * 2 * n + 4 * h + 8 * rows + 2 * n + 8 * h, 12 * n,
-        _bwd_extra(rows, h, True,
-                   lambda: fused_layer_norm_bwd(s_add, wb, *stats, dya, ds)))
+        _bwd_extra(True,
+                   lambda: fused_layer_norm_bwd(s_add, wb, *stats, dya, ds),
+                   s_add, wb, dya, ds))
     return out
 
 
@@ -2425,8 +2452,7 @@ def main():
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
-            | {k: rec[k] for k in ("plan", "kernel_ms", "ms_l2_clean")
-               if k in rec})
+            | {k: rec[k] for k in _BWD_MEASURED if k in rec})
     # K3-LN and K6 at the GPT and BERT shapes: launches from the phase
     # whose shape the row times (all its cases of the entry point)
     for rec, line, cnt in ((ln_gpt["fwd"], 118, counts_gpt),
@@ -2445,8 +2471,7 @@ def main():
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
-            | {k: rec[k] for k in ("plan", "kernel_ms", "ms_l2_clean")
-               if k in rec})
+            | {k: rec[k] for k in _BWD_MEASURED if k in rec})
     # K1 and K2 at head_dim 64, each from its own phase
     for key, cnt in (("gpt", counts_gpt), ("bert", counts_bert)):
         rec = flash64[key]

@@ -71,10 +71,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: width limit
 MAX_HIDDEN = 12288
 MAX_HIDDEN_LN = 11264
-#: K3 backward's row kernel (kGroupCols, kBlockWarps in the source): a row
-#: group of ceil(h / _GROUP_COLS) warps takes one row at a time, a lane 32
-#: elements of it; a block holds max(1, _BLOCK_WARPS // that) groups, one
-#: block per SM
+#: K3 backward's row kernel (kGroupCols, kBlockWarps in the source, whose
+#: launcher recomputes the layout from h; tests/test_torch_norm_bwd_grid.py
+#: holds the two copies equal): a row group of ceil(h / _GROUP_COLS) warps
+#: takes one row at a time, a lane 32 elements of it; a block holds max(1,
+#: _BLOCK_WARPS // that) groups, one block per SM
 _GROUP_COLS = 1024
 _BLOCK_WARPS = 8
 #: the wide path's row blocks per SM and its columns a block (kWideCols in
@@ -295,7 +296,7 @@ def _check_stats(name, rows, *stats):
     _check_contiguous(name, *stats)
 
 
-def norm_bwd_plan(rows, h, sms, max_hidden, vec=True) -> NormBwdPlan:
+def norm_bwd_plan(rows, h, sms, max_hidden, vec) -> NormBwdPlan:
     """K3 backward's plan for `rows` rows of `h` elements on a card of
     `sms` SMs. Rows of 16-byte vectors (`vec`: h a multiple of 16 bytes'
     elements, every pointer 16-byte aligned) up to `max_hidden` take the
@@ -323,6 +324,15 @@ def _vectors(h, *tensors) -> bool:
         t.data_ptr() % 16 == 0 for t in tensors if t is not None)
 
 
+def norm_bwd_plan_for(s, w, dy, ds, max_hidden, sms) -> NormBwdPlan:
+    """The plan a K3 backward launches for these tensors (ds None for the
+    plain norm) on a card of `sms` SMs: `norm_bwd_plan` of their rows,
+    width and 16-byte vectors."""
+    h = s.shape[-1]
+    return norm_bwd_plan(s.numel() // h, h, sms, max_hidden,
+                         _vectors(h, s, w, dy, ds))
+
+
 def _bwd_scratch(s, w, dy, ds, max_hidden, sums):
     """(plan, part, coef) of a K3 backward: the plan on this card, the f32
     partial rows [sums * blocks, h] and, on the wide path, the f32 [2 *
@@ -330,7 +340,7 @@ def _bwd_scratch(s, w, dy, ds, max_hidden, sums):
     h = s.shape[-1]
     rows = s.numel() // h
     sms = torch.cuda.get_device_properties(s.device).multi_processor_count
-    plan = norm_bwd_plan(rows, h, sms, max_hidden, _vectors(h, s, w, dy, ds))
+    plan = norm_bwd_plan_for(s, w, dy, ds, max_hidden, sms)
     part = torch.empty((sums * plan.blocks, h), dtype=torch.float32,
                        device=s.device)
     coef = torch.empty(2 * rows, dtype=torch.float32, device=s.device) \

@@ -941,7 +941,7 @@ def test_fused_layer_norm_bwd_repeats_bit_for_bit(card, rows, h, add):
 def test_norm_bwd_off_16_bytes_takes_the_wide_path(card, kind, add):
     """A saved row that starts off 16 bytes (a contiguous view one
     element into its storage) is not 16-byte vectors: the backward plans
-    the wide path (`norm_bwd_plan`) and matches its plain version, the
+    the wide path (`norm_bwd_plan_for`) and matches its plain version, the
     same width's aligned rows plan the row kernel."""
     rows, h = 300, 1024
     rs = np.random.RandomState(17)
@@ -952,10 +952,10 @@ def test_norm_bwd_off_16_bytes_takes_the_wide_path(card, kind, add):
     ds = ds if add else None
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     top = fused_norm.MAX_HIDDEN if kind == "rms" else fused_norm.MAX_HIDDEN_LN
-    assert fused_norm.norm_bwd_plan(rows, h, sms, top, fused_norm._vectors(
-        h, s, dy)).route == "wide"
-    assert fused_norm.norm_bwd_plan(rows, h, sms, top, fused_norm._vectors(
-        h, s.clone(), dy)).route == "rows"
+    assert fused_norm.norm_bwd_plan_for(s, None, dy, ds, top,
+                                        sms).route == "wide"
+    assert fused_norm.norm_bwd_plan_for(s.clone(), None, dy, ds, top,
+                                        sms).route == "rows"
     if kind == "rms":
         w = _randn(rs, h).to(card, torch.bfloat16)
         _, _, rstd = fused_norm.fused_rms_norm_fwd(s, None, w, 1e-6)

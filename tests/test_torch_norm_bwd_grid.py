@@ -1,5 +1,5 @@
 """The fused norm backward (K3 RMS and K3-LN) on the CPU: its launch plan,
-the walk of its row kernel over rows and columns, the wrapper path up to
+the plan's copy of the kernel's layout constants, the wrapper path up to
 the C call, and its plain version against paddle_tpu's Pallas backward at
 the main paths' widths.
 
@@ -12,26 +12,27 @@ Here:
   * `norm_bwd_plan` is pinned at the main paths' shapes and around its
     switches: ceil(h / 1024) warps a row (the layout switches past 1024,
     2048, ...), the wide path past MAX_HIDDEN / MAX_HIDDEN_LN and for
-    rows that are not 16-byte vectors;
+    rows that are not 16-byte vectors; `norm_bwd_plan_for` finds those
+    from the tensors' dtype, width and pointers;
+  * the Python layout constants equal the C source's (`kGroupCols`,
+    `kBlockWarps`, `kMaxGroupWarps`, `kWideCols`), which the C launcher
+    recomputes the row groups from;
   * the kernel's walk (block b: rows [b * rpb, b * rpb + rpb); group g of
     it: rows r0 + g, r0 + g + groups, ...) owns every row exactly once, in
     at most one block per SM, with one partial row per block;
-  * `_walk`, the plain model of that walk (the groups' f32 sums in row
-    order, the block's in group order, the partial rows in the finish
-    kernel's order), gives the plain versions' dw and db;
   * the CUDA wrapper path (the wrappers' checks, plan, scratch and C
     call), run on CPU tensors with the C call replaced by a stand-in that
-    checks its arguments and writes `_walk`'s result through the output
-    pointers: the plan's blocks and rows a block, the
+    records its arguments: the plan's blocks and rows a block, the
     partial rows [blocks (x 2), h], no `coef` on the row kernel's route
     and the f32 [2 * rows] `coef` on the wide path, one launch counted;
-  * the port's plain backward and `_walk` against paddle_tpu's Pallas
-    backward (interpret mode) at h = 768, 1024 and 2048 on 2 x 9 rows.
-Tolerances, of each output's largest |value|: f32 1e-5 (f32 sums in
-another order), dw and db 1e-4 when summed in f32 over rows in another
-order, bf16 2^-7 (each side rounds its f32 result once to bf16).
+  * the port's plain backward against paddle_tpu's Pallas backward
+    (interpret mode) at h = 768, 1024 and 2048 on 2 x 9 rows.
+Tolerances, of each output's largest |value|: f32 dx 1e-5 (f32 sums in
+another order), dw and db 1e-4 (summed in f32 over rows in another
+order), bf16 2^-7 (each side rounds its f32 result once to bf16).
 """
-import ctypes
+import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -47,7 +48,6 @@ from paddle_tpu_torch.ops import fused_norm as fn
 SMS = 132
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
-FINISH_GROUPS = 32          # the finish kernel's row groups (kThreads / 8)
 
 
 # ------------------------------------------------------------- the plan
@@ -85,10 +85,74 @@ def test_layout_switches_at_the_named_widths(h, warps):
     2048 (LLaMA's), one more each 1024 past that; max(1, 8 // warps)
     groups a block, so a block is 8 warps or fewer up to h = 8192, one
     group of at most 12 warps (384 threads) past it."""
-    plan = fn.norm_bwd_plan(4096, h, SMS, fn.MAX_HIDDEN)
+    plan = fn.norm_bwd_plan(4096, h, SMS, fn.MAX_HIDDEN, True)
     assert plan.route == "rows"
     assert (plan.row_warps, plan.groups) == (warps, max(1, 8 // warps))
     assert plan.row_warps * plan.groups <= max(8, warps) <= 12
+
+
+def _source_constants():
+    """{name: value} of csrc/fused_norm.cu's integer `constexpr`s, each
+    evaluated from the ones above it (those that are not plain
+    arithmetic of them are left out)."""
+    path = os.path.join(os.path.dirname(fn.__file__), os.pardir, "csrc",
+                        "fused_norm.cu")
+    with open(path) as f:
+        text = f.read()
+    found = {}
+    for name, expr in re.findall(r"constexpr\s+(?:int|size_t)\s+(\w+)\s*=\s*"
+                                 r"([^;]+);", text):
+        try:
+            found[name] = eval(expr, {"__builtins__": {}}, dict(found))
+        except (NameError, SyntaxError, TypeError):
+            pass
+    return found
+
+
+@pytest.mark.parametrize("expr,want", [
+    ("kGroupCols", fn._GROUP_COLS),
+    ("kBlockWarps", fn._BLOCK_WARPS),
+    ("kWideCols", fn._WIDE_COLS),
+    ("kMaxGroupWarps * kGroupCols", fn.MAX_HIDDEN),
+    ("kMaxGroupWarps * kGroupCols >= MAX_HIDDEN_LN", True)])
+def test_layout_constants_match_the_source(expr, want):
+    """The plan's row layout and the C launcher's are one: the launcher
+    recomputes a row group's warps and a block's groups from h with these
+    constants, and refuses rows wider than kMaxGroupWarps groups of
+    kGroupCols; the plan sends those to the wide path."""
+    found = _source_constants()
+    assert eval(expr, {"__builtins__": {}},
+                found | {"MAX_HIDDEN_LN": fn.MAX_HIDDEN_LN}) == want
+
+
+@pytest.mark.parametrize("dtype,h,moved,route", [
+    ("float32", 1024, None, "rows"),
+    ("bfloat16", 768, None, "rows"),
+    ("float32", 102, None, "wide"),    # not 4-element vectors
+    ("bfloat16", 100, None, "wide"),   # 4-element but not 8-element
+    ("bfloat16", 1024, "s", "wide"),   # s one element off 16 bytes
+    ("bfloat16", 1024, "dy", "wide"),  # an f32 dy one element off
+    ("bfloat16", 1024, "ds", "wide"),  # ds one element off
+])
+def test_plan_for_reads_the_tensors(dtype, h, moved, route):
+    """`norm_bwd_plan_for`, the plan the wrappers launch: the row kernel
+    for rows of 16-byte vectors of s's dtype with every tensor on 16
+    bytes, the one-element wide path otherwise; an f32 dy beside a bf16 s
+    (the train steps' plain norm) counts only its start."""
+    rows = 9
+    make = {"s": (rows, h, TDT[dtype]), "dy": (rows, h, torch.float32),
+            "ds": (rows, h, TDT[dtype]), "w": (h, None, TDT[dtype])}
+    t = {}
+    for name, (a, b, dt) in make.items():
+        size = a if b is None else a * b
+        flat = torch.zeros(size + 1, dtype=dt)
+        t[name] = (flat[1:] if name == moved else flat[:size]).view(
+            (a,) if b is None else (a, b))
+    plan = fn.norm_bwd_plan_for(t["s"], t["w"], t["dy"], t["ds"],
+                                fn.MAX_HIDDEN, SMS)
+    assert plan == fn.norm_bwd_plan(rows, h, SMS, fn.MAX_HIDDEN,
+                                    route == "rows")
+    assert plan.route == route
 
 
 def _owners(plan, rows):
@@ -112,7 +176,7 @@ def test_every_row_owned_once(sms, rows, h):
     """Every row belongs to exactly one (block, group); one wave of at
     most one block per SM; the groups of a full block take rows that
     differ in number by at most one; the partial rows are the blocks."""
-    plan = fn.norm_bwd_plan(rows, h, sms, fn.MAX_HIDDEN)
+    plan = fn.norm_bwd_plan(rows, h, sms, fn.MAX_HIDDEN, True)
     owners = _owners(plan, rows)
     assert sorted(owners) == list(range(rows))
     assert plan.blocks <= sms
@@ -123,53 +187,6 @@ def test_every_row_owned_once(sms, rows, h):
     for b in range(plan.blocks - 1):
         counts = [per.get((b, g), 0) for g in range(plan.groups)]
         assert sum(counts) == plan.rpb and max(counts) - min(counts) <= 1
-
-
-# ------------------------------------------------------- the walk model
-
-def _walk(plan, s, w, rstd, mean, dy, ds=None):
-    """Plain model of the row kernel and the finish: (dx, dw, db) in f32
-    (db None for RMS). dx as the plain version; dw (db): each group sums
-    its rows' dy * xhat (dy) in row order, the block adds its groups in
-    group order, and the finish adds the blocks' partial rows in 32 row
-    groups (every 32nd partial row, in order), then the 32 in order."""
-    rows, h = s.shape
-    sf, dyf = s.float(), dy.float()
-    r = rstd.float()[:, None]
-    xhat = (sf - mean.float()[:, None]) * r if mean is not None else sf * r
-    wdy = dyf * w.float()
-    c2 = (wdy * xhat).sum(-1, keepdim=True) / h
-    if mean is not None:
-        c1 = wdy.sum(-1, keepdim=True) / h
-        dx = r * (wdy - c1 - xhat * c2)
-    else:
-        dx = r * (wdy - xhat * c2)
-    if ds is not None:
-        dx = dx + ds.float()
-    sums = [dyf * xhat] + ([dyf] if mean is not None else [])
-    out = []
-    for t in sums:
-        part = torch.zeros(plan.blocks, h)
-        for b in range(plan.blocks):
-            r0 = b * plan.rpb
-            r1 = min(rows, r0 + plan.rpb)
-            acc = torch.zeros(plan.groups, h)
-            for g in range(plan.groups):
-                for row in range(r0 + g, r1, plan.groups):
-                    acc[g] = acc[g] + t[row]
-            tot = torch.zeros(h)
-            for g in range(plan.groups):
-                tot = tot + acc[g]
-            part[b] = tot
-        grp = torch.zeros(FINISH_GROUPS, h)
-        for g in range(FINISH_GROUPS):
-            for b in range(g, plan.blocks, FINISH_GROUPS):
-                grp[g] = grp[g] + part[b]
-        tot = torch.zeros(h)
-        for g in range(FINISH_GROUPS):
-            tot = tot + grp[g]
-        out.append(tot)
-    return dx, out[0], out[1] if mean is not None else None
 
 
 def _inputs(rs, rows, h, dtype, layer):
@@ -196,33 +213,11 @@ def _rel(got, want):
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
-@pytest.mark.parametrize("layer", [False, True], ids=["rms", "ln"])
-@pytest.mark.parametrize("rows,h", [(66, 64), (300, 768), (37, 2056)])
-def test_walk_gives_the_plain_sums(layer, rows, h):
-    rs = np.random.RandomState(rows + h)
-    t = _inputs(rs, rows, h, "float32", layer)
-    plan = fn.norm_bwd_plan(rows, h, 8, fn.MAX_HIDDEN)
-    dx, dw, db = _walk(plan, t["s"], t["w"], t["rstd"], t["mean"], t["dy"],
-                       t["ds"])
-    if layer:
-        want = fn.layer_norm_bwd_reference(t["s"], t["w"], t["rstd"],
-                                           t["mean"], t["dy"], t["ds"])
-        assert _rel(db, want[2]) <= 1e-4
-    else:
-        want = fn.rms_norm_bwd_reference(t["s"], t["w"], t["rstd"], t["dy"],
-                                         t["ds"])
-    assert _rel(dx, want[0]) <= 1e-5
-    assert _rel(dw, want[1]) <= 1e-4
-
-
 # -------------------------------------------------- the wrapper path
 
-def _stand_in(seen, layer, t, plan):
-    """A stand-in for the C entry: records its grid and scratch, and
-    writes `_walk`'s result over `plan` (the wide path's blocks each as
-    one group) through the output pointers."""
-    walk_plan = plan._replace(groups=max(plan.groups, 1))
-
+def _stand_in(seen, layer, t):
+    """A stand-in for the C entry: checks the input pointers and records
+    the grid and the scratch it is given; it writes nothing."""
     def entry(*args):
         if layer:
             (s, w, rstd, mean, dy, ds, dx, dw, db, part, coef, rows, h,
@@ -230,18 +225,9 @@ def _stand_in(seen, layer, t, plan):
         else:
             (s, w, rstd, dy, ds, dx, dw, part, coef, rows, h, blocks, rpb,
              xdt, ydt, stream) = args
-            db = None
         assert s == t["s"].data_ptr() and dy == t["dy"].data_ptr()
         assert (ds is None) == (t["ds"] is None) and part
         seen.append((rows, h, blocks, rpb, coef is not None))
-        got = _walk(walk_plan, t["s"], t["w"], t["rstd"], t["mean"], t["dy"],
-                    t["ds"])
-        for ptr, val, dt in ((dx, got[0], t["s"].dtype),
-                             (dw, got[1], t["w"].dtype), (db, got[2],
-                                                          torch.float32)):
-            if ptr is not None:
-                v = val.to(dt).contiguous()
-                ctypes.memmove(ptr, v.data_ptr(), v.numel() * v.element_size())
         return 0
     return entry
 
@@ -269,10 +255,10 @@ def test_wrapper_launches_the_plan(monkeypatch, layer, rows, h, offset,
 
     name = "fused_layer_norm_bwd" if layer else "fused_rms_norm_bwd"
     top = fn.MAX_HIDDEN_LN if layer else fn.MAX_HIDDEN
-    plan = fn.norm_bwd_plan(rows, h, SMS, top, offset == 0)
+    plan = fn.norm_bwd_plan_for(t["s"], t["w"], t["dy"], t["ds"], top, SMS)
     assert plan.route == want_route
     lib = Lib()
-    setattr(lib, name, _stand_in(seen, layer, t, plan))
+    setattr(lib, name, _stand_in(seen, layer, t))
     monkeypatch.setattr(fn, "_plain", lambda name, *tensors: False)
     monkeypatch.setattr(fn, "kernel_library", lambda n: lib)
     monkeypatch.setattr(fn, "current_stream", lambda dev: 0)
@@ -291,13 +277,11 @@ def test_wrapper_launches_the_plan(monkeypatch, layer, rows, h, offset,
     if layer:
         got = fn.fused_layer_norm_bwd(t["s"], t["w"], t["rstd"], t["mean"],
                                       t["dy"], t["ds"])
-        want = fn.layer_norm_bwd_reference(t["s"], t["w"], t["rstd"],
-                                           t["mean"], t["dy"], t["ds"])
+        want = (t["s"].dtype, torch.float32, torch.float32)
     else:
         got = fn.fused_rms_norm_bwd(t["s"], t["w"], t["rstd"], t["dy"],
                                     t["ds"])
-        want = fn.rms_norm_bwd_reference(t["s"], t["w"], t["rstd"], t["dy"],
-                                         t["ds"])
+        want = (t["s"].dtype, t["w"].dtype)
     assert seen == [(rows, h, plan.blocks, plan.rpb, want_route == "wide")]
     # f32 scratch: the partial rows, then (wide path only) the row sums
     scratch = [((2 if layer else 1) * plan.blocks, h)] \
@@ -305,9 +289,8 @@ def test_wrapper_launches_the_plan(monkeypatch, layer, rows, h, offset,
     assert sizes[:len(scratch)] == scratch
     assert 2 * rows not in sizes[len(scratch):]
     assert _cuda_common.launch_counts()[name] == 1
-    for g, w_ in zip(got, want):
-        assert g.dtype == w_.dtype and g.shape == w_.shape
-        assert _rel(g, w_) <= 2 ** -7
+    assert [g.dtype for g in got] == list(want)
+    assert [g.shape for g in got] == [t["s"].shape] + [(h,)] * (len(got) - 1)
 
 
 # ------------------------------------------- against paddle_tpu's Pallas
@@ -317,7 +300,7 @@ def test_wrapper_launches_the_plan(monkeypatch, layer, rows, h, offset,
 @pytest.mark.parametrize("layer", [False, True], ids=["rms", "ln"])
 def test_plain_backward_matches_pallas_at_main_widths(dtype, h, layer):
     """The port's plain backward (the kernels' CPU path and card
-    yardstick) and the walk model against `_norm_backward`, the
+    yardstick) against `_norm_backward`, the
     reference's Pallas kernel in interpret mode, on the same 2 x 9 rows
     and saved statistics."""
     rs = np.random.RandomState(h + layer)
@@ -339,16 +322,12 @@ def test_plain_backward_matches_pallas_at_main_widths(dtype, h, layer):
                                           dy3)
     else:
         got = fn.rms_norm_bwd_reference(s3, t["w"], t["rstd"], dy3)
-    plan = fn.norm_bwd_plan(18, h, SMS, fn.MAX_HIDDEN)
-    walk = _walk(plan, t["s"], t["w"], t["rstd"], t["mean"], t["dy"])
     half = dtype == "bfloat16"
-    for key, g, wk in zip(("dx", "dw", "db"), got, walk):
+    for key, g in zip(("dx", "dw", "db"), got):
         want = torch.from_numpy(ref[key]).reshape(g.shape)
         tol = 2 ** -7 if half and (key == "dx" or not layer) else (
             1e-5 if key == "dx" else 1e-4)
         assert _rel(g, want) <= tol, key
-        assert _rel(wk.reshape(g.shape), want) <= (
-            2 ** -7 if half and key == "dx" else 1e-4), key
 
 
 # ------------------------------------------- the profile's kernel kinds
