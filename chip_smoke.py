@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; nothing is caught):
      and K9's; none may spill), those of the paged-decode kernels the
      serve paths launch, those of the int4 dequant-matmul's (K8) bodies
      and those of the fused-norm backward's row kernel and its dw / db
-     sum (none may spill);
+     sum (none may spill), and those of the fused optimizer pass (no
+     spill, no stack frame);
   3. kernels: each kernel at the main path's shapes (bf16; the int4
      dequant-matmul (K8) at the serve's three layer shapes for decode (M
      8) and prefill (M 64 and 512), each bf16 case also on the CUDA-core
@@ -26,10 +27,10 @@ Phases (any failure exits non-zero; nothing is caught):
      inputs, and timed (CUDA events, median of 30 after warm-up, device
      time only) beside the plain version, one PyTorch library call as a
      yardstick where one computes the same function, and the card's bound
-     for the work (the norm backward also by its kernels' own device time
-     with the L2 flushed by a write and by a read, the second kernel's
-     share of it, and by events with the L2 flushed by a read, beside its
-     launch plan); K1 (also
+     for the work (the norms, forward and backward, also by their kernels'
+     own device time with the L2 flushed by a write and by a read, the
+     backward's second kernel's share of it, and by events with the L2
+     flushed by a read; the backward beside its launch plan); K1 (also
      at TRAIN's shape) and K2 dQ and dK/dV
      beside the same call through the varlen entry with every kv length
      = S (`varlen_full_ms`: K1v's and K2v's forced per-element masks, on
@@ -41,6 +42,15 @@ Phases (any failure exits non-zero; nothing is caught):
      K2 at head dim 256 (B1 H16 S1024 causal, the CUDA-core bodies), K7
      and K7q-int8 at GQA group 3 (48 query heads over 16) and at head
      dim 256, and K3 RMS at 4096 x 16384 (the backward's wide path);
+  3b. optim: the fused Adam pass (`fused_adam`) over each training
+     path's parameter list as O2 leaves it (LLaMA 1B; GPT-3 medium's bf16
+     and f32 groups; BERT-base's), AdamW with TRAIN's lr and decay, and
+     the Momentum pass (`fused_momentum`, nesterov) over LLaMA's, each
+     held bit for bit against its plain version on copies of the same
+     inputs and timed beside it and `torch._fused_adamw_` (torch's rule,
+     a yardstick of time) or `torch._fused_sgd_`; then AdamW and Momentum
+     with use_multi_tensor=True take OPTIM_STEPS steps over LLaMA's list
+     through `opt.step()`: one launch a step each;
   4. serve: LLaMA at the 1B geometry (hidden 2048, 20 layers, 16 heads,
      vocab 32000, bf16, random weights from seed 0) behind the paged
      ServingEngine (8 slots, 16-token blocks) answers 16 greedy requests;
@@ -71,7 +81,8 @@ Phases (any failure exits non-zero; nothing is caught):
      (`_layer_forward_prefill`, autograd of `flash_attention_reference`);
      then 6 steps, counted: K1 and both K2 kernels launch steps x 20
      times, K3 steps x 41 each way, K4 steps x 40, K5 steps x 20 each
-     way; the losses are finite and fall;
+     way, the AdamW pass steps x 183 (one launch a parameter); the losses
+     are finite and fall;
   9. profile_train: one steady training step under torch.profiler, device
      time by kernel kind beside the host wall;
  10. train_unfused: the same model and batch with the flag False (the
@@ -83,13 +94,14 @@ Phases (any failure exits non-zero; nothing is caught):
      one step's gradients through the kernels held against the same step
      with no kernel of the path (the flag off, autograd of the plain
      attention), 6 counted steps with exact launches (K1 and both K2
-     kernels 24 per step, K3-LN 49 each way, nothing else), one
-     profiled step;
+     kernels 24 per step, K3-LN 49 each way, the fused AdamW pass twice,
+     one launch per dtype group, nothing else), one profiled step;
  12. train_bert: BERT-base sequence classification (vocab 30522, hidden
      768, 12 layers, dropout 0.1; bf16 O2, AdamW lr 2e-5) on 64 x 128
      seeded ids with binary labels: the same checks, with the dropout
      masks drawn alike on both sides, and exact launches (K1 and both K2
-     kernels 12 per step, K3-LN 25 and K6 24 each way). No phase before
+     kernels 12 per step, K3-LN 25 and K6 24 each way, the AdamW pass
+     once per parameter with a gradient). No phase before
      this point launches a varlen (K1v/K2v) or FlashMask (K9) kernel;
  13. kernels of the last slice: K1v and K2v at the VARLEN batch, K9 at the
      FLASHMASK window and at S 4100 with random start rows, each against
@@ -723,23 +735,22 @@ def _fused_record(name, case, shape, got, want, sums, fn, plain,
     return rec
 
 
-def _bwd_extra(layer, fn, s, w, dy, ds=None):
-    """The norm backward's KERNEL-line extras for `fn`, a call on s, w, dy
-    (and ds): `plan`, the launch plan the wrapper takes for those tensors
-    on this card; `kernel_ms`, its kernels' own device time a call
-    (torch.profiler: it leaves out the launch latency the events see)
-    with the L2 flushed by a write, as `_time_ms` is timed, and
-    `kernel_ms_l2_clean` with the L2 flushed by a read (clean lines: no
-    write-back of the flush's lines during the call), of which
-    `sum_ms_l2_clean` is the second kernel's (the dw / db sum); and
-    `ms_l2_clean`, the call timed by events with the L2 flushed by a
-    read. A kernel time is None when the profiler recorded none."""
+def _own_time(fn, key, per_call):
+    """A norm kernel's own time, for the KERNEL line of `fn` (a call that
+    launches `per_call` kernels whose names contain `key`):
+    `kernel_ms`, their device time a call (torch.profiler: it leaves out
+    the launch latency the events see) with the L2 flushed by a write, as
+    `_time_ms` is timed; `kernel_ms_l2_clean` with the L2 flushed by a
+    read (clean lines: no write-back of the flush's lines during the
+    call), of which `sum_ms_l2_clean` is the backward's dw / db sum
+    kernel's; and `ms_l2_clean`, the call timed by events with the L2
+    flushed by a read. A profiler pass that recorded other than reps x
+    per_call such kernels (the profiler drops some now and then) is taken
+    again, up to three times; then the time is None, beside the counts it
+    recorded (`kernels_recorded`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from paddle_tpu_torch.ops import fused_norm
 
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    top = fused_norm.MAX_HIDDEN_LN if layer else fused_norm.MAX_HIDDEN
     dirty = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
     clean = torch.ones(24 << 20, device="cuda")
     sink = torch.empty((), device="cuda")
@@ -751,33 +762,66 @@ def _bwd_extra(layer, fn, s, w, dy, ds=None):
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    recorded = {}
 
-    def kernel_ms(flush):
-        """{kernel name: device ms a call} over `reps` flushed calls"""
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                flush()
-                fn()
-            torch.cuda.synchronize()
-        return {e.key: e.self_device_time_total / reps / 1e3
-                for e in prof.key_averages()
-                if "norm_bwd" in e.key and e.self_device_time_total}
+    def kernel_ms(flush, tag):
+        """{kernel name: device ms a call} over `reps` flushed calls, or
+        None when no pass recorded reps x per_call kernels"""
+        recorded[tag] = []
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    flush()
+                    fn()
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages()
+                      if key in e.key and e.self_device_time_total]
+            recorded[tag].append(sum(e.count for e in events))
+            if recorded[tag][-1] == reps * per_call:
+                return {e.key: e.self_device_time_total / reps / 1e3
+                        for e in events}
+        return None
 
-    on_dirty, on_clean = kernel_ms(dirty.zero_), kernel_ms(read_flush)
-    sums = [v for k, v in on_clean.items() if "norm_bwd_sum" in k]
-    return {"plan": fused_norm.norm_bwd_plan_for(s, w, dy, ds, top,
-                                                 sms)._asdict(),
-            "kernel_ms": sum(on_dirty.values()) or None,
-            "kernel_ms_l2_clean": sum(on_clean.values()) or None,
-            "sum_ms_l2_clean": sum(sums) if sums else None,
-            "ms_l2_clean": _time_ms(fn, read_flush)}
+    on_dirty = kernel_ms(dirty.zero_, "dirty")
+    on_clean = kernel_ms(read_flush, "clean")
+    sums = [v for k, v in (on_clean or {}).items() if "norm_bwd_sum" in k]
+    out = {"kernel_ms": sum(on_dirty.values()) if on_dirty else None,
+           "kernel_ms_l2_clean": sum(on_clean.values()) if on_clean
+           else None,
+           "ms_l2_clean": _time_ms(fn, read_flush)}
+    if sums:
+        out["sum_ms_l2_clean"] = sum(sums)
+    if on_dirty is None or on_clean is None:
+        out["kernels_recorded"] = recorded | {"want": reps * per_call}
+    return out
 
 
-#: the norm backward's `_bwd_extra` fields that its rows of the `kernels`
-#: line carry: the times measured in this run (the plan stays on its KERNEL
-#: lines)
+def _fwd_extra(fn):
+    """The norm forward's KERNEL-line extras: its kernel's own time
+    (`_own_time`; one kernel a call)."""
+    return _own_time(fn, "norm_fwd", 1)
+
+
+def _bwd_extra(layer, fn, s, w, dy, ds=None):
+    """The norm backward's KERNEL-line extras for `fn`, a call on s, w, dy
+    (and ds): `plan`, the launch plan the wrapper takes for those tensors
+    on this card, and its kernels' own time (`_own_time`: the row kernel
+    and the dw / db sum, or the wide path's three kernels)."""
+    import torch
+    from paddle_tpu_torch.ops import fused_norm
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    top = fused_norm.MAX_HIDDEN_LN if layer else fused_norm.MAX_HIDDEN
+    plan = fused_norm.norm_bwd_plan_for(s, w, dy, ds, top, sms)
+    return {"plan": plan._asdict()} | _own_time(
+        fn, "norm_bwd", 2 if plan.route == "rows" else 3)
+
+
+#: the norms' `_own_time` fields that their rows of the `kernels` line
+#: carry: the times measured in this run (the backward's plan stays on its
+#: KERNEL lines)
 _BWD_MEASURED = ("kernel_ms", "kernel_ms_l2_clean", "sum_ms_l2_clean",
-                 "ms_l2_clean")
+                 "ms_l2_clean", "kernels_recorded")
 
 
 def fused_norm_cases(rows, h, tag, x_dtype="bfloat16", y_dtype="float32"):
@@ -814,7 +858,8 @@ def fused_norm_cases(rows, h, tag, x_dtype="bfloat16", y_dtype="float32"):
         lambda: fused_rms_norm_fwd(x, None, w, eps, ydt),
         lambda: rms_norm_fwd_reference(x, None, w, eps, ydt),
         lambda: F.rms_norm(xf, (h,), wf, eps),
-        xb * n + xb * h + yb * n + 4 * rows, 4 * n)
+        xb * n + xb * h + yb * n + 4 * rows, 4 * n,
+        _fwd_extra(lambda: fused_rms_norm_fwd(x, None, w, eps, ydt)))
     rstd = got[2]
     # forward, add variant: read x, res, w; write y, s, rstd
     got = fused_rms_norm_fwd(x, res, w, eps)
@@ -823,7 +868,8 @@ def fused_norm_cases(rows, h, tag, x_dtype="bfloat16", y_dtype="float32"):
         "fused_rms_norm_fwd", f"{tag} add+rms {x_dtype}", (rows, h), got,
         want, (), lambda: fused_rms_norm_fwd(x, res, w, eps),
         lambda: rms_norm_fwd_reference(x, res, w, eps), None,
-        2 * xb * n + xb * h + 2 * xb * n + 4 * rows, 5 * n)
+        2 * xb * n + xb * h + 2 * xb * n + 4 * rows, 5 * n,
+        _fwd_extra(lambda: fused_rms_norm_fwd(x, res, w, eps)))
     s_add, rstd_add = got[1], got[2]
     # backward, plain norm: read s (= x), dy, w, rstd; write dx, dw
     xl = xf.clone().requires_grad_()
@@ -942,7 +988,9 @@ def layer_norm_cases(rows, h, tag, add=True):
         lambda: fused_layer_norm_fwd(x, None, w, b, eps, torch.float32),
         lambda: layer_norm_fwd_reference(x, None, w, b, eps, torch.float32),
         lambda: F.layer_norm(xf, (h,), w, b, eps),
-        2 * n + 8 * h + 4 * n + 8 * rows, 7 * n)
+        2 * n + 8 * h + 4 * n + 8 * rows, 7 * n,
+        _fwd_extra(lambda: fused_layer_norm_fwd(x, None, w, b, eps,
+                                                torch.float32)))
     stats = got[2], got[3]
     # backward, plain norm: read x, dy (f32), w, rstd, mean; write dx, dw,
     # db
@@ -969,7 +1017,8 @@ def layer_norm_cases(rows, h, tag, add=True):
         "fused_layer_norm_fwd", f"{tag} add+ln bfloat16", (rows, h), got,
         want, (), lambda: fused_layer_norm_fwd(x, res, wb, bb, eps),
         lambda: layer_norm_fwd_reference(x, res, wb, bb, eps), None,
-        2 * 2 * n + 8 * h + 2 * 2 * n + 8 * rows, 8 * n)
+        2 * 2 * n + 8 * h + 2 * 2 * n + 8 * rows, 8 * n,
+        _fwd_extra(lambda: fused_layer_norm_fwd(x, res, wb, bb, eps)))
     s_add, stats = got[1], (got[2], got[3])
     # backward, add variant: read s, dy, ds, w, rstd, mean; write dsum,
     # dw, db
@@ -1339,7 +1388,8 @@ def _grad_check(model, loss_fn, plain_loss_fn, tag, seed=1234):
     """One step's gradients through the kernels (`loss_fn`) vs the same
     step with no kernel of the path (`plain_loss_fn`; no update), each
     side from the default generators seeded alike (so BERT's dropout
-    masks match); the plain side must launch no kernel. Prints `tag`."""
+    masks match); the plain side must launch no kernel. Prints `tag`.
+    Returns the number of parameters that get a gradient."""
     import torch
     from paddle_tpu_torch.ops import _cuda_common
 
@@ -1380,6 +1430,7 @@ def _grad_check(model, loss_fn, plain_loss_fn, tag, seed=1234):
     assert worst <= GRAD_TOL, rec
     # the plain side is the model's own function, its arithmetic aside
     assert abs(rec["loss"] - rec["plain_loss"]) <= GRAD_TOL * rec["loss"], rec
+    return checked
 
 
 def _timed_steps(model, opt, ids, steps, labels=None, reseed=None):
@@ -1419,9 +1470,9 @@ def train():
     model, opt, ids = _train_model()
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    _grad_check(model, lambda: model(ids, labels=ids),
-                lambda: _plain_attention_loss(model, ids),
-                "TRAIN_GRAD_CHECK")
+    with_grads = _grad_check(model, lambda: model(ids, labels=ids),
+                             lambda: _plain_attention_loss(model, ids),
+                             "TRAIN_GRAD_CHECK")
     layers = model.config.num_hidden_layers
     losses, walls, peak, counts = _timed_steps(model, opt, ids, TRAIN_STEPS)
     steady = walls[1:]
@@ -1441,11 +1492,13 @@ def train():
     assert all(np.isfinite(losses)), losses
     assert losses[-1] < losses[0], losses
     # per step: K1, K2, K5 once per layer (each way); K3 twice per layer
-    # and once for the final norm, each way; K4 once per layer each way
+    # and once for the final norm, each way; K4 once per layer each way;
+    # the AdamW update once per parameter (the per-parameter path)
     want = {"flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
             "flash_attention_bwd_dkv": layers, "swiglu_fwd": layers,
             "swiglu_bwd": layers, "fused_rms_norm_fwd": 2 * layers + 1,
-            "fused_rms_norm_bwd": 2 * layers + 1, "rope_qk": 2 * layers}
+            "fused_rms_norm_bwd": 2 * layers + 1, "rope_qk": 2 * layers,
+            "fused_adam": with_grads}
     for name, per_step in want.items():
         assert counts[name] == TRAIN_STEPS * per_step, (name, counts)
     return model, opt, ids, counts
@@ -1505,14 +1558,16 @@ def _kernel_kind(key):
     LayerNorm), the forward's fifth (norm_fwd_kernel<TX, TY, TW, N,
     LAYER, WIDE>), every backward kernel's last (norm_bwd_rows_kernel,
     norm_bwd_sum_kernel, and the wide path's norm_bwd_coef_kernel and
-    norm_bwd_wide_kernel)."""
+    norm_bwd_wide_kernel). The fused optimizer pass
+    (fused_update_kernel) is "optimizer"."""
     low = key.lower()
     norm = re.search(r"norm_(fwd|bwd)_\w*<([^()]*)>", low)
     if norm:
         args = [a.strip() for a in norm.group(2).split(",")]
         layer = args[4 if norm.group(1) == "fwd" else -1] == "true"
         return ("layer_norm_" if layer else "rms_norm_") + norm.group(1)
-    for frag, kind in (("rope_kernel", "rope"),
+    for frag, kind in (("fused_update_kernel", "optimizer"),
+                       ("rope_kernel", "rope"),
                        ("swiglu_fwd_kernel", "swiglu_fwd"),
                        ("swiglu_bwd_kernel", "swiglu_bwd"),
                        ("dropout_add_fwd_kernel", "dropout_add_fwd"),
@@ -1545,7 +1600,7 @@ def profile_train(step, tag="PROFILE_TRAIN"):
         ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "rms_norm_fwd",
          "rms_norm_bwd", "layer_norm_fwd", "layer_norm_bwd", "rope",
          "swiglu_fwd", "swiglu_bwd", "dropout_add_fwd", "dropout_add_bwd",
-         "gemm", "other"), 0.0)
+         "optimizer", "gemm", "other"), 0.0)
     per_kernel, spans = {}, {}
     launched = 0
     for e in prof.key_averages():
@@ -1656,11 +1711,13 @@ def train_gpt():
                 "TRAIN_GPT_GRAD_CHECK")
     layers = cfg.num_hidden_layers
     # per step: K1 and both K2 kernels once per layer; K3-LN for ln_1 and
-    # ln_2 of every block and ln_f, each way
+    # ln_2 of every block and ln_f, each way; the fused AdamW update once
+    # per dtype of the parameters (bf16, and the LayerNorms' f32)
     want = {"flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
             "flash_attention_bwd_dkv": layers,
             "fused_layer_norm_fwd": 2 * layers + 1,
-            "fused_layer_norm_bwd": 2 * layers + 1}
+            "fused_layer_norm_bwd": 2 * layers + 1,
+            "fused_adam": len({p.dtype for p in model.parameters()})}
     counts = _counted_train("TRAIN_GPT", model, opt, ids, ids,
                             ("tokens", ids.numel()), want)
     profile_train(lambda: _train_step(model, opt, ids, ids),
@@ -1695,18 +1752,19 @@ def train_bert():
     labels = torch.from_numpy(rs.randint(0, 2, (BERT_BATCH,))).cuda()
     torch.cuda.synchronize()
     _say("TRAIN_BERT_SETUP", {"seconds": time.perf_counter() - t0})
-    _grad_check(model, lambda: model(ids, labels=labels),
-                _plain_path(lambda: model(ids, labels=labels)),
-                "TRAIN_BERT_GRAD_CHECK")
+    with_grads = _grad_check(model, lambda: model(ids, labels=labels),
+                             _plain_path(lambda: model(ids, labels=labels)),
+                             "TRAIN_BERT_GRAD_CHECK")
     layers = cfg.num_hidden_layers
     # per step: K1 and both K2 kernels once per layer; K3-LN for the
     # embeddings' norm and two per layer, each way; K6 twice per layer,
-    # each way
+    # each way; the AdamW update once per parameter with a gradient
     want = {"flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
             "flash_attention_bwd_dkv": layers,
             "fused_layer_norm_fwd": 2 * layers + 1,
             "fused_layer_norm_bwd": 2 * layers + 1,
-            "dropout_add_fwd": 2 * layers, "dropout_add_bwd": 2 * layers}
+            "dropout_add_fwd": 2 * layers, "dropout_add_bwd": 2 * layers,
+            "fused_adam": with_grads}
     counts = _counted_train("TRAIN_BERT", model, opt, ids, labels,
                             ("sequences", BERT_BATCH), want, reseed=4321)
     profile_train(lambda: _train_step(model, opt, ids, labels),
@@ -2205,6 +2263,225 @@ def norm_usage():
     assert not spilled, spilled
 
 
+def optim_usage():
+    """PTXAS_OPTIM: registers, stack and spills of the fused optimizer
+    pass (fused_update_kernel, Adam and Momentum, each (parameter, state)
+    dtype pair). Its per-tensor table stays in the parameter space
+    (__grid_constant__): a stack frame would mean a local copy of it, and
+    none may spill."""
+    from paddle_tpu_torch.ops import _cuda_common
+
+    usage = {name: use for name, use in _cuda_common.ptxas_usage(
+        "csrc/fused_optimizer.cu").items() if "fused_update_kernel" in name}
+    _say("PTXAS_OPTIM", usage)
+    assert len(usage) == 12, usage          # 6 dtype pairs x 2 updates
+    bad = {k: u for k, u in usage.items() if u.get("spill_stores")
+           or u.get("spill_loads") or u.get("stack")}
+    assert not bad, bad
+
+
+#: the optimizer's hyperparameters in OPTIM (TRAIN's AdamW: lr 1e-4,
+#: decay 0.01; Momentum 0.9, nesterov)
+OPTIM_LR, OPTIM_WD, OPTIM_STEPS = 1e-4, 0.01, 4
+
+
+def _o2_params(name):
+    """A training path's parameter list as `amp.decorate(..., "O2")`
+    leaves it, [(shape, dtype)], from its model built on the meta device
+    (no memory, no init)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.text.models import (
+        BertConfig, BertForSequenceClassification, GPTConfig,
+        GPTForCausalLM, LlamaConfig, LlamaForCausalLM)
+
+    build = {"llama": lambda: LlamaForCausalLM(LlamaConfig(**CFG_1B),
+                                               device="meta"),
+             "gpt": lambda: GPTForCausalLM(GPTConfig(**CFG_GPT),
+                                           device="meta"),
+             "bert": lambda: BertForSequenceClassification(BertConfig(),
+                                                           device="meta")}
+    model = amp.decorate(build[name](), level="O2", dtype="bfloat16")
+    return [(tuple(p.shape), p.dtype) for p in model.parameters()]
+
+
+def _optim_tensors(shapes, dtype, seed, states):
+    """Seeded parameters (~0.02), gradients (~1e-3) and `states` state
+    lists in `dtype` on the card: a first moment (~1e-3), then second
+    moments (>= 0, ~1e-6)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def make(scale, positive=False):
+        out = []
+        for shape in shapes:
+            t = (torch.rand if positive else torch.randn)(
+                shape, device="cuda", generator=g, dtype=dtype)
+            out.append(t.mul_(scale))
+        return out
+
+    return (make(0.02), make(1e-3),
+            [make(1e-3)] + [make(1e-6, True) for _ in range(states - 1)])
+
+
+def _clone_all(*lists):
+    return [[t.clone() for t in ts] for ts in lists]
+
+
+def optim_case(tag, shapes, dtype, momentum=False):
+    """fused_adam (AdamW: TRAIN's lr and decay, step 1) or fused_momentum
+    (nesterov) over one dtype group of a training path's parameter list
+    under O2 (state in the parameters' dtype, no master weights, as
+    TRAIN* run): one call against its plain version on copies of the same
+    inputs, bit for bit; then timed (L2 flushed before each launch) beside
+    the plain version and the yardstick: `torch._fused_adamw_` (torch's
+    rule, eps outside the bias-corrected root: not the port's function,
+    so not `library_ms`) for Adam; `torch._fused_sgd_` with dampening 0,
+    which computes Paddle's velocity rule, as `library_ms` for
+    Momentum."""
+    import torch
+    from paddle_tpu_torch.ops import fused_optimizer as fo
+
+    n = len(shapes)
+    ps, gs, st = _optim_tensors(shapes, dtype, len(shapes) + 7,
+                                1 if momentum else 2)
+    lrs, coeffs = [OPTIM_LR] * n, [OPTIM_WD] * n
+    if momentum:
+        kw = dict(momentum=0.9, nesterov=True)
+
+        def kernel(p, s_):
+            fo.fused_momentum(p, gs, s_[0], None, lrs, coeffs, **kw)
+
+        def plain(p, s_):
+            fo.fused_momentum_reference(p, gs, s_[0], None, lrs, coeffs,
+                                        **kw)
+    else:
+        kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, step=1,
+                  decoupled=True)
+
+        def kernel(p, s_):
+            fo.fused_adam(p, gs, s_[0], s_[1], None, None, lrs, coeffs, **kw)
+
+        def plain(p, s_):
+            fo.fused_adam_reference(p, gs, s_[0], s_[1], None, None, lrs,
+                                    coeffs, **kw)
+    kp, ks = ps, st
+    pp, *ps_ = _clone_all(ps, *st)
+    kernel(kp, ks)
+    plain(pp, ps_)
+    torch.cuda.synchronize()
+    err = 0.0
+    for a, b in zip(kp + sum(ks, []), pp + sum(ps_, [])):
+        assert torch.equal(a.view(-1).view(torch.uint8),
+                           b.view(-1).view(torch.uint8)), tag
+        err = max(err, (a.float() - b.float()).abs().max().item())
+    scratch = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    flush = scratch.zero_
+    ms = _time_ms(lambda: kernel(kp, ks), flush)
+    plain_ms = _time_ms(lambda: plain(pp, ps_), flush, reps=5, warmup=1)
+    del pp, ps_
+    yp, *ys = _clone_all(ps, *st)
+    if momentum:
+        yard = lambda: torch._fused_sgd_(   # noqa: E731
+            yp, gs, ys[0], weight_decay=OPTIM_WD, momentum=0.9, lr=OPTIM_LR,
+            dampening=0.0, nesterov=True, maximize=False,
+            is_first_step=False)
+    else:
+        steps = [torch.zeros((), device="cuda") for _ in yp]
+        yard = lambda: torch._fused_adamw_(   # noqa: E731
+            yp, gs, ys[0], ys[1], [], steps, lr=OPTIM_LR, beta1=0.9,
+            beta2=0.999, weight_decay=OPTIM_WD, eps=1e-8, amsgrad=False,
+            maximize=False)
+    yard_ms = _time_ms(yard, flush)
+    del yp, ys
+    numel = sum(p.numel() for p in ps)
+    eb = ps[0].element_size()
+    # read p, g and the state; write p and the state
+    moved = (2 + len(st)) * eb * numel + (1 + len(st)) * eb * numel
+    bound, by = _bound_ms((7 if momentum else 15) * numel, moved,
+                          PEAK_F32_FLOPS)
+    rec = {"name": "fused_momentum" if momentum else "fused_adam",
+           "case": tag, "tensors": n, "elements": numel,
+           "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": by}
+    if momentum:
+        rec |= {"library_ms": yard_ms, "library": "torch._fused_sgd_"}
+    else:
+        rec |= {"library_ms": None, "torch_fused_adamw_ms": yard_ms}
+    _say("KERNEL", rec)
+    return rec
+
+
+def optim_steps(shapes):
+    """The optimizers' own entry points at LLaMA 1B's O2 parameter list
+    (bf16, seeded gradients): OPTIM_STEPS steps of AdamW(use_multi_tensor=
+    True) and of Momentum(use_multi_tensor=True, use_nesterov=True), each
+    from zeroed launch counts: one launch a step (one dtype pair) and no
+    other kernel, finite parameters. Prints OPTIM_STEP with ms per step
+    (host clock, synchronized). Returns {optimizer: launch counts}."""
+    import torch
+    from paddle_tpu_torch.ops import _cuda_common
+    from paddle_tpu_torch.optimizer import AdamW, Momentum
+
+    counts, rec = {}, {}
+    for name, make, kernel in (
+            ("AdamW", lambda ps: AdamW(learning_rate=OPTIM_LR, parameters=ps,
+                                       weight_decay=OPTIM_WD,
+                                       use_multi_tensor=True), "fused_adam"),
+            ("Momentum", lambda ps: Momentum(
+                learning_rate=OPTIM_LR, parameters=ps, use_nesterov=True,
+                weight_decay=OPTIM_WD, use_multi_tensor=True),
+             "fused_momentum")):
+        ps, gs, _ = _optim_tensors(shapes, torch.bfloat16, 11, 1)
+        params = [torch.nn.Parameter(p) for p in ps]
+        opt = make(params)
+        walls = []
+        torch.cuda.synchronize()
+        _cuda_common.reset_launch_counts()
+        for _ in range(OPTIM_STEPS):
+            for p, g in zip(params, gs):
+                p.grad = g
+            t0 = time.perf_counter()
+            opt.step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        counts[name] = _cuda_common.launch_counts()
+        launched = {k: c for k, c in counts[name].items() if c}
+        assert launched == {kernel: OPTIM_STEPS}, launched
+        assert all(torch.isfinite(p).all() for p in params)
+        rec[name] = {"tensors": len(params), "steps": OPTIM_STEPS,
+                     "ms_per_step_median": 1e3 * statistics.median(
+                         walls[1:]),
+                     "first_step_ms": 1e3 * walls[0], "launches": launched}
+        del params, opt, ps, gs
+        torch.cuda.empty_cache()
+    _say("OPTIM_STEP", rec)
+    return counts
+
+
+def optim_phase():
+    """OPTIM: fused_adam over LLaMA 1B's, GPT-3 medium's (its two dtype
+    groups) and BERT-base's parameter lists under O2, fused_momentum over
+    LLaMA's, each against its plain version (`optim_case`); then the
+    optimizers' entry points (`optim_steps`). Returns (records, counts)."""
+    import torch
+
+    lists = {name: _o2_params(name) for name in ("llama", "gpt", "bert")}
+    recs = {}
+    for name, plist in lists.items():
+        for dtype in dict.fromkeys(dt for _, dt in plist):
+            shapes = [s for s, dt in plist if dt == dtype]
+            tag = f"{name} O2 {str(dtype).replace('torch.', '')}"
+            recs[tag] = optim_case(tag, shapes, dtype)
+            torch.cuda.empty_cache()
+    llama = [s for s, _ in lists["llama"]]
+    recs["llama O2 bfloat16 momentum"] = optim_case(
+        "llama O2 bfloat16 nesterov", llama, torch.bfloat16, momentum=True)
+    torch.cuda.empty_cache()
+    return recs, optim_steps(llama)
+
+
 def profile_prefill(model, tag="PROFILE_PREFILL"):
     """Where one 512-token prefill's device time goes, bf16 weights
     beside int4 (and an int4 KV cache): torch.profiler over one engine
@@ -2273,6 +2550,7 @@ def main():
     decode_usage()
     qmm_usage()
     norm_usage()
+    optim_usage()
     phases = {"build": time.perf_counter() - t0}
     t0 = time.perf_counter()
 
@@ -2332,6 +2610,9 @@ def main():
                                   ("d256", {"d": 256}))}
     norm_wide = fused_norm_cases(4096, 16384, "wide")
     phases["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    optim, counts_optim = optim_phase()
+    phases["optim"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     model, counts = serve()
     profile_decode(model)
@@ -2472,6 +2753,28 @@ def main():
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
             | {k: rec[k] for k in _BWD_MEASURED if k in rec})
+    # the fused optimizer pass at each training path's O2 parameter list
+    # (one row per dtype group), launches from that path's counted steps;
+    # Momentum, which no training path runs, from its OPTIM_STEP run
+    for key, cnt in (("llama O2 bfloat16", counts_train),
+                     ("gpt O2 bfloat16", counts_gpt),
+                     ("gpt O2 float32", counts_gpt),
+                     ("bert O2 bfloat16", counts_bert),
+                     ("bert O2 float32", counts_bert),
+                     ("llama O2 bfloat16 momentum",
+                      counts_optim["Momentum"])):
+        rec = optim[key]
+        summary.append({
+            "name": rec["name"], "case": rec["case"], "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/fused_optimizer.cu",
+            "replaces": "paddle_tpu/optimizer/fused.py:"
+            + ("222" if rec["name"] == "fused_momentum" else "104"),
+            "launches": cnt[rec["name"]],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+            | {k: rec[k] for k in ("torch_fused_adamw_ms", "library")
+               if k in rec})
     # K1 and K2 at head_dim 64, each from its own phase
     for key, cnt in (("gpt", counts_gpt), ("bert", counts_bert)):
         rec = flash64[key]

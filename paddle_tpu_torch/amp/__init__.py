@@ -14,7 +14,7 @@ writing f32 when `FLAGS_pallas_fused_ops` is on; the flash attention's
 f32 softmax; the f32 logits of the loss), so
 `auto_cast` at O2 casts nothing and only checks its arguments. `auto_cast`
 at O1 (casting per op at dispatch) and GradScaler are not ported yet
-(ROADMAP Queue 1 item 1, the next training slice).
+(ROADMAP Queue 1 item 1c).
 """
 from __future__ import annotations
 
@@ -74,11 +74,10 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
         if level == "O1":
             raise NotImplementedError(
                 "amp level O1 (per-op casting at dispatch) is not ported "
-                "yet (ROADMAP Queue 1 item 1, the next training slice); "
-                "use O2")
+                "yet (ROADMAP Queue 1 item 1c); use O2")
         _amp_dtype(dtype)
         if custom_white_list or custom_black_list:
             raise NotImplementedError(
                 "custom amp op lists are not ported yet (ROADMAP Queue 1 "
-                "item 1, the next training slice)")
+                "item 1c)")
     yield

@@ -42,7 +42,8 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 #: flash-attention forward and its varlen form share one source, and so
 #: do the backward kernels (dQ; dK and dV; each with its varlen form), the
 #: three FlashMask kernels and the fused norm (RMS and LayerNorm kinds),
-#: rotary, SwiGLU and dropout + add kernels. The flash forward, backward
+#: rotary, SwiGLU and dropout + add kernels, and the fused optimizer
+#: updates (Adam / AdamW and Momentum). The flash forward, backward
 #: and FlashMask sources share their tile bodies through
 #: csrc/flash_attention_tc.cuh and csrc/flash_attention_tiles.cuh; every
 #: header under csrc/ is part of each source's build hash.
@@ -69,6 +70,8 @@ KERNEL_SOURCES = {
     "fused_layer_norm_bwd": "csrc/fused_norm.cu",
     "dropout_add_fwd": "csrc/fused_norm.cu",
     "dropout_add_bwd": "csrc/fused_norm.cu",
+    "fused_adam": "csrc/fused_optimizer.cu",
+    "fused_momentum": "csrc/fused_optimizer.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -196,8 +196,7 @@ class LlamaModel(nn.Module):
 
 #: config switches the port does not implement yet -> the ROADMAP item
 _UNPORTED = {
-    "use_recompute": "ROADMAP Queue 1 item 1, the next training slice "
-                     "(recompute)",
+    "use_recompute": "ROADMAP Queue 1 item 1b (recompute)",
     "tensor_parallel": "ROADMAP 'After these', Distributed",
     "sequence_parallel": "ROADMAP 'After these', Distributed",
 }

@@ -18,14 +18,16 @@ rounds its f32 sum once to bf16, so the two differ by at most one bf16
 ulp, 2^-7 of a value's binade). The fused norm, rotary and SwiGLU kernels
 (test_torch_fused_norm.py on the CPU) likewise, relative to each output's
 largest |value|: f32 1e-5 (dw, a sum over rows in another order, 1e-4),
-bf16 and f16 2^-7.
+bf16 and f16 2^-7. The fused optimizer updates repeat their plain
+versions' operations one by one, each rounded to nearest: they are held
+to them bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.ops import _cuda_common
-from paddle_tpu_torch.ops import fused_norm
+from paddle_tpu_torch.ops import fused_norm, fused_optimizer
 from paddle_tpu_torch.ops.flash_attention import (
     _bwd_delta, _launch_bwd_dkv, _launch_bwd_dq, flash_attention,
     flash_attention_bwd, flash_attention_bwd_dkv_reference,
@@ -1057,8 +1059,9 @@ def _tiny_train(make, batch, dev, steps=3):
 def test_gpt_train_steps_on_card_launch_k1_k2_and_k3_ln(card):
     """Three AdamW steps of a tiny f32 GPT on the card give the CPU
     losses within 1e-4 relative; per step K1 and both K2 kernels launch
-    once per layer, K3-LN 2 x layers + 1 times each way, and no RMS,
-    rotary, SwiGLU or dropout + add kernel."""
+    once per layer, K3-LN 2 x layers + 1 times each way, the AdamW pass
+    once per parameter (the per-parameter path), and no RMS, rotary,
+    SwiGLU or dropout + add kernel."""
     from paddle_tpu_torch.text.models import GPTConfig, GPTForCausalLM
 
     cfg = GPTConfig(vocab_size=256, hidden_size=64, num_hidden_layers=2,
@@ -1074,15 +1077,18 @@ def test_gpt_train_steps_on_card_launch_k1_k2_and_k3_ln(card):
         "flash_attention_fwd": 3 * layers, "flash_attention_bwd_dq":
         3 * layers, "flash_attention_bwd_dkv": 3 * layers,
         "fused_layer_norm_fwd": 3 * (2 * layers + 1),
-        "fused_layer_norm_bwd": 3 * (2 * layers + 1)}, counts
+        "fused_layer_norm_bwd": 3 * (2 * layers + 1),
+        "fused_adam": 3 * len(list(GPTForCausalLM(
+            cfg, device="cpu").parameters()))}, counts
 
 
 def test_bert_train_steps_on_card_launch_k6_and_k3_ln(card):
     """Three AdamW steps of a tiny f32 BERT classifier with dropout 0.1
     on the card: per step K1 and both K2 kernels launch once per layer,
-    K3-LN 2 x layers + 1 times each way and K6 2 x layers times each way;
-    the losses are finite. With dropout 0 they equal the CPU's within
-    1e-4 relative."""
+    K3-LN 2 x layers + 1 times each way, K6 2 x layers times each way and
+    the AdamW pass once per parameter with a gradient (all but the token
+    type embeddings, which no input selects); the losses are finite. With
+    dropout 0 they equal the CPU's within 1e-4 relative."""
     from paddle_tpu_torch.text.models import (BertConfig,
                                               BertForSequenceClassification)
 
@@ -1105,7 +1111,9 @@ def test_bert_train_steps_on_card_launch_k6_and_k3_ln(card):
         "fused_layer_norm_fwd": 3 * (2 * layers + 1),
         "fused_layer_norm_bwd": 3 * (2 * layers + 1),
         "dropout_add_fwd": 3 * 2 * layers,
-        "dropout_add_bwd": 3 * 2 * layers}, counts
+        "dropout_add_bwd": 3 * 2 * layers,
+        "fused_adam": 3 * (len(list(BertForSequenceClassification(
+            cfg, device="cpu").parameters())) - 1)}, counts
     cfg = BertConfig(**kw, hidden_dropout_prob=0.0)
     losses = [_tiny_train(lambda d: BertForSequenceClassification(
         cfg, device=d), batch, dev) for dev in ("cpu", card)]
@@ -1826,3 +1834,235 @@ def test_split_decode_matches_plain_and_repeats(card, fmt, hq, hkv):
     assert (diff <= tol * top).all(), (diff / top).tolist()
     assert not out[0].any()
     assert torch.equal(out, again)
+
+
+# ------------------------------------------- fused optimizer updates
+
+#: (parameter dtype, state dtype, master weights): the pairs the
+#: optimizers make (a 2-byte parameter beside f32 state without master
+#: weights comes from a state dict loaded across precisions)
+OPT_PAIRS = [(torch.float32, torch.float32, False),
+             (torch.bfloat16, torch.bfloat16, False),
+             (torch.bfloat16, torch.float32, True),
+             (torch.bfloat16, torch.float32, False),
+             (torch.float16, torch.float16, False),
+             (torch.float16, torch.float32, True),
+             (torch.float64, torch.float64, False)]
+OPT_PAIR_IDS = ["f32", "bf16", "bf16-master", "bf16-f32state", "f16",
+                "f16-master", "f64"]
+#: sizes: single elements, a ragged vector tail, one over a chunk
+#: boundary (kChunk 16384), and a misaligned view (offset by 1 element)
+OPT_SIZES = [1, 7, 4096 + 3, 2 * 16384 + 5, 3, 100]
+
+
+def _opt_lists(card, sizes, pdt, sdt, master, states, seed=0,
+               misaligned=()):
+    """Seeded parameters, gradients, `states` state lists (moments >= 0
+    where they are second moments) and optional f32 master weights, on the
+    card; the tensors at `misaligned` indices are views one element off
+    their allocation's start."""
+    rs = np.random.RandomState(seed)
+
+    def put(a, dt, i):
+        t = torch.from_numpy(a.astype("float32")).to(card, dt)
+        if i in misaligned:
+            buf = torch.empty(t.numel() + 1, dtype=dt, device=card)
+            buf[1:].copy_(t)
+            t = buf[1:]
+        return t
+
+    ps = [put(rs.randn(n) * 0.5, pdt, i) for i, n in enumerate(sizes)]
+    gs = [put(rs.randn(n), pdt, i) for i, n in enumerate(sizes)]
+    st = [[put(rs.rand(n) * (0.01 if k else 0.1), sdt, i)
+           for i, n in enumerate(sizes)] for k in range(states)]
+    ms = [p.float() + put(rs.randn(n) * 1e-3, torch.float32, i)
+          for i, (p, n) in enumerate(zip(ps, sizes))] if master else None
+    return ps, gs, st, ms
+
+
+def _clone(xs):
+    """Copies at the same offset from their allocation's start (a
+    misaligned view stays misaligned)."""
+    if xs is None:
+        return None
+    out = []
+    for x in xs:
+        off = x.storage_offset()
+        buf = torch.empty(x.numel() + off, dtype=x.dtype, device=x.device)
+        out.append(buf[off:].view(x.shape).copy_(x))
+    return out
+
+
+def _same_bits(a, b):
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype
+        assert torch.equal(x.view(-1).view(torch.uint8),
+                           y.view(-1).view(torch.uint8))
+
+
+ADAM_VARIANTS = {
+    "adam-l2": dict(decoupled=False, coeffs=0.05),
+    "adamw": dict(decoupled=True, coeffs=0.1),
+    "adamw-amsgrad": dict(decoupled=True, coeffs=0.1, amsgrad=True),
+    "adam-l1": dict(decoupled=False, coeffs=0.05, l1=True),
+    "adamw-l1-amsgrad": dict(decoupled=True, coeffs=0.02, l1=True,
+                             amsgrad=True),
+    "adamw-scale": dict(decoupled=True, coeffs=0.1, scale=0.37),
+}
+
+
+@pytest.mark.parametrize("variant", sorted(ADAM_VARIANTS))
+@pytest.mark.parametrize("pdt,sdt,master", OPT_PAIRS, ids=OPT_PAIR_IDS)
+def test_fused_adam_matches_plain_bit_for_bit(card, pdt, sdt, master,
+                                              variant):
+    """fused_adam against fused_adam_reference on copies of the same
+    inputs: every parameter, moment, moment2_max and master weight bit
+    for bit; one launch; a second call on the same inputs gives the same
+    bits."""
+    v = dict(ADAM_VARIANTS[variant])
+    ams, scale = v.pop("amsgrad", False), v.pop("scale", None)
+    ps, gs, st, ms = _opt_lists(card, OPT_SIZES, pdt, sdt, master,
+                                3 if ams else 2, misaligned=(4,))
+    n = len(ps)
+    lrs = [1e-3 * (1 + i % 3) for i in range(n)]
+    coeff = v.pop("coeffs")
+    coeffs = [0.0 if i == 1 else coeff for i in range(n)]
+    if scale is not None:
+        scale = torch.tensor([scale], device=card)
+    kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, step=7, scale=scale,
+              **v)
+    outs = []
+    for fn in (fused_optimizer.fused_adam, fused_optimizer.fused_adam,
+               fused_optimizer.fused_adam_reference):
+        p, m1, m2 = _clone(ps), _clone(st[0]), _clone(st[1])
+        mx, mw = _clone(st[2]) if ams else None, _clone(ms)
+        before = _cuda_common.launch_counts()["fused_adam"]
+        fn(p, _clone(gs), m1, m2, mx, mw, lrs, coeffs, **kw)
+        torch.cuda.synchronize()
+        launched = _cuda_common.launch_counts()["fused_adam"] - before
+        assert launched == (fn is fused_optimizer.fused_adam)
+        outs.append(p + m1 + m2 + (mx or []) + (mw or []))
+    _same_bits(outs[0], outs[2])
+    _same_bits(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("nesterov,coeff,l1,scale", [
+    (False, 0.0, False, None), (True, 0.1, False, None),
+    (False, 0.05, True, None), (True, 0.1, False, 0.5)],
+    ids=["plain", "nesterov-l2", "l1", "nesterov-scale"])
+@pytest.mark.parametrize("pdt,sdt,master", OPT_PAIRS, ids=OPT_PAIR_IDS)
+def test_fused_momentum_matches_plain_bit_for_bit(card, pdt, sdt, master,
+                                                  nesterov, coeff, l1,
+                                                  scale):
+    ps, gs, st, ms = _opt_lists(card, OPT_SIZES, pdt, sdt, master, 1,
+                                seed=1, misaligned=(2,))
+    n = len(ps)
+    lrs = [0.05 * (1 + i % 2) for i in range(n)]
+    kw = dict(momentum=0.9, nesterov=nesterov, l1=l1, scale=None
+              if scale is None else torch.tensor(scale, device=card))
+    outs = []
+    for fn in (fused_optimizer.fused_momentum,
+               fused_optimizer.fused_momentum,
+               fused_optimizer.fused_momentum_reference):
+        p, vel, mw = _clone(ps), _clone(st[0]), _clone(ms)
+        before = _cuda_common.launch_counts()["fused_momentum"]
+        fn(p, _clone(gs), vel, mw, lrs, [coeff] * n, **kw)
+        torch.cuda.synchronize()
+        launched = _cuda_common.launch_counts()["fused_momentum"] - before
+        assert launched == (fn is fused_optimizer.fused_momentum)
+        outs.append(p + vel + (mw or []))
+    _same_bits(outs[0], outs[2])
+    _same_bits(outs[0], outs[1])
+
+
+def test_fused_adam_takes_long_lists(card):
+    """250 tensors in one launch, and MAX_TENSORS + 10 in two, each bit
+    for bit against the plain version."""
+    for count, launches in ((250, 1),
+                            (fused_optimizer.MAX_TENSORS + 10, 2)):
+        sizes = [1 + (i * 37) % 3000 for i in range(count)]
+        ps, gs, st, _ = _opt_lists(card, sizes, torch.bfloat16,
+                                   torch.bfloat16, False, 2, seed=count)
+        kw = dict(beta1=0.9, beta2=0.95, epsilon=1e-6, step=3,
+                  decoupled=True)
+        lrs, coeffs = [1e-3] * count, [0.1] * count
+        got = [_clone(ps), _clone(st[0]), _clone(st[1])]
+        want = [_clone(ps), _clone(st[0]), _clone(st[1])]
+        before = _cuda_common.launch_counts()["fused_adam"]
+        fused_optimizer.fused_adam(got[0], gs, got[1], got[2], None, None,
+                                   lrs, coeffs, **kw)
+        torch.cuda.synchronize()
+        assert _cuda_common.launch_counts()["fused_adam"] \
+            == before + launches
+        fused_optimizer.fused_adam_reference(want[0], gs, want[1], want[2],
+                                             None, None, lrs, coeffs, **kw)
+        for a, b in zip(got, want):
+            _same_bits(a, b)
+
+
+def test_fused_optimizer_refuses_what_it_does_not_take(card):
+    f32 = dict(dtype=torch.float32, device=card)
+    kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, step=1, decoupled=True)
+
+    def adam(p, g, m, v, masters=None):
+        fused_optimizer.fused_adam([p], [g], [m], [v], None, masters,
+                                   [0.1], [0.0], **kw)
+
+    z = torch.zeros(8, **f32)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        adam(z.clone(), torch.zeros(8), z.clone(), z.clone())
+    with pytest.raises(ValueError, match="contiguous"):
+        adam(torch.zeros(4, 2, **f32).t(), z.view(2, 4), z.clone(),
+             z.clone())
+    with pytest.raises(ValueError, match="dtype"):
+        adam(z.clone(), z.to(torch.bfloat16), z.clone(), z.clone())
+    with pytest.raises(ValueError, match="master"):
+        adam(z.clone(), z.clone(), z.clone(), z.clone(), [z.clone()])
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_optimizer.fused_momentum(
+            [torch.zeros(4, 2, **f32).t()], [z.view(2, 4)], [z.view(2, 4)],
+            None, [0.1], [0.0], momentum=0.9)
+
+
+@pytest.mark.parametrize("cls", ["AdamW", "Momentum"])
+def test_optimizer_paths_on_card_match_the_cpu(card, cls):
+    """Three steps of the port's optimizer over f32 and bf16 parameters on
+    the card, per parameter and fused (use_multi_tensor=True, one launch
+    per dtype pair), against the same steps on the CPU (the plain
+    versions): the parameters and state bit for bit, and the fused path
+    launches twice a step. With global-norm clipping the card's two paths
+    agree bit for bit (the norm's sum runs in another order on the
+    CPU)."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+
+    rs = np.random.RandomState(3)
+    shapes = [(64, 33), (33,), (7, 5), (1,)]
+    inits = [rs.randn(*s).astype("float32") for s in shapes]
+    grads = [[rs.randn(*s).astype("float32") for s in shapes]
+             for _ in range(3)]
+    runs = []
+    for dev, multi, clip in (("cpu", False, False), (card, False, False),
+                             (card, True, False), (card, False, True),
+                             (card, True, True)):
+        ps = [torch.nn.Parameter(torch.tensor(a, device=dev).to(
+            torch.bfloat16 if i % 2 else torch.float32))
+            for i, a in enumerate(inits)]
+        opt = getattr(topt, cls)(
+            parameters=ps, learning_rate=0.01, use_multi_tensor=multi,
+            grad_clip=ClipGradByGlobalNorm(1.0) if clip else None)
+        _cuda_common.reset_launch_counts()
+        for gs in grads:
+            for p, g in zip(ps, gs):
+                p.grad = torch.tensor(g, device=dev).to(p.dtype)
+            opt.step()
+            opt.clear_grad()
+        torch.cuda.synchronize()
+        name = "fused_adam" if cls == "AdamW" else "fused_momentum"
+        want = 0 if dev == "cpu" else 3 * (2 if multi else len(shapes))
+        assert _cuda_common.launch_counts()[name] == want
+        runs.append([t.detach().cpu() for p in ps
+                     for t in [p, *opt.state[p].values()]])
+    for run in runs[1:3]:
+        _same_bits(run, runs[0])
+    _same_bits(runs[4], runs[3])

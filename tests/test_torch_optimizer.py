@@ -18,6 +18,7 @@ from paddle_tpu.core.tensor import Parameter, Tensor
 
 from paddle_tpu_torch import amp
 from paddle_tpu_torch.optimizer import Adam, AdamW
+from paddle_tpu_torch.optimizer.lr import StepDecay
 
 SHAPES = [(8, 16), (16,), (5, 3, 4)]
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -121,7 +122,14 @@ def test_adamw_defaults_and_paddle_names():
     opt.step()
     opt.clear_grad()
     assert p.grad is None and opt._step_count == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a scheduler is read at each step; anything else that is not a
+    # number is refused, as the reference's jnp.asarray refuses it
+    sched = StepDecay(0.5, step_size=1, gamma=0.5)
+    opt = AdamW(learning_rate=sched, parameters=[p])
+    assert opt.get_lr() == 0.5
+    sched.step()
+    assert opt.get_lr() == 0.25
+    with pytest.raises(TypeError):
         AdamW(learning_rate=lambda: 1.0, parameters=[p])
 
 

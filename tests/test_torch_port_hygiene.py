@@ -109,7 +109,8 @@ def test_kernel_sources_exist_and_are_the_build_list():
                                "flash_attention_bwd.cu", "paged_decode.cu",
                                "paged_decode_int8.cu", "paged_decode_int4.cu",
                                "quant_matmul.cu", "fused_norm.cu",
-                               "flashmask_attention.cu"}
+                               "flashmask_attention.cu",
+                               "fused_optimizer.cu"}
     # the headers, part of every source's hash: the CUDA-core flash tile
     # bodies, the tensor-core ones (which include them), the Hopper
     # plumbing the tensor-core kernels share, and the paged decode
