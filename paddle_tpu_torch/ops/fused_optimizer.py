@@ -40,6 +40,7 @@ import torch
 
 from ._cuda_common import (check_launch, count_launch, current_stream,
                            kernel_library)
+from .fused_norm import _plain
 
 _ADAM = "fused_adam"
 _MOMENTUM = "fused_momentum"
@@ -188,21 +189,6 @@ def fused_momentum_reference(params, grads, velocities, masters, lrs,
 
 # ------------------------------------------------------------- wrappers
 
-def _plain(name, tensors, scale) -> bool:
-    """True when every tensor lies on the CPU (the plain version runs);
-    False when all lie on one CUDA device (the kernel launches). Anything
-    else raises."""
-    devices = {t.device for t in tensors}
-    if scale is not None:
-        devices.add(scale.device)
-    if all(d.type == "cpu" for d in devices):
-        return True
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(f"{name}: tensors must lie on the CPU or on one "
-                         f"CUDA device, got {sorted(map(str, devices))}")
-    return False
-
-
 def _check(name, params, grads, states, masters, scale):
     """The kernel's terms: one (parameter, state) dtype pair of PAIRS for
     the list, gradients of the parameter's dtype, every tensor contiguous
@@ -281,7 +267,7 @@ def fused_adam(params, grads, moment1, moment2, moment2_max, masters, lrs,
     states = [moment1, moment2] + ([moment2_max] if moment2_max else [])
     every = [*params, *grads, *(t for s in states for t in s),
              *(m for m in masters or () if m is not None)]
-    if not params or _plain(_ADAM, every, scale):
+    if not params or _plain(_ADAM, *every, scale):
         return fused_adam_reference(params, grads, moment1, moment2,
                                     moment2_max, masters, lrs, coeffs, **kw)
     _check(_ADAM, params, grads, states, masters, scale)
@@ -317,7 +303,7 @@ def fused_momentum(params, grads, velocities, masters, lrs, coeffs, *,
     kw = dict(momentum=momentum, nesterov=nesterov, l1=l1, scale=scale)
     every = [*params, *grads, *velocities,
              *(m for m in masters or () if m is not None)]
-    if not params or _plain(_MOMENTUM, every, scale):
+    if not params or _plain(_MOMENTUM, *every, scale):
         return fused_momentum_reference(params, grads, velocities, masters,
                                         lrs, coeffs, **kw)
     _check(_MOMENTUM, params, grads, [velocities], masters, scale)
