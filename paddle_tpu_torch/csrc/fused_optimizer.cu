@@ -53,10 +53,9 @@
 // range, each starting at a multiple of the vector width N = 16 /
 // sizeof(TP), cut into chunks of kChunk elements (fewer for a list too
 // small to give every block one). The grid is as many blocks as the card
-// holds at once (at most 3 an SM for Adam, 2 for Momentum: more streams at
-// once lowered the throughput), and block b takes chunks b, b + grid,
-// ...; for each it finds the first tensor by a binary search of the
-// starts and walks every tensor the chunk overlaps. A tensor whose
+// holds at once (at most kMaxBlocksPerSm an SM), and block b takes chunks
+// b, b + grid, ...; for each it finds the first tensor by a binary search
+// of the starts and walks every tensor the chunk overlaps. A tensor whose
 // pointers all lie on 16 bytes is read and written as N-element vectors
 // (16 bytes of p and g; 32 of f32 moments or master beside a 2-byte TP),
 // its ragged tail one element at a time; any other tensor one element at
@@ -81,13 +80,13 @@ constexpr int kThreads = 256;
 constexpr int kMaxTensors = 384;
 constexpr long long kChunk = 16384;
 constexpr long long kMinChunk = 2048;
-// resident blocks an SM, Momentum's and Adam's: more blocks streaming
-// their arrays at once can cost device-memory throughput. At LLaMA 1B's
-// bf16 list on the H100 (700 W), Momentum's kernel (58 registers, room
-// for 4) took 4.14 / 6.26 / 8.69 ms with at most 2 / 3 / 4 blocks an SM,
-// Adam's (73 registers, room for 3) 7.01 / 6.40 / 6.41
-constexpr int kMomentumBlocksPerSm = 2;
-constexpr int kAdamBlocksPerSm = 3;
+// resident blocks an SM: more blocks streaming their arrays at once can
+// cost device-memory throughput. At LLaMA 1B's bf16 list on the H100 (700
+// W), Momentum's kernel (58 registers, room for 4) took 4.14 / 6.26 /
+// 8.69 ms with at most 2 / 3 / 4 blocks an SM; Adam's (73 registers, room
+// for 3) 7.01 / 6.40 / 6.41 over the whole list, but its launches of one
+// tensor each, the training steps' per-parameter path, ran slower at 3
+constexpr int kMaxBlocksPerSm = 2;
 
 enum { kF32 = 0, kBF16 = 1, kF16 = 2, kF64 = 3 };
 
@@ -359,17 +358,16 @@ int launch(ListArgs& a, cudaStream_t st) {
   }
   a.start[a.count] = off;
   // the grid: as many blocks as fit the card at once, at most
-  // kAdamBlocksPerSm / kMomentumBlocksPerSm an SM, each walking chunks of
-  // kChunk elements; a list too small to give every block a chunk takes
-  // smaller chunks (multiples of kMinChunk), so that its blocks do not
-  // each walk many tensors
-  constexpr int cap = ADAM ? kAdamBlocksPerSm : kMomentumBlocksPerSm;
+  // kMaxBlocksPerSm an SM, each walking chunks of kChunk elements; a list
+  // too small to give every block a chunk takes smaller chunks (multiples
+  // of kMinChunk), so that its blocks do not each walk many tensors
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, fused_update_kernel<TP, TM, N, ADAM>, kThreads, 0);
-  const long long grid = (long long)sms * (per_sm < cap ? per_sm : cap);
+  const long long grid =
+      (long long)sms * (per_sm < kMaxBlocksPerSm ? per_sm : kMaxBlocksPerSm);
   long long chunk = (off + grid - 1) / grid;
   chunk = (chunk + kMinChunk - 1) / kMinChunk * kMinChunk;
   a.chunk = chunk < kChunk ? chunk : kChunk;
