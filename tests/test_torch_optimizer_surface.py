@@ -130,25 +130,25 @@ def test_reduce_on_plateau_follows_the_metrics(kw):
 
 # ----------------------------------------------------------------- data
 
-def _data(steps, shapes=SHAPES, seed=0):
-    rs = np.random.RandomState(seed)
-    inits = [rs.randn(*s).astype("float32") * 0.5 for s in shapes]
-    grads = [[rs.randn(*s).astype("float32") for s in shapes]
+def _data(steps):
+    rs = np.random.RandomState(0)
+    inits = [rs.randn(*s).astype("float32") * 0.5 for s in SHAPES]
+    grads = [[rs.randn(*s).astype("float32") for s in SHAPES]
              for _ in range(steps)]
     return inits, grads
 
 
-def _pair(ref_cls, port_cls, steps=4, dtype="float32", shapes=SHAPES,
-          groups=None, sched=None, port_kw=None, **kw):
+def _pair(ref_cls, port_cls, steps=4, dtype="float32", groups=None,
+          sched=None, **kw):
     """(reference params, port params, port optimizer) after `steps`
     steps of the same gradients. `groups`: lists of parameter indices with
     their extra keys; `sched`: a scheduler factory (stepped after each
-    step); `port_kw`: port-only arguments."""
+    step)."""
     jdt, tdt = DT[dtype]
-    inits, grads = _data(steps, shapes)
+    inits, grads = _data(steps)
     ref = [Parameter(jnp.asarray(a).astype(jdt)) for a in inits]
     port = [torch.nn.Parameter(torch.tensor(a).to(tdt)) for a in inits]
-    rk, pk = dict(kw), dict(kw, **(port_kw or {}))
+    rk, pk = dict(kw), dict(kw)
     if sched is not None:
         rk["learning_rate"], pk["learning_rate"] = sched(plr), sched(tlr)
     if groups is None:
