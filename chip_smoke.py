@@ -56,7 +56,10 @@ Phases (any failure exits non-zero; nothing is caught):
      ServingEngine (8 slots, 16-token blocks) answers 16 greedy requests;
      both kernels' launch counts must equal prefills x 20 and decode ticks
      x 20, and two requests' tokens are checked against a teacher-forced
-     recompute through the plain attention functions;
+     recompute through the plain attention functions. SERVE and the
+     phases after it up to SERVE_PREFIX pass prefix_cache=False and
+     chunked_prefill_tokens=0 (whole-prompt prefill), so their lines stay
+     comparable with the runs before the prefix cache;
   5. profile: device time of steady decode ticks by kernel kind (the
      paged decode's splits and merge among them), beside the host wall
      (torch.profiler);
@@ -71,6 +74,23 @@ Phases (any failure exits non-zero; nothing is caught):
      versions of every kernel passed explicitly;
   7. profile_q4: phase 5 for the int4 engine; profile_prefill: device
      time of one 512-token prefill by kernel kind, bf16 beside int4;
+  7b. serve_prefix: the engine at its defaults (prefix cache on,
+     256-token chunks; 8 slots, 16-token blocks, bf16) serves a
+     shared-prefix stream: 24 requests behind one 448-token system prompt
+     with unique 16-96-token suffixes, 2 repeating earlier requests' whole
+     prompts (copy-on-write) and a follow-up turn (request 0's prompt +
+     completion + 32 tokens); request 0 runs alone to its first token,
+     then the rest are queued. Prefix hits must be > 0, the pool must
+     account for every block (free + cached = blocks - 1, every refcount
+     0), K1 must launch layers x (requests on the whole-prompt path) and
+     K7 decode ticks x layers, and two cached requests are checked
+     teacher-forced through the plain attention. SERVE_PREFIX_OFF runs the
+     same stream with the cache off (its greedy agreement with the cache-on
+     run is printed, not asserted); SERVE_PREFIX_Q4 six requests with int4
+     weights and an int4 KV cache (K8 inside the chunk program, the int4
+     chunk scatter); profile_chunk: device time of single chunks (a cold
+     prompt's first and last 256-token chunk, a 64-token suffix behind a
+     cached prefix) by kernel kind beside the host wall;
   8. train: LLaMA at the 1B geometry (bf16 O2 via amp.decorate with bf16
      AdamW moments, AdamW lr 1e-4, random weights from seed 0) takes
      training steps on one batch of 4 x 1024 seeded ids, labels = ids,
@@ -238,6 +258,11 @@ BERT_BATCH, BERT_SEQ = 64, 128
 CFG_1B = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5504,
               num_hidden_layers=20, num_attention_heads=16,
               max_position_embeddings=1024)
+#: the serves before SERVE_PREFIX: the prefix cache off, prompts prefilled
+#: whole (the engine's settings before it had either)
+WHOLE_PROMPT = dict(prefix_cache=False, chunked_prefill_tokens=0)
+#: SERVE_PREFIX's system prompt, shared by its requests (28 full blocks)
+PREFIX_SYSTEM_TOKENS = 448
 
 
 #: which body a flash-family kernel runs at bf16 (the summary's "body"):
@@ -1137,10 +1162,6 @@ def serve():
     1B geometry. Returns the model and the launch counts of the counted
     run."""
     import torch
-    from paddle_tpu_torch.ops.flash_attention import \
-        flash_attention_reference
-    from paddle_tpu_torch.text.generation import (_layer_forward_prefill,
-                                                  _logits)
     from paddle_tpu_torch.text.models import LlamaConfig, LlamaForCausalLM
 
     cfg = LlamaConfig(**CFG_1B)
@@ -1153,22 +1174,38 @@ def serve():
     _say("MODEL", {"params": n_params, "init_s": time.perf_counter() - t0})
 
     reqs = _requests(cfg.vocab_size)
-    eng, rids, done, counts = _serve_run(model, reqs, "SERVE")
+    eng, rids, done, counts = _serve_run(model, reqs, "SERVE", **WHOLE_PROMPT)
     st = eng.stats()
     layers = cfg.num_hidden_layers
     assert counts["flash_attention_fwd"] == len(reqs) * layers, counts
     assert counts["paged_decode_attention"] == st["steps"] * layers, counts
     assert all(counts[n] == 0 for n in FUSED_KERNELS), counts
 
-    # teacher-forced greedy check through the PLAIN attention functions
+    _teacher_forced(eng, [(reqs[rid][0], done[rid]) for rid in rids[:2]],
+                    "TEACHER_FORCED")
+    return model, counts
+
+
+def _teacher_forced(eng, items, tag):
+    """Teacher-forced greedy check through the PLAIN attention functions:
+    each (prompt, generated tokens) pair recomputed in one full-sequence
+    bf16 pass (`_layer_forward_prefill` with the plain flash attention);
+    each generated token must be the recompute's argmax or within
+    TIE_BOUND logits of it, and 90% must be the argmax."""
+    import torch
+    from paddle_tpu_torch.ops.flash_attention import \
+        flash_attention_reference
+    from paddle_tpu_torch.text.generation import (_layer_forward_prefill,
+                                                  _logits)
+
     params, spec = eng.params, eng.spec
+    vocab = params["embed"].shape[0]
     cos, sin = params["rope_cos"], params["rope_sin"]
     agree = total = 0
     worst = 0.0
     with torch.no_grad():
-        for rid in rids[:2]:
-            prompt, n = reqs[rid]
-            gen = done[rid]
+        for prompt, gen in items:
+            n = len(gen)
             ids = np.concatenate([prompt, gen[:-1]])
             x = params["embed"][torch.from_numpy(ids).cuda()[None]]
             for lw in params["layers"]:
@@ -1176,17 +1213,16 @@ def serve():
                     x, lw, spec, cos, sin,
                     attention=flash_attention_reference)
             lg = _logits(x[0, len(prompt) - 1:], params, spec)   # [n, V]
-            assert lg.shape == (n, cfg.vocab_size)
+            assert lg.shape == (n, vocab)
             hit, gap = _held_to(lg, gen)
             agree += hit
             total += n
             worst = max(worst, gap)
-    _say("TEACHER_FORCED", {"requests": 2, "tokens": total,
-                            "argmax_agreement": agree / total,
-                            "max_logit_gap": worst, "tie_bound": TIE_BOUND})
+    _say(tag, {"requests": len(items), "tokens": total,
+               "argmax_agreement": agree / total, "max_logit_gap": worst,
+               "tie_bound": TIE_BOUND})
     assert worst < TIE_BOUND, worst
     assert agree / total >= 0.9, agree / total
-    return model, counts
 
 
 def _held_to(logits, gen):
@@ -1251,7 +1287,8 @@ def serve_quant(model, weight_quant, kv_cache_dtype, n_requests, tag):
     reqs = _requests(cfg.vocab_size)[:n_requests]
     eng, rids, done, counts = _serve_run(model, reqs, tag,
                                          weight_quant=weight_quant,
-                                         kv_cache_dtype=kv_cache_dtype)
+                                         kv_cache_dtype=kv_cache_dtype,
+                                         **WHOLE_PROMPT)
     st = eng.stats()
     layers = cfg.num_hidden_layers
     prefills, ticks = len(reqs), st["steps"]
@@ -1295,7 +1332,8 @@ def profile_decode(model, ticks=10, tag="PROFILE", **engine_kw):
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.inference import ServingEngine
 
-    eng = ServingEngine(model, max_slots=8, kv_block_size=16, **engine_kw)
+    eng = ServingEngine(model, max_slots=8, kv_block_size=16,
+                        **WHOLE_PROMPT, **engine_kw)
     rs = np.random.RandomState(1)
     for _ in range(8):
         eng.add_request(rs.randint(0, model.config.vocab_size, (256,)),
@@ -1339,6 +1377,277 @@ def profile_decode(model, ticks=10, tag="PROFILE", **engine_kw):
         "device_ms_per_tick_by_kind": kinds,
         "paged_decode_ms_per_tick": kinds["paged_decode"],
         "top_kernels_ms_per_tick": [[k[:60], v] for k, v in top]})
+
+
+def _prefix_stream(vocab, n_shared, repeats):
+    """SERVE_PREFIX's requests (seeded): `n_shared` prompts behind one
+    PREFIX_SYSTEM_TOKENS-token system prompt, each with a unique suffix of
+    16-96 tokens (requests 3 and 7: a multiple of 16, so that a request
+    repeating one hits every block of its prompt) and 32-64 new tokens;
+    with `repeats`, two more requests repeating requests 3's and 7's whole
+    prompts (the copy-on-write path)."""
+    rs = np.random.RandomState(5)
+    system = rs.randint(0, vocab, (PREFIX_SYSTEM_TOKENS,))
+    reqs = []
+    for i in range(n_shared):
+        n = 16 * int(rs.randint(1, 7)) if i in (3, 7) \
+            else int(rs.randint(16, 97))
+        reqs.append((np.concatenate([system, rs.randint(0, vocab, (n,))]),
+                     int(rs.randint(32, 65))))
+    if repeats:
+        reqs += [(reqs[i][0].copy(), int(rs.randint(32, 65))) for i in (3, 7)]
+    return reqs
+
+
+def _whole_prompt_path(eng, req):
+    """Whether the engine prefilled `req` whole (K1) at admission: a
+    cache-cold prompt of at most chunk_tokens tokens (the engine's rule)."""
+    return req.cached_len == 0 and (eng.chunk_tokens <= 0
+                                    or req.prompt.size <= eng.chunk_tokens)
+
+
+def _drive_prefix(eng, reqs, follow_up=None):
+    """Request 0 alone until its first token (its prompt's blocks are then
+    in the cache), then the rest queued; with `follow_up`, once request 0
+    has finished, one more request with prompt follow_up(request 0's
+    tokens) and 32-64 new tokens. Returns the engine's Request objects
+    (admission records: cached_len, prompt) in request-id order, with
+    every request finished."""
+    eng.add_request(reqs[0][0], max_new_tokens=reqs[0][1])
+    objs = [eng._waiting[-1]]
+    while not objs[0].tokens:
+        eng.step()
+    for p, n in reqs[1:]:
+        eng.add_request(p, max_new_tokens=n)
+        objs.append(eng._waiting[-1])
+    pending = follow_up is not None
+    while eng.has_work() or pending:
+        eng.step()
+        if pending and objs[0].finished:
+            eng.add_request(follow_up(np.asarray(objs[0].tokens)),
+                            max_new_tokens=48)
+            objs.append(eng._waiting[-1])
+            pending = False
+    return objs
+
+
+def _prefix_run(model, reqs, tag, follow_up=None, **engine_kw):
+    """Warm an engine up on a shared-prefix pair, then drive `reqs`
+    (`_drive_prefix`) through a fresh engine at the engine's defaults
+    (+ `engine_kw`), every launch count set to 0 just before and read just
+    after, each chunk timed by host wall and CUDA events. Checks the pool
+    accounting and the exact launch counts; prints the `tag` line.
+    Returns (engine, Request objects, counts)."""
+    import torch
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.ops import _cuda_common
+    from paddle_tpu_torch.ops.paged_decode import KERNEL_NAMES
+
+    warm = ServingEngine(model, max_slots=8, kv_block_size=16, **engine_kw)
+    _drive_prefix(warm, [(p, 4) for p, _ in reqs[:2]])
+    del warm
+
+    eng = ServingEngine(model, max_slots=8, kv_block_size=16, **engine_kw)
+    chunks = []
+    run_chunk = eng._run_chunk
+
+    def timed_chunk(slot, req, state):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        tok = run_chunk(slot, req, state)
+        ev[1].record()
+        chunks.append((time.perf_counter() - t0, ev))
+        return tok
+
+    eng._run_chunk = timed_chunk
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda_common.reset_launch_counts()
+    t0 = time.perf_counter()
+    objs = _drive_prefix(eng, reqs, follow_up)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _cuda_common.launch_counts()
+
+    st = eng.stats()
+    pc = eng.prefix_cache
+    vocab = model.config.vocab_size
+    for r in objs:
+        assert r.finish_reason == "length", r.rid
+        toks = eng.completed[r.rid]
+        assert len(toks) == r.max_new_tokens, r.rid
+        assert ((toks >= 0) & (toks < vocab)).all(), r.rid
+    assert st["requests_completed"] == len(objs)
+    # every block is free or cached at refcount 0
+    assert st["kv_pool_free"] + pc.evictable == st["kv_pool_blocks"] - 1
+    assert pc.referenced_blocks == 0
+    assert all(pc.refcount(b) == 0 for b in range(st["kv_pool_blocks"]))
+    assert not eng._slot_chunk and not any(eng._slot_extra_refs)
+    if not eng.prefix_cache_enabled:
+        assert st["prefix_cached_blocks"] == 0 == st["prefix_blocks_hit"]
+    # exact launches, from the engine's own records
+    layers = model.config.num_hidden_layers
+    whole = sum(_whole_prompt_path(eng, r) for r in objs)
+    ticks = st["steps"]
+    assert counts["flash_attention_fwd"] == whole * layers, counts
+    assert counts[KERNEL_NAMES[eng.kv_mode]] == ticks * layers, counts
+    for fmt, name in KERNEL_NAMES.items():
+        if fmt != eng.kv_mode:
+            assert counts[name] == 0, counts
+    # int4: 7 layer matmuls a layer in every chunk, prefill and tick, the
+    # lm_head once a tick and once a request (its first token)
+    want_qmm = (7 * layers * (st["prefill_chunks"] + ticks + whole)
+                + ticks + len(objs)) if eng.weight_quant == "int4" else 0
+    assert counts["quant_matmul"] == want_qmm, counts
+    assert all(counts[n] == 0 for n in FUSED_KERNELS), counts
+    assert all(counts[n] == 0 for n in
+               ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")), counts
+
+    host_ms = [1e3 * w for w, _ in chunks]
+    event_ms = [ev[0].elapsed_time(ev[1]) for _, ev in chunks]
+    ttft = st["ttft_s"]
+    hits, missed = st["prefix_blocks_hit"], st["prefix_blocks_missed"]
+    prompt_tokens = sum(int(r.prompt.size) for r in objs)
+    _say(tag, {
+        "requests": len(objs), "prompt_tokens": prompt_tokens,
+        "prefill_tokens_computed": st["prefill_tokens"],
+        "prefill_chunks": st["prefill_chunks"],
+        "whole_prompt_prefills": whole,
+        "prefix_blocks_hit": hits, "prefix_blocks_missed": missed,
+        "hit_share": hits / max(hits + missed, 1),
+        "prefix_cached_blocks": st["prefix_cached_blocks"],
+        "prefix_evictions": st["prefix_evictions"],
+        "copy_on_write_requests": sum(r.cached_len == r.prompt.size - 1
+                                      for r in objs),
+        "decode_tokens": st["decode_tokens"], "decode_ticks": ticks,
+        "wall_s": wall,
+        "decode_ms_per_tick": 1e3 * st["decode_time_s"] / ticks,
+        "ttft_p50_s": float(np.percentile(ttft, 50)),
+        "ttft_p95_s": float(np.percentile(ttft, 95)),
+        "chunk_host_ms_median": float(np.median(host_ms)),
+        "chunk_host_ms_mean": float(np.mean(host_ms)),
+        "chunk_event_ms_median": float(np.median(event_ms)),
+        "chunk_event_ms_mean": float(np.mean(event_ms)),
+        "slot_utilization": st["slot_utilization"],
+        "weight_quant": st["weight_quant"],
+        "kv_cache_mode": st["kv_cache_mode"],
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": counts})
+    return eng, objs, counts
+
+
+def serve_prefix(model):
+    """SERVE_PREFIX, SERVE_PREFIX_OFF and SERVE_PREFIX_Q4 (module
+    docstring, phase 7b). Returns their launch counts."""
+    cfg = model.config
+    reqs = _prefix_stream(cfg.vocab_size, 24, repeats=True)
+    turn = np.random.RandomState(6).randint(0, cfg.vocab_size, (32,))
+    follow = {}
+
+    def follow_up(first):
+        follow["prompt"] = np.concatenate([reqs[0][0], first, turn])
+        return follow["prompt"]
+
+    eng, objs, counts = _prefix_run(model, reqs, "SERVE_PREFIX", follow_up)
+    st = eng.stats()
+    assert st["prefix_blocks_hit"] > 0, st
+    cow = objs[len(reqs) - 2:len(reqs)]
+    assert all(r.cached_len == r.prompt.size - 1 for r in cow), \
+        [(r.cached_len, r.prompt.size) for r in cow]
+    assert objs[-1].cached_len >= reqs[0][0].size, objs[-1].cached_len
+    # teacher-forced: a request served through a cache hit and a
+    # copy-on-write repeat
+    _teacher_forced(eng, [(r.prompt, eng.completed[r.rid])
+                          for r in (objs[1], cow[0])],
+                    "SERVE_PREFIX_TEACHER_FORCED")
+
+    off, objs_off, counts_off = _prefix_run(
+        model, reqs, "SERVE_PREFIX_OFF", lambda _: follow["prompt"],
+        prefix_cache=False)
+    same = total = whole = first = 0
+    diverge = []
+    for a, b in zip(objs, objs_off):
+        x, y = eng.completed[a.rid], off.completed[b.rid]
+        assert np.array_equal(a.prompt, b.prompt)
+        same += int((x == y).sum())
+        total += len(x)
+        whole += bool(np.array_equal(x, y))
+        first += bool(x[0] == y[0])
+        if not np.array_equal(x, y):
+            diverge.append(int(np.argmax(x != y)))
+    _say("SERVE_PREFIX_AGREEMENT", {
+        "tokens": total, "greedy_agreement": same / total,
+        "requests_identical": whole, "requests": len(objs),
+        "first_tokens_equal": first,
+        "first_divergence_index_median": float(np.median(diverge))
+        if diverge else None})
+
+    _, _, counts_q4 = _prefix_run(
+        model, _prefix_stream(cfg.vocab_size, 6, repeats=False),
+        "SERVE_PREFIX_Q4", weight_quant="int4", kv_cache_dtype="int4")
+    return {"SERVE_PREFIX": counts, "SERVE_PREFIX_OFF": counts_off,
+            "SERVE_PREFIX_Q4": counts_q4}
+
+
+def profile_chunk(model, tag="PROFILE_CHUNK"):
+    """Where a chunk's time goes: torch.profiler over single engine steps
+    that each run one chunk and no decode tick (max_new_tokens 1), at the
+    engine's defaults: a cold 512-token prompt's first chunk (256 tokens,
+    no logits) and last chunk (256 tokens, the lm_head and the first
+    token), then a 64-token suffix behind its first 448 tokens, cached;
+    device ms by kernel kind beside the host wall, after one unprofiled
+    round of the same steps. Not part of the counted run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.inference import ServingEngine
+
+    eng = ServingEngine(model, max_slots=8, kv_block_size=16)
+    vocab = model.config.vocab_size
+    rs = np.random.RandomState(7)
+    rec = {}
+    for profiled in (False, True):
+        cold = rs.randint(0, vocab, (512,))
+        hit = np.concatenate([cold[:PREFIX_SYSTEM_TOKENS],
+                              rs.randint(0, vocab, (64,))])
+        steps = (("first_chunk_256", cold), ("last_chunk_256", None),
+                 ("hit_suffix_64", hit))
+        for name, prompt in steps:
+            if prompt is not None:
+                eng.add_request(prompt, max_new_tokens=1)
+            torch.cuda.synchronize()
+            if not profiled:
+                eng.step()
+                continue
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                eng.step()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            kinds = {"gemm": 0.0, "softmax": 0.0, "index_copy": 0.0,
+                     "other": 0.0}
+            ops = 0
+            for e in prof.key_averages():
+                if e.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                ops += e.count
+                low = e.key.lower()
+                kind = ("gemm" if any(w in low for w in (
+                    "nvjet", "gemm", "gemv", "xmma", "cutlass")) else
+                    "softmax" if "softmax" in low else
+                    "index_copy" if any(w in low for w in (
+                        "index", "copy", "gather", "scatter", "cat"))
+                    else "other")
+                kinds[kind] += e.self_device_time_total / 1e3
+            device_ms = sum(kinds.values())
+            rec[name] = {"wall_ms": 1e3 * wall, "device_ms": device_ms,
+                         "device_busy_share": device_ms / (1e3 * wall),
+                         "device_ops": ops, "device_ms_by_kind": kinds}
+    st = eng.stats()
+    assert st["requests_completed"] == 4 and st["steps"] == 0, st
+    assert st["prefill_chunks"] == 6 and st["prefix_blocks_hit"] >= 56, st
+    _say(tag, rec)
 
 
 def _train_model():
@@ -2496,7 +2805,8 @@ def profile_prefill(model, tag="PROFILE_PREFILL"):
     rec = {"prompt_tokens": 512}
     for name, kw in (("bf16", {}), ("int4", {"weight_quant": "int4",
                                              "kv_cache_dtype": "int4"})):
-        eng = ServingEngine(model, max_slots=8, kv_block_size=16, **kw)
+        eng = ServingEngine(model, max_slots=8, kv_block_size=16,
+                            **WHOLE_PROMPT, **kw)
         for profiled in (False, True):
             eng.add_request(rs.randint(0, model.config.vocab_size, (512,)),
                             max_new_tokens=1)
@@ -2621,6 +2931,8 @@ def main():
     profile_decode(model, tag="PROFILE_Q4", weight_quant="int4",
                    kv_cache_dtype="int4")
     profile_prefill(model)
+    counts_prefix = serve_prefix(model)
+    profile_chunk(model)
     del model                     # the serving weights; TRAIN builds its own
     torch.cuda.empty_cache()
     phases["serve"] = time.perf_counter() - t0
@@ -2628,7 +2940,8 @@ def main():
     tmodel, opt, ids, counts_train = train()
     profile_train(lambda: _train_step(tmodel, opt, ids, ids))
     train_unfused(tmodel, opt, ids)
-    for cnt in (counts, counts_q4, counts_q8, counts_train):
+    for cnt in (counts, counts_q4, counts_q8, counts_train,
+                *counts_prefix.values()):
         assert all(cnt[n] == 0 for n in LN_DROPOUT_KERNELS), cnt
     del tmodel, opt, ids
     torch.cuda.empty_cache()
@@ -2638,7 +2951,7 @@ def main():
     torch.cuda.empty_cache()
     counts_bert = train_bert()
     for cnt in (counts, counts_q4, counts_q8, counts_train, counts_gpt,
-                counts_bert):
+                counts_bert, *counts_prefix.values()):
         assert all(cnt[n] == 0 for n in VARLEN_KERNELS + FM_KERNELS), cnt
     torch.cuda.empty_cache()
     phases["train_gpt_bert"] = time.perf_counter() - t0
@@ -2676,7 +2989,9 @@ def main():
             "replaces": replaces, "launches": cnt[rec["name"]],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "launches_prefix_phases": {
+                tag: c[rec["name"]] for tag, c in counts_prefix.items()}}
             | {k: rec[k] for k in ("varlen_full_ms", "body") if k in rec})
     # K8 at every timed shape: decode, prefill, the lm_head; launches are
     # SERVE_Q4's count (all its shapes)
@@ -2688,6 +3003,8 @@ def main():
             "source": "paddle_tpu_torch/csrc/quant_matmul.cu",
             "replaces": "paddle_tpu/ops/quantized.py:144",
             "launches": counts_q4[rec["name"]],
+            "launches_prefix_phases": {
+                tag: c[rec["name"]] for tag, c in counts_prefix.items()},
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}

@@ -34,6 +34,20 @@ _FLAGS = {
     "FLAGS_weight_only_dtype": _from_env("FLAGS_weight_only_dtype", "none"),
     # slot count of the continuous-batching engine (inference/engine.py)
     "FLAGS_serving_slots": _from_env("FLAGS_serving_slots", 8),
+    # content-hash full KV blocks in the serving engine and serve shared
+    # prompt prefixes from cached blocks; finish releases hash-mapped
+    # blocks to an LRU of refcount-0 blocks, copy-on-write guards a shared
+    # block a request must partly overwrite
+    "FLAGS_prefix_cache": _from_env("FLAGS_prefix_cache", True),
+    # prefill prompts in chunks of at most this many tokens, one chunk per
+    # scheduler tick between decode ticks; 0 = whole-prompt prefill
+    # (cache-hit suffixes still take the chunk program)
+    "FLAGS_chunked_prefill_tokens": _from_env(
+        "FLAGS_chunked_prefill_tokens", 256),
+    # cap on refcount-0 cached prefix blocks held in the LRU (0 = bounded
+    # only by pool pressure)
+    "FLAGS_prefix_cache_max_blocks": _from_env(
+        "FLAGS_prefix_cache_max_blocks", 0),
     # route the LLaMA training forward's norms (+ residual add), rotary
     # and SwiGLU through the fused ops (nn.functional -> ops.fused_norm:
     # K3-K5 on CUDA tensors); False runs the plain compositions

@@ -5,19 +5,34 @@ KV allocation with admission control, and requests that join freed slots
 mid-flight instead of waiting for a whole static batch to drain.
 
 Same contract as the reference, different mechanism. Per scheduler tick
-the engine runs a PREFILL for each joining request (the prompt padded to
-its length bucket; attention through the flash kernel, the prompt's K/V
-scattered into its pages) and ONE DECODE step advancing every active slot
-one token (the slot state compacted to a slot-count bucket; each layer
-appends its K/V through the block tables and attends through the paged
-decode kernel). Where the reference traced and cached one XLA program
-per bucket, donated the pool and scanned stacked layer weights, the port
-runs eager torch, updates the pool in place and loops over layers in
-Python; the bucket sizes are the reference's, so the same prompt and slot
-shapes reach the kernels.
+the engine admits joining requests, runs ONE CHUNK for each slot whose
+prompt is still prefilling, then ONE DECODE step advancing every slot
+whose prefill is done one token (the slot state compacted to a
+slot-count bucket; each layer appends its K/V through the block tables
+and attends through the paged decode kernel). A cache-cold prompt of at
+most `chunked_prefill_tokens` tokens prefills whole at admission (padded
+to its length bucket; attention through the flash kernel, the prompt's
+K/V scattered into its pages); a longer prompt, or one whose prefix the
+prefix cache serves, is prefilled a chunk a tick by the chunk program
+(Q/K/V at the chunk's positions, the chunk's K/V scattered token by
+token, attention over the gathered context pages under a causal mask: an
+XLA composition in the reference, plain torch here). Where the reference
+traced and cached one XLA program per bucket, donated the pool and
+scanned stacked layer weights, the port runs eager torch, updates the
+pool in place and loops over layers in Python; the bucket sizes are the
+reference's, so the same prompt, chunk, context and slot shapes reach the
+kernels.
+
+Prefix caching: admission content-hashes the prompt's full KV blocks and
+points the block table at cached blocks for the shared prefix; release
+goes through the `PrefixCache` refcounts, and a shared block that a
+whole-prompt hit must partly overwrite (its last token is recomputed) is
+copied first (copy-on-write). The defaults are the reference's:
+FLAGS_prefix_cache (on), FLAGS_chunked_prefill_tokens (256) and
+FLAGS_prefix_cache_max_blocks (0).
 
 Scheduling (admission, eos/length/deadline finish, block free/reuse,
-stats) is host-side Python, as in the reference.
+drain, stats) is host-side Python, as in the reference.
 
 Quantized serving: `kv_cache_dtype="int8"|"int4"` stores the pool as
 int8 codes (int4: two tokens per byte) with one f32 scale per (layer,
@@ -27,10 +42,9 @@ matmuls and the lm_head as weight-only pairs (int4 through the
 dequant-matmul kernel, int8 as the reference's plain arithmetic).
 
 Not ported yet, refused with NotImplementedError naming the ROADMAP item:
-prefix caching, chunked prefill, speculative decoding, GPT models, and
-the metrics registry and flight recorder. The engine's defaults are
-prefix cache off and whole-prompt prefill; greedy tokens do not depend on
-either setting in the reference.
+speculative decoding (`spec_decode`, `add_request(speculative=...)`,
+`spec_stats`; item 4), GPT models (item 10), and the metrics registry and
+flight recorder (`metrics`, `render_prometheus`, `dump_trace`; item 7).
 
 Sampling uses a `torch.Generator` on the engine's device seeded from
 `seed`: sampled tokens cannot reproduce JAX's random bits, greedy rows
@@ -38,8 +52,10 @@ stay an exact argmax.
 """
 from __future__ import annotations
 
+import hashlib
+import math
 import time
-from collections import deque
+from collections import OrderedDict, deque
 
 import numpy as np
 import torch
@@ -56,21 +72,24 @@ from ..text.generation import (_extract_llama, _layer_forward_prefill,
                                _logits, _mm, _rms_norm, _rope,
                                _spec_from_config)
 from ..text.paged_cache import (TRASH_BLOCK, BlockAllocator, PagedKVCache,
-                                append_token, append_token_int4,
-                                append_token_int8, blocks_for,
-                                scatter_prefill, scatter_prefill_int4,
-                                scatter_prefill_int8)
+                                PrefixCache, append_token,
+                                append_token_int4, append_token_int8,
+                                blocks_for, gather_context, hash_blocks,
+                                scatter_chunk, scatter_chunk_int4,
+                                scatter_chunk_int8, scatter_prefill,
+                                scatter_prefill_int4, scatter_prefill_int8)
 
 
-_ITEM_PREFIX = "2, 'Prefix cache, chunked prefill and the chunk program'"
+_ITEM_SPEC = "4, 'Speculative decoding'"
+_ITEM_OBS = "7, 'obs'"
 
-#: quantized KV-cache modes and their (append, scatter_prefill) pairs —
-#: the step functions dispatch on the kv_mode string ("model" | "int8" |
-#: "int4") and carry the per-block scales only when quantized (the chunk
-#: scatters wait for the chunked prefill, ROADMAP Queue 1 item 2)
+#: quantized KV-cache modes and their (append, scatter_prefill,
+#: scatter_chunk) triples — the step functions dispatch on the kv_mode
+#: string ("model" | "int8" | "int4") and carry the per-block scales only
+#: when quantized
 _KV_FNS = {
-    "int8": (append_token_int8, scatter_prefill_int8),
-    "int4": (append_token_int4, scatter_prefill_int4),
+    "int8": (append_token_int8, scatter_prefill_int8, scatter_chunk_int8),
+    "int4": (append_token_int4, scatter_prefill_int4, scatter_chunk_int4),
 }
 
 
@@ -213,6 +232,80 @@ def _prefill_step(spec, block_size, kv_mode, params, cache, ids, true_len,
     return _logits(x[:, true_len - 1], params, spec, qmm)
 
 
+@torch.no_grad()
+def _chunk_prefill_step(spec, block_size, kv_mode, emit_token, ctx_pages,
+                        params, cache, ids, start, true_end, last_idx,
+                        table_row, cow_src=TRASH_BLOCK, cow_dst=TRASH_BLOCK,
+                        qmm=quant_matmul_raw):
+    """Prefill ONE chunk of one prompt: Q/K/V for positions [start,
+    start + C) (ids [1, C], the chunk padded to its bucket; positions >=
+    true_end are padding), the chunk's K/V scattered through the block
+    table token by token (a prefix-cache suffix may start mid-block), and
+    each chunk position attending over the whole context so far (cached
+    prefix pages, earlier chunks, this chunk) gathered from the first
+    `ctx_pages` table entries under a `kv_pos <= q_pos` mask, f32
+    softmax. Copy-on-write first: block `cow_dst` takes `cow_src`'s
+    contents in every layer (TRASH_BLOCK: no copy). The pool is updated
+    in place. Returns the f32 logits [1, V] at the chunk-local index
+    `last_idx` when `emit_token` (the prompt's final chunk), else None:
+    earlier chunks skip the vocab matmul."""
+    quantized = kv_mode != "model"
+    if cow_dst != TRASH_BLOCK:
+        for t in (cache.k, cache.v) + ((cache.k_scale, cache.v_scale)
+                                       if quantized else ()):
+            t[:, cow_dst] = t[:, cow_src]
+    c = ids.shape[1]
+    dev = ids.device
+    pos = start + torch.arange(c, device=dev)
+    x = params["embed"][ids[0]]                             # [C, H]
+    # padded positions may run past the rope table: clamp, as JAX's
+    # gather does (their outputs are never read)
+    pos_safe = torch.clamp(pos, 0, params["rope_cos"].shape[0] - 1)
+    cos = params["rope_cos"][pos_safe][:, None]             # [C, 1, D]
+    sin = params["rope_sin"][pos_safe][:, None]
+    rep = spec.num_heads // spec.num_kv_heads
+    inv_scale = 1.0 / math.sqrt(spec.head_dim)
+    kv_pos = torch.arange(ctx_pages * block_size, device=dev)
+    q_mask = kv_pos[None, :] <= pos[:, None]                # [C, T]
+    int4 = kv_mode == "int4"
+    for li, lw in enumerate(params["layers"]):
+        kc, vc = cache.k[li], cache.v[li]
+        ksc = cache.k_scale[li] if quantized else None
+        vsc = cache.v_scale[li] if quantized else None
+        hn = _rms_norm(x, lw["input_ln"], spec.rms_eps)
+        q = _mm(hn, lw["q"], qmm).reshape(c, spec.num_heads, spec.head_dim)
+        k = _mm(hn, lw["k"], qmm).reshape(c, spec.num_kv_heads,
+                                          spec.head_dim)
+        v = _mm(hn, lw["v"], qmm).reshape(c, spec.num_kv_heads,
+                                          spec.head_dim)
+        q = _rope(q, cos, sin)
+        k = _rope(k, cos, sin)
+        if quantized:
+            scat = _KV_FNS[kv_mode][2]
+            scat(kc, ksc, k, start, true_end, table_row, block_size)
+            scat(vc, vsc, v, start, true_end, table_row, block_size)
+        else:
+            scatter_chunk(kc, k, start, true_end, table_row, block_size)
+            scatter_chunk(vc, v, start, true_end, table_row, block_size)
+        kx = gather_context(kc, ksc, table_row, ctx_pages, int4=int4)
+        vx = gather_context(vc, vsc, table_row, ctx_pages, int4=int4)
+        kx = kx.to(q.dtype).repeat_interleave(rep, dim=1)   # [T, Hq, D]
+        vx = vx.to(q.dtype).repeat_interleave(rep, dim=1)
+        scores = torch.einsum("chd,thd->hct", q, kx) * inv_scale
+        scores = torch.where(q_mask[None], scores,
+                             torch.finfo(scores.dtype).min)
+        probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+        out = torch.einsum("hct,thd->chd", probs, vx)
+        x = x + _mm(out.reshape(c, spec.num_heads * spec.head_dim), lw["o"],
+                    qmm)
+        hn = _rms_norm(x, lw["post_ln"], spec.rms_eps)
+        x = x + _mm(F.silu(_mm(hn, lw["gate"], qmm))
+                    * _mm(hn, lw["up"], qmm), lw["down"], qmm)
+    if not emit_token:
+        return None
+    return _logits(x[last_idx:last_idx + 1], params, spec, qmm)
+
+
 def _tensors(tree):
     """Every tensor of a nest of dicts, lists and tuples."""
     if isinstance(tree, dict):
@@ -232,7 +325,9 @@ class Request:
     __slots__ = ("rid", "prompt", "max_new_tokens", "do_sample",
                  "temperature", "top_k", "top_p", "eos_token_id",
                  "tokens", "arrival_s", "admitted_s", "first_token_s",
-                 "finished", "max_time_ms", "deadline_s", "finish_reason")
+                 "finished", "max_time_ms", "deadline_s", "finish_reason",
+                 "cached_len", "prefill_pos", "prefill_done", "_hashes",
+                 "_hash_ns")
 
     def __init__(self, rid, prompt, max_new_tokens, do_sample, temperature,
                  top_k, top_p, eos_token_id, max_time_ms=None):
@@ -255,6 +350,17 @@ class Request:
         self.deadline_s = None if max_time_ms is None \
             else self.arrival_s + float(max_time_ms) / 1e3
         self.finish_reason = None   # "eos" | "length" | "timeout"
+        # prefix-cache / chunked-prefill progress (set at admission):
+        # positions [0, cached_len) come from cached blocks, the rest is
+        # computed chunk by chunk; prefill_pos is the next position
+        self.cached_len = 0
+        self.prefill_pos = 0
+        self.prefill_done = False
+        # memoised prefix-block hashes: a pool-blocked head-of-line
+        # request is re-examined every tick, and the sha256 chain over a
+        # long prompt must not be recomputed each time
+        self._hashes = None
+        self._hash_ns = None
 
     def expired(self, now=None) -> bool:
         if self.deadline_s is None:
@@ -288,12 +394,15 @@ class ServingEngine:
     pool. `admission="continuous"` (default) refills freed slots
     mid-flight; `admission="static"` only admits into an EMPTY engine
     (whole-batch waves). Single-threaded: one owner thread drives
-    `add_request`/`step`/`run`.
+    `add_request`/`step`/`run`/`drain`.
 
     `kv_cache_dtype` ("model" | "int8" | "int4") defaults to
-    FLAGS_kv_cache_dtype and `weight_quant` ("none" | "int8" | "int4") to
-    FLAGS_weight_only_dtype. The model must lie on `device` ("cuda" unless
-    the caller asks for another; no card -> RuntimeError)."""
+    FLAGS_kv_cache_dtype, `weight_quant` ("none" | "int8" | "int4") to
+    FLAGS_weight_only_dtype, `prefix_cache` to FLAGS_prefix_cache,
+    `chunked_prefill_tokens` to FLAGS_chunked_prefill_tokens and
+    `prefix_cache_max_blocks` to FLAGS_prefix_cache_max_blocks. The model
+    must lie on `device` ("cuda" unless the caller asks for another; no
+    card -> RuntimeError)."""
 
     def __init__(self, model, max_slots=None, kv_block_size=None,
                  num_kv_blocks=None, kv_cache_dtype=None,
@@ -304,13 +413,8 @@ class ServingEngine:
         self.device = resolve_device(device)
         if getattr(model, "_gen_arch", "llama") != "llama":
             raise _not_ported("serving a GPT model", "10, 'GPT serving'")
-        if prefix_cache or prefix_cache_max_blocks is not None:
-            raise _not_ported("prefix caching", _ITEM_PREFIX)
-        if chunked_prefill_tokens:
-            raise _not_ported("chunked prefill", _ITEM_PREFIX)
         if spec_decode not in (None, "off"):
-            raise _not_ported("speculative decoding",
-                              "4, 'Speculative decoding'")
+            raise _not_ported("speculative decoding", _ITEM_SPEC)
         if weight_quant in (None, "none"):
             # serving-wide default; a per-engine weight_quant= overrides
             weight_quant = str(flag("FLAGS_weight_only_dtype"))
@@ -358,6 +462,36 @@ class ServingEngine:
         if admission not in ("continuous", "static"):
             raise ValueError(f"unknown admission mode {admission!r}")
         self.admission = admission
+        # the PrefixCache wraps the allocator for EVERY alloc and release,
+        # cache enabled or not: with it off nothing is ever registered, so
+        # release is the free list
+        self.prefix_cache_enabled = bool(
+            flag("FLAGS_prefix_cache") if prefix_cache is None
+            else prefix_cache)
+        self.chunk_tokens = int(
+            flag("FLAGS_chunked_prefill_tokens")
+            if chunked_prefill_tokens is None else chunked_prefill_tokens)
+        self.prefix_cache = PrefixCache(
+            self.allocator, max_cached_blocks=int(
+                flag("FLAGS_prefix_cache_max_blocks")
+                if prefix_cache_max_blocks is None
+                else prefix_cache_max_blocks))
+        # seeds the hash chain: KV blocks are interchangeable only within
+        # one (geometry, block size, cache mode, storage dtype, weight
+        # quantization). Plain ints and strings, so the namespace is the
+        # same in every process
+        ns = (cfg.vocab_size, cfg.hidden_size, self.spec, self.block_size,
+              self.kv_mode, str(self.cache.k.dtype), self.weight_quant)
+        self._prefix_namespace = int.from_bytes(
+            hashlib.sha256(repr(ns).encode()).digest()[:8], "little")
+        self._slot_chunk: dict[int, dict] = {}    # slot -> chunk progress
+        self._slot_extra_refs: list[list[int]] = [[] for _ in
+                                                  range(self.max_slots)]
+        # identical prompts re-admitted while the cache is on should hit;
+        # LRU-capped so a long-lived engine's diagnostic stays bounded
+        self._prompt_fingerprints: OrderedDict = OrderedDict()
+        self._prompt_fingerprints_cap = 4096
+        self.prefix_repeat_admissions = 0
         self._tables = np.zeros((self.max_slots, self.pages), np.int32)
         self._slot_req: list[Request | None] = [None] * self.max_slots
         self._slot_pos = np.zeros(self.max_slots, np.int64)
@@ -377,18 +511,31 @@ class ServingEngine:
         self._prefill_tokens = 0
         self._decode_time_s = 0.0
         self._prefill_time_s = 0.0
+        self._queue_wait_time_s = 0.0
         self._requests_completed = 0
+        self._admission_blocked = 0
+        self._drained_requests = 0
+        self._prefill_chunks = 0
         self._warmed = False
+        self._draining = False
 
     # ------------------------------------------------------------- API
     def add_request(self, prompt, max_new_tokens=32, do_sample=False,
                     temperature=1.0, top_k=0, top_p=1.0,
-                    eos_token_id=None, max_time_ms=None) -> int:
+                    eos_token_id=None, max_time_ms=None,
+                    speculative=None) -> int:
         """Queue a request. Raises ValueError when it could NEVER be served
-        (context or pool too small); otherwise it waits for admission.
-        `max_time_ms` is a wall-clock deadline from arrival: when it
-        expires the request finishes with reason ``"timeout"`` (the tokens
-        produced so far are its result) and its blocks are freed."""
+        (context or pool too small) or the engine is draining; otherwise
+        it waits for admission. `max_time_ms` is a wall-clock deadline
+        from arrival: when it expires the request finishes with reason
+        ``"timeout"`` (the tokens produced so far are its result) and its
+        blocks are released. `speculative` must be None: speculative
+        decoding is not ported."""
+        if speculative is not None:
+            raise _not_ported("speculative decoding", _ITEM_SPEC)
+        if self._draining:
+            raise ValueError("engine is draining: no new admissions until "
+                             "teardown (route to another replica)")
         if torch.is_tensor(prompt):
             prompt = prompt.cpu().numpy()
         prompt = np.asarray(prompt, np.int64).reshape(-1).astype(np.int32)
@@ -429,18 +576,24 @@ class ServingEngine:
         return bool(self._waiting) or self.num_active > 0
 
     def step(self):
-        """One scheduler tick: expire deadlined requests, admit (and
-        prefill) joining requests, then advance every active slot one
+        """One scheduler tick: expire deadlined requests, admit joining
+        requests (small cache-cold prompts prefill whole, long or
+        cache-hit prompts enter the chunk ladder), advance every
+        prefilling slot by one chunk, then every decoding slot by one
         token. Returns a list of (request_id, token, finished) for tokens
         emitted this tick; a request finished by its deadline emits a
         terminal ``(request_id, None, True)``."""
         emitted = self._expire()
         emitted.extend(self._admit())
-        active = [i for i, r in enumerate(self._slot_req) if r is not None]
+        emitted.extend(self._chunk_phase())
+        active = [i for i, r in enumerate(self._slot_req)
+                  if r is not None and r.prefill_done]
         if active:
             emitted.extend(self._decode(active))
             self.steps += 1
             self.active_slot_steps += len(active)
+        if self._draining:
+            self._drained_requests += sum(1 for _, _, fin in emitted if fin)
         return emitted
 
     def run(self, max_steps=100000):
@@ -455,7 +608,9 @@ class ServingEngine:
         return dict(self.completed)
 
     def stats(self) -> dict:
-        """Scheduler counters and timings (host wall clock, seconds)."""
+        """Scheduler counters and timings (host wall clock, seconds): the
+        reference's keys. The speculative-decoding keys stay 0, as the
+        reference reports them with speculation off."""
         util = (self.active_slot_steps / (self.steps * self.max_slots)
                 if self.steps else 0.0)
         return {"steps": self.steps,
@@ -463,16 +618,44 @@ class ServingEngine:
                 "prefill_tokens": self._prefill_tokens,
                 "decode_time_s": self._decode_time_s,
                 "prefill_time_s": self._prefill_time_s,
+                "queue_wait_time_s": self._queue_wait_time_s,
                 "slot_utilization": round(util, 4),
                 "ttft_s": list(self.ttfts),
                 "queue_wait_s": list(self.queue_waits),
+                "admission_blocked": self._admission_blocked,
                 "requests_completed": self._requests_completed,
+                "draining": self._draining,
+                "drained_requests": self._drained_requests,
                 "kv_pool_blocks": self.allocator.num_blocks,
                 "kv_pool_free": self.allocator.available,
                 "kv_hbm_bytes": self.cache.hbm_bytes,
                 "kv_cache_mode": self.kv_mode,
                 "weight_quant": self.weight_quant,
-                "param_bytes": self.param_bytes}
+                "param_bytes": self.param_bytes,
+                # the cache's own counters: a blocked admission's lookup is
+                # rolled back, so they count admitted requests' blocks
+                "prefix_blocks_hit": self.prefix_cache.hits,
+                "prefix_blocks_missed": self.prefix_cache.misses,
+                "prefix_cached_blocks": self.prefix_cache.cached_blocks,
+                "prefix_evictions": self.prefix_cache.evictions,
+                "prefill_chunks": self._prefill_chunks,
+                "spec_windows": 0,
+                "spec_proposed_tokens": 0,
+                "spec_accepted_tokens": 0,
+                "spec_accept_rate": 0.0}
+
+    def spec_stats(self) -> dict:
+        raise _not_ported("spec_stats (speculative decoding)", _ITEM_SPEC)
+
+    def metrics(self) -> dict:
+        raise _not_ported("the metrics registry (metrics)", _ITEM_OBS)
+
+    def render_prometheus(self) -> str:
+        raise _not_ported("the metrics registry (render_prometheus)",
+                          _ITEM_OBS)
+
+    def dump_trace(self, path: str) -> str:
+        raise _not_ported("the flight recorder (dump_trace)", _ITEM_OBS)
 
     def finish_warmup(self):
         """Declare the engine warm (the reference tags later compiles as
@@ -485,6 +668,39 @@ class ServingEngine:
     def warmed(self) -> bool:
         return self._warmed
 
+    def drain(self, deadline_ms=None):
+        """Stop admission for handoff: every add_request from now on raises
+        ValueError; requests already queued or in flight run until they
+        finish. With a `deadline_ms` budget each live request's deadline
+        is clamped to now + budget (the `max_time_ms` path then finishes
+        it with reason "timeout"). `drained` turns True once queue and
+        slots are empty; completions while draining count into
+        stats()["drained_requests"]. Idempotent: a second drain() only
+        tightens the deadline."""
+        self._draining = True
+        if deadline_ms is not None and float(deadline_ms) > 0:
+            deadline_s = time.perf_counter() + float(deadline_ms) / 1e3
+            live = list(self._waiting) + [r for r in self._slot_req
+                                          if r is not None]
+            for req in live:
+                if req.deadline_s is None or req.deadline_s > deadline_s:
+                    req.deadline_s = deadline_s
+                    req.max_time_ms = (deadline_s - req.arrival_s) * 1e3
+        return self
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    @property
+    def drained(self) -> bool:
+        """True once a draining engine has no queued or active work."""
+        return self._draining and not self.has_work()
+
+    def close(self):
+        """Detach from the metrics endpoint: the port has none yet (ROADMAP
+        Queue 1 item 7), so this does nothing."""
+
     @property
     def param_bytes(self) -> int:
         """Bytes of the serving params AS STORED: packed int4 counts its
@@ -495,9 +711,10 @@ class ServingEngine:
     # ------------------------------------------------------- scheduling
     def _expire(self):
         """Active slots past their deadline finish now with reason
-        "timeout" (blocks freed); queued requests whose deadline lapsed
-        finish empty without taking a slot. Returns the terminal
-        ``(rid, None, True)`` events."""
+        "timeout" (blocks released through the prefix cache, a chunked
+        prefill's copy-on-write source included); queued requests whose
+        deadline lapsed finish empty without taking a slot. Returns the
+        terminal ``(rid, None, True)`` events."""
         now = time.perf_counter()
         emitted = []
         for slot, req in enumerate(self._slot_req):
@@ -520,10 +737,13 @@ class ServingEngine:
 
     def _admit(self):
         """Admission control: head-of-line requests enter freed slots only
-        when the pool covers their whole block budget (prompt + max new
-        tokens), so admitted requests never run out of cache mid-flight;
-        each admitted prompt is prefilled whole right here. Static mode
-        additionally waits for the whole engine to drain."""
+        when the pool covers their block budget (prompt + max new tokens)
+        NET OF cached prefix blocks (evictable refcount-0 cached blocks
+        count as capacity), so admitted requests never run out of cache
+        mid-flight. Small cache-cold prompts prefill whole right here;
+        long or cache-hit prompts enter the chunk ladder and emit their
+        first token from a later chunk phase. Static mode additionally
+        waits for the whole engine to drain."""
         if self.admission == "static" and self.num_active:
             return
         for slot in range(self.max_slots):
@@ -531,23 +751,105 @@ class ServingEngine:
                 continue
             req = self._waiting[0]
             s = req.prompt.size
-            ids = self.allocator.alloc(
-                blocks_for(s + req.max_new_tokens, self.block_size))
+            hashes = self._prompt_hashes(req)
+            hit = self.prefix_cache.lookup(hashes)
+            # the LAST prompt position is never served from cache: its
+            # hidden state seeds the first token, so a whole-prompt hit
+            # recomputes it into a copy-on-write duplicate of the shared
+            # last block
+            cow_src = None
+            cached_len = len(hit) * self.block_size
+            if cached_len > s - 1:
+                cow_src = hit.pop()
+                cached_len = s - 1
+            need = blocks_for(s + req.max_new_tokens,
+                              self.block_size) - len(hit)
+            ids = self.prefix_cache.allocate(need)
             if ids is None:
-                break           # pool full: wait for releases
+                # pool full: wait for releases, and undo the lookup so
+                # blocked retries neither leak refs nor inflate the hits
+                undo = hit + ([cow_src] if cow_src is not None else [])
+                self.prefix_cache.cancel_lookup(undo, len(hashes))
+                self._admission_blocked += 1
+                break
             self._waiting.popleft()
             req.admitted_s = time.perf_counter()
+            req.cached_len = cached_len
+            req.prefill_pos = cached_len
             self.queue_waits.append(req.queue_wait_s)
+            self._queue_wait_time_s += req.queue_wait_s
+            if hashes:
+                self._note_repeat(req)
             self._slot_req[slot] = req
-            self._slot_blocks[slot] = ids
+            blocks = hit + ids
+            self._slot_blocks[slot] = blocks
             self._tables[slot] = TRASH_BLOCK
-            self._tables[slot, :len(ids)] = ids
-            tok, done = self._prefill(slot, req)
-            yield (req.rid, tok, done)
-            if done:
-                self._finish(slot)
+            self._tables[slot, :len(blocks)] = blocks
+            if cached_len == 0 and (self.chunk_tokens <= 0
+                                    or s <= self.chunk_tokens):
+                tok, done = self._prefill(slot, req)
+                self._register_full_blocks(slot)
+                yield (req.rid, tok, done)
+                if done:
+                    self._finish(slot)
+                continue
+            # chunk ladder, one chunk a tick from cached_len. The COW
+            # source's ref is held until the first chunk has copied it;
+            # ids[0] occupies page cached_len // block_size, the page the
+            # shared block served
+            state = {"cow": None}
+            if cow_src is not None:
+                state["cow"] = (cow_src, ids[0])
+                self._slot_extra_refs[slot].append(cow_src)
+            self._slot_chunk[slot] = state
+
+    def _prompt_hashes(self, req):
+        """The prompt's full-block hashes (none with the cache off),
+        memoised per request and keyed on the namespace, so a namespace
+        change rehashes."""
+        if not self.prefix_cache_enabled:
+            return []
+        if req._hashes is None or req._hash_ns != self._prefix_namespace:
+            req._hashes = hash_blocks(req.prompt, self.block_size,
+                                      self._prefix_namespace)
+            req._hash_ns = self._prefix_namespace
+        return req._hashes
+
+    def _note_repeat(self, req):
+        """Count an admission whose prompt was admitted before
+        (`prefix_repeat_admissions`: with the cache healthy, such a prompt
+        hits). The fingerprint is independent of the hash chain, so a
+        broken chain or a namespace drift cannot hide from it."""
+        fp = hash(tuple(int(t) for t in req.prompt))
+        if fp in self._prompt_fingerprints:
+            self.prefix_repeat_admissions += 1
+            self._prompt_fingerprints.move_to_end(fp)
+        self._prompt_fingerprints[fp] = True
+        while len(self._prompt_fingerprints) > self._prompt_fingerprints_cap:
+            self._prompt_fingerprints.popitem(last=False)
+
+    def _register_full_blocks(self, slot):
+        """Publish this slot's FULLY written blocks in the prefix cache
+        under their content hashes. Written watermark: the whole prompt
+        once prefill finished, plus the generated tokens whose K/V a
+        decode step appended (the last sampled token was never consumed),
+        else the chunk ladder's progress."""
+        if not self.prefix_cache_enabled:
+            return
+        req = self._slot_req[slot]
+        if req.prefill_done:
+            content = np.concatenate(
+                [req.prompt, np.asarray(req.tokens[:-1], np.int32)])
+        else:
+            content = req.prompt[:req.prefill_pos]
+        hashes = hash_blocks(content, self.block_size,
+                             self._prefix_namespace)
+        self.prefix_cache.register(hashes,
+                                   self._slot_blocks[slot][:len(hashes)])
 
     def _prefill(self, slot, req):
+        """The monolithic fast path: the whole prompt, padded to its
+        length bucket, through `_prefill_step` (K1)."""
         s = req.prompt.size
         bucket = min(_ceil_to(default_buckets(s), self.block_size),
                      self.max_model_len)
@@ -560,13 +862,80 @@ class ServingEngine:
                            torch.from_numpy(ids).to(dev), s,
                            torch.from_numpy(self._tables[slot]).to(dev))
         tok = int(self._sample(lg, [req])[0])
+        self._prefill_tokens += s
+        req.prefill_pos = s
+        self._first_token(slot, req, tok)
+        return tok, self._check_done(req, tok)
+
+    def _first_token(self, slot, req, tok):
+        """Bookkeeping of a request's first token: its prefill is done and
+        its slot decodes from the next tick."""
+        req.prefill_done = True
         req.first_token_s = time.perf_counter()
         self._prefill_time_s += req.prefill_s
         self.ttfts.append(req.ttft_s)
-        self._prefill_tokens += s
         req.tokens.append(tok)
-        self._slot_pos[slot] = s
-        return tok, self._check_done(req, tok)
+        self._slot_pos[slot] = req.prompt.size
+
+    def _chunk_phase(self):
+        """Advance every prefilling slot by ONE chunk. A slot whose final
+        chunk completes emits its first token and joins the decode set
+        (this tick's decode step), so a long prompt costs in-flight
+        decodes one chunk per tick, never its whole prefill."""
+        emitted = []
+        for slot in sorted(self._slot_chunk):
+            req = self._slot_req[slot]
+            tok = self._run_chunk(slot, req, self._slot_chunk[slot])
+            if tok is None:
+                continue
+            del self._slot_chunk[slot]
+            self._first_token(slot, req, tok)
+            self._register_full_blocks(slot)
+            done = self._check_done(req, tok)
+            emitted.append((req.rid, tok, done))
+            if done:
+                self._finish(slot)
+        return emitted
+
+    def _run_chunk(self, slot, req, state):
+        """One chunk-program call for one slot. Returns the first token
+        when this was the prompt's final chunk, else None. The chunk is
+        padded to its length bucket (at least 8) and the context to a
+        page-count bucket covering the chunk's last position and at least
+        one page past the chunk bucket — the reference's static shapes,
+        one program per (chunk bucket, context bucket)."""
+        s = req.prompt.size
+        start = req.prefill_pos
+        n = s - start if self.chunk_tokens <= 0 \
+            else min(s - start, self.chunk_tokens)
+        is_last = start + n >= s
+        c_bucket = max(8, default_buckets(n))
+        ctx_need = blocks_for(start + n, self.block_size)
+        ctx_pages = min(self.pages, max(default_buckets(ctx_need),
+                                        blocks_for(c_bucket,
+                                                   self.block_size) + 1))
+        cow = state.pop("cow", None)
+        cow_src, cow_dst = cow if cow is not None else (TRASH_BLOCK,
+                                                        TRASH_BLOCK)
+        ids = np.zeros((1, c_bucket), np.int64)
+        ids[0, :n] = req.prompt[start:start + n]
+        dev = self.device
+        lg = _chunk_prefill_step(
+            self.spec, self.block_size, self.kv_mode, is_last, ctx_pages,
+            self.params, self.cache, torch.from_numpy(ids).to(dev), start,
+            start + n, s - 1 - start,
+            torch.from_numpy(self._tables[slot]).to(dev), cow_src, cow_dst)
+        tok = int(self._sample(lg, [req])[0]) if is_last else None
+        if cow is not None:
+            # the copy is enqueued before any later use of the pool, so
+            # the admission-time ref that kept the source from eviction
+            # can go
+            self.prefix_cache.release([cow_src])
+            self._slot_extra_refs[slot].remove(cow_src)
+        req.prefill_pos = start + n
+        self._prefill_chunks += 1
+        self._prefill_tokens += n
+        return tok
 
     def _decode(self, active):
         t0 = time.perf_counter()
@@ -636,13 +1005,22 @@ class ServingEngine:
         return False
 
     def _finish(self, slot):
-        """Copy-free release: the slot's blocks go back to the free list;
-        their stale contents are never read again."""
+        """Copy-free release THROUGH THE PREFIX CACHE: the slot's fully
+        written blocks are first published under their content hashes
+        (the next request sharing this prompt, or this prompt plus this
+        completion, hits them), then every block the slot holds is
+        decref'd, a pending copy-on-write source included. Blocks other
+        requests still reference survive; hash-mapped blocks at refcount
+        0 park in the LRU; the rest free-list."""
         req = self._slot_req[slot]
         req.finished = True
         self.completed[req.rid] = np.asarray(req.tokens, np.int64)
         self.finish_reasons[req.rid] = req.finish_reason or "length"
-        self.allocator.free(self._slot_blocks[slot])
+        self._register_full_blocks(slot)
+        self.prefix_cache.release(self._slot_blocks[slot]
+                                  + self._slot_extra_refs[slot])
+        self._slot_extra_refs[slot] = []
+        self._slot_chunk.pop(slot, None)
         self._slot_blocks[slot] = []
         self._slot_req[slot] = None
         self._slot_pos[slot] = 0

@@ -211,8 +211,10 @@ def generate(model, input_ids, max_new_tokens=32, max_length=None,
              engine="static", prefix_cache=None, spec_decode=None):
     """Autoregressive generation; returns int64 [B, prompt_len +
     n_generated] on the CPU (prompt included). engine="paged" runs the
-    continuous-batching ServingEngine on the model's device; the static
-    single-program engine is not ported yet."""
+    continuous-batching ServingEngine on the model's device, and
+    `prefix_cache` reaches it (None: FLAGS_prefix_cache); with the static
+    engine `prefix_cache` raises ValueError. The static single-program
+    engine is not ported yet."""
     cfg = model.config
     ids = np.asarray(input_ids.cpu() if torch.is_tensor(input_ids)
                      else input_ids).astype(np.int32)
@@ -232,6 +234,9 @@ def generate(model, input_ids, max_new_tokens=32, max_length=None,
         raise ValueError(f"weight_quant must be 'none', 'int8' or 'int4', "
                          f"got {weight_quant!r}")
     if engine == "static":
+        if prefix_cache is not None:
+            raise ValueError("prefix_cache applies to engine='paged' only "
+                             "(the static engine holds no block pool)")
         raise NotImplementedError(
             "the static single-program generate is not ported yet (ROADMAP "
             "Queue 1, item 5, 'The static single-program generate'); use "

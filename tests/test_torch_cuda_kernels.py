@@ -676,6 +676,56 @@ def test_quantized_engine_on_card_matches_cpu_engine(card, weight_quant,
     assert (counts["quant_matmul"] > 0) == (weight_quant == "int4")
 
 
+@pytest.mark.parametrize("weight_quant,kv_cache_dtype", [
+    ("none", "model"), ("int4", "int4"), ("int8", "int8")])
+def test_prefix_cache_engine_on_card_matches_cpu_engine(card, weight_quant,
+                                                        kv_cache_dtype):
+    """The engine at its defaults but with 16-token chunks (prefix cache
+    on): a stream sharing a 24-token prefix, a whole-prompt repeat (copy
+    on write) and a long cold prompt, through the chunk program and the
+    decode kernels on the card, gives the greedy tokens of the same tiny
+    f32 model on the CPU, with the same scheduler counters."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.text.models import (LlamaForCausalLM,
+                                              llama_tiny_config)
+
+    torch.manual_seed(0)
+    cfg = llama_tiny_config(num_key_value_heads=2)
+    cpu = LlamaForCausalLM(cfg, device="cpu")
+    gpu = LlamaForCausalLM(cfg, device=card)
+    gpu.load_state_dict(cpu.state_dict())
+    rs = np.random.RandomState(4)
+    shared = rs.randint(0, 256, (24,))
+    prompts = [np.concatenate([shared, rs.randint(0, 256, (n,))])
+               for n in (5, 8, 13)]
+    prompts += [prompts[1].copy(), rs.randint(0, 256, (50,))]
+    out, stats = [], []
+    _cuda_common.reset_launch_counts()
+    for model, dev in ((cpu, "cpu"), (gpu, card)):
+        eng = ServingEngine(model, max_slots=2, kv_block_size=8, device=dev,
+                            chunked_prefill_tokens=16,
+                            weight_quant=weight_quant,
+                            kv_cache_dtype=kv_cache_dtype)
+        for p in prompts[:1]:
+            eng.add_request(p, max_new_tokens=4)
+        eng.run()
+        for p in prompts[1:]:
+            eng.add_request(p, max_new_tokens=5)
+        out.append(eng.run())
+        stats.append(eng.stats())
+        assert eng.prefix_cache.referenced_blocks == 0
+    assert {k: v.tolist() for k, v in out[0].items()} \
+        == {k: v.tolist() for k, v in out[1].items()}
+    for key in ("prefix_blocks_hit", "prefill_chunks", "steps",
+                "kv_pool_free", "prefix_cached_blocks"):
+        assert stats[1][key] == stats[0][key], key
+    assert stats[1]["prefix_blocks_hit"] >= 9
+    counts = _cuda_common.launch_counts()
+    assert counts[KERNEL_NAMES[kv_cache_dtype]] \
+        == stats[1]["steps"] * cfg.num_hidden_layers
+    assert (counts["quant_matmul"] > 0) == (weight_quant == "int4")
+
+
 def _rel_err(got, want):
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.isfinite(got.float()).all()

@@ -150,7 +150,9 @@ def test_flags_and_buckets_match_reference():
     from paddle_tpu.jit.api import default_buckets as ref_buckets
 
     for name in ("FLAGS_kv_block_size", "FLAGS_serving_slots",
-                 "FLAGS_kv_cache_dtype", "FLAGS_weight_only_dtype"):
+                 "FLAGS_kv_cache_dtype", "FLAGS_weight_only_dtype",
+                 "FLAGS_prefix_cache", "FLAGS_chunked_prefill_tokens",
+                 "FLAGS_prefix_cache_max_blocks"):
         assert port_flags.flag(name) == flag(name)
     for n in list(range(0, 70)) + [511, 512, 513, 1024, 1500, 4097]:
         assert default_buckets(n) == ref_buckets(n)

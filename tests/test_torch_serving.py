@@ -1,13 +1,15 @@
 """The port's paged serving engine against paddle_tpu's (the reference).
 
-Greedy token identity with paddle_tpu's ServingEngine (prefix cache off,
-whole-prompt prefill) on a mixed stream with more requests than slots, for
-MHA and GQA tiny LLaMA; `generate_paged` identity; sampling-filter parity;
-seeded sampling determinism; and the scheduler contracts of
+Greedy token identity with paddle_tpu's ServingEngine on a mixed stream
+with more requests than slots, for MHA and GQA tiny LLaMA, with the prefix
+cache off and whole-prompt prefill and at both engines' defaults (prefix
+cache on, 256-token chunks); `generate_paged` identity; sampling-filter
+parity; seeded sampling determinism; the scheduler contracts of
 tests/test_serving.py (allocator, admission control, block release,
-static waves) plus deadlines and the options the port refuses. The
-quantized modes are held against the reference in
-test_torch_serving_quant.py.
+static waves) plus deadlines; the reference's `stats()` keys and counters,
+`drain` and the refusals of what is not ported (fault F5). The quantized
+modes are held against the reference in test_torch_serving_quant.py, the
+prefix cache and chunked prefill in test_torch_prefix_cache.py.
 """
 import time
 
@@ -51,13 +53,17 @@ def _port(**kw):
 _STREAM = ((3, 4), (7, 6), (2, 9), (5, 3), (4, 5), (11, 4))
 
 
-@pytest.mark.parametrize("kv_heads", [None, 2], ids=["mha", "gqa"])
-def test_greedy_token_identity_with_reference_engine(kv_heads):
+#: the prefix cache off and whole-prompt prefill, passed to both engines
+_OFF = dict(prefix_cache=False, chunked_prefill_tokens=0)
+
+
+@pytest.mark.parametrize("kv_heads,kw", [(None, _OFF), (2, _OFF),
+                                         (None, {}), (2, {})],
+                         ids=["mha", "gqa", "mha-defaults", "gqa-defaults"])
+def test_greedy_token_identity_with_reference_engine(kv_heads, kw):
     ref, port = _pair(kv_heads=kv_heads)
-    a = jax_engine.ServingEngine(ref, max_slots=2, kv_block_size=8,
-                                 prefix_cache=False,
-                                 chunked_prefill_tokens=0)
-    b = ServingEngine(port, max_slots=2, kv_block_size=8, device="cpu")
+    a = jax_engine.ServingEngine(ref, max_slots=2, kv_block_size=8, **kw)
+    b = ServingEngine(port, max_slots=2, kv_block_size=8, device="cpu", **kw)
     rs = np.random.RandomState(3)
     for ln, nt in _STREAM:
         p = rs.randint(0, 128, (ln,))
@@ -70,7 +76,7 @@ def test_greedy_token_identity_with_reference_engine(kv_heads):
     sa, sb = a.stats(), b.stats()
     for key in ("steps", "decode_tokens", "prefill_tokens",
                 "slot_utilization", "requests_completed", "kv_pool_blocks",
-                "kv_pool_free"):
+                "kv_pool_free", "prefix_cached_blocks"):
         assert sb[key] == sa[key], key
 
 
@@ -248,6 +254,8 @@ class TestContinuousBatching:
             eng.add_request([], max_new_tokens=2)
 
     def test_blocks_released_on_finish(self):
+        """Every block comes back: to the free list, or (the prefix cache
+        on, as by default) to the LRU of cached blocks at refcount 0."""
         eng = ServingEngine(_port(), max_slots=2, kv_block_size=8,
                             num_kv_blocks=9, device="cpu")
         free0 = eng.allocator.available
@@ -255,8 +263,13 @@ class TestContinuousBatching:
         eng.add_request(rs.randint(0, 128, (5,)), max_new_tokens=4)
         eng.add_request(rs.randint(0, 128, (9,)), max_new_tokens=6)
         eng.run()
-        assert eng.allocator.available == free0
-        assert eng.stats()["kv_pool_free"] == free0
+        st = eng.stats()
+        # 5 + 3 and 9 + 5 written tokens: one full block each
+        assert st["prefix_cached_blocks"] == 2
+        assert eng.allocator.available + eng.prefix_cache.evictable \
+            == st["kv_pool_free"] + st["prefix_cached_blocks"] == free0
+        assert eng.prefix_cache.referenced_blocks == 0
+        assert all(eng.prefix_cache.refcount(b) == 0 for b in range(9))
         assert eng.num_active == 0 and eng.num_waiting == 0
 
     def test_static_admission_is_waves(self):
@@ -288,7 +301,9 @@ class TestContinuousBatching:
         assert eng.finish_reasons == {running: "timeout", queued: "timeout"}
         assert 1 <= len(eng.completed[running]) < 40
         assert len(eng.completed[queued]) == 0
-        assert eng.allocator.available == free0
+        # free list + the prefix cache's refcount-0 blocks
+        assert eng.prefix_cache.available == free0
+        assert eng.prefix_cache.referenced_blocks == 0
         assert not eng.has_work()
 
     def test_warmup_state(self):
@@ -298,13 +313,147 @@ class TestContinuousBatching:
         assert eng.finish_warmup() is eng and eng.warmed
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"prefix_cache": True}, {"chunked_prefill_tokens": 16},
-    {"prefix_cache_max_blocks": 4}, {"spec_decode": "ngram"},
-], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+@pytest.mark.parametrize("kwargs", [{"spec_decode": "ngram"}],
+                         ids=lambda kw: "-".join(f"{k}={v}"
+                                                 for k, v in kw.items()))
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine(_port(), max_slots=1, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"prefix_cache": True}, {"chunked_prefill_tokens": 16},
+    {"prefix_cache_max_blocks": 4},
+], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_prefix_and_chunk_options_construct_and_serve(kwargs):
+    """The options the port refused until it had the prefix cache and the
+    chunk program: they construct and serve (a 20-token prompt served
+    twice: chunks of 16, a cache hit, a cap of 4 cached blocks)."""
+    eng = ServingEngine(_port(), max_slots=1, kv_block_size=8, device="cpu",
+                        **kwargs)
+    p = np.random.RandomState(12).randint(0, 128, (20,))
+    rids = [eng.add_request(p, max_new_tokens=3) for _ in range(2)]
+    out = eng.run()
+    np.testing.assert_array_equal(out[rids[0]], out[rids[1]])
+    st = eng.stats()
+    assert st["prefix_blocks_hit"] == 2
+    assert st["prefill_chunks"] \
+        == (3 if "chunked_prefill_tokens" in kwargs else 1)
+    assert eng.prefix_cache.max_cached_blocks \
+        == kwargs.get("prefix_cache_max_blocks", 0)
+
+
+# ------------------------------------------------------------- fault F5
+
+def _f5_engines(kw, **extra):
+    ref, port = _pair()
+    return (jax_engine.ServingEngine(ref, max_slots=2, kv_block_size=8, **kw,
+                                     **extra),
+            ServingEngine(port, max_slots=2, kv_block_size=8, device="cpu",
+                          **kw, **extra))
+
+
+def _queue_stream(eng, shared_round=True):
+    """_STREAM's requests, then (`shared_round`) the same prompts again
+    behind a shared 16-token prefix, which the prefix cache can hit."""
+    rs = np.random.RandomState(3)
+    prompts = [rs.randint(0, 128, (ln,)) for ln, _ in _STREAM]
+    if shared_round:
+        shared = rs.randint(0, 128, (16,))
+        prompts += [np.concatenate([shared, p]) for p in prompts]
+    return [eng.add_request(p, max_new_tokens=nt)
+            for p, (_, nt) in zip(prompts, _STREAM * 2)]
+
+
+#: stats() values that are counts or settings (not wall-clock times)
+_EXACT = ("steps", "decode_tokens", "prefill_tokens", "slot_utilization",
+          "admission_blocked", "requests_completed", "draining",
+          "drained_requests", "kv_pool_blocks", "kv_pool_free",
+          "kv_cache_mode", "weight_quant", "prefix_blocks_hit",
+          "prefix_blocks_missed", "prefix_cached_blocks", "prefix_evictions",
+          "prefill_chunks", "spec_windows", "spec_proposed_tokens",
+          "spec_accepted_tokens", "spec_accept_rate")
+
+
+@pytest.mark.parametrize("kw", [_OFF, {"chunked_prefill_tokens": 8},
+                                dict(_OFF, prefix_cache=True)],
+                         ids=["off", "cache-chunk8", "cache-whole"])
+def test_stats_keys_and_counters_match_reference(kw):
+    """Fault F5: the port's stats() has exactly the reference's keys, and
+    equal counters, on _STREAM and its prompts again behind a shared
+    prefix, over a pool small enough to block admissions and evict cached
+    blocks, with the cache off and on."""
+    a, b = _f5_engines(kw, num_kv_blocks=6)
+    assert _queue_stream(a) == _queue_stream(b)
+    want, got = a.run(), b.run()
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])
+    sa, sb = a.stats(), b.stats()
+    assert set(sb) == set(sa)
+    for key in _EXACT:
+        assert sb[key] == sa[key], (key, sb[key], sa[key])
+    assert sb["admission_blocked"] > 0
+    assert (sb["prefix_blocks_hit"] > 0) == bool(kw.get("prefix_cache",
+                                                        True))
+    for key in ("decode_time_s", "prefill_time_s", "queue_wait_time_s"):
+        assert sb[key] > 0 and isinstance(sb[key], float), key
+    assert len(sb["ttft_s"]) == len(sb["queue_wait_s"]) == 2 * len(_STREAM)
+
+
+def test_drain_matches_reference():
+    """drain() stops admission (add_request raises ValueError), lets the
+    live requests finish, counts them and reports drained; with a
+    deadline it clamps them onto the timeout path."""
+    a, b = _f5_engines({})
+    for eng in (a, b):
+        assert not eng.draining and not eng.drained
+        rids = _queue_stream(eng, shared_round=False)
+        eng.step()
+        assert eng.drain() is eng
+        assert eng.draining and not eng.drained
+        with pytest.raises(ValueError, match="draining"):
+            eng.add_request([1, 2, 3], max_new_tokens=2)
+        eng.run()
+        assert eng.drained
+        assert sorted(eng.completed) == rids
+    sa, sb = a.stats(), b.stats()
+    for key in ("draining", "drained_requests", "requests_completed"):
+        assert sb[key] == sa[key], key
+    assert sb["drained_requests"] == len(_STREAM)
+
+    reasons = []
+    for eng in _f5_engines({}):
+        _queue_stream(eng, shared_round=False)
+        eng.step()
+        eng.drain(deadline_ms=1.0)
+        eng.drain()                          # idempotent: keeps the clamp
+        time.sleep(0.01)
+        eng.step()
+        assert eng.drained
+        reasons.append(dict(eng.finish_reasons))
+    assert reasons[1] == reasons[0]
+    assert list(reasons[1].values()) == ["timeout"] * len(_STREAM)
+
+
+def test_unported_surface_raises_naming_its_item():
+    """What waits for ROADMAP items 4 and 7 refuses with
+    NotImplementedError naming the item; speculative=None is accepted and
+    close() does nothing, twice."""
+    eng = ServingEngine(_port(), max_slots=1, device="cpu")
+    for call, item in ((eng.metrics, "item 7"),
+                       (eng.render_prometheus, "item 7"),
+                       (lambda: eng.dump_trace("trace.json"), "item 7"),
+                       (eng.spec_stats, "item 4"),
+                       (lambda: eng.add_request([1, 2], speculative=True),
+                        "item 4"),
+                       (lambda: eng.add_request([1, 2], speculative=False),
+                        "item 4")):
+        with pytest.raises(NotImplementedError, match=item):
+            call()
+    assert eng.num_waiting == 0
+    assert eng.add_request([1, 2], max_new_tokens=2, speculative=None) == 0
+    assert eng.close() is None and eng.close() is None
+    assert len(eng.run()[0]) == 2
 
 
 def test_bad_options_and_static_engine_raise():

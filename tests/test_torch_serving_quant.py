@@ -4,10 +4,11 @@
 `scatter_prefill_int8/int4`) write the same codes and scales as the
 reference's from the same inputs. (e) Greedy tokens of the port's
 `ServingEngine` equal those of paddle_tpu's engine (prefix cache off,
-whole-prompt prefill) for every non-trivial (weight_quant,
+whole-prompt prefill on both) for every non-trivial (weight_quant,
 kv_cache_dtype) pair on a tiny MHA LLaMA and for (int4, int4) and
-(int8, int8) on a tiny GQA one, with the same `param_bytes` and
-`kv_hbm_bytes`. (f) paddle_tpu's quantized serving params, carried across
+(int8, int8) on a tiny GQA one, and for (int4, int4) and (int8, int8)
+at both engines' defaults (prefix cache on, 256-token chunks), with the
+same `param_bytes` and `kv_hbm_bytes`. (f) paddle_tpu's quantized serving params, carried across
 with `serving_params_from_numpy`, equal the port's own extraction.
 """
 import jax
@@ -127,18 +128,28 @@ _COMBOS = [(w, kv) for w in ("none", "int8", "int4")
            for kv in ("model", "int8", "int4") if (w, kv) != ("none", "model")]
 
 
+#: the prefix cache off and whole-prompt prefill, passed to both engines
+_OFF = dict(prefix_cache=False, chunked_prefill_tokens=0)
+
+
+def _case(kv_heads, w, kv, engine_kw=_OFF):
+    name = "-".join([{None: "mha", 2: "gqa"}[kv_heads], w, kv]
+                    + ([] if engine_kw is _OFF else ["defaults"]))
+    return pytest.param(kv_heads, w, kv, engine_kw, id=name)
+
+
 @pytest.mark.parametrize(
-    "kv_heads,weight_quant,kv_cache_dtype",
-    [(None, w, kv) for w, kv in _COMBOS]
-    + [(2, "int4", "int4"), (2, "int8", "int8")],
-    ids=lambda v: {None: "mha", 2: "gqa"}.get(v, v))
+    "kv_heads,weight_quant,kv_cache_dtype,engine_kw",
+    [_case(None, w, kv) for w, kv in _COMBOS]
+    + [_case(2, "int4", "int4"), _case(2, "int8", "int8"),
+       _case(None, "int4", "int4", {}), _case(2, "int8", "int8", {})])
 def test_greedy_token_identity_with_reference_engine(kv_heads, weight_quant,
-                                                     kv_cache_dtype):
+                                                     kv_cache_dtype,
+                                                     engine_kw):
     ref, port = _pair(kv_heads=kv_heads)
     kw = dict(max_slots=2, kv_block_size=8, weight_quant=weight_quant,
-              kv_cache_dtype=kv_cache_dtype)
-    a = jax_engine.ServingEngine(ref, prefix_cache=False,
-                                 chunked_prefill_tokens=0, **kw)
+              kv_cache_dtype=kv_cache_dtype, **engine_kw)
+    a = jax_engine.ServingEngine(ref, **kw)
     b = ServingEngine(port, device="cpu", **kw)
     rs = np.random.RandomState(3)
     for ln, nt in _STREAM:
@@ -153,7 +164,7 @@ def test_greedy_token_identity_with_reference_engine(kv_heads, weight_quant,
     for key in ("steps", "decode_tokens", "prefill_tokens",
                 "requests_completed", "kv_pool_blocks", "kv_pool_free",
                 "kv_hbm_bytes", "kv_cache_mode", "weight_quant",
-                "param_bytes"):
+                "param_bytes", "prefix_cached_blocks"):
         assert sb[key] == sa[key], key
 
 
