@@ -54,15 +54,22 @@ Phases (any failure exits non-zero; nothing is caught):
   4. serve: LLaMA at the 1B geometry (hidden 2048, 20 layers, 16 heads,
      vocab 32000, bf16, random weights from seed 0) behind the paged
      ServingEngine (8 slots, 16-token blocks) answers 16 greedy requests;
-     both kernels' launch counts must equal prefills x 20 and decode ticks
-     x 20, and two requests' tokens are checked against a teacher-forced
-     recompute through the plain attention functions. SERVE and the
+     every decode tick, prefill and chunk of every serve phase replays a
+     CUDA graph the engine captured at its key's first call, and each
+     serve line gives the graphs captured by site, their capture wall
+     and ms a decode tick over the ticks that captured nothing
+     (`decode_ms_per_tick_steady`). Both kernels' launch counts must
+     equal prefills x 20 and decode ticks x 20 (a replay counts the
+     launches its capture made), and two requests' tokens are checked
+     against a teacher-forced recompute through the plain attention
+     functions; SERVE_WARM sends the same requests through the same
+     engine again (no capture; the tokens must repeat). SERVE and the
      phases after it up to SERVE_PREFIX pass prefix_cache=False and
      chunked_prefill_tokens=0 (whole-prompt prefill), so their lines stay
      comparable with the runs before the prefix cache;
-  5. profile: device time of steady decode ticks by kernel kind (the
-     paged decode's splits and merge among them), beside the host wall
-     (torch.profiler);
+  5. profile: device time of steady decode ticks (graph replays) by
+     kernel kind (the paged decode's splits and merge among them),
+     beside the host wall (torch.profiler);
   6. serve_q4: the same 16 requests with int4 weights and an int4 KV
      cache: every layer matmul and the lm_head through the dequant-matmul
      kernel ((prefills + ticks) x 141 launches), decode through the int4
@@ -91,6 +98,14 @@ Phases (any failure exits non-zero; nothing is caught):
      chunk scatter); profile_chunk: device time of single chunks (a cold
      prompt's first and last 256-token chunk, a 64-token suffix behind a
      cached prefix) by kernel kind beside the host wall;
+  7c. serve_graph_eager: SERVE's requests and SERVE_PREFIX's stream
+     through engines that run the same programs eagerly (`_capture =
+     False`): the greedy tokens and every launch count must equal the
+     graph engines', and ms a tick, ms a chunk and TTFT of both print side
+     by side (SERVE_EAGER, SERVE_PREFIX_EAGER, SERVE_GRAPH_EAGER);
+  7d. serve_graph_steady: an 8-slot engine at its defaults warms every
+     bucket of its stream, finish_warmup(), then at least 20 steady
+     ticks capture nothing;
   8. train: LLaMA at the 1B geometry (bf16 O2 via amp.decorate with bf16
      AdamW moments, AdamW lr 1e-4, random weights from seed 0) takes
      training steps on one batch of 4 x 1024 seeded ids, labels = ids,
@@ -145,6 +160,7 @@ The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Without a CUDA card it exits 1 and prints
 no result.
 """
+import gc
 import json
 import os
 import re
@@ -1104,22 +1120,60 @@ def _requests(vocab):
              int(rs.randint(32, 129))) for _ in range(16)]
 
 
-def _serve_run(model, reqs, tag, **engine_kw):
+def _tick_timer(eng):
+    """Wrap the engine's decode tick; returns the list it fills with each
+    tick's (host wall s, whether the tick captured a graph)."""
+    ticks = []
+    decode = eng._decode
+
+    def timed(active):
+        before = sum(eng._captures)
+        t0 = time.perf_counter()
+        out = decode(active)
+        ticks.append((time.perf_counter() - t0,
+                      sum(eng._captures) > before))
+        return out
+
+    eng._decode = timed
+    return ticks
+
+
+def _graph_fields(eng, ticks):
+    """A serve line's program fields: the graphs the engine captured, by
+    site, their capture wall (dry run, capture, instantiation), and ms a
+    decode tick over the ticks that captured nothing (`steady`)."""
+    st = eng._graph_stats()
+    steady = [w for w, captured in ticks if not captured]
+    return {"graphs": eng._capture,
+            "graphs_captured": st["graphs_captured"],
+            "capture_s": st["capture_s"],
+            "capture_s_by_site": st["capture_s_by_site"],
+            "decode_ticks_steady": len(steady),
+            "decode_ms_per_tick_steady": 1e3 * float(np.mean(steady))
+            if steady else None}
+
+
+def _serve_run(model, reqs, tag, eager=False, **engine_kw):
     """Warm an engine up, then drive `reqs` through a fresh one with every
-    launch count set to 0 just before and read just after. Prints the
-    `tag` line; returns (engine, request ids, results, counts)."""
+    launch count set to 0 just before and read just after; `eager` runs
+    the fresh one's programs without graphs. Prints the `tag` line;
+    returns (engine, request ids, results, counts, the line)."""
     import torch
     from paddle_tpu_torch.inference import ServingEngine
     from paddle_tpu_torch.ops import _cuda_common
 
-    # warm-up engine (cuBLAS handles, allocator pools); not counted
+    # warm-up engine (kernel builds, cuBLAS handles, allocator pools); not
+    # counted. Graphs are per engine: the counted one captures its own
     warm = ServingEngine(model, max_slots=8, kv_block_size=16, **engine_kw)
     warm.add_request(reqs[0][0][:64], max_new_tokens=4)
     warm.run()
     del warm
 
     eng = ServingEngine(model, max_slots=8, kv_block_size=16, **engine_kw)
+    eng._capture = eng._capture and not eager
     rids = [eng.add_request(p, max_new_tokens=n) for p, n in reqs]
+    ticks = _tick_timer(eng)
+    gc.collect()     # engines an earlier phase dropped (timers make cycles)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _cuda_common.reset_launch_counts()
@@ -1138,7 +1192,7 @@ def _serve_run(model, reqs, tag, **engine_kw):
     assert st["requests_completed"] == len(reqs)
     assert st["kv_pool_free"] == st["kv_pool_blocks"] - 1
     ttft = sorted(st["ttft_s"])
-    _say(tag, {
+    rec = {
         "requests": len(reqs), "prompt_tokens": st["prefill_tokens"],
         "decode_tokens": st["decode_tokens"], "decode_ticks": st["steps"],
         "wall_s": wall,
@@ -1153,14 +1207,47 @@ def _serve_run(model, reqs, tag, **engine_kw):
         "kv_cache_mode": st["kv_cache_mode"],
         "param_bytes": st["param_bytes"], "kv_hbm_bytes": st["kv_hbm_bytes"],
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": counts})
-    return eng, rids, done, counts
+        **_graph_fields(eng, ticks),
+        "launches": counts}
+    _say(tag, rec)
+    return eng, rids, done, counts, rec
+
+
+def _warm_pass(eng, reqs, rids, done, tag):
+    """The same requests once more through the same engine, every key of
+    theirs captured already: the graphs' numbers without a capture. The
+    tokens must repeat and nothing may be captured. Prints the `tag`
+    line and returns it."""
+    import torch
+
+    ticks = _tick_timer(eng)
+    n_ttft, captures = len(eng.ttfts), sum(eng._captures)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = [eng.add_request(p, max_new_tokens=n) for p, n in reqs]
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert [out[r].tolist() for r in again] == [done[r].tolist()
+                                                for r in rids]
+    assert sum(eng._captures) == captures, eng._captures
+    ttft = sorted(eng.ttfts[n_ttft:])
+    rec = {"requests": len(reqs), "wall_s": wall, "decode_ticks": len(ticks),
+           "decode_ms_per_tick": 1e3 * float(np.mean([w for w, _ in ticks])),
+           "ttft_p50_s": float(np.percentile(ttft, 50)),
+           "ttft_p95_s": float(np.percentile(ttft, 95)),
+           "captures": sum(eng._captures) - captures,
+           "tokens_repeat": True}
+    _say(tag, rec)
+    return rec
 
 
 def serve():
     """The main path: 16 greedy requests through the paged engine at the
-    1B geometry. Returns the model and the launch counts of the counted
-    run."""
+    1B geometry, every tick and prefill a replayed CUDA graph, then the
+    same requests again through the same engine (SERVE_WARM: no capture).
+    Returns the model, the launch counts of the counted run and the run's
+    record (requests, lines, counts, tokens)."""
     import torch
     from paddle_tpu_torch.text.models import LlamaConfig, LlamaForCausalLM
 
@@ -1174,7 +1261,8 @@ def serve():
     _say("MODEL", {"params": n_params, "init_s": time.perf_counter() - t0})
 
     reqs = _requests(cfg.vocab_size)
-    eng, rids, done, counts = _serve_run(model, reqs, "SERVE", **WHOLE_PROMPT)
+    eng, rids, done, counts, rec = _serve_run(model, reqs, "SERVE",
+                                              **WHOLE_PROMPT)
     st = eng.stats()
     layers = cfg.num_hidden_layers
     assert counts["flash_attention_fwd"] == len(reqs) * layers, counts
@@ -1183,7 +1271,10 @@ def serve():
 
     _teacher_forced(eng, [(reqs[rid][0], done[rid]) for rid in rids[:2]],
                     "TEACHER_FORCED")
-    return model, counts
+    warm = _warm_pass(eng, reqs, rids, done, "SERVE_WARM")
+    return model, counts, {"reqs": reqs, "rec": rec, "warm": warm,
+                           "counts": counts,
+                           "tokens": [done[r].tolist() for r in rids]}
 
 
 def _teacher_forced(eng, items, tag):
@@ -1285,7 +1376,7 @@ def serve_quant(model, weight_quant, kv_cache_dtype, n_requests, tag):
 
     cfg = model.config
     reqs = _requests(cfg.vocab_size)[:n_requests]
-    eng, rids, done, counts = _serve_run(model, reqs, tag,
+    eng, rids, done, counts, _ = _serve_run(model, reqs, tag,
                                          weight_quant=weight_quant,
                                          kv_cache_dtype=kv_cache_dtype,
                                          **WHOLE_PROMPT)
@@ -1326,8 +1417,10 @@ def serve_quant(model, weight_quant, kv_cache_dtype, n_requests, tag):
 
 def profile_decode(model, ticks=10, tag="PROFILE", **engine_kw):
     """Where a decode tick's time goes: torch.profiler over `ticks` steady
-    decode ticks of 8 slots (256-token prompts), device time by kernel
-    kind beside the host wall. Not part of the counted run."""
+    decode ticks of 8 slots (256-token prompts; each tick a graph replay,
+    its key captured in the unprofiled ticks before), device time by
+    kernel kind beside the host wall (the profiler attributes the
+    kernels a graph replays). Not part of the counted run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.inference import ServingEngine
@@ -1341,6 +1434,7 @@ def profile_decode(model, ticks=10, tag="PROFILE", **engine_kw):
     for _ in range(4):                  # admit + prefill all 8, warm ticks
         eng.step()
     torch.cuda.synchronize()
+    captures = sum(eng._captures)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1348,6 +1442,7 @@ def profile_decode(model, ticks=10, tag="PROFILE", **engine_kw):
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    assert sum(eng._captures) == captures
     kinds = {"quant_matmul": 0.0, "paged_decode": 0.0, "gemm": 0.0,
              "other": 0.0}
     per_kernel = {}
@@ -1370,7 +1465,8 @@ def profile_decode(model, ticks=10, tag="PROFILE", **engine_kw):
     device_ms = sum(kinds.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6]
     _say(tag, {
-        "ticks": ticks, "slots": 8, "wall_ms_per_tick": 1e3 * wall / ticks,
+        "ticks": ticks, "slots": 8, "graphs": eng._capture,
+        "wall_ms_per_tick": 1e3 * wall / ticks,
         "device_ms_per_tick": device_ms,
         "device_busy_share": device_ms / (1e3 * wall / ticks),
         "device_ops_per_tick": launched / ticks,   # kernels + copies
@@ -1431,13 +1527,14 @@ def _drive_prefix(eng, reqs, follow_up=None):
     return objs
 
 
-def _prefix_run(model, reqs, tag, follow_up=None, **engine_kw):
+def _prefix_run(model, reqs, tag, follow_up=None, eager=False, **engine_kw):
     """Warm an engine up on a shared-prefix pair, then drive `reqs`
     (`_drive_prefix`) through a fresh engine at the engine's defaults
-    (+ `engine_kw`), every launch count set to 0 just before and read just
-    after, each chunk timed by host wall and CUDA events. Checks the pool
-    accounting and the exact launch counts; prints the `tag` line.
-    Returns (engine, Request objects, counts)."""
+    (+ `engine_kw`; `eager`: its programs without graphs), every launch
+    count set to 0 just before and read just after, each chunk timed by
+    host wall and CUDA events. Checks the pool accounting and the exact
+    launch counts; prints the `tag` line. Returns (engine, Request
+    objects, counts, the line)."""
     import torch
     from paddle_tpu_torch.inference import ServingEngine
     from paddle_tpu_torch.ops import _cuda_common
@@ -1448,19 +1545,24 @@ def _prefix_run(model, reqs, tag, follow_up=None, **engine_kw):
     del warm
 
     eng = ServingEngine(model, max_slots=8, kv_block_size=16, **engine_kw)
+    eng._capture = eng._capture and not eager
     chunks = []
     run_chunk = eng._run_chunk
 
     def timed_chunk(slot, req, state):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        before = sum(eng._captures)
         t0 = time.perf_counter()
         ev[0].record()
         tok = run_chunk(slot, req, state)
         ev[1].record()
-        chunks.append((time.perf_counter() - t0, ev))
+        chunks.append((time.perf_counter() - t0, ev,
+                       sum(eng._captures) > before))
         return tok
 
     eng._run_chunk = timed_chunk
+    tick_walls = _tick_timer(eng)
+    gc.collect()     # engines an earlier phase dropped (timers make cycles)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _cuda_common.reset_launch_counts()
@@ -1504,12 +1606,13 @@ def _prefix_run(model, reqs, tag, follow_up=None, **engine_kw):
     assert all(counts[n] == 0 for n in
                ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")), counts
 
-    host_ms = [1e3 * w for w, _ in chunks]
-    event_ms = [ev[0].elapsed_time(ev[1]) for _, ev in chunks]
+    host_ms = [1e3 * w for w, _, _ in chunks]
+    event_ms = [ev[0].elapsed_time(ev[1]) for _, ev, _ in chunks]
+    steady = [i for i, (_, _, captured) in enumerate(chunks) if not captured]
     ttft = st["ttft_s"]
     hits, missed = st["prefix_blocks_hit"], st["prefix_blocks_missed"]
     prompt_tokens = sum(int(r.prompt.size) for r in objs)
-    _say(tag, {
+    rec = {
         "requests": len(objs), "prompt_tokens": prompt_tokens,
         "prefill_tokens_computed": st["prefill_tokens"],
         "prefill_chunks": st["prefill_chunks"],
@@ -1529,17 +1632,26 @@ def _prefix_run(model, reqs, tag, follow_up=None, **engine_kw):
         "chunk_host_ms_mean": float(np.mean(host_ms)),
         "chunk_event_ms_median": float(np.median(event_ms)),
         "chunk_event_ms_mean": float(np.mean(event_ms)),
+        "chunks_steady": len(steady),
+        "chunk_host_ms_median_steady": float(np.median(
+            [host_ms[i] for i in steady])) if steady else None,
+        "chunk_event_ms_median_steady": float(np.median(
+            [event_ms[i] for i in steady])) if steady else None,
         "slot_utilization": st["slot_utilization"],
         "weight_quant": st["weight_quant"],
         "kv_cache_mode": st["kv_cache_mode"],
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": counts})
-    return eng, objs, counts
+        **_graph_fields(eng, tick_walls),
+        "launches": counts}
+    _say(tag, rec)
+    return eng, objs, counts, rec
 
 
 def serve_prefix(model):
     """SERVE_PREFIX, SERVE_PREFIX_OFF and SERVE_PREFIX_Q4 (module
-    docstring, phase 7b). Returns their launch counts."""
+    docstring, phase 7b). Returns their launch counts and SERVE_PREFIX's
+    run: its requests, follow-up prompt, line, launch counts and
+    tokens."""
     cfg = model.config
     reqs = _prefix_stream(cfg.vocab_size, 24, repeats=True)
     turn = np.random.RandomState(6).randint(0, cfg.vocab_size, (32,))
@@ -1549,7 +1661,8 @@ def serve_prefix(model):
         follow["prompt"] = np.concatenate([reqs[0][0], first, turn])
         return follow["prompt"]
 
-    eng, objs, counts = _prefix_run(model, reqs, "SERVE_PREFIX", follow_up)
+    eng, objs, counts, rec = _prefix_run(model, reqs, "SERVE_PREFIX",
+                                         follow_up)
     st = eng.stats()
     assert st["prefix_blocks_hit"] > 0, st
     cow = objs[len(reqs) - 2:len(reqs)]
@@ -1562,7 +1675,7 @@ def serve_prefix(model):
                           for r in (objs[1], cow[0])],
                     "SERVE_PREFIX_TEACHER_FORCED")
 
-    off, objs_off, counts_off = _prefix_run(
+    off, objs_off, counts_off, _ = _prefix_run(
         model, reqs, "SERVE_PREFIX_OFF", lambda _: follow["prompt"],
         prefix_cache=False)
     same = total = whole = first = 0
@@ -1583,11 +1696,118 @@ def serve_prefix(model):
         "first_divergence_index_median": float(np.median(diverge))
         if diverge else None})
 
-    _, _, counts_q4 = _prefix_run(
+    _, _, counts_q4, _ = _prefix_run(
         model, _prefix_stream(cfg.vocab_size, 6, repeats=False),
         "SERVE_PREFIX_Q4", weight_quant="int4", kv_cache_dtype="int4")
-    return {"SERVE_PREFIX": counts, "SERVE_PREFIX_OFF": counts_off,
-            "SERVE_PREFIX_Q4": counts_q4}
+    return ({"SERVE_PREFIX": counts, "SERVE_PREFIX_OFF": counts_off,
+             "SERVE_PREFIX_Q4": counts_q4},
+            {"reqs": reqs, "follow": follow["prompt"], "rec": rec,
+             "counts": counts,
+             "tokens": [eng.completed[r.rid].tolist() for r in objs]})
+
+
+def serve_graph_eager(model, served, prefixed):
+    """SERVE_GRAPH_EAGER: SERVE's 16 requests (bf16, whole prompt) and
+    SERVE_PREFIX's stream through engines that run the same programs
+    eagerly (`_capture = False`: the port before its graphs), against the
+    graph engines' runs of the same phases in this process. The greedy
+    tokens must be identical (the same kernels on the same inputs) and so
+    must every kernel's launch count (a replay counts what its capture
+    launched). Prints SERVE_EAGER and SERVE_PREFIX_EAGER as their graph
+    lines, then the times side by side."""
+    eng, rids, done, counts, rec = _serve_run(
+        model, served["reqs"], "SERVE_EAGER", eager=True, **WHOLE_PROMPT)
+    assert all(p.graph is None for p in eng._programs.values())
+    tokens = [done[r].tolist() for r in rids]
+    del eng
+    peng, objs, pcounts, prec = _prefix_run(
+        model, prefixed["reqs"], "SERVE_PREFIX_EAGER",
+        lambda _: prefixed["follow"], eager=True)
+    ptokens = [peng.completed[r.rid].tolist() for r in objs]
+    del peng
+    same = [a == b for a, b in zip(tokens, served["tokens"])]
+    psame = [a == b for a, b in zip(ptokens, prefixed["tokens"])]
+    g, w, pg = served["rec"], served["warm"], prefixed["rec"]
+    _say("SERVE_GRAPH_EAGER", {
+        "serve_requests_identical": sum(same), "serve_requests": len(same),
+        "prefix_requests_identical": sum(psame),
+        "prefix_requests": len(psame),
+        "launches_equal": counts == served["counts"]
+        and pcounts == prefixed["counts"],
+        "decode_ms_per_tick": {
+            "eager": rec["decode_ms_per_tick"],
+            "graph": g["decode_ms_per_tick"],
+            "graph_steady": g["decode_ms_per_tick_steady"],
+            "graph_warm": w["decode_ms_per_tick"]},
+        "ttft_p50_s": {"eager": rec["ttft_p50_s"], "graph": g["ttft_p50_s"],
+                       "graph_warm": w["ttft_p50_s"]},
+        "ttft_p95_s": {"eager": rec["ttft_p95_s"], "graph": g["ttft_p95_s"],
+                       "graph_warm": w["ttft_p95_s"]},
+        "wall_s": {"eager": rec["wall_s"], "graph": g["wall_s"],
+                   "graph_warm": w["wall_s"]},
+        "max_memory_allocated_gb": {
+            "eager": rec["max_memory_allocated_gb"],
+            "graph": g["max_memory_allocated_gb"]},
+        "prefix_decode_ms_per_tick": {
+            "eager": prec["decode_ms_per_tick"],
+            "graph": pg["decode_ms_per_tick"],
+            "graph_steady": pg["decode_ms_per_tick_steady"]},
+        "prefix_chunk_host_ms_median": {
+            "eager": prec["chunk_host_ms_median"],
+            "graph": pg["chunk_host_ms_median"],
+            "graph_steady": pg["chunk_host_ms_median_steady"]},
+        "prefix_chunk_event_ms_median": {
+            "eager": prec["chunk_event_ms_median"],
+            "graph_steady": pg["chunk_event_ms_median_steady"]},
+        "prefix_ttft_p50_s": {"eager": prec["ttft_p50_s"],
+                              "graph": pg["ttft_p50_s"]},
+        "prefix_ttft_p95_s": {"eager": prec["ttft_p95_s"],
+                              "graph": pg["ttft_p95_s"]},
+        "prefix_max_memory_allocated_gb": {
+            "eager": prec["max_memory_allocated_gb"],
+            "graph": pg["max_memory_allocated_gb"]},
+        "graph_capture_s": {"serve": g["capture_s"],
+                            "serve_prefix": pg["capture_s"]}})
+    assert all(same), same
+    assert all(psame), psame
+    assert counts == served["counts"], (counts, served["counts"])
+    assert pcounts == prefixed["counts"], (pcounts, prefixed["counts"])
+
+
+def serve_graph_steady(model, tag="SERVE_GRAPH_STEADY"):
+    """The counterpart of the reference's zero-compile check
+    (tests/test_obs.py): an engine at its defaults with 8 slots serves 8
+    requests of 200 tokens with 2, 5, ..., 23 new tokens (prompt bucket
+    256, decode buckets 8, 4, 2 and 1), finish_warmup(), then 8 more with
+    24 new tokens: at least 20 steady ticks, zero captures, no new key."""
+    from paddle_tpu_torch.inference import ServingEngine
+
+    eng = ServingEngine(model, max_slots=8, kv_block_size=16)
+    vocab = model.config.vocab_size
+    rs = np.random.RandomState(8)
+    for n in range(8):
+        eng.add_request(rs.randint(0, vocab, (200,)), max_new_tokens=2 + 3 * n)
+    eng.run()
+    eng.finish_warmup()
+    keys = set(eng._programs)
+    for _ in range(8):
+        eng.add_request(rs.randint(0, vocab, (200,)), max_new_tokens=24)
+    ticks = _tick_timer(eng)
+    steps = 0
+    while eng.has_work() and steps < 30:
+        eng.step()
+        steps += 1
+    st = eng._graph_stats()
+    _say(tag, {"steps": steps, "decode_ticks": len(ticks),
+               "captures_after_warmup": st["captures_after_warmup"],
+               "new_keys": len(set(eng._programs) - keys),
+               "graphs_captured": st["graphs_captured"],
+               "capture_s_by_site": st["capture_s_by_site"],
+               "decode_ms_per_tick": 1e3 * float(np.mean(
+                   [w for w, _ in ticks]))})
+    assert len(ticks) >= 20, len(ticks)
+    assert st["captures_after_warmup"] == 0, st
+    assert set(eng._programs) == keys
 
 
 def profile_chunk(model, tag="PROFILE_CHUNK"):
@@ -1597,7 +1817,8 @@ def profile_chunk(model, tag="PROFILE_CHUNK"):
     no logits) and last chunk (256 tokens, the lm_head and the first
     token), then a 64-token suffix behind its first 448 tokens, cached;
     device ms by kernel kind beside the host wall, after one unprofiled
-    round of the same steps. Not part of the counted run."""
+    round of the same steps (which captures their graphs). Not part of
+    the counted run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.inference import ServingEngine
@@ -1619,12 +1840,14 @@ def profile_chunk(model, tag="PROFILE_CHUNK"):
             if not profiled:
                 eng.step()
                 continue
+            captures = sum(eng._captures)
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 eng.step()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
+            assert sum(eng._captures) == captures
             kinds = {"gemm": 0.0, "softmax": 0.0, "index_copy": 0.0,
                      "other": 0.0}
             ops = 0
@@ -2814,12 +3037,14 @@ def profile_prefill(model, tag="PROFILE_PREFILL"):
             if not profiled:
                 eng.step()
                 continue
+            captures = sum(eng._captures)
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 eng.step()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
+            assert sum(eng._captures) == captures
         assert eng.stats()["requests_completed"] == 2
         kinds = {"quant_matmul": 0.0, "flash": 0.0, "gemm": 0.0,
                  "other": 0.0}
@@ -2924,15 +3149,18 @@ def main():
     optim, counts_optim = optim_phase()
     phases["optim"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    model, counts = serve()
+    model, counts, served = serve()
     profile_decode(model)
     counts_q4 = serve_quant(model, "int4", "int4", 16, "SERVE_Q4")
     counts_q8 = serve_quant(model, "int8", "int8", 8, "SERVE_Q8")
     profile_decode(model, tag="PROFILE_Q4", weight_quant="int4",
                    kv_cache_dtype="int4")
     profile_prefill(model)
-    counts_prefix = serve_prefix(model)
+    counts_prefix, prefixed = serve_prefix(model)
     profile_chunk(model)
+    serve_graph_eager(model, served, prefixed)
+    serve_graph_steady(model)
+    del served, prefixed
     del model                     # the serving weights; TRAIN builds its own
     torch.cuda.empty_cache()
     phases["serve"] = time.perf_counter() - t0

@@ -16,12 +16,20 @@ K/V scattered into its pages); a longer prompt, or one whose prefix the
 prefix cache serves, is prefilled a chunk a tick by the chunk program
 (Q/K/V at the chunk's positions, the chunk's K/V scattered token by
 token, attention over the gathered context pages under a causal mask: an
-XLA composition in the reference, plain torch here). Where the reference
-traced and cached one XLA program per bucket, donated the pool and
-scanned stacked layer weights, the port runs eager torch, updates the
-pool in place and loops over layers in Python; the bucket sizes are the
-reference's, so the same prompt, chunk, context and slot shapes reach the
-kernels.
+XLA composition in the reference, plain torch here).
+
+Programs: the reference compiles one XLA program per key and replays it;
+the port keeps a per-engine table of the same keys (`_programs`, see
+`inference.programs`): (site, bucket, any_sample, extra), with the sites
+"serving.decode" and "serving.prefill" (extra ()) and
+"serving.chunk_prefill" (extra (ctx_pages, is_last)). On a card each
+program is a CUDA graph of the whole step (embed, every layer, the KV
+appends, logits and the token pick), captured at the key's first call and
+replayed for every call; on the CPU the same table calls the step on the
+same static buffers. Where the reference donates the pool and scans
+stacked layer weights, the port updates the pool in place and loops over
+layers in Python; the bucket sizes are the reference's, so the same
+prompt, chunk, context and slot shapes reach the kernels.
 
 Prefix caching: admission content-hashes the prompt's full KV blocks and
 points the block table at cached blocks for the shared prefix; release
@@ -46,9 +54,11 @@ speculative decoding (`spec_decode`, `add_request(speculative=...)`,
 `spec_stats`; item 4), GPT models (item 10), and the metrics registry and
 flight recorder (`metrics`, `render_prometheus`, `dump_trace`; item 7).
 
-Sampling uses a `torch.Generator` on the engine's device seeded from
-`seed`: sampled tokens cannot reproduce JAX's random bits, greedy rows
-stay an exact argmax.
+Sampling runs inside the programs (a greedy key is a bare argmax, a
+sampling key `_sample_batched`) from a `torch.Generator` on the engine's
+device seeded from `seed`, which a sampling graph registers: sampled
+tokens cannot reproduce JAX's random bits, greedy rows stay an exact
+argmax.
 """
 from __future__ import annotations
 
@@ -78,6 +88,7 @@ from ..text.paged_cache import (TRASH_BLOCK, BlockAllocator, PagedKVCache,
                                 scatter_chunk, scatter_chunk_int4,
                                 scatter_chunk_int8, scatter_prefill,
                                 scatter_prefill_int4, scatter_prefill_int8)
+from .programs import Program
 
 
 _ITEM_SPEC = "4, 'Speculative decoding'"
@@ -130,6 +141,31 @@ def _sample_batched(logits, generator, do_sample, temperature, top_k, top_p):
     gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
     sampled = (lg + gumbel).argmax(dim=-1)
     return torch.where(do_sample, sampled, greedy)
+
+
+#: a sampling program's per-row inputs, as `_sample_batched` takes them
+_SAMP_KEYS = ("do_sample", "temperature", "top_k", "top_p")
+
+
+def _next_tokens(logits, sample):
+    """The step's output: the f32 logits [B, V] themselves when `sample`
+    is None (a check's teacher-forced replay), else the next tokens [B]
+    of `sample` = (any_sample, inputs, generator): a bare argmax for a
+    greedy key, `_sample_batched` over the rows' parameters (`inputs`
+    holds the `_SAMP_KEYS`) for a sampling key."""
+    if sample is None:
+        return logits
+    any_sample, inputs, generator = sample
+    if not any_sample:
+        return logits.argmax(dim=-1)
+    return _sample_batched(logits, generator,
+                           *(inputs[k] for k in _SAMP_KEYS))
+
+
+def _index(i, device):
+    """A position as a 1-element index tensor: an int, or a 0-dim tensor
+    (a program's static input), which is viewed, never read back."""
+    return torch.as_tensor(i, device=device).reshape(1)
 
 
 # --------------------------------------------------- paged decode layers
@@ -188,11 +224,12 @@ def _paged_layer_llama(x, lw, kc, vc, ksc, vsc, pos, tables, spec, cos, sin,
 
 @torch.no_grad()
 def _decode_step(spec, block_size, kv_mode, params, cache, tok, pos, tables,
-                 decode_attention=paged_decode_attention,
+                 sample=None, decode_attention=paged_decode_attention,
                  qmm=quant_matmul_raw):
     """One decode step for a compacted slot bucket: every row consumes its
     token, appends K/V through its block table and attends over its own
-    length. Returns f32 logits [B, V]."""
+    length. Returns the next tokens [B] picked by `sample` (see
+    `_next_tokens`), or the f32 logits [B, V] when it is None."""
     quantized = kv_mode != "model"
     x = params["embed"][tok]                                # [B, H]
     cos, sin = params["rope_cos"], params["rope_sin"]
@@ -202,17 +239,19 @@ def _decode_step(spec, block_size, kv_mode, params, cache, tok, pos, tables,
         x = _paged_layer_llama(x, lw, cache.k[li], cache.v[li], ksc, vsc,
                                pos, tables, spec, cos, sin, block_size,
                                kv_mode, decode_attention, qmm)
-    return _logits(x, params, spec, qmm)
+    return _next_tokens(_logits(x, params, spec, qmm), sample)
 
 
 @torch.no_grad()
 def _prefill_step(spec, block_size, kv_mode, params, cache, ids, true_len,
-                  table_row, attention=flash_attention_fwd,
+                  table_row, sample=None, attention=flash_attention_fwd,
                   qmm=quant_matmul_raw):
     """Prefill one joining request: full-prompt forward (flash kernel),
     page-scatter the prompt K/V through the slot's block table (the
-    quantized modes with one new scale per page), and return the f32
-    logits [1, V] of the last REAL prompt position."""
+    quantized modes with one new scale per page), and return the first
+    token [1] picked by `sample` (see `_next_tokens`; the f32 logits [1,
+    V] when it is None) from the last REAL prompt position. `true_len` is
+    an int or a 0-dim tensor, never read back."""
     x = params["embed"][ids]                                # [1, S, H]
     cos, sin = params["rope_cos"], params["rope_sin"]
     ks, vs = [], []
@@ -229,14 +268,15 @@ def _prefill_step(spec, block_size, kv_mode, params, cache, ids, true_len,
     else:
         scatter_prefill(cache.k, ks, true_len, table_row, block_size)
         scatter_prefill(cache.v, vs, true_len, table_row, block_size)
-    return _logits(x[:, true_len - 1], params, spec, qmm)
+    last = x.index_select(1, _index(true_len, ids.device) - 1)[:, 0]
+    return _next_tokens(_logits(last, params, spec, qmm), sample)
 
 
 @torch.no_grad()
 def _chunk_prefill_step(spec, block_size, kv_mode, emit_token, ctx_pages,
                         params, cache, ids, start, true_end, last_idx,
                         table_row, cow_src=TRASH_BLOCK, cow_dst=TRASH_BLOCK,
-                        qmm=quant_matmul_raw):
+                        sample=None, qmm=quant_matmul_raw):
     """Prefill ONE chunk of one prompt: Q/K/V for positions [start,
     start + C) (ids [1, C], the chunk padded to its bucket; positions >=
     true_end are padding), the chunk's K/V scattered through the block
@@ -245,17 +285,21 @@ def _chunk_prefill_step(spec, block_size, kv_mode, emit_token, ctx_pages,
     prefix pages, earlier chunks, this chunk) gathered from the first
     `ctx_pages` table entries under a `kv_pos <= q_pos` mask, f32
     softmax. Copy-on-write first: block `cow_dst` takes `cow_src`'s
-    contents in every layer (TRASH_BLOCK: no copy). The pool is updated
-    in place. Returns the f32 logits [1, V] at the chunk-local index
-    `last_idx` when `emit_token` (the prompt's final chunk), else None:
-    earlier chunks skip the vocab matmul."""
+    contents in every layer, unconditionally, as the reference's program
+    does (no copy to make: trash onto trash). The pool is updated in
+    place. `start`, `true_end`, `last_idx`, `cow_src` and `cow_dst` are
+    ints or 0-dim tensors, never read back. Returns the first token [1]
+    picked by `sample` (see `_next_tokens`; the f32 logits [1, V] when it
+    is None) at the chunk-local index `last_idx` when `emit_token` (the
+    prompt's final chunk), else None: earlier chunks skip the vocab
+    matmul."""
     quantized = kv_mode != "model"
-    if cow_dst != TRASH_BLOCK:
-        for t in (cache.k, cache.v) + ((cache.k_scale, cache.v_scale)
-                                       if quantized else ()):
-            t[:, cow_dst] = t[:, cow_src]
-    c = ids.shape[1]
     dev = ids.device
+    src, dst = _index(cow_src, dev), _index(cow_dst, dev)
+    for t in (cache.k, cache.v) + ((cache.k_scale, cache.v_scale)
+                                   if quantized else ()):
+        t.index_copy_(1, dst, t.index_select(1, src))
+    c = ids.shape[1]
     pos = start + torch.arange(c, device=dev)
     x = params["embed"][ids[0]]                             # [C, H]
     # padded positions may run past the rope table: clamp, as JAX's
@@ -303,7 +347,8 @@ def _chunk_prefill_step(spec, block_size, kv_mode, emit_token, ctx_pages,
                     * _mm(hn, lw["up"], qmm), lw["down"], qmm)
     if not emit_token:
         return None
-    return _logits(x[last_idx:last_idx + 1], params, spec, qmm)
+    last = x.index_select(0, _index(last_idx, dev))
+    return _next_tokens(_logits(last, params, spec, qmm), sample)
 
 
 def _tensors(tree):
@@ -518,6 +563,23 @@ class ServingEngine:
         self._prefill_chunks = 0
         self._warmed = False
         self._draining = False
+        # the program table: key -> Program. Per engine, unlike the
+        # reference's module-level executables: a graph bakes in the
+        # addresses of this engine's pool, parameters and buffers
+        self._programs: dict = {}
+        # capture graphs (True exactly on a card); a check sets it False
+        # on one engine, before its first call, to get the eager run it
+        # compares with
+        self._capture = self.device.type == "cuda"
+        # what the program bodies read: they hold this tuple, never the
+        # engine, so that no reference cycle keeps a dropped engine's
+        # pool and graphs alive until the next garbage collection
+        self._step_state = (self.spec, self.block_size, self.kv_mode,
+                            self.params, self.cache, self._gen)
+        self._stream = self._pool = None
+        # captures and their wall seconds, [before, after] finish_warmup()
+        self._captures = [0, 0]
+        self._capture_s = [0.0, 0.0]
 
     # ------------------------------------------------------------- API
     def add_request(self, prompt, max_new_tokens=32, do_sample=False,
@@ -658,9 +720,10 @@ class ServingEngine:
         raise _not_ported("the flight recorder (dump_trace)", _ITEM_OBS)
 
     def finish_warmup(self):
-        """Declare the engine warm (the reference tags later compiles as
-        steady-state retraces; eager torch compiles nothing, so this only
-        records the state)."""
+        """Declare the engine warm: a program key first seen after this is
+        a steady-state capture, counted apart from the warmup's (the
+        reference tags such compiles as retraces and raises an anomaly,
+        which belongs to the metrics registry, ROADMAP Queue 1 item 7)."""
         self._warmed = True
         return self
 
@@ -707,6 +770,55 @@ class ServingEngine:
         two-nibbles-per-byte bytes, int8 its bytes, scales included."""
         return sum(t.numel() * t.element_size()
                    for t in _tensors(self.params))
+
+    # --------------------------------------------------------- programs
+    def _call(self, site, bucket, any_sample, extra, values, body):
+        """Run the program of key (site, bucket, any_sample, extra) on the
+        host `values` ({input name: numpy array}), made at the key's first
+        call from `body` (a function of the static inputs that may read
+        only what the key fixes, and `_step_state`, not the engine) and,
+        with `_capture`, captured then. Returns the program's token tensor
+        (None for a chunk that emits no token)."""
+        key = (site, int(bucket), bool(any_sample), tuple(extra))
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = Program(key, values, body, self.device)
+            if self._capture:
+                self._capture_program(prog, any_sample)
+            self._programs[key] = prog
+        return prog.run(values)
+
+    def _capture_program(self, prog, any_sample):
+        """Capture `prog` on the engine's stream into the engine's graph
+        pool. Every graph of the engine shares the pool, keeps its static
+        output referenced and replays on that one stream, so replay order
+        does not matter: the pool memory a graph frees by the end of its
+        capture held only its own temporaries, which a later capture may
+        reuse because no two replays overlap; what outlives a replay (the
+        KV pool, the static inputs, the parameters) lies outside the
+        pool, and the static outputs, the only pool memory that outlives
+        one, are never handed out again."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        wall = prog.capture(self._stream, self._pool,
+                            self._gen if any_sample else None)
+        self._captures[self._warmed] += 1
+        self._capture_s[self._warmed] += wall
+
+    def _graph_stats(self) -> dict:
+        """The capture counters: graphs captured and their wall (dry run,
+        capture and instantiation) by site and in all, and the captures
+        after finish_warmup()."""
+        by_site: dict = {}
+        wall: dict = {}
+        for (site, *_), prog in self._programs.items():
+            if prog.graph is not None:
+                by_site[site] = by_site.get(site, 0) + 1
+                wall[site] = wall.get(site, 0.0) + prog.capture_s
+        return {"graphs_captured": by_site, "capture_s_by_site": wall,
+                "capture_s": sum(self._capture_s),
+                "captures_after_warmup": self._captures[1]}
 
     # ------------------------------------------------------- scheduling
     def _expire(self):
@@ -849,19 +961,29 @@ class ServingEngine:
 
     def _prefill(self, slot, req):
         """The monolithic fast path: the whole prompt, padded to its
-        length bucket, through `_prefill_step` (K1)."""
+        length bucket, through the program of `_prefill_step` (K1), keyed
+        by (bucket, do_sample)."""
         s = req.prompt.size
         bucket = min(_ceil_to(default_buckets(s), self.block_size),
                      self.max_model_len)
         bucket = max(bucket, _ceil_to(s, self.block_size))
         ids = np.zeros((1, bucket), np.int64)
         ids[0, :s] = req.prompt
-        dev = self.device
-        lg = _prefill_step(self.spec, self.block_size, self.kv_mode,
-                           self.params, self.cache,
-                           torch.from_numpy(ids).to(dev), s,
-                           torch.from_numpy(self._tables[slot]).to(dev))
-        tok = int(self._sample(lg, [req])[0])
+        values = {"ids": ids, "true_len": np.asarray(s, np.int64),
+                  "table_row": self._tables[slot]}
+        any_sample = req.do_sample
+        if any_sample:
+            values.update(self._samp_values([req]))
+
+        spec, bs, mode, params, cache, gen = self._step_state
+
+        def body(a):
+            return _prefill_step(spec, bs, mode, params, cache, a["ids"],
+                                 a["true_len"], a["table_row"],
+                                 (any_sample, a, gen))
+
+        tok = self._call("serving.prefill", bucket, any_sample, (), values,
+                         body).tolist()[0]
         self._prefill_tokens += s
         req.prefill_pos = s
         self._first_token(slot, req, tok)
@@ -919,13 +1041,26 @@ class ServingEngine:
                                                         TRASH_BLOCK)
         ids = np.zeros((1, c_bucket), np.int64)
         ids[0, :n] = req.prompt[start:start + n]
-        dev = self.device
-        lg = _chunk_prefill_step(
-            self.spec, self.block_size, self.kv_mode, is_last, ctx_pages,
-            self.params, self.cache, torch.from_numpy(ids).to(dev), start,
-            start + n, s - 1 - start,
-            torch.from_numpy(self._tables[slot]).to(dev), cow_src, cow_dst)
-        tok = int(self._sample(lg, [req])[0]) if is_last else None
+        values = {"ids": ids, "table_row": self._tables[slot]}
+        for name, v in (("start", start), ("true_end", start + n),
+                        ("last_idx", s - 1 - start), ("cow_src", cow_src),
+                        ("cow_dst", cow_dst)):
+            values[name] = np.asarray(v, np.int64)
+        any_sample = req.do_sample and is_last
+        if any_sample:
+            values.update(self._samp_values([req]))
+
+        spec, bs, mode, params, cache, gen = self._step_state
+
+        def body(a):
+            return _chunk_prefill_step(
+                spec, bs, mode, is_last, ctx_pages, params, cache, a["ids"],
+                a["start"], a["true_end"], a["last_idx"], a["table_row"],
+                a["cow_src"], a["cow_dst"], (any_sample, a, gen))
+
+        out = self._call("serving.chunk_prefill", c_bucket, any_sample,
+                         (ctx_pages, is_last), values, body)
+        tok = out.tolist()[0] if is_last else None
         if cow is not None:
             # the copy is enqueued before any later use of the pool, so
             # the admission-time ref that kept the source from eviction
@@ -948,13 +1083,19 @@ class ServingEngine:
         tables = np.concatenate(
             [self._tables[active],
              np.full((pad, self.pages), TRASH_BLOCK, np.int32)])
-        dev = self.device
-        lg = _decode_step(self.spec, self.block_size, self.kv_mode,
-                          self.params, self.cache,
-                          torch.from_numpy(tok).to(dev),
-                          torch.from_numpy(pos).to(dev),
-                          torch.from_numpy(tables).to(dev))
-        nxt = self._sample(lg, reqs, pad)
+        values = {"tok": tok, "pos": pos, "tables": tables}
+        any_sample = any(r.do_sample for r in reqs)
+        if any_sample:
+            values.update(self._samp_values(reqs, pad))
+
+        spec, bs, mode, params, cache, gen = self._step_state
+
+        def body(a):
+            return _decode_step(spec, bs, mode, params, cache, a["tok"],
+                                a["pos"], a["tables"], (any_sample, a, gen))
+
+        nxt = self._call("serving.decode", bucket, any_sample, (), values,
+                         body).tolist()
         self._decode_time_s += time.perf_counter() - t0
         emitted = []
         for j, slot in enumerate(active):
@@ -969,30 +1110,17 @@ class ServingEngine:
         self._decode_tokens += len(active)
         return emitted
 
-    def _sample(self, logits, reqs, pad=0):
-        """Next tokens (host list) for the logits rows of `reqs` (+ `pad`
-        greedy padding rows). An all-greedy batch is a bare argmax."""
-        if not any(r.do_sample for r in reqs):
-            return logits.argmax(dim=-1).tolist()
-        samp = self._samp_arrays(reqs, pad)
-        return _sample_batched(logits, self._gen, samp["do_sample"],
-                               samp["temperature"], samp["top_k"],
-                               samp["top_p"]).tolist()
-
-    def _samp_arrays(self, reqs, pad=0):
-        """Per-slot sampling params as batched device tensors (padded rows
-        greedy — their tokens are discarded)."""
-        dev = self.device
+    @staticmethod
+    def _samp_values(reqs, pad=0):
+        """Per-slot sampling params as host arrays, a sampling program's
+        inputs (padded rows greedy — their tokens are discarded)."""
         return {
-            "do_sample": torch.tensor(
-                [r.do_sample for r in reqs] + [False] * pad, device=dev),
-            "temperature": torch.tensor(
-                [r.temperature for r in reqs] + [1.0] * pad,
-                dtype=torch.float32, device=dev),
-            "top_k": torch.tensor([r.top_k for r in reqs] + [0] * pad,
-                                  dtype=torch.int32, device=dev),
-            "top_p": torch.tensor([r.top_p for r in reqs] + [1.0] * pad,
-                                  dtype=torch.float32, device=dev),
+            "do_sample": np.array([r.do_sample for r in reqs] + [False] * pad),
+            "temperature": np.array([r.temperature for r in reqs]
+                                    + [1.0] * pad, np.float32),
+            "top_k": np.array([r.top_k for r in reqs] + [0] * pad, np.int32),
+            "top_p": np.array([r.top_p for r in reqs] + [1.0] * pad,
+                              np.float32),
         }
 
     def _check_done(self, req, tok) -> bool:

@@ -15,7 +15,14 @@ drift apart:
     a non-zero code raises.
   * launch counters: each wrapper adds one to its counter where it launches
     its kernel and nowhere else, so a run can show that its main path went
-    through the kernels (`reset_launch_counts` / `launch_counts`).
+    through the kernels (`reset_launch_counts` / `launch_counts`). Under a
+    CUDA graph the wrappers run (and count) only while the graph is
+    captured, never when it is replayed, so the counters follow one rule
+    there: a capture, and the dry run before it, leave the counters as
+    they were and yield the launches they made (`launches_of`), and each
+    replay of the graph adds those launches (`count_launches`). A
+    replayed program then counts exactly what the same call made
+    eagerly counts.
 """
 from __future__ import annotations
 
@@ -111,6 +118,26 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for k in _LAUNCHES:
         _LAUNCHES[k] = 0
+
+
+def launches_of(fn) -> dict:
+    """Run `fn` (a graph's capture, or the dry run before it) and return
+    {kernel: launches} it made, with every counter put back as it was:
+    neither is work of the workload."""
+    before = dict(_LAUNCHES)
+    try:
+        fn()
+        return {k: n - before[k] for k, n in _LAUNCHES.items()
+                if n != before[k]}
+    finally:
+        _LAUNCHES.update(before)
+
+
+def count_launches(launches: dict) -> None:
+    """Add a captured graph's launches ({kernel: count}, from
+    `launches_of`) at one replay of it."""
+    for k, n in launches.items():
+        _LAUNCHES[k] += n
 
 
 # --------------------------------------------------------------- build

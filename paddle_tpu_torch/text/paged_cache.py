@@ -341,17 +341,19 @@ def _prefill_pages(ks, true_len, table_row, block_size):
     """Prefill-scatter prep: ks [L, S, H_kv, D] (S a multiple of
     block_size) -> per-page tiles [L, P_b, H_kv, bs, D], destination
     block ids [P_b] (pages at or past `true_len` -> trash) and a per-token
-    validity mask [P_b, bs]."""
+    validity mask [P_b, bs]. `true_len` is an int or a 0-dim tensor (a
+    serving program's static input), compared on the device, never read
+    back."""
     l, s, hkv, d = ks.shape
     bs = int(block_size)
     p_b = s // bs
     tiles = ks.reshape(l, p_b, bs, hkv, d).transpose(2, 3)
     pos = torch.arange(p_b, device=ks.device)[:, None] * bs \
         + torch.arange(bs, device=ks.device)[None, :]
-    page_valid = pos[:, 0] < int(true_len)
-    dest = torch.where(page_valid, table_row[:p_b].to(ks.device).long(),
+    tok_valid = pos < true_len
+    dest = torch.where(tok_valid[:, 0], table_row[:p_b].to(ks.device).long(),
                        TRASH_BLOCK)
-    return tiles, dest, pos < int(true_len)
+    return tiles, dest, tok_valid
 
 
 def scatter_prefill(cache, ks, true_len, table_row, block_size):

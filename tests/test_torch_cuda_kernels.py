@@ -726,6 +726,159 @@ def test_prefix_cache_engine_on_card_matches_cpu_engine(card, weight_quant,
     assert (counts["quant_matmul"] > 0) == (weight_quant == "int4")
 
 
+def _graph_stream(seed=4):
+    """Requests (prompt, new tokens) that reach every serving program at
+    16-token chunks and 8-token blocks: short cold prompts (whole-prompt
+    prefill), prompts behind a shared 24-token prefix (chunks behind
+    cached blocks), a whole-prompt repeat (copy-on-write) and a cold
+    50-token prompt (a chunk ladder)."""
+    rs = np.random.RandomState(seed)
+    shared = rs.randint(0, 256, (24,))
+    prompts = [rs.randint(0, 256, (n,)) for n in (5, 11)]
+    prompts += [np.concatenate([shared, rs.randint(0, 256, (n,))])
+                for n in (5, 8, 13)]
+    prompts += [prompts[3].copy(), rs.randint(0, 256, (50,)),
+                rs.randint(0, 256, (3,))]
+    return [(p, n) for p, n in zip(prompts, (4, 6, 4, 5, 3, 5, 4, 7))]
+
+
+def _serve_graph_stream(model, dev, capture, stream, **kw):
+    """`stream` through an engine on `dev` (prefix cache on, 16-token
+    chunks), its first request alone to completion so that the rest hit
+    its prefix; `capture` False runs the same programs eagerly. Returns
+    (engine, outputs, launch counts of the run)."""
+    from paddle_tpu_torch.inference import ServingEngine
+
+    eng = ServingEngine(model, max_slots=2, kv_block_size=8, device=dev,
+                        chunked_prefill_tokens=16, **kw)
+    eng._capture = capture and eng._capture
+    _cuda_common.reset_launch_counts()
+    rids = [eng.add_request(stream[0][0], max_new_tokens=stream[0][1])]
+    eng.run()
+    rids += [eng.add_request(p, max_new_tokens=n) for p, n in stream[1:]]
+    out = eng.run()
+    return eng, [out[r].tolist() for r in rids], \
+        _cuda_common.launch_counts()
+
+
+@pytest.mark.parametrize("weight_quant,kv_cache_dtype", [
+    ("none", "model"), ("int4", "int4"), ("int8", "int8")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_graph_engine_matches_eager_engine(card, dtype, weight_quant,
+                                           kv_cache_dtype):
+    """Every decode tick, whole-prompt prefill and chunk replays a CUDA
+    graph captured once per key: a tiny LLaMA (f32 and bf16; bf16 and
+    int4 weights through K1's and K8's tensor-core bodies) gives the
+    eager engine's greedy tokens through them, with every kernel's
+    launches equal to the eager run's (a replay adds what its capture
+    launched), one graph per key of the CPU engine's table, and the
+    prefix cache's copy-on-write inside the chunk graph."""
+    from paddle_tpu_torch.text.models import (LlamaForCausalLM,
+                                              llama_tiny_config)
+
+    torch.manual_seed(0)
+    cfg = llama_tiny_config(num_key_value_heads=2)
+    cpu = LlamaForCausalLM(cfg, device="cpu")
+    gpu = LlamaForCausalLM(cfg, device=card, dtype=dtype)
+    gpu.load_state_dict(cpu.state_dict())
+    stream = _graph_stream()
+    kw = dict(weight_quant=weight_quant, kv_cache_dtype=kv_cache_dtype)
+    on_cpu, cpu_out, _ = _serve_graph_stream(cpu, "cpu", False, stream,
+                                             **kw)
+    eager, want, want_counts = _serve_graph_stream(gpu, card, False, stream,
+                                                   **kw)
+    graph, got, counts = _serve_graph_stream(gpu, card, True, stream, **kw)
+    assert got == want
+    assert counts == want_counts
+    assert counts[KERNEL_NAMES[kv_cache_dtype]] \
+        == graph.stats()["steps"] * cfg.num_hidden_layers
+    assert counts["flash_attention_fwd"] > 0
+    assert (counts["quant_matmul"] > 0) == (weight_quant == "int4")
+    st = graph._graph_stats()
+    assert eager._graph_stats()["graphs_captured"] == {}
+    assert set(graph._programs) == set(on_cpu._programs)
+    assert sum(st["graphs_captured"].values()) == len(on_cpu._programs)
+    assert set(st["graphs_captured"]) == {
+        "serving.decode", "serving.prefill", "serving.chunk_prefill"}
+    assert all(p.graph is not None for p in graph._programs.values())
+    for key in ("prefix_blocks_hit", "prefill_chunks", "steps",
+                "kv_pool_free", "prefix_cached_blocks"):
+        assert graph.stats()[key] == eager.stats()[key], key
+    assert graph.stats()["prefix_blocks_hit"] > 0
+    assert graph.prefix_cache.referenced_blocks == 0
+    if dtype == torch.float32:
+        assert got == cpu_out
+
+
+def test_graph_engine_sampling_repeats_and_keeps_greedy_rows(card):
+    """A seeded mixed stream (sampling keys at every site: the sampling
+    generator registered with each sampling graph) repeats between two
+    graph engines with one seed; another seed draws other tokens; the
+    greedy requests keep the eager engine's tokens."""
+    from paddle_tpu_torch.text.models import (LlamaForCausalLM,
+                                              llama_tiny_config)
+
+    torch.manual_seed(0)
+    gpu = LlamaForCausalLM(llama_tiny_config(num_key_value_heads=2),
+                           device=card)
+    stream = _graph_stream(5)
+    sampled = (0, 3, 6)
+
+    def run(capture, seed):
+        from paddle_tpu_torch.inference import ServingEngine
+
+        eng = ServingEngine(gpu, max_slots=2, kv_block_size=8, device=card,
+                            chunked_prefill_tokens=16, seed=seed)
+        eng._capture = capture
+        rids = [eng.add_request(p, max_new_tokens=n, do_sample=i in sampled,
+                                temperature=1.3, top_k=40, top_p=0.95)
+                for i, (p, n) in enumerate(stream)]
+        out = eng.run()
+        return eng, [out[r].tolist() for r in rids]
+
+    eng, a = run(True, 7)
+    _, b = run(True, 7)
+    _, c = run(True, 8)
+    _, eager = run(False, 7)
+    assert a == b
+    assert any(a[i] != c[i] for i in sampled)
+    for i in range(len(stream)):
+        if i not in sampled:
+            assert a[i] == eager[i], i
+    assert any(k[2] for k in eng._programs)          # sampling keys ran
+
+
+def test_graph_engine_captures_nothing_after_warmup(card):
+    """Warm every bucket of an 8-slot stream, finish_warmup(), then 20
+    steady ticks replay graphs only: zero captures, no new key."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.text.models import (LlamaForCausalLM,
+                                              llama_tiny_config)
+
+    torch.manual_seed(0)
+    gpu = LlamaForCausalLM(llama_tiny_config(num_key_value_heads=2),
+                           device=card, dtype=torch.bfloat16)
+    eng = ServingEngine(gpu, max_slots=8, kv_block_size=8, device=card)
+    rs = np.random.RandomState(0)
+    # slot buckets 1, 2, 4 and 8 and prompt bucket 16
+    for n in range(8):
+        eng.add_request(rs.randint(0, 256, (9,)), max_new_tokens=2 + 3 * n)
+    eng.run()
+    eng.finish_warmup()
+    keys = set(eng._programs)
+    for n in range(8):
+        eng.add_request(rs.randint(0, 256, (12,)), max_new_tokens=24)
+    ticks = 0
+    while eng.has_work() and ticks < 30:
+        eng.step()
+        ticks += 1
+    assert ticks >= 20
+    st = eng._graph_stats()
+    assert st["captures_after_warmup"] == 0, st
+    assert set(eng._programs) == keys
+    assert st["graphs_captured"]["serving.decode"] == 4
+
+
 def _rel_err(got, want):
     assert got.dtype == want.dtype and got.shape == want.shape
     assert torch.isfinite(got.float()).all()
