@@ -106,10 +106,14 @@ Phases (any failure exits non-zero; nothing is caught):
   7d. serve_graph_steady: an 8-slot engine at its defaults warms every
      bucket of its stream, finish_warmup(), then at least 20 steady
      ticks capture nothing;
-  8. train: LLaMA at the 1B geometry (bf16 O2 via amp.decorate with bf16
-     AdamW moments, AdamW lr 1e-4, random weights from seed 0) takes
-     training steps on one batch of 4 x 1024 seeded ids, labels = ids,
-     with FLAGS_pallas_fused_ops at its default (True). First one step's
+  8. train: on a clean device (a garbage collection, the cache emptied,
+     no serving engine alive; every TRAIN* line prints the memory
+     allocated at its start, which may exceed the phase's own parameters,
+     gradients and optimizer state by ALLOC_SLACK_GB at most), LLaMA at
+     the 1B geometry (bf16 O2 via amp.decorate with bf16 AdamW moments,
+     AdamW lr 1e-4, random weights from seed 0, the chunked fused CE)
+     takes training steps on one batch of 4 x 1024 seeded ids, labels =
+     ids, with FLAGS_pallas_fused_ops at its default (True). First one step's
      gradients through the kernels (K1 forward, K2 backward, the fused
      RMSNorm K3, rotary K4 and SwiGLU K5 both ways) are held against the
      same step through the plain compositions and the plain attention
@@ -124,6 +128,19 @@ Phases (any failure exits non-zero; nothing is caught):
      plain compositions; no K3-K5 launch), then the fused step again, so
      ms per step and peak memory of both come from one card in one run;
      no LLaMA phase launches K3-LN or K6;
+ 10b. train_recompute: bench.py `bench_llama_1b`'s configuration, TRAIN's
+     with use_recompute=True, at the granularities flash_resident, full
+     and mlp, a model each from seed 0 on a clean device: flash_resident
+     takes the gradient check against the plain side and prints its
+     largest difference from the same model's step without recompute;
+     each takes 6 counted steps with exact launches (`_llama_launches`:
+     K1 20 a step under flash_resident and mlp, 40 under full), falling
+     losses, and flash_resident's peak must lie below TRAIN's; then one
+     profiled step each (PROFILE_TRAIN_RECOMPUTE_<GRANULARITY>);
+ 10c. ce_chunk: the fused linear cross-entropy alone, forward +
+     backward, at LLaMA 1B's head (the vocab path, 5 slices of 6400) and
+     GPT-3 medium's (the token path, 1024-token chunks), bf16, against
+     its unchunked plain version: ms, peak memory and error (CE_TOL);
  11. train_gpt: GPT-3 medium (vocab 50304, hidden 1024, 24 layers, 16
      heads; bf16 O2, AdamW lr 1e-4) on 4 x 1024 seeded ids, labels = ids:
      one step's gradients through the kernels held against the same step
@@ -211,6 +228,25 @@ K2_TOL = 2 ** -7
 GRAD_TOL = 2 ** -4
 #: the training phase: batch x sequence of seeded ids, counted steps
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6
+#: TRAIN_RECOMPUTE's granularities, bench.py `bench_llama_1b`'s first
+#: rung (flash_resident at batch 4) first
+RECOMPUTE_GRANS = ("flash_resident", "full", "mlp")
+#: device memory a training phase may find allocated at its start beyond
+#: the allocator's blocks of its own parameters, buffers, gradients and
+#: optimizer state: torch's cuBLAS workspaces, 32 MiB per stream that ran
+#: a GEMM (three such blocks before every training phase on an H100:
+#: 0.10 GB), the ids and small per-stream buffers. The serve phases'
+#: engines and anything they leave behind must be gone by then (a
+#: dropped engine's KV pool alone is gigabytes)
+ALLOC_SLACK_GB = 0.15
+#: CE_CHUNK: the chunked loss vs its unchunked plain version from the
+#: same bf16 inputs. The loss within 1e-4 relative (the same exact bf16
+#: products summed in f32 in another order); dH and dW in bf16 within
+#: 2^-7 of each tensor's largest |value|: each side rounds its f32 result
+#: once to bf16 (2^-8 relative), and the token path also rounds dlogits
+#: to bf16 before its two GEMMs, as the reference does (2^-9 relative per
+#: term, random in sign over >= 1024 terms)
+CE_TOL = {"loss": 1e-4, "grad": 2 ** -7}
 
 #: the quantized serves' teacher-forced replays. Both sides use the same
 #: quantized weights (identical packed bytes); they differ, as above, by
@@ -1873,15 +1909,16 @@ def profile_chunk(model, tag="PROFILE_CHUNK"):
     _say(tag, rec)
 
 
-def _train_model():
-    """The 1B model decorated O2 (bf16 params, bf16 AdamW moments) with
-    its optimizer, and the seeded batch."""
+def _train_model(**cfg_kw):
+    """The 1B model (with `cfg_kw` on top of CFG_1B) decorated O2 (bf16
+    params, bf16 AdamW moments) with its optimizer, and the seeded
+    batch."""
     import torch
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.text.models import LlamaConfig, LlamaForCausalLM
 
-    cfg = LlamaConfig(**CFG_1B)
+    cfg = LlamaConfig(**CFG_1B, **cfg_kw)
     torch.manual_seed(0)
     model = LlamaForCausalLM(cfg, device="cuda")
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
@@ -1897,10 +1934,11 @@ def _plain_attention_loss(model, ids):
     fused-CE branch) through the plain compositions alone: every layer is
     `_layer_forward_prefill` (RMSNorm, rotary and SwiGLU composed in
     torch, as with FLAGS_pallas_fused_ops off) with its attention the
-    plain forward, differentiated by autograd instead of K2, and the final
-    norm is the composition too. No kernel of the model runs."""
+    plain forward, differentiated by autograd instead of K2, the final
+    norm is the composition too, and the loss the unchunked plain
+    version. No kernel of the model runs."""
     from paddle_tpu_torch.incubate.nn.functional import \
-        fused_linear_cross_entropy
+        fused_linear_cross_entropy_reference
     from paddle_tpu_torch.ops.flash_attention import \
         flash_attention_reference
     from paddle_tpu_torch.text.generation import (_layer_forward_prefill,
@@ -1912,8 +1950,8 @@ def _plain_attention_loss(model, ids):
         x = _layer_forward_prefill(x, _layer_weights(layer), layer.spec,
                                    m.rope_cos, m.rope_sin,
                                    attention=flash_attention_reference)[0]
-    return fused_linear_cross_entropy(_rms_norm(x, m.norm.weight, m.norm.eps),
-                                      model.lm_head.weight.T, ids)
+    return fused_linear_cross_entropy_reference(
+        _rms_norm(x, m.norm.weight, m.norm.eps), model.lm_head.weight.T, ids)
 
 
 def _grad_check(model, loss_fn, plain_loss_fn, tag, seed=1234):
@@ -1965,17 +2003,72 @@ def _grad_check(model, loss_fn, plain_loss_fn, tag, seed=1234):
     return checked
 
 
+def _own_tensors(model, opt):
+    """The model's parameters, buffers and gradients and the optimizer's
+    state: what a training phase itself holds between steps."""
+    import torch
+
+    tensors = [t for p in model.parameters() for t in (p, p.grad)
+               if t is not None] + list(model.buffers())
+    return tensors + [t for st in opt.state.values() for t in st.values()
+                      if isinstance(t, torch.Tensor)]
+
+
+def _memory_at_start(own, top=8):
+    """The device memory allocated now, split by the allocator's snapshot
+    into the blocks that `own`'s storages start and the rest: {
+    "allocated_at_start_gb", "own_gb", "other_allocated_mb_largest" (the
+    sizes of the largest other blocks in MiB, largest first)}."""
+    import torch
+
+    starts = {t.untyped_storage().data_ptr() for t in own}
+    mine, other = 0, []
+    for seg in torch.cuda.memory_snapshot():
+        for b in seg["blocks"]:
+            if b["state"] != "active_allocated":
+                continue
+            if b["address"] in starts:
+                mine += b["size"]
+            else:
+                other.append(b["size"])
+    return {"allocated_at_start_gb": torch.cuda.memory_allocated() / 1e9,
+            "own_gb": mine / 1e9,
+            "other_allocated_mb_largest": [
+                n / 2 ** 20 for n in sorted(other, reverse=True)[:top]]}
+
+
+def _clean_device():
+    """Before a training phase: collect garbage (a serve phase's engines
+    hold timers, which make reference cycles), hand cached blocks back,
+    and check that no serving engine is alive."""
+    import torch
+    from paddle_tpu_torch.inference import ServingEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    alive = sum(isinstance(o, ServingEngine) for o in gc.get_objects())
+    assert alive == 0, f"{alive} serving engines still alive"
+
+
 def _timed_steps(model, opt, ids, steps, labels=None, reseed=None):
     """`steps` training steps (labels = ids unless given) from a zeroed
     peak-memory counter and zeroed launch counts: (losses, step walls in
-    s, peak GB, launch counts). `reseed`, when given, reseeds the default
-    generators before each step, so that every step draws the same
-    dropout masks and the losses compare the updates alone."""
+    s, peak GB, launch counts, {"allocated_at_start_gb", "own_gb",
+    "other_allocated_mb_largest"}). What is allocated at the start may
+    exceed the allocator's blocks of the phase's own parameters, buffers,
+    gradients and optimizer state (`_own_tensors`) by ALLOC_SLACK_GB at
+    most.
+    `reseed`, when given, reseeds the default generators before each
+    step, so that every step draws the same dropout masks and the losses
+    compare the updates alone."""
     import torch
     from paddle_tpu_torch.ops import _cuda_common
 
     labels = ids if labels is None else labels
     torch.cuda.synchronize()
+    start = _memory_at_start(_own_tensors(model, opt))
+    assert start["allocated_at_start_gb"] <= start["own_gb"] \
+        + ALLOC_SLACK_GB, start
     torch.cuda.reset_peak_memory_stats()
     _cuda_common.reset_launch_counts()
     losses, walls = [], []
@@ -1987,7 +2080,7 @@ def _timed_steps(model, opt, ids, steps, labels=None, reseed=None):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t1)
     return (losses, walls, torch.cuda.max_memory_allocated() / 1e9,
-            _cuda_common.launch_counts())
+            _cuda_common.launch_counts(), start)
 
 
 def train():
@@ -2006,7 +2099,8 @@ def train():
                              lambda: _plain_attention_loss(model, ids),
                              "TRAIN_GRAD_CHECK")
     layers = model.config.num_hidden_layers
-    losses, walls, peak, counts = _timed_steps(model, opt, ids, TRAIN_STEPS)
+    losses, walls, peak, counts, at_start = _timed_steps(model, opt, ids,
+                                                         TRAIN_STEPS)
     steady = walls[1:]
     ms = 1e3 * statistics.median(steady)
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -2019,21 +2113,42 @@ def train():
         "first_step_ms": 1e3 * walls[0],
         "tokens_per_s": tokens / (ms / 1e3),
         "achieved_tflops": 6 * n_params * tokens / (ms / 1e3) / 1e12,
+        **at_start,
         "max_memory_allocated_gb": peak, "losses": losses,
         "launches": counts})
     assert all(np.isfinite(losses)), losses
     assert losses[-1] < losses[0], losses
-    # per step: K1, K2, K5 once per layer (each way); K3 twice per layer
-    # and once for the final norm, each way; K4 once per layer each way;
-    # the AdamW update once per parameter (the per-parameter path)
+    want = _llama_launches(None, layers, with_grads)
+    for name, per_step in want.items():
+        assert counts[name] == TRAIN_STEPS * per_step, (name, counts)
+    return model, opt, ids, counts, peak
+
+
+def _llama_launches(granularity, layers, with_grads):
+    """{kernel: launches per step} of the 1B LLaMA step (flag on) under a
+    recompute granularity (None: no recompute). Without recompute: K1,
+    both K2 kernels and K5 once per layer (each way); K3 twice per layer
+    and once for the final norm, each way; K4 once per layer each way;
+    the AdamW update once per parameter (the per-parameter path). A
+    recomputed layer ("full", "flash_resident") runs its forward again in
+    the backward: K3 twice, K4 and K5 once more per layer, and K1 once
+    more under "full" (the flash_resident policy keeps K1's o and lse).
+    "mlp" recomputes the MLP half only: its post-attention norm (the
+    plain RMS kind; the fused add+norm does not run) and K5's forward
+    once more per layer."""
     want = {"flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
             "flash_attention_bwd_dkv": layers, "swiglu_fwd": layers,
             "swiglu_bwd": layers, "fused_rms_norm_fwd": 2 * layers + 1,
             "fused_rms_norm_bwd": 2 * layers + 1, "rope_qk": 2 * layers,
             "fused_adam": with_grads}
-    for name, per_step in want.items():
-        assert counts[name] == TRAIN_STEPS * per_step, (name, counts)
-    return model, opt, ids, counts
+    if granularity in ("full", "flash_resident"):
+        want.update(fused_rms_norm_fwd=4 * layers + 1, rope_qk=3 * layers,
+                    swiglu_fwd=2 * layers)
+    if granularity == "full":
+        want["flash_attention_fwd"] = 2 * layers
+    if granularity == "mlp":
+        want.update(fused_rms_norm_fwd=3 * layers + 1, swiglu_fwd=2 * layers)
+    return want
 
 
 def train_unfused(model, opt, ids):
@@ -2046,18 +2161,19 @@ def train_unfused(model, opt, ids):
     layers = model.config.num_hidden_layers
     set_flags({"FLAGS_pallas_fused_ops": False})
     try:
-        losses, walls, peak, counts = _timed_steps(model, opt, ids,
-                                                   UNFUSED_STEPS)
+        losses, walls, peak, counts, at_start = _timed_steps(
+            model, opt, ids, UNFUSED_STEPS)
     finally:
         set_flags({"FLAGS_pallas_fused_ops": True})
-    f_losses, f_walls, f_peak, f_counts = _timed_steps(model, opt, ids,
-                                                       UNFUSED_STEPS)
+    f_losses, f_walls, f_peak, f_counts, _ = _timed_steps(model, opt, ids,
+                                                          UNFUSED_STEPS)
     ms = 1e3 * statistics.median(walls[1:])
     _say("TRAIN_UNFUSED", {
         "steps": UNFUSED_STEPS, "ms_per_step_median": ms,
         "ms_per_step_min": 1e3 * min(walls[1:]),
         "ms_per_step_max": 1e3 * max(walls[1:]),
         "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+        **at_start,
         "max_memory_allocated_gb": peak, "losses": losses,
         "launches": counts,
         "fused_again_ms_per_step_median": 1e3 * statistics.median(
@@ -2187,32 +2303,164 @@ def _plain_path(loss_fn):
     return run
 
 
-def _counted_train(tag, model, opt, ids, labels, units, want, reseed=None):
-    """TRAIN_STEPS counted steps (`_timed_steps`). Prints `tag` with ms
-    per step (median of steps 2..), `units` ((name, count per step)) per
-    second and peak memory; asserts finite, falling losses and launches of
-    exactly `want` per step for every kernel (0 for the others). Returns
-    the counts."""
-    losses, walls, peak, counts = _timed_steps(model, opt, ids, TRAIN_STEPS,
-                                               labels, reseed)
+def _counted_train(tag, model, opt, ids, labels, units, want, reseed=None,
+                   extra=None):
+    """TRAIN_STEPS counted steps (`_timed_steps`). Prints `tag` (with the
+    fields of `extra` first) with ms per step (median of steps 2..),
+    `units` ((name, count per step)) per second, the memory allocated at
+    the start and the peak; asserts finite, falling losses and launches
+    of exactly `want` per step for every kernel (0 for the others).
+    Returns (counts, peak GB)."""
+    losses, walls, peak, counts, at_start = _timed_steps(
+        model, opt, ids, TRAIN_STEPS, labels, reseed)
     steady = walls[1:]
     ms = 1e3 * statistics.median(steady)
     name, per_step = units
     n_params = sum(p.numel() for p in model.parameters())
     _say(tag, {
+        **(extra or {}),
         "params": n_params, "batch": list(ids.shape), "steps": TRAIN_STEPS,
         "ms_per_step_median": ms, "ms_per_step_min": 1e3 * min(steady),
         "ms_per_step_max": 1e3 * max(steady),
         "first_step_ms": 1e3 * walls[0],
         f"{name}_per_s": per_step / (ms / 1e3),
         "achieved_tflops": 6 * n_params * ids.numel() / (ms / 1e3) / 1e12,
+        **at_start,
         "max_memory_allocated_gb": peak, "losses": losses,
         "launches": counts})
     assert all(np.isfinite(losses)), losses
     assert losses[-1] < losses[0], losses
     got = {n: c for n, c in counts.items() if c}
     assert got == {n: TRAIN_STEPS * c for n, c in want.items()}, (got, want)
-    return counts
+    return counts, peak
+
+
+def _recompute_diff(model, ids, seed=1234):
+    """The largest difference, relative to each tensor's largest |value|,
+    between one step's gradients with the model's recompute and the same
+    model's step without it (both through the kernels; no update)."""
+    import torch
+
+    grads = []
+    for use in (True, False):
+        model.config.use_recompute = use
+        torch.manual_seed(seed)
+        model(ids, labels=ids).backward()
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+        model.zero_grad(set_to_none=True)
+    model.config.use_recompute = True
+    worst = max((a - grads[1][n]).abs().max().item()
+                / grads[1][n].float().abs().max().item()
+                for n, a in grads[0].items())
+    del grads
+    return worst
+
+
+def train_recompute():
+    """TRAIN_RECOMPUTE: bench.py `bench_llama_1b`'s configuration (the 1B
+    model, bf16 O2, AdamW lr 1e-4, batch 4 x 1024, the chunked fused CE,
+    FLAGS_pallas_fused_ops on) with `use_recompute=True` at each of
+    RECOMPUTE_GRANS, each on its own model built from seed 0 on a clean
+    device, TRAIN_STEPS counted steps each with exact launches
+    (`_llama_launches`) and one profiled step. flash_resident first takes
+    the gradient check against the plain side and prints its largest
+    difference from the same model's step without recompute. Returns
+    {granularity: (launch counts, peak GB)}."""
+    import torch
+
+    out = {}
+    for gran in RECOMPUTE_GRANS:
+        _clean_device()
+        t0 = time.perf_counter()
+        model, opt, ids = _train_model(use_recompute=True,
+                                       recompute_granularity=gran)
+        torch.cuda.synchronize()
+        extra = {"granularity": gran, "setup_s": time.perf_counter() - t0}
+        with_grads = len(list(model.parameters()))
+        if gran == "flash_resident":
+            with_grads = _grad_check(
+                model, lambda: model(ids, labels=ids),
+                lambda: _plain_attention_loss(model, ids),
+                "TRAIN_RECOMPUTE_GRAD_CHECK")
+            extra["max_rel_diff_from_no_recompute"] = _recompute_diff(
+                model, ids)
+            assert extra["max_rel_diff_from_no_recompute"] <= GRAD_TOL
+        want = _llama_launches(gran, model.config.num_hidden_layers,
+                               with_grads)
+        out[gran] = _counted_train(
+            "TRAIN_RECOMPUTE", model, opt, ids, ids,
+            ("tokens", ids.numel()), want, extra=extra)
+        profile_train(lambda: _train_step(model, opt, ids, ids),
+                      f"PROFILE_TRAIN_RECOMPUTE_{gran.upper()}")
+        del model, opt, ids
+    _clean_device()
+    return out
+
+
+def ce_chunk(reps=10):
+    """CE_CHUNK: the loss alone, forward + backward, at LLaMA 1B's head
+    ([4096, 2048] x [2048, 32000]: the vocab path, 5 slices of 6400) and
+    GPT-3 medium's ([4096, 1024] x [1024, 50304]: the token path,
+    1024-token chunks), bf16 hidden states and head weights from seed 0
+    (weight [V, H], passed transposed as the models pass lm_head.weight.T),
+    beside the unchunked plain version on the same inputs: ms (`_time_ms`,
+    median of `reps` after two warm-ups), peak device memory
+    above the inputs, and the chunked side's error against the plain side
+    (CE_TOL)."""
+    import torch
+    from paddle_tpu_torch.incubate.nn.functional import (
+        fused_linear_cross_entropy, fused_linear_cross_entropy_reference)
+    from paddle_tpu_torch.incubate.nn.functional.fused_loss import \
+        _best_chunk
+
+    for tag, hid, vocab in (("llama", CFG_1B["hidden_size"],
+                             CFG_1B["vocab_size"]),
+                            ("gpt", CFG_GPT["hidden_size"],
+                             CFG_GPT["vocab_size"])):
+        n = TRAIN_BATCH * TRAIN_SEQ
+        g = torch.Generator(device="cuda").manual_seed(0)
+        h = (torch.randn(n, hid, device="cuda", generator=g)
+             .bfloat16().requires_grad_(True))
+        w = (torch.randn(vocab, hid, device="cuda", generator=g) * 0.02
+             ).bfloat16().requires_grad_(True)
+        lab = torch.randint(0, vocab, (n,), device="cuda", generator=g)
+        rec = {"shape": [n, hid, vocab],
+               "path": "vocab" if _best_chunk(vocab, 8192) else "tokens",
+               "vocab_chunk": _best_chunk(vocab, 8192)}
+        results = {}
+        for side, fn in (("chunked", fused_linear_cross_entropy),
+                         ("plain", fused_linear_cross_entropy_reference)):
+            def step():
+                h.grad = w.grad = None
+                loss = fn(h, w.T, lab)
+                loss.backward()
+                return loss
+
+            step()
+            step()
+            h.grad = w.grad = None
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loss = step()
+            torch.cuda.synchronize()
+            rec[f"{side}_peak_above_inputs_gb"] = (
+                torch.cuda.max_memory_allocated() - base) / 1e9
+            results[side] = (loss.item(), h.grad.float(), w.grad.float())
+            rec[f"{side}_ms"] = _time_ms(step, reps=reps, warmup=0)
+        (lc, dhc, dwc), (lp, dhp, dwp) = results["chunked"], results["plain"]
+        rec.update(loss=lc, plain_loss=lp,
+                   loss_rel_err=abs(lc - lp) / abs(lp),
+                   dh_rel_err=((dhc - dhp).abs().max()
+                               / dhp.abs().max()).item(),
+                   dw_rel_err=((dwc - dwp).abs().max()
+                               / dwp.abs().max()).item(), tol=CE_TOL)
+        _say(f"CE_CHUNK_{tag.upper()}", rec)
+        assert rec["loss_rel_err"] <= CE_TOL["loss"], rec
+        assert max(rec["dh_rel_err"], rec["dw_rel_err"]) <= CE_TOL["grad"], \
+            rec
+        del h, w, lab, results, dhc, dwc, dhp, dwp
+        torch.cuda.empty_cache()
 
 
 def train_gpt():
@@ -2250,8 +2498,8 @@ def train_gpt():
             "fused_layer_norm_fwd": 2 * layers + 1,
             "fused_layer_norm_bwd": 2 * layers + 1,
             "fused_adam": len({p.dtype for p in model.parameters()})}
-    counts = _counted_train("TRAIN_GPT", model, opt, ids, ids,
-                            ("tokens", ids.numel()), want)
+    counts, _ = _counted_train("TRAIN_GPT", model, opt, ids, ids,
+                               ("tokens", ids.numel()), want)
     profile_train(lambda: _train_step(model, opt, ids, ids),
                   "PROFILE_TRAIN_GPT")
     return counts
@@ -2297,8 +2545,8 @@ def train_bert():
             "fused_layer_norm_bwd": 2 * layers + 1,
             "dropout_add_fwd": 2 * layers, "dropout_add_bwd": 2 * layers,
             "fused_adam": with_grads}
-    counts = _counted_train("TRAIN_BERT", model, opt, ids, labels,
-                            ("sequences", BERT_BATCH), want, reseed=4321)
+    counts, _ = _counted_train("TRAIN_BERT", model, opt, ids, labels,
+                               ("sequences", BERT_BATCH), want, reseed=4321)
     profile_train(lambda: _train_step(model, opt, ids, labels),
                   "PROFILE_TRAIN_BERT")
     return counts
@@ -3162,24 +3410,32 @@ def main():
     serve_graph_steady(model)
     del served, prefixed
     del model                     # the serving weights; TRAIN builds its own
-    torch.cuda.empty_cache()
     phases["serve"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    tmodel, opt, ids, counts_train = train()
+    _clean_device()
+    tmodel, opt, ids, counts_train, train_peak = train()
     profile_train(lambda: _train_step(tmodel, opt, ids, ids))
     train_unfused(tmodel, opt, ids)
-    for cnt in (counts, counts_q4, counts_q8, counts_train,
-                *counts_prefix.values()):
-        assert all(cnt[n] == 0 for n in LN_DROPOUT_KERNELS), cnt
     del tmodel, opt, ids
-    torch.cuda.empty_cache()
     phases["train"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    recompute = train_recompute()
+    assert recompute["flash_resident"][1] < train_peak, (recompute,
+                                                         train_peak)
+    ce_chunk()
+    counts_recompute = {g: c for g, (c, _) in recompute.items()}
+    for cnt in (counts, counts_q4, counts_q8, counts_train,
+                *counts_recompute.values(), *counts_prefix.values()):
+        assert all(cnt[n] == 0 for n in LN_DROPOUT_KERNELS), cnt
+    phases["train_recompute"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _clean_device()
     counts_gpt = train_gpt()
-    torch.cuda.empty_cache()
+    _clean_device()
     counts_bert = train_bert()
     for cnt in (counts, counts_q4, counts_q8, counts_train, counts_gpt,
-                counts_bert, *counts_prefix.values()):
+                counts_bert, *counts_recompute.values(),
+                *counts_prefix.values()):
         assert all(cnt[n] == 0 for n in VARLEN_KERNELS + FM_KERNELS), cnt
     torch.cuda.empty_cache()
     phases["train_gpt_bert"] = time.perf_counter() - t0
@@ -3245,6 +3501,8 @@ def main():
         "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "paddle_tpu/ops/pallas_attention.py:104",
         "launches": counts_train[flash_train["name"]],
+        "launches_recompute": {g: c[flash_train["name"]]
+                               for g, c in counts_recompute.items()},
         "max_abs_err": flash_train["max_abs_err"], "ms": flash_train["ms"],
         "varlen_full_ms": flash_train["varlen_full_ms"],
         "plain_ms": flash_train["plain_ms"],
@@ -3260,6 +3518,8 @@ def main():
             "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
             "replaces": f"paddle_tpu/ops/pallas_attention.py:{line}",
             "launches": counts_train[kname],
+            "launches_recompute": {g: c[kname]
+                                   for g, c in counts_recompute.items()},
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "varlen_full_ms": rec["varlen_full_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
@@ -3275,6 +3535,8 @@ def main():
             "source": "paddle_tpu_torch/csrc/fused_norm.cu",
             "replaces": f"paddle_tpu/ops/pallas_norm.py:{line}",
             "launches": counts_train[rec["name"]],
+            "launches_recompute": {g: c[rec["name"]]
+                                   for g, c in counts_recompute.items()},
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}

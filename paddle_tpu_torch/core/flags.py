@@ -52,6 +52,13 @@ _FLAGS = {
     # and SwiGLU through the fused ops (nn.functional -> ops.fused_norm:
     # K3-K5 on CUDA tensors); False runs the plain compositions
     "FLAGS_pallas_fused_ops": _from_env("FLAGS_pallas_fused_ops", True),
+    # fused_linear_cross_entropy's chunk axis: "vocab" | "tokens" | "auto"
+    # (auto = vocab when a multiple-of-128 vocab divisor exists, else
+    # tokens)
+    "FLAGS_flce_chunk_axis": _from_env("FLAGS_flce_chunk_axis", "auto"),
+    # tokens per [chunk, H] @ [H, V] GEMM of the token-chunked fused CE
+    # path (<= 0 disables it)
+    "FLAGS_flce_token_chunk": _from_env("FLAGS_flce_token_chunk", 1024),
 }
 
 

@@ -3,7 +3,8 @@ import math
 
 from ....nn import functional as F
 from ....nn.functional import fused_dropout_add  # noqa: F401
-from .fused_loss import fused_linear_cross_entropy  # noqa: F401
+from .fused_loss import (fused_linear_cross_entropy,  # noqa: F401
+                         fused_linear_cross_entropy_reference)
 
 
 def memory_efficient_attention(query, key, value, bias=None, cu_seqlens_q=None,

@@ -146,6 +146,22 @@ def _sample_batched(logits, generator, do_sample, temperature, top_k, top_p):
 #: a sampling program's per-row inputs, as `_sample_batched` takes them
 _SAMP_KEYS = ("do_sample", "temperature", "top_k", "top_p")
 
+#: the side stream every engine on a device captures and replays its
+#: graphs on. One per device, not one per engine: torch keeps a cuBLAS
+#: workspace (32 MiB on sm90) for each stream that runs a GEMM until the
+#: process ends, so a stream per engine left 32 MiB behind every engine
+#: (`generate()` builds one per call). Engines run their programs one at
+#: a time, and each replay waits for the caller's stream and it for the
+#: replay, so sharing the stream orders nothing that was not ordered
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream(device) -> torch.cuda.Stream:
+    stream = _SIDE_STREAMS.get(device)
+    if stream is None:
+        stream = _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
 
 def _next_tokens(logits, sample):
     """The step's output: the f32 logits [B, V] themselves when `sample`
@@ -789,9 +805,10 @@ class ServingEngine:
         return prog.run(values)
 
     def _capture_program(self, prog, any_sample):
-        """Capture `prog` on the engine's stream into the engine's graph
-        pool. Every graph of the engine shares the pool, keeps its static
-        output referenced and replays on that one stream, so replay order
+        """Capture `prog` on the device's side stream (`_side_stream`)
+        into the engine's graph pool. Every graph of the engine shares the
+        pool, keeps its static output referenced and replays on that one
+        stream, so replay order
         does not matter: the pool memory a graph frees by the end of its
         capture held only its own temporaries, which a later capture may
         reuse because no two replays overlap; what outlives a replay (the
@@ -799,7 +816,7 @@ class ServingEngine:
         pool, and the static outputs, the only pool memory that outlives
         one, are never handed out again."""
         if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
+            self._stream = _side_stream(self.device)
             self._pool = torch.cuda.graph_pool_handle()
         wall = prog.capture(self._stream, self._pool,
                             self._gen if any_sample else None)

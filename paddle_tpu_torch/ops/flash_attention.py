@@ -448,15 +448,40 @@ def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, kv_lens=None,
     return dk, dv
 
 
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
+                         mutates_args=())
+def flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor,
+                           causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """`flash_attention_fwd` as a dispatcher op, so that a selective
+    activation-checkpoint policy sees it (a ctypes launch is invisible to
+    the dispatcher). Both routes carry this one name: the plain version
+    for CPU tensors, K1 for CUDA ones."""
+    o, lse = flash_attention_fwd(q, k, v, causal)
+    return o, lse
+
+
+@flash_attention_fwd_op.register_fake
+def _(q, k, v, causal):
+    return torch.empty_like(q), q.new_empty(
+        q.shape[:3], dtype=torch.promote_types(q.dtype, torch.float32))
+
+
+#: the ops whose outputs the "flash_resident" recompute policy keeps (the
+#: counterpart of the reference's FLASH_RESIDUAL_NAMES): the forward's o
+#: and lse, so a recomputed layer's backward never runs K1 again
+FLASH_RESIDUAL_OPS = (torch.ops.paddle_tpu_torch.flash_attention_fwd.default,)
+
+
 class FlashAttention(torch.autograd.Function):
-    """Differentiable flash attention: forward `flash_attention_fwd` (K1),
+    """Differentiable flash attention: forward `flash_attention_fwd_op` (K1),
     backward `flash_attention_bwd` (K2) from the saved (q, k, v, o, lse) —
     the port's counterpart of the reference's `_flash` custom VJP. The lse
     output carries no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        o, lse = flash_attention_fwd(q, k, v, causal)
+        o, lse = flash_attention_fwd_op(q, k, v, causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
         ctx.mark_non_differentiable(lse)

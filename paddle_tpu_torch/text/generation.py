@@ -130,6 +130,14 @@ def _layer_forward_prefill(x, lw, spec: _GenSpec, cos, sin,
     versions for CPU tensors. The serving engine passes its attention
     explicitly and runs under `torch.no_grad()`, where the flash op is the
     forward kernel alone. Returns (x, (k, v)) with k/v [B, S, Hkv, D]."""
+    x, kv = _attention_block(x, lw, spec, cos, sin, attention, qmm)
+    return x + _mlp_block(x, lw, spec, qmm), kv
+
+
+def _attention_block(x, lw, spec: _GenSpec, cos, sin,
+                     attention=flash_attention, qmm=quant_matmul_raw):
+    """The first half of `_layer_forward_prefill`: (x + attention of the
+    input norm's output, (k, v))."""
     b, s, h = x.shape
     hn = _rms_norm(x, lw["input_ln"], spec.rms_eps)
     flat = hn.reshape(b * s, h)
@@ -148,11 +156,17 @@ def _layer_forward_prefill(x, lw, spec: _GenSpec, cos, sin,
     out = out.transpose(1, 2)
     attn = _mm(out.reshape(b * s, spec.num_heads * spec.head_dim), lw["o"],
                qmm)
-    x = x + attn.reshape(b, s, h)
+    return x + attn.reshape(b, s, h), (k, v)
+
+
+def _mlp_block(x, lw, spec: _GenSpec, qmm=quant_matmul_raw):
+    """The second half of `_layer_forward_prefill` without its residual
+    add: the SwiGLU MLP of the post-attention norm's output."""
+    b, s, h = x.shape
     hn = _rms_norm(x, lw["post_ln"], spec.rms_eps).reshape(b * s, h)
     mlp = _mm(F.silu(_mm(hn, lw["gate"], qmm)) * _mm(hn, lw["up"], qmm),
               lw["down"], qmm)
-    return x + mlp.reshape(b, s, h), (k, v)
+    return mlp.reshape(b, s, h)
 
 
 def _logits(x, params, spec: _GenSpec, qmm=quant_matmul_raw):

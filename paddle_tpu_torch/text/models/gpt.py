@@ -135,8 +135,8 @@ class GPTForCausalLM(nn.Module):
         head's dtype; with `labels` [B, S], the mean cross-entropy in f32
         over the labels that are not -100 (no shift, as the reference's
         bench step passes `model(x, x)`). Vocab >= 4096 takes
-        `fused_linear_cross_entropy` (the reference's branch; it chunks by
-        8192 tokens, the port computes the same loss unchunked), smaller
+        `fused_linear_cross_entropy` (the reference's branch; GPT's 50304
+        has no usable vocab chunk, so it runs by token chunks), smaller
         vocabs the plain cross-entropy of the f32 logits."""
         ids = torch.as_tensor(input_ids, device=self.device).long()
         pos = torch.arange(ids.shape[1], device=self.device)[None]

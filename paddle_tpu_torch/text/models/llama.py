@@ -1,10 +1,12 @@
 """LLaMA-family decoder as torch `nn.Module`s — dense, single device.
 
 Port of paddle_tpu/text/models/llama.py (config, rope tables, attention,
-SwiGLU MLP, decoder layer, model, causal-LM head and its loss). Out of
-scope here: tensor/sequence parallelism and recompute (their config
-switches raise `NotImplementedError` naming the ROADMAP item), fp8 and
-the pipeline layer descriptions.
+SwiGLU MLP, decoder layer, model, causal-LM head and its loss) with the
+reference's activation recompute (`use_recompute`, at the granularities
+"full", "mlp" and "flash_resident"; see `LlamaModel.forward`). Out of
+scope here: tensor/sequence parallelism (their config switches raise
+`NotImplementedError` naming the ROADMAP item), fp8 and the pipeline
+layer descriptions.
 
 The forward follows `FLAGS_pallas_fused_ops`, as the reference's does.
 On (the default): the reference's module structure — `input_layernorm`,
@@ -40,12 +42,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...core.flags import flag
+from ...distributed.fleet.utils import recompute
 from ...incubate.nn.functional import fused_linear_cross_entropy
 from ...nn import functional as PF
 from ...ops._cuda_common import resolve_device
 from ...ops.flash_attention import flash_attention
-from ..generation import (_layer_forward_prefill, _layer_weights,
-                          _rope_tables, _spec_from_config)
+from ..generation import (_attention_block, _layer_forward_prefill,
+                          _layer_weights, _mlp_block, _rope_tables,
+                          _spec_from_config)
 
 
 @dataclass
@@ -60,10 +64,12 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
     tie_word_embeddings: bool = False
-    # the reference's parallelism and recompute switches; not ported yet
-    # (switched on, building the model raises NotImplementedError)
+    # the reference's parallelism switches; not ported yet (switched on,
+    # building the model raises NotImplementedError)
     tensor_parallel: bool = False
     sequence_parallel: bool = False
+    # activation recompute: "full" | "mlp" | "flash_resident" (any other
+    # granularity runs the layers plainly, as the reference's)
     use_recompute: bool = False
     recompute_granularity: str = "full"
 
@@ -148,9 +154,17 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
+    """One block. With `use_recompute` at granularity "mlp" it keeps the
+    attention half's activations and recomputes the MLP half
+    (`_mlp_branch`) in the backward, as the reference's "mlp" branch
+    does; the residual add is then a plain add, not the fused add+norm,
+    the same math."""
+
     def __init__(self, config: LlamaConfig, **factory):
         super().__init__()
         self.spec = _spec_from_config(config)
+        self.recompute_mlp = (config.use_recompute
+                              and config.recompute_granularity == "mlp")
         self.self_attn = LlamaAttention(config, **factory)
         self.mlp = LlamaMLP(config, **factory)
         self.input_layernorm = LlamaRMSNorm(config.hidden_size,
@@ -159,12 +173,30 @@ class LlamaDecoderLayer(nn.Module):
             config.hidden_size, config.rms_norm_eps, **factory)
 
     def forward(self, x, cos, sin):
-        if not flag("FLAGS_pallas_fused_ops"):
+        fused = flag("FLAGS_pallas_fused_ops")
+        if self.recompute_mlp:
+            if fused:
+                x = x + self.self_attn(self.input_layernorm(x, torch.float32),
+                                       cos, sin)
+            else:
+                x = _attention_block(x, _layer_weights(self), self.spec, cos,
+                                     sin)[0]
+            return x + recompute(self._mlp_branch, x)
+        if not fused:
             return _layer_forward_prefill(x, _layer_weights(self), self.spec,
                                           cos, sin)[0]
         a = self.self_attn(self.input_layernorm(x, torch.float32), cos, sin)
         y, x = self.post_attention_layernorm.forward_fused_add(a, x)
         return x + self.mlp(y)
+
+    def _mlp_branch(self, x):
+        """mlp(post_attention_layernorm(x)): with the flag on the norm
+        writes f32 (the reference's O2) and the MLP reads it in the
+        weights' dtype; with it off, `_mlp_block`'s compositions."""
+        if not flag("FLAGS_pallas_fused_ops"):
+            return _mlp_block(x, _layer_weights(self), self.spec)
+        y = self.post_attention_layernorm(x, torch.float32)
+        return self.mlp(y.to(self.mlp.gate_proj.weight.dtype))
 
 
 class LlamaModel(nn.Module):
@@ -186,17 +218,29 @@ class LlamaModel(nn.Module):
     def forward(self, input_ids):
         """[B, S] ids -> the final norm's output [B, S, H]: f32 with the
         flag on (see the module docstring), the stream's dtype with it
-        off."""
+        off. With `use_recompute`, as the reference's: "full" wraps each
+        layer in `recompute` (its backward runs the whole layer again, K1
+        included); "flash_resident" too, with the policy that keeps the
+        flash forward's o and lse (the backward reruns everything but
+        K1); any other granularity, "mlp" among them, calls the layer,
+        which handles "mlp" itself."""
+        cfg = self.config
+        gran = cfg.recompute_granularity if cfg.use_recompute else None
         x = self.embed_tokens(input_ids)
         for layer in self.layers:
-            x = layer(x, self.rope_cos, self.rope_sin)
+            if gran == "full":
+                x = recompute(layer, x, self.rope_cos, self.rope_sin)
+            elif gran == "flash_resident":
+                x = recompute(layer, x, self.rope_cos, self.rope_sin,
+                              policy="flash_resident")
+            else:
+                x = layer(x, self.rope_cos, self.rope_sin)
         return self.norm(x, torch.float32 if flag("FLAGS_pallas_fused_ops")
                          else None)
 
 
 #: config switches the port does not implement yet -> the ROADMAP item
 _UNPORTED = {
-    "use_recompute": "ROADMAP Queue 1 item 1b (recompute)",
     "tensor_parallel": "ROADMAP 'After these', Distributed",
     "sequence_parallel": "ROADMAP 'After these', Distributed",
 }

@@ -848,6 +848,41 @@ def test_graph_engine_sampling_repeats_and_keeps_greedy_rows(card):
     assert any(k[2] for k in eng._programs)          # sampling keys ran
 
 
+def test_dropped_graph_engines_leave_no_device_memory(card):
+    """Engines that captured graphs and were dropped hand back all their
+    device memory after a garbage collection: every engine on a device
+    captures on one side stream (`engine._side_stream`), so torch keeps
+    one cuBLAS workspace for it, not one per engine (32 MiB each on sm90,
+    until the process ends). The first engine may leave that stream's
+    workspace; the four after it leave nothing."""
+    import gc
+
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.inference import engine as engine_mod
+    from paddle_tpu_torch.text.models import (LlamaForCausalLM,
+                                              llama_tiny_config)
+
+    torch.manual_seed(0)
+    gpu = LlamaForCausalLM(llama_tiny_config(num_key_value_heads=2),
+                           device=card, dtype=torch.bfloat16)
+    left, streams = [], set()
+    for i in range(5):
+        eng = ServingEngine(gpu, max_slots=4, kv_block_size=8, device=card,
+                            prefix_cache=False, chunked_prefill_tokens=0)
+        rs = np.random.RandomState(i)
+        for _ in range(3):
+            eng.add_request(rs.randint(0, 256, (20,)), max_new_tokens=6)
+        eng.run()
+        streams.add(eng._stream)
+        del eng
+        gc.collect()
+        torch.cuda.synchronize()
+        left.append(torch.cuda.memory_allocated())
+    assert len(streams) == 1
+    assert streams == {engine_mod._side_stream(torch.device(card))}
+    assert left[1:] == [left[1]] * 4, left
+
+
 def test_graph_engine_captures_nothing_after_warmup(card):
     """Warm every bucket of an 8-slot stream, finish_warmup(), then 20
     steady ticks replay graphs only: zero captures, no new key."""
@@ -2269,3 +2304,109 @@ def test_optimizer_paths_on_card_match_the_cpu(card, cls):
     for run in runs[1:3]:
         _same_bits(run, runs[0])
     _same_bits(runs[4], runs[3])
+
+
+@pytest.mark.parametrize("gran,k1_per_layer,tol", [
+    ("flash_resident", 1, 2 ** -7), ("full", 2, 2 ** -7), ("mlp", 1, 2 ** -5)])
+def test_recompute_step_on_card_matches_no_recompute(card, gran,
+                                                     k1_per_layer, tol):
+    """One step of a 2-layer bf16 O2 LLaMA (d 128: the tensor-core flash
+    bodies; vocab 4096: the chunked fused CE) with `use_recompute` at
+    `gran`: K1 launches once per layer, twice under "full" (the
+    flash_resident policy keeps K1's o and lse), K2 once per layer, and
+    the gradients are those of the same model's step without recompute
+    within `tol` of each tensor's largest |value|. "full" and
+    "flash_resident" repeat the first forward's kernels on the same
+    inputs (one bf16 ulp of room, 2^-7). "mlp" computes the residual add
+    and the post-attention norm apart, so it normalizes the bf16-rounded
+    sum where the fused add+norm normalizes the f32 one: activations
+    differ by a bf16 rounding (2^-8 relative) per layer and the
+    difference passes on through the backward into the embedding's
+    gradient, which sums every layer's; 2^-5 (8 ulps) holds that for two
+    layers, as GRAD_TOL does for twenty in chip_smoke.py."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.text.models import (LlamaForCausalLM,
+                                              llama_tiny_config)
+
+    cfg = llama_tiny_config(vocab_size=4096, hidden_size=256,
+                            intermediate_size=512, num_attention_heads=2,
+                            max_position_embeddings=256, use_recompute=True,
+                            recompute_granularity=gran)
+    torch.manual_seed(0)
+    model = amp.decorate(LlamaForCausalLM(cfg, device=card), level="O2",
+                         dtype="bfloat16")
+    ids = torch.from_numpy(np.random.RandomState(3).randint(
+        0, 4096, (2, 256))).to(card)
+    grads, counts = [], []
+    for use in (True, False):
+        cfg.use_recompute = use
+        for layer in model.model.layers:
+            layer.recompute_mlp = use and gran == "mlp"
+        _cuda_common.reset_launch_counts()
+        model(ids, labels=ids).backward()
+        torch.cuda.synchronize()
+        counts.append(_cuda_common.launch_counts())
+        grads.append({n: p.grad.float() for n, p in model.named_parameters()})
+        model.zero_grad(set_to_none=True)
+    layers = cfg.num_hidden_layers
+    assert counts[0]["flash_attention_fwd"] == k1_per_layer * layers
+    assert counts[1]["flash_attention_fwd"] == layers
+    for c in counts:
+        assert c["flash_attention_bwd_dq"] == c["flash_attention_bwd_dkv"] \
+            == layers, c
+    for name, g in grads[1].items():
+        err = (grads[0][name] - g).abs().max() / g.abs().max()
+        assert err.item() <= tol, name
+
+
+@pytest.mark.parametrize("axis,n,vocab,kw", [
+    ("vocab", 512, 4096, {"chunk_size": 1024}),
+    ("tokens", 500, 5000, {"token_chunk": 128})])
+def test_chunked_ce_on_card_matches_plain(card, axis, n, vocab, kw):
+    """The chunked fused CE on the card against its unchunked plain
+    version from the same bf16 inputs: the loss within 1e-4 relative (the
+    same exact products, f32 sums in another order), dH and dW in bf16
+    within 2^-7 of each one's largest |value| (each side rounds once to
+    bf16; the token path also rounds dlogits to bf16, as the reference
+    does). 500 tokens in chunks of 128 leave a ragged last chunk."""
+    from paddle_tpu_torch.incubate.nn.functional import (
+        fused_linear_cross_entropy, fused_linear_cross_entropy_reference)
+
+    rs = np.random.RandomState(4)
+    h0 = _randn(rs, n, 256).to(card, torch.bfloat16)
+    w0 = (_randn(rs, vocab, 256) * 0.05).to(card, torch.bfloat16)
+    lab = torch.from_numpy(rs.randint(0, vocab, (n,))).to(card)
+    lab[::9] = -100
+    out = []
+    for fn, extra in ((fused_linear_cross_entropy, dict(chunk_axis=axis,
+                                                        **kw)),
+                      (fused_linear_cross_entropy_reference, {})):
+        h, w = h0.clone().requires_grad_(True), w0.clone().requires_grad_(
+            True)
+        loss = fn(h, w.T, lab, **extra)
+        loss.backward()
+        out.append((loss.item(), h.grad, w.grad))
+    (lc, dhc, dwc), (lp, dhp, dwp) = out
+    assert dhc.dtype == dwc.dtype == torch.bfloat16
+    assert abs(lc - lp) <= 1e-4 * abs(lp)
+    for a, b in ((dhc, dhp), (dwc, dwp)):
+        a, b = a.float(), b.float()
+        assert ((a - b).abs().max() / b.abs().max()).item() <= 2 ** -7
+
+
+def test_ce_token_gemm_route_matches_upcast(card):
+    """The token path's GEMM on a card (`aten::mm.dtype`: bf16 products,
+    f32 sums and result) against the upcast route the CPU takes (the same
+    exact products): within 1e-5 of the largest |value| (f32 sums in
+    another order)."""
+    from paddle_tpu_torch.incubate.nn.functional.fused_loss import _mm_f32
+
+    rs = np.random.RandomState(5)
+    a = _randn(rs, 256, 1024).to(card, torch.bfloat16)
+    b = _randn(rs, 1024, 5000).to(card, torch.bfloat16)
+    got = _mm_f32(a, b)
+    want = a.float() @ b.float()
+    assert got.dtype == torch.float32
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
+    assert torch.equal(_mm_f32(a.cpu(), b.cpu()), (a.cpu().float()
+                                                   @ b.cpu().float()))

@@ -43,6 +43,16 @@ def test_import_pulls_in_neither_jax_nor_paddle_tpu():
     assert res.returncode == 0, res.stderr[-2000:]
 
 
+def test_module_list_covers_every_subpackage():
+    """The import checks walk the whole package, the recompute wrapper's
+    `distributed/` included."""
+    for mod in ("paddle_tpu_torch.distributed",
+                "paddle_tpu_torch.distributed.fleet",
+                "paddle_tpu_torch.distributed.fleet.utils",
+                "paddle_tpu_torch.incubate.nn.functional.fused_loss"):
+        assert mod in MODULES, mod
+
+
 def test_no_source_imports_jax_or_paddle_tpu():
     offenders = []
     for root, _, files in os.walk(PKG):

@@ -132,9 +132,15 @@ def test_bf16_o2_losses_match_reference(ref_flags, case):
     assert losses["port"][-1] < losses["port"][0]
 
 
-def test_fused_loss_matches_plain_cross_entropy():
+@pytest.mark.parametrize("chunking", [
+    {}, {"chunk_axis": "vocab", "chunk_size": 10},
+    {"chunk_axis": "tokens", "token_chunk": 4},
+    {"chunk_axis": "vocab", "chunk_size": 0}])
+def test_fused_loss_matches_plain_cross_entropy(chunking):
     """The fused-CE branch equals the plain one on the same logits, with
-    ignored labels left out of the mean."""
+    ignored labels left out of the mean, on each chunk axis (vocab slices
+    of 10, 18 tokens in chunks of 4 with a ragged last one, unchunked);
+    its gradients too (1e-5 relative: f32 sums in another order)."""
     from paddle_tpu_torch.incubate.nn.functional import \
         fused_linear_cross_entropy
 
@@ -144,18 +150,22 @@ def test_fused_loss_matches_plain_cross_entropy():
     lab = torch.from_numpy(rs.randint(0, 50, (2, 9)))
     lab[0, :3] = -100
     lab[1, 0] = -5
-    got = fused_linear_cross_entropy(h, w, lab)
+    h.requires_grad_(True)
+    w.requires_grad_(True)
+    got = fused_linear_cross_entropy(h, w, lab, **chunking)
+    got_grads = torch.autograd.grad(got, (h, w))
     keep = lab.reshape(-1) >= 0
     want = torch.nn.functional.cross_entropy(
         (h.reshape(-1, 16) @ w)[keep], lab.reshape(-1)[keep])
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    for a, b in zip(got_grads, torch.autograd.grad(want, (h, w))):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
 def test_unported_switches_raise():
     model = LlamaForCausalLM(llama_tiny_config(), device="cpu")
     ids = torch.zeros(1, 4, dtype=torch.long)
     model(ids, labels=ids).backward()
-    for kw in ({"use_recompute": True}, {"tensor_parallel": True},
-               {"sequence_parallel": True}):
+    for kw in ({"tensor_parallel": True}, {"sequence_parallel": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LlamaForCausalLM(llama_tiny_config(**kw), device="cpu")
