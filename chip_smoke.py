@@ -171,7 +171,40 @@ Phases (any failure exits non-zero; nothing is caught):
      with exactly one launch of each K9 kernel, then its time beside
      the same op with no window (every start row = S: causal, the same
      K9 body), which it must halve, and beside causal flash (K1 + K2) at
-     the same shape.
+     the same shape;
+ 16. static: first AMP_MODE_COST (TRAIN's eager bench step with the
+     models under the AMP mode at O2 against suspended, in turns, at
+     1 x 128 and 4 x 1024); then the training steps as bench.py writes
+     them, each step function under `jit.to_static(share_discovery=
+     True)` with `auto_cast` inside and backward, step, clear_grad after
+     it, primed
+     twice at 1 x 128 (BERT 2 x 128; warm-up and discovery), then
+     TRAIN_STEPS steps at the big batch, the first of which captures the
+     big key's CUDA graph and every one replays it; beside the same step
+     run eagerly from the same weights and batch (primed alike): the
+     losses within STATIC_TOL (bit-identical expected), the launches of
+     every replay equal to the eager step's and exact per step, one
+     graph and no break, ms a step, tokens (sequences) per second, the
+     busy share of one profiled replay, the capture seconds, the peak
+     memory and what was allocated at the start, each beside the eager
+     step's. STATIC_TRAIN (TRAIN's configuration), STATIC_RECOMPUTE
+     (flash_resident, bench.py `bench_llama_1b`), STATIC_GPT
+     (`bench_gpt_medium_sharding`'s step without group_sharded_parallel),
+     STATIC_BERT (`bench_bert(amp=True)`; each step's dropout masks from
+     one seed on both sides, then two replays of a captured dropout must
+     draw different masks), and TRAIN_O1 (`bench_llama_train(amp=False)`:
+     the 168M LLaMA with f32 parameters under auto_cast(O1, bf16),
+     8 x 1024: first the per-op dtype count of one forward, matmuls in
+     bf16, norms and the loss in f32, and one step's gradients against
+     the plain versions within GRAD_TOL);
+ 17. train_f16_scaler: TRAIN_O1's model under auto_cast(O1, float16) with
+     GradScaler(init_loss_scaling=2**15), eagerly and captured: K1 and K2
+     run in f16 (F7); a non-finite gradient injected at the third big step
+     is skipped eagerly and masked in the graph (the reference's traced
+     branch), the scale halves in both and the scalers' state dicts
+     agree. Phase 3 also holds F7's float16 kernels (K1, K2, K1v, K2v,
+     K9, K7 on the CUDA-core bodies) against their plain versions
+     (F16_TOL) with their times and bounds.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Without a CUDA card it exits 1 and prints
@@ -1936,7 +1969,9 @@ def _plain_attention_loss(model, ids):
     torch, as with FLAGS_pallas_fused_ops off) with its attention the
     plain forward, differentiated by autograd instead of K2, the final
     norm is the composition too, and the loss the unchunked plain
-    version. No kernel of the model runs."""
+    version. No kernel of the model runs. Under `amp.auto_cast` the plain
+    attention and loss are the reference's ops "scaled_dot_product_attention"
+    and "fused_linear_cross_entropy", as the kernels' paths are."""
     from paddle_tpu_torch.incubate.nn.functional import \
         fused_linear_cross_entropy_reference
     from paddle_tpu_torch.ops.flash_attention import \
@@ -1944,14 +1979,22 @@ def _plain_attention_loss(model, ids):
     from paddle_tpu_torch.text.generation import (_layer_forward_prefill,
                                                   _layer_weights, _rms_norm)
 
+    from paddle_tpu_torch.amp import amp_op
+
+    def attention(q, k, v, causal=True):
+        return amp_op("scaled_dot_product_attention",
+                      flash_attention_reference, q, k, v, causal)
+
     m = model.model
     x = m.embed_tokens(ids)
     for layer in m.layers:
         x = _layer_forward_prefill(x, _layer_weights(layer), layer.spec,
                                    m.rope_cos, m.rope_sin,
-                                   attention=flash_attention_reference)[0]
-    return fused_linear_cross_entropy_reference(
-        _rms_norm(x, m.norm.weight, m.norm.eps), model.lm_head.weight.T, ids)
+                                   attention=attention)[0]
+    return amp_op("fused_linear_cross_entropy",
+                  fused_linear_cross_entropy_reference,
+                  _rms_norm(x, m.norm.weight, m.norm.eps),
+                  model.lm_head.weight.T, ids)
 
 
 def _grad_check(model, loss_fn, plain_loss_fn, tag, seed=1234):
@@ -2233,7 +2276,7 @@ def _kernel_kind(key):
 def profile_train(step, tag="PROFILE_TRAIN"):
     """Where a training step's time goes: torch.profiler over one steady
     `step()` (which returns the loss), device time by kernel kind beside
-    the host wall."""
+    the host wall. Returns the printed record."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2265,12 +2308,14 @@ def profile_train(step, tag="PROFILE_TRAIN"):
         per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / 1e3
     device_ms = sum(kinds.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-    _say(tag, {
+    rec = {
         "loss": loss.item(), "wall_ms": 1e3 * wall, "device_ms": device_ms,
         "device_busy_share": device_ms / (1e3 * wall),
         "device_ops_per_step": launched, "device_ms_by_kind": kinds,
         "annotated_spans_ms": spans,
-        "top_kernels_ms": [[k[:60], v] for k, v in top]})
+        "top_kernels_ms": [[k[:60], v] for k, v in top]}
+    _say(tag, rec)
+    return rec
 
 
 def _plain_path(loss_fn):
@@ -3109,8 +3154,9 @@ def _clone_all(*lists):
 
 
 def optim_case(tag, shapes, dtype, momentum=False):
-    """fused_adam (AdamW: TRAIN's lr and decay, step 1) or fused_momentum
-    (nesterov) over one dtype group of a training path's parameter list
+    """fused_adam (AdamW: TRAIN's lr and decay, step 1, the learning rate
+    and bias corrections read on the device as the optimizers pass them)
+    or fused_momentum (nesterov) over one dtype group of a training path's parameter list
     under O2 (state in the parameters' dtype, no master weights, as
     TRAIN* run): one call against its plain version on copies of the same
     inputs, bit for bit; then timed (L2 flushed before each launch) beside
@@ -3125,9 +3171,12 @@ def optim_case(tag, shapes, dtype, momentum=False):
     n = len(shapes)
     ps, gs, st = _optim_tensors(shapes, dtype, len(shapes) + 7,
                                 1 if momentum else 2)
-    lrs, coeffs = [OPTIM_LR] * n, [OPTIM_WD] * n
+    # the optimizers' call: the learning rate and the bias corrections on
+    # the device (`_lr_t`, and Adam's from `_step_t` at step 1)
+    lrs, coeffs = [1.0] * n, [OPTIM_WD] * n
+    lr_t = torch.full((), OPTIM_LR, dtype=torch.float32, device="cuda")
     if momentum:
-        kw = dict(momentum=0.9, nesterov=True)
+        kw = dict(momentum=0.9, nesterov=True, lr=lr_t)
 
         def kernel(p, s_):
             fo.fused_momentum(p, gs, s_[0], None, lrs, coeffs, **kw)
@@ -3136,8 +3185,9 @@ def optim_case(tag, shapes, dtype, momentum=False):
             fo.fused_momentum_reference(p, gs, s_[0], None, lrs, coeffs,
                                         **kw)
     else:
-        kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, step=1,
-                  decoupled=True)
+        kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, decoupled=True,
+                  lr=lr_t, bc=fo.bias_corrections(
+                      fo.betas_tensor(0.9, 0.999, "cuda"), 1))
 
         def kernel(p, s_):
             fo.fused_adam(p, gs, s_[0], s_[1], None, None, lrs, coeffs, **kw)
@@ -3311,6 +3361,615 @@ def profile_prefill(model, tag="PROFILE_PREFILL"):
     _say(tag, rec)
 
 
+
+#: F7's float16 kernels vs their plain versions from the same f16 inputs,
+#: relative to each output's largest |value|: both sides sum in f32 and
+#: round each output once to f16 (2^-11 relative), so they differ by one
+#: f16 ulp (2^-10 of a value's binade); 2^-9 leaves a rounding of room
+F16_TOL = 2 ** -9
+
+
+def _f16_row(name, case, got, want, run, plain, library, flops, nbytes):
+    """One float16 KERNEL line: the kernel's outputs `got` held against
+    the plain version's `want` (F16_TOL of each output's largest |value|),
+    the kernel, the plain version and the library call timed, the bound
+    of `flops` f16 products over the card's f16 tensor-core peak (the
+    least time the card could take; the CUDA-core body runs f32 FMAs) and
+    of `nbytes`."""
+    err, rels = _rel_errs(got, want)
+    assert max(rels) <= F16_TOL, (name, case, rels)
+    bound, by = _bound_ms(flops, nbytes)
+    rec = {"name": name, "case": case, "dtype": "float16",
+           "body": CORE_BODY, "max_abs_err": err, "rel_err": rels,
+           "tol": F16_TOL, "ms": _time_ms(run), "plain_ms": _time_ms(plain),
+           "library_ms": None if library is None else _time_ms(library),
+           "bound_ms": bound, "bound_by": by}
+    _say("KERNEL", rec)
+    return rec
+
+
+def f16_cases():
+    """F7: the flash family and the paged decode in float16 (the
+    CUDA-core bodies) at the main paths' shapes: K1 and K2 (dQ, dK/dV) at
+    LLaMA 1B's train shape (B4 H16 S1024 D128) and GPT-3 medium's (D64),
+    K1v / K2v at a packed batch of 4 ragged sequences (bucket 1024), K9
+    at S 4096 with a 1024-token window, K7 at the serve shape with f16
+    caches. Returns [rec, ...]."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.flash_attention import (
+        _bwd_delta, _launch_bwd_dkv, _launch_bwd_dq,
+        flash_attention_bwd_dkv_reference, flash_attention_bwd_dq_reference,
+        flash_attention_fwd, flash_attention_reference)
+    from paddle_tpu_torch.ops.flashmask import (flashmask_attention_reference,
+                                                flashmask_bwd, flashmask_fwd)
+    from paddle_tpu_torch.ops.paged_decode import (
+        paged_decode_attention, paged_decode_attention_reference)
+
+    f16 = torch.float16
+    g = torch.Generator(device="cuda").manual_seed(16)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g, dtype=f16)
+
+    rows = []
+    for tag, d in (("llama", 128), ("gpt", 64)):
+        b, h, s = TRAIN_BATCH, 16, TRAIN_SEQ
+        q, k, v, do = (randn(b, h, s, d) for _ in range(4))
+        pairs = b * h * s * (s + 1) // 2
+        io = 2 * b * h * s * d                  # one f16 [B, H, S, D]
+        o, lse = flash_attention_fwd(q, k, v, True)
+        ro, rlse = flash_attention_reference(q, k, v, True)
+        assert (lse - rlse).abs().max().item() < 1e-3
+        rows.append(_f16_row(
+            "flash_attention_fwd", f"f16 {tag} d{d}", (o,), (ro,),
+            lambda: flash_attention_fwd(q, k, v, True),
+            lambda: flash_attention_reference(q, k, v, True),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            4 * d * pairs, 4 * io + 4 * b * h * s))
+        args = (q, k, v, do, lse, _bwd_delta(o, do), True)
+        rows.append(_f16_row(
+            "flash_attention_bwd_dq", f"f16 {tag} d{d}",
+            (_launch_bwd_dq(*args),),
+            (flash_attention_bwd_dq_reference(*args),),
+            lambda: _launch_bwd_dq(*args),
+            lambda: flash_attention_bwd_dq_reference(*args), None,
+            6 * d * pairs, 5 * io + 8 * b * h * s))
+        rows.append(_f16_row(
+            "flash_attention_bwd_dkv", f"f16 {tag} d{d}",
+            _launch_bwd_dkv(*args), flash_attention_bwd_dkv_reference(*args),
+            lambda: _launch_bwd_dkv(*args),
+            lambda: flash_attention_bwd_dkv_reference(*args), None,
+            8 * d * pairs, 6 * io + 8 * b * h * s))
+        del q, k, v, do, o, lse, ro, rlse, args
+    # K1v / K2v: 4 ragged causal sequences in a 1024 bucket
+    lens = np.array([1024, 700, 333, 64])
+    b, h, s, d = len(lens), 16, 1024, 128
+    q, k, v, do = (randn(b, h, s, d) for _ in range(4))
+    kv_lens = torch.from_numpy(lens.astype(np.int32)).cuda()
+    pairs = h * int((lens * (lens + 1) // 2).sum())
+    io = 2 * h * d * int(lens.sum())
+    o, lse = flash_attention_fwd(q, k, v, True, kv_lens)
+    ro, _ = flash_attention_reference(q, k, v, True, kv_lens)
+    rows.append(_f16_row(
+        "flash_attention_varlen_fwd", "f16 varlen", (o,), (ro,),
+        lambda: flash_attention_fwd(q, k, v, True, kv_lens),
+        lambda: flash_attention_reference(q, k, v, True, kv_lens), None,
+        4 * d * pairs, 4 * io))
+    args = (q, k, v, do, lse, _bwd_delta(o, do), True, kv_lens)
+    rows.append(_f16_row(
+        "flash_attention_varlen_bwd_dq", "f16 varlen",
+        (_launch_bwd_dq(*args),), (flash_attention_bwd_dq_reference(*args),),
+        lambda: _launch_bwd_dq(*args),
+        lambda: flash_attention_bwd_dq_reference(*args), None,
+        6 * d * pairs, 5 * io))
+    rows.append(_f16_row(
+        "flash_attention_varlen_bwd_dkv", "f16 varlen",
+        _launch_bwd_dkv(*args), flash_attention_bwd_dkv_reference(*args),
+        lambda: _launch_bwd_dkv(*args),
+        lambda: flash_attention_bwd_dkv_reference(*args), None,
+        8 * d * pairs, 6 * io))
+    del q, k, v, do, o, lse, ro, args
+    # K9: S 4096, H 16, D 128, causal, a 1024-token window
+    b, h, s, d = 1, 16, 4096, 128
+    q, k, v, do = (randn(b, h, s, d) for _ in range(4))
+    start = torch.clamp(torch.arange(s, device="cuda") + FM_WINDOW,
+                        max=s).to(torch.int32).expand(b, h, s).contiguous()
+    pairs = b * h * int((start[0, 0].long()
+                         - torch.arange(s, device="cuda")).sum())
+    io = 2 * b * h * s * d
+    o, lse = flashmask_fwd(q, k, v, start, True)
+    ro, _ = flashmask_attention_reference(q, k, v, start, True)
+    rows.append(_f16_row(
+        "flashmask_fwd", "f16 window", (o,), (ro,),
+        lambda: flashmask_fwd(q, k, v, start, True),
+        lambda: flashmask_attention_reference(q, k, v, start, True), None,
+        4 * d * pairs, 4 * io))
+    from paddle_tpu_torch.ops.flashmask import \
+        flashmask_attention_bwd_reference
+    rows.append(_f16_row(
+        "flashmask_bwd", "f16 window",
+        flashmask_bwd(q, k, v, o, lse, do, start, True),
+        flashmask_attention_bwd_reference(q, k, v, o, lse, do, start, True),
+        lambda: flashmask_bwd(q, k, v, o, lse, do, start, True),
+        lambda: flashmask_attention_bwd_reference(q, k, v, o, lse, do,
+                                                  start, True), None,
+        10 * d * pairs, 8 * io))
+    del q, k, v, do, o, lse, ro
+    # K7 at the serve shape with f16 caches
+    seqs, heads, d, bs, max_len = 8, 16, 128, 16, 1024
+    rs = np.random.RandomState(0)
+    pages = max_len // bs
+    kc = randn(1 + seqs * pages, heads, bs, d)
+    vc = randn(1 + seqs * pages, heads, bs, d)
+    qd = randn(seqs, heads, d)
+    lens_np = rs.randint(1, max_len + 1, (seqs,)).astype("int32")
+    tables = torch.from_numpy((1 + rs.permutation(seqs * pages)).reshape(
+        seqs, pages).astype("int32")).cuda()
+    lens_t = torch.from_numpy(lens_np).cuda()
+    tokens = int(lens_np.sum())
+    out = paged_decode_attention(qd, kc, vc, tables, lens_t)
+    assert out.dtype == f16
+    rows.append(_f16_row(
+        "paged_decode_attention", "f16 serve", (out,),
+        (paged_decode_attention_reference(qd, kc, vc, tables, lens_t),),
+        lambda: paged_decode_attention(qd, kc, vc, tables, lens_t),
+        lambda: paged_decode_attention_reference(qd, kc, vc, tables, lens_t),
+        None, 4 * tokens * heads * d,
+        2 * (2 * tokens * heads * d + 2 * seqs * heads * d)))
+    torch.cuda.empty_cache()
+    return rows
+
+
+#: STATIC_*: the captured step's losses vs the eager step's from the same
+#: weights and batch, relative (the same kernels on the same inputs in
+#: the same order: bit-identical is expected)
+STATIC_TOL = 1e-3
+#: the 168M LLaMA of bench.py `bench_llama_train` (amp=False: O1 with f32
+#: parameters) and its batch
+CFG_168M = dict(vocab_size=32000, hidden_size=1024, intermediate_size=2816,
+                num_hidden_layers=8, num_attention_heads=16,
+                max_position_embeddings=1024)
+O1_BATCH, O1_SEQ = 8, 1024
+#: the bench steps' priming batch (bench.py primes every step at 1 x 128;
+#: BERT at 2 x 128) and the steps each phase takes at the big batch
+PRIME = (1, 128)
+
+
+def _bench_step(model, opt, level, dtype="bfloat16", scaler=None,
+                poison=None, labels=None):
+    """The bench's train step body (bench.py `_llama_step`): the forward
+    under auto_cast(level), then backward, step, clear_grad; with a
+    GradScaler, the scaled form (`poison`, a device scalar, multiplies
+    the loss: inf injects a non-finite gradient)."""
+    from paddle_tpu_torch import amp
+
+    def step(x, y=None):
+        with amp.auto_cast(enable=True, dtype=dtype, level=level):
+            loss = model(x, labels=x if y is None else y)
+        if scaler is None:
+            loss.backward()
+            opt.step()
+        else:
+            scaler.scale(loss * poison).backward()
+            scaler.step(opt)
+            scaler.update()
+        opt.clear_grad()
+        return loss
+
+    return step
+
+
+def _step_series(step, prime, big, steps, between=None):
+    """Two priming calls, then `steps` timed calls at the big batch
+    (synchronized); `between(i)` runs before big call i. Returns (losses,
+    walls in s, launch counts of the big calls, peak GB over them)."""
+    import torch
+    from paddle_tpu_torch.ops import _cuda_common
+
+    for _ in range(2):
+        step(*prime)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda_common.reset_launch_counts()
+    losses, walls = [], []
+    for i in range(steps):
+        if between is not None:
+            between(i)
+        t1 = time.perf_counter()
+        losses.append(step(*big).item())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    return (losses, walls, _cuda_common.launch_counts(),
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _static_phase(tag, build, prime, big, units, want, level="O2",
+                  dtype="bfloat16", reseed=None):
+    """One bench step eagerly and under to_static(share_discovery=True),
+    each on a model `build()` makes from seed 0 on a clean device:
+    primed twice at `prime`, then TRAIN_STEPS steps at `big` (the first
+    captures the big key's graph straight from the priming discovery).
+    Holds the captured losses to the eager ones (STATIC_TOL), the launches
+    of every replay to the eager step's and to `want` per step, one graph
+    and no break; prints ms a step (median of steps 2..), `units` per
+    second, the busy share of one profiled replay, the capture seconds,
+    the peak memory and what was allocated at the start, beside the eager
+    step's. Returns (launch counts of the captured steps, model, opt,
+    step) with the captured model still alive."""
+    import torch
+    from paddle_tpu_torch import jit
+
+    runs = {}
+    for mode in ("eager", "static"):
+        _clean_device()
+        model, opt = build()
+        step = _bench_step(model, opt, level, dtype)
+        if mode == "static":
+            step = jit.to_static(step, share_discovery=True)
+        torch.cuda.synchronize()
+        start = _memory_at_start(_own_tensors(model, opt))
+
+        def between(i):
+            if reseed is not None:
+                torch.manual_seed(reseed)
+
+        losses, walls, counts, peak = _step_series(step, prime, big,
+                                                   TRAIN_STEPS, between)
+        ms = 1e3 * statistics.median(walls[1:])
+        runs[mode] = {"losses": losses, "ms_per_step_median": ms,
+                      "ms_per_step_min": 1e3 * min(walls[1:]),
+                      "first_step_ms": 1e3 * walls[0],
+                      f"{units[0]}_per_s": units[1] / (ms / 1e3),
+                      "max_memory_allocated_gb": peak, **start,
+                      "launches": counts}
+        if mode == "eager":
+            del model, opt, step
+    name, per = units
+    prof = profile_train(lambda: step(*big), f"PROFILE_{tag}")
+    rep = step.graph_break_report()
+    specs = list(step._cache.values())
+    eager, static = runs["eager"], runs["static"]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(static["losses"],
+                                                   eager["losses"]))
+    rec = {"prime": list(prime[0].shape), "batch": list(big[0].shape),
+           "steps": TRAIN_STEPS, **static,
+           "eager": {k: v for k, v in eager.items() if k != "launches"},
+           "max_rel_loss_gap": gap,
+           "bit_identical": static["losses"] == eager["losses"],
+           "graphs": rep["graphs"], "breaks": len(rep["break_sites"]),
+           "keys": len(step._state),
+           "capture_s": [s.captured.capture_s for s in specs
+                         if s.captured is not None],
+           "device_busy_share": prof["device_busy_share"],
+           "profiled_wall_ms": prof["wall_ms"],
+           "profiled_device_ms": prof["device_ms"]}
+    _say(tag, rec)
+    assert rep["graphs"] == 1 and not rep["break_sites"] \
+        and not rep["segmented"], rep
+    assert gap <= STATIC_TOL, rec
+    assert all(np.isfinite(static["losses"])), rec
+    assert static["launches"] == eager["launches"], rec
+    got = {n: c for n, c in static["launches"].items() if c}
+    assert got == {n: TRAIN_STEPS * c for n, c in want.items()}, (got, want)
+    return static["launches"], model, opt, step
+
+
+def _llama_build(**cfg_kw):
+    def build():
+        model, opt, _ = _train_model(**cfg_kw)
+        return model, opt
+    return build
+
+
+def _ids(vocab, shape, seed=0):
+    import torch
+    return torch.from_numpy(np.random.RandomState(seed).randint(
+        0, vocab, shape)).cuda()
+
+
+def static_train():
+    """STATIC_TRAIN (TRAIN's configuration) and STATIC_RECOMPUTE (bench.py
+    `bench_llama_1b`'s flash_resident) as bench.py `_llama_step` writes
+    the step. Returns {tag: launch counts}."""
+    prime = (_ids(CFG_1B["vocab_size"], PRIME, 1),)
+    big = (_ids(CFG_1B["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ)),)
+    layers = CFG_1B["num_hidden_layers"]
+    out = {}
+    for tag, kw, gran in (("STATIC_TRAIN", {}, None),
+                          ("STATIC_RECOMPUTE",
+                           {"use_recompute": True,
+                            "recompute_granularity": "flash_resident"},
+                           "flash_resident")):
+        n_params = 9 * layers + 3
+        counts, model, opt, step = _static_phase(
+            tag, _llama_build(**kw), prime, big,
+            ("tokens", TRAIN_BATCH * TRAIN_SEQ),
+            _llama_launches(gran, layers, n_params))
+        out[tag] = counts
+        del model, opt, step
+    _clean_device()
+    return out
+
+
+def static_gpt():
+    """STATIC_GPT: GPT-3 medium as bench.py `bench_gpt_medium_sharding`
+    writes its step (AdamW lr 1e-4, use_multi_tensor=True, O2; without
+    `group_sharded_parallel`), primed at 1 x 128, 4 x 1024."""
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import GPTConfig, GPTForCausalLM
+
+    def build():
+        torch.manual_seed(0)
+        model = GPTForCausalLM(GPTConfig(**CFG_GPT), device="cuda")
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                    use_multi_tensor=True)
+        return amp.decorate(model, opt, level="O2", dtype="bfloat16",
+                            master_weight=False)
+
+    layers = CFG_GPT["num_hidden_layers"]
+    want = {"flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
+            "flash_attention_bwd_dkv": layers,
+            "fused_layer_norm_fwd": 2 * layers + 1,
+            "fused_layer_norm_bwd": 2 * layers + 1, "fused_adam": 2}
+    counts, model, opt, step = _static_phase(
+        "STATIC_GPT", build, (_ids(CFG_GPT["vocab_size"], PRIME, 1),),
+        (_ids(CFG_GPT["vocab_size"], (GPT_BATCH, GPT_SEQ)),),
+        ("tokens", GPT_BATCH * GPT_SEQ), want)
+    del model, opt, step
+    _clean_device()
+    return counts
+
+
+def static_bert():
+    """STATIC_BERT: BERT-base as bench.py `bench_bert(amp=True)` writes its
+    step (AdamW lr 2e-5, O2, 64 x 128 primed at 2 x 128), every step's
+    dropout masks drawn from one seed on both sides; then the captured
+    step's dropout draws new masks at each replay (the graph registers the
+    default generator): two replays of a captured dropout give different
+    masks."""
+    import torch
+    from paddle_tpu_torch import amp, jit
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import (BertConfig,
+                                              BertForSequenceClassification)
+
+    cfg = BertConfig()
+
+    def build():
+        torch.manual_seed(0)
+        model = BertForSequenceClassification(cfg, device="cuda")
+        opt = AdamW(learning_rate=2e-5, parameters=model.parameters())
+        return amp.decorate(model, opt, level="O2", dtype="bfloat16",
+                            master_weight=False)
+
+    rs = np.random.RandomState(0)
+    big = (_ids(30000, (BERT_BATCH, BERT_SEQ)),
+           torch.from_numpy(rs.randint(0, 2, (BERT_BATCH,))).cuda())
+    prime = (_ids(30000, (2, BERT_SEQ), 1),
+             torch.from_numpy(rs.randint(0, 2, (2,))).cuda())
+    layers = cfg.num_hidden_layers
+    with_grads = sum(1 for n, _ in BertForSequenceClassification(
+        cfg, device="meta").named_parameters()
+        if "token_type" not in n)
+    want = {"flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
+            "flash_attention_bwd_dkv": layers,
+            "fused_layer_norm_fwd": 2 * layers + 1,
+            "fused_layer_norm_bwd": 2 * layers + 1,
+            "dropout_add_fwd": 2 * layers, "dropout_add_bwd": 2 * layers,
+            "fused_adam": with_grads}
+    counts, model, opt, step = _static_phase(
+        "STATIC_BERT", build, prime, big, ("sequences", BERT_BATCH), want,
+        reseed=4321)
+    drop = jit.to_static(lambda x: model.dropout(x))
+    ones = torch.ones(BERT_BATCH, cfg.hidden_size, device="cuda",
+                      dtype=torch.bfloat16)
+    masks = [drop(ones) != 0 for _ in range(4)]
+    differ = not torch.equal(masks[2], masks[3])
+    kept = masks[3].float().mean().item()
+    _say("STATIC_BERT_DROPOUT", {"graphs": drop.graph_break_report()["graphs"],
+                                 "replay_masks_differ": differ,
+                                 "kept_share": kept,
+                                 "p": cfg.hidden_dropout_prob})
+    assert differ and abs(kept - (1 - cfg.hidden_dropout_prob)) < 0.01
+    del model, opt, step, drop
+    _clean_device()
+    return counts
+
+
+def _o1_build(seed=0):
+    def build():
+        import torch
+        from paddle_tpu_torch.optimizer import AdamW
+        from paddle_tpu_torch.text.models import LlamaConfig, LlamaForCausalLM
+
+        torch.manual_seed(seed)
+        model = LlamaForCausalLM(LlamaConfig(**CFG_168M), device="cuda")
+        return model, AdamW(learning_rate=1e-4,
+                            parameters=model.parameters())
+    return build
+
+
+def train_o1():
+    """TRAIN_O1: bench.py `bench_llama_train(amp=False)`'s 168M LLaMA with
+    f32 parameters under auto_cast(O1, bfloat16), AdamW lr 1e-4, 8 x 1024
+    primed at 1 x 128: the per-op dtype count of one forward (matmuls in
+    bf16; norms and the loss in f32), one step's gradients through the
+    kernels against the same step through the plain versions (GRAD_TOL of
+    each tensor's largest |value|), then the step eagerly and captured
+    (`_static_phase`). Returns the captured steps' launch counts."""
+    import torch
+    from paddle_tpu_torch import amp
+
+    vocab, layers = CFG_168M["vocab_size"], CFG_168M["num_hidden_layers"]
+    big = (_ids(vocab, (O1_BATCH, O1_SEQ)),)
+    _clean_device()
+    model, opt = _o1_build()()
+    ids = big[0]
+    with amp.debugging.collect_operator_stats() as stats:
+        with amp.auto_cast(enable=True, dtype="bfloat16", level="O1"):
+            loss = model(ids, labels=ids)
+    del loss
+
+    def o1(fn):
+        def run():
+            with amp.auto_cast(enable=True, dtype="bfloat16", level="O1"):
+                return fn()
+        return run
+
+    with_grads = _grad_check(model, o1(lambda: model(ids, labels=ids)),
+                             o1(lambda: _plain_attention_loss(model, ids)),
+                             "TRAIN_O1_GRAD_CHECK")
+    _say("TRAIN_O1_OP_DTYPES", stats)
+    assert set(stats["linear"]) == {"bfloat16"}, stats
+    assert set(stats["scaled_dot_product_attention"]) == {"bfloat16"}, stats
+    for op in ("rms_norm", "fused_linear_cross_entropy"):
+        assert set(stats[op]) == {"float32"}, stats
+    del model, opt
+    counts, model, opt, step = _static_phase(
+        "TRAIN_O1", _o1_build(), (_ids(vocab, PRIME, 1),), big,
+        ("tokens", O1_BATCH * O1_SEQ),
+        _llama_launches(None, layers, with_grads), level="O1")
+    del model, opt, step
+    _clean_device()
+    return counts
+
+
+def train_f16_scaler():
+    """TRAIN_F16_SCALER: TRAIN_O1's model and batch under auto_cast(O1,
+    float16) with GradScaler(init_loss_scaling=2**15): K1 and K2 run in
+    f16 (F7). Eagerly and captured, primed twice at 1 x 128, then 4 steps,
+    one with an injected non-finite gradient (the loss times inf), one
+    more: eagerly the injected step is skipped (the parameters stay), in
+    the graph the reference's traced branch runs the update on zeroed
+    gradients (the parameters move with the moments); the scale halves in
+    both, the scalers' state dicts agree, and the losses before the
+    injection agree. Returns the captured run's launch counts."""
+    import torch
+    from paddle_tpu_torch import amp, jit
+    from paddle_tpu_torch.ops import _cuda_common
+
+    vocab = CFG_168M["vocab_size"]
+    prime = (_ids(vocab, PRIME, 1),)
+    big = (_ids(vocab, (O1_BATCH, O1_SEQ)),)
+    runs = {}
+    for mode in ("eager", "static"):
+        _clean_device()
+        model, opt = _o1_build()()
+        scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15, device="cuda")
+        poison = torch.ones((), device="cuda")
+        step = _bench_step(model, opt, "O1", "float16", scaler, poison)
+        if mode == "static":
+            step = jit.to_static(step, share_discovery=True)
+        start = _memory_at_start(_own_tensors(model, opt))
+        with amp.debugging.collect_operator_stats() as stats:
+            for _ in range(2):
+                step(*prime)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda_common.reset_launch_counts()
+        losses, walls, scales, moved = [], [], [], []
+        for i in range(4):
+            poison.fill_(float("inf") if i == 2 else 1.0)
+            before = model.lm_head.weight.detach().clone()
+            t1 = time.perf_counter()
+            losses.append(step(*big).item())
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+            scales.append(scaler.get_loss_scaling().item())
+            moved.append(not torch.equal(before, model.lm_head.weight))
+        runs[mode] = {"losses": losses, "walls_ms": [1e3 * w for w in walls],
+                      "ms_per_step_median": 1e3 * statistics.median(
+                          walls[1:]),
+                      "tokens_per_s": O1_BATCH * O1_SEQ
+                      / statistics.median(walls[1:]),
+                      "max_memory_allocated_gb":
+                      torch.cuda.max_memory_allocated() / 1e9, **start,
+                      "scales": scales, "params_moved": moved,
+                      "state_dict_scale": float(
+                          scaler.state_dict()["scale"]),
+                      "step_t": opt._step_t.item(),
+                      "launches": _cuda_common.launch_counts(),
+                      "attention_dtypes": stats.get(
+                          "scaled_dot_product_attention")}
+        poison.fill_(1.0)
+        prof = profile_train(lambda: step(*big),
+                             f"PROFILE_TRAIN_F16_SCALER_{mode.upper()}")
+        runs[mode]["device_busy_share"] = prof["device_busy_share"]
+        if mode == "static":
+            rep = step.graph_break_report()
+            runs[mode].update(graphs=rep["graphs"],
+                              breaks=len(rep["break_sites"]),
+                              capture_s=[s_.captured.capture_s for s_ in
+                                         step._cache.values()])
+        del model, opt, step, scaler
+    eager, static = runs["eager"], runs["static"]
+    _say("TRAIN_F16_SCALER", {"init_loss_scaling": 2.0 ** 15,
+                              "injected_step": 2, **runs})
+    assert eager["attention_dtypes"] and set(eager["attention_dtypes"]) \
+        == {"float16"}, eager
+    for run in (eager, static):
+        assert run["scales"] == [2.0 ** 15] * 2 + [2.0 ** 14] * 2, run
+        assert run["launches"]["flash_attention_fwd"] > 0, run
+    assert eager["params_moved"] == [True, True, False, True], eager
+    assert static["params_moved"] == [True] * 4, static
+    assert static["graphs"] == 1 and static["breaks"] == 0, static
+    assert eager["state_dict_scale"] == static["state_dict_scale"]
+    assert max(abs(a - b) / abs(b) for a, b in zip(
+        static["losses"][:3], eager["losses"][:3])) <= STATIC_TOL
+    _clean_device()
+    return static["launches"]
+
+
+def amp_mode_cost(steps=5):
+    """AMP_MODE_COST: what the AMP mode would cost TRAIN's eager step if
+    the models ran their forward under it at O2 instead of suspending it
+    (`amp.SUSPEND_O2_IN_MODELS`): the bench step (auto_cast(O2) inside)
+    on TRAIN's model, `steps` steps an arm in turns (suspended, on, on,
+    suspended), at the priming batch 1 x 128, where the step's wall is
+    its host time (the device idles between its small kernels), and at
+    TRAIN's 4 x 1024: ms a step (median) of each arm and the share the
+    difference is of the suspended step."""
+    import torch
+    from paddle_tpu_torch import amp
+
+    _clean_device()
+    model, opt, ids = _train_model()
+    step = _bench_step(model, opt, "O2")
+    rec = {}
+    old = amp.SUSPEND_O2_IN_MODELS
+    try:
+        for tag, x in (("host_bound_1x128", _ids(CFG_1B["vocab_size"],
+                                                 PRIME, 1)),
+                       ("train_4x1024", ids)):
+            step(x)
+            torch.cuda.synchronize()
+            walls = {True: [], False: []}
+            for suspend in (True, False, False, True):
+                amp.SUSPEND_O2_IN_MODELS = suspend
+                for _ in range(steps):
+                    t1 = time.perf_counter()
+                    loss = step(x)
+                    torch.cuda.synchronize()
+                    walls[suspend].append(time.perf_counter() - t1)
+                    assert np.isfinite(loss.item())
+            off = 1e3 * statistics.median(walls[True])
+            on = 1e3 * statistics.median(walls[False])
+            rec[tag] = {"ms_per_step_suspended": off,
+                        "ms_per_step_mode_on": on,
+                        "extra_share": (on - off) / off,
+                        "ms_suspended_quartiles": np.percentile(
+                            1e3 * np.array(walls[True]), [25, 75]).tolist(),
+                        "ms_mode_on_quartiles": np.percentile(
+                            1e3 * np.array(walls[False]), [25, 75]).tolist()}
+    finally:
+        amp.SUSPEND_O2_IN_MODELS = old
+    _say("AMP_MODE_COST", {"steps_per_arm": 2 * steps, **rec})
+    del model, opt, ids, step
+    _clean_device()
+
 def main():
     import torch
 
@@ -3392,6 +4051,8 @@ def main():
                   for tag, kw in (("group 3", {"heads": 48, "kv_heads": 16}),
                                   ("d256", {"d": 256}))}
     norm_wide = fused_norm_cases(4096, 16384, "wide")
+    # F7: the flash family and the paged decode in float16
+    f16 = f16_cases()
     phases["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     optim, counts_optim = optim_phase()
@@ -3439,6 +4100,16 @@ def main():
         assert all(cnt[n] == 0 for n in VARLEN_KERNELS + FM_KERNELS), cnt
     torch.cuda.empty_cache()
     phases["train_gpt_bert"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the bench's steps as it writes them: to_static, one captured CUDA
+    # graph per key, beside the same steps run eagerly
+    amp_mode_cost()
+    counts_static = static_train()
+    counts_static["STATIC_GPT"] = static_gpt()
+    counts_static["STATIC_BERT"] = static_bert()
+    counts_static["TRAIN_O1"] = train_o1()
+    counts_f16 = train_f16_scaler()
+    phases["static"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     # K1v/K2v at the VARLEN batch; K9 at the FLASHMASK window and at a
     # ragged S with random start rows (straddling tiles everywhere)
@@ -3670,6 +4341,42 @@ def main():
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
             | {k: rec[k] for k in ("body",) if k in rec})
+    # F7's float16 kernels: K1 and K2 launched by TRAIN_F16_SCALER's
+    # steps; the varlen, FlashMask and decode entries by their bf16 paths
+    f16_launch = {"flash_attention_fwd": (counts_f16, "TRAIN_F16_SCALER"),
+                  "flash_attention_bwd_dq": (counts_f16, "TRAIN_F16_SCALER"),
+                  "flash_attention_bwd_dkv": (counts_f16,
+                                              "TRAIN_F16_SCALER"),
+                  "flash_attention_varlen_fwd": (counts_varlen, "VARLEN"),
+                  "flash_attention_varlen_bwd_dq": (counts_varlen, "VARLEN"),
+                  "flash_attention_varlen_bwd_dkv": (counts_varlen,
+                                                     "VARLEN"),
+                  "flashmask_fwd": (counts_fm, "FLASHMASK"),
+                  "flashmask_bwd": (counts_fm, "FLASHMASK"),
+                  "paged_decode_attention": (counts, "SERVE")}
+    f16_src = {"flashmask": "flashmask_attention.cu",
+               "paged": "paged_decode.cu", "bwd": "flash_attention_bwd.cu"}
+    f16_line = {"flash_attention_fwd": 104, "flash_attention_bwd_dq": 263,
+                "flash_attention_bwd_dkv": 314,
+                "flash_attention_varlen_fwd": 104,
+                "flash_attention_varlen_bwd_dq": 263,
+                "flash_attention_varlen_bwd_dkv": 314,
+                "flashmask_fwd": 856, "flashmask_bwd": 1017}
+    for rec in f16:
+        name = rec["name"]
+        cnt, path = f16_launch[name]
+        src = next((f for k, f in f16_src.items() if k in name),
+                   "flash_attention_fwd.cu")
+        kname = "flashmask_bwd_dq" if name == "flashmask_bwd" else name
+        summary.append({
+            "name": name, "case": rec["case"], "route": "cuda",
+            "body": rec["body"], "source": f"paddle_tpu_torch/csrc/{src}",
+            "replaces": paged_tpu if name.startswith("paged") else
+            f"{attn}:{f16_line[name]}",
+            "launches": cnt[kname], "launches_path": path,
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

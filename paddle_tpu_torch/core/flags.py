@@ -59,7 +59,38 @@ _FLAGS = {
     # tokens per [chunk, H] @ [H, V] GEMM of the token-chunked fused CE
     # path (<= 0 disables it)
     "FLAGS_flce_token_chunk": _from_env("FLAGS_flce_token_chunk", 1024),
+    # global to_static toggle (jit.enable_to_static): off, a decorated
+    # function runs eagerly
+    "FLAGS_enable_to_static": _from_env("FLAGS_enable_to_static", True),
+    # accepted for the reference's surface: a captured graph updates its
+    # buffers in place, so there is nothing to donate
+    "FLAGS_to_static_donate": _from_env("FLAGS_to_static_donate", True),
+    # on a graph break run the function eagerly from then on (torch's
+    # eager ops are the port's segments); False: the same, named eager
+    "FLAGS_to_static_segmented": _from_env("FLAGS_to_static_segmented",
+                                           True),
+    # the jit shims of the reference's surface (recorded, not read)
+    "FLAGS_jit_code_level": _from_env("FLAGS_jit_code_level", 100),
+    "FLAGS_jit_verbosity": _from_env("FLAGS_jit_verbosity", 0),
+    "FLAGS_jit_log_to_stdout": _from_env("FLAGS_jit_log_to_stdout", False),
+    # dtype of the models' residual stream, which amp_dtype_for reads:
+    # "float32" only (the port's models keep an f32 stream; "bfloat16" is
+    # ROADMAP Queue 1's 'FLAGS_residual_dtype=bfloat16' item)
+    "FLAGS_residual_dtype": _from_env("FLAGS_residual_dtype", "float32"),
 }
+
+
+def _check(name: str, value) -> None:
+    if name == "FLAGS_residual_dtype" \
+            and str(value).lower() not in ("float32", "fp32", "f32"):
+        raise NotImplementedError(
+            f"FLAGS_residual_dtype={value!r}: the port's models keep an "
+            "f32 residual stream; a bf16 stream is not ported yet (ROADMAP "
+            "Queue 1, 'FLAGS_residual_dtype=bfloat16')")
+
+
+for _name, _value in _FLAGS.items():
+    _check(_name, _value)
 
 
 def flag(name: str):
@@ -72,4 +103,5 @@ def set_flags(flags: dict) -> None:
         key = name if name.startswith("FLAGS_") else "FLAGS_" + name
         if key not in _FLAGS:
             raise KeyError(f"unknown flag {name!r}")
+        _check(key, value)
         _FLAGS[key] = value

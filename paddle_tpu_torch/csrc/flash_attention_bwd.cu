@@ -1,4 +1,4 @@
-// Flash-attention backward for Hopper (sm_90a), bf16 or f32 in and out,
+// Flash-attention backward for Hopper (sm_90a), bf16, f16 or f32 in and out,
 // f32 accumulation: dQ in one kernel, dK and dV in another. Four entry
 // points over two kernel bodies in each dtype (bf16: flash_attention_tc.cuh;
 // f32: flash_attention_tiles.cuh):
@@ -57,10 +57,10 @@
 //    reference's force_masked=has_lens). They take D a multiple of 8 (the
 //    caller pads), 16-byte-aligned inputs and an lse/delta row stride that
 //    is a multiple of 4 floats; anything else returns cudaErrorInvalidValue;
-//  * f32 K2 and K2v, and both dtypes at 128 < d <= 256, run the
+//  * f32 and f16 K2 and K2v, and bf16 at 128 < d <= 256, run the
 //    CUDA-core bodies (flash_attention_tiles.cuh: plain f32 FMAs, S and
 //    dP recomputed in both kernels; exact f32 like the reference's f32
-//    dots), instantiated at DM 128 (f32, d <= 128) and DM 256 (d > 128;
+//    dots), instantiated at DM 128 (f32 and f16, d <= 128) and DM 256 (d > 128;
 //    dK/dV then stages each q tile as two 32-row halves to fit in shared
 //    memory).
 // Interior tiles of K2 skip the per-element mask; K2v masks every tile it
@@ -77,7 +77,7 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b == 0 || sq == 0) return 0;
   if (sk == 0)
-    return zero_fill(dq, (size_t)b * hq * sq * d * (dtype == 1 ? 2 : 4), st);
+    return zero_fill(dq, (size_t)b * hq * sq * d * elem_bytes(dtype), st);
   const LenCausalMask::Args margs{kv_lens, causal};
   if (dtype == 1 && d <= kSmallD)
     return launch_bwd_dq_tc<LenCausalMask>(q, k, v, dout, lse, delta, dq,
@@ -85,6 +85,14 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                            scale, st);
   if (dtype == 1)
     return launch_bwd_dq<__nv_bfloat16, LenCausalMask, kLargeD>(
+        q, k, v, dout, lse, delta, dq, margs, b, hq, hkv, sq, sk, d, scale,
+        st);
+  if (dtype == kCodeF16 && d <= kSmallD)
+    return launch_bwd_dq<__half, LenCausalMask, kSmallD>(
+        q, k, v, dout, lse, delta, dq, margs, b, hq, hkv, sq, sk, d, scale,
+        st);
+  if (dtype == kCodeF16)
+    return launch_bwd_dq<__half, LenCausalMask, kLargeD>(
         q, k, v, dout, lse, delta, dq, margs, b, hq, hkv, sq, sk, d, scale,
         st);
   if (d <= kSmallD)
@@ -103,7 +111,7 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b == 0 || sk == 0) return 0;
   if (sq == 0) {
-    const size_t bytes = (size_t)b * hkv * sk * d * (dtype == 1 ? 2 : 4);
+    const size_t bytes = (size_t)b * hkv * sk * d * elem_bytes(dtype);
     const int err = zero_fill(dk, bytes, st);
     return err != 0 ? err : zero_fill(dv, bytes, st);
   }
@@ -114,6 +122,14 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                             ls_stride, scale, st);
   if (dtype == 1)
     return launch_bwd_dkv<__nv_bfloat16, LenCausalMask, kLargeD>(
+        q, k, v, dout, lse, delta, dk, dv, margs, b, hq, hkv, sq, sk, d,
+        scale, st);
+  if (dtype == kCodeF16 && d <= kSmallD)
+    return launch_bwd_dkv<__half, LenCausalMask, kSmallD>(
+        q, k, v, dout, lse, delta, dk, dv, margs, b, hq, hkv, sq, sk, d,
+        scale, st);
+  if (dtype == kCodeF16)
+    return launch_bwd_dkv<__half, LenCausalMask, kLargeD>(
         q, k, v, dout, lse, delta, dk, dv, margs, b, hq, hkv, sq, sk, d,
         scale, st);
   if (d <= kSmallD)
@@ -127,9 +143,9 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError()
-// (0 = ok); the caller has checked shapes, dtypes, contiguity and
-// d <= 256. bf16 dK/dV (K2 and K2v) at d <= 128 reads lse and delta by
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Each returns
+// cudaGetLastError() (0 = ok); the caller has checked shapes, dtypes,
+// contiguity and d <= 256. bf16 dK/dV (K2 and K2v) at d <= 128 reads lse and delta by
 // TMA as rows `ls_stride` floats apart (a multiple of 4, >= Sq; the
 // CUDA-core bodies take Sq).
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,

@@ -1,4 +1,4 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 or f32 in and out,
+// Flash-attention forward for Hopper (sm_90a), bf16, f16 or f32 in and out,
 // f32 accumulation. Returns O and the per-row log-sum-exp. Two entry
 // points:
 //  * flash_attention_fwd (K1), the non-varlen forward;
@@ -37,11 +37,11 @@
 //    real data, get P = 0. It takes D a multiple of 8 (the caller pads)
 //    and 16-byte-aligned inputs; anything else returns
 //    cudaErrorInvalidValue;
-//  * f32 K1 and K1v, and both dtypes at 128 < d <= 256 (the reference's
+//  * f32 and f16 K1 and K1v, and bf16 at 128 < d <= 256 (the reference's
 //    kernel takes d 256: it pads d to a multiple of 128), run the
 //    CUDA-core body (flash_attention_tiles.cuh: one block of 128 threads
 //    per 64-row q tile, f32 FMAs; exact f32 like the reference's f32
-//    dots), instantiated at DM 128 (f32, d <= 128) and DM 256 (d > 128),
+//    dots), instantiated at DM 128 (f32 and f16, d <= 128) and DM 256 (d > 128),
 //    so the larger accumulators cost the d <= 128 kernels nothing.
 // Tiles wholly above the causal diagonal or past the length are never
 // loaded; interior tiles of K1 skip the per-element mask. A call with no
@@ -57,7 +57,7 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b == 0 || sq == 0) return 0;
   if (sk == 0)
-    return fill_empty(o, lse, (size_t)b * hq * sq, d, dtype == 1 ? 2 : 4,
+    return fill_empty(o, lse, (size_t)b * hq * sq, d, elem_bytes(dtype),
                       st);
   const LenCausalMask::Args margs{kv_lens, causal};
   if (dtype == 1 && d <= kSmallD)
@@ -65,6 +65,12 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                                         sq, sk, d, scale, st);
   if (dtype == 1)
     return launch_fwd<__nv_bfloat16, LenCausalMask, kLargeD>(
+        q, k, v, o, lse, margs, b, hq, hkv, sq, sk, d, scale, st);
+  if (dtype == kCodeF16 && d <= kSmallD)
+    return launch_fwd<__half, LenCausalMask, kSmallD>(
+        q, k, v, o, lse, margs, b, hq, hkv, sq, sk, d, scale, st);
+  if (dtype == kCodeF16)
+    return launch_fwd<__half, LenCausalMask, kLargeD>(
         q, k, v, o, lse, margs, b, hq, hkv, sq, sk, d, scale, st);
   if (d <= kSmallD)
     return launch_fwd<float, LenCausalMask, kSmallD>(
@@ -75,8 +81,9 @@ int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() (0 = ok);
-// the caller has checked shapes, dtypes, contiguity and d <= 256.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns
+// cudaGetLastError() (0 = ok); the caller has checked shapes, dtypes,
+// contiguity and d <= 256.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int b,
                                    int hq, int hkv, int sq, int sk, int d,

@@ -4,7 +4,7 @@
 // kernel, each a template over the element type, a mask policy and the
 // largest head dim it takes (DM = 128 or 256: the accumulators are sized
 // by it, so the d <= 128 instantiations keep their registers). They run
-// f32 inputs at every head dim and every dtype at head dims above 128;
+// f32 and f16 inputs at every head dim and bf16 at head dims above 128;
 // bf16 at padded d <= 128 runs the tensor-core bodies of
 // flash_attention_tc.cuh over the same mask policies (K1, K1v, K2, K2v,
 // K9). The source files that include this header
@@ -53,6 +53,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -72,6 +73,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -80,6 +82,14 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
+
+// the entries' dtype codes: 0 = float32, 1 = bfloat16, 2 = float16
+enum ElemCode { kCodeF32 = 0, kCodeBF16 = 1, kCodeF16 = 2 };
+inline size_t elem_bytes(int dtype) { return dtype == kCodeF32 ? 4 : 2; }
 
 // ------------------------------------------------------------ mask policies
 

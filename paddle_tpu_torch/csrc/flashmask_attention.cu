@@ -1,5 +1,5 @@
 // FlashMask block-sparse attention for Hopper (sm_90a), forward and
-// backward, bf16 or f32 in and out, f32 accumulation (K9). Three entry
+// backward, bf16, f16 or f32 in and out, f32 accumulation (K9). Three entry
 // points over the flash-attention tile bodies (the tensor-core ones of
 // flash_attention_tc.cuh and the CUDA-core ones of
 // flash_attention_tiles.cuh) with the start-row mask policy
@@ -61,7 +61,7 @@
 //    of 4, >= Sq: read by 2-D TMA); dQ reads each thread's two lse and
 //    delta rows by plain loads. Anything else returns
 //    cudaErrorInvalidValue;
-//  * f32, and both dtypes at 128 < d <= 256, run the CUDA-core bodies of
+//  * f32 and f16, and bf16 at 128 < d <= 256, run the CUDA-core bodies of
 //    flash_attention_tiles.cuh (f32 FMAs), instantiated at DM 128 and
 //    256. The CUDA-core dK/dV reads lse and delta rows Sq apart.
 // A call with no keys writes O = 0, lse = -1e30 and dQ = 0, one with no
@@ -77,12 +77,10 @@ StartRowMask::Args mask_args(const void* start, const void* smin,
                             static_cast<const int*>(smax), causal};
 }
 
-size_t elem_bytes(int dtype) { return dtype == 1 ? 2 : 4; }
-
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError()
-// (0 = ok); the caller has checked shapes (Hq == Hkv), dtypes, contiguity
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Each returns
+// cudaGetLastError() (0 = ok); the caller has checked shapes (Hq == Hkv), dtypes, contiguity
 // and d <= 256. `scale` is the softmax scale, 1/sqrt(D) of the head dim
 // before any padding the caller added.
 extern "C" int flashmask_fwd(const void* q, const void* k, const void* v,
@@ -100,6 +98,12 @@ extern "C" int flashmask_fwd(const void* q, const void* k, const void* v,
                                        sk, d, scale, st);
   if (dtype == 1)
     return launch_fwd<__nv_bfloat16, StartRowMask, kLargeD>(
+        q, k, v, o, lse, margs, b, h, h, sq, sk, d, scale, st);
+  if (dtype == kCodeF16 && d <= kSmallD)
+    return launch_fwd<__half, StartRowMask, kSmallD>(
+        q, k, v, o, lse, margs, b, h, h, sq, sk, d, scale, st);
+  if (dtype == kCodeF16)
+    return launch_fwd<__half, StartRowMask, kLargeD>(
         q, k, v, o, lse, margs, b, h, h, sq, sk, d, scale, st);
   if (d <= kSmallD)
     return launch_fwd<float, StartRowMask, kSmallD>(
@@ -126,6 +130,12 @@ extern "C" int flashmask_bwd_dq(const void* q, const void* k, const void* v,
                                           st);
   if (dtype == 1)
     return launch_bwd_dq<__nv_bfloat16, StartRowMask, kLargeD>(
+        q, k, v, dout, lse, delta, dq, margs, b, h, h, sq, sk, d, scale, st);
+  if (dtype == kCodeF16 && d <= kSmallD)
+    return launch_bwd_dq<__half, StartRowMask, kSmallD>(
+        q, k, v, dout, lse, delta, dq, margs, b, h, h, sq, sk, d, scale, st);
+  if (dtype == kCodeF16)
+    return launch_bwd_dq<__half, StartRowMask, kLargeD>(
         q, k, v, dout, lse, delta, dq, margs, b, h, h, sq, sk, d, scale, st);
   if (d <= kSmallD)
     return launch_bwd_dq<float, StartRowMask, kSmallD>(
@@ -156,6 +166,14 @@ extern "C" int flashmask_bwd_dkv(const void* q, const void* k,
                                            ls_stride, scale, st);
   if (dtype == 1)
     return launch_bwd_dkv<__nv_bfloat16, StartRowMask, kLargeD>(
+        q, k, v, dout, lse, delta, dk, dv, margs, b, h, h, sq, sk, d, scale,
+        st);
+  if (dtype == kCodeF16 && d <= kSmallD)
+    return launch_bwd_dkv<__half, StartRowMask, kSmallD>(
+        q, k, v, dout, lse, delta, dk, dv, margs, b, h, h, sq, sk, d, scale,
+        st);
+  if (dtype == kCodeF16)
+    return launch_bwd_dkv<__half, StartRowMask, kLargeD>(
         q, k, v, dout, lse, delta, dk, dv, margs, b, h, h, sq, sk, d, scale,
         st);
   if (d <= kSmallD)

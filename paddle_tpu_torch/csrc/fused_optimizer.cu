@@ -25,10 +25,18 @@
 // f64 forms): nvcc contracts a*b + c into an FMA by default, which would
 // change the low bits against the plain version's separate kernels, and
 // the intrinsics are never contracted. The compute type C is f32 for f32,
-// bf16 and f16 parameters and f64 for f64 ones; every scalar is made on
-// the host as the plain version makes it (ops/fused_optimizer.py
-// `adam_scalars`, `decay_values`) and passed as a double that C holds
-// exactly. Each stored output is rounded once (round to nearest even):
+// bf16 and f16 parameters and f64 for f64 ones; the constant scalars are
+// made on the host as the plain version makes them (ops/fused_optimizer.py
+// `adam_scalars`, `decay_coeffs`) and passed as doubles that C holds
+// exactly. The scalars that change every step are read from device
+// memory, so that a CUDA graph that captured the launch replays it with
+// the current values: the base learning rate (one f32, the optimizer's
+// `_lr_t`) and Adam's bias corrections bc1, bc2 (two f32, computed on the
+// device from the step count). Each tensor's learning rate is
+// lr = (base * f1) * f2 in f32 (its group's factor and AdamW's lr_ratio,
+// per tensor in the parameters), and AdamW's decoupled decay value is
+// 1 - lr * coeff (L2) or lr * coeff (L1) in f32, as the plain version
+// computes them on the device. Each stored output is rounded once (round to nearest even):
 // the moments to their accumulator type TM, the parameter to TP, the
 // master weight kept in f32.
 //
@@ -45,8 +53,9 @@
 //   upd  = nesterov ? g + vel * mu : vel;   new = b - lr * upd.
 //
 // Layout. One launch takes up to kMaxTensors tensors of one (TP, TM)
-// pair. Their pointers, element counts, per-tensor LR and decay value
-// travel in the kernel's parameters (`__grid_constant__`, ~31 KB: Hopper
+// pair. Their pointers, element counts, per-tensor LR factors and decay
+// coefficient travel in the kernel's parameters (`__grid_constant__`,
+// ~31 KB: Hopper
 // with CUDA >= 12.1 takes up to 32,764 bytes), so nothing is copied to the
 // card before the launch and the grad pointers, which change every step,
 // cost nothing to pass. The tensors are laid end to end in one virtual
@@ -99,12 +108,14 @@ struct ListArgs {
   void* v[kMaxTensors];     // Adam: moment2
   void* vmax[kMaxTensors];  // amsgrad: moment2_max; else null
   float* master[kMaxTensors];  // f32 master weight or null
-  double lr[kMaxTensors];
-  double wd[kMaxTensors];  // coupled: coeff; decoupled L2: 1 - lr*coeff;
-                           // decoupled L1: lr*coeff
+  float lr1[kMaxTensors];   // the tensor's group factor
+  float lr2[kMaxTensors];   // AdamW's lr_ratio (or 1)
+  double wd[kMaxTensors];   // the decay coefficient
   unsigned char vec[kMaxTensors];
   // b1 is Momentum's mu
-  double b1, omb1, b2, omb2, bc1, bc2, eps;
+  double b1, omb1, b2, omb2, eps;
+  const float* lr_dev;  // the base learning rate (one f32 on the card)
+  const float* bc_dev;  // Adam: 1 - beta1^t, 1 - beta2^t (two f32)
   const float* scale;  // clip scale (one f32 on the card) or null
   long long chunk;     // elements a block
   int count, decoupled, l1, nesterov;
@@ -205,7 +216,8 @@ __device__ __forceinline__ C coupled(const ListArgs& a, C g, C b, C wd) {
 // Adam / AdamW: updates m, v, x (vmax) and returns the new weight
 template <typename C>
 __device__ __forceinline__ C adam_math(const ListArgs& a, bool ams, C lr,
-                                       C wd, C g, C b, C& m, C& v, C& x) {
+                                       C wd, C bc1, C bc2, C g, C b, C& m,
+                                       C& v, C& x) {
   if (!a.decoupled && wd != C(0)) g = coupled(a, g, b, wd);
   m = rn_add(rn_mul(m, (C)a.b1), rn_mul(g, (C)a.omb1));
   v = rn_add(rn_mul(v, (C)a.b2), rn_mul(rn_mul(g, g), (C)a.omb2));
@@ -214,8 +226,8 @@ __device__ __forceinline__ C adam_math(const ListArgs& a, bool ams, C lr,
     x = nan_max(x, v);
     vv = x;
   }
-  const C step = rn_div(rn_mul(rn_div(m, (C)a.bc1), lr),
-                        rn_add(rn_sqrt(rn_div(vv, (C)a.bc2)), (C)a.eps));
+  const C step = rn_div(rn_mul(rn_div(m, bc1), lr),
+                        rn_add(rn_sqrt(rn_div(vv, bc2)), (C)a.eps));
   C nb = b;
   if (a.decoupled) nb = a.l1 ? rn_sub(nb, rn_mul(wd, sgn(nb))) : rn_mul(nb, wd);
   return rn_sub(nb, step);
@@ -257,6 +269,8 @@ __device__ __forceinline__ void update(const ListArgs& a, int t, long long j,
                                        bool master, bool ams,
                                        typename Comp<TP>::type lr,
                                        typename Comp<TP>::type wd,
+                                       typename Comp<TP>::type bc1,
+                                       typename Comp<TP>::type bc2,
                                        typename Comp<TP>::type scale) {
   using C = typename Comp<TP>::type;
   const Pack<TP, W> gk = ld<TP, W>(a.g[t], j);
@@ -276,7 +290,7 @@ __device__ __forceinline__ void update(const ListArgs& a, int t, long long j,
     if (ADAM) {
       C m = to_c<C>(m1.v[k]), v = to_c<C>(m2.v[k]);
       C x = ams ? to_c<C>(mx.v[k]) : C(0);
-      nw = adam_math<C>(a, ams, lr, wd, g, b, m, v, x);
+      nw = adam_math<C>(a, ams, lr, wd, bc1, bc2, g, b, m, v, x);
       m1.v[k] = from_c<TM>(m);
       m2.v[k] = from_c<TM>(v);
       if (ams) mx.v[k] = from_c<TM>(x);
@@ -313,7 +327,19 @@ __device__ __forceinline__ void update_chunk(const ListArgs& a, long long c0,
     const long long b0 = c0 > s ? c0 - s : 0;   // a multiple of N
     const long long b1 = c1 - s < n ? c1 - s : n;
     if (b0 >= b1) continue;  // the padding after a tensor
-    const C lr = (C)a.lr[t], wd = (C)a.wd[t];
+    // the tensor's learning rate and decay value, in f32 as the plain
+    // version computes them, and Adam's bias corrections, read from
+    // device memory per tensor (short live ranges: no register is held
+    // across the chunk for them)
+    const float lrf = rn_mul(rn_mul(*a.lr_dev, a.lr1[t]), a.lr2[t]);
+    const C bc1 = ADAM ? (C)a.bc_dev[0] : C(1);
+    const C bc2 = ADAM ? (C)a.bc_dev[1] : C(1);
+    C wd = (C)a.wd[t];
+    if (a.decoupled) {
+      const float lc = rn_mul(lrf, (float)a.wd[t]);
+      wd = (C)(a.l1 ? lc : rn_sub(1.f, lc));
+    }
+    const C lr = (C)lrf;
     const bool master = a.master[t] != nullptr;
     const bool ams = ADAM && a.vmax[t] != nullptr;
     long long tail = b0;
@@ -321,11 +347,13 @@ __device__ __forceinline__ void update_chunk(const ListArgs& a, long long c0,
       const long long vend = b1 - (b1 - b0) % N;
       for (long long j = b0 + (long long)threadIdx.x * N; j < vend;
            j += (long long)kThreads * N)
-        update<TP, TM, N, ADAM>(a, t, j, master, ams, lr, wd, scale);
+        update<TP, TM, N, ADAM>(a, t, j, master, ams, lr, wd, bc1, bc2,
+                                scale);
       tail = vend;
     }
     for (long long j = tail + threadIdx.x; j < b1; j += kThreads)
-      update<TP, TM, 1, ADAM>(a, t, j, master, ams, lr, wd, scale);
+      update<TP, TM, 1, ADAM>(a, t, j, master, ams, lr, wd, bc1, bc2,
+                              scale);
   }
 }
 
@@ -400,8 +428,8 @@ int dispatch(ListArgs& a, int p_dtype, int m_dtype, cudaStream_t st) {
 // does not fit one launch
 bool fill(ListArgs& a, int count, void* const* p, const void* const* g,
           void* const* m, void* const* v, void* const* vmax,
-          void* const* master, const long long* n, const double* lr,
-          const double* wd) {
+          void* const* master, const long long* n, const float* lr1,
+          const float* lr2, const double* wd) {
   if (count <= 0 || count > kMaxTensors) return false;
   a.count = count;
   for (int t = 0; t < count; ++t) {
@@ -413,7 +441,8 @@ bool fill(ListArgs& a, int count, void* const* p, const void* const* g,
     a.vmax[t] = vmax ? vmax[t] : nullptr;
     a.master[t] = master ? static_cast<float*>(master[t]) : nullptr;
     a.n[t] = n[t];
-    a.lr[t] = lr[t];
+    a.lr1[t] = lr1[t];
+    a.lr2[t] = lr2[t];
     a.wd[t] = wd[t];
   }
   return true;
@@ -424,21 +453,23 @@ bool fill(ListArgs& a, int count, void* const* p, const void* const* g,
 extern "C" int fused_adam(int count, void* const* p, const void* const* g,
                           void* const* m, void* const* v,
                           void* const* vmax, void* const* master,
-                          const long long* n, const double* lr,
-                          const double* wd, int p_dtype, int m_dtype,
-                          int decoupled, int l1, double b1, double omb1,
-                          double b2, double omb2, double bc1, double bc2,
-                          double eps, const float* scale, void* stream) {
+                          const long long* n, const float* lr1,
+                          const float* lr2, const double* wd, int p_dtype,
+                          int m_dtype, int decoupled, int l1, double b1,
+                          double omb1, double b2, double omb2, double eps,
+                          const float* lr_dev, const float* bc_dev,
+                          const float* scale, void* stream) {
   ListArgs a;
-  if (!fill(a, count, p, g, m, v, vmax, master, n, lr, wd))
+  if (!fill(a, count, p, g, m, v, vmax, master, n, lr1, lr2, wd) ||
+      lr_dev == nullptr || bc_dev == nullptr)
     return (int)cudaErrorInvalidValue;
   a.b1 = b1;
   a.omb1 = omb1;
   a.b2 = b2;
   a.omb2 = omb2;
-  a.bc1 = bc1;
-  a.bc2 = bc2;
   a.eps = eps;
+  a.lr_dev = lr_dev;
+  a.bc_dev = bc_dev;
   a.scale = scale;
   a.decoupled = decoupled;
   a.l1 = l1;
@@ -450,14 +481,20 @@ extern "C" int fused_adam(int count, void* const* p, const void* const* g,
 extern "C" int fused_momentum(int count, void* const* p,
                               const void* const* g, void* const* vel,
                               void* const* master, const long long* n,
-                              const double* lr, const double* wd,
-                              int p_dtype, int m_dtype, int l1, int nesterov,
-                              double mu, const float* scale, void* stream) {
+                              const float* lr1, const float* lr2,
+                              const double* wd, int p_dtype, int m_dtype,
+                              int l1, int nesterov, double mu,
+                              const float* lr_dev, const float* scale,
+                              void* stream) {
   ListArgs a;
-  if (!fill(a, count, p, g, vel, nullptr, nullptr, master, n, lr, wd))
+  if (!fill(a, count, p, g, vel, nullptr, nullptr, master, n, lr1, lr2,
+            wd) ||
+      lr_dev == nullptr)
     return (int)cudaErrorInvalidValue;
   a.b1 = mu;
-  a.omb1 = a.b2 = a.omb2 = a.bc1 = a.bc2 = a.eps = 0.0;
+  a.omb1 = a.b2 = a.omb2 = a.eps = 0.0;
+  a.lr_dev = lr_dev;
+  a.bc_dev = nullptr;
   a.scale = scale;
   a.decoupled = 0;
   a.l1 = l1;

@@ -1,14 +1,14 @@
 // Paged flash-decode attention for Hopper (sm_90a), f32 accumulation: one
 // query token per sequence against a block-paged KV cache read through a
 // per-sequence block table. One kernel template, three cache formats:
-// the model's dtype (bf16/f32, K7), int8 with one f32 scale per block, and
+// the model's dtype (bf16/f16/f32, K7), int8 with one f32 scale per block, and
 // int4 packed two tokens per byte with one f32 scale per block (K7q).
 // This header holds the template and its dispatch (`run<F>`); each format
 // is instantiated in a source of its own (paged_decode.cu,
 // paged_decode_int8.cu, paged_decode_int4.cu), so the three build in
 // parallel. Those sources say what each replaces.
 //
-// Layout: q [S, Hq, D] bf16 or f32; model-dtype caches [N, Hkv, bs, D] in
+// Layout: q [S, Hq, D] bf16, f16 or f32; model-dtype caches [N, Hkv, bs, D] in
 // q's dtype; int8 caches [N, Hkv, bs, D] int8; int4 caches [N, Hkv, bs/2,
 // D] int8, where packed row t of a block holds token t in its low nibble
 // and token bs/2 + t in its high nibble (signed 4-bit); k/v scales [N] f32
@@ -86,8 +86,11 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -111,6 +114,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -119,6 +123,10 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
 
 // The 8 elements of the unit at p (shared memory) as f32, codes unscaled.
 // `sh` selects the int4 nibble: 4 = low (first half of the block), 0 =
@@ -126,12 +134,21 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <int F, typename C>
 __device__ __forceinline__ void load_unit(const C* p, int sh,
                                           float (&x)[kUnit]) {
-  if constexpr (F == kModel && sizeof(C) == 2) {
+  if constexpr (F == kModel && std::is_same<C, __nv_bfloat16>::value) {
     const uint4 r = *reinterpret_cast<const uint4*>(p);
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float2 f = __bfloat1622float2(h[i]);
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  } else if constexpr (F == kModel && std::is_same<C, __half>::value) {
+    const uint4 r = *reinterpret_cast<const uint4*>(p);
+    const __half2* h = reinterpret_cast<const __half2*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(h[i]);
       x[2 * i] = f.x;
       x[2 * i + 1] = f.y;
     }
@@ -609,6 +626,10 @@ int run(const void* q, const void* kc, const void* vc, const void* ksc,
     return dispatch_d<__nv_bfloat16, F>(q, kc, vc, ksc, vsc, tables, lens,
                                         out, w, s_n, hq, hkv, bs, d, pages,
                                         splits, part, st);
+  if (dtype == 2)
+    return dispatch_d<__half, F>(q, kc, vc, ksc, vsc, tables, lens, out, w,
+                                 s_n, hq, hkv, bs, d, pages, splits, part,
+                                 st);
   return dispatch_d<float, F>(q, kc, vc, ksc, vsc, tables, lens, out, w, s_n,
                               hq, hkv, bs, d, pages, splits, part, st);
 }

@@ -6,7 +6,10 @@ Port of paddle_tpu/distributed/fleet/utils/__init__.py: `recompute` and
 port's form is `torch.utils.checkpoint.checkpoint(use_reentrant=False)`,
 whose backward re-runs the block's forward, and a policy is a
 selective-checkpoint policy over the dispatcher ops the block runs
-(`create_selective_checkpoint_contexts`).
+(`create_selective_checkpoint_contexts`). The block's second forward runs
+under the first's AMP state (`amp.amp_state_guard`), as the reference's
+PyLayer context saves it: torch's checkpoint restores only
+`torch.autocast`'s state.
 """
 from __future__ import annotations
 
@@ -15,6 +18,8 @@ import functools
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
+
+from ....amp import amp_state, amp_state_guard
 
 __all__ = ["recompute"]
 
@@ -87,11 +92,17 @@ def recompute(function, *args, preserve_rng_state=True, use_reentrant=True,
               else [])
     if not any(_is_diff(t) for t in (*args, *kwargs.values(), *params)):
         return function(*args, **kwargs)
+    state = amp_state()
+
+    def block(*a, **k):
+        with amp_state_guard(state):
+            return function(*a, **k)
+
     extra = {}
     if policy is not None:
         extra["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts,
             _resolve_remat_policy(policy))
-    return checkpoint(function, *args, use_reentrant=False,
+    return checkpoint(block, *args, use_reentrant=False,
                       preserve_rng_state=preserve_rng_state, **extra,
                       **kwargs)

@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ....amp import amp_op
 from ....core.flags import flag
 from ....ops.quantized import dequant_int4, int4_unpack, packed_rows
 
@@ -268,6 +269,16 @@ def fused_linear_cross_entropy_reference(hidden, weight, labels,
 def fused_linear_cross_entropy(hidden, weight, labels, chunk_size=8192,
                                ignore_index=-100, name=None,
                                chunk_axis=None, token_chunk=None):
+    """`_fused_linear_cross_entropy` as the reference's op
+    "fused_linear_cross_entropy" under `amp.auto_cast`."""
+    return amp_op("fused_linear_cross_entropy", _fused_linear_cross_entropy,
+                  hidden, weight, labels, chunk_size, ignore_index, name,
+                  chunk_axis, token_chunk)
+
+
+def _fused_linear_cross_entropy(hidden, weight, labels, chunk_size=8192,
+                                ignore_index=-100, name=None,
+                                chunk_axis=None, token_chunk=None):
     """loss = mean CE(softmax(hidden @ weight), labels) without ever
     materialising the [tokens, vocab] logits, leaving ignore_index (and
     any negative) labels out of both the loss mean (at least 1) and the

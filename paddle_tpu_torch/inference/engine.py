@@ -72,6 +72,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.flags import flag
+from ..core.graphs import side_stream as _side_stream
 from ..jit.api import default_buckets
 from ..ops._cuda_common import ceil_to as _ceil_to
 from ..ops._cuda_common import resolve_device
@@ -145,23 +146,6 @@ def _sample_batched(logits, generator, do_sample, temperature, top_k, top_p):
 
 #: a sampling program's per-row inputs, as `_sample_batched` takes them
 _SAMP_KEYS = ("do_sample", "temperature", "top_k", "top_p")
-
-#: the side stream every engine on a device captures and replays its
-#: graphs on. One per device, not one per engine: torch keeps a cuBLAS
-#: workspace (32 MiB on sm90) for each stream that runs a GEMM until the
-#: process ends, so a stream per engine left 32 MiB behind every engine
-#: (`generate()` builds one per call). Engines run their programs one at
-#: a time, and each replay waits for the caller's stream and it for the
-#: replay, so sharing the stream orders nothing that was not ordered
-_SIDE_STREAMS: dict = {}
-
-
-def _side_stream(device) -> torch.cuda.Stream:
-    stream = _SIDE_STREAMS.get(device)
-    if stream is None:
-        stream = _SIDE_STREAMS[device] = torch.cuda.Stream(device)
-    return stream
-
 
 def _next_tokens(logits, sample):
     """The step's output: the f32 logits [B, V] themselves when `sample`

@@ -23,21 +23,15 @@ block tables at TRASH_BLOCK, positions 0, the copy-on-write trash onto
 trash, so only the trash block is written), which builds the kernels,
 loads their modules, creates the cuBLAS handles and allocates the lazy
 buffers, then captures the body on that stream and replays the graph for
-the real call.
-
-Launch counters: `count_launch` runs in Python, so it counts at the dry
-run and at the capture and never at a replay. The dry run and the
-capture leave the counters as they were (`_cuda_common.launches_of`);
-each replay adds the capture's launches (`count_launches`).
+the real call. The capture and replay are `core.graphs`'s, which
+`to_static` shares (launch counting under replay is described there).
 """
 from __future__ import annotations
-
-import time
 
 import numpy as np
 import torch
 
-from ..ops._cuda_common import count_launches, launches_of
+from ..core import graphs
 from ..text.paged_cache import TRASH_BLOCK
 
 #: the dry run's value of each input it does not fill with TRASH_BLOCK
@@ -51,8 +45,7 @@ class Program:
     """One serving program: static inputs, the body over them and, once
     `capture` ran, the graph with its static output."""
 
-    __slots__ = ("key", "inputs", "_host", "_staged", "_body", "graph",
-                 "output", "launches", "capture_s", "_stream")
+    __slots__ = ("key", "inputs", "_host", "_staged", "_body", "_graph")
 
     def __init__(self, key, values: dict, body, device):
         self.key = key
@@ -69,11 +62,15 @@ class Program:
         self._staged = ([(host[n], t) for n, t in self.inputs.items()],
                         torch.cuda.Event()) if cuda else None
         self._body = body
-        self.graph = None
-        self.output = None
-        self.launches = {}
-        self.capture_s = 0.0
-        self._stream = None
+        self._graph = None      # the graphs.Captured, once captured
+
+    @property
+    def graph(self):
+        return None if self._graph is None else self._graph.graph
+
+    @property
+    def capture_s(self) -> float:
+        return 0.0 if self._graph is None else self._graph.capture_s
 
     def _load(self, values):
         """Copy the call's host values into the static inputs. On a card
@@ -95,17 +92,11 @@ class Program:
         graph replayed on the engine's stream (which waits for the
         caller's stream, and the caller's for it), or the body called.
         Returns the token tensor (None for a chunk that emits none)."""
-        if self.graph is None:
+        if self._graph is None:
             self._load(values)
             return self._body(self.inputs)
-        caller = torch.cuda.current_stream(self._stream.device)
-        self._stream.wait_stream(caller)
-        with torch.cuda.stream(self._stream):
-            self._load(values)
-            self.graph.replay()
-        caller.wait_stream(self._stream)
-        count_launches(self.launches)
-        return self.output
+        self._graph.replay(lambda: self._load(values))
+        return self._graph.output
 
     def capture(self, stream, pool, generator=None) -> float:
         """The dry run, then the capture of the body into a CUDA graph,
@@ -114,28 +105,17 @@ class Program:
         sampling key draws from: the graph registers it, so that each
         replay advances it. Returns the wall seconds of dry run, capture
         and instantiation. Raises, naming the key, when either fails."""
-        t0 = time.perf_counter()
-        caller = torch.cuda.current_stream(stream.device)
-        stream.wait_stream(caller)
+
+        def dry_run():
+            for name, buf in self.inputs.items():
+                buf.fill_(DRY_VALUES.get(name, TRASH_BLOCK))
+            self._body(self.inputs)
+
         try:
-            with torch.cuda.stream(stream):
-                for name, buf in self.inputs.items():
-                    buf.fill_(DRY_VALUES.get(name, TRASH_BLOCK))
-                launches_of(lambda: self._body(self.inputs))
-                graph = torch.cuda.CUDAGraph()
-                if generator is not None:
-                    graph.register_generator_state(generator)
-
-                def capture():
-                    with torch.cuda.graph(graph, pool=pool, stream=stream):
-                        self.output = self._body(self.inputs)
-
-                self.launches = launches_of(capture)
+            self._graph = graphs.capture(
+                lambda: self._body(self.inputs), stream, pool,
+                () if generator is None else (generator,), dry_run)
         except Exception as e:
             raise RuntimeError(f"capturing the serving program {self.key} "
                                f"failed: {e}") from e
-        caller.wait_stream(stream)
-        self.graph = graph
-        self._stream = stream
-        self.capture_s = time.perf_counter() - t0
-        return self.capture_s
+        return self._graph.capture_s

@@ -13,6 +13,10 @@ Plain: `dropout` (:253), `gelu` (:36) and `scaled_dot_product_attention`
 (`nn/functional/attention.py`), whose unmasked, dropout-free form is the
 flash op (K1 forward, K2 backward on CUDA). The varlen and FlashMask APIs
 (`nn/functional/extended.py`) are in `.extended` and exported here.
+
+Each op runs through `amp.amp_op` under the reference's op name (its
+inputs cast by the AMP rule when `auto_cast` is on; one thread-local read
+when it is off).
 """
 from __future__ import annotations
 
@@ -21,14 +25,20 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ...amp import amp_op
 from ...core.flags import flag
 from ...ops import fused_norm
 from ...ops.flash_attention import flash_attention
 
 
-def gelu(x, approximate=False):
+def _gelu(x, approximate=False):
     """x * Phi(x) (erf form), or its tanh approximation."""
     return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def gelu(x, approximate=False):
+    """`_gelu` as the reference's op "gelu" (module note)."""
+    return amp_op("gelu", _gelu, x, approximate)
 
 
 def _keep_mask(x, p, generator):
@@ -38,7 +48,7 @@ def _keep_mask(x, p, generator):
     return torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
 
 
-def dropout(x, p=0.5, training=True, mode="upscale_in_train",
+def _dropout(x, p=0.5, training=True, mode="upscale_in_train",
             generator=None):
     """Zero each element with probability p and, in "upscale_in_train"
     mode, scale the kept ones by 1 / (1 - p); identity when not training
@@ -50,7 +60,13 @@ def dropout(x, p=0.5, training=True, mode="upscale_in_train",
     return torch.where(keep, kept, 0.0).to(x.dtype)
 
 
-def fused_dropout_add(x, y, p=0.5, training=True, mode="upscale_in_train",
+def dropout(x, p=0.5, training=True, mode="upscale_in_train",
+            generator=None):
+    """`_dropout` as the reference's op "dropout" (module note)."""
+    return amp_op("dropout", _dropout, x, p, training, mode, generator)
+
+
+def _fused_dropout_add(x, y, p=0.5, training=True, mode="upscale_in_train",
                       generator=None):
     """dropout(x) + y as one op: x + y, with nothing drawn, when not
     training or p == 0; else one mask drawn with `generator` and, with the
@@ -63,11 +79,18 @@ def fused_dropout_add(x, y, p=0.5, training=True, mode="upscale_in_train",
     mask = _keep_mask(x, p, generator)
     if flag("FLAGS_pallas_fused_ops"):
         return fused_norm.dropout_add_raw(x, y, mask, scale)
-    kept = x * torch.tensor(scale, dtype=x.dtype, device=x.device)
+    kept = x * x.new_full((), scale)
     return torch.where(mask.bool(), kept, 0.0).to(x.dtype) + y
 
 
-def scaled_dot_product_attention(query, key, value, attn_mask=None,
+def fused_dropout_add(x, y, p=0.5, training=True, mode="upscale_in_train",
+                      generator=None):
+    """`_fused_dropout_add` as the reference's op "fused_dropout_add" (module note)."""
+    return amp_op("fused_dropout_add", _fused_dropout_add, x, y, p, training,
+                  mode, generator)
+
+
+def _scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, generator=None):
     """softmax(q k^T / sqrt(D) (+ mask)) v over [B, S, H, D] tensors; k/v
@@ -109,7 +132,16 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     return (probs @ v).transpose(1, 2)
 
 
-def swiglu(x, y=None):
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, generator=None):
+    """`_scaled_dot_product_attention` as the reference's op "scaled_dot_product_attention" (module note)."""
+    return amp_op("scaled_dot_product_attention",
+                  _scaled_dot_product_attention, query, key, value,
+                  attn_mask, dropout_p, is_causal, training, generator)
+
+
+def _swiglu(x, y=None):
     """silu(x) * y; with y None, x's last axis is split in two halves
     (gate, up) and the composition runs, as in the reference."""
     if y is None:
@@ -120,6 +152,11 @@ def swiglu(x, y=None):
     return F.silu(x) * y
 
 
+def swiglu(x, y=None):
+    """`_swiglu` as the reference's op "swiglu" (module note)."""
+    return amp_op("swiglu", _swiglu, x, y)
+
+
 def _fused_norm(x):
     """Whether a norm takes its fused op (K3): with the flag on, for a
     tensor with elements; an empty one takes the composition, as the
@@ -127,7 +164,7 @@ def _fused_norm(x):
     return flag("FLAGS_pallas_fused_ops") and x.numel() > 0
 
 
-def rms_norm(x, weight=None, epsilon=1e-6, out_dtype=None):
+def _rms_norm(x, weight=None, epsilon=1e-6, out_dtype=None):
     """rmsnorm over the last axis, times `weight` when given.
     `out_dtype=torch.float32` is the port's stand-in for the reference's
     O2 autocast of this op (its BLACK_LIST: x and weight upcast to f32,
@@ -143,7 +180,12 @@ def rms_norm(x, weight=None, epsilon=1e-6, out_dtype=None):
     return out if weight is None else out * weight
 
 
-def fused_add_rms_norm(x, residual, weight=None, epsilon=1e-6):
+def rms_norm(x, weight=None, epsilon=1e-6, out_dtype=None):
+    """`_rms_norm` as the reference's op "rms_norm" (module note)."""
+    return amp_op("rms_norm", _rms_norm, x, weight, epsilon, out_dtype)
+
+
+def _fused_add_rms_norm(x, residual, weight=None, epsilon=1e-6):
     """(normed, summed): normed = rmsnorm(x + residual) * weight, summed =
     x + residual — the pre-norm residual chain in one K3 launch when the
     flag is on."""
@@ -151,6 +193,12 @@ def fused_add_rms_norm(x, residual, weight=None, epsilon=1e-6):
         return fused_norm.add_rms_norm_raw(x, residual, weight, epsilon)
     summed = x + residual
     return rms_norm(summed, weight, epsilon), summed
+
+
+def fused_add_rms_norm(x, residual, weight=None, epsilon=1e-6):
+    """`_fused_add_rms_norm` as the reference's op "fused_add_rms_norm" (module note)."""
+    return amp_op("fused_add_rms_norm", _fused_add_rms_norm, x, residual,
+                  weight, epsilon)
 
 
 def _rotate(a, cos, sin):
@@ -165,12 +213,12 @@ def rotary_position_embedding(q, k, cos, sin):
     kv heads, takes the composition for both)."""
     if k is not None and flag("FLAGS_pallas_fused_ops") and q.dim() == 4 \
             and q.shape[-1] % 2 == 0 and q.shape == k.shape:
-        return fused_norm.rope_qk_raw(q, k, cos, sin)
-    return (_rotate(q, cos, sin),
-            None if k is None else _rotate(k, cos, sin))
+        return amp_op("rope_qk", fused_norm.rope_qk_raw, q, k, cos, sin)
+    return (amp_op("rope", _rotate, q, cos, sin),
+            None if k is None else amp_op("rope", _rotate, k, cos, sin))
 
 
-def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+def _layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
                out_dtype=None):
     """LayerNorm over the trailing `normalized_shape` axes, times `weight`
     and plus `bias` when given. With the flag on and one normalized axis,
@@ -199,7 +247,14 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
     return out
 
 
-def fused_add_layer_norm(x, residual, weight=None, bias=None, epsilon=1e-5):
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+               out_dtype=None):
+    """`_layer_norm` as the reference's op "layer_norm" (module note)."""
+    return amp_op("layer_norm", _layer_norm, x, normalized_shape, weight,
+                  bias, epsilon, out_dtype)
+
+
+def _fused_add_layer_norm(x, residual, weight=None, bias=None, epsilon=1e-5):
     """(normed, summed) for the LayerNorm streams (GPT's post-attention
     norm): one K3-LN launch when the flag is on, the add and `layer_norm`
     otherwise."""
@@ -209,6 +264,12 @@ def fused_add_layer_norm(x, residual, weight=None, bias=None, epsilon=1e-5):
     summed = x + residual
     return layer_norm(summed, summed.shape[-1:], weight, bias,
                       epsilon), summed
+
+
+def fused_add_layer_norm(x, residual, weight=None, bias=None, epsilon=1e-5):
+    """`_fused_add_layer_norm` as the reference's op "fused_add_layer_norm" (module note)."""
+    return amp_op("fused_add_layer_norm", _fused_add_layer_norm, x,
+                  residual, weight, bias, epsilon)
 
 
 from .extended import (flash_attn_unpadded,  # noqa: E402,F401

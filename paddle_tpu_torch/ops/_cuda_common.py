@@ -23,6 +23,11 @@ drift apart:
     replay of the graph adds those launches (`count_launches`). A
     replayed program then counts exactly what the same call made
     eagerly counts.
+  * the kernel recorder: a wrapper also reports the tensors its launch
+    reads and writes (`count_launch(name, reads, writes)`,
+    `note_kernel_reads`) to the recorder `to_static`'s discovery installs
+    (`set_kernel_recorder`), which the dispatcher, blind to a ctypes
+    launch, cannot see on a card.
 """
 from __future__ import annotations
 
@@ -85,6 +90,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LAUNCHES = {name: 0 for name in KERNEL_SOURCES}
+#: the active kernel recorder (to_static's discovery) or None; a module
+#: value, so that launches from the autograd engine's threads report too
+_RECORDER = [None]
 _LIBS: dict = {}
 _BUILD_LOCK = threading.Lock()
 
@@ -107,8 +115,29 @@ def resolve_device(device=None) -> torch.device:
 
 # ------------------------------------------------------------ counters
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, reads=(), writes=()) -> None:
+    """One launch of kernel `name`, which read `reads` and wrote
+    `writes` (tensors; None entries are skipped)."""
     _LAUNCHES[name] += 1
+    rec = _RECORDER[0]
+    if rec is not None:
+        rec.on_kernel([t for t in reads if t is not None],
+                      [t for t in writes if t is not None])
+
+
+def note_kernel_reads(tensors) -> None:
+    """Report tensors a launch about to be made reads."""
+    rec = _RECORDER[0]
+    if rec is not None:
+        rec.on_kernel([t for t in tensors if t is not None], [])
+
+
+def set_kernel_recorder(rec):
+    """Install `rec` (an object with `on_kernel(reads, writes)`, or None)
+    and return the one it replaces."""
+    prev = _RECORDER[0]
+    _RECORDER[0] = rec
+    return prev
 
 
 def launch_counts() -> dict:

@@ -51,6 +51,7 @@ import math
 
 import torch
 
+from ..amp import amp_op
 from ._cuda_common import (ceil_to, check_launch, count_launch,
                            current_stream, kernel_library)
 
@@ -60,7 +61,7 @@ _BWD_DKV = "flash_attention_bwd_dkv"
 _VARLEN = {_NAME: "flash_attention_varlen_fwd",
            _BWD_DQ: "flash_attention_varlen_bwd_dq",
            _BWD_DKV: "flash_attention_varlen_bwd_dkv"}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_HEAD_DIM = 256
 #: the largest padded head dim the tensor-core bodies take
 TC_MAX_HEAD_DIM = 128
@@ -238,7 +239,7 @@ def _check(q, k, v):
                          "by the kernel")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtype {q.dtype}/{k.dtype}/{v.dtype}: the kernel "
-                         "takes float32 or bfloat16, all alike")
+                         "takes float32, bfloat16 or float16, all alike")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash attention needs contiguous tensors")
     if not (q.device == k.device == v.device):
@@ -329,7 +330,7 @@ def _launch(name, kv_lens, ptrs, q, k, causal, scale, tma=(), ints=()):
               k.shape[2], d, int(bool(causal)), _DTYPES[q.dtype], *ints,
               scale, current_stream(q.device))
     check_launch(entry, code)
-    count_launch(entry)
+    count_launch(entry, reads=(*ptrs, kv_lens))
 
 
 def _launch_fwd(q, k, v, causal, kv_lens, scale):
@@ -499,7 +500,13 @@ def flash_attention(q, k, v, causal=True):
     """(o, lse) like `flash_attention_fwd`, differentiable in q, k and v.
     When no gradient is needed (under `torch.no_grad()`, or no input
     requires one) it is `flash_attention_fwd` itself: nothing is saved and
-    exactly the forward kernel launches."""
+    exactly the forward kernel launches. Under `amp.auto_cast` it is the
+    reference's "scaled_dot_product_attention" (a WHITE_LIST op)."""
+    return amp_op("scaled_dot_product_attention", _flash_attention, q, k, v,
+                  causal)
+
+
+def _flash_attention(q, k, v, causal):
     if not (torch.is_grad_enabled()
             and (q.requires_grad or k.requires_grad or v.requires_grad)):
         return flash_attention_fwd(q, k, v, causal)

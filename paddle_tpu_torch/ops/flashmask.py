@@ -164,7 +164,7 @@ def _launch(name, ptrs, q, k, causal, scale, ints=()):
               int(bool(causal)), _DTYPES[q.dtype], *ints,
               softmax_scale(d, scale), current_stream(q.device))
     check_launch(name, code)
-    count_launch(name)
+    count_launch(name, reads=ptrs)
 
 
 def _launch_fwd(q, k, v, start_rows, smin, smax, causal, scale=None):

@@ -53,7 +53,7 @@ from typing import NamedTuple
 import torch
 
 from ._cuda_common import (check_launch, count_launch, current_stream,
-                           kernel_library)
+                           kernel_library, note_kernel_reads)
 
 _NORM_FWD = "fused_rms_norm_fwd"
 _NORM_BWD = "fused_rms_norm_bwd"
@@ -237,6 +237,7 @@ def _plain(name, *tensors) -> bool:
     if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(f"{name}: tensors must lie on the CPU or on one "
                          f"CUDA device, got {sorted(map(str, devices))}")
+    note_kernel_reads(tensors)
     return False
 
 

@@ -49,7 +49,7 @@ _NAME = "paged_decode_attention"
 #: kernel (C entry point and launch counter) of each cache format
 KERNEL_NAMES = {"model": _NAME, "int8": _NAME + "_int8",
                 "int4": _NAME + "_int4"}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the largest head dim the kernels take (a multiple of 8)
 MAX_HEAD_DIM = 256
 #: tokens of a kernel chunk: a partition is a whole number of them
@@ -213,12 +213,13 @@ def _check(fmt, q, k_cache, v_cache, block_tables, seq_lens, k_scale,
     if block_tables.shape[0] != s_n or tuple(seq_lens.shape) != (s_n,):
         raise ValueError("block_tables [S, P] and seq_lens [S] must match q")
     if q.dtype not in _DTYPES:
-        raise ValueError(f"dtype {q.dtype}: the kernels take float32 or "
-                         "bfloat16 queries")
+        raise ValueError(f"dtype {q.dtype}: the kernels take float32, "
+                         "bfloat16 or float16 queries")
     if fmt == "model" and (k_cache.dtype != q.dtype
                            or v_cache.dtype != q.dtype):
         raise ValueError(f"dtype {q.dtype}/{k_cache.dtype}: the kernel "
-                         "takes float32 or bfloat16 caches in q's dtype")
+                         "takes float32, bfloat16 or float16 caches in "
+                         "q's dtype")
     tensors = [q, k_cache, v_cache, block_tables, seq_lens]
     if fmt != "model":
         if k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8:
@@ -318,5 +319,6 @@ def _launch(fmt, q, k_cache, v_cache, block_tables, seq_lens, k_scale,
         hq, hkv, bs, d, pages, _DTYPES[q.dtype], splits, part,
         None if ws is None else ws.data_ptr(), current_stream(q.device))
     check_launch(name, code)
-    count_launch(name)
+    count_launch(name, reads=(q, k_cache, v_cache, k_scale, v_scale,
+                              block_tables, seq_lens))
     return out

@@ -35,7 +35,16 @@ The reference's arithmetic and storage rules, which differ from
     parameter).
 
 Scalars are rounded to f32 the way the reference's f32 arrays round them,
-so a step repeats the reference's bits. `use_multi_tensor=True` makes
+so a step repeats the reference's bits. The values that change from step
+to step live on the parameters' device, as the reference's do: the step
+count `_step_t` and the learning rate `_lr_t` (f32 0-dim tensors; a
+scheduler writes its value into `_lr_t` when it steps, and `step()`
+refreshes it from `get_lr()` unless a compiled call runs, as the
+reference's `_lr_value` does outside a trace). Every update reads them
+there (Adam's bias corrections are computed on the device from
+`_step_t`), so a step captured into a CUDA graph replays with the
+current count and rate; `state_dict()["step"]` is the larger of the host
+count and the device count. `use_multi_tensor=True` makes
 Adam, AdamW and Momentum update all their parameters in one launch per
 dtype pair (`optimizer.fused`); otherwise each parameter is a launch of
 the same pass on a list of one. `lazy_mode` is accepted as the reference
@@ -45,10 +54,13 @@ parameter is one with `requires_grad=False`.
 """
 from __future__ import annotations
 
-import numpy as np
+import weakref
+
 import torch
 
-from ..ops.fused_optimizer import _f32, comp_dtype as _comp
+from ..jit.api import compiled_call_active
+from ..ops.fused_optimizer import _f32, _lr_of, bias_corrections
+from ..ops.fused_optimizer import betas_tensor, comp_dtype as _comp
 from ..ops.fused_optimizer import fused_adam, fused_momentum
 from ..regularizer import decay_of
 from . import lr
@@ -111,6 +123,14 @@ class Optimizer(torch.optim.Optimizer):
         self._pending = {}     # set_state_dict entries not yet made state
         self._only = None      # minimize(parameters=...)
         super().__init__(torch_groups, {})
+        dev = self._parameters[0].device if self._parameters \
+            else torch.device("cpu")
+        # the per-step values on the device (module note)
+        self._step_t = torch.zeros((), dtype=torch.float32, device=dev)
+        self._lr_t = torch.full((), _f32(self.get_lr()),
+                                dtype=torch.float32, device=dev)
+        if isinstance(learning_rate, LRScheduler):
+            learning_rate._bound.append(weakref.ref(self))
 
     # ------------------------------------------------------------- lr
     def get_lr(self) -> float:
@@ -122,6 +142,7 @@ class Optimizer(torch.optim.Optimizer):
         if isinstance(self._lr, LRScheduler):
             raise RuntimeError("cannot set_lr when using an LRScheduler")
         self._lr = value
+        self._lr_t.fill_(_f32(value))
 
     # ----------------------------------------------------------- state
     def _acc_dtype(self, p) -> torch.dtype:
@@ -192,7 +213,7 @@ class Optimizer(torch.optim.Optimizer):
                 sk = fwd.get(id(p))
                 out[f"{sk}@{kind}" if sk is not None
                     else f"{self._names[p]}_{kind}"] = t
-        out["step"] = self._step_count
+        out["step"] = max(self._step_count, int(self._step_t.item()))
         if isinstance(self._lr, LRScheduler):
             out["LR_Scheduler"] = self._lr.state_dict()
         return out
@@ -221,6 +242,7 @@ class Optimizer(torch.optim.Optimizer):
             if k not in consumed and k not in ("step", "LR_Scheduler"):
                 self._pending[k] = v
         self._step_count = int(state.get("step", self._step_count))
+        self._step_t.fill_(float(self._step_count))
         if isinstance(self._lr, LRScheduler) and "LR_Scheduler" in state:
             self._lr.set_state_dict(state["LR_Scheduler"])
 
@@ -255,16 +277,35 @@ class Optimizer(torch.optim.Optimizer):
                 pgs = [(p, g2, grp) for (p, _, grp), (_, g2)
                        in zip(pgs, clipped)]
         self._step_count += 1
-        lr_val = _f32(self.get_lr())
-        items = [(p, g, _f32(_f32(grp["learning_rate"]) * lr_val)
-                  if "learning_rate" in grp else lr_val,
-                  grp.get("weight_decay", self._weight_decay))
-                 for p, g, grp in pgs if g is not None]
+        self._step_t.add_(1.0)
+        if not compiled_call_active():
+            self._lr_t.fill_(_f32(self.get_lr()))
+        self._begin_step()
+        # each item's learning rate: its factors over _lr_t (the group's
+        # factor; AdamW's lr_ratio joins in _hparams), or, for the
+        # per-parameter torch optimizers, the f32 0-dim product itself
+        items = []
+        for p, g, grp in pgs:
+            if g is None:
+                continue
+            entry = (_f32(grp["learning_rate"]), 1.0) \
+                if "learning_rate" in grp else 1.0
+            items.append((p, g, entry if self._kernel_lr
+                          else _lr_of(self._lr_t, entry),
+                          grp.get("weight_decay", self._weight_decay)))
         if fused:
             fused_step(self, items, scale)
         else:
             for item in items:
                 self._apply_one(*item)
+
+    #: True where `_apply_one` takes learning-rate factors (the kernel
+    #: optimizers), False where it takes the f32 0-dim rate
+    _kernel_lr = False
+
+    def _begin_step(self):
+        """Per-step device values an update reads, made after the step
+        count advanced (Adam: the bias corrections)."""
 
     def _apply_one(self, p, g, lr_val, wd):
         raise NotImplementedError
@@ -293,8 +334,11 @@ class _KernelOptimizer(Optimizer):
     parameter (a list of one) or, with `use_multi_tensor`, one launch per
     dtype pair (`optimizer.fused`)."""
 
+    _kernel_lr = True
+
     def _hparams(self, p, lr_val, wd):
-        """(learning rate, decay coefficient, is L1) of parameter p."""
+        """(learning-rate factors, decay coefficient, is L1) of parameter
+        p."""
         return (lr_val,) + decay_of(wd)
 
     def _fused_ok(self, pgs) -> bool:
@@ -323,6 +367,14 @@ class Adam(_KernelOptimizer):
         self._lazy_mode = bool(lazy_mode)
         self._decoupled_wd = False
         self._use_multi_tensor = bool(use_multi_tensor)
+        self._betas_t = None
+        self._bc_t = None
+
+    def _begin_step(self):
+        if self._betas_t is None:
+            self._betas_t = betas_tensor(self._beta1, self._beta2,
+                                         self._step_t.device)
+        self._bc_t = bias_corrections(self._betas_t, self._step_t)
 
     def _update_call(self, params, grads, lrs, coeffs, l1, scale):
         """The state of `params` (made now, at the first step), and a
@@ -334,11 +386,11 @@ class Adam(_KernelOptimizer):
         masters = [self._master(p) for p in params]
         if all(m is None for m in masters):
             masters = None
-        step = self._step_count
+        lr, bc = self._lr_t, self._bc_t
         return lambda: fused_adam(
             params, grads, ms, vs, xs, masters, lrs, coeffs,
             beta1=self._beta1, beta2=self._beta2, epsilon=self._epsilon,
-            step=step, decoupled=self._decoupled_wd, l1=l1, scale=scale)
+            decoupled=self._decoupled_wd, l1=l1, scale=scale, lr=lr, bc=bc)
 
 
 class AdamW(Adam):
@@ -361,7 +413,8 @@ class AdamW(Adam):
                 and not self._apply_decay_param_fun(self._names[p]):
             wd = 0.0
         if self._lr_ratio is not None:
-            lr_val = _f32(lr_val * _f32(self._lr_ratio(p)))
+            f1 = lr_val[0] if isinstance(lr_val, tuple) else lr_val
+            lr_val = (f1, _f32(self._lr_ratio(p)))
         return super()._hparams(p, lr_val, wd)
 
 
@@ -387,10 +440,11 @@ class Momentum(_KernelOptimizer):
         masters = [self._master(p) for p in params]
         if all(m is None for m in masters):
             masters = None
+        lr = self._lr_t
         return lambda: fused_momentum(
             params, grads, vels, masters, lrs, coeffs,
             momentum=self._momentum, nesterov=self._nesterov, l1=l1,
-            scale=scale)
+            scale=scale, lr=lr)
 
 
 # -------------------------------------------- per parameter, plain torch
@@ -558,9 +612,7 @@ class Adamax(Optimizer):
         new_u = torch.maximum(self._beta2 * u.to(c), gd.abs())
         m.copy_(new_m)
         u.copy_(new_u)
-        t = np.float32(self._step_count)
-        lr_t = float(np.float32(lr_val)
-                     / (np.float32(1) - np.float32(self._beta1) ** t))
+        lr_t = lr_val / (1 - torch.pow(_f32(self._beta1), self._step_t))
         p.copy_(pc - lr_t * new_m / (new_u + self._epsilon))
 
 
@@ -582,21 +634,21 @@ class NAdam(Optimizer):
         c = _comp(p.dtype)
         pc = p.to(c)
         gd = g.to(c) + _wd_grad(wd, pc)
-        t = np.float32(self._step_count)
+        t = self._step_t
         b1, b2, md = self._beta1, self._beta2, self._momentum_decay
-        f32 = np.float32
-        mu_t = f32(b1) * (f32(1) - f32(0.5) * f32(0.96) ** (t * f32(md)))
-        mu_t1 = f32(b1) * (f32(1) - f32(0.5) * f32(0.96)
-                           ** ((t + f32(1)) * f32(md)))
-        new_mu_prod = mu_prod * float(mu_t)
+        # f32 scalars on the device, as the reference's f32 step array
+        mu_t = _f32(b1) * (1 - 0.5 * torch.pow(_f32(0.96), t * _f32(md)))
+        mu_t1 = _f32(b1) * (1 - 0.5 * torch.pow(_f32(0.96),
+                                                (t + 1) * _f32(md)))
+        new_mu_prod = mu_prod * mu_t
         mu_prod.copy_(new_mu_prod)
         new_m = b1 * m.to(c) + (1 - b1) * gd
         new_v = b2 * v.to(c) + (1 - b2) * gd.square()
         m.copy_(new_m)
         v.copy_(new_v)
-        mhat = (float(mu_t1) * new_m / (1 - new_mu_prod * float(mu_t1))
-                + float(f32(1) - mu_t) * gd / (1 - new_mu_prod))
-        vhat = new_v / float(f32(1) - f32(b2) ** t)
+        mhat = (mu_t1 * new_m / (1 - new_mu_prod * mu_t1)
+                + (1 - mu_t) * gd / (1 - new_mu_prod))
+        vhat = new_v / (1 - torch.pow(_f32(b2), t))
         p.copy_(pc - lr_val * mhat / (vhat.sqrt() + self._epsilon))
 
 
@@ -615,14 +667,14 @@ class Lamb(Optimizer):
         m = self._acc("moment1", p)
         v = self._acc("moment2", p)
         gd = g.float()
-        t = np.float32(self._step_count)
+        t = self._step_t
         b1, b2 = self._beta1, self._beta2
         new_m = b1 * m.float() + (1 - b1) * gd
         new_v = b2 * v.float() + (1 - b2) * gd.square()
         m.copy_(new_m)
         v.copy_(new_v)
-        mhat = new_m / float(np.float32(1) - np.float32(b1) ** t)
-        vhat = new_v / float(np.float32(1) - np.float32(b2) ** t)
+        mhat = new_m / (1 - torch.pow(_f32(b1), t))
+        vhat = new_v / (1 - torch.pow(_f32(b2), t))
         r = mhat / (vhat.sqrt() + self._epsilon)
         wd_c = 0.0 if (self._exclude_fn is not None
                        and self._exclude_fn(p)) else self._wd

@@ -6,11 +6,20 @@ each `step()`, rounded to f32 as the reference's f32 LR array is; the
 caller advances the scheduler with `scheduler.step()`. `state_dict` keeps
 the scheduler's plain attributes (numbers, strings, flags, lists) and
 `set_state_dict` restores them.
+
+A scheduler keeps weak references to the optimizers that take it
+(`_bound`) and, at each `step()` and `set_state_dict`, writes its new
+value into their `_lr_t`, the device tensor a step reads (as the
+reference's `_push` refreshes its optimizers' `_lr_t`), so a captured
+train step replays with the current rate. A scheduler stepped inside a
+compiled function steps once, at the capture, as the reference's steps
+once at its trace: its value is then fixed for the replays, in both.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -20,10 +29,21 @@ class LRScheduler:
         self.last_epoch = last_epoch
         self.verbose = verbose
         self.last_lr = learning_rate
+        self._bound = []  # weakrefs to the optimizers whose _lr_t we write
         self.step()
 
     def get_lr(self):
         raise NotImplementedError
+
+    def _push(self):
+        """Write the current value, rounded to f32, into every bound
+        optimizer's `_lr_t` (on its device: no host read)."""
+        for ref in list(self._bound):
+            opt = ref()
+            if opt is None:
+                self._bound.remove(ref)
+            else:
+                opt._lr_t.fill_(float(np.float32(self.last_lr)))
 
     def step(self, epoch=None):
         if epoch is None:
@@ -31,16 +51,20 @@ class LRScheduler:
         else:
             self.last_epoch = epoch
         self.last_lr = self.get_lr()
+        self._push()
 
     def __call__(self):
         return self.last_lr
 
     def state_dict(self):
         return {k: v for k, v in self.__dict__.items()
-                if isinstance(v, (int, float, bool, str, list))}
+                if k != "_bound"
+                and isinstance(v, (int, float, bool, str, list))}
 
     def set_state_dict(self, state):
-        self.__dict__.update(state)
+        self.__dict__.update({k: v for k, v in state.items()
+                              if k != "_bound"})
+        self._push()
 
     set_dict = set_state_dict
 
@@ -230,6 +254,7 @@ class ReduceOnPlateau(LRScheduler):
         self.last_lr = learning_rate
         self.last_epoch = 0
         self.verbose = verbose
+        self._bound = []
 
     def get_lr(self):
         return self.last_lr
@@ -264,6 +289,7 @@ class ReduceOnPlateau(LRScheduler):
                 self.last_lr = new_lr
             self.cooldown_counter = self.cooldown
             self.num_bad_epochs = 0
+        self._push()
 
 
 class OneCycleLR(LRScheduler):

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...amp import model_forward
 from ...nn import functional as PF
 from ...nn.layer import Dropout, LayerNorm
 from ...ops._cuda_common import resolve_device
@@ -142,6 +143,7 @@ class BertModel(nn.Module):
     def device(self) -> torch.device:
         return self.pooler.weight.device
 
+    @model_forward
     def forward(self, input_ids, token_type_ids=None, attn_mask=None):
         """-> (sequence output [B, S, H] in f32, the last norm's output;
         pooled [B, H] in the pooler's dtype)."""
@@ -174,6 +176,7 @@ class BertForSequenceClassification(nn.Module):
     def device(self) -> torch.device:
         return self.bert.device
 
+    @model_forward
     def forward(self, input_ids, token_type_ids=None, labels=None,
                 attn_mask=None):
         _, pooled = self.bert(input_ids, token_type_ids, attn_mask)

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...amp import model_forward
 from ...incubate.nn.functional import fused_linear_cross_entropy
 from ...nn import functional as PF
 from ...nn.layer import LayerNorm
@@ -130,6 +131,7 @@ class GPTForCausalLM(nn.Module):
     def device(self) -> torch.device:
         return self.wte.weight.device
 
+    @model_forward
     def forward(self, input_ids, labels=None):
         """input_ids [B, S] (tensor or array) -> logits [B, S, V] in the
         head's dtype; with `labels` [B, S], the mean cross-entropy in f32

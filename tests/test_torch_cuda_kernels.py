@@ -11,7 +11,9 @@ plain versions are themselves held against paddle_tpu in
 test_torch_flash_attention.py, test_torch_paged_decode.py and
 test_torch_quantized.py on the CPU. Tolerances: f32 1e-4 (f32
 accumulation in another order); bf16 2e-2 (bf16 output rounding of
-values of magnitude ~1, 2^-8 relative). The dequant-matmul and the flash
+values of magnitude ~1, 2^-8 relative); f16 4e-3 (2^-11 relative, on
+values up to a few), and f16 gradients 2^-9 of the largest |value| (each
+side rounds its f32 sum once to f16). The dequant-matmul and the flash
 backward are compared relative to the largest output (their outputs grow
 with K and with the sequence): f32 1e-5 / 1e-4, bf16 2^-7 (each side
 rounds its f32 sum once to bf16, so the two differ by at most one bf16
@@ -41,7 +43,8 @@ from paddle_tpu_torch.ops.quantized import (dequant_int4, int4_unpack,
                                             quantize_int4)
 
 pytestmark = pytest.mark.cuda
-DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)]
+DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2),
+          (torch.float16, 4e-3)]
 
 
 @pytest.fixture
@@ -76,7 +79,8 @@ def test_flash_kernel_matches_plain(card, dtype, tol, b, hq, hkv, sq, sk, d,
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 2 ** -7)])
+                                       (torch.bfloat16, 2 ** -7),
+                                       (torch.float16, 2 ** -9)])
 @pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", [
     (1, 16, 16, 500, 500, 128, True), (1, 16, 4, 512, 512, 128, True),
     (2, 8, 2, 77, 77, 64, True), (1, 4, 4, 130, 130, 128, False),
@@ -551,7 +555,7 @@ def test_quant_matmul_refuses_what_it_does_not_take(card):
 
 
 def test_kernels_refuse_bad_inputs(card):
-    q = torch.zeros(1, 2, 8, 16, device=card, dtype=torch.float16)
+    q = torch.zeros(1, 2, 8, 16, device=card, dtype=torch.float64)
     with pytest.raises(ValueError, match="dtype"):
         flash_attention_fwd(q, q, q)
     q = torch.zeros(1, 2, 8, 16, device=card).transpose(2, 3)
@@ -1378,7 +1382,8 @@ def _check_grads(got, want, tol):
 
 
 @pytest.mark.parametrize("dtype,tol,gtol", [(torch.float32, 1e-4, 1e-4),
-                                            (torch.bfloat16, 2e-2, 2 ** -7)])
+                                            (torch.bfloat16, 2e-2, 2 ** -7),
+                                            (torch.float16, 4e-3, 2 ** -9)])
 @pytest.mark.parametrize("hq,hkv,s,d,causal,lens", [
     (4, 2, 200, 64, True, [200, 77, 0, 130]),
     (4, 4, 256, 128, False, [256, 1, 64, 65]),
@@ -1445,7 +1450,8 @@ def _fm_starts(kind, b, h, s, rs):
 
 
 @pytest.mark.parametrize("dtype,tol,gtol", [(torch.float32, 1e-4, 1e-4),
-                                            (torch.bfloat16, 2e-2, 2 ** -7)])
+                                            (torch.bfloat16, 2e-2, 2 ** -7),
+                                            (torch.float16, 4e-3, 2 ** -9)])
 @pytest.mark.parametrize("kind,b,h,s,d,causal", [
     ("random", 2, 2, 256, 64, True), ("random", 2, 2, 256, 64, False),
     ("empty-row", 2, 2, 300, 128, True), ("random", 1, 2, 4100, 64, True),
@@ -2410,3 +2416,271 @@ def test_ce_token_gemm_route_matches_upcast(card):
     assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-5
     assert torch.equal(_mm_f32(a.cpu(), b.cpu()), (a.cpu().float()
                                                    @ b.cpu().float()))
+
+
+# ------------------------------------------------- to_static on the card
+
+def _tiny_step(card, scaler=None, level="O2", dtype="bfloat16", seed=0,
+               lr=1e-3, **cfg):
+    """A tiny LLaMA, its AdamW and the bench's step function (auto_cast
+    inside, backward, step, clear_grad; with `scaler`, the scaled form)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import (LlamaForCausalLM,
+                                              llama_tiny_config)
+
+    torch.manual_seed(seed)
+    model = LlamaForCausalLM(llama_tiny_config(**cfg), device=card)
+    opt = AdamW(learning_rate=lr, parameters=model.parameters())
+    if level == "O2":
+        model, opt = amp.decorate(model, opt, level="O2", dtype=dtype,
+                                  master_weight=False)
+
+    def step(x):
+        with amp.auto_cast(enable=True, dtype=dtype, level=level):
+            loss = model(x, labels=x)
+        if scaler is None:
+            loss.backward()
+            opt.step()
+        else:
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            scaler.update()
+        opt.clear_grad()
+        return loss
+
+    return model, opt, step
+
+
+def test_captured_step_replays_equal_eager_steps(card):
+    """A tiny bf16 O2 LLaMA step under to_static, captured at its third
+    call and replayed, gives the losses of the same step run eagerly from
+    the same weights, bit for bit; one graph; the launches of each replay
+    equal an eager step's."""
+    from paddle_tpu_torch import jit
+
+    ids = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 256, (2, 64))).to(card)
+    runs = []
+    for static in (False, True):
+        _, _, step = _tiny_step(card)
+        fn = jit.to_static(step) if static else step
+        losses = []
+        for i in range(7):
+            _cuda_common.reset_launch_counts()
+            losses.append(fn(ids).item())
+            if i >= 2:
+                counts = _cuda_common.launch_counts()
+        runs.append((losses, counts))
+        if static:
+            assert len(fn._cache) == 1
+            assert fn.graph_break_report()["graphs"] == 1
+    assert runs[0][0] == runs[1][0]
+    assert runs[0][1] == runs[1][1]
+
+
+def test_step_count_and_lr_advance_across_replays(card):
+    """`_step_t` advances once a replay and a scheduler stepped between
+    replays reaches the graph through `_lr_t`: the parameters after five
+    replayed steps equal five eager steps bit for bit."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.optimizer import AdamW, lr
+
+    rs = np.random.RandomState(4)
+    x = torch.from_numpy(rs.randn(16, 8).astype("float32")).to(card)
+    outs = []
+    for static in (False, True):
+        torch.manual_seed(0)
+        lin = torch.nn.Linear(8, 4, device=card)
+        sched = lr.StepDecay(0.1, step_size=1, gamma=0.5)
+        opt = AdamW(learning_rate=sched, parameters=lin.parameters())
+
+        def step(x):
+            loss = lin(x).square().mean()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        fn = jit.to_static(step) if static else step
+        for _ in range(5):
+            fn(x)
+            sched.step()
+        torch.cuda.synchronize()
+        assert int(opt._step_t.item()) == 5
+        assert opt.state_dict()["step"] == 5
+        outs.append([t.detach().cpu() for t in lin.parameters()])
+    _same_bits(outs[0], outs[1])
+
+
+def test_fused_adam_device_scalars_repeat_plain_over_steps(card):
+    """fused_adam reading its learning rate and bias corrections on the
+    device, three steps (the step count advanced on the device), against
+    fused_adam_reference on copies: bit for bit."""
+    ps, gs, st, _ = _opt_lists(card, OPT_SIZES, torch.bfloat16,
+                               torch.float32, False, 2)
+    n = len(ps)
+    lrs = [(1.0, 1.0) if i % 2 else (0.5, 2.0) for i in range(n)]
+    runs = []
+    for fn in (fused_optimizer.fused_adam,
+               fused_optimizer.fused_adam_reference):
+        p, m1, m2 = _clone(ps), _clone(st[0]), _clone(st[1])
+        step_t = torch.zeros((), device=card)
+        lr_t = torch.full((), 1e-3, device=card)
+        betas = fused_optimizer.betas_tensor(0.9, 0.95, card)
+        for _ in range(3):
+            step_t.add_(1.0)
+            bc = fused_optimizer.bias_corrections(betas, step_t)
+            fn(p, _clone(gs), m1, m2, None, None, lrs, [0.1] * n,
+               beta1=0.9, beta2=0.95, epsilon=1e-8, decoupled=True,
+               lr=lr_t, bc=bc)
+            lr_t.mul_(0.5)
+        torch.cuda.synchronize()
+        runs.append(p + m1 + m2)
+    _same_bits(runs[0], runs[1])
+
+
+def test_sync_inside_to_static_is_a_graph_break_on_card(card):
+    """A host read inside the function is found at discovery on the card
+    too: the third call warns "graph break", captures nothing and runs
+    eagerly; with full_graph=True it raises."""
+    import warnings
+
+    from paddle_tpu_torch import jit
+
+    def f(x):
+        if float(x.sum()) > 0:
+            return x * 2
+        return x * 3
+
+    x = torch.ones(3, device=card)
+    g = jit.to_static(f)
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        outs = [g(x) for _ in range(4)]
+    assert g._segmented and not g._cache or all(
+        s.captured is None for s in g._cache.values())
+    assert any("graph break" in str(m.message) for m in w)
+    assert all(torch.equal(o, 2 * x) for o in outs)
+    h = jit.to_static(f, full_graph=True)
+    h(x)
+    h(x)
+    with pytest.raises(RuntimeError, match="full_graph=True"):
+        h(x)
+
+
+def test_grad_scaler_masked_branch_inside_graph(card):
+    """In a captured step an overflowing gradient takes the reference's
+    traced branch: the update runs on zeroed gradients (the moments of the
+    earlier steps still move the weights) and the scale halves; eagerly
+    the step is skipped (the weights stay). Both scalers' state dicts
+    agree."""
+    from paddle_tpu_torch import amp, jit
+    from paddle_tpu_torch.optimizer import AdamW
+
+    x = torch.ones(4, 8, device=card)
+    results = []
+    for static in (False, True):
+        torch.manual_seed(0)
+        lin = torch.nn.Linear(8, 4, device=card)
+        opt = AdamW(learning_rate=0.1, weight_decay=0.0,
+                    parameters=lin.parameters())
+        scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15, device=card)
+        bomb = torch.zeros((), device=card)
+
+        def step(x):
+            loss = lin(x).sum() * (1.0 + bomb)
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            scaler.update()
+            opt.clear_grad()
+            return loss
+
+        fn = jit.to_static(step) if static else step
+        for _ in range(3):                     # warm-up, discovery, capture
+            fn(x)
+        w_before = lin.weight.detach().clone()
+        bomb.fill_(float("inf"))
+        fn(x)
+        torch.cuda.synchronize()
+        results.append((torch.equal(lin.weight, w_before),
+                        scaler.state_dict()["scale"].item()))
+    assert results[0] == (True, 2.0 ** 14)
+    assert results[1] == (False, 2.0 ** 14)
+
+
+def test_dropped_compiled_functions_leave_no_device_memory(card):
+    """A CompiledFunction's graphs, pool, static inputs and outputs go
+    with it: building and dropping captured step functions brings the
+    allocator back to where it started."""
+    import gc
+
+    from paddle_tpu_torch import jit
+
+    x = torch.randn(64, 256, device=card)
+    w = torch.randn(256, 256, device=card)
+
+    def f(x):
+        return torch.tanh(x @ w) @ w
+
+    f(x)
+    torch.cuda.synchronize()
+    gc.collect()
+    start = torch.cuda.memory_allocated()
+    for _ in range(3):
+        g = jit.to_static(f)
+        for _ in range(4):
+            g(x)
+        torch.cuda.synchronize()
+        del g
+        gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == start
+
+
+@pytest.mark.parametrize("arch", ["llama", "gpt", "bert"])
+def test_float16_o2_steps_run_on_card(card, arch):
+    """F7: `amp.decorate(level="O2", dtype="float16")` models train on the
+    card: two AdamW steps of a tiny LLaMA, GPT and BERT with float16
+    parameters, the attention through the flash kernels in f16 (K1 and
+    both K2 kernels once per layer and step), finite losses."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import (
+        BertConfig, BertForSequenceClassification, GPTConfig,
+        GPTForCausalLM, LlamaForCausalLM, llama_tiny_config)
+
+    torch.manual_seed(0)
+    rs = np.random.RandomState(0)
+    ids = torch.from_numpy(rs.randint(0, 256, (2, 64))).to(card)
+    labels = ids
+    if arch == "llama":
+        model = LlamaForCausalLM(llama_tiny_config(), device=card)
+    elif arch == "gpt":
+        model = GPTForCausalLM(GPTConfig(
+            vocab_size=256, hidden_size=64, num_hidden_layers=2,
+            num_attention_heads=4, max_position_embeddings=64), device=card)
+    else:
+        model = BertForSequenceClassification(BertConfig(
+            vocab_size=256, hidden_size=64, num_hidden_layers=2,
+            num_attention_heads=4, intermediate_size=128,
+            max_position_embeddings=64), device=card)
+        labels = torch.from_numpy(rs.randint(0, 2, (2,))).to(card)
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="float16")
+    assert torch.float16 in {p.dtype for p in model.parameters()}
+    _cuda_common.reset_launch_counts()
+    losses = []
+    for _ in range(2):
+        with amp.auto_cast(enable=True, dtype="float16", level="O2"):
+            loss = model(ids, labels=labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    counts = _cuda_common.launch_counts()
+    assert all(np.isfinite(losses)), losses
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert counts[name] == 2 * 2, counts

@@ -176,15 +176,20 @@ def test_decorate_keeps_layer_norm_f32_and_refuses_o1():
         [str(p.dtype).replace("torch.", "") for p in port.parameters()] == \
         ["bfloat16", "bfloat16", "float32", "float32"]
     # decorate at O1, the default, leaves the parameters as they are, as
-    # the reference's does; O1's per-op casting (auto_cast) is not ported
+    # the reference's does; O1 casts per op in auto_cast instead: a
+    # Linear's output in bf16 from f32 parameters, as the reference's
     ref1 = pnn.Linear(4, 8)
     paddle.amp.decorate(ref1)
     port1 = torch.nn.Linear(4, 8)
     assert amp.decorate(port1) is port1
     assert {str(p.dtype) for p in ref1.parameters()} == {"float32"}
     assert {p.dtype for p in port1.parameters()} == {torch.float32}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        with amp.auto_cast(level="O1"):
-            pass
+    x = np.ones((2, 4), "float32")
+    with paddle.amp.auto_cast(level="O1"):
+        ref_out = ref1(paddle.to_tensor(x))
+    with amp.auto_cast(level="O1"):
+        port_out = port1(torch.from_numpy(x))
+    assert str(ref_out.dtype).endswith("bfloat16")
+    assert port_out.dtype == torch.bfloat16
     with amp.auto_cast(enable=True, level="O2", dtype="bfloat16"):
         pass

@@ -611,9 +611,10 @@ def _wrapper_path(monkeypatch):
 
 def test_wrapper_passes_the_list_in_batches(monkeypatch):
     """What the wrapper hands the kernel: MAX_TENSORS tensors a launch,
-    empty tensors left out, each tensor's pointers, size, learning rate
-    and decay value, the dtype pair and the step's scalars; one count per
-    launch."""
+    empty tensors left out, each tensor's pointers, size, learning-rate
+    factors and decay coefficient, the dtype pair, the constant scalars
+    and the device pointers of the base learning rate and the bias
+    corrections; one count per launch."""
     stand_in = _wrapper_path(monkeypatch)
     n = 2 * fused_optimizer.MAX_TENSORS
     sizes = [(i % 5) * 3 for i in range(n)]      # every fifth is empty
@@ -630,7 +631,7 @@ def test_wrapper_passes_the_list_in_batches(monkeypatch):
     live = [i for i, s in enumerate(sizes) if s]
     assert [c[0] for c in stand_in.calls] == [
         fused_optimizer.MAX_TENSORS, len(live) - fused_optimizer.MAX_TENSORS]
-    h = fused_optimizer.adam_scalars(0.9, 0.999, 1e-8, 3, torch.float32)
+    h = fused_optimizer.adam_scalars(0.9, 0.999, 1e-8, torch.float32)
     for k, call in enumerate(stand_in.calls):
         idx = live[k * fused_optimizer.MAX_TENSORS:]
         count = call[0]
@@ -638,13 +639,19 @@ def test_wrapper_passes_the_list_in_batches(monkeypatch):
         assert list(call[2]) == [gs[i].data_ptr() for i in idx[:count]]
         assert call[5] is None and call[6] is None    # no vmax, no master
         assert list(call[7]) == [sizes[i] for i in idx[:count]]
-        assert list(call[8]) == [lrs[i] for i in idx[:count]]
-        assert list(call[9]) == fused_optimizer.decay_values(
-            [lrs[i] for i in idx[:count]], [0.1] * count, True, False,
-            torch.float32)
-        assert call[10:14] == (1, 1, 1, 0)           # bf16, bf16, decoupled
-        assert call[14:21] == tuple(h)
-        assert call[21] is None and call[22] == 7
+        # the learning rate's factors over the base (1: no `lr` given),
+        # the f32 decay coefficients
+        assert list(call[8]) == [np.float32(lrs[i]) for i in idx[:count]]
+        assert list(call[9]) == [1.0] * count
+        assert list(call[10]) == fused_optimizer.decay_coeffs(
+            [0.1] * count, True, torch.float32)
+        assert call[11:15] == (1, 1, 1, 0)           # bf16, bf16, decoupled
+        assert call[15:20] == tuple(h)
+        # the base learning rate and the bias corrections on the device
+        assert call[20] == fused_optimizer._base_lr(None, ps[0].device) \
+            .data_ptr()
+        assert isinstance(call[21], int) and call[22] is None \
+            and call[23] == 7
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch):

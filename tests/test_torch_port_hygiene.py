@@ -49,7 +49,9 @@ def test_module_list_covers_every_subpackage():
     for mod in ("paddle_tpu_torch.distributed",
                 "paddle_tpu_torch.distributed.fleet",
                 "paddle_tpu_torch.distributed.fleet.utils",
-                "paddle_tpu_torch.incubate.nn.functional.fused_loss"):
+                "paddle_tpu_torch.incubate.nn.functional.fused_loss",
+                "paddle_tpu_torch.amp", "paddle_tpu_torch.jit",
+                "paddle_tpu_torch.jit.api", "paddle_tpu_torch.core.graphs"):
         assert mod in MODULES, mod
 
 
@@ -109,6 +111,21 @@ def test_default_device_is_cuda_and_refuses_without_card(monkeypatch):
         ServingEngine(model, max_slots=1)
     assert ServingEngine(model, max_slots=1, device="cpu").device.type \
         == "cpu"
+
+
+def test_grad_scaler_defaults_to_cuda_and_refuses_without_card(monkeypatch):
+    """GradScaler keeps its scale on `device`, "cuda" unless the caller
+    asks for another; to_static has no device of its own."""
+    from paddle_tpu_torch import amp, jit
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        amp.GradScaler()
+    assert amp.GradScaler(device="cpu").get_loss_scaling().device.type \
+        == "cpu"
+    sf = jit.to_static(lambda x: x * 2)
+    for _ in range(3):
+        assert sf(torch.ones(2)).device.type == "cpu"
 
 
 def test_kernel_sources_exist_and_are_the_build_list():
