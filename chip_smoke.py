@@ -204,7 +204,37 @@ Phases (any failure exits non-zero; nothing is caught):
      branch), the scale halves in both and the scalers' state dicts
      agree. Phase 3 also holds F7's float16 kernels (K1, K2, K1v, K2v,
      K9, K7 on the CUDA-core bodies) against their plain versions
-     (F16_TOL) with their times and bounds.
+     (F16_TOL) with their times and bounds;
+ 18. tensor_ops: the Tensor API (`paddle_tpu_torch.Tensor` and its ops)
+     on the card. Every row of the port's op table
+     (paddle_tpu_torch/ops/op_table*.py), on its own seeded numpy
+     inputs, on CUDA Tensors: the fp32 forward against the row's numpy
+     `ref` and against the same row on the CPU at the row's tolerances,
+     the bf16 forward against the fp32 one at TENSOR_BF16_TOL, and for a
+     differentiable row the fp32 gradient of out.sum() against the CPU
+     gradient at the row's tolerances; every output and gradient on the
+     card. One line: rows, passed, the failures with their max error,
+     seconds; any failure fails the run;
+ 19. dygraph: one LLaMA 1B decoder layer at full width (hidden 2048, 16
+     heads x 128, intermediate 5504, batch 4 x 1024, bf16, the model's
+     rope tables) written on the Tensor surface (rms_norm, matmuls,
+     reshape, rotary_position_embedding, scaled_dot_product_attention,
+     fused_add_rms_norm, swiglu, add), its nine Parameters carried from
+     layer 0 of TRAIN's model (seed 0, O2): one step's gradients against
+     the same layer's `LlamaDecoderLayer.forward` on torch tensors within
+     GRAD_TOL of each tensor's largest |value|, launches exact (K1 1, K2
+     1 + 1, K3 2 + 2, K4 1 + 1, K5 1 + 1, fused_adam 9 a step) over
+     DYGRAPH_STEPS AdamW steps whose loss falls; ms a step (median of
+     steps 2..) beside the torch layer's step, the host's ms by part of
+     the step (forward, backward, optimizer, clear_grad issued without a
+     sync, then the wait for the card; the two surfaces' steps
+     alternating) and the card's ops a step, each beside the torch
+     layer's, and the wrapper's host cost (µs an op
+     over a chain of 200 adds on 16-element CUDA Tensors beside the same
+     chain on torch tensors); then DYGRAPH_STATIC, the
+     same step under jit.to_static: one graph, no break, losses within
+     STATIC_TOL of the eager steps', launches per replay equal to the
+     eager step's, replay ms and capture seconds.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Without a CUDA card it exits 1 and prints
@@ -3970,6 +4000,364 @@ def amp_mode_cost(steps=5):
     del model, opt, ids, step
     _clean_device()
 
+# ------------------------------------------------------- the Tensor surface
+
+#: a row's bf16 forward against its fp32 one (tests/test_op_table_sweep.py)
+TENSOR_BF16_TOL = 5e-2
+#: DYGRAPH's eager steps, and DYGRAPH_STATIC's calls (2 eager priming
+#: calls, then the captured step)
+DYGRAPH_STEPS = 6
+#: the DYGRAPH step's launches per step
+DYGRAPH_LAUNCHES = {"flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+                    "flash_attention_bwd_dkv": 1, "fused_rms_norm_fwd": 2,
+                    "fused_rms_norm_bwd": 2, "rope_qk": 2, "swiglu_fwd": 1,
+                    "swiglu_bwd": 1, "fused_adam": 9}
+
+
+def _first(out):
+    return out[0] if isinstance(out, (list, tuple)) else out
+
+
+def _row_run(pt, spec, arrays, place, bf16=False, grads=False):
+    """Row `spec` on `arrays` (numpy) at `place`: (output Tensor, the
+    gradients of out.sum() or None)."""
+    pt.set_device(place)
+    skip = set(spec.int_inputs) | set(spec.no_grad_inputs)
+    ts = []
+    for i, a in enumerate(arrays):
+        t = pt.to_tensor(a)
+        if bf16 and i not in spec.int_inputs:
+            t = t.astype("bfloat16")
+        if grads and i not in skip:
+            t.stop_gradient = False
+        ts.append(t)
+    out = _first(spec.fn(*ts, **spec.kwargs))
+    if not grads:
+        return out, None
+    out.sum().backward()
+    gs = [t.grad for i, t in enumerate(ts) if i not in skip]
+    return out, [None if g is None else g.numpy().astype("float64")
+                 for g in gs]
+
+
+def _close(got, want, rtol, atol, what):
+    """Assert np.allclose; returns the max abs error."""
+    got = np.asarray(got, dtype="float64")
+    want = np.asarray(want, dtype="float64")
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    err = float(np.nanmax(np.abs(got - want))) if got.size else 0.0
+    assert np.allclose(got, want, rtol=rtol, atol=atol, equal_nan=True), \
+        f"{what}: max abs err {err}"
+    return err
+
+
+def _tensor_row(pt, spec):
+    """One op-table row on the card (phase 18); returns its max error
+    against the CPU."""
+    arrays = spec.sample_inputs(seed=0)
+    out, _ = _row_run(pt, spec, arrays, "gpu")
+    assert out._data.device.type == "cuda", "output left the card"
+    cpu, _ = _row_run(pt, spec, arrays, "cpu")
+    got = out.numpy().astype("float64")
+    err = _close(got, cpu.numpy(), spec.rtol, spec.atol, "fp32 vs cpu")
+    if spec.ref is not None:
+        _close(got, spec.ref(*arrays), spec.rtol, spec.atol, "fp32 vs ref")
+    if spec.bf16:
+        a2 = spec.sample_inputs(seed=2)
+        o32, _ = _row_run(pt, spec, a2, "gpu")
+        ob, _ = _row_run(pt, spec, a2, "gpu", bf16=True)
+        assert ob._data.device.type == "cuda"
+        _close(ob.numpy(), o32.numpy(), TENSOR_BF16_TOL, TENSOR_BF16_TOL,
+               "bf16 vs fp32")
+    if spec.diff:
+        a1 = spec.sample_inputs(seed=1)
+        _, gg = _row_run(pt, spec, a1, "gpu", grads=True)
+        _, gc_ = _row_run(pt, spec, a1, "cpu", grads=True)
+        for g, c in zip(gg, gc_):
+            assert (g is None) == (c is None), "gradient on one side only"
+            if g is not None:
+                err = max(err, _close(g, c, spec.rtol, spec.atol,
+                                      "grad vs cpu"))
+    return err
+
+
+def tensor_ops():
+    """Phase 18 (module note). Returns the number of rows."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import op_table
+
+    op_table.ensure_populated()
+    t0 = time.perf_counter()
+    failed, worst = {}, 0.0
+    for name, spec in sorted(op_table.OPS.items()):
+        try:
+            worst = max(worst, _tensor_row(pt, spec))
+        except Exception as e:             # reported, then the run fails
+            failed[name] = f"{type(e).__name__}: {e}"[:300]
+    pt.set_device("gpu")
+    rows = len(op_table.OPS)
+    _say("TENSOR_OPS", {"rows": rows, "passed": rows - len(failed),
+                        "failed": failed, "deferred": len(op_table.DEFERRED),
+                        "max_abs_err_vs_cpu": worst,
+                        "seconds": time.perf_counter() - t0,
+                        "device": _nvidia_smi()})
+    assert not failed, failed
+    return rows
+
+
+def _dygraph_layer():
+    """TRAIN's model cut to one layer (its layer 0 is TRAIN's: the same
+    seed and init order), O2: (layer, cos, sin, config)."""
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**dict(CFG_1B, num_hidden_layers=1))
+    torch.manual_seed(0)
+    model = LlamaForCausalLM(cfg, device="cuda")
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    model, _ = amp.decorate(model, opt, level="O2", dtype="bfloat16",
+                            master_weight=False)
+    cos, sin = model.rope_tables()
+    return model.model.layers[0], cos, sin, cfg
+
+
+def _layer_weights(layer, grads=False):
+    """The layer's nine weights (or their gradients) in the Tensor
+    surface's order and layout (the matmul weights [in, out])."""
+    a, m = layer.self_attn, layer.mlp
+    ws = [layer.input_layernorm.weight, a.q_proj.weight, a.k_proj.weight,
+          a.v_proj.weight, a.o_proj.weight,
+          layer.post_attention_layernorm.weight, m.gate_proj.weight,
+          m.up_proj.weight, m.down_proj.weight]
+    ws = [w.grad if grads else w.detach() for w in ws]
+    return [w if w.dim() == 1 else w.T for w in ws]
+
+
+def _dygraph_params(pt, weights):
+    """Parameters holding copies of `weights`."""
+    return [pt.to_tensor(w.contiguous(), stop_gradient=False)
+            for w in weights]
+
+
+def _dygraph_forward(pt, params, x, cos, sin, cfg):
+    """The decoder layer on the Tensor surface -> the loss."""
+    import paddle_tpu_torch.nn.functional as F
+
+    n1, wq, wk, wv, wo, n2, wg, wu, wd = params
+    b, s, h = x.shape
+    heads = cfg.num_attention_heads
+    hd = h // heads
+    y = F.rms_norm(x, n1, cfg.rms_norm_eps)
+    q = pt.matmul(y, wq).reshape([b, s, heads, hd])
+    k = pt.matmul(y, wk).reshape([b, s, heads, hd])
+    v = pt.matmul(y, wv).reshape([b, s, heads, hd])
+    q, k = F.rotary_position_embedding(q, k, cos[None, :s, None, :],
+                                       sin[None, :s, None, :])
+    o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    a = pt.matmul(o.reshape([b, s, heads * hd]), wo)
+    y2, x2 = F.fused_add_rms_norm(a, x, n2, cfg.rms_norm_eps)
+    out = pt.add(x2, pt.matmul(F.swiglu(pt.matmul(y2, wg),
+                                        pt.matmul(y2, wu)), wd))
+    return (out.astype("float32") ** 2).mean()
+
+
+def _dygraph_step(pt, params, opt, cos, sin, cfg):
+    def step(x):
+        loss = _dygraph_forward(pt, params, x, cos, sin, cfg)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    return step
+
+
+def _timed(step, x, n):
+    """n synchronized calls: (losses, walls in s, launch counts)."""
+    import torch
+    from paddle_tpu_torch.ops import _cuda_common
+
+    _cuda_common.reset_launch_counts()
+    losses, walls = [], []
+    for _ in range(n):
+        t1 = time.perf_counter()
+        losses.append(step(x).detach().item())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    return losses, walls, _cuda_common.launch_counts()
+
+
+def _host_ms_by_part(surfaces, reps=8):
+    """Where a step's host time goes, for each of `surfaces` ({surface:
+    parts}, a part (name, fn) with fn taking the previous part's result):
+    the parts issued back to back without synchronising, so the card runs
+    behind, then the wait for the card, and the whole step. The
+    surfaces' steps alternate, so that the shared host's drift falls on
+    each alike. Medians over `reps` steps each, in ms."""
+    import torch
+
+    walls = {k: {n: [] for n, _ in parts} | {"wait_for_card": [],
+                                             "step": []}
+             for k, parts in surfaces.items()}
+    for _ in range(reps):
+        for k, parts in surfaces.items():
+            torch.cuda.synchronize()
+            state = None
+            t0 = time.perf_counter()
+            for n, fn in parts:
+                t = time.perf_counter()
+                state = fn(state)
+                walls[k][n].append(time.perf_counter() - t)
+            t = time.perf_counter()
+            torch.cuda.synchronize()
+            walls[k]["wait_for_card"].append(time.perf_counter() - t)
+            walls[k]["step"].append(time.perf_counter() - t0)
+    return {k: {n: 1e3 * statistics.median(v) for n, v in w.items()}
+            for k, w in walls.items()}
+
+
+def _step_parts(forward, opt):
+    """A training step as _host_ms_by_part's parts."""
+    def backward(loss):
+        loss.backward()
+
+    return [("forward", lambda _: forward()), ("backward", backward),
+            ("optimizer", lambda _: opt.step()),
+            ("clear_grad", lambda _: opt.clear_grad())]
+
+
+def dygraph():
+    """Phase 19 (module note). Returns the eager step's launch counts."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.ops import _cuda_common
+    from paddle_tpu_torch.optimizer import AdamW
+
+    _clean_device()
+    pt.set_device("gpu")
+    layer, cos, sin, cfg = _dygraph_layer()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    xr = torch.randn(TRAIN_BATCH, TRAIN_SEQ, cfg.hidden_size, device="cuda",
+                     generator=g).to(torch.bfloat16)
+    x = pt.Tensor._wrap(xr)
+    init = [w.clone() for w in _layer_weights(layer)]
+
+    # one step's gradients against the torch layer's
+    params = _dygraph_params(pt, init)
+    _cuda_common.reset_launch_counts()
+    loss = _dygraph_forward(pt, params, x, cos, sin, cfg)
+    loss.backward()
+    counts_fb = _cuda_common.launch_counts()
+    ref_loss = (layer(xr, cos, sin).float() ** 2).mean()
+    ref_loss.backward()
+    rel, identical = [], True
+    for p, rg in zip(params, _layer_weights(layer, grads=True)):
+        d = (p.grad._data.float() - rg.float()).abs().max().item()
+        rel.append(d / rg.float().abs().max().item())
+        identical = identical and torch.equal(p.grad._data, rg)
+    layer.zero_grad(set_to_none=True)
+
+    # DYGRAPH_STEPS AdamW steps on fresh copies, and the torch layer's
+    params = _dygraph_params(pt, init)
+    opt = AdamW(learning_rate=1e-4, parameters=params)
+    eager_step = _dygraph_step(pt, params, opt, cos, sin, cfg)
+    losses, walls, counts = _timed(eager_step, x, DYGRAPH_STEPS)
+    ref_opt = AdamW(learning_rate=1e-4, parameters=layer.parameters())
+
+    def ref_step(v):
+        lv = (layer(v._data, cos, sin).float() ** 2).mean()
+        lv.backward()
+        ref_opt.step()
+        ref_opt.clear_grad()
+        return lv
+
+    ref_losses, ref_walls, _ = _timed(ref_step, x, DYGRAPH_STEPS)
+    # where a step's time goes, each surface (after the counted steps):
+    # the host's parts, then the card's kernels
+    host = _host_ms_by_part({
+        "tensor": _step_parts(
+            lambda: _dygraph_forward(pt, params, x, cos, sin, cfg), opt),
+        "torch": _step_parts(
+            lambda: (layer(xr, cos, sin).float() ** 2).mean(), ref_opt)})
+    prof = profile_train(lambda: eager_step(x), "PROFILE_DYGRAPH")
+    ref_prof = profile_train(lambda: ref_step(x), "PROFILE_DYGRAPH_TORCH")
+    a16 = pt.to_tensor(np.ones(16, "float32"))
+    r16 = torch.ones(16, device="cuda")
+
+    def chain(v):
+        def run():
+            y = v
+            for _ in range(200):
+                y = y + v
+            return y
+
+        return run
+
+    host_us = _host_us(chain(a16), reps=20) / 200
+    host_us_torch = _host_us(chain(r16), reps=20) / 200
+    ms = 1e3 * statistics.median(walls[1:])
+    rec = {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "hidden": cfg.hidden_size,
+           "heads": cfg.num_attention_heads,
+           "intermediate": cfg.intermediate_size, "dtype": "bfloat16",
+           "grad_max_diff_rel": max(rel), "grad_rel_by_param": rel,
+           "grad_bit_identical": identical, "grad_tol": GRAD_TOL,
+           "losses": losses, "torch_layer_losses": ref_losses,
+           "ms_per_step_median": ms,
+           "torch_layer_ms_per_step_median": 1e3 * statistics.median(
+               ref_walls[1:]),
+           "host_ms_by_part": host["tensor"],
+           "torch_layer_host_ms_by_part": host["torch"],
+           "device_ms": prof["device_ms"],
+           "device_busy_share": prof["device_busy_share"],
+           "device_ops_per_step": prof["device_ops_per_step"],
+           "torch_layer_device_ops_per_step": ref_prof[
+               "device_ops_per_step"],
+           "torch_layer_device_ms": ref_prof["device_ms"],
+           "torch_layer_device_busy_share": ref_prof["device_busy_share"],
+           "host_us_per_op": host_us, "torch_host_us_per_op": host_us_torch,
+           "launches_forward_backward": counts_fb,
+           "launches": counts, "device": _nvidia_smi()}
+    _say("DYGRAPH", rec)
+    assert max(rel) <= GRAD_TOL, rec
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], rec
+    got = {n: c for n, c in counts.items() if c}
+    assert got == {n: DYGRAPH_STEPS * c for n, c in
+                   DYGRAPH_LAUNCHES.items()}, (got, DYGRAPH_LAUNCHES)
+    del ref_opt
+
+    # the same step under to_static, from the same weights
+    _clean_device()
+    params = _dygraph_params(pt, init)
+    opt = AdamW(learning_rate=1e-4, parameters=params)
+    step = jit.to_static(_dygraph_step(pt, params, opt, cos, sin, cfg))
+    s_losses, s_walls, s_counts = _timed(step, x, DYGRAPH_STEPS)
+    rep = step.graph_break_report()
+    specs = list(step._cache.values())
+    gap = max(abs(a - b) / abs(b) for a, b in zip(s_losses, losses))
+    per_step = {n: c // DYGRAPH_STEPS for n, c in counts.items() if c}
+    s_got = {n: c for n, c in s_counts.items() if c}
+    srec = {"losses": s_losses, "eager_losses": losses,
+            "max_rel_loss_gap": gap, "bit_identical": s_losses == losses,
+            "graphs": rep["graphs"], "breaks": len(rep["break_sites"]),
+            "replay_ms_median": 1e3 * statistics.median(s_walls[3:]),
+            "eager_ms_per_step_median": ms,
+            "capture_s": [s.captured.capture_s for s in specs
+                          if s.captured is not None],
+            "launches": s_counts, "device": _nvidia_smi()}
+    _say("DYGRAPH_STATIC", srec)
+    assert rep["graphs"] == 1 and not rep["break_sites"] \
+        and not rep["segmented"], rep
+    assert gap <= STATIC_TOL, srec
+    assert s_got == {n: DYGRAPH_STEPS * c for n, c in per_step.items()}, \
+        (s_got, per_step)
+    del step, opt, params, layer, init
+    _clean_device()
+    return counts
+
+
 def main():
     import torch
 
@@ -4124,6 +4512,12 @@ def main():
     torch.cuda.empty_cache()
     counts_fm = flashmask_phase()
     phases["attention_apis"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the Tensor API: every op-table row on the card, then one 1B layer
+    # trained on the Tensor surface, eagerly and captured
+    tensor_ops()
+    counts_dyg = dygraph()
+    phases["tensor_surface"] = time.perf_counter() - t0
     _say("PHASES", {"seconds": phases})
 
     main_flash = flash[2]                  # S = 512, a prefill bucket
@@ -4377,6 +4771,11 @@ def main():
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    # the TRAIN-shape rows also carry their launches on the Tensor surface
+    for row in summary:
+        if "launches_recompute" in row or row.get("case") == \
+                "llama O2 bfloat16":
+            row["launches_dygraph"] = counts_dyg[row["name"]]
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

@@ -84,6 +84,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..core import graphs
 from ..core.flags import flag
+from ..core.tensor import Tensor
 from ..ops import _cuda_common
 
 #: depth of the compiled calls (discoveries, captures, static calls) now
@@ -150,16 +151,23 @@ class BucketAxis:
 # ------------------------------------------------------------ pytrees
 
 class _TensorLeaf:
-    __slots__ = ("idx",)
+    """A tensor's place among the leaves; `wrapped`: it was a Tensor (the
+    Tensor API's wrapper), unwrapped to its torch tensor for the call and
+    wrapped again for the function and its caller."""
+    __slots__ = ("idx", "wrapped")
 
-    def __init__(self, idx):
+    def __init__(self, idx, wrapped=False):
         self.idx = idx
+        self.wrapped = wrapped
 
 
 def _flatten(obj, leaves):
     if isinstance(obj, torch.Tensor):
         leaves.append(obj)
         return _TensorLeaf(len(leaves) - 1)
+    if isinstance(obj, Tensor):
+        leaves.append(obj._data)
+        return _TensorLeaf(len(leaves) - 1, True)
     if isinstance(obj, (list, tuple)):
         t = [_flatten(v, leaves) for v in obj]
         return tuple(t) if isinstance(obj, tuple) else t
@@ -170,7 +178,8 @@ def _flatten(obj, leaves):
 
 def _unflatten(struct, leaf_vals):
     if isinstance(struct, _TensorLeaf):
-        return leaf_vals[struct.idx]
+        v = leaf_vals[struct.idx]
+        return Tensor._wrap(v) if struct.wrapped else v
     if isinstance(struct, list):
         return [_unflatten(v, leaf_vals) for v in struct]
     if isinstance(struct, tuple):
@@ -182,7 +191,7 @@ def _unflatten(struct, leaf_vals):
 
 def _struct_key(struct):
     if isinstance(struct, _TensorLeaf):
-        return f"T{struct.idx}"
+        return f"{'W' if struct.wrapped else 'T'}{struct.idx}"
     if isinstance(struct, (list, tuple)):
         inner = ",".join(_struct_key(v) for v in struct)
         return f"[{inner}]" if isinstance(struct, list) else f"({inner})"

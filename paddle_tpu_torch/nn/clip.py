@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.tensor import _raw
 from ..ops.fused_optimizer import _scaled
 
 
@@ -101,10 +102,15 @@ class ClipGradByGlobalNorm(ClipGradBase):
                     for p, g in params_grads]
 
 
-def _grad_params(parameters):
+def _params(parameters):
+    """The torch leaves of `parameters` (tensors or Tensors)."""
     params = parameters if isinstance(parameters, (list, tuple)) \
         else [parameters]
-    return [p for p in params if p.grad is not None]
+    return [_raw(p) for p in params]
+
+
+def _grad_params(parameters):
+    return [p for p in _params(parameters) if p.grad is not None]
 
 
 def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
@@ -134,9 +140,7 @@ def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
 def clip_grad_value_(parameters, clip_value):
     """Clamp the parameters' gradients into [-clip_value, clip_value] in
     place."""
-    params = parameters if isinstance(parameters, (list, tuple)) \
-        else [parameters]
     with torch.no_grad():
-        for p in params:
+        for p in _params(parameters):
             if p.grad is not None:
                 p.grad.clamp_(-clip_value, clip_value)

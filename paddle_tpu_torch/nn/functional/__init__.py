@@ -274,3 +274,14 @@ def fused_add_layer_norm(x, residual, weight=None, bias=None, epsilon=1e-5):
 
 from .extended import (flash_attn_unpadded,  # noqa: E402,F401
                        flash_attn_varlen_qkvpacked, flashmask_attention)
+
+from ...core.dispatch import boundary as _boundary  # noqa: E402
+
+# the Tensor API's edge: each public op takes Tensors and returns Tensors
+# (torch tensors in, torch tensors out, as before)
+for _n in ("gelu", "dropout", "fused_dropout_add",
+           "scaled_dot_product_attention", "swiglu", "rms_norm",
+           "fused_add_rms_norm", "rotary_position_embedding", "layer_norm",
+           "fused_add_layer_norm", "flash_attn_unpadded",
+           "flash_attn_varlen_qkvpacked", "flashmask_attention"):
+    globals()[_n] = _boundary(globals()[_n])

@@ -58,6 +58,7 @@ import weakref
 
 import torch
 
+from ..core.tensor import _raw
 from ..jit.api import compiled_call_active
 from ..ops.fused_optimizer import _f32, _lr_of, bias_corrections
 from ..ops.fused_optimizer import betas_tensor, comp_dtype as _comp
@@ -84,7 +85,9 @@ def _wd_grad(wd, base):
 
 
 class Optimizer(torch.optim.Optimizer):
-    """Base of the Paddle-rule optimizers. `parameters`: tensors, (name,
+    """Base of the Paddle-rule optimizers. `parameters`: tensors (torch
+    tensors, or the Tensor API's Parameters: their torch leaf `_data` is
+    what is updated and keys the state), (name,
     tensor) pairs such as `model.named_parameters()`, or parameter groups
     (dicts with "params" and their own "learning_rate" factor and
     "weight_decay"). A parameter's name is what `apply_decay_param_fun`
@@ -110,6 +113,7 @@ class Optimizer(torch.optim.Optimizer):
             for item in grp["params"]:
                 pname, p = item if isinstance(item, tuple) \
                     else (f"param_{len(self._names)}", item)
+                p = _raw(p)        # a Tensor's torch leaf
                 self._names[p] = pname
                 ps.append(p)
             torch_groups.append(dict(grp, params=ps))
@@ -321,7 +325,7 @@ class Optimizer(torch.optim.Optimizer):
         when None)."""
         loss.backward()
         self._only = None if parameters is None \
-            else {id(p) for p in parameters}
+            else {id(_raw(p)) for p in parameters}
         try:
             self.step()
         finally:

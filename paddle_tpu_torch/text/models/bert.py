@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...amp import model_forward
+from ...core.dispatch import boundary
 from ...nn import functional as PF
 from ...nn.layer import Dropout, LayerNorm
 from ...ops._cuda_common import resolve_device
@@ -143,6 +144,7 @@ class BertModel(nn.Module):
     def device(self) -> torch.device:
         return self.pooler.weight.device
 
+    @boundary
     @model_forward
     def forward(self, input_ids, token_type_ids=None, attn_mask=None):
         """-> (sequence output [B, S, H] in f32, the last norm's output;
@@ -176,6 +178,7 @@ class BertForSequenceClassification(nn.Module):
     def device(self) -> torch.device:
         return self.bert.device
 
+    @boundary
     @model_forward
     def forward(self, input_ids, token_type_ids=None, labels=None,
                 attn_mask=None):

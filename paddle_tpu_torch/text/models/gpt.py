@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...amp import model_forward
+from ...core.dispatch import boundary
 from ...incubate.nn.functional import fused_linear_cross_entropy
 from ...nn import functional as PF
 from ...nn.layer import LayerNorm
@@ -131,6 +132,7 @@ class GPTForCausalLM(nn.Module):
     def device(self) -> torch.device:
         return self.wte.weight.device
 
+    @boundary
     @model_forward
     def forward(self, input_ids, labels=None):
         """input_ids [B, S] (tensor or array) -> logits [B, S, V] in the

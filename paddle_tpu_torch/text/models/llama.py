@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...amp import model_forward
+from ...core.dispatch import boundary
 from ...core.flags import flag
 from ...distributed.fleet.utils import recompute
 from ...incubate.nn.functional import fused_linear_cross_entropy
@@ -216,6 +217,7 @@ class LlamaModel(nn.Module):
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
 
+    @boundary
     @model_forward
     def forward(self, input_ids):
         """[B, S] ids -> the final norm's output [B, S, H]: f32 with the
@@ -278,6 +280,7 @@ class LlamaForCausalLM(nn.Module):
     def rope_tables(self):
         return self.model.rope_cos, self.model.rope_sin
 
+    @boundary
     @model_forward
     def forward(self, input_ids, labels=None):
         """input_ids [B, S] (tensor or array) -> logits [B, S, V] in the

@@ -2684,3 +2684,140 @@ def test_float16_o2_steps_run_on_card(card, arch):
     for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):
         assert counts[name] == 2 * 2, counts
+
+
+# ------------------------------------------------------- the Tensor surface
+# The Tensor API on the card: each row of the port's op table on CUDA
+# Tensors against the same row on the CPU (fp32 forward and gradients at
+# the row's tolerances, bf16 forward against fp32 at 5e-2), every output
+# on the card; and one LLaMA decoder layer written on the Tensor surface
+# at a small width: its launches per step and its gradients against
+# `LlamaDecoderLayer.forward` on torch tensors (2^-4 of each tensor's
+# largest |value|, as chip_smoke.py's DYGRAPH).
+
+def _op_rows():
+    from paddle_tpu_torch.ops import op_table
+
+    op_table.ensure_populated()
+    return op_table.OPS
+
+
+@pytest.fixture
+def on_card(card):
+    from paddle_tpu_torch.core import device as port_device
+
+    prev = port_device._current
+    yield card
+    port_device._current = prev
+
+
+def _row_on(spec, arrays, place, bf16=False, grads=False):
+    import paddle_tpu_torch as pt
+
+    pt.set_device(place)
+    skip = set(spec.int_inputs) | set(spec.no_grad_inputs)
+    ts = []
+    for i, a in enumerate(arrays):
+        t = pt.to_tensor(a)
+        if bf16 and i not in spec.int_inputs:
+            t = t.astype("bfloat16")
+        if grads and i not in skip:
+            t.stop_gradient = False
+        ts.append(t)
+    out = spec.fn(*ts, **spec.kwargs)
+    out = out[0] if isinstance(out, (list, tuple)) else out
+    if not grads:
+        return out, None
+    out.sum().backward()
+    return out, [ts[i].grad for i in range(len(ts)) if i not in skip]
+
+
+@pytest.mark.parametrize("name", sorted(_op_rows()))
+def test_tensor_op_table_row_on_card_matches_cpu(on_card, name):
+    spec = _op_rows()[name]
+    arrays = spec.sample_inputs(seed=0)
+    out, _ = _row_on(spec, arrays, "gpu")
+    assert out._data.device.type == "cuda"
+    cpu, _ = _row_on(spec, arrays, "cpu")
+    np.testing.assert_allclose(out.numpy().astype("float64"),
+                               cpu.numpy().astype("float64"),
+                               rtol=spec.rtol, atol=spec.atol,
+                               equal_nan=True)
+    if spec.bf16:
+        a2 = spec.sample_inputs(seed=2)
+        o32, _ = _row_on(spec, a2, "gpu")
+        ob, _ = _row_on(spec, a2, "gpu", bf16=True)
+        assert ob._data.device.type == "cuda"
+        np.testing.assert_allclose(ob.numpy().astype("float64"),
+                                   o32.numpy().astype("float64"),
+                                   rtol=5e-2, atol=5e-2)
+    if spec.diff:
+        a1 = spec.sample_inputs(seed=1)
+        _, gg = _row_on(spec, a1, "gpu", grads=True)
+        _, gc_ = _row_on(spec, a1, "cpu", grads=True)
+        for g, c in zip(gg, gc_):
+            assert (g is None) == (c is None)
+            if g is not None:
+                assert g._data.device.type == "cuda"
+                np.testing.assert_allclose(g.numpy(), c.numpy(),
+                                           rtol=spec.rtol, atol=spec.atol)
+
+
+def test_dygraph_layer_on_card_launches_and_grads(on_card):
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.nn.functional as PF
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import LlamaConfig, LlamaForCausalLM
+
+    pt.set_device("gpu")
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=1, num_attention_heads=2,
+                      max_position_embeddings=128)
+    torch.manual_seed(0)
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16)
+    layer = model.model.layers[0]
+    cos, sin = model.rope_tables()
+    a_, m_ = layer.self_attn, layer.mlp
+    mods = [layer.input_layernorm, a_.q_proj, a_.k_proj, a_.v_proj,
+            a_.o_proj, layer.post_attention_layernorm, m_.gate_proj,
+            m_.up_proj, m_.down_proj]
+    tw = [(w.weight.detach() if w.weight.dim() == 1 else w.weight.detach().T)
+          for w in mods]
+    params = [pt.to_tensor(w.contiguous(), stop_gradient=False) for w in tw]
+    x = torch.randn(2, 64, 256, device="cuda").to(torch.bfloat16)
+
+    def loss_of(xt):
+        n1, wq, wk, wv, wo, n2, wg, wu, wd = params
+        b, s, h = xt.shape
+        y = PF.rms_norm(xt, n1, cfg.rms_norm_eps)
+        q, k, v = (pt.matmul(y, w).reshape([b, s, 2, 128])
+                   for w in (wq, wk, wv))
+        q, k = PF.rotary_position_embedding(q, k, cos[None, :s, None, :],
+                                            sin[None, :s, None, :])
+        o = PF.scaled_dot_product_attention(q, k, v, is_causal=True)
+        y2, x2 = PF.fused_add_rms_norm(
+            pt.matmul(o.reshape([b, s, 256]), wo), xt, n2, cfg.rms_norm_eps)
+        out = x2 + pt.matmul(PF.swiglu(pt.matmul(y2, wg),
+                                       pt.matmul(y2, wu)), wd)
+        return (out.astype("float32") ** 2).mean()
+
+    opt = AdamW(learning_rate=1e-3, parameters=params)
+    _cuda_common.reset_launch_counts()
+    loss = loss_of(pt.Tensor._wrap(x))
+    loss.backward()
+    grads = [p.grad._data.clone() for p in params]
+    opt.step()
+    opt.clear_grad()
+    torch.cuda.synchronize()
+    got = {n: c for n, c in _cuda_common.launch_counts().items() if c}
+    assert got == {"flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+                   "flash_attention_bwd_dkv": 1, "fused_rms_norm_fwd": 2,
+                   "fused_rms_norm_bwd": 2, "rope_qk": 2, "swiglu_fwd": 1,
+                   "swiglu_bwd": 1, "fused_adam": 9}, got
+    ref = (layer(x, cos, sin).float() ** 2).mean()
+    ref.backward()
+    for g, mod in zip(grads, mods):
+        rg = mod.weight.grad if mod.weight.dim() == 1 else mod.weight.grad.T
+        top = rg.float().abs().max().item()
+        assert (g.float() - rg.float()).abs().max().item() <= 2 ** -4 * top
+    assert abs(loss.item() - ref.item()) <= 1e-2 * abs(ref.item())
