@@ -30,9 +30,11 @@ Phases (any failure exits non-zero; nothing is caught):
      for the work (the norms, forward and backward, also by their kernels'
      own device time with the L2 flushed by a write and by a read, the
      backward's second kernel's share of it, and by events with the L2
-     flushed by a read; the backward beside its launch plan); K1 (also
-     at TRAIN's shape) and K2 dQ and dK/dV
-     beside the same call through the varlen entry with every kv length
+     flushed by a read; the backward beside its launch plan); K1 at
+     the training shapes (TRAIN's, GPT's and BERT's) as the training
+     paths call it, with o's rounding residual (`flash_case`), timed
+     beside the call without it; K1 (also at TRAIN's shape) and K2 dQ
+     and dK/dV beside the same call through the varlen entry with every kv length
      = S (`varlen_full_ms`: K1v's and K2v's forced per-element masks, on
      the same tensor-core bodies). The quantized
      paged-decode kernels read caches written by the port's own
@@ -206,7 +208,7 @@ Phases (any failure exits non-zero; nothing is caught):
      K9, K7 on the CUDA-core bodies) against their plain versions
      (F16_TOL) with their times and bounds;
  18. tensor_ops: the Tensor API (`paddle_tpu_torch.Tensor` and its ops)
-     on the card. Every row of the port's op table
+     on the card. Every row (407) of the port's op table
      (paddle_tpu_torch/ops/op_table*.py), on its own seeded numpy
      inputs, on CUDA Tensors: the fp32 forward against the row's numpy
      `ref` and against the same row on the CPU at the row's tolerances,
@@ -234,7 +236,27 @@ Phases (any failure exits non-zero; nothing is caught):
      chain on torch tensors); then DYGRAPH_STATIC, the
      same step under jit.to_static: one graph, no break, losses within
      STATIC_TOL of the eager steps', launches per replay equal to the
-     eager step's, replay ms and capture seconds.
+     eager step's, replay ms and capture seconds;
+ 20. nn_quickstart: the README's quick start on `paddle_tpu_torch.nn`
+     at its own width (Sequential of Linear 784 -> 256, ReLU, Linear 256
+     -> 10; AdamW 1e-3; F.cross_entropy; one seeded batch of 64): 20
+     steps eagerly and the same 20 under jit.to_static from the same
+     seed: the losses fall, one key, one graph and no break, captured
+     losses within STATIC_TOL of the eager ones;
+ 21. nn_transformer: BERT-base's encoder as nn layers
+     (nn.TransformerEncoder of 12 nn.TransformerEncoderLayer(768, 12,
+     3072, dropout 0.1, GELU, attn_dropout 0), post-LN) at TRAIN_BERT's
+     64 x 128 tokens, amp.decorate O2 bf16 (the LayerNorms f32), AdamW
+     2e-5, an MSE loss against a seeded target: one step's gradients
+     through the kernels against the plain path within GRAD_TOL of each
+     tensor's largest |value|; the state_dict through paddle.save /
+     paddle.load bit for bit on the card; then 6 steps eagerly and the
+     same under jit.to_static (`_static_phase`: the dropout masks drawn
+     alike, captured losses within STATIC_TOL, ms a step eager and
+     captured, device ms, busy share, peak memory) with exact launches a
+     step: K1 12, K2 12 + 12, K3-LN 24 + 24 (post-LN adds the residual
+     outside the norm, so the plain kind), fused_adam one a parameter,
+     K6 none.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Without a CUDA card it exits 1 and prints
@@ -289,6 +311,9 @@ K2_TOL = 2 ** -7
 #: a product moves gradients by far more; the kernel phase holds K2 itself
 #: to one ulp (K2_TOL)
 GRAD_TOL = 2 ** -4
+#: a residual `flash_case`'s fields that its kernels-line entries carry
+RESIDUAL_KEYS = ("no_residual_ms", "residual_mean_abs_err",
+                 "residual_max_abs_err", "rounded_mean_abs_err")
 #: the training phase: batch x sequence of seeded ids, counted steps
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6
 #: TRAIN_RECOMPUTE's granularities, bench.py `bench_llama_1b`'s first
@@ -464,10 +489,19 @@ def _full_lens(b, s):
     return torch.full((b,), s, dtype=torch.int32, device="cuda")
 
 
-def flash_case(b, hq, hkv, s, d=128, causal=True):
+def flash_case(b, hq, hkv, s, d=128, causal=True, residual=False):
     """Flash forward at one prefill or train shape: parity, times, bound,
     and the time of the same call through the varlen entry with every
-    length = S (`varlen_full_ms`: K1v's forced masks on the same body)."""
+    length = S (`varlen_full_ms`: K1v's forced masks on the same body).
+    With `residual` (the training paths' variant, whose o's rounding
+    residual the backward's delta takes): o and lse as without it, the
+    residual within half a bf16 ulp of o, and on values spread 2^-6
+    around a common row (where the rounding of o shows in the delta) o +
+    o_res within a quarter of o's mean distance from the plain version's
+    f32 O (its o + o_res: the tensor-core body's own O multiplies P
+    rounded to bf16, which leaves about an eighth); `ms`, `plain_ms` and the bound are then the
+    residual variant's (its bytes count the residual's write), and
+    `no_residual_ms` times the call without it."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.flash_attention import (
@@ -505,6 +539,31 @@ def flash_case(b, hq, hkv, s, d=128, causal=True):
            "library_ms": _time_ms(lambda: F.scaled_dot_product_attention(
                q, k, v, is_causal=causal, enable_gqa=hq != hkv)),
            "bound_ms": bound, "bound_by": by}
+    if residual:
+        o2, lse2, res = flash_attention_fwd(q, k, v, causal, residual=True)
+        assert torch.equal(o2, o) and torch.equal(lse2, lse)
+        assert (res.float().abs() <= 2 ** -8 * o.float().abs()).all()
+        vn = (v[:, :, :1].float() + 2 ** -6 * v.float()).to(v.dtype)
+        on, _, rn = flash_attention_fwd(q, k, vn, causal, residual=True)
+        ron, _, rrn = flash_attention_reference(q, k, vn, causal,
+                                                residual=True)
+        o32 = ron.float() + rrn.float()
+        res_err = (on.float() + rn.float() - o32).abs()
+        rounded_err = (on.float() - o32).abs().mean().item()
+        assert res_err.mean().item() <= rounded_err / 4, \
+            (res_err.mean().item(), rounded_err)
+        bound, by = _bound_ms(flops, nbytes + 2 * b * hq * s * d)
+        rec |= {
+            "no_residual_ms": rec["ms"],
+            "ms": _time_ms(lambda: flash_attention_fwd(q, k, v, causal,
+                                                       residual=True)),
+            "plain_ms": _time_ms(lambda: flash_attention_reference(
+                q, k, v, causal, residual=True)),
+            "bound_ms": bound, "bound_by": by,
+            "residual_mean_abs_err": res_err.mean().item(),
+            "residual_max_abs_err": res_err.max().item(),
+            "rounded_mean_abs_err": rounded_err}
+        del o2, lse2, res, vn, on, rn, ron, rrn, o32, res_err
     _say("KERNEL", rec)
     return rec
 
@@ -2036,11 +2095,21 @@ def _grad_check(model, loss_fn, plain_loss_fn, tag, seed=1234):
     import torch
     from paddle_tpu_torch.ops import _cuda_common
 
+    def grads():
+        return {n: getattr(p, "_data", p).grad
+                for n, p in model.named_parameters()}
+
+    def clear():
+        if hasattr(model, "clear_gradients"):       # an nn.Layer
+            model.clear_gradients()
+        else:
+            model.zero_grad(set_to_none=True)
+
     torch.manual_seed(seed)
     loss = loss_fn()
     loss.backward()
-    kern = {n: p.grad for n, p in model.named_parameters()}
-    model.zero_grad(set_to_none=True)
+    kern = grads()
+    clear()
     _cuda_common.reset_launch_counts()
     torch.manual_seed(seed)
     plain_loss = plain_loss_fn()
@@ -2048,7 +2117,7 @@ def _grad_check(model, loss_fn, plain_loss_fn, tag, seed=1234):
     torch.cuda.synchronize()
     stray = {n: c for n, c in _cuda_common.launch_counts().items() if c}
     assert not stray, stray
-    plain = {n: p.grad for n, p in model.named_parameters()}
+    plain = grads()
     checked, worst, worst_name = 0, 0.0, None
     for n, w in plain.items():
         if kern[n] is None:     # unused (BERT's token types without ids)
@@ -2056,15 +2125,17 @@ def _grad_check(model, loss_fn, plain_loss_fn, tag, seed=1234):
             continue
         a, w = kern[n].float(), w.float()
         assert torch.isfinite(a).all(), n
-        # BERT's key bias gets no gradient in exact arithmetic (a query
-        # row's softmax ignores a shift common to its keys): its gradient
-        # is rounding on both sides, held to its key weight's scale
-        scale = plain[n[:-4] + "weight"] if n.endswith("key.bias") else w
+        # the key bias (BERT's key, nn.MultiHeadAttention's k_proj) gets
+        # no gradient in exact arithmetic (a query row's softmax ignores a
+        # shift common to its keys): its gradient is rounding on both
+        # sides, held to its key weight's scale
+        scale = plain[n[:-4] + "weight"] if n.endswith(
+            ("key.bias", "k_proj.bias")) else w
         rel = (a - w).abs().max().item() / scale.float().abs().max().item()
         checked += 1
         if rel > worst:
             worst, worst_name = rel, n
-    model.zero_grad(set_to_none=True)
+    clear()
     del kern, plain
     rec = {"loss": loss.item(), "plain_loss": plain_loss.item(),
            "tensors": checked, "max_rel_err": worst,
@@ -2081,8 +2152,9 @@ def _own_tensors(model, opt):
     state: what a training phase itself holds between steps."""
     import torch
 
-    tensors = [t for p in model.parameters() for t in (p, p.grad)
-               if t is not None] + list(model.buffers())
+    params = [getattr(p, "_data", p) for p in model.parameters()]
+    tensors = [t for p in params for t in (p, p.grad) if t is not None] \
+        + [getattr(b, "_data", b) for b in model.buffers()]
     return tensors + [t for st in opt.state.values() for t in st.values()
                       if isinstance(t, torch.Tensor)]
 
@@ -2358,12 +2430,15 @@ def _plain_path(loss_fn):
     from paddle_tpu_torch.ops.flash_attention import \
         flash_attention_reference
 
-    def plain_sdpa(q, k, v, attn_mask=None, is_causal=False):
-        assert attn_mask is None
-        o, _ = flash_attention_reference(q.transpose(1, 2),
-                                         k.transpose(1, 2),
-                                         v.transpose(1, 2), is_causal)
-        return o.transpose(1, 2)
+    def plain_sdpa(q, k, v, attn_mask=None, dropout_p=0.0, is_causal=False,
+                   training=True):
+        assert attn_mask is None and (dropout_p == 0.0 or not training)
+        raw = [getattr(t, "_data", t) for t in (q, k, v)]
+        o, _ = flash_attention_reference(*(t.transpose(1, 2) for t in raw),
+                                         is_causal)
+        o = o.transpose(1, 2)
+        # the Tensor API's layers (nn.MultiHeadAttention) pass Tensors
+        return type(q)._wrap(o) if hasattr(q, "_data") else o
 
     def run():
         kernel_sdpa = PF.scaled_dot_product_attention
@@ -3615,7 +3690,7 @@ def _step_series(step, prime, big, steps, between=None):
 
 
 def _static_phase(tag, build, prime, big, units, want, level="O2",
-                  dtype="bfloat16", reseed=None):
+                  dtype="bfloat16", reseed=None, make_step=None):
     """One bench step eagerly and under to_static(share_discovery=True),
     each on a model `build()` makes from seed 0 on a clean device:
     primed twice at `prime`, then TRAIN_STEPS steps at `big` (the first
@@ -3626,7 +3701,9 @@ def _static_phase(tag, build, prime, big, units, want, level="O2",
     second, the busy share of one profiled replay, the capture seconds,
     the peak memory and what was allocated at the start, beside the eager
     step's. Returns (launch counts of the captured steps, model, opt,
-    step) with the captured model still alive."""
+    step) with the captured model still alive. `make_step(model, opt,
+    level, dtype)` builds the step (the bench's, `_bench_step`, by
+    default)."""
     import torch
     from paddle_tpu_torch import jit
 
@@ -3634,7 +3711,7 @@ def _static_phase(tag, build, prime, big, units, want, level="O2",
     for mode in ("eager", "static"):
         _clean_device()
         model, opt = build()
-        step = _bench_step(model, opt, level, dtype)
+        step = (make_step or _bench_step)(model, opt, level, dtype)
         if mode == "static":
             step = jit.to_static(step, share_discovery=True)
         torch.cuda.synchronize()
@@ -4358,6 +4435,174 @@ def dygraph():
     return counts
 
 
+#: NN_QUICKSTART: the README's quick start at its own width (784 -> 256
+#: -> 10, AdamW 1e-3, F.cross_entropy), on one seeded batch
+QS_BATCH, QS_STEPS = 64, 20
+#: NN_TRANSFORMER: BERT-base's encoder as nn layers (12 layers of d 768,
+#: 12 heads, FFN 3072, GELU, post-LN, dropout 0.1, no attention dropout)
+NN_LAYERS, NN_D, NN_HEADS, NN_FFN = 12, 768, 12, 3072
+
+
+def nn_quickstart():
+    """Phase 20 (module note). Returns the captured run's record."""
+    import torch
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.nn as nn
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import jit
+
+    pt.set_device("gpu")
+    rs = np.random.RandomState(0)
+    x = pt.to_tensor(rs.randn(QS_BATCH, 784).astype("float32"))
+    y = pt.to_tensor(rs.randint(0, 10, (QS_BATCH,)))
+
+    def run(static):
+        pt.seed(0)
+        net = nn.Sequential(nn.Linear(784, 256), nn.ReLU(),
+                            nn.Linear(256, 10))
+        opt = pt.optimizer.AdamW(learning_rate=1e-3,
+                                 parameters=net.parameters())
+
+        def train_step(x, y):
+            loss = F.cross_entropy(net(x), y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        step = jit.to_static(train_step) if static else train_step
+        losses, walls = [], []
+        for _ in range(QS_STEPS):
+            t1 = time.perf_counter()
+            losses.append(float(step(x, y)))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+        return losses, walls, step
+
+    eager, ewalls, _ = run(False)
+    static, swalls, step = run(True)
+    rep = step.graph_break_report()
+    gap = max(abs(a - b) / max(abs(b), 1e-6) for a, b in zip(static, eager))
+    rec = {"widths": [784, 256, 10], "batch": QS_BATCH, "steps": QS_STEPS,
+           "losses": static, "eager_losses": eager,
+           "max_rel_loss_gap": gap, "bit_identical": static == eager,
+           "graphs": rep["graphs"], "breaks": len(rep["break_sites"]),
+           "keys": len(step._cache),
+           "ms_per_step_median": 1e3 * statistics.median(swalls[3:]),
+           "eager_ms_per_step_median": 1e3 * statistics.median(ewalls[3:]),
+           "device": _nvidia_smi()}
+    _say("NN_QUICKSTART", rec)
+    assert all(np.isfinite(static)) and static[-1] < 0.5 * static[0], rec
+    assert eager[-1] < 0.5 * eager[0], rec
+    assert rep["graphs"] == 1 and not rep["break_sites"] \
+        and len(step._cache) == 1, rec
+    assert gap <= STATIC_TOL, rec
+    return rec
+
+
+def _nn_encoder_step(model, opt, level, dtype):
+    """NN_TRANSFORMER's step: the encoder under auto_cast(level), an MSE
+    loss against a fixed target, then backward, step, clear_grad."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import amp
+
+    def step(x, y):
+        with amp.auto_cast(enable=True, dtype=dtype, level=level):
+            loss = F.mse_loss(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    return step
+
+
+def nn_transformer():
+    """Phase 21 (module note). Returns the captured steps' launch
+    counts."""
+    import tempfile
+
+    import torch
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.nn as nn
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import amp
+
+    pt.set_device("gpu")
+
+    def build():
+        pt.seed(0)
+        enc = nn.TransformerEncoder(nn.TransformerEncoderLayer(
+            NN_D, NN_HEADS, NN_FFN, dropout=0.1, activation="gelu",
+            attn_dropout=0.0), NN_LAYERS)
+        opt = pt.optimizer.AdamW(learning_rate=2e-5,
+                                 parameters=enc.parameters())
+        return amp.decorate(enc, opt, level="O2", dtype="bfloat16")
+
+    def data(batch, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return tuple(pt.Tensor._wrap(torch.randn(
+            batch, BERT_SEQ, NN_D, device="cuda", generator=g))
+            for _ in range(2))
+
+    big, prime = data(BERT_BATCH, 0), data(2, 1)
+    # one step's gradients through the kernels against the plain path
+    _clean_device()
+    enc, opt = build()
+    dtypes = {str(p.dtype) for n, p in enc.named_parameters()
+              if "norm" not in n}
+    norm_dtypes = {str(p.dtype) for n, p in enc.named_parameters()
+                   if "norm" in n}
+    assert dtypes == {"bfloat16"} and norm_dtypes == {"float32"}, \
+        (dtypes, norm_dtypes)
+
+    def loss_fn():
+        with amp.auto_cast(enable=True, dtype="bfloat16", level="O2"):
+            return F.mse_loss(enc(big[0]), big[1])
+
+    with_grads = _grad_check(enc, loss_fn, _plain_path(loss_fn),
+                             "NN_TRANSFORMER_GRAD_CHECK")
+    assert with_grads == len(enc.parameters()) == 16 * NN_LAYERS
+    # the state_dict through paddle.save / paddle.load, bit for bit
+    sd = enc.state_dict()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "encoder.pdparams")
+        t0 = time.perf_counter()
+        pt.save(sd, path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        back = pt.load(path)
+    exact = list(back) == list(sd) and all(
+        str(back[k].dtype) == str(v.dtype) and
+        back[k]._data.device == v._data.device and
+        torch.equal(back[k]._data.view(torch.int16 if v._data.element_size()
+                                       == 2 else torch.int32),
+                    v._data.view(torch.int16 if v._data.element_size() == 2
+                                 else torch.int32))
+        for k, v in sd.items())
+    enc.set_state_dict(back)
+    _say("NN_TRANSFORMER_STATE_DICT", {
+        "tensors": len(sd), "bytes": size, "save_s": save_s,
+        "bit_exact": exact})
+    assert exact
+    del enc, opt, back, sd
+    # 6 steps eager, then the same step under to_static
+    want = {"flash_attention_fwd": NN_LAYERS,
+            "flash_attention_bwd_dq": NN_LAYERS,
+            "flash_attention_bwd_dkv": NN_LAYERS,
+            "fused_layer_norm_fwd": 2 * NN_LAYERS,
+            "fused_layer_norm_bwd": 2 * NN_LAYERS,
+            "fused_adam": 16 * NN_LAYERS}
+    counts, enc, opt, step = _static_phase(
+        "NN_TRANSFORMER", build, prime, big, ("sequences", BERT_BATCH), want,
+        reseed=4321, make_step=_nn_encoder_step)
+    assert all(counts[n] == 0 for n in ("dropout_add_fwd",
+                                        "dropout_add_bwd"))
+    del enc, opt, step
+    _clean_device()
+    return counts
+
+
 def main():
     import torch
 
@@ -4387,7 +4632,7 @@ def main():
     flash = [flash_case(1, 16, 16, s) for s in (128, 500, 512, 1024)]
     flash.append(flash_case(1, 16, 4, 512))
     # K1 at the shape the LLaMA train step launches it
-    flash_train = flash_case(TRAIN_BATCH, 16, 16, TRAIN_SEQ)
+    flash_train = flash_case(TRAIN_BATCH, 16, 16, TRAIN_SEQ, residual=True)
     # K2 at the train shape, a GQA case and a ragged length
     bwd = [flash_bwd_case(TRAIN_BATCH, 16, 16, TRAIN_SEQ),
            flash_bwd_case(1, 16, 4, 512), flash_bwd_case(1, 16, 16, 500)]
@@ -4421,9 +4666,10 @@ def main():
     layer_norm_cases(66, 80, "tiny")
     drop = dropout_add_cases(BERT_BATCH * BERT_SEQ, 768, "bert")
     dropout_add_cases(3, 37, "tiny")
-    flash64 = {"gpt": flash_case(GPT_BATCH, 16, 16, GPT_SEQ, 64),
+    flash64 = {"gpt": flash_case(GPT_BATCH, 16, 16, GPT_SEQ, 64,
+                                 residual=True),
                "bert": flash_case(BERT_BATCH, 12, 12, BERT_SEQ, 64,
-                                  causal=False)}
+                                  causal=False, residual=True)}
     bwd64 = {"gpt": flash_bwd_case(GPT_BATCH, 16, 16, GPT_SEQ, 64),
              "bert": flash_bwd_case(BERT_BATCH, 12, 12, BERT_SEQ, 64,
                                     causal=False)}
@@ -4518,6 +4764,12 @@ def main():
     tensor_ops()
     counts_dyg = dygraph()
     phases["tensor_surface"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the nn surface: the README quick start, then BERT-base's encoder as
+    # nn layers through K1, K2 and K3-LN
+    nn_quickstart()
+    counts_nn = nn_transformer()
+    phases["nn"] = time.perf_counter() - t0
     _say("PHASES", {"seconds": phases})
 
     main_flash = flash[2]                  # S = 512, a prefill bucket
@@ -4573,7 +4825,8 @@ def main():
         "plain_ms": flash_train["plain_ms"],
         "bound_ms": flash_train["bound_ms"],
         "bound_by": flash_train["bound_by"],
-        "library_ms": flash_train["library_ms"]})
+        "library_ms": flash_train["library_ms"]}
+        | {k: flash_train[k] for k in RESIDUAL_KEYS})
     # K2's two kernels at the train shape, each with its own numbers
     for kname, key, line in (("flash_attention_bwd_dq", "dq", 263),
                              ("flash_attention_bwd_dkv", "dkv", 314)):
@@ -4659,7 +4912,8 @@ def main():
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "varlen_full_ms": rec["varlen_full_ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+            | {k: rec[k] for k in RESIDUAL_KEYS})
         for kname, part, line in (("flash_attention_bwd_dq", "dq", 263),
                                   ("flash_attention_bwd_dkv", "dkv", 314)):
             rec = bwd64[key][part]
@@ -4771,11 +5025,14 @@ def main():
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
-    # the TRAIN-shape rows also carry their launches on the Tensor surface
+    # the TRAIN-shape rows also carry their launches on the Tensor surface,
+    # the BERT-shape rows theirs in NN_TRANSFORMER (its 6 captured steps)
     for row in summary:
         if "launches_recompute" in row or row.get("case") == \
                 "llama O2 bfloat16":
             row["launches_dygraph"] = counts_dyg[row["name"]]
+        if str(row.get("case", "")).startswith("bert"):
+            row["launches_nn_transformer"] = counts_nn[row["name"]]
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

@@ -4,9 +4,10 @@
 (a wrapper over a torch tensor, its tape torch autograd), `to_tensor`,
 `Parameter`, `create_parameter`, the dtypes, the places and
 `set_device`, `no_grad` / `enable_grad` / `set_grad_enabled`, `seed`,
-`grad`, `autograd` (`backward`, `PyLayer`, `jacobian`, `hessian`), and the
+`grad`, `autograd` (`backward`, `PyLayer`, `jacobian`, `hessian`), the
 tensor ops at top level (`add`, `reshape`, `matmul`, ...), as the
-reference's `from .ops import *`.
+reference's `from .ops import *`, and `nn` (`Layer`, the layer zoo,
+`functional`, `initializer`) with `save` / `load` and `ParamAttr`.
 
 Below it the port serves LLaMA through the paged continuous-batching
 `inference.ServingEngine` and trains LLaMA, GPT and BERT
@@ -42,6 +43,10 @@ from .ops import *  # noqa: F401,F403
 from .ops import _tensor_to  # noqa: F401
 from . import autograd  # noqa: F401,E402
 from . import linalg  # noqa: F401,E402
+from . import nn  # noqa: F401,E402
+from . import amp, jit, optimizer  # noqa: F401,E402
+from .framework_io import load, save  # noqa: F401,E402
+from .nn import ParamAttr  # noqa: F401,E402
 
 
 def is_grad_enabled():

@@ -56,6 +56,7 @@ compiled call alike), so the card and the CPU follow one rule.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import threading
@@ -97,6 +98,10 @@ SUSPEND_O2_IN_MODELS = True
 
 
 def _amp_dtype(dtype) -> torch.dtype:
+    from ..core.dtype import DType
+
+    if isinstance(dtype, DType):
+        dtype = dtype.torch
     if isinstance(dtype, torch.dtype) and dtype in _DTYPES.values():
         return dtype
     if dtype not in _DTYPES:
@@ -296,8 +301,10 @@ def _mode_installed():
 
 def amp_op(name, fn, *args, **kwargs):
     """Run the port's op `fn` as the reference's op `name`: its floating
-    tensor arguments (positional, not inside containers) cast by
-    `amp_dtype_for(name)`, its body out of the mode's sight. With AMP off, `fn(*args, **kwargs)` after one
+    tensor arguments (positional, and the elements of a positional list
+    or tuple, which the reference unpacks into its operands: `concat`,
+    `stack`, `add_n`, ...) cast by `amp_dtype_for(name)`, its body out of
+    the mode's sight. With AMP off, `fn(*args, **kwargs)` after one
     thread-local read."""
     st = getattr(_tls, "amp", None)
     if st is None or not st.enable:
@@ -306,9 +313,7 @@ def amp_op(name, fn, *args, **kwargs):
     if depth == 0:
         target = amp_dtype_for(name)
         if target is not None:
-            args = [a.to(target) if isinstance(a, torch.Tensor)
-                    and a.is_floating_point() and a.dtype != target else a
-                    for a in args]
+            args = [_cast(a, target) for a in args]
     _tls.depth = depth + 1
     try:
         out = fn(*args, **kwargs)
@@ -394,25 +399,61 @@ def _save_dtype_hook(dt):
     return hook
 
 
+def _is_layer(m) -> bool:
+    """Whether m is an `nn.Layer` (the Tensor API's layers; the models
+    are torch modules)."""
+    return hasattr(m, "_sub_layers") and not isinstance(m, torch.nn.Module)
+
+
+def _layer_save_hook(dt):
+    def hook(dest):
+        out = collections.OrderedDict()
+        for k, v in dest.items():
+            out[k] = v.astype(dt) if hasattr(v, "astype") and \
+                v.dtype.is_floating_point else v
+        return out
+
+    return hook
+
+
 def decorate(models, optimizers=None, level="O1", dtype="bfloat16",
              master_weight=None, save_dtype=None):
     """O2: cast the models' parameters and floating buffers to `dtype` in
-    place (BatchNorm/LayerNorm layers stay f32) and set each optimizer's
-    multi_precision (f32 master weights) to `master_weight is not False`.
-    `save_dtype`: the models' `state_dict` values come out in that dtype
-    (a state-dict hook; the training dtypes are untouched). Returns
-    `models`, or `(models, optimizers)` when optimizers are given. O0 and
-    O1 change nothing else (O1 casts per op, in `auto_cast`)."""
+    place (the parameters of BatchNorm/LayerNorm layers stay f32) and set
+    each optimizer's multi_precision (f32 master weights) to
+    `master_weight is not False`. `save_dtype`: the models' `state_dict`
+    values come out in that dtype (a state-dict hook; the training dtypes
+    are untouched). Returns `models`, or `(models, optimizers)` when
+    optimizers are given. O0 and O1 change nothing else (O1 casts per op,
+    in `auto_cast`). A model is a torch module (the port's models) or an
+    `nn.Layer`, whose parameters keep their torch leaves (an optimizer
+    built before still updates them), as the reference's decorate
+    does."""
+    from ..core.dtype import convert_dtype
+
     _check_level(level)
     target = _amp_dtype(dtype)
     ms = models if isinstance(models, (list, tuple)) else [models]
     if save_dtype is not None:
-        sd = save_dtype if isinstance(save_dtype, torch.dtype) \
-            else getattr(torch, str(save_dtype))
+        sd = convert_dtype(save_dtype)
         for m in ms:
-            m._register_state_dict_hook(_save_dtype_hook(sd))
+            if _is_layer(m):
+                if not hasattr(m, "_state_dict_hooks"):
+                    m._state_dict_hooks = {}
+                m._state_dict_hooks[len(m._state_dict_hooks)] = \
+                    _layer_save_hook(sd)
+            else:
+                m._register_state_dict_hook(_save_dtype_hook(sd))
     if level == "O2":
         for m in ms:
+            if _is_layer(m):
+                m._to_dtype(target)
+                for sub in m.sublayers(include_self=True):
+                    if type(sub).__name__.startswith(("BatchNorm",
+                                                      "LayerNorm")):
+                        sub._apply_to_tensors(lambda t: t.float(),
+                                              buffers=False)
+                continue
             m.to(target)
             for sub in m.modules():
                 if type(sub).__name__.startswith(("BatchNorm", "LayerNorm")):

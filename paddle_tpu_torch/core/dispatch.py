@@ -7,7 +7,8 @@ switch, and of its op funnel (`op_call`, :503) as one decorator, `op`.
 
 `op(name, n_diff=None)` makes a torch function a Paddle op: its
 `Tensor` arguments (positional and keyword, and inside lists and tuples)
-are unwrapped to their torch tensors, the body runs through
+are unwrapped to their torch tensors and its DType arguments become torch
+dtypes, the body runs through
 `amp.amp_op` under the reference's op name (cast by the AMP rule when
 `auto_cast` is on, counted by `amp.debugging`), and torch tensors in its
 result are wrapped as `Tensor`s. Given torch tensors it returns torch
@@ -30,6 +31,7 @@ import functools
 import torch
 
 from ..amp import amp_op
+from .dtype import DType
 from .tensor import Tensor
 
 
@@ -97,7 +99,8 @@ def wrap(x):
 
 
 def _scan(seq):
-    """(unwrapped seq, saw a Tensor, saw a torch tensor)."""
+    """(unwrapped seq, saw a Tensor, saw a torch tensor). A DType becomes
+    its torch dtype."""
     saw_t = saw_raw = False
     out = []
     for a in seq:
@@ -106,6 +109,8 @@ def _scan(seq):
             a = a._data
         elif isinstance(a, torch.Tensor):
             saw_raw = True
+        elif isinstance(a, DType):
+            a = a.torch
         elif isinstance(a, (list, tuple)) and a:
             inner, t, r = _scan(a)
             if t:
@@ -114,6 +119,46 @@ def _scan(seq):
             saw_raw = saw_raw or r
         out.append(a)
     return out, saw_t, saw_raw
+
+
+#: Integer promotion at the boundary (F10). The reference computes as jnp
+#: does under x64: an op that needs a floating input takes an integer
+#: (or bool) one as float64 when it is 64-bit and float32 otherwise
+#: (`_INEXACT`); an op that scales its input by a Python float takes it
+#: as float64 at every width (`_FLOAT64`, jnp's weak float beside an
+#: integer). Here the op's first tensor operand, when it is integer or
+#: bool, is cast so before the body runs; the ops that already promote
+#: in their bodies (`mean`, `divide`, `cumsum`, `clip`) are not listed.
+_INEXACT = frozenset((
+    "acos acosh asin asinh atan atanh cos cosh sin sinh tan tanh exp expm1 "
+    "log log10 log1p log2 sqrt reciprocal deg2rad rad2deg logit gammaln "
+    "i0 i0e i1 i1e sinc multigammaln polygamma logsumexp median nanmedian "
+    "quantile nanquantile cov corrcoef trapezoid std var nanmean qr pinv "
+    "svd lu cond matrix_rank frexp histogram_bin_edges det slogdet inverse "
+    "eigvalsh eigh eig eigvals cholesky gelu log_sigmoid log_softmax "
+    "softmax mish selu softsign tanhshrink adaptive_avg_pool1d "
+    "adaptive_avg_pool2d adaptive_avg_pool3d group_norm instance_norm"
+    ).split())
+_FLOAT64 = frozenset((
+    "angle cumulative_trapezoid norm renorm scale stanh celu elu hardshrink "
+    "hardsigmoid hardswish hardtanh leaky_relu relu6 softshrink "
+    "thresholded_relu normalize label_smooth max_pool1d_with_index "
+    "max_pool2d_with_index max_pool3d_with_index").split())
+
+
+def _promote_int(opname, args, kwargs):
+    """args with the first tensor operand cast by the integer rule of
+    op `opname` (note above)."""
+    if opname == "norm" and kwargs.get("p") in (float("inf"),
+                                                 float("-inf")):
+        return args
+    for i, a in enumerate(args):
+        if isinstance(a, torch.Tensor):
+            if not (a.is_floating_point() or a.is_complex()):
+                wide = opname in _FLOAT64 or a.dtype == torch.int64
+                args[i] = a.to(torch.float64 if wide else torch.float32)
+            return args
+    return args
 
 
 def _funnel(fn, opname=None, nograd=False):
@@ -133,6 +178,8 @@ def _funnel(fn, opname=None, nograd=False):
         if opname is None:
             out = fn(*args, **kwargs)
             return wrap(out) if saw_t else out
+        if opname in _INEXACT or opname in _FLOAT64:
+            args = _promote_int(opname, args, kwargs)
         if nograd:
             with torch.no_grad():
                 out = amp_op(opname, fn, *args, **kwargs)

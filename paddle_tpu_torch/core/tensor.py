@@ -80,7 +80,9 @@ class Tensor:
 
     @property
     def dtype(self):
-        return self._data.dtype
+        """The Paddle dtype (`core.dtype.DType`): prints as "float32" and
+        equals the name, the numpy dtype and the torch dtype."""
+        return dtypes.of(self._data.dtype)
 
     @property
     def place(self):

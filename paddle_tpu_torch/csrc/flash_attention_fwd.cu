@@ -9,7 +9,17 @@
 // `has_lens`, from `flash_attention_varlen_raw` (K1v).
 //
 // Layout: q [B, Hq, Sq, D], k/v [B, Hkv, Sk, D], contiguous; o like q;
-// lse f32 [B, Hq, Sq]; kv_lens int32 [B] (K1v). GQA is handled by indexing
+// lse f32 [B, Hq, Sq]; kv_lens int32 [B] (K1v). o_res (nullable; like
+// o) receives what rounding O to q's dtype dropped, O_f32 - O, itself
+// rounded to that dtype (0 in f32), on every route, so that the
+// backward's delta = rowsum(dO * (O + o_res)) is taken from the body's
+// f32 O. From the rounded O alone delta carries an error of |dO| |O|
+// 2^-9 a row (bf16), which dS = P (dP - delta) cannot afford where the
+// keys' values nearly agree and dP - delta cancels (the deep layers of an
+// encoder at initialization: dQ / dK off by 10-95% of their largest
+// value). The tensor-core body's f32 O multiplies P rounded to bf16 for
+// the PV product; the CUDA-core body's is P V in f32. Forward-only
+// callers pass null. GQA is handled by indexing
 // kv head h / (Hq / Hkv) here instead of materialising repeated K/V
 // (flash_attention_raw repeats first; the result is the same). Causal
 // masking aligns the last query row with the last key column (col <= row
@@ -52,54 +62,63 @@
 namespace {
 
 int fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-        const int* kv_lens, int b, int hq, int hkv, int sq, int sk, int d,
-        int causal, int dtype, float scale, void* stream) {
+        void* o_res, const int* kv_lens, int b, int hq, int hkv, int sq,
+        int sk, int d, int causal, int dtype, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b == 0 || sq == 0) return 0;
-  if (sk == 0)
+  const bool tc = dtype == 1 && d <= kSmallD;
+  if (sk == 0) {
+    if (o_res != nullptr) {
+      const cudaError_t e =
+          cudaMemsetAsync(o_res, 0,
+                          (size_t)b * hq * sq * d * elem_bytes(dtype), st);
+      if (e != cudaSuccess) return (int)e;
+    }
     return fill_empty(o, lse, (size_t)b * hq * sq, d, elem_bytes(dtype),
                       st);
+  }
   const LenCausalMask::Args margs{kv_lens, causal};
-  if (dtype == 1 && d <= kSmallD)
-    return launch_fwd_tc<LenCausalMask>(q, k, v, o, lse, margs, b, hq, hkv,
-                                        sq, sk, d, scale, st);
+  if (tc)
+    return launch_fwd_tc<LenCausalMask>(q, k, v, o, lse, o_res, margs, b, hq,
+                                        hkv, sq, sk, d, scale, st);
   if (dtype == 1)
     return launch_fwd<__nv_bfloat16, LenCausalMask, kLargeD>(
-        q, k, v, o, lse, margs, b, hq, hkv, sq, sk, d, scale, st);
+        q, k, v, o, lse, o_res, margs, b, hq, hkv, sq, sk, d, scale, st);
   if (dtype == kCodeF16 && d <= kSmallD)
     return launch_fwd<__half, LenCausalMask, kSmallD>(
-        q, k, v, o, lse, margs, b, hq, hkv, sq, sk, d, scale, st);
+        q, k, v, o, lse, o_res, margs, b, hq, hkv, sq, sk, d, scale, st);
   if (dtype == kCodeF16)
     return launch_fwd<__half, LenCausalMask, kLargeD>(
-        q, k, v, o, lse, margs, b, hq, hkv, sq, sk, d, scale, st);
+        q, k, v, o, lse, o_res, margs, b, hq, hkv, sq, sk, d, scale, st);
   if (d <= kSmallD)
     return launch_fwd<float, LenCausalMask, kSmallD>(
-        q, k, v, o, lse, margs, b, hq, hkv, sq, sk, d, scale, st);
+        q, k, v, o, lse, o_res, margs, b, hq, hkv, sq, sk, d, scale, st);
   return launch_fwd<float, LenCausalMask, kLargeD>(
-      q, k, v, o, lse, margs, b, hq, hkv, sq, sk, d, scale, st);
+      q, k, v, o, lse, o_res, margs, b, hq, hkv, sq, sk, d, scale, st);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns
-// cudaGetLastError() (0 = ok); the caller has checked shapes, dtypes,
-// contiguity and d <= 256.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. o_res may be null.
+// Returns cudaGetLastError() (0 = ok); the caller has checked shapes,
+// dtypes, contiguity and d <= 256.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, void* lse, int b,
-                                   int hq, int hkv, int sq, int sk, int d,
-                                   int causal, int dtype, float scale,
-                                   void* stream) {
-  return fwd(q, k, v, o, lse, nullptr, b, hq, hkv, sq, sk, d, causal, dtype,
-             scale, stream);
+                                   const void* v, void* o, void* lse,
+                                   void* o_res, int b, int hq, int hkv,
+                                   int sq, int sk, int d, int causal,
+                                   int dtype, float scale, void* stream) {
+  return fwd(q, k, v, o, lse, o_res, nullptr, b, hq, hkv, sq, sk, d, causal,
+             dtype, scale, stream);
 }
 
 // K1v: kv_lens int32 [B] on the device.
 extern "C" int flash_attention_varlen_fwd(const void* q, const void* k,
                                           const void* v, void* o, void* lse,
-                                          const void* kv_lens, int b, int hq,
-                                          int hkv, int sq, int sk, int d,
-                                          int causal, int dtype, float scale,
+                                          void* o_res, const void* kv_lens,
+                                          int b, int hq, int hkv, int sq,
+                                          int sk, int d, int causal,
+                                          int dtype, float scale,
                                           void* stream) {
-  return fwd(q, k, v, o, lse, static_cast<const int*>(kv_lens), b, hq, hkv,
-             sq, sk, d, causal, dtype, scale, stream);
+  return fwd(q, k, v, o, lse, o_res, static_cast<const int*>(kv_lens), b, hq,
+             hkv, sq, sk, d, causal, dtype, scale, stream);
 }

@@ -467,6 +467,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                    __nv_bfloat16* __restrict__ o_res,
                     typename Mask::Args margs, int hq, int hkv, int sq,
                     int sk, int d, float scale_log2) {
   using L = FwdTcSmem<DP, KN>;
@@ -572,12 +573,23 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
     // a row that sees no key: O = 0, lse = -1e30
     const float inv = l_r[ii] > 0.f ? 1.f / l_r[ii] : 0.f;
     uint32_t* orow = reinterpret_cast<uint32_t*>(o + (row0 + row) * d);
+    uint32_t* rrow = o_res == nullptr ? nullptr
+        : reinterpret_cast<uint32_t*>(o_res + (row0 + row) * d);
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j) {
       const int col = 8 * j + c;
-      if (col < d)
-        orow[col >> 1] = pack_bf16(acc[4 * j + 2 * ii] * inv,
-                                   acc[4 * j + 2 * ii + 1] * inv);
+      if (col < d) {
+        const float lo = acc[4 * j + 2 * ii] * inv;
+        const float hi = acc[4 * j + 2 * ii + 1] * inv;
+        const uint32_t packed = pack_bf16(lo, hi);
+        orow[col >> 1] = packed;
+        if (rrow != nullptr) {  // what the bf16 rounding of O dropped
+          const __nv_bfloat162 r =
+              *reinterpret_cast<const __nv_bfloat162*>(&packed);
+          rrow[col >> 1] = pack_bf16(lo - __low2float(r),
+                                     hi - __high2float(r));
+        }
+      }
     }
     if ((lane & 3) == 0)
       lse[row0 + row] =
@@ -984,7 +996,7 @@ uintptr_t addr(const void* p) { return reinterpret_cast<uintptr_t>(p); }
 
 template <int DP, typename Mask>
 int run_fwd_tc(dim3 grid, const CUtensorMap& tq, const CUtensorMap& tk,
-               const CUtensorMap& tv, void* o, void* lse,
+               const CUtensorMap& tv, void* o, void* lse, void* o_res,
                typename Mask::Args margs, int hq, int hkv, int sq, int sk,
                int d, float scale, cudaStream_t stream) {
   constexpr int KN = ring_kn<DP>();
@@ -995,14 +1007,15 @@ int run_fwd_tc(dim3 grid, const CUtensorMap& tq, const CUtensorMap& tk,
   if (err != cudaSuccess) return (int)err;
   flash_fwd_tc_kernel<DP, KN, Mask><<<grid, kTcThreads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
-      margs, hq, hkv, sq, sk, d, scale * kLog2e);
+      static_cast<__nv_bfloat16*>(o_res), margs, hq, hkv, sq, sk, d,
+      scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 template <typename Mask>
 int launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
-                  void* lse, typename Mask::Args margs, int b, int hq,
-                  int hkv, int sq, int sk, int d, float scale,
+                  void* lse, void* o_res, typename Mask::Args margs, int b,
+                  int hq, int hkv, int sq, int sk, int d, float scale,
                   cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   const int kn = d <= 64 ? ring_kn<64>() : ring_kn<128>();
@@ -1013,10 +1026,10 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, void* o,
     return (int)cudaErrorInvalidValue;
   const dim3 grid(hq, b, (sq + kTcRows - 1) / kTcRows);
   if (d <= 64)
-    return run_fwd_tc<64, Mask>(grid, tq, tk, tv, o, lse, margs, hq, hkv, sq,
-                                sk, d, scale, stream);
-  return run_fwd_tc<128, Mask>(grid, tq, tk, tv, o, lse, margs, hq, hkv, sq,
-                               sk, d, scale, stream);
+    return run_fwd_tc<64, Mask>(grid, tq, tk, tv, o, lse, o_res, margs, hq,
+                                hkv, sq, sk, d, scale, stream);
+  return run_fwd_tc<128, Mask>(grid, tq, tk, tv, o, lse, o_res, margs, hq,
+                               hkv, sq, sk, d, scale, stream);
 }
 
 template <int DP, typename Mask>

@@ -200,8 +200,9 @@ template <typename T, typename Mask, int DM>
 __global__ void __launch_bounds__(kFwdThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, typename Mask::Args margs, int hq,
-                 int hkv, int sq, int sk, int d, float scale) {
+                 float* __restrict__ lse, T* __restrict__ o_res,
+                 typename Mask::Args margs, int hq, int hkv, int sq, int sk,
+                 int d, float scale) {
   extern __shared__ float smem[];
   const int dp = d + 1;
   float* qs = smem;              // [kBQ][dp]
@@ -332,6 +333,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   T* ob = o + (size_t)(b * hq + h) * sq * d;
+  T* rb = o_res == nullptr ? nullptr : o_res + (size_t)(b * hq + h) * sq * d;
   float* lb = lse + (size_t)(b * hq + h) * sq;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -342,7 +344,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < kAccCols; ++c) {
       const int col = tx + 8 * c;
-      if (col < d) ob[(size_t)row * d + col] = from_f32<T>(acc[i][c] * inv);
+      if (col < d) {
+        const float f = acc[i][c] * inv;
+        const T rounded = from_f32<T>(f);
+        ob[(size_t)row * d + col] = rounded;
+        // what rounding O to T dropped (0 in f32)
+        if (rb != nullptr)
+          rb[(size_t)row * d + col] = from_f32<T>(f - to_f32(rounded));
+      }
     }
     if (tx == 0) lb[row] = m[i] + logf(li);
   }
@@ -350,8 +359,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, typename Mask, int DM>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
-               void* lse, typename Mask::Args margs, int b, int hq, int hkv,
-               int sq, int sk, int d, float scale, cudaStream_t stream) {
+               void* lse, void* o_res, typename Mask::Args margs, int b,
+               int hq, int hkv, int sq, int sk, int d, float scale,
+               cudaStream_t stream) {
   if (d > DM) return (int)cudaErrorInvalidValue;
   const size_t smem = fwd_smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
@@ -362,7 +372,8 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o,
   flash_fwd_kernel<T, Mask, DM><<<grid, kFwdThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o),
-      static_cast<float*>(lse), margs, hq, hkv, sq, sk, d, scale);
+      static_cast<float*>(lse), static_cast<T*>(o_res), margs, hq, hkv, sq,
+      sk, d, scale);
   return (int)cudaGetLastError();
 }
 

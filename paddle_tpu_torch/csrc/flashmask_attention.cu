@@ -19,8 +19,10 @@
 // 0. K9 takes Hq == Hkv, as the reference's kernel does (it indexes K by
 // q's head); the wrapper refuses the rest.
 //
-// Layout: q, o, dO [B, H, Sq, D], k/v [B, H, Sk, D], contiguous; lse and
-// delta = rowsum(dO * O) f32 [B, H, Sq]; start int32 [B, H, Sk]; smin /
+// Layout: q, o, dO [B, H, Sq, D], k/v [B, H, Sk, D], contiguous; o_res
+// (nullable; like o) what rounding O to q's dtype dropped, as K1 writes it
+// (flash_attention_fwd.cu); lse and delta = rowsum(dO * (O + o_res)) f32
+// [B, H, Sq]; start int32 [B, H, Sk]; smin /
 // smax int32 [B, H, ceil(Sk / 64)]: each 64-column kv tile's least start
 // row over its in-range columns and its greatest over all its columns
 // (padded columns count as start 0). The wrapper computes smin / smax in
@@ -85,31 +87,37 @@ StartRowMask::Args mask_args(const void* start, const void* smin,
 // before any padding the caller added.
 extern "C" int flashmask_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, const void* start,
-                             const void* smin, const void* smax, int b,
-                             int h, int sq, int sk, int d, int causal,
+                             const void* smin, const void* smax, void* o_res,
+                             int b, int h, int sq, int sk, int d, int causal,
                              int dtype, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (b == 0 || sq == 0) return 0;
-  if (sk == 0)
+  if (sk == 0) {
+    if (o_res != nullptr) {
+      const cudaError_t e = cudaMemsetAsync(
+          o_res, 0, (size_t)b * h * sq * d * elem_bytes(dtype), st);
+      if (e != cudaSuccess) return (int)e;
+    }
     return fill_empty(o, lse, (size_t)b * h * sq, d, elem_bytes(dtype), st);
+  }
   const StartRowMask::Args margs = mask_args(start, smin, smax, causal);
   if (dtype == 1 && d <= kSmallD)
-    return launch_fwd_tc<StartRowMask>(q, k, v, o, lse, margs, b, h, h, sq,
-                                       sk, d, scale, st);
+    return launch_fwd_tc<StartRowMask>(q, k, v, o, lse, o_res, margs, b, h,
+                                       h, sq, sk, d, scale, st);
   if (dtype == 1)
     return launch_fwd<__nv_bfloat16, StartRowMask, kLargeD>(
-        q, k, v, o, lse, margs, b, h, h, sq, sk, d, scale, st);
+        q, k, v, o, lse, o_res, margs, b, h, h, sq, sk, d, scale, st);
   if (dtype == kCodeF16 && d <= kSmallD)
     return launch_fwd<__half, StartRowMask, kSmallD>(
-        q, k, v, o, lse, margs, b, h, h, sq, sk, d, scale, st);
+        q, k, v, o, lse, o_res, margs, b, h, h, sq, sk, d, scale, st);
   if (dtype == kCodeF16)
     return launch_fwd<__half, StartRowMask, kLargeD>(
-        q, k, v, o, lse, margs, b, h, h, sq, sk, d, scale, st);
+        q, k, v, o, lse, o_res, margs, b, h, h, sq, sk, d, scale, st);
   if (d <= kSmallD)
     return launch_fwd<float, StartRowMask, kSmallD>(
-        q, k, v, o, lse, margs, b, h, h, sq, sk, d, scale, st);
+        q, k, v, o, lse, o_res, margs, b, h, h, sq, sk, d, scale, st);
   return launch_fwd<float, StartRowMask, kLargeD>(
-      q, k, v, o, lse, margs, b, h, h, sq, sk, d, scale, st);
+      q, k, v, o, lse, o_res, margs, b, h, h, sq, sk, d, scale, st);
 }
 
 extern "C" int flashmask_bwd_dq(const void* q, const void* k, const void* v,

@@ -1,2 +1,1 @@
-"""nn layers of the port."""
-from .norm import Dropout, LayerNorm  # noqa: F401
+"""The nn layers of the port (`nn.Layer` subclasses)."""

@@ -1,0 +1,185 @@
+"""Container layers: Sequential, LayerList, LayerDict, ParameterList,
+ParameterDict.
+
+Port of paddle_tpu/nn/layer/container.py.
+"""
+from __future__ import annotations
+
+import collections
+
+from ..layer_base import Layer
+
+
+class Sequential(Layer):
+    def __init__(self, *layers):
+        super().__init__()
+        if len(layers) == 1 and isinstance(layers[0],
+                                           collections.OrderedDict):
+            for name, layer in layers[0].items():
+                self.add_sublayer(name, layer)
+        else:
+            for i, layer in enumerate(layers):
+                if isinstance(layer, tuple):
+                    self.add_sublayer(layer[0], layer[1])
+                else:
+                    self.add_sublayer(str(i), layer)
+
+    def __getitem__(self, idx):
+        if isinstance(idx, slice):
+            return Sequential(*list(self._sub_layers.values())[idx])
+        return list(self._sub_layers.values())[idx]
+
+    def __len__(self):
+        return len(self._sub_layers)
+
+    def forward(self, x):
+        for layer in self._sub_layers.values():
+            x = layer(x)
+        return x
+
+
+class LayerList(Layer):
+    def __init__(self, sublayers=None):
+        super().__init__()
+        if sublayers is not None:
+            for i, layer in enumerate(sublayers):
+                self.add_sublayer(str(i), layer)
+
+    def __getitem__(self, idx):
+        if isinstance(idx, slice):
+            return LayerList(list(self._sub_layers.values())[idx])
+        return list(self._sub_layers.values())[idx]
+
+    def __setitem__(self, idx, layer):
+        self._sub_layers[str(idx)] = layer
+
+    def __len__(self):
+        return len(self._sub_layers)
+
+    def __iter__(self):
+        return iter(self._sub_layers.values())
+
+    def append(self, layer):
+        self.add_sublayer(str(len(self._sub_layers)), layer)
+        return self
+
+    def insert(self, index, layer):
+        layers = list(self._sub_layers.values())
+        layers.insert(index, layer)
+        self._sub_layers.clear()
+        for i, sub in enumerate(layers):
+            self._sub_layers[str(i)] = sub
+
+    def extend(self, layers):
+        for layer in layers:
+            self.append(layer)
+        return self
+
+
+class LayerDict(Layer):
+    def __init__(self, sublayers=None):
+        super().__init__()
+        if sublayers is not None:
+            self.update(sublayers)
+
+    def __getitem__(self, key):
+        return self._sub_layers[key]
+
+    def __setitem__(self, key, layer):
+        self.add_sublayer(key, layer)
+
+    def __delitem__(self, key):
+        del self._sub_layers[key]
+
+    def __len__(self):
+        return len(self._sub_layers)
+
+    def __iter__(self):
+        return iter(self._sub_layers)
+
+    def __contains__(self, key):
+        return key in self._sub_layers
+
+    def clear(self):
+        self._sub_layers.clear()
+
+    def pop(self, key):
+        return self._sub_layers.pop(key)
+
+    def keys(self):
+        return self._sub_layers.keys()
+
+    def items(self):
+        return self._sub_layers.items()
+
+    def values(self):
+        return self._sub_layers.values()
+
+    def update(self, sublayers):
+        items = sublayers.items() if isinstance(sublayers, dict) \
+            else sublayers
+        for k, v in items:
+            self.add_sublayer(k, v)
+
+
+class ParameterList(Layer):
+    def __init__(self, parameters=None):
+        super().__init__()
+        if parameters is not None:
+            for i, p in enumerate(parameters):
+                self.add_parameter(str(i), p)
+
+    def __getitem__(self, idx):
+        return self._parameters[str(idx)]
+
+    def __setitem__(self, idx, param):
+        self._parameters[str(idx)] = param
+
+    def __len__(self):
+        return len(self._parameters)
+
+    def __iter__(self):
+        return iter(self._parameters.values())
+
+    def append(self, parameter):
+        self.add_parameter(str(len(self._parameters)), parameter)
+        return self
+
+
+class ParameterDict(Layer):
+    """String-keyed parameters."""
+
+    def __init__(self, parameters=None):
+        super().__init__()
+        if parameters is not None:
+            self.update(parameters)
+
+    def __getitem__(self, key):
+        return self._parameters[key]
+
+    def __setitem__(self, key, param):
+        self.add_parameter(key, param)
+
+    def __len__(self):
+        return len(self._parameters)
+
+    def __iter__(self):
+        return iter(self._parameters)
+
+    def __contains__(self, key):
+        return key in self._parameters
+
+    def keys(self):
+        return self._parameters.keys()
+
+    def values(self):
+        return self._parameters.values()
+
+    def items(self):
+        return self._parameters.items()
+
+    def update(self, parameters):
+        items = parameters.items() if hasattr(parameters, "items") \
+            else parameters
+        for k, v in items:
+            self.add_parameter(k, v)

@@ -153,21 +153,42 @@ def _bool_or(logic, bitwise):
         else bitwise(s, o)
 
 
+def _ensure(v, ref):
+    """The other operand of an arithmetic operator, as the reference's
+    `_ensure` makes it: a Python int beside an integer Tensor is an int64
+    array there, so the result is int64 (`int8 + 300` and `int32 + 3`
+    alike; the functional ops keep the Tensor's dtype); here the Tensor
+    goes to int64 instead, which gives the same dtype and values."""
+    if type(v) is int and not ref._data.is_floating_point() and \
+            not ref._data.is_complex() and ref._data.dtype not in (
+                torch.int64, torch.bool):
+        return v, cast(ref, "int64")
+    return v, ref
+
+
+def _arith(fn, swap=False):
+    def method(s, o):
+        o, s = _ensure(o, s)
+        return fn(o, s) if swap else fn(s, o)
+
+    return method
+
+
 _METHODS = {
-    "__add__": lambda s, o: add(s, o),
-    "__radd__": lambda s, o: add(o, s),
-    "__sub__": lambda s, o: subtract(s, o),
-    "__rsub__": lambda s, o: subtract(o, s),
-    "__mul__": lambda s, o: multiply(s, o),
-    "__rmul__": lambda s, o: multiply(o, s),
-    "__truediv__": lambda s, o: divide(s, o),
-    "__rtruediv__": lambda s, o: divide(o, s),
-    "__floordiv__": lambda s, o: floor_divide(s, o),
-    "__rfloordiv__": lambda s, o: floor_divide(o, s),
-    "__mod__": lambda s, o: mod(s, o),
-    "__rmod__": lambda s, o: mod(o, s),
-    "__pow__": lambda s, o: pow(s, o),
-    "__rpow__": lambda s, o: pow(o, s),
+    "__add__": _arith(add),
+    "__radd__": _arith(add, True),
+    "__sub__": _arith(subtract),
+    "__rsub__": _arith(subtract, True),
+    "__mul__": _arith(multiply),
+    "__rmul__": _arith(multiply, True),
+    "__truediv__": _arith(divide),
+    "__rtruediv__": _arith(divide, True),
+    "__floordiv__": _arith(floor_divide),
+    "__rfloordiv__": _arith(floor_divide, True),
+    "__mod__": _arith(mod),
+    "__rmod__": _arith(mod, True),
+    "__pow__": _arith(pow),
+    "__rpow__": _arith(pow, True),
     "__matmul__": lambda s, o: matmul(s, o),
     "__rmatmul__": lambda s, o: matmul(o, s),
     "__neg__": lambda s: neg(s),

@@ -102,13 +102,14 @@ def softmax_scale(d, scale=None):
     return 1.0 / math.sqrt(d) if scale is None else scale
 
 
-def attend_reference(q, k, v, vis, scale=None):
+def attend_reference(q, k, v, vis, scale=None, residual=False):
     """Plain softmax(QK^T scale) V over [B, H, S, D] (scale 1/sqrt(D)
     unless given) with the visibility `vis` (bool, broadcastable to
     [B, Hq, Sq, Sk]; None: all visible), computed in f32 (f64 inputs in
     f64). A row that sees no key gets o = 0 and lse = -1e30. Returns (o in
-    q.dtype, lse [B, Hq, Sq] in the compute dtype). Differentiable by torch
-    autograd."""
+    q.dtype, lse [B, Hq, Sq] in the compute dtype), and with `residual`
+    also what rounding o to q.dtype dropped, in q.dtype (K1's `o_res`).
+    Differentiable by torch autograd."""
     acc = torch.promote_types(q.dtype, torch.float32)
     k, v = _repeat_kv(q, k, v)
     s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) \
@@ -126,24 +127,36 @@ def attend_reference(q, k, v, vis, scale=None):
         p = p * seen
         lse = torch.where(seen[..., 0], lse, torch.full(
             (), EMPTY_ROW_LSE, dtype=acc, device=q.device))
-    return torch.matmul(p, v.to(acc)).to(q.dtype), lse
+    oa = torch.matmul(p, v.to(acc))
+    o = oa.to(q.dtype)
+    if residual:
+        return o, lse, (oa - o.to(acc)).to(q.dtype)
+    return o, lse
 
 
 def flash_attention_reference(q, k, v, causal=True, kv_lens=None,
-                              scale=None):
+                              scale=None, residual=False):
     """Plain PyTorch softmax(QK^T / sqrt(D)) V over [B, H, S, D] (`scale`
     in place of 1/sqrt(D) when given), computed in f32 (f64 inputs in
     f64), key columns >= kv_lens[b] masked when kv_lens ([B] int) is
-    given. Returns (o in q.dtype, lse [B, Hq, Sq] in the compute dtype).
+    given. Returns (o in q.dtype, lse [B, Hq, Sq] in the compute dtype),
+    and with `residual` o's rounding residual (`attend_reference`).
     Differentiable by torch autograd."""
     return attend_reference(q, k, v, _mask(q.shape[2], k.shape[2], q.device,
-                                           causal, kv_lens), scale)
+                                           causal, kv_lens), scale, residual)
 
 
-def _bwd_delta(o, do):
-    """delta = rowsum(dO * O) [B, Hq, Sq], in f32 (f64 inputs in f64)."""
+def _bwd_delta(o, do, o_res=None):
+    """delta = rowsum(dO * O) [B, Hq, Sq], in f32 (f64 inputs in f64), O
+    taken as o + o_res when the forward's rounding residual is given (the
+    forward's own f32 O: exact in the plain version and K1's CUDA-core
+    body, P rounded to bf16 for PV in its tensor-core body). From a bf16 o
+    alone delta is off by |dO| |O| 2^-9, which dS = P (dP - delta) cannot
+    afford where dP and delta nearly cancel. The autograd Functions always
+    give the residual; a direct caller without one takes o as exact."""
     acc = torch.promote_types(o.dtype, torch.float32)
-    return (do.to(acc) * o.to(acc)).sum(dim=-1)
+    oa = o.to(acc) if o_res is None else o.to(acc) + o_res.to(acc)
+    return (do.to(acc) * oa).sum(dim=-1)
 
 
 def scores_reference(q, k, v, do, lse, delta, vis, scale=None):
@@ -208,7 +221,7 @@ def flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, causal=True,
 
 
 def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True,
-                                  kv_lens=None, scale=None):
+                                  kv_lens=None, scale=None, o_res=None):
     """Plain PyTorch flash-attention backward from the saved LSE (not
     autograd through the forward), step for step what the kernels do:
     delta = rowsum(dO * O), then with P = exp(S*scale - lse), zeroed where
@@ -216,9 +229,10 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True,
         dS = P * (dO V^T - delta);  dQ = dS K scale;  dV = P^T dO;
         dK = dS^T Q scale,
     computed in f32 (f64 inputs in f64). GQA dK/dV sum the q heads of each
-    kv head (`scale` in place of 1/sqrt(D) when given). Returns (dq, dk,
+    kv head (`scale` in place of 1/sqrt(D) when given; O taken as o +
+    o_res when the forward's rounding residual is given). Returns (dq, dk,
     dv) in the inputs' dtypes."""
-    delta = _bwd_delta(o, do)
+    delta = _bwd_delta(o, do, o_res)
     return (flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, causal,
                                              kv_lens, scale),
             *flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
@@ -326,28 +340,32 @@ def _launch(name, kv_lens, ptrs, q, k, causal, scale, tma=(), ints=()):
                                                 ctypes.c_void_p]
     fn.restype = ctypes.c_int
     b, hq, sq, d = q.shape
-    code = fn(*(t.data_ptr() for t in ptrs), *lens, b, hq, k.shape[1], sq,
-              k.shape[2], d, int(bool(causal)), _DTYPES[q.dtype], *ints,
-              scale, current_stream(q.device))
+    code = fn(*(0 if t is None else t.data_ptr() for t in ptrs), *lens, b,
+              hq, k.shape[1], sq, k.shape[2], d, int(bool(causal)),
+              _DTYPES[q.dtype], *ints, scale, current_stream(q.device))
     check_launch(entry, code)
     count_launch(entry, reads=(*ptrs, kv_lens))
 
 
-def _launch_fwd(q, k, v, causal, kv_lens, scale):
+def _launch_fwd(q, k, v, causal, kv_lens, scale, residual=False):
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    _launch(_NAME, kv_lens, (q, k, v, o, lse), q, k, causal, scale,
+    res = torch.empty_like(q) if residual else None
+    _launch(_NAME, kv_lens, (q, k, v, o, lse, res), q, k, causal, scale,
             tma=(q, k, v))
-    return o, lse
+    return (o, lse, res) if residual else (o, lse)
 
 
-def flash_attention_fwd(q, k, v, causal=True, kv_lens=None):
+def flash_attention_fwd(q, k, v, causal=True, kv_lens=None, residual=False):
     """(o, lse) for q [B, Hq, Sq, D], k/v [B, Hkv, Sk, D], key columns >=
     kv_lens[b] masked when kv_lens ([B] int32) is given. CPU tensors take
     `flash_attention_reference`; CUDA tensors launch the kernel (K1, or
-    K1v with kv_lens)."""
+    K1v with kv_lens). With `residual`, (o, lse, o_res): o_res is what
+    rounding O to q's dtype dropped (zero in f32), on every route, for
+    the backward's delta from the forward's f32 O (`_bwd_delta`)."""
     if _on_cpu(q, k, v):
-        return flash_attention_reference(q, k, v, causal, kv_lens)
+        return flash_attention_reference(q, k, v, causal, kv_lens,
+                                         residual=residual)
     _require_cuda("flash_attention_fwd", q)
     _check(q, k, v)
     if kv_lens is not None:
@@ -355,10 +373,10 @@ def flash_attention_fwd(q, k, v, causal=True, kv_lens=None):
     if not _tensor_core_route(_NAME, q.dtype, kv_lens is not None,
                               q.shape[3]):
         return _launch_fwd(q, k, v, causal, kv_lens,
-                           softmax_scale(q.shape[3]))
+                           softmax_scale(q.shape[3]), residual)
     return with_head_pad(
         lambda q_, k_, v_, scale: _launch_fwd(q_, k_, v_, causal, kv_lens,
-                                              scale),
+                                              scale, residual),
         (q, k, v))
 
 
@@ -381,22 +399,25 @@ def check_bwd_inputs(q, k, v, o, lse, do):
         raise ValueError("all inputs must lie on one device")
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, causal=True, kv_lens=None):
-    """(dq, dk, dv) of flash attention from the forward's o and lse and the
-    output gradient do (key columns >= kv_lens[b] masked when kv_lens is
-    given). CPU tensors take `flash_attention_bwd_reference`; CUDA tensors
-    launch the two K2 kernels (`flash_attention_bwd_dq`, then
+def flash_attention_bwd(q, k, v, o, lse, do, causal=True, kv_lens=None,
+                        o_res=None):
+    """(dq, dk, dv) of flash attention from the forward's o and lse (and
+    o's rounding residual o_res, when the forward gave it) and the output
+    gradient do (key columns >= kv_lens[b] masked when kv_lens is given).
+    CPU tensors take `flash_attention_bwd_reference`; CUDA tensors launch
+    the two K2 kernels (`flash_attention_bwd_dq`, then
     `flash_attention_bwd_dkv`; K2v's varlen entries with kv_lens), after
-    delta = rowsum(dO * O) in f32 (plain torch, as the reference computes
-    it outside its kernels)."""
+    delta = rowsum(dO * (o + o_res)) in f32 (plain torch, as the reference
+    computes it outside its kernels; `_bwd_delta`)."""
     if _on_cpu(q, k, v, o, lse, do):
         return flash_attention_bwd_reference(q, k, v, o, lse, do, causal,
-                                             kv_lens)
+                                             kv_lens, o_res=o_res)
     _require_cuda("flash_attention_bwd", q)
     check_bwd_inputs(q, k, v, o, lse, do)
+    # from the unpadded tensors: head padding adds zero columns
+    delta = _bwd_delta(o, do, o_res)
 
-    def run(q_, k_, v_, o_, do_, scale):
-        delta = _bwd_delta(o_, do_)
+    def run(q_, k_, v_, do_, scale):
         return (_launch_bwd_dq(q_, k_, v_, do_, lse, delta, causal, kv_lens,
                                scale),
                 *_launch_bwd_dkv(q_, k_, v_, do_, lse, delta, causal,
@@ -406,8 +427,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=True, kv_lens=None):
         _check_lens(kv_lens, q)
     if not any(_tensor_core_route(n, q.dtype, kv_lens is not None,
                                   q.shape[3]) for n in (_BWD_DQ, _BWD_DKV)):
-        return run(q, k, v, o, do, softmax_scale(q.shape[3]))
-    return with_head_pad(run, (q, k, v, o, do))
+        return run(q, k, v, do, softmax_scale(q.shape[3]))
+    return with_head_pad(run, (q, k, v, do))
 
 
 def _launch_bwd_dq(q, k, v, do, lse, delta, causal, kv_lens=None,
@@ -451,48 +472,50 @@ def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, kv_lens=None,
 
 @torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
                          mutates_args=())
-def flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor,
-                           causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """`flash_attention_fwd` as a dispatcher op, so that a selective
-    activation-checkpoint policy sees it (a ctypes launch is invisible to
-    the dispatcher). Both routes carry this one name: the plain version
-    for CPU tensors, K1 for CUDA ones."""
-    o, lse = flash_attention_fwd(q, k, v, causal)
-    return o, lse
+def flash_attention_fwd_op(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        causal: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`flash_attention_fwd` with o's rounding residual, as a dispatcher
+    op, so that a selective activation-checkpoint policy sees it (a ctypes
+    launch is invisible to the dispatcher). Both routes carry this one
+    name: the plain version for CPU tensors, K1 for CUDA ones."""
+    return flash_attention_fwd(q, k, v, causal, residual=True)
 
 
 @flash_attention_fwd_op.register_fake
 def _(q, k, v, causal):
     return torch.empty_like(q), q.new_empty(
-        q.shape[:3], dtype=torch.promote_types(q.dtype, torch.float32))
+        q.shape[:3], dtype=torch.promote_types(q.dtype, torch.float32)), \
+        torch.empty_like(q)
 
 
 #: the ops whose outputs the "flash_resident" recompute policy keeps (the
-#: counterpart of the reference's FLASH_RESIDUAL_NAMES): the forward's o
-#: and lse, so a recomputed layer's backward never runs K1 again
+#: counterpart of the reference's FLASH_RESIDUAL_NAMES): the forward's o,
+#: lse and o's rounding residual, so a recomputed layer's backward never
+#: runs K1 again
 FLASH_RESIDUAL_OPS = (torch.ops.paddle_tpu_torch.flash_attention_fwd.default,)
 
 
 class FlashAttention(torch.autograd.Function):
-    """Differentiable flash attention: forward `flash_attention_fwd_op` (K1),
-    backward `flash_attention_bwd` (K2) from the saved (q, k, v, o, lse) —
-    the port's counterpart of the reference's `_flash` custom VJP. The lse
-    output carries no gradient."""
+    """Differentiable flash attention: forward `flash_attention_fwd_op` (K1,
+    with o's rounding residual), backward `flash_attention_bwd` (K2) from
+    the saved (q, k, v, o, lse, o_res) — the port's counterpart of the
+    reference's `_flash` custom VJP, with the backward's delta taken from
+    the unrounded O (`_bwd_delta`). The lse output carries no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        o, lse = flash_attention_fwd_op(q, k, v, causal)
-        ctx.save_for_backward(q, k, v, o, lse)
+        o, lse, res = flash_attention_fwd_op(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse, res)
         ctx.causal = causal
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, _dlse):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, res = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
-                                         ctx.causal)
+                                         ctx.causal, o_res=res)
         return dq, dk, dv, None
 
 
@@ -515,23 +538,24 @@ def _flash_attention(q, k, v, causal):
 
 class FlashAttentionVarlen(torch.autograd.Function):
     """Differentiable varlen flash attention: forward `flash_attention_fwd`
-    with kv_lens (K1v), backward `flash_attention_bwd` with kv_lens (K2v)
-    from the saved (q, k, v, o, lse, kv_lens) — the port's counterpart of
-    the reference's `_flash_varlen` custom VJP. kv_lens carries no
-    gradient."""
+    with kv_lens (K1v, with o's rounding residual), backward
+    `flash_attention_bwd` with kv_lens (K2v) from the saved (q, k, v, o,
+    lse, kv_lens, o_res) — the port's counterpart of the reference's
+    `_flash_varlen` custom VJP. kv_lens carries no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_lens, causal):
-        o, lse = flash_attention_fwd(q, k, v, causal, kv_lens)
-        ctx.save_for_backward(q, k, v, o, lse, kv_lens)
+        o, lse, res = flash_attention_fwd(q, k, v, causal, kv_lens,
+                                          residual=True)
+        ctx.save_for_backward(q, k, v, o, lse, kv_lens, res)
         ctx.causal = causal
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse, kv_lens = ctx.saved_tensors
+        q, k, v, o, lse, kv_lens, res = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
-                                         ctx.causal, kv_lens)
+                                         ctx.causal, kv_lens, res)
         return dq, dk, dv, None, None
 
 

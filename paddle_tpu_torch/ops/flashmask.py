@@ -87,13 +87,16 @@ def _fm_mask(sq, sk, start_rows, causal):
     return vis
 
 
-def flashmask_attention_reference(q, k, v, start_rows, causal=False):
+def flashmask_attention_reference(q, k, v, start_rows, causal=False,
+                                  residual=False):
     """Plain O(S^2) FlashMask forward over [B, H, S, D] with start rows
     [B, H, Sk], computed in f32 (f64 inputs in f64). Returns (o in q.dtype,
-    lse [B, H, Sq] in the compute dtype); a row that every column hides
-    gets o = 0 and lse = -1e30. Differentiable by torch autograd."""
+    lse [B, H, Sq] in the compute dtype), and with `residual` o's rounding
+    residual (`attend_reference`); a row that every column hides gets o =
+    0 and lse = -1e30. Differentiable by torch autograd."""
     return attend_reference(q, k, v, _fm_mask(q.shape[2], k.shape[2],
-                                              start_rows, causal))
+                                              start_rows, causal),
+                            residual=residual)
 
 
 def flashmask_bwd_dq_reference(q, k, v, do, lse, delta, start_rows,
@@ -115,11 +118,12 @@ def flashmask_bwd_dkv_reference(q, k, v, do, lse, delta, start_rows,
 
 
 def flashmask_attention_bwd_reference(q, k, v, o, lse, do, start_rows,
-                                      causal=False):
+                                      causal=False, o_res=None):
     """Plain FlashMask backward from the saved LSE (not autograd through
     the forward), step for step what the kernels do: delta = rowsum(dO *
-    O), then the dQ and dK/dV plain versions. Returns (dq, dk, dv)."""
-    delta = _bwd_delta(o, do)
+    O), O taken as o + o_res when the forward's rounding residual is
+    given, then the dQ and dK/dV plain versions. Returns (dq, dk, dv)."""
+    delta = _bwd_delta(o, do, o_res)
     return (flashmask_bwd_dq_reference(q, k, v, do, lse, delta, start_rows,
                                        causal),
             *flashmask_bwd_dkv_reference(q, k, v, do, lse, delta,
@@ -152,7 +156,8 @@ def tensor_core_route(name, dtype, d):
 
 def _launch(name, ptrs, q, k, causal, scale, ints=()):
     """Launch the K9 C entry `name` on the data pointers of `ptrs` (the
-    start rows and tile bounds last), the shape of q [B, H, Sq, D] and k,
+    start rows and tile bounds last, then the forward's nullable o_res;
+    None passes a null pointer), the shape of q [B, H, Sq, D] and k,
     the entry's own `ints` and the softmax `scale` (1/sqrt(D) when
     None)."""
     fn = getattr(kernel_library(name), name)
@@ -160,25 +165,28 @@ def _launch(name, ptrs, q, k, causal, scale, ints=()):
         + [ctypes.c_int] * (7 + len(ints)) + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     b, h, sq, d = q.shape
-    code = fn(*(t.data_ptr() for t in ptrs), b, h, sq, k.shape[2], d,
-              int(bool(causal)), _DTYPES[q.dtype], *ints,
+    code = fn(*(0 if t is None else t.data_ptr() for t in ptrs), b, h, sq,
+              k.shape[2], d, int(bool(causal)), _DTYPES[q.dtype], *ints,
               softmax_scale(d, scale), current_stream(q.device))
     check_launch(name, code)
     count_launch(name, reads=ptrs)
 
 
-def _launch_fwd(q, k, v, start_rows, smin, smax, causal, scale=None):
-    """(o, lse) by the K9 forward kernel (plain version
-    `flashmask_attention_reference`). Takes only checked CUDA tensors and
-    the tile bounds of `tile_bounds`; on the tensor-core route q, k and v
-    must be 16-byte aligned with a head dim that is a multiple of 8."""
+def _launch_fwd(q, k, v, start_rows, smin, smax, causal, scale=None,
+                residual=False):
+    """(o, lse), and o_res with `residual`, by the K9 forward kernel
+    (plain version `flashmask_attention_reference`). Takes only checked
+    CUDA tensors and the tile bounds of `tile_bounds`; on the tensor-core
+    route q, k and v must be 16-byte aligned with a head dim that is a
+    multiple of 8."""
     if tensor_core_route(_FWD, q.dtype, q.shape[3]):
         _check_aligned(_FWD, q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    _launch(_FWD, (q, k, v, o, lse, start_rows, smin, smax), q, k, causal,
-            scale)
-    return o, lse
+    res = torch.empty_like(q) if residual else None
+    _launch(_FWD, (q, k, v, o, lse, start_rows, smin, smax, res), q, k,
+            causal, scale)
+    return (o, lse, res) if residual else (o, lse)
 
 
 def _launch_bwd_dq(q, k, v, do, lse, delta, start_rows, smin, smax, causal,
@@ -213,39 +221,46 @@ def _launch_bwd_dkv(q, k, v, do, lse, delta, start_rows, smin, smax,
     return dk, dv
 
 
-def flashmask_fwd(q, k, v, start_rows, causal=False):
-    """(o, lse) of FlashMask attention. CPU tensors take
+def flashmask_fwd(q, k, v, start_rows, causal=False, residual=False):
+    """(o, lse) of FlashMask attention, and with `residual` (o, lse,
+    o_res): what rounding O to q's dtype dropped, for the backward's delta
+    (as `flash_attention_fwd` gives it). CPU tensors take
     `flashmask_attention_reference`; CUDA tensors run the tile-bounds prep
     and launch the K9 forward (on the tensor-core route with the head dim
     padded to a multiple of 8)."""
     if _on_cpu(q, k, v, start_rows):
-        return flashmask_attention_reference(q, k, v, start_rows, causal)
+        return flashmask_attention_reference(q, k, v, start_rows, causal,
+                                             residual)
     _require_cuda("flashmask_fwd", q)
     _check_fm(q, k, v, start_rows)
     smin, smax = tile_bounds(start_rows, k.shape[2])
     if not tensor_core_route(_FWD, q.dtype, q.shape[3]):
-        return _launch_fwd(q, k, v, start_rows, smin, smax, causal)
+        return _launch_fwd(q, k, v, start_rows, smin, smax, causal,
+                           residual=residual)
     return with_head_pad(
         lambda q_, k_, v_, scale: _launch_fwd(q_, k_, v_, start_rows, smin,
-                                              smax, causal, scale),
+                                              smax, causal, scale, residual),
         (q, k, v))
 
 
-def flashmask_bwd(q, k, v, o, lse, do, start_rows, causal=False):
-    """(dq, dk, dv) of FlashMask attention from the forward's o and lse.
-    CPU tensors take `flashmask_attention_bwd_reference`; CUDA tensors run
-    delta = rowsum(dO * O) and the tile-bounds prep in plain torch, then
+def flashmask_bwd(q, k, v, o, lse, do, start_rows, causal=False,
+                  o_res=None):
+    """(dq, dk, dv) of FlashMask attention from the forward's o and lse
+    (and o's rounding residual o_res, when the forward gave it). CPU
+    tensors take `flashmask_attention_bwd_reference`; CUDA tensors run
+    delta = rowsum(dO * (o + o_res)) and the tile-bounds prep in plain
+    torch, then
     the K9 dQ and dK/dV kernels (on the tensor-core route both under one
     `with_head_pad`, which pads q, k, v and dO to a head dim that is a
     multiple of 8 once for the two)."""
     if _on_cpu(q, k, v, o, lse, do, start_rows):
         return flashmask_attention_bwd_reference(q, k, v, o, lse, do,
-                                                 start_rows, causal)
+                                                 start_rows, causal, o_res)
     _require_cuda("flashmask_bwd", q)
     _check_fm(q, k, v, start_rows)
     check_bwd_inputs(q, k, v, o, lse, do)
     smin, smax = tile_bounds(start_rows, k.shape[2])
-    delta = _bwd_delta(o, do)
+    delta = _bwd_delta(o, do, o_res)
     fm = (start_rows, smin, smax, causal)
 
     def run(q_, k_, v_, do_, scale=None):
@@ -258,23 +273,26 @@ def flashmask_bwd(q, k, v, o, lse, do, start_rows, causal=False):
 
 
 class FlashMask(torch.autograd.Function):
-    """Differentiable FlashMask attention: forward `flashmask_fwd`, backward
-    `flashmask_bwd` from the saved (q, k, v, o, lse, start_rows) — the
-    port's counterpart of the reference's `_flashmask` custom VJP. The
-    start rows carry no gradient."""
+    """Differentiable FlashMask attention: forward `flashmask_fwd` (with
+    o's rounding residual), backward `flashmask_bwd` from the saved (q, k,
+    v, o, lse, start_rows, o_res) — the port's counterpart of the
+    reference's `_flashmask` custom VJP, with the backward's delta taken
+    from the unrounded O as `FlashAttention`'s. The start rows carry no
+    gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, start_rows, causal):
-        o, lse = flashmask_fwd(q, k, v, start_rows, causal)
-        ctx.save_for_backward(q, k, v, o, lse, start_rows)
+        o, lse, res = flashmask_fwd(q, k, v, start_rows, causal,
+                                    residual=True)
+        ctx.save_for_backward(q, k, v, o, lse, start_rows, res)
         ctx.causal = causal
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse, start_rows = ctx.saved_tensors
+        q, k, v, o, lse, start_rows, res = ctx.saved_tensors
         dq, dk, dv = flashmask_bwd(q, k, v, o, lse, do.contiguous(),
-                                   start_rows, ctx.causal)
+                                   start_rows, ctx.causal, res)
         return dq, dk, dv, None, None
 
 

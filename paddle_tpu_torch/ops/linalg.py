@@ -180,18 +180,17 @@ def cholesky_solve(x, y, upper=False, name=None):
 @op("lstsq", n_diff=0)
 def lstsq(x, y, rcond=None, driver=None, name=None):
     """(solution, residuals, rank, singular values), as jnp's: the
-    minimum-norm solution; residuals (squared, per column of y) only for a
-    tall full-rank x."""
+    minimum-norm solution, and the residuals ||y - x @ solution||^2 per
+    column of y at every shape and rank (jnp returns them in all cases;
+    a 1-D y gives one)."""
     s = torch.linalg.svdvals(x)
     rtol = rcond if rcond is not None else \
         torch.finfo(x.dtype).eps * max(x.shape[-2:])
     sol = torch.linalg.pinv(x, rtol=rtol) @ y
     rank = (s > rtol * s.amax(-1, keepdim=True)).sum(-1)
-    m, n = x.shape[-2:]
-    if m > n and int(rank.min()) == n:
-        res = ((x @ sol - y) ** 2).sum(-2)
-    else:
-        res = torch.zeros((0,), dtype=x.dtype, device=x.device)
+    est = x @ (sol if y.dim() > 1 else sol[:, None])
+    res = torch.linalg.vector_norm((y if y.dim() > 1 else y[:, None]) - est,
+                                   dim=-2) ** 2
     return sol, res, rank, s
 
 

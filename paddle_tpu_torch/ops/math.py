@@ -126,7 +126,10 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
 @op("clip")
 def clip(x, min=None, max=None, name=None):
     """Clamp into [min, max]; an integer tensor with a float bound comes
-    out float64, as the reference's promotion gives it."""
+    out float64, as the reference's promotion gives it. With neither
+    bound, x as it is (the reference's clip does nothing)."""
+    if min is None and max is None:
+        return x
     if not (x.is_floating_point() or x.is_complex()) and any(
             isinstance(v, float) for v in (min, max)):
         x = x.to(torch.float64)
@@ -158,6 +161,12 @@ def stanh(x, scale_a=0.67, scale_b=1.7159, name=None):
 
 @op("softplus")
 def softplus(x, beta=1, threshold=20, name=None):
+    """log(1 + exp(beta x)) / beta, x where beta x > threshold; an
+    integer x computes in float64 beside a float beta (jnp's weak float)
+    and in its own width's float otherwise."""
+    if not (x.is_floating_point() or x.is_complex()):
+        x = x.to(torch.float64 if isinstance(beta, float)
+                 or x.dtype == torch.int64 else torch.float32)
     xb = x * beta
     return torch.where(xb > threshold, x,
                        torch.logaddexp(xb, torch.zeros_like(xb)) / beta)
@@ -169,9 +178,15 @@ def nan_to_num(x, nan=0.0, posinf=None, neginf=None, name=None):
 
 
 def increment(x, value=1.0, name=None):
-    """x += value in place (the reference's buffer swap)."""
+    """x += value in place (the reference's buffer swap; an integer x
+    with a float value becomes float64, as the reference's body computes
+    it under x64)."""
     if isinstance(x, Tensor):
-        return x._write(x._data + value)
+        d = x._data
+        if isinstance(value, float) and not (d.is_floating_point()
+                                             or d.is_complex()):
+            d = d.to(torch.float64)
+        return x._write(d + value)
     return x.add_(value)
 
 

@@ -1,6 +1,7 @@
-"""The port's op table: the 313 rows of paddle_tpu's op table
+"""The port's op table: the 407 rows of paddle_tpu's op table
 (paddle_tpu/ops/op_table.py, op_table_ext.py, op_table_more.py) whose
-callables reach only the ops and core modules this package ports, each
+callables reach the modules this package ports (`NN_ROWS` the 94 that
+reach `nn.functional`), each
 with the port's callable and the reference's test spec (inputs, domains,
 shapes, kwargs, tolerances, the bf16 flag and the numpy `ref`), so the
 sweep runs where there is no jax (`chip_smoke.py`'s TENSOR_OPS on the
@@ -8,9 +9,9 @@ card) and the CPU tests hold the port to the reference
 (tests/test_torch_op_table*.py, which also hold every copied field equal
 to the reference's `OpSpec`).
 
-The reference's other 105 rows reach nn.functional, fft, signal,
-geometric, incubate or text.viterbi; `DEFERRED` names each with the
-ROADMAP.md Queue 1 item that ports it. Split into three files as the
+The reference's other 11 rows reach fft, signal, geometric, incubate or
+text.viterbi; `DEFERRED` names each with the ROADMAP.md Queue 1 item
+that ports it (1f). Split into three files as the
 reference's; `ensure_populated` pulls all three.
 """
 from __future__ import annotations
@@ -349,6 +350,66 @@ def _populate():
                     ref=lambda c, x, y: np.where(c > 2, x, y),
                     tags=("search",)))
 
+    # ---- nn.functional (ROADMAP.md Queue 1 item 1e)
+    from ..nn import functional as F
+
+    # ---- activations / nn functional
+    def _np_softmax(x):
+        e = np.exp(x - x.max(-1, keepdims=True))
+        return e / e.sum(-1, keepdims=True)
+
+    acts = [
+        ("relu", F.relu, _SAFE, lambda x: np.maximum(x, 0)),
+        ("relu6", F.relu6, (-8.0, 8.0),
+         lambda x: np.clip(x, 0, 6)),
+        ("elu", F.elu, _SAFE,
+         lambda x: np.where(x > 0, x, np.exp(x) - 1)),
+        ("selu", F.selu, _SAFE, None),
+        ("celu", F.celu, _SAFE, None),
+        ("gelu", F.gelu, _SAFE, None),
+        ("silu", F.silu, _SAFE, lambda x: x / (1 + np.exp(-x))),
+        ("mish", F.mish, _SAFE, None),
+        ("softplus", F.softplus, _SAFE,
+         lambda x: np.log1p(np.exp(x))),
+        ("softsign", F.softsign, _SAFE, lambda x: x / (1 + np.abs(x))),
+        ("hardtanh", F.hardtanh, _SAFE, lambda x: np.clip(x, -1, 1)),
+        ("hardsigmoid", F.hardsigmoid, (-8.0, 8.0), None),
+        ("hardswish", F.hardswish, (-8.0, 8.0), None),
+        ("leaky_relu", F.leaky_relu, _SAFE,
+         lambda x: np.where(x > 0, x, 0.01 * x)),
+        ("log_sigmoid", F.log_sigmoid, _SAFE,
+         lambda x: -np.log1p(np.exp(-x))),
+        ("tanhshrink", F.tanhshrink, _SAFE, lambda x: x - np.tanh(x)),
+        ("softshrink", F.softshrink, _SAFE, None),
+        ("hardshrink", F.hardshrink, _SAFE, None),
+        ("softmax", F.softmax, _SAFE, _np_softmax),
+        ("log_softmax", F.log_softmax, _SAFE,
+         lambda x: np.log(_np_softmax(x))),
+    ]
+    for name, fn, dom, ref in acts:
+        register(OpSpec(f"act_{name}", fn, 1, True, domain=dom, ref=ref,
+                        tags=("activation",)))
+    register(OpSpec("mse_loss", F.mse_loss, 2, True,
+                    ref=lambda a, b: np.mean((a - b) ** 2), tags=("loss",)))
+    register(OpSpec("l1_loss", F.l1_loss, 2, True,
+                    ref=lambda a, b: np.mean(np.abs(a - b)), tags=("loss",)))
+    register(OpSpec("smooth_l1", F.smooth_l1_loss, 2, True, ref=None,
+                    tags=("loss",)))
+    register(OpSpec("kl_div", lambda a, b: F.kl_div(a, b), 2, True,
+                    domains=(((-3.0, -0.1)), (0.1, 1.0)), ref=None,
+                    tags=("loss",)))
+    register(OpSpec("cosine_similarity",
+                    lambda a, b: F.cosine_similarity(a, b), 2, True,
+                    ref=lambda a, b: np.sum(a * b, -1) /
+                    (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1)),
+                    tags=("loss",)))
+    register(OpSpec("normalize", lambda x: F.normalize(x), 1, True,
+                    ref=lambda x: x / np.linalg.norm(x, axis=-1,
+                                                     keepdims=True),
+                    tags=("loss",)))
+    register(OpSpec("pad", lambda x: pd.nn.functional.pad(x, [1, 1]), 1,
+                    True, ref=lambda x: np.pad(x, ((0, 0), (1, 1))),
+                    tags=("manipulation",)))
 
 _populated = False
 
@@ -366,37 +427,37 @@ def ensure_populated():
         populate_more()
 
 
-#: The reference's rows this table leaves out: each reaches a module of a
-#: later slice (ROADMAP.md Queue 1): item 1e (nn.functional: the
-#: activations, losses, convolutions, pooling, norms and the rest) or
-#: item 1f, the long tail (fft, signal, geometric, incubate,
-#: text.viterbi).
-_NN = "1e"
-_TAIL = "1f"
-DEFERRED: dict[str, str] = dict(
-    [(f"act_{n}", _NN) for n in (
+#: The rows that reach `nn.functional` (ROADMAP.md Queue 1 item 1e, the
+#: nn half of the Tensor surface): the CPU tests hold them in files of
+#: their own (tests/test_torch_op_table_nn.py, _tape_nn.py).
+NN_ROWS = frozenset(
+    [f"act_{n}" for n in (
         "celu elu gelu hardshrink hardsigmoid hardswish hardtanh leaky_relu "
         "log_sigmoid log_softmax mish relu relu6 selu silu softmax softplus "
         "softshrink softsign tanhshrink").split()]
-    + [(n, _NN) for n in (
-        "adaptive_avg_pool2d_op affine_grid_op avg_pool2d_op bce bce_logits "
-        "bce_loss bilinear_op channel_shuffle_op conv1d_op conv2d_op "
-        "conv2d_transpose_op conv3d_op conv3d_transpose_op cosine_similarity "
-        "cross_entropy_op dice_loss dropout_eval embedding_op fold_op "
-        "fractional_max_pool2d_op fractional_max_pool3d_op gather_tree "
-        "gaussian_nll glu_op grid_sample_op group_norm_op huber_loss "
-        "instance_norm_op interpolate_op kl_div l1_loss l2_normalize_axis "
-        "label_smooth_op layer_norm_op linear_op log_loss lp_pool2d_op "
-        "margin_ranking max_pool2d_mask max_pool2d_op max_pool3d_with_index "
-        "max_unpool2d_op maxout mse_loss multi_label_soft_margin nll "
-        "nll_loss_op normalize npair one_hot one_hot_op pad pad_reflect "
-        "pixel_shuffle_op pixel_unshuffle_op poisson_nll pool3d prelu_op "
-        "rms_norm_op sequence_mask_op sigmoid_cross_entropy_with_logits "
-        "smooth_l1 soft_margin softmax_axis0 softplus_beta "
-        "square_error_cost swiglu_op swish temporal_shift_op "
-        "thresholded_relu triplet_margin unfold_op unpool3d_op "
-        "zeropad2d_op").split()]
-    + [(n, _TAIL) for n in (
-        "fft_abs fft2_abs fftshift rfft_abs frame_op overlap_add_op "
-        "segment_max segment_mean segment_sum identity_loss_op "
-        "viterbi_decode").split()])
+    + ("adaptive_avg_pool2d_op affine_grid_op avg_pool2d_op bce bce_logits "
+       "bce_loss bilinear_op channel_shuffle_op conv1d_op conv2d_op "
+       "conv2d_transpose_op conv3d_op conv3d_transpose_op cosine_similarity "
+       "cross_entropy_op dice_loss dropout_eval embedding_op fold_op "
+       "fractional_max_pool2d_op fractional_max_pool3d_op gather_tree "
+       "gaussian_nll glu_op grid_sample_op group_norm_op huber_loss "
+       "instance_norm_op interpolate_op kl_div l1_loss l2_normalize_axis "
+       "label_smooth_op layer_norm_op linear_op log_loss lp_pool2d_op "
+       "margin_ranking max_pool2d_mask max_pool2d_op max_pool3d_with_index "
+       "max_unpool2d_op maxout mse_loss multi_label_soft_margin nll "
+       "nll_loss_op normalize npair one_hot one_hot_op pad pad_reflect "
+       "pixel_shuffle_op pixel_unshuffle_op poisson_nll pool3d prelu_op "
+       "rms_norm_op sequence_mask_op sigmoid_cross_entropy_with_logits "
+       "smooth_l1 soft_margin softmax_axis0 softplus_beta "
+       "square_error_cost swiglu_op swish temporal_shift_op "
+       "thresholded_relu triplet_margin unfold_op unpool3d_op "
+       "zeropad2d_op").split())
+
+#: The reference's rows this table leaves out: each reaches a module of a
+#: later slice, ROADMAP.md Queue 1 item 1f, the long tail (fft, signal,
+#: geometric, incubate, text.viterbi).
+_TAIL = "1f"
+DEFERRED: dict[str, str] = {n: _TAIL for n in (
+    "fft_abs fft2_abs fftshift rfft_abs frame_op overlap_add_op "
+    "segment_max segment_mean segment_sum identity_loss_op "
+    "viterbi_decode").split()}

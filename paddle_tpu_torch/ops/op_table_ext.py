@@ -468,3 +468,163 @@ def populate_ext():
                     tags=("linalg",)))
 
     # ---- geometric segment ops
+
+    # ---- nn.functional (ROADMAP.md Queue 1 item 1e)
+    from ..nn import functional as F
+
+    register(OpSpec("softplus_beta",
+                    lambda x: F.softplus(x, beta=2.0), 1, True,
+                    ref=lambda x: np.log1p(np.exp(2 * x)) / 2.0,
+                    tags=("special",)))
+    register(OpSpec("l2_normalize_axis",
+                    lambda x: F.normalize(x, axis=0), 1, True,
+                    ref=lambda x: x / np.linalg.norm(x, axis=0,
+                                                     keepdims=True),
+                    tags=("reduction",)))
+    register(OpSpec("linear_op",
+                    lambda x, w, b: F.linear(x, w, b), 3, True,
+                    shapes=((2, 4), (4, 3), (3,)),
+                    ref=lambda x, w, b: x @ w + b, tags=("nn",)))
+    register(OpSpec("conv2d_op",
+                    lambda x, w: F.conv2d(x, w), 2, True,
+                    shapes=((1, 2, 5, 5), (3, 2, 3, 3)), rtol=1e-4,
+                    tags=("nn",)))
+    register(OpSpec("conv1d_op", lambda x, w: F.conv1d(x, w), 2, True,
+                    shapes=((1, 2, 6), (3, 2, 3)), rtol=1e-4, tags=("nn",)))
+    register(OpSpec("conv3d_op", lambda x, w: F.conv3d(x, w), 2, True,
+                    shapes=((1, 1, 4, 4, 4), (2, 1, 2, 2, 2)), rtol=1e-4,
+                    tags=("nn",)))
+    register(OpSpec("conv2d_transpose_op",
+                    lambda x, w: F.conv2d_transpose(x, w), 2, True,
+                    shapes=((1, 3, 4, 4), (3, 2, 3, 3)), rtol=1e-4,
+                    tags=("nn",)))
+    register(OpSpec("layer_norm_op",
+                    lambda x, w, b: F.layer_norm(x, [4], w, b), 3, True,
+                    shapes=((3, 4), (4,), (4,)), rtol=1e-4, tags=("nn",)))
+    register(OpSpec("group_norm_op",
+                    lambda x: F.group_norm(x, 2), 1, True,
+                    shape=(2, 4, 3, 3), rtol=1e-4, tags=("nn",)))
+    register(OpSpec("instance_norm_op", lambda x: F.instance_norm(x), 1,
+                    True, shape=(2, 3, 4, 4), rtol=1e-4, tags=("nn",)))
+    register(OpSpec("rms_norm_op", lambda x, w: F.rms_norm(x, w), 2, True,
+                    shapes=((3, 4), (4,)), rtol=1e-4, tags=("nn",)))
+    register(OpSpec("embedding_op",
+                    lambda i, w: F.embedding(i, w), 2, True,
+                    shapes=((5,), (6, 4)), int_inputs=(0,), int_high=6,
+                    ref=lambda i, w: w[i], tags=("nn",)))
+    register(OpSpec("one_hot_op", lambda i: F.one_hot(i, 6), 1, False,
+                    shape=(4,), int_inputs=(0,), int_high=6, bf16=False,
+                    ref=lambda i: np.eye(6)[i], tags=("nn",)))
+    register(OpSpec("max_pool2d_op",
+                    lambda x: F.max_pool2d(x, 2), 1, True,
+                    shape=(1, 2, 4, 4), tags=("nn",)))
+    register(OpSpec("avg_pool2d_op", lambda x: F.avg_pool2d(x, 2), 1, True,
+                    shape=(1, 2, 4, 4), tags=("nn",)))
+    register(OpSpec("adaptive_avg_pool2d_op",
+                    lambda x: F.adaptive_avg_pool2d(x, 2), 1, True,
+                    shape=(1, 2, 6, 6), tags=("nn",)))
+    register(OpSpec("max_pool2d_mask",
+                    lambda x: F.max_pool2d(x, 2, return_mask=True)[0], 1,
+                    True, shape=(1, 2, 4, 4), tags=("nn",)))
+    register(OpSpec("max_unpool2d_op",
+                    lambda x: F.max_unpool2d(*F.max_pool2d(
+                        x, 2, return_mask=True), 2), 1, True,
+                    shape=(1, 2, 4, 4), tags=("nn",)))
+    register(OpSpec("unfold_op", lambda x: F.unfold(x, 2), 1, True,
+                    shape=(1, 2, 4, 4), tags=("nn",)))
+    register(OpSpec("fold_op",
+                    lambda x: F.fold(x, [4, 4], [2, 2]), 1, True,
+                    shape=(1, 8, 9), tags=("nn",)))
+    register(OpSpec("pixel_shuffle_op",
+                    lambda x: F.pixel_shuffle(x, 2), 1, True,
+                    shape=(1, 4, 3, 3), tags=("nn",)))
+    register(OpSpec("pixel_unshuffle_op",
+                    lambda x: F.pixel_unshuffle(x, 2), 1, True,
+                    shape=(1, 1, 4, 4), tags=("nn",)))
+    register(OpSpec("channel_shuffle_op",
+                    lambda x: F.channel_shuffle(x, 2), 1, True,
+                    shape=(1, 4, 3, 3), tags=("nn",)))
+    register(OpSpec("interpolate_op",
+                    lambda x: F.interpolate(x, scale_factor=2,
+                                            mode="bilinear"), 1, True,
+                    shape=(1, 2, 3, 3), tags=("nn",)))
+    register(OpSpec("grid_sample_op",
+                    lambda x, g: F.grid_sample(x, g), 2, True,
+                    shapes=((1, 2, 4, 4), (1, 3, 3, 2)),
+                    domains=(_SAFE, _UNIT), rtol=1e-4, tags=("nn",)))
+    register(OpSpec("affine_grid_op",
+                    lambda t: F.affine_grid(t, [1, 1, 3, 3]), 1, True,
+                    shape=(1, 2, 3), tags=("nn",)))
+    register(OpSpec("glu_op", F.glu, 1, True, shape=(3, 4), tags=("nn",)))
+    register(OpSpec("swiglu_op", lambda x: F.swiglu(x), 1, True,
+                    shape=(3, 4), tags=("nn",)))
+    register(OpSpec("prelu_op",
+                    lambda x, w: F.prelu(x, w), 2, True,
+                    shapes=((2, 3), (1,)), tags=("nn",)))
+    register(OpSpec("temporal_shift_op",
+                    lambda x: F.temporal_shift(x, 2), 1, True,
+                    shape=(4, 4, 3, 3), tags=("nn",)))
+    register(OpSpec("pad_reflect",
+                    lambda x: F.pad(x, [1, 1, 1, 1], mode="reflect"), 1,
+                    True, shape=(1, 2, 3, 3), tags=("nn",)))
+    register(OpSpec("zeropad2d_op", lambda x: F.zeropad2d(x, [1, 1, 1, 1]),
+                    1, True, shape=(1, 2, 3, 3), tags=("nn",)))
+    register(OpSpec("dropout_eval",
+                    lambda x: F.dropout(x, 0.5, training=False), 1, True,
+                    ref=lambda x: x, tags=("nn",)))
+    register(OpSpec("bilinear_op",
+                    lambda a, b, w: F.bilinear(a, b, w), 3, True,
+                    shapes=((3, 2), (3, 4), (5, 2, 4)), rtol=1e-4,
+                    tags=("nn",)))
+    register(OpSpec("bce", lambda p, t: F.binary_cross_entropy(
+        m.sigmoid(p), m.sigmoid(t)), 2, True, no_grad_inputs=(1,), tags=("loss",)))
+    register(OpSpec("bce_logits",
+                    lambda p, t: F.binary_cross_entropy_with_logits(
+                        p, m.sigmoid(t)), 2, True, no_grad_inputs=(1,), tags=("loss",)))
+    register(OpSpec("nll", lambda lp, i: F.nll_loss(
+        F.log_softmax(lp), i), 2, True, shapes=((4, 5), (4,)),
+        int_inputs=(1,), int_high=5, tags=("loss",)))
+    register(OpSpec("cross_entropy_op", lambda lg, i: F.cross_entropy(
+        lg, i), 2, True, shapes=((4, 5), (4,)), int_inputs=(1,),
+        int_high=5, tags=("loss",)))
+    register(OpSpec("margin_ranking",
+                    lambda a, b, y: F.margin_ranking_loss(
+                        a, b, m.sign(y)), 3, True, no_grad_inputs=(2,), tags=("loss",)))
+    register(OpSpec("soft_margin", lambda x, y: F.soft_margin_loss(
+        x, m.sign(y)), 2, True, no_grad_inputs=(1,), tags=("loss",)))
+    register(OpSpec("triplet_margin",
+                    lambda a, p, n2: F.triplet_margin_loss(a, p, n2), 3,
+                    True, shapes=((3, 4), (3, 4), (3, 4)), tags=("loss",)))
+    register(OpSpec("poisson_nll", lambda x, y: F.poisson_nll_loss(
+        x, m.abs(y)), 2, True, no_grad_inputs=(1,), tags=("loss",)))
+    register(OpSpec("gaussian_nll",
+                    lambda x, y, v: F.gaussian_nll_loss(x, y, m.abs(v) + 0.1),
+                    3, True, tags=("loss",)))
+    register(OpSpec("multi_label_soft_margin",
+                    lambda x, y: F.multi_label_soft_margin_loss(
+                        x, (m.sign(y) + 1) / 2), 2, True, no_grad_inputs=(1,), tags=("loss",)))
+    register(OpSpec("square_error_cost",
+                    F.square_error_cost, 2, True,
+                    ref=lambda a, b: (a - b) ** 2, tags=("loss",)))
+    register(OpSpec("log_loss",
+                    lambda p, t: F.log_loss(m.sigmoid(p), m.sigmoid(t)), 2,
+                    True, tags=("loss",)))
+    register(OpSpec("dice_loss",
+                    lambda p, i: F.dice_loss(F.softmax(p), i), 2, True,
+                    shapes=((3, 5), (3, 1)), int_inputs=(1,), int_high=5,
+                    tags=("loss",)))
+    register(OpSpec("npair",
+                    lambda a, p: F.npair_loss(a, p, pd.to_tensor(
+                        np.arange(3).astype("int64"))), 2, True,
+                    shapes=((3, 4), (3, 4)), rtol=1e-4, tags=("loss",)))
+    register(OpSpec("label_smooth_op",
+                    lambda lab: F.label_smooth(lab), 1, True,
+                    shape=(3, 5), domain=(0.0, 1.0),
+                    ref=lambda lab: 0.9 * lab + 0.1 / 5, tags=("loss",)))
+    register(OpSpec("gather_tree", lambda i, p: F.gather_tree(i, p), 2,
+                    False, shapes=((3, 2, 4), (3, 2, 4)),
+                    int_inputs=(0, 1), int_high=4, bf16=False,
+                    tags=("search",)))
+    register(OpSpec("softmax_axis0", lambda x: F.softmax(x, axis=0), 1,
+                    True, ref=lambda x: _np_softmax(x, 0),
+                    tags=("activation",)))

@@ -151,3 +151,73 @@ def populate_more():
     register(OpSpec("expand", lambda x: pd.expand(x, [4, 3]), 1, True,
                     shape=(1, 3),
                     ref=lambda x: np.broadcast_to(x, (4, 3))))
+
+    # ---- nn.functional (ROADMAP.md Queue 1 item 1e)
+    from ..nn import functional as F
+
+    register(OpSpec("one_hot", lambda x: F.one_hot(x, 6), 1, False,
+                    int_inputs=(0,), shape=(5,), int_high=6,
+                    ref=lambda x: np.eye(6)[x], bf16=False,
+                    tags=("creation",)))
+    register(OpSpec("sequence_mask_op", lambda x: F.sequence_mask(x, 6), 1,
+                    False, int_inputs=(0,), shape=(4,), int_high=6,
+                    ref=lambda x: (np.arange(6)[None, :] < x[:, None]),
+                    bf16=False, tags=("creation",)))
+    register(OpSpec("bce_loss", F.binary_cross_entropy, 2, True,
+                    domains=(_UNIT01, _UNIT01), no_grad_inputs=(1,),
+                    ref=lambda x, y: np.array(
+                        (-(y * np.log(x) + (1 - y) * np.log1p(-x))).mean(),
+                        x.dtype), rtol=1e-4))
+    register(OpSpec("huber_loss",
+                    lambda x, y: F.smooth_l1_loss(x, y, delta=1.0), 2, True,
+                    no_grad_inputs=(1,),
+                    ref=lambda x, y: np.array(np.where(
+                        np.abs(x - y) < 1.0, 0.5 * (x - y) ** 2,
+                        np.abs(x - y) - 0.5).mean(), x.dtype)))
+    register(OpSpec("nll_loss_op",
+                    lambda x, y: F.nll_loss(F.log_softmax(x, -1), y), 2,
+                    True, shapes=((4, 5), (4,)), int_inputs=(1,),
+                    int_high=5))
+    register(OpSpec("sigmoid_cross_entropy_with_logits",
+                    lambda x, y: F.binary_cross_entropy_with_logits(
+                        x, pd.cast(y, "float32")), 2, True,
+                    domains=(_SAFE, (0.0, 1.0)), no_grad_inputs=(1,),
+                    ref=lambda x, y: np.array(np.mean(
+                        np.maximum(x, 0) - x * y + np.log1p(np.exp(-np.abs(x)))
+                    ), x.dtype), rtol=1e-4))
+    register(OpSpec("label_smooth_op",
+                    lambda x: F.label_smooth(x, epsilon=0.1), 1, True,
+                    domain=(0.0, 1.0), shape=(4, 5),
+                    ref=lambda x: 0.9 * x + 0.1 / 5))
+    register(OpSpec("conv3d_transpose_op",
+                    lambda x, w: F.conv3d_transpose(x, w, stride=2), 2,
+                    True, shapes=((1, 2, 3, 3, 3), (2, 2, 2, 2, 2)),
+                    rtol=1e-4, atol=1e-5))
+    register(OpSpec("pool3d", lambda x: F.max_pool3d(x, 2, stride=2), 1,
+                    True, shapes=((1, 2, 4, 4, 4),)))
+    register(OpSpec("max_pool3d_with_index",
+                    lambda x: F.max_pool3d(x, 2, stride=2,
+                                           return_mask=True)[0], 1, True,
+                    shapes=((1, 2, 4, 4, 4),)))
+    register(OpSpec("lp_pool2d_op",
+                    lambda x: F.lp_pool2d(x, 2.0, 2, stride=2), 1, True,
+                    domain=_POS, shapes=((1, 2, 6, 6),), rtol=1e-4))
+    register(OpSpec("fractional_max_pool2d_op",
+                    lambda x: F.fractional_max_pool2d(x, 3, random_u=0.4),
+                    1, True, shapes=((1, 2, 8, 8),)))
+    register(OpSpec("fractional_max_pool3d_op",
+                    lambda x: F.fractional_max_pool3d(x, 2, random_u=0.4),
+                    1, True, shapes=((1, 1, 6, 6, 6),)))
+    register(OpSpec("unpool3d_op",
+                    lambda x, idx: F.max_unpool3d(
+                        x, pd.cast(idx, "int64") * 7, 2), 2, False,
+                    shapes=((1, 1, 2, 2, 2), (1, 1, 2, 2, 2)),
+                    int_inputs=(1,), int_high=2, bf16=False))
+    register(OpSpec("maxout", lambda x: F.maxout(x, groups=2), 1, True,
+                    shapes=((1, 4, 2, 2),)))
+    register(OpSpec("swish", F.swish, 1, True,
+                    ref=lambda x: x / (1 + np.exp(-x)), rtol=1e-5,
+                    atol=1e-6))
+    register(OpSpec("thresholded_relu",
+                    lambda x: F.thresholded_relu(x, threshold=0.5), 1, True,
+                    ref=lambda x: np.where(x > 0.5, x, 0.0)))

@@ -36,7 +36,7 @@ from torch import nn
 from ...amp import model_forward
 from ...core.dispatch import boundary
 from ...nn import functional as PF
-from ...nn.layer import Dropout, LayerNorm
+from .modules import Dropout, LayerNorm
 from ...ops._cuda_common import resolve_device
 
 

@@ -37,7 +37,7 @@ from ...amp import model_forward
 from ...core.dispatch import boundary
 from ...incubate.nn.functional import fused_linear_cross_entropy
 from ...nn import functional as PF
-from ...nn.layer import LayerNorm
+from .modules import LayerNorm
 from ...ops._cuda_common import resolve_device
 
 

@@ -1,6 +1,7 @@
 """Shared body of tests/test_torch_op_table_tape_{a,b}.py: a row's fp32
 gradient of `out.sum()` from the port's tape against paddle_tpu's tape on
-the same seeded inputs. The reference's tape runs with
+the same seeded inputs (the rows that reach nn.functional in
+test_torch_op_table_tape_nn.py). The reference's tape runs with
 `FLAGS_eager_defer_vjp=False` (its deferred-VJP pass reads a removed
 `jax.core.Var`). The rows are split over two files so that
 `--dist loadfile` spreads them; the reference's tape takes about 0.2 s a
@@ -17,8 +18,11 @@ from paddle_tpu_torch.ops import op_table as port_table
 ref_table.ensure_populated()
 port_table.ensure_populated()
 
-DIFF = sorted(n for n, s in port_table.OPS.items() if s.diff)
+DIFF = sorted(n for n, s in port_table.OPS.items()
+              if s.diff and n not in port_table.NN_ROWS)
 HALF = len(DIFF) // 2
+#: the rows that reach nn.functional, in a file of their own
+DIFF_NN = sorted(n for n in port_table.NN_ROWS if port_table.OPS[n].diff)
 
 
 def on_cpu_with_the_reference_tape():

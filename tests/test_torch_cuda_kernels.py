@@ -2821,3 +2821,230 @@ def test_dygraph_layer_on_card_launches_and_grads(on_card):
         top = rg.float().abs().max().item()
         assert (g.float() - rg.float()).abs().max().item() <= 2 ** -4 * top
     assert abs(loss.item() - ref.item()) <= 1e-2 * abs(ref.item())
+
+
+# The nn half of the Tensor surface on the card: each layer or functional
+# that the reference sends to a Pallas kernel launches the port's kernel
+# (counted) and agrees with the same layer on the CPU, where the kernels'
+# plain versions run (f32: 1e-4 of each output's largest |value|; the
+# gradients of a weighted sum 1e-3 of theirs; the attention's key bias,
+# whose exact gradient is 0, is rounding on both sides and held to its key
+# weight's scale, as chip_smoke.py's gradient checks hold it).
+
+def _nn_case(name):
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.nn as pnn
+    import paddle_tpu_torch.nn.functional as PF
+
+    rs = np.random.RandomState(0)
+    x = rs.randn(2, 64, 32).astype("float32")
+    if name == "LayerNorm":
+        return (lambda: pnn.LayerNorm(32), lambda m, t: m(t), [x],
+                {"fused_layer_norm_fwd": 1, "fused_layer_norm_bwd": 1})
+    if name == "RMSNorm":
+        return (lambda: pnn.RMSNorm(32), lambda m, t: m(t), [x],
+                {"fused_rms_norm_fwd": 1, "fused_rms_norm_bwd": 1})
+    if name == "MultiHeadAttention":
+        return (lambda: pnn.MultiHeadAttention(32, 4), lambda m, t: m(t),
+                [x], {"flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+                      "flash_attention_bwd_dkv": 1})
+    if name == "swiglu":
+        return (lambda: pnn.Linear(32, 32),
+                lambda m, t: PF.swiglu(m(t), t), [x],
+                {"swiglu_fwd": 1, "swiglu_bwd": 1})
+    if name == "fused_dropout_add":
+        return (lambda: pnn.Linear(32, 32),
+                lambda m, t: PF.fused_dropout_add(m(t), t, p=0.0) +
+                PF.fused_dropout_add(m(t), t, p=0.5, training=False), [x],
+                {})
+    if name == "fused_dropout_add_train":
+        def call(m, t):
+            pt.seed(5)
+            return PF.fused_dropout_add(m(t), t, p=0.25)
+        return (lambda: pnn.Linear(32, 32), call, [x],
+                {"dropout_add_fwd": 1, "dropout_add_bwd": 1})
+    if name == "rotary_position_embedding":
+        cs = rs.randn(1, 64, 1, 8).astype("float32")
+        return (lambda: pnn.Linear(32, 32),
+                lambda m, t, c: PF.rotary_position_embedding(
+                    m(t).reshape([2, 64, 4, 8]), t.reshape([2, 64, 4, 8]),
+                    c, c * 0.5)[0], [x, cs], {"rope_qk": 2})
+    raise KeyError(name)
+
+
+def _nn_run(build, call, arrays, place, weights=None):
+    import paddle_tpu_torch as pt
+
+    pt.set_device(place)
+    pt.seed(0)
+    layer = build()
+    if weights is not None:
+        layer.set_state_dict(weights)
+    ts = [pt.to_tensor(a, stop_gradient=False) for a in arrays]
+    out = call(layer, *ts)
+    cot = np.random.RandomState(7).randn(*out.shape).astype("float32")
+    (out * pt.to_tensor(cot)).sum().backward()
+    grads = {"input": ts[0].grad.numpy()}
+    grads.update({n: p.grad.numpy() for n, p in layer.named_parameters()})
+    return layer, out.numpy(), grads
+
+
+@pytest.mark.parametrize("name", [
+    "LayerNorm", "RMSNorm", "MultiHeadAttention", "swiglu",
+    "fused_dropout_add", "fused_dropout_add_train",
+    "rotary_position_embedding"])
+def test_nn_layers_launch_their_kernels(on_card, name):
+    build, call, arrays, want = _nn_case(name)
+    _cuda_common.reset_launch_counts()
+    layer, out, grads = _nn_run(build, call, arrays, "gpu")
+    torch.cuda.synchronize()
+    got = {n: c for n, c in _cuda_common.launch_counts().items() if c}
+    assert got == want, got
+    weights = {k: v.numpy() for k, v in layer.state_dict().items()}
+    if name == "fused_dropout_add_train":      # the CPU draws other masks
+        return
+    _, cout, cgrads = _nn_run(build, call, arrays, "cpu", weights)
+    top = np.abs(cout).max()
+    assert np.abs(out - cout).max() <= 1e-4 * top
+    for n, c in cgrads.items():
+        scale = cgrads[n[:-4] + "weight"] if n.endswith("k_proj.bias") else c
+        assert np.abs(grads[n] - c).max() <= 1e-3 * np.abs(scale).max(), n
+
+
+def test_layer_to_cuda_keeps_parameters(on_card):
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.nn as pnn
+
+    pt.set_device("cpu")
+    net = pnn.Sequential(pnn.Linear(4, 8), pnn.BatchNorm1D(8))
+    leaves = [p._data for p in net.parameters()]
+    net.to("gpu")
+    opt = pt.optimizer.AdamW(parameters=net.parameters())
+    assert all(isinstance(p, pt.Parameter) for p in net.parameters())
+    assert all(p._data is leaf and p._data.device.type == "cuda"
+               for p, leaf in zip(net.parameters(), leaves))
+    assert all(b._data.device.type == "cuda" for b in net.buffers())
+    pt.set_device("gpu")
+    loss = net(pt.to_tensor(np.ones((3, 4), "float32"))).sum()
+    loss.backward()
+    before = net[0].weight.numpy().copy()
+    opt.step()
+    assert not np.array_equal(net[0].weight.numpy(), before)
+
+
+# K1's and K9's rounding residual of O (o_res), on every route, and K2
+# with the delta it gives (test_torch_flash_delta.py holds the plain
+# versions on the CPU). o itself is unchanged and o_res lies within half a
+# unit in the last place of o (zero in f32). The CUDA-core bodies' f32 O
+# is P V in f32, so o + o_res meets the plain f32 O within 2^-14 of its
+# largest value; the tensor-core body multiplies P rounded to bf16 by V,
+# so there o + o_res lies nearer the plain f32 O than o on average, and
+# on values spread 2^-6 around a common row (where the rounding of o
+# dominates) within an eighth of o's mean distance. On nearly equal values
+# (spread 1/4) the differentiable op's dQ and dK stay within 2^-5 of each
+# gradient's largest value of an f64 truth and nearer than the delta of
+# the rounded O, and its gradients are K2's plain version's with the
+# residual's delta within one bf16 ulp.
+
+_ULP = {torch.bfloat16: 2 ** -8, torch.float16: 2 ** -11}
+
+
+def _check_residual(o, o_same, res, o32, tensor_cores):
+    assert res.dtype == o.dtype and res.shape == o.shape
+    assert torch.equal(o, o_same)
+    if o.dtype == torch.float32:
+        assert not res.any()
+        return
+    # (plus f16's subnormal spacing, where o is tiny)
+    assert (res.float().abs()
+            <= _ULP[o.dtype] * o.float().abs() + 2 ** -24).all()
+    exact = (o.float() + res.float() - o32).abs()
+    rounded = (o.float() - o32).abs()
+    if tensor_cores:
+        assert exact.mean() < rounded.mean(), (exact.mean(), rounded.mean())
+    else:
+        assert exact.max() <= 2 ** -14 * o32.abs().max(), exact.max()
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,dtype,causal,varlen", [
+    (1, 16, 16, 500, 128, torch.bfloat16, True, False),
+    (2, 8, 2, 77, 64, torch.bfloat16, False, False),
+    (2, 4, 4, 130, 40, torch.bfloat16, True, True),
+    (1, 4, 4, 200, 256, torch.bfloat16, True, False),
+    (2, 4, 2, 130, 64, torch.float16, True, True),
+    (1, 4, 4, 96, 32, torch.float32, False, False)],
+    ids=["tc", "tc-gqa-full", "tc-varlen-pad", "core-d256", "core-f16",
+         "core-f32"])
+def test_flash_residual_matches_plain(card, b, hq, hkv, s, d, dtype, causal,
+                                      varlen):
+    from paddle_tpu_torch.ops.flash_attention import _tensor_core_route
+    rs = np.random.RandomState(0)
+    q = _randn(rs, b, hq, s, d).to(card, dtype)
+    k, v = (_randn(rs, b, hkv, s, d).to(card, dtype) for _ in range(2))
+    lens = torch.tensor([s, s // 3], dtype=torch.int32, device=card) \
+        if varlen else None
+    o, lse, res = flash_attention_fwd(q, k, v, causal, lens, residual=True)
+    o32, _ = flash_attention_reference(q.float(), k.float(), v.float(),
+                                       causal, lens)
+    _check_residual(o, flash_attention_fwd(q, k, v, causal, lens)[0], res,
+                    o32, _tensor_core_route("flash_attention_fwd", dtype,
+                                            varlen, d))
+
+
+@pytest.mark.parametrize("d,dtype", [(64, torch.bfloat16),
+                                     (256, torch.bfloat16),
+                                     (64, torch.float16)],
+                         ids=["tc", "core-d256", "core-f16"])
+def test_flashmask_residual_matches_plain(card, d, dtype):
+    from paddle_tpu_torch.ops.flashmask import (
+        flashmask_attention_reference, flashmask_fwd, tensor_core_route)
+    rs = np.random.RandomState(5)
+    q, k, v = (_randn(rs, 1, 4, 300, d).to(card, dtype) for _ in range(3))
+    start = torch.from_numpy(rs.randint(0, 301, (1, 4, 300)).astype(
+        np.int32)).to(card)
+    o, lse, res = flashmask_fwd(q, k, v, start, True, residual=True)
+    o32, _ = flashmask_attention_reference(q.float(), k.float(), v.float(),
+                                           start, True)
+    _check_residual(o, flashmask_fwd(q, k, v, start, True)[0], res, o32,
+                    tensor_core_route("flashmask_fwd", dtype, d))
+
+
+def test_flash_residual_on_near_equal_values(card):
+    rs = np.random.RandomState(2)
+    q, k = (_randn(rs, 2, 8, 256, 64).to(card, torch.bfloat16)
+            for _ in range(2))
+    v = (_randn(rs, 2, 8, 1, 64) + 2 ** -6 * _randn(rs, 2, 8, 256, 64)).to(
+        card, torch.bfloat16)
+    o, _, res = flash_attention_fwd(q, k, v, True, residual=True)
+    o32, _ = flash_attention_reference(q.float(), k.float(), v.float(), True)
+    exact = (o.float() + res.float() - o32).abs().mean().item()
+    rounded = (o.float() - o32).abs().mean().item()
+    assert exact <= rounded / 8, (exact, rounded)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_exact_delta_on_near_equal_values(card, causal):
+    rs = np.random.RandomState(1)
+    q, k, do = (_randn(rs, 2, 8, 256, 64).to(card, torch.bfloat16)
+                for _ in range(3))
+    v = (_randn(rs, 2, 8, 1, 64) + 0.25 * _randn(rs, 2, 8, 256, 64)).to(
+        card, torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o, _ = flash_attention(*leaves, causal)
+    o.backward(do)
+    o_, lse, res = flash_attention_fwd(q, k, v, causal, residual=True)
+    assert torch.equal(o.detach(), o_)
+    want = flash_attention_bwd_reference(q, k, v, o_, lse, do, causal,
+                                         o_res=res)
+    for t, w in zip(leaves, want):
+        err = (t.grad.float() - w.float()).abs().max().item()
+        assert err <= 2 ** -7 * w.float().abs().max().item(), err
+    rounded = flash_attention_bwd(q, k, v, o_, lse, do, causal)
+    truth = [t.double().requires_grad_() for t in (q, k, v)]
+    o64, _ = flash_attention_reference(*truth, causal)
+    (o64 * do.double()).sum().backward()
+    for i in (0, 1):
+        top = truth[i].grad.abs().max().item()
+        err = (leaves[i].grad.double() - truth[i].grad).abs().max().item()
+        old = (rounded[i].double() - truth[i].grad).abs().max().item()
+        assert err <= 2 ** -5 * top and err < old, (i, err / top, old / top)

@@ -53,7 +53,16 @@ def test_module_list_covers_every_subpackage():
                 "paddle_tpu_torch.amp", "paddle_tpu_torch.jit",
                 "paddle_tpu_torch.jit.api", "paddle_tpu_torch.core.graphs",
                 "paddle_tpu_torch.core.tensor", "paddle_tpu_torch.autograd",
-                "paddle_tpu_torch.ops.op_table", "paddle_tpu_torch.linalg"):
+                "paddle_tpu_torch.ops.op_table", "paddle_tpu_torch.linalg",
+                "paddle_tpu_torch.nn.layer_base",
+                "paddle_tpu_torch.nn.initializer",
+                "paddle_tpu_torch.nn.utils",
+                "paddle_tpu_torch.nn.functional.attention",
+                "paddle_tpu_torch.nn.layer.transformer",
+                "paddle_tpu_torch.nn.layer.rnn",
+                "paddle_tpu_torch.nn.layer.extended",
+                "paddle_tpu_torch.framework_io",
+                "paddle_tpu_torch.text.models.modules"):
         assert mod in MODULES, mod
 
 
@@ -113,6 +122,44 @@ def test_default_device_is_cuda_and_refuses_without_card(monkeypatch):
         ServingEngine(model, max_slots=1)
     assert ServingEngine(model, max_slots=1, device="cpu").device.type \
         == "cpu"
+
+
+def test_layers_default_to_cuda_and_refuse_without_card(monkeypatch,
+                                                        tmp_path):
+    """nn: making a Layer (its parameters go to the Tensor API's current
+    device), `Layer.to("cuda")` and `load` onto the current device raise
+    RuntimeError with no card unless the caller chose the CPU."""
+    import numpy as np
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.core import device as port_device
+
+    prev = port_device._current
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    try:
+        port_device._current = None
+        for build in (lambda: nn.Linear(2, 2), lambda: nn.LayerNorm(4),
+                      lambda: nn.Sequential(nn.Conv2D(1, 2, 3)),
+                      lambda: nn.TransformerEncoderLayer(8, 2, 16),
+                      lambda: nn.LSTM(2, 3)):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                build()
+        pt.set_device("cpu")
+        layer = nn.Linear(2, 2)
+        assert layer.weight.place.is_cpu_place()
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            layer.to("cuda")
+        assert layer.to("cpu").weight.place.is_cpu_place()
+        path = str(tmp_path / "w.pd")
+        pt.save(layer.state_dict(), path)
+        port_device._current = None
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            pt.load(path)
+        assert np.asarray(pt.load(path, return_numpy=True)["weight"]).shape \
+            == (2, 2)
+    finally:
+        port_device._current = prev
 
 
 def test_grad_scaler_defaults_to_cuda_and_refuses_without_card(monkeypatch):
