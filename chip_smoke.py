@@ -208,7 +208,7 @@ Phases (any failure exits non-zero; nothing is caught):
      K9, K7 on the CUDA-core bodies) against their plain versions
      (F16_TOL) with their times and bounds;
  18. tensor_ops: the Tensor API (`paddle_tpu_torch.Tensor` and its ops)
-     on the card. Every row (407) of the port's op table
+     on the card. Every row (418) of the port's op table
      (paddle_tpu_torch/ops/op_table*.py), on its own seeded numpy
      inputs, on CUDA Tensors: the fp32 forward against the row's numpy
      `ref` and against the same row on the CPU at the row's tolerances,
@@ -256,11 +256,45 @@ Phases (any failure exits non-zero; nothing is caught):
      captured, device ms, busy share, peak memory) with exact launches a
      step: K1 12, K2 12 + 12, K3-LN 24 + 24 (post-LN adds the residual
      outside the norm, so the plain kind), fused_adam one a parameter,
-     K6 none.
+     K6 none;
+ 22. incubate_fused: each kernel path of incubate.nn.functional
+     (`fused_rms_norm` with and without `residual` at 4096 x 2048 bf16,
+     `fused_layer_norm` at 8192 x 768, `fused_rotary_position_embedding`
+     at 4 x 1024 x 16 x 128, `swiglu` at 4096 x 5504,
+     `fused_dropout_add` at 8192 x 768), forward and backward: exactly one
+     launch of K3 / K3-LN / K4 / K5 / K6 each way by the counters, the
+     outputs and gradients within FUSED_TOL of the kernels' plain
+     versions;
+ 23. signal: `signal.stft` / `istft` over 16 signals of 160,000 samples
+     (n_fft 512, hop 160, Hann): the round trip, the card's spectrum
+     against the CPU's and `fft.fft` / `rfft` / `fft2` against the CPU's,
+     within SIGNAL_TOL; the ms of each transform;
+ 24. models_layer: LLaMA 1B, GPT-3 medium and BERT-base as `nn.Layer`s:
+     state_dict keys and shapes by the reference's naming rule, every
+     parameter a Tensor API `Parameter`, the O2 bf16 state through
+     paddle.save / paddle.load bit for bit, the parameter bytes; with the
+     Layer models' numbers of the earlier phases (STATIC_TRAIN / _GPT /
+     _BERT captured device ms, SERVE's steady ms a tick, CE_CHUNK_LLAMA's
+     ms, TRAIN's peak GB);
+ 25. host_dispatch: what the Layer models' Python dispatch costs the
+     host in TRAIN_GPT's and TRAIN_BERT's eager steps (their models,
+     batches and optimizers): the step's host ms by part with the op
+     boundary on the models' inner forwards, alternated with the same
+     step with it taken off them; one `nn.Linear` and one `nn.LayerNorm`
+     call's host µs on torch tensors under the O2 rule against the call
+     beneath it (`F.linear`, K3-LN's wrapper), with the number of `nn`
+     layer calls in one forward.
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Without a CUDA card it exits 1 and prints
 no result.
+
+`python3 chip_smoke.py --host-parts DIR` runs one measurement alone on
+the port's package under DIR (this checkout, or an unpacked older one):
+the eager steps of TRAIN, TRAIN_GPT and TRAIN_BERT, alternated, with
+each step's host ms by part and the garbage collector's collections
+(the HOST_PARTS line), so that two trees' host time compares in one
+call.
 """
 import gc
 import json
@@ -377,6 +411,9 @@ DECODE_TOL = {"model": 2 ** -7, "int8": 2 ** -6, "int4": 2 ** -6}
 #: in another order, by more (1e-4), and a bf16 output by at most one
 #: bf16 ulp (2^-7)
 FUSED_TOL = {"float32": 1e-5, "dw_float32": 1e-4, "bfloat16": 2 ** -7}
+#: SIGNAL: the STFT round trip, the card's spectrum against the CPU's and
+#: the fft rows' (relative to the largest |value|)
+SIGNAL_TOL = 1e-4
 #: the fused kernels' launch counters (none may launch while serving)
 FUSED_KERNELS = ("fused_rms_norm_fwd", "fused_rms_norm_bwd", "rope_qk",
                  "swiglu_fwd", "swiglu_bwd")
@@ -411,7 +448,13 @@ PREFIX_SYSTEM_TOKENS = 448
 TC_BODY, CORE_BODY = "tensor cores", "cuda cores"
 
 
+#: every line printed by `_say`, by tag (MODELS_LAYER reads earlier
+#: phases' numbers from here)
+_LINES = {}
+
+
 def _say(tag, obj):
+    _LINES[tag] = obj
     print(f"{tag} {json.dumps(obj)}", flush=True)
 
 
@@ -1413,7 +1456,8 @@ def serve():
     torch.manual_seed(0)
     t0 = time.perf_counter()
     model = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16)
-    model.requires_grad_(False)
+    for p in model.parameters():
+        p.stop_gradient = True
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     _say("MODEL", {"params": n_params, "init_s": time.perf_counter() - t0})
@@ -2061,6 +2105,7 @@ def _plain_attention_loss(model, ids):
     version. No kernel of the model runs. Under `amp.auto_cast` the plain
     attention and loss are the reference's ops "scaled_dot_product_attention"
     and "fused_linear_cross_entropy", as the kernels' paths are."""
+    import torch
     from paddle_tpu_torch.incubate.nn.functional import \
         fused_linear_cross_entropy_reference
     from paddle_tpu_torch.ops.flash_attention import \
@@ -2075,15 +2120,15 @@ def _plain_attention_loss(model, ids):
                       flash_attention_reference, q, k, v, causal)
 
     m = model.model
-    x = m.embed_tokens(ids)
+    cos, sin = model.rope_tables()
+    x = torch.nn.functional.embedding(ids, m.embed_tokens.weight._data)
     for layer in m.layers:
         x = _layer_forward_prefill(x, _layer_weights(layer), layer.spec,
-                                   m.rope_cos, m.rope_sin,
-                                   attention=attention)[0]
+                                   cos, sin, attention=attention)[0]
     return amp_op("fused_linear_cross_entropy",
                   fused_linear_cross_entropy_reference,
-                  _rms_norm(x, m.norm.weight, m.norm.eps),
-                  model.lm_head.weight.T, ids)
+                  _rms_norm(x, m.norm.weight._data, m.norm._epsilon),
+                  model.lm_head.weight._data, ids)
 
 
 def _grad_check(model, loss_fn, plain_loss_fn, tag, seed=1234):
@@ -2496,8 +2541,8 @@ def _recompute_diff(model, ids, seed=1234):
         model.config.use_recompute = use
         torch.manual_seed(seed)
         model(ids, labels=ids).backward()
-        grads.append({n: p.grad for n, p in model.named_parameters()})
-        model.zero_grad(set_to_none=True)
+        grads.append({n: p.grad._data for n, p in model.named_parameters()})
+        model.clear_gradients()
     model.config.use_recompute = True
     worst = max((a - grads[1][n]).abs().max().item()
                 / grads[1][n].float().abs().max().item()
@@ -2552,7 +2597,7 @@ def ce_chunk(reps=10):
     ([4096, 2048] x [2048, 32000]: the vocab path, 5 slices of 6400) and
     GPT-3 medium's ([4096, 1024] x [1024, 50304]: the token path,
     1024-token chunks), bf16 hidden states and head weights from seed 0
-    (weight [V, H], passed transposed as the models pass lm_head.weight.T),
+    (weight [H, V], the layout the models pass: `lm_head.weight`),
     beside the unchunked plain version on the same inputs: ms (`_time_ms`,
     median of `reps` after two warm-ups), peak device memory
     above the inputs, and the chunked side's error against the plain side
@@ -2571,7 +2616,7 @@ def ce_chunk(reps=10):
         g = torch.Generator(device="cuda").manual_seed(0)
         h = (torch.randn(n, hid, device="cuda", generator=g)
              .bfloat16().requires_grad_(True))
-        w = (torch.randn(vocab, hid, device="cuda", generator=g) * 0.02
+        w = (torch.randn(hid, vocab, device="cuda", generator=g) * 0.02
              ).bfloat16().requires_grad_(True)
         lab = torch.randint(0, vocab, (n,), device="cuda", generator=g)
         rec = {"shape": [n, hid, vocab],
@@ -2582,7 +2627,7 @@ def ce_chunk(reps=10):
                          ("plain", fused_linear_cross_entropy_reference)):
             def step():
                 h.grad = w.grad = None
-                loss = fn(h, w.T, lab)
+                loss = fn(h, w, lab)
                 loss.backward()
                 return loss
 
@@ -3231,7 +3276,7 @@ def _o2_params(name):
              "bert": lambda: BertForSequenceClassification(BertConfig(),
                                                            device="meta")}
     model = amp.decorate(build[name](), level="O2", dtype="bfloat16")
-    return [(tuple(p.shape), p.dtype) for p in model.parameters()]
+    return [(tuple(p.shape), p._data.dtype) for p in model.parameters()]
 
 
 def _optim_tensors(shapes, dtype, seed, states):
@@ -3980,13 +4025,13 @@ def train_f16_scaler():
         losses, walls, scales, moved = [], [], [], []
         for i in range(4):
             poison.fill_(float("inf") if i == 2 else 1.0)
-            before = model.lm_head.weight.detach().clone()
+            before = model.lm_head.weight._data.detach().clone()
             t1 = time.perf_counter()
             losses.append(step(*big).item())
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t1)
             scales.append(scaler.get_loss_scaling().item())
-            moved.append(not torch.equal(before, model.lm_head.weight))
+            moved.append(not torch.equal(before, model.lm_head.weight._data))
         runs[mode] = {"losses": losses, "walls_ms": [1e3 * w for w in walls],
                       "ms_per_step_median": 1e3 * statistics.median(
                           walls[1:]),
@@ -4202,14 +4247,14 @@ def _dygraph_layer():
 
 def _layer_weights(layer, grads=False):
     """The layer's nine weights (or their gradients) in the Tensor
-    surface's order and layout (the matmul weights [in, out])."""
+    surface's order, torch tensors (the matmul weights [in, out], the
+    layer's own layout)."""
     a, m = layer.self_attn, layer.mlp
     ws = [layer.input_layernorm.weight, a.q_proj.weight, a.k_proj.weight,
           a.v_proj.weight, a.o_proj.weight,
           layer.post_attention_layernorm.weight, m.gate_proj.weight,
           m.up_proj.weight, m.down_proj.weight]
-    ws = [w.grad if grads else w.detach() for w in ws]
-    return [w if w.dim() == 1 else w.T for w in ws]
+    return [(w.grad if grads else w.detach())._data for w in ws]
 
 
 def _dygraph_params(pt, weights):
@@ -4335,7 +4380,7 @@ def dygraph():
         d = (p.grad._data.float() - rg.float()).abs().max().item()
         rel.append(d / rg.float().abs().max().item())
         identical = identical and torch.equal(p.grad._data, rg)
-    layer.zero_grad(set_to_none=True)
+    layer.clear_gradients()
 
     # DYGRAPH_STEPS AdamW steps on fresh copies, and the torch layer's
     params = _dygraph_params(pt, init)
@@ -4520,8 +4565,6 @@ def _nn_encoder_step(model, opt, level, dtype):
 def nn_transformer():
     """Phase 21 (module note). Returns the captured steps' launch
     counts."""
-    import tempfile
-
     import torch
     import paddle_tpu_torch as pt
     import paddle_tpu_torch.nn as nn
@@ -4565,26 +4608,12 @@ def nn_transformer():
     assert with_grads == len(enc.parameters()) == 16 * NN_LAYERS
     # the state_dict through paddle.save / paddle.load, bit for bit
     sd = enc.state_dict()
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "encoder.pdparams")
-        t0 = time.perf_counter()
-        pt.save(sd, path)
-        save_s = time.perf_counter() - t0
-        size = os.path.getsize(path)
-        back = pt.load(path)
-    exact = list(back) == list(sd) and all(
-        str(back[k].dtype) == str(v.dtype) and
-        back[k]._data.device == v._data.device and
-        torch.equal(back[k]._data.view(torch.int16 if v._data.element_size()
-                                       == 2 else torch.int32),
-                    v._data.view(torch.int16 if v._data.element_size() == 2
-                                 else torch.int32))
-        for k, v in sd.items())
+    back, rt = _save_load(sd, "encoder")
     enc.set_state_dict(back)
     _say("NN_TRANSFORMER_STATE_DICT", {
-        "tensors": len(sd), "bytes": size, "save_s": save_s,
-        "bit_exact": exact})
-    assert exact
+        "tensors": len(sd), "bytes": rt["file_bytes"],
+        "save_s": rt["save_s"], "bit_exact": rt["bit_exact"]})
+    assert rt["bit_exact"]
     del enc, opt, back, sd
     # 6 steps eager, then the same step under to_static
     want = {"flash_attention_fwd": NN_LAYERS,
@@ -4601,6 +4630,489 @@ def nn_transformer():
     del enc, opt, step
     _clean_device()
     return counts
+
+#: INCUBATE_FUSED: (name, the kernel its forward launches, the kernel
+#: its backward launches) of each kernel path of incubate.nn.functional
+INCUBATE_KERNELS = {
+    "fused_rms_norm": ("fused_rms_norm_fwd", "fused_rms_norm_bwd"),
+    "fused_rms_norm residual": ("fused_rms_norm_fwd", "fused_rms_norm_bwd"),
+    "fused_layer_norm": ("fused_layer_norm_fwd", "fused_layer_norm_bwd"),
+    "fused_rotary_position_embedding": ("rope_qk", "rope_qk"),
+    "swiglu": ("swiglu_fwd", "swiglu_bwd"),
+    "fused_dropout_add": ("dropout_add_fwd", "dropout_add_bwd"),
+}
+
+
+def _incubate_cases():
+    """{name: (call, inputs, the inputs that take a gradient)} at the main
+    paths' shapes: K3 at TRAIN's norm (4096 x 2048 bf16, with and without
+    the residual), K3-LN and K6 at BERT's (8192 x 768), K4 at TRAIN's q /
+    k (4 x 1024 x 16 x 128), K5 at TRAIN's MLP (4096 x 5504)."""
+    import torch
+    from paddle_tpu_torch.incubate.nn import functional as IF
+
+    g = torch.Generator(device="cuda").manual_seed(22)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, device="cuda", generator=g, dtype=dtype)
+
+    rows, h = TRAIN_BATCH * TRAIN_SEQ, CFG_1B["hidden_size"]
+    ln_rows, ln_h = BERT_BATCH * BERT_SEQ, 768
+    d = 128
+    pos = torch.arange(TRAIN_SEQ, device="cuda", dtype=torch.float32)
+    inv = 1.0 / 10000.0 ** (torch.arange(0, d, 2, device="cuda") / d)
+    ang = torch.cat([pos[:, None] * inv[None]] * 2, -1)[None, :, None, :]
+    cos, sin = ang.cos().bfloat16(), ang.sin().bfloat16()
+    q_shape = (TRAIN_BATCH, TRAIN_SEQ, 16, d)
+    return {
+        "fused_rms_norm": (
+            lambda x, w: IF.fused_rms_norm(x, w, epsilon=1e-6)[:1],
+            (rnd(rows, h), rnd(h)), (0, 1)),
+        "fused_rms_norm residual": (
+            lambda x, r, w: IF.fused_rms_norm(x, w, epsilon=1e-6,
+                                              residual=r),
+            (rnd(rows, h), rnd(rows, h), rnd(h)), (0, 1, 2)),
+        "fused_layer_norm": (
+            lambda x, w, b: IF.fused_layer_norm(x, w, b, 1e-12)[:1],
+            (rnd(ln_rows, ln_h), rnd(ln_h, dtype=torch.float32),
+             rnd(ln_h, dtype=torch.float32)), (0, 1, 2)),
+        "fused_rotary_position_embedding": (
+            lambda q, k, c, s: IF.fused_rotary_position_embedding(
+                q, k, sin=s, cos=c),
+            (rnd(*q_shape), rnd(*q_shape), cos, sin), (0, 1)),
+        "swiglu": (lambda a, b: (IF.swiglu(a, b),),
+                   (rnd(rows, CFG_1B["intermediate_size"]),
+                    rnd(rows, CFG_1B["intermediate_size"])), (0, 1)),
+        "fused_dropout_add": (
+            lambda x, y: (IF.fused_dropout_add(x, y, p=0.1),),
+            (rnd(ln_rows, ln_h), rnd(ln_rows, ln_h)), (0, 1)),
+    }
+
+
+def _run_case(fn, inputs, grad_ix, douts=None, seed=7):
+    """(outputs, the gradients of the inputs at `grad_ix`, douts) of one
+    forward and backward of fn on copies of `inputs` (the default
+    generators seeded with `seed` first, so dropout draws one mask);
+    douts are drawn on the first call, the same after."""
+    import torch
+
+    leaves = [t.detach().clone().requires_grad_(i in grad_ix)
+              for i, t in enumerate(inputs)]
+    torch.manual_seed(seed)
+    outs = fn(*leaves)
+    if douts is None:
+        g = torch.Generator(device=outs[0].device).manual_seed(seed)
+        douts = [torch.randn(o.shape, generator=g, device=o.device,
+                             dtype=o.dtype) for o in outs]
+    torch.autograd.backward(outs, [d.to(o.device) for d, o in
+                                   zip(douts, outs)])
+    return ([o.detach() for o in outs],
+            [leaves[i].grad for i in grad_ix], douts)
+
+
+def incubate_fused():
+    """INCUBATE_FUSED: each kernel path of incubate.nn.functional, forward
+    and backward, at the main paths' shapes (`_incubate_cases`): exactly
+    one launch of its forward kernel in the forward and of its backward
+    kernel in the backward, by the counters, and nothing else; its
+    outputs and gradients against the kernels' plain versions (the same
+    call on CPU copies of the inputs; K6 against the flag-off
+    composition on the card, which draws the same mask) within FUSED_TOL
+    of each tensor's largest |value| at the case's input dtype (every
+    case reads a bf16 stream), as the KERNEL lines hold the kernels; the forward's ms (events) beside the plain side's on the
+    card. Returns the launch counts of the counted calls."""
+    import torch
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.ops import _cuda_common
+
+    total = {}
+    for name, (fn, inputs, grad_ix) in _incubate_cases().items():
+        fwd, bwd = INCUBATE_KERNELS[name]
+        leaves = [t.detach().clone().requires_grad_(i in grad_ix)
+                  for i, t in enumerate(inputs)]
+        torch.cuda.synchronize()
+        _cuda_common.reset_launch_counts()
+        torch.manual_seed(7)
+        outs = fn(*leaves)
+        torch.cuda.synchronize()
+        got_fwd = {n: c for n, c in _cuda_common.launch_counts().items()
+                   if c}
+        g = torch.Generator(device="cuda").manual_seed(7)
+        douts = [torch.randn(o.shape, generator=g, device="cuda",
+                             dtype=o.dtype) for o in outs]
+        _cuda_common.reset_launch_counts()
+        torch.autograd.backward(outs, douts)
+        torch.cuda.synchronize()
+        got_bwd = {n: c for n, c in _cuda_common.launch_counts().items()
+                   if c}
+        assert got_fwd == {fwd: 1} and got_bwd == {bwd: 1}, (
+            name, got_fwd, got_bwd)
+        for cnt in (got_fwd, got_bwd):
+            for n, c in cnt.items():
+                total[n] = total.get(n, 0) + c
+        outs = [o.detach() for o in outs]
+        grads = [leaves[i].grad for i in grad_ix]
+        if name == "fused_dropout_add":
+            set_flags({"FLAGS_pallas_fused_ops": False})
+            try:
+                _cuda_common.reset_launch_counts()
+                pouts, pgrads, _ = _run_case(fn, inputs, grad_ix, douts)
+                torch.cuda.synchronize()
+                assert not any(_cuda_common.launch_counts().values())
+                plain_ms = _time_ms(lambda: fn(*inputs))
+            finally:
+                set_flags({"FLAGS_pallas_fused_ops": True})
+            plain_side = "flag-off composition, card"
+        else:
+            pouts, pgrads, _ = _run_case(fn, [t.cpu() for t in inputs],
+                                         grad_ix, [d.cpu() for d in douts])
+            plain_side = "plain version, CPU"
+            plain_ms = None
+        rels = []
+        for i, (a, w) in enumerate(zip(outs + grads, pouts + pgrads)):
+            assert a.dtype == w.dtype and a.shape == w.shape, (name, i)
+            assert torch.isfinite(a.float()).all(), (name, i)
+            w = w.to(a.device)
+            rel = ((a.float() - w.float()).abs().max()
+                   / w.float().abs().max()).item()
+            # the case's input precision (a bf16 stream normed into an f32
+            # output rounds to bf16 on the way); a weight's gradient sums
+            # over rows: the KERNEL lines' dw tol in f32
+            key = str(inputs[0].dtype).replace("torch.", "")
+            tol = FUSED_TOL["dw_float32" if key == "float32" and i >= len(
+                outs) and a.dim() == 1 else key]
+            assert rel <= tol, (name, i, rel, tol)
+            rels.append(rel)
+        rec = {"name": name, "kernels": [fwd, bwd],
+               "shapes": [list(t.shape) for t in inputs],
+               "dtypes": [str(t.dtype).replace("torch.", "")
+                          for t in inputs],
+               "launches_forward": got_fwd, "launches_backward": got_bwd,
+               "rel_err": rels, "max_rel_err": max(rels),
+               "plain_side": plain_side, "ms": _time_ms(lambda: fn(*inputs)),
+               "plain_ms_card": plain_ms}
+        _say("INCUBATE_FUSED", rec)
+        del leaves, outs, grads, pouts, pgrads, douts
+    torch.cuda.empty_cache()
+    return total
+
+
+def signal_phase():
+    """SIGNAL: `signal.stft` / `istft` at a speech front end's size (16
+    signals of 160,000 samples, 10 s at 16 kHz, f32; n_fft 512, hop 160,
+    a Hann window): istft(stft(x)) gives x back within SIGNAL_TOL of its
+    largest |value|, the card's spectrum equals the same call on the CPU
+    within SIGNAL_TOL of the spectrum's largest |value|, and `fft.fft`,
+    `rfft` and `fft2` on the card equal the CPU's likewise; the ms of each
+    transform (events)."""
+    import torch
+    from paddle_tpu_torch import fft, signal
+
+    g = torch.Generator(device="cuda").manual_seed(16000)
+    x = torch.randn(16, 160000, device="cuda", generator=g)
+    win = torch.from_numpy(np.hanning(512).astype("float32")).cuda()
+    kw = dict(n_fft=512, hop_length=160, window=win)
+    spec = signal.stft(x, **kw)
+    back = signal.istft(spec, length=x.shape[-1], **kw)
+    cpu_spec = signal.stft(x.cpu(), n_fft=512, hop_length=160,
+                           window=win.cpu())
+
+    def rel(a, b):
+        b = b.to(a.device)
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    xs = x.reshape(16 * 400, 400)
+    rows = {"fft": rel(fft.fft(x), fft.fft(x.cpu())),
+            "rfft": rel(fft.rfft(x), fft.rfft(x.cpu())),
+            "fft2": rel(fft.fft2(xs), fft.fft2(xs.cpu()))}
+    rec = {"signals": list(x.shape), "n_fft": 512, "hop": 160,
+           "spectrum": list(spec.shape), "spectrum_dtype": str(spec.dtype),
+           "round_trip_rel_err": rel(back, x),
+           "card_vs_cpu_rel_err": rel(spec, cpu_spec),
+           "fft_card_vs_cpu_rel_err": rows, "tol": SIGNAL_TOL,
+           "stft_ms": _time_ms(lambda: signal.stft(x, **kw), reps=10),
+           "istft_ms": _time_ms(lambda: signal.istft(
+               spec, length=x.shape[-1], **kw), reps=10),
+           "rfft_ms": _time_ms(lambda: fft.rfft(x), reps=10),
+           "device": _nvidia_smi()}
+    _say("SIGNAL", rec)
+    assert list(spec.shape) == [16, 257, 1001] \
+        and spec.dtype == torch.complex64, rec
+    assert max(rec["round_trip_rel_err"], rec["card_vs_cpu_rel_err"],
+               *rows.values()) <= SIGNAL_TOL, rec
+    del x, spec, back, cpu_spec
+    torch.cuda.empty_cache()
+
+
+def models_layer():
+    """MODELS_LAYER: LLaMA 1B, GPT-3 medium and BERT-base built on the
+    card as `nn.Layer`s (seed 0): their state_dict keys and shapes equal
+    the reference's naming rule for the config
+    (`convert.state_dict_shapes`, held against paddle_tpu's models in the
+    CPU tests), every parameter the Tensor API's `Parameter`; then O2
+    bf16 (`amp.decorate`), the state dict through paddle.save /
+    paddle.load bit for bit, and the parameter bytes. The line also
+    carries the Layer models' numbers from the earlier phases: the
+    captured device ms of STATIC_TRAIN / _GPT / _BERT, SERVE's steady ms
+    a tick, CE_CHUNK_LLAMA's ms and TRAIN's peak GB."""
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.text.models import (
+        BertConfig, BertForSequenceClassification, GPTConfig,
+        GPTForCausalLM, LlamaConfig, LlamaForCausalLM)
+    from paddle_tpu_torch.text.models.convert import state_dict_shapes
+
+    out = {}
+    for name, cfg, build in (
+            ("llama_1b", LlamaConfig(**CFG_1B), LlamaForCausalLM),
+            ("gpt3_medium", GPTConfig(**CFG_GPT), GPTForCausalLM),
+            ("bert_base", BertConfig(), BertForSequenceClassification)):
+        _clean_device()
+        torch.manual_seed(0)
+        model = build(cfg, device="cuda")
+        sd = model.state_dict()
+        keys_match = [(k, v.shape) for k, v in sd.items()] \
+            == state_dict_shapes(cfg)
+        all_params = all(isinstance(p, pt.Parameter)
+                         for p in model.parameters())
+        amp.decorate(model, level="O2", dtype="bfloat16")
+        sd = model.state_dict()
+        back, rt = _save_load(sd, name)
+        dtypes = {}
+        for p in model.parameters():
+            dtypes[str(p.dtype)] = dtypes.get(str(p.dtype), 0) + 1
+        out[name] = {
+            "tensors": len(sd), "keys_and_shapes_match": keys_match,
+            "all_parameters": all_params, "o2_dtypes": dtypes,
+            "parameter_bytes": sum(p._data.numel() * p._data.element_size()
+                                   for p in model.parameters()), **rt}
+        assert keys_match and all_params and rt["bit_exact"], (name,
+                                                               out[name])
+        del model, sd, back
+    _clean_device()
+    out["from_phases"] = {
+        "static_train_device_ms": _LINES["STATIC_TRAIN"][
+            "profiled_device_ms"],
+        "static_gpt_device_ms": _LINES["STATIC_GPT"]["profiled_device_ms"],
+        "static_bert_device_ms": _LINES["STATIC_BERT"][
+            "profiled_device_ms"],
+        "serve_decode_ms_per_tick_steady": _LINES["SERVE"][
+            "decode_ms_per_tick_steady"],
+        "ce_chunk_llama_ms": _LINES["CE_CHUNK_LLAMA"]["chunked_ms"],
+        "train_max_memory_allocated_gb": _LINES["TRAIN"][
+            "max_memory_allocated_gb"]}
+    out["device"] = _nvidia_smi()
+    _say("MODELS_LAYER", out)
+
+
+def _inner_forwards(classes, unwrapped):
+    """Set each class's `forward` to the function beneath its op boundary
+    (`unwrapped`) or back to the boundary's wrapper."""
+    for cls, wrapped in classes:
+        cls.forward = wrapped.__wrapped__ if unwrapped else wrapped
+
+
+def _eager_train(name):
+    """(model, opt, ids, labels) of the eager step of TRAIN (`llama_1b`),
+    TRAIN_GPT (`gpt3_medium`) or TRAIN_BERT (`bert_base`): the model from
+    seed 0, decorated O2 bf16 with its AdamW (bf16 moments), the batch
+    from RandomState(0). Only calls that the port's models have had since
+    they were first ported, so that it builds an older tree's too."""
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text import models as M
+
+    rs = np.random.RandomState(0)
+    torch.manual_seed(0)
+    if name == "llama_1b":
+        model = M.LlamaForCausalLM(M.LlamaConfig(**CFG_1B), device="cuda")
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+        ids = rs.randint(0, CFG_1B["vocab_size"], (TRAIN_BATCH, TRAIN_SEQ))
+        labels = None
+    elif name == "gpt3_medium":
+        model = M.GPTForCausalLM(M.GPTConfig(**CFG_GPT), device="cuda")
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                    use_multi_tensor=True)
+        ids = rs.randint(0, CFG_GPT["vocab_size"], (GPT_BATCH, GPT_SEQ))
+        labels = None
+    else:
+        model = M.BertForSequenceClassification(M.BertConfig(),
+                                                device="cuda")
+        opt = AdamW(learning_rate=2e-5, parameters=model.parameters())
+        ids = rs.randint(0, 30000, (BERT_BATCH, BERT_SEQ))
+        labels = torch.from_numpy(rs.randint(0, 2, (BERT_BATCH,))).cuda()
+    model, opt = amp.decorate(model, opt, level="O2", dtype="bfloat16",
+                              master_weight=False)
+    ids = torch.from_numpy(ids).cuda()
+    return model, opt, ids, ids if labels is None else labels
+
+
+def host_dispatch(reps=8):
+    """HOST_DISPATCH: phase 25 (module note). The models' inner layers
+    are called with torch tensors only, so the forward beneath the
+    boundary computes the same step."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch import amp, nn
+    from paddle_tpu_torch.ops import fused_norm
+    from paddle_tpu_torch.text.models import bert as bert_mod
+    from paddle_tpu_torch.text.models import gpt as gpt_mod
+
+    inner_classes = {
+        "gpt3_medium": (gpt_mod.GPTAttention, gpt_mod.GPTBlock),
+        "bert_base": (bert_mod.BertEmbeddings, bert_mod.BertSelfAttention,
+                      bert_mod.BertLayer, bert_mod.BertModel)}
+    out = {}
+    for name, classes in inner_classes.items():
+        _clean_device()
+        model, opt, ids, y = _eager_train(name)
+        inner = [(c, c.forward) for c in classes]
+
+        def fwd(unwrapped):
+            def run():
+                _inner_forwards(inner, unwrapped)
+                try:
+                    return model(ids, labels=y)
+                finally:
+                    _inner_forwards(inner, False)
+            return run
+
+        for _ in range(2):                      # warm up both ways
+            for unwrapped in (False, True):
+                fwd(unwrapped)().backward()
+                opt.step()
+                opt.clear_grad()
+        parts = _host_ms_by_part(
+            {"boundary_on_inner_forwards": _step_parts(fwd(False), opt),
+             "boundary_off_inner_forwards": _step_parts(fwd(True), opt)},
+            reps)
+        counts = {}
+        hooks = [sub.register_forward_pre_hook(
+            lambda layer, _, k=type(sub).__name__: counts.__setitem__(
+                k, counts.get(k, 0) + 1))
+            for sub in model.sublayers()
+            if isinstance(sub, (nn.Linear, nn.LayerNorm, nn.Embedding,
+                                nn.Dropout))]
+        with torch.no_grad():
+            model(ids, labels=y)
+        for h in hooks:
+            h.remove()
+        lin = next(s for s in model.sublayers() if isinstance(s, nn.Linear))
+        ln = next(s for s in model.sublayers()
+                  if isinstance(s, nn.LayerNorm))
+        x = torch.randn(8, lin.weight.shape[0], device="cuda",
+                        dtype=torch.bfloat16)
+        wt, b = lin.weight._data.t(), getattr(lin.bias, "_data", None)
+        with torch.no_grad(), amp.model_scope(model):
+            per_call = {
+                "linear_layer_us": _host_us(lambda: lin(x)),
+                "linear_torch_us": _host_us(lambda: F.linear(x, wt, b)),
+                "layer_norm_layer_us": _host_us(lambda: ln(x)),
+                "layer_norm_torch_us": _host_us(
+                    lambda: fused_norm.layer_norm_raw(
+                        x, ln.weight._data, ln.bias._data, ln._epsilon,
+                        torch.float32))}
+        out[name] = {"host_ms_by_part": parts, "nn_calls_per_forward":
+                     counts, **per_call}
+        del model, opt, ids
+    _clean_device()
+    out["device"] = _nvidia_smi()
+    _say("HOST_DISPATCH", out)
+
+
+def host_parts(reps=8):
+    """HOST_PARTS (`python3 chip_smoke.py --host-parts DIR`, the port's
+    package imported from DIR): the eager steps of TRAIN, TRAIN_GPT and
+    TRAIN_BERT (`_eager_train`), alternated, each step's host ms by part
+    (`_host_ms_by_part`: forward, backward, optimizer and clear_grad
+    issued without synchronising, then the wait for the card), with the
+    garbage collector's collections by generation over the timed steps
+    and the objects it tracks, and the Python function calls one forward
+    of each model makes (`sys.setprofile`, with the eight functions
+    called most); so that two trees' host time compares part by part in
+    one call. Prints the HOST_PARTS line and the card."""
+    import gc as _gc
+
+    import torch
+    from paddle_tpu_torch.ops import _cuda_common
+
+    _cuda_common.build_kernels()
+    steps = {}
+    for name in ("llama_1b", "gpt3_medium", "bert_base"):
+        model, opt, ids, y = _eager_train(name)
+
+        def forward(model=model, ids=ids, y=y):
+            return model(ids, labels=y)
+
+        for _ in range(2):
+            forward().backward()
+            opt.step()
+            opt.clear_grad()
+        steps[name] = (model, opt, forward)
+    calls = {}
+    for name, (_, _, forward) in steps.items():
+        count = {}
+
+        def tally(frame, event, arg, count=count):
+            if event == "call":
+                code = frame.f_code
+                key = (code.co_filename.rsplit("site-packages/", 1)[-1]
+                       .rsplit("paddle_tpu_torch/", 1)[-1]
+                       + ":" + code.co_name)
+                count[key] = count.get(key, 0) + 1
+
+        sys.setprofile(tally)
+        forward()
+        sys.setprofile(None)
+        top = sorted(count.items(), key=lambda kv: -kv[1])[:8]
+        calls[name] = {"total": sum(count.values()), "top": top}
+    torch.cuda.synchronize()
+    before = [g["collections"] for g in _gc.get_stats()]
+    parts = _host_ms_by_part({n: _step_parts(f, o)
+                              for n, (_, o, f) in steps.items()}, reps)
+    after = [g["collections"] for g in _gc.get_stats()]
+    out = {"package": os.path.dirname(os.path.dirname(
+               _cuda_common.__file__)),
+           "host_ms_by_part": parts, "reps": reps,
+           "gc_collections_by_generation": [b - a for a, b in
+                                            zip(before, after)],
+           "gc_tracked_objects": len(_gc.get_objects()),
+           "python_calls_per_forward": calls, "device": _nvidia_smi()}
+    _say("HOST_PARTS", out)
+
+
+def _save_load(sd, name):
+    """A state dict through paddle.save / paddle.load in a temporary
+    directory: (the loaded dict, {"file_bytes", "save_s", "load_s",
+    "bit_exact"}), bit_exact when the keys, dtypes, devices and every
+    bit come back."""
+    import tempfile
+
+    import torch
+    import paddle_tpu_torch as pt
+
+    def bits(t):
+        return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[t.element_size()])
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, f"{name}.pdparams")
+        t0 = time.perf_counter()
+        pt.save(sd, path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        back = pt.load(path)
+        load_s = time.perf_counter() - t0
+    exact = list(back) == list(sd) and all(
+        str(back[k].dtype) == str(v.dtype)
+        and back[k]._data.device == v._data.device
+        and torch.equal(bits(back[k]._data), bits(v._data))
+        for k, v in sd.items())
+    return back, {"file_bytes": size, "save_s": save_s, "load_s": load_s,
+                  "bit_exact": exact}
 
 
 def main():
@@ -4770,6 +5282,14 @@ def main():
     nn_quickstart()
     counts_nn = nn_transformer()
     phases["nn"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the long tail: incubate.nn.functional's kernel paths, the signal
+    # front end, and the three models' state dicts as Layers
+    counts_incubate = incubate_fused()
+    signal_phase()
+    models_layer()
+    host_dispatch()
+    phases["long_tail"] = time.perf_counter() - t0
     _say("PHASES", {"seconds": phases})
 
     main_flash = flash[2]                  # S = 512, a prefill bucket
@@ -5033,6 +5553,8 @@ def main():
             row["launches_dygraph"] = counts_dyg[row["name"]]
         if str(row.get("case", "")).startswith("bert"):
             row["launches_nn_transformer"] = counts_nn[row["name"]]
+        if row["name"] in counts_incubate and "launches_path" not in row:
+            row["launches_incubate_fused"] = counts_incubate[row["name"]]
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,
@@ -5041,4 +5563,12 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--host-parts"]:
+        sys.path.insert(0, os.path.abspath(sys.argv[2]))
+        import torch
+        if not torch.cuda.is_available():
+            print("no CUDA card", file=sys.stderr)
+            sys.exit(1)
+        host_parts()
+        sys.exit(0)
     sys.exit(main())

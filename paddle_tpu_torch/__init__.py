@@ -7,7 +7,10 @@
 `grad`, `autograd` (`backward`, `PyLayer`, `jacobian`, `hessian`), the
 tensor ops at top level (`add`, `reshape`, `matmul`, ...), as the
 reference's `from .ops import *`, and `nn` (`Layer`, the layer zoo,
-`functional`, `initializer`) with `save` / `load` and `ParamAttr`.
+`functional`, `initializer`) with `save` / `load` and `ParamAttr`, and
+the long tail: `fft`, `signal`, `geometric`, `incubate` (with
+`incubate.autograd` and the fused-op `incubate.nn.functional`) and
+`text.viterbi_decode`.
 
 Below it the port serves LLaMA through the paged continuous-batching
 `inference.ServingEngine` and trains LLaMA, GPT and BERT
@@ -45,6 +48,7 @@ from . import autograd  # noqa: F401,E402
 from . import linalg  # noqa: F401,E402
 from . import nn  # noqa: F401,E402
 from . import amp, jit, optimizer  # noqa: F401,E402
+from . import fft, geometric, incubate, signal, text  # noqa: F401,E402
 from .framework_io import load, save  # noqa: F401,E402
 from .nn import ParamAttr  # noqa: F401,E402
 

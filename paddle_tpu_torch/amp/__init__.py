@@ -32,16 +32,24 @@ Where the port applies it:
     op, which the mode does not look into (as the reference's op body
     runs on raw arrays).
 
-The port's models under O2 (`amp.decorate` + `auto_cast(O2)`) run their
-forward with the mode suspended (`model_scope`,
-`SUSPEND_O2_IN_MODELS`): their O2 dtype policy is written out in the
-forward and held to the reference's O2 in the tests, and on an H100 the
-mode made the 1B LLaMA's eager O2 step 12% slower (PERF.md: the black
-list's f32 upcasts of the norms' inputs; its host time moved by less
-than the run-to-run spread). A test holds the dtypes and values with the
-mode on and suspended. At O1 they run
-under the mode: with f32 parameters their hand-written O2 casts are
-no-ops and the rule decides every op's dtype, as in the reference.
+The port's models at O2 run their forward under the rule for the port's
+own ops alone (`model_scope`, `SUSPEND_O2_IN_MODELS`): the mode passes
+torch's ops through (`AmpState.torch_ops` False), while the `nn` layers'
+ops follow the O2 rule (the norms of the black list write f32, linear,
+rotary, SwiGLU, dropout + add and attention run in the AMP dtype). On an
+H100 the mode made the 1B LLaMA's eager O2 step 12% slower (PERF.md: the
+black list's f32 upcasts of the norms' inputs; its host time moved by
+less than the run-to-run spread). A model that `decorate` put at O2 runs
+so with `auto_cast` off as well (`_amp_o2_dtype`), as its parameters'
+dtypes ask. A test holds the dtypes and values with the mode on and
+suspended. At O1 they run under the mode, and the rule decides every
+op's dtype, as in the reference.
+
+The black list's norms that take an `out_dtype` (`_F32_OUT_NORMS`: the
+port's `rms_norm` and `layer_norm`, whose bodies compute in f32 from any
+input dtype) are not handed f32 copies of their inputs: the rule's f32
+reaches them as `out_dtype`, which gives the values of the upcast (an
+exact one) without its copies.
 
 Recompute re-runs its region under the forward's AMP state
 (`amp_state_guard`; `distributed.fleet.utils.recompute`), as the
@@ -96,6 +104,10 @@ _F32_INTERNAL_NORMS = {"rms_norm", "layer_norm"}
 #: at O2 (module note)
 SUSPEND_O2_IN_MODELS = True
 
+#: the black list's norms whose body takes `out_dtype` as its last
+#: positional argument and computes in f32 (module note)
+_F32_OUT_NORMS = frozenset(("rms_norm", "layer_norm"))
+
 
 def _amp_dtype(dtype) -> torch.dtype:
     from ..core.dtype import DType
@@ -117,14 +129,20 @@ def _check_level(level):
 
 
 class AmpState:
-    __slots__ = ("enable", "level", "dtype", "custom_white", "custom_black")
+    """The rule in force. `torch_ops` False: the mode passes torch's own
+    ops through, and only the port's ops (`amp_op`) are cast."""
 
-    def __init__(self, enable, level, dtype, custom_white, custom_black):
+    __slots__ = ("enable", "level", "dtype", "custom_white", "custom_black",
+                 "torch_ops")
+
+    def __init__(self, enable, level, dtype, custom_white, custom_black,
+                 torch_ops=True):
         self.enable = enable
         self.level = level
         self.dtype = dtype
         self.custom_white = custom_white or set()
         self.custom_black = custom_black or set()
+        self.torch_ops = torch_ops
 
 
 def amp_state() -> AmpState | None:
@@ -135,10 +153,11 @@ def _bf16_residual_stream() -> bool:
     return str(flag("FLAGS_residual_dtype")).lower() in ("bf16", "bfloat16")
 
 
-def amp_dtype_for(opname) -> torch.dtype | None:
-    """The dtype op `opname`'s floating inputs are cast to under the
-    current AMP state, or None (no cast)."""
-    st = amp_state()
+def amp_dtype_for(opname, st=None) -> torch.dtype | None:
+    """The dtype op `opname`'s floating inputs are cast to under the AMP
+    state `st` (the current one when None), or None (no cast)."""
+    if st is None:
+        st = amp_state()
     if st is None or not st.enable:
         return None
     if opname in _F32_INTERNAL_NORMS and opname not in st.custom_black \
@@ -261,7 +280,8 @@ class _AmpMode(TorchFunctionMode):
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         st = amp_state()
-        if st is None or not st.enable or getattr(_tls, "depth", 0):
+        if st is None or not st.enable or not st.torch_ops \
+                or getattr(_tls, "depth", 0):
             return func(*args, **kwargs)
         name = _op_names().get(func)
         if name is None:
@@ -299,6 +319,41 @@ def _mode_installed():
         _tls.mode = False
 
 
+def _cast_args(args, dt):
+    """`_cast` of each of an op's operands, in one call."""
+    out = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            if a.dtype != dt and a.is_floating_point():
+                a = a.to(dt)
+        elif isinstance(a, (list, tuple)):
+            a = _cast(a, dt)
+        out.append(a)
+    return out
+
+
+def cast_for(opname, x):
+    """x cast as the rule casts the inputs of op `opname` (x itself with
+    AMP off): for an activation that several such ops read, as q, k and v
+    read the input norm's output, so that it is cast once and kept once
+    for the backward."""
+    target = amp_dtype_for(opname)
+    return x if target is None else _cast(x, target)
+
+
+def _f32_out(name, args):
+    """args with the rule's f32 given as `out_dtype` where op `name` is
+    one of `_F32_OUT_NORMS` called without one, else None. `rms_norm`'s
+    kernel reads the weight in x's dtype, so a weight of another dtype
+    takes the upcast instead."""
+    if name not in _F32_OUT_NORMS or args[-1] is not None:
+        return None
+    if name == "rms_norm" and args[1] is not None \
+            and args[1].dtype != args[0].dtype:
+        return None
+    return (*args[:-1], torch.float32)
+
+
 def amp_op(name, fn, *args, **kwargs):
     """Run the port's op `fn` as the reference's op `name`: its floating
     tensor arguments (positional, and the elements of a positional list
@@ -311,9 +366,12 @@ def amp_op(name, fn, *args, **kwargs):
         return fn(*args, **kwargs)
     depth = getattr(_tls, "depth", 0)
     if depth == 0:
-        target = amp_dtype_for(name)
-        if target is not None:
-            args = [_cast(a, target) for a in args]
+        target = amp_dtype_for(name, st)
+        f32_out = target is torch.float32 and _f32_out(name, args)
+        if f32_out:
+            args = f32_out
+        elif target is not None:
+            args = _cast_args(args, target)
     _tls.depth = depth + 1
     try:
         out = fn(*args, **kwargs)
@@ -356,7 +414,7 @@ def amp_state_guard(state: AmpState | None):
     old = amp_state()
     _tls.amp = state
     try:
-        if state is not None and state.enable:
+        if state is not None and state.enable and state.torch_ops:
             with _mode_installed():
                 yield
         else:
@@ -365,15 +423,24 @@ def amp_state_guard(state: AmpState | None):
         _tls.amp = old
 
 
-def model_scope():
-    """The context a model's forward runs in: at O2 (with
-    `SUSPEND_O2_IN_MODELS`) the AMP state suspended, since the model's O2
-    policy is explicit; otherwise nothing."""
+def model_scope(model=None):
+    """The context a model's forward runs in (module note): at O2 (with
+    `SUSPEND_O2_IN_MODELS`) the rule for the port's ops alone; a `model`
+    that `decorate` put at O2 runs so with AMP off too; otherwise
+    nothing."""
     st = amp_state()
-    if st is None or not st.enable or st.level != "O2" \
-            or not SUSPEND_O2_IN_MODELS:
+    if st is not None and st.enable:
+        if st.level != "O2" or not SUSPEND_O2_IN_MODELS \
+                or not st.torch_ops:
+            return contextlib.nullcontext()
+        return amp_state_guard(AmpState(True, "O2", st.dtype,
+                                        st.custom_white, st.custom_black,
+                                        torch_ops=False))
+    dt = getattr(model, "_amp_o2_dtype", None)
+    if dt is None:
         return contextlib.nullcontext()
-    return amp_state_guard(None)
+    return amp_state_guard(AmpState(True, "O2", dt, None, None,
+                                    torch_ops=False))
 
 
 def model_forward(fn):
@@ -381,7 +448,7 @@ def model_forward(fn):
 
     @functools.wraps(fn)
     def forward(self, *args, **kwargs):
-        with model_scope():
+        with model_scope(self):
             return fn(self, *args, **kwargs)
 
     return forward
@@ -421,7 +488,10 @@ def decorate(models, optimizers=None, level="O1", dtype="bfloat16",
     """O2: cast the models' parameters and floating buffers to `dtype` in
     place (the parameters of BatchNorm/LayerNorm layers stay f32) and set
     each optimizer's multi_precision (f32 master weights) to
-    `master_weight is not False`. `save_dtype`: the models' `state_dict`
+    `master_weight is not False`; an `nn.Layer` and its sublayers are
+    marked (`_amp_o2_dtype`), so that a model's forward runs the O2 rule
+    for the port's ops with `auto_cast` off too (`model_scope`).
+    `save_dtype`: the models' `state_dict`
     values come out in that dtype (a state-dict hook; the training dtypes
     are untouched). Returns `models`, or `(models, optimizers)` when
     optimizers are given. O0 and O1 change nothing else (O1 casts per op,
@@ -449,6 +519,7 @@ def decorate(models, optimizers=None, level="O1", dtype="bfloat16",
             if _is_layer(m):
                 m._to_dtype(target)
                 for sub in m.sublayers(include_self=True):
+                    sub._amp_o2_dtype = target
                     if type(sub).__name__.startswith(("BatchNorm",
                                                       "LayerNorm")):
                         sub._apply_to_tensors(lambda t: t.float(),

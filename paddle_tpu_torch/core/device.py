@@ -9,6 +9,8 @@ argument) is how a caller asks for the CPU; there is no silent fallback.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ..ops._cuda_common import resolve_device
@@ -99,6 +101,19 @@ def set_device(device) -> Place:
         resolve_device(place.device)
     _current = place
     return place
+
+
+@contextlib.contextmanager
+def placed(device):
+    """The Tensor API creates on `device` (a torch device, taken as it
+    is) inside; the current device comes back after."""
+    global _current
+    prev = _current
+    _current = Place(device)
+    try:
+        yield
+    finally:
+        _current = prev
 
 
 def get_device() -> str:

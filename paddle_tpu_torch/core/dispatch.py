@@ -12,8 +12,9 @@ dtypes, the body runs through
 `amp.amp_op` under the reference's op name (cast by the AMP rule when
 `auto_cast` is on, counted by `amp.debugging`), and torch tensors in its
 result are wrapped as `Tensor`s. Given torch tensors it returns torch
-tensors, so the port's torch code can call the same ops; given neither
-(the creation ops) it returns Tensors. `n_diff=0` marks an op the
+tensors, so the port's torch code can call the same ops (and the `nn`
+layers, whose Parameters do not count against torch activations); given
+neither (the creation ops) it returns Tensors. `n_diff=0` marks an op the
 reference does not differentiate (comparisons, searches, samplers, ...):
 its body runs under `no_grad`, so its outputs carry no history.
 
@@ -32,7 +33,7 @@ import torch
 
 from ..amp import amp_op
 from .dtype import DType
-from .tensor import Tensor
+from .tensor import Parameter, Tensor
 
 
 # ---------------------------------------------------------------- grad mode
@@ -99,26 +100,28 @@ def wrap(x):
 
 
 def _scan(seq):
-    """(unwrapped seq, saw a Tensor, saw a torch tensor). A DType becomes
-    its torch dtype."""
-    saw_t = saw_raw = False
+    """(unwrapped seq, saw a Tensor that is no Parameter, saw a Parameter,
+    saw a torch tensor). A DType becomes its torch dtype."""
+    saw_t = saw_p = saw_raw = False
     out = []
     for a in seq:
         if isinstance(a, Tensor):
-            saw_t = True
+            if isinstance(a, Parameter):
+                saw_p = True
+            else:
+                saw_t = True
             a = a._data
         elif isinstance(a, torch.Tensor):
             saw_raw = True
         elif isinstance(a, DType):
             a = a.torch
         elif isinstance(a, (list, tuple)) and a:
-            inner, t, r = _scan(a)
-            if t:
-                saw_t = True
+            inner, t, p, r = _scan(a)
+            if t or p:
                 a = type(a)(inner)
-            saw_raw = saw_raw or r
+            saw_t, saw_p, saw_raw = saw_t or t, saw_p or p, saw_raw or r
         out.append(a)
-    return out, saw_t, saw_raw
+    return out, saw_t, saw_p, saw_raw
 
 
 #: Integer promotion at the boundary (F10). The reference computes as jnp
@@ -164,20 +167,22 @@ def _promote_int(opname, args, kwargs):
 def _funnel(fn, opname=None, nograd=False):
     """fn behind the boundary: its Tensor arguments unwrapped, and its
     torch results wrapped where it was given a Tensor, or no torch tensor
-    at all when `opname` is set (the creation ops). With `opname` the
-    body runs through `amp_op` under that name; `nograd` runs it under
-    `no_grad`."""
+    at all when `opname` is set (the creation ops). A Parameter decides
+    the result's kind only where no torch tensor came with it: a layer's
+    forward over torch activations gives torch tensors, whatever it
+    reads of its own parameters. With `opname` the body runs through
+    `amp_op` under that name; `nograd` runs it under `no_grad`."""
 
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
-        args, saw_t, saw_raw = _scan(args)
+        args, saw_t, saw_p, saw_raw = _scan(args)
         if kwargs:
-            vals, kt, kr = _scan(kwargs.values())
+            vals, kt, kp, kr = _scan(kwargs.values())
             kwargs = dict(zip(kwargs, vals))
-            saw_t, saw_raw = saw_t or kt, saw_raw or kr
+            saw_t, saw_p, saw_raw = saw_t or kt, saw_p or kp, saw_raw or kr
         if opname is None:
             out = fn(*args, **kwargs)
-            return wrap(out) if saw_t else out
+            return wrap(out) if saw_t or (saw_p and not saw_raw) else out
         if opname in _INEXACT or opname in _FLOAT64:
             args = _promote_int(opname, args, kwargs)
         if nograd:

@@ -11,6 +11,8 @@ jax's.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 _seed = 0
@@ -27,9 +29,25 @@ def seed(value: int):
     return _seed
 
 
-def generator(device) -> torch.Generator:
-    """The generator of `device` (a torch device), made at first use."""
+@contextlib.contextmanager
+def fork(value: int):
+    """Draws inside come from fresh generators seeded with `value`; the
+    seed and generators of outside come back after."""
+    global _seed, _gens
+    prev = _seed, _gens
+    _seed, _gens = int(value), {}
+    try:
+        yield
+    finally:
+        _seed, _gens = prev
+
+
+def generator(device) -> torch.Generator | None:
+    """The generator of `device` (a torch device), made at first use;
+    None on the meta device, which draws nothing."""
     device = torch.device(device)
+    if device.type == "meta":
+        return None
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     g = _gens.get(device)

@@ -168,8 +168,10 @@ class Tensor:
     # ------------------------------------------------------------ conversion
     def numpy(self):
         """The value as a numpy array (bfloat16 and float8 values as
-        float32: numpy has no such dtypes without ml_dtypes)."""
-        d = self._data.detach()
+        float32: numpy has no such dtypes without ml_dtypes; a lazily
+        conjugated or negated view, as `torch.fft.ihfft` returns,
+        materialized)."""
+        d = self._data.detach().resolve_conj().resolve_neg()
         if d.dtype not in dtypes._TO_NUMPY:
             d = d.float()
         return d.cpu().numpy()

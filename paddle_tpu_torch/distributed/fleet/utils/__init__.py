@@ -20,6 +20,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ....amp import amp_state, amp_state_guard
+from ....core.tensor import Tensor
 
 __all__ = ["recompute"]
 
@@ -29,6 +30,10 @@ _DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def _is_diff(t) -> bool:
+    """Whether t (a torch tensor or the Tensor API's Tensor, a Parameter
+    among them) is a floating tensor that requires grad."""
+    if isinstance(t, Tensor):
+        t = t._data
     return (isinstance(t, torch.Tensor) and t.requires_grad
             and (t.is_floating_point() or t.is_complex()))
 
@@ -77,7 +82,8 @@ def recompute(function, *args, preserve_rng_state=True, use_reentrant=True,
     backward runs the forward again to get them back.
 
     With grad disabled, or when no argument, keyword argument or
-    `function.parameters()` is a floating tensor that requires grad, it
+    `function.parameters()` (torch tensors or the Tensor API's Tensors
+    and Parameters) is a floating tensor that requires grad, it
     is `function(*args, **kwargs)` itself. Otherwise it is
     `torch.utils.checkpoint.checkpoint(use_reentrant=False)`.
     `use_reentrant` is accepted and ignored, as the reference ignores it.

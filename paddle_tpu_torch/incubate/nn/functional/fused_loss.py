@@ -185,9 +185,7 @@ class _FlceTok(torch.autograd.Function):
             dlog = p.mul_(scale[rows, None]).to(w.dtype)   # [cn, V]
             dh[rows] = _mm_f32(dlog, w.T)
             if dw is not None:
-                # [V, H] product seen as [H, V]: w's layout when w is a
-                # [V, H] weight's transpose, as the models pass it
-                dw.add_(_mm_f32(dlog.T, hc).T)
+                dw.add_(_mm_f32(hc.T, dlog))
         return (dh, None if dw is None else dw.to(w.dtype), None, None,
                 None)
 
@@ -283,7 +281,8 @@ def _fused_linear_cross_entropy(hidden, weight, labels, chunk_size=8192,
     materialising the [tokens, vocab] logits, leaving ignore_index (and
     any negative) labels out of both the loss mean (at least 1) and the
     gradient. hidden [..., H] flattens to [N, H]; weight [H, V] (the
-    port's models pass `lm_head.weight.T`); labels [...] int. weight may
+    port's models pass `lm_head.weight`, row-major; the transpose of a
+    [V, H] weight works as well); labels [...] int. weight may
     also be a weight-only-quantized (q, scale) pair (int8 [K, V] or
     packed int4 [ceil(K/2), V], per-channel scale [V]): the head is then
     dequantized one vocab slice at a time and is frozen (dH only); a vocab

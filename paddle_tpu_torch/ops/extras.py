@@ -4,8 +4,7 @@ linalg, distances, sampling helpers).
 Port of paddle_tpu/ops/extras.py. `gammainc` / `gammaincc` carry their
 gradient in the shape parameter too (torch's `igamma` has none there;
 `_IncGamma` computes it from the series of the regularized incomplete
-gamma function in float64). `stft` / `istft` belong to `signal`, ported
-with the long tail (ROADMAP.md Queue 1).
+gamma function in float64). `stft` / `istft` are `signal`'s.
 """
 from __future__ import annotations
 
@@ -552,17 +551,21 @@ def check_shape(x, expected_shape, name=None):
 def stft(x, n_fft, hop_length=None, win_length=None, window=None,
          center=True, pad_mode="reflect", normalized=False, onesided=True,
          name=None):
-    raise NotImplementedError(
-        "stft belongs to paddle.signal, ported with the long tail "
-        "(ROADMAP.md Queue 1 item 1f)")
+    """Tensor-level alias of paddle.signal.stft."""
+    from ..signal import stft as _stft
+
+    return _stft(x, n_fft, hop_length, win_length, window, center, pad_mode,
+                 normalized, onesided)
 
 
 def istft(x, n_fft, hop_length=None, win_length=None, window=None,
           center=True, normalized=False, onesided=True, length=None,
           return_complex=False, name=None):
-    raise NotImplementedError(
-        "istft belongs to paddle.signal, ported with the long tail "
-        "(ROADMAP.md Queue 1 item 1f)")
+    """Tensor-level alias of paddle.signal.istft."""
+    from ..signal import istft as _istft
+
+    return _istft(x, n_fft, hop_length, win_length, window, center,
+                  normalized, onesided, length, return_complex)
 
 
 def edit_distance(input, label, normalized=True, ignored_tokens=None,

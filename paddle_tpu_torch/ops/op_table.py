@@ -1,7 +1,7 @@
-"""The port's op table: the 407 rows of paddle_tpu's op table
-(paddle_tpu/ops/op_table.py, op_table_ext.py, op_table_more.py) whose
-callables reach the modules this package ports (`NN_ROWS` the 94 that
-reach `nn.functional`), each
+"""The port's op table: the 418 rows of paddle_tpu's op table
+(paddle_tpu/ops/op_table.py, op_table_ext.py, op_table_more.py)
+(`NN_ROWS` the 94 that reach `nn.functional`, `TAIL_ROWS` the 11 that
+reach fft, signal, geometric, incubate and text.viterbi), each
 with the port's callable and the reference's test spec (inputs, domains,
 shapes, kwargs, tolerances, the bf16 flag and the numpy `ref`), so the
 sweep runs where there is no jax (`chip_smoke.py`'s TENSOR_OPS on the
@@ -9,10 +9,8 @@ card) and the CPU tests hold the port to the reference
 (tests/test_torch_op_table*.py, which also hold every copied field equal
 to the reference's `OpSpec`).
 
-The reference's other 11 rows reach fft, signal, geometric, incubate or
-text.viterbi; `DEFERRED` names each with the ROADMAP.md Queue 1 item
-that ports it (1f). Split into three files as the
-reference's; `ensure_populated` pulls all three.
+Split into three files as the reference's; `ensure_populated` pulls all
+three.
 """
 from __future__ import annotations
 
@@ -453,11 +451,13 @@ NN_ROWS = frozenset(
        "thresholded_relu triplet_margin unfold_op unpool3d_op "
        "zeropad2d_op").split())
 
-#: The reference's rows this table leaves out: each reaches a module of a
-#: later slice, ROADMAP.md Queue 1 item 1f, the long tail (fft, signal,
-#: geometric, incubate, text.viterbi).
-_TAIL = "1f"
-DEFERRED: dict[str, str] = {n: _TAIL for n in (
+#: The rows that reach fft, signal, geometric, incubate and text.viterbi
+#: (ROADMAP.md Queue 1 item 1f, the long tail): the CPU tests hold them
+#: in a file of their own (tests/test_torch_op_table_tail.py).
+TAIL_ROWS = frozenset(
     "fft_abs fft2_abs fftshift rfft_abs frame_op overlap_add_op "
     "segment_max segment_mean segment_sum identity_loss_op "
-    "viterbi_decode").split()}
+    "viterbi_decode".split())
+
+#: The reference's rows this table leaves out (none: all 418 are here).
+DEFERRED: dict[str, str] = {}

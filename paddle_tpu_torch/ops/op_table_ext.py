@@ -420,6 +420,14 @@ def populate_ext():
     register(OpSpec("take", lambda x, i: pd.take(x, i), 2, True,
                     shapes=((3, 4), (3,)), int_inputs=(1,), int_high=10,
                     ref=lambda x, i: x.ravel()[i], tags=("search",)))
+    register(OpSpec("viterbi_decode",
+                    lambda pot, trans: __import__(
+                        "paddle_tpu_torch.text.viterbi",
+                        fromlist=["viterbi_decode"]
+                    ).viterbi_decode(pot, trans, pd.to_tensor(
+                        np.array([3, 3], "int64")))[0], 2, False,
+                    shapes=((2, 3, 4), (4, 4)), bf16=False,
+                    tags=("search",)))
     register(OpSpec("searchsorted_right",
                     lambda s, v: pd.searchsorted(mp.sort(s), v, right=True),
                     2, False, shapes=((5,), (3,)),
@@ -429,6 +437,18 @@ def populate_ext():
                     tags=("search",)))
 
     # ---- fft / signal (forward parity vs numpy)
+    register(OpSpec("fft_abs", lambda x: pd.fft.fft(x).abs(), 1, True,
+                    shape=(8,), ref=lambda x: np.abs(np.fft.fft(x)),
+                    rtol=1e-4, bf16=False, tags=("fft",)))
+    register(OpSpec("rfft_abs", lambda x: pd.fft.rfft(x).abs(), 1, True,
+                    shape=(8,), ref=lambda x: np.abs(np.fft.rfft(x)),
+                    rtol=1e-4, bf16=False, tags=("fft",)))
+    register(OpSpec("fft2_abs", lambda x: pd.fft.fft2(x).abs(), 1, True,
+                    shape=(4, 4), ref=lambda x: np.abs(np.fft.fft2(x)),
+                    rtol=1e-4, bf16=False, tags=("fft",)))
+    register(OpSpec("fftshift", lambda x: pd.fft.fftshift(x), 1, True,
+                    shape=(6,), ref=np.fft.fftshift, bf16=False,
+                    tags=("fft",)))
 
     # ---- edit distance / sequence (forward-only, host-side)
     register(OpSpec("edit_distance_op",
@@ -468,6 +488,18 @@ def populate_ext():
                     tags=("linalg",)))
 
     # ---- geometric segment ops
+    register(OpSpec("segment_sum",
+                    lambda x: pd.geometric.segment_sum(
+                        x, pd.to_tensor(np.array([0, 0, 1], "int64"))), 1,
+                    True, shape=(3, 4), tags=("geometric",)))
+    register(OpSpec("segment_mean",
+                    lambda x: pd.geometric.segment_mean(
+                        x, pd.to_tensor(np.array([0, 0, 1], "int64"))), 1,
+                    True, shape=(3, 4), tags=("geometric",)))
+    register(OpSpec("segment_max",
+                    lambda x: pd.geometric.segment_max(
+                        x, pd.to_tensor(np.array([0, 0, 1], "int64"))), 1,
+                    True, shape=(3, 4), tags=("geometric",)))
 
     # ---- nn.functional (ROADMAP.md Queue 1 item 1e)
     from ..nn import functional as F

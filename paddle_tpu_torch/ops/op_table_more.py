@@ -114,6 +114,10 @@ def populate_more():
                     ref=lambda x, y: np.array(
                         np.maximum(0, 1 - x * y).mean(), x.dtype)))
 
+    register(OpSpec("identity_loss_op",
+                    lambda x: pd.incubate.identity_loss(x, reduction="mean"),
+                    1, True, ref=lambda x: np.array(x.mean(), x.dtype)))
+
     # ---------------------------------------------------------- linalg
     register(OpSpec("qr", lambda x: pd.linalg.qr(x)[0], 1, True,
                     shape=(4, 3), rtol=1e-4, bf16=False))
@@ -143,6 +147,12 @@ def populate_more():
     # ------------------------------------------------- conv / pool extras
 
     # ---------------------------------------------------------- signal
+    register(OpSpec("frame_op",
+                    lambda x: pd.signal.frame(x, frame_length=4, hop_length=2),
+                    1, True, shape=(2, 10)))
+    register(OpSpec("overlap_add_op",
+                    lambda x: pd.signal.overlap_add(x, hop_length=2), 1,
+                    True, shape=(2, 4, 3)))
 
     register(OpSpec("norm", lambda x: pd.linalg.norm(x), 1, True,
                     shape=(3, 4),

@@ -1,1 +1,3 @@
-"""Text models, the paged KV cache and the generation helpers."""
+"""Text models, the paged KV cache, the generation helpers and the
+Viterbi decoder."""
+from .viterbi import ViterbiDecoder, viterbi_decode  # noqa: F401

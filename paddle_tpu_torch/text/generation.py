@@ -10,14 +10,14 @@ GQA kv heads themselves). Same arithmetic and dtype rules as the
 reference; what differs is the mechanism: eager torch and a Python loop
 over layers, where the reference traced one program and scanned stacked
 weights. Weights are not stacked: the extracted parameter dict holds
-views of the model's own tensors, so dense serving costs no copy of the
+the model's own tensors, so dense serving costs no copy of the
 weights; weight-only quantization makes its packed copies once, when the
 dict is extracted, and leaves the model's weights as they are.
 
-Weight layout: the model keeps torch's `nn.Linear` layout [out, in]; the
-extracted layer dicts hold the transposed views [in, out], so `_mm` is the
+Weight layout: the model's `nn.Linear` weights are Paddle's [in, out],
+and the extracted layer dicts hold them as they are, so `_mm` is the
 reference's plain `x @ w`, or `quant_matmul` over an (int8 [K, N] | packed
-int4 [ceil(K/2), N], f32 scale [N]) pair.
+int4 [ceil(K/2), N], f32 scale [N]) pair made from them.
 
 The static single-program `generate` is not ported yet.
 """
@@ -182,21 +182,22 @@ def _logits(x, params, spec: _GenSpec, qmm=quant_matmul_raw):
 
 
 def _layer_weights(layer) -> dict:
-    """One LlamaDecoderLayer's weights as the block math reads them
-    (views, [in, out] for the matmuls)."""
+    """One LlamaDecoderLayer's weights as the block math reads them (the
+    layers' own torch tensors: the Linear weights are [in, out])."""
     at, mlp = layer.self_attn, layer.mlp
-    return {"q": at.q_proj.weight.T, "k": at.k_proj.weight.T,
-            "v": at.v_proj.weight.T, "o": at.o_proj.weight.T,
-            "gate": mlp.gate_proj.weight.T, "up": mlp.up_proj.weight.T,
-            "down": mlp.down_proj.weight.T,
-            "input_ln": layer.input_layernorm.weight,
-            "post_ln": layer.post_attention_layernorm.weight}
+    return {"q": at.q_proj.weight._data, "k": at.k_proj.weight._data,
+            "v": at.v_proj.weight._data, "o": at.o_proj.weight._data,
+            "gate": mlp.gate_proj.weight._data,
+            "up": mlp.up_proj.weight._data,
+            "down": mlp.down_proj.weight._data,
+            "input_ln": layer.input_layernorm.weight._data,
+            "post_ln": layer.post_attention_layernorm.weight._data}
 
 
 @torch.no_grad()
 def _extract_llama(model, weight_quant="none") -> dict:
-    """The serving parameter dict of a LlamaForCausalLM: views of its
-    weights (no copy), a per-layer list in place of the reference's
+    """The serving parameter dict of a LlamaForCausalLM: its weights'
+    torch tensors (no copy), a per-layer list in place of the reference's
     stacked [L, ...] arrays, and the rope tables in the model's dtype.
     weight_quant="int8"/"int4" stores the seven layer matmul weights and
     the lm_head as weight-only pairs (see `_mm`), made here, once."""
@@ -210,10 +211,10 @@ def _extract_llama(model, weight_quant="none") -> dict:
     if quant:
         layers = [{k: qfn(w) if k in _QUANT_KEYS else w
                    for k, w in lw.items()} for lw in layers]
-    params = {"embed": m.embed_tokens.weight, "final_ln": m.norm.weight,
-              "layers": layers}
+    params = {"embed": m.embed_tokens.weight._data,
+              "final_ln": m.norm.weight._data, "layers": layers}
     if model.lm_head is not None:
-        head = model.lm_head.weight.T
+        head = model.lm_head.weight._data
         params["lm_head"] = qfn(head) if quant else head
     params["rope_cos"], params["rope_sin"] = model.rope_tables()
     return params

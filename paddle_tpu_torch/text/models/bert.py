@@ -1,4 +1,4 @@
-"""BERT encoder and its sequence classifier as torch `nn.Module`s.
+"""BERT encoder and its sequence classifier as `nn.Layer`s.
 
 Port of paddle_tpu/text/models/bert.py (`BertConfig`, `BertEmbeddings`,
 `BertSelfAttention`, `BertLayer`, `BertModel`,
@@ -15,15 +15,19 @@ seed it with `torch.manual_seed`), not from JAX's; the two packages agree
 with `hidden_dropout_prob=0.0`, where both skip dropout.
 
 Mixed precision (`amp.decorate` O2): parameters bf16 except the
-LayerNorms'. The forward casts where the reference's O2 autocast does:
-every LayerNorm (BLACK_LIST) reads its input as it comes and writes f32
-with f32 weights; the projections read their input in the weights'
-dtype; each dropout + add runs in bf16, the f32 residual (the previous
-norm's output) rounded to bf16 first; the embeddings' dropout, when it
-draws, runs in the embeddings' dtype; the loss's logits are f32.
+LayerNorms', and the forward runs under AMP's O2 rule for the layers'
+ops (`amp.model_forward`, with `auto_cast` on or off), as the
+reference's autocast casts each op: every LayerNorm (BLACK_LIST) reads
+its input as it comes and writes f32 with f32 weights; the projections
+read their input in bf16; each dropout + add runs in bf16, the f32
+residual (the previous norm's output) rounded to bf16 first; the
+embeddings' dropout runs in bf16; the loss's logits are f32.
 
-Linear weights use torch's [out, in] layout (`convert.bert_from_numpy`
-transposes paddle_tpu's [in, out]).
+The layers are the reference's (`nn.Embedding`, `nn.LayerNorm`,
+`nn.Linear` with [in, out] weights and biases, `nn.Dropout`, `encoder`
+an `nn.LayerList`), so `state_dict` is the reference's; forwards take and
+return the Tensor API's `Tensor` (or torch tensors) and call their
+layers on the torch tensors beneath.
 """
 from __future__ import annotations
 
@@ -31,13 +35,12 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
-from ...amp import model_forward
+from ... import nn
+from ...amp import cast_for, model_forward
 from ...core.dispatch import boundary
 from ...nn import functional as PF
-from .modules import Dropout, LayerNorm
-from ...ops._cuda_common import resolve_device
+from . import _layers as L
 
 
 @dataclass
@@ -53,43 +56,41 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
 
 
-class BertEmbeddings(nn.Module):
-    def __init__(self, config: BertConfig, **factory):
+class BertEmbeddings(nn.Layer):
+    def __init__(self, config: BertConfig):
         super().__init__()
         h = config.hidden_size
-        self.word_embeddings = nn.Embedding(config.vocab_size, h, **factory)
+        self.word_embeddings = nn.Embedding(config.vocab_size, h)
         self.position_embeddings = nn.Embedding(
-            config.max_position_embeddings, h, **factory)
-        self.token_type_embeddings = nn.Embedding(config.type_vocab_size, h,
-                                                  **factory)
-        self.layer_norm = LayerNorm(h, config.layer_norm_eps, **factory)
-        self.dropout = Dropout(config.hidden_dropout_prob)
+            config.max_position_embeddings, h)
+        self.token_type_embeddings = nn.Embedding(config.type_vocab_size, h)
+        self.layer_norm = nn.LayerNorm(h, epsilon=config.layer_norm_eps)
+        self.dropout = nn.Dropout(config.hidden_dropout_prob)
 
+    @boundary
     def forward(self, input_ids, token_type_ids=None):
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)[None]
         x = self.word_embeddings(input_ids) + self.position_embeddings(pos)
         if token_type_ids is not None:
             x = x + self.token_type_embeddings(token_type_ids)
-        h = self.layer_norm(x, torch.float32)
-        if self.training and self.dropout.p > 0.0:
-            h = h.to(x.dtype)   # O2: the reference's dropout op runs in bf16
-        return self.dropout(h)
+        return self.dropout(self.layer_norm(x))
 
 
-class BertSelfAttention(nn.Module):
-    def __init__(self, config: BertConfig, **factory):
+class BertSelfAttention(nn.Layer):
+    def __init__(self, config: BertConfig):
         super().__init__()
         h = config.hidden_size
         self.num_heads = config.num_attention_heads
         self.head_dim = h // config.num_attention_heads
-        self.query = nn.Linear(h, h, **factory)
-        self.key = nn.Linear(h, h, **factory)
-        self.value = nn.Linear(h, h, **factory)
-        self.out = nn.Linear(h, h, **factory)
+        self.query = nn.Linear(h, h)
+        self.key = nn.Linear(h, h)
+        self.value = nn.Linear(h, h)
+        self.out = nn.Linear(h, h)
 
+    @boundary
     def forward(self, x, attn_mask=None):
         b, s, h = x.shape
-        x = x.to(self.query.weight.dtype)
+        x = cast_for("linear", x)      # once for the three projections
         q, k, v = (lin(x).reshape(b, s, self.num_heads, self.head_dim)
                    for lin in (self.query, self.key, self.value))
         if attn_mask is not None and attn_mask.is_floating_point():
@@ -98,51 +99,47 @@ class BertSelfAttention(nn.Module):
         return self.out(o.reshape(b, s, h))
 
 
-class BertLayer(nn.Module):
-    def __init__(self, config: BertConfig, **factory):
+class BertLayer(nn.Layer):
+    def __init__(self, config: BertConfig):
         super().__init__()
         h = config.hidden_size
-        self.attention = BertSelfAttention(config, **factory)
-        self.attn_norm = LayerNorm(h, config.layer_norm_eps, **factory)
-        self.intermediate = nn.Linear(h, config.intermediate_size, **factory)
-        self.output = nn.Linear(config.intermediate_size, h, **factory)
-        self.out_norm = LayerNorm(h, config.layer_norm_eps, **factory)
-        self.dropout = Dropout(config.hidden_dropout_prob)
+        self.attention = BertSelfAttention(config)
+        self.attn_norm = nn.LayerNorm(h, epsilon=config.layer_norm_eps)
+        self.intermediate = nn.Linear(h, config.intermediate_size)
+        self.output = nn.Linear(config.intermediate_size, h)
+        self.out_norm = nn.LayerNorm(h, epsilon=config.layer_norm_eps)
+        self.dropout = nn.Dropout(config.hidden_dropout_prob)
 
+    @boundary
     def forward(self, x, attn_mask=None):
         """Post-LN: dropout(attention) + x -> attn_norm, then dropout(GELU
         MLP) + that -> out_norm; each dropout + add is one op."""
         p = self.dropout.p
-        a = self.attention(x, attn_mask)
-        x = self.attn_norm(PF.fused_dropout_add(a, x.to(a.dtype), p,
-                                                self.training),
-                           torch.float32)
-        y = self.output(PF.gelu(self.intermediate(
-            x.to(self.intermediate.weight.dtype))))
-        return self.out_norm(PF.fused_dropout_add(y, x.to(y.dtype), p,
-                                                  self.training),
-                             torch.float32)
+        x = self.attn_norm(PF.fused_dropout_add(self.attention(x, attn_mask),
+                                                x, p, self.training))
+        y = self.output(PF.gelu(self.intermediate(x)))
+        return self.out_norm(PF.fused_dropout_add(y, x, p, self.training))
 
 
-class BertModel(nn.Module):
+class BertModel(nn.Layer):
     """Embeddings, encoder layers and the tanh pooler over the first
     token. Built on `device` ("cuda" unless the caller asks for another;
-    no card -> RuntimeError) in `dtype`."""
+    no card -> RuntimeError) in `dtype`, its initial weights from a seed
+    that torch's default generator gives."""
 
     def __init__(self, config: BertConfig, device=None, dtype=torch.float32):
         super().__init__()
-        factory = {"device": resolve_device(device), "dtype": dtype}
         self.config = config
-        self.embeddings = BertEmbeddings(config, **factory)
-        self.encoder = nn.ModuleList(
-            [BertLayer(config, **factory)
-             for _ in range(config.num_hidden_layers)])
-        self.pooler = nn.Linear(config.hidden_size, config.hidden_size,
-                                **factory)
+        with L.built_on(device):
+            self.embeddings = BertEmbeddings(config)
+            self.encoder = nn.LayerList(
+                [BertLayer(config) for _ in range(config.num_hidden_layers)])
+            self.pooler = nn.Linear(config.hidden_size, config.hidden_size)
+        L.cast_floating(self, dtype)
 
     @property
     def device(self) -> torch.device:
-        return self.pooler.weight.device
+        return self.pooler.weight._data.device
 
     @boundary
     @model_forward
@@ -156,12 +153,10 @@ class BertModel(nn.Module):
         x = self.embeddings(ids, token_type_ids)
         for layer in self.encoder:
             x = layer(x, attn_mask)
-        first = x[:, 0].to(self.pooler.weight.dtype)
-        pooled = torch.tanh(self.pooler(first))
-        return x, pooled
+        return x, torch.tanh(self.pooler(x[:, 0]))
 
 
-class BertForSequenceClassification(nn.Module):
+class BertForSequenceClassification(nn.Layer):
     """BertModel, dropout and a linear classifier over the pooled output;
     with labels, the mean cross-entropy of the f32 logits."""
 
@@ -169,10 +164,10 @@ class BertForSequenceClassification(nn.Module):
                  dtype=torch.float32):
         super().__init__()
         self.bert = BertModel(config, device=device, dtype=dtype)
-        factory = {"device": self.bert.device, "dtype": dtype}
-        self.dropout = Dropout(config.hidden_dropout_prob)
-        self.classifier = nn.Linear(config.hidden_size, num_classes,
-                                    **factory)
+        with L.built_on(self.bert.device):
+            self.dropout = nn.Dropout(config.hidden_dropout_prob)
+            self.classifier = nn.Linear(config.hidden_size, num_classes)
+        L.cast_floating(self.classifier, dtype)
 
     @property
     def device(self) -> torch.device:

@@ -1,4 +1,4 @@
-"""GPT decoder (GPT-2/3 style) as torch `nn.Module`s — dense, single device.
+"""GPT decoder (GPT-2/3 style) as `nn.Layer`s — dense, single device.
 
 Port of paddle_tpu/text/models/gpt.py (`GPTConfig`, `GPTAttention`,
 `GPTBlock`, `GPTForCausalLM`): learned positions, pre-norm LayerNorm
@@ -15,15 +15,19 @@ scaled_dot_product_attention` (causal): the flash op, K1 forward and K2
 backward on CUDA.
 
 Mixed precision (`amp.decorate` O2): parameters are bf16 except the
-LayerNorms', which stay f32. The forward casts at each op where the
-reference's O2 autocast does (`paddle_tpu/core/dispatch.py`): `ln_1` and
-`ln_f` (BLACK_LIST `layer_norm`) read the bf16 stream and write f32 with
-f32 weights; every projection reads its input in the weights' dtype;
-`ln_2`'s fused add + norm runs in bf16, its f32 weight and bias rounded
-to bf16 first (`LayerNorm.forward_fused_add`); the loss's logits are f32.
+LayerNorms', which stay f32, and the forward runs under AMP's O2 rule
+for the layers' ops (`amp.model_forward`, with `auto_cast` on or off),
+as the reference's autocast casts each op: `ln_1` and `ln_f` (BLACK_LIST
+`layer_norm`) read the bf16 stream and write f32 with f32 weights; every
+projection reads its input in bf16; `ln_2`'s fused add + norm runs in
+bf16, its f32 weight and bias rounded to bf16 first; the loss's logits
+are f32.
 
-Linear weights use torch's [out, in] layout (paddle_tpu's Linear stores
-[in, out]; `convert.gpt_from_numpy` transposes on the way in).
+The layers are the reference's (`nn.Embedding` `wte` / `wpe`, `nn.LayerNorm`,
+`nn.Linear(bias_attr=False)` with [in, out] weights, `blocks` an
+`nn.LayerList`), so `state_dict` is the reference's; forwards take and
+return the Tensor API's `Tensor` (or torch tensors) and call their
+layers on the torch tensors beneath.
 """
 from __future__ import annotations
 
@@ -31,14 +35,13 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
+from ... import nn
 from ...amp import model_forward
 from ...core.dispatch import boundary
 from ...incubate.nn.functional import fused_linear_cross_entropy
 from ...nn import functional as PF
-from .modules import LayerNorm
-from ...ops._cuda_common import resolve_device
+from . import _layers as L
 
 
 @dataclass
@@ -60,41 +63,42 @@ class GPTConfig:
             self.intermediate_size = 4 * self.hidden_size
 
 
-class GPTAttention(nn.Module):
-    def __init__(self, config: GPTConfig, **factory):
+class GPTAttention(nn.Layer):
+    def __init__(self, config: GPTConfig):
         super().__init__()
         h = config.hidden_size
         self.num_heads = config.num_attention_heads
         self.head_dim = h // config.num_attention_heads
-        self.qkv_proj = nn.Linear(h, 3 * h, bias=False, **factory)
-        self.out_proj = nn.Linear(h, h, bias=False, **factory)
+        self.qkv_proj = nn.Linear(h, 3 * h, bias_attr=False)
+        self.out_proj = nn.Linear(h, h, bias_attr=False)
 
+    @boundary
     def forward(self, x):
-        """x [B, S, H] (read in the weights' dtype) -> [B, S, H]: fused
-        qkv reshaped [B, S, 3, heads, head_dim], causal attention."""
+        """x [B, S, H] -> [B, S, H]: fused qkv reshaped [B, S, 3, heads,
+        head_dim], causal attention."""
         b, s, h = x.shape
-        qkv = self.qkv_proj(x.to(self.qkv_proj.weight.dtype)).reshape(
-            b, s, 3, self.num_heads, self.head_dim)
+        qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
+                                       self.head_dim)
         q, k, v = qkv.unbind(2)
         o = PF.scaled_dot_product_attention(q, k, v, is_causal=True)
         return self.out_proj(o.reshape(b, s, h))
 
 
-class GPTBlock(nn.Module):
-    def __init__(self, config: GPTConfig, **factory):
+class GPTBlock(nn.Layer):
+    def __init__(self, config: GPTConfig):
         super().__init__()
         h, i = config.hidden_size, config.intermediate_size
-        self.ln_1 = LayerNorm(h, config.layer_norm_eps, **factory)
-        self.attn = GPTAttention(config, **factory)
-        self.ln_2 = LayerNorm(h, config.layer_norm_eps, **factory)
-        self.fc_in = nn.Linear(h, i, bias=False, **factory)
-        self.fc_out = nn.Linear(i, h, bias=False, **factory)
+        self.ln_1 = nn.LayerNorm(h, epsilon=config.layer_norm_eps)
+        self.attn = GPTAttention(config)
+        self.ln_2 = nn.LayerNorm(h, epsilon=config.layer_norm_eps)
+        self.fc_in = nn.Linear(h, i, bias_attr=False)
+        self.fc_out = nn.Linear(i, h, bias_attr=False)
 
+    @boundary
     def forward(self, x):
-        a = self.attn(self.ln_1(x, torch.float32))
+        a = self.attn(self.ln_1(x))
         y, x = self.ln_2.forward_fused_add(a, x)
-        return x + self.fc_out(PF.gelu(self.fc_in(
-            y.to(self.fc_in.weight.dtype))))
+        return x + self.fc_out(PF.gelu(self.fc_in(y)))
 
 
 #: config switches the port does not implement yet -> the ROADMAP item
@@ -104,10 +108,12 @@ _UNPORTED = {
 }
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(nn.Layer):
     """GPT with its LM head. Built on `device` ("cuda" unless the caller
-    asks for another; no card -> RuntimeError) in `dtype`, with torch's
-    default random init (seed it with `torch.manual_seed`)."""
+    asks for another; no card -> RuntimeError) in `dtype`, with the
+    reference's initializers drawn from a seed that torch's default
+    generator gives (seed it with `torch.manual_seed` or
+    `paddle.seed`)."""
 
     _gen_arch = "gpt"
 
@@ -118,19 +124,20 @@ class GPTForCausalLM(nn.Module):
             if getattr(config, name):
                 raise NotImplementedError(
                     f"GPTConfig.{name}=True is not ported yet ({item})")
-        factory = {"device": resolve_device(device), "dtype": dtype}
         self.config = config
         h = config.hidden_size
-        self.wte = nn.Embedding(config.vocab_size, h, **factory)
-        self.wpe = nn.Embedding(config.max_position_embeddings, h, **factory)
-        self.blocks = nn.ModuleList([GPTBlock(config, **factory)
-                                     for _ in range(config.num_hidden_layers)])
-        self.ln_f = LayerNorm(h, config.layer_norm_eps, **factory)
-        self.lm_head = nn.Linear(h, config.vocab_size, bias=False, **factory)
+        with L.built_on(device):
+            self.wte = nn.Embedding(config.vocab_size, h)
+            self.wpe = nn.Embedding(config.max_position_embeddings, h)
+            self.blocks = nn.LayerList([GPTBlock(config) for _ in
+                                        range(config.num_hidden_layers)])
+            self.ln_f = nn.LayerNorm(h, epsilon=config.layer_norm_eps)
+            self.lm_head = nn.Linear(h, config.vocab_size, bias_attr=False)
+        L.cast_floating(self, dtype)
 
     @property
     def device(self) -> torch.device:
-        return self.wte.weight.device
+        return self.wte.weight._data.device
 
     @boundary
     @model_forward
@@ -139,20 +146,22 @@ class GPTForCausalLM(nn.Module):
         head's dtype; with `labels` [B, S], the mean cross-entropy in f32
         over the labels that are not -100 (no shift, as the reference's
         bench step passes `model(x, x)`). Vocab >= 4096 takes
-        `fused_linear_cross_entropy` (the reference's branch; GPT's 50304
-        has no usable vocab chunk, so it runs by token chunks), smaller
-        vocabs the plain cross-entropy of the f32 logits."""
+        `fused_linear_cross_entropy` on the head's [H, V] weight (the
+        reference's branch; GPT's 50304 has no usable vocab chunk, so it
+        runs by token chunks), smaller vocabs the plain cross-entropy of
+        the f32 logits."""
         ids = torch.as_tensor(input_ids, device=self.device).long()
         pos = torch.arange(ids.shape[1], device=self.device)[None]
         x = self.wte(ids) + self.wpe(pos)
         for blk in self.blocks:
             x = blk(x)
-        hidden = self.ln_f(x, torch.float32).to(self.lm_head.weight.dtype)
+        hidden = self.ln_f(x)
         if labels is not None:
             labels = torch.as_tensor(labels, device=self.device).long()
             if self.config.vocab_size >= 4096:
                 return fused_linear_cross_entropy(
-                    hidden, self.lm_head.weight.T, labels, chunk_size=8192)
+                    hidden, self.lm_head.weight._data, labels,
+                    chunk_size=8192)
         logits = self.lm_head(hidden)
         if labels is None:
             return logits

@@ -1,4 +1,4 @@
-"""LLaMA-family decoder as torch `nn.Module`s — dense, single device.
+"""LLaMA-family decoder as `nn.Layer`s — dense, single device.
 
 Port of paddle_tpu/text/models/llama.py (config, rope tables, attention,
 SwiGLU MLP, decoder layer, model, causal-LM head and its loss) with the
@@ -7,6 +7,15 @@ reference's activation recompute (`use_recompute`, at the granularities
 scope here: tensor/sequence parallelism (their config switches raise
 `NotImplementedError` naming the ROADMAP item), fp8 and the pipeline
 layer descriptions.
+
+The layers are the reference's: `nn.Linear(bias_attr=False)` (weights
+[in, out]), `nn.Embedding`, `nn.RMSNorm`, and the model is reachable as
+both `llama` and `model`, so `state_dict` has the reference's keys
+(`llama.*`), shapes and dtypes and a checkpoint of either package loads
+in the other through `set_state_dict`. The rope tables are
+non-persistable buffers of `LlamaModel`, out of the state dict as there.
+Forwards take and return the Tensor API's `Tensor` (or torch tensors)
+and call their layers on the torch tensors beneath.
 
 The forward follows `FLAGS_pallas_fused_ops`, as the reference's does.
 On (the default): the reference's module structure — `input_layernorm`,
@@ -21,17 +30,14 @@ differentiable flash op (`ops.flash_attention.flash_attention`): K1
 forward and, when a gradient is recorded, K2 backward on CUDA; their
 plain versions on the CPU. The serving engine never runs this forward.
 
-Mixed precision (`amp.decorate` O2): parameters are bf16 and every matmul
-runs in bf16; the logits of the loss and the cross-entropy are computed
-in f32, the ops the reference's AMP keeps in f32. With the flag on, the
-input and final norms write f32 (the reference's O2 runs `rms_norm`, a
-BLACK_LIST op, in f32) and the matmuls after them read their input in
-the weights' dtype, as the reference's autocast casts it; the fused
-add+norm, rotary and SwiGLU run in bf16, as there. With the flag off the
-norms write the stream's dtype (the composition's `_rms_norm`).
-
-Linear weights use torch's [out, in] layout (paddle_tpu's Linear stores
-[in, out]; `convert.llama_from_numpy` transposes on the way in).
+Mixed precision (`amp.decorate` O2): parameters are bf16, and the
+forward runs under AMP's O2 rule for the layers' ops (`amp.model_forward`,
+with `auto_cast` on or off): every matmul runs in bf16; the input and
+final norms write f32 (`rms_norm` is on the BLACK_LIST) and the
+projections after them read their input in bf16; the fused add+norm,
+rotary and SwiGLU run in bf16, as in the reference; the logits of the
+loss and the cross-entropy are computed in f32. With the flag off the
+blocks' norms are the composition's (`_rms_norm`, the stream's dtype).
 """
 from __future__ import annotations
 
@@ -39,19 +45,20 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
-from ...amp import model_forward
+from ... import nn
+from ...amp import cast_for, model_forward
 from ...core.dispatch import boundary
 from ...core.flags import flag
+from ...core.tensor import Tensor
 from ...distributed.fleet.utils import recompute
 from ...incubate.nn.functional import fused_linear_cross_entropy
 from ...nn import functional as PF
-from ...ops._cuda_common import resolve_device
 from ...ops.flash_attention import flash_attention
 from ..generation import (_attention_block, _layer_forward_prefill,
                           _layer_weights, _mlp_block, _rope_tables,
                           _spec_from_config)
+from . import _layers as L
 
 
 @dataclass
@@ -84,6 +91,10 @@ class LlamaConfig:
         return self.hidden_size // self.num_attention_heads
 
 
+def llama_7b_config(**kw) -> LlamaConfig:
+    return LlamaConfig(**kw)
+
+
 def llama_tiny_config(**kw) -> LlamaConfig:
     base = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
                 num_hidden_layers=2, num_attention_heads=4,
@@ -92,43 +103,26 @@ def llama_tiny_config(**kw) -> LlamaConfig:
     return LlamaConfig(**base)
 
 
-class LlamaRMSNorm(nn.Module):
-    def __init__(self, hidden_size, eps, **factory):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(hidden_size, **factory))
-
-    def forward(self, x, out_dtype=None):
-        """`nn.functional.rms_norm` (K3 when the flag is on);
-        `out_dtype=torch.float32` as the reference's O2 runs it."""
-        return PF.rms_norm(x, self.weight, self.eps, out_dtype)
-
-    def forward_fused_add(self, x, residual):
-        """(normed, summed) = (norm(x + residual), x + residual) by
-        `nn.functional.fused_add_rms_norm` (one K3 launch when the flag is
-        on)."""
-        return PF.fused_add_rms_norm(x, residual, self.weight, self.eps)
-
-
-class LlamaAttention(nn.Module):
+class LlamaAttention(nn.Layer):
     """q/k/v/o projections; `forward` is the flag-on attention block (the
     flag-off path reads the parameters into `_layer_forward_prefill`)."""
 
-    def __init__(self, config: LlamaConfig, **factory):
+    def __init__(self, config: LlamaConfig):
         super().__init__()
         h, hd = config.hidden_size, config.head_dim
         nh, nkv = config.num_attention_heads, config.num_key_value_heads
         self.num_heads, self.num_kv_heads, self.head_dim = nh, nkv, hd
-        self.q_proj = nn.Linear(h, nh * hd, bias=False, **factory)
-        self.k_proj = nn.Linear(h, nkv * hd, bias=False, **factory)
-        self.v_proj = nn.Linear(h, nkv * hd, bias=False, **factory)
-        self.o_proj = nn.Linear(nh * hd, h, bias=False, **factory)
+        self.q_proj = nn.Linear(h, nh * hd, bias_attr=False)
+        self.k_proj = nn.Linear(h, nkv * hd, bias_attr=False)
+        self.v_proj = nn.Linear(h, nkv * hd, bias_attr=False)
+        self.o_proj = nn.Linear(nh * hd, h, bias_attr=False)
 
+    @boundary
     def forward(self, x, cos, sin):
-        """x [B, S, H] (the input norm's output, read in the weights'
-        dtype); cos/sin [>=S, D] -> [B, S, H]."""
+        """x [B, S, H] (the input norm's output, cast once for the three
+        projections); cos/sin [>=S, D] -> [B, S, H]."""
         b, s, _ = x.shape
-        x = x.to(self.q_proj.weight.dtype)
+        x = cast_for("linear", x)
         q = self.q_proj(x).reshape(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
         v = self.v_proj(x).reshape(b, s, self.num_kv_heads, self.head_dim)
@@ -141,45 +135,47 @@ class LlamaAttention(nn.Module):
             b, s, self.num_heads * self.head_dim))
 
 
-class LlamaMLP(nn.Module):
+class LlamaMLP(nn.Layer):
     """SwiGLU projections; `forward` is the flag-on MLP block."""
 
-    def __init__(self, config: LlamaConfig, **factory):
+    def __init__(self, config: LlamaConfig):
         super().__init__()
         h, i = config.hidden_size, config.intermediate_size
-        self.gate_proj = nn.Linear(h, i, bias=False, **factory)
-        self.up_proj = nn.Linear(h, i, bias=False, **factory)
-        self.down_proj = nn.Linear(i, h, bias=False, **factory)
+        self.gate_proj = nn.Linear(h, i, bias_attr=False)
+        self.up_proj = nn.Linear(h, i, bias_attr=False)
+        self.down_proj = nn.Linear(i, h, bias_attr=False)
 
+    @boundary
     def forward(self, x):
+        x = cast_for("linear", x)
         return self.down_proj(PF.swiglu(self.gate_proj(x), self.up_proj(x)))
 
 
-class LlamaDecoderLayer(nn.Module):
+class LlamaDecoderLayer(nn.Layer):
     """One block. With `use_recompute` at granularity "mlp" it keeps the
     attention half's activations and recomputes the MLP half
     (`_mlp_branch`) in the backward, as the reference's "mlp" branch
     does; the residual add is then a plain add, not the fused add+norm,
     the same math."""
 
-    def __init__(self, config: LlamaConfig, **factory):
+    def __init__(self, config: LlamaConfig):
         super().__init__()
         self.spec = _spec_from_config(config)
         self.recompute_mlp = (config.use_recompute
                               and config.recompute_granularity == "mlp")
-        self.self_attn = LlamaAttention(config, **factory)
-        self.mlp = LlamaMLP(config, **factory)
-        self.input_layernorm = LlamaRMSNorm(config.hidden_size,
-                                            config.rms_norm_eps, **factory)
-        self.post_attention_layernorm = LlamaRMSNorm(
-            config.hidden_size, config.rms_norm_eps, **factory)
+        self.self_attn = LlamaAttention(config)
+        self.mlp = LlamaMLP(config)
+        self.input_layernorm = nn.RMSNorm(config.hidden_size,
+                                          epsilon=config.rms_norm_eps)
+        self.post_attention_layernorm = nn.RMSNorm(
+            config.hidden_size, epsilon=config.rms_norm_eps)
 
+    @boundary
     def forward(self, x, cos, sin):
         fused = flag("FLAGS_pallas_fused_ops")
         if self.recompute_mlp:
             if fused:
-                x = x + self.self_attn(self.input_layernorm(x, torch.float32),
-                                       cos, sin)
+                x = x + self.self_attn(self.input_layernorm(x), cos, sin)
             else:
                 x = _attention_block(x, _layer_weights(self), self.spec, cos,
                                      sin)[0]
@@ -187,42 +183,46 @@ class LlamaDecoderLayer(nn.Module):
         if not fused:
             return _layer_forward_prefill(x, _layer_weights(self), self.spec,
                                           cos, sin)[0]
-        a = self.self_attn(self.input_layernorm(x, torch.float32), cos, sin)
+        a = self.self_attn(self.input_layernorm(x), cos, sin)
         y, x = self.post_attention_layernorm.forward_fused_add(a, x)
         return x + self.mlp(y)
 
     def _mlp_branch(self, x):
-        """mlp(post_attention_layernorm(x)): with the flag on the norm
-        writes f32 (the reference's O2) and the MLP reads it in the
-        weights' dtype; with it off, `_mlp_block`'s compositions."""
+        """mlp(post_attention_layernorm(x)) with the flag on; with it off,
+        `_mlp_block`'s compositions."""
         if not flag("FLAGS_pallas_fused_ops"):
             return _mlp_block(x, _layer_weights(self), self.spec)
-        y = self.post_attention_layernorm(x, torch.float32)
-        return self.mlp(y.to(self.mlp.gate_proj.weight.dtype))
+        return self.mlp(self.post_attention_layernorm(x))
 
 
-class LlamaModel(nn.Module):
-    def __init__(self, config: LlamaConfig, **factory):
+class LlamaModel(nn.Layer):
+    """Embedding, decoder layers and the final norm, on the Tensor API's
+    current device (`LlamaForCausalLM` builds it on its `device`)."""
+
+    def __init__(self, config: LlamaConfig):
         super().__init__()
         self.config = config
         self.embed_tokens = nn.Embedding(config.vocab_size,
-                                         config.hidden_size, **factory)
-        self.layers = nn.ModuleList(
-            [LlamaDecoderLayer(config, **factory)
+                                         config.hidden_size)
+        self.layers = nn.LayerList(
+            [LlamaDecoderLayer(config)
              for _ in range(config.num_hidden_layers)])
-        self.norm = LlamaRMSNorm(config.hidden_size, config.rms_norm_eps,
-                                 **factory)
+        self.norm = nn.RMSNorm(config.hidden_size,
+                               epsilon=config.rms_norm_eps)
         # shared by every layer; not part of the state dict
-        cos, sin = _rope_tables(config, factory["dtype"], factory["device"])
-        self.register_buffer("rope_cos", cos, persistent=False)
-        self.register_buffer("rope_sin", sin, persistent=False)
+        cos, sin = _rope_tables(config, torch.float32,
+                                self.norm.weight._data.device)
+        self.register_buffer("rope_cos", Tensor._wrap(cos),
+                             persistable=False)
+        self.register_buffer("rope_sin", Tensor._wrap(sin),
+                             persistable=False)
 
     @boundary
     @model_forward
     def forward(self, input_ids):
-        """[B, S] ids -> the final norm's output [B, S, H]: f32 with the
-        flag on (see the module docstring), the stream's dtype with it
-        off. With `use_recompute`, as the reference's: "full" wraps each
+        """[B, S] ids -> the final norm's output [B, S, H] (f32 under
+        O2's rule, see the module docstring). With `use_recompute`, as
+        the reference's: "full" wraps each
         layer in `recompute` (its backward runs the whole layer again, K1
         included); "flash_resident" too, with the policy that keeps the
         flash forward's o and lse (the backward reruns everything but
@@ -230,17 +230,16 @@ class LlamaModel(nn.Module):
         which handles "mlp" itself."""
         cfg = self.config
         gran = cfg.recompute_granularity if cfg.use_recompute else None
+        cos, sin = self.rope_cos._data, self.rope_sin._data
         x = self.embed_tokens(input_ids)
         for layer in self.layers:
             if gran == "full":
-                x = recompute(layer, x, self.rope_cos, self.rope_sin)
+                x = recompute(layer, x, cos, sin)
             elif gran == "flash_resident":
-                x = recompute(layer, x, self.rope_cos, self.rope_sin,
-                              policy="flash_resident")
+                x = recompute(layer, x, cos, sin, policy="flash_resident")
             else:
-                x = layer(x, self.rope_cos, self.rope_sin)
-        return self.norm(x, torch.float32 if flag("FLAGS_pallas_fused_ops")
-                         else None)
+                x = layer(x, cos, sin)
+        return self.norm(x)
 
 
 #: config switches the port does not implement yet -> the ROADMAP item
@@ -250,11 +249,12 @@ _UNPORTED = {
 }
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(nn.Layer):
     """LLaMA with its LM head. Built on `device` ("cuda" unless the caller
-    asks for another; no card -> RuntimeError) in `dtype`, with torch's
-    default random init (seed it with `torch.manual_seed`). `forward`
-    trains (with labels it returns the loss; attention is the
+    asks for another; no card -> RuntimeError) in `dtype`, with the
+    reference's initializers drawn from a seed that torch's default
+    generator gives (seed it with `torch.manual_seed` or `paddle.seed`).
+    `forward` trains (with labels it returns the loss; attention is the
     differentiable flash op) and gives logits; `generate` serves through
     the paged engine under `torch.no_grad()`."""
 
@@ -267,18 +267,20 @@ class LlamaForCausalLM(nn.Module):
             if getattr(config, name):
                 raise NotImplementedError(
                     f"LlamaConfig.{name}=True is not ported yet ({item})")
-        factory = {"device": resolve_device(device), "dtype": dtype}
         self.config = config
-        self.model = LlamaModel(config, **factory)
-        self.lm_head = None if config.tie_word_embeddings else nn.Linear(
-            config.hidden_size, config.vocab_size, bias=False, **factory)
+        with L.built_on(device):
+            self.llama = self.model = LlamaModel(config)
+            self.lm_head = None if config.tie_word_embeddings else \
+                nn.Linear(config.hidden_size, config.vocab_size,
+                          bias_attr=False)
+        L.cast_floating(self, dtype)
 
     @property
     def device(self) -> torch.device:
-        return self.model.embed_tokens.weight.device
+        return self.model.embed_tokens.weight._data.device
 
     def rope_tables(self):
-        return self.model.rope_cos, self.model.rope_sin
+        return self.model.rope_cos._data, self.model.rope_sin._data
 
     @boundary
     @model_forward
@@ -288,19 +290,20 @@ class LlamaForCausalLM(nn.Module):
         cross-entropy in f32 instead, over the labels that are not -100
         (no shift: the caller aligns them, as the reference's train step
         passes `model(x, x)`). An lm_head with vocab >= 4096 takes
-        `fused_linear_cross_entropy`, the reference's branch; smaller
-        vocabs (and tied embeddings) the plain cross-entropy of the f32
-        logits. The head reads the final norm's output in the parameters'
-        dtype."""
+        `fused_linear_cross_entropy` on its [H, V] weight, the reference's
+        branch; smaller vocabs (and tied embeddings) the plain
+        cross-entropy of the f32 logits. A tied head reads the final
+        norm's output in the embeddings' dtype."""
         ids = torch.as_tensor(input_ids, device=self.device).long()
-        hidden = self.model(ids).to(self.model.embed_tokens.weight.dtype)
+        hidden = self.model(ids)
         if labels is not None:
             labels = torch.as_tensor(labels, device=self.device).long()
             if self.lm_head is not None and self.config.vocab_size >= 4096:
                 return fused_linear_cross_entropy(
-                    hidden, self.lm_head.weight.T, labels)
+                    hidden, self.lm_head.weight._data, labels)
         if self.lm_head is None:
-            logits = hidden @ self.model.embed_tokens.weight.T
+            emb = self.model.embed_tokens.weight._data
+            logits = hidden.to(emb.dtype) @ emb.T
         else:
             logits = self.lm_head(hidden)
         if labels is None:

@@ -269,7 +269,7 @@ def test_o2_models_same_with_mode_on_and_suspended():
             amp.SUSPEND_O2_IN_MODELS = old
         loss.backward()
         out.append((loss.dtype, loss.item(),
-                    [(p.grad.dtype, p.grad.clone()) for p in
+                    [(p.grad.dtype, p.grad._data.clone()) for p in
                      model.parameters()]))
     (d0, l0, g0), (d1, l1, g1) = out
     assert d0 == d1 == torch.float32 and l0 == l1
@@ -324,7 +324,7 @@ def test_o1_gpt_and_bert_step_as_reference(ref_vjp):
             ropt = paddle.optimizer.AdamW(learning_rate=1e-3,
                                           parameters=ref.parameters())
             popt = AdamW(learning_rate=1e-3, parameters=port.parameters())
-            before = [p.detach().clone() for p in port.parameters()]
+            before = [p._data.detach().clone() for p in port.parameters()]
             with paddle.amp.auto_cast(enable=True, dtype="bfloat16",
                                       level="O1"):
                 loss = rloss(ref)
@@ -336,7 +336,7 @@ def test_o1_gpt_and_bert_step_as_reference(ref_vjp):
             popt.step()
             np.testing.assert_allclose(pl.item(), float(np.asarray(
                 loss._data)), rtol=LOSS_TOL)
-            assert any(not torch.equal(a, p) for a, p in
+            assert any(not torch.equal(a, p._data) for a, p in
                        zip(before, port.parameters()))
     finally:
         paddle.set_flags(old)

@@ -588,7 +588,7 @@ def test_engine_on_card_matches_cpu_engine(card):
     cfg = llama_tiny_config(num_key_value_heads=2)
     cpu = LlamaForCausalLM(cfg, device="cpu")
     gpu = LlamaForCausalLM(cfg, device=card)
-    gpu.load_state_dict(cpu.state_dict())
+    gpu.set_state_dict(cpu.state_dict())
     rs = np.random.RandomState(3)
     stream = [(rs.randint(0, 256, (ln,)), nt)
               for ln, nt in ((3, 4), (20, 6), (2, 9), (40, 3), (4, 5))]
@@ -659,7 +659,7 @@ def test_quantized_engine_on_card_matches_cpu_engine(card, weight_quant,
     cfg = llama_tiny_config(num_key_value_heads=2)
     cpu = LlamaForCausalLM(cfg, device="cpu")
     gpu = LlamaForCausalLM(cfg, device=card)
-    gpu.load_state_dict(cpu.state_dict())
+    gpu.set_state_dict(cpu.state_dict())
     rs = np.random.RandomState(3)
     stream = [(rs.randint(0, 256, (ln,)), nt)
               for ln, nt in ((3, 4), (20, 6), (2, 9), (40, 3), (4, 5))]
@@ -697,7 +697,7 @@ def test_prefix_cache_engine_on_card_matches_cpu_engine(card, weight_quant,
     cfg = llama_tiny_config(num_key_value_heads=2)
     cpu = LlamaForCausalLM(cfg, device="cpu")
     gpu = LlamaForCausalLM(cfg, device=card)
-    gpu.load_state_dict(cpu.state_dict())
+    gpu.set_state_dict(cpu.state_dict())
     rs = np.random.RandomState(4)
     shared = rs.randint(0, 256, (24,))
     prompts = [np.concatenate([shared, rs.randint(0, 256, (n,))])
@@ -784,7 +784,7 @@ def test_graph_engine_matches_eager_engine(card, dtype, weight_quant,
     cfg = llama_tiny_config(num_key_value_heads=2)
     cpu = LlamaForCausalLM(cfg, device="cpu")
     gpu = LlamaForCausalLM(cfg, device=card, dtype=dtype)
-    gpu.load_state_dict(cpu.state_dict())
+    gpu.set_state_dict(cpu.state_dict())
     stream = _graph_stream()
     kw = dict(weight_quant=weight_quant, kv_cache_dtype=kv_cache_dtype)
     on_cpu, cpu_out, _ = _serve_graph_stream(cpu, "cpu", False, stream,
@@ -1726,7 +1726,7 @@ def test_engine_on_card_serves_any_group_and_d256(card, heads, kv_heads,
                             num_key_value_heads=kv_heads)
     cpu = LlamaForCausalLM(cfg, device="cpu")
     gpu = LlamaForCausalLM(cfg, device=card)
-    gpu.load_state_dict(cpu.state_dict())
+    gpu.set_state_dict(cpu.state_dict())
     rs = np.random.RandomState(3)
     stream = [(rs.randint(0, 256, (ln,)), nt)
               for ln, nt in ((3, 4), (20, 6), (2, 9), (40, 3))]
@@ -2352,8 +2352,9 @@ def test_recompute_step_on_card_matches_no_recompute(card, gran,
         model(ids, labels=ids).backward()
         torch.cuda.synchronize()
         counts.append(_cuda_common.launch_counts())
-        grads.append({n: p.grad.float() for n, p in model.named_parameters()})
-        model.zero_grad(set_to_none=True)
+        grads.append({n: p.grad._data.float()
+                      for n, p in model.named_parameters()})
+        model.clear_gradients()
     layers = cfg.num_hidden_layers
     assert counts[0]["flash_attention_fwd"] == k1_per_layer * layers
     assert counts[1]["flash_attention_fwd"] == layers
@@ -2781,8 +2782,7 @@ def test_dygraph_layer_on_card_launches_and_grads(on_card):
     mods = [layer.input_layernorm, a_.q_proj, a_.k_proj, a_.v_proj,
             a_.o_proj, layer.post_attention_layernorm, m_.gate_proj,
             m_.up_proj, m_.down_proj]
-    tw = [(w.weight.detach() if w.weight.dim() == 1 else w.weight.detach().T)
-          for w in mods]
+    tw = [w.weight._data.detach() for w in mods]    # [in, out] already
     params = [pt.to_tensor(w.contiguous(), stop_gradient=False) for w in tw]
     x = torch.randn(2, 64, 256, device="cuda").to(torch.bfloat16)
 
@@ -2817,7 +2817,7 @@ def test_dygraph_layer_on_card_launches_and_grads(on_card):
     ref = (layer(x, cos, sin).float() ** 2).mean()
     ref.backward()
     for g, mod in zip(grads, mods):
-        rg = mod.weight.grad if mod.weight.dim() == 1 else mod.weight.grad.T
+        rg = mod.weight.grad._data
         top = rg.float().abs().max().item()
         assert (g.float() - rg.float()).abs().max().item() <= 2 ** -4 * top
     assert abs(loss.item() - ref.item()) <= 1e-2 * abs(ref.item())
@@ -3048,3 +3048,222 @@ def test_flash_backward_exact_delta_on_near_equal_values(card, causal):
         err = (leaves[i].grad.double() - truth[i].grad).abs().max().item()
         old = (rounded[i].double() - truth[i].grad).abs().max().item()
         assert err <= 2 ** -5 * top and err < old, (i, err / top, old / top)
+
+
+# The long tail on the card: incubate.nn.functional's kernel paths (K3,
+# K3-LN, K4, K5, K6), the models as nn.Layers, and signal.stft.
+def _incubate_cases(dev, dtype):
+    from paddle_tpu_torch.incubate.nn import functional as IF
+
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def rnd(*shape, dt=dtype):
+        return torch.randn(*shape, device=dev, generator=g, dtype=dt)
+
+    ang = torch.arange(64, device=dev, dtype=torch.float32)[:, None] \
+        * torch.linspace(0.01, 1.0, 16, device=dev)[None]
+    ang = torch.cat([ang, ang], -1)[None, :, None, :]
+    return {
+        "fused_rms_norm": (
+            lambda x, w: IF.fused_rms_norm(x, w, epsilon=1e-6)[:1],
+            (rnd(66, 256), rnd(256)), ("fused_rms_norm_fwd",
+                                       "fused_rms_norm_bwd")),
+        "fused_rms_norm_residual": (
+            lambda x, r, w: IF.fused_rms_norm(x, w, epsilon=1e-6,
+                                              residual=r),
+            (rnd(66, 256), rnd(66, 256), rnd(256)),
+            ("fused_rms_norm_fwd", "fused_rms_norm_bwd")),
+        "fused_layer_norm": (
+            lambda x, w, b: IF.fused_layer_norm(x, w, b)[:1],
+            (rnd(66, 96), rnd(96, dt=torch.float32),
+             rnd(96, dt=torch.float32)),
+            ("fused_layer_norm_fwd", "fused_layer_norm_bwd")),
+        "fused_layer_norm_residual": (
+            lambda x, r, w, b: IF.fused_layer_norm(x, w, b, residual=r),
+            (rnd(66, 96), rnd(66, 96), rnd(96), rnd(96)),
+            ("fused_layer_norm_fwd", "fused_layer_norm_bwd")),
+        "fused_rotary_position_embedding": (
+            lambda q, k: IF.fused_rotary_position_embedding(
+                q, k, sin=ang.sin().to(q.device, dtype),
+                cos=ang.cos().to(q.device, dtype)),
+            (rnd(2, 64, 4, 32), rnd(2, 64, 4, 32)), ("rope_qk", "rope_qk")),
+        "swiglu": (lambda a, b: (IF.swiglu(a, b),),
+                   (rnd(66, 200), rnd(66, 200)),
+                   ("swiglu_fwd", "swiglu_bwd")),
+    }
+
+
+def _run_incubate(fn, inputs, douts=None):
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    outs = fn(*leaves)
+    if douts is None:
+        g = torch.Generator(device=outs[0].device).manual_seed(5)
+        douts = [torch.randn(o.shape, generator=g, device=o.device,
+                             dtype=o.dtype) for o in outs]
+    torch.autograd.backward(outs, douts)
+    return [o.detach() for o in outs], [t.grad for t in leaves], douts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(_incubate_cases("cpu",
+                                                        torch.float32)))
+def test_incubate_kernel_paths_launch_once_and_match_plain(card, name,
+                                                          dtype):
+    """Each kernel path of incubate.nn.functional launches its forward
+    kernel once in the forward and its backward kernel once in the
+    backward, and nothing else; its outputs and gradients equal the same
+    call's on CPU copies (the kernels' plain versions) within a tolerance
+    of each tensor's largest |value| keyed by the inputs' dtype, as
+    chip_smoke.py's INCUBATE_FUSED keys it: 1e-5 for f32 inputs (1e-4
+    for a weight's gradient, a sum over rows), 2^-7 for bf16 inputs,
+    whose f32 results carry bf16 precision (`fused_layer_norm` writes
+    its norm in x's dtype before the f32 weight's promotion, so a sum
+    that lands the other side of a rounding boundary moves it by one
+    bf16 ulp)."""
+    fn, inputs, (fwd, bwd) = _incubate_cases(card, dtype)[name]
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    torch.cuda.synchronize()
+    _cuda_common.reset_launch_counts()
+    outs = fn(*leaves)
+    torch.cuda.synchronize()
+    got_fwd = {n: c for n, c in _cuda_common.launch_counts().items() if c}
+    g = torch.Generator(device=card).manual_seed(5)
+    douts = [torch.randn(o.shape, generator=g, device=card, dtype=o.dtype)
+             for o in outs]
+    _cuda_common.reset_launch_counts()
+    torch.autograd.backward(outs, douts)
+    torch.cuda.synchronize()
+    got_bwd = {n: c for n, c in _cuda_common.launch_counts().items() if c}
+    assert got_fwd == {fwd: 1} and got_bwd == {bwd: 1}, (got_fwd, got_bwd)
+    pouts, pgrads, _ = _run_incubate(fn, [t.cpu() for t in inputs],
+                                     [d.cpu() for d in douts])
+    got = [o.detach() for o in outs] + [t.grad for t in leaves]
+    for i, (a, w) in enumerate(zip(got, pouts + pgrads)):
+        assert a.dtype == w.dtype and a.shape == w.shape, i
+        rel = ((a.cpu().float() - w.float()).abs().max()
+               / w.float().abs().max()).item()
+        tol = 2 ** -7 if dtype == torch.bfloat16 else (
+            1e-4 if a.dim() == 1 else 1e-5)
+        assert rel <= tol, (i, rel)
+
+
+def test_incubate_dropout_add_launches_k6_once_and_matches_composition(
+        card):
+    """fused_dropout_add (K6) against the flag-off composition on the card
+    with the same seed (one mask): one launch each way, and the same
+    values within 2^-7 of the largest |value| in bf16."""
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.incubate.nn import functional as IF
+
+    g = torch.Generator(device=card).manual_seed(2)
+    x, y = (torch.randn(130, 96, device=card, generator=g,
+                        dtype=torch.bfloat16) for _ in range(2))
+    dout = torch.randn(130, 96, device=card, generator=g,
+                       dtype=torch.bfloat16)
+    res = []
+    for fused in (True, False):
+        set_flags({"FLAGS_pallas_fused_ops": fused})
+        try:
+            xl, yl = (t.clone().requires_grad_() for t in (x, y))
+            _cuda_common.reset_launch_counts()
+            torch.manual_seed(9)
+            out = IF.fused_dropout_add(xl, yl, p=0.3)
+            out.backward(dout)
+            torch.cuda.synchronize()
+            res.append(([out.detach(), xl.grad, yl.grad],
+                        {n: c for n, c in
+                         _cuda_common.launch_counts().items() if c}))
+        finally:
+            set_flags({"FLAGS_pallas_fused_ops": True})
+    assert res[0][1] == {"dropout_add_fwd": 1, "dropout_add_bwd": 1}
+    assert res[1][1] == {}
+    for a, w in zip(res[0][0], res[1][0]):
+        assert ((a.float() - w.float()).abs().max()
+                / w.float().abs().max()).item() <= 2 ** -7
+
+
+@pytest.mark.parametrize("arch", ["llama", "gpt", "bert"])
+def test_layer_models_on_card_match_cpu(card, arch):
+    """A tiny model of each kind as an nn.Layer on the card: its
+    state_dict keys and shapes are the CPU model's (the reference's
+    naming), its parameters the Tensor API's; carried over with
+    set_state_dict, its f32 loss and gradients equal the CPU's within
+    1e-4 of each tensor's largest |value|, through the kernels (K1, and
+    K3-K5 or K3-LN, each at least once; BERT without dropout, so that
+    both sides draw no mask)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.text.models import (
+        BertConfig, BertForSequenceClassification, GPTConfig,
+        GPTForCausalLM, LlamaForCausalLM, llama_tiny_config)
+    from paddle_tpu_torch.text.models.convert import state_dict_shapes
+
+    rs = np.random.RandomState(1)
+    if arch == "llama":
+        cfg = llama_tiny_config()
+        build = lambda d: LlamaForCausalLM(cfg, device=d)    # noqa: E731
+        labels = ids = torch.from_numpy(rs.randint(0, 256, (2, 40)))
+        kernels = ("flash_attention_fwd", "fused_rms_norm_fwd", "rope_qk",
+                   "swiglu_bwd")
+    elif arch == "gpt":
+        cfg = GPTConfig(vocab_size=256, hidden_size=64, num_hidden_layers=2,
+                        num_attention_heads=4, max_position_embeddings=64)
+        build = lambda d: GPTForCausalLM(cfg, device=d)      # noqa: E731
+        labels = ids = torch.from_numpy(rs.randint(0, 256, (2, 40)))
+        kernels = ("flash_attention_fwd", "fused_layer_norm_bwd")
+    else:
+        cfg = BertConfig(vocab_size=256, hidden_size=64, num_hidden_layers=2,
+                         num_attention_heads=4, intermediate_size=128,
+                         hidden_dropout_prob=0.0)
+        build = lambda d: BertForSequenceClassification(  # noqa: E731
+            cfg, device=d)
+        ids = torch.from_numpy(rs.randint(0, 256, (2, 40)))
+        labels = torch.from_numpy(rs.randint(0, 2, (2,)))
+        kernels = ("flash_attention_fwd", "fused_layer_norm_fwd")
+    torch.manual_seed(0)
+    cpu, gpu = build("cpu"), build(card)
+    assert [(k, v.shape) for k, v in gpu.state_dict().items()] \
+        == state_dict_shapes(cfg)
+    assert all(isinstance(p, pt.Parameter) for p in gpu.parameters())
+    gpu.set_state_dict(cpu.state_dict())
+    grads = []
+    for model, dev in ((cpu, "cpu"), (gpu, card)):
+        _cuda_common.reset_launch_counts()
+        torch.manual_seed(3)
+        loss = model(ids.to(dev), labels=labels.to(dev))
+        loss.backward()
+        grads.append((loss.item(), {n: p.grad._data.cpu() for n, p in
+                                    model.named_parameters()
+                                    if p.grad is not None}))
+        counts = _cuda_common.launch_counts()
+        if dev == "cpu":
+            assert not any(counts.values())
+        else:
+            assert all(counts[k] >= 1 for k in kernels), counts
+    (lc, gc), (lg, gg) = grads
+    assert abs(lc - lg) <= 1e-4 * abs(lc) and set(gc) == set(gg)
+    for n, w in gc.items():
+        # BERT's key bias gets no gradient in exact arithmetic (a softmax
+        # ignores a shift common to its keys): rounding on both sides,
+        # held to the key weight's scale
+        scale = gc[n[:-4] + "weight"] if n.endswith("key.bias") else w
+        assert ((gg[n] - w).abs().max() / scale.abs().max()).item() \
+            <= 1e-4, n
+
+
+def test_signal_stft_on_card_matches_cpu(card):
+    """signal.stft / istft on the card: the spectrum equals the CPU's
+    within 1e-4 of its largest |value|, and the round trip gives the
+    signal back within 1e-4 (its length a multiple of the hop, so every
+    sample lies under a frame)."""
+    from paddle_tpu_torch import signal
+
+    x = torch.from_numpy(np.random.RandomState(0).randn(3, 4096)
+                         .astype("float32"))
+    win = torch.from_numpy(np.hanning(256).astype("float32"))
+    spec = signal.stft(x.to(card), 256, 64, window=win.to(card))
+    want = signal.stft(x, 256, 64, window=win)
+    assert spec.is_cuda and spec.dtype == torch.complex64
+    assert ((spec.cpu() - want).abs().max() / want.abs().max()).item() \
+        <= 1e-4
+    back = signal.istft(spec, 256, 64, window=win.to(card), length=4096)
+    assert ((back.cpu() - x).abs().max() / x.abs().max()).item() <= 1e-4

@@ -78,7 +78,8 @@ fused_linear_cross_entropy_ref = PIF.fused_linear_cross_entropy
 def _port(h_np, w_np, lab_np, bf16=False, fn=fused_linear_cross_entropy,
           transposed=True, **kw):
     """The port's (loss, dH, dW) as f32 numpy. `transposed`: w is the
-    [H, V] view of a [V, H] weight, as the models pass lm_head.weight.T."""
+    [H, V] view of a [V, H] weight; else a row-major [H, V] weight, as
+    the models pass lm_head.weight."""
     h = torch.from_numpy(h_np)
     wt = torch.from_numpy(np.ascontiguousarray(w_np.T))
     if bf16:

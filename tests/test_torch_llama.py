@@ -56,17 +56,14 @@ def test_tied_embeddings_match_reference():
 def test_carry_over_rejects_wrong_state():
     cfg = llama_tiny_config()
     _, port = _carry(p_tiny(), cfg)
-    state = {"llama." + k[len("model."):] if k.startswith("model.") else k:
-             v.numpy().T if "proj" in k or k == "lm_head.weight"
-             else v.numpy()
-             for k, v in port.state_dict().items()}
+    state = {k: v.numpy() for k, v in port.state_dict().items()}
     llama_from_numpy(cfg, state, device="cpu")          # round trip loads
     missing = dict(state)
     missing.pop("lm_head.weight")
     with pytest.raises(RuntimeError):
         llama_from_numpy(cfg, missing, device="cpu")
     state["llama.layers.0.mlp.up_proj.weight"] = \
-        state["llama.layers.0.mlp.up_proj.weight"].T   # untransposed
+        state["llama.layers.0.mlp.up_proj.weight"].T   # transposed
     with pytest.raises(RuntimeError):
         llama_from_numpy(cfg, state, device="cpu")
 

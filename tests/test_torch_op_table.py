@@ -1,10 +1,10 @@
 """The port's op table held to paddle_tpu's, forward (CPU).
 
-`paddle_tpu_torch/ops/op_table*.py` copies the 407 rows of paddle_tpu's op
-table whose callables reach the modules the port has; the other 11 are
-listed in `DEFERRED` with the ROADMAP.md item that ports them. The 94
-rows that reach `nn.functional` (`NN_ROWS`) are held the same way in
-test_torch_op_table_nn.py (tests/_torch_op_rows.py). Here: the copy's every field equals the reference's `OpSpec`,
+`paddle_tpu_torch/ops/op_table*.py` copies the 418 rows of paddle_tpu's op
+table (`DEFERRED` is empty). The 94 rows that reach `nn.functional`
+(`NN_ROWS`) are held the same way in test_torch_op_table_nn.py, the 11
+of the long tail (`TAIL_ROWS`: fft, signal, geometric, incubate,
+text.viterbi) in test_torch_op_table_tail.py (tests/_torch_op_rows.py). Here: the copy's every field equals the reference's `OpSpec`,
 the names partition the reference's, and each row's fp32 forward on the
 same seeded numpy inputs equals paddle_tpu's output and the row's numpy
 `ref` at the row's tolerance (dtype, shape and stop_gradient too); the
@@ -21,7 +21,8 @@ from paddle_tpu.ops import op_table as ref_table
 from paddle_tpu_torch.core import device as port_device
 from paddle_tpu_torch.ops import op_table as port_table
 
-ROWS = sorted(n for n in port_table.OPS if n not in port_table.NN_ROWS)
+ROWS = sorted(n for n in port_table.OPS if n not in port_table.NN_ROWS
+              and n not in port_table.TAIL_ROWS)
 BF16 = [n for n in ROWS if port_table.OPS[n].bf16]
 
 
@@ -35,11 +36,11 @@ def _on_cpu():
 
 def test_names_partition_the_reference_table():
     ported, deferred = set(port_table.OPS), set(port_table.DEFERRED)
-    assert len(ported) == 407 and len(deferred) == 11
-    assert not ported & deferred
-    assert ported | deferred == set(ref_table.OPS)
-    assert set(port_table.DEFERRED.values()) == {"1f"}
+    assert len(ported) == 418 and not deferred
+    assert ported == set(ref_table.OPS)
     assert len(port_table.NN_ROWS) == 94 and port_table.NN_ROWS <= ported
+    assert len(port_table.TAIL_ROWS) == 11 and port_table.TAIL_ROWS <= ported
+    assert not port_table.NN_ROWS & port_table.TAIL_ROWS
 
 
 @pytest.mark.parametrize("name", ROWS)

@@ -584,8 +584,10 @@ def test_ops_module_helpers_match_reference():
     _both(lambda p, a: p.check_shape(a, [2, -1]), x)
     with pytest.raises(ValueError):
         paddle.check_shape(paddle.to_tensor(x), [3, 5])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        paddle.stft(paddle.to_tensor(x), 4)
+    # stft is signal's (item 1f), the reference's tensor-level alias
+    np.testing.assert_allclose(paddle.stft(paddle.to_tensor(x), 4).numpy(),
+                               np.asarray(ref.stft(ref.to_tensor(x), 4)._data),
+                               rtol=1e-5, atol=1e-6)
     d, n = paddle.edit_distance(
         paddle.to_tensor(np.array([[1, 2, 3]], "int64")),
         paddle.to_tensor(np.array([[1, 3]], "int64")))
