@@ -285,6 +285,49 @@ Phases (any failure exits non-zero; nothing is caught):
      beneath it (`F.linear`, K3-LN's wrapper), with the number of `nn`
      layer calls in one forward.
 
+ 26. quant_api: the quantization surface at LLaMA 1B's layer shapes
+     (2048 x 2048, 2048 x 5504, 5504 x 2048; bf16; M 8 and 512):
+     `weight_quantize`'s codes and scales bit-identical to the CPU's,
+     `weight_only_linear` int8 (plain), int4 per-channel (one K8 launch a
+     call) and int4 group 128 (none), each held to its plain version,
+     `llm_int8_linear` with 4 outlier columns beside the CPU's (its int32
+     sums, cuBLASLt's `_int_mm`, exact against an int64 product), dx of
+     the int4 call against the plain one, and CUDA-event times beside
+     cuBLAS on the dequantized weight; then K8 at the rows SPEC_Q4's
+     verify windows give it (slot bucket x (k + 1): 5, 10, 20, its token
+     tiles 8, 16 and 32) on the layer shapes in bf16 and the head in
+     f32, each held to the plain version (QUANT_API);
+ 27. ptq: the 1B serve model calibrated by `ptq_state_dict(algo=
+     "weight_only_int4")` on 2 batches, through paddle.save / paddle.load
+     and `load_ptq_state_dict` into a fresh model, served with int4
+     weights beside the original model served so: the greedy tokens, the
+     codes that requantization moves (bf16), and the restored engine's
+     tokens held teacher-forced through the plain versions (PTQ);
+ 28. static_gen: `generate()` at its defaults (the static engine: K1 in
+     the prefill, one captured decode step replayed) on the 1B model, 4
+     prompts of 200 tokens and 128 new tokens: K1 exactly 20 launches,
+     the tokens beside `engine="paged"`'s and held teacher-forced, ms a
+     replayed step (the median of 5 timed decodes, with the SM clock
+     after them), tok/s, peak memory; then int4 weights (K8 exactly
+     141 launches a step) and a seeded sampled run against its repeat
+     (STATIC_GEN, STATIC_GEN_Q4, STATIC_GEN_SAMPLED);
+ 29. spec: bench.py `bench_llama_spec_decode`'s configuration (the 168M
+     target, its 2-layer draft, 4 slots, 8 requests of a 16-token motif
+     tiled 8 times, 96 new tokens) on a repetitive and an adversarial
+     stream: the baseline, then the n-gram and the draft proposer at k
+     2, 4 and 8 (k 4 on the adversarial stream), each a warm pass and a
+     timed pass after finish_warmup() on one engine (no capture in the
+     timed pass, its tokens the warm pass's): decode tok/s, spec_stats(),
+     the tokens beside the baseline's with the first divergence and its
+     logit margin, every emitted token held teacher-forced (SPEC); the
+     static engine's speculation, `generate(spec_decode="ngram")` on
+     the 168M target for 4 of the repetitive prompts: K1 exactly 8
+     launches (its prefill) and nothing else, the tokens beside
+     `generate()`'s at its defaults and held teacher-forced, tok/s
+     (STATIC_SPEC); then the 1B model with int4 weights, n-gram k 4 on the repetitive
+     stream: K8 exactly 141 launches a verify program call (one window
+     for each speculating slot of the tick), as a decode tick (SPEC_Q4).
+
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Without a CUDA card it exits 1 and prints
 no result.
@@ -5115,6 +5158,640 @@ def _save_load(sd, name):
                   "bit_exact": exact}
 
 
+
+# --------------------------------------- the quantization surface (QUANT_API)
+
+#: QUANT_API's layer shapes (LLaMA 1B: q/k/v/o, gate/up, down) and rows
+QUANT_SHAPES = ((2048, 2048), (2048, 5504), (5504, 2048))
+QUANT_ROWS = (8, 512)
+
+
+def _rel(got, want):
+    want = want.float()
+    return (got.float() - want).abs().max().item() \
+        / max(want.abs().max().item(), 1e-30)
+
+
+def quant_api():
+    """The five quantization functions on the card at the 1B layer
+    shapes (module note, phase 26), and K8 through `weight_only_linear`
+    at the verify window's rows (`_verify_rows`: its token tiles 8, 16
+    and 32) on the layer shapes and the head, each held to the plain
+    version. Returns the launch counts of the phase."""
+    import torch
+    import paddle_tpu_torch.incubate.nn.functional as IF
+    from paddle_tpu_torch.ops import _cuda_common
+    from paddle_tpu_torch.ops.quantized import (int4_unpack, int8_matmul,
+                                                kernel_route,
+                                                quant_matmul_reference,
+                                                tc_tile_m)
+
+    _cuda_common.reset_launch_counts()
+    rows = []
+    k8_calls = 0
+    for k, n in QUANT_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(k * 3 + n)
+        w = (torch.randn(k, n, device="cuda", generator=g) * 0.02).bfloat16()
+        pairs = {}
+        for algo, gs in (("weight_only_int8", -1), ("weight_only_int4", -1),
+                         ("weight_only_int4", 128)):
+            q, s = IF.weight_quantize(w, algo=algo, group_size=gs)
+            qc, sc = IF.weight_quantize(w.cpu(), algo=algo, group_size=gs)
+            assert torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc), \
+                (k, n, algo, gs)
+            pairs[(algo, gs)] = (q, s)
+        q8, s8 = pairs[("weight_only_int8", -1)]
+        q4, s4 = pairs[("weight_only_int4", -1)]
+        qg, sg = pairs[("weight_only_int4", 128)]
+        w_deq = IF.weight_dequantize(q4, s4, algo="weight_only_int4",
+                                     out_dtype="bfloat16")
+        for m in QUANT_ROWS:
+            x = torch.randn(m, k, device="cuda", generator=g).bfloat16()
+            rec = {"shape": [m, k, n]}
+            # int8: the reference's plain arithmetic
+            before = _cuda_common.launch_counts()["quant_matmul"]
+            y8 = IF.weight_only_linear(x, q8, weight_scale=s8)
+            rec["int8_rel_err"] = _rel(
+                y8, (x.float() @ q8.float()) * s8)
+            # int4 per-channel: one K8 launch
+            y4 = IF.weight_only_linear(x, q4, weight_scale=s4,
+                                       weight_dtype="int4")
+            k8_calls += 1
+            rec["int4_rel_err"] = _rel(
+                y4, quant_matmul_reference(x, q4, s4, k))
+            # int4 group 128: the plain composition
+            yg = IF.weight_only_linear(x, qg, weight_scale=sg,
+                                       weight_dtype="int4", group_size=128)
+            rec["int4_g128_rel_err"] = _rel(
+                yg, x.float() @ IF.weight_dequantize(
+                    qg, sg, algo="weight_only_int4", out_dtype="float32"))
+            launched = _cuda_common.launch_counts()["quant_matmul"] - before
+            assert launched == 1, (k, n, m, launched)
+            for key in ("int8_rel_err", "int4_rel_err", "int4_g128_rel_err"):
+                assert rec[key] <= QMM_TOL["bfloat16"], (key, rec)
+            # dx of the int4 call (the autograd Function) against plain
+            xg = x.detach().clone().requires_grad_()
+            dy = torch.randn(m, n, device="cuda", generator=g).bfloat16()
+            IF.weight_only_linear(xg, q4, weight_scale=s4,
+                                  weight_dtype="int4").backward(dy)
+            k8_calls += 1
+            q = int4_unpack(q4, k, axis=0).float()
+            rec["int4_dx_rel_err"] = _rel(xg.grad, (dy.float() * s4) @ q.T)
+            assert rec["int4_dx_rel_err"] <= QMM_TOL["bfloat16"], rec
+            # LLM.int8 with 4 outlier columns beside the CPU's
+            xo = x.clone()
+            xo[:, :4] *= 64.0
+            yo = IF.llm_int8_linear(xo, q8, weight_scale=s8)
+            rec["llm_int8_rel_err_vs_cpu"] = _rel(
+                yo, IF.llm_int8_linear(xo.cpu(), q8.cpu(),
+                                       weight_scale=s8.cpu()).cuda())
+            assert rec["llm_int8_rel_err_vs_cpu"] <= QMM_TOL["bfloat16"], rec
+            a8 = torch.randint(-127, 128, (m, k), device="cuda",
+                               generator=g, dtype=torch.int8)
+            sums = int8_matmul(a8, q8)
+            assert torch.equal(sums.cpu(), (a8.cpu().long()
+                                            @ q8.cpu().long()).int()), rec
+            rec["int32_sums_exact"] = True
+            reps = 10
+            rec["ms"] = {
+                "weight_only_int4": _time_ms(lambda: IF.weight_only_linear(
+                    x, q4, weight_scale=s4, weight_dtype="int4"),
+                    reps=reps),
+                "weight_only_int8": _time_ms(lambda: IF.weight_only_linear(
+                    x, q8, weight_scale=s8), reps=reps),
+                "weight_only_int4_g128": _time_ms(
+                    lambda: IF.weight_only_linear(
+                        x, qg, weight_scale=sg, weight_dtype="int4",
+                        group_size=128), reps=reps),
+                "llm_int8": _time_ms(lambda: IF.llm_int8_linear(
+                    xo, q8, weight_scale=s8), reps=reps),
+                "plain_int4": _time_ms(lambda: quant_matmul_reference(
+                    x, q4, s4, k), reps=reps),
+                "cublas_dequantized": _time_ms(lambda: x @ w_deq,
+                                               reps=reps)}
+            k8_calls += 5 + reps       # _time_ms's warm-up and timed calls
+            rows.append(rec)
+    window = []
+    for k, n, dtype in _verify_shapes():
+        g = torch.Generator(device="cuda").manual_seed(k * 5 + n)
+        w = (torch.randn(k, n, device="cuda", generator=g) * 0.02).bfloat16()
+        q4, s4 = IF.weight_quantize(w, algo="weight_only_int4")
+        for m in _verify_rows():
+            x = torch.randn(m, k, device="cuda", generator=g).to(dtype)
+            before = _cuda_common.launch_counts()["quant_matmul"]
+            y = IF.weight_only_linear(x, q4, weight_scale=s4,
+                                      weight_dtype="int4")
+            assert _cuda_common.launch_counts()["quant_matmul"] \
+                == before + 1, (m, k, n)
+            k8_calls += 1
+            tol = QMM_TOL[str(dtype).split(".")[1]]
+            rel = _rel(y, quant_matmul_reference(x, q4, s4, k))
+            body = kernel_route(k, dtype)
+            window.append({"shape": [m, k, n], "dtype": str(dtype),
+                           "body": body, "tile_m": tc_tile_m(m)
+                           if body == TC_BODY else None,
+                           "rel_err": rel, "tol": tol})
+            assert rel <= tol, window[-1]
+    counts = _cuda_common.launch_counts()
+    assert counts["quant_matmul"] == k8_calls, (counts, k8_calls)
+    _say("QUANT_API", {"cases": rows, "verify_window_cases": window,
+                       "k8_launches": counts["quant_matmul"],
+                       "tol": QMM_TOL["bfloat16"]})
+    return counts
+
+
+def _verify_rows():
+    """The M at which SPEC_Q4's verify windows call K8: the slot bucket
+    (the engine's `default_buckets`, capped at its slots) x (k + 1)."""
+    from paddle_tpu_torch.jit.api import default_buckets
+
+    return sorted({min(default_buckets(n), SPEC_SLOTS) * (SPEC_Q4_K + 1)
+                   for n in range(1, SPEC_SLOTS + 1)})
+
+
+def _verify_shapes():
+    """(K, N, x dtype) of the 1B model's int4 matmuls in a verify window:
+    the layer matmuls in bf16, and the head, which takes f32 activations
+    (`_logits`)."""
+    import torch
+
+    return [(k, n, torch.bfloat16) for k, n in QUANT_SHAPES] + [
+        (CFG_1B["hidden_size"], CFG_1B["vocab_size"], torch.float32)]
+
+
+# ------------------------------------------------- PTQ through save / load
+
+def _forced_logits(params, spec, prompt, gen):
+    """Teacher-forced f32 logits [len(gen), V] of `gen` after `prompt`,
+    one full-sequence pass through the plain attention and the plain
+    dequant-matmul (with `params`' own weights, quantized or not)."""
+    import torch
+    from paddle_tpu_torch.ops.flash_attention import \
+        flash_attention_reference
+    from paddle_tpu_torch.ops.quantized import quant_matmul_reference
+    from paddle_tpu_torch.text.generation import (_layer_forward_prefill,
+                                                  _logits)
+
+    ids = np.concatenate([prompt, gen[:-1]])
+    with torch.no_grad():
+        x = params["embed"][torch.from_numpy(ids).cuda()[None]]
+        for lw in params["layers"]:
+            x, _ = _layer_forward_prefill(
+                x, lw, spec, params["rope_cos"], params["rope_sin"],
+                attention=flash_attention_reference,
+                qmm=quant_matmul_reference)
+        return _logits(x[0, len(prompt) - 1:], params, spec,
+                       qmm=quant_matmul_reference)
+
+
+def _hold(params, spec, items):
+    """Every generated token of `items` [(prompt, tokens)] held to its
+    teacher-forced logits as SERVE's are (`_teacher_forced`): the argmax,
+    or within TIE_BOUND of it, and at least 90% the argmax. The int4-weight
+    phases (PTQ, STATIC_GEN_Q4, SPEC_Q4) are held the same way: their KV
+    cache is bf16 and both sides read the same packed weight bytes, so the
+    two differ only by f32 summation order rounded to bf16, as SERVE's do.
+    TIE_BOUND_Q's wider int4 bound is for int4 KV blocks, re-rounded on
+    every append, which none of these phases has. Returns (share that is
+    the argmax, largest gap)."""
+    agree = total = 0
+    worst = 0.0
+    for prompt, gen in items:
+        hit, gap = _held_to(_forced_logits(params, spec, prompt,
+                                           np.asarray(gen)), np.asarray(gen))
+        agree += hit
+        total += len(gen)
+        worst = max(worst, gap)
+    assert worst < TIE_BOUND, worst
+    assert agree / total >= 0.9, agree / total
+    return agree / total, worst
+
+
+def _first_divergence(params, spec, prompt, want, got):
+    """Where `got` first leaves `want` (both generated after `prompt`):
+    (index, the teacher-forced logit margin there between the two
+    tokens), or None when they agree."""
+    n = min(len(want), len(got))
+    diff = [i for i in range(n) if want[i] != got[i]]
+    if not diff:
+        return None
+    i = diff[0]
+    lg = _forced_logits(params, spec, prompt, np.asarray(got[:i + 1]))[i]
+    return {"index": i, "margin": float(lg[int(want[i])] - lg[int(got[i])])}
+
+
+def _serve_tokens(model, reqs, **engine_kw):
+    """Greedy tokens of `reqs` [(prompt, new tokens)] through a paged
+    engine (8 slots, whole prompts); returns (engine, token lists)."""
+    from paddle_tpu_torch.inference import ServingEngine
+
+    eng = ServingEngine(model, max_slots=8, kv_block_size=16,
+                        **WHOLE_PROMPT, **engine_kw)
+    rids = [eng.add_request(p, max_new_tokens=n) for p, n in reqs]
+    out = eng.run()
+    return eng, [out[r].tolist() for r in rids]
+
+
+def ptq(model):
+    """ptq_state_dict -> paddle.save / load -> load_ptq_state_dict ->
+    serve int4 (phase 27)."""
+    import tempfile
+    import torch
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.quantized import int4_unpack, quantize_int4
+    from paddle_tpu_torch.quantization import (load_ptq_state_dict,
+                                               ptq_state_dict)
+    from paddle_tpu_torch.text.models import LlamaForCausalLM
+
+    cfg = model.config
+    rs = np.random.RandomState(21)
+    batches = [torch.from_numpy(rs.randint(0, cfg.vocab_size, (1, 128)))
+               .cuda() for _ in range(2)]
+    t0 = time.perf_counter()
+    state = ptq_state_dict(model, algo="weight_only_int4",
+                           sample_inputs=batches)
+    ptq_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "ptq.pdparams")
+        t0 = time.perf_counter()
+        pt.save(state, path)
+        file_gb = os.path.getsize(path) / 1e9
+        loaded = pt.load(path)
+        io_s = time.perf_counter() - t0
+    torch.manual_seed(1)
+    fresh = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16)
+    for p in fresh.parameters():
+        p.stop_gradient = True
+    load_ptq_state_dict(fresh, loaded)
+    # the codes that requantizing the restored bf16 weights moves
+    moved = codes = 0
+    for name, lay in fresh.named_sublayers():
+        key = f"{name}.weight"
+        if f"{name}.weight_scale" not in state:
+            continue
+        k = int(lay.weight.shape[0])
+        q0 = int4_unpack(state[key]._data, k, axis=0)
+        q1 = int4_unpack(quantize_int4(lay.weight._data)[0], k, axis=0)
+        moved += int((q0 != q1).sum())
+        codes += q0.numel()
+    acts = sum(k.endswith(".act_scale") for k in state)
+    del state, loaded
+    reqs = [(p, 32) for p, _ in _requests(cfg.vocab_size)[:4]]
+    _, want = _serve_tokens(model, reqs, weight_quant="int4")
+    eng, got = _serve_tokens(fresh, reqs, weight_quant="int4")
+    same = sum(a == b for a, b in zip(want, got))
+    agree, gap = _hold(eng.params, eng.spec,
+                       [(p, t) for (p, _), t in zip(reqs, got)])
+    div = [_first_divergence(eng.params, eng.spec, p, a, b)
+           for (p, _), a, b in zip(reqs, want, got)]
+    _say("PTQ", {"algo": "weight_only_int4", "calibration_batches": 2,
+                 "act_scales": acts, "ptq_s": ptq_s, "save_load_s": io_s,
+                 "file_gb": file_gb, "codes": codes, "codes_moved": moved,
+                 "requests": len(reqs), "requests_identical": same,
+                 "first_divergence": div, "argmax_agreement": agree,
+                 "max_logit_gap": gap, "tie_bound": TIE_BOUND})
+    assert acts > 0
+    if moved == 0:
+        assert same == len(reqs), div
+    del eng, fresh
+    gc.collect()
+
+
+# --------------------------------------------- the static engine (STATIC_GEN)
+
+STATIC_GEN_SHAPE = (4, 200, 128)       # B, prompt tokens, new tokens
+#: timed decodes of G - 1 replayed steps, each from a fresh prefill
+STATIC_GEN_REPEATS = 5
+
+
+def _static_run(model, ids, tag, weight_quant="none"):
+    """generate() at its defaults on `ids` twice (the first captures the
+    decode step), counted, then the decode timed STATIC_GEN_REPEATS
+    times, each from a fresh prefill (the median is the reading).
+    Returns (tokens [B, new], the counts of the first call, the record)."""
+    import torch
+    from paddle_tpu_torch.ops import _cuda_common
+    from paddle_tpu_torch.text import generation
+
+    b, s = ids.shape
+    n = STATIC_GEN_SHAPE[2]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda_common.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = model.generate(torch.from_numpy(ids), max_new_tokens=n,
+                         weight_quant=weight_quant)
+    first_s = time.perf_counter() - t0
+    counts = _cuda_common.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    again = model.generate(torch.from_numpy(ids), max_new_tokens=n,
+                           weight_quant=weight_quant)
+    warm_s = time.perf_counter() - t0
+    assert torch.equal(out, again)
+    toks = out.numpy()[:, s:]
+    assert toks.shape == (b, n)
+    assert ((toks >= 0) & (toks < model.config.vocab_size)).all()
+    params, progs = generation._static_entry(model, weight_quant)
+    prog = next(p for p in progs.values() if p.graph is not None)
+    g = prog.toks.shape[1]
+    ids_p = np.zeros((b, prog.k.shape[2] - g), np.int64)
+    ids_p[:, :s] = ids
+    step_ms = []
+    for _ in range(STATIC_GEN_REPEATS):
+        prog.prefill(torch.from_numpy(ids_p).cuda(), s)
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        prog.decode(g - 1)
+        e.record()
+        e.synchronize()
+        step_ms.append(a.elapsed_time(e) / (g - 1))
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True, timeout=60).stdout.strip()
+    med = float(np.median(step_ms))
+    rec = {"batch": b, "prompt": s, "new_tokens": n, "generation_bucket": g,
+           "weight_quant": weight_quant, "first_generate_s": first_s,
+           "warm_generate_s": warm_s, "capture_s": prog.capture_s,
+           "ms_per_replayed_step": med, "ms_per_step_repeats": step_ms,
+           "sm_clock_after": clocks,
+           "decode_tok_per_s": b / (med / 1e3),
+           "generate_tok_per_s": b * n / warm_s,
+           "max_memory_allocated_gb": peak,
+           "static_cache_gb": 2 * prog.k.numel() * prog.k.element_size()
+           / 1e9,
+           "launches": {k: v for k, v in counts.items() if v}}
+    return toks, counts, rec, params
+
+
+def static_gen(model):
+    """Phase 28. Returns {tag: launch counts}."""
+    import torch
+
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    b, s, n = STATIC_GEN_SHAPE
+    ids = np.random.RandomState(31).randint(0, cfg.vocab_size, (b, s))
+    out = {}
+    for tag, wq in (("STATIC_GEN", "none"), ("STATIC_GEN_Q4", "int4")):
+        toks, counts, rec, params = _static_run(model, ids, tag, wq)
+        paged = model.generate(torch.from_numpy(ids), max_new_tokens=n,
+                               engine="paged",
+                               weight_quant=wq).numpy()[:, s:]
+        spec = model_spec(model)
+        items = [(ids[i], toks[i]) for i in range(b)]
+        agree, gap = _hold(params, spec, items)
+        rec |= {"rows_identical_to_paged": int(sum(
+                    (toks[i] == paged[i]).all() for i in range(b))),
+                "first_divergence_from_paged": [
+                    _first_divergence(params, spec, ids[i], paged[i],
+                                      toks[i]) for i in range(b)],
+                "argmax_agreement": agree, "max_logit_gap": gap,
+                "tie_bound": TIE_BOUND}
+        assert counts["flash_attention_fwd"] == layers, counts
+        assert all(counts[k] == 0 for k in (
+            "paged_decode_attention", "paged_decode_attention_int8",
+            "paged_decode_attention_int4")), counts
+        per_step = 7 * layers + 1
+        if wq == "int4":
+            # the prefill and each of the 127 replayed steps
+            assert counts["quant_matmul"] == per_step * rec[
+                "generation_bucket"], counts
+            rec["k8_launches_per_step"] = per_step
+        else:
+            assert counts["quant_matmul"] == 0, counts
+        _say(tag, rec)
+        out[tag] = counts
+    # a seeded sampled run against its repeat
+    kw = dict(max_new_tokens=32, do_sample=True, temperature=0.8, top_k=40,
+              seed=7)
+    a = model.generate(torch.from_numpy(ids), **kw)
+    c = model.generate(torch.from_numpy(ids), **kw)
+    d = model.generate(torch.from_numpy(ids), **dict(kw, seed=8))
+    _say("STATIC_GEN_SAMPLED", {"repeat_identical": bool(torch.equal(a, c)),
+                                "other_seed_differs": not torch.equal(a, d)})
+    assert torch.equal(a, c)
+    return out
+
+
+def model_spec(model):
+    from paddle_tpu_torch.text.generation import _spec_from_config
+
+    return _spec_from_config(model.config)
+
+
+# ---------------------------------------------- speculative decoding (SPEC)
+
+#: bench.py `bench_llama_spec_decode`'s TPU configuration: the draft, the
+#: slots, requests, motif, tiles and new tokens
+CFG_DRAFT = dict(vocab_size=32000, hidden_size=256, intermediate_size=704,
+                 num_hidden_layers=2, num_attention_heads=4,
+                 max_position_embeddings=1024)
+SPEC_SLOTS, SPEC_REQUESTS, SPEC_MOTIF, SPEC_TILES, SPEC_NEW = 4, 8, 16, 8, 96
+#: SPEC_Q4's speculation depth
+SPEC_Q4_K = 4
+
+
+def _spec_streams(vocab):
+    rs = np.random.RandomState(0)
+    return {"repetitive": [np.tile(rs.randint(0, vocab, (SPEC_MOTIF,)),
+                                   SPEC_TILES) for _ in range(SPEC_REQUESTS)],
+            "adversarial": [rs.randint(0, vocab, (SPEC_MOTIF * SPEC_TILES,))
+                            for _ in range(SPEC_REQUESTS)]}
+
+
+def _spec_pass(eng, prompts):
+    """One pass of `prompts` through `eng`; (tokens, wall s, decode
+    tokens, decode s, verify program calls, decode program calls)."""
+    import torch
+
+    calls = {"verify": 0, "decode": 0}
+    spec_decode, decode = eng._spec_decode, eng._decode
+
+    def counted_spec(*a):
+        calls["verify"] += 1
+        return spec_decode(*a)
+
+    def counted_decode(*a):
+        calls["decode"] += 1
+        return decode(*a)
+
+    eng._spec_decode, eng._decode = counted_spec, counted_decode
+    st0 = eng.stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.add_request(p, max_new_tokens=SPEC_NEW) for p in prompts]
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng._spec_decode, eng._decode = spec_decode, decode
+    st = eng.stats()
+    return ([out[r].tolist() for r in rids], wall,
+            st["decode_tokens"] - st0["decode_tokens"],
+            st["decode_time_s"] - st0["decode_time_s"], calls)
+
+
+def _spec_run(model, prompts, spec, **engine_kw):
+    """A warm pass and a timed pass after finish_warmup() on one engine;
+    returns (engine, timed tokens, record, counts of the timed pass)."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.ops import _cuda_common
+
+    eng = ServingEngine(model, max_slots=SPEC_SLOTS, kv_block_size=16,
+                        spec_decode=spec, **WHOLE_PROMPT, **engine_kw)
+    warm, *_ = _spec_pass(eng, prompts)
+    eng.finish_warmup()
+    stats0 = eng.spec_stats()
+    _cuda_common.reset_launch_counts()
+    toks, wall, dtok, dsec, calls = _spec_pass(eng, prompts)
+    counts = _cuda_common.launch_counts()
+    assert toks == warm, "a replay of the same speculating run differs"
+    st = eng.spec_stats()
+    timed = {k: st[k] - stats0[k] for k in ("windows", "proposed_tokens",
+                                            "accepted_tokens")}
+    timed["accept_rate"] = (timed["accepted_tokens"]
+                            / timed["proposed_tokens"]
+                            if timed["proposed_tokens"] else 0.0)
+    rec = {"wall_s": wall, "decode_tokens": dtok,
+           "decode_tok_per_s": dtok / dsec, "spec_stats": timed,
+           "verify_calls": calls["verify"], "decode_calls": calls["decode"],
+           "captures_after_warmup": eng._graph_stats()[
+               "captures_after_warmup"],
+           "replay_identical": True,
+           "launches": {k: v for k, v in counts.items() if v}}
+    assert rec["captures_after_warmup"] == 0, rec
+    return eng, toks, rec, counts
+
+
+def static_spec(model, prompts):
+    """STATIC_SPEC: `generate(spec_decode="ngram")` on the static engine
+    (greedy, an eager verify loop over a dense cache, its prefill on K1)
+    for `prompts` as one batch, held to `generate()` at its defaults and
+    teacher-forced. Returns the launch counts of one generate."""
+    import torch
+    from paddle_tpu_torch.core.flags import flag
+    from paddle_tpu_torch.ops import _cuda_common
+    from paddle_tpu_torch.text.generation import _extract_llama
+
+    layers = model.config.num_hidden_layers
+    ids = torch.from_numpy(np.stack(prompts))
+    s = ids.shape[1]
+    _cuda_common.reset_launch_counts()
+    first = model.generate(ids, max_new_tokens=SPEC_NEW, spec_decode="ngram")
+    counts = _cuda_common.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = model.generate(ids, max_new_tokens=SPEC_NEW, spec_decode="ngram")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert torch.equal(first, again), "a repeat of the static spec run"
+    toks = first.numpy()[:, s:]
+    assert toks.shape == (len(prompts), SPEC_NEW)
+    base = model.generate(ids, max_new_tokens=SPEC_NEW).numpy()[:, s:]
+    params, spec_ = _extract_llama(model), model_spec(model)
+    agree, gap = _hold(params, spec_, list(zip(prompts, toks)))
+    rec = {"batch": len(prompts), "prompt": s, "new_tokens": SPEC_NEW,
+           "k": int(flag("FLAGS_spec_k")), "wall_s": wall,
+           "tok_per_s": toks.size / wall,
+           "rows_identical_to_static": int(sum(
+               (toks[i] == base[i]).all() for i in range(len(prompts)))),
+           "first_divergence_from_static": [
+               _first_divergence(params, spec_, p, b, t)
+               for p, b, t in zip(prompts, base, toks)],
+           "argmax_agreement": agree, "max_logit_gap": gap,
+           "tie_bound": TIE_BOUND,
+           "launches": {k: v for k, v in counts.items() if v}}
+    _say("STATIC_SPEC", rec)
+    # one prefill through K1 per layer; the verify windows are plain torch
+    assert counts["flash_attention_fwd"] == layers, counts
+    assert sum(counts.values()) == layers, counts
+    return counts
+
+
+def spec():
+    """Phase 29, the 168M target. Returns (the launch counts summed over
+    its timed passes, STATIC_SPEC's counts)."""
+    import torch
+    from paddle_tpu_torch.inference.speculative import SpecConfig
+    from paddle_tpu_torch.text.models import LlamaConfig, LlamaForCausalLM
+
+    torch.manual_seed(0)
+    model = LlamaForCausalLM(LlamaConfig(**CFG_168M), device="cuda",
+                             dtype=torch.bfloat16)
+    draft = LlamaForCausalLM(LlamaConfig(**CFG_DRAFT), device="cuda",
+                             dtype=torch.bfloat16)
+    for m in (model, draft):
+        for p in m.parameters():
+            p.stop_gradient = True
+    streams = _spec_streams(model.config.vocab_size)
+    total = {}
+    runs = {}
+    for stream, ks in (("repetitive", (2, 4, 8)), ("adversarial", (4,))):
+        prompts = streams[stream]
+        eng, base, rec, counts = _spec_run(model, prompts, None)
+        runs[f"{stream}/baseline"] = rec
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        for method in ("ngram", "draft"):
+            for k in ks:
+                cfg = SpecConfig(method=method, k=k, draft_model=draft
+                                 if method == "draft" else None)
+                eng, toks, rec, counts = _spec_run(model, prompts, cfg)
+                for name, v in counts.items():
+                    total[name] = total.get(name, 0) + v
+                params, spec_ = eng.params, eng.spec
+                rec["requests_identical_to_baseline"] = sum(
+                    a == b for a, b in zip(base, toks))
+                rec["first_divergence"] = [
+                    _first_divergence(params, spec_, p, a, b)
+                    for p, a, b in zip(prompts, base, toks)]
+                agree, gap = _hold(params, spec_, list(zip(prompts, toks)))
+                rec |= {"argmax_agreement": agree, "max_logit_gap": gap}
+                rec["speedup"] = rec["decode_tok_per_s"] / runs[
+                    f"{stream}/baseline"]["decode_tok_per_s"]
+                runs[f"{stream}/{method}/k{k}"] = rec
+                del eng
+    counts_static = static_spec(model, streams["repetitive"][:SPEC_SLOTS])
+    _say("SPEC", {"target": "CFG_168M", "draft": CFG_DRAFT,
+                  "slots": SPEC_SLOTS, "requests": SPEC_REQUESTS,
+                  "prompt_tokens": SPEC_MOTIF * SPEC_TILES,
+                  "new_tokens": SPEC_NEW, "tie_bound": TIE_BOUND,
+                  "runs": runs, "launches": total})
+    del model, draft
+    gc.collect()
+    return total, counts_static
+
+
+def spec_q4(model):
+    """Phase 29's int4 half: the 1B model, n-gram k 4, repetitive stream.
+    Returns the counts of the timed pass."""
+    from paddle_tpu_torch.inference.speculative import SpecConfig
+    from paddle_tpu_torch.ops.paged_decode import KERNEL_NAMES
+
+    layers = model.config.num_hidden_layers
+    prompts = _spec_streams(model.config.vocab_size)["repetitive"]
+    eng, toks, rec, counts = _spec_run(model, prompts,
+                                       SpecConfig(method="ngram",
+                                                  k=SPEC_Q4_K),
+                                       weight_quant="int4")
+    per_step = 7 * layers + 1
+    # every program call of the timed pass sweeps the weights once: the
+    # prefills, the plain decode ticks and the verify windows
+    calls = len(prompts) + rec["decode_calls"] + rec["verify_calls"]
+    assert counts["quant_matmul"] == per_step * calls, (counts, rec)
+    assert counts[KERNEL_NAMES["model"]] == rec["decode_calls"] * layers
+    assert counts["flash_attention_fwd"] == len(prompts) * layers
+    agree, gap = _hold(eng.params, eng.spec, list(zip(prompts, toks)))
+    rec |= {"k": SPEC_Q4_K, "k8_launches_per_verify_window": per_step,
+            "argmax_agreement": agree, "max_logit_gap": gap,
+            "tie_bound": TIE_BOUND}
+    _say("SPEC_Q4", rec)
+    del eng
+    return counts
+
+
 def main():
     import torch
 
@@ -5216,8 +5893,18 @@ def main():
     serve_graph_eager(model, served, prefixed)
     serve_graph_steady(model)
     del served, prefixed
-    del model                     # the serving weights; TRAIN builds its own
     phases["serve"] = time.perf_counter() - t0
+    # the quantization surface, the static engine and speculative
+    # decoding, on the serve's 1B model (and SPEC's 168M pair)
+    t0 = time.perf_counter()
+    counts_quant = quant_api()
+    ptq(model)
+    counts_sgen = static_gen(model)
+    counts_spec_q4 = spec_q4(model)
+    del model                     # the serving weights; TRAIN builds its own
+    gc.collect()
+    counts_spec, counts_static_spec = spec()
+    phases["quant_static_spec"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     _clean_device()
     tmodel, opt, ids, counts_train, train_peak = train()
@@ -5555,6 +6242,21 @@ def main():
             row["launches_nn_transformer"] = counts_nn[row["name"]]
         if row["name"] in counts_incubate and "launches_path" not in row:
             row["launches_incubate_fused"] = counts_incubate[row["name"]]
+    # K1, K7 and K8's main-path rows also carry their launches on the
+    # static engine's and the speculating engine's paths, K8's in
+    # QUANT_API
+    new_paths = {"launches_static_gen": counts_sgen["STATIC_GEN"],
+                 "launches_static_gen_q4": counts_sgen["STATIC_GEN_Q4"],
+                 "launches_spec": counts_spec,
+                 "launches_static_spec": counts_static_spec,
+                 "launches_spec_q4": counts_spec_q4}
+    for row in summary:
+        if "launches_prefix_phases" not in row:
+            continue
+        for key, cnt in new_paths.items():
+            row[key] = cnt.get(row["name"], 0)
+        if row["name"] == "quant_matmul":
+            row["launches_quant_api"] = counts_quant["quant_matmul"]
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

@@ -49,6 +49,7 @@ from . import linalg  # noqa: F401,E402
 from . import nn  # noqa: F401,E402
 from . import amp, jit, optimizer  # noqa: F401,E402
 from . import fft, geometric, incubate, signal, text  # noqa: F401,E402
+from . import quantization  # noqa: F401,E402
 from .framework_io import load, save  # noqa: F401,E402
 from .nn import ParamAttr  # noqa: F401,E402
 

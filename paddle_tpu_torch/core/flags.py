@@ -32,6 +32,14 @@ _FLAGS = {
     # matmuls and lm_head: "none" | "int8" (per-channel scales) | "int4"
     # (packed nibbles, per-channel scales)
     "FLAGS_weight_only_dtype": _from_env("FLAGS_weight_only_dtype", "none"),
+    # speculative decoding on the paged serving engine
+    # (inference/speculative.py): "off" | "ngram" (prompt lookup) | "draft"
+    # (a draft model, passed through SpecConfig(draft_model=...)); greedy
+    # outputs stay token-identical to the non-speculative engine
+    "FLAGS_spec_decode": _from_env("FLAGS_spec_decode", "off"),
+    # speculation depth: tokens proposed per verify window (each window
+    # scores K + 1 candidate positions in one pass and emits 1..K + 1)
+    "FLAGS_spec_k": _from_env("FLAGS_spec_k", 4),
     # slot count of the continuous-batching engine (inference/engine.py)
     "FLAGS_serving_slots": _from_env("FLAGS_serving_slots", 8),
     # content-hash full KV blocks in the serving engine and serve shared

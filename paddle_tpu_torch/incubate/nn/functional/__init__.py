@@ -22,10 +22,12 @@ on the torch tensors beneath.
 - `memory_efficient_attention` is the flash route (K1v / K2v with
   `cu_seqlens`, else `scaled_dot_product_attention`), and
   `fused_linear_cross_entropy` the chunked loss (`fused_loss.py`).
-- `fused_multi_head_attention` raises, as the reference's does; the
-  quantization functions (`weight_quantize`, `weight_quantize_raw`,
-  `weight_dequantize`, `weight_only_linear`, `llm_int8_linear`) raise
-  NotImplementedError naming ROADMAP.md Queue 1 item 3.
+- The quantization functions: `weight_quantize`, `weight_quantize_raw`
+  and `weight_dequantize` (int8 and packed int4, `ops.quantized`'s
+  rules), `weight_only_linear` (`quant_matmul`: K8 for per-channel int4
+  on a card) and `llm_int8_linear` (int8 x int8 -> int32 through
+  cuBLASLt on a card).
+- `fused_multi_head_attention` raises, as the reference's does.
 """
 from __future__ import annotations
 
@@ -35,6 +37,9 @@ import numpy as np
 import torch
 
 from ....core.dispatch import boundary, op
+from ....core.dtype import convert_dtype
+from ....ops.quantized import (dequant_int4, int8_matmul, quant_linear,
+                               quantize_int4, quantize_int8)
 from ....nn import functional as F
 from ....nn.functional import fused_dropout_add  # noqa: F401  (K6)
 from .fused_loss import (fused_linear_cross_entropy,  # noqa: F401
@@ -461,22 +466,104 @@ def fused_multi_transformer(x, ln_scales, ln_biases, qkv_weights, qkv_biases,
     return out, cache_kvs
 
 
-# ---------------------------------------------------- quantization (item 3)
-def _item_3(name):
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP.md Queue 1 item 3, the "
-            "quantization surface)")
+# ------------------------------------------------------------ quantization
+@op("weight_quantize", n_diff=0)
+def weight_quantize(x, algo="weight_only_int8", arch=None, group_size=-1,
+                    name=None):
+    """(quantized weight, f32 scales) of a [K, N] weight with per-out-
+    channel absmax scales. weight_only_int4 stores packed int4, two
+    nibbles per byte, [ceil(K/2), N] int8 (`ops.quantized`'s split-half
+    layout), with group-wise scales [K // group_size, N] when `group_size`
+    > 0. A group size that does not divide K, or one with int8, raises
+    ValueError, as the reference's does. The scales are the reference
+    op's to the bit (`ops.quantized._over`)."""
+    if algo not in ("weight_only_int8", "weight_only_int4", "llm.int8"):
+        raise ValueError(f"weight_quantize: unknown algo {algo!r}")
+    if algo == "weight_only_int4":
+        k = int(x.shape[-2]) if x.dim() >= 2 else int(x.shape[0])
+        if group_size and group_size > 0 and k % group_size:
+            raise ValueError(
+                f"weight_quantize: group_size {group_size} does not divide "
+                f"K={k} — int4 packing refuses to quietly widen")
+        return quantize_int4(x, group_size, reciprocal=True)
+    if group_size and group_size > 0:
+        raise ValueError(
+            f"weight_quantize: group_size is an int4 packing knob; "
+            f"{algo} stores per-out-channel scales only")
+    return quantize_int8(x, 127.0, reciprocal=True)
 
-    refuse.__name__ = name
-    return refuse
+
+@boundary
+def weight_quantize_raw(w, qmax=127.0):
+    """Per-output-channel absmax int8 of a [K, N] weight: (q int8, scale
+    f32 [N]), codes clipped to +-qmax. The one rule that
+    `weight_quantize` and the serving path's weight-only int8 share
+    (`ops.quantized.quantize_int8`)."""
+    return quantize_int8(w, float(qmax))
 
 
-weight_quantize = _item_3("weight_quantize")
-weight_quantize_raw = _item_3("weight_quantize_raw")
-weight_dequantize = _item_3("weight_dequantize")
-weight_only_linear = _item_3("weight_only_linear")
-llm_int8_linear = _item_3("llm_int8_linear")
+@op("weight_dequantize", n_diff=0)
+def weight_dequantize(x, scale, algo="weight_only_int8", out_dtype="float16",
+                      k=None, name=None):
+    """Quantized weight + scales -> the float weight in `out_dtype`. For
+    weight_only_int4 `x` is the packed [ceil(K/2), N] storage; `k` gives
+    an odd logical K (default 2 * packed rows)."""
+    dt = convert_dtype(out_dtype)
+    if algo == "weight_only_int4":
+        kk = int(k) if k is not None else 2 * int(x.shape[-2])
+        return dequant_int4(x, scale, kk, dt)
+    return (x.float() * scale[None, :]).to(dt)
+
+
+@op("weight_only_linear")
+def weight_only_linear(x, weight, bias=None, weight_scale=None,
+                       weight_dtype="int8", arch=None, group_size=-1,
+                       name=None):
+    """y = x @ dequant(weight) + bias over a weight-only pair:
+    weight_dtype="int8" takes weight [K, N] int8 (the reference's plain
+    arithmetic), "int4" the packed [ceil(K/2), N] storage of
+    `weight_quantize(algo="weight_only_int4")`, per-channel [N] or grouped
+    [G, N] scales. Through `ops.quantized.quant_matmul`: per-channel int4
+    is K8 on a card. Only x takes a gradient (`ops.quantized.
+    quant_linear`), as in the reference's tape."""
+    if weight_scale is None:
+        raise ValueError("weight_only_linear requires weight_scale")
+    if weight_dtype not in ("int8", "int4"):
+        raise ValueError(
+            f"weight_only_linear: unsupported weight_dtype {weight_dtype!r}"
+            " (int8 | int4)")
+    out = quant_linear(x, weight, weight_scale.detach())
+    return out if bias is None else out + bias.detach()
+
+
+@op("llm_int8_linear")
+def llm_int8_linear(x, weight, bias=None, weight_scale=None, threshold=6.0,
+                    name=None):
+    """LLM.int8() (Dettmers 2022) mixed-precision GEMM: activation columns
+    whose absmax exceeds `threshold` run in f32 against the dequantized
+    weight rows, the rest as int8 x int8 -> int32
+    (`ops.quantized.int8_matmul`: cuBLASLt's int8 GEMM on a card, exact
+    sums). Only x takes a gradient, as in the reference's tape."""
+    if weight_scale is None:
+        raise ValueError("llm_int8_linear requires weight_scale")
+    s = weight_scale.detach()
+    af = x.float()
+    k = af.shape[-1]
+    col_max = af.reshape(-1, k).abs().amax(dim=0)
+    outlier = col_max > threshold                          # [K]
+    a_scale = torch.clamp_min(torch.where(
+        outlier, 0.0, af).abs().amax(dim=-1, keepdim=True), 1e-6) / 127.0
+    qa = torch.clamp(torch.round(af / a_scale), -127, 127).to(torch.int8)
+    qa = torch.where(outlier, 0, qa).to(torch.int8)
+    qw = torch.where(outlier[:, None], 0, weight).to(torch.int8)
+    reg = int8_matmul(qa.reshape(-1, k), qw).float()
+    reg = reg.reshape(*af.shape[:-1], -1) * a_scale * s[None, :]
+    wf = weight.float() * s[None, :]
+    out = reg + torch.where(outlier, af, 0.0) @ torch.where(
+        outlier[:, None], wf, 0.0)
+    if bias is not None:
+        out = out + bias.detach().float()
+    return out.to(x.dtype)
 
 
 def memory_efficient_attention(query, key, value, bias=None, cu_seqlens_q=None,

@@ -49,10 +49,18 @@ paged-decode kernels; `weight_quant="int8"|"int4"` stores the layer
 matmuls and the lm_head as weight-only pairs (int4 through the
 dequant-matmul kernel, int8 as the reference's plain arithmetic).
 
+Speculative decoding (`spec_decode`, inference/speculative.py): each
+tick the proposer offers candidates for the speculating slots, which ride
+one verify window ("serving.spec_verify", extra (k,)): the window's K/V
+scattered through the block tables, dense attention over the gathered
+pages, f32 logits [B, k + 1, V] and the accept rule, in one program; the
+other slots take the ordinary decode in the same tick. The host reads the
+accepted flags and targets once per window and rolls back by bookkeeping
+alone.
+
 Not ported yet, refused with NotImplementedError naming the ROADMAP item:
-speculative decoding (`spec_decode`, `add_request(speculative=...)`,
-`spec_stats`; item 4), GPT models (item 10), and the metrics registry and
-flight recorder (`metrics`, `render_prometheus`, `dump_trace`; item 7).
+GPT models (item 10), and the metrics registry and flight recorder
+(`metrics`, `render_prometheus`, `dump_trace`; item 7).
 
 Sampling runs inside the programs (a greedy key is a bare argmax, a
 sampling key `_sample_batched`) from a `torch.Generator` on the engine's
@@ -62,8 +70,8 @@ argmax.
 """
 from __future__ import annotations
 
+import functools
 import hashlib
-import math
 import time
 from collections import OrderedDict, deque
 
@@ -79,9 +87,12 @@ from ..ops._cuda_common import resolve_device
 from ..ops.flash_attention import flash_attention_fwd
 from ..ops.paged_decode import paged_decode_attention
 from ..ops.quantized import quant_matmul_raw
-from ..text.generation import (_extract_llama, _layer_forward_prefill,
-                               _logits, _mm, _rms_norm, _rope,
-                               _spec_from_config)
+from ..text.generation import (_SAMP_KEYS, _cached_block,  # noqa: F401
+                               _dense_attention, _extract_llama,
+                               _filter_logits, _layer_forward_prefill,
+                               _logits, _sample_batched, _spec_from_config,
+                               _tensors)
+from ..text.generation import _categorical
 from ..text.paged_cache import (TRASH_BLOCK, BlockAllocator, PagedKVCache,
                                 PrefixCache, append_token,
                                 append_token_int4, append_token_int8,
@@ -92,7 +103,6 @@ from ..text.paged_cache import (TRASH_BLOCK, BlockAllocator, PagedKVCache,
 from .programs import Program
 
 
-_ITEM_SPEC = "4, 'Speculative decoding'"
 _ITEM_OBS = "7, 'obs'"
 
 #: quantized KV-cache modes and their (append, scatter_prefill,
@@ -111,41 +121,6 @@ def _not_ported(what: str, item: str):
         f"item {item})")
 
 
-# ------------------------------------------------------ batched sampling
-
-def _filter_logits(logits, temperature, top_k, top_p):
-    """The (temperature, top-k, top-p) logit filter over [B, V] with the
-    sampling params as batched tensors — top-k before top-p, as the
-    reference."""
-    v = logits.shape[-1]
-    lg = logits.float() / temperature.clamp_min(1e-6)[:, None]
-    srt = torch.sort(lg, dim=-1, descending=True).values
-    kth = torch.gather(srt, -1, (top_k.long() - 1).clamp(0, v - 1)[:, None])
-    lg = torch.where((top_k > 0)[:, None] & (lg < kth), float("-inf"), lg)
-    srt2 = torch.sort(lg, dim=-1, descending=True).values
-    probs = torch.softmax(srt2, dim=-1)
-    cum = torch.cumsum(probs, dim=-1)
-    keep = cum - probs < top_p[:, None]
-    cutoff = torch.where(keep, srt2, float("inf")).min(
-        dim=-1, keepdim=True).values
-    return torch.where((top_p < 1.0)[:, None] & (lg < cutoff), float("-inf"),
-                       lg)
-
-
-def _sample_batched(logits, generator, do_sample, temperature, top_k, top_p):
-    """Per-slot (greedy | temperature/top-k/top-p) sampling over [B, V];
-    greedy rows are an exact argmax. Sampled rows draw by Gumbel-max from
-    `generator`."""
-    greedy = logits.argmax(dim=-1)
-    lg = _filter_logits(logits, temperature, top_k, top_p)
-    u = torch.rand(lg.shape, generator=generator, device=lg.device)
-    gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
-    sampled = (lg + gumbel).argmax(dim=-1)
-    return torch.where(do_sample, sampled, greedy)
-
-
-#: a sampling program's per-row inputs, as `_sample_batched` takes them
-_SAMP_KEYS = ("do_sample", "temperature", "top_k", "top_p")
 
 def _next_tokens(logits, sample):
     """The step's output: the f32 logits [B, V] themselves when `sample`
@@ -192,31 +167,6 @@ def _paged_attn(q, k_new, v_new, kc, vc, ksc, vsc, tables, pos,
                             kv_int4=kv_mode == "int4")
 
 
-def _paged_layer_llama(x, lw, kc, vc, ksc, vsc, pos, tables, spec, cos, sin,
-                       block_size, kv_mode,
-                       decode_attention=paged_decode_attention,
-                       qmm=quant_matmul_raw):
-    """One LLaMA block for seq-1 queries at per-slot positions against the
-    paged cache. x [B, H]; kc/vc one layer's pool slice, ksc/vsc its
-    scales (quantized modes)."""
-    b, h = x.shape
-    hn = _rms_norm(x, lw["input_ln"], spec.rms_eps)
-    q = _mm(hn, lw["q"], qmm).reshape(b, spec.num_heads, spec.head_dim)
-    k = _mm(hn, lw["k"], qmm).reshape(b, spec.num_kv_heads, spec.head_dim)
-    v = _mm(hn, lw["v"], qmm).reshape(b, spec.num_kv_heads, spec.head_dim)
-    c = cos[pos][:, None]                       # [B, 1, D]
-    sn = sin[pos][:, None]
-    q = _rope(q, c, sn)
-    k = _rope(k, c, sn)
-    out = _paged_attn(q, k, v, kc, vc, ksc, vsc, tables, pos, block_size,
-                      kv_mode, decode_attention)
-    x = x + _mm(out.reshape(b, spec.num_heads * spec.head_dim), lw["o"],
-                qmm)
-    hn = _rms_norm(x, lw["post_ln"], spec.rms_eps)
-    return x + _mm(F.silu(_mm(hn, lw["gate"], qmm)) * _mm(hn, lw["up"], qmm),
-                   lw["down"], qmm)
-
-
 # ------------------------------------------------------- step functions
 # The kernel functions are arguments, defaulting to the routed wrappers
 # (which take their plain versions for CPU tensors), so a check can run
@@ -232,13 +182,19 @@ def _decode_step(spec, block_size, kv_mode, params, cache, tok, pos, tables,
     `_next_tokens`), or the f32 logits [B, V] when it is None."""
     quantized = kv_mode != "model"
     x = params["embed"][tok]                                # [B, H]
-    cos, sin = params["rope_cos"], params["rope_sin"]
+    cos = params["rope_cos"][pos][:, None]                  # [B, 1, D]
+    sin = params["rope_sin"][pos][:, None]
+
+    def attend(li, q, k, v):
+        return _paged_attn(q, k, v, cache.k[li], cache.v[li],
+                           cache.k_scale[li] if quantized else None,
+                           cache.v_scale[li] if quantized else None,
+                           tables, pos, block_size, kv_mode,
+                           decode_attention)
+
     for li, lw in enumerate(params["layers"]):
-        ksc = cache.k_scale[li] if quantized else None
-        vsc = cache.v_scale[li] if quantized else None
-        x = _paged_layer_llama(x, lw, cache.k[li], cache.v[li], ksc, vsc,
-                               pos, tables, spec, cos, sin, block_size,
-                               kv_mode, decode_attention, qmm)
+        x = _cached_block(x, lw, spec, cos, sin,
+                          functools.partial(attend, li), qmm)
     return _next_tokens(_logits(x, params, spec, qmm), sample)
 
 
@@ -307,23 +263,14 @@ def _chunk_prefill_step(spec, block_size, kv_mode, emit_token, ctx_pages,
     pos_safe = torch.clamp(pos, 0, params["rope_cos"].shape[0] - 1)
     cos = params["rope_cos"][pos_safe][:, None]             # [C, 1, D]
     sin = params["rope_sin"][pos_safe][:, None]
-    rep = spec.num_heads // spec.num_kv_heads
-    inv_scale = 1.0 / math.sqrt(spec.head_dim)
     kv_pos = torch.arange(ctx_pages * block_size, device=dev)
     q_mask = kv_pos[None, :] <= pos[:, None]                # [C, T]
     int4 = kv_mode == "int4"
-    for li, lw in enumerate(params["layers"]):
+
+    def attend(li, q, k, v):
         kc, vc = cache.k[li], cache.v[li]
         ksc = cache.k_scale[li] if quantized else None
         vsc = cache.v_scale[li] if quantized else None
-        hn = _rms_norm(x, lw["input_ln"], spec.rms_eps)
-        q = _mm(hn, lw["q"], qmm).reshape(c, spec.num_heads, spec.head_dim)
-        k = _mm(hn, lw["k"], qmm).reshape(c, spec.num_kv_heads,
-                                          spec.head_dim)
-        v = _mm(hn, lw["v"], qmm).reshape(c, spec.num_kv_heads,
-                                          spec.head_dim)
-        q = _rope(q, cos, sin)
-        k = _rope(k, cos, sin)
         if quantized:
             scat = _KV_FNS[kv_mode][2]
             scat(kc, ksc, k, start, true_end, table_row, block_size)
@@ -333,33 +280,123 @@ def _chunk_prefill_step(spec, block_size, kv_mode, emit_token, ctx_pages,
             scatter_chunk(vc, v, start, true_end, table_row, block_size)
         kx = gather_context(kc, ksc, table_row, ctx_pages, int4=int4)
         vx = gather_context(vc, vsc, table_row, ctx_pages, int4=int4)
-        kx = kx.to(q.dtype).repeat_interleave(rep, dim=1)   # [T, Hq, D]
-        vx = vx.to(q.dtype).repeat_interleave(rep, dim=1)
-        scores = torch.einsum("chd,thd->hct", q, kx) * inv_scale
-        scores = torch.where(q_mask[None], scores,
-                             torch.finfo(scores.dtype).min)
-        probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-        out = torch.einsum("hct,thd->chd", probs, vx)
-        x = x + _mm(out.reshape(c, spec.num_heads * spec.head_dim), lw["o"],
-                    qmm)
-        hn = _rms_norm(x, lw["post_ln"], spec.rms_eps)
-        x = x + _mm(F.silu(_mm(hn, lw["gate"], qmm))
-                    * _mm(hn, lw["up"], qmm), lw["down"], qmm)
+        return _dense_attention(q[None], kx[None], vx[None],
+                                q_mask[None])[0]
+
+    for li, lw in enumerate(params["layers"]):
+        x = _cached_block(x, lw, spec, cos, sin,
+                          functools.partial(attend, li), qmm)
     if not emit_token:
         return None
     last = x.index_select(0, _index(last_idx, dev))
     return _next_tokens(_logits(last, params, spec, qmm), sample)
 
 
-def _tensors(tree):
-    """Every tensor of a nest of dicts, lists and tuples."""
-    if isinstance(tree, dict):
-        tree = list(tree.values())
-    if isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _tensors(v)
-    else:
-        yield tree
+def _verify_tokens(lg, proposed, sample=None):
+    """The accept/emit rule over the verify window's [B, C, V] logits (C
+    = K + 1 candidate positions; `proposed` [B, K] = candidates 1..K).
+    Greedy rows accept while each proposal matches the verifier's own
+    argmax. Sampling rows (`sample` = (any_sample, inputs, generator) as
+    `_next_tokens` takes it) run Leviathan-style rejection sampling
+    against the row's filtered distribution p (the draft proposes a point
+    mass): accept x with probability p(x); a rejection resamples from p
+    with x removed; position K draws the all-accepted bonus token.
+    Returns (acc [B, K] bool, tgt [B, C]): tgt[:, j] is the token to emit
+    when acceptance stops at position j."""
+    b, c, v = lg.shape
+    kk = c - 1
+    greedy = lg.argmax(dim=-1)                                 # [B, C]
+    acc = proposed == greedy[:, :kk]
+    if sample is None or not sample[0]:
+        return acc, greedy
+    _, samp, gen = sample
+    filt = _filter_logits(
+        lg.reshape(b * c, v), samp["temperature"].repeat_interleave(c),
+        samp["top_k"].repeat_interleave(c),
+        samp["top_p"].repeat_interleave(c)).reshape(b, c, v)
+    probs = torch.softmax(filt, dim=-1)
+    u = torch.rand((b, kk), generator=gen, device=lg.device)
+    p_prop = probs[:, :kk].gather(-1, proposed[..., None])[..., 0]
+    acc_s = u < p_prop    # p(x) = 1 always accepts: the residual is empty
+    res = filt[:, :kk].masked_fill(
+        F.one_hot(proposed, v).bool(), float("-inf"))
+    resample = _categorical(res, gen)
+    bonus = _categorical(filt[:, kk], gen)
+    tgt_s = torch.cat([resample, bonus[:, None]], dim=1)
+    ds = samp["do_sample"][:, None]
+    return torch.where(ds, acc_s, acc), torch.where(ds, tgt_s, greedy)
+
+
+@torch.no_grad()
+def _spec_verify_step(spec, block_size, kv_mode, params, cache, toks, pos,
+                      tables, limit, sample=None, qmm=quant_matmul_raw):
+    """Score C = K + 1 candidate positions per slot in one pass, the
+    verify half of speculative decoding: one weight sweep, as a decode
+    tick. toks[:, 0] is each slot's last emitted (not yet consumed)
+    token, toks[:, 1:] its K proposals; row b writes candidate K/V at
+    positions pos[b] + [0, C) through its block table (`scatter_chunk` and
+    its int8 / int4 forms, positions >= limit[b], the slot's allocated
+    watermark, to the trash block), and each candidate attends over the
+    row's gathered context pages under `kv_pos <= q_pos` (dense, f32
+    softmax, as the chunk program). The per-row scatter is a Python loop
+    over the bucket's rows, unrolled in a captured graph. Returns
+    `_verify_tokens`'s (acc [B, K], tgt [B, C])."""
+    quantized = kv_mode != "model"
+    b, c = toks.shape
+    dev = toks.device
+    qpos = pos[:, None] + torch.arange(c, device=dev)[None, :]   # [B, C]
+    x = params["embed"][toks]                                    # [B, C, H]
+    ps = torch.clamp(qpos, 0, params["rope_cos"].shape[0] - 1)
+    cos = params["rope_cos"][ps][:, :, None]                     # [B, C, 1, D]
+    sin = params["rope_sin"][ps][:, :, None]
+    pages = tables.shape[1]
+    end = torch.minimum(pos + c, limit)
+    kv_pos = torch.arange(pages * block_size, device=dev)
+    q_mask = kv_pos[None, None, :] <= qpos[:, :, None]          # [B, C, T]
+    int4 = kv_mode == "int4"
+
+    def attend(li, q, k, v):
+        kc, vc = cache.k[li], cache.v[li]
+        ksc = cache.k_scale[li] if quantized else None
+        vsc = cache.v_scale[li] if quantized else None
+        for bi in range(b):
+            if quantized:
+                scat = _KV_FNS[kv_mode][2]
+                scat(kc, ksc, k[bi], pos[bi], end[bi], tables[bi],
+                     block_size)
+                scat(vc, vsc, v[bi], pos[bi], end[bi], tables[bi],
+                     block_size)
+            else:
+                scatter_chunk(kc, k[bi], pos[bi], end[bi], tables[bi],
+                              block_size)
+                scatter_chunk(vc, v[bi], pos[bi], end[bi], tables[bi],
+                              block_size)
+        kx = torch.stack([gather_context(kc, ksc, tables[bi], pages,
+                                         int4=int4) for bi in range(b)])
+        vx = torch.stack([gather_context(vc, vsc, tables[bi], pages,
+                                         int4=int4) for bi in range(b)])
+        return _dense_attention(q, kx, vx, q_mask)
+
+    for li, lw in enumerate(params["layers"]):
+        x = _cached_block(x, lw, spec, cos, sin,
+                          functools.partial(attend, li), qmm)
+    lg = _logits(x.reshape(b * c, -1), params, spec, qmm).reshape(b, c, -1)
+    return _verify_tokens(lg, toks[:, 1:], sample)
+
+
+class _Observed:
+    """A count and a sum of observations (the reference's histograms'
+    count and sum, without its metrics registry)."""
+
+    __slots__ = ("count", "sum")
+
+    def __init__(self):
+        self.count = 0
+        self.sum = 0.0
+
+    def observe(self, v):
+        self.count += 1
+        self.sum += float(v)
 
 
 # ------------------------------------------------------------ scheduler
@@ -372,10 +409,11 @@ class Request:
                  "tokens", "arrival_s", "admitted_s", "first_token_s",
                  "finished", "max_time_ms", "deadline_s", "finish_reason",
                  "cached_len", "prefill_pos", "prefill_done", "_hashes",
-                 "_hash_ns")
+                 "_hash_ns", "speculative")
 
     def __init__(self, rid, prompt, max_new_tokens, do_sample, temperature,
-                 top_k, top_p, eos_token_id, max_time_ms=None):
+                 top_k, top_p, eos_token_id, max_time_ms=None,
+                 speculative=None):
         self.rid = rid
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         self.max_new_tokens = int(max_new_tokens)
@@ -406,6 +444,9 @@ class Request:
         # long prompt must not be recomputed each time
         self._hashes = None
         self._hash_ns = None
+        # None follows the engine's config; False decodes normally even
+        # on a speculating engine
+        self.speculative = speculative
 
     def expired(self, now=None) -> bool:
         if self.deadline_s is None:
@@ -445,7 +486,9 @@ class ServingEngine:
     FLAGS_kv_cache_dtype, `weight_quant` ("none" | "int8" | "int4") to
     FLAGS_weight_only_dtype, `prefix_cache` to FLAGS_prefix_cache,
     `chunked_prefill_tokens` to FLAGS_chunked_prefill_tokens and
-    `prefix_cache_max_blocks` to FLAGS_prefix_cache_max_blocks. The model
+    `prefix_cache_max_blocks` to FLAGS_prefix_cache_max_blocks and
+    `spec_decode` ("off" | "ngram" | "draft" | a SpecConfig) to
+    FLAGS_spec_decode. The model
     must lie on `device` ("cuda" unless the caller asks for another; no
     card -> RuntimeError)."""
 
@@ -458,8 +501,6 @@ class ServingEngine:
         self.device = resolve_device(device)
         if getattr(model, "_gen_arch", "llama") != "llama":
             raise _not_ported("serving a GPT model", "10, 'GPT serving'")
-        if spec_decode not in (None, "off"):
-            raise _not_ported("speculative decoding", _ITEM_SPEC)
         if weight_quant in (None, "none"):
             # serving-wide default; a per-engine weight_quant= overrides
             weight_quant = str(flag("FLAGS_weight_only_dtype"))
@@ -554,7 +595,6 @@ class ServingEngine:
         self.queue_waits: list[float] = []
         self._decode_tokens = 0
         self._prefill_tokens = 0
-        self._decode_time_s = 0.0
         self._prefill_time_s = 0.0
         self._queue_wait_time_s = 0.0
         self._requests_completed = 0
@@ -580,6 +620,23 @@ class ServingEngine:
         # captures and their wall seconds, [before, after] finish_warmup()
         self._captures = [0, 0]
         self._capture_s = [0.0, 0.0]
+        # per-token TPOT and per-tick step wall (count, sum)
+        self._m_tpot = _Observed()
+        self._m_decode_step = _Observed()
+        self._spec_windows = 0
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        from .speculative import SpecConfig, make_proposer
+
+        if spec_decode is None:
+            m = str(flag("FLAGS_spec_decode"))
+            spec_decode = None if m == "off" else SpecConfig(method=m)
+        elif isinstance(spec_decode, str):
+            spec_decode = None if spec_decode == "off" \
+                else SpecConfig(method=spec_decode)
+        self.spec_config = spec_decode
+        self.proposer = (make_proposer(spec_decode)
+                         if spec_decode is not None else None)
 
     # ------------------------------------------------------------- API
     def add_request(self, prompt, max_new_tokens=32, do_sample=False,
@@ -591,10 +648,9 @@ class ServingEngine:
         it waits for admission. `max_time_ms` is a wall-clock deadline
         from arrival: when it expires the request finishes with reason
         ``"timeout"`` (the tokens produced so far are its result) and its
-        blocks are released. `speculative` must be None: speculative
-        decoding is not ported."""
-        if speculative is not None:
-            raise _not_ported("speculative decoding", _ITEM_SPEC)
+        blocks are released. `speculative=False` opts this request out of
+        speculative decoding on a speculating engine (it decodes one token
+        a tick beside the speculating slots); None follows the engine."""
         if self._draining:
             raise ValueError("engine is draining: no new admissions until "
                              "teardown (route to another replica)")
@@ -623,7 +679,8 @@ class ServingEngine:
         self._next_id += 1
         self._waiting.append(Request(rid, prompt, max_new_tokens, do_sample,
                                      temperature, top_k, top_p,
-                                     eos_token_id, max_time_ms=max_time_ms))
+                                     eos_token_id, max_time_ms=max_time_ms,
+                                     speculative=speculative))
         return rid
 
     @property
@@ -651,7 +708,16 @@ class ServingEngine:
         active = [i for i, r in enumerate(self._slot_req)
                   if r is not None and r.prefill_done]
         if active:
-            emitted.extend(self._decode(active))
+            # speculating slots ride the verify window, the rest (opt-outs,
+            # empty proposals, a non-speculating engine) the ordinary
+            # decode, both in the same tick
+            spec_slots, props = self._spec_proposals(active)
+            in_spec = set(spec_slots)
+            plain = [i for i in active if i not in in_spec]
+            if plain:
+                emitted.extend(self._decode(plain))
+            if spec_slots:
+                emitted.extend(self._spec_decode(spec_slots, props))
             self.steps += 1
             self.active_slot_steps += len(active)
         if self._draining:
@@ -671,14 +737,13 @@ class ServingEngine:
 
     def stats(self) -> dict:
         """Scheduler counters and timings (host wall clock, seconds): the
-        reference's keys. The speculative-decoding keys stay 0, as the
-        reference reports them with speculation off."""
+        reference's keys."""
         util = (self.active_slot_steps / (self.steps * self.max_slots)
                 if self.steps else 0.0)
         return {"steps": self.steps,
                 "decode_tokens": self._decode_tokens,
                 "prefill_tokens": self._prefill_tokens,
-                "decode_time_s": self._decode_time_s,
+                "decode_time_s": self._m_decode_step.sum,
                 "prefill_time_s": self._prefill_time_s,
                 "queue_wait_time_s": self._queue_wait_time_s,
                 "slot_utilization": round(util, 4),
@@ -701,13 +766,23 @@ class ServingEngine:
                 "prefix_cached_blocks": self.prefix_cache.cached_blocks,
                 "prefix_evictions": self.prefix_cache.evictions,
                 "prefill_chunks": self._prefill_chunks,
-                "spec_windows": 0,
-                "spec_proposed_tokens": 0,
-                "spec_accepted_tokens": 0,
-                "spec_accept_rate": 0.0}
+                "spec_windows": self._spec_windows,
+                "spec_proposed_tokens": self._spec_proposed,
+                "spec_accepted_tokens": self._spec_accepted,
+                "spec_accept_rate": round(
+                    self._spec_accepted / max(self._spec_proposed, 1), 4)}
 
     def spec_stats(self) -> dict:
-        raise _not_ported("spec_stats (speculative decoding)", _ITEM_SPEC)
+        """Speculative-decoding summary: acceptance over every verify
+        window this engine ran."""
+        proposed = self._spec_proposed
+        return {"enabled": self.proposer is not None,
+                "k": int(getattr(self.proposer, "k", 0) or 0),
+                "windows": self._spec_windows,
+                "proposed_tokens": proposed,
+                "accepted_tokens": self._spec_accepted,
+                "accept_rate": (self._spec_accepted / proposed
+                                if proposed else 0.0)}
 
     def metrics(self) -> dict:
         raise _not_ported("the metrics registry (metrics)", _ITEM_OBS)
@@ -1097,7 +1172,11 @@ class ServingEngine:
 
         nxt = self._call("serving.decode", bucket, any_sample, (), values,
                          body).tolist()
-        self._decode_time_s += time.perf_counter() - t0
+        step_wall = time.perf_counter() - t0
+        self._m_decode_step.observe(step_wall)
+        # TPOT is per token: one observation per emitted token
+        for _ in active:
+            self._m_tpot.observe(step_wall / len(active))
         emitted = []
         for j, slot in enumerate(active):
             req = self._slot_req[slot]
@@ -1109,6 +1188,106 @@ class ServingEngine:
             if done:
                 self._finish(slot)
         self._decode_tokens += len(active)
+        return emitted
+
+    def _spec_proposals(self, active):
+        """The proposer's candidates for every opted-in active slot.
+        Returns (spec_slots, proposals): only slots with a non-empty
+        proposal speculate this tick; the rest decode normally."""
+        if self.proposer is None:
+            return [], []
+        cand = [i for i in active
+                if self._slot_req[i].speculative is not False]
+        if not cand:
+            return [], []
+        reqs = [self._slot_req[i] for i in cand]
+        props = self.proposer.proposals(self, cand, reqs)
+        spec_slots, out = [], []
+        for slot, p in zip(cand, props):
+            p = np.asarray(p, np.int64).reshape(-1)
+            if p.size:
+                spec_slots.append(slot)
+                out.append(p)
+        return spec_slots, out
+
+    def _spec_decode(self, slots, proposals):
+        """One verify window for every speculating slot: the program of
+        `_spec_verify_step`, keyed by (slot bucket, any_sample, (k,)); the
+        host reads acc and tgt once, emits each slot's accepted prefix and
+        its correction or bonus token, and advances `_slot_pos` past the
+        emitted tokens only (the rollback). An eos inside the window ends
+        the request there, and max_new_tokens truncates the window."""
+        t0 = time.perf_counter()
+        k = self.proposer.k
+        width = k + 1
+        bucket = min(default_buckets(len(slots)), self.max_slots)
+        reqs = [self._slot_req[i] for i in slots]
+        pad = bucket - len(slots)
+        toks = np.zeros((bucket, width), np.int64)
+        limit = np.zeros(bucket, np.int64)
+        for j, (slot, req, prop) in enumerate(zip(slots, reqs, proposals)):
+            toks[j, 0] = req.tokens[-1]
+            n = min(len(prop), k)
+            toks[j, 1:1 + n] = prop[:n]
+            if n < k:    # a short proposal pads by repeating (rejected)
+                toks[j, 1 + n:] = toks[j, n]
+            limit[j] = len(self._slot_blocks[slot]) * self.block_size
+        pos = np.concatenate([self._slot_pos[slots],
+                              np.zeros(pad, np.int64)])
+        tables = np.concatenate(
+            [self._tables[slots],
+             np.full((pad, self.pages), TRASH_BLOCK, np.int32)])
+        values = {"toks": toks, "pos": pos, "tables": tables,
+                  "limit": limit}
+        any_sample = any(r.do_sample for r in reqs)
+        if any_sample:
+            values.update(self._samp_values(reqs, pad))
+
+        spec, bs, mode, params, cache, gen = self._step_state
+
+        def body(a):
+            return _spec_verify_step(spec, bs, mode, params, cache,
+                                     a["toks"], a["pos"], a["tables"],
+                                     a["limit"], (any_sample, a, gen))
+
+        acc, tgt = self._call("serving.spec_verify", bucket, any_sample,
+                              (k,), values, body)
+        acc, tgt = acc.tolist(), tgt.tolist()
+        step_wall = time.perf_counter() - t0
+        self._m_decode_step.observe(step_wall)
+        emitted = []
+        n_tokens = n_accepted = 0
+        for j, slot in enumerate(slots):
+            req = self._slot_req[slot]
+            prop = proposals[j]
+            plen = min(len(prop), k)
+            a = 0
+            while a < plen and acc[j][a]:
+                a += 1
+            new = [int(t) for t in prop[:a]] + [int(tgt[j][a])]
+            new = new[: req.max_new_tokens - len(req.tokens)]
+            if req.eos_token_id >= 0:
+                for i, t in enumerate(new):
+                    if t == req.eos_token_id:
+                        new = new[: i + 1]
+                        break
+            done = False
+            for t in new:
+                req.tokens.append(t)
+                done = self._check_done(req, t)
+            self._slot_pos[slot] += len(new)
+            n_tokens += len(new)
+            n_accepted += a
+            emitted.extend((req.rid, t, done and i == len(new) - 1)
+                           for i, t in enumerate(new))
+            if done:
+                self._finish(slot)
+        self._spec_windows += len(slots)
+        self._spec_proposed += sum(min(len(p), k) for p in proposals)
+        self._spec_accepted += n_accepted
+        self._decode_tokens += n_tokens
+        for _ in range(n_tokens):
+            self._m_tpot.observe(step_wall / max(n_tokens, 1))
         return emitted
 
     @staticmethod
@@ -1155,6 +1334,8 @@ class ServingEngine:
         self._slot_pos[slot] = 0
         self._tables[slot] = TRASH_BLOCK
         self._requests_completed += 1
+        if self.proposer is not None:
+            self.proposer.finish(slot)
 
 
 def generate_paged(model, ids, max_new_tokens, do_sample=False,

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ._cuda_common import (check_launch, count_launch, current_stream,
@@ -108,12 +109,25 @@ def int4_unpack(p, k, axis=0):
 
 # -------------------------------------------------------------- quantize
 
-def quantize_int4(w, group_size: int = -1):
+def _over(amax, qmax, reciprocal=False):
+    """amax / qmax in amax's dtype; with `reciprocal`, as the reference's
+    public `weight_quantize` op computes it: that op runs compiled, and
+    XLA rewrites a division by a constant into a product with its f32
+    reciprocal, which differs from the quotient in the last bit of some
+    scales (the product is taken in f32 and rounded to amax's dtype). The
+    reference's serving path quantizes eagerly, with the quotient."""
+    if not reciprocal:
+        return amax / qmax
+    return (amax.float() * float(np.float32(1.0) / np.float32(qmax))).to(
+        amax.dtype)
+
+
+def quantize_int4(w, group_size: int = -1, reciprocal=False):
     """Symmetric int4 quantization of a [..., K, N] weight: per-output-
     channel absmax scales ([..., N]) or group-wise along K ([..., K //
     group_size, N]) when group_size > 0. The scale is taken in w's dtype
-    (amax / 7, floored at 1e-8) and then widened to f32, as the reference
-    does; codes round half to even. Returns (packed [..., ceil(K/2), N]
+    (amax / 7, floored at 1e-8; `reciprocal`: see `_over`) and then
+    widened to f32, as the reference does; codes round half to even. Returns (packed [..., ceil(K/2), N]
     int8, scale f32)."""
     k, n = w.shape[-2], w.shape[-1]
     if group_size and group_size > 0:
@@ -123,13 +137,15 @@ def quantize_int4(w, group_size: int = -1):
         g = k // group_size
         wg = w.reshape(*w.shape[:-2], g, group_size, n)
         amax = wg.abs().amax(dim=-2)                           # [..., G, N]
-        scale = torch.clamp_min(amax / INT4_QMAX, 1e-8).float()
+        scale = torch.clamp_min(_over(amax, INT4_QMAX, reciprocal),
+                                1e-8).float()
         q = torch.clamp(torch.round(wg / scale[..., :, None, :]),
                         -INT4_QMAX, INT4_QMAX)
         q = q.reshape(w.shape).to(torch.int8)
     else:
         amax = w.abs().amax(dim=-2)                            # [..., N]
-        scale = torch.clamp_min(amax / INT4_QMAX, 1e-8).float()
+        scale = torch.clamp_min(_over(amax, INT4_QMAX, reciprocal),
+                                1e-8).float()
         q = torch.clamp(torch.round(w / scale[..., None, :]),
                         -INT4_QMAX, INT4_QMAX).to(torch.int8)
     return int4_pack(q, axis=-2), scale
@@ -328,11 +344,7 @@ def quant_matmul(x, w, scale, int4_matmul=quant_matmul_raw):
     grouped = scale.dim() == 2
     if w.shape[0] == k:                  # int8: the reference's exact math
         if grouped:
-            g = scale.shape[0]
-            n = w.shape[1]
-            wf = (w.reshape(g, k // g, n).to(x.dtype)
-                  * scale.to(x.dtype)[:, None, :]).reshape(k, n)
-            return x @ wf
+            return x @ dequantize_weight(w, scale, k, x.dtype)
         return (x @ w.to(x.dtype)) * scale.to(x.dtype)
     if w.shape[0] != packed_rows(k):
         raise ValueError(
@@ -348,3 +360,83 @@ def quant_matmul(x, w, scale, int4_matmul=quant_matmul_raw):
         return (x2 @ wf).reshape(*lead, n)
     q = int4_unpack(w, k, axis=0)
     return ((x2 @ q.to(x.dtype)) * scale.to(x.dtype)).reshape(*lead, n)
+
+
+# --------------------------------------------------------- int8 helpers
+
+def quantize_int8(w, qmax: float = 127.0, reciprocal=False):
+    """Per-output-channel symmetric int8 of a [..., K, N] weight, in f32:
+    scale = max |w| over K / qmax, codes round half to even and clip to
+    +-qmax. The one rule behind `weight_quantize_raw` and the serving
+    path's weight-only int8 (the reference's `weight_quantize_raw`);
+    `reciprocal` (see `_over`) for the `weight_quantize` op.
+    Returns (q int8 [..., K, N], scale f32 [..., N])."""
+    wf = w.float()
+    scale = _over(wf.abs().amax(dim=-2), qmax, reciprocal)
+    q = torch.clamp(torch.round(wf / torch.clamp_min(scale, 1e-9)
+                                .unsqueeze(-2)), -qmax, qmax)
+    return q.to(torch.int8), scale
+
+
+def int8_matmul(a, b):
+    """Exact int8 x int8 -> int32 product of a [M, K] and b [K, N]. On a
+    card it is `torch._int_mm` (cuBLASLt's int8 GEMM), which wants M > 16
+    and K, N multiples of 8: the operands are zero-padded to that, which
+    adds nothing to the sums. On the CPU the product runs in int64 and is
+    narrowed (a sum of K products of at most 128^2 fits int32 for K below
+    2^17)."""
+    if a.device.type != "cuda":
+        return (a.long() @ b.long()).to(torch.int32)
+    m, k = a.shape
+    n = b.shape[1]
+    mp, kp, np_ = max(17, m), -(-k // 8) * 8, -(-n // 8) * 8
+    if (mp, kp) != (m, k):
+        a = torch.nn.functional.pad(a, (0, kp - k, 0, mp - m))
+    if (kp, np_) != (k, n):
+        b = torch.nn.functional.pad(b, (0, np_ - n, 0, kp - k))
+    return torch._int_mm(a.contiguous(), b.contiguous())[:m, :n]
+
+
+def dequantize_weight(w, scale, k, dtype):
+    """The float weight [K, N] in `dtype` of a weight-only pair (int8 [K,
+    N] or packed int4 [ceil(K/2), N]; scale [N] or [G, N])."""
+    if w.shape[0] != k:
+        return dequant_int4(w, scale, k, dtype)
+    if scale.dim() == 2:
+        g = scale.shape[0]
+        return (w.reshape(g, k // g, -1).to(dtype)
+                * scale.to(dtype)[:, None, :]).reshape(k, -1)
+    return w.to(dtype) * scale.to(dtype)
+
+
+class _QuantLinear(torch.autograd.Function):
+    """`quant_matmul` with a gradient for x alone: K8 has no backward
+    (nor has the reference's kernel), so dx = (dy * scale) @ qᵀ for
+    per-channel scales, dy @ dequant(w)ᵀ for group-wise ones, in plain
+    torch in x's dtype. The weight and its scale take no gradient, as in
+    the reference's tape."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, int4_matmul):
+        ctx.save_for_backward(w, scale)
+        ctx.k = x.shape[-1]
+        return quant_matmul(x, w, scale, int4_matmul)
+
+    @staticmethod
+    def backward(ctx, dy):
+        w, scale = ctx.saved_tensors
+        k = ctx.k
+        if scale.dim() == 1:
+            q = w if w.shape[0] == k else int4_unpack(w, k, axis=0)
+            dx = (dy * scale.to(dy.dtype)) @ q.to(dy.dtype).T
+        else:
+            dx = dy @ dequantize_weight(w, scale, k, dy.dtype).T
+        return dx, None, None, None
+
+
+def quant_linear(x, w, scale, int4_matmul=quant_matmul_raw):
+    """`quant_matmul` that records a gradient for x when one is wanted
+    (`_QuantLinear`); without one it is `quant_matmul` itself."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _QuantLinear.apply(x, w, scale, int4_matmul)
+    return quant_matmul(x, w, scale, int4_matmul)

@@ -2,14 +2,18 @@
 
 Port of the helpers paddle_tpu/inference/engine.py imports from
 paddle_tpu/text/generation.py: `_GenSpec`, `_rms_norm`, `_rope`,
-`_rope_tables_np`, `_mm`, `_quantize_w`, `_quantize_w4`,
-`_layer_forward_prefill` (also the block math of the port's training
-forward, `text/models/llama.py`), `_logits` and the weight extraction
-(`_repeat_kv` has no use here: the attention functions index or repeat
-GQA kv heads themselves). Same arithmetic and dtype rules as the
-reference; what differs is the mechanism: eager torch and a Python loop
-over layers, where the reference traced one program and scanned stacked
-weights. Weights are not stacked: the extracted parameter dict holds
+`_rope_tables_np`, `_mm`, `_quantize_w4` (its `_quantize_w` is
+`ops.quantized.quantize_int8`), `_layer_forward_prefill` (also the
+block math of the port's training forward, `text/models/llama.py`),
+`_logits` and the weight extraction (`_repeat_kv` has no use here: the
+attention functions index or repeat GQA kv heads themselves). The
+reference's per-site copies of the block (`_layer_forward_decode`, the
+engines' paged and chunk layers, the speculative verify and draft
+layers) are here one block, `_attend_block` + `_mlp_block`, with the
+attention that reads each site's cache passed in. Same arithmetic and
+dtype rules as the reference; what differs is the mechanism: eager
+torch and a Python loop over layers, where the reference traced one
+program and scanned stacked weights. Weights are not stacked: the extracted parameter dict holds
 the model's own tensors, so dense serving costs no copy of the
 weights; weight-only quantization makes its packed copies once, when the
 dict is extracted, and leaves the model's weights as they are.
@@ -19,19 +23,26 @@ and the extracted layer dicts hold them as they are, so `_mm` is the
 reference's plain `x @ w`, or `quant_matmul` over an (int8 [K, N] | packed
 int4 [ceil(K/2), N], f32 scale [N]) pair made from them.
 
-The static single-program `generate` is not ported yet.
+The static single-program `generate` (`_generate_static`): the
+reference's one XLA program is here an eager prefill and one CUDA graph
+of the dense-cache decode step per key, replayed for every step.
 """
 from __future__ import annotations
 
+import functools
+import math
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core import graphs
 from ..core.flags import flag
 from ..ops.flash_attention import flash_attention
-from ..ops.quantized import quant_matmul, quant_matmul_raw, quantize_int4
+from ..ops.quantized import (quant_matmul, quant_matmul_raw, quantize_int4,
+                             quantize_int8)
 
 #: the layer matmul weights that weight-only quantization stores as pairs
 #: (the norms stay dense)
@@ -101,17 +112,6 @@ def _mm(x, w, qmm=quant_matmul_raw):
     return x @ w
 
 
-def _quantize_w(w):
-    """Per-output-channel symmetric int8 of a [K, N] weight: the port's
-    copy of paddle_tpu's `weight_quantize_raw` rule (in f32, qmax 127).
-    Returns (q int8 [K, N], scale f32 [N])."""
-    wf = w.float()
-    scale = wf.abs().amax(dim=-2) / 127.0
-    q = torch.clamp(torch.round(wf / torch.clamp_min(scale, 1e-9)[None, :]),
-                    -127.0, 127.0)
-    return q.to(torch.int8), scale
-
-
 def _quantize_w4(w):
     """Packed int4 (two nibbles per byte) with per-output-channel scales:
     (packed int8 [ceil(K/2), N], scale f32 [N])."""
@@ -138,35 +138,76 @@ def _attention_block(x, lw, spec: _GenSpec, cos, sin,
                      attention=flash_attention, qmm=quant_matmul_raw):
     """The first half of `_layer_forward_prefill`: (x + attention of the
     input norm's output, (k, v))."""
-    b, s, h = x.shape
-    hn = _rms_norm(x, lw["input_ln"], spec.rms_eps)
-    flat = hn.reshape(b * s, h)
-    q = _mm(flat, lw["q"], qmm).reshape(b, s, spec.num_heads, spec.head_dim)
-    k = _mm(flat, lw["k"], qmm).reshape(b, s, spec.num_kv_heads,
-                                        spec.head_dim)
-    v = _mm(flat, lw["v"], qmm).reshape(b, s, spec.num_kv_heads,
-                                        spec.head_dim)
-    c = cos[None, :s, None, :]
-    sn = sin[None, :s, None, :]
-    q = _rope(q, c, sn)
-    k = _rope(k, c, sn)
-    out, _ = attention(q.transpose(1, 2).contiguous(),
-                       k.transpose(1, 2).contiguous(),
-                       v.transpose(1, 2).contiguous(), causal=True)
-    out = out.transpose(1, 2)
-    attn = _mm(out.reshape(b * s, spec.num_heads * spec.head_dim), lw["o"],
-               qmm)
-    return x + attn.reshape(b, s, h), (k, v)
+    s = x.shape[1]
+    kv = []
+
+    def attend(q, k, v):
+        kv.append((k, v))
+        out, _ = attention(q.transpose(1, 2).contiguous(),
+                           k.transpose(1, 2).contiguous(),
+                           v.transpose(1, 2).contiguous(), causal=True)
+        return out.transpose(1, 2)
+
+    x = _attend_block(x, lw, spec, cos[None, :s, None], sin[None, :s, None],
+                      attend, qmm)
+    return x, kv[0]
+
+
+def _attend_block(x, lw, spec: _GenSpec, cos, sin, attend,
+                  qmm=quant_matmul_raw):
+    """x + the attention half of a decoder block, over the rows of x
+    [..., H] (a prompt's [B, S, H], a verify window's [B, C, H], a chunk's
+    [C, H], a decode step's [B, H]): the input norm, Q/K/V, rope with
+    cos/sin broadcast against [..., heads, D], then `attend(q, k, v)` —
+    which stores the block's k/v where its caller keeps them and returns
+    the attended values [..., Hq, D] — and the o-projection. Every block
+    of the model, the engines and the speculative programs is this and
+    `_mlp_block`; they differ only in `attend`."""
+    lead, h = x.shape[:-1], x.shape[-1]
+    nh, nkv, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    hn = _rms_norm(x, lw["input_ln"], spec.rms_eps).reshape(-1, h)
+    q = _rope(_mm(hn, lw["q"], qmm).reshape(*lead, nh, hd), cos, sin)
+    k = _rope(_mm(hn, lw["k"], qmm).reshape(*lead, nkv, hd), cos, sin)
+    v = _mm(hn, lw["v"], qmm).reshape(*lead, nkv, hd)
+    out = attend(q, k, v)
+    return x + _mm(out.reshape(-1, nh * hd), lw["o"], qmm).reshape(x.shape)
 
 
 def _mlp_block(x, lw, spec: _GenSpec, qmm=quant_matmul_raw):
-    """The second half of `_layer_forward_prefill` without its residual
-    add: the SwiGLU MLP of the post-attention norm's output."""
-    b, s, h = x.shape
-    hn = _rms_norm(x, lw["post_ln"], spec.rms_eps).reshape(b * s, h)
+    """The second half of a decoder block without its residual add: the
+    SwiGLU MLP of the post-attention norm's output, over x [..., H]."""
+    h = x.shape[-1]
+    hn = _rms_norm(x, lw["post_ln"], spec.rms_eps).reshape(-1, h)
     mlp = _mm(F.silu(_mm(hn, lw["gate"], qmm)) * _mm(hn, lw["up"], qmm),
               lw["down"], qmm)
-    return mlp.reshape(b, s, h)
+    return mlp.reshape(x.shape)
+
+
+def _cached_block(x, lw, spec: _GenSpec, cos, sin, attend,
+                  qmm=quant_matmul_raw):
+    """One decoder block whose attention `attend` reads a cache (see
+    `_attend_block`): the serving engine's decode, chunk and verify
+    steps, the static engine's step and the speculative programs."""
+    x = _attend_block(x, lw, spec, cos, sin, attend, qmm)
+    return x + _mlp_block(x, lw, spec, qmm)
+
+
+def _dense_attention(q, k, v, valid):
+    """Masked attention of q [B, C, Hq, D] over dense k/v [B, T, Hkv, D]
+    (each kv head serving its group of query heads in place, no repeated
+    copy), where `valid` (broadcast to [B, C, T]) marks the keys each
+    query sees: scores in the model dtype, the softmax in f32, as the
+    reference's compositions. Returns [B, C, Hq, D]."""
+    b, c, hq, d = q.shape
+    g = k.shape[2]
+    qg = q.reshape(b, c, g, hq // g, d)
+    scores = torch.einsum("bcgrd,btgd->bgrct", qg, k.to(q.dtype)) \
+        * (1.0 / math.sqrt(d))
+    scores = torch.where(valid[:, None, None], scores,
+                         torch.finfo(scores.dtype).min)
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    out = torch.einsum("bgrct,btgd->bcgrd", probs, v.to(q.dtype))
+    return out.reshape(b, c, hq, d)
 
 
 def _logits(x, params, spec: _GenSpec, qmm=quant_matmul_raw):
@@ -179,6 +220,49 @@ def _logits(x, params, spec: _GenSpec, qmm=quant_matmul_raw):
     if isinstance(head, tuple):
         return _mm(x.float(), head, qmm)
     return x.float() @ head.float()
+
+
+# ------------------------------------------------------------- sampling
+
+def _filter_logits(logits, temperature, top_k, top_p):
+    """The (temperature, top-k, top-p) logit filter over [B, V] with the
+    sampling params as batched tensors — top-k before top-p, as the
+    reference."""
+    v = logits.shape[-1]
+    lg = logits.float() / temperature.clamp_min(1e-6)[:, None]
+    srt = torch.sort(lg, dim=-1, descending=True).values
+    kth = torch.gather(srt, -1, (top_k.long() - 1).clamp(0, v - 1)[:, None])
+    lg = torch.where((top_k > 0)[:, None] & (lg < kth), float("-inf"), lg)
+    srt2 = torch.sort(lg, dim=-1, descending=True).values
+    probs = torch.softmax(srt2, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = cum - probs < top_p[:, None]
+    cutoff = torch.where(keep, srt2, float("inf")).min(
+        dim=-1, keepdim=True).values
+    return torch.where((top_p < 1.0)[:, None] & (lg < cutoff), float("-inf"),
+                       lg)
+
+
+def _sample_batched(logits, generator, do_sample, temperature, top_k, top_p):
+    """Per-row (greedy | temperature/top-k/top-p) sampling over [B, V];
+    greedy rows are an exact argmax. Sampled rows draw by Gumbel-max from
+    `generator`."""
+    greedy = logits.argmax(dim=-1)
+    sampled = _categorical(_filter_logits(logits, temperature, top_k, top_p),
+                           generator)
+    return torch.where(do_sample, sampled, greedy)
+
+
+def _categorical(lg, generator):
+    """One draw per row of [..., V] logits by Gumbel-max from
+    `generator`."""
+    u = torch.rand(lg.shape, generator=generator, device=lg.device)
+    gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
+    return (lg + gumbel).argmax(dim=-1)
+
+
+#: a sampling program's per-row inputs, as `_sample_batched` takes them
+_SAMP_KEYS = ("do_sample", "temperature", "top_k", "top_p")
 
 
 def _layer_weights(layer) -> dict:
@@ -207,7 +291,7 @@ def _extract_llama(model, weight_quant="none") -> dict:
     m = model.model
     layers = [_layer_weights(layer) for layer in m.layers]
     quant = weight_quant != "none"
-    qfn = _quantize_w4 if weight_quant == "int4" else _quantize_w
+    qfn = _quantize_w4 if weight_quant == "int4" else quantize_int8
     if quant:
         layers = [{k: qfn(w) if k in _QUANT_KEYS else w
                    for k, w in lw.items()} for lw in layers]
@@ -220,25 +304,258 @@ def _extract_llama(model, weight_quant="none") -> dict:
     return params
 
 
+def _tensors(tree):
+    """Every tensor of a nest of dicts, lists and tuples (a serving
+    parameter dict)."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
+# --------------------------------------------------------- static engine
+
+class _StaticProgram:
+    """The static engine's program for one key (`_program_key`): the
+    static cache [L, B, total, Hkv, D] (the reference's padded K/V), the
+    decode state on the device (`tok`, `pos`, `finished`, the step `i` and
+    the tokens `toks` [B, G]), the sampling rows and generator, and on a
+    card the CUDA graph of one decode step, captured at the key's first
+    generate and replayed G - 1 times by every generate of the key."""
+
+    def __init__(self, spec, params, b, total, g, samp, eos, device):
+        dtype = params["embed"].dtype
+        shape = (spec.num_layers, b, total, spec.num_kv_heads,
+                 spec.head_dim)
+        self.spec, self.params, self.eos = spec, params, int(eos)
+        self.k = torch.zeros(shape, dtype=dtype, device=device)
+        self.v = torch.zeros(shape, dtype=dtype, device=device)
+        self.tok = torch.zeros(b, dtype=torch.long, device=device)
+        self.pos = torch.zeros(1, dtype=torch.long, device=device)
+        self.i = torch.zeros(1, dtype=torch.long, device=device)
+        self.finished = torch.zeros(b, dtype=torch.bool, device=device)
+        self.toks = torch.zeros((b, g), dtype=torch.long, device=device)
+        self.gen = torch.Generator(device=device)
+        do_sample, temperature, top_k, top_p = samp
+        self.samp = None if not do_sample else (
+            torch.ones(b, dtype=torch.bool, device=device),
+            torch.full((b,), temperature, dtype=torch.float32,
+                       device=device),
+            torch.full((b,), top_k, dtype=torch.int32, device=device),
+            torch.full((b,), top_p, dtype=torch.float32, device=device))
+        self.graph = None
+        self.capture_s = 0.0
+
+    def pick(self, logits):
+        if self.samp is None:
+            return logits.argmax(dim=-1)
+        return _sample_batched(logits, self.gen, *self.samp)
+
+    @torch.no_grad()
+    def prefill(self, ids, true_len):
+        """The prompt [B, bucket] through every layer (K1 on a card), its
+        K/V into the cache's first `bucket` positions, the first token
+        from the logits at true_len - 1 (padded positions write garbage
+        K/V at [true_len, bucket), which decode overwrites before its mask
+        reaches them), and the decode state reset."""
+        spec, params = self.spec, self.params
+        x = params["embed"][ids]
+        cos, sin = params["rope_cos"], params["rope_sin"]
+        s = ids.shape[1]
+        for li, lw in enumerate(params["layers"]):
+            x, (k, v) = _layer_forward_prefill(x, lw, spec, cos, sin)
+            self.k[li, :, :s].copy_(k)
+            self.v[li, :, :s].copy_(v)
+        tok0 = self.pick(_logits(x[:, true_len - 1], params, spec))
+        self.tok.copy_(tok0)
+        self.toks[:, 0] = tok0
+        self.finished.copy_(tok0 == self.eos)
+        self.pos.fill_(true_len)
+        self.i.fill_(1)
+
+    @torch.no_grad()
+    def step(self):
+        """One decode step on the static buffers, in place: consume `tok`
+        at `pos`, pick the next token (eos once finished) into `toks[:,
+        i]`, advance `pos` and `i`."""
+        spec, params, pos = self.spec, self.params, self.pos
+        x = params["embed"][self.tok]                         # [B, H]
+        cos = params["rope_cos"].index_select(0, pos)[None]   # [1, 1, D]
+        sin = params["rope_sin"].index_select(0, pos)[None]
+        valid = (torch.arange(self.k.shape[2], device=pos.device)
+                 <= pos)[None, None]                          # [1, 1, T]
+
+        def attend(li, q, k, v):
+            # the reference's dense-cache step: write at pos, mask
+            # arange(T) <= pos
+            kc, vc = self.k[li], self.v[li]
+            kc.index_copy_(1, pos, k[:, None])
+            vc.index_copy_(1, pos, v[:, None])
+            return _dense_attention(q[:, None], kc, vc, valid)[:, 0]
+
+        for li, lw in enumerate(params["layers"]):
+            x = _cached_block(x, lw, spec, cos, sin,
+                              functools.partial(attend, li))
+        nxt = self.pick(_logits(x, params, spec))
+        nxt = torch.where(self.finished, self.eos, nxt)
+        self.finished |= nxt == self.eos
+        self.toks.index_copy_(1, self.i, nxt[:, None])
+        self.tok.copy_(nxt)
+        self.pos += 1
+        self.i += 1
+
+    def capture(self):
+        """Capture `step` into a CUDA graph on the device's side stream.
+        The dry run before it is a real step on the live state, whose
+        small parts (and the generator) are put back afterwards; its cache
+        write at `pos` is the one the first replay makes again."""
+        small = (self.tok, self.pos, self.i, self.finished, self.toks)
+        saved = [t.clone() for t in small]
+        gen_state = self.gen.get_state()
+
+        def dry_run():
+            self.step()
+            for t, v in zip(small, saved):
+                t.copy_(v)
+            self.gen.set_state(gen_state)
+
+        stream = graphs.side_stream(self.k.device)
+        pool = torch.cuda.graph_pool_handle()
+        self.graph = graphs.capture(
+            self.step, stream, pool,
+            () if self.samp is None else (self.gen,), dry_run)
+        self.capture_s = self.graph.capture_s
+
+    def decode(self, n):
+        """n decode steps: graph replays on a card, the step itself
+        elsewhere. Nothing is read back."""
+        for _ in range(n):
+            if self.graph is not None:
+                self.graph.replay()
+            else:
+                self.step()
+
+
+#: per model (weakly held): {weight_quant: (weights fingerprint, params,
+#: {program key: _StaticProgram})}. A graph holds the addresses of its
+#: params and buffers, so programs live beside the params they read; a
+#: changed weight (a new tensor, or one written in place) re-extracts and
+#: drops them
+_STATIC: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+#: static programs kept per (model, weight_quant), the newest first
+_STATIC_MAX_PROGRAMS = 4
+
+
+def _weights_fingerprint(model):
+    return tuple((t._data.data_ptr(), t._data._version)
+                 for t in model.parameters())
+
+
+def _static_entry(model, weight_quant):
+    """(params, programs) of `model` at `weight_quant`, extracted once
+    per state of its weights."""
+    per_model = _STATIC.setdefault(model, {})
+    fp = _weights_fingerprint(model)
+    hit = per_model.get(weight_quant)
+    if hit is None or hit[0] != fp:
+        hit = (fp, _extract_llama(model, weight_quant), {})
+        per_model[weight_quant] = hit
+    return hit[1], hit[2]
+
+
+def static_program_stats(model) -> dict:
+    """The static programs held for `model`: their keys' count, graphs
+    captured and the capture wall seconds."""
+    progs = [p for _, _, d in _STATIC.get(model, {}).values()
+             for p in d.values()]
+    return {"programs": len(progs),
+            "graphs": sum(p.graph is not None for p in progs),
+            "capture_s": sum(p.capture_s for p in progs)}
+
+
+def _generate_static(model, ids, mnt, do_sample, temperature, top_k, top_p,
+                     eos_token_id, seed, weight_quant):
+    """The static single-program engine (the reference's `_generate_program`
+    and the static branch of its `generate`): the prompt padded to its
+    bucket, the generation length bucketed, a prefill, then G - 1 decode
+    steps replayed from one CUDA graph per key with the tokens read back
+    once. Returns int64 [B, mnt] on the CPU."""
+    from ..jit.api import default_buckets
+
+    cfg = model.config
+    max_pos = int(cfg.max_position_embeddings)
+    b, s_true = ids.shape
+    g = max(min(default_buckets(mnt), max_pos - s_true), mnt)
+    bucket = max(min(default_buckets(s_true), max_pos - g), s_true)
+    spec = _spec_from_config(cfg)
+    params, programs = _static_entry(model, weight_quant)
+    eos = int(eos_token_id if eos_token_id is not None else -1)
+    samp = (bool(do_sample), float(temperature), int(top_k), float(top_p))
+    params_fp = tuple((tuple(t.shape), str(t.dtype))
+                      for t in _tensors(params))
+    key = (spec, b, bucket, g) + samp + (eos, weight_quant, params_fp)
+    prog = programs.pop(key, None)
+    device = model.device
+    if prog is None:
+        prog = _StaticProgram(spec, params, b, bucket + g, g, samp, eos,
+                              device)
+    programs[key] = prog                      # newest last
+    while len(programs) > _STATIC_MAX_PROGRAMS:
+        programs.pop(next(iter(programs)))
+    if seed is None:
+        seed = int(torch.randint(0, 2 ** 31 - 1, (1,)).item())
+    prog.gen.manual_seed(int(seed))
+    ids_p = np.zeros((b, bucket), np.int64)
+    ids_p[:, :s_true] = ids
+    prog.prefill(torch.from_numpy(ids_p).to(device), s_true)
+    if g > 1 and prog.graph is None and device.type == "cuda":
+        prog.capture()
+    prog.decode(g - 1)
+    return prog.toks.cpu().numpy()[:, :mnt]
+
+
 def generate(model, input_ids, max_new_tokens=32, max_length=None,
              do_sample=False, temperature=1.0, top_k=0, top_p=1.0,
              eos_token_id=None, seed=None, weight_quant="none",
              engine="static", prefix_cache=None, spec_decode=None):
     """Autoregressive generation; returns int64 [B, prompt_len +
-    n_generated] on the CPU (prompt included). engine="paged" runs the
+    n_generated] on the CPU (prompt included).
+
+    engine="static" (the default) is the single-program engine: a prefill
+    (K1 on a card), then every decode step replayed from one CUDA graph
+    per (batch, prompt bucket, generation bucket, sampling config, weight
+    shapes), the tokens read back once. engine="paged" runs the
     continuous-batching ServingEngine on the model's device, and
     `prefix_cache` reaches it (None: FLAGS_prefix_cache); with the static
-    engine `prefix_cache` raises ValueError. The static single-program
-    engine is not ported yet."""
+    engine `prefix_cache` raises ValueError. `spec_decode` turns on
+    speculative decoding (inference/speculative.py): forwarded to the
+    ServingEngine for engine="paged"; on the static engine greedy, the
+    n-gram proposer and unquantized weights only. Tokens stay identical
+    to the non-speculative run either way."""
+    if getattr(model, "_gen_arch", "llama") != "llama":
+        raise NotImplementedError(
+            "generate() of a GPT model is not ported to paddle_tpu_torch "
+            "yet (ROADMAP Queue 1, item 10, 'GPT serving')")
     cfg = model.config
-    ids = np.asarray(input_ids.cpu() if torch.is_tensor(input_ids)
-                     else input_ids).astype(np.int32)
+    ids = getattr(input_ids, "_data", input_ids)
+    ids = np.asarray(ids.cpu() if torch.is_tensor(ids) else ids).astype(
+        np.int32)
     if ids.ndim == 1:
         ids = ids[None]
     if max_length is not None:
         max_new_tokens = int(max_length) - ids.shape[1]
     if max_new_tokens <= 0:
         raise ValueError("max_new_tokens must be positive")
+    total = ids.shape[1] + int(max_new_tokens)
+    if total > int(cfg.max_position_embeddings):
+        # the rope tables end here
+        raise ValueError(
+            f"prompt ({ids.shape[1]}) + max_new_tokens ({max_new_tokens}) "
+            f"= {total} exceeds max_position_embeddings "
+            f"({cfg.max_position_embeddings})")
     if engine not in ("static", "paged"):
         raise ValueError(f"engine must be 'static' or 'paged', got "
                          f"{engine!r}")
@@ -248,32 +565,55 @@ def generate(model, input_ids, max_new_tokens=32, max_length=None,
     if weight_quant not in ("none", "int8", "int4"):
         raise ValueError(f"weight_quant must be 'none', 'int8' or 'int4', "
                          f"got {weight_quant!r}")
-    if engine == "static":
-        if prefix_cache is not None:
-            raise ValueError("prefix_cache applies to engine='paged' only "
-                             "(the static engine holds no block pool)")
-        raise NotImplementedError(
-            "the static single-program generate is not ported yet (ROADMAP "
-            "Queue 1, item 5, 'The static single-program generate'); use "
-            "engine='paged'")
-    total = ids.shape[1] + int(max_new_tokens)
-    kv_bs = int(flag("FLAGS_kv_block_size"))
-    usable = (int(cfg.max_position_embeddings) // kv_bs) * kv_bs
-    if total > usable:
-        raise ValueError(
-            f"prompt ({ids.shape[1]}) + max_new_tokens ({max_new_tokens}) "
-            f"= {total} exceeds the paged engine's usable context ({usable} "
-            f"= max_position_embeddings rounded down to whole {kv_bs}-token "
-            "kv blocks); use a smaller generation budget")
-    from ..inference.engine import generate_paged
+    mnt = int(max_new_tokens)
+    if engine == "paged":
+        kv_bs = int(flag("FLAGS_kv_block_size"))
+        usable = (int(cfg.max_position_embeddings) // kv_bs) * kv_bs
+        if total > usable:
+            raise ValueError(
+                f"prompt ({ids.shape[1]}) + max_new_tokens "
+                f"({max_new_tokens}) = {total} exceeds the paged engine's "
+                f"usable context ({usable} = max_position_embeddings "
+                f"rounded down to whole {kv_bs}-token kv blocks); use "
+                "engine='static' or a smaller generation budget")
+        from ..inference.engine import generate_paged
 
-    toks = generate_paged(model, ids.astype(np.int64), int(max_new_tokens),
-                          do_sample=bool(do_sample),
-                          temperature=float(temperature), top_k=int(top_k),
-                          top_p=float(top_p), eos_token_id=eos_token_id,
-                          seed=None if seed is None else int(seed),
-                          prefix_cache=prefix_cache, spec_decode=spec_decode,
-                          weight_quant=weight_quant, device=model.device)
+        toks = generate_paged(model, ids.astype(np.int64), mnt,
+                              do_sample=bool(do_sample),
+                              temperature=float(temperature),
+                              top_k=int(top_k), top_p=float(top_p),
+                              eos_token_id=eos_token_id,
+                              seed=None if seed is None else int(seed),
+                              prefix_cache=prefix_cache,
+                              spec_decode=spec_decode,
+                              weight_quant=weight_quant, device=model.device)
+        return _assemble_output(ids, toks, eos_token_id)
+    if prefix_cache is not None:
+        raise ValueError("prefix_cache applies to engine='paged' only "
+                         "(the static engine holds no block pool)")
+    if spec_decode not in (None, "off"):
+        if do_sample:
+            raise NotImplementedError(
+                "static-engine speculative decoding is greedy-only; "
+                "rejection sampling rides engine='paged'")
+        if weight_quant != "none":
+            raise NotImplementedError(
+                "static-engine speculative decoding runs unquantized "
+                "weights")
+        from ..inference.speculative import SpecConfig, generate_static_spec
+
+        sc = spec_decode if isinstance(spec_decode, SpecConfig) \
+            else SpecConfig(method=str(spec_decode))
+        if sc.method != "ngram" or sc.proposer is not None:
+            raise NotImplementedError(
+                "the static engine wires the n-gram proposer only; "
+                "draft-model speculation rides engine='paged'")
+        toks = generate_static_spec(model, ids, mnt,
+                                    eos_token_id=eos_token_id, k=sc.k,
+                                    max_ngram=sc.max_ngram)
+        return _assemble_output(ids, toks, eos_token_id)
+    toks = _generate_static(model, ids, mnt, do_sample, temperature, top_k,
+                            top_p, eos_token_id, seed, weight_quant)
     return _assemble_output(ids, toks, eos_token_id)
 
 

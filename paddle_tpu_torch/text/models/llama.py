@@ -316,10 +316,12 @@ class LlamaForCausalLM(nn.Layer):
                  do_sample=False, temperature=1.0, top_k=0, top_p=1.0,
                  eos_token_id=None, seed=None, weight_quant="none",
                  engine="static", prefix_cache=None, spec_decode=None):
-        """Autoregressive decoding. engine="paged" runs the
-        continuous-batching ServingEngine (inference/engine.py) and returns
-        int64 tokens [B, prompt_len + n_generated] on the CPU. The static
-        single-program engine is not ported yet."""
+        """Autoregressive decoding; returns int64 tokens [B, prompt_len +
+        n_generated] on the CPU. engine="static" (the default) runs the
+        single-program engine (a prefill, then one captured decode step
+        replayed), engine="paged" the continuous-batching ServingEngine
+        (inference/engine.py); `spec_decode` speculates (text/
+        generation.py `generate`)."""
         from ..generation import generate as _generate
 
         return _generate(self, input_ids, max_new_tokens=max_new_tokens,

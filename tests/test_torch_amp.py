@@ -6,12 +6,13 @@ Both packages see the same numpy inputs. Op by op, the output dtype of
 BLACK_LIST and the custom lists deciding. Whole models: a tiny LLaMA with
 f32 parameters trains three AdamW steps under `auto_cast(O1, bfloat16)`
 with `FLAGS_pallas_fused_ops` on and off, and tiny GPT and BERT take one
-O1 step, each from the reference's weights: losses within 5e-3 relative
+O1 step (test_torch_amp_gpt_bert.py), each from the reference's weights: losses within 5e-3 relative
 (the bound the bf16 O2 parity tests use: the two packages round bf16
 products at different places). The reference runs its eager VJPs
 directly (`FLAGS_eager_defer_vjp=False`: its deferred-VJP liveness pass
 reads `jax.core.Var`, which this jax no longer has).
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch
@@ -277,8 +278,9 @@ def test_o2_models_same_with_mode_on_and_suspended():
         assert da == db and torch.equal(a, b)
 
 
-def test_o1_gpt_and_bert_step_as_reference(ref_vjp):
-    """One O1 step of tiny GPT and BERT (f32 parameters, the plain paths
+def o1_gpt_and_bert_step(ref_vjp):
+    """test_torch_amp_gpt_bert.py's `test_o1_gpt_and_bert_step_as_reference`
+    (a file of its own, ~20 s). One O1 step of tiny GPT and BERT (f32 parameters, the plain paths
     on both sides) from the reference's weights: the losses within
     LOSS_TOL, and the port's update applied."""
     from paddle_tpu.text.models import BertConfig as PBertConfig

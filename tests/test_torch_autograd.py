@@ -6,6 +6,7 @@ Numbers come from closed forms (as the reference's tests use jax.grad or
 hand derivations); `jacobian` and `hessian` are held to paddle_tpu's
 (jax transforms) on the same function and inputs.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch

@@ -27,8 +27,9 @@ reference's own early return, which the port keeps).
 With dropout 0.1 the port's flag-on run (K6's op) is held against its
 flag-off run (the reference's composition) from one seeded generator.
 Also: a boolean attention mask (the plain composition on both sides),
-the numpy round trip.
+the numpy round trip. The bf16 O2 case runs in test_torch_bert_bf16.py.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch
@@ -65,8 +66,7 @@ def _bert_pair(dropout=0.0):
     return ref, port
 
 
-@pytest.mark.parametrize("bf16,lr", [(False, 1e-3), (True, 2e-5)],
-                         ids=["f32", "bf16-o2"])
+@pytest.mark.parametrize("bf16,lr", [(False, 1e-3)], ids=["f32"])
 def test_bert_steps_match_reference(fused_flags, bf16, lr):  # noqa: F811
     ref, port = _bert_pair()
     ids, lab = _batch()

@@ -24,6 +24,7 @@ bf16 and f16 2^-7. The fused optimizer updates repeat their plain
 versions' operations one by one, each rounded to nearest: they are held
 to them bit for bit.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch
@@ -3267,3 +3268,129 @@ def test_signal_stft_on_card_matches_cpu(card):
         <= 1e-4
     back = signal.istft(spec, 256, 64, window=win.to(card), length=4096)
     assert ((back.cpu() - x).abs().max() / x.abs().max()).item() <= 1e-4
+
+
+# ------------------------------------- quantization API, static, verify
+
+def test_quant_linear_function_forward_and_backward(card):
+    """`weight_only_linear`'s per-channel int4 route on the card: one K8
+    launch a forward, and the autograd Function's dx = (dy * s) @ qᵀ,
+    both against the plain composition (f32 1e-5 and bf16 2^-7 of the
+    largest |value|)."""
+    from paddle_tpu_torch.ops.quantized import quant_linear
+
+    rs = np.random.RandomState(21)
+    packed, scale = quantize_int4(_randn(rs, 256, 128).to(card))
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -7)):
+        x = _randn(rs, 2, 9, 256).to(card, dtype).requires_grad_()
+        xr = x.detach().clone().requires_grad_()
+        dy = _randn(rs, 2, 9, 128).to(card, dtype)
+        before = _cuda_common.launch_counts()["quant_matmul"]
+        y = quant_linear(x, packed, scale)
+        assert _cuda_common.launch_counts()["quant_matmul"] == before + 1
+        want = quant_linear(xr, packed, scale,
+                            int4_matmul=quant_matmul_reference)
+        y.backward(dy)
+        q = int4_unpack(packed, 256, axis=0).to(dtype)
+        dx = (dy * scale.to(dtype)) @ q.T
+        for got, ref in ((y, want), (x.grad, dx)):
+            err = (got.float() - ref.float()).abs().max().item()
+            assert err <= tol * ref.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("m", [1, 9, 17, 40])
+def test_int8_matmul_padded_is_exact(card, m):
+    """`torch._int_mm` (cuBLASLt) behind llm_int8_linear and full-int8
+    QuantizedLinear, at M, K, N it pads up (M > 16, K and N multiples of
+    8): int32 sums equal a CPU int64 product at K = 5504."""
+    from paddle_tpu_torch.ops.quantized import int8_matmul
+
+    rs = np.random.RandomState(m)
+    a = rs.randint(-127, 128, (m, 5501)).astype(np.int8)
+    b = rs.randint(-127, 128, (5501, 37)).astype(np.int8)
+    got = int8_matmul(torch.from_numpy(a).to(card),
+                      torch.from_numpy(b).to(card))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (m, 37)
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), a.astype(np.int64) @ b.astype(np.int64))
+
+
+@pytest.mark.parametrize("weight_quant", ["none", "int4"])
+def test_static_generate_replays_equal_its_eager_body(card, weight_quant):
+    """The static engine's decode step captured as one CUDA graph and
+    replayed gives the tokens of the same step run eagerly (bf16, GQA, a
+    prompt bucket of 16), and the f32 CPU run's in f32; a second generate
+    of the key replays without a capture."""
+    from paddle_tpu_torch.text import generation
+    from paddle_tpu_torch.text.models import (LlamaForCausalLM,
+                                              llama_tiny_config)
+
+    torch.manual_seed(0)
+    cfg = llama_tiny_config(num_key_value_heads=2)
+    ids = np.random.RandomState(3).randint(0, 256, (3, 11))
+    for dtype in (torch.float32, torch.bfloat16):
+        gpu = LlamaForCausalLM(cfg, device=card, dtype=dtype)
+        if dtype == torch.float32:
+            cpu = LlamaForCausalLM(cfg, device="cpu")
+            gpu.set_state_dict(cpu.state_dict())
+        args = (ids, 13, False, 1.0, 0, 1.0, None, 0, weight_quant)
+        graph = generation._generate_static(gpu, *args)
+        assert generation.static_program_stats(gpu)["graphs"] == 1
+        again = generation._generate_static(gpu, *args)
+        assert generation.static_program_stats(gpu)["graphs"] == 1
+        # the same prefill and steps, eagerly, on a program of their own
+        _, progs = generation._static_entry(gpu, weight_quant)
+        (prog,) = progs.values()
+        total, g = prog.k.shape[2], prog.toks.shape[1]
+        own = generation._StaticProgram(prog.spec, prog.params, 3, total, g,
+                                        (False, 1.0, 0, 1.0), -1, card)
+        ids_p = np.zeros((3, total - g), np.int64)
+        ids_p[:, :11] = ids
+        own.prefill(torch.from_numpy(ids_p).to(card), 11)
+        for _ in range(g - 1):
+            own.step()
+        assert own.graph is None
+        eager = own.toks.cpu().numpy()[:, :13]
+        np.testing.assert_array_equal(graph, eager)
+        np.testing.assert_array_equal(again, eager)
+        if dtype == torch.float32:
+            np.testing.assert_array_equal(
+                graph, generation._generate_static(cpu, *args))
+
+
+@pytest.mark.parametrize("kv_cache_dtype", ["int8", "int4"])
+def test_verify_program_replays_equal_its_eager_body(card, kv_cache_dtype):
+    """The speculating engine's verify window ("serving.spec_verify", one
+    graph per (bucket, k)) replayed gives the eager engine's tokens and
+    window counts at int8 and int4 KV; at int8 both give the plain
+    engine's (the reference's contract). An int4 cache's blocks are
+    requantized over whatever positions a window wrote, so a speculating
+    run's int4 codes, and then near-tie tokens, may differ from a plain
+    run's."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.text.models import (LlamaForCausalLM,
+                                              llama_tiny_config)
+
+    torch.manual_seed(0)
+    gpu = LlamaForCausalLM(llama_tiny_config(num_key_value_heads=2),
+                           device=card)
+    rs = np.random.RandomState(0)
+    prompts = [np.tile(rs.randint(0, 256, (4,)), 5) for _ in range(3)]
+
+    def run(spec, capture):
+        eng = ServingEngine(gpu, max_slots=2, kv_block_size=8, device=card,
+                            kv_cache_dtype=kv_cache_dtype, spec_decode=spec)
+        eng._capture = capture
+        rids = [eng.add_request(p, max_new_tokens=20) for p in prompts]
+        out = eng.run()
+        return eng, [out[r].tolist() for r in rids]
+
+    graph, got = run("ngram", True)
+    eager, want = run("ngram", False)
+    assert got == want
+    if kv_cache_dtype == "int8":
+        assert got == run(None, True)[1]
+    assert graph.spec_stats() == eager.spec_stats()
+    assert graph.spec_stats()["windows"] > 0
+    assert graph._graph_stats()["graphs_captured"]["serving.spec_verify"] \
+        >= 1

@@ -27,6 +27,7 @@ log-sum-exp rule in split order. Here:
     `decode_splits`' whatever the lengths, the workspace holds
     S * Hq * splits * (D + 2) floats, and one launch is counted.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import ctypes
 import inspect
 

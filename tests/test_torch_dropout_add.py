@@ -14,6 +14,7 @@ from one seeded generator. Tolerances, of each output's largest |value|:
 f32 5e-5; bf16 2^-7 (one rounding each, and the composition's scale
 rounded to bf16, as the reference's is).
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -14,6 +14,7 @@ calls), and a Tensor of ids through `LlamaForCausalLM.forward` and
 `FLAGS_eager_defer_vjp=False` (its deferred-VJP pass reads a removed
 `jax.core.Var`), set and restored here.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch

@@ -11,6 +11,7 @@ the port and from JAX's in the reference, so it is tested for shape, keep
 rate, repeatability from one seeded generator, and `training=False` being
 the identity.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch

@@ -24,6 +24,7 @@ Tolerances: f32 5e-5 of max(1, the largest |value|) (f32 sums in another
 order); bf16 decode 3e-2 (bf16 inputs and output rounding, as
 test_torch_paged_decode.py); greedy tokens exactly.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch

@@ -14,6 +14,7 @@ to paddle_tpu on the same numpy inputs (CPU).
   * F12: `linalg.lstsq` returns jnp's residuals at every shape and rank.
   * F13: dtypes print and compare as the reference's numpy dtypes.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch

@@ -7,6 +7,7 @@ the bound covers summation order).
 The CUDA kernel is held against the plain version on the card in
 test_torch_cuda_kernels.py.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch

@@ -19,6 +19,7 @@ differ by at most one bf16 ulp: 2^-7 of the largest |value|.
 The CUDA kernels are held against the plain version on the card in
 test_torch_cuda_kernels.py.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch

@@ -16,6 +16,7 @@ port's backward is the reference's Pallas backward (run in interpret
 mode) within one bf16 ulp; and the autograd Functions save the residual
 and use it.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch

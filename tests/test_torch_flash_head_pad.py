@@ -15,6 +15,7 @@ Here the same `with_head_pad` runs around the plain versions:
     each group) at <= 1e-4 of each output's largest |value|, the bound of
     test_torch_flash_backward.py (f32 on both sides, summation order).
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch

@@ -24,6 +24,7 @@ paddle_tpu.
   the reference's dense path gives NaN for a row that every column hides,
   the kernel route 0.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch

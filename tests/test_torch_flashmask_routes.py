@@ -18,6 +18,7 @@ CUDA-core ones. Here:
   * the backward pads q, k, v and dO once: dQ and dK/dV are handed the
     same padded tensors.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch

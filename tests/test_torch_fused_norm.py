@@ -15,6 +15,7 @@ rounds its f32 result once to bf16, so they differ by at most one bf16
 ulp). The `nn.functional` routing is checked too: the flag picks the
 fused op or the composition, and GQA shapes never reach K4.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,7 @@ the same draw under the same seed). `viterbi_decode` / `ViterbiDecoder`
 against the reference and the reference's brute-force cases
 (tests/test_text_datasets.py).
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import itertools
 
 import numpy as np

@@ -20,8 +20,11 @@ fused linear cross-entropy branch), f32 and bf16 O2.
     at different places).
 
 Also: the port's flag-on forward equals its flag-off forward in f32; the
-numpy round trip; the unported switches raise.
+numpy round trip; the unported switches raise. The plain-CE f32 case and
+the bf16 cases run in test_torch_gpt_plain.py and test_torch_gpt_bf16.py
+(each case ~10–25 s: the reference's kernels in interpret mode).
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch
@@ -148,7 +151,7 @@ def _gpt_pair(kw):
     return ref, port, paddle.to_tensor(ids), torch.from_numpy(ids)
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", ["fused-ce"])
 def test_f32_gpt_steps_match_reference(fused_flags, case):
     ref, port, x, tx = _gpt_pair(CASES[case])
     losses, grads = train_both(ref, port, lambda: ref(x, x),
@@ -156,8 +159,9 @@ def test_f32_gpt_steps_match_reference(fused_flags, case):
     check_f32(port, losses, grads, reference_state(ref), gpt_to_numpy(port))
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_bf16_o2_gpt_losses_match_reference(fused_flags, case):
+def bf16_o2_losses_held(case):
+    """The bf16 O2 case `case`, run under `fused_flags` by
+    test_torch_gpt_bf16.py's `test_bf16_o2_gpt_losses_match_reference`."""
     ref, port, x, tx = _gpt_pair(CASES[case])
     losses, _ = train_both(ref, port, lambda: ref(x, x),
                            lambda: port(tx, labels=tx), bf16=True)

@@ -15,6 +15,7 @@ package's `to_static`.
     the gradients are zeroed and the step runs, and the scale halves. SGD
     with zero gradients leaves the weights as they were, in both packages.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch

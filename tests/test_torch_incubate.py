@@ -11,6 +11,7 @@ grad, Jacobian and Hessian against the reference's (with the reference's
 cases of tests/test_double_grad.py), and every public name of the
 reference's `incubate` present.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch

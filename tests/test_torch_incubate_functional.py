@@ -1,9 +1,8 @@
 """The port's `incubate.nn.functional` (the fused-op API) held to
 paddle_tpu's on the CPU.
 
-Every function of the reference's module except item 3's quantization
-five (which raise NotImplementedError naming ROADMAP.md Queue 1 item 3)
-on the same seeded inputs: each output within 1e-5 of its largest
+Every function of the reference's module (the quantization five here
+once each, in full in test_torch_quant_api.py) on the same seeded inputs: each output within 1e-5 of its largest
 |value|, and the gradient of a weighted sum of the outputs in every
 floating input the reference differentiates, against the reference's
 tape, likewise (the attention and MoE functions in
@@ -15,6 +14,7 @@ compositions below its kernels' size gate; dropout compares at p 0 and in eval m
 (the two packages' masks differ by design). The refusals are the
 reference's.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 
@@ -99,8 +99,34 @@ def test_every_reference_name_exists():
 
 @pytest.mark.parametrize("name", ITEM_3)
 def test_quantization_functions_name_item_3(name):
-    with pytest.raises(NotImplementedError, match="item 3"):
-        getattr(PF, name)(pt.to_tensor(np.ones((4, 4), "float32")))
+    """The five functions ROADMAP item 3 once refused now run: each held
+    to the reference on a (16, 8) weight, codes and scales bit-exact,
+    products within 1e-5 (tests/test_torch_quant_api.py has the full
+    set)."""
+    w, x = _rand(16, 8), _rand(4, 16, seed=1)
+    outs = []
+    for pkg, F in ((pt, PF), (paddle, RF)):
+        wt, xt = pkg.to_tensor(w), pkg.to_tensor(x)
+        if name == "weight_quantize_raw":
+            outs.append(F.weight_quantize_raw(wt._data))
+            continue
+        q, s = F.weight_quantize(wt)
+        outs.append({"weight_quantize": lambda: (q, s),
+                     "weight_dequantize": lambda: F.weight_dequantize(
+                         q, s, out_dtype="float32"),
+                     "weight_only_linear": lambda: F.weight_only_linear(
+                         xt, q, weight_scale=s),
+                     "llm_int8_linear": lambda: F.llm_int8_linear(
+                         xt, q, weight_scale=s)}[name]())
+    got, want = (_flat(o) for o in outs)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        a, b = np.asarray(a.numpy()), np.asarray(getattr(b, "_data", b))
+        if name in ("weight_quantize", "weight_quantize_raw"):
+            np.testing.assert_array_equal(a, b)
+        else:
+            np.testing.assert_allclose(a, b, rtol=0,
+                                       atol=1e-5 * np.abs(b).max())
 
 
 # --------------------------------------------------------------- kernel paths

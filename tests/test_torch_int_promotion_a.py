@@ -2,6 +2,7 @@
 op table in name order: integer inputs promote as paddle_tpu's
 (tests/_torch_int_sweep.py).
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import pytest
 
 from _torch_int_sweep import (HALF, ONE_INPUT, check_row,

@@ -11,6 +11,7 @@ reference program may fuse and reorder); the Adam + GradScaler step's
 losses within rtol 2e-4, atol 1e-5 of each package's eager run and of
 each other, as the reference's own test holds them.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import warnings
 
 import numpy as np

@@ -16,6 +16,7 @@ the reference's dtype promotion). Tolerances, of each output's largest
 rounds its f32 result once to bf16: at most one bf16 ulp apart). Then an
 f64 gradcheck of both Functions and the `nn.functional` routing.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,7 @@ f32 (both sides f32; the bound covers matmul summation order over a few
 layers). paddle_tpu's Linear stores [in, out], so a missed transpose in
 the carry-over fails here.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch

@@ -1,6 +1,7 @@
 """The reference's nn.Layer stack tests (tests/test_nn.py), every case,
 on the port (CPU): layers, containers, state_dict, train/eval.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 

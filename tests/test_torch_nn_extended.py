@@ -3,6 +3,7 @@ every case, on the port (CPU): numerics against torch where torch has the
 op, else against brute-force numpy. `sparse_attention` belongs to a later
 ROADMAP.md item and its case skips naming it.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch

@@ -10,6 +10,7 @@ the reference's jax draws: they are held to their shapes, dtypes, bounds
 and moments, and Constant, Assign, Dirac, Orthogonal and the Xavier /
 Kaiming fans and gains exactly.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import pickle
 
 import numpy as np

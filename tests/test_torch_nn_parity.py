@@ -6,6 +6,7 @@ Conv2D + BatchNorm2D (train, then eval on the updated running
 statistics) + pooling, and Sequential with its `state_dict`. The
 recurrent layers are in test_torch_nn_parity_rnn.py.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 

@@ -3,6 +3,7 @@
 both directions, and with sequence lengths and initial states) and the
 three cells.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 

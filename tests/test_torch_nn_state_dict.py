@@ -1,6 +1,7 @@
 """The port's nn exports and every layer class's `state_dict` (keys,
 shapes and dtypes) beside paddle_tpu's (CPU).
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import pytest
 
 import paddle_tpu.nn as rnn

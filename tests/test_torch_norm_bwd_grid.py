@@ -31,6 +31,7 @@ Tolerances, of each output's largest |value|: f32 dx 1e-5 (f32 sums in
 another order), dw and db 1e-4 (summed in f32 over rows in another
 order), bf16 2^-7 (each side rounds its f32 result once to bf16).
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import os
 import re
 

@@ -12,6 +12,7 @@ bf16 forward is held to the port's own fp32 at 5e-2, as
 `tests/test_op_table_sweep.py` holds the reference. Gradients are in
 `test_torch_op_table_grad.py`.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import pytest
 
 import paddle_tpu_torch as pt

@@ -11,6 +11,7 @@ is held to the numeric gradient as zeros. The same fp32 gradients against
 paddle_tpu's tape, which also decides ties and kinks that central
 differences cannot see, are in test_torch_op_table_tape_{a,b}.py.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch

@@ -6,6 +6,7 @@ forward against the port's fp32. Their gradients are in
 test_torch_op_table_grad.py (central differences) and
 test_torch_op_table_tape_nn.py (the reference's tape).
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import pytest
 
 import paddle_tpu_torch as pt

@@ -7,6 +7,7 @@ against the port's fp32 where the row takes bf16
 of `out.sum()` against the reference's tape (tests/_torch_op_tape.py;
 central differences in test_torch_op_table_grad.py).
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import pytest
 
 from _torch_op_rows import (check_forward_bf16, check_forward_fp32,

@@ -4,6 +4,7 @@ gradient of `out.sum()` equals the reference tape's on the same seeded
 inputs (tests/_torch_op_tape.py). Central differences through the port's
 op are in test_torch_op_table_grad.py.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import pytest
 
 from _torch_op_tape import (DIFF, HALF, check_row,

@@ -8,6 +8,7 @@ f32 arithmetic) and in bf16 with multi_precision (f32 moments and master
 weights). Both sides do the same f32 operations in the same order, so
 parameters, moments and master weights must be bit-identical.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch

@@ -26,6 +26,7 @@ version (`ops.fused_optimizer.fused_adam_reference`,
 `fused_momentum_reference`); tests/test_torch_cuda_kernels.py holds the
 kernel to it on the card, bit for bit.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -12,6 +12,7 @@ and ragged; both reference functions, the Pallas kernel in interpret mode
 included, run the int4 cases on the CPU. The CUDA kernels are held
 against the plain version on the card in test_torch_cuda_kernels.py.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch

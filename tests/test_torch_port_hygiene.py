@@ -5,6 +5,7 @@ that has neither), refuse to run quietly on the CPU when no device is
 given and no card is present, and build its kernels from the CUDA
 sources it names.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import ast
 import os
 import subprocess

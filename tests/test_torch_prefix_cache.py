@@ -20,7 +20,10 @@ Not here, because the port does not have them yet: GPT serving
 10), the D5 / D7 audits (`analysis.audit_decode_config`,
 `audit_prefix_cache`; the "static analysis" entry after Queue 1) and
 the metrics registry (`engine.metrics()`; item 7).
+The end-to-end identity with the cache on runs in
+test_torch_prefix_cache_identity{,_quant}.py (other workers).
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import time
 
 import jax.numpy as jnp
@@ -338,12 +341,12 @@ _MODES = [(None, None), (2, None), (None, "int8"), (None, "int4")]
 _MODE_IDS = ["mha", "gqa", "int8kv", "int4kv"]
 
 
-@pytest.mark.parametrize("chunk", [8, 16])
-@pytest.mark.parametrize("kv_heads,kv_dtype", _MODES, ids=_MODE_IDS)
-def test_greedy_token_identity_with_cache_on(kv_heads, kv_dtype, chunk):
+def identity_with_cache_on(kv_heads, kv_dtype, chunk):
     """Greedy tokens and scheduler counters equal the reference's at
     prefix_cache=True with 8- and 16-token chunks: prompts sharing a
-    prefix one at a time, then all queued at once."""
+    prefix one at a time, then all queued at once. Run for each mode by
+    test_torch_prefix_cache_identity{,_quant}.py's
+    `test_greedy_token_identity_with_cache_on`."""
     prompts, gens = _shared_stream()
     kw = dict(prefix_cache=True, chunked_prefill_tokens=chunk,
               kv_cache_dtype=kv_dtype)

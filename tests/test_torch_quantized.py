@@ -4,7 +4,7 @@ paddle_tpu's (the reference).
 (a) Packing and quantizers give identical bytes and scales: `int4_pack` /
 `int4_unpack` over all 256 byte values, odd K and a non-zero axis;
 `quantize_int4` on f32 and bf16 weights, per-channel and grouped; the
-int8 weight rule `_quantize_w` against `weight_quantize_raw`.
+int8 weight rule `quantize_int8` against `weight_quantize_raw`.
 (b) The plain version of the dequant-matmul kernel (`quant_matmul_reference`,
 what the CPU path runs) against paddle_tpu's Pallas kernel
 `quant_matmul_raw` (interpret mode) and its XLA composition
@@ -27,6 +27,7 @@ ulp of a value's binade).
 The CUDA kernel is held against the plain version on the card in
 test_torch_cuda_kernels.py.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch
@@ -38,7 +39,6 @@ from paddle_tpu.ops import quantized as ref_q
 
 from paddle_tpu_torch.ops import _cuda_common
 from paddle_tpu_torch.ops import quantized as port_q
-from paddle_tpu_torch.text.generation import _quantize_w
 
 
 def _bf16_np(a):
@@ -109,7 +109,7 @@ def test_group_size_must_divide():
 def test_int8_weight_rule_matches_weight_quantize_raw(dtype):
     jw, tw = _weights(dtype, (40, 24), seed=2)
     wq, ws = weight_quantize_raw(jw)
-    gq, gs = _quantize_w(tw)
+    gq, gs = port_q.quantize_int8(tw)
     assert gq.dtype == torch.int8 and gs.dtype == torch.float32
     np.testing.assert_array_equal(gq.numpy(), np.asarray(wq))
     np.testing.assert_array_equal(gs.numpy(), np.asarray(ws))

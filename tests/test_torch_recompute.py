@@ -32,6 +32,7 @@ The reference's eager backward runs with FLAGS_eager_defer_vjp=False
 (its deferred-VJP pass reads `jax.core.Var`, which this jax no longer
 has; the math is the same).
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch

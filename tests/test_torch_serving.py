@@ -7,10 +7,12 @@ cache on, 256-token chunks); `generate_paged` identity; sampling-filter
 parity; seeded sampling determinism; the scheduler contracts of
 tests/test_serving.py (allocator, admission control, block release,
 static waves) plus deadlines; the reference's `stats()` keys and counters,
-`drain` and the refusals of what is not ported (fault F5). The quantized
+`drain`, the refusals of what is not ported (fault F5) and the options
+the port once refused (speculative decoding, the static engine). The quantized
 modes are held against the reference in test_torch_serving_quant.py, the
 prefix cache and chunked prefill in test_torch_prefix_cache.py.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import time
 
 import numpy as np
@@ -317,8 +319,21 @@ class TestContinuousBatching:
                          ids=lambda kw: "-".join(f"{k}={v}"
                                                  for k, v in kw.items()))
 def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(_port(), max_slots=1, device="cpu", **kwargs)
+    """The option the port refused until it had speculative decoding
+    (ROADMAP item 4): it constructs, speculates on a repetitive prompt
+    and serves the plain engine's tokens."""
+    from paddle_tpu_torch.inference.speculative import NgramProposer
+
+    port = _port()
+    prompt = np.tile(np.random.RandomState(0).randint(0, 128, (4,)), 5)
+    eng = ServingEngine(port, max_slots=1, device="cpu", **kwargs)
+    assert isinstance(eng.proposer, NgramProposer)
+    eng.add_request(prompt, max_new_tokens=12)
+    got = eng.run()
+    plain = ServingEngine(port, max_slots=1, device="cpu")
+    plain.add_request(prompt, max_new_tokens=12)
+    np.testing.assert_array_equal(got[0], plain.run()[0])
+    assert eng.spec_stats()["windows"] > 0
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -436,24 +451,26 @@ def test_drain_matches_reference():
 
 
 def test_unported_surface_raises_naming_its_item():
-    """What waits for ROADMAP items 4 and 7 refuses with
-    NotImplementedError naming the item; speculative=None is accepted and
+    """What waits for ROADMAP item 7 refuses with NotImplementedError
+    naming the item; item 4's surface (spec_stats, add_request's
+    speculative=) now answers on an engine that does not speculate;
     close() does nothing, twice."""
     eng = ServingEngine(_port(), max_slots=1, device="cpu")
-    for call, item in ((eng.metrics, "item 7"),
-                       (eng.render_prometheus, "item 7"),
-                       (lambda: eng.dump_trace("trace.json"), "item 7"),
-                       (eng.spec_stats, "item 4"),
-                       (lambda: eng.add_request([1, 2], speculative=True),
-                        "item 4"),
-                       (lambda: eng.add_request([1, 2], speculative=False),
-                        "item 4")):
-        with pytest.raises(NotImplementedError, match=item):
+    for call in (eng.metrics, eng.render_prometheus,
+                 lambda: eng.dump_trace("trace.json")):
+        with pytest.raises(NotImplementedError, match="item 7"):
             call()
-    assert eng.num_waiting == 0
-    assert eng.add_request([1, 2], max_new_tokens=2, speculative=None) == 0
+    assert eng.spec_stats() == {"enabled": False, "k": 0, "windows": 0,
+                                "proposed_tokens": 0, "accepted_tokens": 0,
+                                "accept_rate": 0.0}
+    assert eng.add_request([1, 2], max_new_tokens=2, speculative=True) == 0
+    assert eng.add_request([1, 2], max_new_tokens=2, speculative=False) == 1
+    assert eng.num_waiting == 2
+    assert eng.add_request([1, 2], max_new_tokens=2, speculative=None) == 2
     assert eng.close() is None and eng.close() is None
-    assert len(eng.run()[0]) == 2
+    out = eng.run()
+    assert [len(out[r]) for r in range(3)] == [2, 2, 2]
+    assert eng.stats()["spec_windows"] == 0
 
 
 def test_bad_options_and_static_engine_raise():
@@ -462,8 +479,12 @@ def test_bad_options_and_static_engine_raise():
         ServingEngine(port, weight_quant="int2", device="cpu")
     with pytest.raises(ValueError):
         ServingEngine(port, admission="waves", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.generate(np.zeros((1, 4), "int64"), max_new_tokens=2)
+    # the static engine, once refused (ROADMAP item 5), is generate()'s
+    # default and gives the paged engine's tokens
+    np.testing.assert_array_equal(
+        port.generate(np.zeros((1, 4), "int64"), max_new_tokens=2).numpy(),
+        port.generate(np.zeros((1, 4), "int64"), max_new_tokens=2,
+                      engine="paged").numpy())
     with pytest.raises(ValueError):
         port.generate(np.zeros((1, 4), "int64"), max_new_tokens=2,
                       engine="vllm")

@@ -10,7 +10,10 @@ kv_cache_dtype) pair on a tiny MHA LLaMA and for (int4, int4) and
 at both engines' defaults (prefix cache on, 256-token chunks), with the
 same `param_bytes` and `kv_hbm_bytes`. (f) paddle_tpu's quantized serving params, carried across
 with `serving_params_from_numpy`, equal the port's own extraction.
+The identity cases past the sixth run in
+test_torch_serving_quant_identity.py (another worker).
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import jax
 import numpy as np
 import pytest
@@ -138,11 +141,16 @@ def _case(kv_heads, w, kv, engine_kw=_OFF):
     return pytest.param(kv_heads, w, kv, engine_kw, id=name)
 
 
-@pytest.mark.parametrize(
-    "kv_heads,weight_quant,kv_cache_dtype,engine_kw",
-    [_case(None, w, kv) for w, kv in _COMBOS]
-    + [_case(2, "int4", "int4"), _case(2, "int8", "int8"),
-       _case(None, "int4", "int4", {}), _case(2, "int8", "int8", {})])
+#: the identity cases: the first half here, the rest in
+#: test_torch_serving_quant_identity.py (another worker)
+IDENTITY_CASES = ([_case(None, w, kv) for w, kv in _COMBOS]
+                  + [_case(2, "int4", "int4"), _case(2, "int8", "int8"),
+                     _case(None, "int4", "int4", {}),
+                     _case(2, "int8", "int8", {})])
+
+
+@pytest.mark.parametrize("kv_heads,weight_quant,kv_cache_dtype,engine_kw",
+                         IDENTITY_CASES[:6])
 def test_greedy_token_identity_with_reference_engine(kv_heads, weight_quant,
                                                      kv_cache_dtype,
                                                      engine_kw):

@@ -15,6 +15,7 @@ f32, and bf16 above 128, run the CUDA-core bodies. Here:
     only the summation order differs (O and each gradient within 1e-6 of
     its largest |value|, lse, a few units, within 1e-5).
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch

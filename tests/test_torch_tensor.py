@@ -12,6 +12,7 @@ value, nothing recording writes the storage), places and the default
 device (the card; no card and no `set_device("cpu")` raises), dtypes, and
 that a Tensor's `_data` goes through torch code unchanged.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import pickle
 
 import numpy as np

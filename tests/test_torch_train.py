@@ -23,6 +23,7 @@ its eager VJPs directly
 (`FLAGS_eager_defer_vjp=False`: the deferred-VJP path's liveness analysis
 reads `jax.core.Var`, which this jax no longer has; the math is the same).
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch

@@ -21,8 +21,12 @@ Q and K) with vocab 4096 (the fused linear cross-entropy).
     at different places).
 
 The port's flag-on forward also matches its own flag-off forward in f32
-(same function, other arithmetic order).
+(same function, other arithmetic order). Each step case takes ~20–40 s
+(the reference's kernels in interpret mode), so the GQA f32 case and the
+bf16 cases run in test_torch_train_fused_gqa.py and
+test_torch_train_fused_bf16{,_gqa}.py, each on a worker of its own.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch
@@ -54,7 +58,7 @@ def fused_flags():
     set_flags({"FLAGS_pallas_fused_ops": port_old})
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", ["mha-plain-ce"])
 def test_f32_fused_steps_match_reference(fused_flags, case):
     losses, grads, weights = _train(CASES[case], bf16=False, steps=STEPS)
     np.testing.assert_allclose(losses["port"], losses["ref"], rtol=1e-5)
@@ -67,8 +71,10 @@ def test_f32_fused_steps_match_reference(fused_flags, case):
         assert _rel(w, weights["ref"][name]) <= 1e-4, name
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_bf16_o2_fused_losses_match_reference(fused_flags, case):
+def bf16_o2_losses_held(case):
+    """The bf16 O2 case `case` (module note), run by
+    test_torch_train_fused_bf16{,_gqa}.py's
+    `test_bf16_o2_fused_losses_match_reference` under `fused_flags`."""
     losses, _, _ = _train(CASES[case], bf16=True, steps=STEPS)
     np.testing.assert_allclose(losses["port"], losses["ref"], rtol=5e-3)
     assert losses["port"][-1] < losses["port"][0]

@@ -24,6 +24,7 @@ paddle_tpu.
 Dropout draws from torch's generator in the port and from JAX's in the
 reference, so dropout is tested for shape, keep rate and route only.
 """
+import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
 import pytest
 import torch
