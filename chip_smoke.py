@@ -326,7 +326,32 @@ Phases (any failure exits non-zero; nothing is caught):
      `generate()`'s at its defaults and held teacher-forced, tok/s
      (STATIC_SPEC); then the 1B model with int4 weights, n-gram k 4 on the repetitive
      stream: K8 exactly 141 launches a verify program call (one window
-     for each speculating slot of the tick), as a decode tick (SPEC_Q4).
+     for each speculating slot of the tick), as a decode tick (SPEC_Q4);
+ 30. gpt serving: GPT-3 medium as bench.py builds it (24 layers, 1024
+     wide, 16 heads of 64, vocab 50304, positions cut to 1024; bf16,
+     random weights from seed 0) behind the paged engine (8 slots,
+     16-token blocks, whole prompts) on SERVE's 16 requests: K1 exactly
+     16 x 24, K7 ticks x 24, no K8 or fused kernel (its LayerNorms are
+     plain torch, as the reference composes them), greedy tokens held
+     teacher-forced, and a warm pass after finish_warmup() that captures
+     nothing (SERVE_GPT, SERVE_GPT_TEACHER_FORCED, SERVE_GPT_WARM); the
+     same with int4 weights and an int4 KV cache, K8 exactly 97 a prefill
+     and a tick, K7q-int4 24 a tick (SERVE_GPT_Q4); SERVE_PREFIX's
+     shared-prefix stream (24 requests behind a 448-token system prompt,
+     every prompt chunked: K1 0; learned positions at chunk offsets),
+     tokens held as SERVE_PREFIX holds them (SERVE_GPT_PREFIX);
+     `GPTForCausalLM.generate` at B 4 with 200 + 128 tokens, K1 exactly
+     24 (STATIC_GEN_GPT); speculation on 4 slots, SPEC's 8 repetitive
+     requests, the n-gram proposer and a 2-layer 256-wide GPT draft at k
+     4, beside the baseline, no capture after warmup (SPEC_GPT);
+ 31. obs: a LLaMA 1B and a GPT-3 medium engine registered on one
+     /metrics endpoint (FLAGS_obs_http_port, a free 127.0.0.1 port): 8
+     requests each, /healthz 503 before finish_warmup() and 200 after,
+     /metrics serving both under their engine labels, metrics() equal to
+     stats(), render_prometheus() parsed back to the registry's families
+     and values, a dumped flight trace that validate_trace accepts with
+     every TTFT tiled, no compile and no anomaly over a second pass
+     after warmup (OBS).
 
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Without a CUDA card it exits 1 and prints
@@ -337,7 +362,13 @@ the port's package under DIR (this checkout, or an unpacked older one):
 the eager steps of TRAIN, TRAIN_GPT and TRAIN_BERT, alternated, with
 each step's host ms by part and the garbage collector's collections
 (the HOST_PARTS line), so that two trees' host time compares in one
-call.
+call. `python3 chip_smoke.py --serve-ticks DIR` does the same for
+SERVE (the 1B model, 16 requests, whole prompts) and PROFILE's steady
+ticks: ms a steady decode tick, a tick's device time and its host time
+(the steady tick less the device time), then SERVE_PREFIX's chunked
+stream with the cache on and off (wall, TTFT, ms a tick; the
+SERVE_TICKS line), for comparing the per-tick cost of two trees'
+engines over alternated runs.
 """
 import gc
 import json
@@ -1458,12 +1489,17 @@ def _serve_run(model, reqs, tag, eager=False, **engine_kw):
 
 
 def _warm_pass(eng, reqs, rids, done, tag):
-    """The same requests once more through the same engine, every key of
-    theirs captured already: the graphs' numbers without a capture. The
-    tokens must repeat and nothing may be captured. Prints the `tag`
-    line and returns it."""
+    """The same requests once more through the same engine after
+    finish_warmup(), every key of theirs captured already: the graphs'
+    numbers without a capture. The tokens must repeat, nothing may be
+    captured, and the obs watchdog must record no post-warmup compile and
+    the flight recorder no anomaly. Prints the `tag` line and returns
+    it."""
     import torch
+    from paddle_tpu_torch import obs
 
+    eng.finish_warmup()
+    obs.clear_events()
     ticks = _tick_timer(eng)
     n_ttft, captures = len(eng.ttfts), sum(eng._captures)
     torch.cuda.synchronize()
@@ -1475,13 +1511,17 @@ def _warm_pass(eng, reqs, rids, done, tag):
     assert [out[r].tolist() for r in again] == [done[r].tolist()
                                                 for r in rids]
     assert sum(eng._captures) == captures, eng._captures
+    anomalies = sum(s["value"] for s in eng.metrics()[
+        "serving_flight_anomalies_total"]["samples"])
+    assert obs.post_warmup_compiles() == 0 and anomalies == 0, anomalies
     ttft = sorted(eng.ttfts[n_ttft:])
     rec = {"requests": len(reqs), "wall_s": wall, "decode_ticks": len(ticks),
            "decode_ms_per_tick": 1e3 * float(np.mean([w for w, _ in ticks])),
            "ttft_p50_s": float(np.percentile(ttft, 50)),
            "ttft_p95_s": float(np.percentile(ttft, 95)),
            "captures": sum(eng._captures) - captures,
-           "tokens_repeat": True}
+           "post_warmup_compiles": obs.post_warmup_compiles(),
+           "flight_anomalies": anomalies, "tokens_repeat": True}
     _say(tag, rec)
     return rec
 
@@ -1531,19 +1571,20 @@ def _teacher_forced(eng, items, tag):
     import torch
     from paddle_tpu_torch.ops.flash_attention import \
         flash_attention_reference
-    from paddle_tpu_torch.text.generation import (_layer_forward_prefill,
-                                                  _logits)
+    from paddle_tpu_torch.text.generation import (_embed,
+                                                  _layer_forward_prefill,
+                                                  _logits, _rope_full)
 
     params, spec = eng.params, eng.spec
     vocab = params["embed"].shape[0]
-    cos, sin = params["rope_cos"], params["rope_sin"]
+    cos, sin = _rope_full(params, spec)
     agree = total = 0
     worst = 0.0
     with torch.no_grad():
         for prompt, gen in items:
             n = len(gen)
             ids = np.concatenate([prompt, gen[:-1]])
-            x = params["embed"][torch.from_numpy(ids).cuda()[None]]
+            x = _embed(params, spec, torch.from_numpy(ids).cuda()[None])
             for lw in params["layers"]:
                 x, _ = _layer_forward_prefill(
                     x, lw, spec, cos, sin,
@@ -1628,8 +1669,9 @@ def serve_quant(model, weight_quant, kv_cache_dtype, n_requests, tag):
     st = eng.stats()
     layers = cfg.num_hidden_layers
     prefills, ticks = len(reqs), st["steps"]
-    # per prefill and per decode tick: 7 layer matmuls x 20 + the lm_head
-    per_step = 7 * layers + 1
+    # per prefill and per decode tick: the layer matmuls (LLaMA's 7, GPT's
+    # 4) in every layer + the lm_head
+    per_step = _qmm_per_step(eng)
     want_qmm = (prefills + ticks) * per_step if weight_quant == "int4" else 0
     assert counts["quant_matmul"] == want_qmm, counts
     assert counts[KERNEL_NAMES[kv_cache_dtype]] == ticks * layers, counts
@@ -1637,7 +1679,8 @@ def serve_quant(model, weight_quant, kv_cache_dtype, n_requests, tag):
     for fmt, name in KERNEL_NAMES.items():
         if fmt != kv_cache_dtype:
             assert counts[name] == 0, counts
-    assert all(counts[n] == 0 for n in FUSED_KERNELS), counts
+    assert all(counts[n] == 0 for n in FUSED_KERNELS + LN_DROPOUT_KERNELS), \
+        counts
 
     agree = total = 0
     worst = 0.0
@@ -1802,7 +1845,7 @@ def _prefix_run(model, reqs, tag, follow_up=None, eager=False, **engine_kw):
         tok = run_chunk(slot, req, state)
         ev[1].record()
         chunks.append((time.perf_counter() - t0, ev,
-                       sum(eng._captures) > before))
+                       sum(eng._captures) > before, tok is None))
         return tok
 
     eng._run_chunk = timed_chunk
@@ -1842,18 +1885,23 @@ def _prefix_run(model, reqs, tag, follow_up=None, eager=False, **engine_kw):
     for fmt, name in KERNEL_NAMES.items():
         if fmt != eng.kv_mode:
             assert counts[name] == 0, counts
-    # int4: 7 layer matmuls a layer in every chunk, prefill and tick, the
-    # lm_head once a tick and once a request (its first token)
-    want_qmm = (7 * layers * (st["prefill_chunks"] + ticks + whole)
+    # int4: the layer matmuls (LLaMA's 7, GPT's 4) in every layer of
+    # every chunk, prefill and tick, the lm_head once a tick and once a
+    # request (its first token)
+    per_layer = (_qmm_per_step(eng) - 1) // layers
+    want_qmm = (per_layer * layers * (st["prefill_chunks"] + ticks + whole)
                 + ticks + len(objs)) if eng.weight_quant == "int4" else 0
     assert counts["quant_matmul"] == want_qmm, counts
-    assert all(counts[n] == 0 for n in FUSED_KERNELS), counts
+    assert all(counts[n] == 0 for n in FUSED_KERNELS + LN_DROPOUT_KERNELS), \
+        counts
     assert all(counts[n] == 0 for n in
                ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")), counts
 
-    host_ms = [1e3 * w for w, _, _ in chunks]
-    event_ms = [ev[0].elapsed_time(ev[1]) for _, ev, _ in chunks]
-    steady = [i for i, (_, _, captured) in enumerate(chunks) if not captured]
+    host_ms = [1e3 * w for w, *_ in chunks]
+    event_ms = [ev[0].elapsed_time(ev[1]) for _, ev, *_ in chunks]
+    steady = [i for i, (_, _, captured, _) in enumerate(chunks)
+              if not captured]
+    nonfinal = [event_ms[i] for i, c in enumerate(chunks) if c[3]]
     ttft = st["ttft_s"]
     hits, missed = st["prefix_blocks_hit"], st["prefix_blocks_missed"]
     prompt_tokens = sum(int(r.prompt.size) for r in objs)
@@ -1882,6 +1930,9 @@ def _prefix_run(model, reqs, tag, follow_up=None, eager=False, **engine_kw):
             [host_ms[i] for i in steady])) if steady else None,
         "chunk_event_ms_median_steady": float(np.median(
             [event_ms[i] for i in steady])) if steady else None,
+        "chunks_nonfinal": len(nonfinal),
+        "chunk_event_ms_median_nonfinal": float(np.median(nonfinal))
+        if nonfinal else None,
         "slot_utilization": st["slot_utilization"],
         "weight_quant": st["weight_quant"],
         "kv_cache_mode": st["kv_cache_mode"],
@@ -1890,6 +1941,31 @@ def _prefix_run(model, reqs, tag, follow_up=None, eager=False, **engine_kw):
         "launches": counts}
     _say(tag, rec)
     return eng, objs, counts, rec
+
+
+def _chunk_spans(eng, rec, tag):
+    """The flight recorder's chunk spans after `_prefix_run` (its line
+    `rec`): none left open, one a chunk, each running forward, and a
+    chunk that emitted no token ending when its work ended on the card:
+    its span (from its enqueue to the end `_ended_at` dates) at least
+    0.9 x its device time between CUDA events, in the median (a span
+    ending at the enqueue would be a few percent of it). Prints the `tag`
+    line."""
+    assert eng._open_chunks == []
+    spans = [(1e3 * (t1 - t0), a["last"]) for fl in eng.flight.flights()
+             for name, t0, t1, a in fl.spans if name == "prefill_chunk"]
+    assert len(spans) == rec["prefill_chunks"], (len(spans), rec)
+    assert all(ms > 0 for ms, _ in spans), spans
+    nonfinal = [ms for ms, last in spans if not last]
+    assert len(nonfinal) == rec["chunks_nonfinal"], (len(nonfinal), rec)
+    line = {"chunks": len(spans), "nonfinal": len(nonfinal)}
+    if nonfinal:
+        span_ms = float(np.median(nonfinal))
+        event_ms = rec["chunk_event_ms_median_nonfinal"]
+        assert span_ms >= 0.9 * event_ms, (span_ms, event_ms)
+        line |= {"nonfinal_span_ms_median": span_ms,
+                 "nonfinal_event_ms_median": event_ms}
+    _say(tag, line)
 
 
 def serve_prefix(model):
@@ -1908,6 +1984,7 @@ def serve_prefix(model):
 
     eng, objs, counts, rec = _prefix_run(model, reqs, "SERVE_PREFIX",
                                          follow_up)
+    _chunk_spans(eng, rec, "SERVE_PREFIX_CHUNK_SPANS")
     st = eng.stats()
     assert st["prefix_blocks_hit"] > 0, st
     cow = objs[len(reqs) - 2:len(reqs)]
@@ -1920,9 +1997,10 @@ def serve_prefix(model):
                           for r in (objs[1], cow[0])],
                     "SERVE_PREFIX_TEACHER_FORCED")
 
-    off, objs_off, counts_off, _ = _prefix_run(
+    off, objs_off, counts_off, rec_off = _prefix_run(
         model, reqs, "SERVE_PREFIX_OFF", lambda _: follow["prompt"],
         prefix_cache=False)
+    _chunk_spans(off, rec_off, "SERVE_PREFIX_OFF_CHUNK_SPANS")
     same = total = whole = first = 0
     diverge = []
     for a, b in zip(objs, objs_off):
@@ -5163,6 +5241,8 @@ def _save_load(sd, name):
 
 #: QUANT_API's layer shapes (LLaMA 1B: q/k/v/o, gate/up, down) and rows
 QUANT_SHAPES = ((2048, 2048), (2048, 5504), (5504, 2048))
+#: GPT-3 medium's layer matmuls (K, N): qkv, o, fc_in, fc_out
+GPT_QUANT_SHAPES = ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024))
 QUANT_ROWS = (8, 512)
 
 
@@ -5329,15 +5409,17 @@ def _forced_logits(params, spec, prompt, gen):
     from paddle_tpu_torch.ops.flash_attention import \
         flash_attention_reference
     from paddle_tpu_torch.ops.quantized import quant_matmul_reference
-    from paddle_tpu_torch.text.generation import (_layer_forward_prefill,
-                                                  _logits)
+    from paddle_tpu_torch.text.generation import (_embed,
+                                                  _layer_forward_prefill,
+                                                  _logits, _rope_full)
 
     ids = np.concatenate([prompt, gen[:-1]])
+    cos, sin = _rope_full(params, spec)
     with torch.no_grad():
-        x = params["embed"][torch.from_numpy(ids).cuda()[None]]
+        x = _embed(params, spec, torch.from_numpy(ids).cuda()[None])
         for lw in params["layers"]:
             x, _ = _layer_forward_prefill(
-                x, lw, spec, params["rope_cos"], params["rope_sin"],
+                x, lw, spec, cos, sin,
                 attention=flash_attention_reference,
                 qmm=quant_matmul_reference)
         return _logits(x[0, len(prompt) - 1:], params, spec,
@@ -5577,9 +5659,20 @@ def static_gen(model):
 
 
 def model_spec(model):
-    from paddle_tpu_torch.text.generation import _spec_from_config
+    from paddle_tpu_torch.text.generation import _spec_for
 
-    return _spec_from_config(model.config)
+    return _spec_for(model)
+
+
+def _qmm_per_step(eng):
+    """K8 launches of one int4 prefill, decode tick or verify window of
+    engine `eng`: its weight-only matmuls (the quantized keys of its
+    serving params, LLaMA's 7 or GPT's 4 a layer) in every layer, and the
+    head once."""
+    from paddle_tpu_torch.text.generation import _QUANT_KEYS
+
+    layers = eng.params["layers"]
+    return sum(k in _QUANT_KEYS for k in layers[0]) * len(layers) + 1
 
 
 # ---------------------------------------------- speculative decoding (SPEC)
@@ -5673,7 +5766,7 @@ def static_spec(model, prompts):
     import torch
     from paddle_tpu_torch.core.flags import flag
     from paddle_tpu_torch.ops import _cuda_common
-    from paddle_tpu_torch.text.generation import _extract_llama
+    from paddle_tpu_torch.text.generation import _extract
 
     layers = model.config.num_hidden_layers
     ids = torch.from_numpy(np.stack(prompts))
@@ -5690,7 +5783,8 @@ def static_spec(model, prompts):
     toks = first.numpy()[:, s:]
     assert toks.shape == (len(prompts), SPEC_NEW)
     base = model.generate(ids, max_new_tokens=SPEC_NEW).numpy()[:, s:]
-    params, spec_ = _extract_llama(model), model_spec(model)
+    spec_ = model_spec(model)
+    params = _extract(model, spec_)
     agree, gap = _hold(params, spec_, list(zip(prompts, toks)))
     rec = {"batch": len(prompts), "prompt": s, "new_tokens": SPEC_NEW,
            "k": int(flag("FLAGS_spec_k")), "wall_s": wall,
@@ -5792,6 +5886,356 @@ def spec_q4(model):
     return counts
 
 
+# ------------------------------------------- GPT serving (phase 30) and obs
+
+#: SPEC_GPT's draft: a 2-layer, 256-wide GPT of GPT-3 medium's vocabulary
+CFG_GPT_DRAFT = dict(vocab_size=50304, hidden_size=256, num_hidden_layers=2,
+                     num_attention_heads=4, max_position_embeddings=1024)
+#: OBS: the requests each of its two engines serves (SERVE's first 8)
+OBS_REQUESTS = 8
+
+
+def _gpt_model(cfg=None, seed=0):
+    """A GPTForCausalLM on the card in bf16, random weights from `seed`,
+    no gradients (GPT-3 medium unless `cfg` says otherwise)."""
+    import torch
+    from paddle_tpu_torch.text.models import GPTConfig, GPTForCausalLM
+
+    torch.manual_seed(seed)
+    model = GPTForCausalLM(GPTConfig(**(cfg or CFG_GPT)), device="cuda",
+                           dtype=torch.bfloat16)
+    for p in model.parameters():
+        p.stop_gradient = True
+    return model
+
+
+def serve_gpt(model):
+    """SERVE_GPT (+ its teacher-forced check and warm pass) and
+    SERVE_GPT_Q4 on GPT-3 medium. Returns their launch counts."""
+    cfg = model.config
+    layers = cfg.num_hidden_layers
+    reqs = _requests(cfg.vocab_size)
+    eng, rids, done, counts, rec = _serve_run(model, reqs, "SERVE_GPT",
+                                              **WHOLE_PROMPT)
+    st = eng.stats()
+    assert counts["flash_attention_fwd"] == len(reqs) * layers, counts
+    assert counts["paged_decode_attention"] == st["steps"] * layers, counts
+    assert counts["quant_matmul"] == 0, counts
+    assert all(counts[n] == 0 for n in FUSED_KERNELS + LN_DROPOUT_KERNELS), \
+        counts
+    _teacher_forced(eng, [(reqs[rid][0], done[rid]) for rid in rids[:2]],
+                    "SERVE_GPT_TEACHER_FORCED")
+    _warm_pass(eng, reqs, rids, done, "SERVE_GPT_WARM")
+    del eng
+    counts_q4 = serve_quant(model, "int4", "int4", 16, "SERVE_GPT_Q4")
+    return {"SERVE_GPT": counts, "SERVE_GPT_Q4": counts_q4}
+
+
+def serve_gpt_prefix(model):
+    """SERVE_GPT_PREFIX: SERVE_PREFIX's stream at the engine's defaults on
+    GPT-3 medium. Every prompt (448 + 16..96 tokens, the follow-up turn
+    longer) rides the chunk ladder: K1 0, learned positions gathered at
+    each chunk's offset. Returns its launch counts."""
+    cfg = model.config
+    reqs = _prefix_stream(cfg.vocab_size, 24, repeats=True)
+    turn = np.random.RandomState(6).randint(0, cfg.vocab_size, (32,))
+
+    def follow_up(first):
+        return np.concatenate([reqs[0][0], first, turn])
+
+    eng, objs, counts, rec = _prefix_run(model, reqs, "SERVE_GPT_PREFIX",
+                                         follow_up)
+    _chunk_spans(eng, rec, "SERVE_GPT_PREFIX_CHUNK_SPANS")
+    assert eng.stats()["prefix_blocks_hit"] > 0
+    assert counts["flash_attention_fwd"] == 0, counts
+    cow = objs[len(reqs) - 2:len(reqs)]
+    assert all(r.cached_len == r.prompt.size - 1 for r in cow)
+    _teacher_forced(eng, [(r.prompt, eng.completed[r.rid])
+                          for r in (objs[1], cow[0])],
+                    "SERVE_GPT_PREFIX_TEACHER_FORCED")
+    return counts
+
+
+def static_gen_gpt(model):
+    """STATIC_GEN_GPT: `GPTForCausalLM.generate` at its defaults (the
+    static engine) at STATIC_GEN's shape, K1 exactly 24 launches a
+    generate, the tokens beside engine="paged"'s and held teacher-forced.
+    Returns the counts of the first generate."""
+    import torch
+
+    cfg = model.config
+    b, s, n = STATIC_GEN_SHAPE
+    ids = np.random.RandomState(32).randint(0, cfg.vocab_size, (b, s))
+    toks, counts, rec, params = _static_run(model, ids, "STATIC_GEN_GPT")
+    paged = model.generate(torch.from_numpy(ids), max_new_tokens=n,
+                           engine="paged").numpy()[:, s:]
+    spec = model_spec(model)
+    agree, gap = _hold(params, spec, [(ids[i], toks[i]) for i in range(b)])
+    rec |= {"rows_identical_to_paged": int(sum(
+                (toks[i] == paged[i]).all() for i in range(b))),
+            "first_divergence_from_paged": [
+                _first_divergence(params, spec, ids[i], paged[i], toks[i])
+                for i in range(b)],
+            "argmax_agreement": agree, "max_logit_gap": gap,
+            "tie_bound": TIE_BOUND}
+    assert counts["flash_attention_fwd"] == cfg.num_hidden_layers, counts
+    assert sum(counts.values()) == cfg.num_hidden_layers, counts
+    _say("STATIC_GEN_GPT", rec)
+    return counts
+
+
+def spec_gpt(model):
+    """SPEC_GPT: GPT-3 medium behind a 4-slot engine (whole prompts, the
+    prefix cache off) on SPEC's 8 repetitive requests: the baseline, the
+    n-gram proposer at k 4 and a 2-layer 256-wide GPT draft at k 4, each
+    a warm and a timed pass (no capture after warmup), every emitted
+    token held teacher-forced. Returns the launch counts summed over the
+    timed passes."""
+    from paddle_tpu_torch.inference.speculative import SpecConfig
+
+    draft = _gpt_model(CFG_GPT_DRAFT, seed=1)
+    prompts = _spec_streams(model.config.vocab_size)["repetitive"]
+    total, runs = {}, {}
+    _, base, runs["baseline"], counts = _spec_run(model, prompts, None)
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    for method in ("ngram", "draft"):
+        cfg = SpecConfig(method=method, k=4,
+                         draft_model=draft if method == "draft" else None)
+        eng, toks, rec, counts = _spec_run(model, prompts, cfg)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        agree, gap = _hold(eng.params, eng.spec, list(zip(prompts, toks)))
+        rec |= {"requests_identical_to_baseline": sum(
+                    a == b for a, b in zip(base, toks)),
+                "first_divergence": [
+                    _first_divergence(eng.params, eng.spec, p, a, b)
+                    for p, a, b in zip(prompts, base, toks)],
+                "argmax_agreement": agree, "max_logit_gap": gap,
+                "speedup": rec["decode_tok_per_s"]
+                / runs["baseline"]["decode_tok_per_s"]}
+        runs[f"{method}/k4"] = rec
+        del eng
+    _say("SPEC_GPT", {"target": "CFG_GPT", "draft": CFG_GPT_DRAFT,
+                      "slots": SPEC_SLOTS, "requests": SPEC_REQUESTS,
+                      "prompt_tokens": SPEC_MOTIF * SPEC_TILES,
+                      "new_tokens": SPEC_NEW, "tie_bound": TIE_BOUND,
+                      "runs": runs, "launches": total})
+    del draft
+    return total
+
+
+def _parse_exposition(text):
+    """{family: kind} and {sample line name with labels: value} of a
+    Prometheus text exposition."""
+    kinds, values = {}, {}
+    for ln in text.splitlines():
+        if ln.startswith("# TYPE "):
+            _, _, name, kind = ln.split(" ")
+            kinds[name] = kind
+        elif ln and not ln.startswith("#"):
+            key, val = ln.rsplit(" ", 1)
+            values[key] = float(val)
+    return kinds, values
+
+
+def _http_get(url):
+    """(status, body) of a GET on the local endpoint; an HTTP error's
+    status instead of raising."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def obs_phase(llama, gpt):
+    """OBS (phase 31): a LLaMA 1B and a GPT-3 medium engine registered on
+    one /metrics endpoint at a free 127.0.0.1 port (FLAGS_obs_http_port),
+    each serving SERVE's first OBS_REQUESTS requests (whole prompts),
+    then the same after finish_warmup(). Prints the OBS line."""
+    import shutil
+    import tempfile
+
+    import torch
+    from paddle_tpu_torch import obs
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.inference import ServingEngine
+
+    probe = obs.serve_metrics(0, obs.Registry())
+    port = probe.port
+    probe.close()
+    url = f"http://127.0.0.1:{port}"
+    set_flags({"FLAGS_obs_http_port": port})
+    try:
+        engines = {name: ServingEngine(m, max_slots=8, kv_block_size=16,
+                                       **WHOLE_PROMPT)
+                   for name, m in (("llama_1b", llama), ("gpt3_medium", gpt))}
+    finally:
+        set_flags({"FLAGS_obs_http_port": 0})
+    srv = obs.shared_server(port)
+    trace_dir = tempfile.mkdtemp()
+    try:
+        assert srv.engines() == sorted(e._engine_name
+                                       for e in engines.values())
+        health_cold = _http_get(f"{url}/healthz")
+        assert health_cold[0] == 503, health_cold
+        rec = {"port_bound": True, "healthz_before_warmup": health_cold[0]}
+        for name, eng in engines.items():
+            reqs = _requests(eng.params["embed"].shape[0])[:OBS_REQUESTS]
+            # the decode ticks counted and timed outside the engine
+            ticks = []
+            decode = eng._decode
+
+            def counted(active, decode=decode, ticks=ticks):
+                t0 = time.perf_counter()
+                out = decode(active)
+                ticks.append(time.perf_counter() - t0)
+                return out
+
+            eng._decode = counted
+            for p, n in reqs:
+                eng.add_request(p, max_new_tokens=n)
+            eng.run()
+            eng.finish_warmup()
+            obs.clear_events()
+            for p, n in reqs:
+                eng.add_request(p, max_new_tokens=n)
+            eng.run()
+            torch.cuda.synchronize()
+            assert obs.post_warmup_compiles() == 0
+            st, snap = eng.stats(), eng.metrics()
+
+            def value(fam, snap=snap):
+                return snap[fam]["samples"][0]["value"]
+
+            # each counter against what the run did, counted outside the
+            # registry: a request's first token comes from its prefill,
+            # every later one from a decode tick; whole prompts, the
+            # cache off, two passes of the requests
+            emitted = sum(len(t) - 1 for t in eng.completed.values())
+            prompts = 2 * sum(int(p.size) for p, _ in reqs)
+            assert len(eng.completed) == 2 * OBS_REQUESTS
+            assert st["decode_tokens"] == value(
+                "serving_decode_tokens_total") == emitted, emitted
+            assert st["prefill_tokens"] == value(
+                "serving_prefill_tokens_total") == prompts, prompts
+            assert st["requests_completed"] == value(
+                "serving_requests_completed_total") == 2 * OBS_REQUESTS
+            step_h = snap["serving_decode_step_seconds"]["samples"][0]
+            assert step_h["count"] == len(ticks) == st["steps"], ticks
+            # each tick's observation lies inside its wrapped wall
+            assert st["decode_time_s"] == step_h["sum"]
+            assert 0 < step_h["sum"] <= sum(ticks), (step_h, sum(ticks))
+            assert snap["serving_ttft_seconds"]["samples"][0]["count"] \
+                == len(st["ttft_s"]) == 2 * OBS_REQUESTS
+            anomalies = sum(s["value"] for s in snap[
+                "serving_flight_anomalies_total"]["samples"])
+            assert anomalies == 0, snap["serving_flight_anomalies_total"]
+            kinds, values = _parse_exposition(eng.render_prometheus())
+            assert kinds == {f"paddle_tpu_{n}": eng.registry.get(n).kind
+                             for n in eng.registry.names()}
+            assert values["paddle_tpu_serving_decode_tokens_total"] \
+                == st["decode_tokens"]
+            path = eng.dump_trace(os.path.join(trace_dir, f"{name}.json"))
+            summary = obs.validate_trace(path)
+            assert summary["requests"] == summary["tiled_requests"] \
+                == 2 * OBS_REQUESTS, summary
+            rec[name] = {"decode_tokens": st["decode_tokens"],
+                         "requests": st["requests_completed"],
+                         "families": len(kinds),
+                         "post_warmup_compiles": obs.post_warmup_compiles(),
+                         "flight_anomalies": anomalies,
+                         "trace": summary,
+                         "ttft_p50_s": snap["serving_ttft_seconds"][
+                             "samples"][0]["p50"],
+                         "tpot_p50_s": snap["serving_tpot_seconds"][
+                             "samples"][0]["p50"]}
+        code, body = _http_get(f"{url}/metrics")
+        assert code == 200
+        _, scraped = _parse_exposition(body)
+        for name, eng in engines.items():
+            key = (f'paddle_tpu_serving_decode_tokens_total{{engine="'
+                   f'{eng._engine_name}"}}')
+            assert scraped[key] == eng.stats()["decode_tokens"], key
+        health_warm = _http_get(f"{url}/healthz")
+        assert health_warm == (200, "ready\n"), health_warm
+        rec |= {"healthz_after_warmup": health_warm[0],
+                "metrics_engines": srv.engines(),
+                "metrics_bytes": len(body)}
+        for eng in engines.values():
+            eng.close()
+        assert srv.engines() == []
+    finally:
+        srv.close()
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    _say("OBS", rec)
+    del engines
+
+
+def serve_ticks():
+    """SERVE_TICKS (`python3 chip_smoke.py --serve-ticks DIR`, the port's
+    package imported from DIR): SERVE's counted run (the 1B model, 16
+    requests, whole prompts) for its ms a steady decode tick, then
+    PROFILE's steady ticks for a tick's device time; a tick's host time
+    is the steady tick's wall less that device time (the profiled ticks'
+    own wall carries the profiler's cost, and the two runs differ, so a
+    host time is read over several alternated runs of each tree). Then
+    SERVE_PREFIX's stream, cache on and off (chunked prompts: every
+    cold prompt's first chunk emits no token), for its wall, TTFT and ms
+    a tick. Prints the SERVE_TICKS line and the card."""
+    import torch
+    from paddle_tpu_torch.ops import _cuda_common
+    from paddle_tpu_torch.text.models import LlamaConfig, LlamaForCausalLM
+
+    _cuda_common.build_kernels()
+    torch.manual_seed(0)
+    model = LlamaForCausalLM(LlamaConfig(**CFG_1B), device="cuda",
+                             dtype=torch.bfloat16)
+    for p in model.parameters():
+        p.stop_gradient = True
+    reqs = _requests(CFG_1B["vocab_size"])
+    eng, _, _, _, rec = _serve_run(model, reqs, "SERVE_TICKS_SERVE",
+                                   **WHOLE_PROMPT)
+    del eng
+    profile_decode(model, ticks=20, tag="SERVE_TICKS_PROFILE")
+    prof = _LINES["SERVE_TICKS_PROFILE"]
+    reqs = _prefix_stream(CFG_1B["vocab_size"], 24, repeats=True)
+    turn = np.random.RandomState(6).randint(0, CFG_1B["vocab_size"], (32,))
+    follow = {}
+
+    def follow_up(first):
+        follow["prompt"] = np.concatenate([reqs[0][0], first, turn])
+        return follow["prompt"]
+
+    prefix = {}
+    for tag, kw in (("on", {}), ("off", {"prefix_cache": False})):
+        _, _, _, line = _prefix_run(
+            model, reqs, f"SERVE_TICKS_PREFIX_{tag.upper()}",
+            follow_up if tag == "on" else (lambda _: follow["prompt"]),
+            **kw)
+        prefix[tag] = {k: line[k] for k in (
+            "wall_s", "ttft_p50_s", "ttft_p95_s", "prefill_chunks",
+            "decode_ticks", "decode_ms_per_tick",
+            "decode_ms_per_tick_steady", "chunk_event_ms_median_steady",
+            "chunk_host_ms_median_steady")}
+        prefix[tag]["decode_tok_per_s"] = line["decode_tokens"] \
+            / line["wall_s"]
+    _say("SERVE_TICKS", {
+        "package": os.path.dirname(os.path.dirname(_cuda_common.__file__)),
+        "decode_ms_per_tick_steady": rec["decode_ms_per_tick_steady"],
+        "decode_ms_per_tick": rec["decode_ms_per_tick"],
+        "decode_tok_per_s": rec["decode_tok_per_s"],
+        "profile_wall_ms_per_tick": prof["wall_ms_per_tick"],
+        "profile_device_ms_per_tick": prof["device_ms_per_tick"],
+        "host_us_per_tick": 1e3 * (rec["decode_ms_per_tick_steady"]
+                                   - prof["device_ms_per_tick"]),
+        "prefix": prefix, "device": _nvidia_smi()})
+
+
 def main():
     import torch
 
@@ -5876,6 +6320,16 @@ def main():
     norm_wide = fused_norm_cases(4096, 16384, "wide")
     # F7: the flash family and the paged decode in float16
     f16 = f16_cases()
+    # GPT-3 medium's serving shapes: K7 and K7q-int4 at 8 sequences x 16
+    # heads x D64 (group 1), K8 at its four matrices (qkv 1024 x 3072, o
+    # 1024 x 1024, fc_in 1024 x 4096, fc_out 4096 x 1024) at decode (M 8)
+    # and prefill (M 512), and its f32 head (M 8 x 1024 x 50304)
+    dec_gpt = decode_case(d=64, tag="gpt d64")
+    dec_q_gpt = quant_decode_case("int4", d=64, tag="gpt d64")
+    qmm_gpt = {(m, k, n): qmm_case(m, k, n) for m in (8, 512)
+               for k, n in GPT_QUANT_SHAPES}
+    qmm_gpt_head = qmm_case(8, CFG_GPT["hidden_size"],
+                            CFG_GPT["vocab_size"], "float32")
     phases["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     optim, counts_optim = optim_phase()
@@ -5901,10 +6355,27 @@ def main():
     ptq(model)
     counts_sgen = static_gen(model)
     counts_spec_q4 = spec_q4(model)
-    del model                     # the serving weights; TRAIN builds its own
-    gc.collect()
-    counts_spec, counts_static_spec = spec()
     phases["quant_static_spec"] = time.perf_counter() - t0
+    # GPT serving on every serving path, then the obs phase on the 1B and
+    # the GPT-3 medium models' engines
+    gpt = _gpt_model()
+    t0 = time.perf_counter()
+    counts_gpt_serve = serve_gpt(gpt)
+    phases["serve_gpt"] = time.perf_counter() - t0
+    for tag, phase in (("SERVE_GPT_PREFIX", serve_gpt_prefix),
+                       ("STATIC_GEN_GPT", static_gen_gpt),
+                       ("SPEC_GPT", spec_gpt)):
+        t0 = time.perf_counter()
+        counts_gpt_serve[tag] = phase(gpt)
+        phases[tag.lower()] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    obs_phase(model, gpt)
+    phases["obs"] = time.perf_counter() - t0
+    del model, gpt               # the serving weights; TRAIN builds its own
+    gc.collect()
+    t0 = time.perf_counter()
+    counts_spec, counts_static_spec = spec()
+    phases["spec"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     _clean_device()
     tmodel, opt, ids, counts_train, train_peak = train()
@@ -6257,6 +6728,34 @@ def main():
             row[key] = cnt.get(row["name"], 0)
         if row["name"] == "quant_matmul":
             row["launches_quant_api"] = counts_quant["quant_matmul"]
+        # and on GPT-3 medium's serving paths
+        for tag, cnt in counts_gpt_serve.items():
+            row["launches_" + tag.lower()] = cnt.get(row["name"], 0)
+    # the kernels at GPT-3 medium's serving shapes; launches from the
+    # GPT path that runs each shape
+    for rec, src, cnt, path in (
+            (dec_gpt, "paged_decode.cu", counts_gpt_serve["SERVE_GPT"],
+             "SERVE_GPT"),
+            (dec_q_gpt, "paged_decode_int4.cu",
+             counts_gpt_serve["SERVE_GPT_Q4"], "SERVE_GPT_Q4"),
+            *[(r, "quant_matmul.cu", counts_gpt_serve["SERVE_GPT_Q4"],
+               "SERVE_GPT_Q4") for r in [*qmm_gpt.values(), qmm_gpt_head]]):
+        name = rec["name"]
+        case = rec.get("case")
+        if name == "quant_matmul":
+            m, k, n = rec["shape"]
+            case = f"gpt M {m} x {k} x {n} {rec['dtype']}"
+        summary.append({
+            "name": name, "case": case, "route": "cuda",
+            "source": f"paddle_tpu_torch/csrc/{src}",
+            "replaces": "paddle_tpu/ops/quantized.py:144"
+            if name == "quant_matmul" else paged_tpu,
+            "launches": cnt[name], "launches_path": path,
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+            | {k: rec[k] for k in ("body", "replaced_ms", "replaced_body")
+               if k in rec})
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,
@@ -6265,12 +6764,12 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--host-parts"]:
+    if sys.argv[1:2] in (["--host-parts"], ["--serve-ticks"]):
         sys.path.insert(0, os.path.abspath(sys.argv[2]))
         import torch
         if not torch.cuda.is_available():
             print("no CUDA card", file=sys.stderr)
             sys.exit(1)
-        host_parts()
+        host_parts() if sys.argv[1] == "--host-parts" else serve_ticks()
         sys.exit(0)
     sys.exit(main())

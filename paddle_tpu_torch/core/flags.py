@@ -85,6 +85,35 @@ _FLAGS = {
     # "float32" only (the port's models keep an f32 stream; "bfloat16" is
     # ROADMAP Queue 1's 'FLAGS_residual_dtype=bfloat16' item)
     "FLAGS_residual_dtype": _from_env("FLAGS_residual_dtype", "float32"),
+    # VLOG-style verbosity of obs.get_logger(...).vlog(level, ...)
+    "FLAGS_log_level": _from_env("FLAGS_log_level", 0),
+    # JSONL event log path (obs/metrics.py): compile events, logger
+    # records and registry snapshots append one line each; empty = off
+    "FLAGS_obs_log_path": _from_env("FLAGS_obs_log_path", ""),
+    # size cap in MB of the JSONL event log: past it the file rotates to
+    # <path>.1 .. <path>.N between records (a line is never torn);
+    # 0 = unbounded
+    "FLAGS_obs_log_max_mb": _from_env("FLAGS_obs_log_max_mb", 64),
+    # rolled JSONL event-log files kept (<path>.1 newest .. .N oldest)
+    "FLAGS_obs_log_backups": _from_env("FLAGS_obs_log_backups", 3),
+    # compile watchdog: more than this many distinct program keys for one
+    # (site, family) is a recompile-storm warning in audit_recompiles
+    "FLAGS_obs_compile_storm_threshold": _from_env(
+        "FLAGS_obs_compile_storm_threshold", 8),
+    # when > 0 every ServingEngine registers its metrics registry on the
+    # shared endpoint http://127.0.0.1:<port>/metrics (and /healthz);
+    # 0 = off
+    "FLAGS_obs_http_port": _from_env("FLAGS_obs_http_port", 0),
+    # per-engine flight-recorder ring capacity: finished request
+    # timelines kept for dump_trace() (active requests are never evicted)
+    "FLAGS_obs_flight_requests": _from_env("FLAGS_obs_flight_requests",
+                                           256),
+    # anomaly auto-dump directory of the flight recorder (a request
+    # timeout, a TTFT SLO breach, a post-warmup capture); empty = record
+    # but never dump
+    "FLAGS_obs_flight_dir": _from_env("FLAGS_obs_flight_dir", ""),
+    # TTFT SLO in ms of the flight recorder's anomaly trigger; 0 = none
+    "FLAGS_obs_slo_ttft_ms": _from_env("FLAGS_obs_slo_ttft_ms", 0.0),
 }
 
 

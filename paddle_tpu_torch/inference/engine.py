@@ -58,9 +58,22 @@ other slots take the ordinary decode in the same tick. The host reads the
 accepted flags and targets once per window and rolls back by bookkeeping
 alone.
 
-Not ported yet, refused with NotImplementedError naming the ROADMAP item:
-GPT models (item 10), and the metrics registry and flight recorder
-(`metrics`, `render_prometheus`, `dump_trace`; item 7).
+Models: LLaMA and GPT (the model's `_gen_arch`), through the one block
+of `text.generation` (`_attend_block` + `_mlp_block`): GPT's LayerNorms,
+fused qkv, learned positions (gathered at clamped positions, as JAX's
+gather clamps) and GELU ride the same programs, kernels and buckets.
+
+Telemetry (obs): each engine owns a metrics `Registry` with every
+`serving_*` family of the reference's; `stats()` is a thin view over it,
+`metrics()` its snapshot, `render_prometheus()` its exposition, and with
+FLAGS_obs_http_port > 0 it registers on the process's shared
+`/metrics` / `/healthz` endpoint (`close()` detaches it). A flight
+recorder keeps every request's span timeline (queue wait, the prefill
+program or each chunk, decode ticks, verify windows) for `dump_trace`;
+a timeout, a TTFT SLO breach or a capture after `finish_warmup()` is an
+anomaly, counted and, with FLAGS_obs_flight_dir, dumped. A program key's
+first call is the obs watchdog's compile event (on a card: the CUDA-graph
+capture and its wall).
 
 Sampling runs inside the programs (a greedy key is a bare argmax, a
 sampling key `_sample_batched`) from a `torch.Generator` on the engine's
@@ -72,6 +85,7 @@ from __future__ import annotations
 
 import functools
 import hashlib
+import itertools
 import time
 from collections import OrderedDict, deque
 
@@ -79,6 +93,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import obs
 from ..core.flags import flag
 from ..core.graphs import side_stream as _side_stream
 from ..jit.api import default_buckets
@@ -88,10 +103,10 @@ from ..ops.flash_attention import flash_attention_fwd
 from ..ops.paged_decode import paged_decode_attention
 from ..ops.quantized import quant_matmul_raw
 from ..text.generation import (_SAMP_KEYS, _cached_block,  # noqa: F401
-                               _dense_attention, _extract_llama,
+                               _dense_attention, _embed, _extract,
                                _filter_logits, _layer_forward_prefill,
-                               _logits, _sample_batched, _spec_from_config,
-                               _tensors)
+                               _logits, _rope_at, _rope_full,
+                               _sample_batched, _spec_for, _tensors)
 from ..text.generation import _categorical
 from ..text.paged_cache import (TRASH_BLOCK, BlockAllocator, PagedKVCache,
                                 PrefixCache, append_token,
@@ -103,8 +118,6 @@ from ..text.paged_cache import (TRASH_BLOCK, BlockAllocator, PagedKVCache,
 from .programs import Program
 
 
-_ITEM_OBS = "7, 'obs'"
-
 #: quantized KV-cache modes and their (append, scatter_prefill,
 #: scatter_chunk) triples — the step functions dispatch on the kv_mode
 #: string ("model" | "int8" | "int4") and carry the per-block scales only
@@ -115,11 +128,37 @@ _KV_FNS = {
 }
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to paddle_tpu_torch yet (ROADMAP Queue 1, "
-        f"item {item})")
+#: monotonically increasing engine names for the shared /metrics
+#: endpoint's `engine` label (next() on the counter is atomic)
+_ENGINE_IDS = itertools.count()
 
+
+def _end_mark(device):
+    """A mark of the work enqueued on `device` so far, dated later by
+    `_ended_at` without waiting now: a timing event recorded on the
+    current stream on a card (the engine's graphs replay on a side stream
+    the caller's stream waits for), the host clock on the CPU, where the
+    step ran eagerly and has ended."""
+    if device.type != "cuda":
+        return time.perf_counter()
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def _ended_at(marks, device):
+    """The host-clock times (`time.perf_counter`) at which the work before
+    each of `marks` (`_end_mark`) ended on the device. On a card one
+    event recorded now and waited for dates the others by their elapsed
+    time to it; after a read-back the stream is idle, so that wait is the
+    event's own latency, not the programs'."""
+    if device.type != "cuda":
+        return list(marks)
+    now = torch.cuda.Event(enable_timing=True)
+    now.record(torch.cuda.current_stream(device))
+    now.synchronize()
+    t = time.perf_counter()
+    return [t - m.elapsed_time(now) / 1e3 for m in marks]
 
 
 def _next_tokens(logits, sample):
@@ -181,9 +220,8 @@ def _decode_step(spec, block_size, kv_mode, params, cache, tok, pos, tables,
     length. Returns the next tokens [B] picked by `sample` (see
     `_next_tokens`), or the f32 logits [B, V] when it is None."""
     quantized = kv_mode != "model"
-    x = params["embed"][tok]                                # [B, H]
-    cos = params["rope_cos"][pos][:, None]                  # [B, 1, D]
-    sin = params["rope_sin"][pos][:, None]
+    x = _embed(params, spec, tok, pos)                      # [B, H]
+    cos, sin = _rope_at(params, spec, pos)                  # [B, 1, D]
 
     def attend(li, q, k, v):
         return _paged_attn(q, k, v, cache.k[li], cache.v[li],
@@ -208,8 +246,8 @@ def _prefill_step(spec, block_size, kv_mode, params, cache, ids, true_len,
     token [1] picked by `sample` (see `_next_tokens`; the f32 logits [1,
     V] when it is None) from the last REAL prompt position. `true_len` is
     an int or a 0-dim tensor, never read back."""
-    x = params["embed"][ids]                                # [1, S, H]
-    cos, sin = params["rope_cos"], params["rope_sin"]
+    x = _embed(params, spec, ids)                           # [1, S, H]
+    cos, sin = _rope_full(params, spec)
     ks, vs = [], []
     for lw in params["layers"]:
         x, (k, v) = _layer_forward_prefill(x, lw, spec, cos, sin,
@@ -257,12 +295,11 @@ def _chunk_prefill_step(spec, block_size, kv_mode, emit_token, ctx_pages,
         t.index_copy_(1, dst, t.index_select(1, src))
     c = ids.shape[1]
     pos = start + torch.arange(c, device=dev)
-    x = params["embed"][ids[0]]                             # [C, H]
-    # padded positions may run past the rope table: clamp, as JAX's
-    # gather does (their outputs are never read)
-    pos_safe = torch.clamp(pos, 0, params["rope_cos"].shape[0] - 1)
-    cos = params["rope_cos"][pos_safe][:, None]             # [C, 1, D]
-    sin = params["rope_sin"][pos_safe][:, None]
+    # padded positions may run past the position tables: `_embed` and
+    # `_rope_at` clamp, as JAX's gather does (their outputs are never
+    # read)
+    x = _embed(params, spec, ids[0], pos)                   # [C, H]
+    cos, sin = _rope_at(params, spec, pos)                  # [C, 1, D]
     kv_pos = torch.arange(ctx_pages * block_size, device=dev)
     q_mask = kv_pos[None, :] <= pos[:, None]                # [C, T]
     int4 = kv_mode == "int4"
@@ -345,10 +382,8 @@ def _spec_verify_step(spec, block_size, kv_mode, params, cache, toks, pos,
     b, c = toks.shape
     dev = toks.device
     qpos = pos[:, None] + torch.arange(c, device=dev)[None, :]   # [B, C]
-    x = params["embed"][toks]                                    # [B, C, H]
-    ps = torch.clamp(qpos, 0, params["rope_cos"].shape[0] - 1)
-    cos = params["rope_cos"][ps][:, :, None]                     # [B, C, 1, D]
-    sin = params["rope_sin"][ps][:, :, None]
+    x = _embed(params, spec, toks, qpos)                         # [B, C, H]
+    cos, sin = _rope_at(params, spec, qpos)                      # [B, C, 1, D]
     pages = tables.shape[1]
     end = torch.minimum(pos + c, limit)
     kv_pos = torch.arange(pages * block_size, device=dev)
@@ -384,21 +419,6 @@ def _spec_verify_step(spec, block_size, kv_mode, params, cache, toks, pos,
     return _verify_tokens(lg, toks[:, 1:], sample)
 
 
-class _Observed:
-    """A count and a sum of observations (the reference's histograms'
-    count and sum, without its metrics registry)."""
-
-    __slots__ = ("count", "sum")
-
-    def __init__(self):
-        self.count = 0
-        self.sum = 0.0
-
-    def observe(self, v):
-        self.count += 1
-        self.sum += float(v)
-
-
 # ------------------------------------------------------------ scheduler
 
 class Request:
@@ -409,7 +429,7 @@ class Request:
                  "tokens", "arrival_s", "admitted_s", "first_token_s",
                  "finished", "max_time_ms", "deadline_s", "finish_reason",
                  "cached_len", "prefill_pos", "prefill_done", "_hashes",
-                 "_hash_ns", "speculative")
+                 "_hash_ns", "speculative", "_flight")
 
     def __init__(self, rid, prompt, max_new_tokens, do_sample, temperature,
                  top_k, top_p, eos_token_id, max_time_ms=None,
@@ -447,6 +467,9 @@ class Request:
         # None follows the engine's config; False decodes normally even
         # on a speculating engine
         self.speculative = speculative
+        # the flight recorder's timeline (obs/flight.py), set at
+        # add_request
+        self._flight = None
 
     def expired(self, now=None) -> bool:
         if self.deadline_s is None:
@@ -480,7 +503,9 @@ class ServingEngine:
     pool. `admission="continuous"` (default) refills freed slots
     mid-flight; `admission="static"` only admits into an EMPTY engine
     (whole-batch waves). Single-threaded: one owner thread drives
-    `add_request`/`step`/`run`/`drain`.
+    `add_request`/`step`/`run`/`drain`; the read-only surfaces (`stats`,
+    `metrics`, the /metrics endpoint, `close`) may be called from any
+    thread.
 
     `kv_cache_dtype` ("model" | "int8" | "int4") defaults to
     FLAGS_kv_cache_dtype, `weight_quant` ("none" | "int8" | "int4") to
@@ -488,9 +513,9 @@ class ServingEngine:
     `chunked_prefill_tokens` to FLAGS_chunked_prefill_tokens and
     `prefix_cache_max_blocks` to FLAGS_prefix_cache_max_blocks and
     `spec_decode` ("off" | "ngram" | "draft" | a SpecConfig) to
-    FLAGS_spec_decode. The model
-    must lie on `device` ("cuda" unless the caller asks for another; no
-    card -> RuntimeError)."""
+    FLAGS_spec_decode. The model (a LLaMA or a GPT) must lie on `device`
+    ("cuda" unless the caller asks for another; no card ->
+    RuntimeError)."""
 
     def __init__(self, model, max_slots=None, kv_block_size=None,
                  num_kv_blocks=None, kv_cache_dtype=None,
@@ -499,8 +524,6 @@ class ServingEngine:
                  prefix_cache_max_blocks=None, spec_decode=None,
                  weight_quant=None, device=None):
         self.device = resolve_device(device)
-        if getattr(model, "_gen_arch", "llama") != "llama":
-            raise _not_ported("serving a GPT model", "10, 'GPT serving'")
         if weight_quant in (None, "none"):
             # serving-wide default; a per-engine weight_quant= overrides
             weight_quant = str(flag("FLAGS_weight_only_dtype"))
@@ -521,8 +544,8 @@ class ServingEngine:
             raise ValueError(f"model lies on {mdev}, engine device is "
                              f"{self.device}")
         cfg = model.config
-        self.spec = _spec_from_config(cfg)
-        self.params = _extract_llama(model, self.weight_quant)
+        self.spec = _spec_for(model)
+        self.params = _extract(model, self.spec, self.weight_quant)
         self.block_size = int(kv_block_size or flag("FLAGS_kv_block_size"))
         self.max_slots = int(max_slots or flag("FLAGS_serving_slots"))
         if self.max_slots < 1:
@@ -593,14 +616,6 @@ class ServingEngine:
         self.finish_reasons: dict[int, str] = {}
         self.ttfts: list[float] = []
         self.queue_waits: list[float] = []
-        self._decode_tokens = 0
-        self._prefill_tokens = 0
-        self._prefill_time_s = 0.0
-        self._queue_wait_time_s = 0.0
-        self._requests_completed = 0
-        self._admission_blocked = 0
-        self._drained_requests = 0
-        self._prefill_chunks = 0
         self._warmed = False
         self._draining = False
         # the program table: key -> Program. Per engine, unlike the
@@ -620,12 +635,7 @@ class ServingEngine:
         # captures and their wall seconds, [before, after] finish_warmup()
         self._captures = [0, 0]
         self._capture_s = [0.0, 0.0]
-        # per-token TPOT and per-tick step wall (count, sum)
-        self._m_tpot = _Observed()
-        self._m_decode_step = _Observed()
-        self._spec_windows = 0
-        self._spec_proposed = 0
-        self._spec_accepted = 0
+        self._init_metrics()
         from .speculative import SpecConfig, make_proposer
 
         if spec_decode is None:
@@ -637,6 +647,142 @@ class ServingEngine:
         self.spec_config = spec_decode
         self.proposer = (make_proposer(spec_decode)
                          if spec_decode is not None else None)
+        reg = self.registry
+        reg.gauge("serving_slots", "engine slot count").set(self.max_slots)
+        reg.gauge("serving_kv_pool_blocks",
+                  "total KV blocks (incl. trash)").set(
+                      self.allocator.num_blocks)
+        self._m_pool_free.set(self.allocator.available)
+        self.flight = obs.FlightRecorder()
+        # chunks that emitted no token, their spans still open until the
+        # next read-back (`_close_chunks`): (flight, trace-span record,
+        # start, span args, `_end_mark`)
+        self._open_chunks: list = []
+        slo_ms = float(flag("FLAGS_obs_slo_ttft_ms"))
+        self._slo_ttft_s = slo_ms / 1e3 if slo_ms > 0 else None
+        self._log = obs.get_logger(__name__)
+        self._metrics_server = None
+        self._engine_name = None
+        port = int(flag("FLAGS_obs_http_port"))
+        if port > 0:
+            # engines of one process share one endpoint per port: each
+            # registers its registry (exported with an engine="..."
+            # label) and a readiness probe (/healthz turns 200 once every
+            # registered engine passed finish_warmup)
+            try:
+                self._engine_name = f"engine{next(_ENGINE_IDS)}"
+                self._metrics_server = obs.shared_server(port)
+                self._metrics_server.register_engine(
+                    self._engine_name, reg, ready=lambda: self._warmed)
+            except OSError as e:
+                self._metrics_server = None
+                self._log.warning(
+                    f"obs metrics endpoint :{port} not started ({e}) — "
+                    "this engine goes unscraped; use "
+                    "obs.serve_metrics(port, engine.registry) to expose "
+                    "it elsewhere", key="obs-http-bind")
+
+    def _init_metrics(self):
+        """The engine's registry with every `serving_*` family of the
+        reference's engine, with its names, kinds, label names and help
+        strings."""
+        self.registry = reg = obs.Registry()
+        self._m_ttft = reg.histogram(
+            "serving_ttft_seconds", "arrival -> first token (= queue wait "
+            "+ prefill)")
+        self._m_queue_wait = reg.histogram(
+            "serving_queue_wait_seconds",
+            "arrival -> admission (slot + full block budget)")
+        self._m_prefill = reg.histogram(
+            "serving_prefill_seconds", "admission -> first token (the "
+            "prefill program span, queue wait excluded)")
+        self._m_decode_step = reg.histogram(
+            "serving_decode_step_seconds", "one decode tick (all active "
+            "slots advance one token)")
+        self._m_tpot = reg.histogram(
+            "serving_tpot_seconds", "time per output token, observed "
+            "ONCE PER EMITTED TOKEN: tick wall / tokens the tick "
+            "emitted (a speculative verify window divides by its "
+            "accepted count — multi-token ticks report real TPOT, not "
+            "a fake per-tick win)")
+        self._m_decode_tokens = reg.counter(
+            "serving_decode_tokens_total", "tokens emitted by decode ticks")
+        self._m_prefill_tokens = reg.counter(
+            "serving_prefill_tokens_total", "prompt tokens prefilled")
+        self._m_completed = reg.counter(
+            "serving_requests_completed_total", "requests finished (eos, "
+            "length or timeout)")
+        self._m_timeout = reg.counter(
+            "serving_requests_timeout_total", "requests finished by their "
+            "per-request deadline (max_time_ms) — slots/blocks reclaimed")
+        self._m_rejects = reg.counter(
+            "serving_admission_rejects_total", "requests rejected outright "
+            "(could never be served)", ("reason",))
+        self._m_drained = reg.counter(
+            "serving_drained_requests_total", "requests that finished "
+            "while the engine was draining (router drain/handoff — each "
+            "one completed or timed out in place instead of being "
+            "dropped by the deploy)")
+        self._m_blocked = reg.counter(
+            "serving_admission_blocked_total", "admission attempts that "
+            "waited: head-of-line request's block budget did not fit the "
+            "free pool")
+        self._m_prefix_hit = reg.counter(
+            "serving_prefix_blocks_hit_total", "prompt KV blocks served "
+            "from the prefix cache (zero prefill paid for them)")
+        self._m_prefix_miss = reg.counter(
+            "serving_prefix_blocks_missed_total", "full prompt KV blocks "
+            "that had to be computed (no cached prefix covered them)")
+        self._m_chunks = reg.counter(
+            "serving_prefill_chunks_total", "chunk-prefill program "
+            "invocations (chunked + cache-hit-suffix prefills)")
+        self._m_prefix_evict = reg.counter(
+            "serving_prefix_cache_evictions_total", "cached blocks "
+            "evicted (LRU, refcount-0 only) to satisfy allocations")
+        self._m_cache_blocks = reg.gauge(
+            "serving_prefix_cache_blocks", "blocks addressable by "
+            "content hash (cached prefixes)")
+        self._m_cache_refed = reg.gauge(
+            "serving_prefix_cache_referenced_blocks", "hash-mapped blocks "
+            "live requests still reference (refcount > 0)")
+        self._m_queue_depth = reg.gauge(
+            "serving_queue_depth", "requests waiting for admission")
+        self._m_active = reg.gauge(
+            "serving_active_slots", "slots currently decoding")
+        self._m_pool_free = reg.gauge(
+            "serving_block_pool_free_blocks", "free KV blocks")
+        self._m_pool_used = reg.gauge(
+            "serving_block_pool_used_blocks", "allocated KV blocks")
+        self._m_flight_anomalies = reg.counter(
+            "serving_flight_anomalies_total", "flight-recorder anomaly "
+            "triggers observed (request timeout, TTFT SLO breach, "
+            "post-warmup compile)", ("trigger",))
+        self._m_flight_dumps = reg.counter(
+            "serving_flight_dumps_total", "flight-recorder postmortem "
+            "trace files written to FLAGS_obs_flight_dir", ("trigger",))
+        self._m_flight_requests = reg.gauge(
+            "serving_flight_requests", "request timelines held in the "
+            "flight-recorder ring (active + finished)")
+        # the speculative-decoding families exist whether or not the
+        # engine speculates; a non-speculating engine never observes them
+        self._m_spec_windows = reg.counter(
+            "serving_spec_windows_total", "speculative verify windows "
+            "executed (one K+1-candidate batched scoring pass per "
+            "speculating slot per tick)")
+        self._m_spec_proposed = reg.counter(
+            "serving_spec_proposed_tokens_total", "draft tokens proposed "
+            "into verify windows")
+        self._m_spec_accepted = reg.counter(
+            "serving_spec_accepted_tokens_total", "proposed tokens the "
+            "verify oracle accepted (emitted without their own decode "
+            "tick — the speculative goodput)")
+        self._m_spec_accept_rate = reg.histogram(
+            "serving_spec_accept_rate", "per-window acceptance fraction "
+            "(accepted / proposed)")
+        self._m_spec_emitted = reg.histogram(
+            "serving_spec_accepted_per_window", "tokens emitted per "
+            "verify window: accepted prefix + the correction/bonus "
+            "token (1..K+1)")
 
     # ------------------------------------------------------------- API
     def add_request(self, prompt, max_new_tokens=32, do_sample=False,
@@ -644,44 +790,62 @@ class ServingEngine:
                     eos_token_id=None, max_time_ms=None,
                     speculative=None) -> int:
         """Queue a request. Raises ValueError when it could NEVER be served
-        (context or pool too small) or the engine is draining; otherwise
-        it waits for admission. `max_time_ms` is a wall-clock deadline
-        from arrival: when it expires the request finishes with reason
-        ``"timeout"`` (the tokens produced so far are its result) and its
-        blocks are released. `speculative=False` opts this request out of
+        (context or pool too small) or the engine is draining, counted in
+        serving_admission_rejects_total by reason; otherwise it waits for
+        admission. `max_time_ms` is a wall-clock deadline from arrival:
+        when it expires the request finishes with reason ``"timeout"``
+        (the tokens produced so far are its result) and its blocks are
+        released. `speculative=False` opts this request out of
         speculative decoding on a speculating engine (it decodes one token
         a tick beside the speculating slots); None follows the engine."""
         if self._draining:
-            raise ValueError("engine is draining: no new admissions until "
-                             "teardown (route to another replica)")
+            self._reject("draining",
+                          "engine is draining: no new admissions until "
+                          "teardown (route to another replica)")
         if torch.is_tensor(prompt):
             prompt = prompt.cpu().numpy()
-        prompt = np.asarray(prompt, np.int64).reshape(-1).astype(np.int32)
+        prompt = np.asarray(getattr(prompt, "_data", prompt),
+                            np.int64).reshape(-1).astype(np.int32)
         if prompt.size < 1:
-            raise ValueError("empty prompt")
+            self._reject("empty_prompt", "empty prompt")
         if int(max_new_tokens) < 1:
-            raise ValueError("max_new_tokens must be positive")
+            self._reject("bad_max_new_tokens",
+                         "max_new_tokens must be positive")
         total = prompt.size + int(max_new_tokens)
         if total > self.max_model_len:
-            raise ValueError(
+            self._reject(
+                "context_overflow",
                 f"prompt ({prompt.size}) + max_new_tokens "
                 f"({max_new_tokens}) = {total} exceeds the engine context "
                 f"({self.max_model_len} = max_position_embeddings rounded "
                 f"down to whole {self.block_size}-token kv blocks)")
         need = blocks_for(total, self.block_size)
         if need > self.allocator.num_blocks - 1:
-            raise ValueError(
+            self._reject(
+                "pool_too_small",
                 f"request needs {need} kv blocks but the pool only has "
                 f"{self.allocator.num_blocks - 1}")
         if max_time_ms is not None and float(max_time_ms) <= 0:
-            raise ValueError("max_time_ms must be positive")
+            self._reject("bad_max_time_ms", "max_time_ms must be positive")
         rid = self._next_id
         self._next_id += 1
-        self._waiting.append(Request(rid, prompt, max_new_tokens, do_sample,
-                                     temperature, top_k, top_p,
-                                     eos_token_id, max_time_ms=max_time_ms,
-                                     speculative=speculative))
+        req = Request(rid, prompt, max_new_tokens, do_sample, temperature,
+                      top_k, top_p, eos_token_id, max_time_ms=max_time_ms,
+                      speculative=speculative)
+        req._flight = self.flight.begin(rid, prompt.size,
+                                        int(max_new_tokens), req.arrival_s)
+        self._m_flight_requests.set(len(self.flight._flights))
+        self._waiting.append(req)
+        self._m_queue_depth.set(len(self._waiting))
         return rid
+
+    def _reject(self, reason: str, msg: str):
+        """An admission reject: count it by reason, log it (rate-limited)
+        and raise ValueError."""
+        self._m_rejects.labels(reason).inc()
+        self._log.warning(f"admission reject ({reason}): {msg}",
+                          key=f"reject:{reason}")
+        raise ValueError(msg)
 
     @property
     def num_active(self) -> int:
@@ -720,8 +884,11 @@ class ServingEngine:
                 emitted.extend(self._spec_decode(spec_slots, props))
             self.steps += 1
             self.active_slot_steps += len(active)
+            self._m_active.set(len(active))
         if self._draining:
-            self._drained_requests += sum(1 for _, _, fin in emitted if fin)
+            done = sum(1 for _, _, fin in emitted if fin)
+            if done:
+                self._m_drained.inc(done)
         return emitted
 
     def run(self, max_steps=100000):
@@ -733,72 +900,82 @@ class ServingEngine:
             self.step()
         else:
             raise RuntimeError("serving engine did not drain (max_steps)")
+        self._close_chunks()
         return dict(self.completed)
 
     def stats(self) -> dict:
-        """Scheduler counters and timings (host wall clock, seconds): the
-        reference's keys."""
+        """Scheduler counters and timings (host wall clock, seconds), the
+        reference's keys: a thin view over the metrics registry (the same
+        numbers /metrics exports) and the scheduler's own counters."""
         util = (self.active_slot_steps / (self.steps * self.max_slots)
                 if self.steps else 0.0)
+        proposed = int(self._m_spec_proposed.value)
+        accepted = int(self._m_spec_accepted.value)
         return {"steps": self.steps,
-                "decode_tokens": self._decode_tokens,
-                "prefill_tokens": self._prefill_tokens,
+                "decode_tokens": int(self._m_decode_tokens.value),
+                "prefill_tokens": int(self._m_prefill_tokens.value),
                 "decode_time_s": self._m_decode_step.sum,
-                "prefill_time_s": self._prefill_time_s,
-                "queue_wait_time_s": self._queue_wait_time_s,
+                "prefill_time_s": self._m_prefill.sum,
+                "queue_wait_time_s": self._m_queue_wait.sum,
                 "slot_utilization": round(util, 4),
                 "ttft_s": list(self.ttfts),
                 "queue_wait_s": list(self.queue_waits),
-                "admission_blocked": self._admission_blocked,
-                "requests_completed": self._requests_completed,
+                "admission_blocked": int(self._m_blocked.value),
+                "requests_completed": int(self._m_completed.value),
                 "draining": self._draining,
-                "drained_requests": self._drained_requests,
+                "drained_requests": int(self._m_drained.value),
                 "kv_pool_blocks": self.allocator.num_blocks,
                 "kv_pool_free": self.allocator.available,
                 "kv_hbm_bytes": self.cache.hbm_bytes,
                 "kv_cache_mode": self.kv_mode,
                 "weight_quant": self.weight_quant,
                 "param_bytes": self.param_bytes,
-                # the cache's own counters: a blocked admission's lookup is
-                # rolled back, so they count admitted requests' blocks
-                "prefix_blocks_hit": self.prefix_cache.hits,
-                "prefix_blocks_missed": self.prefix_cache.misses,
+                "prefix_blocks_hit": int(self._m_prefix_hit.value),
+                "prefix_blocks_missed": int(self._m_prefix_miss.value),
                 "prefix_cached_blocks": self.prefix_cache.cached_blocks,
                 "prefix_evictions": self.prefix_cache.evictions,
-                "prefill_chunks": self._prefill_chunks,
-                "spec_windows": self._spec_windows,
-                "spec_proposed_tokens": self._spec_proposed,
-                "spec_accepted_tokens": self._spec_accepted,
-                "spec_accept_rate": round(
-                    self._spec_accepted / max(self._spec_proposed, 1), 4)}
+                "prefill_chunks": int(self._m_chunks.value),
+                "spec_windows": int(self._m_spec_windows.value),
+                "spec_proposed_tokens": proposed,
+                "spec_accepted_tokens": accepted,
+                "spec_accept_rate": round(accepted / max(proposed, 1), 4)}
 
     def spec_stats(self) -> dict:
         """Speculative-decoding summary: acceptance over every verify
         window this engine ran."""
-        proposed = self._spec_proposed
+        proposed = int(self._m_spec_proposed.value)
+        accepted = int(self._m_spec_accepted.value)
         return {"enabled": self.proposer is not None,
                 "k": int(getattr(self.proposer, "k", 0) or 0),
-                "windows": self._spec_windows,
+                "windows": int(self._m_spec_windows.value),
                 "proposed_tokens": proposed,
-                "accepted_tokens": self._spec_accepted,
-                "accept_rate": (self._spec_accepted / proposed
-                                if proposed else 0.0)}
+                "accepted_tokens": accepted,
+                "accept_rate": accepted / proposed if proposed else 0.0}
 
     def metrics(self) -> dict:
-        raise _not_ported("the metrics registry (metrics)", _ITEM_OBS)
+        """The registry's snapshot (counters and gauges, histograms with
+        their quantiles): the machine-readable serving telemetry."""
+        return self.registry.to_dict()
 
     def render_prometheus(self) -> str:
-        raise _not_ported("the metrics registry (render_prometheus)",
-                          _ITEM_OBS)
+        """The registry's Prometheus text exposition (a scrape body)."""
+        return self.registry.render_prometheus()
 
     def dump_trace(self, path: str) -> str:
-        raise _not_ported("the flight recorder (dump_trace)", _ITEM_OBS)
+        """Write the flight-recorder ring to `path` as Chrome-trace /
+        Perfetto JSON and return the path. Asserts first that every
+        request's queue_wait + prefill spans sum bitwise to its recorded
+        TTFT; obs.validate_trace(path) re-checks the file."""
+        self._close_chunks()
+        return self.flight.dump(path)
 
     def finish_warmup(self):
-        """Declare the engine warm: a program key first seen after this is
-        a steady-state capture, counted apart from the warmup's (the
-        reference tags such compiles as retraces and raises an anomaly,
-        which belongs to the metrics registry, ROADMAP Queue 1 item 7)."""
+        """Declare the engine warm: every program its workload needs has
+        been captured. A program key first seen after this is a
+        steady-state capture: its compile event is tagged warm (a
+        post-warmup-compile finding of obs.audit_recompiles), it counts in
+        the captures after warmup, and it is a flight-recorder anomaly.
+        /healthz reports the engine ready from here on."""
         self._warmed = True
         return self
 
@@ -836,8 +1013,14 @@ class ServingEngine:
         return self._draining and not self.has_work()
 
     def close(self):
-        """Detach from the metrics endpoint: the port has none yet (ROADMAP
-        Queue 1 item 7), so this does nothing."""
+        """Detach from the shared /metrics endpoint (nothing to do
+        otherwise). The endpoint stays up for the other engines on it;
+        obs.shared_server(port).close() stops it. Idempotent, and safe
+        from any thread: the swap to a local means a second close can at
+        worst unregister twice."""
+        srv, self._metrics_server = self._metrics_server, None
+        if srv is not None:
+            srv.unregister_engine(self._engine_name)
 
     @property
     def param_bytes(self) -> int:
@@ -852,28 +1035,70 @@ class ServingEngine:
         host `values` ({input name: numpy array}), made at the key's first
         call from `body` (a function of the static inputs that may read
         only what the key fixes, and `_step_state`, not the engine) and,
-        with `_capture`, captured then. Returns the program's token tensor
-        (None for a chunk that emits no token)."""
+        with `_capture`, captured then. The first call is the watchdog's
+        compile event, with the capture wall (or, run eagerly, the first
+        call's). Returns the program's token tensor (None for a chunk that
+        emits no token)."""
         key = (site, int(bucket), bool(any_sample), tuple(extra))
         prog = self._programs.get(key)
-        if prog is None:
-            prog = Program(key, values, body, self.device)
-            if self._capture:
-                self._capture_program(prog, any_sample)
-            self._programs[key] = prog
-        return prog.run(values)
+        if prog is not None:
+            return prog.run(values)
+        prog = Program(key, values, body, self.device)
+        t0 = time.perf_counter()
+        wall = self._capture_program(prog, any_sample) if self._capture \
+            else None
+        self._programs[key] = prog
+        out = prog.run(values)
+        self._record_compile(site, bucket, any_sample, extra,
+                             time.perf_counter() - t0 if wall is None
+                             else wall)
+        return out
+
+    def _record_compile(self, site, bucket, any_sample, extra, wall_s):
+        """The watchdog's compile event of a new program key (its key
+        string the reference's); after finish_warmup() also a warning and
+        the post-warmup anomaly."""
+        keystr = (f"bucket{bucket}/sample{int(any_sample)}/"
+                  f"kv{self.kv_mode}/w{self.weight_quant}"
+                  + "".join(f"/{x}" for x in extra))
+        obs.record_compile(site, self._prog_group(site), keystr,
+                           bucket=int(bucket), wall_s=wall_s, donated=True,
+                           warm=self._warmed)
+        if self._warmed:
+            self._log.warning(
+                f"post-warmup compile: {site} bucket {bucket} captured "
+                "after finish_warmup() — steady-state ticks must not "
+                "capture", key=f"warm-compile:{site}")
+            self._anomaly("post_warmup_compile")
+
+    def _prog_group(self, site: str) -> str:
+        return (f"{site}/L{self.spec.num_layers}"
+                f"h{self.spec.num_heads}d{self.spec.head_dim}")
+
+    def _anomaly(self, trigger: str):
+        """One flight-recorder anomaly: count it and, with
+        FLAGS_obs_flight_dir set, write the postmortem trace."""
+        self._m_flight_anomalies.labels(trigger).inc()
+        self._close_chunks()
+        path = self.flight.anomaly_dump(trigger)
+        if path is not None:
+            self._m_flight_dumps.labels(trigger).inc()
+            self._log.warning(
+                f"flight recorder postmortem ({trigger}) dumped to "
+                f"{path}", key=f"flight-dump:{trigger}")
 
     def _capture_program(self, prog, any_sample):
         """Capture `prog` on the device's side stream (`_side_stream`)
-        into the engine's graph pool. Every graph of the engine shares the
-        pool, keeps its static output referenced and replays on that one
-        stream, so replay order
-        does not matter: the pool memory a graph frees by the end of its
-        capture held only its own temporaries, which a later capture may
-        reuse because no two replays overlap; what outlives a replay (the
-        KV pool, the static inputs, the parameters) lies outside the
-        pool, and the static outputs, the only pool memory that outlives
-        one, are never handed out again."""
+        into the engine's graph pool and return the capture's wall
+        seconds. Every graph of the engine shares the pool, keeps its
+        static output referenced and replays on that one stream, so
+        replay order does not matter: the pool memory a graph frees by
+        the end of its capture held only its own temporaries, which a
+        later capture may reuse because no two replays overlap; what
+        outlives a replay (the KV pool, the static inputs, the
+        parameters) lies outside the pool, and the static outputs, the
+        only pool memory that outlives one, are never handed out
+        again."""
         if self._stream is None:
             self._stream = _side_stream(self.device)
             self._pool = torch.cuda.graph_pool_handle()
@@ -881,6 +1106,7 @@ class ServingEngine:
                             self._gen if any_sample else None)
         self._captures[self._warmed] += 1
         self._capture_s[self._warmed] += wall
+        return wall
 
     def _graph_stats(self) -> dict:
         """The capture counters: graphs captured and their wall (dry run,
@@ -901,25 +1127,36 @@ class ServingEngine:
         """Active slots past their deadline finish now with reason
         "timeout" (blocks released through the prefix cache, a chunked
         prefill's copy-on-write source included); queued requests whose
-        deadline lapsed finish empty without taking a slot. Returns the
-        terminal ``(rid, None, True)`` events."""
+        deadline lapsed finish empty without taking a slot. Each is a
+        timeout anomaly. Returns the terminal ``(rid, None, True)``
+        events."""
         now = time.perf_counter()
         emitted = []
         for slot, req in enumerate(self._slot_req):
             if req is not None and req.expired(now):
                 req.finish_reason = "timeout"
+                self._m_timeout.inc()
+                self._log.warning(
+                    f"request {req.rid} hit its {req.max_time_ms:.0f}ms "
+                    f"deadline after {len(req.tokens)} token(s); slot "
+                    "and blocks reclaimed", key="request-timeout")
                 self._finish(slot)
+                self._anomaly("timeout")
                 emitted.append((req.rid, None, True))
         expired_waiting = [r for r in self._waiting if r.expired(now)]
         if expired_waiting:
             self._waiting = deque(r for r in self._waiting
                                   if not r.expired(now))
+            self._m_queue_depth.set(len(self._waiting))
             for req in expired_waiting:
                 req.finished = True
                 req.finish_reason = "timeout"
                 self.completed[req.rid] = np.asarray(req.tokens, np.int64)
                 self.finish_reasons[req.rid] = "timeout"
-                self._requests_completed += 1
+                self._m_timeout.inc()
+                self._m_completed.inc()
+                self.flight.finish(req.rid, now, "timeout")
+                self._anomaly("timeout")
                 emitted.append((req.rid, None, True))
         return emitted
 
@@ -941,6 +1178,7 @@ class ServingEngine:
             s = req.prompt.size
             hashes = self._prompt_hashes(req)
             hit = self.prefix_cache.lookup(hashes)
+            hit_blocks = len(hit)
             # the LAST prompt position is never served from cache: its
             # hidden state seeds the first token, so a whole-prompt hit
             # recomputes it into a copy-on-write duplicate of the shared
@@ -958,14 +1196,36 @@ class ServingEngine:
                 # blocked retries neither leak refs nor inflate the hits
                 undo = hit + ([cow_src] if cow_src is not None else [])
                 self.prefix_cache.cancel_lookup(undo, len(hashes))
-                self._admission_blocked += 1
+                self._m_blocked.inc()
+                fl = req._flight
+                if fl.blocked_ticks == 0:
+                    fl.add_mark("admission_blocked", time.perf_counter(),
+                                {"need_blocks": int(need),
+                                 "available":
+                                     int(self.prefix_cache.available)})
+                fl.blocked_ticks += 1
+                self._log.vlog(
+                    2, f"admission blocked: request {req.rid} needs "
+                    f"{need} blocks, {self.prefix_cache.available} "
+                    "available", key="admission-blocked")
                 break
             self._waiting.popleft()
             req.admitted_s = time.perf_counter()
             req.cached_len = cached_len
             req.prefill_pos = cached_len
+            fl = req._flight
+            fl.admitted_s = req.admitted_s
+            fl.cached_blocks = hit_blocks
+            fl.cow = cow_src is not None
+            fl.add_mark("admitted", req.admitted_s,
+                        {"slot": slot, "cached_blocks": hit_blocks,
+                         "cached_len": int(cached_len),
+                         "need_blocks": int(need)})
             self.queue_waits.append(req.queue_wait_s)
-            self._queue_wait_time_s += req.queue_wait_s
+            self._m_queue_wait.observe(req.queue_wait_s)
+            self._m_queue_depth.set(len(self._waiting))
+            self._m_prefix_hit.inc(hit_blocks)
+            self._m_prefix_miss.inc(len(hashes) - hit_blocks)
             if hashes:
                 self._note_repeat(req)
             self._slot_req[slot] = req
@@ -973,6 +1233,7 @@ class ServingEngine:
             self._slot_blocks[slot] = blocks
             self._tables[slot] = TRASH_BLOCK
             self._tables[slot, :len(blocks)] = blocks
+            self._update_pool_gauges()
             if cached_len == 0 and (self.chunk_tokens <= 0
                                     or s <= self.chunk_tokens):
                 tok, done = self._prefill(slot, req)
@@ -990,6 +1251,20 @@ class ServingEngine:
                 state["cow"] = (cow_src, ids[0])
                 self._slot_extra_refs[slot].append(cow_src)
             self._slot_chunk[slot] = state
+
+    def _update_pool_gauges(self):
+        """The pool and prefix-cache gauges, and new evictions into their
+        counter (and onto the flight recorder's engine track)."""
+        self._m_pool_free.set(self.allocator.available)
+        self._m_pool_used.set(self.allocator.num_blocks - 1
+                              - self.allocator.available)
+        self._m_cache_blocks.set(self.prefix_cache.cached_blocks)
+        self._m_cache_refed.set(self.prefix_cache.referenced_blocks)
+        ev = self.prefix_cache.evictions - self._m_prefix_evict.value
+        if ev > 0:
+            self._m_prefix_evict.inc(ev)
+            self.flight.tick_mark("prefix_evictions", time.perf_counter(),
+                                  evicted=int(ev))
 
     def _prompt_hashes(self, req):
         """The prompt's full-block hashes (none with the cache off),
@@ -1038,7 +1313,8 @@ class ServingEngine:
     def _prefill(self, slot, req):
         """The monolithic fast path: the whole prompt, padded to its
         length bucket, through the program of `_prefill_step` (K1), keyed
-        by (bucket, do_sample)."""
+        by (bucket, do_sample). Its span ends at the first token's
+        read-back."""
         s = req.prompt.size
         bucket = min(_ceil_to(default_buckets(s), self.block_size),
                      self.max_model_len)
@@ -1058,22 +1334,39 @@ class ServingEngine:
                                  a["true_len"], a["table_row"],
                                  (any_sample, a, gen))
 
-        tok = self._call("serving.prefill", bucket, any_sample, (), values,
-                         body).tolist()[0]
-        self._prefill_tokens += s
+        t_run = time.perf_counter()
+        with obs.span("serving.prefill"):
+            tok = self._call("serving.prefill", bucket, any_sample, (),
+                             values, body).tolist()[0]
+        t_end = time.perf_counter()
+        self._close_chunks()
+        self._m_prefill_tokens.inc(s)
         req.prefill_pos = s
-        self._first_token(slot, req, tok)
+        req._flight.add_span("prefill_program", t_run, t_end,
+                             {"bucket": bucket, "tokens": int(s)})
+        self._first_token(slot, req, tok, t_end)
         return tok, self._check_done(req, tok)
 
-    def _first_token(self, slot, req, tok):
-        """Bookkeeping of a request's first token: its prefill is done and
-        its slot decodes from the next tick."""
+    def _first_token(self, slot, req, tok, t):
+        """Bookkeeping of a request's first token, read back at `t`: its
+        prefill is done and its slot decodes from the next tick; the TTFT
+        and its two parts are observed, the flight records the first
+        token, and a TTFT past FLAGS_obs_slo_ttft_ms is an anomaly."""
         req.prefill_done = True
-        req.first_token_s = time.perf_counter()
-        self._prefill_time_s += req.prefill_s
+        req.first_token_s = t
+        self._m_prefill.observe(req.prefill_s)
+        self._m_ttft.observe(req.ttft_s)
         self.ttfts.append(req.ttft_s)
         req.tokens.append(tok)
         self._slot_pos[slot] = req.prompt.size
+        fl = req._flight
+        fl.first_token_s = fl.last_token_s = t
+        fl.ttft_s = req.ttft_s
+        fl.tokens += 1
+        if self._slo_ttft_s is not None and req.ttft_s > self._slo_ttft_s:
+            fl.add_mark("slo_breach", t,
+                        {"ttft_s": req.ttft_s, "slo_s": self._slo_ttft_s})
+            self._anomaly("slo_breach")
 
     def _chunk_phase(self):
         """Advance every prefilling slot by ONE chunk. A slot whose final
@@ -1087,7 +1380,7 @@ class ServingEngine:
             if tok is None:
                 continue
             del self._slot_chunk[slot]
-            self._first_token(slot, req, tok)
+            self._first_token(slot, req, tok, time.perf_counter())
             self._register_full_blocks(slot)
             done = self._check_done(req, tok)
             emitted.append((req.rid, tok, done))
@@ -1101,7 +1394,11 @@ class ServingEngine:
         padded to its length bucket (at least 8) and the context to a
         page-count bucket covering the chunk's last position and at least
         one page past the chunk bucket — the reference's static shapes,
-        one program per (chunk bucket, context bucket)."""
+        one program per (chunk bucket, context bucket). The chunk's span
+        ends at its token's read-back; a chunk that emits none reads
+        nothing back, and its span stays open until the next read-back
+        dates its end on the device (`_close_chunks`), so that the host
+        does not wait for it."""
         s = req.prompt.size
         start = req.prefill_pos
         n = s - start if self.chunk_tokens <= 0 \
@@ -1134,21 +1431,54 @@ class ServingEngine:
                 a["start"], a["true_end"], a["last_idx"], a["table_row"],
                 a["cow_src"], a["cow_dst"], (any_sample, a, gen))
 
-        out = self._call("serving.chunk_prefill", c_bucket, any_sample,
-                         (ctx_pages, is_last), values, body)
-        tok = out.tolist()[0] if is_last else None
+        tok = None
+        with obs.span("serving.chunk_prefill") as rec:
+            t_run = time.perf_counter()
+            out = self._call("serving.chunk_prefill", c_bucket, any_sample,
+                             (ctx_pages, is_last), values, body)
+            if is_last:
+                tok = out.tolist()[0]
+            else:
+                mark = _end_mark(self.device)
+        t_end = time.perf_counter()
+        fl = req._flight
+        fl.chunks += 1
+        args = {"start": int(start), "tokens": int(n),
+                "last": bool(is_last), "cow": cow is not None}
+        if is_last:
+            self._close_chunks()
+            fl.add_span("prefill_chunk", t_run, t_end, args)
+        else:
+            self._open_chunks.append((fl, rec, t_run, args, mark))
         if cow is not None:
             # the copy is enqueued before any later use of the pool, so
             # the admission-time ref that kept the source from eviction
             # can go
             self.prefix_cache.release([cow_src])
             self._slot_extra_refs[slot].remove(cow_src)
+            self._update_pool_gauges()
         req.prefill_pos = start + n
-        self._prefill_chunks += 1
-        self._prefill_tokens += n
+        self._m_chunks.inc()
+        self._m_prefill_tokens.inc(n)
         return tok
 
+    def _close_chunks(self):
+        """End the spans of the chunks that emitted no token (their
+        flight span and their `obs.span` record) at the times their work
+        ended on the device (`_ended_at`). Called after every read-back,
+        where the device has caught up, and before a trace is written."""
+        if not self._open_chunks:
+            return
+        ends = _ended_at([c[-1] for c in self._open_chunks], self.device)
+        for (fl, rec, t_run, args, _), t_end in zip(self._open_chunks, ends):
+            rec["seconds"] = t_end - t_run
+            fl.add_span("prefill_chunk", t_run, t_end, args)
+        self._open_chunks.clear()
+
     def _decode(self, active):
+        """One decode tick of the `active` slots, compacted to their slot
+        bucket: the program of `_decode_step`, keyed by (bucket,
+        any_sample); the tick's span ends at the tokens' read-back."""
         t0 = time.perf_counter()
         bucket = min(default_buckets(len(active)), self.max_slots)
         reqs = [self._slot_req[i] for i in active]
@@ -1170,24 +1500,33 @@ class ServingEngine:
             return _decode_step(spec, bs, mode, params, cache, a["tok"],
                                 a["pos"], a["tables"], (any_sample, a, gen))
 
+        t_run = time.perf_counter()
         nxt = self._call("serving.decode", bucket, any_sample, (), values,
                          body).tolist()
-        step_wall = time.perf_counter() - t0
+        t_end = time.perf_counter()
+        self._close_chunks()
+        step_wall = t_end - t0
+        self.flight.tick_span("decode_tick", t_run, t_end,
+                              active=len(active), bucket=int(bucket))
         self._m_decode_step.observe(step_wall)
         # TPOT is per token: one observation per emitted token
+        tpot = step_wall / len(active)
         for _ in active:
-            self._m_tpot.observe(step_wall / len(active))
+            self._m_tpot.observe(tpot)
         emitted = []
         for j, slot in enumerate(active):
             req = self._slot_req[slot]
             t = int(nxt[j])
             req.tokens.append(t)
+            fl = req._flight
+            fl.tokens += 1
+            fl.last_token_s = t_end
             self._slot_pos[slot] += 1
             done = self._check_done(req, t)
             emitted.append((req.rid, t, done))
             if done:
                 self._finish(slot)
-        self._decode_tokens += len(active)
+        self._m_decode_tokens.inc(len(active))
         return emitted
 
     def _spec_proposals(self, active):
@@ -1250,10 +1589,13 @@ class ServingEngine:
                                      a["toks"], a["pos"], a["tables"],
                                      a["limit"], (any_sample, a, gen))
 
+        t_run = time.perf_counter()
         acc, tgt = self._call("serving.spec_verify", bucket, any_sample,
                               (k,), values, body)
         acc, tgt = acc.tolist(), tgt.tolist()
-        step_wall = time.perf_counter() - t0
+        t_end = time.perf_counter()
+        self._close_chunks()
+        step_wall = t_end - t0
         self._m_decode_step.observe(step_wall)
         emitted = []
         n_tokens = n_accepted = 0
@@ -1276,18 +1618,28 @@ class ServingEngine:
                 req.tokens.append(t)
                 done = self._check_done(req, t)
             self._slot_pos[slot] += len(new)
+            fl = req._flight
+            fl.tokens += len(new)
+            fl.last_token_s = t_end
             n_tokens += len(new)
             n_accepted += a
+            self._m_spec_accept_rate.observe(a / plen if plen else 0.0)
+            self._m_spec_emitted.observe(len(new))
             emitted.extend((req.rid, t, done and i == len(new) - 1)
                            for i, t in enumerate(new))
             if done:
                 self._finish(slot)
-        self._spec_windows += len(slots)
-        self._spec_proposed += sum(min(len(p), k) for p in proposals)
-        self._spec_accepted += n_accepted
-        self._decode_tokens += n_tokens
+        self._m_spec_windows.inc(len(slots))
+        self._m_spec_proposed.inc(sum(min(len(p), k) for p in proposals))
+        self._m_spec_accepted.inc(n_accepted)
+        self._m_decode_tokens.inc(n_tokens)
+        tpot = step_wall / max(n_tokens, 1)
         for _ in range(n_tokens):
-            self._m_tpot.observe(step_wall / max(n_tokens, 1))
+            self._m_tpot.observe(tpot)
+        self.flight.tick_span("verify_window", t_run, t_end,
+                              active=len(slots), k=int(k),
+                              accepted=int(n_accepted),
+                              emitted=int(n_tokens), bucket=int(bucket))
         return emitted
 
     @staticmethod
@@ -1319,11 +1671,15 @@ class ServingEngine:
         completion, hits them), then every block the slot holds is
         decref'd, a pending copy-on-write source included. Blocks other
         requests still reference survive; hash-mapped blocks at refcount
-        0 park in the LRU; the rest free-list."""
+        0 park in the LRU; the rest free-list. The flight records the
+        finish."""
         req = self._slot_req[slot]
         req.finished = True
         self.completed[req.rid] = np.asarray(req.tokens, np.int64)
         self.finish_reasons[req.rid] = req.finish_reason or "length"
+        self.flight.finish(req.rid, time.perf_counter(),
+                           self.finish_reasons[req.rid])
+        self._m_flight_requests.set(len(self.flight._flights))
         self._register_full_blocks(slot)
         self.prefix_cache.release(self._slot_blocks[slot]
                                   + self._slot_extra_refs[slot])
@@ -1333,9 +1689,10 @@ class ServingEngine:
         self._slot_req[slot] = None
         self._slot_pos[slot] = 0
         self._tables[slot] = TRASH_BLOCK
-        self._requests_completed += 1
+        self._m_completed.inc()
         if self.proposer is not None:
             self.proposer.finish(slot)
+        self._update_pool_gauges()
 
 
 def generate_paged(model, ids, max_new_tokens, do_sample=False,

@@ -31,8 +31,10 @@ The draft model's programs go through the engine's program table (sites
 card each is a CUDA graph captured at its key's first call. Its dense
 cache is [L, max_slots + 1, T + 1, Hkv, D]: row 0 is a trash row (a
 program's dry run writes there) and the slots are rows 1..max_slots;
-index T of the time axis is the parked trash position. LLaMA models only;
-GPT speculation waits for GPT serving (ROADMAP Queue 1 item 10).
+index T of the time axis is the parked trash position. Target and draft
+are each a LLaMA or a GPT (the block math of text/generation.py, by the
+model's `_gen_arch`), in any pairing with one vocabulary, as the
+reference's.
 """
 from __future__ import annotations
 
@@ -44,9 +46,9 @@ import torch
 
 from ..jit.api import default_buckets
 from ..ops.flash_attention import flash_attention_fwd
-from ..text.generation import (_cached_block, _dense_attention,
-                               _extract_llama, _layer_forward_prefill,
-                               _logits, _spec_from_config, _tensors)
+from ..text.generation import (_cached_block, _dense_attention, _embed,
+                               _extract, _layer_forward_prefill, _logits,
+                               _rope_at, _rope_full, _spec_for, _tensors)
 
 
 # ------------------------------------------------------------ config
@@ -57,7 +59,7 @@ class SpecConfig:
     string shorthand: engine(spec_decode="ngram") == SpecConfig("ngram")).
 
     method       "ngram" (model-free prompt lookup) | "draft" (a small
-                 LLaMA proposes; pass it as draft_model)
+                 LLaMA or GPT proposes; pass it as draft_model)
     k            speculation depth, tokens proposed per verify window
                  (None reads FLAGS_spec_k)
     draft_model  the proposer model for method="draft"
@@ -199,14 +201,10 @@ class ReplayProposer(Proposer):
 # ------------------------------------------------ draft-model proposer
 
 def _spec_and_params(model):
-    """(block spec, serving params) of a LLaMA model, the extraction the
-    serving engine runs on the target."""
-    if getattr(model, "_gen_arch", "llama") != "llama":
-        raise NotImplementedError(
-            "speculative decoding with a GPT model is not ported to "
-            "paddle_tpu_torch yet (ROADMAP Queue 1, item 10, 'GPT "
-            "serving')")
-    return _spec_from_config(model.config), _extract_llama(model)
+    """(block spec, serving params) of a LLaMA or GPT model, the
+    extraction the serving engine runs on the target."""
+    spec = _spec_for(model)
+    return spec, _extract(model, spec)
 
 
 @torch.no_grad()
@@ -215,8 +213,8 @@ def _draft_prefill_step(dspec, params, kc, vc, ids, row):
     0-dim tensor: slot + 1). ids [1, S_bucket] right-padded; pad positions
     write K/V past the true length that the ingest overwrites before any
     mask exposes it."""
-    x = params["embed"][ids]
-    cos, sin = params["rope_cos"], params["rope_sin"]
+    x = _embed(params, dspec, ids)
+    cos, sin = _rope_full(params, dspec)
     s = ids.shape[1]
     idx = row.reshape(1)
     for li, lw in enumerate(params["layers"]):
@@ -238,7 +236,6 @@ def _draft_propose_step(dspec, steps, params, kc, vc, pend, plen, pos):
     b, w = pend.shape
     t_trash = kc.shape[2] - 1
     active = plen > 0
-    cos_t, sin_t = params["rope_cos"], params["rope_sin"]
     rows = torch.arange(b, device=pend.device)
     kv_pos = torch.arange(kc.shape[2], device=pend.device)
 
@@ -257,12 +254,11 @@ def _draft_propose_step(dspec, steps, params, kc, vc, pend, plen, pos):
         p = pos + t
         wp = torch.where(active, torch.clamp(p, max=t_trash), t_trash)
         mp = torch.clamp(p, max=t_trash)
-        ps = torch.clamp(p, 0, cos_t.shape[0] - 1)
         valid = (kv_pos[None, :] <= mp[:, None])[:, None]      # [B, 1, T]
-        x = params["embed"][tok]
+        x = _embed(params, dspec, tok, p)
+        cos, sin = _rope_at(params, dspec, p)                  # [B, 1, D]
         for li, lw in enumerate(params["layers"]):
-            x = _cached_block(x, lw, dspec, cos_t[ps][:, None],
-                              sin_t[ps][:, None],
+            x = _cached_block(x, lw, dspec, cos, sin,
                               functools.partial(attend, li, wp, valid))
         last = _logits(x, params, dspec).argmax(dim=-1)
         out.append(last)
@@ -270,8 +266,8 @@ def _draft_propose_step(dspec, steps, params, kc, vc, pend, plen, pos):
 
 
 class DraftModelProposer(Proposer):
-    """Draft-model proposer: a small LLaMA on its own dense cache (module
-    note), no slots taken from the target engine. Each tick it ingests
+    """Draft-model proposer: a small LLaMA or GPT on its own dense cache
+    (module note), no slots taken from the target engine. Each tick it ingests
     the tokens the verifier emitted since the last tick and runs K greedy
     steps ahead. Its programs ride the engine's program table: one
     propose program per (k, draft weights) at the full slot count, one
@@ -405,8 +401,8 @@ def _static_spec_prefill(dspec, t_total, params, ids, true_len):
     """Prefill for the static speculative loop: full-prompt forward, K/V
     into a [L, B, t_total, Hkv, D] cache, and the first token taken
     greedily from the last real prompt position."""
-    x = params["embed"][ids]
-    cos, sin = params["rope_cos"], params["rope_sin"]
+    x = _embed(params, dspec, ids)
+    cos, sin = _rope_full(params, dspec)
     b, s = ids.shape
     kc = torch.zeros((dspec.num_layers, b, t_total, dspec.num_kv_heads,
                       dspec.head_dim), dtype=x.dtype, device=x.device)
@@ -432,10 +428,8 @@ def _dense_verify(dspec, params, toks, pos, kc, vc):
     dev = toks.device
     qpos = pos[:, None] + torch.arange(c, device=dev)[None, :]   # [B, C]
     wp = torch.clamp(qpos, 0, t - 1)
-    x = params["embed"][toks]                                    # [B, C, H]
-    ps = torch.clamp(qpos, 0, params["rope_cos"].shape[0] - 1)
-    cos = params["rope_cos"][ps][:, :, None]                     # [B, C, 1, D]
-    sin = params["rope_sin"][ps][:, :, None]
+    x = _embed(params, dspec, toks, qpos)                        # [B, C, H]
+    cos, sin = _rope_at(params, dspec, qpos)                     # [B, C, 1, D]
     q_mask = torch.arange(t, device=dev)[None, None, :] <= qpos[:, :, None]
     rows = torch.arange(b, device=dev)[:, None]
 
@@ -475,7 +469,7 @@ def generate_static_spec(model, ids, max_new_tokens, eos_token_id=None,
     b, s = ids.shape
     mnt = int(max_new_tokens)
     eos = -1 if eos_token_id is None else int(eos_token_id)
-    max_pos = int(params["rope_cos"].shape[0])
+    max_pos = int(model.config.max_position_embeddings)
     if s + mnt > max_pos:
         raise ValueError(
             f"prompt ({s}) + max_new_tokens ({mnt}) exceeds "

@@ -1,22 +1,28 @@
-"""The LLaMA block math shared by the model and the serving engine.
+"""The decoder block math shared by the models and the serving engines.
 
 Port of the helpers paddle_tpu/inference/engine.py imports from
-paddle_tpu/text/generation.py: `_GenSpec`, `_rms_norm`, `_rope`,
-`_rope_tables_np`, `_mm`, `_quantize_w4` (its `_quantize_w` is
+paddle_tpu/text/generation.py: `_GenSpec`, `_rms_norm`, `_layer_norm`,
+`_rope`, `_rope_tables_np`, `_mm`, `_quantize_w4` (its `_quantize_w` is
 `ops.quantized.quantize_int8`), `_layer_forward_prefill` (also the
-block math of the port's training forward, `text/models/llama.py`),
-`_logits` and the weight extraction (`_repeat_kv` has no use here: the
-attention functions index or repeat GQA kv heads themselves). The
-reference's per-site copies of the block (`_layer_forward_decode`, the
-engines' paged and chunk layers, the speculative verify and draft
-layers) are here one block, `_attend_block` + `_mlp_block`, with the
-attention that reads each site's cache passed in. Same arithmetic and
-dtype rules as the reference; what differs is the mechanism: eager
-torch and a Python loop over layers, where the reference traced one
-program and scanned stacked weights. Weights are not stacked: the extracted parameter dict holds
-the model's own tensors, so dense serving costs no copy of the
-weights; weight-only quantization makes its packed copies once, when the
-dict is extracted, and leaves the model's weights as they are.
+block math of the port's LLaMA training forward, `text/models/llama.py`),
+`_logits` and the weight extraction of both archs, `_extract_llama` and
+`_extract_gpt` (`_repeat_kv` has no use here: the attention functions
+index or repeat GQA kv heads themselves). The reference's per-site
+copies of the block (`_layer_forward_decode`, `_gpt_layer_prefill`,
+`_gpt_layer_decode`, the engines' paged and chunk layers, the
+speculative verify and draft layers) are here one block,
+`_attend_block` + `_mlp_block`, with the attention that reads each
+site's cache passed in; the spec's `arch` picks LLaMA's half (RMSNorm,
+q/k/v with rope, SwiGLU) or GPT's (LayerNorm, one fused qkv matmul, no
+rope, exact GELU). The embedding of both is `_embed` (GPT adds its
+learned positions there) and the rope tables' rows `_rope_at`. Same
+arithmetic and dtype rules as the reference; what differs is the
+mechanism: eager torch and a Python loop over layers, where the
+reference traced one program and scanned stacked weights. Weights are
+not stacked: the extracted parameter dict holds the model's own tensors,
+so dense serving costs no copy of the weights; weight-only quantization
+makes its packed copies once, when the dict is extracted, and leaves the
+model's weights as they are.
 
 Weight layout: the model's `nn.Linear` weights are Paddle's [in, out],
 and the extracted layer dicts hold them as they are, so `_mm` is the
@@ -30,7 +36,9 @@ of the dense-cache decode step per key, replayed for every step.
 from __future__ import annotations
 
 import functools
+import hashlib
 import math
+import time
 import weakref
 from dataclasses import dataclass
 
@@ -40,18 +48,22 @@ import torch.nn.functional as F
 
 from ..core import graphs
 from ..core.flags import flag
+from ..obs.watchdog import record_compile
 from ..ops.flash_attention import flash_attention
 from ..ops.quantized import (quant_matmul, quant_matmul_raw, quantize_int4,
                              quantize_int8)
 
 #: the layer matmul weights that weight-only quantization stores as pairs
-#: (the norms stay dense)
-_QUANT_KEYS = ("q", "k", "v", "o", "gate", "up", "down")
+#: (LLaMA's seven, GPT's four; the norms stay dense)
+_QUANT_KEYS = ("q", "k", "v", "o", "gate", "up", "down", "qkv", "fc_in",
+               "fc_out")
 
 
 @dataclass(frozen=True)
 class _GenSpec:
-    """Static configuration of the LLaMA block math."""
+    """Static configuration of the block math. `arch` is "llama" (RMSNorm,
+    rope, SwiGLU) or "gpt" (LayerNorm, learned positions, GELU; its
+    `rms_eps` is the LayerNorm epsilon)."""
     num_layers: int
     num_heads: int
     num_kv_heads: int
@@ -59,9 +71,11 @@ class _GenSpec:
     rope_theta: float
     rms_eps: float
     tie_embeddings: bool
+    arch: str = "llama"
 
 
 def _spec_from_config(cfg) -> _GenSpec:
+    """A LLaMA config's spec."""
     return _GenSpec(num_layers=cfg.num_hidden_layers,
                     num_heads=cfg.num_attention_heads,
                     num_kv_heads=cfg.num_key_value_heads,
@@ -70,10 +84,71 @@ def _spec_from_config(cfg) -> _GenSpec:
                     tie_embeddings=bool(cfg.tie_word_embeddings))
 
 
+def _spec_for(model) -> _GenSpec:
+    """The spec of a model by its `_gen_arch`: GPT's as the reference's
+    engine builds it (every head its own kv head, head_dim = hidden /
+    heads, the LayerNorm epsilon, an untied head). The one reader of
+    `_gen_arch`: everything after it asks the spec's `arch`."""
+    cfg = model.config
+    if getattr(model, "_gen_arch", "llama") == "gpt":
+        nh = cfg.num_attention_heads
+        return _GenSpec(num_layers=cfg.num_hidden_layers, num_heads=nh,
+                        num_kv_heads=nh, head_dim=cfg.hidden_size // nh,
+                        rope_theta=0.0, rms_eps=cfg.layer_norm_eps,
+                        tie_embeddings=False, arch="gpt")
+    return _spec_from_config(cfg)
+
+
 def _rms_norm(x, w, eps):
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def _layer_norm(x, w, b, eps):
+    """The reference's serving LayerNorm composition: mean and variance in
+    f32, the normalized value cast to the model dtype, then `* w + b` in
+    the model dtype (plain torch, as the reference composes it in XLA on
+    this path; the training model's LayerNorm is the fused kernel)."""
+    xf = x.float()
+    m = xf.mean(dim=-1, keepdim=True)
+    var = (xf - m).square().mean(dim=-1, keepdim=True)
+    return ((xf - m) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
+
+
+def _embed(params, spec, ids, pos=None):
+    """The token embeddings of `ids` [...]; GPT adds its learned position
+    rows at `pos` (broadcast against ids; None: 0..S-1 along ids' last
+    axis), gathered at positions clamped to the table, as JAX clamps an
+    out-of-range gather (padded bucket rows, verify windows at the
+    context's end and trash rows reach past it; their outputs are never
+    read, and on a card an unclamped gather would assert)."""
+    x = params["embed"][ids]
+    if spec.arch != "gpt":
+        return x
+    wpe = params["wpe"]
+    if pos is None:
+        pos = torch.arange(ids.shape[-1], device=ids.device)
+    return x + wpe[torch.clamp(pos, 0, wpe.shape[0] - 1)]
+
+
+def _rope_full(params, spec):
+    """LLaMA's whole rope tables (cos, sin) [T, D], as a full-prompt
+    forward takes them; (None, None) for GPT, which has no rope."""
+    if spec.arch == "gpt":
+        return None, None
+    return params["rope_cos"], params["rope_sin"]
+
+
+def _rope_at(params, spec, pos):
+    """LLaMA's cos/sin rows at positions `pos` (clamped to the table),
+    shaped [*pos.shape, 1, D] to broadcast against [..., heads, D];
+    (None, None) for GPT, which has no rope."""
+    cos, sin = _rope_full(params, spec)
+    if cos is None:
+        return None, None
+    p = torch.clamp(pos, 0, cos.shape[0] - 1)
+    return cos[p][..., None, :], sin[p][..., None, :]
 
 
 def _rope(x, cos, sin):
@@ -148,8 +223,9 @@ def _attention_block(x, lw, spec: _GenSpec, cos, sin,
                            v.transpose(1, 2).contiguous(), causal=True)
         return out.transpose(1, 2)
 
-    x = _attend_block(x, lw, spec, cos[None, :s, None], sin[None, :s, None],
-                      attend, qmm)
+    if cos is not None:
+        cos, sin = cos[None, :s, None], sin[None, :s, None]
+    x = _attend_block(x, lw, spec, cos, sin, attend, qmm)
     return x, kv[0]
 
 
@@ -160,23 +236,39 @@ def _attend_block(x, lw, spec: _GenSpec, cos, sin, attend,
     [C, H], a decode step's [B, H]): the input norm, Q/K/V, rope with
     cos/sin broadcast against [..., heads, D], then `attend(q, k, v)` —
     which stores the block's k/v where its caller keeps them and returns
-    the attended values [..., Hq, D] — and the o-projection. Every block
-    of the model, the engines and the speculative programs is this and
-    `_mlp_block`; they differ only in `attend`."""
+    the attended values [..., Hq, D] — and the o-projection. GPT (the
+    spec's arch): the LayerNorm ln_1, one fused qkv matmul reshaped to
+    [..., 3, heads, D] and split on that axis, no rope (cos/sin None).
+    Every block of the models, the engines and the speculative programs
+    is this and `_mlp_block`; they differ only in `attend`."""
     lead, h = x.shape[:-1], x.shape[-1]
     nh, nkv, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
-    hn = _rms_norm(x, lw["input_ln"], spec.rms_eps).reshape(-1, h)
-    q = _rope(_mm(hn, lw["q"], qmm).reshape(*lead, nh, hd), cos, sin)
-    k = _rope(_mm(hn, lw["k"], qmm).reshape(*lead, nkv, hd), cos, sin)
-    v = _mm(hn, lw["v"], qmm).reshape(*lead, nkv, hd)
+    if spec.arch == "gpt":
+        hn = _layer_norm(x, lw["ln1_w"], lw["ln1_b"],
+                         spec.rms_eps).reshape(-1, h)
+        q, k, v = _mm(hn, lw["qkv"], qmm).reshape(*lead, 3, nh,
+                                                  hd).unbind(-3)
+    else:
+        hn = _rms_norm(x, lw["input_ln"], spec.rms_eps).reshape(-1, h)
+        q = _rope(_mm(hn, lw["q"], qmm).reshape(*lead, nh, hd), cos, sin)
+        k = _rope(_mm(hn, lw["k"], qmm).reshape(*lead, nkv, hd), cos, sin)
+        v = _mm(hn, lw["v"], qmm).reshape(*lead, nkv, hd)
     out = attend(q, k, v)
     return x + _mm(out.reshape(-1, nh * hd), lw["o"], qmm).reshape(x.shape)
 
 
 def _mlp_block(x, lw, spec: _GenSpec, qmm=quant_matmul_raw):
     """The second half of a decoder block without its residual add: the
-    SwiGLU MLP of the post-attention norm's output, over x [..., H]."""
+    SwiGLU MLP of the post-attention norm's output, over x [..., H]; GPT:
+    fc_out of the exact GELU (in the model dtype) of fc_in of ln_2's
+    output."""
     h = x.shape[-1]
+    if spec.arch == "gpt":
+        hn = _layer_norm(x, lw["ln2_w"], lw["ln2_b"],
+                         spec.rms_eps).reshape(-1, h)
+        mlp = _mm(F.gelu(_mm(hn, lw["fc_in"], qmm), approximate="none"),
+                  lw["fc_out"], qmm)
+        return mlp.reshape(x.shape)
     hn = _rms_norm(x, lw["post_ln"], spec.rms_eps).reshape(-1, h)
     mlp = _mm(F.silu(_mm(hn, lw["gate"], qmm)) * _mm(hn, lw["up"], qmm),
               lw["down"], qmm)
@@ -211,9 +303,14 @@ def _dense_attention(q, k, v, valid):
 
 
 def _logits(x, params, spec: _GenSpec, qmm=quant_matmul_raw):
-    """x [B, H] -> f32 logits [B, V]. A quantized head takes f32
-    activations, as the reference (int8: exactly (x_f32 @ w8_f32) * s)."""
-    x = _rms_norm(x, params["final_ln"], spec.rms_eps)
+    """x [B, H] -> f32 logits [B, V]: the final norm (GPT's LayerNorm
+    ln_f), then the head. A quantized head takes f32 activations, as the
+    reference (int8: exactly (x_f32 @ w8_f32) * s)."""
+    if spec.arch == "gpt":
+        x = _layer_norm(x, params["final_ln"], params["final_ln_b"],
+                        spec.rms_eps)
+    else:
+        x = _rms_norm(x, params["final_ln"], spec.rms_eps)
     if spec.tie_embeddings:
         return x.float() @ params["embed"].float().T
     head = params["lm_head"]
@@ -278,6 +375,22 @@ def _layer_weights(layer) -> dict:
             "post_ln": layer.post_attention_layernorm.weight._data}
 
 
+def _quantizer(weight_quant):
+    """The weight-only quantizer of `weight_quant` (None for "none")."""
+    if weight_quant not in ("none", "int8", "int4"):
+        raise ValueError(f"weight_quant must be 'none', 'int8' or 'int4', "
+                         f"got {weight_quant!r}")
+    if weight_quant == "none":
+        return None
+    return _quantize_w4 if weight_quant == "int4" else quantize_int8
+
+
+def _quantize_layers(layers, qfn):
+    return layers if qfn is None else [
+        {k: qfn(w) if k in _QUANT_KEYS else w for k, w in lw.items()}
+        for lw in layers]
+
+
 @torch.no_grad()
 def _extract_llama(model, weight_quant="none") -> dict:
     """The serving parameter dict of a LlamaForCausalLM: its weights'
@@ -285,23 +398,57 @@ def _extract_llama(model, weight_quant="none") -> dict:
     stacked [L, ...] arrays, and the rope tables in the model's dtype.
     weight_quant="int8"/"int4" stores the seven layer matmul weights and
     the lm_head as weight-only pairs (see `_mm`), made here, once."""
-    if weight_quant not in ("none", "int8", "int4"):
-        raise ValueError(f"weight_quant must be 'none', 'int8' or 'int4', "
-                         f"got {weight_quant!r}")
+    qfn = _quantizer(weight_quant)
     m = model.model
-    layers = [_layer_weights(layer) for layer in m.layers]
-    quant = weight_quant != "none"
-    qfn = _quantize_w4 if weight_quant == "int4" else quantize_int8
-    if quant:
-        layers = [{k: qfn(w) if k in _QUANT_KEYS else w
-                   for k, w in lw.items()} for lw in layers]
+    layers = _quantize_layers([_layer_weights(layer) for layer in m.layers],
+                              qfn)
     params = {"embed": m.embed_tokens.weight._data,
               "final_ln": m.norm.weight._data, "layers": layers}
     if model.lm_head is not None:
         head = model.lm_head.weight._data
-        params["lm_head"] = qfn(head) if quant else head
+        params["lm_head"] = head if qfn is None else qfn(head)
     params["rope_cos"], params["rope_sin"] = model.rope_tables()
     return params
+
+
+@torch.no_grad()
+def _extract_gpt(model, weight_quant="none") -> dict:
+    """The serving parameter dict of a GPTForCausalLM, read by the
+    reference's state-dict names (`_extract_gpt` there): wte, wpe, ln_f,
+    the untied lm_head and per block ln_1, attn.qkv_proj, attn.out_proj,
+    ln_2, fc_in, fc_out — the model's own tensors, no copy. With
+    weight_quant="int8"/"int4" qkv, o, fc_in, fc_out and the head are
+    weight-only pairs, made here, once."""
+    qfn = _quantizer(weight_quant)
+    sd = model.state_dict()
+
+    def w(name):
+        return sd[name]._data
+
+    layers = []
+    for i in range(model.config.num_hidden_layers):
+        base = f"blocks.{i}."
+        layers.append({"ln1_w": w(base + "ln_1.weight"),
+                       "ln1_b": w(base + "ln_1.bias"),
+                       "qkv": w(base + "attn.qkv_proj.weight"),
+                       "o": w(base + "attn.out_proj.weight"),
+                       "ln2_w": w(base + "ln_2.weight"),
+                       "ln2_b": w(base + "ln_2.bias"),
+                       "fc_in": w(base + "fc_in.weight"),
+                       "fc_out": w(base + "fc_out.weight")})
+    head = w("lm_head.weight")
+    return {"embed": w("wte.weight"), "wpe": w("wpe.weight"),
+            "final_ln": w("ln_f.weight"), "final_ln_b": w("ln_f.bias"),
+            "lm_head": head if qfn is None else qfn(head),
+            "layers": _quantize_layers(layers, qfn)}
+
+
+def _extract(model, spec, weight_quant="none") -> dict:
+    """The serving parameter dict of a LLaMA or GPT model (`spec`, its
+    `_spec_for`, says which)."""
+    if spec.arch == "gpt":
+        return _extract_gpt(model, weight_quant)
+    return _extract_llama(model, weight_quant)
 
 
 def _tensors(tree):
@@ -362,8 +509,8 @@ class _StaticProgram:
         K/V at [true_len, bucket), which decode overwrites before its mask
         reaches them), and the decode state reset."""
         spec, params = self.spec, self.params
-        x = params["embed"][ids]
-        cos, sin = params["rope_cos"], params["rope_sin"]
+        x = _embed(params, spec, ids)
+        cos, sin = _rope_full(params, spec)
         s = ids.shape[1]
         for li, lw in enumerate(params["layers"]):
             x, (k, v) = _layer_forward_prefill(x, lw, spec, cos, sin)
@@ -382,9 +529,8 @@ class _StaticProgram:
         at `pos`, pick the next token (eos once finished) into `toks[:,
         i]`, advance `pos` and `i`."""
         spec, params, pos = self.spec, self.params, self.pos
-        x = params["embed"][self.tok]                         # [B, H]
-        cos = params["rope_cos"].index_select(0, pos)[None]   # [1, 1, D]
-        sin = params["rope_sin"].index_select(0, pos)[None]
+        x = _embed(params, spec, self.tok, pos)               # [B, H]
+        cos, sin = _rope_at(params, spec, pos)                # [1, 1, D]
         valid = (torch.arange(self.k.shape[2], device=pos.device)
                  <= pos)[None, None]                          # [1, 1, T]
 
@@ -461,7 +607,7 @@ def _static_entry(model, weight_quant):
     fp = _weights_fingerprint(model)
     hit = per_model.get(weight_quant)
     if hit is None or hit[0] != fp:
-        hit = (fp, _extract_llama(model, weight_quant), {})
+        hit = (fp, _extract(model, _spec_for(model), weight_quant), {})
         per_model[weight_quant] = hit
     return hit[1], hit[2]
 
@@ -480,9 +626,13 @@ def _generate_static(model, ids, mnt, do_sample, temperature, top_k, top_p,
                      eos_token_id, seed, weight_quant):
     """The static single-program engine (the reference's `_generate_program`
     and the static branch of its `generate`): the prompt padded to its
-    bucket, the generation length bucketed, a prefill, then G - 1 decode
-    steps replayed from one CUDA graph per key with the tokens read back
-    once. Returns int64 [B, mnt] on the CPU."""
+    bucket, the generation length bucketed (bounded by the positions left
+    after the prompt), a prefill, then G - 1 decode steps replayed from
+    one CUDA graph per key with the tokens read back once. A key's first
+    generate is the compile event of the obs watchdog (site "generate",
+    group "generate/<arch>"), with the capture wall on a card and the
+    eager first call's wall elsewhere. Returns int64 [B, mnt] on the
+    CPU."""
     from ..jit.api import default_buckets
 
     cfg = model.config
@@ -490,7 +640,7 @@ def _generate_static(model, ids, mnt, do_sample, temperature, top_k, top_p,
     b, s_true = ids.shape
     g = max(min(default_buckets(mnt), max_pos - s_true), mnt)
     bucket = max(min(default_buckets(s_true), max_pos - g), s_true)
-    spec = _spec_from_config(cfg)
+    spec = _spec_for(model)
     params, programs = _static_entry(model, weight_quant)
     eos = int(eos_token_id if eos_token_id is not None else -1)
     samp = (bool(do_sample), float(temperature), int(top_k), float(top_p))
@@ -499,7 +649,8 @@ def _generate_static(model, ids, mnt, do_sample, temperature, top_k, top_p,
     key = (spec, b, bucket, g) + samp + (eos, weight_quant, params_fp)
     prog = programs.pop(key, None)
     device = model.device
-    if prog is None:
+    first = prog is None
+    if first:
         prog = _StaticProgram(spec, params, b, bucket + g, g, samp, eos,
                               device)
     programs[key] = prog                      # newest last
@@ -510,11 +661,20 @@ def _generate_static(model, ids, mnt, do_sample, temperature, top_k, top_p,
     prog.gen.manual_seed(int(seed))
     ids_p = np.zeros((b, bucket), np.int64)
     ids_p[:, :s_true] = ids
+    t0 = time.perf_counter()
     prog.prefill(torch.from_numpy(ids_p).to(device), s_true)
     if g > 1 and prog.graph is None and device.type == "cuda":
         prog.capture()
     prog.decode(g - 1)
-    return prog.toks.cpu().numpy()[:, :mnt]
+    toks = prog.toks.cpu().numpy()[:, :mnt]
+    if first:
+        key_str = (f"b{b}/s{bucket}/g{g}/sample{int(samp[0])}/p"
+                   + hashlib.sha1(repr(params_fp).encode()).hexdigest()[:8])
+        record_compile("generate", f"generate/{spec.arch}", key_str,
+                       bucket=(bucket, g),
+                       wall_s=prog.capture_s if device.type == "cuda"
+                       else time.perf_counter() - t0)
+    return toks
 
 
 def generate(model, input_ids, max_new_tokens=32, max_length=None,
@@ -534,11 +694,8 @@ def generate(model, input_ids, max_new_tokens=32, max_length=None,
     speculative decoding (inference/speculative.py): forwarded to the
     ServingEngine for engine="paged"; on the static engine greedy, the
     n-gram proposer and unquantized weights only. Tokens stay identical
-    to the non-speculative run either way."""
-    if getattr(model, "_gen_arch", "llama") != "llama":
-        raise NotImplementedError(
-            "generate() of a GPT model is not ported to paddle_tpu_torch "
-            "yet (ROADMAP Queue 1, item 10, 'GPT serving')")
+    to the non-speculative run either way. LLaMA and GPT models (their
+    `_gen_arch`) take every path."""
     cfg = model.config
     ids = getattr(input_ids, "_data", input_ids)
     ids = np.asarray(ids.cpu() if torch.is_tensor(ids) else ids).astype(
@@ -551,7 +708,7 @@ def generate(model, input_ids, max_new_tokens=32, max_length=None,
         raise ValueError("max_new_tokens must be positive")
     total = ids.shape[1] + int(max_new_tokens)
     if total > int(cfg.max_position_embeddings):
-        # the rope tables end here
+        # the position tables (rope, wpe) end here
         raise ValueError(
             f"prompt ({ids.shape[1]}) + max_new_tokens ({max_new_tokens}) "
             f"= {total} exceeds max_position_embeddings "

@@ -4,8 +4,10 @@ Port of paddle_tpu/text/models/gpt.py (`GPTConfig`, `GPTAttention`,
 `GPTBlock`, `GPTForCausalLM`): learned positions, pre-norm LayerNorm
 blocks with a fused qkv projection, a GELU MLP, no biases in the
 projections. Out of scope here: tensor/sequence parallelism (their config
-switches raise `NotImplementedError` naming the ROADMAP entry) and
-`generate` (GPT serving, ROADMAP Queue 1 item 10).
+switches raise `NotImplementedError` naming the ROADMAP entry).
+`generate` is `text.generation.generate`'s: the static engine, or
+`engine="paged"` for the serving engine, through the serving block math
+(`text.generation`, the spec's "gpt" arch).
 
 The forward follows `FLAGS_pallas_fused_ops`, as the reference's does:
 on, `ln_1`, `ln_2.forward_fused_add` (the residual add fused into the
@@ -169,8 +171,20 @@ class GPTForCausalLM(nn.Layer):
             logits.float().reshape(-1, self.config.vocab_size),
             labels.reshape(-1), ignore_index=-100)
 
-    def generate(self, *args, **kwargs):
-        raise NotImplementedError(
-            "GPTForCausalLM.generate (GPT serving: the engine's gpt arch) "
-            "is not ported to paddle_tpu_torch yet (ROADMAP Queue 1, item "
-            "10, 'GPT serving')")
+    def generate(self, input_ids, max_new_tokens=32, max_length=None,
+                 do_sample=False, temperature=1.0, top_k=0, top_p=1.0,
+                 eos_token_id=None, seed=None, weight_quant="none",
+                 engine="static", prefix_cache=None, spec_decode=None):
+        """Autoregressive decoding; returns int64 tokens [B, prompt_len +
+        n_generated] on the CPU. engine="static" (the default) runs the
+        single-program engine, engine="paged" the continuous-batching
+        ServingEngine; `spec_decode` speculates (text/generation.py
+        `generate`)."""
+        from ..generation import generate as _generate
+
+        return _generate(self, input_ids, max_new_tokens=max_new_tokens,
+                         max_length=max_length, do_sample=do_sample,
+                         temperature=temperature, top_k=top_k, top_p=top_p,
+                         eos_token_id=eos_token_id, seed=seed,
+                         weight_quant=weight_quant, engine=engine,
+                         prefix_cache=prefix_cache, spec_decode=spec_decode)

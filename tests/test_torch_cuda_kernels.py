@@ -25,6 +25,8 @@ versions' operations one by one, each rounded to nearest: they are held
 to them bit for bit.
 """
 import _torch_threads  # noqa: F401,I001  (torch threads per worker)
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -3394,3 +3396,171 @@ def test_verify_program_replays_equal_its_eager_body(card, kv_cache_dtype):
     assert graph.spec_stats()["windows"] > 0
     assert graph._graph_stats()["graphs_captured"]["serving.spec_verify"] \
         >= 1
+
+
+# -------------------------------------------------- GPT serving's shapes
+
+@pytest.mark.parametrize("fmt", ["model", "int8", "int4"])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+def test_paged_decode_at_gpt_medium_shape(card, fmt, dtype, tol):
+    """K7 / K7q at GPT-3 medium's decode: 8 sequences x 16 heads x D64,
+    group 1 (every head its own kv head), 16-token blocks over a
+    1024-token table; one launch of the format's entry, within the
+    decode tests' tolerances of the plain version."""
+    rs = np.random.RandomState(64)
+    args = _decode_inputs(card, rs, 8, 16, 16, 64, 16, 64, 600, dtype, fmt)
+    kw = {"kv_int4": fmt == "int4"}
+    _cuda_common.reset_launch_counts()
+    out = paged_decode_attention(*args[:5], *args[5:], **kw)
+    ref = paged_decode_attention_reference(*args[:5], *args[5:], **kw)
+    torch.cuda.synchronize()
+    assert _launched() == {KERNEL_NAMES[fmt]: 1}
+    assert out.dtype == dtype and out.shape == (8, 16, 64)
+    assert (out.float() - ref.float()).abs().max().item() < tol
+    assert torch.equal(out, paged_decode_attention(*args[:5], *args[5:],
+                                                   **kw))
+
+
+@pytest.mark.parametrize("k,n", [(1024, 3072), (1024, 1024), (1024, 4096),
+                                 (4096, 1024)],
+                         ids=["qkv", "o", "fc_in", "fc_out"])
+@pytest.mark.parametrize("m", [8, 512])
+def test_quant_matmul_at_gpt_medium_shapes(card, m, k, n):
+    """K8 at GPT-3 medium's four int4 layer matmuls, bf16, at decode (M
+    8) and prefill (M 512): one launch a call, two calls bit for bit,
+    within 2^-7 of the largest output of the plain version."""
+    rs = np.random.RandomState(k + n + m)
+    x = _randn(rs, m, k).to(card, torch.bfloat16)
+    packed, scale = quantize_int4(_randn(rs, k, n) * 0.02)
+    packed, scale = packed.to(card), scale.to(card)
+    _cuda_common.reset_launch_counts()
+    out = quant_matmul_raw(x, packed, scale, k)
+    again = quant_matmul_raw(x, packed, scale, k)
+    ref = quant_matmul_reference(x, packed, scale, k)
+    torch.cuda.synchronize()
+    assert _launched() == {"quant_matmul": 2}
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (m, n)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2 ** -7 * ref.float().abs().max().item(), err
+    assert torch.equal(out, again)
+
+
+def test_quant_matmul_gpt_medium_f32_head(card):
+    """The untied f32 head of GPT-3 medium's int4 serve (f32 activations,
+    M 8 x 1024 x 50304, on the CUDA cores), within 1e-5 of the largest
+    output of the plain version, bit for bit across two calls."""
+    rs = np.random.RandomState(50304)
+    x = _randn(rs, 8, 1024).to(card)
+    packed, scale = quantize_int4(_randn(rs, 1024, 50304) * 0.02)
+    packed, scale = packed.to(card), scale.to(card)
+    _cuda_common.reset_launch_counts()
+    out = quant_matmul_raw(x, packed, scale, 1024)
+    again = quant_matmul_raw(x, packed, scale, 1024)
+    ref = quant_matmul_reference(x, packed, scale, 1024)
+    torch.cuda.synchronize()
+    assert _launched() == {"quant_matmul": 2}
+    assert out.dtype == torch.float32 and tuple(out.shape) == (8, 50304)
+    err = (out - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), err
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("weight_quant,kv_cache_dtype", [
+    ("none", "model"), ("int4", "int4"), ("int8", "int8")])
+def test_gpt_engine_on_card_matches_cpu_engine(card, weight_quant,
+                                               kv_cache_dtype):
+    """A tiny f32 GPT served on the card (K1 prefill, K7 / K7q decode, K8
+    for int4 weights; its graphs captured) gives the greedy tokens of the
+    same model's CPU engine, and the exact launch counts: K1 layers a
+    prefill, K7 layers a tick, K8 4 x layers + 1 a prefill and a tick."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.ops.paged_decode import KERNEL_NAMES as NAMES
+    from paddle_tpu_torch.text.models import GPTConfig, GPTForCausalLM
+
+    torch.manual_seed(0)
+    cfg = GPTConfig(vocab_size=96, hidden_size=64, num_hidden_layers=2,
+                    num_attention_heads=4, max_position_embeddings=64)
+    cpu = GPTForCausalLM(cfg, device="cpu")
+    gpu = GPTForCausalLM(cfg, device=card)
+    gpu.set_state_dict(cpu.state_dict())
+    rs = np.random.RandomState(3)
+    stream = [(rs.randint(0, 96, (ln,)), nt)
+              for ln, nt in ((3, 4), (20, 6), (2, 9), (40, 3))]
+    kw = dict(max_slots=2, kv_block_size=8, weight_quant=weight_quant,
+              kv_cache_dtype=kv_cache_dtype, prefix_cache=False,
+              chunked_prefill_tokens=0)
+    out = []
+    for model, dev in ((cpu, "cpu"), (gpu, card)):
+        eng = ServingEngine(model, device=dev, **kw)
+        for p, nt in stream:
+            eng.add_request(p, max_new_tokens=nt)
+        _cuda_common.reset_launch_counts()
+        out.append(eng.run())
+    counts = _cuda_common.launch_counts()
+    assert {k: v.tolist() for k, v in out[0].items()} \
+        == {k: v.tolist() for k, v in out[1].items()}
+    ticks = eng.stats()["steps"]
+    assert counts["flash_attention_fwd"] == len(stream) * 2
+    assert counts[NAMES[kv_cache_dtype]] == ticks * 2
+    assert counts["quant_matmul"] == ((len(stream) + ticks) * 9
+                                      if weight_quant == "int4" else 0)
+    assert eng._graph_stats()["graphs_captured"]["serving.decode"] >= 1
+
+
+def test_gpt_static_generate_on_card_matches_cpu(card):
+    """GPTForCausalLM.generate on the card (the static engine: K1 prefill,
+    one captured decode step replayed) gives the CPU run's tokens in f32,
+    with K1 launched once a layer."""
+    from paddle_tpu_torch.text.models import GPTConfig, GPTForCausalLM
+
+    torch.manual_seed(1)
+    cfg = GPTConfig(vocab_size=96, hidden_size=64, num_hidden_layers=2,
+                    num_attention_heads=4, max_position_embeddings=64)
+    cpu = GPTForCausalLM(cfg, device="cpu")
+    gpu = GPTForCausalLM(cfg, device=card)
+    gpu.set_state_dict(cpu.state_dict())
+    ids = torch.from_numpy(np.random.RandomState(4).randint(0, 96, (3, 11)))
+    want = cpu.generate(ids, max_new_tokens=13)
+    _cuda_common.reset_launch_counts()
+    got = gpu.generate(ids, max_new_tokens=13)
+    assert _launched() == {"flash_attention_fwd": 2}
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_chunk_end_is_dated_on_the_card_without_a_wait(card):
+    """The engine's open chunk spans (`_end_mark` / `_ended_at`): a mark
+    recorded behind ~50 ms of device work returns at once, and once the
+    device has caught up it is dated after the work was enqueued and not
+    after the host saw the work end; a GPT engine's chunked prompts then
+    leave no span open and every chunk span runs forward in time."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.inference import engine as port_engine
+    from paddle_tpu_torch.text.models import GPTConfig, GPTForCausalLM
+
+    torch.cuda.synchronize()
+    t_enq = time.perf_counter()
+    torch.cuda._sleep(100_000_000)
+    mark = port_engine._end_mark(card)
+    t_back = time.perf_counter()
+    torch.cuda.synchronize()
+    t_done = time.perf_counter()
+    (ended,) = port_engine._ended_at([mark], card)
+    assert t_back - t_enq < 0.01 < ended - t_enq, (t_back, t_enq, ended)
+    assert ended <= t_done, (ended, t_done)
+
+    torch.manual_seed(0)
+    cfg = GPTConfig(vocab_size=96, hidden_size=64, num_hidden_layers=2,
+                    num_attention_heads=4, max_position_embeddings=64)
+    eng = ServingEngine(GPTForCausalLM(cfg, device=card), device=card,
+                        max_slots=2, kv_block_size=8,
+                        chunked_prefill_tokens=8, prefix_cache=False)
+    rs = np.random.RandomState(5)
+    for ln in (30, 21):
+        eng.add_request(rs.randint(0, 96, (ln,)), max_new_tokens=3)
+    eng.run()
+    assert eng._open_chunks == []
+    spans = [sp for fl in eng.flight.flights() for sp in fl.spans
+             if sp[0] == "prefill_chunk"]
+    assert len(spans) == eng.stats()["prefill_chunks"] == 4 + 3
+    assert all(t0 < t1 for _, t0, t1, _ in spans), spans

@@ -221,8 +221,10 @@ def test_gpt_unported_switches_raise():
             GPTForCausalLM(GPTConfig(**TINY, vocab_size=256, **kw),
                            device="cpu")
     model = GPTForCausalLM(GPTConfig(**TINY, vocab_size=256), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        model.generate(torch.zeros(1, 4, dtype=torch.long))
+    # generate serves (GPT serving is ported): prompt + 3 new tokens
+    out = model.generate(torch.zeros(1, 4, dtype=torch.long),
+                         max_new_tokens=3)
+    assert out.shape == (1, 7) and out.dtype == torch.int64
     assert GPTConfig().intermediate_size == 4096
 
 

@@ -68,7 +68,12 @@ def test_module_list_covers_every_subpackage():
                 "paddle_tpu_torch.geometric", "paddle_tpu_torch.text.viterbi",
                 "paddle_tpu_torch.incubate",
                 "paddle_tpu_torch.incubate.autograd",
-                "paddle_tpu_torch.incubate.distributed"):
+                "paddle_tpu_torch.incubate.distributed",
+                "paddle_tpu_torch.obs", "paddle_tpu_torch.obs.metrics",
+                "paddle_tpu_torch.obs.logging", "paddle_tpu_torch.obs.trace",
+                "paddle_tpu_torch.obs.watchdog", "paddle_tpu_torch.obs.http",
+                "paddle_tpu_torch.obs.flight", "paddle_tpu_torch.analysis",
+                "paddle_tpu_torch.analysis.findings"):
         assert mod in MODULES, mod
 
 
@@ -120,9 +125,11 @@ def test_default_device_is_cuda_and_refuses_without_card(monkeypatch):
     assert GPTForCausalLM(gpt, device="cpu").device.type == "cpu"
     assert BertForSequenceClassification(bert, device="cpu").device.type \
         == "cpu"
-    with pytest.raises(NotImplementedError, match="item 10, 'GPT serving'"):
-        ServingEngine(GPTForCausalLM(gpt, device="cpu"), max_slots=1,
-                      device="cpu")
+    gpt_model = GPTForCausalLM(gpt, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(gpt_model, max_slots=1)
+    assert ServingEngine(gpt_model, max_slots=1, device="cpu").device.type \
+        == "cpu"
     model = LlamaForCausalLM(llama_tiny_config(), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(model, max_slots=1)

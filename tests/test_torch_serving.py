@@ -7,8 +7,9 @@ cache on, 256-token chunks); `generate_paged` identity; sampling-filter
 parity; seeded sampling determinism; the scheduler contracts of
 tests/test_serving.py (allocator, admission control, block release,
 static waves) plus deadlines; the reference's `stats()` keys and counters,
-`drain`, the refusals of what is not ported (fault F5) and the options
-the port once refused (speculative decoding, the static engine). The quantized
+`drain` (fault F5) and the surface the port once refused (speculative
+decoding, the static engine, the metrics registry and the flight
+recorder). The quantized
 modes are held against the reference in test_torch_serving_quant.py, the
 prefix cache and chunked prefill in test_torch_prefix_cache.py.
 """
@@ -450,16 +451,21 @@ def test_drain_matches_reference():
     assert list(reasons[1].values()) == ["timeout"] * len(_STREAM)
 
 
-def test_unported_surface_raises_naming_its_item():
-    """What waits for ROADMAP item 7 refuses with NotImplementedError
-    naming the item; item 4's surface (spec_stats, add_request's
-    speculative=) now answers on an engine that does not speculate;
-    close() does nothing, twice."""
+def test_unported_surface_raises_naming_its_item(tmp_path):
+    """The surface items 7 and 4 once refused now answers: the metrics
+    registry (`metrics`, `render_prometheus`), the flight recorder
+    (`dump_trace`, a file `validate_trace` accepts), item 4's spec_stats
+    and add_request's speculative= on an engine that does not speculate;
+    close() with no endpoint does nothing, twice."""
+    from paddle_tpu_torch import obs
+
     eng = ServingEngine(_port(), max_slots=1, device="cpu")
-    for call in (eng.metrics, eng.render_prometheus,
-                 lambda: eng.dump_trace("trace.json")):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            call()
+    assert eng.metrics()["serving_slots"]["samples"][0]["value"] == 1
+    assert "# TYPE paddle_tpu_serving_ttft_seconds histogram" \
+        in eng.render_prometheus()
+    path = str(tmp_path / "trace.json")
+    assert eng.dump_trace(path) == path
+    assert obs.validate_trace(path)["requests"] == 0
     assert eng.spec_stats() == {"enabled": False, "k": 0, "windows": 0,
                                 "proposed_tokens": 0, "accepted_tokens": 0,
                                 "accept_rate": 0.0}

@@ -6,9 +6,10 @@ LLaMA in f32, MHA and GQA, with weight_quant none, int8 and int4, at two
 prompt buckets and with an eos that finishes the rows early; identity
 with `engine="paged"`; a generation length that the bucket trims; seeded
 sampling that repeats itself and stays inside the top-k filter; the
-program cache (one program per key, reused); and the refusals (context
-past max_position_embeddings, prefix_cache with the static engine, GPT,
-and the static engine's speculative limits).
+program cache (one program per key, reused); the refusals (context
+past max_position_embeddings, prefix_cache with the static engine and
+the static engine's speculative limits), and a GPT model taking the
+static engine.
 """
 import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import numpy as np
@@ -150,5 +151,8 @@ def test_refusals():
                                    num_attention_heads=2,
                                    max_position_embeddings=32),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        generation.generate(gpt, prompt[:, :4], max_new_tokens=2)
+    # a GPT model takes the static engine (GPT serving is ported)
+    short = prompt[:, :4] % 64
+    out = generation.generate(gpt, short, max_new_tokens=2)
+    assert out.shape == (short.shape[0], 6)
+    np.testing.assert_array_equal(out[:, :4].numpy(), short)
