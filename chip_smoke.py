@@ -353,6 +353,37 @@ Phases (any failure exits non-zero; nothing is caught):
      every TTFT tiled, no compile and no anomaly over a second pass
      after warmup (OBS).
 
+ 32. roofline (after SERVE_PREFIX): the cost ledger's serving rows
+     (each key counted at its first capture's dry run, observed at every
+     read-back): analyzed prefill and decode rows with executions, the
+     roofline table as JSON, a baseline written and audited against
+     itself (notes only), the decode rows' utilization of 3,350 GB/s;
+     then SERVE's run and SERVE_PREFIX's stream four times each with
+     FLAGS_obs_cost_capture off, on, on, off (steady tick, TTFT p50,
+     capture s) (ROOFLINE, ROOFLINE_SERVE_*, ROOFLINE_PREFIX_*);
+ 33. fit: TRAIN's configuration through hapi's `Model.fit` (8 steps of an
+     in-memory token dataset, a 2-worker DataLoader on the shared-memory
+     ring with pinned batches, a TelemetryCallback declaring the step's
+     flops): TRAIN's launches a step exactly, the first 3 losses bit for
+     bit those of TRAIN's eager step on the same batches, the dumped
+     training trace validated with every step tiled and its phase spans,
+     goodput categories summing to the ledger's elapsed, the ring used;
+     step ms, tokens/s, train_mfu, goodput shares, anomalies (FIT);
+ 34. fit_mfu: STATIC_TRAIN's step under to_static, 6 calls under a
+     TrainFlightRecorder and a GoodputLedger: the `to_static|...` ledger
+     row counted at discovery (K1 / K2 once a launch by their formula),
+     its flops within 3% of the analytic count, train_mfu{program} =
+     flops / wall / 989 TFLOP/s (FIT_MFU);
+ 35. fit_resume: the 168M LLaMA at 8 x 1024 (O2 bf16, f32 master
+     weights and moments: a ~2.4 GB TrainState), shuffled: 12 steps
+     uninterrupted; the same with async checkpoints every 5 steps and a
+     SIGTERM at batch 8 (a blocking save, the fit stops); a model from
+     another seed resumed: steps 9-12 bit for bit, goodput's ckpt and
+     replay seconds, the saves counted, a bit flip in the newest
+     checkpoint falling back with checksum_mismatch, the SIGTERM
+     handler restored; bytes a save, host copy s, commit s and GB/s
+     (FIT_RESUME).
+
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}. Without a CUDA card it exits 1 and prints
 no result.
@@ -6236,6 +6267,496 @@ def serve_ticks():
         "prefix": prefix, "device": _nvidia_smi()})
 
 
+# ------------------------------------------- the training half of obs
+#: FIT's steps and the tokens of its in-memory dataset
+FIT_STEPS = 8
+#: FIT_MFU's to_static calls: warm-up, discovery (counted), capture, then
+#: replays, as tests/test_train_flight.py drives its compiled step
+FIT_MFU_STEPS = 6
+#: FIT_RESUME: the 168M LLaMA at 8 x 1024, an epoch of 12 shuffled
+#: batches, a checkpoint every 5 steps, a SIGTERM at the start of batch 8
+#: (which completes: the run stops after step 8 and resumes at step 9)
+RESUME_BATCH, RESUME_STEPS, RESUME_SAVE_EVERY, RESUME_KILL = 8, 12, 5, 8
+#: the cost-ledger flops of a captured step against the analytic count
+MFU_FLOPS_TOL = 0.03
+
+
+def _attention_flops(layers, b, heads, s, d):
+    """The causal flash kernels' operations a training step: K1's two
+    products and K2's seven (dQ 3, dK/dV 4), 2·D each a (row, column)
+    pair and head (their cost formula, `ops.flash_attention._PRODUCTS`)."""
+    return 9 * 2 * b * heads * d * (s * (s + 1) // 2) * layers
+
+
+def _token_dataset(vocab, n, seq, seed=0):
+    from paddle_tpu_torch.io import Dataset
+
+    ids = np.random.RandomState(seed).randint(0, vocab, (n, seq))
+
+    class Tokens(Dataset):
+        """In-memory token sequences; a sample is (ids, labels = ids)."""
+
+        def __len__(self):
+            return len(ids)
+
+        def __getitem__(self, i):
+            return ids[i], ids[i]
+
+    return Tokens(), ids
+
+
+def _loss_log():
+    """A hapi callback keeping each step's loss (`.losses`)."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class LossLog(Callback):
+        def __init__(self):
+            self.losses = []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(float(logs["loss"][0]))
+
+    return LossLog()
+
+
+def _span_seconds(doc, name):
+    return [e["args"]["t1_s"] - e["args"]["t0_s"]
+            for e in doc["traceEvents"]
+            if e.get("ph") == "X" and e["name"] == name]
+
+
+def fit_phase():
+    """FIT: TRAIN's configuration (the 1B LLaMA, O2 bf16, AdamW 1e-4,
+    4 x 1024) driven through hapi: `Model(net, inputs=[ids, labels])
+    .prepare(opt, amp_configs="O2").fit(...)` for FIT_STEPS steps over an
+    in-memory token dataset from RandomState(0), a DataLoader with 2
+    workers on the shared-memory ring and pinned batches, and a
+    TelemetryCallback declaring the step's flops (`paddle.flops`'
+    forward count x 3 plus the flash kernels' attention term). Holds the
+    launches to TRAIN's per step exactly, the first 3 losses bit for bit
+    to the same batches through TRAIN's eager step on a model from the
+    same seed, the dumped trace to `obs.validate_trace` (every step
+    tiled, with its phase spans), the goodput categories to the ledger's
+    elapsed (1%), and the ring's use. Returns the launch counts."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import obs
+    from paddle_tpu_torch.hapi.callbacks import TelemetryCallback
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.ops import _cuda_common
+
+    cfg = CFG_1B
+    layers, heads = cfg["num_hidden_layers"], cfg["num_attention_heads"]
+    d = cfg["hidden_size"] // heads
+    ds, ids = _token_dataset(cfg["vocab_size"], FIT_STEPS * TRAIN_BATCH,
+                             TRAIN_SEQ)
+    # the same first batches through TRAIN's eager step
+    _clean_device()
+    model, opt, _ = _train_model()
+    hand = []
+    for i in range(3):
+        x = torch.from_numpy(ids[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH])
+        x = x.cuda()
+        hand.append(_train_step(model, opt, x, x).item())
+    del model, opt
+    _clean_device()
+    model, opt, _ = _train_model()
+    # `paddle.flops` of the decoder (the causal-LM layer holds it twice,
+    # as `llama` and `model`, and flops would count it twice, in either
+    # package) plus the head's [H, V] product
+    with torch.no_grad():
+        fwd = paddle.flops(model.llama, [TRAIN_BATCH, TRAIN_SEQ]) \
+            + 2 * TRAIN_BATCH * TRAIN_SEQ * cfg["hidden_size"] \
+            * cfg["vocab_size"]
+    step_flops = 3 * fwd + _attention_flops(layers, TRAIN_BATCH, heads,
+                                            TRAIN_SEQ, d)
+    m = paddle.Model(model, inputs=["input_ids", "labels"])
+    m.prepare(opt, amp_configs="O2")
+    reg = obs.Registry()
+    tel = TelemetryCallback(registry=reg, batch_tokens=TRAIN_BATCH
+                            * TRAIN_SEQ, step_flops=step_flops)
+    log = _loss_log()
+    loader = DataLoader(ds, batch_size=TRAIN_BATCH, shuffle=False,
+                        num_workers=2, pin_memory=True)
+    torch.cuda.synchronize()
+    _cuda_common.reset_launch_counts()
+    t0 = time.perf_counter()
+    m.fit(loader, epochs=1, verbose=0, callbacks=[tel, log])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _cuda_common.launch_counts()
+    doc = tel.flight.to_chrome()
+    summary = obs.validate_trace(doc)
+    per_step, phase_ms = {}, {}
+    for e in doc["traceEvents"]:
+        if e.get("ph") == "X" and e.get("cat") == "program":
+            per_step.setdefault(e["args"]["step"], set()).add(e["name"])
+            phase_ms.setdefault(e["name"], []).append(
+                1e3 * (e["args"]["t1_s"] - e["args"]["t0_s"]))
+    led = tel.ledger.to_dict()
+    cats = sum(led["seconds"].values())
+    hist = reg.get("train_step_seconds")
+    walls = sorted(hist._exact)
+    anomalies = {labels[0]: c.value for labels, c in
+                 reg.get("train_flight_anomalies_total").samples()}
+    mfu = {labels[0]: c.value for labels, c in
+           reg.get("train_mfu").samples()}
+    rec = {"steps": FIT_STEPS, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+           "wall_s": wall, "losses": log.losses, "hand_losses": hand,
+           "step_ms": [1e3 * w for w in hist._exact],
+           "phase_ms_median": {k: statistics.median(v)
+                               for k, v in phase_ms.items()},
+           "step_ms_median": 1e3 * statistics.median(walls),
+           "step_ms_min": 1e3 * walls[0], "step_ms_max": 1e3 * walls[-1],
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
+           / statistics.median(walls),
+           "step_flops": step_flops, "flops_forward": fwd,
+           "train_mfu": mfu.get("step"),
+           "goodput": led, "goodput_shares": {
+               k: v / led["elapsed_s"] for k, v in led["seconds"].items()},
+           "categories_over_elapsed": cats / led["elapsed_s"],
+           "data_wait_ms": [1e3 * x for x in sorted(
+               reg.get("train_data_wait_seconds")._exact)],
+           "anomalies": anomalies, "trace": summary,
+           "transport": loader.transport, "launches": counts}
+    _say("FIT", rec)
+    want = _llama_launches(None, layers, 9 * layers + 3)
+    got = {n: c for n, c in counts.items() if c}
+    assert got == {n: FIT_STEPS * c for n, c in want.items()}, (got, want)
+    assert log.losses[:3] == hand, (log.losses, hand)
+    assert all(np.isfinite(log.losses))
+    assert summary["steps"] == summary["tiled_steps"] == FIT_STEPS
+    phases = {"h2d", "forward", "backward", "optimizer_commit",
+              "loss_fetch"}
+    assert all(phases <= names for names in per_step.values()), per_step
+    assert abs(cats - led["elapsed_s"]) <= 0.01 * led["elapsed_s"], led
+    assert loader.transport == {"ring": FIT_STEPS, "queue": 0}, \
+        loader.transport
+    del m, model, opt, loader
+    _clean_device()
+    return counts
+
+
+def fit_mfu():
+    """FIT_MFU: STATIC_TRAIN's to_static step of TRAIN's model (the bench
+    step, O2 bf16) called FIT_MFU_STEPS times at 4 x 1024 under a
+    TrainFlightRecorder and a GoodputLedger, as
+    tests/test_train_flight.py drives its compiled step: the discovery
+    call counts the program's cost into the ledger (`to_static|...`,
+    analyzed, bytes > 0), its flops within MFU_FLOPS_TOL of the analytic
+    count (6 x the matmul parameters x tokens plus the flash kernels'
+    term) with every K1 / K2 launch counted once by its formula, each
+    replay a dispatch span carrying them, and train_mfu{program} equal
+    to flops / wall / peak. Returns the launch counts of the calls."""
+    import torch
+    from paddle_tpu_torch import jit, obs
+    from paddle_tpu_torch.obs import goodput, train_flight
+    from paddle_tpu_torch.ops import _cuda_common
+
+    cfg = CFG_1B
+    layers, heads = cfg["num_hidden_layers"], cfg["num_attention_heads"]
+    hid, inter = cfg["hidden_size"], cfg["intermediate_size"]
+    d = hid // heads
+    _clean_device()
+    model, opt, ids = _train_model()
+    step = jit.to_static(_bench_step(model, opt, "O2"))
+    reg = obs.Registry()
+    rec = train_flight.TrainFlightRecorder(registry=reg)
+    led = goodput.GoodputLedger(registry=reg)
+    prev = train_flight.set_current(rec)
+    walls, mfus, last = [], [], None
+    _cuda_common.reset_launch_counts()
+    try:
+        led.start()
+        for i in range(FIT_MFU_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec.step_begin(i, 0, t0, t0)
+            loss = step(ids).item()
+            end = time.perf_counter()
+            last = rec.step_end(end, end - t0, loss=loss)
+            walls.append(last.wall_s)
+            mfus.append(led.observe_step(last.wall_s, flops=last.flops,
+                                         programs=last.programs))
+        led.stop()
+    finally:
+        train_flight.set_current(prev)
+    counts = _cuda_common.launch_counts()
+    (spec,) = step._cache.values()
+    entry = spec.cost_entry
+    disc = next(iter(step._discovered.values()))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    matmul_params = layers * (4 * hid * hid + 3 * hid * inter) \
+        + hid * cfg["vocab_size"]
+    attention = _attention_flops(layers, TRAIN_BATCH, heads, TRAIN_SEQ, d)
+    analytic = 6 * matmul_params * tokens + attention
+    gauge = {labels[0]: c.value for labels, c in
+             reg.get("train_mfu").samples()}
+    peak = goodput.peak_tflops() * 1e12
+    out = {"steps": FIT_MFU_STEPS, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+           "program": entry.to_dict(), "kernels": disc.cost["kernels"],
+           "ops_counted": disc.cost["ops"], "flops": entry.flops,
+           "analytic_flops": analytic, "analytic_attention_flops": attention,
+           "flops_over_analytic": entry.flops / analytic,
+           "step_ms": [1e3 * w for w in walls], "mfu": mfus,
+           "train_mfu": gauge, "peak_tflops": peak / 1e12,
+           "compile_s": led.seconds["compile"], "goodput": led.to_dict(),
+           "capture_s": spec.captured.capture_s, "launches": counts}
+    _say("FIT_MFU", out)
+    assert entry.analyzed and entry.bytes_accessed > 0, entry.to_dict()
+    assert abs(entry.flops / analytic - 1) <= MFU_FLOPS_TOL, out
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert disc.cost["kernels"][name] == layers, disc.cost["kernels"]
+    assert last.flops == entry.flops and last.programs == [
+        (entry.program, entry.flops)], (last.flops, last.programs)
+    want = entry.flops / last.wall_s / peak
+    assert gauge[entry.program] == want == gauge["step"], (gauge, want)
+    assert any(n == f"dispatch:{step.__name__}" for n, *_ in last.spans)
+    del step, model, opt, ids
+    _clean_device()
+    return counts
+
+
+def roofline(model, served):
+    """ROOFLINE: the cost ledger's serving rows after SERVE and
+    SERVE_PREFIX (their engines' programs, each key counted at its first
+    capture's dry run and observed at every read-back): analyzed prefill
+    and decode rows with executions, `roofline_rows` as JSON,
+    `write_baseline` audited against itself (notes only) and the decode
+    rows' utilization of 3,350 GB/s. Then SERVE's run (whole prompts)
+    and SERVE_PREFIX's stream each four times, FLAGS_obs_cost_capture
+    off, on, on, off: a key is counted once a process, so the steady tick
+    and TTFT p50 with it on should lie inside the spread of the runs with
+    it off; what the first count costs shows in SERVE's and SERVE_PREFIX's
+    capture wall beside the off runs'. Returns the launch counts of the
+    first SERVE run with counting on."""
+    import tempfile
+
+    from paddle_tpu_torch import obs
+    from paddle_tpu_torch.core.flags import flag, set_flags
+
+    rows = obs.ledger("serving")
+    pre = [e for e in rows if e.site == "serving.prefill"
+           and e.exec_count > 0]
+    dec = [e for e in rows if e.site == "serving.decode"
+           and e.exec_count > 0]
+    table = obs.roofline_rows("serving")
+    json.dumps(table)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "baseline.json")
+        obs.write_baseline(path, site="serving")
+        audit = [f.to_dict() for f in obs.audit_cost_regressions(
+            path, entries=rows)]
+    reqs = served["reqs"]
+    prefix_reqs = _prefix_stream(CFG_1B["vocab_size"], 24, repeats=True)
+    turn = np.random.RandomState(6).randint(0, CFG_1B["vocab_size"], (32,))
+    follow = {}
+
+    def follow_up(first):
+        follow["prompt"] = np.concatenate([prefix_reqs[0][0], first, turn])
+        return follow["prompt"]
+
+    old = flag("FLAGS_obs_cost_capture")
+    runs, counts_on = [], None
+    try:
+        for i, on in enumerate((False, True, True, False)):
+            set_flags({"FLAGS_obs_cost_capture": on})
+            tag = f"ROOFLINE_SERVE_{'ON' if on else 'OFF'}_{i}"
+            eng, _, _, counts, line = _serve_run(model, reqs, tag,
+                                                 **WHOLE_PROMPT)
+            del eng
+            if on and counts_on is None:
+                counts_on = counts
+            _, _, _, pline = _prefix_run(
+                model, prefix_reqs, tag.replace("SERVE", "PREFIX"),
+                follow_up if i == 0 else (lambda _: follow["prompt"]))
+            runs.append({"cost_capture": on,
+                         "decode_ms_per_tick_steady":
+                         line["decode_ms_per_tick_steady"],
+                         "serve_ttft_p50_s": line["ttft_p50_s"],
+                         "serve_capture_s": line["capture_s"],
+                         "prefix_capture_s": pline.get("capture_s"),
+                         "prefix_ttft_p50_s": pline["ttft_p50_s"],
+                         "prefix_wall_s": pline["wall_s"]})
+    finally:
+        set_flags({"FLAGS_obs_cost_capture": old})
+
+    def spread(key, on):
+        vals = [r[key] for r in runs if r["cost_capture"] == on]
+        return [min(vals), max(vals)]
+
+    rec = {"first_count_capture_s": {
+               "SERVE": served["rec"]["capture_s"],
+               "SERVE_PREFIX": _LINES["SERVE_PREFIX"].get("capture_s")},
+           "rows": len(rows), "prefill_rows": len(pre),
+           "decode_rows": len(dec),
+           "decode_utilization": {e.program: e.utilization() for e in dec},
+           "decode_achieved_gbps": {e.program: e.achieved_gbps()
+                                    for e in dec},
+           "decode_bytes_accessed": {e.program: e.bytes_accessed
+                                     for e in dec},
+           "decode_flops": {e.program: e.flops for e in dec},
+           "prefill_utilization": {e.program: e.utilization() for e in pre},
+           "peak_gbps": obs.peak_gbps(),
+           "audit_severities": sorted({f["severity"] for f in audit}),
+           "table": table, "runs": runs,
+           "steady_tick_ms": {"off": spread("decode_ms_per_tick_steady",
+                                            False),
+                              "on": spread("decode_ms_per_tick_steady",
+                                           True)},
+           "prefix_ttft_p50_s": {"off": spread("prefix_ttft_p50_s", False),
+                                 "on": spread("prefix_ttft_p50_s", True)}}
+    _say("ROOFLINE", rec)
+    assert pre and dec, [e.program for e in rows]
+    assert all(e.analyzed for e in pre + dec)
+    assert rec["audit_severities"] == ["note"], audit
+    return counts_on
+
+
+def fit_resume():
+    """FIT_RESUME: the 168M LLaMA (bench.py:278) at RESUME_BATCH x 1024,
+    O2 bf16 with f32 master weights and f32 AdamW moments (a ~2.4 GB
+    TrainState), a shuffled loader: an uninterrupted fit of RESUME_STEPS
+    steps; the same fit with CheckpointCallback(save_freq_steps=
+    RESUME_SAVE_EVERY, async saves) and a SIGTERM at the start of batch
+    RESUME_KILL (the in-flight batch completes, a blocking save, the fit
+    stops); then a model from another seed resumed from the newest
+    checkpoint. The resumed steps' losses must equal the uninterrupted
+    run's bit for bit; goodput books ckpt and replay seconds;
+    ckpt_saves_total{ok} counts the saves; a bit flipped in the newest
+    checkpoint's largest shard falls back to the one before with reason
+    checksum_mismatch; the SIGTERM handler comes back. Prints bytes a
+    save, the blocking device -> host copy, the async commits' wall and
+    GB/s. Returns the launch counts of the resumed fit."""
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import amp, ckpt, obs
+    from paddle_tpu_torch.hapi.callbacks import (Callback,
+                                                 CheckpointCallback,
+                                                 TelemetryCallback)
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.ops import _cuda_common
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**CFG_168M)
+    ds, _ = _token_dataset(cfg.vocab_size, RESUME_STEPS * RESUME_BATCH,
+                           1024, seed=1)
+
+    class SigtermAt(Callback):
+        def __init__(self, n):
+            self.n, self.count = n, 0
+
+        def on_train_batch_begin(self, step, logs=None):
+            self.count += 1
+            if self.count == self.n:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    def run(seed, callbacks):
+        _clean_device()
+        torch.manual_seed(seed)
+        np.random.seed(seed)
+        net = LlamaForCausalLM(cfg, device="cuda")
+        opt = AdamW(learning_rate=1e-4, parameters=net.parameters())
+        net, opt = amp.decorate(net, opt, level="O2", dtype="bfloat16",
+                                master_weight=True)
+        np.random.seed(0)                     # the loader's shuffle
+        m = paddle.Model(net, inputs=["input_ids", "labels"])
+        m.prepare(opt, amp_configs="O2")
+        log = _loss_log()
+        loader = DataLoader(ds, batch_size=RESUME_BATCH, shuffle=True)
+        m.fit(loader, epochs=1, verbose=0, callbacks=[log, *callbacks])
+        torch.cuda.synchronize()
+        return log.losses
+
+    def saves_ok():
+        return sum(c.value for labels, c in obs.default_registry().get(
+            "ckpt_saves_total").samples() if labels == ("ok",)) \
+            if obs.default_registry().get("ckpt_saves_total") else 0
+
+    root = tempfile.mkdtemp(prefix="fit_resume_")
+    ok0 = saves_ok()
+    try:
+        full = run(0, [])
+        reg = obs.Registry()
+        obs.clear_events()
+        handler = signal.getsignal(signal.SIGTERM)
+        tel1 = TelemetryCallback(registry=reg)
+        ck1 = CheckpointCallback(root, save_freq_steps=RESUME_SAVE_EVERY,
+                                 save_freq_epochs=0, async_save=True,
+                                 keep_last_n=2)
+        prefix = run(0, [tel1, ck1, SigtermAt(RESUME_KILL)])
+        assert ck1.preempted and signal.getsignal(signal.SIGTERM) is handler
+        trace1 = tel1.flight.to_chrome()
+        tel2 = TelemetryCallback(registry=reg)
+        ck2 = CheckpointCallback(root, save_freq_steps=RESUME_SAVE_EVERY,
+                                 save_freq_epochs=0, async_save=True,
+                                 resume=True, keep_last_n=2)
+        _cuda_common.reset_launch_counts()
+        suffix = run(7, [tel2, ck2])
+        counts = _cuda_common.launch_counts()
+        assert signal.getsignal(signal.SIGTERM) is handler
+        trace2 = tel2.flight.to_chrome()
+        saves = obs.ckpt_save_events()
+        secs = {labels[0]: c.value for labels, c in
+                reg.get("train_goodput_seconds_total").samples()}
+        ok = saves_ok() - ok0
+        newest = ckpt.restore_checkpoint(root)
+        # a bit flipped in the newest checkpoint's largest shard
+        man = json.load(open(os.path.join(newest.directory,
+                                          "manifest.json")))
+        shards = sorted(os.listdir(newest.directory))
+        big = max((f for f in shards if f.startswith("shard_")),
+                  key=lambda f: os.path.getsize(
+                      os.path.join(newest.directory, f)))
+        with open(os.path.join(newest.directory, big), "r+b") as fh:
+            fh.seek(12345)
+            byte = fh.read(1)
+            fh.seek(12345)
+            fh.write(bytes([byte[0] ^ 0x40]))
+        t0 = time.perf_counter()
+        fell = ckpt.restore_checkpoint(root)
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    copies = _span_seconds(trace1, "ckpt_host_copy") \
+        + _span_seconds(trace2, "ckpt_host_copy")
+    commits = _span_seconds(trace1, "ckpt_commit") \
+        + _span_seconds(trace2, "ckpt_commit")
+    blocking = _span_seconds(trace1, "ckpt_blocking_save")
+    nbytes = [e["bytes"] for e in saves]
+    rec = {"batch": [RESUME_BATCH, 1024], "steps": RESUME_STEPS,
+           "kill_at_batch": RESUME_KILL, "losses_full": full,
+           "losses_prefix": prefix, "losses_resumed": suffix,
+           "saves": saves, "bytes_per_save": nbytes,
+           "manifest_shards": man["shard_count"],
+           "host_copy_s": copies, "async_commit_s": commits,
+           "blocking_commit_s": blocking,
+           "commit_gb_per_s": [b / w / 1e9 for b, w in zip(
+               nbytes, [e["wall_s"] for e in saves])],
+           "goodput_seconds": secs, "ckpt_saves_ok": ok,
+           "restored_step": ck2.last_restore.step,
+           "newest_step": newest.step, "fallback_step": fell.step,
+           "fallbacks": fell.fallbacks, "restore_s": restore_s,
+           "launches": counts}
+    _say("FIT_RESUME", rec)
+    k = RESUME_KILL
+    assert prefix == full[:k], (prefix, full)
+    assert suffix == full[k:], (suffix, full)
+    assert ck2.last_restore.step == k
+    assert secs["ckpt"] > 0 and secs["replay"] > 0, secs
+    assert ok == len(saves) == 3, (ok, saves)
+    assert fell.step < newest.step and fell.fallbacks[0]["reason"] == \
+        "checksum_mismatch", fell.fallbacks
+    _clean_device()
+    return counts
+
+
 def main():
     import torch
 
@@ -6343,6 +6864,10 @@ def main():
                    kv_cache_dtype="int4")
     profile_prefill(model)
     counts_prefix, prefixed = serve_prefix(model)
+    # the cost ledger's serving rows (every key SERVE and SERVE_PREFIX
+    # use counted at its first capture), then those runs again with the
+    # count off and on
+    counts_roofline = roofline(model, served)
     profile_chunk(model)
     serve_graph_eager(model, served, prefixed)
     serve_graph_steady(model)
@@ -6414,6 +6939,12 @@ def main():
     counts_static["TRAIN_O1"] = train_o1()
     counts_f16 = train_f16_scaler()
     phases["static"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the training half of obs: hapi's fit with telemetry, the cost
+    # ledger's count of a captured step, and kill-and-resume
+    counts_fit = {"FIT": fit_phase(), "FIT_MFU": fit_mfu(),
+                  "FIT_RESUME": fit_resume()}
+    phases["fit"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     # K1v/K2v at the VARLEN batch; K9 at the FLASHMASK window and at a
     # ragged S with random start rows (straddling tiles everywhere)
@@ -6713,6 +7244,17 @@ def main():
             row["launches_nn_transformer"] = counts_nn[row["name"]]
         if row["name"] in counts_incubate and "launches_path" not in row:
             row["launches_incubate_fused"] = counts_incubate[row["name"]]
+    # the training rows (TRAIN's shapes) carry their launches on the
+    # hapi fit, the captured FIT_MFU step and the resumed 168M fit (its
+    # own shapes), the serving rows theirs in ROOFLINE's first counted
+    # SERVE run
+    for row in summary:
+        if "launches_recompute" in row or row.get("case") == \
+                "llama O2 bfloat16":
+            for tag, cnt in counts_fit.items():
+                row["launches_" + tag.lower()] = cnt.get(row["name"], 0)
+        if "launches_prefix_phases" in row:
+            row["launches_roofline"] = counts_roofline.get(row["name"], 0)
     # K1, K7 and K8's main-path rows also carry their launches on the
     # static engine's and the speculating engine's paths, K8's in
     # QUANT_API

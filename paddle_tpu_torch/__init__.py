@@ -10,7 +10,10 @@ reference's `from .ops import *`, and `nn` (`Layer`, the layer zoo,
 `functional`, `initializer`) with `save` / `load` and `ParamAttr`, and
 the long tail: `fft`, `signal`, `geometric`, `incubate` (with
 `incubate.autograd` and the fused-op `incubate.nn.functional`) and
-`text.viterbi_decode`.
+`text.viterbi_decode`; and the training loop's surface: `io`
+(`DataLoader` on a shared-memory ring), `metric`, `hapi.Model`
+(`fit` / `evaluate` / `predict` with its callbacks, `summary`, `flops`)
+and `ckpt` (atomic, checksummed checkpoints and resume).
 
 Below it the port serves LLaMA through the paged continuous-batching
 `inference.ServingEngine` and trains LLaMA, GPT and BERT
@@ -52,6 +55,22 @@ from . import fft, geometric, incubate, signal, text  # noqa: F401,E402
 from . import quantization  # noqa: F401,E402
 from .framework_io import load, save  # noqa: F401,E402
 from .nn import ParamAttr  # noqa: F401,E402
+from . import ckpt, io, metric  # noqa: F401,E402
+from . import hapi  # noqa: F401,E402
+from . import callbacks  # noqa: F401,E402
+from .hapi import Model  # noqa: F401,E402
+
+
+def summary(net, input_size=None, dtypes=None, input=None):
+    from .hapi.summary import summary as _s
+
+    return _s(net, input_size, dtypes, input)
+
+
+def flops(net, input_size, custom_ops=None, print_detail=False):
+    from .hapi.summary import flops as _f
+
+    return _f(net, input_size, custom_ops, print_detail)
 
 
 def is_grad_enabled():

@@ -114,6 +114,54 @@ _FLAGS = {
     "FLAGS_obs_flight_dir": _from_env("FLAGS_obs_flight_dir", ""),
     # TTFT SLO in ms of the flight recorder's anomaly trigger; 0 = none
     "FLAGS_obs_slo_ttft_ms": _from_env("FLAGS_obs_slo_ttft_ms", 0.0),
+    # opt-in for obs instrumentation outside the serving engine: hapi's
+    # fit() attaches a TelemetryCallback when set
+    "FLAGS_obs_metrics": _from_env("FLAGS_obs_metrics", False),
+    # count flops / bytes / peak memory of each program at its one eager
+    # run before capture (obs/costs.py) into the compile event and the
+    # cost ledger; off: the ledger rows carry no analysis
+    "FLAGS_obs_cost_capture": _from_env("FLAGS_obs_cost_capture", True),
+    # peak HBM GB/s the roofline_utilization gauges divide by; 0 = the
+    # device's default (obs/costs.py PEAK_GBPS_DEFAULTS)
+    "FLAGS_obs_peak_gbps": _from_env("FLAGS_obs_peak_gbps", 0.0),
+    # audit_cost_regressions: a program whose bytes accessed grew more
+    # than this percent over the baseline is a warning
+    "FLAGS_obs_cost_regress_pct": _from_env("FLAGS_obs_cost_regress_pct",
+                                            25.0),
+    # training flight-recorder ring: finished step timelines kept
+    "FLAGS_obs_train_flight_steps": _from_env(
+        "FLAGS_obs_train_flight_steps", 64),
+    # a step whose data_wait exceeds this many ms is a data_starvation
+    # anomaly (and counts toward audit_train_steps' streak); 0 = off
+    "FLAGS_obs_data_wait_ms": _from_env("FLAGS_obs_data_wait_ms", 100.0),
+    # a step whose wall exceeds this factor times the rolling median of
+    # recent steps (8 at least) is a step_spike anomaly; 0 = off
+    "FLAGS_obs_step_spike_factor": _from_env("FLAGS_obs_step_spike_factor",
+                                             3.0),
+    # peak TFLOP/s the train_mfu gauges divide by; 0 = the device's
+    # default (obs/goodput.py PEAK_TFLOPS_DEFAULTS)
+    "FLAGS_obs_peak_tflops": _from_env("FLAGS_obs_peak_tflops", 0.0),
+    # DataLoader workers hand batches over through the shared-memory
+    # ring (csrc/ring_queue.cpp) when the native build is available
+    "FLAGS_dataloader_use_shared_memory": _from_env(
+        "FLAGS_dataloader_use_shared_memory", True),
+    # checkpoint saves retry transient IO errors this many times with
+    # exponential backoff before raising CheckpointSaveError
+    "FLAGS_ckpt_save_retries": _from_env("FLAGS_ckpt_save_retries", 3),
+    # base of that backoff: attempt k sleeps base * 2^k seconds
+    "FLAGS_ckpt_retry_backoff_s": _from_env("FLAGS_ckpt_retry_backoff_s",
+                                            0.05),
+    # CheckpointCallback commits on the background thread (the device ->
+    # host copy stays synchronous); off: every periodic save blocks
+    "FLAGS_ckpt_async": _from_env("FLAGS_ckpt_async", True),
+    # bound on queued async saves; AsyncCheckpointer.save() blocks past it
+    "FLAGS_ckpt_max_in_flight": _from_env("FLAGS_ckpt_max_in_flight", 2),
+    # retention: keep the newest N committed checkpoints (0 = all)
+    "FLAGS_ckpt_keep_last_n": _from_env("FLAGS_ckpt_keep_last_n", 0),
+    # a save whose wall exceeds this is an audit_ckpt_stalls warning and
+    # a ckpt_stall anomaly of the training flight recorder
+    "FLAGS_ckpt_stall_seconds": _from_env("FLAGS_ckpt_stall_seconds",
+                                          300.0),
 }
 
 

@@ -4,10 +4,10 @@ Port of paddle_tpu/framework_io.py: nested containers pickled with each
 Tensor turned into the reference's record, {"__paddle_tpu_tensor__":
 True, "data": numpy array, "stop_gradient", "name"}, so a file that one
 package writes loads in the other without importing it. The write goes
-through the port's own copy of the reference's crash-consistent write
-(`atomic_write_stream`, paddle_tpu/ckpt/core.py:414): the pickle streams
-into a temp file in the same directory, which is fsynced and atomically
-renamed over the target.
+through the checkpoint core's crash-consistent write
+(`ckpt.core.atomic_write_stream`), as the reference's does: the pickle
+streams into a temp file in the same directory, which is fsynced and
+atomically renamed over the target.
 
 bfloat16 and float8: numpy has no such dtypes without ml_dtypes, which
 the port does not use, so their "data" is float32 (every value exact)
@@ -21,50 +21,12 @@ from __future__ import annotations
 
 import os
 import pickle
-import uuid
 
+from .ckpt.core import atomic_write_stream
 from .core import dtype as dtypes
 from .core.tensor import Tensor
 
 _MARK = "__paddle_tpu_tensor__"
-
-
-def _fsync_dir(d):
-    try:
-        fd = os.open(d, os.O_RDONLY)
-    except OSError:
-        return
-    try:
-        os.fsync(fd)
-    except OSError:
-        pass
-    finally:
-        os.close(fd)
-
-
-def atomic_write_stream(path, write_fn, fsync=True):
-    """`write_fn(f)` writes into a temp file beside `path`; the file is
-    flushed, fsynced and renamed over `path` (then the directory is
-    fsynced), so a crash leaves the old file or the new one, never a torn
-    one. The temp file is removed if anything fails."""
-    d = os.path.dirname(path) or "."
-    tmp = os.path.join(d, f".{os.path.basename(path)}.tmp."
-                          f"{uuid.uuid4().hex[:8]}")
-    try:
-        with open(tmp, "wb") as f:
-            write_fn(f)
-            f.flush()
-            if fsync:
-                os.fsync(f.fileno())
-        os.replace(tmp, path)
-    except BaseException:
-        try:
-            os.unlink(tmp)
-        except OSError:
-            pass
-        raise
-    if fsync:
-        _fsync_dir(d)
 
 
 def _to_serializable(obj):

@@ -97,6 +97,7 @@ from .. import obs
 from ..core.flags import flag
 from ..core.graphs import side_stream as _side_stream
 from ..jit.api import default_buckets
+from ..obs import costs as _costs
 from ..ops._cuda_common import ceil_to as _ceil_to
 from ..ops._cuda_common import resolve_device
 from ..ops.flash_attention import flash_attention_fwd
@@ -622,6 +623,8 @@ class ServingEngine:
         # reference's module-level executables: a graph bakes in the
         # addresses of this engine's pool, parameters and buffers
         self._programs: dict = {}
+        # the cost-ledger row of the program `_call` ran last
+        self._last_entry = None
         # capture graphs (True exactly on a card); a check sets it False
         # on one engine, before its first call, to get the eager run it
         # compares with
@@ -656,7 +659,7 @@ class ServingEngine:
         self.flight = obs.FlightRecorder()
         # chunks that emitted no token, their spans still open until the
         # next read-back (`_close_chunks`): (flight, trace-span record,
-        # start, span args, `_end_mark`)
+        # start, span args, cost-ledger row, `_end_mark`)
         self._open_chunks: list = []
         slo_ms = float(flag("FLAGS_obs_slo_ttft_ms"))
         self._slo_ttft_s = slo_ms / 1e3 if slo_ms > 0 else None
@@ -1042,28 +1045,52 @@ class ServingEngine:
         key = (site, int(bucket), bool(any_sample), tuple(extra))
         prog = self._programs.get(key)
         if prog is not None:
+            # a program outlives a clear_ledger(): its row comes back
+            self._last_entry = _costs.reregister(prog.entry)
             return prog.run(values)
         prog = Program(key, values, body, self.device)
+        keystr = self._keystr(bucket, any_sample, extra)
+        # a key another engine of the same model geometry counted already
+        # is not counted again (the row is the program's)
+        count = _costs.needs_count(site, self._row_key(keystr))
         t0 = time.perf_counter()
-        wall = self._capture_program(prog, any_sample) if self._capture \
-            else None
+        wall = self._capture_program(prog, any_sample, count) \
+            if self._capture else None
         self._programs[key] = prog
-        out = prog.run(values)
-        self._record_compile(site, bucket, any_sample, extra,
+        out = prog.run(values, count=count and wall is None)
+        self._record_compile(prog, site, bucket, keystr,
                              time.perf_counter() - t0 if wall is None
                              else wall)
         return out
 
-    def _record_compile(self, site, bucket, any_sample, extra, wall_s):
-        """The watchdog's compile event of a new program key (its key
-        string the reference's); after finish_warmup() also a warning and
-        the post-warmup anomaly."""
-        keystr = (f"bucket{bucket}/sample{int(any_sample)}/"
-                  f"kv{self.kv_mode}/w{self.weight_quant}"
-                  + "".join(f"/{x}" for x in extra))
-        obs.record_compile(site, self._prog_group(site), keystr,
-                           bucket=int(bucket), wall_s=wall_s, donated=True,
-                           warm=self._warmed)
+    def _row_key(self, keystr: str) -> str:
+        """The program's cost-ledger key: its key string and its model's
+        geometry (the step's spec and the served params' shapes and
+        dtypes), so that two models' programs of one bucket keep two
+        rows."""
+        geometry = (self.spec, [(tuple(t.shape), str(t.dtype))
+                                for t in _tensors(self.params)])
+        digest = hashlib.sha1(repr(geometry).encode()).hexdigest()[:8]
+        return f"{keystr}/spec{digest}"
+
+    def _keystr(self, bucket, any_sample, extra) -> str:
+        """A program key's string, the reference's."""
+        return (f"bucket{bucket}/sample{int(any_sample)}/"
+                f"kv{self.kv_mode}/w{self.weight_quant}"
+                + "".join(f"/{x}" for x in extra))
+
+    def _record_compile(self, prog, site, bucket, keystr, wall_s):
+        """The cost-ledger row and the watchdog's compile event of a new
+        program key; after finish_warmup() also a warning and the
+        post-warmup anomaly. The row is `_last_entry` until the next
+        call, for the caller's `observe` of its wall."""
+        group = self._prog_group(site)
+        prog.entry = self._last_entry = _costs.record_program(
+            site, group, self._row_key(keystr), cost=prog.cost,
+            wall_s=wall_s, bucket=int(bucket))
+        obs.record_compile(site, group, keystr, bucket=int(bucket),
+                           wall_s=wall_s, donated=True, warm=self._warmed,
+                           cost=prog.entry.cost_summary())
         if self._warmed:
             self._log.warning(
                 f"post-warmup compile: {site} bucket {bucket} captured "
@@ -1087,10 +1114,10 @@ class ServingEngine:
                 f"flight recorder postmortem ({trigger}) dumped to "
                 f"{path}", key=f"flight-dump:{trigger}")
 
-    def _capture_program(self, prog, any_sample):
+    def _capture_program(self, prog, any_sample, count=False):
         """Capture `prog` on the device's side stream (`_side_stream`)
-        into the engine's graph pool and return the capture's wall
-        seconds. Every graph of the engine shares the pool, keeps its
+        into the engine's graph pool (its dry run counted into the cost
+        ledger with `count`) and return the capture's wall seconds. Every graph of the engine shares the pool, keeps its
         static output referenced and replays on that one stream, so
         replay order does not matter: the pool memory a graph frees by
         the end of its capture held only its own temporaries, which a
@@ -1103,7 +1130,7 @@ class ServingEngine:
             self._stream = _side_stream(self.device)
             self._pool = torch.cuda.graph_pool_handle()
         wall = prog.capture(self._stream, self._pool,
-                            self._gen if any_sample else None)
+                            self._gen if any_sample else None, count)
         self._captures[self._warmed] += 1
         self._capture_s[self._warmed] += wall
         return wall
@@ -1339,6 +1366,7 @@ class ServingEngine:
             tok = self._call("serving.prefill", bucket, any_sample, (),
                              values, body).tolist()[0]
         t_end = time.perf_counter()
+        self._last_entry.observe(t_end - t_run)
         self._close_chunks()
         self._m_prefill_tokens.inc(s)
         req.prefill_pos = s
@@ -1436,6 +1464,7 @@ class ServingEngine:
             t_run = time.perf_counter()
             out = self._call("serving.chunk_prefill", c_bucket, any_sample,
                              (ctx_pages, is_last), values, body)
+            entry = self._last_entry
             if is_last:
                 tok = out.tolist()[0]
             else:
@@ -1446,10 +1475,11 @@ class ServingEngine:
         args = {"start": int(start), "tokens": int(n),
                 "last": bool(is_last), "cow": cow is not None}
         if is_last:
+            entry.observe(t_end - t_run)
             self._close_chunks()
             fl.add_span("prefill_chunk", t_run, t_end, args)
         else:
-            self._open_chunks.append((fl, rec, t_run, args, mark))
+            self._open_chunks.append((fl, rec, t_run, args, entry, mark))
         if cow is not None:
             # the copy is enqueued before any later use of the pool, so
             # the admission-time ref that kept the source from eviction
@@ -1465,13 +1495,16 @@ class ServingEngine:
     def _close_chunks(self):
         """End the spans of the chunks that emitted no token (their
         flight span and their `obs.span` record) at the times their work
-        ended on the device (`_ended_at`). Called after every read-back,
+        ended on the device (`_ended_at`), and observe those walls into
+        their programs' cost-ledger rows. Called after every read-back,
         where the device has caught up, and before a trace is written."""
         if not self._open_chunks:
             return
         ends = _ended_at([c[-1] for c in self._open_chunks], self.device)
-        for (fl, rec, t_run, args, _), t_end in zip(self._open_chunks, ends):
+        for (fl, rec, t_run, args, entry, _), t_end in zip(self._open_chunks,
+                                                           ends):
             rec["seconds"] = t_end - t_run
+            entry.observe(t_end - t_run)
             fl.add_span("prefill_chunk", t_run, t_end, args)
         self._open_chunks.clear()
 
@@ -1504,6 +1537,7 @@ class ServingEngine:
         nxt = self._call("serving.decode", bucket, any_sample, (), values,
                          body).tolist()
         t_end = time.perf_counter()
+        self._last_entry.observe(t_end - t_run)
         self._close_chunks()
         step_wall = t_end - t0
         self.flight.tick_span("decode_tick", t_run, t_end,
@@ -1594,6 +1628,7 @@ class ServingEngine:
                               (k,), values, body)
         acc, tgt = acc.tolist(), tgt.tolist()
         t_end = time.perf_counter()
+        self._last_entry.observe(t_end - t_run)
         self._close_chunks()
         step_wall = t_end - t0
         self._m_decode_step.observe(step_wall)

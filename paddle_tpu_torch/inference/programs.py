@@ -23,7 +23,9 @@ block tables at TRASH_BLOCK, positions 0, the copy-on-write trash onto
 trash, so only the trash block is written), which builds the kernels,
 loads their modules, creates the cuBLAS handles and allocates the lazy
 buffers, then captures the body on that stream and replays the graph for
-the real call. The capture and replay are `core.graphs`'s, which
+the real call. That dry run (or, for a program run eagerly, its first
+call) is the one the cost ledger counts (`cost`, obs/costs.py). The
+capture and replay are `core.graphs`'s, which
 `to_static` shares (launch counting under replay is described there).
 """
 from __future__ import annotations
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from ..core import graphs
+from ..obs.costs import extract_cost
 from ..text.paged_cache import TRASH_BLOCK
 
 #: the dry run's value of each input it does not fill with TRASH_BLOCK
@@ -45,7 +48,8 @@ class Program:
     """One serving program: static inputs, the body over them and, once
     `capture` ran, the graph with its static output."""
 
-    __slots__ = ("key", "inputs", "_host", "_staged", "_body", "_graph")
+    __slots__ = ("key", "inputs", "_host", "_staged", "_body", "_graph",
+                 "cost", "entry")
 
     def __init__(self, key, values: dict, body, device):
         self.key = key
@@ -63,6 +67,11 @@ class Program:
                         torch.cuda.Event()) if cuda else None
         self._body = body
         self._graph = None      # the graphs.Captured, once captured
+        # the cost counted at the body's one eager run (obs.costs
+        # extract_cost: the dry run before the capture, or the first call
+        # of a program run eagerly), and its cost-ledger row
+        self.cost = None
+        self.entry = None
 
     @property
     def graph(self):
@@ -87,29 +96,42 @@ class Program:
                 dst.copy_(src, non_blocking=True)
             copied.record()
 
-    def run(self, values):
+    def run(self, values, count=False):
         """One call: the host values into the static inputs, then the
         graph replayed on the engine's stream (which waits for the
-        caller's stream, and the caller's for it), or the body called.
-        Returns the token tensor (None for a chunk that emits none)."""
+        caller's stream, and the caller's for it), or the body called —
+        with `count`, under the cost counter (`cost`). Returns the token
+        tensor (None for a chunk that emits none)."""
         if self._graph is None:
             self._load(values)
+            if count:
+                self.cost, out = extract_cost(
+                    lambda: self._body(self.inputs),
+                    next(iter(self.inputs.values())).device,
+                    args=self.inputs)
+                return out
             return self._body(self.inputs)
         self._graph.replay(lambda: self._load(values))
         return self._graph.output
 
-    def capture(self, stream, pool, generator=None) -> float:
-        """The dry run, then the capture of the body into a CUDA graph,
-        both on `stream`, its memory from `pool` (every graph of one
-        engine shares it). `generator` is the sampling generator a
-        sampling key draws from: the graph registers it, so that each
-        replay advances it. Returns the wall seconds of dry run, capture
-        and instantiation. Raises, naming the key, when either fails."""
+    def capture(self, stream, pool, generator=None, count=False) -> float:
+        """The dry run (with `count`, under the cost counter: `cost`),
+        then the capture of the body into a CUDA graph, both on `stream`,
+        its memory from `pool` (every graph of one engine shares it).
+        `generator` is the sampling generator a sampling key draws from:
+        the graph registers it, so that each replay advances it. Returns
+        the wall seconds of dry run, capture and instantiation. Raises,
+        naming the key, when either fails."""
 
         def dry_run():
             for name, buf in self.inputs.items():
                 buf.fill_(DRY_VALUES.get(name, TRASH_BLOCK))
-            self._body(self.inputs)
+            if count:
+                self.cost, _ = extract_cost(
+                    lambda: self._body(self.inputs), stream.device,
+                    args=self.inputs)
+            else:
+                self._body(self.inputs)
 
         try:
             self._graph = graphs.capture(

@@ -75,6 +75,8 @@ item.
 from __future__ import annotations
 
 import functools
+import hashlib
+import time
 import traceback
 import warnings
 
@@ -85,6 +87,10 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from ..core import graphs
 from ..core.flags import flag
 from ..core.tensor import Tensor
+from ..obs import costs as _costs
+from ..obs import train_flight as _train_flight
+from ..obs import watchdog as _watchdog
+from ..obs.costs import extract_cost
 from ..ops import _cuda_common
 
 #: depth of the compiled calls (discoveries, captures, static calls) now
@@ -228,6 +234,7 @@ class _Discovery:
         self.writes: dict = {}
         self.generators: list = []
         self.breaks: list = []
+        self.cost = None            # obs.costs.extract_cost's count
 
     def on_read(self, t):
         if isinstance(t, torch.Tensor):
@@ -343,7 +350,8 @@ class _Specialization:
     inputs and, on a card, the captured graph."""
 
     __slots__ = ("captures", "ro_caps", "mut_caps", "ptrs", "inputs",
-                 "in_struct", "captured", "out_struct", "generators")
+                 "in_struct", "captured", "out_struct", "generators",
+                 "cost_entry")
 
     def guard_ok(self) -> bool:
         return [t.data_ptr() for t in self.captures] == self.ptrs
@@ -480,16 +488,23 @@ class CompiledFunction:
         dev = self._device(leaves)
         stream = graphs.side_stream(dev) if dev is not None else None
         prev = _cuda_common.set_kernel_recorder(disc)
+
+        def call():
+            return self._fn(*args, **kwargs)
+
         try:
             with _Active(), _DispatchRecorder(disc), _MethodRecorder(disc):
+                # the cost ledger's count of the program (obs/costs.py)
+                # rides this eager run
                 if stream is None:
-                    out = self._fn(*args, **kwargs)
+                    disc.cost, out = extract_cost(call, dev, args=leaves)
                 else:
                     # on the side stream the graph will be captured on
                     caller = torch.cuda.current_stream(dev)
                     stream.wait_stream(caller)
                     with torch.cuda.stream(stream):
-                        out = self._fn(*args, **kwargs)
+                        disc.cost, out = extract_cost(call, dev,
+                                                      args=leaves)
                     caller.wait_stream(stream)
         finally:
             _cuda_common.set_kernel_recorder(prev)
@@ -522,6 +537,7 @@ class CompiledFunction:
 
     def _compile_and_run(self, key, struct, leaves, args, kwargs):
         disc = self._discovered.get(key)
+        own = disc is not None
         if disc is None and self._share_discovery and self._discovered:
             disc = next(reversed(self._discovered.values()))
         if disc is None:
@@ -541,11 +557,36 @@ class CompiledFunction:
         spec.in_struct = struct
         spec.captured = None
         spec.out_struct = None
+        spec.cost_entry = None
         dev = self._device(leaves)
+        t0 = time.perf_counter()
         if dev is not None:
             self._capture(key, spec, dev)
         self._cache[key] = spec
-        return self._run(spec, leaves)
+        out = self._run(spec, leaves)
+        self._record_compile(key, spec, disc.cost if own else None,
+                             spec.captured.capture_s if dev is not None
+                             else time.perf_counter() - t0)
+        return out
+
+    def _record_compile(self, key, spec, cost, wall_s):
+        """The key's cost-ledger row (its discovery's count; a key that
+        compiled from another key's shared discovery has none) and its
+        watchdog compile event, grouped per CompiledFunction instance:
+        distinct wrapped functions sharing a name must not pool into one
+        recompile storm."""
+        name = getattr(self._fn, "__name__", str(self._fn))
+        inst = f"{name}@{id(self) & 0xffff:04x}"
+        digest = hashlib.sha1(key.encode()).hexdigest()[:8]
+        # the row is this function's (two wrapped steps of one name and
+        # argument shapes are two programs)
+        spec.cost_entry = _costs.record_program(
+            "to_static", name, f"{inst}/{digest}", cost=cost,
+            wall_s=wall_s)
+        _watchdog.record_compile(
+            "to_static", inst, key,
+            wall_s=wall_s, donated=True,
+            cost=spec.cost_entry.cost_summary())
 
     def _body(self, spec):
         """The function on the static inputs, as a compiled call; returns
@@ -578,14 +619,24 @@ class CompiledFunction:
         """One compiled call: the arguments into the static inputs, then
         the graph replayed (a card) or the function called on them (the
         CPU); the outputs copied out, without autograd history."""
+        # an instrumented fit's flight recorder takes the call as a
+        # dispatch span carrying the program's ledger flops (one module
+        # read when none is active)
+        rec = _train_flight.current()
+        t0 = time.perf_counter() if rec is not None else None
         if spec.captured is not None:
             spec.captured.replay(lambda: self._load(spec, leaves))
             outs = spec.captured.output
         else:
             self._load(spec, leaves)
             outs = self._body(spec)
-        return _unflatten(spec.out_struct,
-                          [t.detach().clone() for t in outs])
+        out = _unflatten(spec.out_struct,
+                         [t.detach().clone() for t in outs])
+        if rec is not None and spec.cost_entry is not None:
+            rec.program_dispatch(getattr(self._fn, "__name__", "to_static"),
+                                 t0, time.perf_counter(),
+                                 entry=spec.cost_entry)
+        return out
 
 
 def to_static(function=None, input_spec=None, build_strategy=None,

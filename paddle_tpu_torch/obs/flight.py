@@ -308,12 +308,10 @@ def validate_trace(obj_or_path) -> dict:
         obj = obj_or_path
     source = (obj.get("otherData") or {}).get("source", "")
     if source.endswith("train_flight"):
-        # the training flight recorder's step timelines: its validator
-        # comes with it
-        raise NotImplementedError(
-            "validating a training flight trace is not ported to "
-            "paddle_tpu_torch yet (ROADMAP Queue 1, item 7b, "
-            "'train_flight and goodput')")
+        # the training flight recorder's step timelines
+        from .train_flight import validate_train_trace
+
+        return validate_train_trace(obj)
     evs = obj.get("traceEvents")
     if not isinstance(evs, list) or not evs:
         raise ValueError("trace has no traceEvents array")

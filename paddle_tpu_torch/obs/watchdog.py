@@ -13,12 +13,16 @@ eager first call. The sites that report here:
                                model's ("serving.spec_draft_prefill",
                                "serving.spec_draft_propose")
 
-Each event carries the program key, its bucket, wall time and donation
-summary, and increments ``compiles_total{site=...}`` /
-``compile_seconds`` in the default registry plus the JSONL log.
-``cost`` stays None: the cost ledger (obs/costs.py of the reference, fed
-by XLA's cost_analysis) waits for a torch-side cost source (ROADMAP
-Queue 1). ``audit_recompiles()`` turns the event history into
+  * ``jit/api.py``             ``to_static`` specializations (site
+                               "to_static")
+
+Each event carries the program key, its bucket, wall time, donation
+summary and cost (flops / bytes accessed / peak bytes, counted at the
+program's eager run before capture by ``obs/costs.py``), increments
+``compiles_total{site=...}`` / ``compile_seconds`` in the default
+registry plus the JSONL log, and, while an instrumented fit runs, books
+its wall as the goodput ledger's ``compile`` seconds.
+``audit_recompiles()`` turns the event history into
 ``analysis.Finding``s:
 
   * RECOMPILE STORM — one (site, group) accumulated more than
@@ -29,10 +33,10 @@ Queue 1). ``audit_recompiles()`` turns the event history into
     declared warmup complete (``finish_warmup()``): a steady-state
     serving tick must never capture.
 
-The reference's checkpoint-save events (``record_ckpt_save``,
-``audit_ckpt_stalls``, ``FLAGS_ckpt_stall_seconds``) wait for the
-checkpoint writer that reports them, and its hooks into the training
-goodput ledger and flight recorder for those modules (ROADMAP Queue 1).
+Checkpoint saves report here too (``record_ckpt_save`` from
+``ckpt/core.py``): ``audit_ckpt_stalls()`` warns on a save past
+``FLAGS_ckpt_stall_seconds`` or one that failed, and such a save dumps
+the training flight recorder's ring (the ``ckpt_stall`` anomaly).
 """
 from __future__ import annotations
 
@@ -72,8 +76,8 @@ class CompileEvent:
         self.jaxpr_eqns = jaxpr_eqns
         self.donated = donated
         self.warm = bool(warm)
-        # a cost summary (flops / bytes accessed / peak bytes) where the
-        # site has one; None until the cost ledger is ported
+        # the cost summary (obs/costs.py: flops / bytes accessed / peak
+        # bytes) where the site counted one, else None
         self.cost = cost
         self.t = time.time()
 
@@ -108,6 +112,11 @@ def record_compile(site: str, group: str, key: str, bucket=None,
                     "compiles recorded after a serving warmup barrier",
                     ("site",)).labels(site).inc()
     metrics.log_event("compile", **ev.to_dict())
+    # a compile wall paid while a fit is instrumented is non-productive
+    # training time (no-op otherwise)
+    from .goodput import note_compile
+
+    note_compile(ev.wall_s)
     return ev
 
 
@@ -136,6 +145,84 @@ def clear_events():
     global _post_warmup_total
     _events.clear()
     _post_warmup_total = 0
+    _ckpt_events.clear()
+
+
+# ------------------------------------------------------- ckpt watchdog
+#: checkpoint save events — same bounded-window design as the compile
+#: events; ckpt/core.py reports every save outcome here, including from
+#: the AsyncCheckpointer commit thread.
+# thread-safe: GIL-atomic bounded-deque appends; audits read a snapshot
+_ckpt_events: deque = deque(maxlen=_EVENT_CAP)
+
+
+def record_ckpt_save(step: int, wall_s: float, nbytes: int, result: str,
+                     attempts: int = 1) -> dict:
+    """One checkpoint-save outcome (ok / retry_ok / error). Counters
+    live in the default registry (``ckpt_saves_total{result}`` etc.,
+    recorded by ckpt/core); this window feeds ``audit_ckpt_stalls``."""
+    from . import metrics
+
+    ev = {"step": int(step), "wall_s": float(wall_s),
+          "bytes": int(nbytes), "result": str(result),
+          "attempts": int(attempts), "t": time.time()}
+    _ckpt_events.append(ev)
+    metrics.log_event("ckpt_save", **ev)
+    # ckpt-stall postmortem: a save blowing its wall budget (or failing
+    # outright) while a training flight recorder is active dumps the
+    # last N step timelines — the trace of the stall
+    if wall_s > float(flag("FLAGS_ckpt_stall_seconds")) \
+            or result == "error":
+        from .train_flight import current as _tf_current
+
+        rec = _tf_current()
+        if rec is not None:
+            rec.anomaly("ckpt_stall")
+    return ev
+
+
+def ckpt_save_events() -> list:
+    return list(_ckpt_events)
+
+
+def audit_ckpt_stalls(events=None, threshold: float | None = None,
+                      loc: str = "obs/ckpt") -> list:
+    """Checkpoint-save health Findings over the event window: a save
+    exceeding ``FLAGS_ckpt_stall_seconds`` wall (the checkpoint path is
+    blocking training far longer than budgeted) or a save that exhausted
+    its retries is a warning; a healthy window is a note."""
+    from ..analysis import Finding
+
+    if events is None:
+        events = ckpt_save_events()
+    if threshold is None:
+        threshold = float(flag("FLAGS_ckpt_stall_seconds"))
+    findings: list = []
+    stalls = [e for e in events if e["wall_s"] > threshold]
+    failures = [e for e in events if e["result"] == "error"]
+    if stalls:
+        worst = max(e["wall_s"] for e in stalls)
+        findings.append(Finding(
+            "ckpt-stall", "warning", loc,
+            f"{len(stalls)} checkpoint save(s) exceeded "
+            f"FLAGS_ckpt_stall_seconds={threshold:g} (worst {worst:.1f}s) "
+            "— saves are blocking training; shrink the state, raise "
+            "max_in_flight, or fix the filesystem",
+            data={"threshold": threshold, "stalls": stalls[:8]}))
+    if failures:
+        findings.append(Finding(
+            "ckpt-stall", "warning", loc,
+            f"{len(failures)} checkpoint save(s) FAILED after retries — "
+            "a preemption now loses everything since the last good "
+            "checkpoint",
+            data={"failures": failures[:8]}))
+    if not stalls and not failures:
+        findings.append(Finding(
+            "ckpt-stall", "note", loc,
+            f"{len(events)} checkpoint save(s), none stalled past "
+            f"{threshold:g}s, none failed",
+            data={"count": len(events), "threshold": threshold}))
+    return findings
 
 
 def jaxpr_size(graph) -> int:

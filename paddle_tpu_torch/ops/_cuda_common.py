@@ -93,6 +93,8 @@ _LAUNCHES = {name: 0 for name in KERNEL_SOURCES}
 #: the active kernel recorder (to_static's discovery) or None; a module
 #: value, so that launches from the autograd engine's threads report too
 _RECORDER = [None]
+#: the active cost counter (obs.costs.CostCounter) or None, likewise
+_COST = [None]
 _LIBS: dict = {}
 _BUILD_LOCK = threading.Lock()
 
@@ -115,14 +117,22 @@ def resolve_device(device=None) -> torch.device:
 
 # ------------------------------------------------------------ counters
 
-def count_launch(name: str, reads=(), writes=()) -> None:
+def count_launch(name: str, reads=(), writes=(), flops=0.0,
+                 nbytes=None) -> None:
     """One launch of kernel `name`, which read `reads` and wrote
-    `writes` (tensors; None entries are skipped)."""
+    `writes` (tensors; None entries are skipped) and did `flops`
+    floating-point operations by its own formula: the cost ledger's count
+    of a launch the dispatcher cannot see, whose bytes are those of
+    `reads` and `writes` unless `nbytes` says how many it moves."""
     _LAUNCHES[name] += 1
-    rec = _RECORDER[0]
-    if rec is not None:
-        rec.on_kernel([t for t in reads if t is not None],
-                      [t for t in writes if t is not None])
+    rec, cost = _RECORDER[0], _COST[0]
+    if rec is not None or cost is not None:
+        reads = [t for t in reads if t is not None]
+        writes = [t for t in writes if t is not None]
+        if rec is not None:
+            rec.on_kernel(reads, writes)
+        if cost is not None:
+            cost.on_launch(name, reads, writes, flops, nbytes)
 
 
 def note_kernel_reads(tensors) -> None:
@@ -137,6 +147,14 @@ def set_kernel_recorder(rec):
     and return the one it replaces."""
     prev = _RECORDER[0]
     _RECORDER[0] = rec
+    return prev
+
+
+def set_cost_recorder(rec):
+    """Install `rec` (an object with `on_launch(name, reads, writes,
+    flops, nbytes)`, or None) and return the one it replaces."""
+    prev = _COST[0]
+    _COST[0] = rec
     return prev
 
 

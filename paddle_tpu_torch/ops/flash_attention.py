@@ -58,6 +58,8 @@ from ._cuda_common import (ceil_to, check_launch, count_launch,
 _NAME = "flash_attention_fwd"
 _BWD_DQ = "flash_attention_bwd_dq"
 _BWD_DKV = "flash_attention_bwd_dkv"
+#: matrix products of each kernel, for the cost ledger's flops
+_PRODUCTS = {_NAME: 2, _BWD_DQ: 3, _BWD_DKV: 4}
 _VARLEN = {_NAME: "flash_attention_varlen_fwd",
            _BWD_DQ: "flash_attention_varlen_bwd_dq",
            _BWD_DKV: "flash_attention_varlen_bwd_dkv"}
@@ -344,7 +346,12 @@ def _launch(name, kv_lens, ptrs, q, k, causal, scale, tma=(), ints=()):
               hq, k.shape[1], sq, k.shape[2], d, int(bool(causal)),
               _DTYPES[q.dtype], *ints, scale, current_stream(q.device))
     check_launch(entry, code)
-    count_launch(entry, reads=(*ptrs, kv_lens))
+    # the (row, column) pairs visited; each of the kernel's products
+    # (forward 2, dQ 3, dK/dV 4) is 2 * D operations a pair and head
+    sk = k.shape[2]
+    pairs = sq * (sq + 1) // 2 if causal and sq == sk else sq * sk
+    count_launch(entry, reads=(*ptrs, kv_lens),
+                 flops=_PRODUCTS[name] * 2 * b * hq * d * pairs)
 
 
 def _launch_fwd(q, k, v, causal, kv_lens, scale, residual=False):

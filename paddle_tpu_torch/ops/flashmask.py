@@ -169,7 +169,11 @@ def _launch(name, ptrs, q, k, causal, scale, ints=()):
               k.shape[2], d, int(bool(causal)), _DTYPES[q.dtype], *ints,
               softmax_scale(d, scale), current_stream(q.device))
     check_launch(name, code)
-    count_launch(name, reads=ptrs)
+    # the dense (row, column) pairs: the tiles a mask skips depend on the
+    # start rows' values, which a cost count does not read
+    products = {_FWD: 2, _BWD_DQ: 3, _BWD_DKV: 4}[name]
+    count_launch(name, reads=ptrs,
+                 flops=products * 2 * b * h * d * sq * k.shape[2])
 
 
 def _launch_fwd(q, k, v, start_rows, smin, smax, causal, scale=None,

@@ -263,9 +263,12 @@ def _entry(name, argtypes):
     return fn
 
 
-def _launch(name, fn, *args):
+def _launch(name, fn, *args, io=(), flops=0):
+    """Call the C entry `fn` of kernel `name` and count the launch, with
+    the tensors it reads and writes (`io`) and its operations by the
+    formula the kernel table's bounds use."""
     check_launch(name, fn(*args))
-    count_launch(name)
+    count_launch(name, reads=io, flops=flops)
 
 
 def _check_norm(name, x, params, param_dtype, out_dtype, *others):
@@ -371,7 +374,9 @@ def fused_rms_norm_fwd(x, res, w, eps, out_dtype=None):
                    ctypes.c_int, ctypes.c_void_p])
     _launch(_NORM_FWD, fn, x.data_ptr(), _ptr(res), w.data_ptr(),
             y.data_ptr(), _ptr(s), rstd.data_ptr(), rows, h, float(eps),
-            _DTYPES[x.dtype], _DTYPES[out_dtype], current_stream(x.device))
+            _DTYPES[x.dtype], _DTYPES[out_dtype], current_stream(x.device),
+            io=(x, res, w, y, s, rstd), flops=(4 if res is None else 5)
+            * x.numel())
     return y, s, rstd
 
 
@@ -400,7 +405,9 @@ def fused_rms_norm_bwd(s, w, rstd, dy, ds=None):
     _launch(_NORM_BWD, fn, s.data_ptr(), w.data_ptr(), rstd.data_ptr(),
             dy.data_ptr(), _ptr(ds), dx.data_ptr(), dw.data_ptr(),
             part.data_ptr(), _ptr(coef), rows, h, plan.blocks, plan.rpb,
-            _DTYPES[s.dtype], _DTYPES[dy.dtype], current_stream(s.device))
+            _DTYPES[s.dtype], _DTYPES[dy.dtype], current_stream(s.device),
+            io=(s, w, rstd, dy, ds, dx, dw), flops=(8 if ds is None else 9)
+            * s.numel())
     return dx, dw
 
 
@@ -428,7 +435,9 @@ def fused_layer_norm_fwd(x, res, w, b, eps, out_dtype=None):
     _launch(_LN_FWD, fn, x.data_ptr(), _ptr(res), w.data_ptr(),
             b.data_ptr(), y.data_ptr(), _ptr(s), rstd.data_ptr(),
             mean.data_ptr(), rows, h, float(eps), _DTYPES[x.dtype],
-            _DTYPES[out_dtype], current_stream(x.device))
+            _DTYPES[out_dtype], current_stream(x.device),
+            io=(x, res, w, b, y, s, rstd, mean),
+            flops=(6 if res is None else 7) * x.numel())
     return y, s, rstd, mean
 
 
@@ -459,7 +468,9 @@ def fused_layer_norm_bwd(s, w, rstd, mean, dy, ds=None):
             mean.data_ptr(), dy.data_ptr(), _ptr(ds), dx.data_ptr(),
             dw.data_ptr(), db.data_ptr(), part.data_ptr(), _ptr(coef), rows,
             h, plan.blocks, plan.rpb, _DTYPES[s.dtype], _DTYPES[dy.dtype],
-            current_stream(s.device))
+            current_stream(s.device),
+            io=(s, w, rstd, mean, dy, ds, dx, dw, db),
+            flops=(10 if ds is None else 11) * s.numel())
     return dx, dw, db
 
 
@@ -489,7 +500,8 @@ def rope_qk(q, k, cos, sin, backward=False):
     _launch(_ROPE, fn, q.data_ptr(), k.data_ptr(), cos.data_ptr(),
             sin.data_ptr(), qo.data_ptr(), ko.data_ptr(), b * s * heads, s,
             heads, d, int(bool(backward)), _DTYPES[q.dtype],
-            current_stream(q.device))
+            current_stream(q.device), io=(q, k, cos, sin, qo, ko),
+            flops=6 * q.numel())
     return qo, ko
 
 
@@ -513,7 +525,8 @@ def swiglu_fwd(g, u):
     fn = _entry(_SWIGLU_FWD, [ctypes.c_void_p] * 3
                 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
     _launch(_SWIGLU_FWD, fn, g.data_ptr(), u.data_ptr(), o.data_ptr(),
-            g.numel(), _DTYPES[g.dtype], current_stream(g.device))
+            g.numel(), _DTYPES[g.dtype], current_stream(g.device),
+            io=(g, u, o), flops=6 * g.numel())
     return o
 
 
@@ -528,7 +541,8 @@ def swiglu_bwd(g, u, do):
                 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
     _launch(_SWIGLU_BWD, fn, g.data_ptr(), u.data_ptr(), do.data_ptr(),
             dg.data_ptr(), du.data_ptr(), g.numel(), _DTYPES[g.dtype],
-            current_stream(g.device))
+            current_stream(g.device), io=(g, u, do, dg, du),
+            flops=12 * g.numel())
     return dg, du
 
 
@@ -545,7 +559,7 @@ def dropout_add_fwd(x, y, mask, scale):
                    ctypes.c_void_p])
     _launch(_DA_FWD, fn, x.data_ptr(), y.data_ptr(), mask.data_ptr(),
             o.data_ptr(), float(scale), x.numel(), _DTYPES[x.dtype],
-            current_stream(x.device))
+            current_stream(x.device), io=(x, y, mask, o), flops=3 * x.numel())
     return o
 
 
@@ -561,7 +575,7 @@ def dropout_add_bwd(g, mask, scale):
                    ctypes.c_void_p])
     _launch(_DA_BWD, fn, g.data_ptr(), mask.data_ptr(), dx.data_ptr(),
             float(scale), g.numel(), _DTYPES[g.dtype],
-            current_stream(g.device))
+            current_stream(g.device), io=(g, mask, dx), flops=2 * g.numel())
     return dx
 
 

@@ -378,10 +378,14 @@ def fused_adam(params, grads, moment1, moment2, moment2_max, masters, lrs,
                   bc.data_ptr(), None if scale is None else scale.data_ptr(),
                   stream)
         check_launch(_ADAM, code)
-        count_launch(_ADAM, reads=(*pick(grads), lr, bc, scale),
-                     writes=(*pick(params), *pick(moment1), *pick(moment2),
-                             *(pick(moment2_max) if moment2_max else ()),
-                             *(pick(masters) if masters else ())))
+        state = (*pick(params), *pick(moment1), *pick(moment2),
+                 *(pick(moment2_max) if moment2_max else ()),
+                 *(pick(masters) if masters else ()))
+        # read p, g and the state; write p and the state; 15 operations
+        # an element
+        count_launch(_ADAM, reads=(*pick(grads), *state, lr, bc, scale),
+                     writes=state,
+                     flops=15 * sum(params[i].numel() for i in idx))
 
 
 def fused_momentum(params, grads, velocities, masters, lrs, coeffs, *,
@@ -419,6 +423,8 @@ def fused_momentum(params, grads, velocities, masters, lrs, coeffs, *,
                   int(l1), int(nesterov), cast(momentum), lr.data_ptr(),
                   None if scale is None else scale.data_ptr(), stream)
         check_launch(_MOMENTUM, code)
-        count_launch(_MOMENTUM, reads=(*pick(grads), lr, scale),
-                     writes=(*pick(params), *pick(velocities),
-                             *(pick(masters) if masters else ())))
+        state = (*pick(params), *pick(velocities),
+                 *(pick(masters) if masters else ()))
+        count_launch(_MOMENTUM, reads=(*pick(grads), *state, lr, scale),
+                     writes=state,
+                     flops=7 * sum(params[i].numel() for i in idx))

@@ -319,6 +319,17 @@ def _launch(fmt, q, k_cache, v_cache, block_tables, seq_lens, k_scale,
         hq, hkv, bs, d, pages, _DTYPES[q.dtype], splits, part,
         None if ws is None else ws.data_ptr(), current_stream(q.device))
     check_launch(name, code)
+    # bytes: the cache blocks the tables can address (seq_lens, which
+    # bound what this call reads, lie on the device), q, the tables, the
+    # lengths and the output; its two products are 2 * D operations a
+    # head and token
+    block = sum(t[0].numel() * t.element_size()
+                for t in (k_cache, v_cache, k_scale, v_scale)
+                if t is not None)
+    small = sum(t.numel() * t.element_size()
+                for t in (q, block_tables, seq_lens, out))
     count_launch(name, reads=(q, k_cache, v_cache, k_scale, v_scale,
-                              block_tables, seq_lens))
+                              block_tables, seq_lens), writes=(out,),
+                 flops=4 * s_n * hq * d * pages * bs,
+                 nbytes=s_n * pages * block + small)
     return out

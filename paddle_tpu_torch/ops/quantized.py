@@ -281,7 +281,8 @@ def quant_matmul_raw(x, packed, scale, k):
         return out
     _launch(x, packed, scale, out, k, tc_tile_m(m) if tc else 0,
             *kernel_splits(m, k, n, x.dtype))
-    count_launch(_NAME, reads=(x, packed, scale))
+    count_launch(_NAME, reads=(x, packed, scale), writes=(out,),
+                 flops=2 * m * k * n)
     return out
 
 

@@ -48,6 +48,8 @@ import torch.nn.functional as F
 
 from ..core import graphs
 from ..core.flags import flag
+from ..obs.costs import (extract_cost, needs_count, record_program,
+                         reregister)
 from ..obs.watchdog import record_compile
 from ..ops.flash_attention import flash_attention
 from ..ops.quantized import (quant_matmul, quant_matmul_raw, quantize_int4,
@@ -495,6 +497,10 @@ class _StaticProgram:
             torch.full((b,), top_p, dtype=torch.float32, device=device))
         self.graph = None
         self.capture_s = 0.0
+        # the cost of one decode step (counted at the capture's dry run,
+        # or the first eager step) and the program's cost-ledger row
+        self.step_cost = None
+        self.entry = None
 
     def pick(self, logits):
         if self.samp is None:
@@ -553,17 +559,21 @@ class _StaticProgram:
         self.pos += 1
         self.i += 1
 
-    def capture(self):
+    def capture(self, count=False):
         """Capture `step` into a CUDA graph on the device's side stream.
-        The dry run before it is a real step on the live state, whose
-        small parts (and the generator) are put back afterwards; its cache
-        write at `pos` is the one the first replay makes again."""
+        The dry run before it (with `count`, under the cost counter:
+        `step_cost`) is a real step on the live state, whose small parts
+        (and the generator) are put back afterwards; its cache write at
+        `pos` is the one the first replay makes again."""
         small = (self.tok, self.pos, self.i, self.finished, self.toks)
         saved = [t.clone() for t in small]
         gen_state = self.gen.get_state()
 
         def dry_run():
-            self.step()
+            if count:
+                self.step_cost, _ = extract_cost(self.step, self.k.device)
+            else:
+                self.step()
             for t, v in zip(small, saved):
                 t.copy_(v)
             self.gen.set_state(gen_state)
@@ -661,20 +671,62 @@ def _generate_static(model, ids, mnt, do_sample, temperature, top_k, top_p,
     prog.gen.manual_seed(int(seed))
     ids_p = np.zeros((b, bucket), np.int64)
     ids_p[:, :s_true] = ids
+    key_str = (f"b{b}/s{bucket}/g{g}/sample{int(samp[0])}/p"
+               + hashlib.sha1(repr(params_fp).encode()).hexdigest()[:8])
+    count = first and needs_count("generate", key_str)
     t0 = time.perf_counter()
-    prog.prefill(torch.from_numpy(ids_p).to(device), s_true)
+    ids_t = torch.from_numpy(ids_p).to(device)
+    pre = None
+    if count:
+        # the cost ledger counts the key's eager runs: the prefill and
+        # one decode step (the capture's dry run on a card, the first
+        # step elsewhere), a program of one prefill and g - 1 steps
+        pre, _ = extract_cost(lambda: prog.prefill(ids_t, s_true), device,
+                              args=(ids_t,))
+    else:
+        prog.prefill(ids_t, s_true)
     if g > 1 and prog.graph is None and device.type == "cuda":
-        prog.capture()
-    prog.decode(g - 1)
+        prog.capture(count)
+    if count and g > 1 and prog.graph is None:
+        prog.step_cost, _ = extract_cost(prog.step, device)
+        prog.decode(g - 2)
+    else:
+        prog.decode(g - 1)
     toks = prog.toks.cpu().numpy()[:, :mnt]
+    wall = time.perf_counter() - t0
     if first:
-        key_str = (f"b{b}/s{bucket}/g{g}/sample{int(samp[0])}/p"
-                   + hashlib.sha1(repr(params_fp).encode()).hexdigest()[:8])
+        compile_wall = prog.capture_s if device.type == "cuda" else wall
+        prog.entry = record_program(
+            "generate", f"generate/{spec.arch}", key_str,
+            cost=_program_cost(pre, prog.step_cost, g - 1, prog.toks),
+            wall_s=compile_wall, bucket=bucket)
         record_compile("generate", f"generate/{spec.arch}", key_str,
-                       bucket=(bucket, g),
-                       wall_s=prog.capture_s if device.type == "cuda"
-                       else time.perf_counter() - t0)
+                       bucket=(bucket, g), wall_s=compile_wall,
+                       cost=prog.entry.cost_summary())
+        # the call's wall net of its capture, as the reference observes
+        # a generate's execution apart from its compile
+        wall -= prog.capture_s
+    else:
+        reregister(prog.entry)
+    prog.entry.observe(wall)
     return toks
+
+
+def _program_cost(prefill, step, steps, toks):
+    """The static program's counted cost: the prefill's plus `steps` decode
+    steps' (None when either was not counted)."""
+    if prefill is None or (steps and step is None):
+        return None
+    step = step or {}
+    return {"flops": prefill["flops"] + steps * step.get("flops", 0.0),
+            "bytes_accessed": prefill["bytes_accessed"]
+            + steps * step.get("bytes_accessed", 0.0),
+            "arg_bytes": prefill["arg_bytes"],
+            "out_bytes": toks.numel() * toks.element_size(),
+            "temp_bytes": max(prefill["temp_bytes"],
+                              step.get("temp_bytes", 0)),
+            "peak_hbm_bytes": max(prefill["peak_hbm_bytes"],
+                                  step.get("peak_hbm_bytes", 0))}
 
 
 def generate(model, input_ids, max_new_tokens=32, max_length=None,

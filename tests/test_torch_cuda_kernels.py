@@ -3564,3 +3564,175 @@ def test_chunk_end_is_dated_on_the_card_without_a_wait(card):
              if sp[0] == "prefill_chunk"]
     assert len(spans) == eng.stats()["prefill_chunks"] == 4 + 3
     assert all(t0 < t1 for _, t0, t1, _ in spans), spans
+
+
+# -------------------------------------- the training half of obs (costs)
+def _counted(fn):
+    """(cost dict, result) of `fn()` under the cost ledger's counter."""
+    from paddle_tpu_torch.obs.costs import extract_cost
+
+    return extract_cost(fn, torch.device("cuda"))
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def test_cost_count_takes_each_kernel_once_by_its_formula(card):
+    """Every kernel on the training and serving paths, under the cost
+    counter on the card: one launch each, its flops by its own formula
+    (the kernel table's bounds: 2·D a pair and head per product for
+    K1 / K2, 2·M·K·N for K8, 4·D a head and addressable token for K7)
+    and its bytes those of the tensors it reads and writes."""
+    from paddle_tpu_torch.ops.quantized import quant_matmul_raw as qmm
+
+    rs = np.random.RandomState(1)
+    b, h, s, d = 1, 4, 64, 64
+    q, k, v, do = (_randn(rs, b, h, s, d).to(card, torch.bfloat16)
+                   for _ in range(4))
+    pairs = s * (s + 1) // 2
+    cost, (o, lse) = _counted(lambda: flash_attention_fwd(q, k, v, True))
+    assert cost["kernels"] == {"flash_attention_fwd": 1}
+    assert cost["flops"] == 2 * 2 * b * h * d * pairs
+    delta = _bwd_delta(o, do)
+    cost, dq = _counted(lambda: _launch_bwd_dq(q, k, v, do, lse, delta,
+                                               True))
+    assert cost["kernels"] == {"flash_attention_bwd_dq": 1}
+    assert cost["flops"] == 3 * 2 * b * h * d * pairs
+    cost, _ = _counted(lambda: _launch_bwd_dkv(q, k, v, do, lse, delta,
+                                               True))
+    assert cost["kernels"] == {"flash_attention_bwd_dkv": 1}
+    assert cost["flops"] == 4 * 2 * b * h * d * pairs
+    x = _randn(rs, 96, 256).to(card, torch.bfloat16)
+    w = _randn(rs, 256).to(card, torch.bfloat16)
+    cost, (y, _, rstd) = _counted(
+        lambda: fused_norm.fused_rms_norm_fwd(x, None, w, 1e-6))
+    assert cost["kernels"] == {"fused_rms_norm_fwd": 1}
+    assert cost["flops"] == 4 * x.numel()
+    assert cost["bytes_accessed"] == _nbytes(x, w, y, rstd)
+    g, u = (_randn(rs, 96, 256).to(card, torch.bfloat16) for _ in range(2))
+    cost, o5 = _counted(lambda: fused_norm.swiglu_fwd(g, u))
+    assert cost["kernels"] == {"swiglu_fwd": 1}
+    assert cost["flops"] == 6 * g.numel()
+    assert cost["bytes_accessed"] == _nbytes(g, u, o5)
+    xq = _randn(rs, 8, 256).to(card, torch.bfloat16)
+    packed, scale = quantize_int4(_randn(rs, 256, 128).to(card))
+    cost, out = _counted(lambda: qmm(xq, packed, scale, 256))
+    assert cost["kernels"] == {"quant_matmul": 1}
+    assert cost["flops"] == 2 * 8 * 256 * 128
+    # K7: the cache the block tables can address, not the whole pool
+    seqs, hkv, bs, pages = 2, 4, 16, 3
+    kc, vc = (_randn(rs, 20, hkv, bs, d).to(card, torch.bfloat16)
+              for _ in range(2))
+    tables = torch.tensor([[1, 2, 3], [4, 5, 6]], dtype=torch.int32,
+                          device=card)
+    lens = torch.tensor([40, 7], dtype=torch.int32, device=card)
+    qd = _randn(rs, seqs, hkv, d).to(card, torch.bfloat16)
+    cost, od = _counted(lambda: paged_decode_attention(qd, kc, vc, tables,
+                                                       lens))
+    assert cost["kernels"] == {"paged_decode_attention": 1}
+    assert cost["flops"] == 4 * seqs * hkv * d * pages * bs
+    block = 2 * hkv * bs * d * 2
+    assert cost["bytes_accessed"] == seqs * pages * block + _nbytes(
+        qd, tables, lens, od)
+
+
+def test_cost_count_of_a_captured_step_is_its_discovery(card):
+    """A to_static step on the card: its ledger row carries the
+    discovery's count (K1 and K2 once each, the matmuls by torch's
+    formulas) and the peak the card's allocator saw; replays add
+    nothing to the row's cost."""
+    from paddle_tpu_torch import jit, obs
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import (LlamaForCausalLM,
+                                              llama_tiny_config)
+
+    torch.manual_seed(0)
+    m = LlamaForCausalLM(llama_tiny_config(num_hidden_layers=1),
+                         device=card, dtype=torch.bfloat16)
+    opt = AdamW(learning_rate=1e-3, parameters=m.parameters())
+
+    @jit.to_static
+    def card_step(x):
+        loss = m(x, labels=x)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    x = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, (2, 64))).to(card)
+    for _ in range(5):
+        card_step(x)
+    disc = next(iter(card_step._discovered.values()))
+    assert {k: disc.cost["kernels"].get(k) for k in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv")} == {"flash_attention_fwd": 1,
+                                        "flash_attention_bwd_dq": 1,
+                                        "flash_attention_bwd_dkv": 1}
+    row = [e for e in obs.ledger("to_static") if e.group == "card_step"][0]
+    assert row.analyzed and row.flops == disc.cost["flops"] > 0
+    assert row.peak_hbm_bytes > 0 and row.bytes_accessed > 0
+
+
+def test_bf16_train_state_round_trip_is_bit_exact(card, tmp_path):
+    from paddle_tpu_torch import amp, ckpt
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models import (LlamaForCausalLM,
+                                              llama_tiny_config)
+
+    def build(seed):
+        torch.manual_seed(seed)
+        m = LlamaForCausalLM(llama_tiny_config(), device=card)
+        opt = AdamW(learning_rate=1e-3, parameters=m.parameters())
+        return amp.decorate(m, opt, level="O2", dtype="bfloat16",
+                            master_weight=True)
+
+    m, opt = build(0)
+    x = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, (2, 33))).to(card)
+    for _ in range(2):
+        m(x, labels=x).backward()
+        opt.step()
+        opt.clear_grad()
+    ckpt.save_checkpoint(str(tmp_path), 2, ckpt.capture_train_state(
+        m, opt, step=2))
+    m2, opt2 = build(5)
+    r = ckpt.restore_checkpoint(str(tmp_path))
+    ckpt.restore_train_state(r.tree, m2, opt2)
+    for (k, a), (_, b) in zip(m.state_dict().items(),
+                              m2.state_dict().items()):
+        assert a._data.dtype == b._data.dtype == torch.bfloat16, k
+        assert torch.equal(a._data.view(torch.int16),
+                           b._data.view(torch.int16)), k
+    want = m(x, labels=x)
+    want.backward()
+    opt.step()
+    got = m2(x, labels=x)
+    got.backward()
+    opt2.step()
+    assert got.item() == want.item()
+
+
+def test_pinned_batches_reach_the_card_non_blocking(card):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.io import DataLoader, Dataset
+
+    class D(Dataset):
+        def __len__(self):
+            return 8
+
+        def __getitem__(self, i):
+            return np.full((4,), i, np.float32), np.int64(i)
+
+    for workers in (0, 2):
+        dl = DataLoader(D(), batch_size=4, num_workers=workers,
+                        pin_memory=True)
+        for x, y in dl:
+            assert x._data.is_pinned() and y._data.is_pinned()
+            t = pt.Model(pt.nn.Linear(4, 2))._to_device(x, card)
+            assert t._data.device.type == "cuda"
+            torch.cuda.synchronize()
+            np.testing.assert_array_equal(t.numpy(), x.numpy())
+        if workers:
+            assert dl.transport["ring"] == 2

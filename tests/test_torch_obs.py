@@ -9,11 +9,9 @@ exposition (equal text, escaping, float spellings), the JSONL event log
 with its rotation that never tears a line, span nesting and histograms,
 the VLOG gate, rate limiting and its suppression report, the watchdog's
 events, counters and audit findings (storm, thrash, eager by design,
-post-warmup). Besides: the public names are the reference's less
-costs, goodput and train_flight (with `metrics_enabled`, which only
-their caller hapi reads) and the checkpoint-save audit (with the
-checkpoint writer it audits); the obs flags have the reference's
-defaults; `capture_trace` writes a Chrome trace.
+post-warmup). Besides: the public names are the reference's; the obs
+flags have the reference's defaults; `capture_trace` writes a Chrome
+trace.
 """
 import _torch_threads  # noqa: F401,I001  (torch threads per worker)
 import json
@@ -315,18 +313,10 @@ def test_jaxpr_size_counts_an_fx_graph():
 
 # ------------------------------------------------------- public surface
 def test_public_names_are_the_reference_less_the_unported():
-    unported = {
-        # obs/costs.py
-        "ProgramCost", "record_program", "ledger", "clear_ledger",
-        "reset_exec_stats", "roofline_rows", "extract_cost", "peak_gbps",
-        "write_baseline", "audit_cost_regressions",
-        # obs/goodput.py and obs/train_flight.py, with the opt-in only
-        # their caller (hapi) reads
-        "GoodputLedger", "audit_train_steps", "peak_tflops",
-        "TrainFlightRecorder", "StepFlight", "validate_train_trace",
-        "metrics_enabled",
-        # the checkpoint-save audit, with the checkpoint writer it audits
-        "record_ckpt_save", "ckpt_save_events", "audit_ckpt_stalls"}
+    """Every public name of the reference's obs is the port's: the cost
+    ledger, the training flight recorder and goodput, `metrics_enabled`
+    and the checkpoint-save audit included (nothing is left unported)."""
+    unported = set()
     assert set(obs.__all__) == set(ref_obs.__all__) - unported
     for name in obs.__all__:
         assert hasattr(obs, name), name

@@ -295,14 +295,33 @@ def test_nonfinal_chunk_ends_after_a_device_sync(monkeypatch):
 
 
 def test_validate_trace_refuses_a_training_trace():
-    """The training flight recorder's dumps (the reference's
-    `train_flight` source) wait for item 7b: validate_trace refuses them
-    naming it, and a trace without traceEvents is a ValueError as the
-    reference's."""
-    doc = {"traceEvents": [{"ph": "M"}],
-           "otherData": {"source": "paddle_tpu.obs.train_flight"}}
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        obs.validate_trace(doc)
+    """A training flight recorder's dump (the `train_flight` source) is
+    routed to `validate_train_trace`, as the reference routes it: a
+    corrupted one is refused with the reference's reason, a trace without
+    traceEvents is a ValueError as the reference's, and a sound one
+    validates alike."""
+    from paddle_tpu.obs import train_flight as ref_tf
+
+    from paddle_tpu_torch.obs import train_flight
+
+    for src in ("paddle_tpu.obs.train_flight",
+                "paddle_tpu_torch.obs.train_flight"):
+        doc = {"traceEvents": [
+            {"ph": "X", "tid": 0, "name": "forward", "ts": 0, "dur": 1,
+             "args": {"step": 0, "t0_s": 0.0, "t1_s": 1.0}}],
+            "otherData": {"source": src}}
+        msgs = []
+        for o in (ref_obs, obs):
+            with pytest.raises(ValueError) as ei:
+                o.validate_trace(doc)
+            msgs.append(str(ei.value))
+        assert msgs[0] == msgs[1] and "without a step window" in msgs[0]
     for o in (ref_obs, obs):
         with pytest.raises(ValueError, match="traceEvents"):
             o.validate_trace({"traceEvents": []})
+    rec = train_flight.TrainFlightRecorder(registry=obs.Registry())
+    rec.step_begin(0, 0, 1.0, 1.25)
+    rec.step_end(2.0, 0.75)
+    doc = rec.to_chrome()
+    assert obs.validate_trace(doc) == ref_tf.validate_train_trace(doc) == {
+        "events": 6, "steps": 1, "tiled_steps": 1, "io_spans": 0}

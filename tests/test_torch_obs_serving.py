@@ -191,7 +191,12 @@ def test_compile_events_equal_reference(arch):
 
     assert rows(ev_b) == rows(ev_a) and rows(ev_b)
     assert len(rows(ev_b)) == len(b._programs)
-    assert all(e.cost is None and e.wall_s > 0 for e in ev_b)
+    # each event carries its program's counted cost (obs/costs.py), as
+    # the reference's carries XLA's analysis
+    assert all(e.cost is not None and e.cost["bytes_accessed"] > 0
+               and e.cost["flops"] > 0 and e.wall_s > 0 for e in ev_b)
+    assert all(e.cost is not None for e in ev_a
+               if e.site.startswith("serving"))
 
 
 def test_stats_is_the_view_and_ttft_decomposes():
